@@ -11,22 +11,36 @@ non-zero) on failure:
 2. build: compiles every CUDA kernel of the port with nvcc, all at once,
    into build/torch_kernels/;
 3. kernels: holds each kernel against its plain PyTorch version at the
-   serving path's shapes and times kernel, plain version, the PyTorch
-   library call for the same function (a yardstick only) and the least
-   time the card could take (bound);
+   serving and training paths' shapes and times kernel, plain version,
+   the PyTorch library call for the same function (a yardstick only) and
+   the least time the card could take (bound): the flash forward, and
+   the three flash backward kernels (merged; two-pass dq and dk/dv);
 4. serving: builds the flagship transformer at full width (6 layers,
    d_model 1024, 8 heads, d_ff 4096, vocab 8192, seq 2048) with random
    weights from the seed, saves it as an inference model, loads it into
    a fresh scope and answers requests of batch 1, 2 and 4 through
-   Executor.run, counting kernel launches; one request is compared with
-   the same program run on the plain attention, and two deliberately
-   wrong attentions must fail that comparison;
-5. summary: a JSON line of the kernels, the card line, and last the
+   Executor.run, counting kernel launches (forward only, no backward);
+   one request is compared with the same program run on the plain
+   attention, and two deliberately wrong attentions must fail that
+   comparison;
+5. training: the same flagship at full width and depth, Adam(1e-4)
+   .minimize(loss), batch 16: warm-up steps, then timed steps through
+   Executor.run on one fixed batch (ms per step, tokens/s), checking
+   that the loss is finite and falls and that each step launches one
+   forward and one merged backward kernel per layer; a torch.profiler
+   trace of one step; one step on the two-pass backward route, whose
+   gradients must match the merged route's;
+6. gradients: at batch 2, every parameter gradient of one step on the
+   kernels against the same step on the plain attention (autograd
+   backward), by relative L2 error; two deliberately wrong backwards
+   must fail that comparison;
+7. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,6 +58,8 @@ PEAK_BYTES = 3.35e12
 FLAGSHIP = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=6, d_ff=4096,
                 seq=2048)
 REQUEST_BATCHES = [1, 2, 4, 1, 2, 4]
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 16, 2, 10   # bench.py:322, 337
+GRAD_BATCH = 2
 
 # kernel vs plain version (plain run in f32 from the same inputs)
 TOL = {'bfloat16': {'out': 2e-2, 'lse': 1e-3},
@@ -54,6 +70,23 @@ TOL = {'bfloat16': {'out': 2e-2, 'lse': 1e-3},
 # such steps. Two wrong attentions run as controls and must fail it.
 LOGITS_TOL = 4 * 2 ** -6  # max |logits difference|
 TOP1_AGREEMENT = 0.95     # share of positions with the same argmax
+# backward kernels vs the plain backward on the same inputs: max |err| <=
+# tol * max(max |plain|, floor) per gradient and dtype. bf16 rounds p and
+# ds before the products and writes bf16 gradients (2**-8 relative per
+# rounding, over sums in another order); f32 only reorders f32 sums and
+# the merged kernel's atomics. The floor covers gradients near 0, where
+# the cancellation in dp - delta is what is left.
+BWD_TOL = {'bfloat16': (2e-2, 1e-3), 'float32': (1e-4, 0.1)}
+# whole-model gradients, per parameter, relative L2 error: merged vs
+# two-pass route, and kernels vs the plain attention's autograd backward.
+# Set from the sound readings on the H100 (PERF.md, Findings): merged vs
+# two-pass read 5e-3 (atomics reorder dq's sums), the limit is 4x that;
+# kernels vs the plain attention read 0.073, as far as the plain bf16
+# attention itself is from an f32 one (bf16 rounding through six layers
+# under AMP), and the limit is 2x that. The two wrong backwards read 1
+# and more.
+ROUTE_GRAD_TOL = 2e-2
+PLAIN_GRAD_TOL = 0.15
 
 
 def check(cond, msg):
@@ -160,6 +193,115 @@ def phase_kernels(seed):
     return results
 
 
+def bwd_bound(B, H, T, D, dtype, causal, products, grads):
+    """Least time for a backward kernel doing ``products`` T x T x D
+    products (5 merged, 3 dq, 4 dk/dv; halved by the causal mask) and
+    writing ``grads`` gradients: q, k, v, do, lse and delta read once."""
+    elem = 2 if dtype == 'bfloat16' else 4
+    flops = (1 if causal else 2) * products * B * H * T * T * D
+    nbytes = (4 + grads) * B * H * T * D * elem + 2 * 4 * B * H * T
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def phase_bwd_kernels(seed):
+    """The three flash backward kernels vs the plain backward at the
+    training shape (B 16, H 8, T 2048, D 128, bf16, causal), at B 4 with
+    both causal settings, at D 64, at a ragged T 2000, and in f32. Each
+    case times the merged kernel, the two-pass kernels, the plain
+    backward and SDPA's backward (autograd.grad of
+    F.scaled_dot_product_attention), a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    cases = [(16, 8, 2048, 128, 'bfloat16', True),
+             (4, 8, 2048, 128, 'bfloat16', True),
+             (4, 8, 2048, 128, 'bfloat16', False),
+             (4, 16, 2048, 64, 'bfloat16', True),
+             (2, 8, 2000, 128, 'bfloat16', True),
+             (4, 8, 2048, 128, 'float32', True)]
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 1)
+    results = {}
+    for B, H, T, D, dt, causal in cases:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn(B, T, H, D, device='cuda', generator=gen)
+                       .to(dtype) for _ in range(4))
+        with torch.no_grad():
+            out, lse = ck.flash_attention_with_lse(q, k, v, causal)
+        delta = ck.flash_bwd_delta(out, do)
+        args = (q, k, v, do, lse, delta, causal)
+        merged = ck.flash_bwd_dkvdq(*args)
+        two_pass = (ck.flash_bwd_dq(*args),) + ck.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        ref = ck.flash_bwd_reference(*args)
+        tol, floor = BWD_TOL[dt]
+        errs, rel_l2, ok = {}, {}, True
+        for route, got in (('merged', merged), ('two_pass', two_pass)):
+            for name, g, r in zip(('dq', 'dk', 'dv'), got, ref):
+                err = (g.float() - r.float()).abs().max().item()
+                limit = tol * max(r.float().abs().max().item(), floor)
+                errs[route, name] = err
+                rel_l2[route, name] = ((g.float() - r.float()).norm() /
+                                       r.float().norm()).item()
+                ok = ok and err <= limit
+        del ref, merged, two_pass
+        merged_ms = cuda_ms(lambda: ck.flash_bwd_dkvdq(*args), iters=10)
+        dq_ms = cuda_ms(lambda: ck.flash_bwd_dq(*args), iters=10)
+        dkv_ms = cuda_ms(lambda: ck.flash_bwd_dkv(*args), iters=10)
+        plain_ms = cuda_ms(lambda: ck.flash_bwd_reference(*args), iters=2,
+                           warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt,
+                                                is_causal=causal)
+        do_t = do.transpose(1, 2).contiguous()
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            o_sdpa, (qt, kt, vt), do_t, retain_graph=True), iters=10)
+        del qt, kt, vt, o_sdpa, do_t
+        bounds = {'merged': bwd_bound(B, H, T, D, dt, causal, 5, 3),
+                  'dq': bwd_bound(B, H, T, D, dt, causal, 3, 1),
+                  'dkv': bwd_bound(B, H, T, D, dt, causal, 4, 2)}
+        print('kernel flash_attn_bwd B=%d H=%d T=%d D=%d %s causal=%s: '
+              'max|err| merged dq %.3g dk %.3g dv %.3g, two-pass dq %.3g '
+              'dk %.3g dv %.3g (tol %g x max(max|plain|, %g)); merged_ms '
+              '%.4f (bound %.4f %s) dq_ms %.4f (bound %.4f) dkv_ms %.4f '
+              '(bound %.4f) plain_ms %.4f library_ms %.4f' % (
+                  B, H, T, D, dt, causal, errs['merged', 'dq'],
+                  errs['merged', 'dk'], errs['merged', 'dv'],
+                  errs['two_pass', 'dq'], errs['two_pass', 'dk'],
+                  errs['two_pass', 'dv'], tol, floor, merged_ms,
+                  bounds['merged'][0], bounds['merged'][1], dq_ms,
+                  bounds['dq'][0], dkv_ms, bounds['dkv'][0], plain_ms,
+                  library_ms), flush=True)
+        print('kernel flash_attn_bwd   relative L2 vs plain: %s' % ', '.join(
+            '%s %s %.3g' % (r, n, e) for (r, n), e in sorted(
+                rel_l2.items())), flush=True)
+        check(ok, 'flash backward kernels disagree with the plain backward '
+              'at B=%d H=%d T=%d D=%d %s causal=%s' % (B, H, T, D, dt,
+                                                      causal))
+        common = dict(plain_ms=plain_ms, library_ms=library_ms)
+        results[(B, H, T, D, dt, causal)] = {
+            'flash_attn_bwd_dkvdq': dict(
+                max_abs_err=max(errs['merged', n] for n in ('dq', 'dk',
+                                                            'dv')),
+                ms=merged_ms, bound_ms=bounds['merged'][0],
+                bound_by=bounds['merged'][1], **common),
+            'flash_attn_bwd_dq': dict(
+                max_abs_err=errs['two_pass', 'dq'], ms=dq_ms,
+                bound_ms=bounds['dq'][0], bound_by=bounds['dq'][1],
+                **common),
+            'flash_attn_bwd_dkv': dict(
+                max_abs_err=max(errs['two_pass', 'dk'],
+                                errs['two_pass', 'dv']),
+                ms=dkv_ms, bound_ms=bounds['dkv'][0],
+                bound_by=bounds['dkv'][1], **common)}
+        del q, k, v, do, out, lse, delta, args
+        torch.cuda.empty_cache()
+    return results
+
+
 def _feed(bs, seed):
     rng = np.random.RandomState(seed)
     return {'data': rng.randint(0, FLAGSHIP['vocab'],
@@ -168,34 +310,52 @@ def _feed(bs, seed):
                            (bs, 1))}
 
 
-def profile_request(exe, prog, fetch_vars, scope, feed, top=8):
-    """torch.profiler over the run part of one request: the device's
-    busy share of the host wall, and the kernels taking most device
-    time."""
+def profile_run(run, label, top=8):
+    """torch.profiler over one call of ``run``: the device's busy share
+    of the host wall, and the kernels taking most device time."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(prog, feed=feed, fetch_list=fetch_vars, scope=scope,
-                return_numpy=False)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time for e in events)
-    print('profile: batch-4 run %.2f ms host wall, %.2f ms device busy '
+    print('profile: %s %.2f ms host wall, %.2f ms device busy '
           '(%.1f%%, %d device events)' % (
-              wall_us / 1e3, busy_us / 1e3, 100 * busy_us / wall_us,
+              label, wall_us / 1e3, busy_us / 1e3, 100 * busy_us / wall_us,
               len(events)), flush=True)
-    by_name = {}
+    by_name, by_kind = {}, {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+        kind = _kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time
+    print('profile:   by kind: %s' % ', '.join(
+        '%s %.3f ms (%.1f%%)' % (k, us / 1e3, 100 * us / max(busy_us, 1e-9))
+        for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print('profile:   %8.3f ms %5.1f%%  %s' % (
             us / 1e3, 100 * us / max(busy_us, 1e-9), name[:100]),
             flush=True)
+
+
+def _kernel_kind(name):
+    """A device kernel's kind, for the profile's split of device time."""
+    flash = re.search(r'flash_\w+', name)
+    if flash:
+        return flash.group(0)
+    for kind, keys in (('gemm', ('nvjet', 'gemm', 'xmma', 'cutlass')),
+                       ('copy/cast', ('copy',)),
+                       ('reduction', ('reduce', 'softmax', 'norm')),
+                       ('elementwise', ('elementwise',))):
+        if any(k in name.lower() for k in keys):
+            return kind
+    return 'other'
 
 
 def phase_serving(seed):
@@ -269,14 +429,20 @@ def phase_serving(seed):
               'request %d launched flash_attn_fwd %d times, expected %d'
               % (i, n, FLAGSHIP['n_layers']))
     launches = dict(ck.LAUNCHES)
+    check(launches['flash_attn_fwd'] > 0,
+          'flash_attn_fwd was never launched on the serving path')
     for name, count in launches.items():
-        check(count > 0, 'kernel %s was never launched on the serving path'
-              % name)
+        check(name == 'flash_attn_fwd' or count == 0,
+              'serving launched the backward kernel %s %d times'
+              % (name, count))
     print('serving: %d requests, %.2f ms per request, %.1f tokens/s '
           '(host clock, logits fetched to host)' % (
               len(times), 1e3 * sum(times) / len(times),
               tokens / sum(times)), flush=True)
-    profile_request(exe, prog, fetch_vars, scope, _feed(4, seed + 50))
+    feed4 = _feed(4, seed + 50)
+    profile_run(lambda: exe.run(prog, feed=feed4, fetch_list=fetch_vars,
+                                scope=scope, return_numpy=False),
+                'batch-4 run')
 
     feed_seed = seed + 1
     kernel_logits = serve(2, feed_seed)
@@ -312,6 +478,228 @@ def phase_serving(seed):
     return launches
 
 
+def _train_feed(bs, seed):
+    """One fixed batch of tokens, labels and positions, on the card."""
+    import torch
+    rng = np.random.RandomState(seed)
+    V, S = FLAGSHIP['vocab'], FLAGSHIP['seq']
+    arrays = {'data': rng.randint(0, V, (bs, S)),
+              'label': rng.randint(0, V, (bs, S, 1)),
+              'pos': np.tile(np.arange(S), (bs, 1))}
+    return {n: torch.tensor(a.astype('int64'), device='cuda')
+            for n, a in arrays.items()}
+
+
+def _snapshot(scope):
+    import torch
+    return {n: v.clone() for n, v in scope.vars.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def _restore(scope, snap):
+    for n, v in snap.items():
+        scope.set_var(n, v.clone())
+
+
+def _rel_l2(got, ref):
+    """Relative L2 error per name: ||got - ref|| / ||ref||."""
+    return {n: ((got[n].float() - ref[n].float()).norm() /
+                ref[n].float().norm().clamp_min(1e-30)).item()
+            for n in ref}
+
+
+def phase_training(seed, card):
+    """Train the flagship at full width and depth through
+    Adam.minimize and Executor.run on one fixed batch of 16."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.fluid_transformer import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = transformer(None, **FLAGSHIP)[0]
+        pt.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    exe = pt.Executor()                       # CUDAPlace(0)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    grad_names = sorted(v.name for v in main.list_vars()
+                        if v.name.endswith('@GRAD'))
+    n_layers = FLAGSHIP['n_layers']
+    feed = _train_feed(TRAIN_BATCH, seed + 7)
+    torch.cuda.synchronize()
+    print('training: flagship %s, batch %d, Adam(1e-4), %d parameters, %d '
+          'ops, built and initialised in %.1f s' % (
+              FLAGSHIP, TRAIN_BATCH, len(grad_names),
+              len(main.global_block().ops), time.perf_counter() - t0),
+          flush=True)
+
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP):
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        outs.append(out)
+    torch.cuda.synchronize()
+    outs[-1] = outs[-1].item()                # the last loss to the host
+    dt = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    losses += [float(o) for o in outs]
+    tokens = TRAIN_STEPS * TRAIN_BATCH * FLAGSHIP['seq']
+    print('training: %d steps, %.2f ms per step, %.1f tokens/s (host clock, '
+          'loss kept on the card, last loss copied to the host), peak '
+          'memory %.2f GiB; %s' % (
+              TRAIN_STEPS, 1e3 * dt / TRAIN_STEPS, tokens / dt,
+              torch.cuda.max_memory_allocated() / 2 ** 30, card),
+          flush=True)
+    print('training: losses %s' % ', '.join('%.4f' % l for l in losses),
+          flush=True)
+    print('training: launches over the timed steps %s' % launches,
+          flush=True)
+    check(all(np.isfinite(losses)), 'non-finite training loss')
+    check(losses[-1] < losses[0], 'the loss did not fall: %g -> %g'
+          % (losses[0], losses[-1]))
+    expect = {'flash_attn_fwd': n_layers * TRAIN_STEPS,
+              'flash_attn_bwd_dkvdq': n_layers * TRAIN_STEPS,
+              'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0}
+    check(launches == expect, 'training launches %s, expected %s'
+          % (launches, expect))
+    profile_run(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope, return_numpy=False),
+                'training step')
+
+    # one step on each backward route from the same state
+    snap = _snapshot(scope)
+    fetch = [loss] + grad_names
+
+    def step_grads():
+        _restore(scope, snap)
+        ck.reset_launch_counts()
+        vals = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        return dict(zip(grad_names, vals[1:])), dict(ck.LAUNCHES)
+
+    merged, _ = step_grads()
+    ck._MERGED_BWD[0] = False
+    try:
+        two_pass, route_launches = step_grads()
+    finally:
+        ck._MERGED_BWD[0] = True
+    errs = _rel_l2(two_pass, merged)
+    worst = max(errs, key=errs.get)
+    print('training: two-pass route, one step: launches %s; gradients vs '
+          'the merged route, max relative L2 %.3g (%s), median %.3g (tol '
+          '%g)' % (route_launches, errs[worst], worst,
+                   float(np.median(list(errs.values()))), ROUTE_GRAD_TOL),
+          flush=True)
+    expect = {'flash_attn_fwd': n_layers, 'flash_attn_bwd_dkvdq': 0,
+              'flash_attn_bwd_dq': n_layers, 'flash_attn_bwd_dkv': n_layers}
+    check(route_launches == expect, 'two-pass step launches %s, expected '
+          '%s' % (route_launches, expect))
+    check(errs[worst] <= ROUTE_GRAD_TOL, 'two-pass gradients differ from '
+          'the merged route by %g (%s)' % (errs[worst], worst))
+    _restore(scope, snap)
+    del snap, merged, two_pass
+    return dict(exe=exe, main=main, loss=loss, scope=scope,
+                grad_names=grad_names, launches=launches,
+                route_launches=route_launches)
+
+
+def _wrong_backward(mode):
+    """Attention with the kernels' forward and a deliberately wrong
+    backward (a control for the whole-model gradient check)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    class WrongBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            out, lse = ck.flash_attention_with_lse(q, k, v, causal)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal = causal
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = ck.flash_attention_bwd(q, k, v, out, lse,
+                                                g.contiguous(), ctx.causal)
+            if mode == 'dq dropped':
+                dq = torch.zeros_like(dq)
+            else:                              # dk/dv of the next head
+                dk, dv = dk.roll(1, 2), dv.roll(1, 2)
+            return dq, dk, dv, None
+
+    return lambda q, k, v, causal: WrongBackward.apply(q, k, v, causal)
+
+
+def phase_gradients(seed, trained):
+    """Every parameter gradient of one batch-2 step on the kernels vs the
+    same step on the plain attention (autograd backward)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck, misc_ops
+    exe, main, scope = trained['exe'], trained['main'], trained['scope']
+    grad_names = trained['grad_names']
+    feed = _train_feed(GRAD_BATCH, seed + 9)
+    snap = _snapshot(scope)
+
+    def step_grads():
+        _restore(scope, snap)
+        vals = exe.run(main, feed=feed, fetch_list=grad_names, scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        return dict(zip(grad_names, vals))
+
+    ck.reset_launch_counts()
+    kernel = step_grads()
+    n = FLAGSHIP['n_layers']
+    check(ck.LAUNCHES['flash_attn_bwd_dkvdq'] == n,
+          'gradient step launches %s' % ck.LAUNCHES)
+    with misc_ops.attention_for_testing():
+        plain = step_grads()
+    errs = _rel_l2(kernel, plain)
+    worst = max(errs, key=errs.get)
+    print('gradients: batch %d, kernels vs plain attention (autograd '
+          'backward), relative L2 per parameter: max %.3g (%s), median '
+          '%.3g (tol %g)' % (GRAD_BATCH, errs[worst], worst,
+                             float(np.median(list(errs.values()))),
+                             PLAIN_GRAD_TOL), flush=True)
+    check(errs[worst] <= PLAIN_GRAD_TOL, 'kernel gradients differ from the '
+          'plain attention\'s by %g (%s)' % (errs[worst], worst))
+    # where the plain attention itself stands: the same step on the plain
+    # attention run in f32 (q, k, v widened, the output rounded back)
+    with misc_ops.attention_for_testing(
+            lambda q, k, v, causal: misc_ops.plain_attention(
+                q.float(), k.float(), v.float(), causal).to(q.dtype)):
+        wide = step_grads()
+    for name, got in (('kernels', kernel), ('plain attention', plain)):
+        w_errs = _rel_l2(got, wide)
+        w_worst = max(w_errs, key=w_errs.get)
+        print('gradients: %s vs the f32 plain attention: max relative L2 '
+              '%.3g (%s), median %.3g' % (
+                  name, w_errs[w_worst], w_worst,
+                  float(np.median(list(w_errs.values())))), flush=True)
+    for mode in ('dq dropped', 'dk/dv of the next head'):
+        with misc_ops.attention_for_testing(_wrong_backward(mode)):
+            c_errs = _rel_l2(step_grads(), plain)
+        c_worst = max(c_errs, key=c_errs.get)
+        print('gradients: control, %s, vs plain attention: max relative L2 '
+              '%.3g (%s)' % (mode, c_errs[c_worst], c_worst), flush=True)
+        check(c_errs[c_worst] > PLAIN_GRAD_TOL, 'the gradient limit does '
+              'not catch a control: %s' % mode)
+    _restore(scope, snap)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -324,13 +712,32 @@ def main():
     card = phase_device()
     phase_build()
     kres = phase_kernels(args.seed)
+    bres = phase_bwd_kernels(args.seed)
     launches = phase_serving(args.seed)
+    trained = phase_training(args.seed, card)
+    phase_gradients(args.seed, trained)
+    # launches: each kernel's count over the path that drives it, read
+    # right after that path ran from counts set to 0 (the forward: the
+    # served requests plus the timed training steps)
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
+    train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
+                        FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
+                        'bfloat16', True)]
+    bwd_src = 'paddle_tpu_torch/csrc/flash_attn_bwd.cu'
     kernels = [dict(
         name='flash_attn_fwd', route='cuda',
         source='paddle_tpu_torch/csrc/flash_attn_fwd.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:85',
-        launches=launches['flash_attn_fwd'], **main_shape)]
+        launches=launches['flash_attn_fwd'] +
+        trained['launches']['flash_attn_fwd'], **main_shape)]
+    for name, line, count in (
+            ('flash_attn_bwd_dkvdq', 310, trained['launches']),
+            ('flash_attn_bwd_dq', 245, trained['route_launches']),
+            ('flash_attn_bwd_dkv', 273, trained['route_launches'])):
+        kernels.append(dict(
+            name=name, route='cuda', source=bwd_src,
+            replaces='paddle_tpu/ops/pallas_kernels.py:%d' % line,
+            launches=count[name], **train_shape[name]))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -7,9 +7,12 @@ under the same names, trimmed to what the port covers, and the runtime
 (lowering, Executor, ops, kernels) is rewritten on torch tensors.
 
 Covered so far: serving a model from a saved inference model —
-``io.load_inference_model`` then ``Executor.run`` — for the flagship
-transformer's op set, with attention on a hand-written CUDA kernel
-(``ops/cuda_kernels.py``, ``csrc/flash_attn_fwd.cu``).
+``io.load_inference_model`` then ``Executor.run`` — and training one —
+``optimizer.Adam(...).minimize(loss)`` (or SGD, Momentum) then one
+``Executor.run`` per step — for the flagship transformer's op set, with
+attention and its gradient on hand-written CUDA kernels
+(``ops/cuda_kernels.py``, ``csrc/flash_attn_fwd.cu``,
+``csrc/flash_attn_bwd.cu``).
 
 Entry points run on the card unless told otherwise: ``Executor()`` means
 ``CUDAPlace(0)`` and raises where CUDA is absent; pass ``CPUPlace()`` to
@@ -17,6 +20,7 @@ run on the CPU.
 """
 from . import framework, unique_name, initializer, param_attr  # noqa
 from . import layers, ops, io, executor  # noqa
+from . import backward, clip, optimizer, regularizer  # noqa
 from .framework import (Program, Block, Variable, Operator, Parameter,  # noqa
                         default_startup_program, default_main_program,
                         program_guard, switch_startup_program,
@@ -25,3 +29,4 @@ from .core.places import CPUPlace, CUDAPlace  # noqa
 from .executor import (Executor, Scope, global_scope, scope_guard,  # noqa
                        switch_scope)
 from .param_attr import ParamAttr  # noqa
+from .backward import append_backward  # noqa

@@ -2,11 +2,18 @@
 
 Counterpart of paddle_tpu/core/lowering.py (``OpCtx``,
 ``BlockRunner.run_ops``, ``runtime_dtype``, ``_merge_shared_muls`` and
-the forward branch of ``lower_block``). The JAX package traces the whole
-block into one jitted XLA computation; PyTorch runs eagerly, so here the
-"lowered" function simply executes each op's kernel in program order on
-the Executor's device. Programs with a ``backward_marker`` (training)
-belong to a later slice and raise.
+``lower_block`` with its training branch). The JAX package traces the
+whole block into one jitted XLA computation; PyTorch runs eagerly, so
+here the "lowered" function simply executes each op's kernel in program
+order on the Executor's device.
+
+A training program holds one ``backward_marker``: the ops before it run
+under ``torch.autograd`` with each parameter as a fresh leaf, the summed
+loss is differentiated with ``torch.autograd.grad`` (the counterpart of
+``jax.value_and_grad``), the gradients are bound to ``<param>@GRAD``, and
+the ops after it (clips, regularizers, optimizer updates) run without
+autograd. A program without a marker runs entirely under
+``torch.no_grad()``.
 """
 import torch
 
@@ -88,13 +95,32 @@ class OpCtx(object):
         return self.env[RNG_KEY]
 
 
+class _ClipCotangent(torch.autograd.Function):
+    """Identity whose cotangent is clipped to [lo, hi]: the counterpart
+    of the JAX package's ``_clip_cotangent``, i.e. the reference's error
+    clip on ``<var>@GRAD`` (``clip.ErrorClipByValue``)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.lo, ctx.hi = lo, hi
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(g, ctx.lo, ctx.hi), None, None
+
+
 class BlockRunner(object):
     """Executes a Block's op list into an environment of torch tensors
-    on ``device``."""
+    on ``device``. With ``grad_mode`` (the ops before a backward marker)
+    it applies the variables' gradient attributes as each output is
+    produced: ``stop_gradient`` detaches it, and an ``error_clip`` clips
+    the cotangent that flows back through it."""
 
-    def __init__(self, block, device):
+    def __init__(self, block, device, grad_mode=False):
         self.block = block
         self.device = device
+        self.grad_mode = grad_mode
 
     def run_ops(self, ops, env):
         for op in ops:
@@ -105,7 +131,23 @@ class BlockRunner(object):
                 raise type(e)(
                     "while running op %r (%s -> %s): %s" %
                     (op.type, op.inputs, op.outputs, e)) from e
+            if self.grad_mode:
+                self._apply_grad_attrs(op, env)
         return env
+
+    def _apply_grad_attrs(self, op, env):
+        for name in op.output_arg_names:
+            var = self.block._find_var_recursive(name)
+            val = env.get(name)
+            if var is None or not isinstance(val, torch.Tensor) or \
+                    not val.is_floating_point():
+                continue
+            if var.stop_gradient:
+                env[name] = val = val.detach()
+            eclip = getattr(var, 'error_clip', None)
+            if eclip is not None and val.requires_grad:
+                env[name] = _ClipCotangent.apply(val, float(eclip.min),
+                                                 float(eclip.max))
 
 
 # Graph rewrite: merge same-input mul (fc) ops into one wide matmul.
@@ -197,28 +239,76 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
     """Build ``fn(feeds, state) -> (fetches, new_state)``.
 
     ``feeds``/``state`` are dicts name -> tensor on ``device``; ``state``
-    holds the scope's ``torch.Generator`` under ``RNG_KEY``.
+    holds the scope's ``torch.Generator`` under ``RNG_KEY``. Fetches and
+    new state come back detached: no autograd graph outlives a run.
     """
     ops = list(block.ops)
-    if any(op.type == 'backward_marker' for op in ops):
+    markers = [i for i, op in enumerate(ops)
+               if op.type == 'backward_marker'][:1]
+    if markers and (ops[markers[0]].attrs.get('sparse') or {}):
         raise NotImplementedError(
-            "paddle_tpu_torch runs forward programs only; training "
-            "(backward_marker) is not ported yet")
+            "sparse embedding gradients (embedding(is_sparse=True) on %s) "
+            "are not ported yet (ROADMAP Queue A, sparse rows); build the "
+            "table with is_sparse=False" %
+            sorted(ops[markers[0]].attrs['sparse']))
     if MERGE_SHARED_MULS[0]:
-        ops = _merge_shared_muls(block, ops)
-    runner = BlockRunner(block, device)
+        if markers:
+            pre = _merge_shared_muls(block, ops[:markers[0]])
+            ops = pre + ops[markers[0]:]
+            markers = [len(pre)]
+        else:
+            ops = _merge_shared_muls(block, ops)
 
     def fn(feeds, state):
         env = dict(state)
         env.update(feeds)
-        runner.run_ops(ops, env)
-        fetches = [env[n] for n in fetch_names]
+        if markers:
+            _run_training(block, device, ops, markers[0], env)
+        else:
+            with torch.no_grad():
+                BlockRunner(block, device).run_ops(ops, env)
+        fetches = [_detach(env[n]) for n in fetch_names]
         new_state = {}
         for n in state_out_names:
             if n in env:
-                new_state[n] = env[n]
+                new_state[n] = _detach(env[n])
             elif n in state:
                 new_state[n] = state[n]
         return fetches, new_state
 
     return fn
+
+
+def _detach(val):
+    return val.detach() if isinstance(val, torch.Tensor) else val
+
+
+def _run_training(block, device, ops, marker_idx, env):
+    """Forward under autograd, gradients of the summed loss into
+    ``<param>@GRAD``, then the update ops without autograd. Counterpart
+    of the marker branch of the JAX ``lower_block`` (lowering.py:674-766;
+    its remat and sparse-row paths are not ported)."""
+    marker = ops[marker_idx]
+    param_names = list(marker.attrs['params'])
+    grad_names = list(marker.attrs['grads'])
+    loss_name = marker.inputs['Loss'][0]
+    # each parameter is a fresh leaf over the Scope's storage; the
+    # Scope's own tensor never has requires_grad flipped
+    leaves = [env[p].detach().requires_grad_() for p in param_names]
+    with torch.enable_grad():
+        env.update(zip(param_names, leaves))
+        BlockRunner(block, device, grad_mode=True).run_ops(
+            ops[:marker_idx], env)
+        loss = env[loss_name].sum()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    scale = marker.attrs.get('loss_scale', None)
+    for p, leaf, gname, g in zip(param_names, leaves, grad_names, grads):
+        env[p] = leaf.detach()
+        # a parameter the loss does not reach gets zeros, as under
+        # jax.value_and_grad
+        g = torch.zeros_like(leaf) if g is None else g
+        if scale is not None and scale != 1.0:
+            g = g * scale
+        env[gname] = g
+    with torch.no_grad():
+        BlockRunner(block, device).run_ops(ops[marker_idx + 1:], env)

@@ -86,7 +86,10 @@ def as_numpy(value):
 
 
 class Executor(object):
-    """Runs Programs on one device.
+    """Runs Programs on one device: forward programs without autograd,
+    training programs (with a backward marker) through the lowering's
+    training branch, which updates parameters and accumulators in the
+    Scope on the device.
 
     ``place`` defaults to ``CUDAPlace(0)``; on a host without CUDA that
     raises here, at construction. Pass ``CPUPlace()`` to run on the CPU.
@@ -178,8 +181,7 @@ class Executor(object):
                                      scope)
         state = {n: scope.raw(n) for n in state_in}
         state[RNG_KEY] = scope.raw(RNG_KEY)
-        with torch.no_grad():
-            fetches, new_state = fn(feed, state)
+        fetches, new_state = fn(feed, state)
         for n, v in new_state.items():
             scope.set_var(n, v)
         if return_numpy:

@@ -1,7 +1,7 @@
 """Program / Block / Variable / Operator IR.
 
 Counterpart of paddle_tpu/framework.py, copied and trimmed to what the
-serving slice uses (no sharding annotations, no error clips, no
+serving and training slices use (no sharding annotations, no
 fingerprinting: the port's Executor runs a block eagerly, op by op, and
 has no compiled-program cache to key).
 
@@ -22,14 +22,20 @@ __all__ = [
     'Program', 'Block', 'Variable', 'Operator', 'Parameter',
     'default_startup_program', 'default_main_program', 'program_guard',
     'switch_startup_program', 'switch_main_program', 'get_var',
-    'convert_np_dtype',
+    'convert_np_dtype', 'grad_var_name',
 ]
+
+GRAD_VAR_SUFFIX = '@GRAD'
 
 _NP_DTYPE = {
     'float16': np.float16, 'float32': np.float32, 'float64': np.float64,
     'bfloat16': 'bfloat16', 'int8': np.int8, 'int16': np.int16,
     'int32': np.int32, 'int64': np.int64, 'uint8': np.uint8, 'bool': np.bool_,
 }
+
+
+def grad_var_name(name):
+    return name + GRAD_VAR_SUFFIX
 
 
 def convert_np_dtype(dtype):
@@ -68,6 +74,14 @@ class Variable(object):
         self.is_data = is_data
         self.type = type or 'lod_tensor'
         self.op = None           # defining op (set by append_op)
+        self.error_clip = kwargs.get('error_clip', None)
+
+    def set_error_clip(self, error_clip):
+        """Clip this variable's gradient as the backward passes through
+        it (read by the lowering as a cotangent-clip barrier)."""
+        self.error_clip = error_clip
+        if self.block is not None:
+            self.block.program._bump_version()
 
     def to_string(self, throw_on_error=False):
         return "Variable(name=%s, shape=%s, dtype=%s, lod=%d%s)" % (

@@ -75,9 +75,11 @@ def save_persistables(executor, dirname, main_program=None, filename=None,
 
 
 def params_from_numpy(scope, arrays, place):
-    """Put numpy arrays (e.g. the JAX package's parameters, read from its
-    scope) into ``scope`` as tensors on ``place``'s device, each in its
-    runtime dtype. ``arrays`` maps variable name -> array."""
+    """Put numpy arrays into ``scope`` as tensors on ``place``'s device,
+    each in its runtime dtype. ``arrays`` maps variable name -> array:
+    any persistable by name, so a whole training scope (parameters,
+    learning rate, optimizer accumulators, e.g. read from the JAX
+    package's scope) carries over."""
     device = place.torch_device()
     for name, arr in arrays.items():
         arr = np.asarray(arr)

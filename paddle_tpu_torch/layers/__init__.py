@@ -1,5 +1,5 @@
 """Layers API. Counterpart of paddle_tpu/layers/__init__.py, trimmed to
-the serving slice."""
+the serving and training slices."""
 from . import ops
 from .ops import *  # noqa
 from . import nn

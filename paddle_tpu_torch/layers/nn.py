@@ -5,11 +5,13 @@ flagship transformer and its serving program use. Same signatures and
 the same op types, attrs and variable names as paddle_tpu's layers, so
 a program built here matches one built there op for op.
 """
+from .. import unique_name
 from ..layer_helper import LayerHelper
 from ..initializer import Constant
 
 __all__ = ['fc', 'embedding', 'layer_norm', 'softmax',
-           'softmax_with_cross_entropy', 'split', 'reshape', 'flash_attention']
+           'softmax_with_cross_entropy', 'split', 'reshape', 'flash_attention',
+           'reduce_sum']
 
 
 def _prod(dims):
@@ -54,10 +56,25 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     return helper.append_activation(pre_activation)
 
 
+# Tables below this many elements take the dense gradient even with
+# is_sparse=True, as in the JAX package (same threshold and override).
+_SPARSE_MIN_TABLE_ELEMS = [32 * 1024 * 1024]
+
+
+def set_sparse_fallback_threshold(n_elems):
+    """Override the is_sparse dense-fallback threshold (elements in the
+    [vocab, dim] table). 0 always honors is_sparse=True."""
+    prev = _SPARSE_MIN_TABLE_ELEMS[0]
+    _SPARSE_MIN_TABLE_ELEMS[0] = int(n_elems)
+    return prev
+
+
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype='float32'):
-    """lookup_table op. Inference only in this slice, so ``is_sparse``
-    (a gradient format) is recorded and changes nothing."""
+    """lookup_table op. ``is_sparse`` is recorded as the JAX package
+    records it (the table is marked ``sparse_grad`` and the op gets a
+    ``sparse_carrier``); training such a table raises in the lowering,
+    since sparse row gradients are not ported."""
     helper = LayerHelper('embedding', param_attr=param_attr)
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype, is_bias=False)
@@ -70,11 +87,16 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                                      lod_level=input.lod_level)
     padding_idx = -1 if padding_idx is None else (
         padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    if is_sparse and _prod(size) < _SPARSE_MIN_TABLE_ELEMS[0]:
+        is_sparse = False
+    attrs = {'is_sparse': is_sparse, 'padding_idx': padding_idx}
+    if is_sparse:
+        w.sparse_grad = True
+        attrs['sparse_carrier'] = unique_name.generate(w.name + '@SCARRIER')
     helper.append_op(type='lookup_table',
                      inputs={'Ids': input, 'W': w},
                      outputs={'Out': tmp},
-                     attrs={'is_sparse': is_sparse,
-                            'padding_idx': padding_idx})
+                     attrs=attrs)
     return tmp
 
 
@@ -190,4 +212,26 @@ def flash_attention(q, k, v, num_heads=1, causal=True, name=None):
         inputs={'Q': q, 'K': k, 'V': v},
         outputs={'Out': out},
         attrs={'num_heads': num_heads, 'causal': causal})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    """reduce_sum op; ``dim=None`` reduces every axis to shape (1,)."""
+    helper = LayerHelper('reduce_sum', name=name)
+    if dim is None:
+        shape = (1,)
+    else:
+        dims = [dim] if isinstance(dim, int) else list(dim)
+        dims = [d if d >= 0 else d + len(input.shape) for d in dims]
+        if keep_dim:
+            shape = tuple(1 if i in dims else s
+                          for i, s in enumerate(input.shape))
+        else:
+            shape = tuple(s for i, s in enumerate(input.shape)
+                          if i not in dims) or (1,)
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=shape)
+    helper.append_op(
+        type='reduce_sum', inputs={'X': input}, outputs={'Out': out},
+        attrs={'dim': dim if dim is not None else 0, 'keep_dim': keep_dim,
+               'reduce_all': dim is None})
     return out

@@ -1,17 +1,18 @@
 """Single-op layers.
 
 Counterpart of paddle_tpu/layers/ops.py, trimmed to the op types the
-serving slice runs: each name is a thin layer function appending one op
-of the same type.
+serving and training slices run: each name is a thin layer function
+appending one op of the same type.
 """
 from ..layer_helper import LayerHelper
 from ..framework import Variable
 
 __all__ = ['mean', 'mul', 'scale', 'relu', 'elementwise_add',
-           'elementwise_sub', 'elementwise_mul', 'elementwise_div']
+           'elementwise_sub', 'elementwise_mul', 'elementwise_div',
+           'elementwise_max', 'clip', 'clip_by_norm', 'pow', 'sqrt', 'sign']
 
 _BINARY = {'elementwise_add', 'elementwise_div', 'elementwise_sub',
-           'elementwise_mul', 'mul'}
+           'elementwise_mul', 'elementwise_max', 'mul'}
 
 
 def _gen_layer(op_type):
@@ -60,3 +61,4 @@ def mean(x=None, **kwargs):
     out = helper.create_tmp_variable(dtype=x.dtype, shape=(1,))
     helper.append_op(type='mean', inputs={'X': x}, outputs={'Out': out})
     return out
+

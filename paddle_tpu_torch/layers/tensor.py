@@ -1,8 +1,8 @@
 """Tensor layers. Counterpart of paddle_tpu/layers/tensor.py, trimmed to
-``concat`` and ``fill_constant``."""
+``concat``, ``sums`` and ``fill_constant``."""
 from ..layer_helper import LayerHelper
 
-__all__ = ['concat', 'fill_constant']
+__all__ = ['concat', 'sums', 'fill_constant']
 
 
 def concat(input, axis=0, name=None):
@@ -22,6 +22,17 @@ def concat(input, axis=0, name=None):
                                      shape=tuple(shape))
     helper.append_op(type='concat', inputs={'X': list(input)},
                      outputs={'Out': [out]}, attrs={'axis': axis})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper('sum', **{})
+    xs = input if isinstance(input, (list, tuple)) else [input]
+    if out is None:
+        out = helper.create_tmp_variable(dtype=xs[0].dtype,
+                                         shape=xs[0].shape)
+    helper.append_op(type='sum', inputs={'X': list(xs)},
+                     outputs={'Out': out})
     return out
 
 

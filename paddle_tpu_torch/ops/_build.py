@@ -33,6 +33,15 @@ KERNELS = {
         # q, k, v, o, lse, B, T, H, D, is_bf16, causal, stream
         'flash_attn_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     }),
+    'flash_attn_bwd': ('flash_attn_bwd.cu', {
+        # q, k, v, do, lse, delta, dq, B, T, H, D, is_bf16, causal, stream
+        'flash_attn_bwd_dq': [_P] * 7 + [_I] * 6 + [_P],
+        # q, k, v, do, lse, delta, dk, dv, B, T, H, D, is_bf16, causal, stream
+        'flash_attn_bwd_dkv': [_P] * 8 + [_I] * 6 + [_P],
+        # q, k, v, do, lse, delta, dq_accum (f32), dk, dv, B, T, H, D,
+        # is_bf16, causal, stream
+        'flash_attn_bwd_dkvdq': [_P] * 9 + [_I] * 6 + [_P],
+    }),
 }
 
 _LOCK = threading.Lock()

@@ -20,9 +20,10 @@ def attention_for_testing(fn=plain_attention):
     """Test-only: make the ``flash_attention`` op call
     ``fn(q, k, v, causal)`` on [B, T, H, D] instead of the kernel's
     wrapper, on every device. The default, the plain PyTorch attention,
-    compares a whole program with and without the kernel on the same
-    inputs; a deliberately wrong ``fn`` is a control that such a
-    comparison must catch."""
+    compares a whole program with and without the kernels on the same
+    inputs; it is differentiable by autograd, so a training step under
+    it runs the plain backward too. A deliberately wrong ``fn`` is a
+    control that such a comparison must catch."""
     prev = _ATTENTION[0]
     _ATTENTION[0] = fn
     try:
@@ -36,7 +37,8 @@ def _flash_attention_op(ctx):
     """Multi-head attention op behind ``layers.flash_attention``. Inputs
     Q/K/V: [B, T, D]; attr num_heads splits D. The [B, T, H, D/H] view
     is the kernel's layout, so no transpose is made; the 1/sqrt(D/H)
-    logit scale is applied by the kernel."""
+    logit scale is applied by the kernel. Under autograd (the ops before
+    a backward marker) the gradient runs the flash backward kernels."""
     q, k, v = ctx.input('Q'), ctx.input('K'), ctx.input('V')
     heads = int(ctx.attr('num_heads', 1))
     causal = bool(ctx.attr('causal', True))

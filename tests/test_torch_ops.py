@@ -127,6 +127,32 @@ def _fill(L):
     return L.fill_constant(shape=[2, 3], dtype='float32', value=1.5)
 
 
+def _sum_sign_sqrt_pow(L):
+    a = L.data(name='a', shape=[3, 4], dtype='float32')
+    b = L.data(name='b', shape=[3, 4], dtype='float32')
+    return [L.sums([a, b]), L.sums([a, b, a]), L.sign(a),
+            L.sqrt(L.pow(a, factor=2.0)), L.pow(b, factor=3.0)]
+
+
+def _clips(L):
+    x = L.data(name='x', shape=[4, 5], dtype='float32')
+    return [L.clip(x, min=-0.3, max=0.5), L.clip_by_norm(x, max_norm=1.0),
+            L.clip_by_norm(x, max_norm=100.0)]
+
+
+def _reduce_sum(L):
+    x = L.data(name='x', shape=[3, 4], dtype='float32')
+    return [L.reduce_sum(x), L.reduce_sum(x, dim=1),
+            L.reduce_sum(x, dim=[0, 2], keep_dim=True)]
+
+
+def _elementwise_max(L):
+    x = L.data(name='x', shape=[3, 4], dtype='float32')
+    y = L.data(name='y', shape=[4], dtype='float32',
+               append_batch_size=False)
+    return [L.elementwise_max(x, y), L.elementwise_max(x=y, y=y)]
+
+
 _IDS = np.array([[0, 3, 9, -2, 15, 3, 5], [1, 2, 3, 4, 10, -1, 8]],
                 dtype='int64')
 CASES = {
@@ -148,6 +174,12 @@ CASES = {
     'flash_attention_op': (_flash, {n: _randn(2, 32, 16, seed=i)
                                     for i, n in enumerate('qkv')}),
     'fill_constant': (_fill, {}),
+    'sum_sign_sqrt_pow': (_sum_sign_sqrt_pow, {'a': _randn(2, 3, 4),
+                                               'b': _randn(2, 3, 4, seed=1)}),
+    'clip_and_clip_by_norm': (_clips, {'x': _randn(2, 4, 5)}),
+    'reduce_sum': (_reduce_sum, {'x': _randn(2, 3, 4)}),
+    'elementwise_max': (_elementwise_max, {'x': _randn(2, 3, 4),
+                                           'y': _randn(4, seed=1)}),
 }
 
 
