@@ -35,15 +35,10 @@
 //     in natural log.
 // The kernel launches on the caller's stream and allocates nothing.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBlockM = 64;
 
 struct Params {
@@ -57,47 +52,6 @@ struct Params {
   int causal;
   float scale_log2;  // log2(e) / sqrt(D)
 };
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Copy rows [row0, row0 + ROWS) of a [T, row_stride] bf16 matrix into
-// shared memory (row pitch LDS elements), 16 bytes per thread per step;
-// rows at or past T are zero-filled.
-template <int ROWS, int D, int LDS, int NTHREADS>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int T,
-                                               long row_stride) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += NTHREADS) {
-    const int r = i / kChunks, c = i % kChunks;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < T) {
-      val = *reinterpret_cast<const int4*>(src + (long)(row0 + r) * row_stride +
-                                           c * 8);
-    }
-    *reinterpret_cast<int4*>(dst + r * LDS + c * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(128)

@@ -57,16 +57,9 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 
 # Tables below this many elements take the dense gradient even with
-# is_sparse=True, as in the JAX package (same threshold and override).
+# is_sparse=True, as in the JAX package (same threshold), so both build
+# the same program.
 _SPARSE_MIN_TABLE_ELEMS = [32 * 1024 * 1024]
-
-
-def set_sparse_fallback_threshold(n_elems):
-    """Override the is_sparse dense-fallback threshold (elements in the
-    [vocab, dim] table). 0 always honors is_sparse=True."""
-    prev = _SPARSE_MIN_TABLE_ELEMS[0]
-    _SPARSE_MIN_TABLE_ELEMS[0] = int(n_elems)
-    return prev
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False,

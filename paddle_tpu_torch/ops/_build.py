@@ -3,8 +3,9 @@
 Each source under ``paddle_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
 into ``build/torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``). Libraries are named by a hash of their source, so an
-edited kernel is rebuilt and a stale one is never loaded. They are
+``.gitignore``). Libraries are named by a hash of their source, the
+shared headers and the flags, so an edited kernel is rebuilt and a stale
+one is never loaded. They are
 loaded with ``ctypes``; pointers and the stream are passed as
 ``c_void_p``.
 
@@ -23,7 +24,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'torch_kernels')
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC']
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-I', CSRC_DIR]
+# headers every source may include; part of each library's hash
+HEADERS = ('common.cuh',)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -58,9 +61,11 @@ def _nvcc():
 
 
 def library_path(name):
-    src = os.path.join(CSRC_DIR, KERNELS[name][0])
-    with open(src, 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1()
+    for fname in (KERNELS[name][0],) + HEADERS:
+        with open(os.path.join(CSRC_DIR, fname), 'rb') as f:
+            digest.update(f.read())
+    digest.update(' '.join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, '%s-%s.so' % (name, digest.hexdigest()[:12]))
 
 
