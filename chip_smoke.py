@@ -15,7 +15,13 @@ non-zero) on failure:
    the PyTorch library call for the same function (a yardstick only) and
    the least time the card could take (bound): the flash forward, and
    the three flash backward kernels (merged; two-pass dq and dk/dv);
-4. serving: builds the flagship transformer at full width (6 layers,
+4. conv kernels: the fused conv kernel (csrc/fused_conv.cu) against its
+   plain version at every distinct region shape of ResNet-50 at batch
+   32, read from the program after the conv_epilogue_fuse pass, in bf16
+   and f32, plus a depthwise shape, each aux kind, a swapped binary op
+   and parametric activations; times kernel, plain version, cuDNN's conv
+   alone (a yardstick only) and the bound;
+5. serving: builds the flagship transformer at full width (6 layers,
    d_model 1024, 8 heads, d_ff 4096, vocab 8192, seq 2048) with random
    weights from the seed, saves it as an inference model, loads it into
    a fresh scope and answers requests of batch 1, 2 and 4 through
@@ -23,18 +29,26 @@ non-zero) on failure:
    one request is compared with the same program run on the plain
    attention, and two deliberately wrong attentions must fail that
    comparison;
-5. training: the same flagship at full width and depth, Adam(1e-4)
+6. ResNet-50 serving: ResNet-50 at full width (3 x 224 x 224, 1000
+   classes) with random weights and batch-norm statistics from the seed,
+   saved as an inference model, loaded into a fresh scope and served at
+   batch 1, 8, 32, 1, 8, 32 through Executor.run and the compiler's
+   conv_epilogue_fuse: exactly 53 fused conv launches and no fallback a
+   request; a profile of one batch-32 request; one request compared with
+   the same program on the plain fused conv, and two deliberately wrong
+   kernels must fail that comparison;
+7. training: the same flagship at full width and depth, Adam(1e-4)
    .minimize(loss), batch 16: warm-up steps, then timed steps through
    Executor.run on one fixed batch (ms per step, tokens/s), checking
    that the loss is finite and falls and that each step launches one
    forward and one merged backward kernel per layer; a torch.profiler
    trace of one step; one step on the two-pass backward route, whose
    gradients must match the merged route's;
-6. gradients: at batch 2, every parameter gradient of one step on the
+8. gradients: at batch 2, every parameter gradient of one step on the
    kernels against the same step on the plain attention (autograd
    backward), by relative L2 error; two deliberately wrong backwards
    must fail that comparison;
-7. summary: a JSON line of the kernels, the card line, and last the
+9. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
 import argparse
@@ -87,6 +101,24 @@ BWD_TOL = {'bfloat16': (2e-2, 1e-3), 'float32': (1e-4, 0.1)}
 # and more.
 ROUTE_GRAD_TOL = 2e-2
 PLAIN_GRAD_TOL = 0.15
+# fused conv kernel vs its plain version on the same inputs: max |err| <=
+# tol * max(max |plain|, 1). bf16 rounds the output once (2**-9
+# relative); f32 only reorders f32 sums.
+CONV_TOL = {'bfloat16': 1e-2, 'float32': 1e-5}
+RESNET_BATCH = 32                      # the kernel phase's shapes
+RESNET_REQUESTS = [1, 8, 32, 1, 8, 32]
+RESNET_REGIONS = 53                    # fused_conv ops of ResNet-50
+# whole ResNet-50, fused kernel vs the plain fused conv, bf16 activations
+# (AMP), on one batch-32 request: max |logits difference| over max
+# |plain logits|, and the share of images with the same top-1 class. Set
+# from the sound reading on the H100 (PERF.md, Findings): 0.0316
+# and 0.9375, as far as the plain fused conv itself is from its own run
+# with f32 region outputs (0.055, 0.906): bf16 rounding between 53
+# regions. The limits are 3x that max difference and 0.8 (six of the 32
+# images may change class); the two wrong kernels read 0.92 / 0.03 and
+# 265 / 0.
+RESNET_LOGITS_TOL = 0.1
+RESNET_TOP1 = 0.8
 
 
 def check(cond, msg):
@@ -349,6 +381,12 @@ def _kernel_kind(name):
     flash = re.search(r'flash_\w+', name)
     if flash:
         return flash.group(0)
+    if re.search(r'conv_(bf16|f32|depthwise)_kernel', name):
+        return 'fused_conv'
+    if 'pool' in name.lower():
+        return 'pool'
+    if 'memcpy htod' in name.lower():
+        return 'copy to the card'
     for kind, keys in (('gemm', ('nvjet', 'gemm', 'xmma', 'cutlass')),
                        ('copy/cast', ('copy',)),
                        ('reduction', ('reduce', 'softmax', 'norm')),
@@ -478,6 +516,359 @@ def phase_serving(seed):
     return launches
 
 
+def _resnet_program(seed, is_test=False):
+    """ResNet-50 at full width built with the port's layers: (main,
+    startup, probabilities)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name='img', shape=[3, 224, 224],
+                             dtype='float32')
+        prob = resnet_imagenet(img, 1000, depth=50, is_test=is_test)
+    return main, startup, prob
+
+
+def resnet_regions():
+    """The fused_conv regions of ResNet-50 after conv_epilogue_fuse, as
+    {(H, W, Cin, Cout, K, stride, pad, stages): count}; stages name the
+    epilogue as the lowering builds it (aux 0, 1: the folded batch norm;
+    aux 2: the residual)."""
+    import paddle_tpu_torch as pt
+    main, _, prob = _resnet_program(0, is_test=True)
+    opt, _ = pt.compiler.optimize(main.prune([prob]),
+                                  fetch_names=[prob.name])
+    block = opt.global_block()
+    regions = {}
+    for op in block.ops:
+        if op.type != 'fused_conv':
+            continue
+        (_, ins, _, attrs), rest = op.attrs['sub_ops'][0], \
+            op.attrs['sub_ops'][1:]
+        _, cin, h, w = block.var(ins['Input'][0]).shape
+        cout, _, k, _ = block.var(ins['Filter'][0]).shape
+        stages, cur = [], None
+        for t, i, o, _ in rest:
+            if t == 'batch_norm':
+                stages.append(('affine', 0, 1))
+                cur = o['Y'][0]
+            elif t == 'elementwise_add':
+                stages.append(('bin', t, 2, i['Y'][0] == cur))
+                cur = o['Out'][0]
+            else:
+                stages.append(('act', t))
+                cur = o['Out'][0]
+        key = (h, w, cin, cout, k, attrs['strides'][0], attrs['paddings'][0],
+               tuple(stages))
+        regions[key] = regions.get(key, 0) + 1
+    return regions
+
+
+def conv_bound(N, H, W, cin, cout, k, s, p, depthwise, dtype, n_t):
+    """Least time for one fused conv: 2 N Ho Wo Cout K K Cin operations
+    (Cin = 1 a channel when depthwise) at the dtype's peak, or x, w and
+    the output (and ``n_t`` whole-tensor aux operands) moved once over
+    HBM, whichever is longer."""
+    elem = 2 if dtype == 'bfloat16' else 4
+    ho, wo = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+    flops = 2 * N * ho * wo * cout * k * k * (1 if depthwise else cin)
+    nbytes = elem * (N * H * W * cin + k * k * cin * (1 if depthwise
+                                                      else cout) +
+                     (1 + n_t) * N * ho * wo * cout) + 2 * 4 * cout
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def _conv_inputs(gen, dtype, N, H, W, cin, cout, k, s, p, depthwise, kinds):
+    import torch
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(*shape, device='cuda', generator=gen)
+
+    ho, wo = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+    x = randn(N, H, W, cin).to(dt)
+    fan_in = k * k * (1 if depthwise else cin)
+    w = (randn(*((k, k, cin) if depthwise else (cout, k, k, cin))) *
+         (2.0 / fan_in) ** 0.5).to(dt)
+    shapes = {'c': (1, cout), 'nc': (N, cout), 't': (N, ho, wo, cout),
+              's': (1, 1)}
+    aux = [randn(1, cout).abs() + 0.5, randn(1, cout) * 0.1]
+    aux += [randn(*shapes[kd]).to(dt if kd == 't' else torch.float32)
+            for kd in kinds[2:]]
+    return x, w, aux
+
+
+def phase_conv_kernels(seed):
+    """The fused conv kernel vs its plain version at every distinct
+    region shape of ResNet-50 at batch 32, and at extra cases, in bf16
+    and f32. Returns the bf16 numbers summed over one batch-32 request
+    (each shape times its count of regions)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    regions = resnet_regions()
+    check(sum(regions.values()) == RESNET_REGIONS,
+          'ResNet-50 has %d fused_conv regions, expected %d'
+          % (sum(regions.values()), RESNET_REGIONS))
+    print('conv kernels: %d distinct region shapes over %d regions' % (
+        len(regions), sum(regions.values())), flush=True)
+    N = RESNET_BATCH
+    cases = [(key, count, False) for key, count in sorted(regions.items())]
+    # beyond ResNet-50: depthwise, each aux kind, a swapped binary op,
+    # parametric activations
+    extra = [
+        ((56, 56, 128, 128, 3, 1, 1, (('affine', 0, 1), ('act', 'relu'))),
+         True),
+        ((28, 28, 128, 128, 3, 1, 1,
+          (('affine', 0, 1), ('bin', 'elementwise_mul', 2, False),
+           ('act', 'sigmoid'))), False),                       # 'nc'
+        ((28, 28, 128, 128, 3, 1, 1,
+          (('bin', 'elementwise_sub', 2, True), ('act_p', 'leaky_relu',
+                                                 (0.1,)),
+           ('act_p', 'swish', (1.3,)))), False),               # 's'
+        ((28, 28, 128, 256, 1, 1, 0,
+          (('affine', 0, 1), ('bin', 'elementwise_add', 2, False),
+           ('act_p', 'relu6', (6.0,)))), False),               # 't', X
+    ]
+    extra_kinds = [('c', 'c'), ('c', 'c', 'nc'), ('c', 'c', 's'),
+                   ('c', 'c', 't')]
+    cases += [(key, 0, dw) for key, dw in extra]
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 2)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                  max_abs_err=0.0)
+    bound_by = {}
+    for idx, ((H, W, cin, cout, k, s, p, stages), count, dw) in \
+            enumerate(cases):
+        kinds = (('c', 'c', 't') if any(st[0] == 'bin' for st in stages)
+                 else ('c', 'c')) if idx < len(regions) else \
+            extra_kinds[idx - len(regions)]
+        for dtype in ('bfloat16', 'float32'):
+            x, w, aux = _conv_inputs(gen, dtype, N, H, W, cin, cout, k, s,
+                                     p, dw, kinds)
+            args = (x, w, aux, kinds, stages, (s, s), (p, p), dw)
+            got = ck.fused_conv(*args)
+            torch.cuda.synchronize()
+            ref = ck.fused_conv_reference(*args)
+            err = (got.float() - ref.float()).abs().max().item()
+            limit = CONV_TOL[dtype] * max(ref.float().abs().max().item(), 1.0)
+            del got, ref
+            kernel_ms = cuda_ms(lambda: ck.fused_conv(*args), iters=10)
+            plain_ms = cuda_ms(lambda: ck.fused_conv_reference(*args),
+                               iters=3, warmup=1)
+            # cuDNN's conv alone on the same NHWC operands (channels-last
+            # views), a yardstick never called by the port
+            xc = x.permute(0, 3, 1, 2)
+            wc = (w.permute(2, 0, 1).unsqueeze(1) if dw
+                  else w.permute(0, 3, 1, 2))
+            library_ms = cuda_ms(lambda: F.conv2d(
+                xc, wc, stride=s, padding=p, groups=cin if dw else 1),
+                iters=10)
+            n_t = kinds.count('t')
+            bound_ms, by = conv_bound(N, H, W, cin, cout, k, s, p, dw, dtype,
+                                      n_t)
+            print('kernel fused_conv N=%d %dx%d Cin=%d Cout=%d K=%d s=%d '
+                  'p=%d%s %s x%d [%s]: max|err| %.3g (limit %.3g); '
+                  'kernel_ms %.4f plain_ms %.4f cudnn_ms %.4f bound_ms %.4f '
+                  '(%s)' % (N, H, W, cin, cout, k, s, p,
+                            ' depthwise' if dw else '', dtype, count,
+                            ' '.join(st[0] if st[0] != 'act' else st[1]
+                                     for st in stages), err, limit,
+                            kernel_ms, plain_ms, library_ms, bound_ms, by),
+                  flush=True)
+            check(err <= limit, 'fused_conv disagrees with its plain version '
+                  'at N=%d %dx%d Cin=%d Cout=%d K=%d s=%d %s' % (
+                      N, H, W, cin, cout, k, s, dtype))
+            if dtype == 'bfloat16' and count:
+                totals['ms'] += count * kernel_ms
+                totals['plain_ms'] += count * plain_ms
+                totals['library_ms'] += count * library_ms
+                totals['bound_ms'] += count * bound_ms
+                totals['max_abs_err'] = max(totals['max_abs_err'], err)
+                bound_by[by] = bound_by.get(by, 0.0) + count * bound_ms
+            del x, w, aux, args, xc, wc
+    totals['bound_by'] = max(bound_by, key=bound_by.get)
+    print('conv kernels: one batch-%d request, bf16, summed over its %d '
+          'regions: kernel %.4f ms, plain %.4f ms, cuDNN conv alone %.4f ms, '
+          'bound %.4f ms (%s-bound regions hold %.1f%% of it)' % (
+              N, RESNET_REGIONS, totals['ms'], totals['plain_ms'],
+              totals['library_ms'], totals['bound_ms'], totals['bound_by'],
+              100 * bound_by[totals['bound_by']] / totals['bound_ms']),
+          flush=True)
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _wrong_conv(mode):
+    """The fused conv kernel launched with a deliberately wrong epilogue
+    (a control for the whole-model comparison)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    def fn(x, w, aux, kinds, stages, strides, pads, depthwise):
+        aux = list(aux)
+        if mode == 'residual stage dropped':
+            stages = tuple(st for st in stages if st[0] != 'bin')
+        else:                                  # the next channel's affine
+            for st in stages:
+                if st[0] == 'affine':
+                    aux[st[1]] = aux[st[1]].roll(-1, -1)
+                    aux[st[2]] = aux[st[2]].roll(-1, -1)
+        return ck.fused_conv(x, w, aux, kinds, stages, strides, pads,
+                             depthwise)
+    return fn
+
+
+def _image_feed(bs, seed):
+    rng = np.random.RandomState(seed)
+    return {'img': rng.randn(bs, 3, 224, 224).astype('float32')}
+
+
+def phase_resnet_serving(seed):
+    """Serve ResNet-50 at full width from a saved inference model."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    main, startup, prob = _resnet_program(seed)
+    exe = pt.Executor()                       # CUDAPlace(0)
+    init_scope = pt.Scope()
+    exe.run(startup, scope=init_scope)
+    # random batch-norm affine, and moving statistics as training would
+    # leave them: the batch moments of each batch norm's input on one
+    # batch of images (the train-mode program's SavedMean and
+    # SavedVariance), so activations stay normalised through the 16
+    # residual blocks and the logits tell images apart
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 3)
+    bns = [op for op in main.global_block().ops if op.type == 'batch_norm']
+    for op in bns:
+        c = init_scope.raw(op.input('Scale')[0]).shape[0]
+        init_scope.set_var(op.input('Scale')[0], torch.rand(
+            c, device='cuda', generator=gen) + 0.5)
+        init_scope.set_var(op.input('Bias')[0], torch.randn(
+            c, device='cuda', generator=gen) * 0.1)
+    moments = exe.run(main, feed=_image_feed(RESNET_BATCH, seed + 7),
+                      fetch_list=[op.output(s)[0] for op in bns
+                                  for s in ('SavedMean', 'SavedVariance')],
+                      scope=init_scope, return_numpy=False)
+    for op, mean, var in zip(bns, moments[::2], moments[1::2]):
+        init_scope.set_var(op.input('Mean')[0], mean.float())
+        init_scope.set_var(op.input('Variance')[0], var.float())
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        pt_io.save_inference_model(d, ['img'], [prob], exe,
+                                   main_program=main, scope=init_scope)
+        del init_scope
+        scope = pt.Scope()
+        prog, feed_names, fetch_vars = pt_io.load_inference_model(
+            d, exe, scope=scope)
+    block = prog.global_block()
+    logits_name, = [op.input('X')[0] for op in block.ops
+                    if op.type == 'softmax']
+    n_params = sum(v.numel() for v in scope.vars.values()
+                   if isinstance(v, torch.Tensor))
+    torch.cuda.synchronize()
+    print('resnet: ResNet-50 (3x224x224, 1000 classes), %d parameters and '
+          'statistics, built, calibrated, saved and loaded in %.1f s; ops '
+          '%s' % (
+              n_params, time.perf_counter() - t0,
+              sorted({op.type for op in block.ops})), flush=True)
+
+    def serve(bs, s, fetch=None):
+        return exe.run(prog, feed=_image_feed(bs, s),
+                       fetch_list=fetch or fetch_vars, scope=scope)
+
+    for bs in sorted(set(RESNET_REQUESTS)):   # warm-up: allocator
+        serve(bs, seed + 100)
+    ck.reset_launch_counts()
+    passes.reset_fallback_counts()
+    times, images = [], 0
+    for i, bs in enumerate(RESNET_REQUESTS):
+        feed = _image_feed(bs, seed + i)
+        before = ck.LAUNCHES['fused_conv']
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, = exe.run(prog, feed=feed, fetch_list=fetch_vars, scope=scope)
+        dt = time.perf_counter() - t1
+        n = ck.LAUNCHES['fused_conv'] - before
+        times.append(dt)
+        images += bs
+        print('resnet request %d: batch %d, %.2f ms, %.1f images/s, %d fused '
+              'conv launches, fallbacks %s' % (i, bs, 1e3 * dt, bs / dt, n,
+                                               passes.FALLBACKS), flush=True)
+        check(out.shape == (bs, 1000), 'probabilities shape %s'
+              % (out.shape,))
+        check(np.isfinite(out).all(), 'non-finite probabilities')
+        check(np.allclose(out.sum(1), 1.0, atol=1e-3),
+              'probabilities do not sum to 1')
+        check(n == RESNET_REGIONS, 'request %d launched fused_conv %d times, '
+              'expected %d' % (i, n, RESNET_REGIONS))
+        check(not passes.FALLBACKS, 'fused_conv fell back: %s'
+              % passes.FALLBACKS)
+    launches = dict(ck.LAUNCHES)
+    for name, count in launches.items():
+        check(name == 'fused_conv' or count == 0,
+              'ResNet serving launched %s %d times' % (name, count))
+    print('resnet: %d requests, %.2f ms per request, %.1f images/s (host '
+          'clock, numpy images in, probabilities fetched to host)' % (
+              len(times), 1e3 * sum(times) / len(times),
+              images / sum(times)), flush=True)
+    feed32 = _image_feed(RESNET_BATCH, seed + 50)
+    profile_run(lambda: exe.run(prog, feed=feed32, fetch_list=fetch_vars,
+                                scope=scope, return_numpy=False),
+                'resnet batch-%d request' % RESNET_BATCH)
+
+    fetch = [logits_name] + [v.name for v in fetch_vars]
+    kernel_logits, _ = serve(RESNET_BATCH, seed + 1, fetch)
+    with passes.conv_for_testing():
+        plain_logits, _ = serve(RESNET_BATCH, seed + 1, fetch)
+    scale = float(np.abs(plain_logits).max())
+
+    def agreement(logits):
+        return (float(np.abs(logits - plain_logits).max()) / scale,
+                float((logits.argmax(-1) ==
+                       plain_logits.argmax(-1)).mean()))
+
+    diff, top1 = agreement(kernel_logits)
+    print('resnet: batch-%d logits, fused kernel vs plain fused conv: max '
+          '|diff| / max |logits| %.4g (tol %g), max |logits| %.4g, top-1 '
+          'agreement %.4f (min %g)' % (RESNET_BATCH, diff, RESNET_LOGITS_TOL,
+                                       scale, top1, RESNET_TOP1), flush=True)
+    check(diff <= RESNET_LOGITS_TOL, 'ResNet logits differ from the plain '
+          'path by %g of their scale' % diff)
+    check(top1 >= RESNET_TOP1, 'ResNet top-1 agreement %g' % top1)
+    # where the plain fused conv itself stands: the same request with each
+    # region's output kept in f32 (no bf16 rounding between regions)
+    with passes.conv_for_testing(
+            lambda x, *rest: ck.fused_conv_reference(x.float(), *rest)):
+        wide_logits, _ = serve(RESNET_BATCH, seed + 1, fetch)
+    for name, got in (('fused kernel', kernel_logits),
+                      ('plain fused conv', plain_logits)):
+        print('resnet: %s vs the plain fused conv with f32 region outputs: '
+              'max |diff| / max |logits| %.4g, top-1 agreement %.4f' % (
+                  name, float(np.abs(got - wide_logits).max()) / scale,
+                  float((got.argmax(-1) == wide_logits.argmax(-1)).mean())),
+              flush=True)
+    for name in ('residual stage dropped', "the next channel's BN affine"):
+        with passes.conv_for_testing(_wrong_conv(name)):
+            c_diff, c_top1 = agreement(serve(RESNET_BATCH, seed + 1,
+                                             fetch)[0])
+        print('resnet: control, %s, vs plain fused conv: max |diff| / max '
+              '|logits| %.4g, top-1 agreement %.4f' % (name, c_diff, c_top1),
+              flush=True)
+        check(c_diff > RESNET_LOGITS_TOL or c_top1 < RESNET_TOP1,
+              'the whole-model limits do not catch a control: %s' % name)
+    del scope, prog
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _train_feed(bs, seed):
     """One fixed batch of tokens, labels and positions, on the card."""
     import torch
@@ -570,7 +961,8 @@ def phase_training(seed, card):
           % (losses[0], losses[-1]))
     expect = {'flash_attn_fwd': n_layers * TRAIN_STEPS,
               'flash_attn_bwd_dkvdq': n_layers * TRAIN_STEPS,
-              'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0}
+              'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
+              'fused_conv': 0}
     check(launches == expect, 'training launches %s, expected %s'
           % (launches, expect))
     profile_run(lambda: exe.run(main, feed=feed, fetch_list=[loss],
@@ -603,7 +995,8 @@ def phase_training(seed, card):
                    float(np.median(list(errs.values()))), ROUTE_GRAD_TOL),
           flush=True)
     expect = {'flash_attn_fwd': n_layers, 'flash_attn_bwd_dkvdq': 0,
-              'flash_attn_bwd_dq': n_layers, 'flash_attn_bwd_dkv': n_layers}
+              'flash_attn_bwd_dq': n_layers, 'flash_attn_bwd_dkv': n_layers,
+              'fused_conv': 0}
     check(route_launches == expect, 'two-pass step launches %s, expected '
           '%s' % (route_launches, expect))
     check(errs[worst] <= ROUTE_GRAD_TOL, 'two-pass gradients differ from '
@@ -713,12 +1106,15 @@ def main():
     phase_build()
     kres = phase_kernels(args.seed)
     bres = phase_bwd_kernels(args.seed)
+    conv = phase_conv_kernels(args.seed)
     launches = phase_serving(args.seed)
+    resnet_launches = phase_resnet_serving(args.seed)
     trained = phase_training(args.seed, card)
     phase_gradients(args.seed, trained)
     # launches: each kernel's count over the path that drives it, read
-    # right after that path ran from counts set to 0 (the forward: the
-    # served requests plus the timed training steps)
+    # right after that path ran from counts set to 0 (the flash forward:
+    # the served requests plus the timed training steps; the fused conv:
+    # the served ResNet requests)
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -738,6 +1134,13 @@ def main():
             name=name, route='cuda', source=bwd_src,
             replaces='paddle_tpu/ops/pallas_kernels.py:%d' % line,
             launches=count[name], **train_shape[name]))
+    # the fused conv: its numbers summed over one batch-32 request's 53
+    # regions (bf16, as the served model runs them)
+    kernels.append(dict(
+        name='fused_conv', route='cuda',
+        source='paddle_tpu_torch/csrc/fused_conv.cu',
+        replaces='paddle_tpu/ops/pallas_kernels.py:789',
+        launches=resnet_launches['fused_conv'], **conv))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -12,7 +12,10 @@ Covered so far: serving a model from a saved inference model —
 ``Executor.run`` per step — for the flagship transformer's op set, with
 attention and its gradient on hand-written CUDA kernels
 (``ops/cuda_kernels.py``, ``csrc/flash_attn_fwd.cu``,
-``csrc/flash_attn_bwd.cu``).
+``csrc/flash_attn_bwd.cu``); and serving ResNet (``models/resnet.py``),
+whose conv + batch-norm + activation + residual regions the compiler's
+``conv_epilogue_fuse`` pass turns into ``fused_conv`` ops that run on a
+hand-written CUDA kernel (``csrc/fused_conv.cu``).
 
 Entry points run on the card unless told otherwise: ``Executor()`` means
 ``CUDAPlace(0)`` and raises where CUDA is absent; pass ``CPUPlace()`` to
@@ -20,7 +23,7 @@ run on the CPU.
 """
 from . import framework, unique_name, initializer, param_attr  # noqa
 from . import layers, ops, io, executor  # noqa
-from . import backward, clip, optimizer, regularizer  # noqa
+from . import backward, clip, optimizer, regularizer, compiler  # noqa
 from .framework import (Program, Block, Variable, Operator, Parameter,  # noqa
                         default_startup_program, default_main_program,
                         program_guard, switch_startup_program,

@@ -280,7 +280,13 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
 
 
 def _detach(val):
-    return val.detach() if isinstance(val, torch.Tensor) else val
+    """Cut ``val`` from autograd. A tensor that needs no gradient stays
+    the same object, so a parameter that a run leaves alone is the same
+    tensor in the Scope from one run to the next (the fused conv keeps
+    its re-laid-out weight while it is)."""
+    if isinstance(val, torch.Tensor) and val.requires_grad:
+        return val.detach()
+    return val
 
 
 def _run_training(block, device, ops, marker_idx, env):

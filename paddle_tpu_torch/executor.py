@@ -7,15 +7,18 @@ its fetches once per program version and then runs the block eagerly, op
 by op, on the place's device. Persistable state (parameters) stays on
 that device in the Scope between runs.
 
-Left out of this slice (their rewrites are exact, so outputs do not
-change): the compiler pass pipeline, the static analysis, the
-partitioner and the performance observatory.
+After the prune, the program goes through the port's compiler pipeline
+(``compiler.optimize``: the conv-epilogue fusion), once per memo key, as
+the JAX Executor's ``_optimized_program`` does. Left out (their rewrites
+are exact, so outputs do not change): the other compiler passes, the
+static analysis, the partitioner and the performance observatory.
 """
 import contextlib
 
 import numpy as np
 import torch
 
+from . import compiler as _compiler
 from .framework import Program, Variable, default_main_program
 from .core import places as _places
 from .core.lowering import lower_block, torch_dtype, RNG_KEY
@@ -147,15 +150,21 @@ class Executor(object):
 
     def _lowered(self, program, feed_names, fetch_names, scope):
         """The runnable block for (program version, feeds, fetches, state
-        names), memoized on the program so steady-state requests skip
-        the prune and the graph rewrite."""
+        names, compiler on or off), memoized on the program so
+        steady-state requests skip the prune, the passes and the graph
+        rewrite."""
         state_in, state_out = self._state_names(program, scope)
+        optimize = _compiler.enabled()
         key = (program._version, tuple(feed_names), tuple(fetch_names),
-               tuple(state_in), tuple(state_out), self.device)
+               tuple(state_in), tuple(state_out), self.device, optimize)
         memo = program.__dict__.setdefault('_torch_lowered', {})
         hit = memo.get(key)
         if hit is None:
             pruned = self._maybe_prune(program, fetch_names)
+            if optimize:
+                pruned, _ = _compiler.optimize(
+                    pruned, fetch_names=fetch_names, scope=scope,
+                    clone=pruned is program)
             fn = lower_block(pruned, pruned.global_block(), feed_names,
                              fetch_names, state_in, state_out, self.device)
             hit = memo[key] = (fn, state_in)

@@ -1,7 +1,7 @@
 """Parameter initializers.
 
 Counterpart of paddle_tpu/initializer.py, trimmed to the initializers
-the serving slice's layers use. Each initializer appends an init op to
+the port's layers use. Each initializer appends an init op to
 the startup program; the op's kernel draws from the scope's
 ``torch.Generator`` (seeded from ``program.random_seed``) unless the op
 carries its own non-zero seed.
@@ -10,7 +10,8 @@ import math
 
 import numpy as np
 
-__all__ = ['Constant', 'Xavier', 'ConstantInitializer', 'XavierInitializer']
+__all__ = ['Constant', 'Normal', 'Xavier', 'ConstantInitializer',
+           'NormalInitializer', 'XavierInitializer']
 
 
 class Initializer(object):
@@ -27,6 +28,17 @@ class ConstantInitializer(Initializer):
             type='fill_constant', outputs={'Out': var},
             attrs={'shape': list(var.shape), 'dtype': var.dtype,
                    'value': float(self._value)})
+
+
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self._mean, self._std, self._seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type='gaussian_random', outputs={'Out': var},
+            attrs={'shape': list(var.shape), 'dtype': var.dtype,
+                   'mean': self._mean, 'std': self._std, 'seed': self._seed})
 
 
 def _fan_in_out(var):
@@ -64,4 +76,5 @@ class XavierInitializer(Initializer):
 
 
 Constant = ConstantInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer

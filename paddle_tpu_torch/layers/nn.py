@@ -1,17 +1,18 @@
 """Neural-network layers.
 
 Counterpart of paddle_tpu/layers/nn.py, trimmed to the layers the
-flagship transformer and its serving program use. Same signatures and
+flagship transformer and ResNet use. Same signatures and
 the same op types, attrs and variable names as paddle_tpu's layers, so
 a program built here matches one built there op for op.
 """
 from .. import unique_name
 from ..layer_helper import LayerHelper
-from ..initializer import Constant
+from ..initializer import Constant, Normal
+from ..param_attr import ParamAttr
 
-__all__ = ['fc', 'embedding', 'layer_norm', 'softmax',
-           'softmax_with_cross_entropy', 'split', 'reshape', 'flash_attention',
-           'reduce_sum']
+__all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
+           'softmax', 'softmax_with_cross_entropy', 'split', 'reshape',
+           'flash_attention', 'reduce_sum']
 
 
 def _prod(dims):
@@ -19,6 +20,17 @@ def _prod(dims):
     for d in dims:
         r *= int(d)
     return abs(r)
+
+
+def _conv_out(size, k, p, s, d=1):
+    if size < 0:
+        return -1
+    ke = d * (k - 1) + 1
+    return (size + 2 * p - ke) // s + 1
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -91,6 +103,130 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                      outputs={'Out': tmp},
                      attrs=attrs)
     return tmp
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None):
+    """NCHW conv2d op, then the bias and activation ops."""
+    num_channels = input.shape[1]
+    helper = LayerHelper('conv2d', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    if num_channels % groups != 0:
+        raise ValueError("num_channels must be divisible by groups")
+    num_filter_channels = num_channels // groups
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    filter_shape = [num_filters, int(num_filter_channels)] + \
+        list(filter_size)
+    std = (2.0 / (filter_size[0] ** 2 * num_channels)) ** 0.5
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=Normal(0.0, std, 0))
+    out_shape = (input.shape[0], num_filters,
+                 _conv_out(input.shape[2], filter_size[0], padding[0],
+                           stride[0], dilation[0]),
+                 _conv_out(input.shape[3], filter_size[1], padding[1],
+                           stride[1], dilation[1]))
+    pre_bias = helper.create_tmp_variable(dtype, shape=out_shape)
+    helper.append_op(
+        type='conv2d',
+        inputs={'Input': input, 'Filter': filter_param},
+        outputs={'Output': pre_bias},
+        attrs={'strides': list(stride), 'paddings': list(padding),
+               'dilations': list(dilation), 'groups': groups,
+               'use_cudnn': use_cudnn})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, use_mkldnn=False, name=None,
+           exclusive=True):
+    if pool_type not in ["max", "avg"]:
+        raise ValueError("pool_type must be 'max' or 'avg'")
+    if global_pooling is False and pool_size == -1:
+        raise ValueError("pool_size must be set when not global pooling")
+    pool_size = _pair(pool_size)
+    pool_padding = _pair(pool_padding)
+    pool_stride = _pair(pool_stride)
+    helper = LayerHelper('pool2d', name=name)
+    if global_pooling:
+        out_shape = (input.shape[0], input.shape[1], 1, 1)
+    else:
+        out_shape = (input.shape[0], input.shape[1],
+                     _conv_out(input.shape[2], pool_size[0], pool_padding[0],
+                               pool_stride[0]),
+                     _conv_out(input.shape[3], pool_size[1], pool_padding[1],
+                               pool_stride[1]))
+    out = helper.create_tmp_variable(input.dtype, shape=out_shape)
+    helper.append_op(type='pool2d', inputs={'X': input},
+                     outputs={'Out': out},
+                     attrs={'pooling_type': pool_type,
+                            'exclusive': exclusive,
+                            'ksize': pool_size,
+                            'global_pooling': global_pooling,
+                            'strides': pool_stride,
+                            'paddings': pool_padding,
+                            'ceil_mode': ceil_mode})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-05,
+               param_attr=None, bias_attr=None, data_layout='NCHW',
+               in_place=False, use_mkldnn=False, name=None,
+               moving_mean_name=None, moving_variance_name=None,
+               do_model_average_for_mean_and_var=False):
+    """batch_norm op, then the activation op. The moving mean and
+    variance are non-trainable parameters that the op's MeanOut and
+    VarianceOut write back in train mode."""
+    helper = LayerHelper('batch_norm', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    input_shape = input.shape
+    if data_layout == 'NCHW':
+        channel_num = input_shape[1] if len(input_shape) > 2 else \
+            input_shape[-1]
+    elif data_layout == 'NHWC':
+        channel_num = input_shape[-1]
+    else:
+        raise ValueError("unsupported data layout: %s" % data_layout)
+    param_shape = [int(channel_num)]
+    scale = helper.create_parameter(attr=helper.param_attr,
+                                    shape=param_shape, dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=param_shape,
+                                   dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, initializer=Constant(0.0),
+                       trainable=False),
+        shape=param_shape, dtype=dtype)
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, initializer=Constant(1.0),
+                       trainable=False),
+        shape=param_shape, dtype=dtype)
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    saved_mean = helper.create_tmp_variable(dtype=dtype, stop_gradient=True)
+    saved_variance = helper.create_tmp_variable(dtype=dtype,
+                                                stop_gradient=True)
+    batch_norm_out = input if in_place else \
+        helper.create_tmp_variable(dtype, shape=input_shape)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": variance},
+        outputs={"Y": batch_norm_out, "MeanOut": mean,
+                 "VarianceOut": variance, "SavedMean": saved_mean,
+                 "SavedVariance": saved_variance},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout})
+    return helper.append_activation(batch_norm_out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

@@ -1,18 +1,29 @@
 """Single-op layers.
 
 Counterpart of paddle_tpu/layers/ops.py, trimmed to the op types the
-serving and training slices run: each name is a thin layer function
+port runs: each name is a thin layer function
 appending one op of the same type.
 """
 from ..layer_helper import LayerHelper
 from ..framework import Variable
 
-__all__ = ['mean', 'mul', 'scale', 'relu', 'elementwise_add',
-           'elementwise_sub', 'elementwise_mul', 'elementwise_div',
-           'elementwise_max', 'clip', 'clip_by_norm', 'pow', 'sqrt', 'sign']
+# the activations of ops/activations.py, as paddle_tpu names them
+__activations__ = [
+    'sigmoid', 'logsigmoid', 'exp', 'relu', 'tanh', 'tanh_shrink',
+    'softshrink', 'sqrt', 'abs', 'ceil', 'floor', 'round', 'reciprocal',
+    'log', 'square', 'softplus', 'softsign', 'brelu', 'leaky_relu',
+    'soft_relu', 'elu', 'relu6', 'pow', 'stanh', 'hard_shrink',
+    'thresholded_relu', 'hard_sigmoid', 'swish',
+]
+
+__all__ = ['mean', 'mul', 'scale', 'elementwise_add', 'elementwise_sub',
+           'elementwise_mul', 'elementwise_div', 'elementwise_max',
+           'elementwise_min', 'elementwise_pow', 'clip', 'clip_by_norm',
+           'sign'] + __activations__
 
 _BINARY = {'elementwise_add', 'elementwise_div', 'elementwise_sub',
-           'elementwise_mul', 'elementwise_max', 'mul'}
+           'elementwise_mul', 'elementwise_max', 'elementwise_min',
+           'elementwise_pow', 'mul'}
 
 
 def _gen_layer(op_type):

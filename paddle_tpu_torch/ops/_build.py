@@ -45,6 +45,10 @@ KERNELS = {
         # is_bf16, causal, stream
         'flash_attn_bwd_dkvdq': [_P] * 9 + [_I] * 6 + [_P],
     }),
+    'fused_conv': ('fused_conv.cu', {
+        # &FusedConvArgs (cuda_kernels._FusedConvArgs), stream
+        'fused_conv': [_P, _P],
+    }),
 }
 
 _LOCK = threading.Lock()

@@ -1,17 +1,19 @@
 """Math kernels.
 
 Counterpart of paddle_tpu/ops/math_ops.py, trimmed to the serving and
-training slices: elementwise add/sub/mul/div/max with fluid's ``axis``
-broadcast, ``mul`` (the fc matmul) with ``x_num_col_dims``, ``mean``,
-``scale``, ``relu``, and the ops that regularizers and gradient clips
-append: ``sum``, ``sign``, ``clip``, ``clip_by_norm``, ``reduce_sum``,
-``pow``, ``sqrt``.
+training slices and the fused conv's epilogue vocabulary: the binary
+elementwise ops with fluid's ``axis`` broadcast and every activation of
+``activations.py`` (whose functions the plain fused conv applies too),
+``mul`` (the fc matmul) with ``x_num_col_dims``, ``mean``, ``scale``, and
+the ops that regularizers and gradient clips append: ``sum``, ``sign``,
+``clip_by_norm``, ``reduce_sum``.
 """
 import torch
 
 from ..core.registry import register_kernel
 from ..core.amp import matmul_compute
 from .common import bcast_y, f32, prod
+from .activations import ACTS, ACTS_P, BINS, PARAM_ATTRS
 
 
 def _elementwise(name, fn):
@@ -24,16 +26,25 @@ def _elementwise(name, fn):
         ctx.set_output('Out', out)
 
 
-_elementwise('elementwise_add', torch.add)
-_elementwise('elementwise_sub', torch.sub)
-_elementwise('elementwise_mul', torch.mul)
-_elementwise('elementwise_div', torch.div)
-_elementwise('elementwise_max', torch.maximum)
+def _activation(name, fn):
+    @register_kernel(name)
+    def _k(ctx, fn=fn):
+        ctx.set_output('Out', fn(ctx.input('X')))
 
 
-@register_kernel('relu')
-def _relu(ctx):
-    ctx.set_output('Out', torch.relu(ctx.input('X')))
+def _param_activation(name, fn):
+    @register_kernel(name)
+    def _k(ctx, fn=fn, attrs=PARAM_ATTRS[name]):
+        ctx.set_output('Out', fn(ctx.input('X'),
+                                 *[ctx.attr(a, d) for a, d in attrs]))
+
+
+for _name, _fn in BINS.items():
+    _elementwise(_name, _fn)
+for _name, _fn in ACTS.items():
+    _activation(_name, _fn)
+for _name, _fn in ACTS_P.items():
+    _param_activation(_name, _fn)
 
 
 @register_kernel('mul')
@@ -80,22 +91,6 @@ def _sum(ctx):
 @register_kernel('sign')
 def _sign(ctx):
     ctx.set_output('Out', torch.sign(ctx.input('X')))
-
-
-@register_kernel('sqrt')
-def _sqrt(ctx):
-    ctx.set_output('Out', torch.sqrt(ctx.input('X')))
-
-
-@register_kernel('pow')
-def _pow(ctx):
-    ctx.set_output('Out', torch.pow(ctx.input('X'), ctx.attr('factor', 1.0)))
-
-
-@register_kernel('clip')
-def _clip(ctx):
-    ctx.set_output('Out', torch.clamp(ctx.input('X'), ctx.attr('min'),
-                                      ctx.attr('max')))
 
 
 @register_kernel('clip_by_norm')

@@ -25,6 +25,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False    # the plain convs in full f32
     return torch.device('cuda')
 
 
@@ -173,7 +174,188 @@ def test_training_step_launches_the_kernels(cuda):
     out, = exe.run(main, feed=feed_fn(2), fetch_list=[loss], scope=scope)
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {'flash_attn_fwd': 2, 'flash_attn_bwd_dkvdq': 2,
-                           'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0}
+                           'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
+                           'fused_conv': 0}
     assert out.shape == (1,) and abs(float(out[0]) - 6.24) < 1.0
     for n in params:
         assert not torch.equal(scope.raw(n), before[n]), n
+
+
+# ---- fused conv -----------------------------------------------------------------
+# kernel vs the plain version on the same inputs, max |err| <= tol *
+# max(max |plain|, 1): bf16 rounds the output once (2**-9 relative), f32
+# only reorders f32 sums
+CONV_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def _conv_case(cuda, dtype, N, H, W, cin, cout, k, s, p, depthwise, seed,
+               stages=(('affine', 0, 1), ('act', 'relu')), extra_aux=()):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen)
+
+    x = randn(N, H, W, cin).to(dtype)
+    w_shape = (k, k, cin) if depthwise else (cout, k, k, cin)
+    w = (randn(*w_shape) * (2.0 / (k * k * (1 if depthwise else cin)))
+         ** 0.5).to(dtype)
+    ho, wo = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+    aux = [randn(1, cout).abs() + 0.5, randn(1, cout) * 0.1]
+    shapes = {'c': (1, cout), 'nc': (N, cout), 't': (N, ho, wo, cout),
+              's': (1, 1)}
+    kinds = ['c', 'c']
+    for kind in extra_aux:
+        # a per-channel operand stays positive: it is the base of pow
+        a = randn(*shapes[kind])
+        aux.append(a.abs() + 0.5 if kind == 'c' else
+                   a.to(dtype if kind == 't' else torch.float32))
+        kinds.append(kind)
+    return x, w, aux, kinds, list(stages), (s, s), (p, p), depthwise
+
+
+def _check_conv(case):
+    x, w, aux, kinds, stages, strides, pads, depthwise = case
+    before = ck.LAUNCHES['fused_conv']
+    got = ck.fused_conv(x, w, aux, kinds, stages, strides, pads, depthwise)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES['fused_conv'] == before + 1
+    ref = ck.fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
+                                  depthwise)
+    assert got.dtype == x.dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = max(ref.float().abs().max().item(), 1.0)
+    assert err <= CONV_TOL[x.dtype] * scale, (err, scale)
+
+
+# (N, H, W, Cin, Cout, K, stride, pad, depthwise): ResNet-50's region
+# shapes at a small batch (64-row tiles), one large enough for 128-row
+# tiles, plus ragged and odd sizes
+CONV_SHAPES = {
+    'stem_7x7_s2_cin3': (2, 32, 32, 3, 64, 7, 2, 3, False),
+    '1x1_64_256': (2, 14, 14, 64, 256, 1, 1, 0, False),
+    '1x1_s2_256_512': (2, 14, 14, 256, 512, 1, 2, 0, False),
+    '3x3_64': (2, 14, 14, 64, 64, 3, 1, 1, False),
+    '3x3_s2_ragged': (3, 9, 11, 40, 72, 3, 2, 1, False),
+    '1x1_128_row_tiles': (16, 56, 56, 64, 136, 1, 1, 0, False),
+    'cin5_cout7': (1, 6, 5, 5, 7, 3, 1, 1, False),
+    'depthwise_3x3': (2, 10, 10, 32, 32, 3, 1, 1, True),
+    'depthwise_5x5_s2': (2, 11, 9, 24, 24, 5, 2, 2, True),
+}
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', sorted(CONV_SHAPES))
+def test_fused_conv_kernel_matches_plain(cuda, dtype, shape):
+    _check_conv(_conv_case(cuda, dtype, *CONV_SHAPES[shape],
+                           seed=len(shape)))
+
+
+# each aux kind, binary op order and stage kind on the kernel
+EPILOGUES = {
+    'residual_t': ((('affine', 0, 1), ('bin', 'elementwise_add', 2, True),
+                    ('act', 'relu')), ('t',)),
+    'se_nc': ((('affine', 0, 1), ('bin', 'elementwise_mul', 2, False),
+               ('act', 'sigmoid')), ('nc',)),
+    'scalar_s': ((('bin', 'elementwise_sub', 2, True),
+                  ('scale', 1.5, -0.25, False), ('postmul', 0.5)), ('s',)),
+    'params': ((('act_p', 'leaky_relu', (0.1,)),
+                ('act_p', 'swish', (1.3,)),
+                ('act_p', 'hard_sigmoid', (0.3, 0.4))), ()),
+}
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('epi', sorted(EPILOGUES))
+def test_fused_conv_epilogue_kinds(cuda, dtype, epi):
+    stages, extra = EPILOGUES[epi]
+    _check_conv(_conv_case(cuda, dtype, 2, 8, 8, 16, 24, 3, 1, 1, False, 5,
+                           stages=stages, extra_aux=extra))
+
+
+def test_fused_conv_every_activation_and_binary_op(cuda):
+    """Each entry of activations.ACTS / ACTS_P / BINS as a stage, on
+    inputs kept positive where the function needs it."""
+    from paddle_tpu_torch.ops.activations import (ACTS, ACTS_P, BINS,
+                                                  PARAM_ATTRS)
+    stages = ([[('act', 'abs'), ('scale', 1.0, 0.25, True), ('act', n)]
+               for n in ACTS] +
+              [[('act_p', n, (0.4, 1.2)[:len(PARAM_ATTRS[n])])]
+               for n in ACTS_P if n != 'pow'] +
+              [[('act', 'abs'), ('act_p', 'pow', (1.5,))]] +
+              [[('act', 'abs'), ('scale', 1.0, 0.25, True),
+                ('bin', n, 2, swap)] for n in BINS for swap in (0, 1)])
+    for st in stages:
+        _check_conv(_conv_case(cuda, torch.float32, 1, 6, 6, 8, 16, 3, 1, 1,
+                               False, 9, stages=st, extra_aux=('c',)))
+
+
+def test_resnet50_serves_on_the_fused_kernel(cuda):
+    """ResNet-50 at 32 x 32: one request launches the fused conv 53
+    times with no fallback, and agrees with the same program on the
+    plain fused conv."""
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 1
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name='img', shape=[3, 32, 32], dtype='float32')
+        prob = resnet_imagenet(img, 1000, depth=50, is_test=True)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {'img': torch.randn(4, 3, 32, 32, device=cuda)}
+    passes.reset_fallback_counts()
+    before = ck.LAUNCHES['fused_conv']
+    got, = exe.run(main, feed=feed, fetch_list=[prob], scope=scope)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES['fused_conv'] == before + 53
+    assert passes.FALLBACKS == {}
+    with passes.conv_for_testing():
+        ref, = exe.run(main, feed=feed, fetch_list=[prob], scope=scope)
+    assert got.shape == (4, 1000)
+    assert (got.argmax(1) == ref.argmax(1)).all()
+
+
+def test_fused_region_trains_on_the_card(cuda):
+    """A conv + bias + relu region in a training program on the card:
+    the forward launches the kernel and the gradient, taken through the
+    plain version, matches the same step with the compiler disabled."""
+    from paddle_tpu_torch.compiler import passes
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 2
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name='x', shape=[16, 12, 12], dtype='float32')
+        c = pt.layers.conv2d(x, num_filters=32, filter_size=3, padding=1,
+                             act='relu')
+        loss = pt.layers.mean(pt.layers.conv2d(c, num_filters=8,
+                                               filter_size=1, act='tanh'))
+        pt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    grads = sorted(v.name for v in main.list_vars()
+                   if v.name.endswith('@GRAD'))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    feed = {'x': torch.randn(4, 16, 12, 12, device=cuda, generator=gen)}
+    exe = pt.Executor()
+    results = []
+    passes.reset_fallback_counts()
+    for optimize in (True, False):
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        before = ck.LAUNCHES['fused_conv']
+        if optimize:
+            results.append(exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                                   scope=scope, return_numpy=False))
+            assert ck.LAUNCHES['fused_conv'] == before + 2
+        else:
+            with pt.compiler.disabled():
+                results.append(exe.run(main, feed=feed,
+                                       fetch_list=[loss] + grads,
+                                       scope=scope, return_numpy=False))
+            assert ck.LAUNCHES['fused_conv'] == before
+    torch.cuda.synchronize()
+    assert passes.FALLBACKS == {}
+    # both sides run their convs in bf16 under AMP; the fused side rounds
+    # once per region, the unfused one after the conv and after each op
+    for f, r in zip(*results):
+        assert (f.float() - r.float()).norm() <= 2e-2 * r.float().norm()

@@ -1,5 +1,6 @@
-"""paddle_tpu_torch stands alone: it imports neither JAX nor paddle_tpu,
-and its entry points default to the card."""
+"""paddle_tpu_torch stands alone: it imports neither JAX nor paddle_tpu
+(not in its sources, and not while it serves the transformer or ResNet
+through its compiler), and its entry points default to the card."""
 import ast
 import os
 import subprocess
@@ -65,6 +66,19 @@ exe = pt.Executor(pt.CPUPlace())
 exe.run(startup, scope=scope)
 out, = exe.run(main, feed=feed_fn(2), fetch_list=[logits], scope=scope)
 assert out.shape == (2, 32, 64) and np.isfinite(out).all()
+from paddle_tpu_torch.compiler import passes
+from paddle_tpu_torch.models.resnet import resnet_imagenet
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    img = pt.layers.data(name='img', shape=[3, 32, 32], dtype='float32')
+    prob = resnet_imagenet(img, 10, depth=50, is_test=True)
+opt, _ = pt.compiler.optimize(main, fetch_names=[prob.name])
+assert [op.type for op in opt.global_block().ops].count('fused_conv') == 53
+exe.run(startup, scope=scope)
+out, = exe.run(main, feed={'img': np.ones((1, 3, 32, 32), 'float32')},
+               fetch_list=[prob], scope=scope)
+assert out.shape == (1, 10) and np.isfinite(out).all()
+assert passes.FALLBACKS == {}
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))
