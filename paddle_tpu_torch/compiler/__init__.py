@@ -1,20 +1,17 @@
-"""``paddle_tpu_torch.compiler`` — the program-level pass pipeline.
+"""``paddle_tpu_torch.compiler`` — the program-level passes.
 
-Counterpart of paddle_tpu/compiler/__init__.py. The Executor runs the
-pipeline over every program it lowers, once per memo key, after the
-prune (``executor.Executor._lowered``). The pipeline holds one pass,
-``conv_epilogue_fuse``; ``disabled()`` runs programs raw.
+Counterpart of paddle_tpu/compiler/__init__.py. The Executor runs
+:func:`optimize` over every program it lowers, once per memo key, after
+the prune (``executor.Executor._lowered``). The port has one pass,
+``conv_epilogue_fuse``; the JAX package's pass framework (registry,
+pipeline, results) comes back with a second one. ``disabled()`` runs
+programs raw.
 """
 import contextlib
 
-from .pass_base import (Pass, PassContext, PassResult, PassPipeline,  # noqa
-                        register_pass, get_pass)
-from . import passes  # noqa  (registers the pass and the fused_conv op)
-from .passes import DEFAULT_PASSES
+from .passes import ConvEpilogueFusion  # also registers the fused_conv op
 
-__all__ = ['Pass', 'PassContext', 'PassResult', 'PassPipeline',
-           'register_pass', 'get_pass', 'enabled',
-           'disabled', 'optimize', 'DEFAULT_PASSES']
+__all__ = ['enabled', 'disabled', 'optimize']
 
 _ENABLED = [True]
 
@@ -36,8 +33,11 @@ def disabled():
         _ENABLED[0] = prev
 
 
-def optimize(program, fetch_names=(), scope=None, clone=True):
-    """Run the pipeline. Returns ``(program, results)``; with
-    ``clone=True`` (default) the input program is untouched."""
-    return PassPipeline(list(DEFAULT_PASSES), name='default').run(
-        program, scope=scope, protected=frozenset(fetch_names), clone=clone)
+def optimize(program, fetch_names=(), clone=True):
+    """``program`` with its conv-epilogue regions fused; ``fetch_names``
+    stay producible. With ``clone=True`` (default) the input program is
+    untouched."""
+    if clone:
+        program = program.clone()
+    ConvEpilogueFusion().run(program, protected=frozenset(fetch_names))
+    return program

@@ -16,6 +16,7 @@ replays its captured ops exactly, and the reason is counted in
 turns into a replay.
 """
 import contextlib
+import weakref
 
 import torch
 
@@ -24,7 +25,6 @@ from ..core.amp import amp_enabled
 from ..core.registry import register_kernel
 from ..ops import cuda_kernels as ck
 from ..ops.activations import ACTS, ACTS_P, BINS, PARAM_ATTRS
-from .pass_base import Pass, PassResult, register_pass
 
 __all__ = ['ConvEpilogueFusion', 'FUSED_CONV_OP', 'FALLBACKS',
            'reset_fallback_counts', 'conv_for_testing']
@@ -177,18 +177,26 @@ def _memo(ctx, name, tensors, make):
     """``make()``, kept on the fused op while ``tensors`` (scope
     parameters) stay the same objects at the same versions, so serving
     requests reuse the re-laid-out weight and the folded batch norm.
-    Under autograd the parameters are fresh leaves each step and nothing
-    is kept."""
+    The entry holds its sources only weakly and goes with the first of
+    them to be freed, so a dropped scope frees its tensors and what was
+    made from them. Under autograd the parameters are fresh leaves each
+    step and nothing is kept."""
     if torch.is_grad_enabled():
         return make()
     memo = ctx.op.__dict__.setdefault('_memo', {})
     hit = memo.get(name)
     if hit is not None and len(hit[0]) == len(tensors) and all(
-            t is h and t._version == v for t, (h, v) in zip(tensors, hit[0])):
+            r() is t and t._version == v for t, (r, v) in zip(tensors,
+                                                               hit[0])):
         return hit[1]
-    val = make()
-    memo[name] = ([(t, t._version) for t in tensors], val)
-    return val
+    entry = [None, make()]
+
+    def forget(_):
+        if memo.get(name) is entry:
+            del memo[name]
+    entry[0] = [(weakref.ref(t, forget), t._version) for t in tensors]
+    memo[name] = entry
+    return entry[1]
 
 
 def _folded_bn(ctx, op, cout):
@@ -370,10 +378,10 @@ def _fused_conv_kernel(ctx):
     ctx.runner.run_ops(ops, ctx.env)
 
 
-@register_pass
-class ConvEpilogueFusion(Pass):
-    """Merge conv2d/depthwise_conv2d -> batch_norm -> activation /
-    residual-add chains into single ``fused_conv`` ops.
+class ConvEpilogueFusion(object):
+    """The ``conv_epilogue_fuse`` pass: merge conv2d/depthwise_conv2d ->
+    batch_norm -> activation / residual-add chains into single
+    ``fused_conv`` ops.
 
     Each link's output has exactly one reader anywhere in the program,
     that reader is a later epilogue-absorbable op in the global block,
@@ -389,8 +397,6 @@ class ConvEpilogueFusion(Pass):
     whole epilogue before one final cast (within 1e-5 of the unfused
     ops in f32, pinned by tests/test_torch_fused_conv.py)."""
 
-    name = 'conv_epilogue_fuse'
-
     @staticmethod
     def _hazard(ops, cur, j, hazard):
         for k in range(cur + 1, j):
@@ -398,8 +404,9 @@ class ConvEpilogueFusion(Pass):
                 return True
         return False
 
-    def run(self, program, ctx):
-        res = PassResult(self.name)
+    def run(self, program, protected=frozenset()):
+        """Rewrite ``program`` in place; ``protected`` names (the
+        fetches) must stay producible."""
         block = program.global_block()
         ops = block.ops
         read_count = {}
@@ -417,7 +424,7 @@ class ConvEpilogueFusion(Pass):
                 var = block._find_var_recursive(nm)
                 if var is not None and var.persistable:
                     continue
-                if read_count.get(nm, 0) or nm in ctx.protected:
+                if read_count.get(nm, 0) or nm in protected:
                     return False
             return True
 
@@ -436,7 +443,7 @@ class ConvEpilogueFusion(Pass):
             stats = None
             while True:
                 if read_count.get(cur_out, 0) != 1 \
-                        or cur_out in ctx.protected:
+                        or cur_out in protected:
                     break
                 var = block._find_var_recursive(cur_out)
                 if var is not None and var.persistable:
@@ -486,7 +493,7 @@ class ConvEpilogueFusion(Pass):
                 regions.append((chain, stats, cur_out))
 
         if not regions:
-            return res
+            return
         drop, insert_at = set(), {}
         for chain, stats, final_out in regions:
             members = [ops[k] for k in chain]
@@ -502,7 +509,6 @@ class ConvEpilogueFusion(Pass):
                        'fused_count': len(members)})
             insert_at[chain[-1]] = fused
             drop.update(chain)
-            res.ops_fused += len(members)
         new_ops = []
         for k, op in enumerate(ops):
             if k in insert_at:
@@ -511,12 +517,3 @@ class ConvEpilogueFusion(Pass):
                 new_ops.append(op)
         block.ops = new_ops
         program._bump_version()
-        res.changed = True
-        res.ops_removed = len(ops) - len(new_ops)
-        return res
-
-
-# The port's pipeline: conv_epilogue_fuse alone. The JAX package's other
-# default passes (constant_fold, dead_op_elim, elementwise_fuse,
-# buffer_reuse) change no result and are not ported yet.
-DEFAULT_PASSES = ('conv_epilogue_fuse',)

@@ -162,9 +162,8 @@ class Executor(object):
         if hit is None:
             pruned = self._maybe_prune(program, fetch_names)
             if optimize:
-                pruned, _ = _compiler.optimize(
-                    pruned, fetch_names=fetch_names, scope=scope,
-                    clone=pruned is program)
+                pruned = _compiler.optimize(pruned, fetch_names=fetch_names,
+                                            clone=pruned is program)
             fn = lower_block(pruned, pruned.global_block(), feed_names,
                              fetch_names, state_in, state_out, self.device)
             hit = memo[key] = (fn, state_in)

@@ -12,6 +12,9 @@
 - Regions the kernel cannot take replay their ops exactly and are
   counted by reason.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -62,8 +65,7 @@ def _fuse_both(j_main, t_main, fetch):
     """Each package's conv_epilogue_fuse alone over the pruned program."""
     j_opt, _ = jax_compiler.PassPipeline(['conv_epilogue_fuse']).run(
         j_main.prune([fetch]), protected=[fetch])
-    t_opt, _ = pt.compiler.optimize(t_main.prune([fetch]),
-                                    fetch_names=[fetch])
+    t_opt = pt.compiler.optimize(t_main.prune([fetch]), fetch_names=[fetch])
     return j_opt, t_opt
 
 
@@ -233,8 +235,8 @@ def test_region_matches_jax_pallas(kind):
     exe = pt.Executor(pt.CPUPlace())
     t_res, = exe.run(t_main, feed=feed, fetch_list=[t_out], scope=t_scope)
     assert pt_passes.FALLBACKS == {}
-    t_opt, _ = pt.compiler.optimize(t_main.prune([t_out]),
-                                    fetch_names=[t_out.name])
+    t_opt = pt.compiler.optimize(t_main.prune([t_out]),
+                                 fetch_names=[t_out.name])
     fused = [op.attrs['fused_types'] for op in t_opt.global_block().ops]
     assert fused == [fused_types]
     np.testing.assert_allclose(t_res, np.asarray(j_res), **TOL)
@@ -321,6 +323,38 @@ def test_fused_region_trains_like_the_unfused_ops():
     assert pt_passes.FALLBACKS == {}
     for f, r in zip(*results):
         np.testing.assert_allclose(f, r, **TOL)
+
+
+def test_fused_op_memo_lets_a_dropped_scope_go():
+    """The fused op keeps the folded batch norm and the re-laid-out
+    weight across requests, holding the scope's tensors weakly: serving
+    from a new scope uses its values, and a dropped scope's tensors are
+    freed."""
+    main, startup, out = _build(pt, _k_bn_relu)
+    conv, = [op for op in main.global_block().ops if op.type == 'conv2d']
+    bn, = [op for op in main.global_block().ops if op.type == 'batch_norm']
+    names = [conv.input('Filter')[0]] + [
+        bn.input(s)[0] for s in ('Scale', 'Bias', 'Mean', 'Variance')]
+    exe = pt.Executor(pt.CPUPlace())
+    feed = _feeds({'x': (2, 4, 8, 8)})
+    results = []
+    for seed in (1, 2):
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        for n in names:             # variance stays positive
+            scope.set_var(n, scope.raw(n) * (seed + 1) + 0.1 * seed)
+        for _ in range(2):
+            fused, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+        with pt.compiler.disabled():
+            raw, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+        np.testing.assert_allclose(fused, raw, **TOL)
+        results.append(fused)
+        refs = [weakref.ref(scope.raw(n)) for n in names]
+        del scope
+        gc.collect()
+        assert [r() for r in refs] == [None] * len(names)
+    assert pt_passes.FALLBACKS == {}
+    assert not np.allclose(results[0], results[1])
 
 
 # ---- the kernel's argument encoding ------------------------------------------

@@ -72,7 +72,7 @@ main, startup = pt.Program(), pt.Program()
 with pt.unique_name.guard(), pt.program_guard(main, startup):
     img = pt.layers.data(name='img', shape=[3, 32, 32], dtype='float32')
     prob = resnet_imagenet(img, 10, depth=50, is_test=True)
-opt, _ = pt.compiler.optimize(main, fetch_names=[prob.name])
+opt = pt.compiler.optimize(main, fetch_names=[prob.name])
 assert [op.type for op in opt.global_block().ops].count('fused_conv') == 53
 exe.run(startup, scope=scope)
 out, = exe.run(main, feed={'img': np.ones((1, 3, 32, 32), 'float32')},
