@@ -50,10 +50,35 @@ non-zero) on failure:
    kernels against the same step on the plain attention (autograd
    backward), by relative L2 error; two deliberately wrong backwards
    must fail that comparison;
-9. summary: a JSON line of the kernels, the card line, and last the
+9. stats kernels: the fused conv's stats form (train-mode batch norm:
+   the conv and the per-channel sum and sum of squares of its f32
+   output) against its plain version at every distinct region shape of
+   the ResNet-50 training program at batch 32, in bf16 and f32, plus a
+   depthwise shape: y per element, the moments per channel; the slab
+   without its last slot must fail where M is not a multiple of it;
+   kernel, plain version and cuDNN's conv with two channel reductions
+   (a yardstick only) timed per shape at batch 128 as replays of a CUDA
+   graph, and summed over a batch-128 step's 53 regions;
+10. ResNet-50 training: full width (3 x 224 x 224, 1000 classes),
+   cross_entropy, Momentum(0.01, 0.9).minimize, AMP, batch 128, one
+   fixed batch: warm-up steps, then timed steps through Executor.run
+   (ms per step, images/s, peak memory); the loss finite and falling,
+   exactly 53 stats-form launches a step, no other fused conv and no
+   fallback; a profile of one step;
+11. ResNet-50 gradients: at batch 8, every parameter gradient and every
+   moving statistic of one step on the kernel against the same step on
+   the plain fused conv, by relative L2 error; a backward without the
+   moments' cotangents and a kernel without its last row tile's moment
+   partials must fail that comparison;
+12. SE-ResNeXt-50 training: full width, batch 32, the same optimizer and
+   AMP, warm-up then timed steps: exact stats-form launches and
+   'groups' replays (its grouped 3x3 convs) a step, ms per step,
+   images/s;
+13. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -124,6 +149,36 @@ RESNET_REGIONS = 53                    # fused_conv ops of ResNet-50
 # 265 / 0.
 RESNET_LOGITS_TOL = 0.1
 RESNET_TOP1 = 0.8
+# the stats form's moments vs the plain version's on the same inputs, per
+# channel: |sum err| <= STATS_REL * sum |conv| and |sumsq err| <= STATS_REL
+# * sum conv^2; y is held by CONV_TOL. Both sides sum the same products in
+# f32 in another order; the bf16 kernel's tensor-core accumulation drifts
+# further from IEEE sums than the f32 kernel's FMA. Set from the sound
+# readings on the H100 (PERF.md, Findings): at most 8.0e-6 (bf16, sum of
+# squares, the 7x7 3x3 convs with K = 4608) and 4.2e-7 (f32); the limits
+# are 3.7x and 4.8x that. A slab without its last slot reads 3650-5530x
+# the old 1e-5.
+STATS_REL = {'bfloat16': 3e-5, 'float32': 2e-6}
+STATS_CHECK_BATCH = 32                 # the stats phase's checked shapes
+RESNET_TRAIN_BATCH = 128               # bench.py:121
+RESNET_TRAIN_WARMUP, RESNET_TRAIN_STEPS = 2, 10
+RESNET_GRAD_BATCH = 8
+SE_BATCH, SE_WARMUP, SE_STEPS = 32, 2, 3
+# whole ResNet-50, gradients and moving statistics of one batch-8 step on
+# the kernel vs the plain fused conv's forward (the same backward),
+# relative L2 per tensor: the largest and the median over the gradients,
+# the largest over the statistics. Set from the sound readings on the H100
+# (PERF.md, Findings): 0.205, 0.159 and 9.35e-4, bf16 region outputs that
+# differ by a rounding step here and there, through 53 train-mode batch
+# norms (the stem's statistics agree to 1e-6); the limits are 2.4x, 1.9x
+# and 5.3x that. The two wrong kernels read 29.6 / 2.02 (the moments'
+# cotangents dropped) and statistics 0.0332 (the last slot dropped).
+RESNET_GRAD_MAX, RESNET_GRAD_MEDIAN = 0.5, 0.3
+RESNET_STAT_TOL = 5e-3
+# each residual branch's last batch-norm gamma is scaled by this at the
+# start (Goyal et al., 2017): with gammas of 1, train-mode batch norm
+# makes the random network's gradients explode with depth
+RESIDUAL_GAMMA = 0.1
 
 
 def check(cond, msg):
@@ -607,19 +662,19 @@ def _taps(size, k, s, p):
     return len(set(inside)), len(inside)
 
 
-def conv_bound(x, w, aux, out, k, s, p, depthwise):
+def conv_bound(x, w, aux, out, k, s, p, depthwise, extra_bytes=0):
     """Least time for one fused conv on these tensors: its products
     (2 operations a tap inside the input, per output channel and input
     channel, one input channel a channel when depthwise) at the dtype's
     peak, or the bytes it must move over HBM, whichever is longer: the
-    input pixels the conv reads, w, the aux operands and the output,
-    each once."""
+    input pixels the conv reads, w, the aux operands, the output and
+    ``extra_bytes`` (the stats form's slab), each once."""
     N, H, W, cin = x.shape
     cout = out.shape[3]
     read_h, taps_h = _taps(H, k, s, p)
     read_w, taps_w = _taps(W, k, s, p)
     flops = 2 * N * cout * (1 if depthwise else cin) * taps_h * taps_w
-    nbytes = (N * read_h * read_w * cin * x.element_size() +
+    nbytes = (N * read_h * read_w * cin * x.element_size() + extra_bytes +
               sum(t.numel() * t.element_size() for t in [w, out] + aux))
     dtype = str(x.dtype).replace('torch.', '')
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
@@ -1033,7 +1088,7 @@ def phase_training(seed, card):
     expect = {'flash_attn_fwd': n_layers * TRAIN_STEPS,
               'flash_attn_bwd_dkvdq': n_layers * TRAIN_STEPS,
               'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
-              'fused_conv': 0}
+              'fused_conv': 0, 'fused_conv_stats': 0}
     check(launches == expect, 'training launches %s, expected %s'
           % (launches, expect))
     profile_run(lambda: exe.run(main, feed=feed, fetch_list=[loss],
@@ -1067,7 +1122,7 @@ def phase_training(seed, card):
           flush=True)
     expect = {'flash_attn_fwd': n_layers, 'flash_attn_bwd_dkvdq': 0,
               'flash_attn_bwd_dq': n_layers, 'flash_attn_bwd_dkv': n_layers,
-              'fused_conv': 0}
+              'fused_conv': 0, 'fused_conv_stats': 0}
     check(route_launches == expect, 'two-pass step launches %s, expected '
           '%s' % (route_launches, expect))
     check(errs[worst] <= ROUTE_GRAD_TOL, 'two-pass gradients differ from '
@@ -1164,6 +1219,438 @@ def phase_gradients(seed, trained):
     _restore(scope, snap)
 
 
+# ---- training ResNet-50 through the fused conv's stats form ----------------------
+def _train_program(seed, model='resnet_imagenet'):
+    """The benchmark's training program at full width
+    (benchmark/fluid/models.py:50-67: the model at 3 x 224 x 224 and 1000
+    classes, cross_entropy, mean; Momentum(0.01, 0.9) as bench.py:74),
+    built with the port's layers: (main, startup, loss)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name='data', shape=[3, 224, 224],
+                             dtype='float32')
+        label = pt.layers.data(name='label', shape=[1], dtype='int64')
+        predict = getattr(resnet, model)(img, class_dim=1000, depth=50)
+        loss = pt.layers.mean(pt.layers.cross_entropy(input=predict,
+                                                      label=label))
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    return main, startup, loss
+
+
+def train_regions(main, loss):
+    """The fused_conv regions of a training program after
+    conv_epilogue_fuse, as ({(H, W, Cin, Cout, K, stride, pad,
+    depthwise): count} of those that take the stats form, the number of
+    grouped-conv regions, which replay)."""
+    import paddle_tpu_torch as pt
+    opt = pt.compiler.optimize(main, fetch_names=[loss.name])
+    block = opt.global_block()
+    regions, grouped = {}, 0
+    for op in block.ops:
+        if op.type != 'fused_conv':
+            continue
+        _, ins, _, attrs = op.attrs['sub_ops'][0]
+        _, cin, h, w = block.var(ins['Input'][0]).shape
+        cout, w_cin, k, _ = block.var(ins['Filter'][0]).shape
+        groups = attrs.get('groups', 1) or 1
+        dw = groups == cin and w_cin == 1
+        if groups > 1 and not dw:
+            grouped += 1
+            continue
+        key = (h, w, cin, cout, k, attrs['strides'][0], attrs['paddings'][0],
+               dw)
+        regions[key] = regions.get(key, 0) + 1
+    return regions, grouped
+
+
+def _stats_ratios(x, w, s, p, dw, y, ssum, ssq, dtype):
+    """(y: max err / CONV_TOL's limit per element; sum, sumsq: max err /
+    STATS_REL's limit per channel) against the plain version."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    conv, rs, rss = ck.fused_conv_reference(
+        x.float(), w.float(), (), (), (), (s, s), (p, p), dw,
+        emit_stats=True)
+    rel = STATS_REL[dtype]
+    abs_sum = conv.abs().sum((0, 1, 2))
+    return (conv_err_ratio(y, conv.to(x.dtype), dtype),
+            ((ssum - rs).abs() / (rel * abs_sum)).max().item(),
+            ((ssq - rss).abs() / (rel * rss)).max().item(),
+            (y.float() - conv.to(x.dtype).float()).abs().max().item())
+
+
+def phase_stats_kernels(seed, main, loss):
+    """The stats form vs its plain version at every distinct region shape
+    of the ResNet-50 training program (batch 32, bf16 and f32, and one
+    depthwise shape), then timed per shape at the training batch of 128
+    in bf16. Returns the numbers summed over one batch-128 step's
+    regions."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    regions, grouped = train_regions(main, loss)
+    check(sum(regions.values()) == RESNET_REGIONS and not grouped,
+          'the ResNet-50 training program has %d stats-form regions and %d '
+          'grouped ones, expected %d and 0' % (sum(regions.values()),
+                                              grouped, RESNET_REGIONS))
+    print('stats kernels: %d distinct region shapes over %d regions of the '
+          'training program' % (len(regions), RESNET_REGIONS), flush=True)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 4)
+    N = STATS_CHECK_BATCH
+    rows = ck.FUSED_CONV_STAT_ROWS
+    max_err = 0.0
+    # off ResNet-50: a depthwise 3x3 stride 2 with a partial last slot
+    cases = sorted(regions) + [(14, 14, 256, 256, 3, 2, 1, True)]
+    for (H, W, cin, cout, k, s, p, dw) in cases:
+        for dtype in ('bfloat16', 'float32'):
+            x, w, _ = _conv_inputs(gen, dtype, N, H, W, cin, cout, k, s, p,
+                                   dw, ('c', 'c'))
+            y, slab = ck._fused_conv_launch(x, w, (), (), (), (s, s),
+                                            (p, p), dw, emit_stats=True)
+            got = ck.fused_conv(x, w, (), (), (), (s, s), (p, p), dw,
+                                emit_stats=True)
+            torch.cuda.synchronize()
+            ratios = _stats_ratios(x, w, s, p, dw, *got, dtype)
+            M = y.shape[0] * y.shape[1] * y.shape[2]
+            # control: the slab without its last slot (a kernel that
+            # drops the last row tile's partial)
+            control = None
+            if M % rows:
+                control = max(_stats_ratios(
+                    x, w, s, p, dw, y, slab[0, :-1].sum(0),
+                    slab[1, :-1].sum(0), dtype)[1:3])
+            print('kernel fused_conv_stats N=%d %dx%d Cin=%d Cout=%d K=%d '
+                  's=%d p=%d%s %s M=%d: y err/limit %.3g (max|err| %.3g), '
+                  'sum err/limit %.3g, sumsq err/limit %.3g (rel %g); last '
+                  'slot dropped: %s' % (
+                      N, H, W, cin, cout, k, s, p, ' depthwise' if dw else '',
+                      dtype, M, ratios[0], ratios[3], ratios[1], ratios[2],
+                      STATS_REL[dtype],
+                      'n/a (M %% %d == 0)' % rows if control is None
+                      else '%.3g' % control), flush=True)
+            check(max(ratios[:3]) <= 1, 'fused_conv_stats disagrees with its '
+                  'plain version at N=%d %dx%d Cin=%d Cout=%d K=%d s=%d %s'
+                  % (N, H, W, cin, cout, k, s, dtype))
+            check(control is None or control > 1, 'the moments\' limit does '
+                  'not catch a dropped last slot at N=%d %dx%d Cin=%d Cout=%d '
+                  'K=%d s=%d %s' % (N, H, W, cin, cout, k, s, dtype))
+            if dtype == 'bfloat16':
+                max_err = max(max_err, ratios[3])
+            del x, w, y, slab, got
+    torch.cuda.empty_cache()
+
+    # times at the training batch, bf16 as AMP runs them
+    N = RESNET_TRAIN_BATCH
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                  max_abs_err=max_err)
+    bound_by = {}
+    for (H, W, cin, cout, k, s, p, dw), count in sorted(regions.items()):
+        x, w, _ = _conv_inputs(gen, 'bfloat16', N, H, W, cin, cout, k, s, p,
+                               dw, ('c', 'c'))
+        args = (x, w, (), (), (), (s, s), (p, p), dw)
+        y = ck.fused_conv(*args, emit_stats=True)[0]
+        slab_bytes = 2 * 4 * -(-y.shape[0] * y.shape[1] * y.shape[2] //
+                               rows) * cout
+        bound_ms, by = conv_bound(x, w, [], y, k, s, p, dw, slab_bytes)
+        kernel_ms = graph_ms(lambda: ck.fused_conv(*args, emit_stats=True))
+        plain_ms = graph_ms(lambda: ck.fused_conv_reference(
+            *args, emit_stats=True), iters=3, reps=3)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(0, 3, 1, 2)
+
+        def library():
+            c = F.conv2d(xc, wc, stride=s, padding=p).float()
+            return c.sum((0, 2, 3)), (c * c).sum((0, 2, 3))
+        library_ms = graph_ms(library)
+        print('kernel fused_conv_stats N=%d %dx%d Cin=%d Cout=%d K=%d s=%d '
+              'p=%d bf16 x%d: kernel_ms %.4f plain_ms %.4f cudnn+sums_ms '
+              '%.4f bound_ms %.4f (%s)' % (N, H, W, cin, cout, k, s, p, count,
+                                           kernel_ms, plain_ms, library_ms,
+                                           bound_ms, by), flush=True)
+        totals['ms'] += count * kernel_ms
+        totals['plain_ms'] += count * plain_ms
+        totals['library_ms'] += count * library_ms
+        totals['bound_ms'] += count * bound_ms
+        bound_by[by] = bound_by.get(by, 0.0) + count * bound_ms
+        del x, w, y, args, xc, wc
+    totals['bound_by'] = max(bound_by, key=bound_by.get)
+    print('stats kernels: one batch-%d training step, bf16, summed over its '
+          '%d regions: kernel %.4f ms, plain %.4f ms, cuDNN conv and two '
+          'channel sums %.4f ms, bound %.4f ms (%s-bound regions hold %.1f%% '
+          'of it)' % (N, RESNET_REGIONS, totals['ms'], totals['plain_ms'],
+                      totals['library_ms'], totals['bound_ms'],
+                      totals['bound_by'],
+                      100 * bound_by[totals['bound_by']] / totals['bound_ms']),
+          flush=True)
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _image_train_feed(bs, seed):
+    """One fixed batch of images and labels, made on the card."""
+    import torch
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    return {'data': torch.randn(bs, 3, 224, 224, device='cuda',
+                                generator=gen),
+            'label': torch.randint(0, 1000, (bs, 1), device='cuda',
+                                   generator=gen)}
+
+
+def phase_resnet_training(seed, card, main, startup, loss):
+    """Train ResNet-50 at full width through Momentum.minimize and
+    Executor.run on one fixed batch of 128."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    exe = pt.Executor()                       # CUDAPlace(0)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _image_train_feed(RESNET_TRAIN_BATCH, seed + 11)
+    torch.cuda.synchronize()
+    print('resnet training: ResNet-50 (3x224x224, 1000 classes), batch %d, '
+          'Momentum(0.01, 0.9), AMP, %d ops, initialised in %.1f s'
+          % (RESNET_TRAIN_BATCH, len(main.global_block().ops),
+             time.perf_counter() - t0), flush=True)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RESNET_TRAIN_WARMUP):
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    passes.reset_fallback_counts()
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(RESNET_TRAIN_STEPS):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        outs.append(out)
+    torch.cuda.synchronize()
+    outs[-1] = outs[-1].item()                # the last loss to the host
+    dt = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    fallbacks = dict(passes.FALLBACKS)
+    losses += [float(o) for o in outs]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print('resnet training: %d steps, %.2f ms per step, %.1f images/s (host '
+          'clock, loss kept on the card, last loss copied to the host), peak '
+          'memory %.2f GiB; %s' % (
+              RESNET_TRAIN_STEPS, 1e3 * dt / RESNET_TRAIN_STEPS,
+              RESNET_TRAIN_STEPS * RESNET_TRAIN_BATCH / dt, peak, card),
+          flush=True)
+    print('resnet training: losses %s' % ', '.join('%.4f' % l
+                                                   for l in losses),
+          flush=True)
+    print('resnet training: launches over the timed steps %s, fallbacks %s'
+          % (launches, fallbacks), flush=True)
+    check(all(np.isfinite(losses)), 'non-finite ResNet-50 training loss')
+    check(losses[-1] < losses[0], 'the ResNet-50 loss did not fall: %g -> %g'
+          % (losses[0], losses[-1]))
+    expect = {name: 0 for name in launches}
+    expect['fused_conv_stats'] = RESNET_REGIONS * RESNET_TRAIN_STEPS
+    check(launches == expect, 'ResNet-50 training launches %s, expected %s'
+          % (launches, expect))
+    check(not fallbacks, 'ResNet-50 training fell back: %s' % fallbacks)
+    profile_run(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope, return_numpy=False),
+                'resnet training step')
+    result = dict(launches=launches, ms=1e3 * dt / RESNET_TRAIN_STEPS,
+                  peak_gib=peak)
+    del scope, exe, feed, outs
+    torch.cuda.empty_cache()
+    return result
+
+
+def _small_residual_gammas(main, scope):
+    """Scale each residual branch's last batch-norm Scale (behind the Y
+    operand of a block's elementwise_add, through an SE product) by
+    RESIDUAL_GAMMA in ``scope``."""
+    ops = main.global_block().ops
+    producer = {n: op for op in ops for n in op.output_arg_names}
+    for op in ops:
+        bn = producer.get(op.input('Y')[0]) if op.type == 'elementwise_add' \
+            else None
+        if bn is not None and bn.type == 'elementwise_mul':
+            bn = producer.get(bn.input('X')[0])
+        if bn is not None and bn.type == 'batch_norm':
+            name = bn.input('Scale')[0]
+            scope.set_var(name, scope.raw(name) * RESIDUAL_GAMMA)
+
+
+def _dropped_last_slot(x, w, strides, pads, depthwise):
+    """The stats form's kernel with its last slot of moment partials
+    dropped (a control)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    y, slab = ck._fused_conv_launch(x, w, (), (), (), strides, pads,
+                                    depthwise, emit_stats=True)
+    return y, slab[0, :-1].sum(0), slab[1, :-1].sum(0)
+
+
+def _plain_stats_function(x, w, aux, kinds, stages, strides, pads,
+                          depthwise, emit_stats=False):
+    """The plain fused conv, its stats form through the kernel's autograd
+    Function (so with the kernel's backward, in x's dtype): against the
+    kernel, only the forward differs."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    if not emit_stats:
+        return ck.fused_conv_reference(x, w, aux, kinds, stages, strides,
+                                       pads, depthwise)
+    with ck.stats_forward_for_testing():
+        return ck._FusedConvStats.apply(
+            (tuple(strides), tuple(pads), bool(depthwise)), x, w)
+
+
+def phase_resnet_gradients(seed, main, startup, loss):
+    """Every parameter gradient and moving statistic of one batch-8
+    ResNet-50 step on the kernel vs the same step on the plain fused
+    conv (its forward; the same backward)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    _small_residual_gammas(main, scope)
+    block = main.global_block()
+    grad_names = sorted(v.name for v in main.list_vars()
+                        if v.name.endswith('@GRAD'))
+    stat_names = [op.output(s)[0] for op in block.ops
+                  if op.type == 'batch_norm'
+                  for s in ('MeanOut', 'VarianceOut')]
+    feed = _image_train_feed(RESNET_GRAD_BATCH, seed + 13)
+    snap = _snapshot(scope)
+
+    def step():
+        _restore(scope, snap)
+        vals = exe.run(main, feed=feed, fetch_list=grad_names, scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        got = dict(zip(grad_names, vals))
+        got.update((n, scope.raw(n).clone()) for n in stat_names)
+        return got
+
+    def errors(got, ref):
+        """(largest gradient error, its name, median gradient error,
+        largest moving-statistic error, the stem's), relative L2 per
+        tensor."""
+        errs = _rel_l2(got, ref)
+        worst = max(grad_names, key=errs.get)
+        return (errs[worst], worst,
+                float(np.median([errs[n] for n in grad_names])),
+                max(errs[n] for n in stat_names),
+                max(errs[n] for n in stat_names[:2]))
+
+    def show(label, e):
+        print('resnet gradients: %s: gradients max %.3g (%s), median %.3g; '
+              'moving statistics max %.3g (stem %.3g)' % ((label,) + e),
+              flush=True)
+
+    ck.reset_launch_counts()
+    kernel = step()
+    check(ck.LAUNCHES['fused_conv_stats'] == RESNET_REGIONS,
+          'gradient step launches %s' % ck.LAUNCHES)
+    with passes.conv_for_testing(_plain_stats_function):
+        plain = step()
+    # where both stand against the plain fused conv with autograd's f32
+    # conv gradients
+    with passes.conv_for_testing():
+        wide = step()
+    show('batch %d, kernel vs plain fused conv (same backward), relative L2 '
+         'per tensor (tol max %g, median %g, statistics %g)' % (
+             RESNET_GRAD_BATCH, RESNET_GRAD_MAX, RESNET_GRAD_MEDIAN,
+             RESNET_STAT_TOL), errors(kernel, plain))
+    show('kernel vs the plain fused conv with f32 conv gradients',
+         errors(kernel, wide))
+    show('plain fused conv (same backward) vs the one with f32 conv '
+         'gradients', errors(plain, wide))
+    del wide
+    right = ck.fused_conv_stats_backward
+
+    def dropped_moments(x, w, y, g_y, g_sum, g_sumsq, *rest, **kw):
+        return right(x, w, y, g_y, None, None, *rest, **kw)
+
+    controls = {}
+    for name in ('backward without the moments\' cotangents',
+                 'last row tile\'s partials dropped'):
+        if name.startswith('backward'):
+            ck.fused_conv_stats_backward = dropped_moments
+            ctx = contextlib.nullcontext()
+        else:
+            ctx = ck.stats_forward_for_testing(_dropped_last_slot)
+        try:
+            with ctx:
+                controls[name] = errors(step(), plain)
+        finally:
+            ck.fused_conv_stats_backward = right
+        show('control, %s, vs plain fused conv' % name, controls[name])
+
+    def passes_limits(e):
+        return e[0] <= RESNET_GRAD_MAX and e[2] <= RESNET_GRAD_MEDIAN and \
+            e[3] <= RESNET_STAT_TOL
+
+    check(passes_limits(errors(kernel, plain)), 'ResNet-50 gradients or '
+          'moving statistics differ from the plain fused conv\'s')
+    for name, e in controls.items():
+        check(not passes_limits(e), 'the gradient limits do not catch a '
+              'control: %s' % name)
+    del scope, snap, kernel, plain
+    torch.cuda.empty_cache()
+
+
+def phase_se_resnext_training(seed, card):
+    """Train SE-ResNeXt-50 at full width, batch 32: its grouped 3x3 convs
+    replay ('groups'), every other region takes the stats form."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    main, startup, loss = _train_program(seed, 'se_resnext')
+    regions, grouped = train_regions(main, loss)
+    n_stats = sum(regions.values())
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _image_train_feed(SE_BATCH, seed + 17)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0][0]) for _ in range(SE_WARMUP)]
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    passes.reset_fallback_counts()
+    t0 = time.perf_counter()
+    outs = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)[0] for _ in range(SE_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [float(o) for o in outs]
+    launches, fallbacks = dict(ck.LAUNCHES), dict(passes.FALLBACKS)
+    print('se_resnext training: SE-ResNeXt-50 (3x224x224, 1000 classes), '
+          'batch %d, %d stats-form regions and %d grouped (replayed) a step; '
+          '%d steps, %.2f ms per step, %.1f images/s (host clock); '
+          'launches %s, fallbacks %s; losses %s; %s' % (
+              SE_BATCH, n_stats, grouped, SE_STEPS, 1e3 * dt / SE_STEPS,
+              SE_STEPS * SE_BATCH / dt, launches, fallbacks,
+              ', '.join('%.4f' % l for l in losses), card), flush=True)
+    check(all(np.isfinite(losses)), 'non-finite SE-ResNeXt-50 loss')
+    expect = {name: 0 for name in launches}
+    expect['fused_conv_stats'] = n_stats * SE_STEPS
+    check(launches == expect, 'SE-ResNeXt-50 launches %s, expected %s'
+          % (launches, expect))
+    check(grouped == 16 and fallbacks == {'groups': grouped * SE_STEPS},
+          'SE-ResNeXt-50 fallbacks %s, expected %d grouped replays a step'
+          % (fallbacks, grouped))
+    del scope, exe, feed, outs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=1e3 * dt / SE_STEPS)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1182,6 +1669,14 @@ def main():
     resnet_launches = phase_resnet_serving(args.seed)
     trained = phase_training(args.seed, card)
     phase_gradients(args.seed, trained)
+    # keep the counts, let the flagship's scope go
+    trained = {k: trained[k] for k in ('launches', 'route_launches')}
+    r_main, r_startup, r_loss = _train_program(args.seed)
+    stats = phase_stats_kernels(args.seed, r_main, r_loss)
+    resnet_trained = phase_resnet_training(args.seed, card, r_main,
+                                           r_startup, r_loss)
+    phase_resnet_gradients(args.seed, r_main, r_startup, r_loss)
+    phase_se_resnext_training(args.seed, card)
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests plus the timed training steps; the fused conv:
@@ -1212,6 +1707,13 @@ def main():
         source='paddle_tpu_torch/csrc/fused_conv.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_launches['fused_conv'], **conv))
+    # its stats form: launches over the timed ResNet-50 training steps,
+    # numbers summed over one batch-128 step's 53 regions (bf16)
+    kernels.append(dict(
+        name='fused_conv_stats', route='cuda',
+        source='paddle_tpu_torch/csrc/fused_conv.cu',
+        replaces='paddle_tpu/ops/pallas_kernels.py:789',
+        launches=resnet_trained['launches']['fused_conv_stats'], **stats))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -12,10 +12,11 @@ Covered so far: serving a model from a saved inference model —
 ``Executor.run`` per step — for the flagship transformer's op set, with
 attention and its gradient on hand-written CUDA kernels
 (``ops/cuda_kernels.py``, ``csrc/flash_attn_fwd.cu``,
-``csrc/flash_attn_bwd.cu``); and serving ResNet (``models/resnet.py``),
-whose conv + batch-norm + activation + residual regions the compiler's
-``conv_epilogue_fuse`` pass turns into ``fused_conv`` ops that run on a
-hand-written CUDA kernel (``csrc/fused_conv.cu``).
+``csrc/flash_attn_bwd.cu``); and serving and training ResNet and
+SE-ResNeXt (``models/resnet.py``), whose conv + batch-norm + activation +
+residual regions the compiler's ``conv_epilogue_fuse`` pass turns into
+``fused_conv`` ops that run on a hand-written CUDA kernel
+(``csrc/fused_conv.cu``; with a train-mode batch norm, its stats form).
 
 Entry points run on the card unless told otherwise: ``Executor()`` means
 ``CUDAPlace(0)`` and raises where CUDA is absent; pass ``CPUPlace()`` to

@@ -10,8 +10,11 @@ activation, scale and binary elementwise ops behind it.
 The ``fused_conv`` op runs its region as ONE call of
 ``ops/cuda_kernels.py::fused_conv``: on the card the hand-written kernel
 (``csrc/fused_conv.cu``, conv plus the whole epilogue on chip, one
-store), on the CPU its plain version. A region the kernel cannot take
-replays its captured ops exactly, and the reason is counted in
+store), on the CPU its plain version. A region with a train-mode batch
+norm calls the kernel's stats form (the conv and its per-channel moments)
+and normalises, updates the moving statistics and applies the later
+stages outside it, as the JAX package does. A region the kernel cannot
+take replays its captured ops exactly, and the reason is counted in
 ``FALLBACKS``. A kernel that fails to build or launch raises: no failure
 turns into a replay.
 """
@@ -25,6 +28,7 @@ from ..core.amp import amp_enabled
 from ..core.registry import register_kernel
 from ..ops import cuda_kernels as ck
 from ..ops.activations import ACTS, ACTS_P, BINS, PARAM_ATTRS
+from ..ops.common import f32
 
 __all__ = ['ConvEpilogueFusion', 'FUSED_CONV_OP', 'FALLBACKS',
            'reset_fallback_counts', 'conv_for_testing']
@@ -264,6 +268,7 @@ def _lower_fused_conv(ctx, ops):
 
     # map the epilogue members onto kernel stages + aux operands
     stages, aux, kinds = [], [], []
+    train_bn = None
     cur = conv.outputs['Output'][0]
     for op in ops[1:]:
         if op.type not in BINS and op.inputs.get('X', [None])[0] != cur:
@@ -272,9 +277,17 @@ def _lower_fused_conv(ctx, ops):
             if op.attrs.get('data_layout', 'NCHW') != 'NCHW':
                 return 'bn-layout'
             if not op.attrs.get('is_test', False):
-                # batch moments need the whole conv output: the kernel's
-                # moment partials (emit_stats) come with training
-                return 'train-bn'
+                # batch moments need the whole conv output, so the batch
+                # norm sits directly on the conv: the kernel's stats form
+                # gives the moments, and the normalisation and every
+                # later stage run on its output here
+                if train_bn is not None or op is not ops[1]:
+                    return 'train-bn-order'
+                if not amp and x.dtype != torch.float32:
+                    return 'train-bn-dtype'
+                train_bn = op
+                cur = op.outputs['Y'][0]
+                continue
             aux += list(_folded_bn(ctx, op, cout))
             kinds += ['c', 'c']
             stages.append(('affine', len(aux) - 2, len(aux) - 1))
@@ -339,10 +352,47 @@ def _lower_fused_conv(ctx, ops):
     w_k = _memo(ctx, ('w', cdt), [w], lambda: (
         w[:, 0].to(cdt).permute(1, 2, 0).contiguous() if depthwise  # KH KW C
         else w.to(cdt).permute(0, 2, 3, 1).contiguous()))        # O KH KW I
-    y = _FUSED_CONV[0](x_nhwc, w_k, tuple(aux), tuple(kinds), tuple(stages),
-                       strides, pads, depthwise)
-    ctx.set_output('Out', y.permute(0, 3, 1, 2))
+    if train_bn is None:
+        y = _FUSED_CONV[0](x_nhwc, w_k, tuple(aux), tuple(kinds),
+                           tuple(stages), strides, pads, depthwise)
+        ctx.set_output('Out', y.permute(0, 3, 1, 2))
+        return None
+    _train_bn_region(ctx, train_bn, x_nhwc, w_k, aux, kinds, stages,
+                     strides, pads, depthwise, cdt)
     return None
+
+
+def _train_bn_region(ctx, bn, x_nhwc, w_k, aux, kinds, stages, strides,
+                     pads, depthwise, cdt):
+    """A region whose batch norm is in train mode (JAX passes.py:748-793):
+    the stats form gives the conv output and its per-channel sum and sum
+    of squares; the batch moments are E[y] and max(E[y^2] - E[y]^2, 0) in
+    f32 over N * Ho * Wo pixels; y is normalised with them and the
+    batch norm's Scale and Bias in f32, the later stages follow, and one
+    cast to the region's dtype. The moving averages (MeanOut,
+    VarianceOut, no gradient) and the batch moments (SavedMean,
+    SavedVariance) go to the op's Stats outputs."""
+    y, psum, psumsq = _FUSED_CONV[0](x_nhwc, w_k, (), (), (), strides, pads,
+                                     depthwise, emit_stats=True)
+    count = float(y.shape[0] * y.shape[1] * y.shape[2])
+    bmean = psum / count
+    bvar = torch.clamp(psumsq / count - bmean * bmean, min=0.0)
+    scale, bias, mean, var = (ctx.env[bn.inputs[s][0]] for s in
+                              ('Scale', 'Bias', 'Mean', 'Variance'))
+    momentum = float(bn.attrs.get('momentum', 0.9))
+    eps = float(bn.attrs.get('epsilon', 1e-5))
+    inv = torch.rsqrt(bvar + eps)
+    yn = (f32(y) - bmean) * inv * scale + bias     # NHWC: C is last
+    fetch_aux = ck.aux_fetcher(aux, kinds)
+    for st in stages:
+        yn = ck.apply_stage(yn, st, fetch_aux)
+    ctx.set_output('Out', yn.to(cdt).permute(0, 3, 1, 2))
+    ctx.set_output('Stats', (mean * momentum + bmean * (1.0 - momentum))
+                   .detach(), 0)
+    ctx.set_output('Stats', (var * momentum + bvar * (1.0 - momentum))
+                   .detach(), 1)
+    ctx.set_output('Stats', bmean, 2)
+    ctx.set_output('Stats', bvar, 3)
 
 
 # the fused conv function the op calls; swapped only by conv_for_testing

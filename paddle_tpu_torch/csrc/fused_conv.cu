@@ -1,7 +1,7 @@
 // Fused conv + epilogue for Hopper (sm_90a), bf16 and f32.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py::_fconv_kernel
-// (launched by _fconv_pallas). Same function:
+// (launched by _fconv_pallas) in both its forms. Same function:
 //   y = epilogue(conv(x, w))        (or a depthwise conv)
 // with the conv accumulated in f32 and the epilogue stages (folded batch
 // norm, activations, scale, binary ops against per-channel, per-sample,
@@ -9,6 +9,14 @@
 // chip, then one cast and one store. Layout: x [N, H, W, Cin]
 // (NHWC), w [Cout, KH, KW, Cin] (depthwise: [KH, KW, C]), out
 // [N, Ho, Wo, Cout] in x's dtype; aux 't' operands [N, Ho, Wo, Cout].
+//
+// The stats form (emit_stats; entry point fused_conv_stats; train-mode
+// batch norm) takes no epilogue stages and also writes, per channel, the
+// sum and the sum of squares of the f32 accumulator over each run of
+// kStatRows output rows (pixels): a [2, ceil(M / kStatRows), Cout] f32
+// slab, sums first, each slot written by one block with no atomics, so
+// the result is deterministic. Rows past M = N*Ho*Wo add nothing. The
+// caller sums the slab over its slots.
 //
 // What bounds it on this card. A ResNet-50 conv at batch 32 does tens
 // to hundreds of multiply-adds per byte it must move (K = KH*KW*Cin
@@ -40,8 +48,13 @@
 //     of 8 channels;
 //   * f32: 256 threads per 64 x 64 tile, 4 x 4 outputs a thread, scalar
 //     FMA in full f32 (no TF32);
-//   * depthwise: one thread per output element, channels fastest, a
-//     multiply-add per tap in f32;
+//   * depthwise: a block per 64 pixels by 32 channels, a thread per
+//     channel and eighth of the pixels, a multiply-add per tap in f32;
+//   * the stats form reduces what each block already holds: the bf16
+//     kernel its f32 tile staged in shared memory, the f32 kernel its
+//     register tile through shared memory, the depthwise kernel its
+//     per-thread sums; one slot per 64 rows, so a block of 128 rows
+//     writes two;
 //   * the epilogue is a list of opcodes (FusedConvArgs) interpreted on
 //     the accumulators, 8 channels of a pixel at a time in the bf16
 //     kernel (one decode, 16-byte operand loads); every thread of the
@@ -89,7 +102,21 @@ struct FusedConvArgs {
   int n_stages;
   int N, H, W, Cin, Cout, KH, KW, sh, sw, ph, pw, Ho, Wo;
   int depthwise, is_bf16;
+  float* stats;  // the stats form's slab, or null
 };
+
+// output rows (pixels) per slot of the stats form's slab
+constexpr int kStatRows = 64;
+
+// The stats form's slab: sums at [slot, co], sums of squares after all
+// ceil(M / kStatRows) slots of sums.
+__device__ __forceinline__ void write_stats(const FusedConvArgs& a, int M,
+                                            int slot, int co, float s,
+                                            float ss) {
+  const long at = (long)slot * a.Cout + co;
+  a.stats[at] = s;
+  a.stats[(long)((M + kStatRows - 1) / kStatRows) * a.Cout + at] = ss;
+}
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
@@ -511,6 +538,23 @@ __global__ void __launch_bounds__(128)
             2 * t4) = make_float2(acc[mt][nt][2 * half],
                                   acc[mt][nt][2 * half + 1]);
   __syncthreads();
+  if (a.stats) {
+    // per channel over each kStatRows-row slot of the tile: thread i
+    // sums column i % kBN down slot i / kBN, rows in order (neighbouring
+    // threads read neighbouring columns: no bank conflicts)
+    for (int i = tid; i < (BM / kStatRows) * kBN; i += 128) {
+      const int slot = i / kBN, c = i % kBN, r0 = slot * kStatRows;
+      if (m0 + r0 >= M || n0 + c >= a.Cout) continue;
+      const int rows = min(kStatRows, M - m0 - r0);
+      float s = 0.f, ss = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float v = sC[(r0 + r) * kLDC + c];
+        s += v;
+        ss += v * v;
+      }
+      write_stats(a, M, (m0 + r0) / kStatRows, n0 + c, s, ss);
+    }
+  }
   bf16* out = static_cast<bf16*>(a.out);
   const bool vec_out = (a.Cout & 7) == 0;
   for (int i = tid; i < BM * (kBN / 8); i += 128) {
@@ -537,6 +581,7 @@ __global__ void __launch_bounds__(128)
 // ---- f32: implicit GEMM on scalar FMA --------------------------------------
 constexpr int kFM = 64, kFN = 64, kFK = 16;
 constexpr int kFLD = kFM + 4;  // pitch of the k-major tiles, 16-byte rows
+static_assert(kFM == kStatRows, "an f32 block's rows are one stats slot");
 
 __global__ void __launch_bounds__(256)
     conv_f32_kernel(const __grid_constant__ FusedConvArgs a) {
@@ -584,6 +629,36 @@ __global__ void __launch_bounds__(256)
     }
   }
 
+  if (a.stats) {
+    // each thread's 4 rows, then the 16 row groups of a column in order
+    // through shared memory; the block's kFM = kStatRows rows are one slot
+    __shared__ float sS[2][kFM / 4][kFN];
+    float s[4] = {}, ss[4] = {};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (m0 + ty * 4 + i >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j] += acc[i][j];
+        ss[j] += acc[i][j] * acc[i][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sS[0][ty][tx * 4 + j] = s[j];
+      sS[1][ty][tx * 4 + j] = ss[j];
+    }
+    __syncthreads();
+    if (tid < kFN && n0 + tid < a.Cout) {
+      float bs = 0.f, bss = 0.f;
+      for (int g = 0; g < kFM / 4; ++g) {
+        bs += sS[0][g][tid];
+        bss += sS[1][g][tid];
+      }
+      write_stats(a, M, blockIdx.x, n0 + tid, bs, bss);
+    }
+  }
+
   float* out = static_cast<float*>(a.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -599,35 +674,56 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---- depthwise: a multiply-add per tap -------------------------------------
+// A block of 256 threads covers kStatRows output pixels by kDwC channels:
+// thread (p, c) = (tid / kDwC, tid % kDwC) computes pixels p, p + kDwP,
+// ... of its channel, so neighbouring threads read and write neighbouring
+// channels of one pixel, and the block's pixels are one slot of the stats
+// form's slab.
+constexpr int kDwC = 32, kDwP = 8;
+
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kDwC * kDwP)
     conv_depthwise_kernel(const __grid_constant__ FusedConvArgs a) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ float sS[2][kDwP][kDwC];
   const int C = a.Cout;
   const int M = a.N * a.Ho * a.Wo;
-  if (idx >= (long)M * C) return;
-  const int c = (int)(idx % C);
-  const int m = (int)(idx / C);
-  const RowInfo r = row_info(a, m, M);
+  const int lc = threadIdx.x % kDwC, lp = threadIdx.x / kDwC;
+  const int c = blockIdx.y * kDwC + lc;
+  const int m0 = blockIdx.x * kStatRows;
   const T* x = static_cast<const T*>(a.x);
   const T* w = static_cast<const T*>(a.w);
-  float acc = 0.f;
-  for (int kh = 0; kh < a.KH; ++kh)
-    for (int kw = 0; kw < a.KW; ++kw)
-      acc = fmaf(to_f32(load_x(a, x, r, kh, kw, c)),
-                 to_f32(w[(kh * a.KW + kw) * C + c]), acc);
-  store(static_cast<T*>(a.out) + idx, epilogue1(a, acc, m, c));
+  float s = 0.f, ss = 0.f;
+  if (c < C) {
+    for (int p = lp; p < kStatRows && m0 + p < M; p += kDwP) {
+      const int m = m0 + p;
+      const RowInfo r = row_info(a, m, M);
+      float acc = 0.f;
+      for (int kh = 0; kh < a.KH; ++kh)
+        for (int kw = 0; kw < a.KW; ++kw)
+          acc = fmaf(to_f32(load_x(a, x, r, kh, kw, c)),
+                     to_f32(w[(kh * a.KW + kw) * C + c]), acc);
+      s += acc;
+      ss += acc * acc;
+      store(static_cast<T*>(a.out) + (long)m * C + c,
+            epilogue1(a, acc, m, c));
+    }
+  }
+  if (a.stats) {
+    sS[0][lp][lc] = s;
+    sS[1][lp][lc] = ss;
+    __syncthreads();
+    if (lp == 0 && c < C) {
+      float bs = 0.f, bss = 0.f;
+      for (int g = 0; g < kDwP; ++g) {
+        bs += sS[0][g][lc];
+        bss += sS[1][g][lc];
+      }
+      write_stats(a, M, blockIdx.x, c, bs, bss);
+    }
+  }
 }
 
-}  // namespace
-
-// Plain C entry point, bound with ctypes: ``args`` points at a
-// FusedConvArgs. Returns 0 (cudaSuccess) or the cudaError_t of the refused
-// or failed launch; arguments it cannot take give cudaErrorInvalidValue.
-// The caller checks shapes, dtypes, devices, contiguity and 16-byte
-// alignment of x and w before calling.
-extern "C" int fused_conv(const void* args, void* stream) {
-  const FusedConvArgs& a = *static_cast<const FusedConvArgs*>(args);
+int launch(const FusedConvArgs& a, void* stream) {
   if (a.n_aux < 0 || a.n_aux > kMaxAux || a.n_stages < 0 ||
       a.n_stages > kMaxStages || a.N <= 0 || a.Ho <= 0 || a.Wo <= 0 ||
       a.Cin <= 0 || a.Cout <= 0 || a.KH <= 0 || a.KW <= 0 || a.sh <= 0 ||
@@ -636,13 +732,13 @@ extern "C" int fused_conv(const void* args, void* stream) {
   const long M = (long)a.N * a.Ho * a.Wo;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.depthwise) {
-    const long blocks = (M * a.Cout + 255) / 256;
-    if (a.Cin != a.Cout || blocks > 0x7fffffffL)
-      return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)((M + kStatRows - 1) / kStatRows),
+                    (a.Cout + kDwC - 1) / kDwC);
+    if (a.Cin != a.Cout || grid.y > 65535) return (int)cudaErrorInvalidValue;
     if (a.is_bf16)
-      conv_depthwise_kernel<bf16><<<(unsigned)blocks, 256, 0, st>>>(a);
+      conv_depthwise_kernel<bf16><<<grid, kDwC * kDwP, 0, st>>>(a);
     else
-      conv_depthwise_kernel<float><<<(unsigned)blocks, 256, 0, st>>>(a);
+      conv_depthwise_kernel<float><<<grid, kDwC * kDwP, 0, st>>>(a);
   } else if (a.is_bf16) {
     // 128-row tiles, or 64-row ones when 128-row tiles would not give
     // every SM two blocks (the small-M convs of the late stages)
@@ -668,4 +764,28 @@ extern "C" int fused_conv(const void* args, void* stream) {
     conv_f32_kernel<<<grid, 256, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes: ``args`` points at a
+// FusedConvArgs. Each returns 0 (cudaSuccess) or the cudaError_t of the
+// refused or failed launch; arguments it cannot take give
+// cudaErrorInvalidValue. The caller checks shapes, dtypes, devices,
+// contiguity and 16-byte alignment of x and w before calling.
+
+// conv + epilogue, one store
+extern "C" int fused_conv(const void* args, void* stream) {
+  const FusedConvArgs& a = *static_cast<const FusedConvArgs*>(args);
+  if (a.stats) return (int)cudaErrorInvalidValue;
+  return launch(a, stream);
+}
+
+// The stats form: conv, no epilogue, and the moment slab at a.stats
+// ([2, ceil(M / 64), Cout] f32, every slot written).
+extern "C" int fused_conv_stats(const void* args, void* stream) {
+  const FusedConvArgs& a = *static_cast<const FusedConvArgs*>(args);
+  if (!a.stats || a.n_stages != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch(a, stream);
 }

@@ -11,7 +11,8 @@ from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
-           'softmax', 'softmax_with_cross_entropy', 'split', 'reshape',
+           'softmax', 'cross_entropy', 'softmax_with_cross_entropy', 'split',
+           'reshape',
            'flash_attention', 'reduce_sum']
 
 
@@ -267,6 +268,19 @@ def softmax(input, param_attr=None, bias_attr=None, use_cudnn=True,
                                      lod_level=input.lod_level)
     helper.append_op(type='softmax', inputs={'X': [input]},
                      outputs={'Out': [out]})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False):
+    """cross_entropy op on probabilities: Y [..., 1]."""
+    helper = LayerHelper('cross_entropy', **{})
+    out = helper.create_tmp_variable(dtype=input.dtype,
+                                     shape=tuple(input.shape[:-1]) + (1,),
+                                     lod_level=input.lod_level)
+    helper.append_op(type='cross_entropy',
+                     inputs={'X': [input], 'Label': [label]},
+                     outputs={'Y': [out]},
+                     attrs={'soft_label': soft_label})
     return out
 
 

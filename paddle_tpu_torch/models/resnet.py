@@ -1,13 +1,13 @@
-"""ResNet (bottleneck) written with the port's layers.
+"""ResNet (bottleneck) and SE-ResNeXt written with the port's layers.
 
 Copy of paddle_tpu/models/resnet.py's ImageNet ResNet (the reference's
 benchmark/fluid/resnet.py), trimmed to the bottleneck depths 50, 101
-and 152. It builds the same program as paddle_tpu's resnet_imagenet, op for op
-and name for name.
+and 152, and its SE-ResNeXt (benchmark/fluid/se_resnext.py). Each builds
+the same program as paddle_tpu's, op for op and name for name.
 """
 from .. import layers
 
-__all__ = ['resnet_imagenet']
+__all__ = ['resnet_imagenet', 'se_resnext']
 
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act='relu',
@@ -62,3 +62,52 @@ def resnet_imagenet(input, class_dim, depth=50, is_test=False):
     pool2 = layers.pool2d(input=res4, pool_size=7, pool_type='avg',
                           global_pooling=True)
     return layers.fc(input=pool2, size=class_dim, act='softmax')
+
+
+def _squeeze_excitation(input, num_channels, reduction_ratio):
+    pool = layers.pool2d(input=input, pool_type='avg', global_pooling=True)
+    squeeze = layers.fc(input=pool, size=num_channels // reduction_ratio,
+                        act='relu')
+    excitation = layers.fc(input=squeeze, size=num_channels, act='sigmoid')
+    return layers.elementwise_mul(x=input, y=excitation, axis=0)
+
+
+def _se_bottleneck(input, num_filters, stride, cardinality, reduction_ratio,
+                   ch_in, is_test=False):
+    conv0 = conv_bn_layer(input, num_filters, 1, 1, 0, is_test=is_test)
+    conv1 = layers.conv2d(input=conv0, num_filters=num_filters,
+                          filter_size=3, stride=stride, padding=1,
+                          groups=cardinality, act=None, bias_attr=False)
+    conv1 = layers.batch_norm(input=conv1, act='relu', is_test=is_test)
+    conv2 = conv_bn_layer(conv1, num_filters * 2, 1, 1, 0, act=None,
+                          is_test=is_test)
+    scale = _squeeze_excitation(conv2, num_filters * 2, reduction_ratio)
+    short = shortcut(input, ch_in, num_filters * 2, stride, is_test)
+    return layers.elementwise_add(x=short, y=scale, act='relu')
+
+
+def se_resnext(input, class_dim, depth=50, is_test=False):
+    """SE-ResNeXt-50/101/152: cardinality 32, reduction 16; its grouped
+    3x3 convs replay in the fused_conv op (counted as 'groups')."""
+    cfg = {50: [3, 4, 6, 3], 101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+    if depth not in cfg:
+        raise ValueError("se_resnext builds depths %s, got %r"
+                         % (sorted(cfg), depth))
+    depth_cfg = cfg[depth]
+    cardinality, reduction_ratio = 32, 16
+    num_filters = [128, 256, 512, 1024]
+
+    conv = conv_bn_layer(input, 64, 7, 2, 3, is_test=is_test)
+    conv = layers.pool2d(input=conv, pool_size=3, pool_stride=2,
+                         pool_padding=1, pool_type='max')
+    ch_in = 64
+    for block in range(len(depth_cfg)):
+        for i in range(depth_cfg[block]):
+            conv = _se_bottleneck(conv, num_filters[block],
+                                  2 if i == 0 and block != 0 else 1,
+                                  cardinality, reduction_ratio, ch_in,
+                                  is_test)
+            ch_in = num_filters[block] * 2
+    pool = layers.pool2d(input=conv, pool_size=7, pool_type='avg',
+                         global_pooling=True)
+    return layers.fc(input=pool, size=class_dim, act='softmax')

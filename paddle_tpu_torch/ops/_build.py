@@ -48,6 +48,8 @@ KERNELS = {
     'fused_conv': ('fused_conv.cu', {
         # &FusedConvArgs (cuda_kernels._FusedConvArgs), stream
         'fused_conv': [_P, _P],
+        # the same, with the stats form's slab (emit_stats)
+        'fused_conv_stats': [_P, _P],
     }),
 }
 

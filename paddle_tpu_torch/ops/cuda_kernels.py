@@ -28,7 +28,14 @@ Ported so far:
   store, in ``csrc/fused_conv.cu``; differentiable through its plain
   version (``_FusedConv``), as ``_fconv_bwd`` differentiates
   ``_fconv_reference``.
+- ``fused_conv(..., emit_stats=True)``: the same kernel's stats form
+  (``_fconv_kernel`` with ``emit_stats``), the conv and the per-channel
+  sum and sum of squares of its f32 output for train-mode batch norm;
+  differentiable through all three outputs (``_FusedConvStats``), the
+  conv's gradients taken in x's dtype with f32 accumulation, as the JAX
+  vjp takes them.
 """
+import contextlib
 import ctypes
 import functools
 import math
@@ -43,7 +50,7 @@ from .activations import ACTS, ACTS_P, BINS
 # only where a kernel is launched
 LAUNCHES = {'flash_attn_fwd': 0, 'flash_attn_bwd_dkvdq': 0,
             'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
-            'fused_conv': 0}
+            'fused_conv': 0, 'fused_conv_stats': 0}
 
 
 def reset_launch_counts():
@@ -350,6 +357,9 @@ FUSED_CONV_MAX_STAGES = 8
 FUSED_CONV_MAX_AUX = 8
 _AUX_KINDS = ('c', 'nc', 't', 's')
 _STAGE_OPS = ('affine', 'act', 'act_p', 'scale', 'postmul', 'bin')
+# output rows (pixels) per slot of the stats form's moment slab
+# (csrc/fused_conv.cu kStatRows)
+FUSED_CONV_STAT_ROWS = 64
 _ACT_CODES = {n: i for i, n in enumerate(ACTS)}
 _ACT_P_CODES = {n: i for i, n in enumerate(ACTS_P)}
 _BIN_CODES = {n: i for i, n in enumerate(BINS)}
@@ -386,8 +396,23 @@ def apply_stage(y, st, fetch_aux):
     raise ValueError('unknown epilogue stage %r' % (st,))
 
 
+def aux_fetcher(aux, kinds):
+    """``fetch_aux`` for :func:`apply_stage` on an NHWC value: the i-th
+    aux operand in f32, shaped to broadcast against [N, Ho, Wo, C]."""
+    def fetch_aux(i):
+        o = aux[i].float()
+        if kinds[i] == 't':
+            return o
+        if kinds[i] == 'nc':
+            return o[:, None, None, :]
+        if kinds[i] == 's':
+            return o.reshape(())
+        return o.reshape(1, 1, 1, -1)
+    return fetch_aux
+
+
 def fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
-                         depthwise):
+                         depthwise, emit_stats=False):
     """Conv + epilogue, plain PyTorch: the counterpart of
     ``pallas_kernels._fconv_reference`` on unpadded operands.
 
@@ -395,7 +420,9 @@ def fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
     ``depthwise``; ``aux`` per ``kinds`` as above. The conv runs in f32
     on the inputs' values (``F.conv2d``, exact products of bf16 inputs,
     f32 sums), every stage in f32, then one cast: y [N, Ho, Wo, Cout] in
-    x's dtype. Differentiable by autograd.
+    x's dtype. With ``emit_stats`` it returns (y, sum [Cout], sumsq
+    [Cout]): the moments of the f32 conv before any stage and the cast.
+    Differentiable by autograd.
     """
     xc = x.float().permute(0, 3, 1, 2)
     if depthwise:
@@ -406,20 +433,13 @@ def fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
         groups = 1
     y = F.conv2d(xc, wc, stride=tuple(strides), padding=tuple(pads),
                  groups=groups).permute(0, 2, 3, 1)
-
-    def fetch_aux(i):
-        o = aux[i].float()
-        if kinds[i] == 't':
-            return o
-        if kinds[i] == 'nc':
-            return o[:, None, None, :]
-        if kinds[i] == 's':
-            return o.reshape(())
-        return o.reshape(1, 1, 1, -1)
-
+    moments = (y.sum((0, 1, 2)), (y * y).sum((0, 1, 2))) if emit_stats \
+        else ()
+    fetch_aux = aux_fetcher(aux, kinds)
     for st in stages:
         y = apply_stage(y, st, fetch_aux)
-    return y.to(x.dtype)
+    y = y.to(x.dtype)
+    return (y,) + moments if emit_stats else y
 
 
 class _FusedConvArgs(ctypes.Structure):
@@ -437,7 +457,8 @@ class _FusedConvArgs(ctypes.Structure):
          for f in ('stage_p0', 'stage_p1')] +
         [(f, ctypes.c_int) for f in (
             'n_stages', 'N', 'H', 'W', 'Cin', 'Cout', 'KH', 'KW', 'sh', 'sw',
-            'ph', 'pw', 'Ho', 'Wo', 'depthwise', 'is_bf16')])
+            'ph', 'pw', 'Ho', 'Wo', 'depthwise', 'is_bf16')] +
+        [('stats', ctypes.c_void_p)])
 
 
 def encode_epilogue(args, kinds, stages):
@@ -513,7 +534,11 @@ def _kernel_aux(x, aux, kinds, n, ho, wo, cout):
     return out
 
 
-def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise):
+def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
+                       emit_stats=False):
+    """Launch the kernel: y, or with ``emit_stats`` (y, slab), the slab
+    [2, ceil(M / FUSED_CONV_STAT_ROWS), Cout] f32 of per-slot sums and
+    sums of squares of the conv output (M = N * Ho * Wo)."""
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("fused_conv expects a contiguous NHWC x, got shape "
                          "%s" % (tuple(x.shape),))
@@ -556,11 +581,18 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise):
     args.ph, args.pw = pads
     args.depthwise = int(bool(depthwise))
     args.is_bf16 = int(x.dtype == torch.bfloat16)
-    _launch('fused_conv', 'fused_conv', (ctypes.addressof(args),), x.device,
+    slab = None
+    if emit_stats:
+        slots = -(-N * ho * wo // FUSED_CONV_STAT_ROWS)
+        slab = torch.empty((2, slots, cout), dtype=torch.float32,
+                           device=x.device)
+        args.stats = slab.data_ptr()
+    _launch('fused_conv', 'fused_conv_stats' if emit_stats else 'fused_conv',
+            (ctypes.addressof(args),), x.device,
             'N=%d H=%d W=%d Cin=%d Cout=%d K=%dx%d stride=%s pad=%s %s%s'
             % (N, H, W, cin, cout, kh, kw, tuple(strides), tuple(pads),
                x.dtype, ' depthwise' if depthwise else ''))
-    return out
+    return out if slab is None else (out, slab)
 
 
 class _FusedConv(torch.autograd.Function):
@@ -589,22 +621,119 @@ class _FusedConv(torch.autograd.Function):
                                for t in inputs)
 
 
-def fused_conv(x, w, aux, kinds, stages, strides, pads, depthwise):
+# ---- the stats form -------------------------------------------------------------
+def _stats_kernel(x, w, strides, pads, depthwise):
+    """The stats form on the card: (y, sum, sumsq), the slab summed over
+    its slots in f32 (as JAX sums its partials outside the kernel)."""
+    y, slab = _fused_conv_launch(x, w, (), (), (), strides, pads, depthwise,
+                                 emit_stats=True)
+    return y, slab[0].sum(0), slab[1].sum(0)
+
+
+def _stats_reference(x, w, strides, pads, depthwise):
+    return fused_conv_reference(x, w, (), (), (), strides, pads, depthwise,
+                                emit_stats=True)
+
+
+# the forward _FusedConvStats runs; swapped only by stats_forward_for_testing
+_STATS_FORWARD = [_stats_kernel]
+
+
+@contextlib.contextmanager
+def stats_forward_for_testing(fn=_stats_reference):
+    """Test-only: make the stats form's forward ``fn(x, w, strides, pads,
+    depthwise) -> (y, sum, sumsq)`` instead of the kernel, so that
+    ``_FusedConvStats`` (its backward included) runs on the CPU with the
+    plain forward, or on the card with a deliberately wrong forward as a
+    control."""
+    prev = _STATS_FORWARD[0]
+    _STATS_FORWARD[0] = fn
+    try:
+        yield
+    finally:
+        _STATS_FORWARD[0] = prev
+
+
+def fused_conv_stats_backward(x, w, y, g_y, g_sum, g_sumsq, strides, pads,
+                              depthwise, needs=(True, True)):
+    """(dx, dw) of the stats form, the vjp of its plain composition: the
+    cotangent of the f32 conv is ``g_y + g_sum[c] + 2 * conv * g_sumsq[c]``
+    (the moments are sums over every output pixel), in f32, with the saved
+    output ``y`` standing for the conv (it is the conv in f32; under AMP
+    rounded to bf16, as the cotangent itself is before the bf16 gradient
+    convs). It goes back to x's dtype and through the conv's input and
+    weight gradients, accumulated in f32. ``needs`` says which of dx, dw
+    to compute; a None cotangent adds nothing."""
+    d = _acc(torch.zeros_like(y) if g_y is None else g_y)
+    if g_sum is not None:
+        d = d + g_sum
+    if g_sumsq is not None:
+        d = d + 2.0 * _acc(y) * g_sumsq
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(2, 0, 1).unsqueeze(1) if depthwise else \
+        w.permute(0, 3, 1, 2)
+    gx, gw, _ = torch.ops.aten.convolution_backward(
+        d.to(x.dtype).permute(0, 3, 1, 2), xc, wc, None, list(strides),
+        list(pads), [1, 1], False, [0, 0], x.shape[3] if depthwise else 1,
+        [bool(needs[0]), bool(needs[1]), False])
+    if gx is not None:
+        gx = gx.permute(0, 2, 3, 1)
+    if gw is not None:
+        gw = gw[:, 0].permute(1, 2, 0) if depthwise else \
+            gw.permute(0, 2, 3, 1)
+    return gx, gw
+
+
+class _FusedConvStats(torch.autograd.Function):
+    """The stats form with its gradient through y and both moments: the
+    counterpart of ``pallas_kernels._fconv`` with ``emit_stats``, whose
+    ``_fconv_bwd`` is the vjp of ``_fconv_reference`` (XLA's conv vjp)."""
+
+    @staticmethod
+    def forward(ctx, meta, x, w):
+        y, s, ss = _STATS_FORWARD[0](x, w, *meta)
+        ctx.meta = meta
+        ctx.save_for_backward(x, w, y)
+        ctx.set_materialize_grads(False)
+        return y, s, ss
+
+    @staticmethod
+    def backward(ctx, g_y, g_sum, g_sumsq):
+        x, w, y = ctx.saved_tensors
+        gx, gw = fused_conv_stats_backward(
+            x, w, y, g_y, g_sum, g_sumsq, *ctx.meta,
+            needs=ctx.needs_input_grad[1:3])
+        return None, gx, gw
+
+
+def fused_conv(x, w, aux, kinds, stages, strides, pads, depthwise,
+               emit_stats=False):
     """Conv (or depthwise conv) + epilogue on NHWC operands -> y [N, Ho,
     Wo, Cout] in x's dtype; arguments as :func:`fused_conv_reference`.
+    With ``emit_stats`` (no aux operands or stages): (y, sum [Cout],
+    sumsq [Cout]), the moments of the f32 conv, in f32.
 
     On the card this launches ``csrc/fused_conv.cu`` (x and w bf16 or
     f32; unpadded, bounds-checked input; f32 accumulation; the stages
-    on chip; one store). For CPU tensors it runs
-    :func:`fused_conv_reference`. Under autograd the gradient is the
-    plain version's.
+    on chip; one store), the stats form as ``fused_conv_stats``. For CPU
+    tensors it runs :func:`fused_conv_reference`. Under autograd the
+    gradient is the plain version's; the stats form's is
+    :func:`fused_conv_stats_backward`.
     """
     strides, pads = tuple(strides), tuple(pads)
+    if emit_stats and (aux or kinds or stages):
+        raise ValueError("fused_conv: the stats form takes no epilogue "
+                         "stages or aux operands")
     if not _on_card(x, 'fused_conv'):
         return fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
-                                    depthwise)
-    if not (torch.is_grad_enabled() and
-            any(t.requires_grad for t in [x, w] + list(aux))):
+                                    depthwise, emit_stats)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in [x, w] + list(aux))
+    if emit_stats:
+        if not grad:
+            return _STATS_FORWARD[0](x, w, strides, pads, bool(depthwise))
+        return _FusedConvStats.apply((strides, pads, bool(depthwise)), x, w)
+    if not grad:
         return _fused_conv_launch(x, w, aux, kinds, stages, strides, pads,
                                   depthwise)
     meta = (tuple(kinds), tuple(stages), strides, pads, bool(depthwise))

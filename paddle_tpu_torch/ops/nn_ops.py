@@ -2,7 +2,7 @@
 
 Counterpart of paddle_tpu/ops/nn_ops.py, trimmed to the port's slices:
 conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm, softmax,
-softmax_with_cross_entropy. The JAX package computes conv, pool and
+cross_entropy, softmax_with_cross_entropy. The JAX package computes conv, pool and
 batch norm in XLA, outside any Pallas kernel; here PyTorch's own
 operators compute them. A conv region that ``conv_epilogue_fuse``
 absorbed runs on the fused kernel instead (compiler/passes.py), and
@@ -157,6 +157,24 @@ def _layer_norm(ctx):
 @register_kernel('softmax')
 def _softmax(ctx):
     ctx.set_output('Out', torch.softmax(f32(ctx.input('X')), dim=-1))
+
+
+@register_kernel('cross_entropy')
+def _cross_entropy(ctx):
+    """-log(p + 1e-8) of the label's probability (hard labels, int ids
+    with or without a trailing 1), or -sum(label * log(p + 1e-8)) (soft
+    labels); probabilities in f32. Sequence inputs are a later slice."""
+    x = f32(ctx.input('X'))
+    label = ctx.input('Label')
+    eps = 1e-8
+    if ctx.attr('soft_label', False):
+        loss = -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)
+    else:
+        idx = label.long()
+        if idx.dim() == x.dim():
+            idx = idx.reshape(idx.shape[:-1])
+        loss = -torch.log(torch.gather(x, -1, idx.unsqueeze(-1)) + eps)
+    ctx.set_output('Y', loss)
 
 
 @register_kernel('softmax_with_cross_entropy')

@@ -45,8 +45,14 @@ def randomized_params(j_main, j_startup, seed=7):
     fluid.Executor(fluid.CPUPlace()).run(j_startup, scope=j_scope)
     params = {n: np.asarray(j_scope.raw(n)) for n in _persistables(j_main)
               if j_scope.raw(n) is not None}
+    return randomize_batch_norms(j_main, params, seed)
+
+
+def randomize_batch_norms(main, params, seed=7):
+    """``params`` with every batch norm's moving statistics and affine
+    (as ``main`` names them) drawn anew from ``seed``."""
     rng = np.random.RandomState(seed)
-    for op in j_main.global_block().ops:
+    for op in main.global_block().ops:
         if op.type != 'batch_norm':
             continue
         c = params[op.input('Scale')[0]].shape[0]

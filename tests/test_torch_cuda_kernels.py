@@ -7,6 +7,7 @@ check runs inside the fixture, never at import). Run on the card with
 (``--noconftest``: the suite's conftest configures JAX, which the card's
 host need not have).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -175,7 +176,7 @@ def test_training_step_launches_the_kernels(cuda):
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {'flash_attn_fwd': 2, 'flash_attn_bwd_dkvdq': 2,
                            'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
-                           'fused_conv': 0}
+                           'fused_conv': 0, 'fused_conv_stats': 0}
     assert out.shape == (1,) and abs(float(out[0]) - 6.24) < 1.0
     for n in params:
         assert not torch.equal(scope.raw(n), before[n]), n
@@ -377,3 +378,134 @@ def test_fused_region_trains_on_the_card(cuda):
     # once per region, the unfused one after the conv and after each op
     for f, r in zip(*results):
         assert (f.float() - r.float()).norm() <= 2e-2 * r.float().norm()
+
+
+# ---- the fused conv's stats form -------------------------------------------------
+# y per element as CONV_TOL; each channel's sum within STATS_REL of the sum
+# of |conv| over its pixels, its sum of squares within STATS_REL of itself:
+# both sides sum the same products in f32 in another order, the bf16
+# kernel on tensor cores (chip_smoke.py's STATS_REL)
+STATS_REL = {torch.bfloat16: 3e-5, torch.float32: 2e-6}
+
+# (N, H, W, Cin, Cout, K, stride, pad, depthwise): M = N * Ho * Wo rows; a
+# partial last 64-row slot, Cout not a multiple of 64, 128-row tiles,
+# depthwise
+STATS_SHAPES = {
+    'partial_tile_3x3': (3, 7, 7, 64, 64, 3, 1, 1, False),
+    'cout_72_s2': (2, 15, 13, 32, 72, 1, 2, 0, False),
+    'stem_7x7_cin3': (2, 32, 32, 3, 64, 7, 2, 3, False),
+    '128_row_tiles': (16, 56, 56, 64, 136, 1, 1, 0, False),
+    'depthwise_3x3_partial': (3, 7, 7, 40, 40, 3, 1, 1, True),
+}
+
+
+def _stats_ratios(x, w, strides, pads, depthwise, y, ssum, ssq):
+    """(y err / CONV_TOL limit, sum err / limit, sumsq err / limit)."""
+    conv, rs, rss = ck.fused_conv_reference(
+        x.float(), w.float(), (), (), (), strides, pads, depthwise,
+        emit_stats=True)
+    abs_sum = conv.abs().sum((0, 1, 2))
+    rel = STATS_REL[x.dtype]
+    return (_err_ratio(y, conv.to(x.dtype)),
+            ((ssum - rs).abs() / (rel * abs_sum)).max().item(),
+            ((ssq - rss).abs() / (rel * rss)).max().item())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', sorted(STATS_SHAPES))
+def test_fused_conv_stats_form_matches_plain(cuda, dtype, shape):
+    """The stats form against its plain version; the same slab without
+    its last slot (a kernel that drops the last row tile's partial)
+    fails the moments' limit where M is not a multiple of the slot."""
+    N, H, W, cin, cout, k, s, p, dw = STATS_SHAPES[shape]
+    x, w, _, _, _, strides, pads, _ = _conv_case(
+        cuda, dtype, N, H, W, cin, cout, k, s, p, dw, seed=len(shape))
+    before = dict(ck.LAUNCHES)
+    y, ssum, ssq = ck.fused_conv(x, w, (), (), (), strides, pads, dw,
+                                 emit_stats=True)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES['fused_conv_stats'] == before['fused_conv_stats'] + 1
+    assert ck.LAUNCHES['fused_conv'] == before['fused_conv']
+    assert y.dtype == dtype and ssum.dtype == ssq.dtype == torch.float32
+    assert max(_stats_ratios(x, w, strides, pads, dw, y, ssum, ssq)) <= 1
+    _, slab = ck._fused_conv_launch(x, w, (), (), (), strides, pads, dw,
+                                    emit_stats=True)
+    M = y.shape[0] * y.shape[1] * y.shape[2]
+    assert slab.shape == (2, -(-M // ck.FUSED_CONV_STAT_ROWS), y.shape[3])
+    if M % ck.FUSED_CONV_STAT_ROWS:
+        assert max(_stats_ratios(x, w, strides, pads, dw, y,
+                                 slab[0, :-1].sum(0),
+                                 slab[1, :-1].sum(0))[1:]) > 1
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', ['partial_tile_3x3',
+                                   'depthwise_3x3_partial'])
+def test_fused_conv_stats_function_backward_matches_plain_vjp(cuda, dtype,
+                                                              shape):
+    """The stats form under autograd (the kernel forward, the backward
+    of fused_conv_stats_backward) against autograd of the plain version
+    on the same inputs; the conv gradients run in x's dtype, so bf16 is
+    held by relative L2, f32 per element."""
+    N, H, W, cin, cout, k, s, p, dw = STATS_SHAPES[shape]
+    x, w, _, _, _, strides, pads, _ = _conv_case(
+        cuda, dtype, N, H, W, cin, cout, k, s, p, dw, seed=7)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    grads = []
+    for fn in (ck.fused_conv, ck.fused_conv_reference):
+        xt, wt = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y, ssum, ssq = fn(xt, wt, (), (), (), strides, pads, dw,
+                          emit_stats=True)
+        if not grads:
+            gy = torch.randn(y.shape, device=cuda, generator=gen).to(dtype)
+            gs, gq = (torch.randn(y.shape[3], device=cuda, generator=gen)
+                      for _ in range(2))
+        f = (y.float() * gy.float()).sum() + (ssum * gs).sum() + \
+            (ssq * gq).sum()
+        grads.append(torch.autograd.grad(f, (xt, wt)))
+    for got, ref in zip(*grads):
+        got, ref = got.float(), ref.float()
+        if dtype == torch.float32:
+            assert (got - ref).abs().max().item() <= \
+                1e-4 * ref.abs().max().item()
+        else:
+            assert (got - ref).norm().item() <= 2e-2 * ref.norm().item()
+
+
+def test_resnet50_trains_on_the_stats_form(cuda):
+    """One Momentum step of ResNet-50 at 32 x 32 on the card: 53
+    stats-form launches, no other fused conv and no fallback; the loss is
+    finite and every moving mean moves."""
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 1
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name='img', shape=[3, 32, 32], dtype='float32')
+        label = pt.layers.data(name='label', shape=[1], dtype='int64')
+        loss = pt.layers.mean(pt.layers.cross_entropy(
+            resnet_imagenet(img, 10, depth=50), label))
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    means = [op.output('MeanOut')[0] for op in main.global_block().ops
+             if op.type == 'batch_norm']
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    before = {n: scope.raw(n).clone() for n in means}
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    feed = {'img': torch.randn(4, 3, 32, 32, device=cuda, generator=gen),
+            'label': torch.randint(0, 10, (4, 1), device=cuda,
+                                   generator=gen)}
+    passes.reset_fallback_counts()
+    ck.reset_launch_counts()
+    out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES['fused_conv_stats'] == 53
+    assert ck.LAUNCHES['fused_conv'] == 0
+    assert passes.FALLBACKS == {}
+    assert np.isfinite(out).all()
+    for n in means:
+        assert not torch.equal(scope.raw(n), before[n]), n

@@ -259,35 +259,52 @@ def _r_dilated(L):
     return L.relu(L.batch_norm(input=c, is_test=True))
 
 
-def _r_train_bn(L):
+def _r_train_bn_order(L):
+    """A train-mode batch norm behind a scale, not directly on the conv:
+    its moments are not the conv's."""
     x = L.data(name='x', shape=[4, 8, 8], dtype='float32')
+    c = L.conv2d(input=x, num_filters=6, filter_size=3, padding=1,
+                 bias_attr=False)
+    return L.relu(L.batch_norm(input=L.scale(c, scale=2.0)))
+
+
+def _r_train_bn_dtype(L):
+    """bf16 operands outside AMP (the CPU runs without it)."""
+    x = L.data(name='x', shape=[4, 8, 8], dtype='bfloat16')
     c = L.conv2d(input=x, num_filters=6, filter_size=3, padding=1,
                  bias_attr=False)
     return L.relu(L.batch_norm(input=c))
 
 
-REPLAYS = {'groups': _r_grouped, 'dilation': _r_dilated,
-           'train-bn': _r_train_bn}
+# case -> (build, the counted reason)
+REPLAYS = {'groups': (_r_grouped, 'groups'),
+           'dilation': (_r_dilated, 'dilation'),
+           'train-bn': (_r_train_bn_order, 'train-bn-order'),
+           'train-bn-dtype': (_r_train_bn_dtype, 'train-bn-dtype')}
 
 
 @pytest.mark.parametrize('reason', sorted(REPLAYS))
 def test_unsupported_region_replays_exactly_and_is_counted(reason):
-    main, startup, out = _build(pt, REPLAYS[reason])
+    build, counted = REPLAYS[reason]
+    main, startup, out = _build(pt, build)
     scope = pt.Scope()
     exe = pt.Executor(pt.CPUPlace())
     exe.run(startup, scope=scope)
+    if reason == 'train-bn-dtype':      # the filter in x's dtype
+        w_name, = [n for n in scope.vars if n.startswith('conv2d')]
+        scope.set_var(w_name, scope.raw(w_name).bfloat16())
     feed = {'x': _feeds({'x': (2, 4, 9, 9) if reason == 'dilation'
                          else (2, 4, 8, 8)})['x']}
     snap = {n: v.clone() for n, v in scope.vars.items()
             if isinstance(v, torch.Tensor)}
     fused, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
-    assert pt_passes.FALLBACKS == {reason: 1}
+    assert pt_passes.FALLBACKS == {counted: 1}
     for n, v in snap.items():
         scope.set_var(n, v)
     with pt.compiler.disabled():
         raw, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
     np.testing.assert_array_equal(fused, raw)
-    assert pt_passes.FALLBACKS == {reason: 1}
+    assert pt_passes.FALLBACKS == {counted: 1}
 
 
 def test_fused_region_trains_like_the_unfused_ops():

@@ -258,3 +258,26 @@ def test_startup_initializers_are_seeded_and_in_range():
     assert np.abs(a).max() <= limit and np.abs(a).max() > 0.9 * limit
     std = np.sqrt(2.0 / (64 + 512))
     assert abs(na.std() / std - 1) < 0.02 and abs(na.mean()) < 0.05 * std
+
+
+@pytest.mark.parametrize('soft_label', [False, True])
+def test_cross_entropy_matches_jax(soft_label):
+    """cross_entropy on softmax probabilities: hard int64 labels [N, 1],
+    or soft labels (rows summing to 1); -log(p + 1e-8) in f32. Some
+    probabilities are tiny, so the 1e-8 floor shows."""
+    def build(L):
+        x = L.data(name='x', shape=[6], dtype='float32')
+        label = L.data(name='label', shape=[6] if soft_label else [1],
+                       dtype='float32' if soft_label else 'int64')
+        return L.cross_entropy(L.softmax(x), label, soft_label=soft_label)
+
+    rng = np.random.RandomState(3)
+    x = (rng.randn(5, 6) * 8).astype('float32')
+    if soft_label:
+        label = rng.rand(5, 6).astype('float32')
+        label /= label.sum(1, keepdims=True)
+    else:
+        label = rng.randint(0, 6, (5, 1)).astype('int64')
+    (j,), (t,) = run_both(build, {'x': x, 'label': label})
+    assert t.shape == (5, 1) and np.isfinite(t).all()
+    np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-6)
