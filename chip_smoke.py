@@ -56,8 +56,9 @@ non-zero) on failure:
    the ResNet-50 training program at batch 32, in bf16 and f32, plus a
    depthwise shape: y per element, the moments per channel; the slab
    without its last slot must fail where M is not a multiple of it;
-   kernel, plain version and cuDNN's conv with two channel reductions
-   (a yardstick only) timed per shape at batch 128 as replays of a CUDA
+   then at batch 128 in bf16, the training step's shapes: checked the
+   same way, and kernel, plain version and cuDNN's conv with two channel
+   reductions (a yardstick only) timed per shape as replays of a CUDA
    graph, and summed over a batch-128 step's 53 regions;
 10. ResNet-50 training: full width (3 x 224 x 224, 1000 classes),
    cross_entropy, Momentum(0.01, 0.9).minimize, AMP, batch 128, one
@@ -67,9 +68,11 @@ non-zero) on failure:
    fallback; a profile of one step;
 11. ResNet-50 gradients: at batch 8, every parameter gradient and every
    moving statistic of one step on the kernel against the same step on
-   the plain fused conv, by relative L2 error; a backward without the
-   moments' cotangents and a kernel without its last row tile's moment
-   partials must fail that comparison;
+   the plain fused conv's forward (the same backward), by relative L2
+   error, with AMP off (f32, fixed limits) and under AMP (bf16, limits
+   relative to a witness: the plain forward in f64, rounded); a backward
+   without the moments' cotangents and a kernel without its last row
+   tile's moment partials must fail that comparison in both;
 12. SE-ResNeXt-50 training: full width, batch 32, the same optimizer and
    AMP, warm-up then timed steps: exact stats-form launches and
    'groups' replays (its grouped 3x3 convs) a step, ms per step,
@@ -167,14 +170,20 @@ SE_BATCH, SE_WARMUP, SE_STEPS = 32, 2, 3
 # whole ResNet-50, gradients and moving statistics of one batch-8 step on
 # the kernel vs the plain fused conv's forward (the same backward),
 # relative L2 per tensor: the largest and the median over the gradients,
-# the largest over the statistics. Set from the sound readings on the H100
-# (PERF.md, Findings): 0.205, 0.159 and 9.35e-4, bf16 region outputs that
-# differ by a rounding step here and there, through 53 train-mode batch
-# norms (the stem's statistics agree to 1e-6); the limits are 2.4x, 1.9x
-# and 5.3x that. The two wrong kernels read 29.6 / 2.02 (the moments'
-# cotangents dropped) and statistics 0.0332 (the last slot dropped).
-RESNET_GRAD_MAX, RESNET_GRAD_MEDIAN = 0.5, 0.3
-RESNET_STAT_TOL = 5e-3
+# the largest over the statistics. With AMP off (f32) the two forwards
+# differ only in the order of their sums. Set from the sound reading on
+# the H100 (PERF.md, Findings): 0.00701, 0.0033 and 1.03e-6 (a witness,
+# the plain forward in f64 then rounded, reads 0.00342, 0.00117 and
+# 1.02e-6); the limits are 4.3x, 3x and 9.7x that. The two wrong kernels
+# read 30.1 / 2.01 (the moments' cotangents dropped) and 0.405 / 0.29 /
+# 0.0331 (the last slot dropped).
+RESNET_GRAD_F32 = (0.03, 0.01, 1e-5)
+# under AMP (bf16) each is at most this many times the witness's: bf16
+# rounding between 53 train-mode batch norms moves the gradients by as
+# much for any order of the f32 sums. Read on the H100: the kernel 0.205,
+# 0.159 and 9.35e-4, the witness 0.201, 0.154 and 9.17e-4; the wrong
+# kernels 29.6 / 2.02, and statistics 0.0332 (18x the limit).
+RESNET_GRAD_WITNESS = 2.0
 # each residual branch's last batch-norm gamma is scaled by this at the
 # start (Goyal et al., 2017): with gammas of 1, train-mode batch norm
 # makes the random network's gradients explode with depth
@@ -668,7 +677,7 @@ def conv_bound(x, w, aux, out, k, s, p, depthwise, extra_bytes=0):
     channel, one input channel a channel when depthwise) at the dtype's
     peak, or the bytes it must move over HBM, whichever is longer: the
     input pixels the conv reads, w, the aux operands, the output and
-    ``extra_bytes`` (the stats form's slab), each once."""
+    ``extra_bytes`` (the stats form's moments), each once."""
     N, H, W, cin = x.shape
     cout = out.shape[3]
     read_h, taps_h = _taps(H, k, s, p)
@@ -1282,12 +1291,49 @@ def _stats_ratios(x, w, s, p, dw, y, ssum, ssq, dtype):
             (y.float() - conv.to(x.dtype).float()).abs().max().item())
 
 
+def _check_stats_case(x, w, s, p, dw, dtype):
+    """Hold the stats form at one shape against its plain version: y per
+    element, the moments per channel; and the slab without its last slot
+    (a kernel that drops the last row tile's partial), which must fail
+    where M is not a multiple of the slot. Returns max |y err|."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    rows = ck.FUSED_CONV_STAT_ROWS
+    N, H, W, cin = x.shape
+    y, slab = ck._fused_conv_launch(x, w, (), (), (), (s, s), (p, p), dw,
+                                    emit_stats=True)
+    got = ck.fused_conv(x, w, (), (), (), (s, s), (p, p), dw,
+                        emit_stats=True)
+    torch.cuda.synchronize()
+    ratios = _stats_ratios(x, w, s, p, dw, *got, dtype)
+    cout, M = y.shape[3], y.shape[0] * y.shape[1] * y.shape[2]
+    control = None
+    if M % rows:
+        control = max(_stats_ratios(x, w, s, p, dw, y, slab[0, :-1].sum(0),
+                                    slab[1, :-1].sum(0), dtype)[1:3])
+    print('kernel fused_conv_stats N=%d %dx%d Cin=%d Cout=%d K=%d s=%d p=%d%s '
+          '%s M=%d: y err/limit %.3g (max|err| %.3g), sum err/limit %.3g, '
+          'sumsq err/limit %.3g (rel %g); last slot dropped: %s' % (
+              N, H, W, cin, cout, w.shape[-2], s, p,
+              ' depthwise' if dw else '', dtype, M, ratios[0], ratios[3],
+              ratios[1], ratios[2], STATS_REL[dtype],
+              'n/a (M %% %d == 0)' % rows if control is None
+              else '%.3g' % control), flush=True)
+    what = 'N=%d %dx%d Cin=%d Cout=%d s=%d %s' % (N, H, W, cin, cout, s,
+                                                  dtype)
+    check(max(ratios[:3]) <= 1, 'fused_conv_stats disagrees with its plain '
+          'version at ' + what)
+    check(control is None or control > 1, 'the moments\' limit does not '
+          'catch a dropped last slot at ' + what)
+    return ratios[3]
+
+
 def phase_stats_kernels(seed, main, loss):
     """The stats form vs its plain version at every distinct region shape
     of the ResNet-50 training program (batch 32, bf16 and f32, and one
-    depthwise shape), then timed per shape at the training batch of 128
-    in bf16. Returns the numbers summed over one batch-128 step's
-    regions."""
+    depthwise shape), then at the training batch of 128 in bf16, checked
+    again and timed per shape. Returns the numbers summed over one
+    batch-128 step's regions."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels as ck
@@ -1301,7 +1347,6 @@ def phase_stats_kernels(seed, main, loss):
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed + 4)
     N = STATS_CHECK_BATCH
-    rows = ck.FUSED_CONV_STAT_ROWS
     max_err = 0.0
     # off ResNet-50: a depthwise 3x3 stride 2 with a partial last slot
     cases = sorted(regions) + [(14, 14, 256, 256, 3, 2, 1, True)]
@@ -1309,41 +1354,13 @@ def phase_stats_kernels(seed, main, loss):
         for dtype in ('bfloat16', 'float32'):
             x, w, _ = _conv_inputs(gen, dtype, N, H, W, cin, cout, k, s, p,
                                    dw, ('c', 'c'))
-            y, slab = ck._fused_conv_launch(x, w, (), (), (), (s, s),
-                                            (p, p), dw, emit_stats=True)
-            got = ck.fused_conv(x, w, (), (), (), (s, s), (p, p), dw,
-                                emit_stats=True)
-            torch.cuda.synchronize()
-            ratios = _stats_ratios(x, w, s, p, dw, *got, dtype)
-            M = y.shape[0] * y.shape[1] * y.shape[2]
-            # control: the slab without its last slot (a kernel that
-            # drops the last row tile's partial)
-            control = None
-            if M % rows:
-                control = max(_stats_ratios(
-                    x, w, s, p, dw, y, slab[0, :-1].sum(0),
-                    slab[1, :-1].sum(0), dtype)[1:3])
-            print('kernel fused_conv_stats N=%d %dx%d Cin=%d Cout=%d K=%d '
-                  's=%d p=%d%s %s M=%d: y err/limit %.3g (max|err| %.3g), '
-                  'sum err/limit %.3g, sumsq err/limit %.3g (rel %g); last '
-                  'slot dropped: %s' % (
-                      N, H, W, cin, cout, k, s, p, ' depthwise' if dw else '',
-                      dtype, M, ratios[0], ratios[3], ratios[1], ratios[2],
-                      STATS_REL[dtype],
-                      'n/a (M %% %d == 0)' % rows if control is None
-                      else '%.3g' % control), flush=True)
-            check(max(ratios[:3]) <= 1, 'fused_conv_stats disagrees with its '
-                  'plain version at N=%d %dx%d Cin=%d Cout=%d K=%d s=%d %s'
-                  % (N, H, W, cin, cout, k, s, dtype))
-            check(control is None or control > 1, 'the moments\' limit does '
-                  'not catch a dropped last slot at N=%d %dx%d Cin=%d Cout=%d '
-                  'K=%d s=%d %s' % (N, H, W, cin, cout, k, s, dtype))
+            err = _check_stats_case(x, w, s, p, dw, dtype)
             if dtype == 'bfloat16':
-                max_err = max(max_err, ratios[3])
-            del x, w, y, slab, got
+                max_err = max(max_err, err)
+            del x, w
     torch.cuda.empty_cache()
 
-    # times at the training batch, bf16 as AMP runs them
+    # checked and timed at the training batch, bf16 as AMP runs them
     N = RESNET_TRAIN_BATCH
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                   max_abs_err=max_err)
@@ -1351,11 +1368,12 @@ def phase_stats_kernels(seed, main, loss):
     for (H, W, cin, cout, k, s, p, dw), count in sorted(regions.items()):
         x, w, _ = _conv_inputs(gen, 'bfloat16', N, H, W, cin, cout, k, s, p,
                                dw, ('c', 'c'))
+        max_err = max(max_err, _check_stats_case(x, w, s, p, dw,
+                                                 'bfloat16'))
         args = (x, w, (), (), (), (s, s), (p, p), dw)
         y = ck.fused_conv(*args, emit_stats=True)[0]
-        slab_bytes = 2 * 4 * -(-y.shape[0] * y.shape[1] * y.shape[2] //
-                               rows) * cout
-        bound_ms, by = conv_bound(x, w, [], y, k, s, p, dw, slab_bytes)
+        # the function's outputs: y and the two f32 moments [Cout]
+        bound_ms, by = conv_bound(x, w, [], y, k, s, p, dw, 2 * 4 * cout)
         kernel_ms = graph_ms(lambda: ck.fused_conv(*args, emit_stats=True))
         plain_ms = graph_ms(lambda: ck.fused_conv_reference(
             *args, emit_stats=True), iters=3, reps=3)
@@ -1493,27 +1511,66 @@ def _dropped_last_slot(x, w, strides, pads, depthwise):
     return y, slab[0, :-1].sum(0), slab[1, :-1].sum(0)
 
 
-def _plain_stats_function(x, w, aux, kinds, stages, strides, pads,
-                          depthwise, emit_stats=False):
-    """The plain fused conv, its stats form through the kernel's autograd
-    Function (so with the kernel's backward, in x's dtype): against the
-    kernel, only the forward differs."""
+def _moments_dropped():
+    """The stats form's autograd Function with a backward that ignores
+    the moments' cotangents (a control)."""
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    if not emit_stats:
-        return ck.fused_conv_reference(x, w, aux, kinds, stages, strides,
-                                       pads, depthwise)
-    with ck.stats_forward_for_testing():
-        return ck._FusedConvStats.apply(
-            (tuple(strides), tuple(pads), bool(depthwise)), x, w)
+
+    class MomentsDropped(ck._FusedConvStats):
+        @staticmethod
+        def backward(ctx, g_y, g_sum, g_sumsq):
+            return ck._FusedConvStats.backward(ctx, g_y, None, None)
+    return MomentsDropped
+
+
+def _f64_witness(x, w, strides, pads, depthwise):
+    """A stats-form forward that shows what rounding alone does: the conv
+    and its moments in f64, then y rounded to x's dtype and the moments to
+    f32. Like the kernel, it differs from the plain version (cuDNN's f32
+    conv, f32 sums) only in how its sums round."""
+    import torch.nn.functional as F
+    xc = x.double().permute(0, 3, 1, 2)
+    wc = w.double().permute(2, 0, 1).unsqueeze(1) if depthwise else \
+        w.double().permute(0, 3, 1, 2)
+    conv = F.conv2d(xc, wc, stride=tuple(strides), padding=tuple(pads),
+                    groups=x.shape[3] if depthwise else 1).permute(0, 2, 3, 1)
+    return (conv.to(x.dtype), conv.sum((0, 1, 2)).float(),
+            (conv * conv).sum((0, 1, 2)).float())
+
+
+def _stats_function(forward=None, function=None):
+    """A fused conv for ``passes.conv_for_testing``: the stats form
+    through ``function`` (the kernel's autograd Function by default, so
+    with the kernel's backward) on ``forward`` (the plain version by
+    default); against the kernel, only what is swapped differs."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    forward = forward or ck._stats_reference
+    function = function or ck._FusedConvStats
+
+    def conv(x, w, aux, kinds, stages, strides, pads, depthwise,
+             emit_stats=False):
+        if not emit_stats:
+            return ck.fused_conv_reference(x, w, aux, kinds, stages, strides,
+                                           pads, depthwise)
+        return function.apply((tuple(strides), tuple(pads), bool(depthwise)),
+                              forward, x, w)
+    return conv
 
 
 def phase_resnet_gradients(seed, main, startup, loss):
     """Every parameter gradient and moving statistic of one batch-8
     ResNet-50 step on the kernel vs the same step on the plain fused
-    conv (its forward; the same backward)."""
+    conv's forward (the same backward), twice. With AMP off, the two
+    forwards differ only in the order of their f32 sums: limits near
+    that, which two wrong kernels must fail by far. Under AMP, as the
+    training phase runs, bf16 rounding between 53 train-mode batch norms
+    moves the gradients: the kernel is held to a witness of what rounding
+    alone does (the plain forward in f64, rounded), and the two wrong
+    kernels must fail too."""
     import torch
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
     from paddle_tpu_torch.ops import cuda_kernels as ck
     exe = pt.Executor()
     scope = pt.Scope()
@@ -1528,10 +1585,12 @@ def phase_resnet_gradients(seed, main, startup, loss):
     feed = _image_train_feed(RESNET_GRAD_BATCH, seed + 13)
     snap = _snapshot(scope)
 
-    def step():
+    def step(conv=None):
         _restore(scope, snap)
-        vals = exe.run(main, feed=feed, fetch_list=grad_names, scope=scope,
-                       return_numpy=False)
+        with passes.conv_for_testing(conv) if conv else \
+                contextlib.nullcontext():
+            vals = exe.run(main, feed=feed, fetch_list=grad_names,
+                           scope=scope, return_numpy=False)
         torch.cuda.synchronize()
         got = dict(zip(grad_names, vals))
         got.update((n, scope.raw(n).clone()) for n in stat_names)
@@ -1553,54 +1612,51 @@ def phase_resnet_gradients(seed, main, startup, loss):
               'moving statistics max %.3g (stem %.3g)' % ((label,) + e),
               flush=True)
 
-    ck.reset_launch_counts()
-    kernel = step()
-    check(ck.LAUNCHES['fused_conv_stats'] == RESNET_REGIONS,
-          'gradient step launches %s' % ck.LAUNCHES)
-    with passes.conv_for_testing(_plain_stats_function):
-        plain = step()
-    # where both stand against the plain fused conv with autograd's f32
-    # conv gradients
-    with passes.conv_for_testing():
-        wide = step()
-    show('batch %d, kernel vs plain fused conv (same backward), relative L2 '
-         'per tensor (tol max %g, median %g, statistics %g)' % (
-             RESNET_GRAD_BATCH, RESNET_GRAD_MAX, RESNET_GRAD_MEDIAN,
-             RESNET_STAT_TOL), errors(kernel, plain))
-    show('kernel vs the plain fused conv with f32 conv gradients',
-         errors(kernel, wide))
-    show('plain fused conv (same backward) vs the one with f32 conv '
-         'gradients', errors(plain, wide))
-    del wide
-    right = ck.fused_conv_stats_backward
+    def within(e, limits):
+        return e[0] <= limits[0] and e[2] <= limits[1] and e[3] <= limits[2]
 
-    def dropped_moments(x, w, y, g_y, g_sum, g_sumsq, *rest, **kw):
-        return right(x, w, y, g_y, None, None, *rest, **kw)
-
-    controls = {}
-    for name in ('backward without the moments\' cotangents',
-                 'last row tile\'s partials dropped'):
-        if name.startswith('backward'):
-            ck.fused_conv_stats_backward = dropped_moments
-            ctx = contextlib.nullcontext()
-        else:
-            ctx = ck.stats_forward_for_testing(_dropped_last_slot)
+    controls = (('backward without the moments\' cotangents',
+                 _stats_function(ck._stats_kernel, _moments_dropped())),
+                ('last row tile\'s partials dropped',
+                 _stats_function(_dropped_last_slot)))
+    for precision in ('f32', 'bf16'):
+        amp.set_amp(precision == 'bf16')
         try:
-            with ctx:
-                controls[name] = errors(step(), plain)
+            ck.reset_launch_counts()
+            kernel = step()
+            check(ck.LAUNCHES['fused_conv_stats'] == RESNET_REGIONS,
+                  'gradient step launches %s' % ck.LAUNCHES)
+            plain = step(_stats_function())
+            found = {'kernel': errors(kernel, plain),
+                     'witness': errors(step(_stats_function(_f64_witness)),
+                                       plain)}
+            for name, conv in controls:
+                found[name] = errors(step(conv), plain)
         finally:
-            ck.fused_conv_stats_backward = right
-        show('control, %s, vs plain fused conv' % name, controls[name])
-
-    def passes_limits(e):
-        return e[0] <= RESNET_GRAD_MAX and e[2] <= RESNET_GRAD_MEDIAN and \
-            e[3] <= RESNET_STAT_TOL
-
-    check(passes_limits(errors(kernel, plain)), 'ResNet-50 gradients or '
-          'moving statistics differ from the plain fused conv\'s')
-    for name, e in controls.items():
-        check(not passes_limits(e), 'the gradient limits do not catch a '
-              'control: %s' % name)
+            amp.set_amp(None)
+        w = found['witness']
+        if precision == 'f32':
+            limits = RESNET_GRAD_F32
+            what = 'limits max %g, median %g, statistics %g' % limits
+        else:
+            limits = tuple(RESNET_GRAD_WITNESS * e for e in (w[0], w[2], w[3]))
+            what = ('limits %gx the witness\'s: max %.3g, median %.3g, '
+                    'statistics %.3g' % ((RESNET_GRAD_WITNESS,) + limits))
+        show('%s (AMP %s), batch %d, kernel vs plain fused conv (same '
+             'backward), relative L2 per tensor (%s)' % (
+                 precision, 'on' if precision == 'bf16' else 'off',
+                 RESNET_GRAD_BATCH, what), found['kernel'])
+        show('%s witness: the plain forward in f64, rounded, vs plain'
+             % precision, w)
+        for name, _ in controls:
+            show('%s control, %s, vs plain fused conv' % (precision, name),
+                 found[name])
+        check(within(found['kernel'], limits), 'ResNet-50 gradients or '
+              'moving statistics (%s) differ from the plain fused conv\'s'
+              % precision)
+        for name, _ in controls:
+            check(not within(found[name], limits), 'the %s gradient limits '
+                  'do not catch a control: %s' % (precision, name))
     del scope, snap, kernel, plain
     torch.cuda.empty_cache()
 

@@ -9,13 +9,24 @@ Parameters stay f32.
 
 Where the JAX package asks the backend, the port asks the device of the
 tensor at hand, so one process can run a CPU scope and a CUDA scope side
-by side.
+by side. ``set_amp`` forces it on or off everywhere, as the JAX
+package's does.
 """
 import torch
 
+_FORCED = [None]
+
 
 def amp_enabled(device):
+    if _FORCED[0] is not None:
+        return _FORCED[0]
     return torch.device(device).type == 'cuda'
+
+
+def set_amp(on):
+    """Force AMP on or off on every device (None: on for the card, off
+    for the CPU, again)."""
+    _FORCED[0] = None if on is None else bool(on)
 
 
 def matmul_compute(fn, *operands):

@@ -35,7 +35,6 @@ Ported so far:
   conv's gradients taken in x's dtype with f32 accumulation, as the JAX
   vjp takes them.
 """
-import contextlib
 import ctypes
 import functools
 import math
@@ -635,25 +634,6 @@ def _stats_reference(x, w, strides, pads, depthwise):
                                 emit_stats=True)
 
 
-# the forward _FusedConvStats runs; swapped only by stats_forward_for_testing
-_STATS_FORWARD = [_stats_kernel]
-
-
-@contextlib.contextmanager
-def stats_forward_for_testing(fn=_stats_reference):
-    """Test-only: make the stats form's forward ``fn(x, w, strides, pads,
-    depthwise) -> (y, sum, sumsq)`` instead of the kernel, so that
-    ``_FusedConvStats`` (its backward included) runs on the CPU with the
-    plain forward, or on the card with a deliberately wrong forward as a
-    control."""
-    prev = _STATS_FORWARD[0]
-    _STATS_FORWARD[0] = fn
-    try:
-        yield
-    finally:
-        _STATS_FORWARD[0] = prev
-
-
 def fused_conv_stats_backward(x, w, y, g_y, g_sum, g_sumsq, strides, pads,
                               depthwise, needs=(True, True)):
     """(dx, dw) of the stats form, the vjp of its plain composition: the
@@ -687,11 +667,14 @@ def fused_conv_stats_backward(x, w, y, g_y, g_sum, g_sumsq, strides, pads,
 class _FusedConvStats(torch.autograd.Function):
     """The stats form with its gradient through y and both moments: the
     counterpart of ``pallas_kernels._fconv`` with ``emit_stats``, whose
-    ``_fconv_bwd`` is the vjp of ``_fconv_reference`` (XLA's conv vjp)."""
+    ``_fconv_bwd`` is the vjp of ``_fconv_reference`` (XLA's conv vjp).
+    ``forward(x, w, strides, pads, depthwise) -> (y, sum, sumsq)`` is the
+    kernel on the card and the plain version on the CPU; a test may pass
+    a deliberately wrong one as a control."""
 
     @staticmethod
-    def forward(ctx, meta, x, w):
-        y, s, ss = _STATS_FORWARD[0](x, w, *meta)
+    def forward(ctx, meta, forward, x, w):
+        y, s, ss = forward(x, w, *meta)
         ctx.meta = meta
         ctx.save_for_backward(x, w, y)
         ctx.set_materialize_grads(False)
@@ -702,8 +685,8 @@ class _FusedConvStats(torch.autograd.Function):
         x, w, y = ctx.saved_tensors
         gx, gw = fused_conv_stats_backward(
             x, w, y, g_y, g_sum, g_sumsq, *ctx.meta,
-            needs=ctx.needs_input_grad[1:3])
-        return None, gx, gw
+            needs=ctx.needs_input_grad[2:4])
+        return None, None, gx, gw
 
 
 def fused_conv(x, w, aux, kinds, stages, strides, pads, depthwise,
@@ -717,22 +700,25 @@ def fused_conv(x, w, aux, kinds, stages, strides, pads, depthwise,
     f32; unpadded, bounds-checked input; f32 accumulation; the stages
     on chip; one store), the stats form as ``fused_conv_stats``. For CPU
     tensors it runs :func:`fused_conv_reference`. Under autograd the
-    gradient is the plain version's; the stats form's is
-    :func:`fused_conv_stats_backward`.
+    gradient is the plain version's; the stats form's, on either device,
+    is :func:`fused_conv_stats_backward` (``_FusedConvStats``).
     """
     strides, pads = tuple(strides), tuple(pads)
     if emit_stats and (aux or kinds or stages):
         raise ValueError("fused_conv: the stats form takes no epilogue "
                          "stages or aux operands")
-    if not _on_card(x, 'fused_conv'):
-        return fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
-                                    depthwise, emit_stats)
+    on_card = _on_card(x, 'fused_conv')
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in [x, w] + list(aux))
     if emit_stats:
+        forward = _stats_kernel if on_card else _stats_reference
         if not grad:
-            return _STATS_FORWARD[0](x, w, strides, pads, bool(depthwise))
-        return _FusedConvStats.apply((strides, pads, bool(depthwise)), x, w)
+            return forward(x, w, strides, pads, bool(depthwise))
+        return _FusedConvStats.apply((strides, pads, bool(depthwise)),
+                                     forward, x, w)
+    if not on_card:
+        return fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
+                                    depthwise)
     if not grad:
         return _fused_conv_launch(x, w, aux, kinds, stages, strides, pads,
                                   depthwise)

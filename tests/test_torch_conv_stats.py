@@ -5,10 +5,10 @@
   with ``emit_stats`` in interpret mode: y, and the per-channel sum and
   sum of squares of the f32 conv (JAX's per-block partials summed), to
   atol = rtol = 1e-5, f32 on both sides.
-- ``_FusedConvStats``, the autograd Function the card runs, with its
-  forward swapped for the plain one (``stats_forward_for_testing``): its
-  backward against autograd of the plain composition to 1e-5; the same
-  Function with the moments' cotangents dropped differs by far more.
+- ``_FusedConvStats``, the autograd Function the stats form runs under
+  on either device (on the CPU with the plain forward): its backward
+  against autograd of the plain composition to 1e-5; the same Function
+  with the moments' cotangents dropped differs by far more.
 - Whole train-mode regions in both packages, JAX on its Pallas kernel in
   interpret mode and the port on the stats form: the loss, every
   gradient and the moving statistics to 1e-5, with no replay.
@@ -96,9 +96,20 @@ def test_stats_form_refuses_epilogue_stages():
 
 
 # ---- the card's autograd Function, on the plain forward ------------------------
-def _function_grads(shape, cotangents):
-    """dx, dw of sum(y * gy) + gs . sum + gq . sumsq through the Function
-    (forward swapped for the plain one) and through autograd of the plain
+class MomentsDropped(ck._FusedConvStats):
+    """A wrong stats form (a control): its backward ignores the moments'
+    cotangents, as a Function that took sum and sumsq for constants
+    would."""
+
+    @staticmethod
+    def backward(ctx, g_y, g_sum, g_sumsq):
+        return ck._FusedConvStats.backward(ctx, g_y, None, None)
+
+
+def _function_grads(shape, cotangents, function=None):
+    """dx, dw of sum(y * gy) + gs . sum + gq . sumsq through the stats
+    form's autograd Function (``function``, by default the one
+    ``fused_conv`` applies) and through autograd of the plain
     composition."""
     N, H, W, cin, cout, k, s, p, dw = shape
     x, w = _operands(shape, seed=1)
@@ -107,13 +118,16 @@ def _function_grads(shape, cotangents):
     for via_function in (True, False):
         xt = torch.tensor(x, requires_grad=True)
         wt = torch.tensor(w, requires_grad=True)
-        if via_function:
-            with ck.stats_forward_for_testing():
-                y, ssum, ssq = ck._FusedConvStats.apply(((s, s), (p, p), dw),
-                                                        xt, wt)
-        else:
+        if not via_function:
             y, ssum, ssq = ck.fused_conv_reference(
                 xt, wt, (), (), (), (s, s), (p, p), dw, emit_stats=True)
+        elif function is None:
+            y, ssum, ssq = ck.fused_conv(xt, wt, (), (), (), (s, s), (p, p),
+                                         dw, emit_stats=True)
+            assert type(y.grad_fn).__name__ == '_FusedConvStatsBackward'
+        else:
+            y, ssum, ssq = function.apply(((s, s), (p, p), dw),
+                                          ck._stats_reference, xt, wt)
         f = (y * gy).sum() + (ssum * gs).sum() + (ssq * gq).sum()
         out.append(torch.autograd.grad(f, (xt, wt)))
     return out
@@ -136,18 +150,13 @@ def test_stats_function_backward_matches_plain_vjp(name):
     np.testing.assert_allclose(fw.numpy(), pw.numpy(), **TOL)
 
 
-def test_stats_function_control_without_moment_cotangents(monkeypatch):
+def test_stats_function_control_without_moment_cotangents():
     """The control: the Function with g_sum and g_sumsq dropped in its
     backward passes any forward check, and misses the gradient by far
     more than the limit."""
     shape = SHAPES['3x3_pad1']
-    right = ck.fused_conv_stats_backward
-
-    def dropped(x, w, y, g_y, g_sum, g_sumsq, *rest, **kw):
-        return right(x, w, y, g_y, None, None, *rest, **kw)
-
-    monkeypatch.setattr(ck, 'fused_conv_stats_backward', dropped)
-    (fx, fw), (px, pw) = _function_grads(shape, _cotangents(shape))
+    (fx, fw), (px, pw) = _function_grads(shape, _cotangents(shape),
+                                         MomentsDropped)
     for got, ref in ((fx, px), (fw, pw)):
         err = (got - ref).abs().max().item()
         assert err > 100 * (TOL['atol'] + TOL['rtol'] *

@@ -281,3 +281,25 @@ def test_cross_entropy_matches_jax(soft_label):
     (j,), (t,) = run_both(build, {'x': x, 'label': label})
     assert t.shape == (5, 1) and np.isfinite(t).all()
     np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-6)
+
+
+def test_set_amp_forces_bf16_products_like_jax():
+    """``set_amp(True)`` turns AMP on for CPU tensors too, as the JAX
+    package's ``set_amp`` does off the TPU: a mul takes bf16 operands in
+    both packages (so it departs from the f32 product by bf16 rounding),
+    and ``set_amp(None)`` goes back to the device's policy."""
+    from paddle_tpu.core import amp as jax_amp
+    from paddle_tpu_torch.core import amp as pt_amp
+    feeds = {'x': _randn(3, 4, 5), 'y': _randn(5, 6, seed=1)}
+    exact = np.einsum('bij,jk->bik', feeds['x'], feeds['y'])
+    jax_amp.set_amp(True)
+    pt_amp.set_amp(True)
+    try:
+        assert pt_amp.amp_enabled('cpu')
+        (j,), (t,) = run_both(_mul, feeds)
+    finally:
+        jax_amp.set_amp(None)
+        pt_amp.set_amp(None)
+    assert not pt_amp.amp_enabled('cpu') and pt_amp.amp_enabled('cuda')
+    np.testing.assert_allclose(t, j, rtol=1e-2, atol=1e-2)
+    assert np.abs(t - exact).max() > 1e-4
