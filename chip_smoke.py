@@ -77,7 +77,32 @@ non-zero) on failure:
    AMP, warm-up then timed steps: exact stats-form launches and
    'groups' replays (its grouped 3x3 convs) a step, ms per step,
    images/s;
-13. summary: a JSON line of the kernels, the card line, and last the
+13. LSTM kernels: the fused LSTM cell (csrc/lstm_cell.cu) against its
+   plain version at the sequence path's shape (B 256, H 512, f32), at B
+   1, at (64, 256), at H 1000, and at (256, 512) with bf16 r_prev and w,
+   per element; the real kernel fed c_prev zeroed, or xg with its input
+   and forget chunks swapped, must fail that check by far; kernel, plain
+   version and a matmul with the gate math (a yardstick) timed as CUDA
+   graph replays, and the bound;
+14. LSTM training: stacked_dynamic_lstm at full width (dict 10000, emb
+   and hid 512, 3 layers) with use_peepholes=False, Momentum(0.01, 0.9)
+   .minimize, AMP, batch 256 of 80 words (96 padded steps), one fixed
+   batch: warm-up then timed steps (ms per step, words/s, peak memory),
+   the loss finite and falling, exactly 288 lstm_cell launches a step, a
+   profile of one step; then the benchmark's configuration (peepholes,
+   the plain scan, no launch) for a few steps;
+15. LSTM serving: the trained model saved with save_inference_model,
+   loaded into a fresh scope and served at batch 1, 32 and 256 of 80
+   words and one ragged batch, 288 launches a request; its probabilities
+   against the plain cell's, and two controls that must fail;
+16. LSTM gradients: one batch-8 step on ragged lengths, the loss and
+   every parameter gradient on the kernel against the plain cell, AMP
+   off (a fixed limit) and on (a limit relative to a witness, the plain
+   cell in f64); the two controls must fail both;
+17. machine translation: full width (dict 8000, emb 256, hid 512, with
+   peepholes), batch 64 of 24 words a side, a few Momentum steps (ms a
+   step; no cell launch);
+18. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
 import argparse
@@ -188,6 +213,48 @@ RESNET_GRAD_WITNESS = 2.0
 # start (Goyal et al., 2017): with gammas of 1, train-mode batch norm
 # makes the random network's gradients explode with depth
 RESIDUAL_GAMMA = 0.1
+# the sequence path: stacked_dynamic_lstm at the benchmark's width
+# (benchmark/fluid/models.py:70-104) with use_peepholes=False on its three
+# LSTMs, batch 256 (bench.py:281), 80 words a sequence, padded to 96 steps
+LSTM = dict(dict_size=10000, emb_dim=512, hid_dim=512, stacked_num=3)
+LSTM_BATCH, LSTM_WORDS, LSTM_T_PAD = 256, 80, 96
+LSTM_WARMUP, LSTM_STEPS, LSTM_PEEP_STEPS = 2, 10, 3
+LSTM_LAUNCHES = LSTM['stacked_num'] * LSTM_T_PAD    # a step or a request
+LSTM_GRAD_BATCH = 8
+LSTM_SERVE_BATCHES = [1, 32, 256]
+# machine_translation (models.py:106-146) at batch 64 (bench.py:262)
+MT = dict(dict_size=8000, emb_dim=256, hid_dim=512)
+MT_BATCH, MT_LEN, MT_WARMUP, MT_STEPS = 64, 24, 1, 3
+# the LSTM cell kernel vs its plain version on the same inputs, per
+# element: |err| <= rel * |plain| + abs * rms(plain), (rel, abs) by the
+# dtype of the output. f32: the same f32 sums in another order, then the
+# same gate math; bf16 (h written in bf16): one bf16 rounding of h that
+# may differ by one step. Read on the H100 (PERF.md, Findings): f32 at
+# most 0.40 of the limit (H 1000), bf16 0.56. Two wrong-kernel controls
+# (c_prev zeroed, xg's input and forget chunks swapped) read 1.3e5-3.9e5
+# times the limit and must read past LSTM_CONTROL_MARGIN.
+LSTM_CELL_TOL = {'float32': (1e-5, 1e-5), 'bfloat16': (2 ** -7, 2 ** -8)}
+LSTM_CONTROL_MARGIN = 100
+# the loss and every parameter gradient of one batch-8 step on ragged
+# lengths, kernel vs the plain cell (relative L2). With AMP off both run
+# in f32 and differ in the order of their sums: read on the H100 (PERF.md,
+# Findings) 0 and 3.2e-7, a witness (the plain cell in f64, rounded) 0
+# and 3.6e-7; the limit is 30x that. Under AMP bf16 rounding in the fc
+# products moves the gradients 2% for any order of the cell's sums (the
+# kernel and the witness both read 0.0201): each limit is
+# LSTM_GRAD_WITNESS times the witness's, and never below the f32 one. The
+# controls read 0.96 and 0.11 in both.
+LSTM_GRAD_F32 = 1e-5
+LSTM_GRAD_WITNESS = 2.0
+# served outputs, kernel vs the plain cell (AMP): the probabilities' max
+# |diff| and the pooled last hidden state's max |diff| / max |state|, each
+# at most LSTM_PROB_WITNESS times the witness's and never held below its
+# floor. Read on the H100 (PERF.md, Findings): the kernel 3.05e-5 and
+# 0.00202, the witness 6.1e-5 and 0.00202 (bf16 rounding in the fc
+# products); the controls 0.00427 / 0.364 (c_prev zeroed) and 1.22e-4 /
+# 0.0144 (input and forget swapped: the two-class output at random
+# weights leans little on the LSTM, the pooled state catches it)
+LSTM_PROB_WITNESS, LSTM_PROB_FLOOR = 2.0, (1e-5, 1e-6)
 
 
 def check(cond, msg):
@@ -480,6 +547,8 @@ def _kernel_kind(name):
         return flash.group(0)
     if re.search(r'conv_(bf16|f32|depthwise)_kernel', name):
         return 'fused_conv'
+    if re.search(r'lstm_cell_(bf16|f32)_kernel', name):
+        return 'lstm_cell'
     if 'pool' in name.lower():
         return 'pool'
     if 'memcpy htod' in name.lower():
@@ -1094,10 +1163,9 @@ def phase_training(seed, card):
     check(all(np.isfinite(losses)), 'non-finite training loss')
     check(losses[-1] < losses[0], 'the loss did not fall: %g -> %g'
           % (losses[0], losses[-1]))
-    expect = {'flash_attn_fwd': n_layers * TRAIN_STEPS,
-              'flash_attn_bwd_dkvdq': n_layers * TRAIN_STEPS,
-              'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
-              'fused_conv': 0, 'fused_conv_stats': 0}
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attn_fwd=n_layers * TRAIN_STEPS,
+                  flash_attn_bwd_dkvdq=n_layers * TRAIN_STEPS)
     check(launches == expect, 'training launches %s, expected %s'
           % (launches, expect))
     profile_run(lambda: exe.run(main, feed=feed, fetch_list=[loss],
@@ -1129,9 +1197,9 @@ def phase_training(seed, card):
           '%g)' % (route_launches, errs[worst], worst,
                    float(np.median(list(errs.values()))), ROUTE_GRAD_TOL),
           flush=True)
-    expect = {'flash_attn_fwd': n_layers, 'flash_attn_bwd_dkvdq': 0,
-              'flash_attn_bwd_dq': n_layers, 'flash_attn_bwd_dkv': n_layers,
-              'fused_conv': 0, 'fused_conv_stats': 0}
+    expect = dict.fromkeys(route_launches, 0)
+    expect.update(flash_attn_fwd=n_layers, flash_attn_bwd_dq=n_layers,
+                  flash_attn_bwd_dkv=n_layers)
     check(route_launches == expect, 'two-pass step launches %s, expected '
           '%s' % (route_launches, expect))
     check(errs[worst] <= ROUTE_GRAD_TOL, 'two-pass gradients differ from '
@@ -1707,6 +1775,514 @@ def phase_se_resnext_training(seed, card):
     return dict(launches=launches, ms=1e3 * dt / SE_STEPS)
 
 
+# ---- the sequence path ------------------------------------------------------------
+def stacked_dynamic_lstm(pkg, dict_size=10000, emb_dim=512, hid_dim=512,
+                         stacked_num=3, use_peepholes=True):
+    """benchmark/fluid/models.py:70-104 line for line, with the LSTMs'
+    use_peepholes as an argument. Returns (loss, prediction)."""
+    layers = pkg.layers
+    data = layers.data(name='data', shape=[1], dtype='int64', lod_level=1)
+    label = layers.data(name='label', shape=[1], dtype='int64')
+    emb = layers.embedding(input=data, size=[dict_size, emb_dim])
+    fc1 = layers.fc(input=emb, size=hid_dim * 4)
+    lstm1, _ = layers.dynamic_lstm(input=fc1, size=hid_dim * 4,
+                                   use_peepholes=use_peepholes)
+    inputs = [fc1, lstm1]
+    for _ in range(2, stacked_num + 1):
+        fc = layers.fc(input=inputs, size=hid_dim * 4)
+        lstm, _ = layers.dynamic_lstm(input=fc, size=hid_dim * 4,
+                                      use_peepholes=use_peepholes)
+        inputs = [fc, lstm]
+    fc_last = layers.sequence_pool(input=inputs[0], pool_type='max')
+    lstm_last = layers.sequence_pool(input=inputs[1], pool_type='max')
+    prediction = layers.fc(input=[fc_last, lstm_last], size=2, act='softmax')
+    cost = layers.cross_entropy(input=prediction, label=label)
+    return layers.mean(x=cost), prediction
+
+
+def machine_translation(pkg, dict_size=8000, emb_dim=256, hid_dim=512):
+    """benchmark/fluid/models.py:106-146 line for line. Returns the
+    loss."""
+    layers = pkg.layers
+    src = layers.data(name='data', shape=[1], dtype='int64', lod_level=1)
+    trg = layers.data(name='trg', shape=[1], dtype='int64', lod_level=1)
+    label = layers.data(name='label', shape=[1], dtype='int64', lod_level=1)
+    src_emb = layers.embedding(input=src, size=[dict_size, emb_dim])
+    enc_fc = layers.fc(input=src_emb, size=hid_dim * 4)
+    enc, _ = layers.dynamic_lstm(input=enc_fc, size=hid_dim * 4)
+    enc_last = layers.sequence_pool(input=enc, pool_type='last')
+    trg_emb = layers.embedding(input=trg, size=[dict_size, emb_dim])
+    dec_fc = layers.fc(input=trg_emb, size=hid_dim * 4)
+    dec, _ = layers.dynamic_lstm(input=dec_fc, size=hid_dim * 4)
+    ctx = layers.sequence_expand(x=enc_last, y=dec)
+    merged = layers.fc(input=[dec, ctx], size=hid_dim, act='tanh')
+    predict = layers.fc(input=merged, size=dict_size, act='softmax')
+    cost = layers.cross_entropy(input=predict, label=label)
+    return layers.mean(x=cost)
+
+
+def _lstm_program(seed, use_peepholes):
+    import paddle_tpu_torch as pt
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss, prediction = stacked_dynamic_lstm(
+            pt, use_peepholes=use_peepholes, **LSTM)
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    return main, startup, loss, prediction
+
+
+def _lstm_feed(lens, seed):
+    """Word ids and labels as the benchmark's feed_fn makes them (one
+    SequenceTensor of packed rows and lengths; numpy, on the host)."""
+    import paddle_tpu_torch as pt
+    rng = np.random.RandomState(seed)
+    rows = rng.randint(0, LSTM['dict_size'], (int(sum(lens)), 1))
+    return {'data': pt.create_lod_tensor(rows.astype('int64'), [list(lens)]),
+            'label': rng.randint(0, 2, (len(lens), 1)).astype('int64')}
+
+
+def lstm_bound(B, H, dot):
+    """The least time for one cell: 2*B*H*4H operations at the dtype's
+    peak (f32 without tensor cores, bf16 dense), or xg and c_prev (f32),
+    r_prev and w (dot), h (dot) and c (f32) moved once."""
+    e = 2 if dot == 'bfloat16' else 4
+    flops = 2 * B * H * 4 * H
+    nbytes = 4 * (B * 4 * H + 2 * B * H) + e * (2 * B * H + 4 * H * H)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dot], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def _cell_ratio(got, ref):
+    """The largest |err| / (rel * |plain| + abs * rms(plain)) per element,
+    by the output's dtype."""
+    rel, abs_ = LSTM_CELL_TOL[str(ref.dtype).replace('torch.', '')]
+    ref = ref.float()
+    bound = rel * ref.abs() + abs_ * ref.pow(2).mean().sqrt()
+    return ((got.float() - ref).abs() / bound).max().item()
+
+
+def _library_cell(xg, r, c, w):
+    """torch.matmul and the gate math in plain PyTorch: the yardstick of
+    one library product plus PyTorch's elementwise passes."""
+    import torch
+    gc, gi, gf, go = (xg + torch.matmul(r, w)).chunk(4, dim=-1)
+    c_new = torch.tanh(gc) * torch.sigmoid(gi) + c * torch.sigmoid(gf)
+    return torch.sigmoid(go) * torch.tanh(c_new), c_new
+
+
+def _cell_zero_c(xg, r, c, w):
+    """Control: the real kernel with c_prev zeroed."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    return ck.fused_lstm_cell(xg, r, torch.zeros_like(c), w)
+
+
+def _cell_swap_if(xg, r, c, w):
+    """Control: the real kernel with xg's input and forget chunks
+    swapped."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    gc, gi, gf, go = xg.chunk(4, dim=-1)
+    return ck.fused_lstm_cell(torch.cat([gc, gf, gi, go], dim=-1), r, c, w)
+
+
+def _cell_f64(xg, r, c, w):
+    """Witness: the plain cell in f64, rounded back."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    h, c_new = ck.lstm_cell_reference(xg.double(), r.double(), c.double(),
+                                      w.double())
+    return h.to(r.dtype), c_new.to(c.dtype)
+
+
+LSTM_CONTROLS = (('c_prev zeroed', _cell_zero_c),
+                 ('input and forget chunks swapped', _cell_swap_if))
+
+
+def phase_lstm_kernels(seed):
+    """The LSTM cell kernel (csrc/lstm_cell.cu) against its plain version
+    at the sequence path's shape (B 256, H 512, f32), a single row, a
+    narrower layer, H 1000 (not a multiple of the tile), and the path's
+    shape with bf16 r_prev and w; two wrong inputs to the real kernel must
+    fail the check. Times kernel, plain version and a matmul with the
+    gate math (a yardstick) as CUDA-graph replays, TF32 off."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 500)
+    results = {}
+    for B, H, dot in ((256, 512, 'float32'), (1, 512, 'float32'),
+                      (64, 256, 'float32'), (7, 1000, 'float32'),
+                      (256, 512, 'bfloat16')):
+        dt = getattr(torch, dot)
+        xg = torch.randn(B, 4 * H, device='cuda', generator=gen)
+        r = torch.tanh(torch.randn(B, H, device='cuda', generator=gen)).to(dt)
+        c = torch.randn(B, H, device='cuda', generator=gen)
+        w = (torch.randn(H, 4 * H, device='cuda', generator=gen) /
+             H ** 0.5).to(dt)
+        ops = (xg, r, c, w)
+        ref_h, ref_c = ck.lstm_cell_reference(*ops)
+        before = ck.LAUNCHES['lstm_cell']
+        h, c_out = ck.fused_lstm_cell(*ops)
+        torch.cuda.synchronize()
+        check(ck.LAUNCHES['lstm_cell'] == before + 1,
+              'lstm_cell did not launch at B %d H %d' % (B, H))
+        check(h.dtype == dt and c_out.dtype == torch.float32,
+              'lstm_cell output dtypes %s %s' % (h.dtype, c_out.dtype))
+        ratio = max(_cell_ratio(h, ref_h), _cell_ratio(c_out, ref_c))
+        err = max((h.float() - ref_h.float()).abs().max().item(),
+                  (c_out - ref_c).abs().max().item())
+        controls = []
+        for _, fn in LSTM_CONTROLS:
+            ch, cc = fn(*ops)
+            controls.append(max(_cell_ratio(ch, ref_h),
+                                _cell_ratio(cc, ref_c)))
+        bound, bound_by = lstm_bound(B, H, dot)
+        if dot == 'float32':
+            # each unit tile of the f32 kernel, checked and timed (the
+            # kernel chooses one from B and H)
+            tiles = {}
+            for bn in (32, 16, 8):
+                th, tc = ck._lstm_cell_kernel(*ops, unit_tile=bn)
+                check(max(_cell_ratio(th, ref_h), _cell_ratio(tc, ref_c)) <= 1,
+                      'lstm_cell with unit tile %d differs from its plain '
+                      'version at B %d H %d' % (bn, B, H))
+                tiles[bn] = graph_ms(
+                    lambda bn=bn: ck._lstm_cell_kernel(*ops, unit_tile=bn))
+            print('lstm kernels: B %d H %d float32, unit tiles 32/16/8: '
+                  '%.4f / %.4f / %.4f ms' % (B, H, tiles[32], tiles[16],
+                                             tiles[8]), flush=True)
+        res = dict(max_abs_err=err,
+                   ms=graph_ms(lambda: ck.fused_lstm_cell(*ops)),
+                   plain_ms=graph_ms(lambda: ck.lstm_cell_reference(*ops)),
+                   library_ms=graph_ms(lambda: _library_cell(*ops)),
+                   bound_ms=bound, bound_by=bound_by)
+        results[(B, H, dot)] = res
+        print('lstm kernels: B %d H %d %s: max |err| %.3g, %.3f of the '
+              'per-element limit %s; controls (c_prev zeroed, i/f swapped) '
+              '%.1f and %.1f x the limit; kernel %.4f ms, plain %.4f ms, '
+              'matmul + gate math %.4f ms, bound %.4f ms (%s)' % (
+                  B, H, dot, err, ratio, LSTM_CELL_TOL[str(h.dtype)[6:]],
+                  controls[0], controls[1], res['ms'], res['plain_ms'],
+                  res['library_ms'], bound, bound_by), flush=True)
+        check(ratio <= 1, 'lstm_cell differs from its plain version at B %d '
+              'H %d %s: %.3g of the limit' % (B, H, dot, ratio))
+        for (name, _), ctl in zip(LSTM_CONTROLS, controls):
+            check(ctl > LSTM_CONTROL_MARGIN, 'the lstm_cell check does not '
+                  'catch a control (%s) by %dx at B %d H %d %s: %.3g' % (
+                      name, LSTM_CONTROL_MARGIN, B, H, dot, ctl))
+    return results
+
+
+def _words_per_s(steps, batch, dt):
+    return steps * batch * LSTM_WORDS / dt
+
+
+def _train_steps(exe, main, loss, feed, scope, warmup, steps):
+    """Warm-up steps, then timed steps with the loss kept on the card;
+    returns (losses, seconds of the timed steps, launches during them)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0][0]) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        outs.append(out)
+    torch.cuda.synchronize()
+    outs[-1] = outs[-1].item()                # the last loss to the host
+    dt = time.perf_counter() - t0
+    return losses + [float(o) for o in outs], dt, dict(ck.LAUNCHES)
+
+
+def phase_lstm_training(seed, card):
+    """Train stacked_dynamic_lstm at full width through Momentum.minimize
+    and Executor.run on one fixed batch of 256 sequences of 80 words:
+    with use_peepholes=False (the kernel path), then the benchmark's own
+    configuration (peepholes, the plain scan)."""
+    import torch
+    import paddle_tpu_torch as pt
+    main, startup, loss, prediction = _lstm_program(seed, False)
+    exe = pt.Executor()                       # CUDAPlace(0)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    # staged on the card once (as bench.py stages its feed)
+    feed = exe._prepare_feed(main, _lstm_feed([LSTM_WORDS] * LSTM_BATCH,
+                                              seed + 21))
+    check(tuple(feed['data'].data.shape) == (LSTM_BATCH, LSTM_T_PAD, 1),
+          'sequence feed padded to %s' % (tuple(feed['data'].data.shape),))
+    torch.cuda.reset_peak_memory_stats()
+    losses, dt, launches = _train_steps(exe, main, loss, feed, scope,
+                                        LSTM_WARMUP, LSTM_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = 1e3 * dt / LSTM_STEPS
+    print('lstm training: stacked_dynamic_lstm (dict %d, emb %d, hid %d, %d '
+          'layers, use_peepholes=False), batch %d x %d words (padded to %d), '
+          'Momentum(0.01, 0.9), AMP: %d steps, %.2f ms per step, %.0f words/s '
+          '(host clock, loss kept on the card), peak memory %.2f GiB; %s' % (
+              LSTM['dict_size'], LSTM['emb_dim'], LSTM['hid_dim'],
+              LSTM['stacked_num'], LSTM_BATCH, LSTM_WORDS, LSTM_T_PAD,
+              LSTM_STEPS, ms, _words_per_s(LSTM_STEPS, LSTM_BATCH, dt), peak,
+              card), flush=True)
+    print('lstm training: losses %s; launches over the timed steps %s' % (
+        ', '.join('%.4f' % l for l in losses), launches), flush=True)
+    check(all(np.isfinite(losses)), 'non-finite LSTM training loss')
+    check(losses[-1] < losses[0], 'the LSTM loss did not fall: %g -> %g'
+          % (losses[0], losses[-1]))
+    expect = {name: 0 for name in launches}
+    expect['lstm_cell'] = LSTM_LAUNCHES * LSTM_STEPS
+    check(launches == expect, 'LSTM training launches %s, expected %s'
+          % (launches, expect))
+    profile_run(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope, return_numpy=False),
+                'lstm training step')
+    result = dict(launches=launches, ms=ms, peak_gib=peak, main=main,
+                  scope=scope, prediction=prediction)
+
+    # the benchmark's own configuration: peepholes, the plain scan
+    p_main, p_startup, p_loss, _ = _lstm_program(seed, True)
+    p_scope = pt.Scope()
+    exe.run(p_startup, scope=p_scope)
+    p_losses, p_dt, p_launches = _train_steps(exe, p_main, p_loss, feed,
+                                              p_scope, 1, LSTM_PEEP_STEPS)
+    print('lstm training: with peepholes (the benchmark\'s configuration, '
+          'the plain scan): %d steps, %.2f ms per step, %.0f words/s, losses '
+          '%s, launches %s' % (
+              LSTM_PEEP_STEPS, 1e3 * p_dt / LSTM_PEEP_STEPS,
+              _words_per_s(LSTM_PEEP_STEPS, LSTM_BATCH, p_dt),
+              ', '.join('%.4f' % l for l in p_losses), p_launches),
+          flush=True)
+    check(all(np.isfinite(p_losses)), 'non-finite peephole LSTM loss')
+    check(not any(p_launches.values()), 'the peephole LSTM launched %s'
+          % p_launches)
+    result['peep_ms'] = 1e3 * p_dt / LSTM_PEEP_STEPS
+    del p_scope, feed
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_lstm_gradients(seed):
+    """The loss and every parameter gradient of one batch-8 step on
+    ragged lengths (1-80 words), the kernel against the plain cell (the
+    same backward, through rnn_ops.lstm_cell_for_testing), relative L2:
+    with AMP off against a fixed limit, under AMP against a witness (the
+    plain cell in f64, rounded); two wrong-kernel controls must fail
+    both."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.ops import rnn_ops
+    main, startup, loss, _ = _lstm_program(seed + 1, False)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed + 31)
+    lens = [LSTM_WORDS] + [int(n) for n in rng.randint(
+        1, LSTM_WORDS + 1, LSTM_GRAD_BATCH - 1)]
+    feed = exe._prepare_feed(main, _lstm_feed(lens, seed + 32))
+    grad_names = sorted(v.name for v in main.list_vars()
+                        if v.name.endswith('@GRAD'))
+    names = ['loss'] + grad_names
+    snap = _snapshot(scope)
+
+    def step(cell=None):
+        _restore(scope, snap)
+        with rnn_ops.lstm_cell_for_testing(cell) if cell else \
+                contextlib.nullcontext():
+            vals = exe.run(main, feed=feed, fetch_list=[loss] + grad_names,
+                           scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        return dict(zip(names, vals))
+
+    def errors(got, ref):
+        errs = _rel_l2(got, ref)
+        worst = max(grad_names, key=errs.get)
+        return errs['loss'], errs[worst], worst
+
+    for precision in ('f32', 'bf16'):
+        amp.set_amp(precision == 'bf16')
+        try:
+            ck.reset_launch_counts()
+            kernel = step()
+            check(ck.LAUNCHES['lstm_cell'] == LSTM_LAUNCHES,
+                  'gradient step launches %s' % ck.LAUNCHES)
+            plain = step(ck.lstm_cell_reference)
+            found = {'kernel': errors(kernel, plain),
+                     'witness': errors(step(_cell_f64), plain)}
+            for name, fn in LSTM_CONTROLS:
+                found[name] = errors(step(fn), plain)
+        finally:
+            amp.set_amp(None)
+        limit = (LSTM_GRAD_F32, LSTM_GRAD_F32)
+        if precision == 'bf16':
+            limit = tuple(max(LSTM_GRAD_WITNESS * e, f) for e, f in zip(
+                found['witness'][:2], limit))
+        for name, e in found.items():
+            print('lstm gradients: %s (AMP %s), batch %d, lengths %s, %s vs '
+                  'the plain cell: loss %.3g, gradients max %.3g (%s); '
+                  'limits %.3g, %.3g' % (
+                      precision, 'on' if precision == 'bf16' else 'off',
+                      LSTM_GRAD_BATCH, lens, name, e[0], e[1], e[2],
+                      limit[0], limit[1]), flush=True)
+        k = found['kernel']
+        check(k[0] <= limit[0] and k[1] <= limit[1], 'LSTM loss or gradients '
+              '(%s) differ from the plain cell\'s' % precision)
+        for name, _ in LSTM_CONTROLS:
+            e = found[name]
+            check(e[0] > limit[0] or e[1] > limit[1], 'the %s gradient '
+                  'limits do not catch a control: %s' % (precision, name))
+    del scope, snap, kernel, plain
+    torch.cuda.empty_cache()
+
+
+def phase_lstm_serving(seed, trained):
+    """Save the trained use_peepholes=False model with
+    save_inference_model(['data'], [prediction]), load it into a fresh
+    scope and serve batches of 1, 32 and 256 sequences of 80 words, then
+    a ragged batch, numpy in and probabilities out: exactly 288 kernel
+    launches a request; the probabilities and the pooled last hidden
+    state against the plain cell's (limits relative to a witness, the
+    plain cell in f64), and two controls that must fail."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.ops import rnn_ops
+    exe = pt.Executor()
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        pt_io.save_inference_model(d, ['data'], [trained['prediction']], exe,
+                                   main_program=trained['main'],
+                                   scope=trained['scope'])
+        scope = pt.Scope()
+        prog, feed_names, fetch_vars = pt_io.load_inference_model(
+            d, exe, scope=scope)
+    check(feed_names == ['data'], 'feeds %s' % feed_names)
+    rng = np.random.RandomState(seed + 41)
+    ragged = [int(n) for n in rng.randint(1, LSTM_WORDS + 1, 31)] + \
+        [LSTM_WORDS]
+    requests = [[LSTM_WORDS] * b for b in LSTM_SERVE_BATCHES] + [ragged]
+
+    def serve(lens, s):
+        return exe.run(prog, feed={'data': _lstm_feed(lens, s)['data']},
+                       fetch_list=fetch_vars, scope=scope)[0]
+
+    for lens in requests:                     # warm-up: allocator
+        serve(lens, seed + 100)
+    times, seqs = [], 0
+    for i, lens in enumerate(requests):
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = serve(lens, seed + i)
+        dt = time.perf_counter() - t1
+        n = ck.LAUNCHES['lstm_cell']
+        times.append(dt)
+        seqs += len(lens)
+        print('lstm request %d: batch %d (%s words), %.2f ms, %.1f '
+              'sequences/s, %d lstm_cell launches' % (
+                  i, len(lens), 'ragged %d-%d' % (min(lens), max(lens))
+                  if len(set(lens)) > 1 else lens[0], 1e3 * dt,
+                  len(lens) / dt, n), flush=True)
+        check(out.shape == (len(lens), 2), 'probabilities shape %s'
+              % (out.shape,))
+        check(np.isfinite(out).all() and np.allclose(out.sum(1), 1.0,
+                                                     atol=1e-3),
+              'probabilities not finite or not summing to 1')
+        check(n == LSTM_LAUNCHES and sum(ck.LAUNCHES.values()) == n,
+              'request %d launches %s, expected %d lstm_cell' % (
+                  i, ck.LAUNCHES, LSTM_LAUNCHES))
+    print('lstm serving: %d requests, %.2f ms per request, %.1f sequences/s '
+          '(host clock, numpy ids in, probabilities fetched to the host)' % (
+              len(times), 1e3 * sum(times) / len(times), seqs / sum(times)),
+          flush=True)
+    # the probabilities, and the last LSTM's hidden state max-pooled over
+    # the steps (the served output at random weights leans little on it)
+    pooled = [op.output('Out')[0] for op in prog.global_block().ops
+              if op.type == 'sequence_pool'][-1]
+    probe = [LSTM_WORDS] * 32 + ragged
+
+    def outputs(cell=None):
+        with rnn_ops.lstm_cell_for_testing(cell) if cell else \
+                contextlib.nullcontext():
+            return exe.run(prog, feed={'data': _lstm_feed(probe, seed + 7)[
+                'data']}, fetch_list=[v.name for v in fetch_vars] + [pooled],
+                scope=scope)
+
+    plain_p, plain_s = outputs(ck.lstm_cell_reference)
+
+    def agreement(p, st):
+        return (float(np.abs(p - plain_p).max()),
+                float(np.abs(st - plain_s).max() / np.abs(plain_s).max()),
+                float((p.argmax(-1) == plain_p.argmax(-1)).mean()))
+
+    found = {'kernel': agreement(*outputs())}
+    for name, fn in (('witness', _cell_f64),) + LSTM_CONTROLS:
+        found[name] = agreement(*outputs(fn))
+    limits = tuple(max(LSTM_PROB_WITNESS * e, floor) for e, floor in zip(
+        found['witness'][:2], LSTM_PROB_FLOOR))
+    for name, e in found.items():
+        print('lstm serving: batch %d, %s vs the plain cell: probabilities '
+              'max |diff| %.3g (limit %.3g), pooled last hidden state max '
+              '|diff| / max |state| %.3g (limit %.3g), argmax agreement %.4f'
+              % (len(probe), name, e[0], limits[0], e[1], limits[1], e[2]),
+              flush=True)
+    k = found['kernel']
+    check(k[0] <= limits[0] and k[1] <= limits[1], 'served outputs differ '
+          'from the plain cell\'s: %s' % (k,))
+    for name, _ in LSTM_CONTROLS:
+        e = found[name]
+        check(e[0] > limits[0] or e[1] > limits[1], 'the serving limits do '
+              'not catch a control: %s' % name)
+    del scope, prog
+    torch.cuda.empty_cache()
+
+
+def phase_machine_translation(seed, card):
+    """machine_translation (peepholes: the plain scan, no cell launch) at
+    batch 64, 24 words a side, for a few Momentum steps."""
+    import torch
+    import paddle_tpu_torch as pt
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = machine_translation(pt, **MT)
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed + 51)
+    lens = [[MT_LEN] * MT_BATCH]
+    feed = exe._prepare_feed(main, {
+        n: pt.create_lod_tensor(rng.randint(
+            0, MT['dict_size'], (MT_BATCH * MT_LEN, 1)).astype('int64'), lens)
+        for n in ('data', 'trg', 'label')})
+    losses, dt, launches = _train_steps(exe, main, loss, feed, scope,
+                                        MT_WARMUP, MT_STEPS)
+    print('machine translation: dict %d, emb %d, hid %d, batch %d x %d '
+          'words a side, Momentum(0.01, 0.9), AMP: %d steps, %.2f ms per '
+          'step, %.0f target words/s, losses %s, launches %s; %s' % (
+              MT['dict_size'], MT['emb_dim'], MT['hid_dim'], MT_BATCH,
+              MT_LEN, MT_STEPS, 1e3 * dt / MT_STEPS,
+              MT_STEPS * MT_BATCH * MT_LEN / dt,
+              ', '.join('%.6f' % l for l in losses), launches, card),
+          flush=True)
+    check(all(np.isfinite(losses)), 'non-finite machine translation loss')
+    check(not any(launches.values()), 'machine translation launched %s'
+          % launches)
+    del scope, feed
+    torch.cuda.empty_cache()
+    return 1e3 * dt / MT_STEPS
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1733,6 +2309,13 @@ def main():
                                            r_startup, r_loss)
     phase_resnet_gradients(args.seed, r_main, r_startup, r_loss)
     phase_se_resnext_training(args.seed, card)
+    lstm = phase_lstm_kernels(args.seed)
+    lstm_trained = phase_lstm_training(args.seed, card)
+    phase_lstm_serving(args.seed, lstm_trained)
+    lstm_launches = lstm_trained['launches']
+    del lstm_trained
+    phase_lstm_gradients(args.seed)
+    phase_machine_translation(args.seed, card)
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests plus the timed training steps; the fused conv:
@@ -1770,6 +2353,14 @@ def main():
         source='paddle_tpu_torch/csrc/fused_conv.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_trained['launches']['fused_conv_stats'], **stats))
+    # the LSTM cell: launches over the timed training steps of
+    # stacked_dynamic_lstm, numbers at its shape (B 256, H 512, f32)
+    kernels.append(dict(
+        name='lstm_cell', route='cuda',
+        source='paddle_tpu_torch/csrc/lstm_cell.cu',
+        replaces='paddle_tpu/ops/pallas_kernels.py:633',
+        launches=lstm_launches['lstm_cell'],
+        **lstm[(LSTM_BATCH, LSTM['hid_dim'], 'float32')]))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

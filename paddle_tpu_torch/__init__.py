@@ -16,7 +16,12 @@ attention and its gradient on hand-written CUDA kernels
 SE-ResNeXt (``models/resnet.py``), whose conv + batch-norm + activation +
 residual regions the compiler's ``conv_epilogue_fuse`` pass turns into
 ``fused_conv`` ops that run on a hand-written CUDA kernel
-(``csrc/fused_conv.cu``; with a train-mode batch norm, its stats form).
+(``csrc/fused_conv.cu``; with a train-mode batch norm, its stats form);
+and the sequence path: ``SequenceTensor`` feeds (``create_lod_tensor``),
+the sequence ops and the recurrent layers (``dynamic_lstm``,
+``dynamic_lstmp``, ``dynamic_gru``, ``gru_unit``, ``lstm_unit``), whose
+peephole-free LSTM steps run on a hand-written CUDA kernel
+(``csrc/lstm_cell.cu``).
 
 Entry points run on the card unless told otherwise: ``Executor()`` means
 ``CUDAPlace(0)`` and raises where CUDA is absent; pass ``CPUPlace()`` to
@@ -33,4 +38,10 @@ from .core.places import CPUPlace, CUDAPlace  # noqa
 from .executor import (Executor, Scope, global_scope, scope_guard,  # noqa
                        switch_scope)
 from .param_attr import ParamAttr  # noqa
+from .lod import (SequenceTensor, create_lod_tensor,  # noqa
+                  create_random_int_lodtensor)
 from .backward import append_backward  # noqa
+
+# the reference's LoDTensor; SequenceTensor carries its imperative
+# surface (set, set_lod, lod), as in paddle_tpu
+LoDTensor = SequenceTensor

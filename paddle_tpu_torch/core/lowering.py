@@ -19,6 +19,7 @@ import torch
 
 from .registry import get_kernel
 from ..framework import Operator, convert_np_dtype
+from ..lod import SequenceTensor
 
 RNG_KEY = '__rng__'
 
@@ -139,15 +140,20 @@ class BlockRunner(object):
         for name in op.output_arg_names:
             var = self.block._find_var_recursive(name)
             val = env.get(name)
+            seq = val if isinstance(val, SequenceTensor) else None
+            if seq is not None:
+                val = seq.data
             if var is None or not isinstance(val, torch.Tensor) or \
                     not val.is_floating_point():
                 continue
             if var.stop_gradient:
-                env[name] = val = val.detach()
+                val = val.detach()
             eclip = getattr(var, 'error_clip', None)
             if eclip is not None and val.requires_grad:
-                env[name] = _ClipCotangent.apply(val, float(eclip.min),
-                                                 float(eclip.max))
+                val = _ClipCotangent.apply(val, float(eclip.min),
+                                           float(eclip.max))
+            env[name] = val if seq is None else SequenceTensor(
+                val, seq.lengths, seq.sub_lengths)
 
 
 # Graph rewrite: merge same-input mul (fc) ops into one wide matmul.
@@ -283,7 +289,11 @@ def _detach(val):
     """Cut ``val`` from autograd. A tensor that needs no gradient stays
     the same object, so a parameter that a run leaves alone is the same
     tensor in the Scope from one run to the next (the fused conv keeps
-    its re-laid-out weight while it is)."""
+    its re-laid-out weight while it is). A SequenceTensor keeps its
+    lengths."""
+    if isinstance(val, SequenceTensor):
+        return SequenceTensor(_detach(val.data), val.lengths,
+                              val.sub_lengths)
     if isinstance(val, torch.Tensor) and val.requires_grad:
         return val.detach()
     return val

@@ -20,6 +20,7 @@ import torch
 
 from . import compiler as _compiler
 from .framework import Program, Variable, default_main_program
+from .lod import SequenceTensor
 from .core import places as _places
 from .core.lowering import lower_block, torch_dtype, RNG_KEY
 from .core.registry import SIDE_EFFECT_OPS
@@ -77,15 +78,29 @@ def scope_guard(scope):
 
 def _to_f32_fetch(t):
     """Half-precision fetches come back float32, the JAX Executor's
-    ``_to_f32_fetch`` boundary; numpy has no bfloat16 either."""
+    ``_to_f32_fetch`` boundary; numpy has no bfloat16 either. A
+    SequenceTensor keeps its lengths."""
+    if isinstance(t, SequenceTensor):
+        return SequenceTensor(_to_f32_fetch(t.data), t.lengths,
+                              t.sub_lengths)
     if t.dtype in (torch.bfloat16, torch.float16):
         return t.float()
     return t
 
 
+def _host(t):
+    return None if t is None else t.detach().cpu().numpy()
+
+
 def as_numpy(value):
-    """A fetched tensor as a host numpy array (half floats as f32)."""
-    return _to_f32_fetch(value).detach().cpu().numpy()
+    """A fetched tensor as a host numpy array (half floats as f32). A
+    fetched sequence keeps its structure, as in the JAX package: a
+    SequenceTensor of host arrays, its ``data`` the padded [B, T_pad,
+    ...] array (``np.asarray`` of it gives the packed rows)."""
+    if isinstance(value, SequenceTensor):
+        return SequenceTensor(as_numpy(value.data), _host(value.lengths),
+                              _host(value.sub_lengths))
+    return _host(_to_f32_fetch(value))
 
 
 class Executor(object):
@@ -103,18 +118,44 @@ class Executor(object):
         self.device = self.place.torch_device()
 
     # -------------------------------------------------------------------------
+    def _to_device(self, val, var):
+        if isinstance(val, torch.Tensor):
+            dt = torch_dtype(var.dtype) if var is not None else val.dtype
+            return val.to(device=self.device, dtype=dt)
+        arr = np.asarray(val)
+        dt = torch_dtype(var.dtype if var is not None else arr.dtype)
+        return torch.tensor(arr, dtype=dt, device=self.device)
+
+    def _lengths(self, lengths):
+        if lengths is None:
+            return None
+        if isinstance(lengths, torch.Tensor):
+            return lengths.to(device=self.device, dtype=torch.int64)
+        return torch.tensor(np.asarray(lengths), dtype=torch.int64,
+                            device=self.device)
+
     def _prepare_feed(self, program, feed):
+        """Each feed on the place's device in its variable's runtime
+        dtype. A SequenceTensor (``create_lod_tensor`` output, or one
+        already on the device) keeps its structure: its data and its
+        lengths (int64) move to the device. As in the JAX Executor, a
+        LoDTensor with rows but no LoD, or one fed to a variable declared
+        dense (``lod_level`` 0), is fed as its plain rows."""
         block = program.global_block()
         out = {}
         for name, val in feed.items():
             var = block._find_var_recursive(name)
-            if isinstance(val, torch.Tensor):
-                dt = torch_dtype(var.dtype) if var is not None else val.dtype
-                out[name] = val.to(device=self.device, dtype=dt)
-                continue
-            arr = np.asarray(val)
-            dt = torch_dtype(var.dtype if var is not None else arr.dtype)
-            out[name] = torch.tensor(arr, dtype=dt, device=self.device)
+            if isinstance(val, SequenceTensor) and (
+                    val.lengths is None or (
+                        val._rows is not None and var is not None and
+                        not getattr(var, 'lod_level', 0))):
+                val = val.data if val.lengths is None else val._rows
+            if isinstance(val, SequenceTensor):
+                out[name] = SequenceTensor(
+                    self._to_device(val.data, var), self._lengths(
+                        val.lengths), self._lengths(val.sub_lengths))
+            else:
+                out[name] = self._to_device(val, var)
         return out
 
     @staticmethod

@@ -1,7 +1,8 @@
 """Neural-network layers.
 
 Counterpart of paddle_tpu/layers/nn.py, trimmed to the layers the
-flagship transformer and ResNet use. Same signatures and
+flagship transformer, ResNet and the sequence path (the sequence layers
+and the recurrent layers) use. Same signatures and
 the same op types, attrs and variable names as paddle_tpu's layers, so
 a program built here matches one built there op for op.
 """
@@ -13,7 +14,10 @@ from ..param_attr import ParamAttr
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'softmax', 'cross_entropy', 'softmax_with_cross_entropy', 'split',
            'reshape',
-           'flash_attention', 'reduce_sum']
+           'flash_attention', 'reduce_sum', 'sequence_pool',
+           'sequence_first_step', 'sequence_last_step', 'sequence_softmax',
+           'sequence_expand', 'dynamic_lstm', 'dynamic_lstmp', 'dynamic_gru',
+           'gru_unit', 'lstm_unit']
 
 
 def _prod(dims):
@@ -378,3 +382,194 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
         attrs={'dim': dim if dim is not None else 0, 'keep_dim': keep_dim,
                'reduce_all': dim is None})
     return out
+
+
+# ---- sequence layers (kernels in ops/sequence_ops.py) ---------------------------
+def sequence_pool(input, pool_type):
+    helper = LayerHelper('sequence_pool', **{})
+    dtype = input.dtype
+    if getattr(input, 'lod_level', 1) >= 2:
+        # pooling drops the innermost LoD level: still a sequence (now
+        # level-1) of rows with the same feature dims — the declared
+        # [-1, feat...] shape is unchanged, only the lod level drops
+        pool_out = helper.create_tmp_variable(dtype, shape=input.shape,
+                                              lod_level=1)
+    else:
+        out_shape = (input.shape[0],) + tuple(input.shape[2:]) \
+            if len(input.shape) > 2 else input.shape
+        pool_out = helper.create_tmp_variable(dtype, shape=out_shape)
+    max_index = helper.create_tmp_variable(dtype='int32',
+                                           stop_gradient=True)
+    helper.append_op(type="sequence_pool",
+                     inputs={"X": input},
+                     outputs={"Out": pool_out, "MaxIndex": max_index},
+                     attrs={"pooltype": pool_type.upper()})
+    return pool_out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input=input, pool_type="first")
+
+
+def sequence_last_step(input):
+    return sequence_pool(input=input, pool_type="last")
+
+
+def sequence_softmax(input, param_attr=None, bias_attr=None,
+                     use_cudnn=True):
+    helper = LayerHelper('sequence_softmax', **{})
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape,
+                                     lod_level=input.lod_level)
+    helper.append_op(type="sequence_softmax", inputs={"X": input},
+                     outputs={"Out": out})
+    return out
+
+
+def sequence_expand(x, y, name=None):
+    helper = LayerHelper('sequence_expand', name=name)
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape,
+                                     lod_level=max(1, y.lod_level))
+    helper.append_op(type='sequence_expand', inputs={'X': x, 'Y': y},
+                     outputs={'Out': out})
+    return out
+
+
+# ---- RNN layers (kernels in ops/rnn_ops.py) -------------------------------------
+def dynamic_lstm(input, size, param_attr=None, bias_attr=None,
+                 use_peepholes=True, is_reverse=False,
+                 gate_activation='sigmoid', cell_activation='tanh',
+                 candidate_activation='tanh', dtype='float32', name=None):
+    helper = LayerHelper('lstm', param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    size = size // 4
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[size, 4 * size], dtype=dtype)
+    bias_size = [1, 7 * size] if use_peepholes else [1, 4 * size]
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=bias_size,
+                                   dtype=dtype, is_bias=True)
+    hidden = helper.create_tmp_variable(
+        dtype, shape=tuple(input.shape[:-1]) + (size,), lod_level=1)
+    cell = helper.create_tmp_variable(
+        dtype, shape=tuple(input.shape[:-1]) + (size,), lod_level=1)
+    batch_gate = helper.create_tmp_variable(dtype, stop_gradient=True)
+    batch_cell_pre_act = helper.create_tmp_variable(dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        type='dynamic_lstm',
+        inputs={'Input': input, 'Weight': weight, 'Bias': bias},
+        outputs={'Hidden': hidden, 'Cell': cell, 'BatchGate': batch_gate,
+                 'BatchCellPreAct': batch_cell_pre_act},
+        attrs={'use_peepholes': use_peepholes, 'is_reverse': is_reverse,
+               'gate_activation': gate_activation,
+               'cell_activation': cell_activation,
+               'candidate_activation': candidate_activation})
+    return hidden, cell
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=True, is_reverse=False,
+                  gate_activation='sigmoid', cell_activation='tanh',
+                  candidate_activation='tanh', proj_activation='tanh',
+                  dtype='float32', name=None):
+    helper = LayerHelper('lstmp', param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    size = size // 4
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[proj_size, 4 * size],
+                                     dtype=dtype)
+    proj_weight = helper.create_parameter(attr=helper.param_attr,
+                                          shape=[size, proj_size],
+                                          dtype=dtype)
+    bias_size = [1, 7 * size] if use_peepholes else [1, 4 * size]
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=bias_size,
+                                   dtype=dtype, is_bias=True)
+    projection = helper.create_tmp_variable(
+        dtype, shape=tuple(input.shape[:-1]) + (proj_size,), lod_level=1)
+    cell = helper.create_tmp_variable(
+        dtype, shape=tuple(input.shape[:-1]) + (size,), lod_level=1)
+    helper.append_op(
+        type='dynamic_lstmp',
+        inputs={'Input': input, 'Weight': weight,
+                'ProjWeight': proj_weight, 'Bias': bias},
+        outputs={'Projection': projection, 'Cell': cell},
+        attrs={'use_peepholes': use_peepholes, 'is_reverse': is_reverse,
+               'gate_activation': gate_activation,
+               'cell_activation': cell_activation,
+               'candidate_activation': candidate_activation,
+               'proj_activation': proj_activation})
+    return projection, cell
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation='sigmoid',
+                candidate_activation='tanh', h_0=None):
+    helper = LayerHelper('gru', param_attr=param_attr,
+                         bias_attr=None if bias_attr is False
+                         else bias_attr)
+    dtype = input.dtype
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[size, 3 * size], dtype=dtype)
+    inputs = {'Input': input, 'Weight': weight}
+    if bias_attr is not False:
+        inputs['Bias'] = helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, 3 * size], dtype=dtype,
+            is_bias=True)
+    if h_0 is not None:
+        inputs['H0'] = h_0
+    hidden = helper.create_tmp_variable(
+        dtype, shape=tuple(input.shape[:-1]) + (size,), lod_level=1)
+    helper.append_op(type='dynamic_gru', inputs=inputs,
+                     outputs={'Hidden': hidden},
+                     attrs={'is_reverse': is_reverse,
+                            'gate_activation': gate_activation,
+                            'activation': candidate_activation})
+    return hidden
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation='tanh', gate_activation='sigmoid'):
+    helper = LayerHelper('gru_unit', param_attr=param_attr,
+                         bias_attr=bias_attr)
+    dtype = input.dtype
+    size = size // 3
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[size, 3 * size], dtype=dtype)
+    gate = helper.create_tmp_variable(dtype, shape=(input.shape[0],
+                                                    3 * size))
+    reset_hidden_pre = helper.create_tmp_variable(dtype)
+    updated_hidden = helper.create_tmp_variable(dtype,
+                                                shape=(input.shape[0],
+                                                       size))
+    inputs = {'Input': input, 'HiddenPrev': hidden, 'Weight': weight}
+    if bias_attr is not False:
+        bias_size = [1, 3 * size]
+        bias = helper.create_parameter(attr=helper.bias_attr,
+                                       shape=bias_size, dtype=dtype,
+                                       is_bias=True)
+        inputs['Bias'] = bias
+    helper.append_op(type='gru_unit', inputs=inputs,
+                     outputs={'Gate': gate,
+                              'ResetHiddenPrev': reset_hidden_pre,
+                              'Hidden': updated_hidden},
+                     attrs={'activation': activation,
+                            'gate_activation': gate_activation})
+    return updated_hidden, reset_hidden_pre, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    helper = LayerHelper('lstm_unit', name=name)
+    if len(x_t.shape) != 2:
+        raise ValueError("Rank of x_t must be 2.")
+    size = cell_t_prev.shape[1]
+    concat_out = concat_ = fc(input=[x_t, hidden_t_prev], size=4 * size,
+                              param_attr=param_attr, bias_attr=bias_attr)
+    cell_t = helper.create_tmp_variable(x_t.dtype,
+                                        shape=(x_t.shape[0], size))
+    hidden_t = helper.create_tmp_variable(x_t.dtype,
+                                          shape=(x_t.shape[0], size))
+    helper.append_op(type='lstm_unit',
+                     inputs={"X": concat_out, "C_prev": cell_t_prev},
+                     outputs={"C": cell_t, "H": hidden_t},
+                     attrs={"forget_bias": forget_bias})
+    return hidden_t, cell_t

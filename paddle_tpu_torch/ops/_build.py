@@ -51,6 +51,11 @@ KERNELS = {
         # the same, with the stats form's slab (emit_stats)
         'fused_conv_stats': [_P, _P],
     }),
+    'lstm_cell': ('lstm_cell.cu', {
+        # xg, ld_xg, r_prev, c_prev, w, h, c, B, H, dot_bf16, h_bf16,
+        # c_bf16, unit_tile, stream
+        'lstm_cell': [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 6 + [_P],
+    }),
 }
 
 _LOCK = threading.Lock()

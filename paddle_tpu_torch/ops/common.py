@@ -1,6 +1,38 @@
-"""Shared kernel helpers. Counterpart of paddle_tpu/ops/common.py (dense
-tensors only: sequence tensors belong to a later slice)."""
+"""Shared kernel helpers (SequenceTensor transparency, broadcasting).
+Counterpart of paddle_tpu/ops/common.py."""
 import torch
+
+from ..lod import SequenceTensor
+
+
+def unwrap(v):
+    """The dense data of a SequenceTensor, or ``v`` itself."""
+    return v.data if isinstance(v, SequenceTensor) else v
+
+
+def rewrap(template, data):
+    """``data`` with ``template``'s lengths when ``template`` is a
+    SequenceTensor, else ``data``. The data is taken as it is: its
+    autograd graph carries through."""
+    if isinstance(template, SequenceTensor):
+        return SequenceTensor(data, template.lengths, template.sub_lengths)
+    return data
+
+
+def step_mask(lengths, t, dtype, extra_dims=0):
+    """[N, t] (+ ``extra_dims`` trailing 1s) validity mask, 1 where the
+    step is below the length, in ``dtype``, on the lengths' device."""
+    m = (torch.arange(t, device=lengths.device)[None, :] <
+         lengths[:, None]).to(dtype)
+    return m.reshape(tuple(m.shape) + (1,) * extra_dims)
+
+
+def seq_of(*vals):
+    """The first SequenceTensor among ``vals``, or None."""
+    for v in vals:
+        if isinstance(v, SequenceTensor):
+            return v
+    return None
 
 
 def f32(x):

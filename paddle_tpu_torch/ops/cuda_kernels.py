@@ -34,6 +34,11 @@ Ported so far:
   differentiable through all three outputs (``_FusedConvStats``), the
   conv's gradients taken in x's dtype with f32 accumulation, as the JAX
   vjp takes them.
+- ``fused_lstm_cell``: ``pallas_kernels.py::_lstm_cell_kernel``, one LSTM
+  step (the recurrent product and the gates, gate order (c, i, f, o)) in
+  ``csrc/lstm_cell.cu``; differentiable through ``_FusedLSTMCell``, whose
+  backward is the vjp of the plain version from the saved inputs, as
+  ``_lstm_cell_bwd`` is.
 """
 import ctypes
 import functools
@@ -49,7 +54,7 @@ from .activations import ACTS, ACTS_P, BINS
 # only where a kernel is launched
 LAUNCHES = {'flash_attn_fwd': 0, 'flash_attn_bwd_dkvdq': 0,
             'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
-            'fused_conv': 0, 'fused_conv_stats': 0}
+            'fused_conv': 0, 'fused_conv_stats': 0, 'lstm_cell': 0}
 
 
 def reset_launch_counts():
@@ -724,3 +729,156 @@ def fused_conv(x, w, aux, kinds, stages, strides, pads, depthwise,
                                   depthwise)
     meta = (tuple(kinds), tuple(stages), strides, pads, bool(depthwise))
     return _FusedConv.apply(meta, x, w, *aux)
+
+
+# ---- fused LSTM cell ------------------------------------------------------------
+# Unlike the JAX wrapper, this one has no size cap: pallas_kernels.py
+# skips the kernel when its operands pass 10 MiB, a limit of the TPU's
+# VMEM and not part of the function. The card takes the kernel wherever
+# ops/rnn_ops.py's fused_ok holds; the results are the same either way.
+_LSTM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _lstm_acc(*ts):
+    """The gate math's dtype: f32, or f64 where an operand is f64 (the
+    plain version only, for gradient checks)."""
+    return torch.float64 if any(t.dtype == torch.float64 for t in ts) \
+        else torch.float32
+
+
+def _lstm_dot_dtype(r_prev, w):
+    """The recurrent product's operand dtype, as the Pallas kernel's
+    ``dot_general`` takes it: bf16 when both operands are bf16, else
+    their promotion, with fp16 upcast to f32 (the MXU has no fp16 path;
+    the card's kernel has none either)."""
+    if r_prev.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+        return torch.bfloat16
+    return _lstm_acc(r_prev, w)
+
+
+def lstm_cell_reference(xg, r_prev, c_prev, w):
+    """One LSTM step, plain PyTorch. Mirrors
+    ``pallas_kernels._lstm_cell_reference`` under the kernel's dtype
+    contract: xg [B, 4H], r_prev and c_prev [B, H], w [H, 4H]; the
+    product at the operands' precision (bf16 products are exact in f32)
+    with f32 sums, the gates in f32, gate order (candidate, input,
+    forget, output); h in r_prev's dtype, c in c_prev's."""
+    acc = _lstm_acc(xg, r_prev, c_prev, w)
+    dot = _lstm_dot_dtype(r_prev, w)
+    g = xg.to(acc) + torch.matmul(r_prev.to(dot).to(acc),
+                                  w.to(dot).to(acc))
+    gc, gi, gf, go = g.chunk(4, dim=-1)
+    c = torch.tanh(gc) * torch.sigmoid(gi) + \
+        c_prev.to(acc) * torch.sigmoid(gf)
+    h = torch.sigmoid(go) * torch.tanh(c)
+    return h.to(r_prev.dtype), c.to(c_prev.dtype)
+
+
+def lstm_cell_backward(xg, r_prev, c_prev, w, g_h, g_c):
+    """(dxg, dr_prev, dc_prev, dw): the vjp of :func:`lstm_cell_reference`
+    at the saved inputs, for the cotangents of h and c, in f32 (each
+    gradient returned in its input's dtype). Written out by hand rather
+    than through a second autograd graph: one recomputed product, the
+    gate derivatives, and two products for dr_prev and dw. The
+    counterpart of ``pallas_kernels._lstm_cell_bwd`` (``jax.vjp`` of the
+    reference); JAX has no backward kernel for the cell."""
+    acc = _lstm_acc(xg, r_prev, c_prev, w)
+    dot = _lstm_dot_dtype(r_prev, w)
+    r = r_prev.to(dot).to(acc)
+    wa = w.to(dot).to(acc)
+    gc, gi, gf, go = (xg.to(acc) + torch.matmul(r, wa)).chunk(4, dim=-1)
+    cand, i, f, o = (torch.tanh(gc), torch.sigmoid(gi), torch.sigmoid(gf),
+                     torch.sigmoid(go))
+    cp = c_prev.to(acc)
+    tc = torch.tanh(cand * i + cp * f)
+    gh = g_h.to(acc)
+    dc = g_c.to(acc) + gh * o * (1 - tc * tc)
+    dg = torch.cat([dc * i * (1 - cand * cand), dc * cand * i * (1 - i),
+                    dc * cp * f * (1 - f), gh * tc * o * (1 - o)], dim=-1)
+    return (dg.to(xg.dtype), torch.matmul(dg, wa.t()).to(r_prev.dtype),
+            (dc * f).to(c_prev.dtype), torch.matmul(r.t(), dg).to(w.dtype))
+
+
+def _check_lstm_inputs(xg, r_prev, c_prev, w):
+    if c_prev.dim() != 2:
+        raise ValueError("fused_lstm_cell: c_prev must be [B, H], got %s"
+                         % (tuple(c_prev.shape),))
+    B, H = c_prev.shape
+    for name, t, shape in (('xg', xg, (B, 4 * H)), ('r_prev', r_prev, (B, H)),
+                           ('w', w, (H, 4 * H))):
+        if tuple(t.shape) != shape:
+            raise ValueError("fused_lstm_cell: %s shape %s, expected %s"
+                             % (name, tuple(t.shape), shape))
+        if t.device != c_prev.device:
+            raise ValueError("fused_lstm_cell: %s on %s, c_prev on %s"
+                             % (name, t.device, c_prev.device))
+    for name, t in (('xg', xg), ('r_prev', r_prev), ('c_prev', c_prev),
+                    ('w', w)):
+        if t.dtype not in _LSTM_DTYPES:
+            raise TypeError("fused_lstm_cell kernel takes float32, bfloat16 "
+                            "or float16 operands; %s is %s" % (name, t.dtype))
+
+
+def _lstm_cell_kernel(xg, r_prev, c_prev, w, unit_tile=0):
+    """The cell on the card: ``csrc/lstm_cell.cu``. Operands are promoted
+    here, before the launch: the product's to :func:`_lstm_dot_dtype`, xg
+    and c_prev to f32 (lossless). h comes out in r_prev's dtype and c in
+    c_prev's (the kernel writes f32 or bf16; fp16 is cast after).
+    ``unit_tile`` (32, 16 or 8) fixes the f32 kernel's units a block, for
+    timing; 0 lets the kernel choose from B and H."""
+    _check_lstm_inputs(xg, r_prev, c_prev, w)
+    B, H = c_prev.shape
+    dot = _lstm_dot_dtype(r_prev, w)
+    r = r_prev.to(dot).contiguous()
+    wk = w.to(dot).contiguous()
+    x = xg.float()
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    c0 = c_prev.float().contiguous()
+    h_dt = torch.bfloat16 if r_prev.dtype == torch.bfloat16 \
+        else torch.float32
+    c_dt = torch.bfloat16 if c_prev.dtype == torch.bfloat16 \
+        else torch.float32
+    h = torch.empty((B, H), dtype=h_dt, device=c_prev.device)
+    c = torch.empty((B, H), dtype=c_dt, device=c_prev.device)
+    if B and H:
+        _launch('lstm_cell', 'lstm_cell',
+                (x.data_ptr(), x.stride(0), r.data_ptr(), c0.data_ptr(),
+                 wk.data_ptr(), h.data_ptr(), c.data_ptr(), B, H,
+                 int(dot == torch.bfloat16), int(h_dt == torch.bfloat16),
+                 int(c_dt == torch.bfloat16), int(unit_tile)), c_prev.device,
+                'B=%d H=%d %s' % (B, H, dot))
+    return h.to(r_prev.dtype), c.to(c_prev.dtype)
+
+
+class _FusedLSTMCell(torch.autograd.Function):
+    """The cell with its gradient: the counterpart of
+    ``pallas_kernels._lstm_cell`` (a ``jax.custom_vjp``).
+    ``forward(xg, r_prev, c_prev, w) -> (h, c)`` is the kernel on the
+    card and the plain version on the CPU; the backward is
+    :func:`lstm_cell_backward` from the saved inputs on either device."""
+
+    @staticmethod
+    def forward(ctx, forward, xg, r_prev, c_prev, w):
+        ctx.save_for_backward(xg, r_prev, c_prev, w)
+        return forward(xg, r_prev, c_prev, w)
+
+    @staticmethod
+    def backward(ctx, g_h, g_c):
+        return (None,) + lstm_cell_backward(*ctx.saved_tensors, g_h, g_c)
+
+
+def fused_lstm_cell(xg, r_prev, c_prev, w):
+    """One LSTM step -> (h [B, H] in r_prev's dtype, c [B, H] in c_prev's):
+    the recurrent product and all gates in one launch of
+    ``csrc/lstm_cell.cu`` on the card, :func:`lstm_cell_reference` for
+    CPU tensors. A dtype or shape the kernel does not take raises on the
+    card. Under autograd the gradient is :func:`lstm_cell_backward`
+    (``_FusedLSTMCell``). Called from ops/rnn_ops.py::_lstm_scan for
+    default-activation, peephole-free, unprojected LSTMs."""
+    forward = _lstm_cell_kernel if _on_card(c_prev, 'fused_lstm_cell') \
+        else lstm_cell_reference
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xg, r_prev, c_prev, w)):
+        return _FusedLSTMCell.apply(forward, xg, r_prev, c_prev, w)
+    return forward(xg, r_prev, c_prev, w)

@@ -2,7 +2,8 @@
 
 Counterpart of paddle_tpu/ops/nn_ops.py, trimmed to the port's slices:
 conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm, softmax,
-cross_entropy, softmax_with_cross_entropy. The JAX package computes conv, pool and
+cross_entropy, softmax_with_cross_entropy; softmax and cross_entropy take
+SequenceTensors. The JAX package computes conv, pool and
 batch norm in XLA, outside any Pallas kernel; here PyTorch's own
 operators compute them. A conv region that ``conv_epilogue_fuse``
 absorbed runs on the fused kernel instead (compiler/passes.py), and
@@ -13,7 +14,8 @@ import torch.nn.functional as F
 
 from ..core.registry import register_kernel
 from ..core.amp import matmul_compute
-from .common import f32
+from ..lod import SequenceTensor
+from .common import f32, rewrap, step_mask, unwrap
 
 
 def _pair(v):
@@ -156,16 +158,20 @@ def _layer_norm(ctx):
 
 @register_kernel('softmax')
 def _softmax(ctx):
-    ctx.set_output('Out', torch.softmax(f32(ctx.input('X')), dim=-1))
+    x = ctx.input('X')
+    ctx.set_output('Out', rewrap(x, torch.softmax(f32(unwrap(x)), dim=-1)))
 
 
 @register_kernel('cross_entropy')
 def _cross_entropy(ctx):
     """-log(p + 1e-8) of the label's probability (hard labels, int ids
     with or without a trailing 1), or -sum(label * log(p + 1e-8)) (soft
-    labels); probabilities in f32. Sequence inputs are a later slice."""
-    x = f32(ctx.input('X'))
-    label = ctx.input('Label')
+    labels); probabilities in f32. On a sequence the loss of each padded
+    step is zeroed, so a reduced cost sees only real tokens (the
+    reference's packed layout has no padding)."""
+    x_in = ctx.input('X')
+    x = f32(unwrap(x_in))
+    label = unwrap(ctx.input('Label'))
     eps = 1e-8
     if ctx.attr('soft_label', False):
         loss = -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)
@@ -174,6 +180,9 @@ def _cross_entropy(ctx):
         if idx.dim() == x.dim():
             idx = idx.reshape(idx.shape[:-1])
         loss = -torch.log(torch.gather(x, -1, idx.unsqueeze(-1)) + eps)
+    if isinstance(x_in, SequenceTensor):
+        loss = rewrap(x_in, loss * step_mask(
+            x_in.lengths, loss.shape[1], loss.dtype, loss.dim() - 2))
     ctx.set_output('Y', loss)
 
 

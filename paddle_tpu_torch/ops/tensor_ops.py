@@ -8,6 +8,7 @@ import torch
 
 from ..core.registry import register_kernel
 from ..core.lowering import torch_dtype
+from .common import rewrap, unwrap
 
 
 @register_kernel('fill_constant')
@@ -54,16 +55,18 @@ def _lookup_table(ctx):
     """Embedding. Parity: operators/lookup_table_op.* and the JAX
     kernel: ids are clipped into [0, vocab) (``F.embedding`` would raise
     on an out-of-range id) and rows whose id equals ``padding_idx``
-    return zeros. A trailing id axis of 1 is squeezed."""
+    return zeros. A trailing id axis of 1 is squeezed. Sequence ids
+    ([B, T_pad, 1]) give a sequence of rows with their lengths."""
     w = ctx.input('W')
-    ids = ctx.input('Ids').long()
+    ids_in = ctx.input('Ids')
+    ids = unwrap(ids_in).long()
     if ids.dim() and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     out = torch.nn.functional.embedding(ids.clamp(0, w.shape[0] - 1), w)
     padding_idx = ctx.attr('padding_idx', None)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0)
-    ctx.set_output('Out', out)
+    ctx.set_output('Out', rewrap(ids_in, out))
 
 
 @register_kernel('concat')

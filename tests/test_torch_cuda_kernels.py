@@ -7,6 +7,8 @@ check runs inside the fixture, never at import). Run on the card with
 (``--noconftest``: the suite's conftest configures JAX, which the card's
 host need not have).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -509,3 +511,152 @@ def test_resnet50_trains_on_the_stats_form(cuda):
     assert np.isfinite(out).all()
     for n in means:
         assert not torch.equal(scope.raw(n), before[n]), n
+
+
+# ---- the fused LSTM cell ------------------------------------------------------------
+# kernel vs the plain version on the same inputs, per element: |err| <= rel
+# * |plain| + abs * rms(plain), (rel, abs) per dtype of h. f32: the same f32
+# sums in another order, then the same gate math; bf16 (r_prev and w bf16,
+# h written in bf16): exact products, f32 sums in another order, then one
+# bf16 rounding of h, which may differ by one step (2**-8 relative).
+LSTM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -8)}
+# (B, H): the sequence path's shape, a single row, H past the tile and not
+# a multiple of it
+LSTM_SHAPES = [(256, 512), (1, 512), (64, 256), (7, 1000), (3, 37)]
+
+
+def _lstm_operands(cuda, B, H, dot_dtype, seed):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    xg = torch.randn(B, 4 * H, device=cuda, generator=gen)
+    r = torch.tanh(torch.randn(B, H, device=cuda, generator=gen))
+    c = torch.randn(B, H, device=cuda, generator=gen)
+    w = torch.randn(H, 4 * H, device=cuda, generator=gen) / H ** 0.5
+    return xg, r.to(dot_dtype), c, w.to(dot_dtype)
+
+
+def _lstm_ratio(got, ref):
+    rel, abs_ = LSTM_TOL[got.dtype]
+    ref = ref.float()
+    bound = rel * ref.abs() + abs_ * ref.pow(2).mean().sqrt()
+    return ((got.float() - ref).abs() / bound).max().item()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', LSTM_SHAPES)
+def test_lstm_cell_kernel_matches_plain(cuda, dtype, shape):
+    B, H = shape
+    ops = _lstm_operands(cuda, B, H, dtype, seed=B * 7 + H)
+    before = ck.LAUNCHES['lstm_cell']
+    h, c = ck.fused_lstm_cell(*ops)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES['lstm_cell'] == before + 1
+    assert h.dtype == dtype and c.dtype == torch.float32
+    ref_h, ref_c = ck.lstm_cell_reference(*ops)
+    assert _lstm_ratio(h, ref_h) <= 1 and _lstm_ratio(c, ref_c) <= 1
+
+
+@pytest.mark.parametrize('unit_tile', [32, 16, 8])
+@pytest.mark.parametrize('shape', [(256, 512), (7, 1000), (3, 37)])
+def test_lstm_cell_every_unit_tile(cuda, unit_tile, shape):
+    """Each unit tile of the f32 kernel (the kernel picks one from B and
+    H), at the edges of its tiles."""
+    B, H = shape
+    ops = _lstm_operands(cuda, B, H, torch.float32, seed=B + H + unit_tile)
+    h, c = ck._lstm_cell_kernel(*ops, unit_tile=unit_tile)
+    torch.cuda.synchronize()
+    ref_h, ref_c = ck.lstm_cell_reference(*ops)
+    assert _lstm_ratio(h, ref_h) <= 1 and _lstm_ratio(c, ref_c) <= 1
+
+
+def test_lstm_cell_takes_a_time_step_of_a_sequence(cuda):
+    """xg as the scan passes it: step t of [B, T, 4H], a row-strided
+    view; the same result as from a contiguous copy."""
+    B, T, H = 16, 5, 64
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    x = torch.randn(B, T, 4 * H, device=cuda, generator=gen)
+    _, r, c, w = _lstm_operands(cuda, B, H, torch.float32, seed=4)
+    step = x.transpose(0, 1)[2]
+    assert not step.is_contiguous()
+    for a, b in zip(ck.fused_lstm_cell(step, r, c, w),
+                    ck.fused_lstm_cell(step.contiguous(), r, c, w)):
+        assert torch.equal(a, b)
+
+
+def test_lstm_cell_promotes_mixed_dtypes(cuda):
+    """r_prev bf16 with an f32 weight: the product in f32, as the Pallas
+    kernel's dot_general promotes; h in r_prev's dtype, c in c_prev's."""
+    xg, r, c, w = _lstm_operands(cuda, 32, 96, torch.float32, seed=5)
+    h, c_out = ck.fused_lstm_cell(xg, r.bfloat16(), c.bfloat16(), w)
+    assert h.dtype == torch.bfloat16 and c_out.dtype == torch.bfloat16
+    ref_h, ref_c = ck.lstm_cell_reference(xg, r.bfloat16(), c.bfloat16(), w)
+    assert _lstm_ratio(h, ref_h) <= 1 and _lstm_ratio(c_out, ref_c) <= 1
+
+
+def test_lstm_cell_refuses_what_it_does_not_take(cuda):
+    xg, r, c, w = _lstm_operands(cuda, 4, 8, torch.float32, seed=6)
+    before = ck.LAUNCHES['lstm_cell']
+    with pytest.raises(TypeError):
+        ck.fused_lstm_cell(xg.double(), r, c, w)
+    with pytest.raises(ValueError):
+        ck.fused_lstm_cell(xg[:, :-1], r, c, w)
+    assert ck.LAUNCHES['lstm_cell'] == before
+
+
+def test_lstm_cell_function_backward_on_the_card(cuda):
+    """_FusedLSTMCell on the kernel: its gradients against autograd of the
+    plain version on the same inputs (f32, sums in another order)."""
+    ops = _lstm_operands(cuda, 64, 256, torch.float32, seed=7)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    g_h, g_c = (torch.randn(64, 256, device=cuda, generator=gen)
+                for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in ops]
+    got = torch.autograd.grad(ck.fused_lstm_cell(*leaves), leaves,
+                              (g_h, g_c))
+    plain = [t.clone().requires_grad_() for t in ops]
+    want = torch.autograd.grad(ck.lstm_cell_reference(*plain), plain,
+                               (g_h, g_c))
+    for a, b in zip(got, want):
+        assert ((a - b).abs().max() / b.abs().max()).item() < 1e-5
+
+
+def test_stacked_lstm_trains_on_the_kernel(cuda):
+    """A small stacked LSTM without peepholes on the card: one kernel
+    launch per layer and padded step, and the loss of the plain cell."""
+    from paddle_tpu_torch.ops import rnn_ops
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 1
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        data = pt.layers.data(name='data', shape=[1], dtype='int64',
+                              lod_level=1)
+        label = pt.layers.data(name='label', shape=[1], dtype='int64')
+        h = pt.layers.embedding(data, size=[50, 16])
+        for _ in range(2):
+            h, _ = pt.layers.dynamic_lstm(pt.layers.fc(h, size=4 * 32),
+                                          size=4 * 32, use_peepholes=False)
+        pred = pt.layers.fc(pt.layers.sequence_pool(h, 'max'), size=2,
+                            act='softmax')
+        loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    lens = [9, 1, 14, 3]
+    rng = np.random.RandomState(0)
+    feed = {'data': pt.create_lod_tensor(
+        rng.randint(0, 50, (sum(lens), 1)).astype('int64'), [lens]),
+        'label': rng.randint(0, 2, (4, 1)).astype('int64')}
+    losses = []
+    for plain in (False, True):
+        exe = pt.Executor()
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        ck.reset_launch_counts()
+        with rnn_ops.lstm_cell_for_testing() if plain else \
+                contextlib.nullcontext():
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES['lstm_cell'] == (0 if plain else 2 * 16)
+        losses.append(float(out[0]))
+    assert np.isfinite(losses).all()
+    assert abs(losses[0] - losses[1]) < 1e-3, losses
