@@ -9,12 +9,21 @@ non-zero) on failure:
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for float32 matrix products and convolutions;
 2. build: compiles every CUDA kernel of the port with nvcc, all at once,
-   into build/torch_kernels/;
+   into build/torch_kernels/; then, from the built flash libraries,
+   counts the wgmma (HGMMA) and TMA load (UTMALDG) instructions of each
+   kernel in its SASS (cuobjdump) and fails if the bf16 forward or the
+   bf16 merged backward has none of either, and prints ptxas's registers
+   and spills for those kernels;
 3. kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes and times kernel, plain version,
    the PyTorch library call for the same function (a yardstick only) and
-   the least time the card could take (bound): the flash forward, and
-   the three flash backward kernels (merged; two-pass dq and dk/dv);
+   the least time the card could take (bound): the flash forward (at the
+   request shapes and the training shape, B*H 128), and the three flash
+   backward kernels (merged; two-pass dq and dk/dv); at each backward
+   case two calls of flash_attention_bwd (the default route) must give
+   the same dq, dk and dv bit for bit, and the merged kernel is timed
+   once more with counters that never make a block wait, the cost of
+   adding dq in a fixed order;
 4. conv kernels: the fused conv kernel (csrc/fused_conv.cu) against its
    plain version at every distinct region shape of ResNet-50 at batch
    32, read from the program after the conv_epilogue_fuse pass, in bf16
@@ -110,6 +119,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -149,7 +159,8 @@ BWD_TOL = {'bfloat16': (2e-2, 1e-3), 'float32': (1e-4, 0.1)}
 # whole-model gradients, per parameter, relative L2 error: merged vs
 # two-pass route, and kernels vs the plain attention's autograd backward.
 # Set from the sound readings on the H100 (PERF.md, Findings): merged vs
-# two-pass read 5e-3 (atomics reorder dq's sums), the limit is 4x that;
+# two-pass read 5e-3 (the routes sum dq in other orders), the limit is 4x
+# that;
 # kernels vs the plain attention read 0.073, as far as the plain bf16
 # attention itself is from an f32 one (bf16 rounding through six layers
 # under AMP), and the limit is 2x that. The two wrong backwards read 1
@@ -337,15 +348,104 @@ def phase_build():
                                           _build.BUILD_DIR), flush=True)
 
 
+# the redesigned flash kernels: library -> kernel, which must contain
+# wgmma (HGMMA) and TMA loads (UTMALDG) at each head dim it is built for
+SASS_KERNELS = {'flash_attn_fwd': 'flash_fwd_wgmma_kernel',
+                'flash_attn_bwd': 'flash_bwd_wgmma_kernel'}
+
+
+def _kernel_label(mangled):
+    m = re.search(r'(flash_(?:fwd|bwd)_\w+?_kernel)ILi(\d+)(?:ELb([01]))?',
+                  mangled)
+    if not m:
+        return mangled
+    return '%s<%s%s>' % (m.group(1), m.group(2),
+                         ', merged' if m.group(3) == '1' else '')
+
+
+def sass_counts(lib_path):
+    """{kernel: (HGMMA, UTMALDG)} from the SASS of one built library."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    res = subprocess.run([tool, '-sass', lib_path], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, 'cuobjdump failed on %s: %s'
+          % (lib_path, res.stderr[-2000:]))
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        if 'Function :' in line:
+            name = line.split('Function :', 1)[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += 'HGMMA' in line
+            counts[name][1] += 'UTMALDG' in line
+    return {n: tuple(c) for n, c in counts.items()}
+
+
+def ptxas_usage(log):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from a
+    build log of ptxas -v."""
+    usage, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name is not None:
+            usage[name] = (int(m.group(1)),) + spill
+    return usage
+
+
+def phase_sass():
+    """The redesigned flash kernels run on the tensor cores and TMA: count
+    HGMMA and UTMALDG in each kernel of the built flash libraries, fail if
+    the bf16 forward or merged backward (wgmma variant, D 64 and 128) has
+    none of either; print ptxas's registers and spills for them."""
+    from paddle_tpu_torch.ops import _build
+    for lib, kernel in SASS_KERNELS.items():
+        counts = sass_counts(_build.library_path(lib))
+        usage = ptxas_usage(_build.build_log(lib))
+        for name, (hgmma, utmaldg) in sorted(counts.items()):
+            regs = usage.get(name)
+            print('sass: %s %s: %d HGMMA, %d UTMALDG%s' % (
+                lib, _kernel_label(name), hgmma, utmaldg,
+                '; ptxas: %d registers at entry (setmaxnreg: 240 a consumer '
+                'thread, 24 a producer thread), spill stores %d B, spill '
+                'loads %d B' % regs if regs and kernel in name else ''),
+                flush=True)
+        # ptxas's notes on wgmma and setmaxnreg (C75xx: serialized wgmma,
+        # setmaxnreg ignored)
+        notes = [l.strip() for l in _build.build_log(lib).splitlines()
+                 if 'C75' in l]
+        for line in notes:
+            print('sass: %s ptxas: %s' % (lib, line), flush=True)
+        check(not any('setmaxnreg' in l for l in notes),
+              '%s: ptxas ignored setmaxnreg' % lib)
+        ours = [n for n in counts if kernel in n]
+        check(len(ours) == 2, '%s: expected the %s kernel at D 64 and 128, '
+              'found %s' % (lib, kernel, ours))
+        for name in ours:
+            check(min(counts[name]) > 0, '%s has no %s' % (
+                _kernel_label(name),
+                'HGMMA' if counts[name][0] == 0 else 'UTMALDG'))
+            check(name in usage, 'no ptxas report for %s' % name)
+
+
 def phase_kernels(seed):
     """Flash forward vs its plain version at the serving path's shapes
-    (B*H = 8 and 32, T = 2048, D = 128, causal), plus a non-causal, a
-    D = 64 and a ragged case, in bf16 and f32."""
+    (B*H = 8 and 32, T = 2048, D = 128, causal) and the training path's
+    (B*H = 128), plus a non-causal, a D = 64 and a ragged case, in bf16
+    and f32."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels as ck
     cases = [(1, 8, 2048, 128, 'bfloat16', True),
              (4, 8, 2048, 128, 'bfloat16', True),
+             (TRAIN_BATCH, 8, 2048, 128, 'bfloat16', True),
              (4, 8, 2048, 128, 'bfloat16', False),
              (4, 16, 2048, 64, 'bfloat16', True),
              (2, 8, 2000, 128, 'bfloat16', True),
@@ -373,12 +473,13 @@ def phase_kernels(seed):
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), iters=20)
         bound_ms, bound_by = flash_bound(B, H, T, D, dt, causal)
-        print('kernel flash_attn_fwd B=%d H=%d T=%d D=%d %s causal=%s: '
+        print('kernel flash_attn_fwd (%s) B=%d H=%d T=%d D=%d %s causal=%s: '
               'max|out err| %.3g (tol %g) max|lse err| %.3g (tol %g); '
               'kernel_ms %.4f plain_ms %.4f library_ms %.4f bound_ms %.4f '
-              '(%s)' % (B, H, T, D, dt, causal, err_out, tol['out'],
-                        err_lse, tol['lse'], kernel_ms, plain_ms,
-                        library_ms, bound_ms, bound_by), flush=True)
+              '(%s)' % (ck.flash_variant(dtype, D), B, H, T, D, dt,
+                        causal, err_out, tol['out'], err_lse, tol['lse'],
+                        kernel_ms, plain_ms, library_ms, bound_ms,
+                        bound_by), flush=True)
         check(err_out <= tol['out'] and err_lse <= tol['lse'],
               'flash_attn_fwd disagrees with its plain version at B=%d H=%d '
               'T=%d D=%d %s causal=%s' % (B, H, T, D, dt, causal))
@@ -405,9 +506,11 @@ def phase_bwd_kernels(seed):
     """The three flash backward kernels vs the plain backward at the
     training shape (B 16, H 8, T 2048, D 128, bf16, causal), at B 4 with
     both causal settings, at D 64, at a ragged T 2000, and in f32. Each
-    case times the merged kernel, the two-pass kernels, the plain
-    backward and SDPA's backward (autograd.grad of
-    F.scaled_dot_product_attention), a yardstick only."""
+    case checks that the default route gives the same bits twice, and
+    times the merged kernel (also with its fixed-order wait switched off),
+    the two-pass kernels, the plain backward and SDPA's backward
+    (autograd.grad of F.scaled_dot_product_attention), a yardstick
+    only."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels as ck
@@ -443,7 +546,32 @@ def phase_bwd_kernels(seed):
                                        r.float().norm()).item()
                 ok = ok and err <= limit
         del ref, merged, two_pass
-        merged_ms = cuda_ms(lambda: ck.flash_bwd_dkvdq(*args), iters=10)
+        # the default route, twice: dq, dk and dv the same bit for bit
+        first = ck.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        second = ck.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        del first, second
+        print('kernel flash_attn_bwd   default route (%s) twice: dq, dk, dv '
+              'bit-identical %s' % (
+                  ck.flash_variant(dtype, D) if ck._MERGED_BWD[0] else
+                  'two-pass', same), flush=True)
+        check(all(same), 'flash_attention_bwd is not bit-reproducible at '
+              'B=%d H=%d T=%d D=%d %s causal=%s: %s' % (
+                  B, H, T, D, dt, causal, same))
+        # the merged kernel, and the same with counters that let every
+        # block add at once (its dq then summed in no fixed order and
+        # discarded): the difference is what waiting for the fixed order
+        # costs. Each the median of three timings: at the small shapes the
+        # host's launch of the wrapper shows in one of them at times
+        free = torch.full(ck.flash_bwd_counters(q).shape, 1 << 30,
+                          dtype=torch.int32, device=q.device)
+        merged_ms = float(np.median([cuda_ms(
+            lambda: ck.flash_bwd_dkvdq(*args), iters=10) for _ in range(3)]))
+        unordered_ms = float(np.median([cuda_ms(
+            lambda: ck.flash_bwd_dkvdq(*args, counters=free), iters=10)
+            for _ in range(3)]))
+        del free
         dq_ms = cuda_ms(lambda: ck.flash_bwd_dq(*args), iters=10)
         dkv_ms = cuda_ms(lambda: ck.flash_bwd_dkv(*args), iters=10)
         plain_ms = cuda_ms(lambda: ck.flash_bwd_reference(*args), iters=2,
@@ -471,6 +599,10 @@ def phase_bwd_kernels(seed):
                   bounds['merged'][0], bounds['merged'][1], dq_ms,
                   bounds['dq'][0], dkv_ms, bounds['dkv'][0], plain_ms,
                   library_ms), flush=True)
+        print('kernel flash_attn_bwd   merged_ms %.4f, with no block '
+              'waiting for its turn %.4f: the fixed-order dq add costs %.1f%%'
+              % (merged_ms, unordered_ms,
+                 100 * (merged_ms - unordered_ms) / merged_ms), flush=True)
         print('kernel flash_attn_bwd   relative L2 vs plain: %s' % ', '.join(
             '%s %s %.3g' % (r, n, e) for (r, n), e in sorted(
                 rel_l2.items())), flush=True)
@@ -2294,6 +2426,7 @@ def main():
     sys.path.insert(0, ROOT)
     card = phase_device()
     phase_build()
+    phase_sass()
     kres = phase_kernels(args.seed)
     bres = phase_bwd_kernels(args.seed)
     conv = phase_conv_kernels(args.seed)

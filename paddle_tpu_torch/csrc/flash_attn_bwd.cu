@@ -7,8 +7,8 @@
 //       of the two-pass backward        -> flash_attn_bwd_dq
 //   _flash_dkv_kernel   (launched by _flash_bwd_pallas): the kv-major dk/dv
 //       pass of the two-pass backward   -> flash_attn_bwd_dkv
-// All three recompute the probabilities from the forward's logsumexp and
-// share one tile function per dtype, the counterpart of _bwd_p_ds:
+// All three recompute the probabilities from the forward's logsumexp, the
+// counterpart of _bwd_p_ds:
 //   s  = q k^T / sqrt(D), masked (causal, ragged edge)
 //   p  = exp(s - lse)
 //   dp = do v^T
@@ -26,33 +26,56 @@
 // D 128, causal) the backward does five T x T x D products per head, about
 // T/2 multiply-adds per byte it must move: the tensor-core rate bounds it,
 // not HBM. As in the forward, the [T, T] matrices never leave the SM.
+// Reaching that rate takes wgmma with operands that TMA keeps arriving
+// while the math runs.
 //
-// Design (a first, simple version; wgmma, TMA and pipelined tile loads
-// come later):
-//   * bf16 on mma.sync.m16n8k16 (bf16 in, f32 accumulate), 4 warps;
-//     f32 on scalar FMA in full f32 (no TF32), 256 threads;
-//   * kv-major kernels (dkv, dkvdq): a block owns 64 keys (bf16; 32 for
-//     f32) and walks the query tiles, from the diagonal on when causal
-//     (the Pallas _qi_clamp skip); dk and dv accumulate in registers. In
-//     bf16 each warp owns 16 keys and computes the transposed tile S^T,
-//     so P^T and dS^T come out of the accumulators already in the A-operand
-//     layout of the dv and dk products and never touch shared memory;
-//   * q-major kernel (dq): a block owns 64 query rows (32 for f32) and
-//     walks the key tiles up to the diagonal (the _kb_clamp skip);
-//   * where dq accumulates in the merged kernel: the Pallas kernel writes
-//     one dq partial per 1024-key TPU block into a [BH, n_kb, T, D] slab
-//     that XLA sums. With 64-key tiles that slab would be 32 partials deep
-//     (2 GiB at the training shape), so here each block stages its bf16 dS
-//     tile in shared memory, multiplies it by its K tile, and adds the
-//     result into one zeroed [B, T, H, D] f32 buffer with atomics (128 MiB
-//     at the training shape); the caller casts it to q's dtype. Atomics add
-//     in an order that varies from run to run: the two-pass route is the
-//     deterministic one;
-//   * the ragged edge (T not a multiple of the tile) is masked: rows past T
-//     are zero-filled, scored as masked (p = 0) and never stored.
+// The merged kernel, bf16 at D 64 and 128 (the flagship's route):
+//   * one block of three warpgroups per (b*h, 128-key tile); dK and dV
+//     (f32) stay in the registers of two consumer warpgroups, 64 keys
+//     each (setmaxnreg 240); warpgroup 0 (setmaxnreg 24) holds the
+//     producer warp, which loads K and V once by TMA, then streams 64-query
+//     tiles of Q and dO (TMA, 128-byte swizzle) with their lse and delta
+//     through a two-stage ring, a full and an empty mbarrier per stage,
+//     and the dq writer warp;
+//   * per query tile each consumer computes S^T = K Q^T and dP^T = V dO^T
+//     on wgmma (both operands from shared memory), so P^T and dS^T come
+//     out of the accumulators in the register A-fragment layout of
+//     dV += P^T dO and dK += dS^T Q, which run on wgmma with Q and dO as
+//     transposed (MN-major) B operands; dS^T also goes to shared memory
+//     (swizzled as TMA would), and each consumer computes half of the head
+//     dim of the tile's dq partial, dQ = dS K over the block's 128 keys,
+//     on wgmma with both operands transposed;
+//   * the dq partials are added in a fixed order, so the result is the
+//     same bit for bit from run to run (the Pallas kernel writes per-block
+//     slabs that XLA sums: also a fixed order). The consumers stage the
+//     tile's partial in shared memory in their registers' order (the f32
+//     dq buffer keeps that order; the wrapper restores [B, T, H, D]) and
+//     go on. Each (b*h, query tile) has an int32 counter in a zeroed
+//     scratch buffer; the writer warp waits until it names the block's
+//     turn (acquire), adds the whole tile with one bulk f32 reduction
+//     (cp.reduce.async.bulk; the first turn stores it with a bulk copy),
+//     waits for its writes and advances the counter (release). Turns go in
+//     descending key-tile order and key tiles are launched from the last
+//     (heads in groups of 16), so a block only waits on blocks the hardware
+//     dispatched before it, whatever the grid; a block walks its query
+//     tiles upward, so on the causal path its predecessor (which started
+//     on a later diagonal) has usually passed the tile already;
+//   * causal blocks start at the diagonal (the Pallas _qi_clamp skip) and
+//     only tiles that cross it or the ragged edge are masked.
+// The other variants keep the first design: mma.sync.m16n8k16 for bf16
+// (4 warps; kv-major blocks of 64 keys, 32 queries a step, computing S^T so
+// that P^T and dS^T stay in registers; q-major dq blocks of 64 queries) and
+// scalar FMA in full f32 for f32 (256 threads, 32 x 32 tiles). Their
+// merged kernels (bf16 at D 32, f32) add dq in the same fixed order, one
+// counter per 32-query tile, each block with plain L2 loads and stores
+// into a [B, T, H, D] f32 buffer. The two-pass route (dq, dk/dv) writes
+// every gradient once and needs no counter. In every kernel the ragged
+// edge (T not a multiple of the tile) is masked: rows past T are
+// zero-filled, scored as masked (p = 0) and never stored.
 // The kernels launch on the caller's stream and allocate nothing.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -64,12 +87,14 @@ struct Params {
   const float* lse;    // [B, H, T], natural log
   const float* delta;  // [B, H, T]
   void* dq;            // dq kernel: [B, T, H, D], input dtype
-  float* dq_accum;     // merged kernel: [B, T, H, D] f32, zeroed by the caller
+  float* dq_accum;     // merged kernels: f32, see flash_attn_bwd_dkvdq
+  int* counters;       // merged kernels: [B*H, n_q] int32, zeroed
   void* dk;
   void* dv;
   int T;
   int H;
   int causal;
+  int n_q;             // merged kernels: query tiles (of their q tile)
   float scale;       // 1 / sqrt(D)
   float scale_log2;  // log2(e) / sqrt(D)
 };
@@ -104,17 +129,28 @@ __device__ __forceinline__ void load_row_stats(float* sLse, float* sDelta,
   }
 }
 
-// Two neighbouring f32 adds: one vector atomic on sm_90 where the toolkit
-// has it (CUDA 12.4 and later), else two scalar ones.
-__device__ __forceinline__ void atomic_add2(float* addr, float x, float y) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && \
-    (__CUDACC_VER_MAJOR__ > 12 ||                        \
-     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 4))
-  atomicAdd(reinterpret_cast<float2*>(addr), make_float2(x, y));
-#else
-  atomicAdd(addr, x);
-  atomicAdd(addr + 1, y);
-#endif
+// ---- the fixed-order dq add ---------------------------------------------
+// The merged kernels' key tile j (of n_kv, BN keys) adds its partial of
+// query tile `it` (BM queries, BN a multiple of BM) at turn jmax - j, where
+// jmax is the last key tile that reaches the query tile: every key tile
+// when not causal, else those up to the diagonal.
+__device__ __forceinline__ int dq_turn(int j, int n_kv, int it, int bm,
+                                       int bn, int causal) {
+  const int jmax = causal ? min(n_kv - 1, (it * bm + bm - 1) / bn) : n_kv - 1;
+  return jmax - j;
+}
+
+// Two neighbouring dq values added to what earlier turns left (the first
+// turn stores). L2 loads and stores: another SM wrote the previous sum.
+__device__ __forceinline__ void dq_add2(float* addr, float x, float y,
+                                        bool first) {
+  float2 val = make_float2(x, y);
+  if (!first) {
+    const float2 old = __ldcg(reinterpret_cast<const float2*>(addr));
+    val.x = old.x + x;
+    val.y = old.y + y;
+  }
+  __stcg(reinterpret_cast<float2*>(addr), val);
 }
 
 // ---- the tile math, bf16 (counterpart of _bwd_p_ds) --------------------------
@@ -192,7 +228,7 @@ __device__ __forceinline__ void pack_a(const float (&c)[NB / 8][4],
   }
 }
 
-// ---- bf16, kv-major: dk, dv (and, MERGED, dq through atomics) ---------------
+// ---- bf16, kv-major: dk, dv (and, MERGED, dq in a fixed order) -------------
 template <int D, bool MERGED>
 __global__ void __launch_bounds__(128)
     flash_bwd_kv_bf16_kernel(const Params p) {
@@ -210,7 +246,8 @@ __global__ void __launch_bounds__(128)
   const int T = p.T, H = p.H;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * BN;
+  const int kt = gridDim.y - 1 - blockIdx.y;  // key tiles from the last
+  const int k0 = kt * BN;
   const long rs = (long)H * D;
   const long head_off = ((long)b * T * H + h) * D;
   const bf16* qg = static_cast<const bf16*>(p.q) + head_off;
@@ -284,22 +321,39 @@ __global__ void __launch_bounds__(128)
         a[kc][2] = pack_raw(c0[8 * LDP], c0[9 * LDP]);
         a[kc][3] = pack_raw(c0[8 * LDP + 8], c0[9 * LDP + 8]);
       }
-      const int qa = q0 + mt * 16 + g, qb = qa + 8;
-      float* dqa = p.dq_accum + head_off + (long)qa * rs;
+      float acc[DN / 2][4];
 #pragma unroll
-      for (int dn = nh * (DN / 2); dn < (nh + 1) * (DN / 2); ++dn) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int dh = 0; dh < DN / 2; ++dh) {
+        const int dn = nh * (DN / 2) + dh;
+        acc[dh][0] = acc[dh][1] = acc[dh][2] = acc[dh][3] = 0.f;
 #pragma unroll
         for (int kc = 0; kc < BN / 16; ++kc) {
           const bf16* kr = sK + (kc * 16 + 2 * t4) * LDS + dn * 8 + g;
-          mma_bf16_16816(acc, a[kc], pack_raw(kr[0], kr[LDS]),
+          mma_bf16_16816(acc[dh], a[kc], pack_raw(kr[0], kr[LDS]),
                          pack_raw(kr[8 * LDS], kr[9 * LDS]));
         }
-        const int col = dn * 8 + 2 * t4;
-        if (qa < T) atomic_add2(dqa + col, acc[0] * p.scale, acc[1] * p.scale);
-        if (qb < T)
-          atomic_add2(dqa + 8 * rs + col, acc[2] * p.scale, acc[3] * p.scale);
       }
+      // added into dq_accum at this block's turn for the query tile
+      const int it = q0 / BM;
+      const int turn = dq_turn(kt, gridDim.y, it, BM, BN, p.causal);
+      int* ctr = p.counters + (long)bh * p.n_q + it;
+      if (threadIdx.x == 0) wait_counter_ge(ctr, turn);
+      __syncthreads();
+      const int qa = q0 + mt * 16 + g, qb = qa + 8;
+      float* dqa = p.dq_accum + head_off + (long)qa * rs;
+#pragma unroll
+      for (int dh = 0; dh < DN / 2; ++dh) {
+        const int col = (nh * (DN / 2) + dh) * 8 + 2 * t4;
+        if (qa < T)
+          dq_add2(dqa + col, acc[dh][0] * p.scale, acc[dh][1] * p.scale,
+                  turn == 0);
+        if (qb < T)
+          dq_add2(dqa + 8 * rs + col, acc[dh][2] * p.scale,
+                  acc[dh][3] * p.scale, turn == 0);
+      }
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) release_add(ctr, 1);
     }
   }
 
@@ -437,7 +491,7 @@ __device__ __forceinline__ void bwd_p_ds_f32(
   }
 }
 
-// ---- f32, kv-major: dk, dv (and, MERGED, dq through atomics) ----------------
+// ---- f32, kv-major: dk, dv (and, MERGED, dq in a fixed order) --------------
 template <int D, bool MERGED>
 __global__ void __launch_bounds__(256) flash_bwd_kv_f32_kernel(const Params p) {
   constexpr int LDF = D + 1, DPT = D / 8;
@@ -454,7 +508,8 @@ __global__ void __launch_bounds__(256) flash_bwd_kv_f32_kernel(const Params p) {
   const int T = p.T, H = p.H;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * kTileF;
+  const int kt = gridDim.y - 1 - blockIdx.y;  // key tiles from the last
+  const int k0 = kt * kTileF;
   const long rs = (long)H * D;
   const long head_off = ((long)b * T * H + h) * D;
   const float* qg = static_cast<const float*>(p.q) + head_off;
@@ -502,11 +557,23 @@ __global__ void __launch_bounds__(256) flash_bwd_kv_f32_kernel(const Params p) {
         for (int i = 0; i < DPT; ++i)
           acc[i] = fmaf(dsv, sK[c * LDF + dc + 8 * i], acc[i]);
       }
+      const int it = q0 / kTileF;
+      const int turn = dq_turn(kt, gridDim.y, it, kTileF, kTileF, p.causal);
+      int* ctr = p.counters + (long)bh * p.n_q + it;
+      if (threadIdx.x == 0) wait_counter_ge(ctr, turn);
+      __syncthreads();
       if (q < T) {
         float* dqr = p.dq_accum + head_off + (long)q * rs;
 #pragma unroll
-        for (int i = 0; i < DPT; ++i) atomicAdd(dqr + dc + 8 * i, acc[i] * p.scale);
+        for (int i = 0; i < DPT; ++i) {
+          float* a = dqr + dc + 8 * i;
+          __stcg(a, turn == 0 ? acc[i] * p.scale
+                              : __ldcg(a) + acc[i] * p.scale);
+        }
       }
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) release_add(ctr, 1);
     }
   }
 
@@ -582,12 +649,310 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(const Params p) {
   }
 }
 
+// ---- bf16, D 64 and 128, merged: wgmma, TMA, a Q/dO ring ----------------
+constexpr int kWgBN = 128;     // keys per block (64 per consumer warpgroup)
+constexpr int kWgBM = 64;      // queries per step
+constexpr int kWgStages = 2;   // Q/dO ring depth
+constexpr int kWgThreads = 384;
+
+struct alignas(64) WgParams {
+  CUtensorMap tq, tk, tv, tdo;  // [B, T, H, D] bf16, boxes of 64 columns
+  const float* lse;
+  const float* delta;
+  float* dq_accum;
+  int* counters;
+  bf16* dk;
+  bf16* dv;
+  int T;
+  int H;
+  int BH;
+  int causal;
+  int n_q;
+  float scale;
+  float scale_log2;
+};
+
+// shared memory, in bytes from a 1024-aligned base: K and V (the block's),
+// the ring's Q and dO tiles, two dS^T tiles, the ring's lse and delta, the
+// staged dq partial and the mbarriers; every bf16 tile is D/64 sub-tiles of
+// [rows][64]
+template <int D>
+struct WgBwdSmem {
+  static constexpr int kKV = kWgBN * D * 2;
+  static constexpr int kQ = kWgBM * D * 2;
+  static constexpr int kKVSub = kWgBN * 128;
+  static constexpr int kQSub = kWgBM * 128;
+  static constexpr int kDS = kWgBN * kWgBM * 2;  // [128 keys][64 queries]
+  static constexpr int kDQ = kWgBM * D * 4;      // one dq tile, f32
+  static constexpr int k = 0;
+  static constexpr int v = kKV;
+  static constexpr int q = 2 * kKV;
+  static constexpr int dout = q + kWgStages * kQ;
+  static constexpr int ds = dout + kWgStages * kQ;
+  static constexpr int dq = ds + 2 * kDS;
+  static constexpr int stats = dq + kDQ;  // [stage][lse, delta][64] f32
+  static constexpr int bars = stats + kWgStages * 2 * kWgBM * 4;
+  static constexpr int total = bars + 64 + 1024;  // + alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_wgmma_kernel(const __grid_constant__ WgParams p) {
+  using L = WgBwdSmem<D>;
+  constexpr int kSub = D / 64;
+  constexpr int kHalf = D / 2;  // each consumer's share of dq's columns
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = align1024(smem_wg);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kWgStages;
+  uint64_t* dq_full = empty + kWgStages;
+  uint64_t* dq_empty = dq_full + 1;
+  float* stats = reinterpret_cast<float*>(smem + L::stats);
+  float* dqs = reinterpret_cast<float*>(smem + L::dq);
+
+  // key tiles are launched from the last, so a block's predecessors in
+  // the dq order were dispatched before it
+  const int T = p.T, H = p.H;
+  const int n_kv = (T + kWgBN - 1) / kWgBN;
+  int bh, rank;
+  group_order(blockIdx.x, p.BH, n_kv, bh, rank);
+  const int b = bh / H, h = bh % H;
+  const int kt = n_kv - 1 - rank;
+  const int k0 = kt * kWgBN;
+  const int it0 = p.causal ? k0 / kWgBM : 0;  // from the diagonal on
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 32);       // the producer warp's lanes
+      mbar_init(&empty[s], 2 * 128);  // every consumer thread
+    }
+    mbar_init(dq_full, 2 * 128);
+    mbar_init(dq_empty, 1);           // the dq writer
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: warp 0 loads K and V once, then Q, dO, lse and delta
+    // per step; warp 1 adds the dq partials into dq_accum
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 32) {
+      // the fixed-order add of each step's staged dq tile: wait for this
+      // block's turn, then one bulk copy (the first turn) or bulk f32 add
+      // of the whole tile, completed before the counter moves on
+      for (int it = it0; it < p.n_q; ++it) {
+        const int i = it - it0;
+        mbar_wait(dq_full, i & 1);
+        const int turn = dq_turn(kt, n_kv, it, kWgBM, kWgBN, p.causal);
+        int* ctr = p.counters + (long)bh * p.n_q + it;
+        wait_counter_ge(ctr, turn);
+        fence_proxy_async_global();
+        float* dst = p.dq_accum + ((long)bh * p.n_q + it) * (kWgBM * D);
+        if (turn == 0) bulk_store(dst, dqs, L::kDQ);
+        else bulk_reduce_add_f32(dst, dqs, L::kDQ);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(dq_empty);  // the staging tile may be rewritten
+        bulk_wait();
+        fence_proxy_async_global();
+        __threadfence();
+        release_add(ctr, 1);
+      }
+    } else if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar_kv, 2 * L::kKV);
+        for (int c = 0; c < kSub; ++c) {
+          tma_load_4d(smem + L::k + c * L::kKVSub, &p.tk, bar_kv, c * 64, h,
+                      k0, b);
+          tma_load_4d(smem + L::v + c * L::kKVSub, &p.tv, bar_kv, c * 64, h,
+                      k0, b);
+        }
+      }
+      const float* lse = p.lse + (long)bh * T;
+      const float* delta = p.delta + (long)bh * T;
+      for (int it = it0; it < p.n_q; ++it) {
+        const int i = it - it0, s = i % kWgStages, q0 = it * kWgBM;
+        mbar_wait(&empty[s], ((i / kWgStages) & 1) ^ 1);
+        float* st = stats + s * 2 * kWgBM;
+        for (int r = lane; r < kWgBM; r += 32) {
+          const int q = q0 + r;
+          st[r] = q < T ? lse[q] * kLog2e : 0.f;
+          st[kWgBM + r] = q < T ? delta[q] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], 2 * L::kQ);
+          for (int c = 0; c < kSub; ++c) {
+            tma_load_4d(smem + L::q + s * L::kQ + c * L::kQSub, &p.tq,
+                        &full[s], c * 64, h, q0, b);
+            tma_load_4d(smem + L::dout + s * L::kQ + c * L::kQSub, &p.tdo,
+                        &full[s], c * 64, h, q0, b);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+        __syncwarp();
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kw0 = k0 + 64 * cw;
+    const uint32_t sK = smem_u32(smem + L::k), sV = smem_u32(smem + L::v);
+    // this consumer's columns of K for the dq product
+    const uint32_t sKh =
+        sK + (cw * kHalf / 64) * L::kKVSub + (cw * kHalf % 64) * 2;
+    const long rs = (long)H * D;
+    const long head_off = ((long)b * T * H + h) * D;
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+
+    mbar_wait(bar_kv, 0);
+    for (int it = it0; it < p.n_q; ++it) {
+      const int i = it - it0, s = i % kWgStages, q0 = it * kWgBM;
+      mbar_wait(&full[s], (i / kWgStages) & 1);
+      const uint32_t sQ = smem_u32(smem + L::q + s * L::kQ);
+      const uint32_t sDO = smem_u32(smem + L::dout + s * L::kQ);
+      const float* st = stats + s * 2 * kWgBM;
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, depth D
+      float sc[kWgBM / 2], dp[kWgBM / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ka =
+            (kk >> 2) * L::kKVSub + cw * 64 * 128 + (kk & 3) * 32;
+        const uint32_t qb = (kk >> 2) * L::kQSub + (kk & 3) * 32;
+        wgmma_ss<kWgBM, 0, 0>(sc, desc_k(sK + ka), desc_k(sQ + qb), kk > 0);
+        wgmma_ss<kWgBM, 0, 0>(dp, desc_k(sV + ka), desc_k(sDO + qb), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // p = exp2(s * scale_log2 - lse_log2), ds = p (dp - delta); only a
+      // tile that crosses the diagonal or the ragged edge is masked
+      const bool masked =
+          (p.causal && q0 <= kw0) || q0 + kWgBM > T || kw0 + 64 > T;
+#pragma unroll
+      for (int jn = 0; jn < kWgBM / 8; ++jn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * jn + 2 * t4 + (e & 1);
+          float pe = exp2f(sc[4 * jn + e] * p.scale_log2 - st[ql]);
+          if (masked) {
+            const int key = kw0 + 16 * warp + g + (e >= 2 ? 8 : 0);
+            const int q = q0 + ql;
+            if (q >= T || key >= T || (p.causal && key > q)) pe = 0.f;
+          }
+          sc[4 * jn + e] = pe;
+          dp[4 * jn + e] = pe * (dp[4 * jn + e] - st[kWgBM + ql]);
+        }
+      }
+      // bf16 (the Pallas rounding points) A fragments of P^T and dS^T
+      uint32_t pa[kWgBM / 16][4], da[kWgBM / 16][4];
+#pragma unroll
+      for (int jn = 0; jn < kWgBM / 8; ++jn) {
+        const int c = (jn & 1) * 2;
+        pa[jn >> 1][c] = pack_bf16(sc[4 * jn], sc[4 * jn + 1]);
+        pa[jn >> 1][c + 1] = pack_bf16(sc[4 * jn + 2], sc[4 * jn + 3]);
+        da[jn >> 1][c] = pack_bf16(dp[4 * jn], dp[4 * jn + 1]);
+        da[jn >> 1][c + 1] = pack_bf16(dp[4 * jn + 2], dp[4 * jn + 3]);
+      }
+
+      // dS^T into shared memory for the dq product: [128 keys][64
+      // queries], 128-byte rows swizzled as TMA would (chunk ^ row % 8)
+      unsigned char* ds_tile = smem + L::ds + (i & 1) * L::kDS;
+      const int r0 = 64 * cw + 16 * warp + g;  // and r0 + 8; r0 % 8 == g
+#pragma unroll
+      for (int jn = 0; jn < kWgBM / 8; ++jn) {
+        const int off = ((jn ^ g) << 4) + t4 * 4;
+        *reinterpret_cast<uint32_t*>(ds_tile + r0 * 128 + off) =
+            da[jn >> 1][(jn & 1) * 2];
+        *reinterpret_cast<uint32_t*>(ds_tile + (r0 + 8) * 128 + off) =
+            da[jn >> 1][(jn & 1) * 2 + 1];
+      }
+      fence_proxy_async();
+
+      // dV += P^T dO and dK += dS^T Q: dO and Q are MN-major B operands
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBM / 16; ++kk) {
+        wgmma_rs<D, 1>(dv, pa[kk], desc_mn(sDO + kk * 2048, L::kQSub), 1);
+        wgmma_rs<D, 1>(dk, da[kk], desc_mn(sQ + kk * 2048, L::kQSub), 1);
+      }
+      wgmma_commit();
+
+      // both consumers' dS^T are in place: this consumer's half of the
+      // tile's dq partial, dS K over the block's 128 keys (both operands
+      // MN-major)
+      named_bar_sync(1, 2 * 128);
+      float dq[kHalf / 2];
+      const uint32_t sDS = smem_u32(ds_tile);
+#pragma unroll
+      for (int kk = 0; kk < kWgBN / 16; ++kk)
+        wgmma_ss<kHalf, 1, 1>(dq, desc_mn(sDS + kk * 2048, L::kDS),
+                              desc_mn(sKh + kk * 2048, L::kKVSub), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dq);
+      fence_regs(pa);
+      fence_regs(da);
+      mbar_arrive(&empty[s]);  // this thread is done with stage s
+
+      // the scaled dq partial to the staging tile, in register order
+      // ([consumer][register][thread], so the stores are conflict-free):
+      // dq_accum keeps that order (flash_bwd_dkvdq restores [B, T, H, D])
+      mbar_wait(dq_empty, (i & 1) ^ 1);
+      float* dst = dqs + cw * (kHalf / 2) * 128 + tid;
+#pragma unroll
+      for (int r = 0; r < kHalf / 2; ++r) dst[r * 128] = dq[r] * p.scale;
+      fence_proxy_async();
+      mbar_arrive(dq_full);
+    }
+
+    const int ka = kw0 + 16 * warp + g, kb = ka + 8;
+    bf16* dkg = p.dk + head_off;
+    bf16* dvg = p.dv + head_off;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      const int col = 8 * jn + 2 * t4;
+      if (ka < T) {
+        *reinterpret_cast<uint32_t*>(dkg + (long)ka * rs + col) =
+            pack_bf16(dk[4 * jn] * p.scale, dk[4 * jn + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvg + (long)ka * rs + col) =
+            pack_bf16(dv[4 * jn], dv[4 * jn + 1]);
+      }
+      if (kb < T) {
+        *reinterpret_cast<uint32_t*>(dkg + (long)kb * rs + col) =
+            pack_bf16(dk[4 * jn + 2] * p.scale, dk[4 * jn + 3] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvg + (long)kb * rs + col) =
+            pack_bf16(dv[4 * jn + 2], dv[4 * jn + 3]);
+      }
+    }
+  }
+}
+
 // ---- launchers -------------------------------------------------------------------
 enum Kind { kDq = 0, kDkv = 1, kDkvdq = 2 };
 
-template <typename K>
-cudaError_t launch(K kernel, dim3 grid, int threads, int smem,
-                   const Params& p, cudaStream_t stream) {
+template <typename K, typename P>
+cudaError_t launch(K kernel, dim3 grid, int threads, int smem, const P& p,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -596,10 +961,38 @@ cudaError_t launch(K kernel, dim3 grid, int threads, int smem,
 }
 
 template <int D>
-cudaError_t launch_bf16(Kind kind, const Params& p, int BH,
+cudaError_t launch_wgmma(const Params& p, int B, int H, cudaStream_t stream) {
+  WgParams w;
+  cudaError_t err = encode_bthd(&w.tq, p.q, B, p.T, H, D, kWgBM);
+  if (err == cudaSuccess) err = encode_bthd(&w.tk, p.k, B, p.T, H, D, kWgBN);
+  if (err == cudaSuccess) err = encode_bthd(&w.tv, p.v, B, p.T, H, D, kWgBN);
+  if (err == cudaSuccess)
+    err = encode_bthd(&w.tdo, p.dout, B, p.T, H, D, kWgBM);
+  if (err != cudaSuccess) return err;
+  w.lse = p.lse;
+  w.delta = p.delta;
+  w.dq_accum = p.dq_accum;
+  w.counters = p.counters;
+  w.dk = static_cast<bf16*>(p.dk);
+  w.dv = static_cast<bf16*>(p.dv);
+  w.T = p.T;
+  w.H = H;
+  w.BH = B * H;
+  w.causal = p.causal;
+  w.n_q = p.n_q;
+  w.scale = p.scale;
+  w.scale_log2 = p.scale_log2;
+  const long blocks = (long)B * H * ((p.T + kWgBN - 1) / kWgBN);
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  return launch(flash_bwd_wgmma_kernel<D>, dim3((unsigned)blocks), kWgThreads,
+                WgBwdSmem<D>::total, w, stream);
+}
+
+template <int D>
+cudaError_t launch_bf16(Kind kind, const Params& p, int B, int H,
                         cudaStream_t stream) {
   constexpr int LDS = D + 8;
-  const int bytes = (int)sizeof(bf16);
+  const int bytes = (int)sizeof(bf16), BH = B * H;
   if (kind == kDq) {
     const int smem = (2 * 64 + 2 * 32) * LDS * bytes + 2 * 64 * 4;
     return launch(flash_bwd_dq_bf16_kernel<D>, dim3(BH, (p.T + 63) / 64), 128,
@@ -610,8 +1003,11 @@ cudaError_t launch_bf16(Kind kind, const Params& p, int BH,
   if (kind == kDkv)
     return launch(flash_bwd_kv_bf16_kernel<D, false>, grid, 128, base, p,
                   stream);
-  return launch(flash_bwd_kv_bf16_kernel<D, true>, grid, 128,
-                base + 64 * (32 + 8) * bytes, p, stream);
+  if constexpr (D == 32)
+    return launch(flash_bwd_kv_bf16_kernel<D, true>, grid, 128,
+                  base + 64 * (32 + 8) * bytes, p, stream);
+  else
+    return launch_wgmma<D>(p, B, H, stream);
 }
 
 template <int D>
@@ -628,11 +1024,19 @@ cudaError_t launch_f32(Kind kind, const Params& p, int BH,
   return launch(flash_bwd_kv_f32_kernel<D, true>, grid, 256, smem, p, stream);
 }
 
+// the merged kernels' query tile, one dq counter per tile: 64 for the
+// wgmma kernel (bf16, D 64 and 128), else 32
+int merged_q_tile(int is_bf16, int D) {
+  return is_bf16 && (D == 64 || D == 128) ? kWgBM : 32;
+}
+
 int run(Kind kind, const void* q, const void* k, const void* v,
         const void* dout, const void* lse, const void* delta, void* dq,
-        void* dk, void* dv, int B, int T, int H, int D, int is_bf16,
-        int causal, void* stream) {
+        void* dk, void* dv, void* counters, int B, int T, int H, int D,
+        int is_bf16, int causal, int q_tile, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || (T + kTileF - 1) / kTileF > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (kind == kDkvdq && q_tile != merged_q_tile(is_bf16, D))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -643,20 +1047,22 @@ int run(Kind kind, const void* q, const void* k, const void* v,
   p.delta = static_cast<const float*>(delta);
   p.dq = kind == kDq ? dq : nullptr;
   p.dq_accum = kind == kDkvdq ? static_cast<float*>(dq) : nullptr;
+  p.counters = static_cast<int*>(counters);
   p.dk = dk;
   p.dv = dv;
   p.T = T;
   p.H = H;
   p.causal = causal;
+  p.n_q = kind == kDkvdq ? (T + q_tile - 1) / q_tile : 0;
   p.scale = 1.f / sqrtf((float)D);
   p.scale_log2 = kLog2e * p.scale;
   const int BH = B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (is_bf16) {
-    if (D == 32) err = launch_bf16<32>(kind, p, BH, st);
-    else if (D == 64) err = launch_bf16<64>(kind, p, BH, st);
-    else if (D == 128) err = launch_bf16<128>(kind, p, BH, st);
+    if (D == 32) err = launch_bf16<32>(kind, p, B, H, st);
+    else if (D == 64) err = launch_bf16<64>(kind, p, B, H, st);
+    else if (D == 128) err = launch_bf16<128>(kind, p, B, H, st);
   } else {
     if (D == 32) err = launch_f32<32>(kind, p, BH, st);
     else if (D == 64) err = launch_f32<64>(kind, p, BH, st);
@@ -670,15 +1076,19 @@ int run(Kind kind, const void* q, const void* k, const void* v,
 // Plain C entry points, bound with ctypes. Each returns 0 (cudaSuccess) or
 // the cudaError_t of the refused or failed launch; an unsupported D gives
 // cudaErrorInvalidValue. The caller checks shapes, dtypes, devices,
-// contiguity and 16-byte alignment before calling, and for the merged
-// kernel passes a zeroed f32 dq_accum of q's shape.
+// contiguity and 16-byte alignment before calling. For the merged kernel
+// it passes a zeroed int32 counter buffer of [B * H, n_q], n_q =
+// ceil(T / q_tile) with q_tile the kernel's query tile (merged_q_tile;
+// another value is refused), and an f32 dq_accum whose every element is
+// written: for the wgmma kernel [B * H, n_q, 64 * D] tiles in register
+// order (ops/cuda_kernels.py dq_from_tiles), else [B, T, H, D].
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int T,
                                  int H, int D, int is_bf16, int causal,
                                  void* stream) {
-  return run(kDq, q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, T, H, D,
-             is_bf16, causal, stream);
+  return run(kDq, q, k, v, dout, lse, delta, dq, nullptr, nullptr, nullptr, B,
+             T, H, D, is_bf16, causal, 0, stream);
 }
 
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
@@ -686,16 +1096,17 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* delta, void* dk, void* dv, int B,
                                   int T, int H, int D, int is_bf16, int causal,
                                   void* stream) {
-  return run(kDkv, q, k, v, dout, lse, delta, nullptr, dk, dv, B, T, H, D,
-             is_bf16, causal, stream);
+  return run(kDkv, q, k, v, dout, lse, delta, nullptr, dk, dv, nullptr, B, T,
+             H, D, is_bf16, causal, 0, stream);
 }
 
 extern "C" int flash_attn_bwd_dkvdq(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
-                                    void* dq_accum, void* dk, void* dv, int B,
-                                    int T, int H, int D, int is_bf16,
-                                    int causal, void* stream) {
-  return run(kDkvdq, q, k, v, dout, lse, delta, dq_accum, dk, dv, B, T, H, D,
-             is_bf16, causal, stream);
+                                    void* dq_accum, void* dk, void* dv,
+                                    void* counters, int B, int T, int H, int D,
+                                    int is_bf16, int causal, int q_tile,
+                                    void* stream) {
+  return run(kDkvdq, q, k, v, dout, lse, delta, dq_accum, dk, dv, counters, B,
+             T, H, D, is_bf16, causal, q_tile, stream);
 }

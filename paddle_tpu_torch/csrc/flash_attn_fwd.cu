@@ -12,30 +12,46 @@
 // (T=2048, D=128) does about T/2 multiply-adds per byte it must move, so
 // it is far above the H100's ~295 ops/byte balance point: the bound is
 // the tensor-core rate, not HBM. The [T, T] score matrix never leaves
-// the SM: each block keeps its 64 query rows' running max, running sum
-// and output accumulator in f32 registers and streams K/V tiles of 64
-// keys through shared memory, so HBM traffic is q, k, v read once per
-// query tile and out/lse written once.
+// the SM: a block keeps its query rows' running max, running sum and
+// output accumulator in f32 registers and streams K/V tiles through
+// shared memory, so HBM traffic is q, k, v read once per query tile and
+// out/lse written once. Reaching the tensor-core rate takes wgmma (the
+// only path to it), operands fed by TMA without the math waiting on them,
+// and no per-element work on tiles that need no mask.
 //
-// Design (a first, simple version; wgmma, TMA and a K/V ring come later):
-//   * one thread block per (b*h, 64-row query tile); grid y walks the
-//     query tiles from the last (heaviest under the causal mask) first;
-//   * bf16: 4 warps, each owns 16 query rows; S = Q K^T and O += P V run
-//     on mma.sync.m16n8k16 (bf16 in, f32 accumulate); Q lives in
-//     registers as A fragments, P is re-packed from the S accumulator
-//     registers into A fragments without touching shared memory;
-//   * f32: 256 threads, 4 per query row, each owning D/4 columns; scalar
-//     FMA in full f32 (no TF32), K/V tiles of 32 keys;
-//   * causal blocks stop at the diagonal (the Pallas kernel's
-//     _kb_clamp skip); the ragged edge (T not a multiple of the tile) is
-//     masked: key rows past T are zero-filled and scored -inf, query
-//     rows past T are not stored;
-//   * the online softmax runs in exp2 with log2(e)/sqrt(D) folded into
-//     the score scale (the Pallas kernel's exp2 mode); lse is returned
-//     in natural log.
+// Three variants, picked by the wrapper from (dtype, D):
+//   * wgmma (bf16, D 64 and 128; the flagship's path): one block of three
+//     warpgroups per (b*h, 128-query tile); heads are launched in groups
+//     of 16 so that a group's K and V stay in L2, the heaviest causal
+//     tiles of the group first. Warpgroup 0 is the producer and gives up
+//     its registers (setmaxnreg 24): one thread loads the Q tile once and
+//     keeps TMA loads of 128-key K and V tiles in flight through two
+//     two-stage rings in shared memory (128-byte swizzle), each stage with
+//     a full and an empty mbarrier. Warpgroups 1 and 2 are consumers
+//     (setmaxnreg 240), 64 query rows each: S = Q K^T on wgmma with Q and
+//     K read from shared memory, the online softmax in registers (exp2
+//     with log2(e)/sqrt(D) folded into the score scale, the Pallas
+//     kernel's exp2 mode), P rounded to bf16 and re-packed from the S
+//     accumulators into wgmma A fragments, and O += P V on wgmma with V as
+//     the transposed (MN-major) B operand. Tile i's S is issued with tile
+//     i-1's P V, so one wait covers both, and the two consumers take the
+//     tensor cores in turns (named barriers): one's softmax runs while the
+//     other's products do. K/V tiles go from the last to the first, so the
+//     one tile that crosses the diagonal (or holds the ragged edge) comes
+//     first and is the only one masked;
+//   * mma_sync (bf16, D 32): 4 warps on mma.sync.m16n8k16 over 64-row
+//     query tiles and synchronously loaded 64-key tiles, every tile
+//     masked element by element;
+//   * fma (f32): 256 threads, 4 per query row, each owning D/4 columns;
+//     scalar FMA in full f32 (no TF32), K/V tiles of 32 keys.
+// All three stop causal blocks at the diagonal (the Pallas kernel's
+// _kb_clamp skip) and mask the ragged edge (T not a multiple of the
+// tile): key rows past T are zero-filled and scored -inf, query rows
+// past T are not stored. lse is returned in natural log.
 // The kernel launches on the caller's stream and allocates nothing.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -53,6 +69,290 @@ struct Params {
   float scale_log2;  // log2(e) / sqrt(D)
 };
 
+// ---- bf16, D 64 and 128: wgmma, TMA, a K/V ring -----------------------------
+constexpr int kWgBM = 128;     // query rows per block (64 per consumer)
+constexpr int kWgBN = 128;     // keys per K/V tile
+constexpr int kWgStages = 2;   // K/V ring depth
+constexpr int kWgThreads = 384;
+
+struct alignas(64) WgParams {
+  CUtensorMap tq, tk, tv;  // [B, T, H, D] bf16, boxes of 64 columns
+  bf16* o;
+  float* lse;
+  int T;
+  int H;
+  int BH;
+  int causal;
+  float scale_log2;
+};
+
+// shared memory, in bytes from a 1024-aligned base: Q, then the ring's K
+// and V tiles, then the mbarriers; every tile is D/64 sub-tiles of
+// [rows][64] bf16
+template <int D>
+struct WgFwdSmem {
+  static constexpr int kQ = kWgBM * D * 2;
+  static constexpr int kKV = kWgBN * D * 2;
+  static constexpr int kQSub = kWgBM * 128;   // one sub-tile of Q
+  static constexpr int kKVSub = kWgBN * 128;  // one sub-tile of K or V
+  static constexpr int q = 0;
+  static constexpr int k = kQ;
+  static constexpr int v = k + kWgStages * kKV;
+  static constexpr int bars = v + kWgStages * kKV;
+  static constexpr int total = bars + 128 + 1024;  // + alignment slack
+};
+
+// The online softmax of one 64 x 128 score tile held in the wgmma
+// accumulator layout (rows r0 = row_a and row_b = row_a + 8 per thread):
+// scaled into log2 units and, for the tile that crosses the diagonal or
+// the ragged edge, masked; the running row maxima over the quad, O and l
+// rescaled, P = exp2(S - m) summed into l in f32 and rounded to bf16 A
+// fragments for O += P V.
+template <int D>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[kWgBN / 2], float (&o)[D / 2], float (&m_r)[2],
+    float (&l_r)[2], uint32_t (&pa)[kWgBN / 16][4], bool masked, int k0,
+    int row_a, int T, int causal, float scale_log2, int t4) {
+  float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+  for (int j = 0; j < kWgBN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * scale_log2;
+      if (masked) {
+        const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+        const int row = row_a + (e < 2 ? 0 : 8);
+        if (col >= T || (causal && col > row)) x = -INFINITY;
+      }
+      sc[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+    const float alpha = exp2f(m_r[r] - base[r]);
+    m_r[r] = mx[r];
+    l_r[r] *= alpha;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j + 2 * r] *= alpha;
+      o[4 * j + 2 * r + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kWgBN / 8; ++j) {
+    const float p0 = exp2f(sc[4 * j] - base[0]);
+    const float p1 = exp2f(sc[4 * j + 1] - base[0]);
+    const float p2 = exp2f(sc[4 * j + 2] - base[1]);
+    const float p3 = exp2f(sc[4 * j + 3] - base[1]);
+    l_r[0] += p0 + p1;
+    l_r[1] += p2 + p3;
+    pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+  }
+}
+
+// S = Q K^T for one consumer: 64 query rows x 128 keys, depth D in k16
+// steps, Q and K both K-major
+template <int D>
+__device__ __forceinline__ void issue_s(float (&sc)[kWgBN / 2], uint32_t sQ,
+                                        uint32_t sK) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss<kWgBN, 0, 0>(sc,
+                          desc_k(sQ + (kk >> 2) * (kWgBM * 128) + off),
+                          desc_k(sK + (kk >> 2) * (kWgBN * 128) + off),
+                          kk > 0);
+  }
+}
+
+// O += P V: P from registers, V [keys][D] the MN-major B operand
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[kWgBN / 16][4],
+                                         uint32_t sV) {
+#pragma unroll
+  for (int kk = 0; kk < kWgBN / 16; ++kk)
+    wgmma_rs<D, 1>(o, pa[kk], desc_mn(sV + kk * 2048, kWgBN * 128), 1);
+}
+
+// The two consumers take the tensor cores in turns (named barriers 1 and
+// 2): one issues its products while the other runs its softmax.
+__device__ __forceinline__ void turn_wait(int cw) {
+  named_bar_sync(1 + cw, 2 * 128);
+}
+
+__device__ __forceinline__ void turn_pass(int cw) {
+  named_bar_arrive(2 - cw, 2 * 128);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ WgParams p) {
+  using L = WgFwdSmem<D>;
+  constexpr int kSub = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = align1024(smem_wg);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* k_full = bar_q + 1;
+  uint64_t* k_empty = k_full + kWgStages;
+  uint64_t* v_full = k_empty + kWgStages;
+  uint64_t* v_empty = v_full + kWgStages;
+
+  const int T = p.T, H = p.H;
+  const int n_qt = (T + kWgBM - 1) / kWgBM;
+  int bh, rank;
+  group_order(blockIdx.x, p.BH, n_qt, bh, rank);
+  const int b = bh / H, h = bh % H;
+  const int q0 = (n_qt - 1 - rank) * kWgBM;  // the heaviest first
+  const int kv_end = p.causal ? min(T, q0 + kWgBM) : T;
+  const int n_kt = (kv_end + kWgBN - 1) / kWgBN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], 2 * 128);  // every consumer thread
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 2 * 128);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: Q once, then K and V tiles from the last to the first
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar_q, L::kQ);
+      for (int c = 0; c < kSub; ++c)
+        tma_load_4d(smem + L::q + c * L::kQSub, &p.tq, bar_q, c * 64, h, q0,
+                    b);
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % kWgStages, k0 = (n_kt - 1 - i) * kWgBN;
+        const uint32_t ph = ((i / kWgStages) & 1) ^ 1;
+        mbar_wait(&k_empty[s], ph);
+        mbar_arrive_expect_tx(&k_full[s], L::kKV);
+        for (int c = 0; c < kSub; ++c)
+          tma_load_4d(smem + L::k + s * L::kKV + c * L::kKVSub, &p.tk,
+                      &k_full[s], c * 64, h, k0, b);
+        mbar_wait(&v_empty[s], ph);
+        mbar_arrive_expect_tx(&v_full[s], L::kKV);
+        for (int c = 0; c < kSub; ++c)
+          tma_load_4d(smem + L::v + s * L::kKV + c * L::kKVSub, &p.tv,
+                      &v_full[s], c * 64, h, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each. Tile i's S = Q K^T is issued
+    // with tile i-1's O += P V, so one wait covers both and the softmax
+    // of tile i runs while the other consumer's products run
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row_a = q0 + 64 * cw + 16 * warp + g, row_b = row_a + 8;
+    const uint32_t sQ = smem_u32(smem + L::q) + cw * 64 * 128;
+    const uint32_t sK0 = smem_u32(smem + L::k);
+    const uint32_t sV0 = smem_u32(smem + L::v);
+
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};
+    float l_r[2] = {0.f, 0.f};
+    uint32_t pa[kWgBN / 16][4];  // P of the previous tile, bf16
+
+    if (cw == 1) turn_pass(cw);  // consumer 0 takes the first turn
+    mbar_wait(bar_q, 0);
+    {  // tile 0 (the last, the only one that can need a mask): S alone
+      const int k0 = (n_kt - 1) * kWgBN;
+      float sc[kWgBN / 2];
+      mbar_wait(&k_full[0], 0);
+      turn_wait(cw);
+      wgmma_fence();
+      issue_s<D>(sc, sQ, sK0);
+      wgmma_commit();
+      turn_pass(cw);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(&k_empty[0]);
+      softmax_tile<D>(sc, o, m_r, l_r, pa, p.causal || k0 + kWgBN > T, k0,
+                      row_a, T, p.causal, p.scale_log2, t4);
+    }
+    for (int i = 1; i < n_kt; ++i) {
+      const int s = i % kWgStages, sp = (i - 1) % kWgStages;
+      float sc[kWgBN / 2];
+      mbar_wait(&k_full[s], (i / kWgStages) & 1);
+      mbar_wait(&v_full[sp], ((i - 1) / kWgStages) & 1);
+      turn_wait(cw);
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv<D>(o, pa, sV0 + sp * L::kKV);
+      issue_s<D>(sc, sQ, sK0 + s * L::kKV);
+      wgmma_commit();
+      turn_pass(cw);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      fence_regs(sc);
+      mbar_arrive(&v_empty[sp]);
+      mbar_arrive(&k_empty[s]);
+      const int k0 = (n_kt - 1 - i) * kWgBN;
+      softmax_tile<D>(sc, o, m_r, l_r, pa, false, k0, row_a, T, p.causal,
+                      p.scale_log2, t4);
+    }
+    {  // the last tile's P V
+      const int sp = (n_kt - 1) % kWgStages;
+      mbar_wait(&v_full[sp], ((n_kt - 1) / kWgStages) & 1);
+      turn_wait(cw);
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv<D>(o, pa, sV0 + sp * L::kKV);
+      wgmma_commit();
+      if (cw == 0) turn_pass(cw);  // consumer 1 takes the last turn
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(&v_empty[sp]);
+    }
+
+    // finalize: full row sums across the 4 threads of a row quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    }
+    const float inv_a = l_r[0] > 0.f ? 1.f / l_r[0] : 0.f;
+    const float inv_b = l_r[1] > 0.f ? 1.f / l_r[1] : 0.f;
+    const long rs = (long)H * D;
+    bf16* og = p.o + ((long)b * T * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (row_a < T)
+        *reinterpret_cast<uint32_t*>(og + (long)row_a * rs + col) =
+            pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+      if (row_b < T)
+        *reinterpret_cast<uint32_t*>(og + (long)row_b * rs + col) =
+            pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
+    }
+    if (t4 == 0) {
+      float* lse = p.lse + (long)bh * T;
+      if (row_a < T) lse[row_a] = m_r[0] * kLn2 + logf(l_r[0]);
+      if (row_b < T) lse[row_b] = m_r[1] * kLn2 + logf(l_r[1]);
+    }
+  }
+}
+
+// ---- bf16, D 32: mma.sync ---------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(128)
     flash_fwd_bf16_kernel(const Params p) {
@@ -295,7 +595,33 @@ __global__ void __launch_bounds__(256) flash_fwd_f32_kernel(const Params p) {
 }
 
 template <int D>
-cudaError_t launch_bf16(const Params& p, int BH, cudaStream_t stream) {
+cudaError_t launch_wgmma(const Params& p, int B, int H, cudaStream_t stream) {
+  using L = WgFwdSmem<D>;
+  WgParams w;
+  cudaError_t err = encode_bthd(&w.tq, p.q, B, p.T, H, D, kWgBM);
+  if (err == cudaSuccess) err = encode_bthd(&w.tk, p.k, B, p.T, H, D, kWgBN);
+  if (err == cudaSuccess) err = encode_bthd(&w.tv, p.v, B, p.T, H, D, kWgBN);
+  if (err != cudaSuccess) return err;
+  w.o = static_cast<bf16*>(p.o);
+  w.lse = p.lse;
+  w.T = p.T;
+  w.H = H;
+  w.BH = B * H;
+  w.causal = p.causal;
+  w.scale_log2 = p.scale_log2;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::total);
+  if (err != cudaSuccess) return err;
+  const long blocks = (long)B * H * ((p.T + kWgBM - 1) / kWgBM);
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  flash_fwd_wgmma_kernel<D><<<(unsigned)blocks, kWgThreads, L::total,
+                              stream>>>(w);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mma_sync(const Params& p, int BH, cudaStream_t stream) {
   const int smem = (kBlockM + 2 * 64) * (D + 8) * (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -318,15 +644,20 @@ cudaError_t launch_f32(const Params& p, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the wrapper's variant codes (ops/cuda_kernels.py FLASH_FWD_VARIANTS)
+enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes. Returns 0 (cudaSuccess) or the
-// cudaError_t of the refused or failed launch; an unsupported D gives
+// Plain C entry point, bound with ctypes. `variant` is the wrapper's pick
+// for (dtype, D): fma for f32, mma_sync for bf16 at D 32, wgmma for bf16
+// at D 64 and 128. Returns 0 (cudaSuccess) or the cudaError_t of the
+// refused or failed launch; a variant that does not take D gives
 // cudaErrorInvalidValue. The caller checks shapes, dtypes, devices,
 // contiguity and 16-byte alignment before calling.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int T, int H, int D,
-                              int is_bf16, int causal, void* stream) {
+                              int variant, int causal, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || (T + kBlockM - 1) / kBlockM > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -342,11 +673,12 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   const int BH = B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (is_bf16) {
-    if (D == 32) err = launch_bf16<32>(p, BH, st);
-    else if (D == 64) err = launch_bf16<64>(p, BH, st);
-    else if (D == 128) err = launch_bf16<128>(p, BH, st);
-  } else {
+  if (variant == kWgmma) {
+    if (D == 64) err = launch_wgmma<64>(p, B, H, st);
+    else if (D == 128) err = launch_wgmma<128>(p, B, H, st);
+  } else if (variant == kMmaSync) {
+    if (D == 32) err = launch_mma_sync<32>(p, BH, st);
+  } else if (variant == kFma) {
     if (D == 32) err = launch_f32<32>(p, BH, st);
     else if (D == 64) err = launch_f32<64>(p, BH, st);
     else if (D == 128) err = launch_f32<128>(p, BH, st);

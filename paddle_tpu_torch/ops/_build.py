@@ -7,7 +7,9 @@ into ``build/torch_kernels/`` at the root of the checkout (listed in
 shared headers and the flags, so an edited kernel is rebuilt and a stale
 one is never loaded. They are
 loaded with ``ctypes``; pointers and the stream are passed as
-``c_void_p``.
+``c_void_p``. Each build keeps the compiler's output (with ``ptxas -v``:
+every kernel's registers, shared memory and spills) beside its library,
+in ``<library>.log`` (:func:`build_log`).
 
 Nothing here runs at import time: the CPU tests import every module on
 a host that has no ``nvcc``.
@@ -24,16 +26,17 @@ CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'torch_kernels')
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-I', CSRC_DIR]
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+              '-I', CSRC_DIR]
 # headers every source may include; part of each library's hash
-HEADERS = ('common.cuh',)
+HEADERS = ('common.cuh', 'hopper.cuh')
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # library name -> (source file, {C function: argtypes})
 KERNELS = {
     'flash_attn_fwd': ('flash_attn_fwd.cu', {
-        # q, k, v, o, lse, B, T, H, D, is_bf16, causal, stream
+        # q, k, v, o, lse, B, T, H, D, variant, causal, stream
         'flash_attn_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     }),
     'flash_attn_bwd': ('flash_attn_bwd.cu', {
@@ -41,9 +44,9 @@ KERNELS = {
         'flash_attn_bwd_dq': [_P] * 7 + [_I] * 6 + [_P],
         # q, k, v, do, lse, delta, dk, dv, B, T, H, D, is_bf16, causal, stream
         'flash_attn_bwd_dkv': [_P] * 8 + [_I] * 6 + [_P],
-        # q, k, v, do, lse, delta, dq_accum (f32), dk, dv, B, T, H, D,
-        # is_bf16, causal, stream
-        'flash_attn_bwd_dkvdq': [_P] * 9 + [_I] * 6 + [_P],
+        # q, k, v, do, lse, delta, dq_accum (f32), dk, dv, counters
+        # (int32), B, T, H, D, is_bf16, causal, q_tile, stream
+        'flash_attn_bwd_dkvdq': [_P] * 10 + [_I] * 7 + [_P],
     }),
     'fused_conv': ('fused_conv.cu', {
         # &FusedConvArgs (cuda_kernels._FusedConvArgs), stream
@@ -80,6 +83,16 @@ def library_path(name):
     return os.path.join(BUILD_DIR, '%s-%s.so' % (name, digest.hexdigest()[:12]))
 
 
+def build_log(name):
+    """The compiler's output from building kernel ``name`` (empty if it
+    was built before logs were kept)."""
+    path = library_path(name) + '.log'
+    if not os.path.exists(path):
+        return ''
+    with open(path) as f:
+        return f.read()
+
+
 def build_all(names=None):
     """Compile every kernel library that is not built yet, one ``nvcc``
     per source, all started together. Returns {name: seconds} for the
@@ -101,6 +114,8 @@ def build_all(names=None):
     built, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
+        with open(out + '.log', 'wb') as f:
+            f.write(log)
         if proc.returncode != 0:
             failed.append('%s (nvcc exit %d):\n%s' % (
                 name, proc.returncode, log.decode(errors='replace')))

@@ -15,13 +15,16 @@ raises, it never falls back to the plain version.
 Ported so far:
 
 - ``flash_attention`` / ``flash_attention_with_lse``: the forward of
-  ``pallas_kernels.py::_flash_kernel``, in ``csrc/flash_attn_fwd.cu``;
-  differentiable through both outputs (``_FlashAttention``).
+  ``pallas_kernels.py::_flash_kernel``, in ``csrc/flash_attn_fwd.cu``
+  (a variant per (dtype, D): ``flash_variant``); differentiable
+  through both outputs (``_FlashAttention``).
 - ``flash_bwd_dkvdq``, ``flash_bwd_dq``, ``flash_bwd_dkv``: the backward
   kernels ``_flash_dkvdq_kernel`` (merged), ``_flash_dq_kernel`` and
   ``_flash_dkv_kernel`` (two-pass), in ``csrc/flash_attn_bwd.cu``;
   ``flash_attention_bwd`` routes between them as
-  ``pallas_kernels._flash_bwd_pallas`` does.
+  ``pallas_kernels._flash_bwd_pallas`` does. Every route gives the same
+  bits from run to run: the merged kernel adds its dq partials in a
+  fixed order, counted in a scratch buffer (``flash_bwd_counters``).
 - ``fused_conv``: ``pallas_kernels.py::_fconv_kernel``, a conv or
   depthwise conv with its whole epilogue (folded batch norm, activations,
   residual and broadcast operands) applied on chip before one
@@ -65,6 +68,27 @@ def reset_launch_counts():
 # ---- flash attention ------------------------------------------------------------
 _NEG_INF = -1e30
 FLASH_HEAD_DIMS = (32, 64, 128)
+# the flash kernels' variant for (dtype, D), the same for the forward and
+# the merged backward: wgmma (TMA, rings of tiles in shared memory) for
+# bf16 at D 64 and 128, mma.sync for bf16 at D 32, scalar FMA for f32; and
+# the forward's code for it in its C entry point (flash_attn_fwd.cu Variant)
+FLASH_VARIANTS = {(torch.bfloat16, 32): 'mma_sync',
+                  (torch.bfloat16, 64): 'wgmma',
+                  (torch.bfloat16, 128): 'wgmma',
+                  (torch.float32, 32): 'fma',
+                  (torch.float32, 64): 'fma',
+                  (torch.float32, 128): 'fma'}
+_FWD_VARIANT_CODES = {'fma': 0, 'mma_sync': 1, 'wgmma': 2}
+
+
+def flash_variant(dtype, D):
+    """The flash kernels' variant for inputs of ``dtype`` and head dim
+    ``D``; raises for what no variant takes."""
+    try:
+        return FLASH_VARIANTS[dtype, D]
+    except KeyError:
+        raise ValueError("flash_attention kernels have no variant for %s at "
+                         "head dim %d" % (dtype, D)) from None
 
 
 def _acc(x):
@@ -165,7 +189,8 @@ def _flash_fwd(q, k, v, causal):
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _launch('flash_attn_fwd', 'flash_attn_fwd',
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), B, T, H, D, int(q.dtype == torch.bfloat16),
+             lse.data_ptr(), B, T, H, D,
+             _FWD_VARIANT_CODES[flash_variant(q.dtype, D)],
              int(bool(causal))), q.device, _flash_what(q))
     return out, lse
 
@@ -211,15 +236,39 @@ def flash_attention(q, k, v, causal=True):
 
 # ---- flash attention backward ---------------------------------------------------
 # Routing, as pallas_kernels._MERGED_BWD / _MERGED_BWD_MAX_SLAB_BYTES: the
-# merged kernel while what it allocates for dq (an f32 buffer of q's
-# shape) stays under the cap, else the two-pass kernels. The two-pass
-# route is the deterministic one: the merged kernel adds dq with atomics.
+# merged kernel while what it allocates for dq (merged_bwd_bytes) stays
+# under the cap, else the two-pass kernels. Both routes are deterministic:
+# the merged kernel adds dq in a fixed order.
 _MERGED_BWD = [True]
 _MERGED_BWD_MAX_SLAB_BYTES = 512 * 1024 * 1024
 
 
+def _merged_q_tile(q):
+    """The merged kernel's query tile, the unit of its dq counters (the C
+    side's merged_q_tile): 64 for the wgmma variant, else 32."""
+    return 64 if flash_variant(q.dtype, q.shape[-1]) == 'wgmma' else 32
+
+
+def _counters_shape(q):
+    B, T, H, _ = q.shape
+    return B * H, -(-T // _merged_q_tile(q))
+
+
+def flash_bwd_counters(q):
+    """The merged kernel's scratch: one int32 counter per (b*h, query
+    tile), zeroed, on q's device. A block adds its dq partial of a query
+    tile when the counter names its turn, then advances it."""
+    return torch.zeros(_counters_shape(q), dtype=torch.int32,
+                       device=q.device)
+
+
 def merged_bwd_bytes(q):
-    """Bytes the merged kernel allocates for dq: [B, T, H, D] in f32."""
+    """Bytes the merged kernel allocates for its f32 dq sums: [B, T, H, D],
+    or for the wgmma variant whole 64-query tiles ([B*H, ceil(T / 64),
+    64 * D], :func:`dq_from_tiles`)."""
+    B, T, H, D = q.shape
+    if flash_variant(q.dtype, D) == 'wgmma':
+        return B * H * -(-T // 64) * 64 * D * 4
     return q.numel() * 4
 
 
@@ -291,19 +340,57 @@ def _bwd_dims(q, causal):
     return (B, T, H, D, int(q.dtype == torch.bfloat16), int(bool(causal)))
 
 
-def flash_bwd_dkvdq(q, k, v, do, lse, delta, causal=True):
+def _check_counters(q, counters):
+    want = _counters_shape(q)
+    if (tuple(counters.shape) != want or counters.dtype != torch.int32 or
+            counters.device != q.device or not counters.is_contiguous()):
+        raise ValueError("flash_attention backward: counters must be a "
+                         "contiguous int32 %s on %s, got %s %s on %s"
+                         % (want, q.device, tuple(counters.shape),
+                            counters.dtype, counters.device))
+
+
+def dq_from_tiles(acc, B, T, H, D, dtype):
+    """The wgmma merged kernel's dq sums -> dq [B, T, H, D] in ``dtype``.
+
+    The kernel adds each (b*h, 64-query tile) partial as one contiguous
+    tile of 64 * D f32 values kept in its registers' order: [consumer (2)]
+    [register (D / 4)][thread (128)], where register 4 j + 2 hi + lo of
+    thread 32 w + 4 g + t holds query 16 w + 8 hi + g and column
+    consumer * D / 2 + 8 j + 2 t + lo (the wgmma accumulator layout)."""
+    n_q = -(-T // 64)
+    tiles = acc.view(B, H, n_q, 2, D // 16, 2, 2, 4, 8, 4)
+    out = torch.empty((B, n_q * 64, H, D), dtype=dtype, device=acc.device)
+    out.view(B, n_q, 4, 2, 8, H, 2, D // 16, 4, 2).copy_(
+        tiles.permute(0, 2, 7, 5, 8, 1, 3, 4, 9, 6))
+    return out if n_q * 64 == T else out[:, :T].contiguous()
+
+
+def flash_bwd_dkvdq(q, k, v, do, lse, delta, causal=True, counters=None):
     """Merged backward (``_flash_dkvdq_kernel``): (dq, dk, dv) from one
-    kv-major sweep; dq accumulates in an f32 buffer by atomics and is
-    cast to q's dtype. CPU tensors run :func:`flash_bwd_reference`."""
+    kv-major sweep; the blocks add their dq partials into an f32 buffer
+    in a fixed order (:func:`flash_bwd_counters`, allocated here unless
+    given), which is cast to q's dtype. CPU tensors run
+    :func:`flash_bwd_reference`."""
     if not _on_card(q, 'flash_attention backward'):
         return flash_bwd_reference(q, k, v, do, lse, delta, causal)
     _check_flash_bwd_inputs(q, k, v, do, lse, delta)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    if counters is None:
+        counters = flash_bwd_counters(q)
+    _check_counters(q, counters)
+    B, T, H, D = q.shape
+    tiled = flash_variant(q.dtype, D) == 'wgmma'
+    # every element is written (the first turn of each tile stores)
+    dq_acc = torch.empty(merged_bwd_bytes(q) // 4 if tiled else q.shape,
+                         dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch('flash_attn_bwd', 'flash_attn_bwd_dkvdq',
             _bwd_inputs(q, k, v, do, lse, delta) +
-            (dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr()) +
-            _bwd_dims(q, causal), q.device, _flash_what(q))
+            (dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             counters.data_ptr()) + _bwd_dims(q, causal) +
+            (_merged_q_tile(q),), q.device, _flash_what(q))
+    if tiled:
+        return dq_from_tiles(dq_acc, B, T, H, D, q.dtype), dk, dv
     return dq_acc.to(q.dtype), dk, dv
 
 

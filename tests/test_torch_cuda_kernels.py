@@ -131,6 +131,49 @@ def test_flash_bwd_routes_like_pallas(cuda, monkeypatch):
             assert _tol_ratio(g, r) <= 1
 
 
+# (B, H, T, D, dtype, causal): the flagship's head width at B*H 32, a
+# ragged T, f32, and a non-causal D 64
+DETERMINISM_CASES = [(4, 8, 2048, 128, torch.bfloat16, True),
+                     (4, 8, 2000, 128, torch.bfloat16, True),
+                     (4, 8, 2048, 128, torch.float32, True),
+                     (2, 4, 1024, 64, torch.bfloat16, False)]
+
+
+@pytest.mark.parametrize('case', DETERMINISM_CASES,
+                         ids=lambda c: '%d-%d-%d-%d-%s-%s' % (
+                             c[:4] + (str(c[4])[6:], c[5])))
+def test_flash_bwd_is_bit_reproducible(cuda, case):
+    """Two calls of the default backward route on the same inputs give the
+    same dq, dk and dv bit for bit: the merged kernel adds its dq partials
+    in a fixed order."""
+    B, H, T, D, dtype, causal = case
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(T + D)
+    q, k, v, do = (torch.randn(B, T, H, D, device=cuda, generator=gen)
+                   .to(dtype) for _ in range(4))
+    out, lse = ck.flash_attention_with_lse(q, k, v, causal)
+    before = ck.LAUNCHES['flash_attn_bwd_dkvdq']
+    first = ck.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    second = ck.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES['flash_attn_bwd_dkvdq'] == before + 2
+    for name, a, b in zip(('dq', 'dk', 'dv'), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_flash_bwd_counters_must_fit(cuda):
+    """The merged kernel refuses a counter buffer that is not its own
+    shape and dtype: its query tile decides where each counter lies."""
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, torch.bfloat16, 1, 256, 2,
+                                          64, True, seed=2)
+    good = ck.flash_bwd_counters(q)
+    assert good.shape == (2, 4) and good.dtype == torch.int32
+    for bad in (good[:, :3].contiguous(), good.long(),
+                torch.zeros(2, 8, dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError):
+            ck.flash_bwd_dkvdq(q, k, v, do, lse, delta, True, counters=bad)
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 64, 2, 48, device=cuda)
     with pytest.raises(ValueError):
@@ -178,7 +221,8 @@ def test_training_step_launches_the_kernels(cuda):
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {'flash_attn_fwd': 2, 'flash_attn_bwd_dkvdq': 2,
                            'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
-                           'fused_conv': 0, 'fused_conv_stats': 0}
+                           'fused_conv': 0, 'fused_conv_stats': 0,
+                           'lstm_cell': 0}
     assert out.shape == (1,) and abs(float(out[0]) - 6.24) < 1.0
     for n in params:
         assert not torch.equal(scope.raw(n), before[n]), n

@@ -93,3 +93,29 @@ def test_kernel_input_checks_raise(case):
         q, k, v = (t.reshape(1, 64, 128) for t in (q, k, v))
     with pytest.raises((ValueError, TypeError)):
         ck._check_flash_inputs(q, k, v)
+
+
+# the kernel variant the wrapper picks: wgmma (TMA, rings of tiles) for bf16
+# at D 64 and 128, mma.sync for bf16 at D 32, scalar FMA for f32
+@pytest.mark.parametrize('dtype, D, variant', [
+    (torch.bfloat16, 32, 'mma_sync'), (torch.bfloat16, 64, 'wgmma'),
+    (torch.bfloat16, 128, 'wgmma'), (torch.float32, 32, 'fma'),
+    (torch.float32, 64, 'fma'), (torch.float32, 128, 'fma')])
+def test_fwd_variant_for_each_dtype_and_head_dim(dtype, D, variant):
+    assert ck.flash_variant(dtype, D) == variant
+
+
+def test_every_input_the_checks_let_through_has_a_variant():
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in ck.FLASH_HEAD_DIMS:
+            q = torch.zeros(1, 8, 2, D, dtype=dtype)
+            ck._check_flash_inputs(q, q, q)
+            assert ck.flash_variant(dtype, D) in ck._FWD_VARIANT_CODES
+
+
+@pytest.mark.parametrize('dtype, D', [(torch.float16, 64),
+                                      (torch.bfloat16, 48),
+                                      (torch.float32, 256)])
+def test_fwd_variant_refuses_what_no_kernel_takes(dtype, D):
+    with pytest.raises(ValueError):
+        ck.flash_variant(dtype, D)

@@ -172,3 +172,97 @@ def test_bwd_input_checks_raise(case):
         q = k = v = do = torch.zeros(1, 64, 2, 48)
     with pytest.raises((ValueError, TypeError)):
         ck._check_flash_bwd_inputs(q, k, v, do, lse, delta)
+
+
+# the merged backward's variant and query tile (the unit of its dq
+# counters) for each (dtype, D): the wgmma kernel takes 64 queries a step
+@pytest.mark.parametrize('dtype, D, variant, q_tile', [
+    (torch.bfloat16, 32, 'mma_sync', 32), (torch.bfloat16, 64, 'wgmma', 64),
+    (torch.bfloat16, 128, 'wgmma', 64), (torch.float32, 32, 'fma', 32),
+    (torch.float32, 64, 'fma', 32), (torch.float32, 128, 'fma', 32)])
+def test_merged_variant_and_query_tile(dtype, D, variant, q_tile):
+    assert ck.flash_variant(dtype, D) == variant
+    assert ck._merged_q_tile(torch.empty(1, 8, 1, D, dtype=dtype)) == q_tile
+
+
+@pytest.mark.parametrize('dtype, D', [(torch.float16, 64),
+                                      (torch.bfloat16, 96)])
+def test_merged_backward_refuses_what_no_kernel_takes(dtype, D):
+    q = torch.empty(1, 8, 1, D, dtype=dtype)
+    with pytest.raises(ValueError):
+        ck.flash_bwd_counters(q)
+    with pytest.raises(ValueError):
+        ck.merged_bwd_bytes(q)
+
+
+# (B, H, T, D, dtype) -> the counter buffer: one int32 per (b*h, query
+# tile), 64-query tiles for the wgmma kernel, 32 for the others
+@pytest.mark.parametrize('B, H, T, D, dtype, shape', [
+    (1, 1, 1, 128, torch.bfloat16, (1, 1)),
+    (2, 3, 130, 64, torch.bfloat16, (6, 3)),
+    (4, 8, 2048, 128, torch.bfloat16, (32, 32)),
+    (16, 8, 2000, 128, torch.bfloat16, (128, 32)),
+    (2, 3, 130, 64, torch.float32, (6, 5)),
+    (2, 2, 100, 32, torch.bfloat16, (4, 4))])
+def test_counter_buffer_shape_and_dtype(B, H, T, D, dtype, shape):
+    q = torch.empty(B, T, H, D, dtype=dtype)
+    ctr = ck.flash_bwd_counters(q)
+    assert tuple(ctr.shape) == shape
+    assert ctr.dtype == torch.int32 and ctr.device == q.device
+    assert not ctr.any()
+    ck._check_counters(q, ctr)
+    for bad in (ctr[:, :-1], ctr.long(), torch.zeros(shape[0] + 1,
+                                                     shape[1],
+                                                     dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            ck._check_counters(q, bad)
+
+
+@pytest.mark.parametrize('B, T, H, D', [(2, 128, 3, 64), (1, 130, 2, 128),
+                                        (1, 1, 1, 64)])
+def test_dq_tiles_in_register_order_map_back(B, T, H, D):
+    """The wgmma kernel's dq buffer: per (b*h, 64-query tile), [consumer]
+    [register][thread], register 4j + 2hi + lo of thread 32w + 4g + t
+    holding query 16w + 8hi + g and column consumer * D/2 + 8j + 2t + lo."""
+    rng = np.random.RandomState(T + D)
+    dq = rng.randn(B, T, H, D).astype('float32')
+    n_q = -(-T // 64)
+    tiles = np.zeros((B, H, n_q, 2, D // 4, 128), 'float32')
+    for cw in range(2):
+        for r in range(D // 4):
+            j, hi, lo = r // 4, (r // 2) % 2, r % 2
+            for th in range(128):
+                w, g, t = th // 32, (th % 32) // 4, th % 4
+                col = cw * D // 2 + 8 * j + 2 * t + lo
+                for it in range(n_q):
+                    q = it * 64 + 16 * w + 8 * hi + g
+                    if q < T:
+                        tiles[:, :, it, cw, r, th] = dq[:, q, :, col]
+    got = ck.dq_from_tiles(torch.from_numpy(tiles.reshape(-1)), B, T, H, D,
+                           torch.float32)
+    assert got.shape == (B, T, H, D) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), dq)
+
+
+def test_cpu_tensors_take_the_plain_merged_backward_with_counters():
+    ck.reset_launch_counts()
+    q, k, v, do = _torch(_arrays(1, 64, 2, 64, seed=6))
+    out, lse = ck.flash_attention_with_lse(q, k, v)
+    delta = ck.flash_bwd_delta(out, do)
+    got = ck.flash_bwd_dkvdq(q, k, v, do, lse, delta,
+                             counters=ck.flash_bwd_counters(q))
+    ref = ck.flash_bwd_reference(q, k, v, do, lse, delta)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert all(n == 0 for n in ck.LAUNCHES.values()), ck.LAUNCHES
+
+
+# what the merged kernel allocates for its f32 dq sums, which the route's
+# byte cap reads: whole 64-query tiles for the wgmma variant
+@pytest.mark.parametrize('B, H, T, D, dtype, nbytes', [
+    (16, 8, 2048, 128, torch.bfloat16, 16 * 8 * 2048 * 128 * 4),
+    (2, 3, 130, 64, torch.bfloat16, 2 * 3 * 192 * 64 * 4),
+    (2, 3, 130, 64, torch.float32, 2 * 3 * 130 * 64 * 4),
+    (2, 3, 130, 32, torch.bfloat16, 2 * 3 * 130 * 32 * 4)])
+def test_merged_bwd_bytes(B, H, T, D, dtype, nbytes):
+    assert ck.merged_bwd_bytes(torch.empty(B, T, H, D, dtype=dtype)) == nbytes
