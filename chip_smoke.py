@@ -2,6 +2,8 @@
 """Smoke run of paddle_tpu_torch on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --sweep-conv   # the fused conv's plan sweep
+    python3 chip_smoke.py --host-cost [--root DIR]   # its host cost
 
 from the root of a checkout. Phases, each of which raises (and so exits
 non-zero) on failure:
@@ -9,11 +11,12 @@ non-zero) on failure:
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for float32 matrix products and convolutions;
 2. build: compiles every CUDA kernel of the port with nvcc, all at once,
-   into build/torch_kernels/; then, from the built flash libraries,
-   counts the wgmma (HGMMA) and TMA load (UTMALDG) instructions of each
-   kernel in its SASS (cuobjdump) and fails if the bf16 forward or the
-   bf16 merged backward has none of either, and prints ptxas's registers
-   and spills for those kernels;
+   into build/torch_kernels/; then, from the built flash and fused conv
+   libraries, counts the wgmma (HGMMA) and TMA load (UTMALDG)
+   instructions of each kernel in its SASS (cuobjdump) and fails if the
+   bf16 flash forward, the bf16 merged backward or the wgmma conv (at
+   each tile width) has none of either or ptxas ignored setmaxnreg, and
+   prints ptxas's registers and spills for those kernels;
 3. kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes and times kernel, plain version,
    the PyTorch library call for the same function (a yardstick only) and
@@ -29,9 +32,12 @@ non-zero) on failure:
    32, read from the program after the conv_epilogue_fuse pass, in bf16
    and f32, plus a depthwise shape, each aux kind, a swapped binary op
    and parametric activations, held per element; the kernel with the
-   batch-norm shift dropped must fail that check at every shape; times
-   kernel, plain version and cuDNN's conv alone (a yardstick only) as
-   replays of a CUDA graph, and computes the bound;
+   batch-norm shift dropped must fail that check at every shape, and two
+   bf16 calls must give the same bits; times kernel, plain version and
+   cuDNN's conv alone (a yardstick only) as replays of a CUDA graph, and
+   computes the bound; then the same checks in bf16 at batch 1, 8 and 128
+   (K is split at the first two, which are timed too); sums per conv
+   class (stem, 1x1 stride 1, 1x1 stride 2, 3x3) at batch 1, 8 and 32;
 5. serving: builds the flagship transformer at full width (6 layers,
    d_model 1024, 8 heads, d_ff 4096, vocab 8192, seq 2048) with random
    weights from the seed, saves it as an inference model, loads it into
@@ -44,8 +50,9 @@ non-zero) on failure:
    classes) with random weights and batch-norm statistics from the seed,
    saved as an inference model, loaded into a fresh scope and served at
    batch 1, 8, 32, 1, 8, 32 through Executor.run and the compiler's
-   conv_epilogue_fuse: exactly 53 fused conv launches and no fallback a
-   request; a profile of one batch-32 request; one request compared with
+   conv_epilogue_fuse: exactly 53 fused conv launches (52 on the wgmma
+   kernel, the stem on its own path) and no fallback a request; a
+   profile of one batch-32 request; one request compared with
    the same program on the plain fused conv, and two deliberately wrong
    kernels must fail that comparison;
 7. training: the same flagship at full width and depth, Adam(1e-4)
@@ -64,17 +71,19 @@ non-zero) on failure:
    output) against its plain version at every distinct region shape of
    the ResNet-50 training program at batch 32, in bf16 and f32, plus a
    depthwise shape: y per element, the moments per channel; the slab
-   without its last slot must fail where M is not a multiple of it;
-   then at batch 128 in bf16, the training step's shapes: checked the
-   same way, and kernel, plain version and cuDNN's conv with two channel
-   reductions (a yardstick only) timed per shape as replays of a CUDA
-   graph, and summed over a batch-128 step's 53 regions;
+   without its last slot must fail where M is not a multiple of it; two
+   calls must give the same bits; the same at batch 1 and 8 in bf16
+   (where K is split); then at batch 128 in bf16, the training step's
+   shapes: checked the same way, and kernel, plain version and cuDNN's
+   conv with two channel reductions (a yardstick only) timed per shape as
+   replays of a CUDA graph, and summed over a batch-128 step's 53 regions
+   and per conv class;
 10. ResNet-50 training: full width (3 x 224 x 224, 1000 classes),
    cross_entropy, Momentum(0.01, 0.9).minimize, AMP, batch 128, one
    fixed batch: warm-up steps, then timed steps through Executor.run
    (ms per step, images/s, peak memory); the loss finite and falling,
-   exactly 53 stats-form launches a step, no other fused conv and no
-   fallback; a profile of one step;
+   exactly 53 stats-form launches a step (52 on the wgmma kernel), no
+   other fused conv and no fallback; a profile of one step;
 11. ResNet-50 gradients: at batch 8, every parameter gradient and every
    moving statistic of one step on the kernel against the same step on
    the plain fused conv's forward (the same backward), by relative L2
@@ -175,8 +184,16 @@ PLAIN_GRAD_TOL = 0.15
 # kernel with the batch-norm shift dropped must fail it at every shape.
 CONV_TOL = {'bfloat16': (2 ** -7, 2 ** -8), 'float32': (1e-5, 1e-4)}
 RESNET_BATCH = 32                      # the kernel phase's shapes
+# the conv kernel phase also checks every region shape at these batches
+# (bf16), and times the served ones (batch 1 and 8, where the wgmma
+# kernel splits K)
+CONV_CHECK_BATCHES = (1, 8, 128)
+CONV_TIMED_BATCHES = (1, 8)
 RESNET_REQUESTS = [1, 8, 32, 1, 8, 32]
 RESNET_REGIONS = 53                    # fused_conv ops of ResNet-50
+# the fused conv's variants a request (or a training step) launches: the
+# wgmma kernel for every region but the 7x7 stem (Cin 3)
+RESNET_VARIANTS = {'fma': 0, 'mma_sync': 0, 'wgmma': 52, 'stem': 1}
 # whole ResNet-50, fused kernel vs the plain fused conv, bf16 activations
 # (AMP), on one batch-32 request: max |logits difference| over max
 # |plain logits|, and the share of images with the same top-1 class. Set
@@ -199,6 +216,7 @@ RESNET_TOP1 = 0.8
 # the old 1e-5.
 STATS_REL = {'bfloat16': 3e-5, 'float32': 2e-6}
 STATS_CHECK_BATCH = 32                 # the stats phase's checked shapes
+STATS_SMALL_BATCHES = (1, 8)           # checked too, bf16 (K splits)
 RESNET_TRAIN_BATCH = 128               # bench.py:121
 RESNET_TRAIN_WARMUP, RESNET_TRAIN_STEPS = 2, 10
 RESNET_GRAD_BATCH = 8
@@ -348,15 +366,19 @@ def phase_build():
                                           _build.BUILD_DIR), flush=True)
 
 
-# the redesigned flash kernels: library -> kernel, which must contain
-# wgmma (HGMMA) and TMA loads (UTMALDG) at each head dim it is built for
-SASS_KERNELS = {'flash_attn_fwd': 'flash_fwd_wgmma_kernel',
-                'flash_attn_bwd': 'flash_bwd_wgmma_kernel'}
+# the redesigned kernels: library -> (kernel, the number of its template
+# instances, setmaxnreg's registers for a consumer and for a producer
+# thread); each instance must contain wgmma (HGMMA) and TMA loads
+# (UTMALDG): the flash kernels at D 64 and 128, the fused conv at tile
+# widths 64, 128 and 256
+SASS_KERNELS = {'flash_attn_fwd': ('flash_fwd_wgmma_kernel', 2, 240, 24),
+                'flash_attn_bwd': ('flash_bwd_wgmma_kernel', 2, 240, 24),
+                'fused_conv': ('conv_wgmma_kernel', 3, 232, 40)}
 
 
 def _kernel_label(mangled):
-    m = re.search(r'(flash_(?:fwd|bwd)_\w+?_kernel)ILi(\d+)(?:ELb([01]))?',
-                  mangled)
+    m = re.search(r'((?:flash_(?:fwd|bwd)|conv)_\w+?_kernel)ILi(\d+)'
+                  r'(?:ELb([01]))?', mangled)
     if not m:
         return mangled
     return '%s<%s%s>' % (m.group(1), m.group(2),
@@ -401,22 +423,23 @@ def ptxas_usage(log):
 
 
 def phase_sass():
-    """The redesigned flash kernels run on the tensor cores and TMA: count
-    HGMMA and UTMALDG in each kernel of the built flash libraries, fail if
-    the bf16 forward or merged backward (wgmma variant, D 64 and 128) has
+    """The redesigned kernels run on the tensor cores and TMA: count HGMMA
+    and UTMALDG in each kernel of the built flash and fused conv libraries,
+    fail if an instance of the bf16 flash forward, merged backward (wgmma
+    variant, D 64 and 128) or wgmma conv (tile widths 64, 128, 256) has
     none of either; print ptxas's registers and spills for them."""
     from paddle_tpu_torch.ops import _build
-    for lib, kernel in SASS_KERNELS.items():
+    for lib, (kernel, instances, consumer, producer) in SASS_KERNELS.items():
         counts = sass_counts(_build.library_path(lib))
         usage = ptxas_usage(_build.build_log(lib))
         for name, (hgmma, utmaldg) in sorted(counts.items()):
             regs = usage.get(name)
             print('sass: %s %s: %d HGMMA, %d UTMALDG%s' % (
                 lib, _kernel_label(name), hgmma, utmaldg,
-                '; ptxas: %d registers at entry (setmaxnreg: 240 a consumer '
-                'thread, 24 a producer thread), spill stores %d B, spill '
-                'loads %d B' % regs if regs and kernel in name else ''),
-                flush=True)
+                '; ptxas: %d registers at entry (setmaxnreg: %d a consumer '
+                'thread, %d a producer thread), spill stores %d B, spill '
+                'loads %d B' % ((regs[0], consumer, producer) + regs[1:])
+                if regs and kernel in name else ''), flush=True)
         # ptxas's notes on wgmma and setmaxnreg (C75xx: serialized wgmma,
         # setmaxnreg ignored)
         notes = [l.strip() for l in _build.build_log(lib).splitlines()
@@ -426,8 +449,8 @@ def phase_sass():
         check(not any('setmaxnreg' in l for l in notes),
               '%s: ptxas ignored setmaxnreg' % lib)
         ours = [n for n in counts if kernel in n]
-        check(len(ours) == 2, '%s: expected the %s kernel at D 64 and 128, '
-              'found %s' % (lib, kernel, ours))
+        check(len(ours) == instances, '%s: expected %d instances of the %s '
+              'kernel, found %s' % (lib, instances, kernel, ours))
         for name in ours:
             check(min(counts[name]) > 0, '%s has no %s' % (
                 _kernel_label(name),
@@ -677,7 +700,7 @@ def _kernel_kind(name):
     flash = re.search(r'flash_\w+', name)
     if flash:
         return flash.group(0)
-    if re.search(r'conv_(bf16|f32|depthwise)_kernel', name):
+    if re.search(r'conv_(bf16|f32|depthwise|wgmma)_kernel', name):
         return 'fused_conv'
     if re.search(r'lstm_cell_(bf16|f32)_kernel', name):
         return 'lstm_cell'
@@ -924,11 +947,38 @@ def _conv_inputs(gen, dtype, N, H, W, cin, cout, k, s, p, depthwise, kinds):
     return x, w, aux
 
 
+def conv_class(k, s, cin):
+    """A ResNet-50 region's class for the per-class sums: the stem, 1x1
+    stride 1, 1x1 stride 2, 3x3."""
+    if cin % 8:
+        return 'stem'
+    return '1x1 s%d' % s if k == 1 else '%dx%d' % (k, k)
+
+
+def print_classes(label, sums):
+    """One line per conv class of {class: {'n': regions, key: ms}}."""
+    for cls in sorted(sums):
+        c = sums[cls]
+        print('conv classes: %s, %s: %d regions, %s' % (
+            label, cls, c['n'], ', '.join(
+                '%s %.4f ms' % (k, c[k]) for k in c if k != 'n')),
+            flush=True)
+
+
+def _add_class(sums, cls, count, **ms):
+    c = sums.setdefault(cls, {'n': 0})
+    c['n'] += count
+    for k, v in ms.items():
+        c[k] = c.get(k, 0.0) + count * v
+
+
 def phase_conv_kernels(seed):
     """The fused conv kernel vs its plain version at every distinct
     region shape of ResNet-50 at batch 32, and at extra cases, in bf16
-    and f32. Returns the bf16 numbers summed over one batch-32 request
-    (each shape times its count of regions)."""
+    and f32; then at batch 1, 8 and 128 in bf16 (the first two are where
+    the wgmma kernel splits K). Every bf16 case is launched twice and must
+    give the same bits. Returns the bf16 numbers summed over one batch-32
+    request (each shape times its count of regions)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels as ck
@@ -963,32 +1013,53 @@ def phase_conv_kernels(seed):
     gen.manual_seed(seed + 2)
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                   max_abs_err=0.0)
-    bound_by = {}
+    bound_by, classes = {}, {}
+
+    def region_kinds(stages):
+        return ('c', 'c', 't') if any(st[0] == 'bin' for st in stages) \
+            else ('c', 'c')
+
+    def check_case(x, w, aux, kinds, stages, s, p, dw, dtype, what):
+        """Per element against the plain version, twice bit for bit
+        (bf16), and the control with the batch-norm shift dropped: (max
+        |err|, err / limit, the control's err / limit or None)."""
+        args = (x, w, aux, kinds, stages, (s, s), (p, p), dw)
+        got = ck.fused_conv(*args)
+        same = dtype != 'bfloat16' or torch.equal(got, ck.fused_conv(*args))
+        torch.cuda.synchronize()
+        ref = ck.fused_conv_reference(*args)
+        err = (got.float() - ref.float()).abs().max().item()
+        ratio = conv_err_ratio(got, ref, dtype)
+        shift = [st[2] for st in stages if st[0] == 'affine']
+        control = None
+        if shift:
+            bad_aux = list(aux)
+            bad_aux[shift[0]] = torch.zeros_like(aux[shift[0]])
+            control = conv_err_ratio(ck.fused_conv(
+                x, w, bad_aux, kinds, stages, (s, s), (p, p), dw), ref,
+                dtype)
+        check(same, 'fused_conv gave other bits on a second call at ' + what)
+        check(ratio <= 1, 'fused_conv disagrees with its plain version at '
+              + what)
+        check(control is None or control > 1, 'the per-shape limit does not '
+              'catch a dropped batch-norm shift at ' + what)
+        return err, ratio, control
+
     for idx, ((H, W, cin, cout, k, s, p, stages), count, dw) in \
             enumerate(cases):
-        kinds = (('c', 'c', 't') if any(st[0] == 'bin' for st in stages)
-                 else ('c', 'c')) if idx < len(regions) else \
+        kinds = region_kinds(stages) if idx < len(regions) else \
             extra_kinds[idx - len(regions)]
         for dtype in ('bfloat16', 'float32'):
             x, w, aux = _conv_inputs(gen, dtype, N, H, W, cin, cout, k, s,
                                      p, dw, kinds)
             args = (x, w, aux, kinds, stages, (s, s), (p, p), dw)
-            got = ck.fused_conv(*args)
-            torch.cuda.synchronize()
-            ref = ck.fused_conv_reference(*args)
-            err = (got.float() - ref.float()).abs().max().item()
-            ratio = conv_err_ratio(got, ref, dtype)
-            bound_ms, by = conv_bound(x, w, aux, got, k, s, p, dw)
-            # control: the kernel with the batch-norm shift dropped
-            shift = [st[2] for st in stages if st[0] == 'affine']
-            control = None
-            if shift:
-                bad_aux = list(aux)
-                bad_aux[shift[0]] = torch.zeros_like(aux[shift[0]])
-                control = conv_err_ratio(ck.fused_conv(
-                    x, w, bad_aux, kinds, stages, (s, s), (p, p), dw), ref,
-                    dtype)
-            del got, ref
+            what = 'N=%d %dx%d Cin=%d Cout=%d K=%d s=%d %s' % (
+                N, H, W, cin, cout, k, s, dtype)
+            err, ratio, control = check_case(x, w, aux, kinds, stages, s, p,
+                                             dw, dtype, what)
+            bound_ms, by = conv_bound(x, w, aux, x.new_empty(
+                (N, (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1,
+                 cout)), k, s, p, dw)
             # CUDA graphs: the host's launch cost would otherwise be part
             # of these 10-300 us calls
             kernel_ms = graph_ms(lambda: ck.fused_conv(*args))
@@ -1001,23 +1072,20 @@ def phase_conv_kernels(seed):
                   else w.permute(0, 3, 1, 2))
             library_ms = graph_ms(lambda: F.conv2d(
                 xc, wc, stride=s, padding=p, groups=cin if dw else 1))
+            plan = ck.fused_conv_plan(x.dtype, N, H, W, cin, cout, k, k,
+                                      (s, s), (p, p), dw,
+                                      ck._sm_count(x.device.index or 0))
             print('kernel fused_conv N=%d %dx%d Cin=%d Cout=%d K=%d s=%d '
-                  'p=%d%s %s x%d [%s]: max|err| %.3g, err/limit %.3g '
+                  'p=%d%s %s x%d [%s] %s: max|err| %.3g, err/limit %.3g '
                   '(shift dropped: %s); kernel_ms %.4f plain_ms %.4f '
                   'cudnn_ms %.4f bound_ms %.4f (%s)' % (
                       N, H, W, cin, cout, k, s, p,
                       ' depthwise' if dw else '', dtype, count,
                       ' '.join(st[0] if st[0] != 'act' else st[1]
-                               for st in stages), err, ratio,
-                      'n/a' if control is None else '%.3g' % control,
+                               for st in stages), _plan_label(plan), err,
+                      ratio, 'n/a' if control is None else '%.3g' % control,
                       kernel_ms, plain_ms, library_ms, bound_ms, by),
                   flush=True)
-            check(ratio <= 1, 'fused_conv disagrees with its plain version '
-                  'at N=%d %dx%d Cin=%d Cout=%d K=%d s=%d %s' % (
-                      N, H, W, cin, cout, k, s, dtype))
-            check(control is None or control > 1, 'the per-shape limit does '
-                  'not catch a dropped batch-norm shift at N=%d %dx%d Cin=%d '
-                  'Cout=%d K=%d s=%d %s' % (N, H, W, cin, cout, k, s, dtype))
             if dtype == 'bfloat16' and count:
                 totals['ms'] += count * kernel_ms
                 totals['plain_ms'] += count * plain_ms
@@ -1025,6 +1093,9 @@ def phase_conv_kernels(seed):
                 totals['bound_ms'] += count * bound_ms
                 totals['max_abs_err'] = max(totals['max_abs_err'], err)
                 bound_by[by] = bound_by.get(by, 0.0) + count * bound_ms
+                _add_class(classes, conv_class(k, s, cin), count,
+                           kernel=kernel_ms, cudnn=library_ms,
+                           bound=bound_ms)
             del x, w, aux, args, xc, wc
     totals['bound_by'] = max(bound_by, key=bound_by.get)
     print('conv kernels: one batch-%d request, bf16, summed over its %d '
@@ -1034,8 +1105,60 @@ def phase_conv_kernels(seed):
               totals['library_ms'], totals['bound_ms'], totals['bound_by'],
               100 * bound_by[totals['bound_by']] / totals['bound_ms']),
           flush=True)
+    print_classes('batch-%d request' % N, classes)
+
+    # the served batches 1 and 8 (checked and timed: K splits act there)
+    # and 128 (checked), bf16
+    for n in CONV_CHECK_BATCHES:
+        classes = {}
+        for (H, W, cin, cout, k, s, p, stages), count in \
+                sorted(regions.items()):
+            kinds = region_kinds(stages)
+            x, w, aux = _conv_inputs(gen, 'bfloat16', n, H, W, cin, cout, k,
+                                     s, p, False, kinds)
+            what = 'N=%d %dx%d Cin=%d Cout=%d K=%d s=%d bfloat16' % (
+                n, H, W, cin, cout, k, s)
+            err, ratio, control = check_case(x, w, aux, kinds, stages, s, p,
+                                              False, 'bfloat16', what)
+            plan = ck.fused_conv_plan(x.dtype, n, H, W, cin, cout, k, k,
+                                      (s, s), (p, p), False,
+                                      ck._sm_count(x.device.index or 0))
+            timing = ''
+            if n in CONV_TIMED_BATCHES:
+                args = (x, w, aux, kinds, stages, (s, s), (p, p), False)
+                kernel_ms = graph_ms(lambda: ck.fused_conv(*args))
+                xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
+                library_ms = graph_ms(lambda: F.conv2d(xc, wc, stride=s,
+                                                       padding=p))
+                bound_ms, by = conv_bound(x, w, aux, x.new_empty(
+                    (n, (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1,
+                     cout)), k, s, p, False)
+                _add_class(classes, conv_class(k, s, cin), count,
+                           kernel=kernel_ms, cudnn=library_ms,
+                           bound=bound_ms)
+                timing = '; kernel_ms %.4f cudnn_ms %.4f bound_ms %.4f ' \
+                    '(%s)' % (kernel_ms, library_ms, bound_ms, by)
+                del args, xc, wc
+            print('kernel fused_conv N=%d %dx%d Cin=%d Cout=%d K=%d s=%d p=%d '
+                  'bfloat16 x%d %s: err/limit %.3g (shift dropped: %s), two '
+                  'calls bit-identical%s' % (
+                      n, H, W, cin, cout, k, s, p, count, _plan_label(plan),
+                      ratio, 'n/a' if control is None else '%.3g' % control,
+                      timing), flush=True)
+            del x, w, aux
+        if classes:
+            print_classes('batch-%d request' % n, classes)
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return totals
+
+
+def _plan_label(plan):
+    """A FusedConvPlan as a short label: variant, tile width, K
+    splits."""
+    if plan.variant != 'wgmma':
+        return plan.variant
+    return 'wgmma BN %d splits %d' % (plan.bn, plan.splits)
 
 
 def _wrong_conv(mode):
@@ -1128,16 +1251,22 @@ def phase_resnet_serving(seed):
     for i, bs in enumerate(RESNET_REQUESTS):
         feed = _image_feed(bs, seed + i)
         before = ck.LAUNCHES['fused_conv']
+        variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out, = exe.run(prog, feed=feed, fetch_list=fetch_vars, scope=scope)
         dt = time.perf_counter() - t1
         n = ck.LAUNCHES['fused_conv'] - before
+        variants = {v: c - variants[v]
+                    for v, c in ck.FUSED_CONV_VARIANT_LAUNCHES.items()}
         times.append(dt)
         images += bs
         print('resnet request %d: batch %d, %.2f ms, %.1f images/s, %d fused '
-              'conv launches, fallbacks %s' % (i, bs, 1e3 * dt, bs / dt, n,
-                                               passes.FALLBACKS), flush=True)
+              'conv launches (by variant %s), fallbacks %s' % (
+                  i, bs, 1e3 * dt, bs / dt, n, variants, passes.FALLBACKS),
+              flush=True)
+        check(variants == RESNET_VARIANTS, 'request %d took the fused conv '
+              'variants %s, expected %s' % (i, variants, RESNET_VARIANTS))
         check(out.shape == (bs, 1000), 'probabilities shape %s'
               % (out.shape,))
         check(np.isfinite(out).all(), 'non-finite probabilities')
@@ -1502,9 +1631,12 @@ def _check_stats_case(x, w, s, p, dw, dtype):
     N, H, W, cin = x.shape
     y, slab = ck._fused_conv_launch(x, w, (), (), (), (s, s), (p, p), dw,
                                     emit_stats=True)
+    y2, slab2 = ck._fused_conv_launch(x, w, (), (), (), (s, s), (p, p), dw,
+                                      emit_stats=True)
     got = ck.fused_conv(x, w, (), (), (), (s, s), (p, p), dw,
                         emit_stats=True)
     torch.cuda.synchronize()
+    same = torch.equal(y, y2) and torch.equal(slab, slab2)
     ratios = _stats_ratios(x, w, s, p, dw, *got, dtype)
     cout, M = y.shape[3], y.shape[0] * y.shape[1] * y.shape[2]
     control = None
@@ -1513,14 +1645,17 @@ def _check_stats_case(x, w, s, p, dw, dtype):
                                     slab[1, :-1].sum(0), dtype)[1:3])
     print('kernel fused_conv_stats N=%d %dx%d Cin=%d Cout=%d K=%d s=%d p=%d%s '
           '%s M=%d: y err/limit %.3g (max|err| %.3g), sum err/limit %.3g, '
-          'sumsq err/limit %.3g (rel %g); last slot dropped: %s' % (
+          'sumsq err/limit %.3g (rel %g); last slot dropped: %s; two calls '
+          'bit-identical: %s' % (
               N, H, W, cin, cout, w.shape[-2], s, p,
               ' depthwise' if dw else '', dtype, M, ratios[0], ratios[3],
               ratios[1], ratios[2], STATS_REL[dtype],
               'n/a (M %% %d == 0)' % rows if control is None
-              else '%.3g' % control), flush=True)
+              else '%.3g' % control, same), flush=True)
     what = 'N=%d %dx%d Cin=%d Cout=%d s=%d %s' % (N, H, W, cin, cout, s,
                                                   dtype)
+    check(same, 'fused_conv_stats gave other bits on a second call at '
+          + what)
     check(max(ratios[:3]) <= 1, 'fused_conv_stats disagrees with its plain '
           'version at ' + what)
     check(control is None or control > 1, 'the moments\' limit does not '
@@ -1558,13 +1693,21 @@ def phase_stats_kernels(seed, main, loss):
             if dtype == 'bfloat16':
                 max_err = max(max_err, err)
             del x, w
+    # the small batches, where the wgmma kernel splits K (bf16)
+    for n in STATS_SMALL_BATCHES:
+        for (H, W, cin, cout, k, s, p, dw) in sorted(regions):
+            x, w, _ = _conv_inputs(gen, 'bfloat16', n, H, W, cin, cout, k, s,
+                                   p, dw, ('c', 'c'))
+            max_err = max(max_err, _check_stats_case(x, w, s, p, dw,
+                                                     'bfloat16'))
+            del x, w
     torch.cuda.empty_cache()
 
     # checked and timed at the training batch, bf16 as AMP runs them
     N = RESNET_TRAIN_BATCH
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                   max_abs_err=max_err)
-    bound_by = {}
+    bound_by, classes = {}, {}
     for (H, W, cin, cout, k, s, p, dw), count in sorted(regions.items()):
         x, w, _ = _conv_inputs(gen, 'bfloat16', N, H, W, cin, cout, k, s, p,
                                dw, ('c', 'c'))
@@ -1594,6 +1737,8 @@ def phase_stats_kernels(seed, main, loss):
         totals['library_ms'] += count * library_ms
         totals['bound_ms'] += count * bound_ms
         bound_by[by] = bound_by.get(by, 0.0) + count * bound_ms
+        _add_class(classes, conv_class(k, s, cin), count, kernel=kernel_ms,
+                   cudnn_and_sums=library_ms, bound=bound_ms)
         del x, w, y, args, xc, wc
     totals['bound_by'] = max(bound_by, key=bound_by.get)
     print('stats kernels: one batch-%d training step, bf16, summed over its '
@@ -1604,6 +1749,7 @@ def phase_stats_kernels(seed, main, loss):
                       totals['bound_by'],
                       100 * bound_by[totals['bound_by']] / totals['bound_ms']),
           flush=True)
+    print_classes('batch-%d training step, stats form' % N, classes)
     torch.cuda.empty_cache()
     return totals
 
@@ -1654,6 +1800,7 @@ def phase_resnet_training(seed, card, main, startup, loss):
     outs[-1] = outs[-1].item()                # the last loss to the host
     dt = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
+    variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
     fallbacks = dict(passes.FALLBACKS)
     losses += [float(o) for o in outs]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1666,8 +1813,12 @@ def phase_resnet_training(seed, card, main, startup, loss):
     print('resnet training: losses %s' % ', '.join('%.4f' % l
                                                    for l in losses),
           flush=True)
-    print('resnet training: launches over the timed steps %s, fallbacks %s'
-          % (launches, fallbacks), flush=True)
+    print('resnet training: launches over the timed steps %s (the stats '
+          'form by variant %s), fallbacks %s' % (launches, variants,
+                                                 fallbacks), flush=True)
+    check(variants == {v: c * RESNET_TRAIN_STEPS
+                       for v, c in RESNET_VARIANTS.items()},
+          'ResNet-50 training took the fused conv variants %s' % variants)
     check(all(np.isfinite(losses)), 'non-finite ResNet-50 training loss')
     check(losses[-1] < losses[0], 'the ResNet-50 loss did not fall: %g -> %g'
           % (losses[0], losses[-1]))
@@ -2415,17 +2566,169 @@ def phase_machine_translation(seed, card):
     return 1e3 * dt / MT_STEPS
 
 
+def sweep_conv_plans(card):
+    """The wgmma conv's time at every (tile width, K splits) at ResNet-50's
+    non-stem region shapes at batch 1, 8 and 32 (bf16, the folded batch
+    norm and relu), beside the plan's pick and cuDNN's conv: the data
+    behind cuda_kernels.fused_conv_plan's rule. Not part of the smoke run
+    (``--sweep-conv``)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    stages = (('affine', 0, 1), ('act', 'relu'))
+    sms = ck._sm_count(0)
+    shapes = sorted({key[:7] for key in resnet_regions() if key[2] % 64 == 0})
+    print('sweep: %s, %d SMs; ms per call (CUDA graph replays)' % (card, sms),
+          flush=True)
+    for n in (1, 8, 32):
+        for (H, W, cin, cout, k, s, p) in shapes:
+            x = torch.randn(n, H, W, cin, device='cuda').bfloat16()
+            w = (torch.randn(cout, k, k, cin, device='cuda') *
+                 (2.0 / (k * k * cin)) ** 0.5).bfloat16()
+            aux = [torch.rand(1, cout, device='cuda') + 0.5,
+                   torch.randn(1, cout, device='cuda')]
+            args = (x, w, aux, ('c', 'c'), stages, (s, s), (p, p), False)
+            pick = ck.fused_conv_plan(x.dtype, n, H, W, cin, cout, k, k,
+                                      (s, s), (p, p), False, sms)
+            times = {}
+            for bn in (64, 128, 256):
+                if bn > 64 and cout <= bn // 2:
+                    continue
+                for splits in (1, 2, 3, 4, 6, 8):
+                    if splits <= k * k * cin // 64:
+                        plan = ck.FusedConvPlan('wgmma', bn, splits)
+                        times[bn, splits] = graph_ms(
+                            lambda: ck._fused_conv_launch(*args, plan=plan))
+            best = min(times, key=times.get)
+            xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
+            library_ms = graph_ms(lambda: F.conv2d(xc, wc, stride=s,
+                                                   padding=p))
+            print('sweep N=%d %dx%d Cin=%d Cout=%d K=%d s=%d: plan (%d, %d) '
+                  '%.4f, best (%d, %d) %.4f, cudnn %.4f | %s' % (
+                      n, H, W, cin, cout, k, s, pick.bn, pick.splits,
+                      times[pick.bn, pick.splits], best[0], best[1],
+                      times[best], library_ms, ' '.join(
+                          '%d/%d %.4f' % (b, sp, t)
+                          for (b, sp), t in sorted(times.items()))),
+                  flush=True)
+            del x, w, aux, args, xc, wc
+
+
+HOST_COST_BATCHES = (1, 8)
+HOST_COST_PASSES = 60      # timed passes over a request's 53 launches
+HOST_COST_REQUESTS = 30    # timed requests a batch
+
+
+def host_cost(card, root, seed):
+    """The host's cost of the fused conv at ResNet-50's served batches:
+    the wrapper's time per launch (``cuda_kernels.fused_conv`` over the
+    53 regions of a request, the card never synchronised inside a pass,
+    so the time is the host's; of it, the time in the C entry point) and
+    a served request's time (Executor.run, images in, probabilities
+    out), medians. ``root`` is the checkout whose package is measured: a
+    second checkout (another commit) is compared in the same chip call.
+    Not part of the smoke run (``--host-cost``)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    print('host cost: %s, package from %s' % (card, root), flush=True)
+    regions = resnet_regions()
+    c_time = [0.0]
+    launch = ck._launch
+
+    def timed_launch(*a):
+        t0 = time.perf_counter()
+        launch(*a)
+        c_time[0] += time.perf_counter() - t0
+
+    ck._launch = timed_launch
+    try:
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(seed)
+        for n in HOST_COST_BATCHES:
+            calls = []
+            for (H, W, cin, cout, k, s, p, stages), count in \
+                    sorted(regions.items()):
+                residual = any(st[0] == 'bin' for st in stages)
+                kinds = ('c', 'c', 't') if residual else ('c', 'c')
+                x, w, aux = _conv_inputs(gen, 'bfloat16', n, H, W, cin, cout,
+                                         k, s, p, False, kinds)
+                calls += count * [(x, w, aux, kinds, stages, (s, s), (p, p),
+                                   False)]
+            passes, in_c = [], []
+            with torch.no_grad():
+                for i in range(5 + HOST_COST_PASSES):
+                    c_time[0] = 0.0
+                    t0 = time.perf_counter()
+                    for args in calls:
+                        ck.fused_conv(*args)
+                    dt = time.perf_counter() - t0
+                    torch.cuda.synchronize()
+                    if i >= 5:
+                        passes.append(dt)
+                        in_c.append(c_time[0])
+            host = float(np.median(passes))
+            print('host cost: batch %d, fused_conv wrapper over a request\'s '
+                  '%d launches: %.4f ms host (median of %d passes; min %.4f, '
+                  'max %.4f), %.2f us a launch, of which %.2f us in the C '
+                  'entry point' % (n, len(calls), 1e3 * host, len(passes),
+                             1e3 * min(passes), 1e3 * max(passes),
+                             1e6 * host / len(calls),
+                             1e6 * float(np.median(in_c)) / len(calls)),
+                  flush=True)
+            del calls
+    finally:
+        ck._launch = launch
+
+    main, startup, prob = _resnet_program(seed, is_test=True)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    for n in HOST_COST_BATCHES:
+        feed = _image_feed(n, seed)
+        times = []
+        for i in range(5 + HOST_COST_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[prob], scope=scope)
+            if i >= 5:
+                times.append(time.perf_counter() - t0)
+        check(out.shape == (n, 1000) and np.isfinite(out).all(),
+              'ResNet-50 probabilities %s' % (out.shape,))
+        med = float(np.median(times))
+        print('host cost: batch %d, ResNet-50 request: %.4f ms (median of %d;'
+              ' min %.4f, max %.4f), %.1f images/s' % (
+                  n, 1e3 * med, len(times), 1e3 * min(times),
+                  1e3 * max(times), n / med), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--sweep-conv', action='store_true',
+                    help='time the wgmma conv at every tile width and K '
+                    'split at the ResNet-50 shapes, then stop')
+    ap.add_argument('--host-cost', action='store_true',
+                    help="time the fused conv wrapper's host cost and "
+                    'served ResNet-50 requests at batch 1 and 8, then stop')
+    ap.add_argument('--root', default=ROOT,
+                    help='with --host-cost: the checkout whose package is '
+                    'measured (default: this one)')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    root = os.path.abspath(args.root if args.host_cost else ROOT)
+    sys.path.insert(0, root)
     card = phase_device()
     phase_build()
+    if args.sweep_conv:
+        sweep_conv_plans(card)
+        return 0
+    if args.host_cost:
+        host_cost(card, root, args.seed)
+        return 0
     phase_sass()
     kres = phase_kernels(args.seed)
     bres = phase_bwd_kernels(args.seed)

@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// TMA tensor maps and loads completed on mbarriers, wgmma shared-memory
-// descriptors for 128-byte-swizzled tiles, the wgmma instructions (bf16 in,
-// f32 accumulate; A from shared memory or from registers) with their
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels and
+// the fused conv: TMA tensor maps (tiled and im2col) and loads completed on
+// mbarriers, TMA stores, wgmma shared-memory descriptors for
+// 128-byte-swizzled tiles, the wgmma instructions (bf16 in, f32
+// accumulate; A from shared memory or from registers) with their
 // fence / commit / wait, setmaxnreg, named barriers, and the acquire /
-// release counter that orders the flash backward's dq adds.
+// release counter that orders the flash backward's dq adds and the fused
+// conv's split-K adds.
 // ops/_build.py lists this header with common.cuh in HEADERS.
 //
 // Conventions. Every swizzled tile is a stack of 64-column "sub-tiles"
@@ -33,26 +35,93 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled lives in the driver library; fetched through the
+// The tensor-map encoders live in the driver library; fetched through the
 // runtime so the kernel libraries need no -lcuda.
-inline EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
+inline void* driver_entry_point(const char* name) {
+  void* p = nullptr;
 #if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &res) != cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      return nullptr;
+  cudaDriverEntryPointQueryResult res;
+  if (cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault,
+                                       &res) != cudaSuccess ||
+      res != cudaDriverEntryPointSuccess)
+    return nullptr;
 #else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) != cudaSuccess)
-      return nullptr;
+  if (cudaGetDriverEntryPoint(name, &p, cudaEnableDefault) != cudaSuccess)
+    return nullptr;
 #endif
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
+  return p;
+}
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = reinterpret_cast<EncodeTiledFn>(
+      driver_entry_point("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+typedef CUresult (*EncodeIm2colFn)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const int*, const int*,
+                                   cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                   CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeIm2colFn encode_im2col_fn() {
+  static EncodeIm2colFn fn = reinterpret_cast<EncodeIm2colFn>(
+      driver_entry_point("cuTensorMapEncodeIm2col"));
+  return fn;
+}
+
+// A row-major [rows, cols] bf16 matrix (row stride `ld` elements, a
+// multiple of 8) as a 2-d map whose box is `box_rows` rows of one
+// 64-column sub-tile (128-byte swizzle): coordinates {col0, row0}. Rows
+// at or past `rows` and columns at or past `cols` are zero-filled on a
+// load and dropped on a store.
+inline cudaError_t encode_2d(CUtensorMap* map, const void* ptr, long rows,
+                             long cols, long ld, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// An NHWC bf16 image batch [N, H, W, C] (C a multiple of 64) as a 4-d
+// im2col map {C, W, H, N}: a load fetches `pixels` pixels of 64 channels
+// (one 128-byte-swizzled sub-tile of `pixels` rows), walking W, then H,
+// then N from its start coordinate {c0, w, h, n} with the element strides
+// inside the bounding box [lower, size - 1 + upper] of W and of H (lower,
+// upper and the strides given {w, h}), each pixel read at the load's
+// offsets {kw, kh} from its position; reads outside the image give 0.
+inline cudaError_t encode_nhwc_im2col(CUtensorMap* map, const void* ptr,
+                                      int N, int H, int W, int C,
+                                      const int (&lower)[2],
+                                      const int (&upper)[2],
+                                      const int (&stride)[2], int pixels) {
+  const EncodeIm2colFn fn = encode_im2col_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t elem[4] = {1, (cuuint32_t)stride[0], (cuuint32_t)stride[1],
+                              1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, lower, upper,
+                        64, (cuuint32_t)pixels, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // A [B, T, H, D] bf16 tensor (contiguous, so a row of T has a stride of
@@ -152,6 +221,46 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 2-d tensor map into shared memory, completed on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// one im2col box of a 4-d map (encode_nhwc_im2col) from start coordinate
+// {c, w, h, n}, each pixel read at offsets {ow, oh} from its position
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c,
+                                                   int w, int h, int n,
+                                                   int ow, int oh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(w), "r"(h), "r"(n), "h"((unsigned short)ow),
+      "h"((unsigned short)oh)
+      : "memory");
+}
+
+// one box of shared memory out to a 2-d tensor map (a bulk group: commit,
+// then wait for its reads before the shared memory is reused)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -376,6 +485,53 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                           const uint32_t (&a)[4],
@@ -435,7 +591,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
   if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, da, db, scale_d);
   else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
-  else wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
+  else wgmma_ss_n256<TA, TB>(d, da, db, scale_d);
 }
 
 template <int N, int TB>

@@ -30,7 +30,10 @@ Ported so far:
   residual and broadcast operands) applied on chip before one
   store, in ``csrc/fused_conv.cu``; differentiable through its plain
   version (``_FusedConv``), as ``_fconv_bwd`` differentiates
-  ``_fconv_reference``.
+  ``_fconv_reference``. ``fused_conv_plan`` picks the kernel's variant
+  and tiling (bf16 with Cin % 64 == 0: wgmma with TMA loads, K split
+  across blocks and added in a fixed order where the tiles fall short of
+  a wave of the card's SMs).
 - ``fused_conv(..., emit_stats=True)``: the same kernel's stats form
   (``_fconv_kernel`` with ``emit_stats``), the conv and the per-channel
   sum and sum of squares of its f32 output for train-mode batch norm;
@@ -43,6 +46,7 @@ Ported so far:
   backward is the vjp of the plain version from the saved inputs, as
   ``_lstm_cell_bwd`` is.
 """
+import collections
 import ctypes
 import functools
 import math
@@ -60,9 +64,16 @@ LAUNCHES = {'flash_attn_fwd': 0, 'flash_attn_bwd_dkvdq': 0,
             'fused_conv': 0, 'fused_conv_stats': 0, 'lstm_cell': 0}
 
 
+# the fused conv's launches (both forms) by variant (FUSED_CONV_VARIANTS),
+# bumped with LAUNCHES
+FUSED_CONV_VARIANT_LAUNCHES = {'fma': 0, 'mma_sync': 0, 'wgmma': 0,
+                               'stem': 0}
+
+
 def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FUSED_CONV_VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---- flash attention ------------------------------------------------------------
@@ -533,6 +544,134 @@ def fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
     return (y,) + moments if emit_stats else y
 
 
+# the kernel's variants (csrc/fused_conv.cu Variant, in order): scalar FMA
+# (f32, and every depthwise conv), mma.sync with cp.async loads (other
+# bf16, and scalar loads where Cin % 8 != 0), wgmma with TMA loads (bf16,
+# Cin % 64 == 0, Cout % 8 == 0) and the stem (bf16 with Cin % 8 != 0, the
+# 7x7 stem's Cin = 3: its input rows staged in shared memory, mma.sync)
+FUSED_CONV_VARIANTS = ('fma', 'mma_sync', 'wgmma', 'stem')
+# the wgmma kernel: output rows a tile (a K chunk is 64 channels of one
+# tap), most taps (KH * KW); shared memory a block may use
+FUSED_CONV_TILE_ROWS = 128
+FUSED_CONV_MAX_TAPS = 64
+FUSED_CONV_SMEM = 232448
+# K splits: one for every this many chunks, at most this many splits
+# (every split but the last adds its partial tile in its turn, one turn
+# after another: a few microseconds each on the H100)
+_SPLIT_CHUNKS = 12
+_MAX_SPLITS = 4
+
+FusedConvPlan = collections.namedtuple('FusedConvPlan', 'variant bn splits')
+
+
+def _stem_smem_bytes(W, Cin, Cout, KH, KW, Wo, pw):
+    """The stem kernel's shared memory (csrc/fused_conv.cu stem_layout),
+    or None where it does not take the operands: the A and B tiles over
+    K rounded up to 16, the input rows the 128 output pixels of a block
+    span, each between zero columns that keep 16-byte stores aligned."""
+    if (W * Cin) % 8 or Cout % 8:
+        return None
+    kp = -(-KH * KW * Cin // 16) * 16
+    lda = kp + 8
+    rows_out = -(-127 // Wo) + 1
+    q = 8
+    while q > 1 and (q // 2) * Cin % 8 == 0:
+        q //= 2
+    pl = -(-pw // q) * q
+    pitch = (2 * pl + W) * Cin
+    nbytes = (max(128 * lda * 2, 128 * 68 * 4) + 64 * lda * 2 +
+              rows_out * KH * pitch * 2)
+    return nbytes if nbytes <= FUSED_CONV_SMEM else None
+
+
+def fused_conv_plan(dtype, N, H, W, Cin, Cout, KH, KW, strides, pads,
+                    depthwise, sms):
+    """The fused conv kernel's variant and tiling for these operands on a
+    card of ``sms`` SMs: ``FusedConvPlan(variant, bn, splits)``.
+
+    ``variant`` is one of FUSED_CONV_VARIANTS ('stem' where Cin % 8 != 0
+    and the stem kernel takes the shape, else 'mma_sync'). For
+    ``'wgmma'``, ``bn`` is the output tile's width: the widest of 256,
+    128 and 64 that Cout needs (one tile covers all of Cout up to 256, so
+    each input tile is read once) and that still gives half a wave of
+    tiles, else 64 (the small-M convs); ``splits`` the number of blocks
+    that share an output tile's K: one for every _SPLIT_CHUNKS chunks of
+    K, at most _MAX_SPLITS, and no more than fill a wave. Other variants:
+    (variant, 0, 1). The rule follows a sweep of (bn, splits) at
+    ResNet-50's region shapes at batch 1, 8 and 32 on an H100 (PERF.md,
+    PR 7). The kernel sizes its ring of K chunks from bn.
+    """
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("fused_conv kernel takes bfloat16 or float32, got "
+                        "%s" % dtype)
+    if dtype == torch.float32 or depthwise:
+        return FusedConvPlan('fma', 0, 1)
+    ho = (H + 2 * pads[0] - KH) // strides[0] + 1
+    wo = (W + 2 * pads[1] - KW) // strides[1] + 1
+    if Cin % 8 and _stem_smem_bytes(W, Cin, Cout, KH, KW, wo, pads[1]):
+        return FusedConvPlan('stem', 0, 1)
+    if Cin % 64 or Cout % 8 or KH * KW > FUSED_CONV_MAX_TAPS:
+        return FusedConvPlan('mma_sync', 0, 1)
+    m_tiles = -(-N * ho * wo // FUSED_CONV_TILE_ROWS)
+    widest = 64 if Cout <= 64 else 128 if Cout <= 128 else 256
+    bn = next((b for b in (256, 128) if b <= widest and
+               2 * m_tiles * -(-Cout // b) >= sms), 64)
+    tiles = m_tiles * -(-Cout // bn)
+    chunks = KH * KW * Cin // 64
+    splits = max(1, min(chunks // _SPLIT_CHUNKS, _MAX_SPLITS, sms // tiles))
+    return FusedConvPlan('wgmma', bn, splits)
+
+
+def fused_conv_workspace(plan, M, Cout):
+    """(f32 elements of the split-K workspace, int32 counters) for a
+    launch of ``plan`` with M output rows: one 128 x bn tile and one
+    counter per output tile where K is split, else (0, 0)."""
+    if plan.variant != 'wgmma' or plan.splits <= 1:
+        return 0, 0
+    tiles = -(-M // FUSED_CONV_TILE_ROWS) * -(-Cout // plan.bn)
+    return tiles * FUSED_CONV_TILE_ROWS * plan.bn, tiles
+
+
+def fused_conv_im2col(KH, KW, strides, pads):
+    """The wgmma kernel's TMA im2col parameters for a conv of these taps,
+    strides and pads, each {w, h}: (lower, upper, element_strides, taps).
+    ``lower`` and ``upper`` bound the positions of an output pixel's
+    (0, 0) tap to [lower, size - 1 + upper] along W and H; the load
+    starts at output pixel (ho, wo)'s position lower + (wo, ho) *
+    ``element_strides`` (the conv's strides), walks the box with those
+    strides and reads tap t of each pixel at offsets ``taps[t]``, taps in
+    K order. The kernel takes all four as they are."""
+    (sh, sw), (ph, pw) = strides, pads
+    lower = (-pw, -ph)
+    upper = (pw - (KW - 1), ph - (KH - 1))
+    taps = tuple((kw, kh) for kh in range(KH) for kw in range(KW))
+    return lower, upper, (sw, sh), taps
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# split-K counters: per (device, stream), zeroed when made and put back to
+# 0 by each output tile's last turn, so the launches on one stream share
+# them in order
+_SPLIT_COUNTERS = {}
+
+
+def _split_k_counters(device, n):
+    """At least n int32 counters at 0 on ``device``, for a launch on its
+    current stream. A graph capture that finds none large enough records
+    a zeroed buffer of its own."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _SPLIT_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        if not torch.cuda.is_current_stream_capturing():
+            _SPLIT_COUNTERS[key] = buf
+    return buf
+
+
 class _FusedConvArgs(ctypes.Structure):
     """``FusedConvArgs`` of csrc/fused_conv.cu, field for field."""
     _fields_ = (
@@ -549,7 +688,12 @@ class _FusedConvArgs(ctypes.Structure):
         [(f, ctypes.c_int) for f in (
             'n_stages', 'N', 'H', 'W', 'Cin', 'Cout', 'KH', 'KW', 'sh', 'sw',
             'ph', 'pw', 'Ho', 'Wo', 'depthwise', 'is_bf16')] +
-        [('stats', ctypes.c_void_p)])
+        [('stats', ctypes.c_void_p)] +
+        [(f, ctypes.c_int) for f in ('variant', 'bn', 'splits', 'sms')] +
+        [(f, ctypes.c_int * 2) for f in (
+            'im2col_lower', 'im2col_upper', 'im2col_stride')] +
+        [('im2col_taps', (ctypes.c_int * 2) * FUSED_CONV_MAX_TAPS),
+         ('workspace', ctypes.c_void_p), ('counters', ctypes.c_void_p)])
 
 
 def encode_epilogue(args, kinds, stages):
@@ -593,10 +737,14 @@ def encode_epilogue(args, kinds, stages):
     args.n_stages = len(stages)
 
 
-@functools.lru_cache(maxsize=None)
-def _encoded_epilogue(kinds, stages):
-    """The stage list and aux kinds as ``_FusedConvArgs`` bytes, encoded
-    once per distinct epilogue."""
+@functools.lru_cache(maxsize=1024)
+def _encoded_launch(kinds, stages, dims, strides, pads, depthwise, dtype,
+                    sms, plan):
+    """A launch's arguments but its pointers, as ``_FusedConvArgs`` bytes,
+    with its plan (``plan``, or :func:`fused_conv_plan`'s where None), the
+    split-K buffers' sizes (:func:`fused_conv_workspace`) and the launch's
+    description for errors: encoded once per distinct shape and epilogue.
+    ``dims``: (N, H, W, Cin, Cout, KH, KW, Ho, Wo)."""
     args = _FusedConvArgs()
     encode_epilogue(args, kinds, stages)
     for i, kind in enumerate(kinds):
@@ -604,7 +752,28 @@ def _encoded_epilogue(kinds, stages):
             raise ValueError("fused_conv: unknown aux kind %r" % (kind,))
         args.aux_kind[i] = _AUX_KINDS.index(kind)
     args.n_aux = len(kinds)
-    return bytes(args)
+    N, H, W, cin, cout, kh, kw, ho, wo = dims
+    (args.N, args.H, args.W, args.Cin, args.Cout, args.KH, args.KW,
+     args.Ho, args.Wo) = dims
+    args.sh, args.sw = strides
+    args.ph, args.pw = pads
+    args.depthwise = int(depthwise)
+    args.is_bf16 = int(dtype == torch.bfloat16)
+    if plan is None:
+        plan = fused_conv_plan(dtype, N, H, W, cin, cout, kh, kw, strides,
+                               pads, depthwise, sms)
+    args.variant = FUSED_CONV_VARIANTS.index(plan.variant)
+    args.bn, args.splits, args.sms = plan.bn, plan.splits, sms
+    lower, upper, stride, taps = fused_conv_im2col(kh, kw, strides, pads)
+    args.im2col_lower[:], args.im2col_upper[:] = lower, upper
+    args.im2col_stride[:] = stride
+    for t, offsets in enumerate(taps[:FUSED_CONV_MAX_TAPS]):
+        args.im2col_taps[t][:] = offsets
+    what = ('N=%d H=%d W=%d Cin=%d Cout=%d K=%dx%d stride=%s pad=%s %s%s, '
+            '%s' % (N, H, W, cin, cout, kh, kw, strides, pads, dtype,
+                    ' depthwise' if depthwise else '', plan))
+    return (bytes(args), plan, fused_conv_workspace(plan, N * ho * wo, cout),
+            what)
 
 
 def _kernel_aux(x, aux, kinds, n, ho, wo, cout):
@@ -626,10 +795,12 @@ def _kernel_aux(x, aux, kinds, n, ho, wo, cout):
 
 
 def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
-                       emit_stats=False):
+                       emit_stats=False, plan=None):
     """Launch the kernel: y, or with ``emit_stats`` (y, slab), the slab
     [2, ceil(M / FUSED_CONV_STAT_ROWS), Cout] f32 of per-slot sums and
-    sums of squares of the conv output (M = N * Ho * Wo)."""
+    sums of squares of the conv output (M = N * Ho * Wo). ``plan`` (a
+    FusedConvPlan) overrides :func:`fused_conv_plan`'s; the kernel
+    refuses one that does not take these operands."""
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("fused_conv expects a contiguous NHWC x, got shape "
                          "%s" % (tuple(x.shape),))
@@ -658,20 +829,26 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
     for name, t in (('x', x), ('w', w)):
         if t.data_ptr() % 16:
             raise ValueError("fused_conv: %s must be 16-byte aligned" % name)
-    args = _FusedConvArgs.from_buffer_copy(
-        _encoded_epilogue(tuple(kinds), tuple(stages)))
+    sms = _sm_count(x.device.index if x.device.index is not None
+                    else torch.cuda.current_device())
+    encoded, plan, (ws_elems, n_counters), what = _encoded_launch(
+        tuple(kinds), tuple(stages), (N, H, W, cin, cout, kh, kw, ho, wo),
+        tuple(strides), tuple(pads), bool(depthwise), x.dtype, sms, plan)
+    args = _FusedConvArgs.from_buffer_copy(encoded)
     aux = _kernel_aux(x, aux, kinds, N, ho, wo, cout)
     out = torch.empty((N, ho, wo, cout), dtype=x.dtype, device=x.device)
     args.x, args.w, args.out = x.data_ptr(), w.data_ptr(), out.data_ptr()
     for i, a in enumerate(aux):
         args.aux[i] = a.data_ptr()
         args.aux_bf16[i] = int(a.dtype == torch.bfloat16)
-    (args.N, args.H, args.W, args.Cin, args.Cout, args.KH, args.KW,
-     args.Ho, args.Wo) = N, H, W, cin, cout, kh, kw, ho, wo
-    args.sh, args.sw = strides
-    args.ph, args.pw = pads
-    args.depthwise = int(bool(depthwise))
-    args.is_bf16 = int(x.dtype == torch.bfloat16)
+    workspace = None
+    if n_counters:
+        # the first split's turn stores its partial, so the workspace needs
+        # no zeroing
+        workspace = torch.empty(ws_elems, dtype=torch.float32,
+                                device=x.device)
+        args.workspace = workspace.data_ptr()
+        args.counters = _split_k_counters(x.device, n_counters).data_ptr()
     slab = None
     if emit_stats:
         slots = -(-N * ho * wo // FUSED_CONV_STAT_ROWS)
@@ -679,10 +856,8 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
                            device=x.device)
         args.stats = slab.data_ptr()
     _launch('fused_conv', 'fused_conv_stats' if emit_stats else 'fused_conv',
-            (ctypes.addressof(args),), x.device,
-            'N=%d H=%d W=%d Cin=%d Cout=%d K=%dx%d stride=%s pad=%s %s%s'
-            % (N, H, W, cin, cout, kh, kw, tuple(strides), tuple(pads),
-               x.dtype, ' depthwise' if depthwise else ''))
+            (ctypes.addressof(args),), x.device, what)
+    FUSED_CONV_VARIANT_LAUNCHES[plan.variant] += 1
     return out if slab is None else (out, slab)
 
 

@@ -557,6 +557,137 @@ def test_resnet50_trains_on_the_stats_form(cuda):
         assert not torch.equal(scope.raw(n), before[n]), n
 
 
+# ---- the wgmma conv kernel at ResNet-50's shapes ---------------------------------
+# ResNet-50's distinct region shapes (H, W, Cin, Cout, K, stride, pad)
+# (tests/test_torch_conv_plan.py holds them against the program)
+RESNET50_SHAPES = [
+    (224, 224, 3, 64, 7, 2, 3), (56, 56, 64, 64, 1, 1, 0),
+    (56, 56, 64, 64, 3, 1, 1), (56, 56, 64, 256, 1, 1, 0),
+    (56, 56, 256, 64, 1, 1, 0), (56, 56, 256, 128, 1, 2, 0),
+    (56, 56, 256, 512, 1, 2, 0), (28, 28, 128, 128, 3, 1, 1),
+    (28, 28, 128, 512, 1, 1, 0), (28, 28, 512, 128, 1, 1, 0),
+    (28, 28, 512, 256, 1, 2, 0), (28, 28, 512, 1024, 1, 2, 0),
+    (14, 14, 256, 256, 3, 1, 1), (14, 14, 256, 1024, 1, 1, 0),
+    (14, 14, 1024, 256, 1, 1, 0), (14, 14, 1024, 512, 1, 2, 0),
+    (14, 14, 1024, 2048, 1, 2, 0), (7, 7, 512, 512, 3, 1, 1),
+    (7, 7, 512, 2048, 1, 1, 0), (7, 7, 2048, 512, 1, 1, 0)]
+# a block's last conv: the folded batch norm, the residual, relu
+RESIDUAL = (('affine', 0, 1), ('bin', 'elementwise_add', 2, False),
+            ('act', 'relu'))
+
+
+def _planned(x, w, strides, pads, splits):
+    """The plan the wrapper would pick, or it with ``splits`` forced."""
+    N, H, W, cin = x.shape
+    plan = ck.fused_conv_plan(x.dtype, N, H, W, cin, w.shape[0], w.shape[1],
+                              w.shape[2], strides, pads, False,
+                              ck._sm_count(x.device.index or 0))
+    return plan if splits is None else plan._replace(splits=splits)
+
+
+@pytest.mark.parametrize('splits', [None, 1], ids=['plan', 'splits1'])
+@pytest.mark.parametrize('N', [1, 32])
+@pytest.mark.parametrize('shape', RESNET50_SHAPES,
+                         ids=['%dx%d_%d_%d_k%ds%d' % s[:6]
+                              for s in RESNET50_SHAPES])
+def test_fused_conv_at_resnet50_shapes(cuda, shape, N, splits):
+    """Both forms at every region shape, through the plan's K splits and
+    through one: the inference form with the residual epilogue per
+    element (CONV_TOL), the stats form's y per element and its moments
+    per channel (STATS_REL); each twice, bit for bit."""
+    H, W, cin, cout, k, s, p = shape
+    x, w, aux, kinds, _, strides, pads, _ = _conv_case(
+        cuda, torch.bfloat16, N, H, W, cin, cout, k, s, p, False, seed=N + k,
+        extra_aux=('t',))
+    plan = _planned(x, w, strides, pads, splits)
+    assert plan.variant == ('stem' if cin == 3 else 'wgmma')
+    args = (x, w, aux, kinds, RESIDUAL, strides, pads, False)
+    got = ck._fused_conv_launch(*args, plan=plan)
+    again = ck._fused_conv_launch(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _err_ratio(got, ck.fused_conv_reference(*args)) <= 1
+    y, slab = ck._fused_conv_launch(x, w, (), (), (), strides, pads, False,
+                                    emit_stats=True, plan=plan)
+    y2, slab2 = ck._fused_conv_launch(x, w, (), (), (), strides, pads, False,
+                                      emit_stats=True, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(slab, slab2)
+    assert max(_stats_ratios(x, w, strides, pads, False, y,
+                             slab[0].sum(0), slab[1].sum(0))) <= 1
+
+
+@pytest.mark.parametrize('case', [
+    # (N, H, W, Cin, Cout, K, stride, pad): Cout 64 (one 64-wide tile);
+    # M < 64 (one consumer's rows); M < 64 with K split; a ragged tile
+    (4, 14, 14, 64, 64, 3, 1, 1), (1, 5, 7, 64, 64, 3, 1, 1),
+    (1, 5, 7, 512, 64, 3, 1, 1), (3, 9, 11, 128, 72, 3, 2, 1)])
+def test_fused_conv_small_tiles(cuda, case):
+    N, H, W, cin, cout, k, s, p = case
+    for splits in (None, 1, 2):
+        x, w, aux, kinds, _, strides, pads, _ = _conv_case(
+            cuda, torch.bfloat16, N, H, W, cin, cout, k, s, p, False, seed=3,
+            extra_aux=('t',))
+        plan = _planned(x, w, strides, pads, splits)
+        assert plan.variant == 'wgmma'
+        args = (x, w, aux, kinds, RESIDUAL, strides, pads, False)
+        got = ck._fused_conv_launch(*args, plan=plan)
+        torch.cuda.synchronize()
+        assert _err_ratio(got, ck.fused_conv_reference(*args)) <= 1
+        y, slab = ck._fused_conv_launch(x, w, (), (), (), strides, pads,
+                                        False, emit_stats=True, plan=plan)
+        torch.cuda.synchronize()
+        assert max(_stats_ratios(x, w, strides, pads, False, y,
+                                 slab[0].sum(0), slab[1].sum(0))) <= 1
+
+
+def test_fused_conv_refuses_a_plan_it_cannot_take(cuda):
+    """A wgmma plan for operands the kernel does not take raises; no
+    fallback."""
+    x, w, aux, kinds, stages, strides, pads, _ = _conv_case(
+        cuda, torch.bfloat16, 2, 8, 8, 32, 64, 3, 1, 1, False, seed=1)
+    bad = [ck.FusedConvPlan('wgmma', 64, 1),      # Cin 32
+           ck.FusedConvPlan('fma', 0, 1)]         # bf16, not depthwise
+    for plan in bad:
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            ck._fused_conv_launch(x, w, aux, kinds, stages, strides, pads,
+                                  False, plan=plan)
+    x, w, aux, kinds, stages, strides, pads, _ = _conv_case(
+        cuda, torch.bfloat16, 2, 8, 8, 64, 64, 3, 1, 1, False, seed=1)
+    for plan in (ck.FusedConvPlan('wgmma', 96, 1),     # no such width
+                 ck.FusedConvPlan('wgmma', 64, 0),      # no split
+                 ck.FusedConvPlan('wgmma', 64, 10)):    # 9 chunks, 10 splits
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            ck._fused_conv_launch(x, w, aux, kinds, stages, strides, pads,
+                                  False, plan=plan)
+    # 81 taps: more than the arguments carry
+    x, w, aux, kinds, stages, strides, pads, _ = _conv_case(
+        cuda, torch.bfloat16, 1, 12, 12, 64, 64, 9, 1, 4, False, seed=1)
+    assert _planned(x, w, strides, pads, None).variant == 'mma_sync'
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        ck._fused_conv_launch(x, w, aux, kinds, stages, strides, pads, False,
+                              plan=ck.FusedConvPlan('wgmma', 64, 1))
+
+
+def test_fused_conv_split_k_counters_return_to_zero(cuda):
+    """Each output tile's last turn puts its counter back to 0, so the
+    next launch on the stream finds them all at 0."""
+    x, w, aux, kinds, _, strides, pads, _ = _conv_case(
+        cuda, torch.bfloat16, 1, 7, 7, 512, 512, 3, 1, 1, False, seed=5)
+    plan = _planned(x, w, strides, pads, None)
+    assert plan.splits > 1
+    stages = (('affine', 0, 1), ('act', 'relu'))
+    first = ck._fused_conv_launch(x, w, aux, kinds, stages, strides, pads,
+                                  False)
+    for _ in range(3):
+        assert torch.equal(ck._fused_conv_launch(
+            x, w, aux, kinds, stages, strides, pads, False), first)
+    torch.cuda.synchronize()
+    counters = ck._SPLIT_COUNTERS[(x.device, torch.cuda.current_stream(
+        x.device).cuda_stream)]
+    assert not counters.any()
+
+
 # ---- the fused LSTM cell ------------------------------------------------------------
 # kernel vs the plain version on the same inputs, per element: |err| <= rel
 # * |plain| + abs * rms(plain), (rel, abs) per dtype of h. f32: the same f32
