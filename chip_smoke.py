@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --sweep-conv   # the fused conv's plan sweep
-    python3 chip_smoke.py --host-cost [--root DIR]   # its host cost
+    python3 chip_smoke.py --host-cost [--root DIR]   # the conv's and the
+                                          # LSTM cell's host cost
 
 from the root of a checkout. Phases, each of which raises (and so exits
 non-zero) on failure:
@@ -11,12 +12,13 @@ non-zero) on failure:
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for float32 matrix products and convolutions;
 2. build: compiles every CUDA kernel of the port with nvcc, all at once,
-   into build/torch_kernels/; then, from the built flash and fused conv
-   libraries, counts the wgmma (HGMMA) and TMA load (UTMALDG)
+   into build/torch_kernels/; then, from the built flash, fused conv and
+   LSTM cell libraries, counts the wgmma (HGMMA) and TMA load (UTMALDG)
    instructions of each kernel in its SASS (cuobjdump) and fails if the
-   bf16 flash forward, the bf16 merged backward or the wgmma conv (at
-   each tile width) has none of either or ptxas ignored setmaxnreg, and
-   prints ptxas's registers and spills for those kernels;
+   bf16 flash forward, the bf16 merged backward, the wgmma conv (at each
+   tile width) or the LSTM cell (f32 and bf16, at each batch tile) has
+   none of either or ptxas ignored setmaxnreg, and prints ptxas's
+   registers and spills for those kernels;
 3. kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes and times kernel, plain version,
    the PyTorch library call for the same function (a yardstick only) and
@@ -95,13 +97,17 @@ non-zero) on failure:
    AMP, warm-up then timed steps: exact stats-form launches and
    'groups' replays (its grouped 3x3 convs) a step, ms per step,
    images/s;
-13. LSTM kernels: the fused LSTM cell (csrc/lstm_cell.cu) against its
-   plain version at the sequence path's shape (B 256, H 512, f32), at B
-   1, at (64, 256), at H 1000, and at (256, 512) with bf16 r_prev and w,
-   per element; the real kernel fed c_prev zeroed, or xg with its input
-   and forget chunks swapped, must fail that check by far; kernel, plain
-   version and a matmul with the gate math (a yardstick) timed as CUDA
-   graph replays, and the bound;
+13. LSTM kernels: the fused LSTM cell (csrc/lstm_cell.cu: wgmma, TMA;
+   f32 as three TF32 products) against its plain version at the sequence
+   path's shape (B 256, H 512, f32), the served batches 1 and 32, (64,
+   256), H 1000 and H 37, and with bf16 r_prev and w at B 256, 1 and 32,
+   per element; f32, at each shape on LSTM_WITNESS_DRAWS draws of the
+   inputs: the kernel's error against the plain cell in f64 at most 2x
+   the plain f32 version's, and so the product's alone (read through
+   saturated gates); two calls give the same bits; the real kernel fed c_prev zeroed, or xg with its input and
+   forget chunks swapped, must fail the per-element check by far; kernel,
+   plain version and a matmul with the gate math (a yardstick) timed as
+   CUDA graph replays, and the bound of the kernel's route;
 14. LSTM training: stacked_dynamic_lstm at full width (dict 10000, emb
    and hid 512, 3 layers) with use_peepholes=False, Momentum(0.01, 0.9)
    .minimize, AMP, batch 256 of 80 words (96 padded steps), one fixed
@@ -140,7 +146,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 without
 # tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12, 'tf32': 495e12}
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=6, d_ff=4096,
@@ -256,14 +262,35 @@ MT = dict(dict_size=8000, emb_dim=256, hid_dim=512)
 MT_BATCH, MT_LEN, MT_WARMUP, MT_STEPS = 64, 24, 1, 3
 # the LSTM cell kernel vs its plain version on the same inputs, per
 # element: |err| <= rel * |plain| + abs * rms(plain), (rel, abs) by the
-# dtype of the output. f32: the same f32 sums in another order, then the
+# dtype of the output. f32: the product as three TF32 products (each
+# within ~2^-22 of the f32 one) with f32 sums in another order, then the
 # same gate math; bf16 (h written in bf16): one bf16 rounding of h that
-# may differ by one step. Read on the H100 (PERF.md, Findings): f32 at
-# most 0.40 of the limit (H 1000), bf16 0.56. Two wrong-kernel controls
+# may differ by one step. Read on the H100 (PERF.md, Findings): f32
+# at most 0.17 of the limit, bf16 0.35. Two wrong-kernel controls
 # (c_prev zeroed, xg's input and forget chunks swapped) read 1.3e5-3.9e5
 # times the limit and must read past LSTM_CONTROL_MARGIN.
 LSTM_CELL_TOL = {'float32': (1e-5, 1e-5), 'bfloat16': (2 ** -7, 2 ** -8)}
 LSTM_CONTROL_MARGIN = 100
+# f32: the kernel's three TF32 products drop w_lo r_lo (~2^-22 of each
+# product) and its tensor cores truncate their adds within a chunk of 32;
+# at every f32 shape, on LSTM_WITNESS_DRAWS draws of the inputs, its max
+# |err| against the plain cell in f64 may be at most this many times the
+# plain f32 version's, and so may its product's alone, read through
+# saturated gates (_product_probe) against the product in f64
+LSTM_F64_WITNESS = 2.0
+LSTM_WITNESS_DRAWS = 3
+# the product read through the gates: w scaled by this power of 2 (exact)
+# keeps |g| under ~1e-4, where f32 tanh returns its argument
+LSTM_PROBE_SCALE = 2.0 ** -16
+# phase 13's (B, H, dtype of r_prev and w): the sequence path's shape, the
+# served batches 1 and 32, a narrower layer, H 1000 (not a multiple of the
+# 16-unit tile), H 37 (padded to 40 for the tensor maps), and bf16 at the
+# training shape and the served batches
+LSTM_KERNEL_SHAPES = ((256, 512, 'float32'), (1, 512, 'float32'),
+                      (32, 512, 'float32'), (64, 256, 'float32'),
+                      (7, 1000, 'float32'), (3, 37, 'float32'),
+                      (256, 512, 'bfloat16'), (1, 512, 'bfloat16'),
+                      (32, 512, 'bfloat16'))
 # the loss and every parameter gradient of one batch-8 step on ragged
 # lengths, kernel vs the plain cell (relative L2). With AMP off both run
 # in f32 and differ in the order of their sums: read on the H100 (PERF.md,
@@ -275,14 +302,22 @@ LSTM_CONTROL_MARGIN = 100
 # controls read 0.96 and 0.11 in both.
 LSTM_GRAD_F32 = 1e-5
 LSTM_GRAD_WITNESS = 2.0
-# served outputs, kernel vs the plain cell (AMP): the probabilities' max
-# |diff| and the pooled last hidden state's max |diff| / max |state|, each
-# at most LSTM_PROB_WITNESS times the witness's and never held below its
-# floor. Read on the H100 (PERF.md, Findings): the kernel 3.05e-5 and
-# 0.00202, the witness 6.1e-5 and 0.00202 (bf16 rounding in the fc
-# products); the controls 0.00427 / 0.364 (c_prev zeroed) and 1.22e-4 /
-# 0.0144 (input and forget swapped: the two-class output at random
-# weights leans little on the LSTM, the pooled state catches it)
+# served outputs, kernel vs the plain cell (AMP), over LSTM_PROBES probes
+# of other words: the probabilities' max |diff| and the pooled last
+# hidden state's max |diff| / max |state|, each at most LSTM_PROB_WITNESS
+# times the witness's (the plain cell in f64) and never held below its
+# floor. Under AMP the two logits are bf16, so any change of the cell's
+# f32 rounding moves a probability only in steps of p (1 - p) times one
+# bf16 step of a logit (3.05e-5 at the logits read): one probe reads 0,
+# 1 or 2 such steps for either side. Read on the H100 with one probe
+# (PERF.md, Findings): the kernel 3.05e-5 or 6.1e-5 and the witness
+# 6.1e-5 in 9 runs, the witness 0 in 2 (where the kernel's one step
+# failed the floor), so the limit takes the largest witness over several
+# probes; the pooled state 0.0020 for both; the controls 0.00427 / 0.364
+# (c_prev zeroed) and 1.22e-4 / 0.0144 (input and forget swapped: the
+# two-class output at random weights leans little on the LSTM, the pooled
+# state catches it)
+LSTM_PROBES = 4
 LSTM_PROB_WITNESS, LSTM_PROB_FLOOR = 2.0, (1e-5, 1e-6)
 
 
@@ -368,16 +403,19 @@ def phase_build():
 
 # the redesigned kernels: library -> (kernel, the number of its template
 # instances, setmaxnreg's registers for a consumer and for a producer
-# thread); each instance must contain wgmma (HGMMA) and TMA loads
-# (UTMALDG): the flash kernels at D 64 and 128, the fused conv at tile
-# widths 64, 128 and 256
+# thread); each instance must contain wgmma
+# (HGMMA) and TMA loads (UTMALDG): the flash kernels at D 64 and 128, the
+# fused conv at tile widths 64, 128 and 256, the LSTM cell's f32 and bf16
+# kernels at 8, 16, 32 and 64 batch rows a block
 SASS_KERNELS = {'flash_attn_fwd': ('flash_fwd_wgmma_kernel', 2, 240, 24),
                 'flash_attn_bwd': ('flash_bwd_wgmma_kernel', 2, 240, 24),
-                'fused_conv': ('conv_wgmma_kernel', 3, 232, 40)}
+                'fused_conv': ('conv_wgmma_kernel', 3, 232, 40),
+                'lstm_cell': ('lstm_cell_', 8, 232, 40)}
 
 
 def _kernel_label(mangled):
-    m = re.search(r'((?:flash_(?:fwd|bwd)|conv)_\w+?_kernel)ILi(\d+)'
+    m = re.search(r'((?:flash_(?:fwd|bwd)|conv|lstm_cell)_\w+?_kernel)'
+                  r'ILi(\d+)'
                   r'(?:ELb([01]))?', mangled)
     if not m:
         return mangled
@@ -424,9 +462,10 @@ def ptxas_usage(log):
 
 def phase_sass():
     """The redesigned kernels run on the tensor cores and TMA: count HGMMA
-    and UTMALDG in each kernel of the built flash and fused conv libraries,
-    fail if an instance of the bf16 flash forward, merged backward (wgmma
-    variant, D 64 and 128) or wgmma conv (tile widths 64, 128, 256) has
+    and UTMALDG in each kernel of the built flash, fused conv and LSTM cell
+    libraries, fail if an instance of the bf16 flash forward, merged
+    backward (wgmma variant, D 64 and 128), wgmma conv (tile widths 64,
+    128, 256) or LSTM cell (f32 and bf16, 8 to 64 batch rows a block) has
     none of either; print ptxas's registers and spills for them."""
     from paddle_tpu_torch.ops import _build
     for lib, (kernel, instances, consumer, producer) in SASS_KERNELS.items():
@@ -2127,13 +2166,15 @@ def _lstm_feed(lens, seed):
 
 
 def lstm_bound(B, H, dot):
-    """The least time for one cell: 2*B*H*4H operations at the dtype's
-    peak (f32 without tensor cores, bf16 dense), or xg and c_prev (f32),
-    r_prev and w (dot), h (dot) and c (f32) moved once."""
+    """The least time for one cell on the kernel's route: f32 as three
+    TF32 products of 2*B*H*4H operations at the tensor cores' TF32 peak,
+    bf16 as one at the bf16 peak; or xg and c_prev (f32), r_prev and w
+    (dot), h (dot) and c (f32) moved once."""
     e = 2 if dot == 'bfloat16' else 4
-    flops = 2 * B * H * 4 * H
+    products, peak = (1, 'bfloat16') if dot == 'bfloat16' else (3, 'tf32')
+    flops = products * 2 * B * H * 4 * H
     nbytes = 4 * (B * 4 * H + 2 * B * H) + e * (2 * B * H + 4 * H * H)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dot], nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_FLOPS[peak], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes')
 
@@ -2184,36 +2225,89 @@ LSTM_CONTROLS = (('c_prev zeroed', _cell_zero_c),
                  ('input and forget chunks swapped', _cell_swap_if))
 
 
+def _product_probe(r, w):
+    """Inputs that make the cell return its recurrent product: xg 0 in the
+    candidate gate, +-100 in the others (input and output gates 1, forget
+    gate 0, exactly, in f32), c_prev 0, and per gate q a weight holding
+    gate q's slice of ``w`` (times LSTM_PROBE_SCALE) in the candidate
+    gate's columns, zeros elsewhere. Then c = tanh(g) = g, the product in
+    f32 as the cell sums it (tanh returns its argument at |g| < ~1e-4).
+    Returns (xg, c_prev, [w_q], [the product in f64, [B, H]]), q = 0..3."""
+    import torch
+    B, H = r.shape[0], w.shape[0]
+    xg = torch.zeros(B, 4 * H, device=w.device)
+    xg[:, H:2 * H], xg[:, 2 * H:3 * H], xg[:, 3 * H:] = 100, -100, 100
+    c0 = torch.zeros(B, H, device=w.device)
+    ws, exact = [], []
+    for q in range(4):
+        wq = torch.zeros_like(w)
+        wq[:, :H] = w[:, q * H:(q + 1) * H] * LSTM_PROBE_SCALE
+        ws.append(wq)
+        exact.append(r.double() @ wq[:, :H].double())
+    return xg, c0, ws, exact
+
+
+def _lstm_f64_witness(ops):
+    """(kernel, plain f32) max |err| against the plain cell in f64, and the
+    same for the product alone (:func:`_product_probe`): each the largest
+    over h and c, or over the four gates' slices."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    w_h, w_c = ck.lstm_cell_reference(*(t.double() for t in ops))
+
+    def cell_err(pair):
+        return max((a.double() - b).abs().max().item()
+                   for a, b in zip(pair, (w_h, w_c)))
+    xg, c0, ws, exact = _product_probe(ops[1], ops[3])
+    prod = [0.0, 0.0]
+    for wq, want in zip(ws, exact):
+        for i, cell in enumerate((ck.fused_lstm_cell,
+                                  ck.lstm_cell_reference)):
+            g = cell(xg, ops[1], c0, wq)[1]
+            prod[i] = max(prod[i], (g.double() - want).abs().max().item())
+        # the probe reads the plain version's own product, bit for bit
+        check(torch.equal(g, torch.matmul(ops[1], wq)[:, :wq.shape[0]]),
+              'the saturated gates do not return the plain product')
+    return (cell_err(ck.fused_lstm_cell(*ops)),
+            cell_err(ck.lstm_cell_reference(*ops))), tuple(prod)
+
+
 def phase_lstm_kernels(seed):
     """The LSTM cell kernel (csrc/lstm_cell.cu) against its plain version
-    at the sequence path's shape (B 256, H 512, f32), a single row, a
-    narrower layer, H 1000 (not a multiple of the tile), and the path's
-    shape with bf16 r_prev and w; two wrong inputs to the real kernel must
-    fail the check. Times kernel, plain version and a matmul with the
-    gate math (a yardstick) as CUDA-graph replays, TF32 off."""
+    at LSTM_KERNEL_SHAPES, per element; two wrong inputs to the real
+    kernel must fail the check; f32, on LSTM_WITNESS_DRAWS draws of the
+    inputs: its error against the plain cell in f64, and its product's
+    against the product in f64, at most LSTM_F64_WITNESS times the plain
+    f32 version's; two calls give the same bits. Times kernel, plain
+    version and a matmul with the gate math (a yardstick) as CUDA-graph
+    replays, TF32 off. Every reading is printed before the checks."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed + 500)
-    results = {}
-    for B, H, dot in ((256, 512, 'float32'), (1, 512, 'float32'),
-                      (64, 256, 'float32'), (7, 1000, 'float32'),
-                      (256, 512, 'bfloat16')):
+
+    def inputs(B, H, dt):
+        return (torch.randn(B, 4 * H, device='cuda', generator=gen),
+                torch.tanh(torch.randn(B, H, device='cuda',
+                                       generator=gen)).to(dt),
+                torch.randn(B, H, device='cuda', generator=gen),
+                (torch.randn(H, 4 * H, device='cuda', generator=gen) /
+                 H ** 0.5).to(dt))
+
+    results, checks = {}, []
+    for B, H, dot in LSTM_KERNEL_SHAPES:
         dt = getattr(torch, dot)
-        xg = torch.randn(B, 4 * H, device='cuda', generator=gen)
-        r = torch.tanh(torch.randn(B, H, device='cuda', generator=gen)).to(dt)
-        c = torch.randn(B, H, device='cuda', generator=gen)
-        w = (torch.randn(H, 4 * H, device='cuda', generator=gen) /
-             H ** 0.5).to(dt)
-        ops = (xg, r, c, w)
+        ops = inputs(B, H, dt)
         ref_h, ref_c = ck.lstm_cell_reference(*ops)
         before = ck.LAUNCHES['lstm_cell']
         h, c_out = ck.fused_lstm_cell(*ops)
+        h2, c2 = ck.fused_lstm_cell(*ops)
         torch.cuda.synchronize()
-        check(ck.LAUNCHES['lstm_cell'] == before + 1,
+        check(ck.LAUNCHES['lstm_cell'] == before + 2,
               'lstm_cell did not launch at B %d H %d' % (B, H))
         check(h.dtype == dt and c_out.dtype == torch.float32,
               'lstm_cell output dtypes %s %s' % (h.dtype, c_out.dtype))
+        same = torch.equal(h, h2) and torch.equal(c_out, c2)
         ratio = max(_cell_ratio(h, ref_h), _cell_ratio(c_out, ref_c))
         err = max((h.float() - ref_h.float()).abs().max().item(),
                   (c_out - ref_c).abs().max().item())
@@ -2222,21 +2316,26 @@ def phase_lstm_kernels(seed):
             ch, cc = fn(*ops)
             controls.append(max(_cell_ratio(ch, ref_h),
                                 _cell_ratio(cc, ref_c)))
-        bound, bound_by = lstm_bound(B, H, dot)
+        witness = ''
         if dot == 'float32':
-            # each unit tile of the f32 kernel, checked and timed (the
-            # kernel chooses one from B and H)
-            tiles = {}
-            for bn in (32, 16, 8):
-                th, tc = ck._lstm_cell_kernel(*ops, unit_tile=bn)
-                check(max(_cell_ratio(th, ref_h), _cell_ratio(tc, ref_c)) <= 1,
-                      'lstm_cell with unit tile %d differs from its plain '
-                      'version at B %d H %d' % (bn, B, H))
-                tiles[bn] = graph_ms(
-                    lambda bn=bn: ck._lstm_cell_kernel(*ops, unit_tile=bn))
-            print('lstm kernels: B %d H %d float32, unit tiles 32/16/8: '
-                  '%.4f / %.4f / %.4f ms' % (B, H, tiles[32], tiles[16],
-                                             tiles[8]), flush=True)
+            # against f64: the three TF32 products must not cost accuracy
+            # that f32 sums keep, on these inputs and on fresh draws
+            draws = [_lstm_f64_witness(ops)] + [
+                _lstm_f64_witness(inputs(B, H, dt))
+                for _ in range(LSTM_WITNESS_DRAWS - 1)]
+            witness = '; against f64 (kernel / plain f32, %d draws): cell ' \
+                '%s; product %s' % (len(draws), ', '.join(
+                    '%.3g / %.3g' % c for c, _ in draws), ', '.join(
+                    '%.3g / %.3g' % p for _, p in draws))
+            for what, i in (('cell', 0), ('product', 1)):
+                for d in draws:
+                    checks.append((
+                        d[i][0] <= LSTM_F64_WITNESS * d[i][1],
+                        'lstm_cell at B %d H %d: its %s is %.3g from f64, '
+                        "over %gx the plain f32 version's %.3g" % (
+                            B, H, what, d[i][0], LSTM_F64_WITNESS,
+                            d[i][1])))
+        bound, bound_by = lstm_bound(B, H, dot)
         res = dict(max_abs_err=err,
                    ms=graph_ms(lambda: ck.fused_lstm_cell(*ops)),
                    plain_ms=graph_ms(lambda: ck.lstm_cell_reference(*ops)),
@@ -2244,18 +2343,28 @@ def phase_lstm_kernels(seed):
                    bound_ms=bound, bound_by=bound_by)
         results[(B, H, dot)] = res
         print('lstm kernels: B %d H %d %s: max |err| %.3g, %.3f of the '
-              'per-element limit %s; controls (c_prev zeroed, i/f swapped) '
-              '%.1f and %.1f x the limit; kernel %.4f ms, plain %.4f ms, '
-              'matmul + gate math %.4f ms, bound %.4f ms (%s)' % (
+              'per-element limit %s%s; two calls %s; controls (c_prev '
+              'zeroed, i/f swapped) %.1f and %.1f x the limit; kernel %.4f '
+              'ms, plain %.4f ms, matmul + gate math %.4f ms, bound %.4f ms '
+              '(%s, %s)' % (
                   B, H, dot, err, ratio, LSTM_CELL_TOL[str(h.dtype)[6:]],
+                  witness, 'bit-identical' if same else 'DIFFER',
                   controls[0], controls[1], res['ms'], res['plain_ms'],
-                  res['library_ms'], bound, bound_by), flush=True)
-        check(ratio <= 1, 'lstm_cell differs from its plain version at B %d '
-              'H %d %s: %.3g of the limit' % (B, H, dot, ratio))
+                  res['library_ms'], bound, bound_by,
+                  'bf16' if dot == 'bfloat16' else '3 TF32 products'),
+              flush=True)
+        checks.append((same, 'two lstm_cell calls differ at B %d H %d %s'
+                       % (B, H, dot)))
+        checks.append((ratio <= 1, 'lstm_cell differs from its plain version '
+                       'at B %d H %d %s: %.3g of the limit' % (B, H, dot,
+                                                               ratio)))
         for (name, _), ctl in zip(LSTM_CONTROLS, controls):
-            check(ctl > LSTM_CONTROL_MARGIN, 'the lstm_cell check does not '
-                  'catch a control (%s) by %dx at B %d H %d %s: %.3g' % (
-                      name, LSTM_CONTROL_MARGIN, B, H, dot, ctl))
+            checks.append((ctl > LSTM_CONTROL_MARGIN, 'the lstm_cell check '
+                           'does not catch a control (%s) by %dx at B %d H '
+                           '%d %s: %.3g' % (name, LSTM_CONTROL_MARGIN, B, H,
+                                            dot, ctl)))
+    for ok, msg in checks:
+        check(ok, msg)
     return results
 
 
@@ -2492,31 +2601,38 @@ def phase_lstm_serving(seed, trained):
               if op.type == 'sequence_pool'][-1]
     probe = [LSTM_WORDS] * 32 + ragged
 
-    def outputs(cell=None):
+    def outputs(feed_seed, cell=None):
         with rnn_ops.lstm_cell_for_testing(cell) if cell else \
                 contextlib.nullcontext():
-            return exe.run(prog, feed={'data': _lstm_feed(probe, seed + 7)[
+            return exe.run(prog, feed={'data': _lstm_feed(probe, feed_seed)[
                 'data']}, fetch_list=[v.name for v in fetch_vars] + [pooled],
                 scope=scope)
 
-    plain_p, plain_s = outputs(ck.lstm_cell_reference)
-
-    def agreement(p, st):
-        return (float(np.abs(p - plain_p).max()),
+    # each reading: the largest over LSTM_PROBES probes (the probabilities
+    # and the pooled state: the largest diff; argmax: the least agreement)
+    names = ('kernel', 'witness') + tuple(n for n, _ in LSTM_CONTROLS)
+    cells = (None, _cell_f64) + tuple(fn for _, fn in LSTM_CONTROLS)
+    per_probe = {name: [] for name in names}
+    for i in range(LSTM_PROBES):
+        plain_p, plain_s = outputs(seed + 7 + i, ck.lstm_cell_reference)
+        for name, cell in zip(names, cells):
+            p, st = outputs(seed + 7 + i, cell)
+            per_probe[name].append((
+                float(np.abs(p - plain_p).max()),
                 float(np.abs(st - plain_s).max() / np.abs(plain_s).max()),
-                float((p.argmax(-1) == plain_p.argmax(-1)).mean()))
-
-    found = {'kernel': agreement(*outputs())}
-    for name, fn in (('witness', _cell_f64),) + LSTM_CONTROLS:
-        found[name] = agreement(*outputs(fn))
+                float((p.argmax(-1) == plain_p.argmax(-1)).mean())))
+    found = {name: (max(e[0] for e in r), max(e[1] for e in r),
+                    min(e[2] for e in r)) for name, r in per_probe.items()}
     limits = tuple(max(LSTM_PROB_WITNESS * e, floor) for e, floor in zip(
         found['witness'][:2], LSTM_PROB_FLOOR))
     for name, e in found.items():
-        print('lstm serving: batch %d, %s vs the plain cell: probabilities '
-              'max |diff| %.3g (limit %.3g), pooled last hidden state max '
-              '|diff| / max |state| %.3g (limit %.3g), argmax agreement %.4f'
-              % (len(probe), name, e[0], limits[0], e[1], limits[1], e[2]),
-              flush=True)
+        print('lstm serving: %d probes of batch %d, %s vs the plain cell: '
+              'probabilities max |diff| %.3g (limit %.3g; by probe %s), '
+              'pooled last hidden state max |diff| / max |state| %.3g '
+              '(limit %.3g), argmax agreement %.4f' % (
+                  LSTM_PROBES, len(probe), name, e[0], limits[0],
+                  ' '.join('%.3g' % r[0] for r in per_probe[name]), e[1],
+                  limits[1], e[2]), flush=True)
     k = found['kernel']
     check(k[0] <= limits[0] and k[1] <= limits[1], 'served outputs differ '
           'from the plain cell\'s: %s' % (k,))
@@ -2702,6 +2818,100 @@ def host_cost(card, root, seed):
                   1e3 * max(times), n / med), flush=True)
 
 
+HOST_COST_LSTM_BATCHES = (1, 32, 256)
+HOST_COST_LSTM_PASSES = 30    # timed passes over a step's 288 launches
+
+
+def host_cost_lstm(card, root, seed):
+    """The host's cost of the LSTM cell on stacked_dynamic_lstm's path
+    (H 512, f32): the wrapper's time per launch (``fused_lstm_cell`` over
+    a step's 288 launches, 96 time steps of xg's [B, 96, 4H] sequence
+    times 3 layers, each step's h and c fed to the next; the card never
+    synchronised inside a pass, so the time is the host's; of it, the
+    time in the C entry point) at B 1, 32 and 256, and a forward request
+    of the model (Executor.run of the forward program at random weights,
+    ids in, probabilities out) at those batches of 80 words, medians.
+    ``root`` as in :func:`host_cost`. Not part of the smoke run
+    (``--host-cost``)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    print('host cost: %s, package from %s' % (card, root), flush=True)
+    H, T = LSTM['hid_dim'], LSTM_T_PAD
+    layers = LSTM['stacked_num']
+    c_time = [0.0]
+    launch = ck._launch
+
+    def timed_launch(*a):
+        t0 = time.perf_counter()
+        launch(*a)
+        c_time[0] += time.perf_counter() - t0
+
+    ck._launch = timed_launch
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    try:
+        for B in HOST_COST_LSTM_BATCHES:
+            xg = torch.randn(B, T, 4 * H, device='cuda', generator=gen)
+            ws = [torch.randn(H, 4 * H, device='cuda', generator=gen) /
+                  H ** 0.5 for _ in range(layers)]
+            passes, in_c = [], []
+            with torch.no_grad():
+                for i in range(3 + HOST_COST_LSTM_PASSES):
+                    h = torch.zeros(B, H, device='cuda')
+                    c = torch.zeros(B, H, device='cuda')
+                    torch.cuda.synchronize()
+                    c_time[0] = 0.0
+                    t0 = time.perf_counter()
+                    for w in ws:
+                        for t in range(T):
+                            h, c = ck.fused_lstm_cell(xg[:, t], h, c, w)
+                    dt = time.perf_counter() - t0
+                    torch.cuda.synchronize()
+                    if i >= 3:
+                        passes.append(dt)
+                        in_c.append(c_time[0])
+            host, n = float(np.median(passes)), layers * T
+            print('host cost: B %d, fused_lstm_cell wrapper over a step\'s '
+                  '%d launches: %.4f ms host (median of %d passes; min '
+                  '%.4f, max %.4f), %.2f us a launch, of which %.2f us in '
+                  'the C entry point' % (
+                      B, n, 1e3 * host, len(passes), 1e3 * min(passes),
+                      1e3 * max(passes), 1e6 * host / n,
+                      1e6 * float(np.median(in_c)) / n), flush=True)
+            del xg, ws
+    finally:
+        ck._launch = launch
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        _, prediction = stacked_dynamic_lstm(pt, use_peepholes=False, **LSTM)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    for B in HOST_COST_LSTM_BATCHES:
+        feed = _lstm_feed([LSTM_WORDS] * B, seed)
+        times = []
+        for i in range(3 + HOST_COST_REQUESTS):
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[prediction],
+                           scope=scope)
+            if i >= 3:
+                times.append(time.perf_counter() - t0)
+        check(out.shape == (B, 2) and np.isfinite(out).all(),
+              'stacked_dynamic_lstm probabilities %s' % (out.shape,))
+        check(ck.LAUNCHES['lstm_cell'] == layers * T, 'launches %s'
+              % ck.LAUNCHES)
+        med = float(np.median(times))
+        print('host cost: batch %d, stacked_dynamic_lstm forward request: '
+              '%.4f ms (median of %d; min %.4f, max %.4f), %d lstm_cell '
+              'launches' % (B, 1e3 * med, len(times), 1e3 * min(times),
+                            1e3 * max(times), layers * T), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2709,8 +2919,9 @@ def main():
                     help='time the wgmma conv at every tile width and K '
                     'split at the ResNet-50 shapes, then stop')
     ap.add_argument('--host-cost', action='store_true',
-                    help="time the fused conv wrapper's host cost and "
-                    'served ResNet-50 requests at batch 1 and 8, then stop')
+                    help="time the fused conv and LSTM cell wrappers' host "
+                    'cost, served ResNet-50 requests at batch 1 and 8 and '
+                    'stacked_dynamic_lstm forward requests, then stop')
     ap.add_argument('--root', default=ROOT,
                     help='with --host-cost: the checkout whose package is '
                     'measured (default: this one)')
@@ -2727,6 +2938,7 @@ def main():
         sweep_conv_plans(card)
         return 0
     if args.host_cost:
+        host_cost_lstm(card, root, args.seed)
         host_cost(card, root, args.seed)
         return 0
     phase_sass()
@@ -2790,12 +3002,14 @@ def main():
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_trained['launches']['fused_conv_stats'], **stats))
     # the LSTM cell: launches over the timed training steps of
-    # stacked_dynamic_lstm, numbers at its shape (B 256, H 512, f32)
+    # stacked_dynamic_lstm, numbers at its shape (B 256, H 512, f32), and
+    # its bf16 path's at the same shape (no main path launches it)
     kernels.append(dict(
         name='lstm_cell', route='cuda',
         source='paddle_tpu_torch/csrc/lstm_cell.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:633',
         launches=lstm_launches['lstm_cell'],
+        bf16=lstm[(LSTM_BATCH, LSTM['hid_dim'], 'bfloat16')],
         **lstm[(LSTM_BATCH, LSTM['hid_dim'], 'float32')]))
     print(json.dumps({'kernels': kernels}))
     print(card)

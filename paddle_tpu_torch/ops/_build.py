@@ -55,8 +55,8 @@ KERNELS = {
         'fused_conv_stats': [_P, _P],
     }),
     'lstm_cell': ('lstm_cell.cu', {
-        # xg, ld_xg, r_prev, c_prev, w, h, c, B, H, dot_bf16, h_bf16,
-        # c_bf16, unit_tile, stream
+        # xg, ld_xg, r_prev, c_prev, w, h, c, B, H, Hp, dot_bf16, h_bf16,
+        # c_bf16, stream
         'lstm_cell': [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 6 + [_P],
     }),
 }

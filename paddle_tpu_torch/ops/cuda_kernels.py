@@ -42,9 +42,10 @@ Ported so far:
   vjp takes them.
 - ``fused_lstm_cell``: ``pallas_kernels.py::_lstm_cell_kernel``, one LSTM
   step (the recurrent product and the gates, gate order (c, i, f, o)) in
-  ``csrc/lstm_cell.cu``; differentiable through ``_FusedLSTMCell``, whose
-  backward is the vjp of the plain version from the saved inputs, as
-  ``_lstm_cell_bwd`` is.
+  ``csrc/lstm_cell.cu`` (wgmma with TMA loads; the f32 product as three
+  TF32 products of operands split in the kernel); differentiable through
+  ``_FusedLSTMCell``, whose backward is the vjp of the plain version from
+  the saved inputs, as ``_lstm_cell_bwd`` is.
 """
 import collections
 import ctypes
@@ -1081,18 +1082,50 @@ def _check_lstm_inputs(xg, r_prev, c_prev, w):
                             "or float16 operands; %s is %s" % (name, t.dtype))
 
 
-def _lstm_cell_kernel(xg, r_prev, c_prev, w, unit_tile=0):
+# r_prev's and w's rows are read by TMA, whose row strides are multiples
+# of 16 bytes: the kernel takes their depth in multiples of 8 elements
+_LSTM_DEPTH_ALIGN = 8
+
+
+def lstm_padded_depth(H):
+    """Hp: H rounded up to a multiple of 8, the depth of the operands that
+    the kernel's tensor maps read."""
+    return -(-H // _LSTM_DEPTH_ALIGN) * _LSTM_DEPTH_ALIGN
+
+
+def _aligned16(t):
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def lstm_kernel_operands(r_prev, w, dot):
+    """(r [B, Hp], w [Hp, 4Hp]) in ``dot``, contiguous and 16-byte aligned,
+    as the kernel's TMA maps read them: the operands themselves (cast)
+    where H is a multiple of 8, else copies padded with zeros, gate q of w
+    at columns q * Hp. The zero rows and columns add nothing to the
+    product."""
+    H = r_prev.shape[1]
+    Hp = lstm_padded_depth(H)
+    r, wk = r_prev.to(dot), w.to(dot)
+    if Hp != H:
+        r = F.pad(r, (0, Hp - H))
+        wk = F.pad(wk.reshape(H, 4, H), (0, Hp - H, 0, 0, 0, Hp - H)) \
+            .reshape(Hp, 4 * Hp)
+    return _aligned16(r), _aligned16(wk)
+
+
+def _lstm_cell_kernel(xg, r_prev, c_prev, w):
     """The cell on the card: ``csrc/lstm_cell.cu``. Operands are promoted
-    here, before the launch: the product's to :func:`_lstm_dot_dtype`, xg
-    and c_prev to f32 (lossless). h comes out in r_prev's dtype and c in
-    c_prev's (the kernel writes f32 or bf16; fp16 is cast after).
-    ``unit_tile`` (32, 16 or 8) fixes the f32 kernel's units a block, for
-    timing; 0 lets the kernel choose from B and H."""
+    here, before the launch: the product's to :func:`_lstm_dot_dtype`
+    (:func:`lstm_kernel_operands`), xg and c_prev to f32 (lossless). h
+    comes out in r_prev's dtype and c in c_prev's (the kernel writes f32
+    or bf16; fp16 is cast after). The f32 product runs on the tensor cores
+    as three TF32 products; the launcher picks the batch rows a block
+    from B and H."""
     _check_lstm_inputs(xg, r_prev, c_prev, w)
     B, H = c_prev.shape
     dot = _lstm_dot_dtype(r_prev, w)
-    r = r_prev.to(dot).contiguous()
-    wk = w.to(dot).contiguous()
+    r, wk = lstm_kernel_operands(r_prev, w, dot)
     x = xg.float()
     if x.stride(-1) != 1:
         x = x.contiguous()
@@ -1107,9 +1140,9 @@ def _lstm_cell_kernel(xg, r_prev, c_prev, w, unit_tile=0):
         _launch('lstm_cell', 'lstm_cell',
                 (x.data_ptr(), x.stride(0), r.data_ptr(), c0.data_ptr(),
                  wk.data_ptr(), h.data_ptr(), c.data_ptr(), B, H,
-                 int(dot == torch.bfloat16), int(h_dt == torch.bfloat16),
-                 int(c_dt == torch.bfloat16), int(unit_tile)), c_prev.device,
-                'B=%d H=%d %s' % (B, H, dot))
+                 r.shape[1], int(dot == torch.bfloat16),
+                 int(h_dt == torch.bfloat16), int(c_dt == torch.bfloat16)),
+                c_prev.device, 'B=%d H=%d %s' % (B, H, dot))
     return h.to(r_prev.dtype), c.to(c_prev.dtype)
 
 

@@ -731,17 +731,63 @@ def test_lstm_cell_kernel_matches_plain(cuda, dtype, shape):
     assert _lstm_ratio(h, ref_h) <= 1 and _lstm_ratio(c, ref_c) <= 1
 
 
-@pytest.mark.parametrize('unit_tile', [32, 16, 8])
-@pytest.mark.parametrize('shape', [(256, 512), (7, 1000), (3, 37)])
-def test_lstm_cell_every_unit_tile(cuda, unit_tile, shape):
-    """Each unit tile of the f32 kernel (the kernel picks one from B and
-    H), at the edges of its tiles."""
+# (B, H): every batch tile the launcher picks (8 to 64 rows a block, B
+# past and short of it) at H 256, 512 and 1000 (not a multiple of the
+# 16-unit tile)
+LSTM_WIDTHS = [(B, H) for B in (1, 7, 32, 64, 256) for H in (256, 512, 1000)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', LSTM_WIDTHS)
+def test_lstm_cell_kernel_at_every_width(cuda, dtype, shape):
+    """Both dtypes against the plain version; two calls give the same
+    bits (no K split, no atomics)."""
     B, H = shape
-    ops = _lstm_operands(cuda, B, H, torch.float32, seed=B + H + unit_tile)
-    h, c = ck._lstm_cell_kernel(*ops, unit_tile=unit_tile)
+    ops = _lstm_operands(cuda, B, H, dtype, seed=B + H)
+    h, c = ck.fused_lstm_cell(*ops)
+    h2, c2 = ck.fused_lstm_cell(*ops)
     torch.cuda.synchronize()
     ref_h, ref_c = ck.lstm_cell_reference(*ops)
     assert _lstm_ratio(h, ref_h) <= 1 and _lstm_ratio(c, ref_c) <= 1
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+
+
+def _product_probe(r, w):
+    """chip_smoke._product_probe: inputs under which the cell returns its
+    recurrent product, per gate's slice of w, and that product in f64."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'chip_smoke.py')
+    spec = importlib.util.spec_from_file_location('chip_smoke', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._product_probe(r, w)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+@pytest.mark.parametrize('shape', [(256, 512), (1, 512), (32, 512),
+                                   (64, 256), (7, 1000), (3, 37)])
+def test_lstm_cell_f32_keeps_f32_accuracy(cuda, shape, seed):
+    """The three TF32 products, as in chip_smoke.py phase 13: the
+    kernel's max |err| against the plain cell in f64 is at most twice the
+    plain f32 version's, and so is its product's alone against the
+    product in f64 (read through saturated gates)."""
+    B, H = shape
+    ops = _lstm_operands(cuda, B, H, torch.float32, seed=11 * B + H + seed)
+    witness = ck.lstm_cell_reference(*(t.double() for t in ops))
+
+    def err(pair):
+        return max((a.double() - b).abs().max().item()
+                   for a, b in zip(pair, witness))
+    assert err(ck.fused_lstm_cell(*ops)) <= 2 * err(
+        ck.lstm_cell_reference(*ops))
+    xg, c0, ws, exact = _product_probe(ops[1], ops[3])
+    for wq, want in zip(ws, exact):
+        k_err, p_err = [
+            (cell(xg, ops[1], c0, wq)[1].double() - want).abs().max().item()
+            for cell in (ck.fused_lstm_cell, ck.lstm_cell_reference)]
+        assert k_err <= 2 * p_err
 
 
 def test_lstm_cell_takes_a_time_step_of_a_sequence(cuda):
@@ -797,10 +843,7 @@ def test_lstm_cell_function_backward_on_the_card(cuda):
         assert ((a - b).abs().max() / b.abs().max()).item() < 1e-5
 
 
-def test_stacked_lstm_trains_on_the_kernel(cuda):
-    """A small stacked LSTM without peepholes on the card: one kernel
-    launch per layer and padded step, and the loss of the plain cell."""
-    from paddle_tpu_torch.ops import rnn_ops
+def _small_stacked_lstm():
     main, startup = pt.Program(), pt.Program()
     startup.random_seed = 1
     with pt.unique_name.guard(), pt.program_guard(main, startup):
@@ -816,6 +859,58 @@ def test_stacked_lstm_trains_on_the_kernel(cuda):
         loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
         pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
             loss)
+    return main, startup, loss
+
+
+def _small_lstm_feed(lens, seed):
+    rng = np.random.RandomState(seed)
+    return {'data': pt.create_lod_tensor(
+        rng.randint(0, 50, (sum(lens), 1)).astype('int64'), [lens]),
+        'label': rng.randint(0, 2, (len(lens), 1)).astype('int64')}
+
+
+def test_stacked_lstm_two_momentum_steps_on_the_kernel(cuda):
+    """Two Momentum steps with AMP off: the kernel's losses and updated
+    weights against the plain cell's, to the f32 limit of chip_smoke.py
+    (1e-5); the second step runs on weights the first one changed."""
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import rnn_ops
+    main, startup, loss = _small_stacked_lstm()
+    runs = []
+    amp.set_amp(False)
+    try:
+        for plain in (False, True):
+            exe = pt.Executor()
+            scope = pt.Scope()
+            exe.run(startup, scope=scope)
+            ck.reset_launch_counts()
+            with rnn_ops.lstm_cell_for_testing() if plain else \
+                    contextlib.nullcontext():
+                losses = [float(exe.run(
+                    main, feed=_small_lstm_feed([9, 1, 14, 3], s),
+                    fetch_list=[loss], scope=scope)[0][0]) for s in (0, 1)]
+            torch.cuda.synchronize()
+            assert ck.LAUNCHES['lstm_cell'] == (0 if plain else 2 * 2 * 16)
+            runs.append((losses, {n: scope.raw(n).detach().cpu().clone()
+                                  for n in main.global_block().vars
+                                  if n.startswith('lstm') and
+                                  n.endswith('w_0')}))
+    finally:
+        amp.set_amp(None)
+    (k_losses, k_w), (p_losses, p_w) = runs
+    assert k_w and set(k_w) == set(p_w)
+    for a, b in zip(k_losses, p_losses):
+        assert abs(a - b) <= 1e-5 * abs(b), (k_losses, p_losses)
+    for name in k_w:
+        err = (k_w[name] - p_w[name]).norm() / p_w[name].norm()
+        assert err.item() <= 1e-5, name
+
+
+def test_stacked_lstm_trains_on_the_kernel(cuda):
+    """A small stacked LSTM without peepholes on the card: one kernel
+    launch per layer and padded step, and the loss of the plain cell."""
+    from paddle_tpu_torch.ops import rnn_ops
+    main, startup, loss = _small_stacked_lstm()
     lens = [9, 1, 14, 3]
     rng = np.random.RandomState(0)
     feed = {'data': pt.create_lod_tensor(
