@@ -15,20 +15,29 @@ non-zero) on failure:
    into build/torch_kernels/; then, from the built flash, fused conv and
    LSTM cell libraries, counts the wgmma (HGMMA) and TMA load (UTMALDG)
    instructions of each kernel in its SASS (cuobjdump) and fails if the
-   bf16 flash forward, the bf16 merged backward, the wgmma conv (at each
-   tile width) or the LSTM cell (f32 and bf16, at each batch tile) has
-   none of either or ptxas ignored setmaxnreg, and prints ptxas's
-   registers and spills for those kernels;
+   bf16 flash forward, the bf16 merged backward, the two-pass backward
+   (its dq pass and its dk/dv pass, D 64 and 128), the wgmma conv (at
+   each tile width) or the LSTM cell (f32 and bf16, at each batch tile)
+   has none of either or ptxas ignored setmaxnreg, or if the two-pass
+   kernels spill, and prints ptxas's registers and spills for those
+   kernels;
 3. kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes and times kernel, plain version,
    the PyTorch library call for the same function (a yardstick only) and
    the least time the card could take (bound): the flash forward (at the
    request shapes and the training shape, B*H 128), and the three flash
-   backward kernels (merged; two-pass dq and dk/dv); at each backward
-   case two calls of flash_attention_bwd (the default route) must give
-   the same dq, dk and dv bit for bit, and the merged kernel is timed
-   once more with counters that never make a block wait, the cost of
-   adding dq in a fixed order;
+   backward kernels (merged; two-pass dq and dk/dv), each gradient per
+   tensor, at the training shape and at the long-context shape of phase
+   7b (B 5, H 8, T 32768, D 128), where the plain version's [T, T]
+   scores fit for one (b, h) slice only: there the kernels are held
+   against the plain version on that slice and the two-pass kernels
+   against the merged kernel on the whole tensor; at each backward case
+   two calls of the two-pass route and two of flash_attention_bwd (the
+   default route) must give the same dq, dk and dv bit for bit, and two
+   wrong kernels (dq with delta dropped, dk with dS unscaled) must fail
+   the check; the backward kernels are timed as CUDA graph replays, and
+   the merged kernel once more with counters that never make a block
+   wait, the cost of adding dq in a fixed order;
 4. conv kernels: the fused conv kernel (csrc/fused_conv.cu) against its
    plain version at every distinct region shape of ResNet-50 at batch
    32, read from the program after the conv_epilogue_fuse pass, in bf16
@@ -64,6 +73,17 @@ non-zero) on failure:
    forward and one merged backward kernel per layer; a torch.profiler
    trace of one step; one step on the two-pass backward route, whose
    gradients must match the merged route's;
+7b. long-context training: the same flagship at full width, 2 layers
+   (the card's memory), at seq 32768 and batch 5 (163,840 tokens a step,
+   where the merged kernel's f32 dq
+   buffer passes the wrapper's cap, so the port takes the two-pass
+   route by its own rule), Adam, AMP, one fixed batch: a warm-up step,
+   then timed steps (ms per step, tokens/s, peak memory), the loss
+   finite and falling, exactly one forward, one dq pass and one dk/dv
+   pass per layer a step and no merged backward; a profile of one step
+   with the two passes' share of the device time; one step's gradients
+   against the same step on the merged route (its cap raised for that
+   step), within ROUTE_GRAD_TOL;
 8. gradients: at batch 2, every parameter gradient of one step on the
    kernels against the same step on the plain attention (autograd
    backward), by relative L2 error; two deliberately wrong backwards
@@ -132,6 +152,7 @@ non-zero) on failure:
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -153,6 +174,18 @@ FLAGSHIP = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=6, d_ff=4096,
                 seq=2048)
 REQUEST_BATCHES = [1, 2, 4, 1, 2, 4]
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 16, 2, 10   # bench.py:322, 337
+# phase 7b, long-context training: the flagship at full width at seq
+# 32768, batch 5, 163,840 tokens a step, where the merged backward's f32
+# dq buffer (640 MiB) passes the wrapper's 512 MiB cap, so the port takes
+# the two-pass route by its own rule; a warm-up step, then timed steps.
+# Depth cut from 6 to 2 by the card's memory (PERF.md, section 4): the
+# lowering keeps a step's intermediates until its end, ~15 GB a layer
+# here; depth 6, 4 and 3 ran out of the H100's 80 GB (peaks 77.11, 77.88
+# and 76.45 GiB)
+LONG_SEQ, LONG_BATCH, LONG_LAYERS = 32768, 5, 2
+LONG_WARMUP, LONG_STEPS = 1, 3
+LONG_CASE = (LONG_BATCH, FLAGSHIP['n_heads'], LONG_SEQ,
+             FLAGSHIP['d_model'] // FLAGSHIP['n_heads'], 'bfloat16', True)
 GRAD_BATCH = 2
 
 # kernel vs plain version (plain run in f32 from the same inputs)
@@ -401,16 +434,23 @@ def phase_build():
                                           _build.BUILD_DIR), flush=True)
 
 
-# the redesigned kernels: library -> (kernel, the number of its template
-# instances, setmaxnreg's registers for a consumer and for a producer
-# thread); each instance must contain wgmma
-# (HGMMA) and TMA loads (UTMALDG): the flash kernels at D 64 and 128, the
-# fused conv at tile widths 64, 128 and 256, the LSTM cell's f32 and bf16
-# kernels at 8, 16, 32 and 64 batch rows a block
-SASS_KERNELS = {'flash_attn_fwd': ('flash_fwd_wgmma_kernel', 2, 240, 24),
-                'flash_attn_bwd': ('flash_bwd_wgmma_kernel', 2, 240, 24),
-                'fused_conv': ('conv_wgmma_kernel', 3, 232, 40),
-                'lstm_cell': ('lstm_cell_', 8, 232, 40)}
+# the redesigned kernels: (library, a pattern of the kernel's mangled
+# name, the number of its template instances, setmaxnreg's registers for
+# a consumer and for a producer thread, whether a spill fails the run);
+# each instance must contain wgmma (HGMMA) and TMA loads (UTMALDG): the
+# flash kernels at D 64 and 128 (the kv-major backward merged, Lb1, and
+# as the dk/dv pass, Lb0; the dq pass), the fused conv at tile widths 64,
+# 128 and 256, the LSTM cell's f32 and bf16 kernels at 8, 16, 32 and 64
+# batch rows a block
+SASS_KERNELS = (
+    ('flash_attn_fwd', r'flash_fwd_wgmma_kernel', 2, 240, 24, False),
+    ('flash_attn_bwd', r'flash_bwd_wgmma_kernelILi\d+ELb1', 2, 240, 24,
+     False),
+    ('flash_attn_bwd', r'flash_bwd_wgmma_kernelILi\d+ELb0', 2, 240, 24,
+     True),
+    ('flash_attn_bwd', r'flash_bwd_dq_wgmma_kernel', 2, 240, 24, True),
+    ('fused_conv', r'conv_wgmma_kernel', 3, 232, 40, False),
+    ('lstm_cell', r'lstm_cell_', 8, 232, 40, False))
 
 
 def _kernel_label(mangled):
@@ -420,7 +460,8 @@ def _kernel_label(mangled):
     if not m:
         return mangled
     return '%s<%s%s>' % (m.group(1), m.group(2),
-                         ', merged' if m.group(3) == '1' else '')
+                         {'1': ', merged', '0': ', dk/dv'}.get(m.group(3),
+                                                               ''))
 
 
 def sass_counts(lib_path):
@@ -463,22 +504,26 @@ def ptxas_usage(log):
 def phase_sass():
     """The redesigned kernels run on the tensor cores and TMA: count HGMMA
     and UTMALDG in each kernel of the built flash, fused conv and LSTM cell
-    libraries, fail if an instance of the bf16 flash forward, merged
-    backward (wgmma variant, D 64 and 128), wgmma conv (tile widths 64,
-    128, 256) or LSTM cell (f32 and bf16, 8 to 64 batch rows a block) has
-    none of either; print ptxas's registers and spills for them."""
+    libraries, fail if an instance of the bf16 flash forward, kv-major
+    backward (merged and dk/dv pass) or dq pass (D 64 and 128), wgmma
+    conv (tile widths 64, 128, 256) or LSTM cell (f32 and bf16, 8 to 64
+    batch rows a block) has none of either, or a two-pass instance
+    spills; print ptxas's registers and spills for them."""
     from paddle_tpu_torch.ops import _build
-    for lib, (kernel, instances, consumer, producer) in SASS_KERNELS.items():
+    for lib in sorted({row[0] for row in SASS_KERNELS}):
+        rows = [row for row in SASS_KERNELS if row[0] == lib]
         counts = sass_counts(_build.library_path(lib))
         usage = ptxas_usage(_build.build_log(lib))
+        row_of = {n: next((r for r in rows if re.search(r[1], n)), None)
+                  for n in counts}
         for name, (hgmma, utmaldg) in sorted(counts.items()):
-            regs = usage.get(name)
+            regs, row = usage.get(name), row_of[name]
             print('sass: %s %s: %d HGMMA, %d UTMALDG%s' % (
                 lib, _kernel_label(name), hgmma, utmaldg,
                 '; ptxas: %d registers at entry (setmaxnreg: %d a consumer '
                 'thread, %d a producer thread), spill stores %d B, spill '
-                'loads %d B' % ((regs[0], consumer, producer) + regs[1:])
-                if regs and kernel in name else ''), flush=True)
+                'loads %d B' % ((regs[0], row[3], row[4]) + regs[1:])
+                if regs and row else ''), flush=True)
         # ptxas's notes on wgmma and setmaxnreg (C75xx: serialized wgmma,
         # setmaxnreg ignored)
         notes = [l.strip() for l in _build.build_log(lib).splitlines()
@@ -487,14 +532,20 @@ def phase_sass():
             print('sass: %s ptxas: %s' % (lib, line), flush=True)
         check(not any('setmaxnreg' in l for l in notes),
               '%s: ptxas ignored setmaxnreg' % lib)
-        ours = [n for n in counts if kernel in n]
-        check(len(ours) == instances, '%s: expected %d instances of the %s '
-              'kernel, found %s' % (lib, instances, kernel, ours))
-        for name in ours:
-            check(min(counts[name]) > 0, '%s has no %s' % (
-                _kernel_label(name),
-                'HGMMA' if counts[name][0] == 0 else 'UTMALDG'))
-            check(name in usage, 'no ptxas report for %s' % name)
+        for row in rows:
+            _, kernel, instances, _, _, no_spill = row
+            ours = [n for n in counts if row_of[n] == row]
+            check(len(ours) == instances, '%s: expected %d instances of '
+                  'the %s kernel, found %s' % (lib, instances, kernel,
+                                               ours))
+            for name in ours:
+                check(min(counts[name]) > 0, '%s has no %s' % (
+                    _kernel_label(name),
+                    'HGMMA' if counts[name][0] == 0 else 'UTMALDG'))
+                check(name in usage, 'no ptxas report for %s' % name)
+                check(not no_spill or usage[name][1:] == (0, 0),
+                      '%s spills: %d B stored, %d B loaded' % (
+                          (_kernel_label(name),) + usage[name][1:]))
 
 
 def phase_kernels(seed):
@@ -564,15 +615,45 @@ def bwd_bound(B, H, T, D, dtype, causal, products, grads):
             'operations' if t_ops >= t_bytes else 'bytes')
 
 
+def _bwd_check(got, ref, dt, names=('dq', 'dk', 'dv')):
+    """{name: (max |err|, limit)} of each gradient against ``ref``: the
+    limit is tol * max(max |ref|, floor), BWD_TOL by dtype."""
+    tol, floor = BWD_TOL[dt]
+    out = {}
+    for name, g, r in zip(names, got, ref):
+        r = r.float()
+        out[name] = ((g.float() - r).abs().max().item(),
+                     tol * max(r.abs().max().item(), floor))
+    return out
+
+
+def _wrong_two_pass(args, D):
+    """Two deliberately wrong two-pass kernels, made on the host: the dq
+    pass fed delta dropped (zeros), and dk as it is without its dS scale
+    (times sqrt(D)). [(name, index of the gradient, tensor)]."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    q, k, v, do, lse, delta, causal = args
+    return [('dq with delta dropped', 0,
+             ck.flash_bwd_dq(q, k, v, do, lse, torch.zeros_like(delta),
+                             causal)),
+            ('dk with dS unscaled', 1,
+             ck.flash_bwd_dkv(*args)[0] * math.sqrt(D))]
+
+
 def phase_bwd_kernels(seed):
     """The three flash backward kernels vs the plain backward at the
     training shape (B 16, H 8, T 2048, D 128, bf16, causal), at B 4 with
-    both causal settings, at D 64, at a ragged T 2000, and in f32. Each
-    case checks that the default route gives the same bits twice, and
-    times the merged kernel (also with its fixed-order wait switched off),
-    the two-pass kernels, the plain backward and SDPA's backward
-    (autograd.grad of F.scaled_dot_product_attention), a yardstick
-    only."""
+    both causal settings, at D 64, at a ragged T 2000, in f32, and at the
+    long-context training shape of phase 7b (B 5, T 32768), where the
+    plain version runs on one (b, h) slice and the two-pass kernels are
+    also held against the merged kernel on the whole tensor. Each case
+    checks that two calls of the two-pass route and of the default route
+    give the same bits and that two wrong two-pass kernels fail, and
+    times the merged kernel (also with its fixed-order wait switched
+    off) and the two-pass kernels as CUDA graph replays, the plain
+    backward, and SDPA's backward (autograd.grad of
+    F.scaled_dot_product_attention), a yardstick only."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels as ck
@@ -581,11 +662,13 @@ def phase_bwd_kernels(seed):
              (4, 8, 2048, 128, 'bfloat16', False),
              (4, 16, 2048, 64, 'bfloat16', True),
              (2, 8, 2000, 128, 'bfloat16', True),
-             (4, 8, 2048, 128, 'float32', True)]
+             (4, 8, 2048, 128, 'float32', True),
+             LONG_CASE]
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed + 1)
     results = {}
     for B, H, T, D, dt, causal in cases:
+        long = (B, H, T, D, dt, causal) == LONG_CASE
         dtype = getattr(torch, dt)
         q, k, v, do = (torch.randn(B, T, H, D, device='cuda', generator=gen)
                        .to(dtype) for _ in range(4))
@@ -595,72 +678,112 @@ def phase_bwd_kernels(seed):
         args = (q, k, v, do, lse, delta, causal)
         merged = ck.flash_bwd_dkvdq(*args)
         two_pass = (ck.flash_bwd_dq(*args),) + ck.flash_bwd_dkv(*args)
+        again = (ck.flash_bwd_dq(*args),) + ck.flash_bwd_dkv(*args)
+        wrong = _wrong_two_pass(args, D)
         torch.cuda.synchronize()
-        ref = ck.flash_bwd_reference(*args)
-        tol, floor = BWD_TOL[dt]
-        errs, rel_l2, ok = {}, {}, True
-        for route, got in (('merged', merged), ('two_pass', two_pass)):
-            for name, g, r in zip(('dq', 'dk', 'dv'), got, ref):
-                err = (g.float() - r.float()).abs().max().item()
-                limit = tol * max(r.float().abs().max().item(), floor)
-                errs[route, name] = err
-                rel_l2[route, name] = ((g.float() - r.float()).norm() /
-                                       r.float().norm()).item()
-                ok = ok and err <= limit
-        del ref, merged, two_pass
+        same = [torch.equal(a, b) for a, b in zip(two_pass, again)]
+        del again
+        if long:
+            # the plain version's [T, T] scores fit for one (b, h) only
+            bs, hs = B - 1, H - 1
+
+            def view(t):
+                return t[bs:bs + 1, :, hs:hs + 1]
+            ref = ck.flash_bwd_reference(
+                *[view(t).contiguous() for t in (q, k, v, do)],
+                lse[bs:bs + 1, hs:hs + 1].contiguous(),
+                delta[bs:bs + 1, hs:hs + 1].contiguous(), causal)
+            vs_merged = _bwd_check(two_pass, merged, dt)
+        else:
+            def view(t):
+                return t
+            ref = ck.flash_bwd_reference(*args)
+            vs_merged = {}
+        checks = {('merged', n): e for n, e in _bwd_check(
+            [view(t) for t in merged], ref, dt).items()}
+        checks.update({('two_pass', n): e for n, e in _bwd_check(
+            [view(t) for t in two_pass], ref, dt).items()})
+        checks.update({('two-pass vs merged', n): e
+                       for n, e in vs_merged.items()})
+        controls = {name: _bwd_check([view(t)], [ref[i]], dt,
+                                     names=(name,))[name]
+                    for name, i, t in wrong}
+        rel_l2 = {(r, n): ((view(g).float() - x.float()).norm() /
+                           x.float().norm()).item()
+                  for r, got in (('merged', merged), ('two_pass', two_pass))
+                  for n, g, x in zip(('dq', 'dk', 'dv'), got, ref)}
+        del ref, merged, two_pass, wrong
         # the default route, twice: dq, dk and dv the same bit for bit
         first = ck.flash_attention_bwd(q, k, v, out, lse, do, causal)
         second = ck.flash_attention_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
-        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        same_default = [torch.equal(a, b) for a, b in zip(first, second)]
         del first, second
-        print('kernel flash_attn_bwd   default route (%s) twice: dq, dk, dv '
-              'bit-identical %s' % (
-                  ck.flash_variant(dtype, D) if ck._MERGED_BWD[0] else
-                  'two-pass', same), flush=True)
-        check(all(same), 'flash_attention_bwd is not bit-reproducible at '
-              'B=%d H=%d T=%d D=%d %s causal=%s: %s' % (
-                  B, H, T, D, dt, causal, same))
-        # the merged kernel, and the same with counters that let every
-        # block add at once (its dq then summed in no fixed order and
-        # discarded): the difference is what waiting for the fixed order
-        # costs. Each the median of three timings: at the small shapes the
-        # host's launch of the wrapper shows in one of them at times
+        route = ('merged' if ck._MERGED_BWD[0] and ck.merged_bwd_bytes(q) <=
+                 ck._MERGED_BWD_MAX_SLAB_BYTES else 'two-pass')
+        print('kernel flash_attn_bwd   B=%d H=%d T=%d D=%d %s causal=%s: '
+              'two-pass route twice: dq, dk, dv bit-identical %s; default '
+              'route (%s) twice: %s' % (B, H, T, D, dt, causal, same,
+                                        route, same_default), flush=True)
+        check(all(same) and all(same_default), 'flash backward is not '
+              'bit-reproducible at B=%d H=%d T=%d D=%d %s causal=%s: '
+              'two-pass %s, default route %s' % (
+                  B, H, T, D, dt, causal, same, same_default))
+        # times: graph replays of the kernels (the merged kernel also with
+        # counters that let every block add at once, its dq then summed in
+        # no fixed order: the difference is what waiting for the fixed
+        # order costs)
+        iters, reps = (2, 3) if long else (10, 5)
         free = torch.full(ck.flash_bwd_counters(q).shape, 1 << 30,
                           dtype=torch.int32, device=q.device)
-        merged_ms = float(np.median([cuda_ms(
-            lambda: ck.flash_bwd_dkvdq(*args), iters=10) for _ in range(3)]))
-        unordered_ms = float(np.median([cuda_ms(
-            lambda: ck.flash_bwd_dkvdq(*args, counters=free), iters=10)
-            for _ in range(3)]))
+        merged_ms = graph_ms(lambda: ck.flash_bwd_dkvdq(*args), iters, reps)
+        unordered_ms = graph_ms(lambda: ck.flash_bwd_dkvdq(
+            *args, counters=free), iters, reps)
         del free
-        dq_ms = cuda_ms(lambda: ck.flash_bwd_dq(*args), iters=10)
-        dkv_ms = cuda_ms(lambda: ck.flash_bwd_dkv(*args), iters=10)
-        plain_ms = cuda_ms(lambda: ck.flash_bwd_reference(*args), iters=2,
-                           warmup=1)
+        dq_ms = graph_ms(lambda: ck.flash_bwd_dq(*args), iters, reps)
+        dkv_ms = graph_ms(lambda: ck.flash_bwd_dkv(*args), iters, reps)
+        if long:
+            # the plain version over every (b, h) slice, one at a time
+            def plain_all():
+                for bi in range(B):
+                    for hi in range(H):
+                        ck.flash_bwd_reference(
+                            *[t[bi:bi + 1, :, hi:hi + 1].contiguous()
+                              for t in (q, k, v, do)],
+                            lse[bi:bi + 1, hi:hi + 1].contiguous(),
+                            delta[bi:bi + 1, hi:hi + 1].contiguous(),
+                            causal)
+            plain_ms = cuda_ms(plain_all, iters=1, warmup=0)
+        else:
+            plain_ms = cuda_ms(lambda: ck.flash_bwd_reference(*args),
+                               iters=2, warmup=1)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
         o_sdpa = F.scaled_dot_product_attention(qt, kt, vt,
                                                 is_causal=causal)
         do_t = do.transpose(1, 2).contiguous()
         library_ms = cuda_ms(lambda: torch.autograd.grad(
-            o_sdpa, (qt, kt, vt), do_t, retain_graph=True), iters=10)
+            o_sdpa, (qt, kt, vt), do_t, retain_graph=True),
+            iters=3 if long else 10)
         del qt, kt, vt, o_sdpa, do_t
         bounds = {'merged': bwd_bound(B, H, T, D, dt, causal, 5, 3),
                   'dq': bwd_bound(B, H, T, D, dt, causal, 3, 1),
                   'dkv': bwd_bound(B, H, T, D, dt, causal, 4, 2)}
         print('kernel flash_attn_bwd B=%d H=%d T=%d D=%d %s causal=%s: '
-              'max|err| merged dq %.3g dk %.3g dv %.3g, two-pass dq %.3g '
-              'dk %.3g dv %.3g (tol %g x max(max|plain|, %g)); merged_ms '
-              '%.4f (bound %.4f %s) dq_ms %.4f (bound %.4f) dkv_ms %.4f '
-              '(bound %.4f) plain_ms %.4f library_ms %.4f' % (
-                  B, H, T, D, dt, causal, errs['merged', 'dq'],
-                  errs['merged', 'dk'], errs['merged', 'dv'],
-                  errs['two_pass', 'dq'], errs['two_pass', 'dk'],
-                  errs['two_pass', 'dv'], tol, floor, merged_ms,
-                  bounds['merged'][0], bounds['merged'][1], dq_ms,
-                  bounds['dq'][0], dkv_ms, bounds['dkv'][0], plain_ms,
-                  library_ms), flush=True)
+              'max|err| %s (limit tol %g x max(max|ref|, %g)%s); '
+              'merged_ms %.4f (bound %.4f %s) dq_ms %.4f (bound %.4f) '
+              'dkv_ms %.4f (bound %.4f) pair %.4f plain_ms %.4f%s '
+              'library_ms %.4f (graph replays; plain and library: events)'
+              % (B, H, T, D, dt, causal, ', '.join(
+                  '%s %s %.3g (%.3g)' % (r, n, e, l)
+                  for (r, n), (e, l) in checks.items()),
+                 BWD_TOL[dt][0], BWD_TOL[dt][1],
+                 ', ref: the (b, h) slice (%d, %d)' % (bs, hs)
+                 if long else '', merged_ms, bounds['merged'][0],
+                 bounds['merged'][1], dq_ms, bounds['dq'][0], dkv_ms,
+                 bounds['dkv'][0], dq_ms + dkv_ms, plain_ms,
+                 ' (every (b, h) slice in turn)' if long else '',
+                 library_ms), flush=True)
         print('kernel flash_attn_bwd   merged_ms %.4f, with no block '
               'waiting for its turn %.4f: the fixed-order dq add costs %.1f%%'
               % (merged_ms, unordered_ms,
@@ -668,23 +791,33 @@ def phase_bwd_kernels(seed):
         print('kernel flash_attn_bwd   relative L2 vs plain: %s' % ', '.join(
             '%s %s %.3g' % (r, n, e) for (r, n), e in sorted(
                 rel_l2.items())), flush=True)
-        check(ok, 'flash backward kernels disagree with the plain backward '
-              'at B=%d H=%d T=%d D=%d %s causal=%s' % (B, H, T, D, dt,
-                                                      causal))
+        print('kernel flash_attn_bwd   controls: %s' % ', '.join(
+            '%s max|err| %.3g (%.1fx the limit)' % (n, e, e / l)
+            for n, (e, l) in controls.items()), flush=True)
+        bad = [k for k, (e, l) in checks.items() if not e <= l]
+        check(not bad, 'flash backward kernels disagree with the plain '
+              'backward at B=%d H=%d T=%d D=%d %s causal=%s: %s' % (
+                  B, H, T, D, dt, causal, bad))
+        caught = [n for n, (e, l) in controls.items() if e > l]
+        check(len(caught) == len(controls), 'the backward check does not '
+              'catch a wrong kernel at B=%d H=%d T=%d D=%d %s causal=%s: '
+              '%s' % (B, H, T, D, dt, causal,
+                      sorted(set(controls) - set(caught))))
+
+        def err(route, names):
+            return max(checks[route, n][0] for n in names)
         common = dict(plain_ms=plain_ms, library_ms=library_ms)
         results[(B, H, T, D, dt, causal)] = {
             'flash_attn_bwd_dkvdq': dict(
-                max_abs_err=max(errs['merged', n] for n in ('dq', 'dk',
-                                                            'dv')),
+                max_abs_err=err('merged', ('dq', 'dk', 'dv')),
                 ms=merged_ms, bound_ms=bounds['merged'][0],
                 bound_by=bounds['merged'][1], **common),
             'flash_attn_bwd_dq': dict(
-                max_abs_err=errs['two_pass', 'dq'], ms=dq_ms,
+                max_abs_err=err('two_pass', ('dq',)), ms=dq_ms,
                 bound_ms=bounds['dq'][0], bound_by=bounds['dq'][1],
                 **common),
             'flash_attn_bwd_dkv': dict(
-                max_abs_err=max(errs['two_pass', 'dk'],
-                                errs['two_pass', 'dv']),
+                max_abs_err=err('two_pass', ('dk', 'dv')),
                 ms=dkv_ms, bound_ms=bounds['dkv'][0],
                 bound_by=bounds['dkv'][1], **common)}
         del q, k, v, do, out, lse, delta, args
@@ -702,7 +835,8 @@ def _feed(bs, seed):
 
 def profile_run(run, label, top=8):
     """torch.profiler over one call of ``run``: the device's busy share
-    of the host wall, and the kernels taking most device time."""
+    of the host wall, and the kernels taking most device time. Returns
+    ({kind: device us}, device busy us)."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
@@ -732,12 +866,18 @@ def profile_run(run, label, top=8):
         print('profile:   %8.3f ms %5.1f%%  %s' % (
             us / 1e3, 100 * us / max(busy_us, 1e-9), name[:100]),
             flush=True)
+    return by_kind, busy_us
 
 
 def _kernel_kind(name):
     """A device kernel's kind, for the profile's split of device time."""
-    flash = re.search(r'flash_\w+', name)
+    flash = re.search(r'flash_(?:fwd|bwd)_\w+?_kernel', name)
     if flash:
+        # the kv-major backward <D, MERGED>: merged, or the dk/dv pass
+        if flash.group(0) == 'flash_bwd_wgmma_kernel':
+            merged = ', true>' in name or 'ELb1' in name
+            return flash.group(0) + (' (merged)' if merged else
+                                     ' (dk/dv pass)')
         return flash.group(0)
     if re.search(r'conv_(bf16|f32|depthwise|wgmma)_kernel', name):
         return 'fused_conv'
@@ -1373,11 +1513,11 @@ def phase_resnet_serving(seed):
     return launches
 
 
-def _train_feed(bs, seed):
+def _train_feed(bs, seed, seq=FLAGSHIP['seq']):
     """One fixed batch of tokens, labels and positions, on the card."""
     import torch
     rng = np.random.RandomState(seed)
-    V, S = FLAGSHIP['vocab'], FLAGSHIP['seq']
+    V, S = FLAGSHIP['vocab'], seq
     arrays = {'data': rng.randint(0, V, (bs, S)),
               'label': rng.randint(0, V, (bs, S, 1)),
               'pos': np.tile(np.arange(S), (bs, 1))}
@@ -1509,6 +1649,132 @@ def phase_training(seed, card):
     return dict(exe=exe, main=main, loss=loss, scope=scope,
                 grad_names=grad_names, launches=launches,
                 route_launches=route_launches)
+
+
+def phase_long_training(seed, card):
+    """7b. Train the flagship at full width at seq 32768 and batch 5
+    through Adam.minimize and Executor.run on one fixed batch: the port
+    takes the two-pass backward by its own rule."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.fluid_transformer import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = dict(FLAGSHIP, seq=LONG_SEQ, n_layers=LONG_LAYERS)
+    H, D = cfg['n_heads'], cfg['d_model'] // cfg['n_heads']
+    slab = ck.merged_bwd_bytes(torch.empty(
+        LONG_BATCH, LONG_SEQ, H, D, dtype=torch.bfloat16, device='meta'))
+    check(ck._MERGED_BWD[0] and slab > ck._MERGED_BWD_MAX_SLAB_BYTES,
+          'long context: the merged route would be taken (%d B of dq, cap '
+          '%d B)' % (slab, ck._MERGED_BWD_MAX_SLAB_BYTES))
+    t0 = time.perf_counter()
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed + 3
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = transformer(None, **cfg)[0]
+        pt.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    exe = pt.Executor()                       # CUDAPlace(0)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    grad_names = sorted(v.name for v in main.list_vars()
+                        if v.name.endswith('@GRAD'))
+    feed = _train_feed(LONG_BATCH, seed + 11, LONG_SEQ)
+    torch.cuda.synchronize()
+    print('long context: flagship %s, batch %d (%d tokens a step), '
+          'Adam(1e-4), AMP; the merged backward would take %d MiB of dq '
+          '(cap %d MiB): the two-pass route; built in %.1f s' % (
+              cfg, LONG_BATCH, LONG_BATCH * LONG_SEQ, slab >> 20,
+              ck._MERGED_BWD_MAX_SLAB_BYTES >> 20,
+              time.perf_counter() - t0), flush=True)
+
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LONG_WARMUP):
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(LONG_STEPS):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        outs.append(out)
+    torch.cuda.synchronize()
+    outs[-1] = outs[-1].item()                # the last loss to the host
+    dt = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    losses += [float(o) for o in outs]
+    tokens = LONG_STEPS * LONG_BATCH * LONG_SEQ
+    print('long context: %d steps, %.2f ms per step, %.1f tokens/s (host '
+          'clock, loss kept on the card, last loss copied to the host), '
+          'peak memory %.2f GiB; %s' % (
+              LONG_STEPS, 1e3 * dt / LONG_STEPS, tokens / dt,
+              torch.cuda.max_memory_allocated() / 2 ** 30, card),
+          flush=True)
+    print('long context: losses %s' % ', '.join('%.4f' % l for l in losses),
+          flush=True)
+    print('long context: launches over the timed steps %s' % launches,
+          flush=True)
+    check(all(np.isfinite(losses)), 'non-finite long-context loss')
+    check(losses[-1] < losses[0], 'the long-context loss did not fall: %g '
+          '-> %g' % (losses[0], losses[-1]))
+    n = cfg['n_layers'] * LONG_STEPS
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attn_fwd=n, flash_attn_bwd_dq=n,
+                  flash_attn_bwd_dkv=n)
+    check(launches == expect, 'long-context launches %s, expected %s'
+          % (launches, expect))
+    by_kind, busy_us = profile_run(
+        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False), 'long-context step')
+    shares = {k: by_kind.get(k, 0.0) for k in (
+        'flash_bwd_dq_wgmma_kernel', 'flash_bwd_wgmma_kernel (dk/dv pass)')}
+    print('long context: the two passes\' share of the device time: dq '
+          '%.3f ms (%.1f%%), dk/dv %.3f ms (%.1f%%), together %.1f%%' % (
+              shares['flash_bwd_dq_wgmma_kernel'] / 1e3,
+              100 * shares['flash_bwd_dq_wgmma_kernel'] / busy_us,
+              shares['flash_bwd_wgmma_kernel (dk/dv pass)'] / 1e3,
+              100 * shares['flash_bwd_wgmma_kernel (dk/dv pass)'] / busy_us,
+              100 * sum(shares.values()) / busy_us), flush=True)
+    check(min(shares.values()) > 0, 'the profile shows no two-pass kernel: '
+          '%s' % sorted(by_kind))
+
+    # one step's gradients on each route from the same state: the merged
+    # route with its cap raised for that step (its dq buffer fits)
+    snap = _snapshot(scope)
+
+    def step_grads():
+        _restore(scope, snap)
+        ck.reset_launch_counts()
+        vals = exe.run(main, feed=feed, fetch_list=grad_names, scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        return dict(zip(grad_names, vals)), dict(ck.LAUNCHES)
+
+    two_pass, _ = step_grads()
+    cap = ck._MERGED_BWD_MAX_SLAB_BYTES
+    ck._MERGED_BWD_MAX_SLAB_BYTES = slab
+    try:
+        merged, route_launches = step_grads()
+    finally:
+        ck._MERGED_BWD_MAX_SLAB_BYTES = cap
+    errs = _rel_l2(two_pass, merged)
+    worst = max(errs, key=errs.get)
+    print('long context: one step, two-pass vs the merged route (cap '
+          'raised for the step, launches %s): max relative L2 %.3g (%s), '
+          'median %.3g (tol %g)' % (
+              route_launches, errs[worst], worst,
+              float(np.median(list(errs.values()))), ROUTE_GRAD_TOL),
+          flush=True)
+    expect = dict.fromkeys(route_launches, 0)
+    expect.update(flash_attn_fwd=cfg['n_layers'],
+                  flash_attn_bwd_dkvdq=cfg['n_layers'])
+    check(route_launches == expect, 'merged-route step launches %s, '
+          'expected %s' % (route_launches, expect))
+    check(errs[worst] <= ROUTE_GRAD_TOL, 'long-context two-pass gradients '
+          'differ from the merged route by %g (%s)' % (errs[worst], worst))
+    return dict(launches=launches)
 
 
 def _wrong_backward(mode):
@@ -2951,6 +3217,9 @@ def main():
     phase_gradients(args.seed, trained)
     # keep the counts, let the flagship's scope go
     trained = {k: trained[k] for k in ('launches', 'route_launches')}
+    torch.cuda.empty_cache()
+    long_trained = phase_long_training(args.seed, card)
+    torch.cuda.empty_cache()
     r_main, r_startup, r_loss = _train_program(args.seed)
     stats = phase_stats_kernels(args.seed, r_main, r_loss)
     resnet_trained = phase_resnet_training(args.seed, card, r_main,
@@ -2966,27 +3235,36 @@ def main():
     phase_machine_translation(args.seed, card)
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
-    # the served requests plus the timed training steps; the fused conv:
-    # the served ResNet requests)
+    # the served requests plus the timed training steps at both lengths;
+    # the merged backward: the timed training steps; the two-pass
+    # backward: the timed long-context steps, its numbers at their shape,
+    # the training shape's beside them; the fused conv: the served ResNet
+    # requests)
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
                         'bfloat16', True)]
+    long_shape = bres[LONG_CASE]
     bwd_src = 'paddle_tpu_torch/csrc/flash_attn_bwd.cu'
     kernels = [dict(
         name='flash_attn_fwd', route='cuda',
         source='paddle_tpu_torch/csrc/flash_attn_fwd.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:85',
         launches=launches['flash_attn_fwd'] +
-        trained['launches']['flash_attn_fwd'], **main_shape)]
-    for name, line, count in (
-            ('flash_attn_bwd_dkvdq', 310, trained['launches']),
-            ('flash_attn_bwd_dq', 245, trained['route_launches']),
-            ('flash_attn_bwd_dkv', 273, trained['route_launches'])):
+        trained['launches']['flash_attn_fwd'] +
+        long_trained['launches']['flash_attn_fwd'], **main_shape)]
+    kernels.append(dict(
+        name='flash_attn_bwd_dkvdq', route='cuda', source=bwd_src,
+        replaces='paddle_tpu/ops/pallas_kernels.py:310',
+        launches=trained['launches']['flash_attn_bwd_dkvdq'],
+        **train_shape['flash_attn_bwd_dkvdq']))
+    for name, line in (('flash_attn_bwd_dq', 245),
+                       ('flash_attn_bwd_dkv', 273)):
         kernels.append(dict(
             name=name, route='cuda', source=bwd_src,
             replaces='paddle_tpu/ops/pallas_kernels.py:%d' % line,
-            launches=count[name], **train_shape[name]))
+            launches=long_trained['launches'][name],
+            training_shape=train_shape[name], **long_shape[name]))
     # the fused conv: its numbers summed over one batch-32 request's 53
     # regions (bf16, as the served model runs them)
     kernels.append(dict(

@@ -23,55 +23,89 @@
 // delta are [B, H, T] f32.
 //
 // What bounds it on this card. At the flagship training shape (T 2048,
-// D 128, causal) the backward does five T x T x D products per head, about
-// T/2 multiply-adds per byte it must move: the tensor-core rate bounds it,
-// not HBM. As in the forward, the [T, T] matrices never leave the SM.
-// Reaching that rate takes wgmma with operands that TMA keeps arriving
-// while the math runs.
+// D 128, causal) the merged backward does five T x T x D products per head
+// (the dq pass three, the dk/dv pass four), about T/2 multiply-adds per
+// byte it must move: the tensor-core rate bounds it, not HBM. As in the
+// forward, the [T, T] matrices never leave the SM. Reaching that rate
+// takes wgmma with operands that TMA keeps arriving while the math runs.
 //
-// The merged kernel, bf16 at D 64 and 128 (the flagship's route):
-//   * one block of three warpgroups per (b*h, 128-key tile); dK and dV
-//     (f32) stay in the registers of two consumer warpgroups, 64 keys
-//     each (setmaxnreg 240); warpgroup 0 (setmaxnreg 24) holds the
-//     producer warp, which loads K and V once by TMA, then streams 64-query
-//     tiles of Q and dO (TMA, 128-byte swizzle) with their lse and delta
-//     through a two-stage ring, a full and an empty mbarrier per stage,
-//     and the dq writer warp;
-//   * per query tile each consumer computes S^T = K Q^T and dP^T = V dO^T
-//     on wgmma (both operands from shared memory), so P^T and dS^T come
-//     out of the accumulators in the register A-fragment layout of
-//     dV += P^T dO and dK += dS^T Q, which run on wgmma with Q and dO as
-//     transposed (MN-major) B operands; dS^T also goes to shared memory
-//     (swizzled as TMA would), and each consumer computes half of the head
-//     dim of the tile's dq partial, dQ = dS K over the block's 128 keys,
-//     on wgmma with both operands transposed;
-//   * the dq partials are added in a fixed order, so the result is the
+// bf16 at D 64 and 128 runs on three wgmma kernels, each one block of
+// three warpgroups: warpgroup 0 (setmaxnreg 24) holds a producer warp that
+// issues TMA loads (128-byte swizzle) into rings of stages in shared
+// memory, a full and an empty mbarrier per stage; warpgroups 1 and 2 are
+// consumers (setmaxnreg 240). The kv-major kernels share one recompute
+// (issue_st_dpt, kv_p_ds); the q-major pass has its counterpart
+// (issue_s_dp, dq_p_ds). Only tiles that cross the diagonal or the ragged
+// edge are masked; causal blocks skip what the mask hides (the Pallas
+// _qi_clamp and _kb_clamp skips).
+//
+// flash_bwd_wgmma_kernel<D, MERGED>, kv-major, one block per (b*h,
+// 128-key tile): dK and dV (f32) stay in the registers of the two
+// consumers, 64 keys each; the producer warp loads K and V once, then
+// streams 64-query tiles of Q and dO with their lse and delta. Per query
+// tile each consumer computes S^T = K Q^T and dP^T = V dO^T on wgmma (both
+// operands from shared memory), so P^T and dS^T come out of the
+// accumulators in the register A-fragment layout of dV += P^T dO and
+// dK += dS^T Q, which run on wgmma with Q and dO as transposed (MN-major)
+// B operands.
+//   * MERGED (flash_attn_bwd_dkvdq, the training shape's route): dS^T
+//     also goes to shared memory (swizzled as TMA would), and each
+//     consumer computes half of the head dim of the tile's dq partial,
+//     dQ = dS K over the block's 128 keys, on wgmma with both operands
+//     transposed; that product needs both halves of dS, so the consumers
+//     meet at every query tile, and the staging leaves a ring of 2 stages.
+//     The dq partials are added in a fixed order, so the result is the
 //     same bit for bit from run to run (the Pallas kernel writes per-block
 //     slabs that XLA sums: also a fixed order). The consumers stage the
 //     tile's partial in shared memory in their registers' order (the f32
 //     dq buffer keeps that order; the wrapper restores [B, T, H, D]) and
 //     go on. Each (b*h, query tile) has an int32 counter in a zeroed
-//     scratch buffer; the writer warp waits until it names the block's
-//     turn (acquire), adds the whole tile with one bulk f32 reduction
-//     (cp.reduce.async.bulk; the first turn stores it with a bulk copy),
-//     waits for its writes and advances the counter (release). Turns go in
-//     descending key-tile order and key tiles are launched from the last
-//     (heads in groups of 16), so a block only waits on blocks the hardware
-//     dispatched before it, whatever the grid; a block walks its query
-//     tiles upward, so on the causal path its predecessor (which started
-//     on a later diagonal) has usually passed the tile already;
-//   * causal blocks start at the diagonal (the Pallas _qi_clamp skip) and
-//     only tiles that cross it or the ragged edge are masked.
+//     scratch buffer; a writer warp of warpgroup 0 waits until it names
+//     the block's turn (acquire), adds the whole tile with one bulk f32
+//     reduction (cp.reduce.async.bulk; the first turn stores it with a
+//     bulk copy), waits for its writes and advances the counter (release).
+//     Turns go in descending key-tile order and key tiles are launched
+//     from the last (heads in groups of 16), so a block only waits on
+//     blocks the hardware dispatched before it, whatever the grid; a block
+//     walks its query tiles upward, so on the causal path its predecessor
+//     (which started on a later diagonal) has usually passed the tile.
+//   * !MERGED (flash_attn_bwd_dkv, the dk/dv pass of the two-pass route):
+//     no dS^T staging, dq tile, counter or writer warp. The consumers meet
+//     only at their turns on the tensor cores (named barriers, as in the
+//     forward): each issues its S^T / dP^T products and its dV / dK
+//     products in turn, so one consumer's exp and dS math runs under the
+//     other's products; the freed shared memory deepens the Q/dO ring to
+//     4 stages. The heaviest key tiles (on the causal path, the first) are
+//     launched first. Every dk and dv element is written once.
+//
+// flash_bwd_dq_wgmma_kernel<D> (flash_attn_bwd_dq, the dq pass), q-major
+// and laid out like the forward: one block per (b*h, 128-query tile),
+// heads in groups of 16 so that a group's K and V stay in L2, the
+// heaviest causal tiles first. The producer loads the block's Q and dO
+// once and streams K and V tiles (64 keys at D 128, where the dQ
+// accumulator takes 64 registers a thread, 128 at D 64) from the last to
+// the first through a three-stage ring; each consumer (64 query rows) holds
+// its rows' lse and delta in registers and per key tile computes S =
+// Q K^T and dP = dO V^T on wgmma, P and dS in registers (exp2 with the
+// scale folded in), dS rounded to bf16 and re-packed as the A fragment of
+// dQ += dS K, K the MN-major B operand. Tile i's S and dP are issued with
+// tile i-1's dQ product, so one wait covers both, and the consumers take
+// the tensor cores in turns. Every dq element is written once.
+//
+// The two-pass route recomputes S and dP in both passes (seven T x T x D
+// products against the merged kernel's five): it is for shapes where the
+// merged kernel's f32 dq buffer passes the wrapper's cap (long context),
+// and gives the same bits on every call.
+//
 // The other variants keep the first design: mma.sync.m16n8k16 for bf16
-// (4 warps; kv-major blocks of 64 keys, 32 queries a step, computing S^T so
-// that P^T and dS^T stay in registers; q-major dq blocks of 64 queries) and
-// scalar FMA in full f32 for f32 (256 threads, 32 x 32 tiles). Their
-// merged kernels (bf16 at D 32, f32) add dq in the same fixed order, one
+// at D 32 (4 warps; kv-major blocks of 64 keys, 32 queries a step,
+// computing S^T so that P^T and dS^T stay in registers; q-major dq blocks
+// of 64 queries) and scalar FMA in full f32 for f32 (256 threads, 32 x 32
+// tiles). Their merged kernels add dq in the same fixed order, one
 // counter per 32-query tile, each block with plain L2 loads and stores
-// into a [B, T, H, D] f32 buffer. The two-pass route (dq, dk/dv) writes
-// every gradient once and needs no counter. In every kernel the ragged
-// edge (T not a multiple of the tile) is masked: rows past T are
-// zero-filled, scored as masked (p = 0) and never stored.
+// into a [B, T, H, D] f32 buffer. In every kernel the ragged edge (T not
+// a multiple of the tile) is masked: rows past T are zero-filled, scored
+// as masked (p = 0) or left out, and never stored.
 // The kernels launch on the caller's stream and allocate nothing.
 
 #include "common.cuh"
@@ -649,18 +683,21 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(const Params p) {
   }
 }
 
-// ---- bf16, D 64 and 128, merged: wgmma, TMA, a Q/dO ring ----------------
+// ---- bf16, D 64 and 128: wgmma, TMA -----------------------------------------
+// The kv-major kernel (the merged kernel, and without dq the dk/dv pass)
 constexpr int kWgBN = 128;     // keys per block (64 per consumer warpgroup)
 constexpr int kWgBM = 64;      // queries per step
-constexpr int kWgStages = 2;   // Q/dO ring depth
 constexpr int kWgThreads = 384;
+constexpr int kWgKVSub = kWgBN * 128;  // one 64-column sub-tile of K or V
+constexpr int kWgQSub = kWgBM * 128;   // one of a Q or dO tile
 
 struct alignas(64) WgParams {
   CUtensorMap tq, tk, tv, tdo;  // [B, T, H, D] bf16, boxes of 64 columns
   const float* lse;
   const float* delta;
-  float* dq_accum;
-  int* counters;
+  float* dq_accum;  // the merged kernel
+  int* counters;    // the merged kernel
+  bf16* dq;         // the dq pass
   bf16* dk;
   bf16* dv;
   int T;
@@ -673,73 +710,148 @@ struct alignas(64) WgParams {
 };
 
 // shared memory, in bytes from a 1024-aligned base: K and V (the block's),
-// the ring's Q and dO tiles, two dS^T tiles, the ring's lse and delta, the
-// staged dq partial and the mbarriers; every bf16 tile is D/64 sub-tiles of
-// [rows][64]
-template <int D>
+// the ring's Q and dO tiles, (merged) two dS^T tiles, the ring's lse and
+// delta, (merged) the staged dq partial, and the mbarriers; every bf16
+// tile is D/64 sub-tiles of [rows][64]. The merged kernel's staging leaves
+// room for a ring of 2 stages; the dk/dv pass takes 4.
+template <int D, bool MERGED>
 struct WgBwdSmem {
+  static constexpr int kStages = MERGED ? 2 : 4;  // Q/dO ring depth
   static constexpr int kKV = kWgBN * D * 2;
   static constexpr int kQ = kWgBM * D * 2;
-  static constexpr int kKVSub = kWgBN * 128;
-  static constexpr int kQSub = kWgBM * 128;
   static constexpr int kDS = kWgBN * kWgBM * 2;  // [128 keys][64 queries]
   static constexpr int kDQ = kWgBM * D * 4;      // one dq tile, f32
   static constexpr int k = 0;
   static constexpr int v = kKV;
   static constexpr int q = 2 * kKV;
-  static constexpr int dout = q + kWgStages * kQ;
-  static constexpr int ds = dout + kWgStages * kQ;
-  static constexpr int dq = ds + 2 * kDS;
-  static constexpr int stats = dq + kDQ;  // [stage][lse, delta][64] f32
-  static constexpr int bars = stats + kWgStages * 2 * kWgBM * 4;
-  static constexpr int total = bars + 64 + 1024;  // + alignment slack
+  static constexpr int dout = q + kStages * kQ;
+  static constexpr int ds = dout + kStages * kQ;
+  static constexpr int dq = ds + (MERGED ? 2 * kDS : 0);
+  // [stage][lse, delta][64] f32
+  static constexpr int stats = dq + (MERGED ? kDQ : 0);
+  static constexpr int bars = stats + kStages * 2 * kWgBM * 4;
+  static constexpr int total = bars + 128 + 1024;  // + alignment slack
 };
 
+// S^T = K Q^T and dP^T = V dO^T for one consumer: its 64 keys x the
+// tile's 64 queries, depth D, both operands K-major in shared memory
 template <int D>
+__device__ __forceinline__ void issue_st_dpt(float (&sc)[kWgBM / 2],
+                                             float (&dp)[kWgBM / 2],
+                                             uint32_t sK, uint32_t sV,
+                                             uint32_t sQ, uint32_t sDO,
+                                             int cw) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t ka = (kk >> 2) * kWgKVSub + cw * 64 * 128 + (kk & 3) * 32;
+    const uint32_t qb = (kk >> 2) * kWgQSub + (kk & 3) * 32;
+    wgmma_ss<kWgBM, 0, 0>(sc, desc_k(sK + ka), desc_k(sQ + qb), kk > 0);
+    wgmma_ss<kWgBM, 0, 0>(dp, desc_k(sV + ka), desc_k(sDO + qb), kk > 0);
+  }
+}
+
+// P^T and dS^T from the S^T and dP^T accumulators (rows are this
+// consumer's keys, columns the tile's queries; `st` holds the queries'
+// lse_log2 and delta), rounded to bf16 A fragments (the Pallas rounding
+// points). Only a tile that crosses the diagonal or the ragged edge is
+// masked.
+__device__ __forceinline__ void kv_p_ds(float (&sc)[kWgBM / 2],
+                                        float (&dp)[kWgBM / 2],
+                                        uint32_t (&pa)[kWgBM / 16][4],
+                                        uint32_t (&da)[kWgBM / 16][4],
+                                        const float* st, int q0, int kw0,
+                                        int warp, int g, int t4, int T,
+                                        int causal, float scale_log2) {
+  const bool masked =
+      (causal && q0 <= kw0) || q0 + kWgBM > T || kw0 + 64 > T;
+#pragma unroll
+  for (int jn = 0; jn < kWgBM / 8; ++jn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ql = 8 * jn + 2 * t4 + (e & 1);
+      float pe = exp2f(sc[4 * jn + e] * scale_log2 - st[ql]);
+      if (masked) {
+        const int key = kw0 + 16 * warp + g + (e >= 2 ? 8 : 0);
+        const int q = q0 + ql;
+        if (q >= T || key >= T || (causal && key > q)) pe = 0.f;
+      }
+      sc[4 * jn + e] = pe;
+      dp[4 * jn + e] = pe * (dp[4 * jn + e] - st[kWgBM + ql]);
+    }
+  }
+#pragma unroll
+  for (int jn = 0; jn < kWgBM / 8; ++jn) {
+    const int c = (jn & 1) * 2;
+    pa[jn >> 1][c] = pack_bf16(sc[4 * jn], sc[4 * jn + 1]);
+    pa[jn >> 1][c + 1] = pack_bf16(sc[4 * jn + 2], sc[4 * jn + 3]);
+    da[jn >> 1][c] = pack_bf16(dp[4 * jn], dp[4 * jn + 1]);
+    da[jn >> 1][c + 1] = pack_bf16(dp[4 * jn + 2], dp[4 * jn + 3]);
+  }
+}
+
+// dV += P^T dO and dK += dS^T Q: P^T and dS^T from registers, dO and Q the
+// MN-major B operands
+template <int D>
+__device__ __forceinline__ void issue_dv_dk(
+    float (&dv)[D / 2], float (&dk)[D / 2],
+    const uint32_t (&pa)[kWgBM / 16][4], const uint32_t (&da)[kWgBM / 16][4],
+    uint32_t sQ, uint32_t sDO) {
+#pragma unroll
+  for (int kk = 0; kk < kWgBM / 16; ++kk) {
+    wgmma_rs<D, 1>(dv, pa[kk], desc_mn(sDO + kk * 2048, kWgQSub), 1);
+    wgmma_rs<D, 1>(dk, da[kk], desc_mn(sQ + kk * 2048, kWgQSub), 1);
+  }
+}
+
+template <int D, bool MERGED>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_wgmma_kernel(const __grid_constant__ WgParams p) {
-  using L = WgBwdSmem<D>;
+  using L = WgBwdSmem<D, MERGED>;
   constexpr int kSub = D / 64;
+  constexpr int kStages = L::kStages;
   constexpr int kHalf = D / 2;  // each consumer's share of dq's columns
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   unsigned char* smem = align1024(smem_wg);
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* full = bar_kv + 1;
-  uint64_t* empty = full + kWgStages;
-  uint64_t* dq_full = empty + kWgStages;
+  uint64_t* empty = full + kStages;
+  uint64_t* dq_full = empty + kStages;
   uint64_t* dq_empty = dq_full + 1;
   float* stats = reinterpret_cast<float*>(smem + L::stats);
   float* dqs = reinterpret_cast<float*>(smem + L::dq);
 
-  // key tiles are launched from the last, so a block's predecessors in
-  // the dq order were dispatched before it
+  // the merged kernel launches key tiles from the last, so a block's
+  // predecessors in the dq order were dispatched before it; the dk/dv pass
+  // launches the heaviest (on the causal path, the first) first
   const int T = p.T, H = p.H;
   const int n_kv = (T + kWgBN - 1) / kWgBN;
   int bh, rank;
   group_order(blockIdx.x, p.BH, n_kv, bh, rank);
   const int b = bh / H, h = bh % H;
-  const int kt = n_kv - 1 - rank;
+  const int kt = MERGED ? n_kv - 1 - rank : rank;
   const int k0 = kt * kWgBN;
   const int it0 = p.causal ? k0 / kWgBM : 0;  // from the diagonal on
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 32);       // the producer warp's lanes
       mbar_init(&empty[s], 2 * 128);  // every consumer thread
     }
-    mbar_init(dq_full, 2 * 128);
-    mbar_init(dq_empty, 1);           // the dq writer
+    if (MERGED) {
+      mbar_init(dq_full, 2 * 128);
+      mbar_init(dq_empty, 1);         // the dq writer
+    }
     fence_mbar_init();
   }
   __syncthreads();
 
   if (wg == 0) {
     // ---- producer: warp 0 loads K and V once, then Q, dO, lse and delta
-    // per step; warp 1 adds the dq partials into dq_accum
+    // per step; (merged) warp 1 adds the dq partials into dq_accum
     setmaxnreg_dec<24>();
-    if (threadIdx.x == 32) {
+    if (MERGED && threadIdx.x == 32) {
       // the fixed-order add of each step's staged dq tile: wait for this
       // block's turn, then one bulk copy (the first turn) or bulk f32 add
       // of the whole tile, completed before the counter moves on
@@ -766,17 +878,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (lane == 0) {
         mbar_arrive_expect_tx(bar_kv, 2 * L::kKV);
         for (int c = 0; c < kSub; ++c) {
-          tma_load_4d(smem + L::k + c * L::kKVSub, &p.tk, bar_kv, c * 64, h,
+          tma_load_4d(smem + L::k + c * kWgKVSub, &p.tk, bar_kv, c * 64, h,
                       k0, b);
-          tma_load_4d(smem + L::v + c * L::kKVSub, &p.tv, bar_kv, c * 64, h,
+          tma_load_4d(smem + L::v + c * kWgKVSub, &p.tv, bar_kv, c * 64, h,
                       k0, b);
         }
       }
       const float* lse = p.lse + (long)bh * T;
       const float* delta = p.delta + (long)bh * T;
       for (int it = it0; it < p.n_q; ++it) {
-        const int i = it - it0, s = i % kWgStages, q0 = it * kWgBM;
-        mbar_wait(&empty[s], ((i / kWgStages) & 1) ^ 1);
+        const int i = it - it0, s = i % kStages, q0 = it * kWgBM;
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
         float* st = stats + s * 2 * kWgBM;
         for (int r = lane; r < kWgBM; r += 32) {
           const int q = q0 + r;
@@ -786,9 +898,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         if (lane == 0) {
           mbar_arrive_expect_tx(&full[s], 2 * L::kQ);
           for (int c = 0; c < kSub; ++c) {
-            tma_load_4d(smem + L::q + s * L::kQ + c * L::kQSub, &p.tq,
+            tma_load_4d(smem + L::q + s * L::kQ + c * kWgQSub, &p.tq,
                         &full[s], c * 64, h, q0, b);
-            tma_load_4d(smem + L::dout + s * L::kQ + c * L::kQSub, &p.tdo,
+            tma_load_4d(smem + L::dout + s * L::kQ + c * kWgQSub, &p.tdo,
                         &full[s], c * 64, h, q0, b);
           }
         } else {
@@ -806,9 +918,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int g = lane >> 2, t4 = lane & 3;
     const int kw0 = k0 + 64 * cw;
     const uint32_t sK = smem_u32(smem + L::k), sV = smem_u32(smem + L::v);
-    // this consumer's columns of K for the dq product
-    const uint32_t sKh =
-        sK + (cw * kHalf / 64) * L::kKVSub + (cw * kHalf % 64) * 2;
     const long rs = (long)H * D;
     const long head_off = ((long)b * T * H + h) * D;
 
@@ -816,113 +925,96 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
 
+    if (!MERGED && cw == 1) turn_pass(cw);  // consumer 0 takes the first turn
     mbar_wait(bar_kv, 0);
     for (int it = it0; it < p.n_q; ++it) {
-      const int i = it - it0, s = i % kWgStages, q0 = it * kWgBM;
-      mbar_wait(&full[s], (i / kWgStages) & 1);
+      const int i = it - it0, s = i % kStages, q0 = it * kWgBM;
+      mbar_wait(&full[s], (i / kStages) & 1);
       const uint32_t sQ = smem_u32(smem + L::q + s * L::kQ);
       const uint32_t sDO = smem_u32(smem + L::dout + s * L::kQ);
-      const float* st = stats + s * 2 * kWgBM;
 
-      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, depth D
       float sc[kWgBM / 2], dp[kWgBM / 2];
+      if (!MERGED) turn_wait(cw);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t ka =
-            (kk >> 2) * L::kKVSub + cw * 64 * 128 + (kk & 3) * 32;
-        const uint32_t qb = (kk >> 2) * L::kQSub + (kk & 3) * 32;
-        wgmma_ss<kWgBM, 0, 0>(sc, desc_k(sK + ka), desc_k(sQ + qb), kk > 0);
-        wgmma_ss<kWgBM, 0, 0>(dp, desc_k(sV + ka), desc_k(sDO + qb), kk > 0);
-      }
+      issue_st_dpt<D>(sc, dp, sK, sV, sQ, sDO, cw);
       wgmma_commit();
+      if (!MERGED) turn_pass(cw);
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
-
-      // p = exp2(s * scale_log2 - lse_log2), ds = p (dp - delta); only a
-      // tile that crosses the diagonal or the ragged edge is masked
-      const bool masked =
-          (p.causal && q0 <= kw0) || q0 + kWgBM > T || kw0 + 64 > T;
-#pragma unroll
-      for (int jn = 0; jn < kWgBM / 8; ++jn) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = 8 * jn + 2 * t4 + (e & 1);
-          float pe = exp2f(sc[4 * jn + e] * p.scale_log2 - st[ql]);
-          if (masked) {
-            const int key = kw0 + 16 * warp + g + (e >= 2 ? 8 : 0);
-            const int q = q0 + ql;
-            if (q >= T || key >= T || (p.causal && key > q)) pe = 0.f;
-          }
-          sc[4 * jn + e] = pe;
-          dp[4 * jn + e] = pe * (dp[4 * jn + e] - st[kWgBM + ql]);
-        }
-      }
-      // bf16 (the Pallas rounding points) A fragments of P^T and dS^T
       uint32_t pa[kWgBM / 16][4], da[kWgBM / 16][4];
+      kv_p_ds(sc, dp, pa, da, stats + s * 2 * kWgBM, q0, kw0, warp, g, t4, T,
+              p.causal, p.scale_log2);
+
+      if constexpr (!MERGED) {
+        // the dk/dv pass: the consumers meet only at their turns, so one's
+        // exp and dS math runs under the other's products
+        turn_wait(cw);
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+        issue_dv_dk<D>(dv, dk, pa, da, sQ, sDO);
+        wgmma_commit();
+        if (cw == 0 || it + 1 < p.n_q) turn_pass(cw);  // 1 takes the last
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(da);
+        mbar_arrive(&empty[s]);  // this thread is done with stage s
+      } else {
+        // dS^T into shared memory for the dq product: [128 keys][64
+        // queries], 128-byte rows swizzled as TMA would (chunk ^ row % 8)
+        unsigned char* ds_tile = smem + L::ds + (i & 1) * L::kDS;
+        const int r0 = 64 * cw + 16 * warp + g;  // and r0 + 8; r0 % 8 == g
 #pragma unroll
-      for (int jn = 0; jn < kWgBM / 8; ++jn) {
-        const int c = (jn & 1) * 2;
-        pa[jn >> 1][c] = pack_bf16(sc[4 * jn], sc[4 * jn + 1]);
-        pa[jn >> 1][c + 1] = pack_bf16(sc[4 * jn + 2], sc[4 * jn + 3]);
-        da[jn >> 1][c] = pack_bf16(dp[4 * jn], dp[4 * jn + 1]);
-        da[jn >> 1][c + 1] = pack_bf16(dp[4 * jn + 2], dp[4 * jn + 3]);
+        for (int jn = 0; jn < kWgBM / 8; ++jn) {
+          const int off = ((jn ^ g) << 4) + t4 * 4;
+          *reinterpret_cast<uint32_t*>(ds_tile + r0 * 128 + off) =
+              da[jn >> 1][(jn & 1) * 2];
+          *reinterpret_cast<uint32_t*>(ds_tile + (r0 + 8) * 128 + off) =
+              da[jn >> 1][(jn & 1) * 2 + 1];
+        }
+        fence_proxy_async();
+
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+        issue_dv_dk<D>(dv, dk, pa, da, sQ, sDO);
+        wgmma_commit();
+
+        // both consumers' dS^T are in place: this consumer's half of the
+        // tile's dq partial, dS K over the block's 128 keys (both operands
+        // MN-major)
+        named_bar_sync(1, 2 * 128);
+        float dq[kHalf / 2];
+        const uint32_t sDS = smem_u32(ds_tile);
+        // this consumer's columns of K
+        const uint32_t sKh =
+            sK + (cw * kHalf / 64) * kWgKVSub + (cw * kHalf % 64) * 2;
+#pragma unroll
+        for (int kk = 0; kk < kWgBN / 16; ++kk)
+          wgmma_ss<kHalf, 1, 1>(dq, desc_mn(sDS + kk * 2048, L::kDS),
+                                desc_mn(sKh + kk * 2048, kWgKVSub), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(dq);
+        fence_regs(pa);
+        fence_regs(da);
+        mbar_arrive(&empty[s]);  // this thread is done with stage s
+
+        // the scaled dq partial to the staging tile, in register order
+        // ([consumer][register][thread], so the stores are conflict-free):
+        // dq_accum keeps that order (flash_bwd_dkvdq restores [B, T, H, D])
+        mbar_wait(dq_empty, (i & 1) ^ 1);
+        float* dst = dqs + cw * (kHalf / 2) * 128 + tid;
+#pragma unroll
+        for (int r = 0; r < kHalf / 2; ++r) dst[r * 128] = dq[r] * p.scale;
+        fence_proxy_async();
+        mbar_arrive(dq_full);
       }
-
-      // dS^T into shared memory for the dq product: [128 keys][64
-      // queries], 128-byte rows swizzled as TMA would (chunk ^ row % 8)
-      unsigned char* ds_tile = smem + L::ds + (i & 1) * L::kDS;
-      const int r0 = 64 * cw + 16 * warp + g;  // and r0 + 8; r0 % 8 == g
-#pragma unroll
-      for (int jn = 0; jn < kWgBM / 8; ++jn) {
-        const int off = ((jn ^ g) << 4) + t4 * 4;
-        *reinterpret_cast<uint32_t*>(ds_tile + r0 * 128 + off) =
-            da[jn >> 1][(jn & 1) * 2];
-        *reinterpret_cast<uint32_t*>(ds_tile + (r0 + 8) * 128 + off) =
-            da[jn >> 1][(jn & 1) * 2 + 1];
-      }
-      fence_proxy_async();
-
-      // dV += P^T dO and dK += dS^T Q: dO and Q are MN-major B operands
-      fence_regs(dv);
-      fence_regs(dk);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kWgBM / 16; ++kk) {
-        wgmma_rs<D, 1>(dv, pa[kk], desc_mn(sDO + kk * 2048, L::kQSub), 1);
-        wgmma_rs<D, 1>(dk, da[kk], desc_mn(sQ + kk * 2048, L::kQSub), 1);
-      }
-      wgmma_commit();
-
-      // both consumers' dS^T are in place: this consumer's half of the
-      // tile's dq partial, dS K over the block's 128 keys (both operands
-      // MN-major)
-      named_bar_sync(1, 2 * 128);
-      float dq[kHalf / 2];
-      const uint32_t sDS = smem_u32(ds_tile);
-#pragma unroll
-      for (int kk = 0; kk < kWgBN / 16; ++kk)
-        wgmma_ss<kHalf, 1, 1>(dq, desc_mn(sDS + kk * 2048, L::kDS),
-                              desc_mn(sKh + kk * 2048, L::kKVSub), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv);
-      fence_regs(dk);
-      fence_regs(dq);
-      fence_regs(pa);
-      fence_regs(da);
-      mbar_arrive(&empty[s]);  // this thread is done with stage s
-
-      // the scaled dq partial to the staging tile, in register order
-      // ([consumer][register][thread], so the stores are conflict-free):
-      // dq_accum keeps that order (flash_bwd_dkvdq restores [B, T, H, D])
-      mbar_wait(dq_empty, (i & 1) ^ 1);
-      float* dst = dqs + cw * (kHalf / 2) * 128 + tid;
-#pragma unroll
-      for (int r = 0; r < kHalf / 2; ++r) dst[r * 128] = dq[r] * p.scale;
-      fence_proxy_async();
-      mbar_arrive(dq_full);
     }
 
     const int ka = kw0 + 16 * warp + g, kb = ka + 8;
@@ -947,6 +1039,261 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ---- bf16, D 64 and 128, the dq pass: q-major, wgmma, a K/V ring ----------
+constexpr int kDqBM = 128;    // queries per block (64 per consumer warpgroup)
+// K/V ring depth: K of tile i-1 is held until tile i's products are done
+// (dQ += dS K is issued with the next tile's S), so a two-stage ring lets
+// the producer run only one tile ahead
+constexpr int kDqStages = 3;
+
+// keys per K/V tile: 64 at D 128, where the dQ accumulator takes 64
+// registers a thread beside S and dP, else 128
+template <int D>
+constexpr int dq_bn() {
+  return D == 128 ? 64 : 128;
+}
+
+// shared memory, in bytes from a 1024-aligned base: Q and dO (the
+// block's), the ring's K and V tiles, the mbarriers; every tile is D/64
+// sub-tiles of [rows][64] bf16
+template <int D>
+struct WgDqSmem {
+  static constexpr int kBN = dq_bn<D>();
+  static constexpr int kQ = kDqBM * D * 2;  // Q or dO
+  static constexpr int kKV = kBN * D * 2;   // one K or V tile
+  static constexpr int kQSub = kDqBM * 128;
+  static constexpr int kKVSub = kBN * 128;
+  static constexpr int q = 0;
+  static constexpr int dout = kQ;
+  static constexpr int k = 2 * kQ;
+  static constexpr int v = k + kDqStages * kKV;
+  static constexpr int bars = v + kDqStages * kKV;
+  static constexpr int total = bars + 128 + 1024;  // + alignment slack
+};
+
+// S = Q K^T and dP = dO V^T for one consumer: its 64 queries x BN keys,
+// depth D, both operands K-major
+template <int D>
+__device__ __forceinline__ void issue_s_dp(float (&sc)[dq_bn<D>() / 2],
+                                           float (&dp)[dq_bn<D>() / 2],
+                                           uint32_t sQ, uint32_t sDO,
+                                           uint32_t sK, uint32_t sV) {
+  using L = WgDqSmem<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t qa = (kk >> 2) * L::kQSub + (kk & 3) * 32;
+    const uint32_t kb = (kk >> 2) * L::kKVSub + (kk & 3) * 32;
+    wgmma_ss<L::kBN, 0, 0>(sc, desc_k(sQ + qa), desc_k(sK + kb), kk > 0);
+    wgmma_ss<L::kBN, 0, 0>(dp, desc_k(sDO + qa), desc_k(sV + kb), kk > 0);
+  }
+}
+
+// dQ += dS K: dS from registers, K [keys][D] the MN-major B operand
+template <int D>
+__device__ __forceinline__ void issue_dq(
+    float (&dq)[D / 2], const uint32_t (&da)[dq_bn<D>() / 16][4],
+    uint32_t sK) {
+  using L = WgDqSmem<D>;
+#pragma unroll
+  for (int kk = 0; kk < L::kBN / 16; ++kk)
+    wgmma_rs<D, 1>(dq, da[kk], desc_mn(sK + kk * 2048, L::kKVSub), 1);
+}
+
+// dS from the S and dP accumulators (rows are this thread's queries
+// row_a and row_a + 8, whose lse_log2 and delta it holds), rounded to
+// bf16 A fragments for dQ += dS K. `masked`: the tile crosses the diagonal
+// or the keys' ragged edge (query rows past T are never stored).
+template <int BN>
+__device__ __forceinline__ void dq_p_ds(float (&sc)[BN / 2],
+                                        float (&dp)[BN / 2],
+                                        uint32_t (&da)[BN / 16][4],
+                                        bool masked, int k0, int row_a,
+                                        const float (&lse2)[2],
+                                        const float (&dlt)[2], int t4, int T,
+                                        int causal, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float pe = exp2f(sc[4 * j + e] * scale_log2 - lse2[r]);
+      if (masked) {
+        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+        if (key >= T || (causal && key > row_a + 8 * r)) pe = 0.f;
+      }
+      dp[4 * j + e] = pe * (dp[4 * j + e] - dlt[r]);
+    }
+    da[j >> 1][(j & 1) * 2] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+    da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ WgParams p) {
+  using L = WgDqSmem<D>;
+  constexpr int kSub = D / 64, BN = L::kBN;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = align1024(smem_wg);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* k_full = bar_q + 1;
+  uint64_t* k_empty = k_full + kDqStages;
+  uint64_t* v_full = k_empty + kDqStages;
+  uint64_t* v_empty = v_full + kDqStages;
+
+  const int T = p.T, H = p.H;
+  const int n_qt = (T + kDqBM - 1) / kDqBM;
+  int bh, rank;
+  group_order(blockIdx.x, p.BH, n_qt, bh, rank);
+  const int b = bh / H, h = bh % H;
+  const int q0 = (n_qt - 1 - rank) * kDqBM;  // the heaviest first
+  const int kv_end = p.causal ? min(T, q0 + kDqBM) : T;
+  const int n_kt = (kv_end + BN - 1) / BN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], 2 * 128);  // every consumer thread
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 2 * 128);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: Q and dO once, then K and V tiles from the last to
+    // the first (the one tile that can cross the diagonal first)
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * L::kQ);
+      for (int c = 0; c < kSub; ++c) {
+        tma_load_4d(smem + L::q + c * L::kQSub, &p.tq, bar_q, c * 64, h, q0,
+                    b);
+        tma_load_4d(smem + L::dout + c * L::kQSub, &p.tdo, bar_q, c * 64, h,
+                    q0, b);
+      }
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % kDqStages, k0 = (n_kt - 1 - i) * BN;
+        const uint32_t ph = ((i / kDqStages) & 1) ^ 1;
+        mbar_wait(&k_empty[s], ph);
+        mbar_arrive_expect_tx(&k_full[s], L::kKV);
+        for (int c = 0; c < kSub; ++c)
+          tma_load_4d(smem + L::k + s * L::kKV + c * L::kKVSub, &p.tk,
+                      &k_full[s], c * 64, h, k0, b);
+        mbar_wait(&v_empty[s], ph);
+        mbar_arrive_expect_tx(&v_full[s], L::kKV);
+        for (int c = 0; c < kSub; ++c)
+          tma_load_4d(smem + L::v + s * L::kKV + c * L::kKVSub, &p.tv,
+                      &v_full[s], c * 64, h, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each. Tile i's S and dP are issued
+    // with tile i-1's dQ += dS K, so one wait covers both, and the two
+    // consumers take the tensor cores in turns
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = q0 + 64 * cw;  // the consumer's first row
+    const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+    const uint32_t sQ = smem_u32(smem + L::q) + cw * 64 * 128;
+    const uint32_t sDO = smem_u32(smem + L::dout) + cw * 64 * 128;
+    const uint32_t sK0 = smem_u32(smem + L::k);
+    const uint32_t sV0 = smem_u32(smem + L::v);
+    const float* lse = p.lse + (long)bh * T;
+    const float* delta = p.delta + (long)bh * T;
+    const float lse2[2] = {row_a < T ? lse[row_a] * kLog2e : 0.f,
+                           row_b < T ? lse[row_b] * kLog2e : 0.f};
+    const float dlt[2] = {row_a < T ? delta[row_a] : 0.f,
+                          row_b < T ? delta[row_b] : 0.f};
+    // a tile crosses the diagonal (for this consumer's rows) or the ragged
+    // edge of the keys
+    auto masked = [&](int k0) {
+      return (p.causal && k0 + BN - 1 > r0) || k0 + BN > T;
+    };
+
+    float dq[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+    uint32_t da[BN / 16][4];  // dS of the previous tile, bf16
+
+    if (cw == 1) turn_pass(cw);  // consumer 0 takes the first turn
+    mbar_wait(bar_q, 0);
+    {  // tile 0 (the last): S and dP alone
+      const int k0 = (n_kt - 1) * BN;
+      float sc[BN / 2], dp[BN / 2];
+      mbar_wait(&k_full[0], 0);
+      mbar_wait(&v_full[0], 0);
+      turn_wait(cw);
+      wgmma_fence();
+      issue_s_dp<D>(sc, dp, sQ, sDO, sK0, sV0);
+      wgmma_commit();
+      turn_pass(cw);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(&v_empty[0]);
+      dq_p_ds<BN>(sc, dp, da, masked(k0), k0, row_a, lse2, dlt, t4, T,
+                  p.causal, p.scale_log2);
+    }
+    for (int i = 1; i < n_kt; ++i) {
+      const int s = i % kDqStages, sp = (i - 1) % kDqStages;
+      const uint32_t ph = (i / kDqStages) & 1;
+      float sc[BN / 2], dp[BN / 2];
+      mbar_wait(&k_full[s], ph);
+      mbar_wait(&v_full[s], ph);
+      turn_wait(cw);
+      fence_regs(dq);
+      wgmma_fence();
+      issue_dq<D>(dq, da, sK0 + sp * L::kKV);
+      issue_s_dp<D>(sc, dp, sQ, sDO, sK0 + s * L::kKV, sV0 + s * L::kKV);
+      wgmma_commit();
+      turn_pass(cw);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(da);
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(&k_empty[sp]);
+      mbar_arrive(&v_empty[s]);
+      const int k0 = (n_kt - 1 - i) * BN;
+      dq_p_ds<BN>(sc, dp, da, masked(k0), k0, row_a, lse2, dlt, t4, T,
+                  p.causal, p.scale_log2);
+    }
+    {  // the last tile's dQ += dS K
+      const int sp = (n_kt - 1) % kDqStages;
+      turn_wait(cw);
+      fence_regs(dq);
+      wgmma_fence();
+      issue_dq<D>(dq, da, sK0 + sp * L::kKV);
+      wgmma_commit();
+      if (cw == 0) turn_pass(cw);  // consumer 1 takes the last turn
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(da);
+      mbar_arrive(&k_empty[sp]);
+    }
+
+    const long rs = (long)H * D;
+    bf16* dqg = p.dq + ((long)b * T * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (row_a < T)
+        *reinterpret_cast<uint32_t*>(dqg + (long)row_a * rs + col) =
+            pack_bf16(dq[4 * j] * p.scale, dq[4 * j + 1] * p.scale);
+      if (row_b < T)
+        *reinterpret_cast<uint32_t*>(dqg + (long)row_b * rs + col) =
+            pack_bf16(dq[4 * j + 2] * p.scale, dq[4 * j + 3] * p.scale);
+    }
+  }
+}
+
 // ---- launchers -------------------------------------------------------------------
 enum Kind { kDq = 0, kDkv = 1, kDkvdq = 2 };
 
@@ -960,39 +1307,54 @@ cudaError_t launch(K kernel, dim3 grid, int threads, int smem, const P& p,
   return cudaGetLastError();
 }
 
+// the wgmma kernels: bf16 at D 64 and 128. Q and dO are loaded in boxes of
+// q_rows rows, K and V in boxes of kv_rows; one block per (b*h, tile) of
+// `tile` rows (queries for the dq pass, keys otherwise).
 template <int D>
-cudaError_t launch_wgmma(const Params& p, int B, int H, cudaStream_t stream) {
+cudaError_t launch_wgmma(Kind kind, const Params& p, int B, int H,
+                         cudaStream_t stream) {
+  const int q_rows = kind == kDq ? kDqBM : kWgBM;
+  const int kv_rows = kind == kDq ? dq_bn<D>() : kWgBN;
+  const int tile = kind == kDq ? kDqBM : kWgBN;
   WgParams w;
-  cudaError_t err = encode_bthd(&w.tq, p.q, B, p.T, H, D, kWgBM);
-  if (err == cudaSuccess) err = encode_bthd(&w.tk, p.k, B, p.T, H, D, kWgBN);
-  if (err == cudaSuccess) err = encode_bthd(&w.tv, p.v, B, p.T, H, D, kWgBN);
+  cudaError_t err = encode_bthd(&w.tq, p.q, B, p.T, H, D, q_rows);
+  if (err == cudaSuccess) err = encode_bthd(&w.tk, p.k, B, p.T, H, D, kv_rows);
+  if (err == cudaSuccess) err = encode_bthd(&w.tv, p.v, B, p.T, H, D, kv_rows);
   if (err == cudaSuccess)
-    err = encode_bthd(&w.tdo, p.dout, B, p.T, H, D, kWgBM);
+    err = encode_bthd(&w.tdo, p.dout, B, p.T, H, D, q_rows);
   if (err != cudaSuccess) return err;
   w.lse = p.lse;
   w.delta = p.delta;
   w.dq_accum = p.dq_accum;
   w.counters = p.counters;
+  w.dq = static_cast<bf16*>(p.dq);
   w.dk = static_cast<bf16*>(p.dk);
   w.dv = static_cast<bf16*>(p.dv);
   w.T = p.T;
   w.H = H;
   w.BH = B * H;
   w.causal = p.causal;
-  w.n_q = p.n_q;
+  w.n_q = (p.T + kWgBM - 1) / kWgBM;
   w.scale = p.scale;
   w.scale_log2 = p.scale_log2;
-  const long blocks = (long)B * H * ((p.T + kWgBN - 1) / kWgBN);
+  const long blocks = (long)B * H * ((p.T + tile - 1) / tile);
   if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
-  return launch(flash_bwd_wgmma_kernel<D>, dim3((unsigned)blocks), kWgThreads,
-                WgBwdSmem<D>::total, w, stream);
+  const dim3 grid((unsigned)blocks);
+  if (kind == kDq)
+    return launch(flash_bwd_dq_wgmma_kernel<D>, grid, kWgThreads,
+                  WgDqSmem<D>::total, w, stream);
+  if (kind == kDkv)
+    return launch(flash_bwd_wgmma_kernel<D, false>, grid, kWgThreads,
+                  WgBwdSmem<D, false>::total, w, stream);
+  return launch(flash_bwd_wgmma_kernel<D, true>, grid, kWgThreads,
+                WgBwdSmem<D, true>::total, w, stream);
 }
 
-template <int D>
-cudaError_t launch_bf16(Kind kind, const Params& p, int B, int H,
-                        cudaStream_t stream) {
-  constexpr int LDS = D + 8;
-  const int bytes = (int)sizeof(bf16), BH = B * H;
+// bf16 at D 32: mma.sync
+cudaError_t launch_mma_sync(Kind kind, const Params& p, int BH,
+                            cudaStream_t stream) {
+  constexpr int D = 32, LDS = D + 8;
+  const int bytes = (int)sizeof(bf16);
   if (kind == kDq) {
     const int smem = (2 * 64 + 2 * 32) * LDS * bytes + 2 * 64 * 4;
     return launch(flash_bwd_dq_bf16_kernel<D>, dim3(BH, (p.T + 63) / 64), 128,
@@ -1003,11 +1365,8 @@ cudaError_t launch_bf16(Kind kind, const Params& p, int B, int H,
   if (kind == kDkv)
     return launch(flash_bwd_kv_bf16_kernel<D, false>, grid, 128, base, p,
                   stream);
-  if constexpr (D == 32)
-    return launch(flash_bwd_kv_bf16_kernel<D, true>, grid, 128,
-                  base + 64 * (32 + 8) * bytes, p, stream);
-  else
-    return launch_wgmma<D>(p, B, H, stream);
+  return launch(flash_bwd_kv_bf16_kernel<D, true>, grid, 128,
+                base + 64 * (32 + 8) * bytes, p, stream);
 }
 
 template <int D>
@@ -1060,9 +1419,9 @@ int run(Kind kind, const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (is_bf16) {
-    if (D == 32) err = launch_bf16<32>(kind, p, B, H, st);
-    else if (D == 64) err = launch_bf16<64>(kind, p, B, H, st);
-    else if (D == 128) err = launch_bf16<128>(kind, p, B, H, st);
+    if (D == 32) err = launch_mma_sync(kind, p, BH, st);
+    else if (D == 64) err = launch_wgmma<64>(kind, p, B, H, st);
+    else if (D == 128) err = launch_wgmma<128>(kind, p, B, H, st);
   } else {
     if (D == 32) err = launch_f32<32>(kind, p, BH, st);
     else if (D == 64) err = launch_f32<64>(kind, p, BH, st);

@@ -181,16 +181,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
     wgmma_rs<D, 1>(o, pa[kk], desc_mn(sV + kk * 2048, kWgBN * 128), 1);
 }
 
-// The two consumers take the tensor cores in turns (named barriers 1 and
-// 2): one issues its products while the other runs its softmax.
-__device__ __forceinline__ void turn_wait(int cw) {
-  named_bar_sync(1 + cw, 2 * 128);
-}
-
-__device__ __forceinline__ void turn_pass(int cw) {
-  named_bar_arrive(2 - cw, 2 * 128);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ WgParams p) {

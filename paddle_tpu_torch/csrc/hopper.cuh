@@ -3,7 +3,8 @@
 // mbarriers, TMA stores, wgmma shared-memory descriptors for
 // 128-byte-swizzled tiles, the wgmma instructions (bf16 in, f32
 // accumulate; A from shared memory or from registers) with their
-// fence / commit / wait, setmaxnreg, named barriers, and the acquire /
+// fence / commit / wait, setmaxnreg, named barriers (and the consumers'
+// turns on them), and the acquire /
 // release counter that orders the flash backward's dq adds and the fused
 // conv's split-K adds.
 // ops/_build.py lists this header with common.cuh in HEADERS.
@@ -318,6 +319,20 @@ __device__ __forceinline__ void named_bar_arrive(int id, int nthreads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
 }
 
+// Two consumer warpgroups (cw 0 and 1, 128 threads each) take the tensor
+// cores in turns through named barriers 1 and 2: one issues its products
+// while the other runs its elementwise math. turn_wait(cw) blocks until
+// the other consumer has passed the turn; consumer 1 passes once before
+// its first wait, and the last turn is not passed on, so every wait meets
+// exactly one pass.
+__device__ __forceinline__ void turn_wait(int cw) {
+  named_bar_sync(1 + cw, 2 * 128);
+}
+
+__device__ __forceinline__ void turn_pass(int cw) {
+  named_bar_arrive(2 - cw, 2 * 128);
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
@@ -330,10 +345,10 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // ---- device: block order ------------------------------------------------------
 // The flash kernels launch heads in groups of kHeadGroup, so that a group's
-// K and V (forward) or Q and dO (backward) stay in L2 while it runs; within
-// a group, tile rank r of every head comes before rank r + 1 (the heaviest
-// causal query tiles first in the forward, the key tiles from the last in
-// the backward). Block `idx` -> (head, rank).
+// K and V (forward, dq pass) or Q and dO (kv-major backward) stay in L2
+// while it runs; within a group, tile rank r of every head comes before
+// rank r + 1 (the heaviest causal tiles first, but the merged backward's
+// key tiles from the last, for its dq order). Block `idx` -> (head, rank).
 constexpr int kHeadGroup = 16;
 
 __device__ __forceinline__ void group_order(int idx, int n_heads, int n_tiles,

@@ -22,9 +22,13 @@ Ported so far:
   kernels ``_flash_dkvdq_kernel`` (merged), ``_flash_dq_kernel`` and
   ``_flash_dkv_kernel`` (two-pass), in ``csrc/flash_attn_bwd.cu``;
   ``flash_attention_bwd`` routes between them as
-  ``pallas_kernels._flash_bwd_pallas`` does. Every route gives the same
-  bits from run to run: the merged kernel adds its dq partials in a
-  fixed order, counted in a scratch buffer (``flash_bwd_counters``).
+  ``pallas_kernels._flash_bwd_pallas`` does: the merged kernel while its
+  f32 dq buffer stays under a cap, the two-pass kernels past it (long
+  context). In bf16 at D 64 and 128 all three run on wgmma with TMA
+  loads. Every route gives the same bits from run to run: the merged
+  kernel adds its dq partials in a fixed order, counted in a scratch
+  buffer (``flash_bwd_counters``); the two-pass kernels write each
+  gradient once.
 - ``fused_conv``: ``pallas_kernels.py::_fconv_kernel``, a conv or
   depthwise conv with its whole epilogue (folded batch norm, activations,
   residual and broadcast operands) applied on chip before one
@@ -249,8 +253,10 @@ def flash_attention(q, k, v, causal=True):
 # ---- flash attention backward ---------------------------------------------------
 # Routing, as pallas_kernels._MERGED_BWD / _MERGED_BWD_MAX_SLAB_BYTES: the
 # merged kernel while what it allocates for dq (merged_bwd_bytes) stays
-# under the cap, else the two-pass kernels. Both routes are deterministic:
-# the merged kernel adds dq in a fixed order.
+# under the cap, else the two-pass kernels (the flagship's heads, H 8 and
+# D 128, pass it above 131,072 tokens a step). Both routes are
+# deterministic: the merged kernel adds dq in a fixed order, the two-pass
+# kernels write each gradient once.
 _MERGED_BWD = [True]
 _MERGED_BWD_MAX_SLAB_BYTES = 512 * 1024 * 1024
 
@@ -407,8 +413,8 @@ def flash_bwd_dkvdq(q, k, v, do, lse, delta, causal=True, counters=None):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=True):
-    """Two-pass dq (``_flash_dq_kernel``). CPU tensors run the plain
-    version."""
+    """Two-pass dq (``_flash_dq_kernel``): q-major, each dq element
+    written once in q's dtype. CPU tensors run the plain version."""
     if not _on_card(q, 'flash_attention backward'):
         return flash_bwd_reference(q, k, v, do, lse, delta, causal)[0]
     _check_flash_bwd_inputs(q, k, v, do, lse, delta)
@@ -420,7 +426,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True):
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True):
-    """Two-pass dk/dv (``_flash_dkv_kernel``). CPU tensors run the plain
+    """Two-pass dk/dv (``_flash_dkv_kernel``): kv-major, each dk and dv
+    element written once in k's dtype. CPU tensors run the plain
     version."""
     if not _on_card(q, 'flash_attention backward'):
         return flash_bwd_reference(q, k, v, do, lse, delta, causal)[1:]

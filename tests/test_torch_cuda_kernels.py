@@ -78,13 +78,16 @@ def _tol_ratio(got, ref):
             ref.float().abs().max().clamp_min(floor)).item() / tol
 
 
+# B*H 6, and 18 across the kernels' head groups of 16; T 130 is not a
+# multiple of any tile (64 or 128)
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('D', [32, 64, 128])
 @pytest.mark.parametrize('causal', [True, False])
 @pytest.mark.parametrize('T', [1, 130, 1024])
-def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, T):
-    q, k, v, do, lse, delta = _bwd_inputs(cuda, dtype, 2, T, 3, D, causal,
-                                          seed=T * 1000 + D + causal)
+@pytest.mark.parametrize('B, H', [(2, 3), (2, 9)])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, T, B, H):
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, dtype, B, T, H, D, causal,
+                                          seed=T * 1000 + D + causal + H)
     ref = ck.flash_bwd_reference(q, k, v, do, lse, delta, causal)
     before = dict(ck.LAUNCHES)
     merged = ck.flash_bwd_dkvdq(q, k, v, do, lse, delta, causal)
@@ -131,32 +134,39 @@ def test_flash_bwd_routes_like_pallas(cuda, monkeypatch):
             assert _tol_ratio(g, r) <= 1
 
 
-# (B, H, T, D, dtype, causal): the flagship's head width at B*H 32, a
-# ragged T, f32, and a non-causal D 64
-DETERMINISM_CASES = [(4, 8, 2048, 128, torch.bfloat16, True),
-                     (4, 8, 2000, 128, torch.bfloat16, True),
-                     (4, 8, 2048, 128, torch.float32, True),
-                     (2, 4, 1024, 64, torch.bfloat16, False)]
+# (B, H, T, D, dtype, causal, merged route on): the flagship's head width
+# at B*H 32, a ragged T, f32, a non-causal D 64, and the two-pass route
+# (the flag off) at a ragged T across the head groups
+DETERMINISM_CASES = [(4, 8, 2048, 128, torch.bfloat16, True, True),
+                     (4, 8, 2000, 128, torch.bfloat16, True, True),
+                     (4, 8, 2048, 128, torch.float32, True, True),
+                     (2, 4, 1024, 64, torch.bfloat16, False, True),
+                     (3, 8, 2000, 128, torch.bfloat16, True, False)]
 
 
 @pytest.mark.parametrize('case', DETERMINISM_CASES,
-                         ids=lambda c: '%d-%d-%d-%d-%s-%s' % (
-                             c[:4] + (str(c[4])[6:], c[5])))
-def test_flash_bwd_is_bit_reproducible(cuda, case):
-    """Two calls of the default backward route on the same inputs give the
-    same dq, dk and dv bit for bit: the merged kernel adds its dq partials
-    in a fixed order."""
-    B, H, T, D, dtype, causal = case
+                         ids=lambda c: '%d-%d-%d-%d-%s-%s-%s' % (
+                             c[:4] + (str(c[4])[6:], c[5],
+                                      'merged' if c[6] else 'two_pass')))
+def test_flash_bwd_is_bit_reproducible(cuda, monkeypatch, case):
+    """Two calls of the backward route on the same inputs give the same
+    dq, dk and dv bit for bit: the merged kernel adds its dq partials in a
+    fixed order, the two-pass kernels write each gradient once."""
+    B, H, T, D, dtype, causal, merged = case
+    monkeypatch.setattr(ck, '_MERGED_BWD', [merged])
     gen = torch.Generator(device=cuda)
     gen.manual_seed(T + D)
     q, k, v, do = (torch.randn(B, T, H, D, device=cuda, generator=gen)
                    .to(dtype) for _ in range(4))
     out, lse = ck.flash_attention_with_lse(q, k, v, causal)
-    before = ck.LAUNCHES['flash_attn_bwd_dkvdq']
+    before = dict(ck.LAUNCHES)
     first = ck.flash_attention_bwd(q, k, v, out, lse, do, causal)
     second = ck.flash_attention_bwd(q, k, v, out, lse, do, causal)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES['flash_attn_bwd_dkvdq'] == before + 2
+    kernels = (['flash_attn_bwd_dkvdq'] if merged else
+               ['flash_attn_bwd_dq', 'flash_attn_bwd_dkv'])
+    assert {n: ck.LAUNCHES[n] - before[n] for n in ck.LAUNCHES
+            if ck.LAUNCHES[n] != before[n]} == dict.fromkeys(kernels, 2)
     for name, a, b in zip(('dq', 'dk', 'dv'), first, second):
         assert torch.equal(a, b), name
 
@@ -172,6 +182,32 @@ def test_flash_bwd_counters_must_fit(cuda):
                 torch.zeros(2, 8, dtype=torch.int32, device=cuda)):
         with pytest.raises(ValueError):
             ck.flash_bwd_dkvdq(q, k, v, do, lse, delta, True, counters=bad)
+
+
+@pytest.mark.parametrize('case', ['head_dim', 'dtype', 'strided',
+                                  'misaligned', 'lse_dtype'])
+def test_two_pass_kernels_refuse_what_they_do_not_take(cuda, case):
+    """The dq and dk/dv wrappers raise, launching nothing, on what no
+    kernel takes: a head dim other than 32, 64 or 128, half floats, a
+    strided or misaligned input, an lse that is not f32."""
+    D = 96 if case == 'head_dim' else 128
+    dtype = torch.float16 if case == 'dtype' else torch.bfloat16
+    q = torch.zeros(1, 256, 2, D, device=cuda, dtype=dtype)
+    lse = torch.zeros(1, 2, 256, device=cuda)
+    k = q
+    if case == 'strided':
+        k = torch.zeros(1, 256, 2, 2 * D, device=cuda, dtype=dtype)[..., :D]
+    elif case == 'misaligned':
+        k = torch.zeros(1 * 256 * 2 * D + 1, device=cuda,
+                        dtype=dtype)[1:].view(1, 256, 2, D)
+    elif case == 'lse_dtype':
+        lse = lse.double()
+    before = dict(ck.LAUNCHES)
+    with pytest.raises((ValueError, TypeError)):
+        ck.flash_bwd_dq(q, k, q, q, lse, lse)
+    with pytest.raises((ValueError, TypeError)):
+        ck.flash_bwd_dkv(q, k, q, q, lse, lse)
+    assert ck.LAUNCHES == before
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):

@@ -258,11 +258,49 @@ def test_cpu_tensors_take_the_plain_merged_backward_with_counters():
 
 
 # what the merged kernel allocates for its f32 dq sums, which the route's
-# byte cap reads: whole 64-query tiles for the wgmma variant
-@pytest.mark.parametrize('B, H, T, D, dtype, nbytes', [
-    (16, 8, 2048, 128, torch.bfloat16, 16 * 8 * 2048 * 128 * 4),
-    (2, 3, 130, 64, torch.bfloat16, 2 * 3 * 192 * 64 * 4),
-    (2, 3, 130, 64, torch.float32, 2 * 3 * 130 * 64 * 4),
-    (2, 3, 130, 32, torch.bfloat16, 2 * 3 * 130 * 32 * 4)])
-def test_merged_bwd_bytes(B, H, T, D, dtype, nbytes):
-    assert ck.merged_bwd_bytes(torch.empty(B, T, H, D, dtype=dtype)) == nbytes
+# byte cap reads: whole 64-query tiles for the wgmma variant. The
+# flagship's long-context step (batch 5, seq 32768, 8 heads of 128) needs
+# 640 MiB, past the 512 MiB cap. Computed from meta tensors: nothing is
+# allocated.
+@pytest.mark.parametrize('B, H, T, D, dtype, nbytes, over_cap', [
+    (16, 8, 2048, 128, torch.bfloat16, 16 * 8 * 2048 * 128 * 4, False),
+    (2, 3, 130, 64, torch.bfloat16, 2 * 3 * 192 * 64 * 4, False),
+    (2, 3, 130, 64, torch.float32, 2 * 3 * 130 * 64 * 4, False),
+    (2, 3, 130, 32, torch.bfloat16, 2 * 3 * 130 * 32 * 4, False),
+    (5, 8, 32768, 128, torch.bfloat16, 640 * 2 ** 20, True)])
+def test_merged_bwd_bytes(B, H, T, D, dtype, nbytes, over_cap):
+    q = torch.empty(B, T, H, D, dtype=dtype, device='meta')
+    assert ck.merged_bwd_bytes(q) == nbytes
+    assert (nbytes > ck._MERGED_BWD_MAX_SLAB_BYTES) == over_cap
+
+
+# flash_attention_bwd's route on the card, with every kernel wrapper
+# stubbed (meta tensors, nothing allocated): the merged kernel at the
+# flagship's training shape, the two-pass kernels at its long-context
+# step, and with the merged route switched off
+@pytest.mark.parametrize('B, T, merged_on, route', [
+    (16, 2048, True, 'merged'), (5, 32768, True, 'two_pass'),
+    (16, 2048, False, 'two_pass'), (4, 32768, True, 'merged')])
+def test_flash_attention_bwd_routes_past_the_cap(monkeypatch, B, T,
+                                                 merged_on, route):
+    calls = []
+
+    def stub(name, n_out):
+        def fn(q, k, v, do, lse, delta, causal=True):
+            calls.append(name)
+            assert delta.shape == lse.shape == (B, 8, T)
+            outs = tuple(torch.empty_like(q) for _ in range(n_out))
+            return outs[0] if n_out == 1 else outs
+        return fn
+
+    monkeypatch.setattr(ck, '_on_card', lambda q, what: True)
+    monkeypatch.setattr(ck, '_MERGED_BWD', [merged_on])
+    monkeypatch.setattr(ck, 'flash_bwd_dkvdq', stub('dkvdq', 3))
+    monkeypatch.setattr(ck, 'flash_bwd_dq', stub('dq', 1))
+    monkeypatch.setattr(ck, 'flash_bwd_dkv', stub('dkv', 2))
+    q = torch.empty(B, T, 8, 128, dtype=torch.bfloat16, device='meta')
+    lse = torch.empty(B, 8, T, device='meta')
+    grads = ck.flash_attention_bwd(q, q, q, q, lse, q)
+    assert len(grads) == 3 and all(g.shape == q.shape for g in grads)
+    assert sorted(calls) == (['dkvdq'] if route == 'merged' else
+                             ['dkv', 'dq'])

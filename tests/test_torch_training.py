@@ -19,10 +19,12 @@ max error / max magnitude ~2e-6).
 import importlib.util
 import os
 
+import jax
 import numpy as np
 import pytest
 
 import paddle_tpu.fluid as fluid
+from paddle_tpu.ops import pallas_kernels as pk
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import io as pt_io
 from paddle_tpu_torch.models.fluid_transformer import transformer as \
@@ -195,6 +197,62 @@ def test_flagship_loss_falls_over_steps_on_one_batch():
     losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
                             scope=scope)[0][0]) for _ in range(4)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# the flagship at a long-ish sequence, where JAX's attention runs on its
+# Pallas kernels (interpret mode): 1024 positions, 512-query and 1024-key
+# blocks in f32
+LONG_DIMS = dict(DIMS, n_layers=1, seq=1024)
+
+
+def _long_flagship(pkg):
+    if pkg is fluid:
+        loss = _jax_models().transformer(None, **LONG_DIMS)[0]
+    else:
+        loss = pt_transformer(None, **LONG_DIMS)[0]
+    pkg.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return loss
+
+
+@pytest.mark.parametrize('merged', [True, False])
+def test_flagship_long_seq_grads_match_pallas_backward(monkeypatch, merged):
+    """One step of the flagship at seq 1024: the loss and every gradient
+    against paddle_tpu with its attention forced onto the Pallas kernels
+    in interpret mode, the backward on the merged route or on the
+    two-pass route (``pk._MERGED_BWD``), which the port takes past its
+    byte cap (long context). On the CPU the port runs the plain backward,
+    the decomposition both of its routes compute."""
+    orig, orig_merged = pk.flash_attention, pk._flash_bwd_merged
+    traced = {'attention': 0, 'merged': 0}
+
+    def forced(q, k, v, causal=True, block_q=None, block_k=None,
+               interpret=None, force=None):
+        traced['attention'] += 1
+        return orig(q, k, v, causal, block_q, block_k, interpret=True)
+
+    def merged_bwd(*args):
+        traced['merged'] += 1
+        return orig_merged(*args)
+
+    monkeypatch.setattr(pk, 'flash_attention', forced)
+    monkeypatch.setattr(pk, '_flash_bwd_merged', merged_bwd)
+    monkeypatch.setattr(pk, '_MERGED_BWD', [merged])
+    jax.clear_caches()   # the route is read while tracing
+    pair = Pair(_long_flagship)
+    rng = np.random.RandomState(31)
+    S, V = LONG_DIMS['seq'], LONG_DIMS['vocab']
+    feed = {'data': rng.randint(0, V, (2, S)).astype('int64'),
+            'label': rng.randint(0, V, (2, S, 1)).astype('int64'),
+            'pos': np.tile(np.arange(S, dtype='int64'), (2, 1))}
+    j, t = pair.step(feed, fetch_grads=True)
+    jax.clear_caches()
+    assert traced['attention'] > 0 and (traced['merged'] > 0) == merged
+    assert np.isfinite(t[0]).all() and _rel_err(t[0], j[0]) <= REL
+    assert len(pair.grad_names) == len(
+        pair.t_main.global_block().all_parameters())
+    for name, jg, tg in zip(pair.grad_names, j[1:], t[1:]):
+        assert tg.shape == jg.shape, name
+        assert _rel_err(tg, jg) <= REL, name
 
 
 # ---- a small fc model: other optimizers, regularizers, clips ------------------
