@@ -23,9 +23,15 @@ the sequence ops and the recurrent layers (``dynamic_lstm``,
 peephole-free LSTM steps run on a hand-written CUDA kernel
 (``csrc/lstm_cell.cu``).
 
-Entry points run on the card unless told otherwise: ``Executor()`` means
-``CUDAPlace(0)`` and raises where CUDA is absent; pass ``CPUPlace()`` to
-run on the CPU.
+Serving runs through the compiler's pass pipeline (``compiler``: the
+default passes on every program the Executor runs, ``bn_fold`` for
+inference) and the serving runtime: ``serving.ModelServer`` (saved
+models, micro-batching, pow-2 buckets, deadlines, a circuit breaker and
+a watchdog) and ``Inferencer``.
+
+Entry points run on the card unless told otherwise: ``Executor()``,
+``serving.ModelServer()`` and ``Inferencer(...)`` mean ``CUDAPlace(0)``
+and raise where CUDA is absent; pass ``CPUPlace()`` to run on the CPU.
 """
 from . import framework, unique_name, initializer, param_attr  # noqa
 from . import layers, ops, io, executor  # noqa
@@ -41,6 +47,8 @@ from .param_attr import ParamAttr  # noqa
 from .lod import (SequenceTensor, create_lod_tensor,  # noqa
                   create_random_int_lodtensor)
 from .backward import append_backward  # noqa
+from . import resilience, serving  # noqa
+from .inferencer import Inferencer  # noqa
 
 # the reference's LoDTensor; SequenceTensor carries its imperative
 # surface (set, set_lod, lod), as in paddle_tpu

@@ -1,43 +1,113 @@
-"""``paddle_tpu_torch.compiler`` — the program-level passes.
+"""``paddle_tpu_torch.compiler`` — the program-level pass pipeline.
 
-Counterpart of paddle_tpu/compiler/__init__.py. The Executor runs
-:func:`optimize` over every program it lowers, once per memo key, after
-the prune (``executor.Executor._lowered``). The port has one pass,
-``conv_epilogue_fuse``; the JAX package's pass framework (registry,
-pipeline, results) comes back with a second one. ``disabled()`` runs
-programs raw.
+Counterpart of paddle_tpu/compiler/__init__.py, without the autotuner
+(``tuning``) and the ZeRO pass. It runs between program construction and
+``core/lowering``; the rewrites are registered passes composed into
+pipelines:
+
+- ``default_pipeline()``: exact rewrites (constant folding, dead-op
+  elimination, the conv-epilogue and elementwise-chain fusions,
+  buffer-release annotations), applied by the ``Executor`` to every
+  program it runs, once per memo key;
+- ``inference_pipeline()``: adds BN folding into conv/fc weights (needs
+  the scope; <= 1e-5 drift) at the head. Reached via
+  ``optimize_inference`` and ``Inferencer(optimize_for_inference=True)``.
+
+The Executor folds :func:`cache_token` into its memo key, so toggling
+the pipeline (``set_enabled``/``set_default_passes``) misses exactly
+once per program and never serves a program rewritten under another
+configuration.
 """
 import contextlib
 
-from .passes import ConvEpilogueFusion  # also registers the fused_conv op
+from .pass_base import (Pass, PassContext, PassResult, PassRegistry,  # noqa
+                        PassPipeline, register_pass, get_pass,
+                        registered_passes)
+from . import passes  # noqa  (registers the passes and the fused ops)
+from .passes import DEFAULT_PASSES, INFERENCE_PASSES  # noqa
 
-__all__ = ['enabled', 'disabled', 'optimize']
+__all__ = ['Pass', 'PassContext', 'PassResult', 'PassRegistry',
+           'PassPipeline', 'register_pass', 'get_pass',
+           'registered_passes', 'enabled', 'set_enabled', 'disabled',
+           'default_pipeline', 'inference_pipeline',
+           'set_default_passes', 'pipeline_signature', 'cache_token',
+           'optimize', 'optimize_inference', 'DEFAULT_PASSES',
+           'INFERENCE_PASSES']
 
-_ENABLED = [True]
+_STATE = {'enabled': True, 'pass_names': tuple(DEFAULT_PASSES),
+          'pipeline': None}
 
 
 def enabled():
-    return _ENABLED[0]
+    return _STATE['enabled']
+
+
+def set_enabled(on):
+    """Master switch for the executor-integrated pipeline. Flipping it
+    changes :func:`cache_token`, so the next run of each program misses
+    the memo once (never a stale program)."""
+    _STATE['enabled'] = bool(on)
 
 
 @contextlib.contextmanager
 def disabled():
-    """Run programs raw (unoptimized) inside the block: the Executor keys
-    its memo on :func:`enabled`, so a raw run never reuses a fused
-    lowering, nor the other way round."""
-    prev = _ENABLED[0]
-    _ENABLED[0] = False
+    """Run programs raw (unoptimized) inside the block."""
+    prev = _STATE['enabled']
+    _STATE['enabled'] = False
     try:
         yield
     finally:
-        _ENABLED[0] = prev
+        _STATE['enabled'] = prev
 
 
-def optimize(program, fetch_names=(), clone=True):
-    """``program`` with its conv-epilogue regions fused; ``fetch_names``
-    stay producible. With ``clone=True`` (default) the input program is
-    untouched."""
-    if clone:
-        program = program.clone()
-    ConvEpilogueFusion().run(program, protected=frozenset(fetch_names))
-    return program
+def set_default_passes(names):
+    """Reconfigure the canonical pipeline (ordered pass names). Pass
+    None to restore :data:`DEFAULT_PASSES`."""
+    names = tuple(names) if names is not None else tuple(DEFAULT_PASSES)
+    for n in names:
+        get_pass(n)          # validate early
+    _STATE['pass_names'] = names
+    _STATE['pipeline'] = None
+
+
+def default_pipeline():
+    pipe = _STATE['pipeline']
+    if pipe is None or pipe.signature() != _STATE['pass_names']:
+        pipe = _STATE['pipeline'] = PassPipeline(
+            list(_STATE['pass_names']), name='default')
+    return pipe
+
+
+def inference_pipeline():
+    return PassPipeline(list(INFERENCE_PASSES), name='inference')
+
+
+def pipeline_signature():
+    """The active config as a stable tuple: (enabled, pass names)."""
+    if not _STATE['enabled']:
+        return ('off',)
+    return _STATE['pass_names']
+
+
+def cache_token():
+    """The compiler's part of the Executor's memo key: the pipeline
+    configuration. The JAX package adds the tuning cache's entry for
+    the program and feed shapes, which waits for the autotuner."""
+    return pipeline_signature()
+
+
+def optimize(program, fetch_names=(), scope=None, clone=True):
+    """Run the canonical pipeline. Returns ``(program, results)``; with
+    ``clone=True`` (default) the input program is untouched."""
+    return default_pipeline().run(program, scope=scope,
+                                  protected=frozenset(fetch_names),
+                                  clone=clone)
+
+
+def optimize_inference(program, scope=None, fetch_names=(), clone=False):
+    """BN folding + the canonical passes, for inference programs whose
+    weights are resident in ``scope``. In place by default, as the
+    legacy ``InferenceTranspiler.transpile``."""
+    return inference_pipeline().run(program, scope=scope,
+                                    protected=frozenset(fetch_names),
+                                    clone=clone)

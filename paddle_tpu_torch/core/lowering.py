@@ -116,12 +116,21 @@ class BlockRunner(object):
     on ``device``. With ``grad_mode`` (the ops before a backward marker)
     it applies the variables' gradient attributes as each output is
     produced: ``stop_gradient`` detaches it, and an ``error_clip`` clips
-    the cotangent that flows back through it."""
+    the cotangent that flows back through it.
 
-    def __init__(self, block, device, grad_mode=False):
+    ``keep`` guards the compiler's liveness annotations: the
+    buffer_reuse pass marks each op with the names whose LAST reader it
+    is (``__release__`` attr), and run_ops drops those environment
+    references once the op completes, so their memory is free for the
+    rest of the run, unless the name is in ``keep`` (fetches,
+    persistable state, the generator, the loss), which the pass could
+    not know statically."""
+
+    def __init__(self, block, device, grad_mode=False, keep=None):
         self.block = block
         self.device = device
         self.grad_mode = grad_mode
+        self.keep = keep if keep is not None else frozenset()
 
     def run_ops(self, ops, env):
         for op in ops:
@@ -134,6 +143,9 @@ class BlockRunner(object):
                     (op.type, op.inputs, op.outputs, e)) from e
             if self.grad_mode:
                 self._apply_grad_attrs(op, env)
+            for name in op.attrs.get('__release__', ()):
+                if name not in self.keep:
+                    env.pop(name, None)
         return env
 
     def _apply_grad_attrs(self, op, env):
@@ -265,14 +277,19 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
         else:
             ops = _merge_shared_muls(block, ops)
 
+    # names the compiler's release annotations must never drop from the
+    # environment: the epilogue below still reads them
+    keep = (frozenset(fetch_names) | frozenset(state_out_names)
+            | {RNG_KEY})
+
     def fn(feeds, state):
         env = dict(state)
         env.update(feeds)
         if markers:
-            _run_training(block, device, ops, markers[0], env)
+            _run_training(block, device, ops, markers[0], env, keep)
         else:
             with torch.no_grad():
-                BlockRunner(block, device).run_ops(ops, env)
+                BlockRunner(block, device, keep=keep).run_ops(ops, env)
         fetches = [_detach(env[n]) for n in fetch_names]
         new_state = {}
         for n in state_out_names:
@@ -299,21 +316,23 @@ def _detach(val):
     return val
 
 
-def _run_training(block, device, ops, marker_idx, env):
+def _run_training(block, device, ops, marker_idx, env, keep):
     """Forward under autograd, gradients of the summed loss into
     ``<param>@GRAD``, then the update ops without autograd. Counterpart
     of the marker branch of the JAX ``lower_block`` (lowering.py:674-766;
-    its remat and sparse-row paths are not ported)."""
+    its remat and sparse-row paths are not ported). The forward also
+    keeps the loss and the parameters, which the marker reads."""
     marker = ops[marker_idx]
     param_names = list(marker.attrs['params'])
     grad_names = list(marker.attrs['grads'])
     loss_name = marker.inputs['Loss'][0]
+    gkeep = keep | {loss_name} | set(param_names)
     # each parameter is a fresh leaf over the Scope's storage; the
     # Scope's own tensor never has requires_grad flipped
     leaves = [env[p].detach().requires_grad_() for p in param_names]
     with torch.enable_grad():
         env.update(zip(param_names, leaves))
-        BlockRunner(block, device, grad_mode=True).run_ops(
+        BlockRunner(block, device, grad_mode=True, keep=gkeep).run_ops(
             ops[:marker_idx], env)
         loss = env[loss_name].sum()
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -327,4 +346,5 @@ def _run_training(block, device, ops, marker_idx, env):
             g = g * scale
         env[gname] = g
     with torch.no_grad():
-        BlockRunner(block, device).run_ops(ops[marker_idx + 1:], env)
+        BlockRunner(block, device, keep=keep).run_ops(ops[marker_idx + 1:],
+                                                      env)

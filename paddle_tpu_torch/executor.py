@@ -8,12 +8,17 @@ by op, on the place's device. Persistable state (parameters) stays on
 that device in the Scope between runs.
 
 After the prune, the program goes through the port's compiler pipeline
-(``compiler.optimize``: the conv-epilogue fusion), once per memo key, as
-the JAX Executor's ``_optimized_program`` does. Left out (their rewrites
-are exact, so outputs do not change): the other compiler passes, the
-static analysis, the partitioner and the performance observatory.
+(``compiler.optimize``: the default passes), once per memo key, as the
+JAX Executor's ``_optimized_program`` does; the key folds in
+``compiler.cache_token``, so a change of the pipeline misses once and
+never serves a stale program. The memo is guarded by a lock (the
+serving runtime's worker threads share one Executor) and counted
+(``cache_info``). Left out: the static analysis, the partitioner and
+the performance observatory.
 """
+import collections
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -26,7 +31,11 @@ from .core.lowering import lower_block, torch_dtype, RNG_KEY
 from .core.registry import SIDE_EFFECT_OPS
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
-           'switch_scope', 'as_numpy']
+           'switch_scope', 'as_numpy', 'CacheInfo']
+
+# memo counters of one Executor: hits, misses (each one a prune, the
+# passes and a lowering), entries it made
+CacheInfo = collections.namedtuple('CacheInfo', ['hits', 'misses', 'size'])
 
 
 class Scope(object):
@@ -116,6 +125,27 @@ class Executor(object):
     def __init__(self, place=None):
         self.place = place if place is not None else _places.CUDAPlace(0)
         self.device = self.place.torch_device()
+        # serving worker threads share one Executor: the lock makes the
+        # memo's lookup and insert atomic
+        self._cache_lock = threading.RLock()
+        self._cache_hits = 0
+        self._cache_misses = 0
+        self._cache_size = 0
+
+    def cache_info(self):
+        """Memo counters: a serving-layer SLI. A miss means a fresh
+        prune, pass pipeline and lowering; warmup exists to keep this at
+        one miss per (program, feeds, fetches)."""
+        with self._cache_lock:
+            return CacheInfo(self._cache_hits, self._cache_misses,
+                             self._cache_size)
+
+    def reset_cache_info(self):
+        """Zero the hit/miss counters without dropping memo entries, so
+        phases can be measured independently."""
+        with self._cache_lock:
+            self._cache_hits = 0
+            self._cache_misses = 0
 
     # -------------------------------------------------------------------------
     def _to_device(self, val, var):
@@ -191,24 +221,34 @@ class Executor(object):
 
     def _lowered(self, program, feed_names, fetch_names, scope):
         """The runnable block for (program version, feeds, fetches, state
-        names, compiler on or off), memoized on the program so
+        names, device, the compiler's token), memoized on the program so
         steady-state requests skip the prune, the passes and the graph
         rewrite."""
         state_in, state_out = self._state_names(program, scope)
-        optimize = _compiler.enabled()
+        token = _compiler.cache_token()
         key = (program._version, tuple(feed_names), tuple(fetch_names),
-               tuple(state_in), tuple(state_out), self.device, optimize)
-        memo = program.__dict__.setdefault('_torch_lowered', {})
-        hit = memo.get(key)
-        if hit is None:
-            pruned = self._maybe_prune(program, fetch_names)
-            if optimize:
-                pruned = _compiler.optimize(pruned, fetch_names=fetch_names,
-                                            clone=pruned is program)
-            fn = lower_block(pruned, pruned.global_block(), feed_names,
-                             fetch_names, state_in, state_out, self.device)
-            hit = memo[key] = (fn, state_in)
-        return hit
+               tuple(state_in), tuple(state_out), self.device, token)
+        with self._cache_lock:
+            memo = program.__dict__.setdefault('_torch_lowered', {})
+            hit = memo.get(key)
+            if hit is not None:
+                self._cache_hits += 1
+                return hit
+            self._cache_misses += 1
+        # the prune, the passes and the lowering run outside the lock, so
+        # one program's cold lowering never stalls another's hits; two
+        # threads that miss on one key both lower, the first insert wins
+        pruned = self._maybe_prune(program, fetch_names)
+        if token != ('off',):
+            pruned, _ = _compiler.optimize(
+                pruned, fetch_names=fetch_names, scope=scope,
+                clone=pruned is program)
+        fn = lower_block(pruned, pruned.global_block(), feed_names,
+                         fetch_names, state_in, state_out, self.device)
+        with self._cache_lock:
+            if key not in memo:
+                self._cache_size += 1
+            return memo.setdefault(key, (fn, state_in))
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name='feed', fetch_var_name='fetch', scope=None,

@@ -240,6 +240,19 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def insert_op(self, index, type=None, inputs=None, outputs=None,
+                  attrs=None):
+        op = Operator(self, type=type, inputs=inputs, outputs=outputs,
+                      attrs=attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
+    def remove_op(self, index):
+        op = self.ops.pop(index)
+        self.program._bump_version()
+        return op
+
     def __repr__(self):
         return "Block(%d) vars=%d ops=[%s]" % (
             self.idx, len(self.vars), ", ".join(op.type for op in self.ops))

@@ -55,6 +55,7 @@ import collections
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -74,11 +75,21 @@ LAUNCHES = {'flash_attn_fwd': 0, 'flash_attn_bwd_dkvdq': 0,
 FUSED_CONV_VARIANT_LAUNCHES = {'fma': 0, 'mma_sync': 0, 'wgmma': 0,
                                'stem': 0}
 
+# the serving runtime's worker threads launch concurrently: every bump
+# and reset of the counts above holds this lock, so no count is lost
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(counts, name):
+    with _COUNT_LOCK:
+        counts[name] += 1
+
 
 def reset_launch_counts():
-    for counts in (LAUNCHES, FUSED_CONV_VARIANT_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    with _COUNT_LOCK:
+        for counts in (LAUNCHES, FUSED_CONV_VARIANT_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
 
 
 # ---- flash attention ------------------------------------------------------------
@@ -178,7 +189,7 @@ def _launch(lib, fn_name, args, device, what):
     if rc != 0:
         raise RuntimeError("%s launch failed with CUDA error %d (%s)"
                            % (fn_name, rc, what))
-    LAUNCHES[fn_name] += 1
+    _count(LAUNCHES, fn_name)
 
 
 def _flash_what(q):
@@ -865,7 +876,7 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
         args.stats = slab.data_ptr()
     _launch('fused_conv', 'fused_conv_stats' if emit_stats else 'fused_conv',
             (ctypes.addressof(args),), x.device, what)
-    FUSED_CONV_VARIANT_LAUNCHES[plan.variant] += 1
+    _count(FUSED_CONV_VARIANT_LAUNCHES, plan.variant)
     return out if slab is None else (out, slab)
 
 

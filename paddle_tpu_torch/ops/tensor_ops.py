@@ -1,9 +1,11 @@
 """Tensor creation / manipulation kernels.
 
 Counterpart of paddle_tpu/ops/tensor_ops.py, trimmed to the ops of the
-serving slice and its startup program: fill_constant, uniform_random,
-gaussian_random, lookup_table, concat, split, reshape.
+serving slice and its startup program: fill_constant, assign,
+assign_value (the constants the compiler's constant_fold bakes),
+uniform_random, gaussian_random, lookup_table, concat, split, reshape.
 """
+import numpy as np
 import torch
 
 from ..core.registry import register_kernel
@@ -17,6 +19,34 @@ def _fill_constant(ctx):
     ctx.set_output('Out', torch.full(
         shape, ctx.attr('value', 0.0),
         dtype=torch_dtype(ctx.attr('dtype', 'float32')), device=ctx.device))
+
+
+@register_kernel('assign')
+def _assign(ctx):
+    ctx.set_output('Out', ctx.input('X'))
+
+
+@register_kernel('assign_value')
+def _assign_value(ctx):
+    """The payload rides in the ``values`` attr (a numpy array, as
+    constant_fold bakes it), or, as the reference's assign_value_op
+    carries it, in ``fp32_values`` / ``int32_values`` by dtype. The
+    device tensor is made once per op and device and kept on the op, as
+    JAX bakes the constant into the compiled program once: a request
+    reuses it (no kernel writes its inputs in place)."""
+    dtype = torch_dtype(ctx.attr('dtype', 'float32'))
+    consts = ctx.op.__dict__.setdefault('_const', {})
+    out = consts.get(ctx.device)
+    if out is None:
+        values = ctx.attr('values')
+        if values is None:
+            key = ('fp32_values' if dtype.is_floating_point
+                   else 'int32_values')
+            values = ctx.attr(key)
+        out = consts[ctx.device] = torch.as_tensor(np.array(values)).to(
+            device=ctx.device, dtype=dtype).reshape(
+                list(ctx.attr('shape')))
+    ctx.set_output('Out', out)
 
 
 def _op_generator(ctx):

@@ -76,7 +76,8 @@ def test_region_table_is_resnet50s():
         img = pt.layers.data(name='img', shape=[3, 224, 224],
                              dtype='float32')
         prob = resnet_imagenet(img, 1000, depth=50, is_test=True)
-    opt = pt.compiler.optimize(main.prune([prob]), fetch_names=[prob.name])
+    opt, _ = pt.compiler.optimize(main.prune([prob]),
+                                  fetch_names=[prob.name])
     block = opt.global_block()
     regions = {}
     for op in block.ops:

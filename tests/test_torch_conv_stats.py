@@ -232,7 +232,7 @@ def test_train_region_loss_grads_and_stats_match_jax(region):
     t_res = pt.Executor(pt.CPUPlace()).run(
         t_main, feed=feed, fetch_list=[t_loss] + gnames, scope=t_scope)
     assert pt_passes.FALLBACKS == {}
-    opt = pt.compiler.optimize(t_main, fetch_names=[t_loss.name])
+    opt, _ = pt.compiler.optimize(t_main, fetch_names=[t_loss.name])
     assert [op.attrs['fused_types'] for op in opt.global_block().ops
             if op.type == 'fused_conv'] == [REGIONS[region][1]]
     for name, j, t in zip(['loss'] + gnames, j_res, t_res):

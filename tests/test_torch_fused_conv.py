@@ -65,7 +65,8 @@ def _fuse_both(j_main, t_main, fetch):
     """Each package's conv_epilogue_fuse alone over the pruned program."""
     j_opt, _ = jax_compiler.PassPipeline(['conv_epilogue_fuse']).run(
         j_main.prune([fetch]), protected=[fetch])
-    t_opt = pt.compiler.optimize(t_main.prune([fetch]), fetch_names=[fetch])
+    t_opt, _ = pt.compiler.PassPipeline(['conv_epilogue_fuse']).run(
+        t_main.prune([fetch]), protected=[fetch])
     return j_opt, t_opt
 
 
@@ -235,8 +236,8 @@ def test_region_matches_jax_pallas(kind):
     exe = pt.Executor(pt.CPUPlace())
     t_res, = exe.run(t_main, feed=feed, fetch_list=[t_out], scope=t_scope)
     assert pt_passes.FALLBACKS == {}
-    t_opt = pt.compiler.optimize(t_main.prune([t_out]),
-                                 fetch_names=[t_out.name])
+    t_opt, _ = pt.compiler.optimize(t_main.prune([t_out]),
+                                    fetch_names=[t_out.name])
     fused = [op.attrs['fused_types'] for op in t_opt.global_block().ops]
     assert fused == [fused_types]
     np.testing.assert_allclose(t_res, np.asarray(j_res), **TOL)

@@ -1,6 +1,7 @@
 """paddle_tpu_torch stands alone: it imports neither JAX nor paddle_tpu
 (not in its sources, and not while it serves the transformer or ResNet
-through its compiler), and its entry points default to the card."""
+through its compiler and its serving runtime), and its entry points
+default to the card."""
 import ast
 import os
 import subprocess
@@ -72,13 +73,18 @@ main, startup = pt.Program(), pt.Program()
 with pt.unique_name.guard(), pt.program_guard(main, startup):
     img = pt.layers.data(name='img', shape=[3, 32, 32], dtype='float32')
     prob = resnet_imagenet(img, 10, depth=50, is_test=True)
-opt = pt.compiler.optimize(main, fetch_names=[prob.name])
+opt, _ = pt.compiler.optimize(main, fetch_names=[prob.name])
 assert [op.type for op in opt.global_block().ops].count('fused_conv') == 53
 exe.run(startup, scope=scope)
 out, = exe.run(main, feed={'img': np.ones((1, 3, 32, 32), 'float32')},
                fetch_list=[prob], scope=scope)
 assert out.shape == (1, 10) and np.isfinite(out).all()
 assert passes.FALLBACKS == {}
+with pt.serving.ModelServer(pt.CPUPlace(), max_batch_size=4) as server:
+    server.register_model('resnet', main, ['img'], [prob], scope)
+    served, = server.infer('resnet', {'img': np.ones((3, 3, 32, 32),
+                                                     'float32')})
+assert served.shape == (3, 10) and np.allclose(served[0], out[0], atol=1e-5)
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))

@@ -94,7 +94,8 @@ def test_served_resnet50_matches_jax(models, saved_by):
     pt_passes.reset_fallback_counts()
     out, = exe.run(prog, feed=models['feed'], fetch_list=fetch, scope=scope)
     assert pt_passes.FALLBACKS == {}
-    opt = pt.compiler.optimize(prog, fetch_names=[f.name for f in fetch])
+    opt, _ = pt.compiler.optimize(prog,
+                                  fetch_names=[f.name for f in fetch])
     assert [op.type for op in opt.global_block().ops].count(
         'fused_conv') == 53
     assert out.shape == (2, CLASSES)

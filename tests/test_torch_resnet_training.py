@@ -204,8 +204,8 @@ def resnet50():
 
 def test_resnet50_training_program_matches_jax(resnet50):
     assert _descs(resnet50['t_main']) == _descs(resnet50['j_main'])
-    opt = pt.compiler.optimize(resnet50['t_main'],
-                               fetch_names=[resnet50['loss'].name])
+    opt, _ = pt.compiler.optimize(resnet50['t_main'],
+                                  fetch_names=[resnet50['loss'].name])
     types = [op.type for op in opt.global_block().ops]
     assert types.count('fused_conv') == 53
     assert 'conv2d' not in types and 'batch_norm' not in types
