@@ -7,6 +7,8 @@
                                           # LSTM cell's host cost
     python3 chip_smoke.py --fetch-cost [--root DIR]  # the flagship's
                                           # logits copy and request, by thread
+    python3 chip_smoke.py --serve-tuned CONFIG   # phase 6c's second
+                                          # process (phase 6c runs it)
 
 from the root of a checkout. Phases, each of which raises (and so exits
 non-zero) on failure:
@@ -75,7 +77,9 @@ non-zero) on failure:
    at once, 5 rounds each (flagship rows 1, 2, 3, 4; ResNet-50 rows 1, 5,
    8, 17, 32):
    every answer within the serving limits of a direct Executor.run of the
-   same rows (bits equal printed), no memo miss after the warm-up,
+   same rows (bits equal printed), each ResNet-50 answer bit-equal to a
+   direct run of its rows padded to the bucket the server ran it at, no
+   memo miss after the warm-up,
    exactly 6 flash forwards a flagship batch and 53 fused convs (52
    wgmma, the stem) a ResNet-50 batch the server ran, no fallback, no
    failed request, the breakers closed; p50 and p99 ms a request per
@@ -87,13 +91,32 @@ non-zero) on failure:
    batch norms folded: no batch_norm op, 53 fused conv launches a
    request, no fallback, its logits within the ResNet limit of the
    unfolded server's;
+6c. autotuned serving: a fresh ModelServer(CUDAPlace(0)) on both saved
+   models, its tuning cache at a temporary path, a journal installed:
+   warmup(autotune=True) (flagship buckets 1, 2, 4; ResNet-50 1 to 32),
+   each bucket's candidates with their ms, the winner and the search's
+   seconds; 6b's mix under the tuned entries with 6b's checks (answers
+   against direct runs under the same entry, exact launches, no
+   fallback, no memo miss); the journal's cost on batch-1 requests
+   (medians of 50, no journal against a journal); tools/trace_report.py
+   and tools/obs_report.py on the journal, every request of the mix with
+   a closed request -> queue -> batch -> pad -> run tree; p50 and p99 a
+   request per bucket, tuned and at the baseline entry (100 each); a
+   candidate made to fault through tuning/measure poisoned while the
+   search goes on; a second process (--serve-tuned) on the same cache
+   file and saved models: every entry preloaded, no search, its answers
+   to one seeded request per bucket bit-equal to this process's;
 7. training: the same flagship at full width and depth, Adam(1e-4)
    .minimize(loss), batch 16: warm-up steps, then timed steps through
    Executor.run on one fixed batch (ms per step, tokens/s), checking
    that the loss is finite and falls and that each step launches one
    forward and one merged backward kernel per layer; a torch.profiler
    trace of one step; one step on the two-pass backward route, whose
-   gradients must match the merged route's;
+   gradients must match the merged route's; the autotuner over
+   flash_bwd_route at batch 16 (each route's ms a step and the winner,
+   no winner asserted), then one step under the winner's route: exact
+   launches for that route, gradients within ROUTE_GRAD_TOL of the
+   other route's;
 7b. long-context training: the same flagship at full width, 2 layers
    (the card's memory), at seq 32768 and batch 5 (163,840 tokens a step,
    where the merged kernel's f32 dq
@@ -145,7 +168,10 @@ non-zero) on failure:
    per element; f32, at each shape on LSTM_WITNESS_DRAWS draws of the
    inputs: the kernel's error against the plain cell in f64 at most 2x
    the plain f32 version's, and so the product's alone (read through
-   saturated gates); two calls give the same bits; the real kernel fed c_prev zeroed, or xg with its input and
+   saturated gates); two calls give the same bits; the cell at each
+   forced batch tile (8, 16, 32, 64 rows a block) per element against
+   the plain version, and tile 12 refused at launch; the real kernel fed
+   c_prev zeroed, or xg with its input and
    forget chunks swapped, must fail the per-element check by far; kernel,
    plain version and a matmul with the gate math (a yardstick) timed as
    CUDA graph replays, and the bound of the kernel's route;
@@ -159,7 +185,10 @@ non-zero) on failure:
 15. LSTM serving: the trained model saved with save_inference_model,
    loaded into a fresh scope and served at batch 1, 32 and 256 of 80
    words and one ragged batch, 288 launches a request; its probabilities
-   against the plain cell's, and two controls that must fail;
+   against the plain cell's, and two controls that must fail; the
+   autotuner over lstm_batch_tile at batch 32 and 256 (each tile's ms a
+   request and the winner), then every tile forced: within the limits
+   above, 288 launches a request, two calls bit-identical;
 16. LSTM gradients: one batch-8 step on ragged lengths, the loss and
    every parameter gradient on the kernel against the plain cell, AMP
    off (a fixed limit) and on (a limit relative to a witness, the plain
@@ -195,6 +224,7 @@ FLAGSHIP = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=6, d_ff=4096,
                 seq=2048)
 REQUEST_BATCHES = [1, 2, 4, 1, 2, 4]
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 16, 2, 10   # bench.py:322, 337
+TUNE_STEPS = 5             # timed steps a candidate when phases 7 and 15 tune
 # phase 7b, long-context training: the flagship at full width at seq
 # 32768, batch 5, 163,840 tokens a step, where the merged backward's f32
 # dq buffer (640 MiB) passes the wrapper's 512 MiB cap, so the port takes
@@ -340,6 +370,8 @@ LSTM_PROBE_SCALE = 2.0 ** -16
 # served batches 1 and 32, a narrower layer, H 1000 (not a multiple of the
 # 16-unit tile), H 37 (padded to 40 for the tensor maps), and bf16 at the
 # training shape and the served batches
+LSTM_TILES = (8, 16, 32, 64)          # the cell's batch rows a block
+LSTM_TUNE_BATCHES = (32, 256)          # phase 15 tunes the served LSTM here
 LSTM_KERNEL_SHAPES = ((256, 512, 'float32'), (1, 512, 'float32'),
                       (32, 512, 'float32'), (64, 256, 'float32'),
                       (7, 1000, 'float32'), (3, 37, 'float32'),
@@ -1624,6 +1656,185 @@ def _absorbed(program, fetch_names):
     return sum(full) - sum(alone), sum(a != b for a, b in zip(alone, full))
 
 
+def _bucket_entry(server, name, bucket):
+    """The tuning entry the server's lowering of ``name`` at ``bucket``
+    rows runs under (None: untuned)."""
+    from paddle_tpu_torch.compiler import tuning
+    from paddle_tpu_torch.executor import feed_signature
+    m = server.registry.get(name)
+    exe = server.executor
+    sig = feed_signature(exe._prepare_feed(m.program,
+                                           m.synthetic_feed(bucket)))
+    return tuning.default_cache().lookup(
+        m.program.fingerprint(), tuning.shape_signature(sig),
+        tuning.backend(exe.device), count=False)
+
+
+def _serve_mix(server, seed, card, label):
+    """Phase 6b's seeded mix from RUNTIME_CLIENTS concurrent clients
+    through ``server`` (warmed): every answer against a direct
+    Executor.run of the same rows under the entry of the bucket the
+    server ran it at (serving limits, bits equal counted), each ResNet-50
+    answer also against a direct run of its rows padded to that bucket
+    (bit for bit); exact launch counts a batch, no memo miss, no
+    fallback, no failed request, closed breakers. Returns the launches
+    and the requests' trace contexts."""
+    import threading
+    import torch
+    from paddle_tpu_torch.compiler import passes, tuning
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import next_pow2
+    from paddle_tpu_torch.serving.bucketing import pad_feed
+    exe = server.executor
+    models = {name: server.registry.get(name) for name in RUNTIME_BUCKETS}
+
+    def direct(name, feed, entry=None):
+        m = models[name]
+        with tuning.apply_entry(entry):
+            return exe.run(m.program, feed=feed, fetch_list=m.fetch_vars,
+                           scope=m.scope)
+
+    # the seeded mix: each client sends every row count of both models
+    # once a round, in its own order, and waits for each answer before
+    # the next
+    rng = np.random.RandomState(seed + 60)
+    plans = []
+    for k in range(RUNTIME_CLIENTS):
+        plan = []
+        for r in range(RUNTIME_ROUNDS):
+            reqs = [(name, rows, seed + 10000 * r + 1000 * k + 10 * i + rows)
+                    for name, mix in sorted(RUNTIME_MIX.items())
+                    for i, rows in enumerate(mix)]
+            plan += [reqs[i] for i in rng.permutation(len(reqs))]
+        plans.append(plan)
+    answers, requests, errors, lat = {}, {}, [], {}
+    # the bucket each request ran at, as the worker padded its batch
+    ran_at = {}
+    real_run_batch = server._run_batch
+
+    def run_batch(model, batch):
+        rows = sum(r.n for r in batch)
+        bucket = server.policy.bucket_for(rows) if model.batchable else rows
+        for r in batch:
+            ran_at[id(r)] = bucket
+        return real_run_batch(model, batch)
+
+    def client(plan):
+        try:
+            for name, rows, s in plan:
+                t1 = time.perf_counter()
+                req = server.submit(name, _runtime_feed(name, rows, s))
+                out = req.result(timeout=600)
+                lat.setdefault((name, next_pow2(rows)), []).append(
+                    time.perf_counter() - t1)
+                answers[(name, rows, s)] = out
+                requests[(name, rows, s)] = req
+        except Exception as e:                  # noqa: BLE001
+            errors.append(e)
+
+    server._run_batch = run_batch
+    server.executor.reset_cache_info()
+    before = dict(server.stats.model_batches)
+    ck.reset_launch_counts()
+    threads = [threading.Thread(target=client, args=(p,)) for p in plans]
+    t1 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+    finally:
+        server._run_batch = real_run_batch
+    dt = time.perf_counter() - t1
+    launches = dict(ck.LAUNCHES)
+    variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
+    batches = {name: server.stats.model_batches.get(name, 0) -
+               before.get(name, 0) for name in RUNTIME_BUCKETS}
+    info = server.cache_info()
+    stats = server.stats_dict()
+    print('serving runtime: %s: %d clients, %d requests (%s rows of the '
+          'flagship, %s of ResNet-50 each, %d rounds) in %.2f s; batches '
+          '%s, by bucket %s, occupancy %.3f; memo after warm-up %s; '
+          'launches %s; fused conv by variant %s; fallbacks %s; breakers %s'
+          % (label, RUNTIME_CLIENTS, len(answers), RUNTIME_MIX['flagship'],
+              RUNTIME_MIX['resnet'], RUNTIME_ROUNDS, dt, batches,
+              stats['batches']['bucket_counts'],
+              stats['batches']['occupancy'], info, launches, variants,
+              passes.FALLBACKS,
+              {n: server.breaker(n).state for n in RUNTIME_BUCKETS}),
+          flush=True)
+    check(not errors, 'a client failed: %r' % (errors[:1],))
+    check(len(answers) == RUNTIME_CLIENTS * RUNTIME_ROUNDS * sum(
+        len(m) for m in RUNTIME_MIX.values()), 'answers missing')
+    check(stats['requests']['failed'] == 0 and
+          stats['requests']['expired'] == 0 and
+          stats['requests']['shed'] == 0, 'requests failed: %s'
+          % stats['requests'])
+    check(info.misses == 0, 'memo missed after warm-up: %s' % (info,))
+    check(all(server.breaker(n).state == 'closed' for n in RUNTIME_BUCKETS),
+          'a breaker opened')
+    check(not passes.FALLBACKS, 'fused_conv fell back: %s'
+          % passes.FALLBACKS)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attn_fwd=FLAGSHIP['n_layers'] * batches['flagship'],
+                  fused_conv=RESNET_REGIONS * batches['resnet'])
+    check(launches == expect, '%s launches %s, expected %s (6 flash '
+          'forwards a flagship batch, 53 fused convs a ResNet batch)'
+          % (label, launches, expect))
+    check(variants == {v: c * batches['resnet']
+                       for v, c in RESNET_VARIANTS.items()},
+          'fused conv variants %s over %d ResNet batches' % (
+              variants, batches['resnet']))
+    for (name, bucket), samples in sorted(lat.items()):
+        p50, p99 = _percentiles(samples)
+        print('serving runtime: %s, %s, requests of bucket %d: %d, p50 '
+              '%.2f ms, p99 %.2f ms; %s' % (label, name, bucket,
+                                             len(samples), p50, p99, card),
+              flush=True)
+    # each answer against the direct run of its rows, one by one, under
+    # the entry of the bucket it ran at; ResNet-50's also against its
+    # rows padded to that bucket (same batch, same plans: same bits
+    # unless the server path is at fault)
+    entries = {}
+    holds = {name: [] for name in RUNTIME_BUCKETS}
+    padded_equal, padded_diff, unpadded_pow2 = 0, 0.0, [0, 0]
+    for key, out in sorted(answers.items()):
+        name, rows, s = key
+        bucket = ran_at[id(requests[key])]
+        if (name, bucket) not in entries:
+            entries[(name, bucket)] = _bucket_entry(server, name, bucket)
+        entry = entries[(name, bucket)]
+        feed = _runtime_feed(name, rows, s)
+        ref = direct(name, feed, entry)
+        check(out[0].shape == ref[0].shape and np.isfinite(out[0]).all(),
+              'answer %s' % (key,))
+        holds[name].append(_hold_to_direct(name, out[0], ref[0]))
+        if name != 'resnet':
+            continue
+        if rows == bucket:
+            unpadded_pow2[0] += 1
+            unpadded_pow2[1] += holds[name][-1][3]
+        padded = direct(name, pad_feed(feed, rows, bucket,
+                                       server.policy.pad_mode), entry)
+        got = padded[0][:rows]
+        padded_equal += bool(np.array_equal(out[0], got))
+        padded_diff = max(padded_diff, float(np.abs(out[0] - got).max()))
+    for name in RUNTIME_BUCKETS:
+        _check_agreement(label, name, holds[name])
+    n_resnet = len(holds['resnet'])
+    print('serving runtime: %s, ResNet-50: %d of %d answers bit-equal to a '
+          'direct run of their rows padded to the bucket the server ran '
+          'them at (max |diff| %.3g); unpadded, the answers whose rows fill '
+          'their bucket: %d of %d bit-equal' % (
+              label, padded_equal, n_resnet, padded_diff, unpadded_pow2[1],
+              unpadded_pow2[0]), flush=True)
+    check(padded_equal == n_resnet, '%s: %d of %d ResNet-50 answers differ '
+          'from the direct run padded to their bucket' % (
+              label, n_resnet - padded_equal, n_resnet))
+    return launches, [r.trace for r in requests.values()]
+
+
 def phase_serving_runtime(seed, card, artifacts):
     """6b. Serve the flagship and ResNet-50 from their saved models
     through one ModelServer on the card: warm-up, a seeded mix from
@@ -1636,7 +1847,7 @@ def phase_serving_runtime(seed, card, artifacts):
     from paddle_tpu_torch.core import amp
     from paddle_tpu_torch.models.resnet import resnet_imagenet
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    from paddle_tpu_torch.serving import ModelServer, next_pow2
+    from paddle_tpu_torch.serving import ModelServer
 
     t0 = time.perf_counter()
     server = ModelServer(pt.CUDAPlace(0), max_batch_size=32)
@@ -1662,98 +1873,7 @@ def phase_serving_runtime(seed, card, artifacts):
         return exe.run(m.program, feed=feed, fetch_list=m.fetch_vars,
                        scope=m.scope)
 
-    # the seeded mix: each client sends every row count of both models
-    # once a round, in its own order, and waits for each answer before
-    # the next
-    rng = np.random.RandomState(seed + 60)
-    plans = []
-    for k in range(RUNTIME_CLIENTS):
-        plan = []
-        for r in range(RUNTIME_ROUNDS):
-            reqs = [(name, rows, seed + 10000 * r + 1000 * k + 10 * i + rows)
-                    for name, mix in sorted(RUNTIME_MIX.items())
-                    for i, rows in enumerate(mix)]
-            plan += [reqs[i] for i in rng.permutation(len(reqs))]
-        plans.append(plan)
-    answers, errors, lat = {}, [], {}
-
-    def client(plan):
-        try:
-            for name, rows, s in plan:
-                t1 = time.perf_counter()
-                out = server.infer(name, _runtime_feed(name, rows, s),
-                                   timeout=600)
-                lat.setdefault((name, next_pow2(rows)), []).append(
-                    time.perf_counter() - t1)
-                answers[(name, rows, s)] = out
-        except Exception as e:                  # noqa: BLE001
-            errors.append(e)
-
-    server.executor.reset_cache_info()
-    before = dict(server.stats.model_batches)
-    ck.reset_launch_counts()
-    threads = [threading.Thread(target=client, args=(p,)) for p in plans]
-    t1 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t1
-    launches = dict(ck.LAUNCHES)
-    variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
-    batches = {name: server.stats.model_batches.get(name, 0) -
-               before.get(name, 0) for name in RUNTIME_BUCKETS}
-    info = server.cache_info()
-    stats = server.stats_dict()
-    print('serving runtime: %d clients, %d requests (%s rows of the '
-          'flagship, %s of ResNet-50 each, %d rounds) in %.2f s; batches '
-          '%s, by bucket %s, occupancy %.3f; memo after warm-up %s; '
-          'launches %s; fused conv by variant %s; fallbacks %s; breakers %s'
-          % (RUNTIME_CLIENTS, len(answers), RUNTIME_MIX['flagship'],
-              RUNTIME_MIX['resnet'], RUNTIME_ROUNDS, dt, batches,
-              stats['batches']['bucket_counts'],
-              stats['batches']['occupancy'], info, launches, variants,
-              passes.FALLBACKS,
-              {n: server.breaker(n).state for n in RUNTIME_BUCKETS}),
-          flush=True)
-    check(not errors, 'a client failed: %r' % (errors[:1],))
-    check(len(answers) == RUNTIME_CLIENTS * RUNTIME_ROUNDS * sum(
-        len(m) for m in RUNTIME_MIX.values()), 'answers missing')
-    check(stats['requests']['failed'] == 0 and
-          stats['requests']['expired'] == 0 and
-          stats['requests']['shed'] == 0, 'requests failed: %s'
-          % stats['requests'])
-    check(info.misses == 0, 'memo missed after warm-up: %s' % (info,))
-    check(all(server.breaker(n).state == 'closed' for n in RUNTIME_BUCKETS),
-          'a breaker opened')
-    check(not passes.FALLBACKS, 'fused_conv fell back: %s'
-          % passes.FALLBACKS)
-    expect = dict.fromkeys(launches, 0)
-    expect.update(flash_attn_fwd=FLAGSHIP['n_layers'] * batches['flagship'],
-                  fused_conv=RESNET_REGIONS * batches['resnet'])
-    check(launches == expect, 'serving runtime launches %s, expected %s '
-          '(6 flash forwards a flagship batch, 53 fused convs a ResNet '
-          'batch)' % (launches, expect))
-    check(variants == {v: c * batches['resnet']
-                       for v, c in RESNET_VARIANTS.items()},
-          'fused conv variants %s over %d ResNet batches' % (
-              variants, batches['resnet']))
-    for (name, bucket), samples in sorted(lat.items()):
-        p50, p99 = _percentiles(samples)
-        print('serving runtime: concurrent %s, requests of bucket %d: %d, '
-              'p50 %.2f ms, p99 %.2f ms; %s' % (name, bucket, len(samples),
-                                                  p50, p99, card),
-              flush=True)
-    # each answer against the direct run of its rows, one by one
-    holds = {name: [] for name in RUNTIME_BUCKETS}
-    for (name, rows, s), out in sorted(answers.items()):
-        ref = direct(name, _runtime_feed(name, rows, s))
-        check(out[0].shape == ref[0].shape and np.isfinite(out[0]).all(),
-              'answer %s' % ((name, rows, s),))
-        holds[name].append(_hold_to_direct(name, out[0], ref[0]))
-    for name in RUNTIME_BUCKETS:
-        _check_agreement('concurrent mix', name, holds[name])
+    launches, _ = _serve_mix(server, seed, card, 'concurrent mix')
 
     # latency per bucket: one client, then the direct run at the same
     # batch, each answer fetched to the host; beside them the worker's
@@ -1841,7 +1961,7 @@ def phase_serving_runtime(seed, card, artifacts):
     finally:
         amp.set_amp(None)
     server.close(timeout=60)
-    del server, models, answers
+    del server, models
 
     # ResNet-50 through an Inferencer with the batch norms folded
     def logits_func():
@@ -1907,6 +2027,305 @@ def phase_serving_runtime(seed, card, artifacts):
     return launches
 
 
+# phase 6c: the autotuned server. Requests a timed batch-1 request count
+# with and without a journal (medians of JOURNAL_COST_REQUESTS each, in two
+# alternating halves); the fixed requests the second process answers too
+JOURNAL_COST_REQUESTS = 50
+SECOND_PROCESS_TIMEOUT = 300
+
+
+def _fixed_requests(seed):
+    """One seeded request per bucket of each model, served one at a
+    time, so each runs at its own bucket in both processes."""
+    return [(name, b, seed + 90 + b) for name, buckets in
+            sorted(RUNTIME_BUCKETS.items()) for b in buckets]
+
+
+def _named_report(report, cands):
+    """A tuner's report (entry token -> ms) keyed by the entries."""
+    from paddle_tpu_torch.compiler import tuning
+    names = {tuning.entry_token(c) if c else 'baseline':
+             json.dumps(c, sort_keys=True) for c in cands}
+    return '; '.join('%s %s' % (names.get(t, t), v)
+                     for t, v in report.items())
+
+
+def _tuned_server(config, journal_path):
+    """A fresh ModelServer(CUDAPlace(0)) on both saved models, the
+    default tuning cache at ``config['cache']``, a journal installed at
+    ``journal_path``; warmed with autotune=True, each model up to its
+    last bucket. Returns (server, journal, warmed, seconds)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.compiler import tuning
+    from paddle_tpu_torch.serving import ModelServer
+    tuning.set_default_cache(tuning.TuningCache(config['cache']))
+    journal = obs.RunJournal(journal_path)
+    obs.set_journal(journal)
+    server = ModelServer(pt.CUDAPlace(0), max_batch_size=32)
+    for name in RUNTIME_BUCKETS:
+        server.load_model(name, config[name])
+    t0 = time.perf_counter()
+    warmed = {}
+    for name, buckets in RUNTIME_BUCKETS.items():
+        warmed.update(server.warmup(name, upto=buckets[-1], autotune=True))
+    return server, journal, warmed, time.perf_counter() - t0
+
+
+def _answer_fixed(server, seed):
+    return {'%s-%d' % (name, rows): server.infer(
+        name, _runtime_feed(name, rows, s), timeout=600)[0]
+        for name, rows, s in _fixed_requests(seed)}
+
+
+def serve_tuned(config_path):
+    """The second process of phase 6c (``--serve-tuned CONFIG``): the same
+    cache file and saved models, warm-up with autotune=True (every entry
+    preloaded, so no search), then the fixed requests, whose answers it
+    saves for the first process to compare bit for bit."""
+    from paddle_tpu_torch import observability as obs
+    with open(config_path) as f:
+        config = json.load(f)
+    server, journal, warmed, dt = _tuned_server(config, config['journal2'])
+    answers = _answer_fixed(server, config['seed'])
+    server.close(timeout=60)
+    obs.set_journal(None)
+    journal.close()
+    np.savez(config['answers2'], **answers)
+    print('second process: warmed %s with autotune=True in %.1f s; %d '
+          'answers saved' % (warmed, dt, len(answers)), flush=True)
+    return 0
+
+
+def _span_trees(journal_path, traces):
+    """tools/trace_report.py's trees of the journal: for each traced
+    request, whether its tree (batch spans grafted through their links)
+    is closed and holds request -> queue -> batch -> pad -> run."""
+    sys.path.insert(0, os.path.join(ROOT, 'tools'))
+    import trace_report
+    store = trace_report.build_store([journal_path])
+    unclosed = store.unclosed()
+    missing = []
+    for ctx in traces:
+        sp = store.spans.get(ctx.span_id)
+        names = set()
+        if sp is not None and sp['closed']:
+            names = {store.spans[i]['name']
+                     for i in store.subtree_ids(ctx.span_id,
+                                                follow_links=True)}
+        want = ('serving/request', 'serving/queue', 'serving/batch',
+                'serving/pad', 'serving/run')
+        if not all(n in names for n in want):
+            missing.append((ctx.span_id, sorted(names)))
+    return store, unclosed, missing
+
+
+def phase_autotuned_serving(seed, card, artifacts):
+    """6c. A fresh ModelServer on both saved models with a tuning cache
+    at a temporary path and a journal: warm-up with autotune=True, the
+    winners; phase 6b's mix under the tuned entries; p50/p99 tuned and at
+    the baseline entry; the journal's cost; a second process that finds
+    every entry and searches nothing, with bit-equal answers; a poisoned
+    candidate; the span trees through tools/trace_report.py and
+    tools/obs_report.py."""
+    import subprocess
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.compiler import passes, tuning
+    from paddle_tpu_torch.resilience import faultinject as fi
+
+    work = os.path.join(artifacts['dir'], 'autotune')
+    os.makedirs(work)
+    config = dict(cache=os.path.join(work, 'tuning_cache.json'),
+                  journal2=os.path.join(work, 'second.jsonl'),
+                  answers2=os.path.join(work, 'second.npz'), seed=seed,
+                  **{name: artifacts[name] for name in RUNTIME_BUCKETS})
+    journal_path = os.path.join(work, 'first.jsonl')
+    untuned_cache = tuning.default_cache()
+    passes.reset_fallback_counts()
+    server, journal, warmed, search_s = _tuned_server(config, journal_path)
+    tuned_cache = tuning.default_cache()
+    try:
+        check(warmed == RUNTIME_BUCKETS, 'warmed %s' % (warmed,))
+        journal.flush()
+        records, _ = obs.read_journal(journal_path)
+        ends = [r for r in records if r['ev'] == 'autotune' and
+                r['phase'] == 'end']
+        searches = [r['autotune_searches'] for r in records
+                    if r['ev'] == 'serving_warmup']
+        print('autotuned serving: warm-up with autotune=True of both models '
+              '(%s) in %.1f s: %d searches, %d entries in %s; %s' % (
+                  warmed, search_s, sum(searches), len(tuned_cache),
+                  config['cache'], card), flush=True)
+        by_model = {name: [r for r in ends if r['program'] == name]
+                    for name in RUNTIME_BUCKETS}
+        for name, buckets in RUNTIME_BUCKETS.items():
+            check(len(by_model[name]) == len(buckets), '%s: %d searches for '
+                  '%d buckets' % (name, len(by_model[name]), len(buckets)))
+            m = server.registry.get(name)
+            for bucket, r in zip(buckets, by_model[name]):
+                entry = _bucket_entry(server, name, bucket)
+                cands = tuning.Autotuner(pt.CUDAPlace(0)).candidates(
+                    m.program, m.synthetic_feed(bucket))
+                print('autotuned serving: %s bucket %d: candidates (ms a '
+                      'run) %s; winner %s (%.3f ms); search %.2f s' % (
+                          name, bucket, _named_report(r['report'], cands),
+                          r['winner'] or 'baseline {}', r['best_ms'],
+                          r['seconds']), flush=True)
+                check(entry == r['winner'], '%s bucket %d: cached entry %s, '
+                      'winner %s' % (name, bucket, entry, r['winner']))
+                check(r['poisoned'] == 0, '%s bucket %d: a candidate '
+                      'failed: %s' % (name, bucket, r['report']))
+
+        # the mix under the tuned entries
+        launches, traces = _serve_mix(server, seed, card, 'tuned mix')
+
+        # the journal's cost: batch-1 requests without and with a journal
+        cost = {}
+        for name in RUNTIME_BUCKETS:
+            feed = _runtime_feed(name, 1, seed + 95)
+            server.infer(name, feed, timeout=600)
+            times = {'off': [], 'on': []}
+            for half in range(2):
+                for mode in ('off', 'on'):
+                    obs.set_journal(journal if mode == 'on' else None)
+                    for _ in range(JOURNAL_COST_REQUESTS // 2):
+                        t1 = time.perf_counter()
+                        server.infer(name, feed, timeout=600)
+                        times[mode].append(time.perf_counter() - t1)
+            obs.set_journal(journal)
+            cost[name] = {m: float(np.median(v)) * 1e3
+                          for m, v in times.items()}
+            print('autotuned serving: journal cost, %s batch 1: no journal '
+                  '%.3f ms, journal installed %.3f ms (medians of %d, '
+                  'alternating halves; %+.3f ms); %s' % (
+                      name, cost[name]['off'], cost[name]['on'],
+                      JOURNAL_COST_REQUESTS,
+                      cost[name]['on'] - cost[name]['off'], card),
+                  flush=True)
+
+        # the span trees of the mix's requests, through the tools
+        journal.flush()
+        store, unclosed, missing = _span_trees(journal_path, traces)
+        print('autotuned serving: trace_report: %d spans, %d traced '
+              'requests of the mix, %d unclosed spans, %d requests without '
+              'a closed request -> queue -> batch -> pad -> run tree' % (
+                  len(store.spans), len(traces), len(unclosed),
+                  len(missing)), flush=True)
+        check(traces and all(t is not None for t in traces),
+              'untraced requests in the mix')
+        check(not unclosed and not missing, 'span trees: unclosed %s, '
+              'incomplete %s' % (unclosed[:2], missing[:2]))
+        for tool, args in (('trace_report.py', ['--kind', 'serving/request',
+                                                '--json', '-']),
+                           ('obs_report.py', ['--smoke', '--require',
+                                              'serving']),
+                           ('obs_report.py', ['--smoke', '--require',
+                                              'autotune']),
+                           ('obs_report.py', ['--smoke', '--require',
+                                              'tracing'])):
+            proc = subprocess.run(
+                [sys.executable, os.path.join(ROOT, 'tools', tool),
+                 journal_path] + args, capture_output=True, text=True,
+                timeout=300)
+            tail = proc.stdout.strip().splitlines()[-1:] or ['']
+            print('autotuned serving: tools/%s %s: exit %d; %s' % (
+                tool, ' '.join(args), proc.returncode, tail[0][:200]),
+                flush=True)
+            check(proc.returncode == 0, 'tools/%s %s failed: %s %s' % (
+                tool, args, proc.stdout[-2000:], proc.stderr[-2000:]))
+
+        # p50 and p99 a request per bucket, tuned and at the baseline
+        # entry (no cache entry: the kernels' rules), in turns
+        for name, buckets in RUNTIME_BUCKETS.items():
+            for b in buckets:
+                feed = _runtime_feed(name, b, seed + 70 + b)
+                got = {}
+                for label, cache in (('tuned', tuned_cache),
+                                     ('baseline', untuned_cache)):
+                    tuning.set_default_cache(cache)
+                    samples = []
+                    for i in range(RUNTIME_TIMED + 1):
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        server.infer(name, feed, timeout=600)
+                        if i:                  # the first warms up
+                            samples.append(time.perf_counter() - t1)
+                    got[label] = _percentiles(samples)
+                tuning.set_default_cache(tuned_cache)
+                print('autotuned serving: %s batch %d (entry %s): tuned p50 '
+                      '%.2f ms, p99 %.2f ms; baseline p50 %.2f ms, p99 %.2f '
+                      'ms (%d requests each); %s' % (
+                          name, b, _bucket_entry(server, name, b) or '{}',
+                          got['tuned'][0], got['tuned'][1],
+                          got['baseline'][0], got['baseline'][1],
+                          RUNTIME_TIMED, card), flush=True)
+        first = _answer_fixed(server, seed)
+
+        # a candidate made to fault is poisoned and the search goes on
+        m = server.registry.get('resnet')
+        faulty = tuning.Autotuner(pt.CUDAPlace(0), cache=tuning.TuningCache(
+            os.path.join(work, 'fault.json')), warmup=0, steps=1)
+        with fi.fault_plan() as plan:
+            plan.inject(fi.SITE_TUNING_MEASURE, at=[1])
+            best, report = faulty.tune(m.program, m.synthetic_feed(1),
+                                       m.fetch_vars, scope=m.scope,
+                                       persist=False, name='resnet-fault')
+        poisoned = [t for t, v in report.items() if isinstance(v, str)]
+        print('autotuned serving: a fault injected at %s into the second '
+              'candidate: report %s; winner %s' % (
+                  fi.SITE_TUNING_MEASURE, _named_report(
+                      report, faulty.candidates(m.program,
+                                                m.synthetic_feed(1))),
+                  best), flush=True)
+        check(len(poisoned) == 1 and len(report) >= 3 and
+              all(isinstance(v, float) for t, v in report.items()
+                  if t not in poisoned), 'the faulted search: %s' % report)
+    finally:
+        server.close(timeout=60)
+        obs.set_journal(None)
+        journal.close()
+        tuning.set_default_cache(untuned_cache)
+    check(not passes.FALLBACKS, 'fused_conv fell back: %s'
+          % passes.FALLBACKS)
+
+    # a second process on the same cache file and saved models
+    config_path = os.path.join(work, 'config.json')
+    with open(config_path, 'w') as f:
+        json.dump(config, f)
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           '--serve-tuned', config_path],
+                          capture_output=True, text=True,
+                          timeout=SECOND_PROCESS_TIMEOUT)
+    print('autotuned serving: second process exited %d in %.1f s: %s' % (
+        proc.returncode, time.perf_counter() - t1,
+        proc.stdout.strip().splitlines()[-1:]), flush=True)
+    check(proc.returncode == 0, 'the second process failed: %s' %
+          proc.stderr[-3000:])
+    records, malformed = obs.read_journal(config['journal2'])
+    preloads = [r for r in records if r['ev'] == 'tuning_preload']
+    searched = [r for r in records if r['ev'] == 'autotune']
+    second = dict(np.load(config['answers2']))
+    equal = [k for k in first if np.array_equal(first[k], second[k])]
+    print('autotuned serving: second process: first tuning_preload %s; '
+          '%d autotune events; answers bit-equal to the first process at '
+          'the same bucket: %d of %d (%s)' % (
+              {k: preloads[0][k] for k in ('entries', 'loaded')}
+              if preloads else None, len(searched), len(equal), len(first),
+              ', '.join(sorted(set(first) - set(equal))) or 'all'),
+          flush=True)
+    check(preloads and preloads[0]['loaded'] == preloads[0]['entries'] ==
+          len(tuned_cache), 'the second process preloaded %s of %d entries'
+          % (preloads[:1], len(tuned_cache)))
+    check(not searched, 'the second process searched: %s' % searched[:1])
+    check(sorted(second) == sorted(first) and len(equal) == len(first),
+          'second-process answers differ: %s' % sorted(set(first) -
+                                                       set(equal)))
+    return launches
+
+
 def _train_feed(bs, seed, seq=FLAGSHIP['seq']):
     """One fixed batch of tokens, labels and positions, on the card."""
     import torch
@@ -1942,6 +2361,7 @@ def phase_training(seed, card):
     Adam.minimize and Executor.run on one fixed batch of 16."""
     import torch
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import tuning
     from paddle_tpu_torch.models.fluid_transformer import transformer
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
@@ -2038,8 +2458,50 @@ def phase_training(seed, card):
           '%s' % (route_launches, expect))
     check(errs[worst] <= ROUTE_GRAD_TOL, 'two-pass gradients differ from '
           'the merged route by %g (%s)' % (errs[worst], worst))
+
+    # the tuner over flash_bwd_route at this shape (a cache of its own),
+    # then one step under the winner's route: no winner is asserted, the
+    # two routes differ by less than a step's spread
     _restore(scope, snap)
-    del snap, merged, two_pass
+    tuner = tuning.Autotuner(pt.CUDAPlace(0), cache=tuning.TuningCache(
+        os.path.join(ROOT, 'build', 'phase7-tuning.json')), warmup=1,
+        steps=TUNE_STEPS)
+    t1 = time.perf_counter()
+    best, report = tuner.tune(main, feed, [loss], scope=scope,
+                              persist=False, name='flagship-train')
+    route = best.get('flash_bwd_route', tuning.KNOB_DEFAULTS[
+        'flash_bwd_route'])
+    other = 'two_pass' if route == 'merged' else 'merged'
+    print('training: tuned over flash_bwd_route at batch %d in %.1f s: '
+          'candidates (ms a step, %d steps each) %s; winner %s (route %s); '
+          '%s' % (TRAIN_BATCH, time.perf_counter() - t1, TUNE_STEPS,
+                  _named_report(report, tuner.candidates(main, feed)),
+                  best or 'baseline {}', route, card), flush=True)
+    check(all(isinstance(v, float) for v in report.values()),
+          'a route candidate failed: %s' % report)
+    with tuning.apply_entry({'flash_bwd_route': route}):
+        won, won_launches = step_grads()
+    with tuning.apply_entry({'flash_bwd_route': other}):
+        lost, _ = step_grads()
+    errs = _rel_l2(won, lost)
+    worst = max(errs, key=errs.get)
+    expect = dict.fromkeys(won_launches, 0)
+    if route == 'merged':
+        expect.update(flash_attn_fwd=n_layers, flash_attn_bwd_dkvdq=n_layers)
+    else:
+        expect.update(flash_attn_fwd=n_layers, flash_attn_bwd_dq=n_layers,
+                      flash_attn_bwd_dkv=n_layers)
+    print('training: one step under the winner\'s route (%s): launches %s; '
+          'gradients vs the %s route, max relative L2 %.3g (%s) (tol %g)'
+          % (route, won_launches, other, errs[worst], worst,
+             ROUTE_GRAD_TOL), flush=True)
+    check(won_launches == expect, 'tuned step launches %s, expected %s'
+          % (won_launches, expect))
+    check(errs[worst] <= ROUTE_GRAD_TOL, 'the %s route\'s gradients differ '
+          'from the %s route\'s by %g (%s)' % (route, other, errs[worst],
+                                               worst))
+    _restore(scope, snap)
+    del snap, merged, two_pass, won, lost
     return dict(exe=exe, main=main, loss=loss, scope=scope,
                 grad_names=grad_names, launches=launches,
                 route_launches=route_launches)
@@ -3036,6 +3498,20 @@ def phase_lstm_kernels(seed):
                   res['library_ms'], bound, bound_by,
                   'bf16' if dot == 'bfloat16' else '3 TF32 products'),
               flush=True)
+        # the batch rows a block forced to each of the kernel's tiles (the
+        # lstm_batch_tile knob), each against the plain version
+        forced = {}
+        for tile in LSTM_TILES:
+            th, tc = ck._lstm_cell_kernel(*ops, batch_tile=tile)
+            forced[tile] = max(_cell_ratio(th, ref_h), _cell_ratio(tc, ref_c))
+            checks.append((forced[tile] <= 1, 'lstm_cell at batch tile %d '
+                           'differs from its plain version at B %d H %d %s: '
+                           '%.3g of the limit' % (tile, B, H, dot,
+                                                  forced[tile])))
+        print('lstm kernels: B %d H %d %s, forced batch tiles: %s of the '
+              'per-element limit' % (B, H, dot, ', '.join(
+                  '%d: %.3f' % kv for kv in sorted(forced.items()))),
+              flush=True)
         checks.append((same, 'two lstm_cell calls differ at B %d H %d %s'
                        % (B, H, dot)))
         checks.append((ratio <= 1, 'lstm_cell differs from its plain version '
@@ -3046,6 +3522,15 @@ def phase_lstm_kernels(seed):
                            'does not catch a control (%s) by %dx at B %d H '
                            '%d %s: %.3g' % (name, LSTM_CONTROL_MARGIN, B, H,
                                             dot, ctl)))
+    # a batch tile the kernel has no instance for is refused at launch
+    try:
+        ck._lstm_cell_kernel(*inputs(8, 64, torch.float32), batch_tile=12)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    print('lstm kernels: batch tile 12: %s' % refused, flush=True)
+    checks.append((refused is not None and 'CUDA error 1 ' in refused,
+                   'lstm_cell took batch tile 12: %s' % refused))
     for ok, msg in checks:
         check(ok, msg)
     return results
@@ -3217,7 +3702,7 @@ def phase_lstm_gradients(seed):
     torch.cuda.empty_cache()
 
 
-def phase_lstm_serving(seed, trained):
+def phase_lstm_serving(seed, trained, card):
     """Save the trained use_peepholes=False model with
     save_inference_model(['data'], [prediction]), load it into a fresh
     scope and serve batches of 1, 32 and 256 sequences of 80 words, then
@@ -3228,6 +3713,7 @@ def phase_lstm_serving(seed, trained):
     import torch
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.compiler import tuning
     from paddle_tpu_torch.ops import cuda_kernels as ck
     from paddle_tpu_torch.ops import rnn_ops
     exe = pt.Executor()
@@ -3323,6 +3809,54 @@ def phase_lstm_serving(seed, trained):
         e = found[name]
         check(e[0] > limits[0] or e[1] > limits[1], 'the serving limits do '
               'not catch a control: %s' % name)
+
+    # the tuner over lstm_batch_tile at the served batches 32 and 256 (a
+    # cache of its own), then every tile forced: within the limits above
+    # of the plain cell, 288 launches a request, two calls bit-equal
+    tuner = tuning.Autotuner(pt.CUDAPlace(0), cache=tuning.TuningCache(
+        os.path.join(ROOT, 'build', 'phase15-tuning.json')), warmup=1,
+        steps=TUNE_STEPS)
+    for b in LSTM_TUNE_BATCHES:
+        lens = [LSTM_WORDS] * b
+        feed = {'data': _lstm_feed(lens, seed + 60)['data']}
+        t1 = time.perf_counter()
+        best, report = tuner.tune(prog, feed, fetch_vars, scope=scope,
+                                  persist=False, name='lstm-b%d' % b)
+        print('lstm serving: tuned over lstm_batch_tile at batch %d in %.1f '
+              's: candidates (ms a request, %d each) %s; winner %s; %s' % (
+                  b, time.perf_counter() - t1, TUNE_STEPS, _named_report(
+                      report, tuner.candidates(prog, feed)),
+                  best or 'baseline {}', card), flush=True)
+        check(all(isinstance(v, float) for v in report.values()),
+              'an lstm tile candidate failed: %s' % report)
+        fetch = [v.name for v in fetch_vars] + [pooled]
+        with rnn_ops.lstm_cell_for_testing(ck.lstm_cell_reference):
+            plain_p, plain_s = exe.run(prog, feed=feed, fetch_list=fetch,
+                                       scope=scope)
+        for tile in (0,) + LSTM_TILES:
+            with tuning.apply_entry({'lstm_batch_tile': tile}):
+                ck.reset_launch_counts()
+                p, st = exe.run(prog, feed=feed, fetch_list=fetch,
+                                scope=scope)
+                n = ck.LAUNCHES['lstm_cell']
+                p2, st2 = exe.run(prog, feed=feed, fetch_list=fetch,
+                                  scope=scope)
+            e = (float(np.abs(p - plain_p).max()),
+                 float(np.abs(st - plain_s).max() / np.abs(plain_s).max()))
+            same = np.array_equal(p, p2) and np.array_equal(st, st2)
+            print('lstm serving: batch %d, lstm_batch_tile %d%s: %d '
+                  'launches; vs the plain cell: probabilities max |diff| '
+                  '%.3g (limit %.3g), pooled state %.3g (limit %.3g); two '
+                  'calls %s' % (b, tile, ' (the rule)' if not tile else '',
+                                n, e[0], limits[0], e[1], limits[1],
+                                'bit-identical' if same else 'DIFFER'),
+                  flush=True)
+            check(n == LSTM_LAUNCHES, 'batch %d tile %d: %d launches' % (
+                b, tile, n))
+            check(e[0] <= limits[0] and e[1] <= limits[1], 'batch %d tile '
+                  '%d: outputs differ from the plain cell\'s: %s' % (
+                      b, tile, e))
+            check(same, 'batch %d tile %d: two calls differ' % (b, tile))
     del scope, prog
     torch.cuda.empty_cache()
 
@@ -3703,6 +4237,8 @@ def main():
     ap.add_argument('--root', default=ROOT,
                     help='with --host-cost or --fetch-cost: the checkout '
                     'whose package is measured (default: this one)')
+    ap.add_argument('--serve-tuned', metavar='CONFIG',
+                    help="phase 6c's second process (run by phase 6c)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3712,7 +4248,22 @@ def main():
                            else ROOT)
     sys.path.insert(0, root)
     card = phase_device()
+    if args.serve_tuned:
+        return serve_tuned(args.serve_tuned)
     phase_build()
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        # every phase runs on an empty tuning cache of its own (the
+        # kernels' rules), never on a file under ~/.cache
+        from paddle_tpu_torch import compiler
+        if hasattr(compiler, 'tuning'):     # not in a checkout before it
+            compiler.tuning.set_default_cache(compiler.tuning.TuningCache(
+                os.path.join(d, 'tuning_cache.json')))
+        return run_phases(args, card, root)
+
+
+def run_phases(args, card, root):
+    import torch
     if args.sweep_conv:
         sweep_conv_plans(card)
         return 0
@@ -3733,6 +4284,7 @@ def main():
         launches = phase_serving(args.seed, artifacts)
         resnet_launches = phase_resnet_serving(args.seed, artifacts)
         runtime_launches = phase_serving_runtime(args.seed, card, artifacts)
+        tuned_launches = phase_autotuned_serving(args.seed, card, artifacts)
     torch.cuda.empty_cache()
     trained = phase_training(args.seed, card)
     phase_gradients(args.seed, trained)
@@ -3749,19 +4301,19 @@ def main():
     phase_se_resnext_training(args.seed, card)
     lstm = phase_lstm_kernels(args.seed)
     lstm_trained = phase_lstm_training(args.seed, card)
-    phase_lstm_serving(args.seed, lstm_trained)
+    phase_lstm_serving(args.seed, lstm_trained, card)
     lstm_launches = lstm_trained['launches']
     del lstm_trained
     phase_lstm_gradients(args.seed)
     phase_machine_translation(args.seed, card)
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
-    # the served requests, the serving runtime's concurrent mix, and the
-    # timed training steps at both lengths; the merged backward: the
-    # timed training steps; the two-pass backward: the timed long-context
-    # steps, its numbers at their shape, the training shape's beside
-    # them; the fused conv: the served ResNet requests and the serving
-    # runtime's concurrent mix)
+    # the served requests, the serving runtime's concurrent mix, untuned
+    # and tuned, and the timed training steps at both lengths; the merged
+    # backward: the timed training steps; the two-pass backward: the timed
+    # long-context steps, its numbers at their shape, the training
+    # shape's beside them; the fused conv: the served ResNet requests and
+    # the serving runtime's concurrent mix, untuned and tuned)
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -3774,6 +4326,7 @@ def main():
         replaces='paddle_tpu/ops/pallas_kernels.py:85',
         launches=launches['flash_attn_fwd'] +
         runtime_launches['flash_attn_fwd'] +
+        tuned_launches['flash_attn_fwd'] +
         trained['launches']['flash_attn_fwd'] +
         long_trained['launches']['flash_attn_fwd'], **main_shape)]
     kernels.append(dict(
@@ -3795,7 +4348,8 @@ def main():
         source='paddle_tpu_torch/csrc/fused_conv.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_launches['fused_conv'] +
-        runtime_launches['fused_conv'], **conv))
+        runtime_launches['fused_conv'] + tuned_launches['fused_conv'],
+        **conv))
     # its stats form: launches over the timed ResNet-50 training steps,
     # numbers summed over one batch-128 step's 53 regions (bf16)
     kernels.append(dict(

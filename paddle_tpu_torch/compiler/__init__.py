@@ -1,9 +1,8 @@
 """``paddle_tpu_torch.compiler`` — the program-level pass pipeline.
 
-Counterpart of paddle_tpu/compiler/__init__.py, without the autotuner
-(``tuning``) and the ZeRO pass. It runs between program construction and
-``core/lowering``; the rewrites are registered passes composed into
-pipelines:
+Counterpart of paddle_tpu/compiler/__init__.py, without the ZeRO pass.
+It runs between program construction and ``core/lowering``; the
+rewrites are registered passes composed into pipelines:
 
 - ``default_pipeline()``: exact rewrites (constant folding, dead-op
   elimination, the conv-epilogue and elementwise-chain fusions,
@@ -11,12 +10,15 @@ pipelines:
   program it runs, once per memo key;
 - ``inference_pipeline()``: adds BN folding into conv/fc weights (needs
   the scope; <= 1e-5 drift) at the head. Reached via
-  ``optimize_inference`` and ``Inferencer(optimize_for_inference=True)``.
+  ``optimize_inference`` and ``Inferencer(optimize_for_inference=True)``;
+- ``tuning``: the per-shape autotuner and its on-disk cache, which the
+  Executor consults when it lowers a program and serving warmup
+  preloads.
 
 The Executor folds :func:`cache_token` into its memo key, so toggling
-the pipeline (``set_enabled``/``set_default_passes``) misses exactly
-once per program and never serves a program rewritten under another
-configuration.
+the pipeline (``set_enabled``/``set_default_passes``) or landing a new
+tuning entry misses exactly once for the affected programs and never
+serves a program lowered under another configuration.
 """
 import contextlib
 
@@ -24,6 +26,7 @@ from .pass_base import (Pass, PassContext, PassResult, PassRegistry,  # noqa
                         PassPipeline, register_pass, get_pass,
                         registered_passes)
 from . import passes  # noqa  (registers the passes and the fused ops)
+from . import tuning  # noqa
 from .passes import DEFAULT_PASSES, INFERENCE_PASSES  # noqa
 
 __all__ = ['Pass', 'PassContext', 'PassResult', 'PassRegistry',
@@ -31,7 +34,7 @@ __all__ = ['Pass', 'PassContext', 'PassResult', 'PassRegistry',
            'registered_passes', 'enabled', 'set_enabled', 'disabled',
            'default_pipeline', 'inference_pipeline',
            'set_default_passes', 'pipeline_signature', 'cache_token',
-           'optimize', 'optimize_inference', 'DEFAULT_PASSES',
+           'optimize', 'optimize_inference', 'tuning', 'DEFAULT_PASSES',
            'INFERENCE_PASSES']
 
 _STATE = {'enabled': True, 'pass_names': tuple(DEFAULT_PASSES),
@@ -89,11 +92,16 @@ def pipeline_signature():
     return _STATE['pass_names']
 
 
-def cache_token():
+def cache_token(program_fp, feed_sig, device):
     """The compiler's part of the Executor's memo key: the pipeline
-    configuration. The JAX package adds the tuning cache's entry for
-    the program and feed shapes, which waits for the autotuner."""
-    return pipeline_signature()
+    configuration plus the tuning cache's entry token for this
+    (program, feed shapes, backend of ``device``). Cheap: one dict
+    lookup a run."""
+    if not _STATE['enabled']:
+        return ('off',)
+    return _STATE['pass_names'] + (tuning.default_cache().token(
+        program_fp, tuning.shape_signature(feed_sig),
+        tuning.backend(device)),)
 
 
 def optimize(program, fetch_names=(), scope=None, clone=True):

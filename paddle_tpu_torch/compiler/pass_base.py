@@ -1,10 +1,9 @@
 """Pass framework: Pass / PassContext / PassResult / PassRegistry /
 PassPipeline.
 
-Counterpart of paddle_tpu/compiler/pass_base.py, copied without its
-telemetry (the pass-time histogram, the op counters and the journal
-events) and without the sanitizer's verify mode; both come back with the
-observability and analysis slices.
+Counterpart of paddle_tpu/compiler/pass_base.py, copied without the
+sanitizer's verify mode, which comes with the analysis slice (ROADMAP
+Queue A).
 
 A pass mutates the Program it is given IN PLACE (the pipeline clones
 first unless told otherwise) and reports what it did through a
@@ -20,6 +19,8 @@ tests can rely on:
   reports ``changed=False`` and leaves the program alone.
 """
 import time
+
+from .. import observability as _obs
 
 __all__ = ['Pass', 'PassContext', 'PassResult', 'PassRegistry',
            'PassPipeline', 'register_pass', 'get_pass',
@@ -143,6 +144,11 @@ class PassPipeline(object):
     mutated behind their back (the executor memoizes the optimized clone
     per key); callers that must rewrite in place (``optimize_inference``,
     the ``Inferencer``) pass ``clone=False``.
+
+    Telemetry, as in the JAX package: each pass observes
+    ``compiler_pass_seconds{pass=}`` and increments
+    ``compiler_ops_eliminated_total`` / ``compiler_ops_fused_total``;
+    each application journals a ``compile_pass`` event.
     """
 
     def __init__(self, passes, name='pipeline'):
@@ -169,11 +175,30 @@ class PassPipeline(object):
         if clone:
             program = program.clone()
         ctx = PassContext(scope=scope, protected=protected)
+        reg = _obs.default_registry()
         results = []
         for p in self.passes:
             t0 = time.perf_counter()
             res = p.run(program, ctx)
             res.wall_s = time.perf_counter() - t0
+            reg.histogram('compiler_pass_seconds',
+                          'wall seconds per compiler pass application',
+                          **{'pass': p.name}).observe(res.wall_s)
+            if res.ops_removed or res.ops_folded:
+                reg.counter('compiler_ops_eliminated_total',
+                            'ops removed by dead-op elimination / '
+                            'constant folding').inc(
+                                res.ops_removed + res.ops_folded)
+            if res.ops_fused:
+                reg.counter('compiler_ops_fused_total',
+                            'ops merged into fused kernels').inc(
+                                res.ops_fused)
+            _obs.emit('compile_pass', **{
+                'pass': p.name, 'dur_s': round(res.wall_s, 6),
+                'changed': bool(res.changed),
+                'removed': res.ops_removed + res.ops_folded,
+                'fused': res.ops_fused,
+                'released': res.vars_released})
             results.append(res)
         return program, results
 

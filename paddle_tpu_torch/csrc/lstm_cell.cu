@@ -649,13 +649,18 @@ int batch_tile(int B, int H) {
 // xg: [B, 4H] f32 with row stride ld_xg; r_prev [B, Hp] and w [Hp, 4Hp]
 // contiguous and 16-byte aligned (Hp a multiple of 8, >= H; w's gate q at
 // columns q * Hp ..), both f32 or (dot_bf16) both bf16; c_prev [B, H] f32;
-// h and c [B, H], bf16 where h_bf16 / c_bf16, else f32. Returns the CUDA
-// error of the launch (0 on success).
+// h and c [B, H], bf16 where h_bf16 / c_bf16, else f32. batch_tile_rows: the
+// batch rows a block, 8, 16, 32 or 64, or 0 for batch_tile(B, H). Returns
+// the CUDA error of the launch (0 on success; cudaErrorInvalidValue for
+// another batch_tile_rows).
 extern "C" int lstm_cell(const void* xg, long long ld_xg, const void* r,
                          const void* c_prev, const void* w, void* h, void* c,
                          int B, int H, int Hp, int dot_bf16, int h_bf16,
-                         int c_bf16, void* stream) {
+                         int c_bf16, int batch_tile_rows, void* stream) {
   if (B <= 0 || H <= 0 || Hp < H || Hp % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch_tile_rows != 0 && batch_tile_rows != 8 && batch_tile_rows != 16 &&
+      batch_tile_rows != 32 && batch_tile_rows != 64)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.xg = static_cast<const float*>(xg);
@@ -669,7 +674,7 @@ extern "C" int lstm_cell(const void* xg, long long ld_xg, const void* r,
   p.h_bf16 = h_bf16;
   p.c_bf16 = c_bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = batch_tile(B, H);
+  const int n = batch_tile_rows ? batch_tile_rows : batch_tile(B, H);
   const cudaError_t err = dot_bf16 ? launch_dtype<false>(p, n, r, w, s)
                                    : launch_dtype<true>(p, n, r, w, s);
   return static_cast<int>(err);

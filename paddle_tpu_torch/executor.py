@@ -10,20 +10,35 @@ that device in the Scope between runs.
 After the prune, the program goes through the port's compiler pipeline
 (``compiler.optimize``: the default passes), once per memo key, as the
 JAX Executor's ``_optimized_program`` does; the key folds in
-``compiler.cache_token``, so a change of the pipeline misses once and
-never serves a stale program. The memo is guarded by a lock (the
-serving runtime's worker threads share one Executor) and counted
-(``cache_info``). Left out: the static analysis, the partitioner and
+``compiler.cache_token``: the pipeline and the tuning cache's entry for
+the program at these feed shapes on this device, so a change of either
+misses once and never serves a stale program. A lowered program runs
+under its tuning entry's knobs (``compiler.tuning.apply_entry``). The
+memo is guarded by a lock (the serving runtime's worker threads share
+one Executor) and counted (``cache_info``).
+
+Telemetry, with the JAX Executor's names: the registry series
+``executor_cache_{hits,misses}_total``, ``executor_cache_hit_rate``,
+``executor_run_seconds`` and ``executor_compile_seconds`` (here the
+prune, passes and lowering of a memo miss); the journal events
+``compile_begin`` / ``compile_end`` and ``exe_run``; and, under an
+active parent span (a serving batch), the spans ``exe/run`` with its
+children ``exe/compile``, ``exe/dispatch`` and ``exe/fetch``. Spans
+measure host time: on the card ``exe/dispatch`` ends when the kernels
+are enqueued, and the wait for the device falls in ``exe/fetch`` (the
+copy to the host). Left out: the static analysis, the partitioner and
 the performance observatory.
 """
 import collections
 import contextlib
 import threading
+import time
 
 import numpy as np
 import torch
 
 from . import compiler as _compiler
+from . import observability as _obs
 from .framework import Program, Variable, default_main_program
 from .lod import SequenceTensor
 from .core import places as _places
@@ -101,6 +116,20 @@ def _host(t):
     return None if t is None else t.detach().cpu().numpy()
 
 
+def _spec(value):
+    """(shape, dtype) of a prepared feed, a SequenceTensor's by its
+    padded data."""
+    if isinstance(value, SequenceTensor):
+        return _spec(value.data) + ('lod',)
+    return (tuple(value.shape), str(value.dtype).replace('torch.', ''))
+
+
+def feed_signature(feed):
+    """The sorted ``(name, (shape, dtype))`` pairs of a prepared feed:
+    what the tuning cache keys a program's shapes by."""
+    return tuple(sorted((n, _spec(v)) for n, v in feed.items()))
+
+
 def as_numpy(value):
     """A fetched tensor as a host numpy array (half floats as f32). A
     fetched sequence keeps its structure, as in the JAX package: a
@@ -131,6 +160,27 @@ class Executor(object):
         self._cache_hits = 0
         self._cache_misses = 0
         self._cache_size = 0
+        # process-wide telemetry: every Executor publishes into the same
+        # registry series; the per-instance ints above stay the
+        # per-Executor cache_info() the serving runtime reads
+        reg = _obs.default_registry()
+        self._m_hits = reg.counter(
+            'executor_cache_hits_total',
+            'program memo hits across all Executors')
+        self._m_misses = reg.counter(
+            'executor_cache_misses_total',
+            'program memo misses (each one a prune, the passes and a '
+            'lowering)')
+        self._m_hit_rate = reg.gauge(
+            'executor_cache_hit_rate',
+            'process-wide cache hits / lookups')
+        self._m_run = reg.histogram(
+            'executor_run_seconds',
+            'Executor.run wall of the lowered program (host; the card '
+            'may still be running)')
+        self._m_compile = reg.histogram(
+            'executor_compile_seconds',
+            'prune + passes + lowering wall per memo miss')
 
     def cache_info(self):
         """Memo counters: a serving-layer SLI. A miss means a fresh
@@ -219,13 +269,17 @@ class Executor(object):
                     persist_outs.append(n)
         return program.prune(list(fetch_names) + persist_outs)
 
-    def _lowered(self, program, feed_names, fetch_names, scope):
-        """The runnable block for (program version, feeds, fetches, state
-        names, device, the compiler's token), memoized on the program so
-        steady-state requests skip the prune, the passes and the graph
-        rewrite."""
+    def _lowered(self, program, fp, feed, fetch_names, scope):
+        """``(fn, state_in, missed)``: the runnable block for (program
+        version, feeds, fetches, state names, device, the compiler's
+        token), memoized on the program so steady-state requests skip
+        the prune, the passes and the graph rewrite. On a miss the
+        tuning entry for (program, feed shapes, device) is looked up and
+        the lowered function runs under its knobs."""
         state_in, state_out = self._state_names(program, scope)
-        token = _compiler.cache_token()
+        feed_names = sorted(feed)
+        feed_sig = feed_signature(feed)
+        token = _compiler.cache_token(fp, feed_sig, self.device)
         key = (program._version, tuple(feed_names), tuple(fetch_names),
                tuple(state_in), tuple(state_out), self.device, token)
         with self._cache_lock:
@@ -233,11 +287,12 @@ class Executor(object):
             hit = memo.get(key)
             if hit is not None:
                 self._cache_hits += 1
-                return hit
+                return hit + (False,)
             self._cache_misses += 1
         # the prune, the passes and the lowering run outside the lock, so
         # one program's cold lowering never stalls another's hits; two
         # threads that miss on one key both lower, the first insert wins
+        _obs.emit('compile_begin', fp=fp)
         pruned = self._maybe_prune(program, fetch_names)
         if token != ('off',):
             pruned, _ = _compiler.optimize(
@@ -245,10 +300,15 @@ class Executor(object):
                 clone=pruned is program)
         fn = lower_block(pruned, pruned.global_block(), feed_names,
                          fetch_names, state_in, state_out, self.device)
+        if token != ('off',):
+            tuning = _compiler.tuning
+            fn = tuning.wrap_lowered(fn, tuning.default_cache().lookup(
+                fp, tuning.shape_signature(feed_sig),
+                tuning.backend(self.device)))
         with self._cache_lock:
             if key not in memo:
                 self._cache_size += 1
-            return memo.setdefault(key, (fn, state_in))
+            return memo.setdefault(key, (fn, state_in)) + (True,)
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name='feed', fetch_var_name='fetch', scope=None,
@@ -266,13 +326,60 @@ class Executor(object):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(program.random_seed or 0)
             scope.set_var(RNG_KEY, gen)
-        fn, state_in = self._lowered(program, sorted(feed), fetch_names,
-                                     scope)
+        fp = program.fingerprint()
+        # traced only under an active parent span (a serving batch):
+        # bare runs stay span-free, and the untraced cost is one
+        # thread-local read
+        pctx = _obs.current_context()
+        if pctx is None:
+            return self._run(program, fp, feed, fetch_names, scope,
+                             return_numpy, None)
+        tspan = _obs.start_span('exe/run', parent=pctx, activate=False,
+                                fp=fp)
+        try:
+            out = self._run(program, fp, feed, fetch_names, scope,
+                            return_numpy, tspan)
+        except BaseException as e:
+            tspan.end(error=type(e).__name__)
+            raise
+        tspan.end()
+        return out
+
+    def _run(self, program, fp, feed, fetch_names, scope, return_numpy,
+             tspan):
+        t_lookup = time.perf_counter()
+        fn, state_in, missed = self._lowered(program, fp, feed,
+                                             fetch_names, scope)
+        (self._m_misses if missed else self._m_hits).inc()
+        if missed:
+            compile_wall = time.perf_counter() - t_lookup
+            self._m_compile.observe(compile_wall)
+            _obs.emit('compile_end', fp=fp, dur_s=round(compile_wall, 6))
+            if tspan is not None:
+                _obs.emit_span('exe/compile', compile_wall, parent=tspan,
+                               fp=fp)
         state = {n: scope.raw(n) for n in state_in}
         state[RNG_KEY] = scope.raw(RNG_KEY)
+        t_run = time.perf_counter()
         fetches, new_state = fn(feed, state)
+        run_wall = time.perf_counter() - t_run
+        self._m_run.observe(run_wall)
+        h, m = self._m_hits.value, self._m_misses.value
+        self._m_hit_rate.set(h / (h + m) if h + m else 0.0)
+        cache = 'miss' if missed else 'hit'
+        if tspan is not None:
+            _obs.emit_span('exe/dispatch', run_wall, parent=tspan,
+                           cache=cache)
+        if _obs.journal_active():
+            _obs.emit('exe_run', cache=cache, fp=fp,
+                      dur_s=round(run_wall, 6))
         for n, v in new_state.items():
             scope.set_var(n, v)
-        if return_numpy:
-            return [as_numpy(f) for f in fetches]
-        return [_to_f32_fetch(f) for f in fetches]
+        if not return_numpy:
+            return [_to_f32_fetch(f) for f in fetches]
+        t_fetch = time.perf_counter()
+        fetches = [as_numpy(f) for f in fetches]
+        if tspan is not None:
+            _obs.emit_span('exe/fetch', time.perf_counter() - t_fetch,
+                           parent=tspan)
+        return fetches

@@ -1,9 +1,11 @@
 """Program / Block / Variable / Operator IR.
 
 Counterpart of paddle_tpu/framework.py, copied and trimmed to what the
-serving and training slices use (no sharding annotations, no
-fingerprinting: the port's Executor runs a block eagerly, op by op, and
-has no compiled-program cache to key).
+serving and training slices use (no sharding annotations). A Program's
+``fingerprint()`` is the JAX package's: the same digest of the same
+description, with ``None`` in each variable's sharding slot, so both
+packages give one fingerprint for one unsharded program. The tuning
+cache is keyed on it across processes.
 
 The IR is a plain Python graph. ``Operator`` is a pure description
 (type, input/output var names per slot, attrs); its kernel lives in
@@ -13,6 +15,8 @@ Executor runs the block.
 import collections
 import contextlib
 import copy
+import hashlib
+import json
 
 import numpy as np
 
@@ -90,6 +94,12 @@ class Variable(object):
 
     __repr__ = __str__ = to_string
 
+    def _desc(self):
+        # the last slot is the JAX package's sharding annotation, which
+        # the port does not carry
+        return (self.name, self.shape, self.dtype, self.lod_level,
+                self.persistable, self.stop_gradient, None)
+
 
 class Parameter(Variable):
     """A trainable persistable Variable. Parity: fluid.framework.Parameter."""
@@ -153,6 +163,23 @@ class Operator(object):
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
+
+    def _desc(self):
+        def _clean(a):
+            out = {}
+            for k, v in sorted(a.items()):
+                if isinstance(v, np.ndarray):
+                    out[k] = ('ndarray', v.shape, str(v.dtype),
+                              hashlib.md5(v.tobytes()).hexdigest())
+                elif isinstance(v, Block):
+                    out[k] = ('block', v.idx)
+                elif callable(v):
+                    out[k] = ('callable', getattr(v, '__name__', 'fn'))
+                else:
+                    out[k] = v
+            return out
+        return (self.type, sorted(self.inputs.items()),
+                sorted(self.outputs.items()), _clean(self.attrs))
 
     def __repr__(self):
         return "{%s: %s -> %s}" % (self.type, self.inputs, self.outputs)
@@ -253,6 +280,11 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def _desc(self):
+        return (self.idx, self.parent_idx,
+                [v._desc() for v in self.vars.values()],
+                [op._desc() for op in self.ops])
+
     def __repr__(self):
         return "Block(%d) vars=%d ops=[%s]" % (
             self.idx, len(self.vars), ", ".join(op.type for op in self.ops))
@@ -272,6 +304,7 @@ class Program(object):
         self.current_block_idx = 0
         self.random_seed = 0
         self._version = 0
+        self._fingerprint_cache = None
 
     def global_block(self):
         return self.blocks[0]
@@ -284,6 +317,23 @@ class Program(object):
 
     def _bump_version(self):
         self._version += 1
+
+    def fingerprint(self):
+        """A stable digest of the program's description: blocks, their
+        variables in declaration order and their ops with attributes.
+        The same in every process and across a save and load of the same
+        model (it depends on no ``id()`` and on no unordered container),
+        and the JAX package's for the same unsharded program. Cached per
+        ``_version``."""
+        cached = self._fingerprint_cache
+        if cached is None or cached[0] != self._version:
+            # the first slot is the JAX package's rematerialisation hint
+            # (memory_optimize), which the port does not carry yet
+            desc = json.dumps([False] + [b._desc() for b in self.blocks],
+                              default=str, sort_keys=True)
+            cached = self._fingerprint_cache = (
+                self._version, hashlib.sha1(desc.encode()).hexdigest())
+        return cached[1]
 
     # ---- clone / prune ----------------------------------------------------------
     def clone(self, for_test=False):

@@ -56,8 +56,8 @@ KERNELS = {
     }),
     'lstm_cell': ('lstm_cell.cu', {
         # xg, ld_xg, r_prev, c_prev, w, h, c, B, H, Hp, dot_bf16, h_bf16,
-        # c_bf16, stream
-        'lstm_cell': [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 6 + [_P],
+        # c_bf16, batch_tile, stream
+        'lstm_cell': [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 7 + [_P],
     }),
 }
 

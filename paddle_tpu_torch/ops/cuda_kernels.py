@@ -12,6 +12,13 @@ Counterpart of paddle_tpu/ops/pallas_kernels.py. Each kernel has:
 A CUDA tensor always goes to the kernel: a build or launch failure
 raises, it never falls back to the plain version.
 
+Three choices on the card read the live tuning knobs of the calling
+thread (``compiler.tuning.knobs()``, set by a program's tuning entry):
+the flash backward's route (``flash_bwd_route``, taken in the forward,
+where the entry is live), the fused conv's plan (``conv_max_bn``,
+``conv_max_splits``) and the LSTM cell's batch rows a block
+(``lstm_batch_tile``).
+
 Ported so far:
 
 - ``flash_attention`` / ``flash_attention_with_lse``: the forward of
@@ -78,6 +85,19 @@ FUSED_CONV_VARIANT_LAUNCHES = {'fma': 0, 'mma_sync': 0, 'wgmma': 0,
 # the serving runtime's worker threads launch concurrently: every bump
 # and reset of the counts above holds this lock, so no count is lost
 _COUNT_LOCK = threading.Lock()
+
+
+_TUNING = []
+
+
+def _knobs():
+    """This thread's live tuning knobs (compiler.tuning.knobs()). The
+    compiler package imports this module, so tuning is imported at the
+    first launch, not here."""
+    if not _TUNING:
+        from ..compiler import tuning
+        _TUNING.append(tuning)
+    return _TUNING[0].knobs()
 
 
 def _count(counts, name):
@@ -233,6 +253,9 @@ class _FlashAttention(torch.autograd.Function):
         out, lse = _flash_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
+        # the route is taken here, under the caller's tuning entry:
+        # autograd runs a CUDA backward on a thread of its own
+        ctx.route = _knobs()['flash_bwd_route']
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -241,7 +264,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         g_out = torch.zeros_like(out) if g_out is None else g_out.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out,
-                                         ctx.causal, g_lse)
+                                         ctx.causal, g_lse, route=ctx.route)
         return dq, dk, dv, None
 
 
@@ -265,9 +288,10 @@ def flash_attention(q, k, v, causal=True):
 # Routing, as pallas_kernels._MERGED_BWD / _MERGED_BWD_MAX_SLAB_BYTES: the
 # merged kernel while what it allocates for dq (merged_bwd_bytes) stays
 # under the cap, else the two-pass kernels (the flagship's heads, H 8 and
-# D 128, pass it above 131,072 tokens a step). Both routes are
-# deterministic: the merged kernel adds dq in a fixed order, the two-pass
-# kernels write each gradient once.
+# D 128, pass it above 131,072 tokens a step); the tuning knob
+# flash_bwd_route='two_pass' takes the two-pass kernels under the cap
+# too. Both routes are deterministic: the merged kernel adds dq in a
+# fixed order, the two-pass kernels write each gradient once.
 _MERGED_BWD = [True]
 _MERGED_BWD_MAX_SLAB_BYTES = 512 * 1024 * 1024
 
@@ -451,16 +475,25 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True):
     return dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal=True, g_lse=None):
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, g_lse=None,
+                        route=None):
     """Gradients (dq, dk, dv) of flash attention, given its output ``o``,
     its ``lse``, the output cotangent ``do`` and optionally the lse
     cotangent ``g_lse`` [B, H, T]. Counterpart of
     ``pallas_kernels._flash_bwd_pallas``: merged kernel or two-pass
-    kernels on the card, the plain backward for CPU tensors."""
+    kernels on the card, the plain backward for CPU tensors. ``route``
+    ('merged' or 'two_pass'; None: the live ``flash_bwd_route`` knob)
+    asks for a route; the merged kernel runs only under its cap."""
     delta = flash_bwd_delta(o, do, g_lse)
     if not _on_card(q, 'flash_attention backward'):
         return flash_bwd_reference(q, k, v, do, lse, delta, causal)
-    if _MERGED_BWD[0] and merged_bwd_bytes(q) <= _MERGED_BWD_MAX_SLAB_BYTES:
+    if route is None:
+        route = _knobs()['flash_bwd_route']
+    if route not in ('merged', 'two_pass'):
+        raise ValueError("flash_attention_bwd: route must be 'merged' or "
+                         "'two_pass', got %r" % (route,))
+    if route == 'merged' and _MERGED_BWD[0] and \
+            merged_bwd_bytes(q) <= _MERGED_BWD_MAX_SLAB_BYTES:
         return flash_bwd_dkvdq(q, k, v, do, lse, delta, causal)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     return flash_bwd_dq(q, k, v, do, lse, delta, causal), dk, dv
@@ -574,11 +607,11 @@ FUSED_CONV_VARIANTS = ('fma', 'mma_sync', 'wgmma', 'stem')
 FUSED_CONV_TILE_ROWS = 128
 FUSED_CONV_MAX_TAPS = 64
 FUSED_CONV_SMEM = 232448
-# K splits: one for every this many chunks, at most this many splits
-# (every split but the last adds its partial tile in its turn, one turn
-# after another: a few microseconds each on the H100)
+# K splits: one for every this many chunks (every split but the last adds
+# its partial tile in its turn, one turn after another: a few
+# microseconds each on the H100); at most the conv_max_splits knob
 _SPLIT_CHUNKS = 12
-_MAX_SPLITS = 4
+_TILE_WIDTHS = (256, 128, 64)
 
 FusedConvPlan = collections.namedtuple('FusedConvPlan', 'variant bn splits')
 
@@ -604,25 +637,36 @@ def _stem_smem_bytes(W, Cin, Cout, KH, KW, Wo, pw):
 
 
 def fused_conv_plan(dtype, N, H, W, Cin, Cout, KH, KW, strides, pads,
-                    depthwise, sms):
+                    depthwise, sms, max_bn=None, max_splits=None):
     """The fused conv kernel's variant and tiling for these operands on a
     card of ``sms`` SMs: ``FusedConvPlan(variant, bn, splits)``.
 
     ``variant`` is one of FUSED_CONV_VARIANTS ('stem' where Cin % 8 != 0
     and the stem kernel takes the shape, else 'mma_sync'). For
     ``'wgmma'``, ``bn`` is the output tile's width: the widest of 256,
-    128 and 64 that Cout needs (one tile covers all of Cout up to 256, so
-    each input tile is read once) and that still gives half a wave of
-    tiles, else 64 (the small-M convs); ``splits`` the number of blocks
-    that share an output tile's K: one for every _SPLIT_CHUNKS chunks of
-    K, at most _MAX_SPLITS, and no more than fill a wave. Other variants:
-    (variant, 0, 1). The rule follows a sweep of (bn, splits) at
-    ResNet-50's region shapes at batch 1, 8 and 32 on an H100 (PERF.md,
-    PR 7). The kernel sizes its ring of K chunks from bn.
+    128 and 64, at most ``max_bn``, that Cout needs (one tile covers all
+    of Cout up to 256, so each input tile is read once) and that still
+    gives half a wave of tiles, else 64 (the small-M convs); ``splits``
+    the number of blocks that share an output tile's K: one for every
+    _SPLIT_CHUNKS chunks of K, at most ``max_splits``, and no more than
+    fill a wave. Other variants: (variant, 0, 1). ``max_bn`` and
+    ``max_splits`` default to the live tuning knobs ``conv_max_bn`` and
+    ``conv_max_splits`` (untuned: 256 and 4). The rule follows a sweep of
+    (bn, splits) at ResNet-50's region shapes at batch 1, 8 and 32 on an
+    H100 (PERF.md). The kernel sizes its ring of K chunks from bn.
     """
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError("fused_conv kernel takes bfloat16 or float32, got "
                         "%s" % dtype)
+    if max_bn is None or max_splits is None:
+        live = _knobs()
+        max_bn = live['conv_max_bn'] if max_bn is None else max_bn
+        max_splits = live['conv_max_splits'] if max_splits is None \
+            else max_splits
+    if max_bn not in _TILE_WIDTHS or int(max_splits) < 1:
+        raise ValueError("fused_conv_plan: max_bn must be one of %s and "
+                         "max_splits at least 1, got %r and %r"
+                         % (_TILE_WIDTHS, max_bn, max_splits))
     if dtype == torch.float32 or depthwise:
         return FusedConvPlan('fma', 0, 1)
     ho = (H + 2 * pads[0] - KH) // strides[0] + 1
@@ -632,12 +676,13 @@ def fused_conv_plan(dtype, N, H, W, Cin, Cout, KH, KW, strides, pads,
     if Cin % 64 or Cout % 8 or KH * KW > FUSED_CONV_MAX_TAPS:
         return FusedConvPlan('mma_sync', 0, 1)
     m_tiles = -(-N * ho * wo // FUSED_CONV_TILE_ROWS)
-    widest = 64 if Cout <= 64 else 128 if Cout <= 128 else 256
+    widest = min(64 if Cout <= 64 else 128 if Cout <= 128 else 256, max_bn)
     bn = next((b for b in (256, 128) if b <= widest and
                2 * m_tiles * -(-Cout // b) >= sms), 64)
     tiles = m_tiles * -(-Cout // bn)
     chunks = KH * KW * Cin // 64
-    splits = max(1, min(chunks // _SPLIT_CHUNKS, _MAX_SPLITS, sms // tiles))
+    splits = max(1, min(chunks // _SPLIT_CHUNKS, int(max_splits),
+                        sms // tiles))
     return FusedConvPlan('wgmma', bn, splits)
 
 
@@ -758,12 +803,13 @@ def encode_epilogue(args, kinds, stages):
 
 @functools.lru_cache(maxsize=1024)
 def _encoded_launch(kinds, stages, dims, strides, pads, depthwise, dtype,
-                    sms, plan):
+                    sms, plan, conv_knobs):
     """A launch's arguments but its pointers, as ``_FusedConvArgs`` bytes,
-    with its plan (``plan``, or :func:`fused_conv_plan`'s where None), the
-    split-K buffers' sizes (:func:`fused_conv_workspace`) and the launch's
-    description for errors: encoded once per distinct shape and epilogue.
-    ``dims``: (N, H, W, Cin, Cout, KH, KW, Ho, Wo)."""
+    with its plan (``plan``, or :func:`fused_conv_plan`'s under
+    ``conv_knobs`` = (max_bn, max_splits) where None), the split-K
+    buffers' sizes (:func:`fused_conv_workspace`) and the launch's
+    description for errors: encoded once per distinct shape, epilogue and
+    knobs. ``dims``: (N, H, W, Cin, Cout, KH, KW, Ho, Wo)."""
     args = _FusedConvArgs()
     encode_epilogue(args, kinds, stages)
     for i, kind in enumerate(kinds):
@@ -780,7 +826,7 @@ def _encoded_launch(kinds, stages, dims, strides, pads, depthwise, dtype,
     args.is_bf16 = int(dtype == torch.bfloat16)
     if plan is None:
         plan = fused_conv_plan(dtype, N, H, W, cin, cout, kh, kw, strides,
-                               pads, depthwise, sms)
+                               pads, depthwise, sms, *conv_knobs)
     args.variant = FUSED_CONV_VARIANTS.index(plan.variant)
     args.bn, args.splits, args.sms = plan.bn, plan.splits, sms
     lower, upper, stride, taps = fused_conv_im2col(kh, kw, strides, pads)
@@ -850,9 +896,13 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
             raise ValueError("fused_conv: %s must be 16-byte aligned" % name)
     sms = _sm_count(x.device.index if x.device.index is not None
                     else torch.cuda.current_device())
+    # the live knobs are part of the cached encoding's key: a tuned run
+    # never reuses another entry's plan
+    live = _knobs()
     encoded, plan, (ws_elems, n_counters), what = _encoded_launch(
         tuple(kinds), tuple(stages), (N, H, W, cin, cout, kh, kw, ho, wo),
-        tuple(strides), tuple(pads), bool(depthwise), x.dtype, sms, plan)
+        tuple(strides), tuple(pads), bool(depthwise), x.dtype, sms, plan,
+        (live['conv_max_bn'], live['conv_max_splits']))
     args = _FusedConvArgs.from_buffer_copy(encoded)
     aux = _kernel_aux(x, aux, kinds, N, ho, wo, cout)
     out = torch.empty((N, ho, wo, cout), dtype=x.dtype, device=x.device)
@@ -1132,14 +1182,15 @@ def lstm_kernel_operands(r_prev, w, dot):
     return _aligned16(r), _aligned16(wk)
 
 
-def _lstm_cell_kernel(xg, r_prev, c_prev, w):
+def _lstm_cell_kernel(xg, r_prev, c_prev, w, batch_tile=None):
     """The cell on the card: ``csrc/lstm_cell.cu``. Operands are promoted
     here, before the launch: the product's to :func:`_lstm_dot_dtype`
     (:func:`lstm_kernel_operands`), xg and c_prev to f32 (lossless). h
     comes out in r_prev's dtype and c in c_prev's (the kernel writes f32
     or bf16; fp16 is cast after). The f32 product runs on the tensor cores
-    as three TF32 products; the launcher picks the batch rows a block
-    from B and H."""
+    as three TF32 products. ``batch_tile``, the batch rows a block (None:
+    the live ``lstm_batch_tile`` knob), is 0 for the launcher's rule from
+    B and H, or 8, 16, 32 or 64; the launcher refuses any other value."""
     _check_lstm_inputs(xg, r_prev, c_prev, w)
     B, H = c_prev.shape
     dot = _lstm_dot_dtype(r_prev, w)
@@ -1154,13 +1205,17 @@ def _lstm_cell_kernel(xg, r_prev, c_prev, w):
         else torch.float32
     h = torch.empty((B, H), dtype=h_dt, device=c_prev.device)
     c = torch.empty((B, H), dtype=c_dt, device=c_prev.device)
+    if batch_tile is None:
+        batch_tile = _knobs()['lstm_batch_tile']
     if B and H:
         _launch('lstm_cell', 'lstm_cell',
                 (x.data_ptr(), x.stride(0), r.data_ptr(), c0.data_ptr(),
                  wk.data_ptr(), h.data_ptr(), c.data_ptr(), B, H,
                  r.shape[1], int(dot == torch.bfloat16),
-                 int(h_dt == torch.bfloat16), int(c_dt == torch.bfloat16)),
-                c_prev.device, 'B=%d H=%d %s' % (B, H, dot))
+                 int(h_dt == torch.bfloat16), int(c_dt == torch.bfloat16),
+                 int(batch_tile)),
+                c_prev.device, 'B=%d H=%d %s batch_tile=%d'
+                % (B, H, dot, batch_tile))
     return h.to(r_prev.dtype), c.to(c_prev.dtype)
 
 

@@ -3,22 +3,28 @@ paths.
 
 Counterpart of paddle_tpu/resilience/faultinject.py, trimmed to
 :class:`FaultPlan`, :func:`fault_plan`, :func:`maybe_fault` and the
-serving sites. Faults are keyed by named SITES and hit counts, never by
-wall clock or randomness: :func:`fault_plan` installs a plan, and the
-server calls :func:`maybe_fault(site)` at its injection points (the
-batch run, the model load and swap, the padding stage). With no plan
-installed the call is one list truthiness check.
+serving and tuning sites. Faults are keyed by named SITES and hit
+counts, never by wall clock or randomness: :func:`fault_plan` installs a
+plan, and the server and the autotuner call :func:`maybe_fault(site)`
+at their injection points (the batch run, the model load and swap, the
+padding stage, each candidate's measurement). With no plan installed
+the call is one list truthiness check.
 """
 import collections
 import time
 
 __all__ = ['FaultInjected', 'FaultPlan', 'fault_plan', 'maybe_fault',
-           'SITE_SERVING_RUN', 'SITE_SERVING_LOAD', 'SITE_SERVING_PAD']
+           'SITE_SERVING_RUN', 'SITE_SERVING_LOAD', 'SITE_SERVING_PAD',
+           'SITE_TUNING_MEASURE']
 
 # serving runtime sites
 SITE_SERVING_RUN = 'serving/run_batch'    # inside the per-attempt run
 SITE_SERVING_LOAD = 'serving/load_model'  # model load / hot swap
 SITE_SERVING_PAD = 'serving/pad'          # bucket padding stage
+# autotuner site: fires per candidate measurement, so a crashing
+# candidate is deterministically testable (the sweep must poison the
+# entry and continue)
+SITE_TUNING_MEASURE = 'tuning/measure'    # per-candidate measurement
 
 
 class FaultInjected(IOError):

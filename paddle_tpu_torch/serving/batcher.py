@@ -1,12 +1,11 @@
 """Dynamic micro-batching: a thread-safe bounded request queue plus the
 coalescing logic that packs compatible requests into one padded batch.
 
-Counterpart of paddle_tpu/serving/batcher.py, without the trace spans.
-The batcher is where serving throughput comes from: N concurrent
-clients each sending a handful of rows become one bucket-shaped
-Executor.run. Requests coalesce only when *compatible*: same feed
-names, per-row shapes, and dtypes, so the merged tensor concatenates
-cleanly along the batch dim.
+Counterpart of paddle_tpu/serving/batcher.py. The batcher is where
+serving throughput comes from: N concurrent clients each sending a
+handful of rows become one bucket-shaped Executor.run. Requests
+coalesce only when *compatible*: same feed names, per-row shapes, and
+dtypes, so the merged tensor concatenates cleanly along the batch dim.
 """
 import collections
 import threading
@@ -30,9 +29,11 @@ class InferenceRequest(object):
     calling client thread on an Event, never a busy-wait."""
 
     __slots__ = ('feeds', 'n', 'signature', 'deadline', 'submit_time',
-                 '_event', '_result', '_error', 'warmup', 'probe')
+                 '_event', '_result', '_error', 'warmup', 'probe',
+                 'trace', '_qspan')
 
-    def __init__(self, feeds, n, deadline=None, warmup=False):
+    def __init__(self, feeds, n, deadline=None, warmup=False,
+                 trace=None):
         self.feeds = feeds
         self.n = n
         self.signature = tuple(sorted(
@@ -45,16 +46,26 @@ class InferenceRequest(object):
         self._event = threading.Event()
         self._result = None
         self._error = None
+        self.trace = trace    # TraceContext propagated from the caller
+        self._qspan = None    # serving/request span, ended at completion
 
     def expired(self, now=None):
         return self.deadline is not None and \
             (now if now is not None else _now()) > self.deadline
 
     def set_result(self, fetches):
+        if self._qspan is not None:
+            self._qspan.end(ok=True)
         self._result = fetches
         self._event.set()
 
     def set_error(self, error):
+        self._error = error
+        # an errored completion still closes the serving/request span
+        # (with the error name), so only work that died with its whole
+        # process shows up as an UNCLOSED span in trace_report
+        if self._qspan is not None:
+            self._qspan.end(error=type(error).__name__)
         self._error = error
         self._event.set()
 

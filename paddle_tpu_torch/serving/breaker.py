@@ -1,8 +1,7 @@
 """Per-model circuit breaker: stop burning device time on a model
 whose batches keep failing.
 
-Counterpart of paddle_tpu/serving/breaker.py, copied without the metric
-gauge's state codes. State machine::
+Counterpart of paddle_tpu/serving/breaker.py. State machine::
 
             consecutive failures >= failure_threshold
             OR windowed failure rate >= failure_rate
@@ -37,9 +36,12 @@ import time
 
 from .errors import CircuitOpen
 
-__all__ = ['CircuitBreaker', 'CLOSED', 'HALF_OPEN', 'OPEN']
+__all__ = ['CircuitBreaker', 'CLOSED', 'HALF_OPEN', 'OPEN', 'STATE_CODES']
 
 CLOSED, HALF_OPEN, OPEN = 'closed', 'half_open', 'open'
+
+# gauge encoding for serving_breaker_state{model=...}
+STATE_CODES = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
 
 class CircuitBreaker(object):
@@ -48,7 +50,7 @@ class CircuitBreaker(object):
     Parameters
     ----------
     name : str
-        The model name (labels its errors and transitions).
+        The model name (labels metrics/journal events).
     failure_threshold : int
         Consecutive hard failures that open the breaker.
     window / failure_rate :
@@ -65,8 +67,8 @@ class CircuitBreaker(object):
     clock : callable
         Monotonic time source (injectable for deterministic tests).
     on_transition : callable, optional
-        ``on_transition(name, to_state, reason)``; the server counts
-        transitions in its stats.
+        ``on_transition(name, to_state, reason)``; the server wires
+        this into its stats, the metrics and the run journal.
     """
 
     def __init__(self, name='', failure_threshold=5, window=20,

@@ -18,7 +18,9 @@ Design points:
 - ``warmup()`` pushes one synthetic request per shape bucket through
   the *public* path before traffic, each completed before the next is
   submitted, so the first real user pays no lowering and no first-shape
-  cost.
+  cost. It preloads the on-disk tuning cache first; with
+  ``autotune=True`` it also searches each bucket that has no entry,
+  before that bucket's request.
 - Transient run failures (``retry_on``, default OSError) are absorbed by
   :func:`resilience.retry_call` with exponential backoff, capped by the
   batch's earliest request deadline.
@@ -43,10 +45,19 @@ SLO guardrails:
 - The worker loop carries deterministic fault-injection sites
   (``serving/run_batch``, ``serving/load_model``, ``serving/pad``).
 
-Left out of the reference: the telemetry (health provider, trace spans,
-journal events, the profiler's serving spans), the partitioner (a
-sharded server), and ``warmup(autotune=True)`` with its tuning-cache
-preload, which wait for the autotuner.
+Telemetry, with the JAX package's names: the serving stats' registry
+series and journal events (``serving.stats``), the ``serving_warmup``,
+``serving_drain``, ``serving_swap`` and ``serving_abandoned_worker``
+events, the trace spans ``serving/request`` (submit to result),
+``serving/queue``, ``serving/batch`` (linked to every request it
+serves), ``serving/pad``, ``serving/run``, ``serving/exact_run`` and
+``serving/retry``, a flight-recorder trip when a breaker opens or the
+watchdog trips, and a journal flush on ``close()``.
+
+Left out of the reference: the health provider of the live telemetry
+endpoint, which waits for ``observability/telemetry.py`` (ROADMAP Queue
+A item 4); the profiler's serving spans; and the partitioner (a sharded
+server).
 """
 import logging
 import threading
@@ -54,6 +65,8 @@ import time
 
 import numpy as np
 
+from .. import observability as _obs
+from ..compiler import tuning as _tuning
 from ..core import places as _places
 from ..executor import Executor, Scope
 from ..io import load_inference_model as _load_inference_model
@@ -202,6 +215,7 @@ class ModelServer(object):
                 worker.join(timeout)
                 if worker.is_alive():
                     self._abandon_worker(name, batcher, worker)
+            _obs.emit('serving_drain', model=name)
             return self.registry.unload(name)
         finally:
             with self._lock:
@@ -237,6 +251,7 @@ class ModelServer(object):
             breaker.reset('model swapped')
         with self._lock:
             self._wedged.discard(name)
+        _obs.emit('serving_swap', model=name, dirname=dirname)
         return new
 
     def models(self):
@@ -263,12 +278,17 @@ class ModelServer(object):
                 name='serve-%s' % model.name, daemon=True)
             self._workers[model.name] = worker
             worker.start()
+        self.stats.record_breaker_state(model.name, CLOSED)
 
     # ---- client surface --------------------------------------------------
-    def submit(self, model_name, feeds, deadline=None, _warmup=False):
+    def submit(self, model_name, feeds, deadline=None, _warmup=False,
+               trace=None):
         """Enqueue one request; returns an :class:`InferenceRequest`
         future. ``deadline`` is relative seconds: the request fails
         with DeadlineExceeded if no worker launches it in time.
+        ``trace`` is an optional parent :class:`TraceContext` (a
+        front end's request span): this submission becomes a
+        ``serving/request`` child span.
         Raises ServerOverloaded / ServerClosed / ModelNotFound /
         CircuitOpen synchronously.
         """
@@ -286,12 +306,21 @@ class ModelServer(object):
             else time.monotonic() + deadline
         req = InferenceRequest(feeds, n, deadline=abs_deadline,
                                warmup=_warmup)
+        if not _warmup:
+            qspan = _obs.start_span('serving/request', parent=trace,
+                                    activate=False, model=model_name,
+                                    rows=n)
+            if qspan.context is not None:
+                req._qspan = qspan
+                req.trace = qspan.context
         breaker = self._breakers.get(model_name)
         if breaker is not None and not _warmup:
             try:
                 req.probe = breaker.admit()
             except CircuitOpen:
                 self.stats.record_breaker_rejected(model_name)
+                if req._qspan is not None:
+                    req._qspan.end(error='CircuitOpen')
                 raise
         try:
             batcher.submit(req)
@@ -299,6 +328,8 @@ class ModelServer(object):
             if req.probe:
                 breaker.release_probe()
             self.stats.record_shed()
+            if req._qspan is not None:
+                req._qspan.end(error='shed')
             raise
         self.stats.record_submitted()
         return req
@@ -344,14 +375,27 @@ class ModelServer(object):
                autotune=False):
         """Run one synthetic request per shape bucket through the public
         path, so live traffic never pays a lowering or a first-shape
-        cost. Each bucket's request completes before the next bucket's
-        is submitted. Returns ``{model: [bucket sizes warmed]}``; models
-        whose feed shapes are dynamic (unsynthesizable) are skipped."""
-        if autotune:
-            raise NotImplementedError(
-                'warmup(autotune=True) needs the autotuner '
-                '(compiler/tuning.py), which is not ported yet (ROADMAP '
-                'Queue A item 1)')
+        cost. Returns ``{model: [bucket sizes warmed]}``; models whose
+        feed shapes are dynamic (unsynthesizable) are skipped.
+
+        Before the first bucket, the on-disk tuning cache is preloaded,
+        so every warm-up lowering (and every later one) runs under the
+        tuned knobs. ``autotune=True`` also runs the measured search
+        (:meth:`~..compiler.tuning.Autotuner.tune_if_missing`) for each
+        model and bucket before that bucket's request: only buckets with
+        no entry for this device kind pay a search, so a second warm-up
+        (or a process that preloaded a populated cache) searches
+        nothing.
+
+        One bucket at a time: each bucket's request completes before
+        the next bucket's search or request starts. The search runs the
+        model's program on its scope from this thread, which must not
+        overlap the worker's run of the previous bucket (the JAX
+        package's warm-up submits every bucket, then waits)."""
+        t0 = time.monotonic()
+        tuned = _tuning.default_cache().preload()
+        tuner = _tuning.Autotuner(self.place) if autotune else None
+        searches = 0
         names = [model_name] if model_name is not None else self.models()
         warmed = {}
         for name in names:
@@ -363,10 +407,22 @@ class ModelServer(object):
                 feed = model.synthetic_feed(bucket)
                 if feed is None:
                     break
+                if tuner is not None:
+                    _, searched = tuner.tune_if_missing(
+                        model.program, feed, model.fetch_vars,
+                        scope=model.scope, name=name)
+                    searches += int(searched)
                 self.submit(name, feed, _warmup=True).result(
                     timeout=timeout)
                 warmed[name].append(bucket)
-        return {k: v for k, v in warmed.items() if v}
+        warmed = {k: v for k, v in warmed.items() if v}
+        _obs.emit('serving_warmup',
+                  models=len(warmed),
+                  buckets=sum(len(v) for v in warmed.values()),
+                  tuning_entries=tuned,
+                  autotune_searches=searches,
+                  dur_s=round(time.monotonic() - t0, 6))
+        return warmed
 
     # ---- ops control -----------------------------------------------------
     def pause(self, model_name=None):
@@ -464,6 +520,11 @@ class ModelServer(object):
     # ---- guardrail callbacks ---------------------------------------------
     def _on_breaker_transition(self, name, to_state, reason):
         self.stats.record_breaker_transition(name, to_state, reason)
+        if to_state == OPEN:
+            # breaker opening is crash-adjacent: freeze a postmortem
+            # bundle (ring + metrics + unclosed spans) while the
+            # evidence is still in memory
+            _obs.flight.trip('breaker_open', model=name, reason=reason)
 
     def _on_watchdog_trip(self, entry):
         name = entry['model']
@@ -489,6 +550,9 @@ class ModelServer(object):
         self.stats.record_watchdog_trip(
             name, stage=entry['stage'], failed=len(pending),
             overrun=entry.get('overrun', 0.0))
+        _obs.flight.trip('watchdog', model=name, stage=entry['stage'],
+                         failed=len(pending),
+                         overrun=entry.get('overrun', 0.0))
         for req in pending:
             req.set_error(err)
         logger.warning('watchdog tripped %s on model %r (%d futures '
@@ -515,6 +579,8 @@ class ModelServer(object):
             self.stats.record_cancelled(cancelled)
         with self._lock:
             self._abandoned.append(worker)
+        _obs.emit('serving_abandoned_worker', model=name,
+                  cancelled=cancelled)
         logger.error('abandoned wedged worker %r (%d queued futures '
                      'failed)', worker.name, cancelled)
 
@@ -541,6 +607,11 @@ class ModelServer(object):
             if w.is_alive():
                 self._abandon_worker(name, batchers.get(name), w)
         self.watchdog.stop()
+        # push the buffered journal tail to disk: a process that is
+        # killed next must not lose the spans of its last batches
+        j = _obs.get_journal()
+        if j is not None:
+            j.flush()
 
     def __enter__(self):
         return self
@@ -610,6 +681,13 @@ class ModelServer(object):
         capped by the batch's earliest request deadline."""
         def _on_retry(attempt, error):
             self.stats.record_retry()
+            # a zero-length marker span under the active serving/run
+            # span: the retry storm is visible in the request's tree
+            ctx = _obs.current_context()
+            if ctx is not None:
+                _obs.emit_span('serving/retry', 0.0, parent=ctx,
+                               attempt=attempt,
+                               error=type(error).__name__)
         return retry_call(self._exe_run, (model, feed),
                           max_attempts=self.retry_attempts,
                           backoff=self.retry_backoff,
@@ -624,28 +702,64 @@ class ModelServer(object):
     def _run_batch(self, model, batch):
         """Run one coalesced batch. A stage the watchdog tripped
         mid-flight has already failed its futures: the batch then ends
-        without completing (or counting) them again."""
+        without completing (or counting) them again.
+
+        Tracing: each traced request gets a ``serving/queue`` span for
+        its time in the queue; the batch runs under ONE
+        ``serving/batch`` span (parented to the first traced request)
+        ``span_link``-ed to every request it serves (the N-to-1
+        coalesce is a link, not a parent edge). The batch span is
+        active on this worker thread, so pad/run and the Executor's
+        spans nest under it."""
+        now = time.monotonic()
+        for r in batch:
+            if r.trace is not None:
+                _obs.emit_span('serving/queue', now - r.submit_time,
+                               parent=r.trace, model=model.name)
+        traced = [r.trace for r in batch if r.trace is not None]
+        bspan = None
+        if traced:
+            bspan = _obs.start_span('serving/batch', parent=traced[0],
+                                    model=model.name,
+                                    requests=len(batch))
+            for t in traced:
+                _obs.link(bspan, t)
+        try:
+            self._run_batch_stages(model, batch, bspan)
+        finally:
+            if bspan is not None:
+                bspan.end()
+
+    def _run_batch_stages(self, model, batch, bspan):
         feed, rows, slices = merge_requests(batch)
         bucket = self.policy.bucket_for(rows) if model.batchable else rows
         deadline = self._earliest_deadline(batch)
         token = self.watchdog.enter(
             model.name, _fi.SITE_SERVING_PAD,
             self.stage_timeouts.get(_fi.SITE_SERVING_PAD), batch)
+        pspan = _obs.start_span('serving/pad', rows=rows, bucket=bucket) \
+            if bspan is not None else None
         try:
             _fi.maybe_fault(_fi.SITE_SERVING_PAD)
             padded = pad_feed(feed, rows, bucket, self.policy.pad_mode)
         finally:
             pad_entry = self.watchdog.exit(token)
+            if pspan is not None:
+                pspan.end()
         if pad_entry is None:
             return
         t0 = time.monotonic()
         token = self.watchdog.enter(
             model.name, _fi.SITE_SERVING_RUN,
             self.stage_timeouts.get(_fi.SITE_SERVING_RUN), batch)
+        rspan = _obs.start_span('serving/run', rows=rows, bucket=bucket) \
+            if bspan is not None else None
         try:
             fetches = self._run_guarded(model, padded, deadline=deadline)
         finally:
             run_entry = self.watchdog.exit(token)
+            if rspan is not None:
+                rspan.end()
         if run_entry is None:
             return
         breaker = self._breakers.get(model.name)
@@ -666,11 +780,16 @@ class ModelServer(object):
                     model.name, _fi.SITE_SERVING_RUN,
                     self.stage_timeouts.get(_fi.SITE_SERVING_RUN),
                     [req])
+                espan = _obs.start_span('serving/exact_run',
+                                        parent=req.trace, rows=req.n) \
+                    if req.trace is not None else None
                 try:
                     out = self._run_guarded(model, req.feeds,
                                             deadline=req.deadline)
                 finally:
                     entry = self.watchdog.exit(token)
+                    if espan is not None:
+                        espan.end()
                 if entry is None:
                     continue           # tripped: future already failed
                 self._complete(req, out)
@@ -680,5 +799,7 @@ class ModelServer(object):
 
     def _complete(self, req, fetches):
         if not req.warmup:
-            self.stats.record_completed(req.latency())
+            trace_id = req.trace.trace_id \
+                if (req.trace is not None and req.trace.sampled) else None
+            self.stats.record_completed(req.latency(), trace=trace_id)
         req.set_result(fetches)

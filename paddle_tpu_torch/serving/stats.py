@@ -8,11 +8,14 @@ use power-of-two millisecond buckets (0.25ms, 0.5ms, ... 32s) — the
 same log-2 philosophy as shape bucketing: bounded cardinality, constant
 relative resolution.
 
-Counterpart of paddle_tpu/serving/stats.py, without its mirror into the
-process-wide metric registry and the run journal; the batch counts are
-also kept per model.
+Counterpart of paddle_tpu/serving/stats.py, with its mirror into the
+process-wide metric registry and the run journal (the same series and
+event names); the batch counts are also kept per model.
 """
 import threading
+
+from .. import observability as _obs
+from .breaker import STATE_CODES
 
 __all__ = ['LatencyHistogram', 'ServingStats']
 
@@ -87,45 +90,114 @@ class ServingStats(object):
         self.model_batches = {}    # model name -> batches launched
         self.request_latency = LatencyHistogram()  # submit -> result set
         self.batch_latency = LatencyHistogram()    # one executor run
+        # process registry mirrors: the per-server counters above stay
+        # the exact per-ModelServer surface; these
+        # aggregate across every server in the process.
+        reg = _obs.default_registry()
+        self._m = {
+            'submitted': reg.counter('serving_requests_submitted_total',
+                                     'requests admitted to a queue'),
+            'completed': reg.counter('serving_requests_completed_total',
+                                     'requests answered'),
+            'shed': reg.counter('serving_requests_shed_total',
+                                'requests rejected at admission'),
+            'expired': reg.counter('serving_requests_expired_total',
+                                   'requests whose deadline passed'),
+            'failed': reg.counter('serving_requests_failed_total',
+                                  'requests failed after retries'),
+            'retries': reg.counter('serving_retries_total',
+                                   'transient batch-run retries'),
+            'breaker_rejected': reg.counter(
+                'serving_breaker_rejected_total',
+                'requests shed by an open circuit breaker'),
+            'cancelled': reg.counter(
+                'serving_requests_cancelled_total',
+                'requests failed by close()/abandon escalation'),
+            'batches': reg.counter('serving_batches_total',
+                                   'device batches launched'),
+            'rows': reg.counter('serving_batch_rows_total',
+                                'real rows carried by batches'),
+            'padded': reg.counter('serving_padded_rows_total',
+                                  'pad rows added by bucketing'),
+            'request_lat': reg.histogram('serving_request_seconds',
+                                         'submit -> result latency'),
+            'batch_lat': reg.histogram('serving_batch_seconds',
+                                       'one batched executor run'),
+        }
 
     # ---- recording (worker/client threads) -------------------------------
     def record_submitted(self, n=1):
         with self._lock:
             self.submitted += n
+        self._m['submitted'].inc(n)
+        _obs.emit('serving_admit', n=n)
 
     def record_shed(self, n=1):
         with self._lock:
             self.shed += n
+        self._m['shed'].inc(n)
+        _obs.emit('serving_shed', n=n)
 
     def record_expired(self, n=1):
         with self._lock:
             self.expired += n
+        self._m['expired'].inc(n)
+        _obs.emit('serving_expired', n=n)
 
     def record_failed(self, n=1):
         with self._lock:
             self.failed += n
+        self._m['failed'].inc(n)
+        _obs.emit('serving_failed', n=n)
 
     def record_retry(self, n=1):
         with self._lock:
             self.retries += n
+        self._m['retries'].inc(n)
+        _obs.emit('serving_retry', n=n)
 
     def record_breaker_rejected(self, model, n=1):
         with self._lock:
             self.breaker_rejected += n
+        self._m['breaker_rejected'].inc(n)
+        _obs.emit('serving_breaker_rejected', model=model, n=n)
 
     def record_cancelled(self, n=1):
         with self._lock:
             self.cancelled += n
+        self._m['cancelled'].inc(n)
+        _obs.emit('serving_cancelled', n=n)
+
+    def record_breaker_state(self, model, state):
+        """Publish the per-model breaker gauge (0 closed / 1 half-open
+        / 2 open) without counting a transition — the init path."""
+        _obs.default_registry().gauge(
+            'serving_breaker_state',
+            'circuit state per model: 0 closed / 1 half-open / 2 open',
+            model=model).set(STATE_CODES[state])
 
     def record_breaker_transition(self, model, to_state, reason=''):
         with self._lock:
             self.breaker_transitions[to_state] = \
                 self.breaker_transitions.get(to_state, 0) + 1
+        self.record_breaker_state(model, to_state)
+        _obs.default_registry().counter(
+            'serving_breaker_transitions_total',
+            'circuit-breaker state transitions',
+            model=model, to=to_state).inc()
+        _obs.emit('serving_breaker', model=model, to=to_state,
+                  reason=reason)
 
     def record_watchdog_trip(self, model, stage='', failed=0,
                              overrun=0.0):
         with self._lock:
             self.watchdog_trips += 1
+        _obs.default_registry().counter(
+            'serving_watchdog_trips_total',
+            'in-flight stages failed past their deadline',
+            model=model).inc()
+        _obs.emit('serving_watchdog_trip', model=model, stage=stage,
+                  failed=failed, overrun_s=round(overrun, 6))
 
     def record_batch(self, rows, bucket, seconds, model=None):
         with self._lock:
@@ -138,12 +210,22 @@ class ServingStats(object):
             self.bucket_counts[bucket] = \
                 self.bucket_counts.get(bucket, 0) + 1
             self.batch_latency.record(seconds)
+        self._m['batches'].inc()
+        self._m['rows'].inc(rows)
+        self._m['padded'].inc(bucket - rows)
+        self._m['batch_lat'].observe(seconds)
+        _obs.emit('serving_batch', rows=rows, bucket=bucket,
+                  dur_s=round(seconds, 6))
 
-    def record_completed(self, latency_seconds, n=1):
+    def record_completed(self, latency_seconds, n=1, trace=None):
         with self._lock:
             self.completed += n
             for _ in range(n):
                 self.request_latency.record(latency_seconds)
+        self._m['completed'].inc(n)
+        # the trace id rides the latency bucket as an exemplar, so a
+        # bad p99 resolves to a concrete trace
+        self._m['request_lat'].observe(latency_seconds, exemplar=trace)
 
     # ---- snapshots -------------------------------------------------------
     def occupancy(self):

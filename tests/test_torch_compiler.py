@@ -401,7 +401,9 @@ def test_toggling_the_pipeline_misses_exactly_once():
         misses = 1 if pt.compiler.pipeline_signature() in (
             ('off',), ('conv_epilogue_fuse',)) else 0
         assert exe.cache_info()[:2] == (2 - misses, misses), toggle
-    assert pt.compiler.cache_token() == pt.compiler.pipeline_signature()
+    # the token is the pipeline plus the tuning entry's token ('-': none)
+    assert pt.compiler.cache_token('no-such-program', (), exe.device) == \
+        pt.compiler.pipeline_signature() + ('-',)
     assert exe.cache_info().size == 3
 
 

@@ -205,6 +205,10 @@ def test_plan_refuses_other_dtypes():
                            (1, 1), False, SMS)
 
 
+# the plan's knobs untuned: (conv_max_bn, conv_max_splits)
+UNTUNED = (256, 4)
+
+
 def _launch_args(N, H, W, C, Cout, KH, KW, strides, pads, plan=None):
     """The kernel's arguments as the wrapper encodes them for a bf16 conv
     with the folded batch norm and relu (all but the pointers), and the
@@ -214,7 +218,7 @@ def _launch_args(N, H, W, C, Cout, KH, KW, strides, pads, plan=None):
     encoded, plan, _, _ = ck._encoded_launch(
         ('c', 'c'), (('affine', 0, 1), ('act', 'relu')),
         (N, H, W, C, Cout, KH, KW, ho, wo), tuple(strides), tuple(pads),
-        False, torch.bfloat16, SMS, plan)
+        False, torch.bfloat16, SMS, plan, UNTUNED)
     return ck._FusedConvArgs.from_buffer_copy(encoded), plan
 
 

@@ -516,29 +516,82 @@ def test_registry_isolates_models(tmp_path):
         assert len(server.registry) == 2 and 'a' in server.registry
 
 
-def test_warmup_runs_one_bucket_at_a_time(mlp_dir):
+def test_warmup_runs_one_bucket_at_a_time(mlp_dir, tmp_path):
     """Each bucket's warmup request completes before the next bucket's
-    is submitted (the reference's autotuned warmup submits ahead and
-    races the worker on the model's scope)."""
+    is submitted, and with autotune=True before the next bucket's search
+    starts (the reference's autotuned warmup submits ahead and races the
+    worker on the model's scope)."""
+    from paddle_tpu_torch.compiler import tuning
+    prev = tuning.set_default_cache(
+        tuning.TuningCache(str(tmp_path / 'tuning.json')))
+    try:
+        with _server() as server:
+            server.load_model('m', mlp_dir)
+            events, depths = [], []
+            real = server._exe_run
+
+            def run(model, feed):
+                depths.append(server.queue_depth('m'))
+                events.append(('run', feed['x'].shape[0]))
+                return real(model, feed)
+            server._exe_run = run
+            assert server.warmup() == {'m': [1, 2, 4, 8]}
+            assert events == [('run', n) for n in (1, 2, 4, 8)]
+            assert depths == [0, 0, 0, 0]
+            real_tune = tuning.Autotuner.tune
+
+            def tune(tuner, program, feed, *args, **kwargs):
+                # the previous bucket's request is done: nothing queued
+                # and the worker is not inside a run
+                depths.append(server.queue_depth('m'))
+                events.append(('search', feed['x'].shape[0]))
+                return real_tune(tuner, program, feed, *args, **kwargs)
+            del events[:], depths[:]
+            tuning.Autotuner.tune = tune
+            try:
+                assert server.warmup(autotune=True) == {'m': [1, 2, 4, 8]}
+            finally:
+                tuning.Autotuner.tune = real_tune
+            assert events == [(kind, n) for n in (1, 2, 4, 8)
+                              for kind in ('search', 'run')]
+            assert depths == [0] * 8
+            server.executor.reset_cache_info()
+            for n in (1, 3, 5, 8):
+                server.infer('m', _x(n))
+            info = server.cache_info()
+            assert info.misses == 0 and info.hits == 4
+    finally:
+        tuning.set_default_cache(prev)
+
+
+def test_served_rows_equal_a_direct_run_padded_to_their_bucket(mlp_dir):
+    """The server's rows are the rows of a direct run of the same feed
+    padded to the bucket it ran (bit for bit): a served answer differs
+    from an unpadded direct run only as the batch size does, as
+    SERVING.md states for XLA's per-batch-size kernels."""
+    from paddle_tpu_torch.serving.bucketing import pad_feed
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CPUPlace())
+    prog, _, fetch = pt_io.load_inference_model(mlp_dir, exe, scope=scope)
     with _server() as server:
         server.load_model('m', mlp_dir)
-        depths, rows = [], []
-        real = server._exe_run
-
-        def run(model, feed):
-            depths.append(server.queue_depth('m'))
-            rows.append(feed['x'].shape[0])
-            return real(model, feed)
-        server._exe_run = run
-        assert server.warmup() == {'m': [1, 2, 4, 8]}
-        assert rows == [1, 2, 4, 8] and depths == [0, 0, 0, 0]
-        with pytest.raises(NotImplementedError, match='tuning'):
-            server.warmup(autotune=True)
-        server.executor.reset_cache_info()
-        for n in (1, 3, 5, 8):
-            server.infer('m', _x(n))
-        info = server.cache_info()
-        assert info.misses == 0 and info.hits == 4
+        server.pause('m')
+        feeds = [_x(n, seed=40 + n) for n in (1, 2, 2)]   # one batch of 5
+        reqs = [server.submit('m', f) for f in feeds]
+        server.resume('m')
+        outs = [r.result(timeout=30)[0] for r in reqs]
+    assert server.stats.bucket_counts == {8: 1}
+    merged = {'x': np.concatenate([f['x'] for f in feeds])}
+    padded, = exe.run(prog, feed=pad_feed(merged, 5, 8, 'edge'),
+                      fetch_list=fetch, scope=scope)
+    alone = [exe.run(prog, feed=pad_feed(f, f['x'].shape[0], 8, 'edge'),
+                     fetch_list=fetch, scope=scope)[0] for f in feeds]
+    start = 0
+    for f, out, own in zip(feeds, outs, alone):
+        n = f['x'].shape[0]
+        np.testing.assert_array_equal(out, padded[start:start + n])
+        np.testing.assert_array_equal(out, own[:n])
+        start += n
 
 
 def test_concurrent_clients_get_their_own_rows(mlp_dir):
