@@ -193,6 +193,43 @@ non-zero) on failure:
    every parameter gradient on the kernel against the plain cell, AMP
    off (a fixed limit) and on (a limit relative to a witness, the plain
    cell in f64); the two controls must fail both;
+12b. analysis: the static verifier (analysis.verify_program, called
+   directly) on every program the run builds (the flagship serving and
+   training, ResNet-50 serving and training, SE-ResNeXt-50,
+   stacked_dynamic_lstm, machine_translation, mnist and VGG-16 training
+   and serving), each as built and after the default passes ran under
+   the sanitizer (PassPipeline(verify=True)): no error, no exception,
+   its ops and verify seconds printed; then through Executor.run on the
+   card a rank-3 image feed must raise FeedInvalid and a conv whose
+   filter takes 4 channels of a 3-channel image ProgramInvalid, with no
+   kernel launched;
+12c. mnist (benchmark/fluid/models.py:24-37: conv 20 and 50, 5x5, each
+   with a 2x2 max pool, fc 10) and 12d. VGG-16 (:40-48, 3x32x32, 10
+   classes; batch norm and dropout): Momentum(0.01, 0.9) at batch 32 on
+   one fixed batch, f32 (AMP off) and bf16 (AMP), warm-up then timed
+   steps: exact launches (mnist: 2 fused_conv a step, FMA in f32,
+   mma.sync in bf16; VGG-16: 13 stats-form launches, FMA in f32, the
+   stem and 12 wgmma in bf16), no fallback, finite losses; then 30 steps
+   on one batch with dropout off, the mean of the last 5 losses under
+   half the first; every
+   region of one step held against its plain version per element (the
+   stats form: y per element, the moments per channel; two calls
+   bit-identical; the next channel's filters or a dropped last slot must
+   fail) and timed (kernel, plain, cuDNN's conv alone, bound); the
+   trained model saved for inference, loaded, its batch-32 logits
+   against the plain fused conv in both precisions (the next channel's
+   filters must fail), each served
+   region held and timed the same way, and the model served through
+   ModelServer(CUDAPlace(0)) at buckets 1-32 (every answer bit for bit
+   against a direct run padded to its bucket; one launch a region a
+   batch); VGG-16 also: a batch-32 step's gradients and moving
+   statistics against the plain stats form with the dropout masks drawn
+   from one seed on both paths and the plain step's ReLUs and max pools
+   pinned to the kernel step's decisions (within 2x a witness, the plain
+   forward in f64, rounded, in f32 and bf16; the unpinned distance and
+   the decisions that differ printed), two wrong stats forms failing;
+   each dropout
+   mask's kept fraction within 5 sigma of 1 - p;
 17. machine translation: full width (dict 8000, emb 256, hid 512, with
    peepholes), batch 64 of 24 words a side, a few Momentum steps (ms a
    step; no cell launch);
@@ -3092,63 +3129,95 @@ def _stats_function(forward=None, function=None):
     return conv
 
 
-def phase_resnet_gradients(seed, main, startup, loss):
-    """Every parameter gradient and moving statistic of one batch-8
-    ResNet-50 step on the kernel vs the same step on the plain fused
-    conv's forward (the same backward), twice. With AMP off, the two
-    forwards differ only in the order of their f32 sums: limits near
-    that, which two wrong kernels must fail by far. Under AMP, as the
-    training phase runs, bf16 rounding between 53 train-mode batch norms
-    moves the gradients: the kernel is held to a witness of what rounding
-    alone does (the plain forward in f64, rounded), and the two wrong
-    kernels must fail too."""
+def _hold_gradients(label, main, scope, feed, regions, f32_limits,
+                    witness_factor, reseed=None, fetch=(), pinned=None):
+    """Every parameter gradient and moving statistic of one training step
+    on the stats-form kernel against the same step on its plain forward
+    (the same backward), relative L2 per tensor, in f32 and under AMP.
+    With AMP off the two forwards differ only in the order of their f32
+    sums: ``f32_limits`` (max and median gradient error, largest moving
+    statistic's), or with None ``witness_factor`` times a witness of
+    what rounding alone does (the plain forward in f64, rounded). Under
+    AMP, bf16 rounding between the train-mode batch norms moves the
+    gradients: the kernel is held to ``witness_factor`` times the
+    witness. Two wrong stats forms must fail both. A gradient of zero but
+    for rounding (a bias between a layer and its train-mode batch norm)
+    is left out. With ``reseed`` the scope's generator is seeded alike
+    before each step (the same dropout masks). With ``pinned`` =
+    (program, pins), ``main``'s twin whose ReLUs and max pools take fed
+    decisions (``_pin_switches``), every step but the kernel's runs the
+    twin, fed the kernel step's own decisions: a value that rounding puts
+    on the other side of a switch then moves no gradient. The unpinned
+    plain step is printed beside it, with the decisions that differ.
+    Returns the kernel step's values of ``fetch`` under AMP."""
     import torch
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.compiler import passes
     from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.core.lowering import RNG_KEY
     from paddle_tpu_torch.ops import cuda_kernels as ck
     exe = pt.Executor()
-    scope = pt.Scope()
-    exe.run(startup, scope=scope)
-    _small_residual_gammas(main, scope)
     block = main.global_block()
     grad_names = sorted(v.name for v in main.list_vars()
                         if v.name.endswith('@GRAD'))
     stat_names = [op.output(s)[0] for op in block.ops
                   if op.type == 'batch_norm'
                   for s in ('MeanOut', 'VarianceOut')]
-    feed = _image_train_feed(RESNET_GRAD_BATCH, seed + 13)
+    fetch = list(fetch)
+    pins = pinned[1] if pinned else []
+    sources = sorted({x for _, x, _ in pins})
+    # a bias added right before a train-mode batch norm: the batch mean
+    # takes it back out, so its gradient is zero but for rounding
+    bn_inputs = {op.input('X')[0] for op in block.ops
+                 if op.type == 'batch_norm' and not op.attrs.get('is_test')}
+    live = [n for n in grad_names if n not in {
+        op.input('Y')[0] + '@GRAD' for op in block.ops
+        if op.type == 'elementwise_add' and op.output('Out')[0] in bn_inputs}]
     snap = _snapshot(scope)
 
-    def step(conv=None):
+    def step(conv=None, decisions=None):
+        """One step of ``main`` fetching the decisions' sources, or with
+        ``decisions`` one step of the pinned twin fed them."""
         _restore(scope, snap)
+        if reseed is not None:
+            gen = torch.Generator(device='cuda')
+            gen.manual_seed(reseed)
+            scope.set_var(RNG_KEY, gen)
+        program, names = main, grad_names + fetch + sources
+        if decisions is not None:
+            program, names = pinned[0], grad_names + fetch
         with passes.conv_for_testing(conv) if conv else \
                 contextlib.nullcontext():
-            vals = exe.run(main, feed=feed, fetch_list=grad_names,
-                           scope=scope, return_numpy=False)
+            vals = exe.run(program, feed=dict(feed, **(decisions or {})),
+                           fetch_list=names, scope=scope, return_numpy=False)
         torch.cuda.synchronize()
-        got = dict(zip(grad_names, vals))
+        got = dict(zip(names, vals))
         got.update((n, scope.raw(n).clone()) for n in stat_names)
         return got
 
     def errors(got, ref):
         """(largest gradient error, its name, median gradient error,
-        largest moving-statistic error, the stem's), relative L2 per
-        tensor."""
-        errs = _rel_l2(got, ref)
-        worst = max(grad_names, key=errs.get)
+        largest moving-statistic error)."""
+        errs = _rel_l2({n: got[n] for n in live + stat_names},
+                       {n: ref[n] for n in live + stat_names})
+        worst = max(live, key=errs.get)
         return (errs[worst], worst,
-                float(np.median([errs[n] for n in grad_names])),
-                max(errs[n] for n in stat_names),
-                max(errs[n] for n in stat_names[:2]))
+                float(np.median([errs[n] for n in live])),
+                max(errs[n] for n in stat_names))
 
-    def show(label, e):
-        print('resnet gradients: %s: gradients max %.3g (%s), median %.3g; '
-              'moving statistics max %.3g (stem %.3g)' % ((label,) + e),
-              flush=True)
-
-    def within(e, limits):
-        return e[0] <= limits[0] and e[2] <= limits[1] and e[3] <= limits[2]
+    def differing(a, b):
+        """The ReLU and the max-pool decisions of two unpinned steps that
+        differ: ((relu, of), (pool, of))."""
+        out = {}
+        for kind, x, _ in pins:
+            diff = (_decision(kind, a[x]) != _decision(kind, b[x])).float()
+            if kind == 'pool':             # a window differs anywhere
+                N, C, H, W = diff.shape
+                diff = diff.reshape(N, C, H // 2, 2, W // 2, 2).amax((3, 5))
+            n, total = int(diff.sum().item()), diff.numel()
+            d, t = out.get(kind, (0, 0))
+            out[kind] = (d + n, t + total)
+        return out.get('relu', (0, 0)), out.get('pool', (0, 0))
 
     controls = (('backward without the moments\' cotangents',
                  _stats_function(ck._stats_kernel, _moments_dropped())),
@@ -3159,41 +3228,79 @@ def phase_resnet_gradients(seed, main, startup, loss):
         try:
             ck.reset_launch_counts()
             kernel = step()
-            check(ck.LAUNCHES['fused_conv_stats'] == RESNET_REGIONS,
-                  'gradient step launches %s' % ck.LAUNCHES)
-            plain = step(_stats_function())
+            check(ck.LAUNCHES['fused_conv_stats'] == regions,
+                  '%s gradient step launches %s' % (label, ck.LAUNCHES))
+            decisions = {fed: _decision(kind, kernel[x])
+                         for kind, x, fed in pins} if pinned else None
+            plain = step(_stats_function(), decisions)
+            same = all(torch.equal(kernel[n], plain[n]) for n in fetch)
             found = {'kernel': errors(kernel, plain),
-                     'witness': errors(step(_stats_function(_f64_witness)),
-                                       plain)}
+                     'witness': errors(step(_stats_function(_f64_witness),
+                                            decisions), plain)}
             for name, conv in controls:
-                found[name] = errors(step(conv), plain)
+                found[name] = errors(step(conv, decisions), plain)
+            if pinned:
+                free = step(_stats_function())
+                unpinned = errors(kernel, free) + differing(kernel, free)
+                del free
         finally:
             amp.set_amp(None)
         w = found['witness']
-        if precision == 'f32':
-            limits = RESNET_GRAD_F32
+        if precision == 'f32' and f32_limits is not None:
+            limits = f32_limits
             what = 'limits max %g, median %g, statistics %g' % limits
         else:
-            limits = tuple(RESNET_GRAD_WITNESS * e for e in (w[0], w[2], w[3]))
+            limits = tuple(witness_factor * e for e in (w[0], w[2], w[3]))
             what = ('limits %gx the witness\'s: max %.3g, median %.3g, '
-                    'statistics %.3g' % ((RESNET_GRAD_WITNESS,) + limits))
-        show('%s (AMP %s), batch %d, kernel vs plain fused conv (same '
-             'backward), relative L2 per tensor (%s)' % (
-                 precision, 'on' if precision == 'bf16' else 'off',
-                 RESNET_GRAD_BATCH, what), found['kernel'])
-        show('%s witness: the plain forward in f64, rounded, vs plain'
-             % precision, w)
+                    'statistics %.3g' % ((witness_factor,) + limits))
+        for name in ['kernel', 'witness'] + [c for c, _ in controls]:
+            print('%s gradients: %s (AMP %s), batch %d, %s vs plain fused '
+                  'conv (same backward%s), relative L2 per tensor: %d '
+                  'gradients (%d of zero but for rounding left out) max '
+                  '%.3g (%s), median %.3g; moving statistics max %.3g (%s)'
+                  % ((label, precision, 'on' if precision == 'bf16'
+                      else 'off', feed['data'].shape[0], name,
+                      ', the ReLUs and max pools pinned to the kernel '
+                      'step\'s decisions' if pinned else '', len(live),
+                      len(grad_names) - len(live)) + found[name] + (what,)),
+                  flush=True)
+        if pinned:
+            print('%s gradients: %s, kernel vs plain fused conv, neither '
+                  'pinned: max %.3g (%s), median %.3g, moving statistics '
+                  'max %.3g; decisions that differ between the two steps: '
+                  'ReLU %d of %d, max pool %d of %d (not checked)'
+                  % ((label, precision) + unpinned[:4] + unpinned[4] +
+                     unpinned[5]), flush=True)
+
+        def within(e):
+            return e[0] <= limits[0] and e[2] <= limits[1] and \
+                e[3] <= limits[2]
+        check(same, '%s: the fetched %s differ between the kernel and the '
+              'plain step' % (label, fetch))
+        check(within(found['kernel']), '%s gradients or moving statistics '
+              '(%s) differ from the plain fused conv\'s' % (label, precision))
         for name, _ in controls:
-            show('%s control, %s, vs plain fused conv' % (precision, name),
-                 found[name])
-        check(within(found['kernel'], limits), 'ResNet-50 gradients or '
-              'moving statistics (%s) differ from the plain fused conv\'s'
-              % precision)
-        for name, _ in controls:
-            check(not within(found[name], limits), 'the %s gradient limits '
-                  'do not catch a control: %s' % (precision, name))
-    del scope, snap, kernel, plain
+            check(not within(found[name]), 'the %s %s gradient limits do '
+                  'not catch a control: %s' % (label, precision, name))
+    vals = {n: kernel[n] for n in fetch}
+    del snap, kernel, plain
     torch.cuda.empty_cache()
+    return vals
+
+
+def phase_resnet_gradients(seed, main, startup, loss):
+    """Every parameter gradient and moving statistic of one batch-8
+    ResNet-50 step on the kernel vs the same step on the plain fused
+    conv's forward (``_hold_gradients``: f32 limits RESNET_GRAD_F32,
+    under AMP RESNET_GRAD_WITNESS times the f64 witness), its residual
+    gammas small."""
+    import paddle_tpu_torch as pt
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    _small_residual_gammas(main, scope)
+    _hold_gradients('resnet', main, scope,
+                    _image_train_feed(RESNET_GRAD_BATCH, seed + 13),
+                    RESNET_REGIONS, RESNET_GRAD_F32, RESNET_GRAD_WITNESS)
 
 
 def phase_se_resnext_training(seed, card):
@@ -3240,6 +3347,661 @@ def phase_se_resnext_training(seed, card):
     del scope, exe, feed, outs
     torch.cuda.empty_cache()
     return dict(launches=launches, ms=1e3 * dt / SE_STEPS)
+
+
+# ---- 12b. the static analysis; 12c, 12d. mnist and VGG-16 ----------------
+# benchmark/fluid/fluid_benchmark.py's default batch; the training steps
+# a precision (warm-up, then timed); the served requests' rows (buckets
+# 1 to BENCH_SERVE_MAX)
+BENCH_BATCH = 32
+BENCH_WARMUP, BENCH_STEPS = 2, 5
+# fitting one batch with dropout off: the steps, and the mean of the last
+# few losses against the first (the timed steps above keep the harness's
+# dropout and are checked finite only: on one batch their loss need not
+# fall within 7 steps)
+BENCH_FIT_STEPS, BENCH_FIT_LAST, BENCH_FIT_RATIO = 30, 5, 0.5
+BENCH_SERVE_MAX = 32
+BENCH_REQUESTS = [1, 3, 8, 17, 32]
+# fused_conv regions a step, request or served batch, and their kernel
+# variants by precision: mnist's convs (Cin 1 and 20, Cout 20 and 50, 5x5)
+# take the FMA kernel in f32 and mma.sync in bf16 (the stem refuses Cout %
+# 8); VGG-16's stem (Cin 3) the stem kernel, its other twelve wgmma
+BENCH_REGIONS = {'mnist': 2, 'vgg': 13}
+BENCH_VARIANTS = {
+    'mnist': {'float32': {'fma': 2}, 'bfloat16': {'mma_sync': 2}},
+    'vgg': {'float32': {'fma': 13}, 'bfloat16': {'stem': 1, 'wgmma': 12}}}
+# kernel vs plain fused conv, the served logits: max |diff| over max
+# |logits|. f32 (AMP off): the same products summed in another order, a
+# few ulps a layer; bf16 (AMP): each region's output rounds to bf16
+# (2^-8), mnist through 2 regions and an fc, VGG-16 through 13 regions,
+# 3 fc and 14 batch norms (ResNet-50's 53 regions take 0.1)
+BENCH_LOGITS_TOL = {'mnist': {'float32': 1e-4, 'bfloat16': 2 ** -5},
+                    'vgg': {'float32': 1e-4, 'bfloat16': 0.1}}
+# VGG-16's gradients (one step at the harness's batch, the dropout masks
+# drawn from one seed on both paths), relative L2 per tensor, in f32 and
+# under AMP at most this many times a witness (the plain forward in f64,
+# rounded). Every step but the kernel's is pinned to the kernel step's
+# ReLU and max-pool decisions (``_pin_switches``): unpinned, rounding puts
+# a few values on the other side of a switch and that element's gradient
+# moves every earlier layer's (f32, batch 8: the kernel read 1.28e-3 on
+# one beta's gradient against the witness's 8.69e-6, PERF.md, Findings)
+VGG_GRAD_BATCH = BENCH_BATCH
+VGG_GRAD_WITNESS = 2.0
+# dropout's kept fraction, within this many standard deviations of 1 - p
+DROPOUT_SIGMAS = 5
+
+
+def _bench_program(name, seed, train=True, pins=None):
+    """mnist or VGG-16 as benchmark/fluid/models.py:24-48 builds them,
+    with the harness's Momentum(0.01, 0.9) when ``train``: (main,
+    startup, loss, prediction). With a list ``pins`` the ReLUs and max
+    pools are pinned (``_pin_switches``) before the backward is built and
+    the fed decisions appended to it."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import benchmark as bm
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss, pred = getattr(bm, name)()
+        if pins is not None:
+            pins.extend(_pin_switches(main))
+        if train:
+            bm.train(loss)
+    return main, startup, loss, pred
+
+
+def _pin_switches(main):
+    """Make ``main`` take its ReLU and max-pool decisions from fed
+    tensors: ``relu(x)`` becomes ``x * mask`` and a 2x2, stride-2 max
+    pool ``4 * avg_pool(x * onehot)``, each fed as ``<out>@pin``. Both
+    have the gradient of the op they replace wherever the fed decision
+    is its own. Returns [(kind, the var the decision is read from in the
+    unpinned program, the fed name)]."""
+    import paddle_tpu_torch as pt
+    block = main.global_block()
+    pins, i = [], 0
+    while i < len(block.ops):
+        op = block.ops[i]
+        kind = 'relu' if op.type == 'relu' else 'pool' if (
+            op.type == 'pool2d' and op.attrs['pooling_type'] == 'max') \
+            else None
+        if kind is None:
+            i += 1
+            continue
+        x, out = op.input('X')[0], op.output('Out')[0]
+        fed = pt.layers.data(name=out + '@pin', shape=list(
+            block.var(x).shape[1:]), dtype='float32')
+        block.remove_op(i)
+        if kind == 'relu':
+            block.insert_op(i, type='elementwise_mul', inputs={
+                'X': [x], 'Y': [fed.name]}, outputs={'Out': [out]},
+                attrs={'axis': -1})
+            pins.append((kind, out, fed.name))
+            i += 1
+            continue
+        check([list(op.attrs[k]) for k in ('ksize', 'strides', 'paddings')]
+              == [[2, 2], [2, 2], [0, 0]], 'pinning a max pool %s' % out)
+        picked = block.create_var(name=out + '@picked',
+                                  shape=block.var(x).shape, dtype='float32')
+        mean = block.create_var(name=out + '@mean',
+                                shape=block.var(out).shape, dtype='float32')
+        block.insert_op(i, type='elementwise_mul', inputs={
+            'X': [x], 'Y': [fed.name]}, outputs={'Out': [picked.name]},
+            attrs={'axis': -1})
+        block.insert_op(i + 1, type='pool2d', inputs={'X': [picked.name]},
+                        outputs={'Out': [mean.name]},
+                        attrs=dict(op.attrs, pooling_type='avg'))
+        block.insert_op(i + 2, type='scale', inputs={'X': [mean.name]},
+                        outputs={'Out': [out]},
+                        attrs={'scale': 4.0, 'bias': 0.0})
+        pins.append((kind, x, fed.name))
+        i += 3
+    return pins
+
+
+def _decision(kind, x):
+    """A ReLU's mask (x > 0), or the one-hot of each 2x2 window's first
+    largest element (the max pool's pick), from ``x`` on the card, in
+    f32."""
+    import torch
+    if kind == 'relu':
+        return (x > 0).float()
+    n, c, h, w = x.shape
+    win = x.float().reshape(n, c, h // 2, 2, w // 2, 2).permute(
+        0, 1, 2, 4, 3, 5).reshape(n, c, h // 2, w // 2, 4)
+    onehot = torch.nn.functional.one_hot(win.argmax(-1), 4).float()
+    return onehot.reshape(n, c, h // 2, w // 2, 2, 2).permute(
+        0, 1, 2, 4, 3, 5).reshape(n, c, h, w).contiguous()
+
+
+def _bench_feed(name, bs, seed):
+    """One batch of images and labels, made on the card."""
+    import torch
+    from paddle_tpu_torch.models import benchmark as bm
+    shape, classes = bm.IMAGE_SHAPES[name]
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    return {'data': torch.randn((bs,) + shape, device='cuda',
+                                generator=gen),
+            'label': torch.randint(0, classes, (bs, 1), device='cuda',
+                                   generator=gen)}
+
+
+def _analysis_programs(seed):
+    """Every program this run builds, as (label, program, feeds,
+    fetches): the flagship's serving and training programs, ResNet-50
+    (serving and training), SE-ResNeXt-50, stacked_dynamic_lstm,
+    machine_translation, mnist and VGG-16 (training and their inference
+    twins)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.fluid_transformer import transformer
+    progs = []
+    for train in (False, True):
+        main, startup = pt.Program(), pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            loss, _, _, logits = transformer(None, **FLAGSHIP)
+            if train:
+                pt.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+        progs.append(('flagship %s' % ('training' if train else 'serving'),
+                      main if train else main.prune([logits]),
+                      ('data', 'label', 'pos') if train else ('data', 'pos'),
+                      (loss if train else logits).name))
+    main, _, prob = _resnet_program(seed, is_test=True)
+    progs.append(('resnet50 serving', main.prune([prob]), ('img',),
+                  prob.name))
+    for model in ('resnet_imagenet', 'se_resnext'):
+        main, _, loss = _train_program(seed, model)
+        progs.append(('%s training' % model, main, ('data', 'label'),
+                      loss.name))
+    main, _, loss, _ = _lstm_program(seed, False)
+    progs.append(('stacked_dynamic_lstm training', main, ('data', 'label'),
+                  loss.name))
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = machine_translation(pt, **MT)
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    progs.append(('machine_translation training', main,
+                  ('data', 'trg', 'label'), loss.name))
+    for name in ('mnist', 'vgg'):
+        main, _, loss, pred = _bench_program(name, seed)
+        progs.append(('%s training' % name, main, ('data', 'label'),
+                      loss.name))
+        progs.append(('%s serving' % name,
+                      main.clone(for_test=True).prune([pred]), ('data',),
+                      pred.name))
+    return progs
+
+
+def phase_analysis(seed):
+    """12b. The static verifier, called directly, on every program this
+    run builds, before and after the default passes run under the
+    sanitizer (PassPipeline(verify=True)): no error, no exception. Then
+    through Executor.run on the card: a feed of the wrong rank raises
+    FeedInvalid and a mis-wired program ProgramInvalid, both before any
+    kernel launch."""
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.analysis as A
+    from paddle_tpu_torch.compiler import DEFAULT_PASSES
+    from paddle_tpu_torch.compiler.pass_base import PassPipeline
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launch_counts()
+    for label, prog, feeds, fetch in _analysis_programs(seed):
+        for stage in ('as built', 'after the default passes'):
+            t0 = time.perf_counter()
+            if stage != 'as built':
+                prog, _ = PassPipeline(list(DEFAULT_PASSES), name='smoke',
+                                       verify=True).run(prog,
+                                                        protected=(fetch,))
+            t_pass = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            diags = A.verify_program(prog, feeds=feeds, fetch_names=(fetch,))
+            dt = time.perf_counter() - t0
+            errors = A.errors_of(diags)
+            print('analysis: %s, %s: %d ops, verify %.4f s%s, %d errors, '
+                  '%d diagnostics' % (
+                      label, stage, len(prog.global_block().ops), dt,
+                      '' if stage == 'as built' else
+                      ', sanitized passes %.3f s' % t_pass, len(errors),
+                      len(diags)), flush=True)
+            check(not errors, 'the verifier finds errors in %s (%s):\n%s'
+                  % (label, stage, A.format_diagnostics(errors)))
+    exe = pt.Executor()                        # CUDAPlace(0)
+    main, startup, loss, _ = _bench_program('mnist', seed)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _bench_feed('mnist', 4, seed)
+    try:
+        exe.run(main, feed=dict(feed, data=feed['data'][:, 0]),
+                fetch_list=[loss], scope=scope)
+        check(False, 'a rank-3 image feed was not refused')
+    except A.FeedInvalid as e:
+        print('analysis: a rank-3 image feed raised FeedInvalid: %s'
+              % e.diagnostics[0].render(), flush=True)
+    # a conv whose filter takes 4 channels of a 3-channel image (without
+    # the verifier it reaches the fused conv)
+    bad, bad_startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(bad, bad_startup):
+        img = pt.layers.data(name='img', shape=[3, 32, 32], dtype='float32')
+        out = pt.layers.conv2d(img, num_filters=16, filter_size=3,
+                               act='relu')
+    conv, = [op for op in bad.global_block().ops if op.type == 'conv2d']
+    filt = bad.global_block().var(conv.input('Filter')[0])
+    filt.shape = (16, 4, 3, 3)
+    for v in bad.global_block().all_parameters():
+        scope.set_var(v.name, torch.zeros(v.shape, device='cuda'))
+    try:
+        exe.run(bad, feed={'img': torch.zeros(2, 3, 32, 32, device='cuda')},
+                fetch_list=[out], scope=scope)
+        check(False, 'a mis-wired conv was not refused')
+    except A.ProgramInvalid as e:
+        print('analysis: a mis-wired conv raised ProgramInvalid: %s'
+              % e.diagnostics[0].render(), flush=True)
+        check(e.diagnostics[0].code == 'conv-channel-mismatch',
+              'ProgramInvalid names %s' % e.diagnostics[0].code)
+    check(not any(ck.LAUNCHES.values()), 'kernels launched before the '
+          'analysis refused the run: %s' % ck.LAUNCHES)
+    print('analysis: launches after both refusals %s' % ck.LAUNCHES,
+          flush=True)
+    del scope, exe
+
+
+class _RegionRecorder(object):
+    """A fused conv for ``passes.conv_for_testing`` that calls the
+    kernel's wrapper and keeps each call's operands (detached copies),
+    so each region can be held against its plain version at the shapes
+    the main path gives it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, x, w, aux, kinds, stages, strides, pads, depthwise,
+                 emit_stats=False):
+        from paddle_tpu_torch.ops import cuda_kernels as ck
+        self.calls.append((x.detach().clone(), w.detach().clone(),
+                           tuple(a.detach().clone() for a in aux),
+                           tuple(kinds), tuple(stages), tuple(strides),
+                           tuple(pads), bool(depthwise), bool(emit_stats)))
+        return ck.fused_conv(x, w, aux, kinds, stages, strides, pads,
+                             depthwise, emit_stats=emit_stats)
+
+
+def _rolled_filters(x, w, aux, kinds, stages, strides, pads, depthwise,
+                    emit_stats=False):
+    """The fused conv kernel with each output channel computed from the
+    next channel's filter (a control)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    return ck.fused_conv(x, w.roll(1, 0), aux, kinds, stages, strides, pads,
+                         depthwise, emit_stats=emit_stats)
+
+
+def _hold_regions(label, context, calls, totals):
+    """Each recorded region against its plain version per element (the
+    stats form: y per element, the moments per channel), twice bit for
+    bit, a control that must fail (the inference form: the next output
+    channel's filters; the stats form: the slab without its last slot
+    where M is not a multiple of it), and kernel, plain
+    version, cuDNN's conv alone and the bound timed. The bf16 regions
+    (the card's default, AMP) add to ``totals['<form> <context>']``:
+    {ms, plain_ms, library_ms, bound_ms, max_abs_err, regions}, one
+    step's or one request's sums."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    for x, w, aux, kinds, stages, st, pd, dw, stats in calls:
+        dtype = str(x.dtype).replace('torch.', '')
+        N, H, W, cin = x.shape
+        cout, k = w.shape[0], w.shape[1]
+        args = (x, w, aux, kinds, stages, st, pd, dw)
+        plan = ck.fused_conv_plan(x.dtype, N, H, W, cin, cout, k, k, st, pd,
+                                  dw, ck._sm_count(x.device.index or 0))
+        if stats:
+            err = _check_stats_case(x, w, st[0], pd[0], dw, dtype)
+            call = lambda: ck.fused_conv(*args, emit_stats=True)  # noqa
+            plain = lambda: ck.fused_conv_reference(  # noqa
+                *args, emit_stats=True)
+            ratio = control = None
+        else:
+            got = ck.fused_conv(*args)
+            same = torch.equal(got, ck.fused_conv(*args))
+            ref = ck.fused_conv_reference(*args)
+            err = (got.float() - ref.float()).abs().max().item()
+            ratio = conv_err_ratio(got, ref, dtype)
+            control = conv_err_ratio(_rolled_filters(*args), ref, dtype)
+            what = '%s region N=%d %dx%d Cin=%d Cout=%d K=%d %s' % (
+                label, N, H, W, cin, cout, k, dtype)
+            check(same, 'fused_conv gave other bits on a second call at '
+                  + what)
+            check(ratio <= 1, 'fused_conv disagrees with its plain version '
+                  'at ' + what)
+            check(control > 1, 'the per-element limit does not catch '
+                  'the next channel\'s filters at ' + what)
+            call = lambda: ck.fused_conv(*args)  # noqa
+            plain = lambda: ck.fused_conv_reference(*args)  # noqa
+        out = x.new_empty((N, (H + 2 * pd[0] - k) // st[0] + 1,
+                           (W + 2 * pd[1] - k) // st[1] + 1, cout))
+        bound_ms, by = conv_bound(x, w, list(aux), out, k, st[0], pd[0], dw,
+                                  extra_bytes=8 * cout if stats else 0)
+        kernel_ms = graph_ms(call)
+        plain_ms = graph_ms(plain, iters=3, reps=3)
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
+        library_ms = graph_ms(lambda: F.conv2d(xc, wc, stride=st,
+                                               padding=pd))
+        print('kernel %s %s region N=%d %dx%d Cin=%d Cout=%d K=%d s=%d p=%d '
+              '%s [%s] %s: max|err| %.3g%s; kernel_ms %.4f plain_ms %.4f '
+              'cudnn_ms %.4f bound_ms %.4f (%s)' % (
+                  'fused_conv_stats' if stats else 'fused_conv', label, N, H,
+                  W, cin, cout, k, st[0], pd[0], dtype,
+                  ' '.join(s[0] if s[0] != 'act' else s[1] for s in stages),
+                  _plan_label(plan), err, '' if stats else
+                  ', err/limit %.3g (next channel\'s filters: %.3g), two '
+                  'calls bit-identical' % (ratio, control), kernel_ms,
+                  plain_ms, library_ms, bound_ms, by), flush=True)
+        if dtype != 'bfloat16':
+            continue
+        t = totals.setdefault('%s %s' % (
+            'fused_conv_stats' if stats else 'fused_conv', context),
+            dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 max_abs_err=0.0, regions=0))
+        t['ms'] += kernel_ms
+        t['plain_ms'] += plain_ms
+        t['library_ms'] += library_ms
+        t['bound_ms'] += bound_ms
+        t['max_abs_err'] = max(t['max_abs_err'], err)
+        t['regions'] += 1
+
+
+def _bench_train(name, seed, card, precision):
+    """Train ``name`` at BENCH_BATCH in one precision on one fixed batch:
+    warm-up steps, then timed steps with the launches counted from 0;
+    then one step recorded region by region. Returns (exe, main, scope,
+    loss, pred, launches, calls)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    dtype = 'bfloat16' if precision == 'bf16' else 'float32'
+    main, startup, loss, pred = _bench_program(name, seed)
+    exe = pt.Executor()                        # CUDAPlace(0)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _bench_feed(name, BENCH_BATCH, seed + 21)
+    amp.set_amp(precision == 'bf16')
+    try:
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0][0])
+                  for _ in range(BENCH_WARMUP)]
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        passes.reset_fallback_counts()
+        t0 = time.perf_counter()
+        outs = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False)[0] for _ in range(BENCH_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        variants = {v: c for v, c in ck.FUSED_CONV_VARIANT_LAUNCHES.items()
+                    if c}
+        fallbacks = dict(passes.FALLBACKS)
+        losses += [float(o.item()) for o in outs]
+        recorder = _RegionRecorder()
+        with passes.conv_for_testing(recorder):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    finally:
+        amp.set_amp(None)
+    form = 'fused_conv_stats' if name == 'vgg' else 'fused_conv'
+    print('%s training: batch %d, %s (AMP %s), %d steps, %.2f ms per step, '
+          '%.1f images/s (host clock); losses %s; launches %s, the fused '
+          'conv by variant %s, fallbacks %s; %s' % (
+              name, BENCH_BATCH, precision, 'on' if precision == 'bf16'
+              else 'off', BENCH_STEPS, 1e3 * dt / BENCH_STEPS,
+              BENCH_STEPS * BENCH_BATCH / dt,
+              ', '.join('%.4f' % l for l in losses), launches, variants,
+              fallbacks, card), flush=True)
+    expect = {n: 0 for n in launches}
+    expect[form] = BENCH_REGIONS[name] * BENCH_STEPS
+    check(launches == expect, '%s training launches %s, expected %s'
+          % (name, launches, expect))
+    check(variants == {v: c * BENCH_STEPS for v, c in
+                       BENCH_VARIANTS[name][dtype].items()},
+          '%s training took the fused conv variants %s' % (name, variants))
+    check(not fallbacks, '%s training fell back: %s' % (name, fallbacks))
+    check(all(np.isfinite(losses)), 'non-finite %s training loss' % name)
+    check(len(recorder.calls) == BENCH_REGIONS[name] and all(
+        c[-1] == (name == 'vgg') for c in recorder.calls),
+        '%s training recorded %d regions' % (name, len(recorder.calls)))
+    return exe, main, scope, loss, pred, launches, recorder.calls
+
+
+def _bench_fit(name, seed, precision):
+    """Fit one batch: BENCH_FIT_STEPS Momentum steps on one fixed batch
+    with every dropout's probability set to 0, on the kernels; the mean
+    of the last BENCH_FIT_LAST losses must be under BENCH_FIT_RATIO of
+    the first."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import amp
+    main, startup, loss, _ = _bench_program(name, seed)
+    for op in main.global_block().ops:
+        if op.type == 'dropout':
+            op.attrs['dropout_prob'] = 0.0
+    main._bump_version()
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _bench_feed(name, BENCH_BATCH, seed + 25)
+    amp.set_amp(precision == 'bf16')
+    try:
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0][0])
+                  for _ in range(BENCH_FIT_STEPS)]
+    finally:
+        amp.set_amp(None)
+    last = float(np.mean(losses[-BENCH_FIT_LAST:]))
+    print('%s fits one batch: %s (AMP %s), %d steps, dropout off, losses '
+          '%s; mean of the last %d %.4f, %.4f of the first (limit %g)' % (
+              name, precision, 'on' if precision == 'bf16' else 'off',
+              BENCH_FIT_STEPS, ', '.join('%.4f' % l for l in losses),
+              BENCH_FIT_LAST, last, last / losses[0], BENCH_FIT_RATIO),
+          flush=True)
+    check(all(np.isfinite(losses)) and last < BENCH_FIT_RATIO * losses[0],
+          '%s (%s) did not fit one batch: %g -> %g' % (
+              name, precision, losses[0], last))
+
+
+def _bench_serve(name, seed, exe, main, scope, pred, art_dir):
+    """Save the trained model for inference (its logits and
+    probabilities), load it, hold its logits against the plain fused
+    conv in both precisions (the next channel's filters must fail), then
+    serve it through ModelServer(CUDAPlace(0)) at its buckets, each
+    answer bit for bit against a direct run padded to its bucket.
+    Returns (the served batches' fused_conv launches, the recorded
+    regions)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving.bucketing import pad_feed
+    softmax = [op for op in main.global_block().ops
+               if op.type == 'softmax'][-1]
+    logits = main.global_block().var(softmax.input('X')[0])
+    d = os.path.join(art_dir, name)
+    pt_io.save_inference_model(d, ['data'], [logits, pred], exe,
+                               main_program=main, scope=scope)
+    load_scope = pt.Scope()
+    prog, feed_names, fetch_vars = pt_io.load_inference_model(
+        d, exe, scope=load_scope)
+    images = _bench_feed(name, BENCH_BATCH, seed + 31)['data']
+
+    def direct(rows, conv=None):
+        with passes.conv_for_testing(conv) if conv else \
+                contextlib.nullcontext():
+            return exe.run(prog, feed={'data': images[:rows]},
+                           fetch_list=fetch_vars, scope=load_scope)
+
+    calls = []
+    for precision in ('f32', 'bf16'):
+        dtype = 'bfloat16' if precision == 'bf16' else 'float32'
+        tol = BENCH_LOGITS_TOL[name][dtype]
+        amp.set_amp(precision == 'bf16')
+        try:
+            ck.reset_launch_counts()
+            got, prob = direct(BENCH_BATCH)
+            n = ck.LAUNCHES['fused_conv']
+            variants = {v: c for v, c in
+                        ck.FUSED_CONV_VARIANT_LAUNCHES.items() if c}
+            ref, _ = direct(BENCH_BATCH, ck.fused_conv_reference)
+            recorder = _RegionRecorder()
+            direct(BENCH_BATCH, recorder)
+            calls += recorder.calls
+            ctl, _ = direct(BENCH_BATCH, _rolled_filters)
+        finally:
+            amp.set_amp(None)
+        scale = float(np.abs(ref).max())
+        diff = float(np.abs(got - ref).max()) / scale
+        c_diff = float(np.abs(ctl - ref).max()) / scale
+        print('%s serving: batch-%d logits, %s (AMP %s), fused kernel vs '
+              'plain fused conv: max |diff| / max |logits| %.4g (tol %g), '
+              'top-1 agreement %.4f; control (the next channel\'s filters) '
+              '%.4g; '
+              '%d fused conv launches by variant %s' % (
+                  name, BENCH_BATCH, precision,
+                  'on' if precision == 'bf16' else 'off', diff, tol,
+                  float((got.argmax(-1) == ref.argmax(-1)).mean()), c_diff,
+                  n, variants), flush=True)
+        check(diff <= tol, '%s %s logits differ from the plain fused conv '
+              'by %g of their scale' % (name, precision, diff))
+        check(c_diff > tol, 'the %s logits limit does not catch the next '
+              'channel\'s filters' % name)
+        check(n == BENCH_REGIONS[name] and variants ==
+              BENCH_VARIANTS[name][dtype], '%s served %s with %d launches, '
+              'variants %s' % (name, precision, n, variants))
+        check(np.isfinite(prob).all() and np.allclose(prob.sum(1), 1.0,
+                                                      atol=1e-3),
+              '%s probabilities' % name)
+    server = pt.serving.ModelServer(pt.CUDAPlace(0),
+                                    max_batch_size=BENCH_SERVE_MAX)
+    try:
+        server.load_model(name, d)
+        t0 = time.perf_counter()
+        server.warmup(name)
+        warm = time.perf_counter() - t0
+        # each request alone is one batch at its rows' bucket: its
+        # answer must equal a direct run of its rows padded to that
+        # bucket, bit for bit (same batch, same plans)
+        buckets = [server.policy.bucket_for(rows) for rows in BENCH_REQUESTS]
+        refs = [[r[:rows] for r in exe.run(prog, feed=pad_feed(
+            {'data': images[:rows].cpu().numpy()}, rows, bucket,
+            server.policy.pad_mode), fetch_list=fetch_vars,
+            scope=load_scope)] for rows, bucket in zip(BENCH_REQUESTS,
+                                                       buckets)]
+        ck.reset_launch_counts()
+        passes.reset_fallback_counts()
+        times, batches = [], 0
+        for rows, bucket, ref in zip(BENCH_REQUESTS, buckets, refs):
+            t0 = time.perf_counter()
+            got = server.infer(name, {'data': images[:rows].cpu().numpy()})
+            times.append(time.perf_counter() - t0)
+            for g, r in zip(got, ref):
+                check(g.shape == r.shape and np.array_equal(g, r),
+                      '%s served %d rows (bucket %d) %.4g from a direct run '
+                      'padded to the bucket' % (
+                          name, rows, bucket, float(np.abs(g - r).max())
+                          if g.shape == r.shape else float('nan')))
+            batches += 1
+        launches = ck.LAUNCHES['fused_conv']
+        fallbacks = dict(passes.FALLBACKS)
+    finally:
+        server.close()
+    print('%s serving: ModelServer(CUDAPlace(0)), buckets warmed in %.1f s, '
+          'requests of %s rows (buckets %s): %s ms (host clock), every '
+          'answer bit-equal to a direct run padded to its bucket; %d fused '
+          'conv launches, fallbacks %s' % (
+              name, warm, BENCH_REQUESTS, buckets, ', '.join(
+                  '%.2f' % (1e3 * t) for t in times), launches, fallbacks),
+          flush=True)
+    check(launches == BENCH_REGIONS[name] * batches, '%s served %d batches '
+          'with %d fused conv launches' % (name, batches, launches))
+    check(not fallbacks, '%s serving fell back: %s' % (name, fallbacks))
+    del load_scope, prog
+    return launches, calls
+
+
+def _vgg_gradients(seed):
+    """A batch-32 VGG-16 step's gradients and moving statistics against
+    the plain stats form (``_hold_gradients``: in f32 and under AMP
+    VGG_GRAD_WITNESS times the f64 witness; every other step pinned to
+    the kernel step's ReLU and max-pool decisions), the scope's generator
+    seeded alike before each step so the dropout masks agree (checked);
+    then each mask's kept fraction against 1 - p."""
+    import paddle_tpu_torch as pt
+    main, startup, loss, _ = _bench_program('vgg', seed)
+    pins = []
+    twin = _bench_program('vgg', seed, pins=pins)[0]
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    dropouts = [op for op in main.global_block().ops
+                if op.type == 'dropout']
+    masks = _hold_gradients(
+        'vgg', main, scope, _bench_feed('vgg', VGG_GRAD_BATCH, seed + 23),
+        BENCH_REGIONS['vgg'], None, VGG_GRAD_WITNESS, reseed=seed + 29,
+        fetch=[op.output('Mask')[0] for op in dropouts],
+        pinned=(twin, pins))
+    for op in dropouts:
+        p, m = float(op.attrs['dropout_prob']), op.output('Mask')[0]
+        mask = masks[m].float()
+        kept = mask.mean().item()
+        sigma = (p * (1 - p) / mask.numel()) ** 0.5
+        print('vgg dropout: %s p %.1f, %d elements on the card, kept %.5f '
+              '(1 - p %.5f, %.2f sigma)' % (m, p, mask.numel(), kept, 1 - p,
+                                            abs(kept - (1 - p)) / sigma),
+              flush=True)
+        check(abs(kept - (1 - p)) <= DROPOUT_SIGMAS * sigma,
+              'dropout %s kept %g, not 1 - p = %g' % (m, kept, 1 - p))
+        check(bool(((mask == 0) | (mask == 1)).all()), 'a mask holds other '
+              'values than 0 and 1')
+
+
+def phase_bench_model(name, seed, card, art_dir):
+    """12c, 12d. mnist or VGG-16 (benchmark/fluid/models.py:24-48) at the
+    published widths: Momentum steps at batch 32 in f32 and under AMP
+    (exact launches and variants, no fallback, finite losses; then one
+    batch fitted with dropout off), every
+    region of a training step and of a served request held against its
+    plain version per element and timed; the trained model saved, loaded
+    and served through ModelServer at its buckets; for VGG-16 the
+    gradients against the plain path and the dropout masks. Returns the
+    main paths' launches: {'fused_conv': training (mnist) and serving,
+    'fused_conv_stats': training (VGG-16)} and the regions' totals."""
+    import torch
+    launches = {'fused_conv': 0, 'fused_conv_stats': 0}
+    totals = {}
+    for precision in ('f32', 'bf16'):
+        exe, main, scope, loss, pred, counted, calls = _bench_train(
+            name, seed, card, precision)
+        _bench_fit(name, seed, precision)
+        for n in launches:
+            launches[n] += counted[n]
+        _hold_regions('%s training' % name, 'training', calls, totals)
+        del calls
+    served, calls = _bench_serve(name, seed, exe, main, scope, pred, art_dir)
+    launches['fused_conv'] += served
+    _hold_regions('%s serving' % name, 'serving', calls, totals)
+    del exe, scope, calls
+    if name == 'vgg':
+        _vgg_gradients(seed)
+    for key, t in sorted(totals.items()):
+        print('%s regions, %s, bf16 (AMP), one batch-%d step or request: %d '
+              'regions, summed kernel %.4f ms, plain %.4f ms, cuDNN conv '
+              'alone %.4f ms, bound %.4f ms; %s' % (
+                  name, key, BENCH_BATCH, t['regions'], t['ms'],
+                  t['plain_ms'], t['library_ms'], t['bound_ms'], card),
+              flush=True)
+    torch.cuda.empty_cache()
+    return launches, totals
 
 
 # ---- the sequence path ------------------------------------------------------------
@@ -4299,6 +5061,12 @@ def run_phases(args, card, root):
                                            r_startup, r_loss)
     phase_resnet_gradients(args.seed, r_main, r_startup, r_loss)
     phase_se_resnext_training(args.seed, card)
+    del r_main, r_startup, r_loss
+    torch.cuda.empty_cache()
+    phase_analysis(args.seed)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        bench = {name: phase_bench_model(name, args.seed, card, d)
+                 for name in ('mnist', 'vgg')}
     lstm = phase_lstm_kernels(args.seed)
     lstm_trained = phase_lstm_training(args.seed, card)
     phase_lstm_serving(args.seed, lstm_trained, card)
@@ -4342,21 +5110,32 @@ def run_phases(args, card, root):
             launches=long_trained['launches'][name],
             training_shape=train_shape[name], **long_shape[name]))
     # the fused conv: its numbers summed over one batch-32 request's 53
-    # regions (bf16, as the served model runs them)
+    # regions (bf16, as the served model runs them); launches also over
+    # mnist's timed training steps and both models' served batches, and
+    # their regions' sums beside
+    def bench_totals(form):
+        return {'%s %s' % (name, key.split()[1]): t
+                for name, (_, totals) in sorted(bench.items())
+                for key, t in sorted(totals.items())
+                if key.split()[0] == form}
     kernels.append(dict(
         name='fused_conv', route='cuda',
         source='paddle_tpu_torch/csrc/fused_conv.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_launches['fused_conv'] +
-        runtime_launches['fused_conv'] + tuned_launches['fused_conv'],
-        **conv))
-    # its stats form: launches over the timed ResNet-50 training steps,
-    # numbers summed over one batch-128 step's 53 regions (bf16)
+        runtime_launches['fused_conv'] + tuned_launches['fused_conv'] +
+        sum(b['fused_conv'] for b, _ in bench.values()),
+        bench_regions=bench_totals('fused_conv'), **conv))
+    # its stats form: launches over the timed ResNet-50 and VGG-16
+    # training steps, numbers summed over one batch-128 ResNet-50 step's
+    # 53 regions (bf16), VGG-16's regions' sums beside
     kernels.append(dict(
         name='fused_conv_stats', route='cuda',
         source='paddle_tpu_torch/csrc/fused_conv.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
-        launches=resnet_trained['launches']['fused_conv_stats'], **stats))
+        launches=resnet_trained['launches']['fused_conv_stats'] +
+        bench['vgg'][0]['fused_conv_stats'],
+        bench_regions=bench_totals('fused_conv_stats'), **stats))
     # the LSTM cell: launches over the timed training steps of
     # stacked_dynamic_lstm, numbers at its shape (B 256, H 512, f32), and
     # its bf16 path's at the same shape (no main path launches it)

@@ -23,6 +23,13 @@ the sequence ops and the recurrent layers (``dynamic_lstm``,
 peephole-free LSTM steps run on a hand-written CUDA kernel
 (``csrc/lstm_cell.cu``).
 
+Every ``Executor.run`` goes through the static analysis (``analysis``:
+the raw feed checked, the program verified on a memo miss, as in
+paddle_tpu), and ``PassPipeline(verify=True)`` runs the compiler's
+passes under its sanitizer. The benchmark harness's mnist and VGG-16
+(``models/benchmark.py``, ``nets``, ``models/vgg.py``) serve and train
+on the fused conv kernel too.
+
 Serving runs through the compiler's pass pipeline (``compiler``: the
 default passes on every program the Executor runs, ``bn_fold`` for
 inference) and the serving runtime: ``serving.ModelServer`` (saved
@@ -47,7 +54,7 @@ from .param_attr import ParamAttr  # noqa
 from .lod import (SequenceTensor, create_lod_tensor,  # noqa
                   create_random_int_lodtensor)
 from .backward import append_backward  # noqa
-from . import resilience, serving  # noqa
+from . import analysis, nets, resilience, serving  # noqa
 from .inferencer import Inferencer  # noqa
 
 # the reference's LoDTensor; SequenceTensor carries its imperative

@@ -1,9 +1,7 @@
 """Pass framework: Pass / PassContext / PassResult / PassRegistry /
 PassPipeline.
 
-Counterpart of paddle_tpu/compiler/pass_base.py, copied without the
-sanitizer's verify mode, which comes with the analysis slice (ROADMAP
-Queue A).
+Counterpart of paddle_tpu/compiler/pass_base.py.
 
 A pass mutates the Program it is given IN PLACE (the pipeline clones
 first unless told otherwise) and reports what it did through a
@@ -149,10 +147,18 @@ class PassPipeline(object):
     ``compiler_pass_seconds{pass=}`` and increments
     ``compiler_ops_eliminated_total`` / ``compiler_ops_fused_total``;
     each application journals a ``compile_pass`` event.
+
+    Sanitizer mode (ANALYSIS.md): ``PassPipeline(..., verify=True)``, or
+    env ``PTPU_VERIFY_PASSES=1`` when ``verify`` is left ``None``,
+    snapshots the program before every pass and re-runs the static
+    verifier after it, raising
+    :class:`~paddle_tpu_torch.analysis.PassVerificationError` naming the
+    pass and violated invariant on any regression.
     """
 
-    def __init__(self, passes, name='pipeline'):
+    def __init__(self, passes, name='pipeline', verify=None):
         self.name = name
+        self.verify = verify
         self.passes = []
         for p in passes:
             if isinstance(p, str):
@@ -161,6 +167,12 @@ class PassPipeline(object):
                 raise TypeError('PassPipeline takes Pass instances or '
                                 'registered names, got %r' % (p,))
             self.passes.append(p)
+
+    def _verify_enabled(self):
+        if self.verify is not None:
+            return bool(self.verify)
+        from ..analysis import verify_passes_enabled
+        return verify_passes_enabled()
 
     def signature(self):
         """Stable token for memo keys: the ordered pass names. Toggling
@@ -177,9 +189,16 @@ class PassPipeline(object):
         ctx = PassContext(scope=scope, protected=protected)
         reg = _obs.default_registry()
         results = []
+        sanitize = self._verify_enabled()
+        if sanitize:
+            # imported here: the analysis imports the passes
+            from ..analysis import sanitizer as _san
         for p in self.passes:
             t0 = time.perf_counter()
-            res = p.run(program, ctx)
+            if sanitize:
+                res = _san.run_checked(p, program, ctx)
+            else:
+                res = p.run(program, ctx)
             res.wall_s = time.perf_counter() - t0
             reg.histogram('compiler_pass_seconds',
                           'wall seconds per compiler pass application',

@@ -732,7 +732,7 @@ def _lower_fused_conv(ctx, ops):
 
     # map the epilogue members onto kernel stages + aux operands
     stages, aux, kinds = [], [], []
-    train_bn = None
+    train_bn = pre_bias = None
     cur = conv.outputs['Output'][0]
     for op in ops[1:]:
         if op.type not in BINS and op.inputs.get('X', [None])[0] != cur:
@@ -742,14 +742,23 @@ def _lower_fused_conv(ctx, ops):
                 return 'bn-layout'
             if not op.attrs.get('is_test', False):
                 # batch moments need the whole conv output, so the batch
-                # norm sits directly on the conv: the kernel's stats form
-                # gives the moments, and the normalisation and every
-                # later stage run on its output here
-                if train_bn is not None or op is not ops[1]:
+                # norm sits directly on the conv, or behind the conv's
+                # per-channel bias (layers.conv2d's bias add, VGG's
+                # regions), which shifts the batch mean and nothing
+                # else: the kernel's stats form gives the conv's
+                # moments, and the normalisation and every later stage
+                # run on its output here
+                behind_bias = stages == [('bin', 'elementwise_add', 0,
+                                          False)] and kinds == ['c']
+                if train_bn is not None or not (op is ops[1] or
+                                                behind_bias):
                     return 'train-bn-order'
                 if not amp and x.dtype != torch.float32:
                     return 'train-bn-dtype'
                 train_bn = op
+                if behind_bias:
+                    pre_bias = aux[0].reshape(-1)
+                    stages, aux, kinds = [], [], []
                 cur = op.outputs['Y'][0]
                 continue
             aux += list(_folded_bn(ctx, op, cout))
@@ -822,12 +831,12 @@ def _lower_fused_conv(ctx, ops):
         ctx.set_output('Out', y.permute(0, 3, 1, 2))
         return None
     _train_bn_region(ctx, train_bn, x_nhwc, w_k, aux, kinds, stages,
-                     strides, pads, depthwise, cdt)
+                     strides, pads, depthwise, cdt, pre_bias)
     return None
 
 
 def _train_bn_region(ctx, bn, x_nhwc, w_k, aux, kinds, stages, strides,
-                     pads, depthwise, cdt):
+                     pads, depthwise, cdt, pre_bias=None):
     """A region whose batch norm is in train mode (JAX passes.py:748-793):
     the stats form gives the conv output and its per-channel sum and sum
     of squares; the batch moments are E[y] and max(E[y^2] - E[y]^2, 0) in
@@ -835,7 +844,11 @@ def _train_bn_region(ctx, bn, x_nhwc, w_k, aux, kinds, stages, strides,
     batch norm's Scale and Bias in f32, the later stages follow, and one
     cast to the region's dtype. The moving averages (MeanOut,
     VarianceOut, no gradient) and the batch moments (SavedMean,
-    SavedVariance) go to the op's Stats outputs."""
+    SavedVariance) go to the op's Stats outputs. ``pre_bias`` [C], the
+    conv's bias where it sits between the conv and the batch norm, moves
+    the batch mean by itself and leaves the variance and the normalised
+    output as they are, so it enters the mean's outputs only (and its
+    gradient through the normalisation is zero)."""
     y, psum, psumsq = _FUSED_CONV[0](x_nhwc, w_k, (), (), (), strides, pads,
                                      depthwise, emit_stats=True)
     count = float(y.shape[0] * y.shape[1] * y.shape[2])
@@ -851,6 +864,8 @@ def _train_bn_region(ctx, bn, x_nhwc, w_k, aux, kinds, stages, strides,
     for st in stages:
         yn = ck.apply_stage(yn, st, fetch_aux)
     ctx.set_output('Out', yn.to(cdt).permute(0, 3, 1, 2))
+    if pre_bias is not None:
+        bmean = bmean + pre_bias
     ctx.set_output('Stats', (mean * momentum + bmean * (1.0 - momentum))
                    .detach(), 0)
     ctx.set_output('Stats', (var * momentum + bvar * (1.0 - momentum))

@@ -17,17 +17,28 @@ under its tuning entry's knobs (``compiler.tuning.apply_entry``). The
 memo is guarded by a lock (the serving runtime's worker threads share
 one Executor) and counted (``cache_info``).
 
+The static analysis runs as in the JAX Executor: every run checks the
+RAW feed against the declared variables
+(``analysis.check_feeds_for_executor``: a rank or dtype-kind mismatch
+raises ``FeedInvalid`` naming the slot, before the feed is cast), and a
+memo miss verifies the program (``analysis.verify_for_executor``: a
+mis-wired program raises ``ProgramInvalid`` naming the op) before the
+prune, the passes and the lowering. Both are memoized per program
+fingerprint, so a steady-state hit pays one lookup of the feed's
+signature; ``PTPU_VERIFY=0`` or ``analysis.set_enabled(False)`` turns
+them off.
+
 Telemetry, with the JAX Executor's names: the registry series
 ``executor_cache_{hits,misses}_total``, ``executor_cache_hit_rate``,
 ``executor_run_seconds`` and ``executor_compile_seconds`` (here the
-prune, passes and lowering of a memo miss); the journal events
+verify, prune, passes and lowering of a memo miss); the journal events
 ``compile_begin`` / ``compile_end`` and ``exe_run``; and, under an
 active parent span (a serving batch), the spans ``exe/run`` with its
-children ``exe/compile``, ``exe/dispatch`` and ``exe/fetch``. Spans
-measure host time: on the card ``exe/dispatch`` ends when the kernels
-are enqueued, and the wait for the device falls in ``exe/fetch`` (the
-copy to the host). Left out: the static analysis, the partitioner and
-the performance observatory.
+children ``exe/verify`` and ``exe/compile`` (a miss), ``exe/dispatch``
+and ``exe/fetch``. Spans measure host time: on the card
+``exe/dispatch`` ends when the kernels are enqueued, and the wait for
+the device falls in ``exe/fetch`` (the copy to the host). Left out: the
+partitioner and the performance observatory.
 """
 import collections
 import contextlib
@@ -37,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from . import analysis as _analysis
 from . import compiler as _compiler
 from . import observability as _obs
 from .framework import Program, Variable, default_main_program
@@ -269,13 +281,15 @@ class Executor(object):
                     persist_outs.append(n)
         return program.prune(list(fetch_names) + persist_outs)
 
-    def _lowered(self, program, fp, feed, fetch_names, scope):
+    def _lowered(self, program, fp, feed, fetch_names, scope, tspan):
         """``(fn, state_in, missed)``: the runnable block for (program
         version, feeds, fetches, state names, device, the compiler's
         token), memoized on the program so steady-state requests skip
-        the prune, the passes and the graph rewrite. On a miss the
-        tuning entry for (program, feed shapes, device) is looked up and
-        the lowered function runs under its knobs."""
+        the verify, the prune, the passes and the graph rewrite. On a
+        miss the program is verified first (``ProgramInvalid`` before
+        any lowering), then the tuning entry for (program, feed shapes,
+        device) is looked up and the lowered function runs under its
+        knobs."""
         state_in, state_out = self._state_names(program, scope)
         feed_names = sorted(feed)
         feed_sig = feed_signature(feed)
@@ -289,9 +303,16 @@ class Executor(object):
                 self._cache_hits += 1
                 return hit + (False,)
             self._cache_misses += 1
-        # the prune, the passes and the lowering run outside the lock, so
-        # one program's cold lowering never stalls another's hits; two
-        # threads that miss on one key both lower, the first insert wins
+        # the verify, the prune, the passes and the lowering run outside
+        # the lock, so one program's cold lowering never stalls another's
+        # hits; two threads that miss on one key both lower, the first
+        # insert wins
+        t_verify = time.perf_counter()
+        _analysis.verify_for_executor(program, feed_names=feed_names,
+                                      fetch_names=fetch_names)
+        if tspan is not None:
+            _obs.emit_span('exe/verify', time.perf_counter() - t_verify,
+                           parent=tspan)
         _obs.emit('compile_begin', fp=fp)
         pruned = self._maybe_prune(program, fetch_names)
         if token != ('off',):
@@ -318,6 +339,9 @@ class Executor(object):
         if not isinstance(program, Program):
             raise TypeError("Executor requires Program as its Parameter. But "
                             "you passed in %s" % type(program))
+        # the RAW feed: _prepare_feed casts to the declared dtype, which
+        # would hide the mismatches the check names
+        _analysis.check_feeds_for_executor(program, feed)
         feed = self._prepare_feed(program, feed or {})
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
@@ -349,7 +373,7 @@ class Executor(object):
              tspan):
         t_lookup = time.perf_counter()
         fn, state_in, missed = self._lowered(program, fp, feed,
-                                             fetch_names, scope)
+                                             fetch_names, scope, tspan)
         (self._m_misses if missed else self._m_hits).inc()
         if missed:
             compile_wall = time.perf_counter() - t_lookup

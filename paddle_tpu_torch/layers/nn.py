@@ -12,7 +12,7 @@ from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
-           'softmax', 'cross_entropy', 'softmax_with_cross_entropy', 'split',
+           'dropout', 'softmax', 'cross_entropy', 'softmax_with_cross_entropy', 'split',
            'reshape',
            'flash_attention', 'reduce_sum', 'sequence_pool',
            'sequence_first_step', 'sequence_last_step', 'sequence_softmax',
@@ -232,6 +232,21 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-05,
         attrs={"momentum": momentum, "epsilon": epsilon,
                "is_test": is_test, "data_layout": data_layout})
     return helper.append_activation(batch_norm_out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    """dropout op: x * mask in training (no rescale), x * (1 - p) at
+    test; its ``Mask`` output is a tmp variable that nothing reads."""
+    helper = LayerHelper('dropout', name=name)
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape,
+                                     lod_level=x.lod_level)
+    mask = helper.create_tmp_variable(dtype=x.dtype, stop_gradient=True)
+    helper.append_op(type='dropout', inputs={'X': [x]},
+                     outputs={'Out': [out], 'Mask': [mask]},
+                     attrs={'dropout_prob': dropout_prob,
+                            'is_test': is_test,
+                            'seed': seed if seed is not None else 0})
+    return out
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

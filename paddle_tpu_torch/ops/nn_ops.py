@@ -1,9 +1,9 @@
 """Neural-net kernels.
 
 Counterpart of paddle_tpu/ops/nn_ops.py, trimmed to the port's slices:
-conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm, softmax,
-cross_entropy, softmax_with_cross_entropy; softmax and cross_entropy take
-SequenceTensors. The JAX package computes conv, pool and
+conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm, dropout,
+softmax, cross_entropy, softmax_with_cross_entropy; softmax and
+cross_entropy take SequenceTensors. The JAX package computes conv, pool and
 batch norm in XLA, outside any Pallas kernel; here PyTorch's own
 operators compute them. A conv region that ``conv_epilogue_fuse``
 absorbed runs on the fused kernel instead (compiler/passes.py), and
@@ -154,6 +154,28 @@ def _layer_norm(ctx):
     ctx.set_output('Y', y.to(x_in.dtype))
     ctx.set_output('Mean', mean.reshape(-1))
     ctx.set_output('Variance', var.reshape(-1))
+
+
+@register_kernel('dropout')
+def _dropout(ctx):
+    """Old-fluid semantics (operators/dropout_op.cc), as the JAX kernel:
+    train ``out = x * mask`` with mask ~ Bernoulli(1 - p) and no
+    rescale; test ``out = x * (1 - p)``. The mask is drawn from the
+    scope's generator on x's device, in x's dtype, and is written to the
+    optional ``Mask`` output. Under autograd the mask is a constant, so
+    the gradient is ``dy * mask``."""
+    x = ctx.input('X')
+    xd = unwrap(x)
+    p = ctx.attr('dropout_prob', 0.5)
+    if ctx.attr('is_test', False):
+        ctx.set_output('Out', rewrap(x, xd * (1.0 - p)))
+        return
+    keep = torch.rand(xd.shape, generator=ctx.generator(),
+                      device=xd.device) < (1.0 - p)
+    mask = keep.to(xd.dtype)
+    ctx.set_output('Out', rewrap(x, xd * mask))
+    if ctx.output_names('Mask'):
+        ctx.set_output('Mask', mask)
 
 
 @register_kernel('softmax')

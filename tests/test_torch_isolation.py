@@ -1,6 +1,7 @@
 """paddle_tpu_torch stands alone: it imports neither JAX nor paddle_tpu
 (not in its sources, and not while it serves the transformer or ResNet
-through its compiler and its serving runtime), and its entry points
+through its compiler and its serving runtime, or verifies, sanitizes
+and trains mnist through its static analysis), and its entry points
 default to the card."""
 import ast
 import os
@@ -85,6 +86,29 @@ with pt.serving.ModelServer(pt.CPUPlace(), max_batch_size=4) as server:
     served, = server.infer('resnet', {'img': np.ones((3, 3, 32, 32),
                                                      'float32')})
 assert served.shape == (3, 10) and np.allclose(served[0], out[0], atol=1e-5)
+import paddle_tpu_torch.analysis as A
+from paddle_tpu_torch.compiler.pass_base import PassPipeline
+from paddle_tpu_torch.models import benchmark as bm
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    loss, pred = bm.mnist()
+    bm.train(loss)
+diags = A.verify_program(main, feeds=('data', 'label'),
+                         fetch_names=(loss.name,))
+assert not [d for d in diags if d.is_error], diags
+PassPipeline(pt.compiler.default_pipeline().passes, verify=True).run(
+    main, protected=(loss.name,))
+exe.run(startup, scope=scope)
+feed = {'data': np.ones((2, 1, 28, 28), 'float32'),
+        'label': np.ones((2, 1), 'int64')}
+out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+assert np.isfinite(out).all()
+try:
+    exe.run(main, feed=dict(feed, label=feed['label'].astype('float32')),
+            fetch_list=[loss], scope=scope)
+    raise SystemExit('a float label was not refused')
+except A.FeedInvalid:
+    pass
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))

@@ -588,17 +588,82 @@ def test_serving_events_and_series_match_paddle_tpu(tmp_path, mlp_dir):
                 r['name'] for r in records if r['ev'] == 'span_end' and
                 r['name'].startswith(('serving/', 'exe/run', 'exe/fetch',
                                       'exe/dispatch'))),
+            # one verify a memo miss (the port lowers once per program,
+            # the JAX package once per shape)
+            misses=collections.Counter(
+                r['name'] for r in records if r['ev'] == 'span_end' and
+                r['name'] in ('exe/verify', 'exe/compile')),
             links=sum(r['ev'] == 'span_link' for r in records),
             series={n for n in _registry_delta(reg, before)
                     if n.startswith(('serving_', 'executor_', 'tracing_',
-                                     'compiler_'))})
+                                     'compiler_', 'analysis_'))})
     jax_side, port = seen['jax'], seen['port']
     for a, b in zip(port['outs'], jax_side['outs']):
         np.testing.assert_allclose(a[0], np.asarray(b[0]), atol=1e-5)
     assert port['events'] == jax_side['events']
     assert port['events']['serving_batch'] == 6
     assert port['spans'] == jax_side['spans']
+    for side in (port, jax_side):
+        assert side['misses']['exe/verify'] == \
+            side['misses']['exe/compile'] >= 1
     assert port['links'] == jax_side['links'] == 8
     # the JAX server also times its stages into the profiler's serving
     # spans (serving_span_seconds), which the port does not have yet
     assert port['series'] == jax_side['series'] - {'serving_span_seconds'}
+
+
+def _analysis_drive(pkg, A, pipeline_cls):
+    """One seeded sequence of analysis applications: a verify with
+    warnings, a sanitized pipeline of two passes, a rejected feed."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        x = pkg.layers.data(name='x', shape=[6], dtype='float32')
+        h = pkg.layers.relu(pkg.layers.scale(
+            pkg.layers.fc(input=x, size=4), scale=2.0))
+        out = pkg.layers.sigmoid(h)
+    main.global_block().create_var(name='w', shape=(8, 4),
+                                   dtype='float32').sharding = ('nope',)
+    A.verify_program(main, feeds=('x',), fetch_names=(out.name,),
+                     observe_as='verify')
+    pipeline_cls(['dead_op_elim', 'elementwise_fuse'], verify=True).run(
+        main, protected=(out.name,))
+    with pytest.raises(A.FeedInvalid):
+        A.check_feeds_for_executor(main, {'x': np.zeros((2, 6, 1, 3),
+                                                        'float32')})
+
+
+def test_analysis_events_and_series_match_paddle_tpu(tmp_path):
+    """The analysis layer's telemetry, with paddle_tpu's names: one
+    ``analysis`` journal event per application (verify, each sanitized
+    pass, a rejected feed), field for field but its duration, and the
+    same ``analysis_verify_seconds`` / ``analysis_diagnostics_total``
+    series, moved by the same counts."""
+    import paddle_tpu.analysis as JA
+    from paddle_tpu.compiler.pass_base import PassPipeline as JPipeline
+    import paddle_tpu_torch.analysis as A
+    from paddle_tpu_torch.compiler.pass_base import PassPipeline
+    seen = {}
+    for side, mod_obs, pkg, M, pipe in (
+            ('jax', jobs, fluid, JA, JPipeline),
+            ('port', obs, pt, A, PassPipeline)):
+        reg = mod_obs.default_registry()
+        before = _registry_state(reg)
+        path = str(tmp_path / ('%s.jsonl' % side))
+        with mod_obs.journal(path):
+            _analysis_drive(pkg, M, pipe)
+        after = _registry_state(reg)
+        seen[side] = dict(
+            events=[{k: v for k, v in r.items()
+                     if k not in ('dur_s', 't', 'run')}
+                    for r in mod_obs.read_journal(path)[0]
+                    if r['ev'] == 'analysis'],
+            series={k: after[k] - before.get(k, 0) for k in after
+                    if k[0].startswith('analysis_')
+                    and after[k] != before.get(k, 0)})
+    port, jax_side = seen['port'], seen['jax']
+    assert [e['phase'] for e in port['events']] == \
+        ['verify', 'sanitize', 'sanitize', 'feed']
+    assert port['events'][0]['warnings'] >= 1
+    assert port['events'][-1]['errors'] == 1
+    assert port['events'] == jax_side['events']
+    assert port['series'] == jax_side['series']
