@@ -230,6 +230,35 @@ non-zero) on failure:
    the decisions that differ printed), two wrong stats forms failing;
    each dropout
    mask's kept fraction within 5 sigma of 1 - p;
+13b. the Fluid books (paddle_tpu_torch/models/books.py, the scripts of
+   python/paddle/fluid/tests/book at their widths, f32 with TF32 off):
+   every new op kernel of the slice (cast, squeeze, unsqueeze, transpose,
+   one_hot, gather, top_k, accuracy, increment, expand,
+   fill_constant_batch_size_like, the compare and logical ops, the
+   reductions, the losses, prelu, maxout, matmul) in one program on the
+   card and on the CPU on seeded inputs: the integer, bool and
+   data-movement ops bit for bit, the float math within 1e-5 of its
+   scale, matmul in f32 and in bf16 under AMP (2^-7), and the next
+   seed's inputs failing those limits; then fit_a_line (SGD, batch 20),
+   recognize_digits conv and MLP (Adam, batch 64), image_classification
+   (resnet_cifar10 depth 32, Adam, batch 128, f32 and AMP) and word2vec
+   (SGD, batch 32), each through DataFeeder and its reader
+   (paddle_tpu_torch.batch, reader.shuffle) on its synthetic dataset:
+   steps with the loss finite and falling under a limit a book that
+   learning rates 0 and minus the script's must fail, the accuracy on
+   the card equal to the host's from the probabilities, exact launches
+   (recognize_digits 2 fused_conv a step, ResNet-32 33 stats-form; the
+   regions counted from the program) and no fallback; one f32 step held
+   against the same step on the CPU (loss and probabilities within 1e-4
+   of their scale; the next batch and the parameters before training
+   must fail); the book saved, loaded and served through
+   ModelServer(CUDAPlace(0)) at
+   buckets 1-32, each answer bit for bit against a direct run padded to
+   its bucket, one launch a region a batch; every region of
+   recognize_digits' batch-64 step, of ResNet-32's batch-128 step, of
+   its inference form at batch 128 (f32 and bf16) and of both books'
+   served buckets (a request padded to each bucket the server used, f32)
+   held against its plain version and timed;
 17. machine translation: full width (dict 8000, emb 256, hid 512, with
    peepholes), batch 64 of 24 words a side, a few Momentum steps (ms a
    step; no cell launch);
@@ -251,6 +280,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+_STARTED = time.perf_counter()
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 without
 # tensor cores, HBM3 bandwidth
@@ -3636,20 +3666,31 @@ def _rolled_filters(x, w, aux, kinds, stages, strides, pads, depthwise,
                          depthwise, emit_stats=emit_stats)
 
 
-def _hold_regions(label, context, calls, totals):
+def _hold_regions(label, context, calls, totals, sum_dtypes=('bfloat16',),
+                  dedupe=False):
     """Each recorded region against its plain version per element (the
     stats form: y per element, the moments per channel), twice bit for
     bit, a control that must fail (the inference form: the next output
     channel's filters; the stats form: the slab without its last slot
     where M is not a multiple of it), and kernel, plain
-    version, cuDNN's conv alone and the bound timed. The bf16 regions
-    (the card's default, AMP) add to ``totals['<form> <context>']``:
-    {ms, plain_ms, library_ms, bound_ms, max_abs_err, regions}, one
-    step's or one request's sums."""
+    version, cuDNN's conv alone and the bound timed. The regions of
+    ``sum_dtypes`` (by default bf16, the card's default, AMP) add to
+    ``totals['<form> <context>']`` (with more than one dtype,
+    ``'<form> <context> <dtype>'``): {ms, plain_ms, library_ms,
+    bound_ms, max_abs_err, regions}, one step's or one request's sums.
+    With ``dedupe`` each distinct region is held and timed once and
+    counted as often as it was recorded."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    for x, w, aux, kinds, stages, st, pd, dw, stats in calls:
+    groups = {}
+    for c in calls:
+        key = (tuple(c[0].shape), str(c[0].dtype), tuple(c[1].shape),
+               tuple(tuple(a.shape) for a in c[2]), repr(c[3:])) \
+            if dedupe else len(groups)
+        groups.setdefault(key, [c, 0])[1] += 1
+    for (x, w, aux, kinds, stages, st, pd, dw, stats), count in \
+            groups.values():
         dtype = str(x.dtype).replace('torch.', '')
         N, H, W, cin = x.shape
         cout, k = w.shape[0], w.shape[1]
@@ -3688,28 +3729,30 @@ def _hold_regions(label, context, calls, totals):
         xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
         library_ms = graph_ms(lambda: F.conv2d(xc, wc, stride=st,
                                                padding=pd))
-        print('kernel %s %s region N=%d %dx%d Cin=%d Cout=%d K=%d s=%d p=%d '
-              '%s [%s] %s: max|err| %.3g%s; kernel_ms %.4f plain_ms %.4f '
+        print('kernel %s %s region%s N=%d %dx%d Cin=%d Cout=%d K=%d s=%d '
+              'p=%d %s [%s] %s: max|err| %.3g%s; kernel_ms %.4f plain_ms %.4f '
               'cudnn_ms %.4f bound_ms %.4f (%s)' % (
-                  'fused_conv_stats' if stats else 'fused_conv', label, N, H,
+                  'fused_conv_stats' if stats else 'fused_conv', label,
+                  ' (x%d)' % count if count > 1 else '', N, H,
                   W, cin, cout, k, st[0], pd[0], dtype,
                   ' '.join(s[0] if s[0] != 'act' else s[1] for s in stages),
                   _plan_label(plan), err, '' if stats else
                   ', err/limit %.3g (next channel\'s filters: %.3g), two '
                   'calls bit-identical' % (ratio, control), kernel_ms,
                   plain_ms, library_ms, bound_ms, by), flush=True)
-        if dtype != 'bfloat16':
+        if dtype not in sum_dtypes:
             continue
-        t = totals.setdefault('%s %s' % (
-            'fused_conv_stats' if stats else 'fused_conv', context),
+        t = totals.setdefault('%s %s%s' % (
+            'fused_conv_stats' if stats else 'fused_conv', context,
+            ' ' + dtype if len(sum_dtypes) > 1 else ''),
             dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                  max_abs_err=0.0, regions=0))
-        t['ms'] += kernel_ms
-        t['plain_ms'] += plain_ms
-        t['library_ms'] += library_ms
-        t['bound_ms'] += bound_ms
+        t['ms'] += kernel_ms * count
+        t['plain_ms'] += plain_ms * count
+        t['library_ms'] += library_ms * count
+        t['bound_ms'] += bound_ms * count
         t['max_abs_err'] = max(t['max_abs_err'], err)
-        t['regions'] += 1
+        t['regions'] += count
 
 
 def _bench_train(name, seed, card, precision):
@@ -4001,6 +4044,570 @@ def phase_bench_model(name, seed, card, art_dir):
                   t['plain_ms'], t['library_ms'], t['bound_ms'], card),
               flush=True)
     torch.cuda.empty_cache()
+    return launches, totals
+
+
+# ---- 13b: the Fluid books -----------------------------------------------------------
+BOOK_NAMES = ('fit_a_line', 'recognize_digits_conv', 'recognize_digits_mlp',
+              'image_classification', 'word2vec')
+# training steps a run, each on the next batch of the book's reader; the
+# limit: the mean of the last BOOK_WINDOW losses under BOOK_FALL of the
+# mean of the first BOOK_WINDOW. Two controls must fail it: the same run
+# at learning rate 0 and at minus the script's rate (on an H100 at these
+# steps, PERF.md, Findings: fit_a_line 0.341 against 0.975 and 2.924;
+# recognize_digits conv 0.0073 against 1.028 and 1.204, MLP 0.0035
+# against 1.018 and 3.062; ResNet-32 0.499 (AMP 0.483) against 1.016 and
+# 2.276; word2vec 0.807 against 0.997 and 1.196)
+BOOK_STEPS = {'fit_a_line': 300, 'recognize_digits_conv': 40,
+              'recognize_digits_mlp': 40, 'image_classification': 20,
+              'word2vec': 600}
+BOOK_WINDOW = 10
+BOOK_FALL = {'fit_a_line': 0.6, 'recognize_digits_conv': 0.5,
+             'recognize_digits_mlp': 0.5, 'image_classification': 0.7,
+             'word2vec': 0.9}
+# fused conv regions a step or a served batch: recognize_digits' two
+# 5x5 convs (its batch norm follows a pool, outside any region);
+# ResNet-32's 31 3x3 convs and 2 1x1 projections, each with its batch
+# norm (the stats form in training)
+BOOK_REGIONS = {'recognize_digits_conv': 2, 'image_classification': 33}
+# one f32 step on the card (TF32 off) against the same step of the port
+# on the CPU from the same parameters and feed: max |diff| over max
+# |value| of the loss and of the probabilities (two f32 implementations
+# of the same sums, a few ulps a layer through up to 33 batch norms)
+BOOK_CPU_TOL = 1e-4
+# every new op kernel, card against CPU on seeded inputs: the integer,
+# bool and data-movement ops bit for bit; the float math max |diff| over
+# max |value| at most this (f32, a few ulps); matmul in f32 (TF32 off)
+# and in bf16 under AMP (operands and result rounded to bf16: 2^-7)
+BOOK_OPS_TOL = {'float32': 1e-5, 'bfloat16': 2 ** -7}
+BOOK_SERVE_MAX = 32
+BOOK_REQUESTS = [1, 3, 8, 17, 32]
+BOOK_LABELS = ('y', 'label', 'nextw')        # the feeds a request lacks
+
+
+def _book_program(name, seed, learning_rate=None):
+    """A book at the script's widths with its optimizer (another
+    learning rate if given): (main, startup, Book)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import books
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        book = books.BOOKS[name]()
+        if learning_rate is None:
+            books.train(book)
+        else:
+            type(book.optimizer())(learning_rate=learning_rate).minimize(
+                book.loss)
+    return main, startup, book
+
+
+def _book_batches(book, seed, batch_size=None):
+    """The book's reader on its synthetic dataset, pass after pass, the
+    shuffle seeded."""
+    import random
+    from paddle_tpu_torch.models import books
+    random.seed(seed)
+    reader = books.reader(book, batch_size)
+    while True:
+        for b in reader():
+            yield b
+
+
+def _book_ratio(losses):
+    return float(np.mean(losses[-BOOK_WINDOW:]) /
+                 np.mean(losses[:BOOK_WINDOW]))
+
+
+def _book_train(name, seed, precision='f32', learning_rate=None,
+                record=False):
+    """Train a book on the card through its DataFeeder and reader:
+    BOOK_STEPS steps (launches counted from 0 over them), the accuracy
+    checked on the card each step against the host's from the fetched
+    probabilities; with ``record`` one more step region by region."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    main, startup, book = _book_program(name, seed, learning_rate)
+    exe = pt.Executor()                        # CUDAPlace(0)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    initial = _book_state(scope)
+    feeder = pt.DataFeeder(feed_list=book.feeds, place=pt.CUDAPlace(0),
+                           program=main)
+    batches = _book_batches(book, seed + 1)
+    fetch = [book.loss] + ([book.accuracy, book.prediction]
+                           if book.accuracy is not None else [])
+    label = book.feeds[-1].name
+    amp.set_amp(precision == 'bf16')
+    try:
+        exe.run(main, feed=feeder.feed(next(batches)), fetch_list=fetch,
+                scope=scope)                   # warm-up: not counted
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        passes.reset_fallback_counts()
+        losses, accs = [], []
+        feeding = 0.0
+        t0 = time.perf_counter()
+        for _ in range(BOOK_STEPS[name]):
+            t1 = time.perf_counter()
+            feed = feeder.feed(next(batches))
+            feeding += time.perf_counter() - t1
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            losses.append(float(out[0][0]))
+            if book.accuracy is not None:
+                host = float(np.mean(out[2].argmax(-1) ==
+                                     feed[label].reshape(-1)))
+                check(float(out[1][0]) == host, '%s: accuracy %g on the '
+                      'card, %g from its probabilities' % (
+                          name, float(out[1][0]), host))
+                accs.append(float(out[1][0]))
+        dt = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        variants = {v: c for v, c in ck.FUSED_CONV_VARIANT_LAUNCHES.items()
+                    if c}
+        fallbacks = dict(passes.FALLBACKS)
+        busy = None
+        if learning_rate is None:
+            feed = feeder.feed(next(batches))
+            _, busy_us = profile_run(
+                lambda: exe.run(main, feed=feed, fetch_list=fetch,
+                                scope=scope),
+                'book %s step (%s)' % (name, precision), top=4)
+            busy = busy_us / 1e3
+        calls = []
+        if record:
+            recorder = _RegionRecorder()
+            with passes.conv_for_testing(recorder):
+                exe.run(main, feed=feeder.feed(next(batches)),
+                        fetch_list=[book.loss], scope=scope)
+            calls = recorder.calls
+    finally:
+        amp.set_amp(None)
+    return dict(exe=exe, main=main, scope=scope, book=book, feeder=feeder,
+                batches=batches, initial=initial, losses=losses, accs=accs,
+                launches=launches, variants=variants, fallbacks=fallbacks,
+                calls=calls, ms=1e3 * dt / BOOK_STEPS[name],
+                feed_ms=1e3 * feeding / BOOK_STEPS[name], busy_ms=busy)
+
+
+def _book_state(scope):
+    """A scope's tensors as numpy arrays (its parameters, moving
+    statistics, optimizer accumulators)."""
+    return {n: v.detach().cpu().numpy() for n, v in scope.vars.items()
+            if hasattr(v, 'detach')}
+
+
+def _book_check_run(name, run, precision, card):
+    """A main-path run: finite, falling losses; exact launches, no
+    fallback."""
+    losses, steps = run['losses'], BOOK_STEPS[name]
+    ratio = _book_ratio(losses)
+    bs = run['book'].batch_size
+    print('book %s training: batch %d, %s (AMP %s), %d steps, %.2f ms a '
+          'step (%.2f of it the reader and DataFeeder; one profiled step '
+          'busy on the card %.3f ms), %.1f samples/s (host clock); losses '
+          '%.4f .. %.4f, last %d over first %d: %.4f (limit %g)%s; launches '
+          '%s, the fused conv by variant %s, fallbacks %s; %s' % (
+              name, bs, precision, 'on' if precision == 'bf16' else 'off',
+              steps, run['ms'], run['feed_ms'], run['busy_ms'],
+              1e3 * bs / run['ms'], losses[0], losses[-1],
+              BOOK_WINDOW, BOOK_WINDOW, ratio, BOOK_FALL[name],
+              '; accuracy %.4f .. %.4f (on the card, equal to the host\'s '
+              'from the probabilities every step)' % (
+                  run['accs'][0], run['accs'][-1]) if run['accs'] else '',
+              {n: c for n, c in run['launches'].items() if c},
+              run['variants'], run['fallbacks'], card), flush=True)
+    check(all(np.isfinite(losses)), 'non-finite %s loss' % name)
+    check(ratio < BOOK_FALL[name], '%s (%s) loss did not fall: %.4f of '
+          'the first' % (name, precision, ratio))
+    expect = {n: 0 for n in run['launches']}
+    if name in BOOK_REGIONS:
+        form = 'fused_conv_stats' if name == 'image_classification' \
+            else 'fused_conv'
+        expect[form] = BOOK_REGIONS[name] * steps
+    check(run['launches'] == expect, '%s training launches %s, expected %s'
+          % (name, run['launches'], expect))
+    check(sum(run['variants'].values()) == sum(expect.values()),
+          '%s: the fused conv by variant %s' % (name, run['variants']))
+    check(not run['fallbacks'], '%s fell back: %s' % (name,
+                                                      run['fallbacks']))
+
+
+def _book_controls(name, seed):
+    """The falling-loss limit against the same run at learning rate 0
+    and at minus the script's: both must fail it."""
+    _, _, book = _book_program(name, seed)
+    lr = book.optimizer()._learning_rate
+    for label, rate in (('rate 0', 0.0), ('minus the rate', -lr)):
+        losses = _book_train(name, seed, learning_rate=rate)['losses']
+        ratio = _book_ratio(losses)
+        print('book %s control (%s): last %d over first %d %.4f (limit %g, '
+              'must fail)' % (name, label, BOOK_WINDOW, BOOK_WINDOW, ratio,
+                              BOOK_FALL[name]), flush=True)
+        check(not ratio < BOOK_FALL[name], 'the %s loss limit does not catch '
+              'training at %s' % (name, label))
+
+
+def _book_cpu_hold(name, run):
+    """One f32 step on the card against the same step of the port on the
+    CPU, from the card's parameters and one feed: loss and probabilities
+    within BOOK_CPU_TOL of their scale; controls (the CPU step on the
+    next batch, and from the parameters before training) must fail it."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.core import amp
+    book, main = run['book'], run['main']
+    state = _book_state(run['scope'])
+    feed = run['feeder'].feed(next(run['batches']))
+    other = run['feeder'].feed(next(run['batches']))
+    fetch = [book.loss, book.prediction]
+    amp.set_amp(False)
+    try:
+        card_out = run['exe'].run(main, feed=feed, fetch_list=fetch,
+                                  scope=run['scope'])
+
+        def cpu(f, arrays):
+            scope = pt.Scope()
+            pt_io.params_from_numpy(scope, arrays, pt.CPUPlace())
+            return pt.Executor(pt.CPUPlace()).run(main, feed=f,
+                                                  fetch_list=fetch,
+                                                  scope=scope)
+        readings = {}
+        for what, f, arrays in (
+                ('same step', feed, state), ('next batch', other, state),
+                ('untrained', feed, run['initial'])):
+            readings[what] = [float(np.abs(c - r).max() /
+                                    max(np.abs(r).max(), 1e-30))
+                              for c, r in zip(card_out, cpu(f, arrays))]
+    finally:
+        amp.set_amp(None)
+    print('book %s: one f32 step, card against CPU: loss %.3g, '
+          'probabilities %.3g of their scale (limit %g); controls (loss, '
+          'probabilities): next batch %s, the parameters before training %s'
+          % (name, readings['same step'][0], readings['same step'][1],
+             BOOK_CPU_TOL, ', '.join('%.3g' % r for r in
+                                     readings['next batch']),
+             ', '.join('%.3g' % r for r in readings['untrained'])),
+          flush=True)
+    check(max(readings['same step']) <= BOOK_CPU_TOL, '%s: the card\'s step '
+          'differs from the CPU\'s by %s' % (name, readings['same step']))
+    for what in ('next batch', 'untrained'):
+        check(max(readings[what]) > BOOK_CPU_TOL, 'the %s CPU limit does '
+              'not catch the %s' % (name, what))
+
+
+def _book_serve(name, run, art_dir, record=False):
+    """Save the trained book for inference (its probabilities), load it,
+    serve it through ModelServer(CUDAPlace(0)) at its buckets in f32:
+    each answer bit for bit against a direct run padded to its bucket,
+    one launch a region a batch, no fallback. A book with fused conv
+    regions then has a direct run padded to each bucket the server used
+    recorded region by region (the served shapes, f32). With ``record``,
+    a batch of the training batch's rows is recorded too, in f32 and in
+    bf16 (AMP): the inference form at the training batch. Returns
+    (fused_conv launches, {context: recorded calls})."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving.bucketing import pad_feed
+    book, exe = run['book'], run['exe']
+    names = [v.name for v in book.feeds if v.name not in BOOK_LABELS]
+    d = os.path.join(art_dir, name)
+    pt_io.save_inference_model(d, names, [book.prediction], exe,
+                               main_program=run['main'], scope=run['scope'])
+    load_scope = pt.Scope()
+    prog, feed_names, fetch_vars = pt_io.load_inference_model(
+        d, exe, scope=load_scope)
+    check(feed_names == names, '%s saved feeds %s' % (name, feed_names))
+    rows = max(BOOK_SERVE_MAX, book.batch_size)
+    big = run['feeder'].feed(next(_book_batches(book, 97, rows)))
+    feed = {n: big[n][:BOOK_SERVE_MAX] for n in names}
+    calls = {}
+    if record:
+        for precision in ('f32', 'bf16'):
+            amp.set_amp(precision == 'bf16')
+            try:
+                recorder = _RegionRecorder()
+                with passes.conv_for_testing(recorder):
+                    exe.run(prog, feed={n: big[n][:book.batch_size]
+                                        for n in names},
+                            fetch_list=fetch_vars, scope=load_scope)
+                calls.setdefault('inference b%d' % book.batch_size,
+                                 []).extend(recorder.calls)
+            finally:
+                amp.set_amp(None)
+    amp.set_amp(False)
+    server = pt.serving.ModelServer(pt.CUDAPlace(0),
+                                    max_batch_size=BOOK_SERVE_MAX)
+    try:
+        server.load_model(name, d)
+        server.warmup(name)
+        buckets = [server.policy.bucket_for(r) for r in BOOK_REQUESTS]
+        refs = [exe.run(prog, feed=pad_feed(
+            {n: a[:r] for n, a in feed.items()}, r, b,
+            server.policy.pad_mode), fetch_list=fetch_vars,
+            scope=load_scope)[0][:r] for r, b in zip(BOOK_REQUESTS, buckets)]
+        ck.reset_launch_counts()
+        passes.reset_fallback_counts()
+        times = []
+        for r, b, ref in zip(BOOK_REQUESTS, buckets, refs):
+            t0 = time.perf_counter()
+            got, = server.infer(name, {n: a[:r] for n, a in feed.items()})
+            times.append(time.perf_counter() - t0)
+            check(got.shape == ref.shape and np.array_equal(got, ref),
+                  '%s served %d rows (bucket %d) off a direct run padded to '
+                  'the bucket' % (name, r, b))
+            check(np.isfinite(got).all() and np.allclose(
+                got.sum(-1), 1.0, atol=1e-4) if name != 'fit_a_line'
+                else np.isfinite(got).all(), '%s answers' % name)
+        launches = dict(ck.LAUNCHES)
+        fallbacks = dict(passes.FALLBACKS)
+        if name in BOOK_REGIONS:
+            # the served shapes: one request padded to each bucket used
+            for b in sorted(set(buckets)):
+                r = BOOK_REQUESTS[buckets.index(b)]
+                recorder = _RegionRecorder()
+                with passes.conv_for_testing(recorder):
+                    exe.run(prog, feed=pad_feed(
+                        {n: a[:r] for n, a in feed.items()}, r, b,
+                        server.policy.pad_mode), fetch_list=fetch_vars,
+                        scope=load_scope)
+                check(len(recorder.calls) == BOOK_REGIONS[name],
+                      '%s recorded %d regions at bucket %d' % (
+                          name, len(recorder.calls), b))
+                calls['serving b%d' % b] = recorder.calls
+    finally:
+        server.close()
+        amp.set_amp(None)
+    served = launches['fused_conv']
+    print('book %s serving: ModelServer(CUDAPlace(0)), f32, requests of %s '
+          'rows (buckets %s): %s ms (host clock), every answer bit-equal '
+          'to a direct run padded to its bucket; launches %s, fallbacks %s'
+          % (name, BOOK_REQUESTS, buckets, ', '.join(
+              '%.2f' % (1e3 * t) for t in times),
+              {n: c for n, c in launches.items() if c}, fallbacks),
+          flush=True)
+    expect = {n: 0 for n in launches}
+    expect['fused_conv'] = BOOK_REGIONS.get(name, 0) * len(BOOK_REQUESTS)
+    check(launches == expect, '%s served with launches %s, expected %s'
+          % (name, launches, expect))
+    check(not fallbacks, '%s serving fell back: %s' % (name, fallbacks))
+    return served, calls
+
+
+def _book_ops_program(seed):
+    """One program of the slice's new op kernels on seeded inputs:
+    (main, startup, feed, exact fetch names, float fetch names, matmul
+    fetch names, the names of few levels, which the next seed may
+    repeat)."""
+    import paddle_tpu_torch as pt
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = L.data(name='x', shape=[6, 8], dtype='float32')
+        y = L.data(name='y', shape=[6, 8], dtype='float32')
+        lab = L.data(name='lab', shape=[1], dtype='int64')
+        idx = L.data(name='idx', shape=[7], dtype='int64',
+                     append_batch_size=False)
+        w = L.data(name='w', shape=[8, 16], dtype='float32',
+                   append_batch_size=False)
+        flat = L.reshape(x, [-1, 48])
+        probs = L.sigmoid(x)
+        acc = L.accuracy(input=flat, label=lab, k=3)
+        acc_op = acc.block.ops[-1]
+        correct, total = [acc.block.var(acc_op.output(s)[0])
+                          for s in ('Correct', 'Total')]
+        filled = L.fill_constant_batch_size_like(x, shape=[-1, 5],
+                                                 dtype='float32', value=2.5)
+        lab01 = L.floor(L.scale(probs, scale=2.0))
+        values, indices = L.topk(flat, k=5)
+        exact = [L.cast(L.scale(x, scale=3.0), 'int32'),
+                 L.cast(L.scale(x, scale=3.0), 'int64'), L.cast(x, 'bool'),
+                 L.squeeze(L.unsqueeze(x, axes=[1, 3]), axes=[1]),
+                 L.transpose(x, perm=[2, 0, 1]),
+                 L.one_hot(lab, depth=40), L.gather(flat, idx), values,
+                 indices, acc, correct, total,
+                 L.increment(lab, value=3.0, in_place=False),
+                 L.expand(x, expand_times=[1, 2, 3]), filled,
+                 L.reduce_max(x, dim=1), L.reduce_min(x, dim=[1, 2]),
+            L.less_than(x, y), L.less_equal(x, y), L.greater_than(x, y),
+            L.greater_equal(x, y), L.equal(x, L.floor(x)),
+            L.not_equal(x, y)]
+        a, b = L.less_than(x, y), L.greater_than(x, L.floor(y))
+        exact += [L.logical_and(a, b), L.logical_or(a, b),
+                  L.logical_xor(a, b), L.logical_not(a),
+                  L.maxout(L.reshape(x, [-1, 6, 2, 4]), groups=2)]
+        near = [L.reduce_mean(x, dim=-1), L.reduce_sum(x, dim=[0, 1]),
+                L.reduce_prod(x, dim=2, keep_dim=True), L.reduce_mean(x),
+                L.square_error_cost(input=x, label=y), L.smooth_l1(x, y),
+                L.cos(x), L.sin(x),
+                L.sigmoid_cross_entropy_with_logits(x=x, label=probs),
+                L.hinge_loss(input=x, label=lab01),
+                L.huber_loss(x, y, delta=0.5), L.log_loss(probs, lab01),
+                L.rank_loss(lab01, x, y),
+                L.margin_rank_loss(L.sign(y), x, y, margin=0.1),
+                L.modified_huber_loss(x, lab01),
+                L.squared_l2_distance(flat, L.reshape(y, [-1, 48])),
+                L.squared_l2_norm(x), L.l1_norm(x),
+                L.prelu(L.reshape(x, [-1, 6, 2, 4]), mode='channel')]
+        mm = [L.matmul(x, w), L.matmul(x, y, transpose_y=True),
+              L.matmul(w, w, transpose_x=True, alpha=0.5),
+              L.matmul(L.reshape(x, [-1, 48]), L.reshape(y, [48, -1]))]
+    rng = np.random.RandomState(seed)
+    n = 16
+    # zeros at random places (cast to bool, equal to its floor), labels
+    # and indices past both ends (one_hot's zero rows, gather's NaN rows)
+    feed = {'x': (rng.randn(n, 6, 8) * (rng.rand(n, 6, 8) > 0.2)).astype(
+                'float32'),
+            'y': rng.randn(n, 6, 8).astype('float32'),
+            'lab': rng.randint(-2, 42, (n, 1)).astype('int64'),
+            'idx': rng.randint(-n - 2, n + 2, 7).astype('int64'),
+            'w': rng.randn(8, 16).astype('float32')}
+    tie = rng.rand(n, 6, 8) < 0.3                   # ties for the compares
+    feed['y'][tie] = feed['x'][tie]
+    # fetches of a few levels, which another seed's inputs may repeat
+    coarse = [v.name for v in (acc, correct, total, filled)]
+    return (main, startup, feed, [v.name for v in exact],
+            [v.name for v in near], [v.name for v in mm], coarse)
+
+
+def _book_ops(seed, card):
+    """Every new op kernel on the card against the CPU on seeded inputs,
+    within BOOK_OPS_TOL (bit for bit where exact); the card's fetches
+    against the CPU's on the next seed's inputs must fail, every one that
+    depends on the inputs' values."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import amp
+    main, startup, feed, exact, near, mm, coarse = _book_ops_program(seed)
+    other = _book_ops_program(seed + 1)[2]
+
+    def run(place, f, precision):
+        amp.set_amp(precision == 'bf16')
+        try:
+            exe, scope = pt.Executor(place), pt.Scope()
+            exe.run(startup, scope=scope)
+            names = mm if precision == 'bf16' else exact + near + mm
+            return dict(zip(names, exe.run(main, feed=f, fetch_list=names,
+                                           scope=scope)))
+        finally:
+            amp.set_amp(None)
+
+    def reading(got, ref, n, dtype):
+        g, r = np.asarray(got[n]), np.asarray(ref[n])
+        if g.shape != r.shape:
+            return float('inf')
+        if n in exact:
+            same = np.array_equal(g, r, equal_nan=True) if \
+                g.dtype.kind == 'f' else np.array_equal(g, r)
+            return 0.0 if same else float('inf')
+        return float(np.abs(g.astype('float64') - r).max() /
+                     max(np.abs(r).max(), 1e-30))
+
+    worst = {}
+    for precision in ('f32', 'bf16'):
+        dtype = 'bfloat16' if precision == 'bf16' else 'float32'
+        card_out = run(pt.CUDAPlace(0), feed, precision)
+        cpu_out = run(pt.CPUPlace(), feed, precision)
+        ctl_out = run(pt.CPUPlace(), other, precision)
+        for n in card_out:
+            r = reading(card_out, cpu_out, n, dtype)
+            c = reading(card_out, ctl_out, n, dtype)
+            kind = 'exact' if n in exact else 'matmul %s' % precision \
+                if n in mm else 'float'
+            worst[kind] = max(worst.get(kind, 0.0), r)
+            limit = 0.0 if n in exact else BOOK_OPS_TOL[dtype]
+            check(r <= limit, 'op %s on the card: %g from the CPU (limit %g, '
+                  '%s)' % (n, r, limit, precision))
+            check(n in coarse or c > limit, 'op %s: the next seed\'s '
+                  'inputs read %g, inside the limit' % (n, c))
+    print('book ops: %d fetches of the new op kernels (%d exact, %d float, '
+          '%d matmul), card against CPU on seeded inputs: worst %s (limits: '
+          'exact, %g f32, %g bf16 matmul under AMP); the next seed\'s inputs '
+          'fail every fetch but %d of few levels; %s' % (
+              len(exact) + len(near) + len(mm), len(exact), len(near),
+              len(mm), ', '.join('%s %.3g' % kv for kv in
+                                 sorted(worst.items())),
+              BOOK_OPS_TOL['float32'], BOOK_OPS_TOL['bfloat16'], len(coarse),
+              card),
+          flush=True)
+
+
+def _count_regions(name, seed):
+    """The fused conv regions of a book's training program after the
+    default passes, counted from the program."""
+    import paddle_tpu_torch as pt
+    main, _, book = _book_program(name, seed)
+    opt, _ = pt.compiler.optimize(main, fetch_names=[book.loss.name])
+    return sum(op.type == 'fused_conv' for op in opt.global_block().ops)
+
+
+def phase_books(seed, card, art_dir):
+    """13b. The Fluid books at the scripts' widths, f32 (and ResNet-32
+    under AMP as well): trained through DataFeeder and the readers on
+    their synthetic datasets with falling losses (two controls fail the
+    limit), accuracy on the card, one step held against the CPU, saved,
+    loaded and served bit-equal to direct runs padded to their buckets,
+    each served bucket's regions held against their plain versions,
+    exact launches; every new op kernel on the card against the CPU.
+    Returns the main paths' launches {'fused_conv': recognize_digits'
+    training and both books' serving, 'fused_conv_stats': ResNet-32's
+    training} and the regions' totals (f32 and bf16)."""
+    import tempfile
+    import torch
+    import paddle_tpu_torch as pt
+    t_phase = time.perf_counter()
+    # the datasets read nothing outside the checkout: their synthetic
+    # fallbacks, made from constant seeds
+    os.environ['PADDLE_TPU_TORCH_DATA_HOME'] = tempfile.mkdtemp(dir=art_dir)
+    _book_ops(seed, card)
+    launches = {'fused_conv': 0, 'fused_conv_stats': 0}
+    totals = {}
+    for name in BOOK_NAMES:
+        if name in BOOK_REGIONS:
+            n = _count_regions(name, seed)
+            print('book %s: %d fused conv regions in its training program '
+                  'after the default passes' % (name, n), flush=True)
+            check(n == BOOK_REGIONS[name], '%s has %d regions' % (name, n))
+        precisions = ('f32', 'bf16') if name == 'image_classification' \
+            else ('f32',)
+        for precision in precisions:
+            run = _book_train(name, seed, precision,
+                              record=name in BOOK_REGIONS)
+            _book_check_run(name, run, precision, card)
+            for n in launches:
+                launches[n] += run['launches'][n]
+            if run['calls']:
+                _hold_regions('book %s training' % name, '%s training'
+                              % name, run['calls'], totals,
+                              sum_dtypes=('float32', 'bfloat16'),
+                              dedupe=True)
+            if precision == 'f32':
+                _book_controls(name, seed)
+                _book_cpu_hold(name, run)
+                served, calls = _book_serve(
+                    name, run, art_dir, record=name == 'image_classification')
+                launches['fused_conv'] += served
+                for context, c in sorted(calls.items()):
+                    _hold_regions('book %s %s' % (name, context), '%s %s'
+                                  % (name, context), c, totals,
+                                  sum_dtypes=('float32', 'bfloat16')
+                                  if context.startswith('inference')
+                                  else ('float32',), dedupe=True)
+            del run
+        torch.cuda.empty_cache()
+    check(pt.dataset.is_synthetic(), 'a dataset read a real file')
+    for key, t in sorted(totals.items()):
+        print('book regions, %s: %d regions, summed kernel %.4f ms, plain '
+              '%.4f ms, cuDNN conv alone %.4f ms, bound %.4f ms; %s' % (
+                  key, t['regions'], t['ms'], t['plain_ms'],
+                  t['library_ms'], t['bound_ms'], card), flush=True)
+    print('phase 13b: %.1f s' % (time.perf_counter() - t_phase), flush=True)
     return launches, totals
 
 
@@ -5067,6 +5674,8 @@ def run_phases(args, card, root):
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
         bench = {name: phase_bench_model(name, args.seed, card, d)
                  for name in ('mnist', 'vgg')}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        book_launches, book_totals = phase_books(args.seed, card, d)
     lstm = phase_lstm_kernels(args.seed)
     lstm_trained = phase_lstm_training(args.seed, card)
     phase_lstm_serving(args.seed, lstm_trained, card)
@@ -5112,30 +5721,39 @@ def run_phases(args, card, root):
     # the fused conv: its numbers summed over one batch-32 request's 53
     # regions (bf16, as the served model runs them); launches also over
     # mnist's timed training steps and both models' served batches, and
-    # their regions' sums beside
+    # over recognize_digits' training steps and both conv books' served
+    # batches (13b); their regions' sums beside
     def bench_totals(form):
         return {'%s %s' % (name, key.split()[1]): t
                 for name, (_, totals) in sorted(bench.items())
                 for key, t in sorted(totals.items())
                 if key.split()[0] == form}
+    def book_regions(form):
+        return {key.split(' ', 1)[1]: t for key, t in
+                sorted(book_totals.items()) if key.split()[0] == form}
     kernels.append(dict(
         name='fused_conv', route='cuda',
         source='paddle_tpu_torch/csrc/fused_conv.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_launches['fused_conv'] +
         runtime_launches['fused_conv'] + tuned_launches['fused_conv'] +
-        sum(b['fused_conv'] for b, _ in bench.values()),
-        bench_regions=bench_totals('fused_conv'), **conv))
-    # its stats form: launches over the timed ResNet-50 and VGG-16
-    # training steps, numbers summed over one batch-128 ResNet-50 step's
-    # 53 regions (bf16), VGG-16's regions' sums beside
+        sum(b['fused_conv'] for b, _ in bench.values()) +
+        book_launches['fused_conv'],
+        bench_regions=bench_totals('fused_conv'),
+        book_regions=book_regions('fused_conv'), **conv))
+    # its stats form: launches over the timed ResNet-50, VGG-16 and
+    # ResNet-32 (13b, f32 and AMP) training steps, numbers summed over one
+    # batch-128 ResNet-50 step's 53 regions (bf16), VGG-16's and
+    # ResNet-32's regions' sums beside
     kernels.append(dict(
         name='fused_conv_stats', route='cuda',
         source='paddle_tpu_torch/csrc/fused_conv.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_trained['launches']['fused_conv_stats'] +
-        bench['vgg'][0]['fused_conv_stats'],
-        bench_regions=bench_totals('fused_conv_stats'), **stats))
+        bench['vgg'][0]['fused_conv_stats'] +
+        book_launches['fused_conv_stats'],
+        bench_regions=bench_totals('fused_conv_stats'),
+        book_regions=book_regions('fused_conv_stats'), **stats))
     # the LSTM cell: launches over the timed training steps of
     # stacked_dynamic_lstm, numbers at its shape (B 256, H 512, f32), and
     # its bf16 path's at the same shape (no main path launches it)
@@ -5146,6 +5764,8 @@ def run_phases(args, card, root):
         launches=lstm_launches['lstm_cell'],
         bf16=lstm[(LSTM_BATCH, LSTM['hid_dim'], 'bfloat16')],
         **lstm[(LSTM_BATCH, LSTM['hid_dim'], 'float32')]))
+    print('smoke: %.1f s since the process started' % (
+        time.perf_counter() - _STARTED), flush=True)
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -36,6 +36,12 @@ inference) and the serving runtime: ``serving.ModelServer`` (saved
 models, micro-batching, pow-2 buckets, deadlines, a circuit breaker and
 a watchdog) and ``Inferencer``.
 
+The data side of the Fluid books: ``DataFeeder`` (``data_feeder.py``),
+the reader decorators (``reader``, ``batch``) and the books' datasets
+(``dataset``: uci_housing, mnist, cifar, imikolov, on files already in
+place or their deterministic synthetic fallbacks); ``fluid`` is the
+fluid-compatible namespace.
+
 Entry points run on the card unless told otherwise: ``Executor()``,
 ``serving.ModelServer()`` and ``Inferencer(...)`` mean ``CUDAPlace(0)``
 and raise where CUDA is absent; pass ``CPUPlace()`` to run on the CPU.
@@ -56,6 +62,9 @@ from .lod import (SequenceTensor, create_lod_tensor,  # noqa
 from .backward import append_backward  # noqa
 from . import analysis, nets, resilience, serving  # noqa
 from .inferencer import Inferencer  # noqa
+from .data_feeder import DataFeeder  # noqa
+from . import reader, dataset  # noqa
+from .reader import batch  # noqa
 
 # the reference's LoDTensor; SequenceTensor carries its imperative
 # surface (set, set_lod, lod), as in paddle_tpu

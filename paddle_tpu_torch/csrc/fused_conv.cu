@@ -40,7 +40,8 @@
 //     tile's width follows Cout and the number of M tiles, and where the
 //     tiles fall short of a wave K is split across blocks whose partials
 //     are added in a fixed order (one turn after another on a counter per
-//     output tile), so two calls give the same bits;
+//     output tile), so two calls give the same bits; such a grid is
+//     launched cooperatively, so all its blocks run at once;
 //   * stem (bf16, Cin % 8 != 0: the 7x7 stride-2 conv of a 3-channel
 //     image): the input rows under a tile staged in shared memory with
 //     16-byte loads, the whole K (147, padded to 160) in one tile, mma.sync;
@@ -1415,8 +1416,23 @@ cudaError_t launch_wgmma_bn(const WgConvParams& p, cudaStream_t st) {
   if (units > 0x7fffffffL) return cudaErrorInvalidValue;
   // persistent with the fast epilogue: one block an SM
   const long blocks = p.fast ? std::min<long>(units, p.a.sms) : units;
-  conv_wgmma_kernel<BN><<<(unsigned)blocks, kWgThreads, smem, st>>>(p);
-  return cudaGetLastError();
+  // split-K: a unit waits for the turns of its tile's lower splits, which
+  // are lower-numbered units, and each block takes its units in rising
+  // order, so the lowest unfinished unit can always go on, provided its
+  // block is running. Such a grid launches cooperatively: the driver
+  // places every block at once (the plan keeps the grid within one block
+  // an SM) or refuses the launch, so no turn waits on a queued block.
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.a.splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, conv_wgmma_kernel<BN>, p);
 }
 
 cudaError_t launch_wgmma(const FusedConvArgs& a, cudaStream_t st) {

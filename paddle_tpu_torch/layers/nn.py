@@ -1,8 +1,9 @@
 """Neural-network layers.
 
 Counterpart of paddle_tpu/layers/nn.py, trimmed to the layers the
-flagship transformer, ResNet and the sequence path (the sequence layers
-and the recurrent layers) use. Same signatures and
+flagship transformer, ResNet, the sequence path (the sequence layers
+and the recurrent layers) and the books use, with the tensor, math and
+loss layers of the op library. Same signatures and
 the same op types, attrs and variable names as paddle_tpu's layers, so
 a program built here matches one built there op for op.
 """
@@ -17,7 +18,13 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'flash_attention', 'reduce_sum', 'sequence_pool',
            'sequence_first_step', 'sequence_last_step', 'sequence_softmax',
            'sequence_expand', 'dynamic_lstm', 'dynamic_lstmp', 'dynamic_gru',
-           'gru_unit', 'lstm_unit']
+           'gru_unit', 'lstm_unit', 'square_error_cost', 'smooth_l1',
+           'one_hot', 'squeeze', 'unsqueeze', 'transpose', 'matmul', 'topk',
+           'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod',
+           'expand', 'gather', 'hinge_loss', 'huber_loss', 'log_loss',
+           'rank_loss', 'margin_rank_loss', 'modified_huber_loss',
+           'squared_l2_distance', 'squared_l2_norm', 'l1_norm', 'prelu',
+           'maxout']
 
 
 def _prod(dims):
@@ -377,25 +384,271 @@ def flash_attention(q, k, v, num_heads=1, causal=True, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    """reduce_sum op; ``dim=None`` reduces every axis to shape (1,)."""
-    helper = LayerHelper('reduce_sum', name=name)
-    if dim is None:
-        shape = (1,)
-    else:
-        dims = [dim] if isinstance(dim, int) else list(dim)
-        dims = [d if d >= 0 else d + len(input.shape) for d in dims]
-        if keep_dim:
-            shape = tuple(1 if i in dims else s
-                          for i, s in enumerate(input.shape))
+def _reduce_layer(op_type):
+    """reduce_* layers; ``dim=None`` reduces every axis to shape (1,)."""
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        if dim is None:
+            shape = (1,)
         else:
-            shape = tuple(s for i, s in enumerate(input.shape)
-                          if i not in dims) or (1,)
-    out = helper.create_tmp_variable(dtype=input.dtype, shape=shape)
-    helper.append_op(
-        type='reduce_sum', inputs={'X': input}, outputs={'Out': out},
-        attrs={'dim': dim if dim is not None else 0, 'keep_dim': keep_dim,
-               'reduce_all': dim is None})
+            dims = [dim] if isinstance(dim, int) else list(dim)
+            dims = [d if d >= 0 else d + len(input.shape) for d in dims]
+            if keep_dim:
+                shape = tuple(1 if i in dims else s
+                              for i, s in enumerate(input.shape))
+            else:
+                shape = tuple(s for i, s in enumerate(input.shape)
+                              if i not in dims) or (1,)
+        out = helper.create_tmp_variable(dtype=input.dtype, shape=shape)
+        helper.append_op(
+            type=op_type, inputs={'X': input}, outputs={'Out': out},
+            attrs={'dim': dim if dim is not None else 0,
+                   'keep_dim': keep_dim, 'reduce_all': dim is None})
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer('reduce_sum')
+reduce_mean = _reduce_layer('reduce_mean')
+reduce_max = _reduce_layer('reduce_max')
+reduce_min = _reduce_layer('reduce_min')
+reduce_prod = _reduce_layer('reduce_prod')
+
+
+# ---- tensor and math layers (kernels in ops/tensor_ops.py, math_ops.py) -------
+def square_error_cost(input, label):
+    helper = LayerHelper('square_error_cost', **{})
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    helper.append_op(type='square_error_cost',
+                     inputs={'X': [input], 'Label': [label]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper('smooth_l1_loss', **{})
+    diff = helper.create_tmp_variable(dtype=x.dtype)
+    loss = helper.create_tmp_variable(dtype=x.dtype,
+                                      shape=(x.shape[0], 1))
+    helper.append_op(type='smooth_l1',
+                     inputs={'X': x, 'Y': y, 'InsideWeight': inside_weight,
+                             'OutsideWeight': outside_weight},
+                     outputs={'Diff': diff, 'Out': loss},
+                     attrs={'sigma': sigma if sigma is not None else 1.0})
+    return loss
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot", **{})
+    shape = tuple(input.shape[:-1]) + (depth,) if (
+        input.shape and input.shape[-1] == 1) else \
+        tuple(input.shape) + (depth,)
+    one_hot_out = helper.create_tmp_variable(dtype='float32', shape=shape)
+    helper.append_op(type="one_hot", inputs={'X': input},
+                     attrs={'depth': depth},
+                     outputs={'Out': one_hot_out})
+    return one_hot_out
+
+
+def squeeze(input, axes=None, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    shape = [s for i, s in enumerate(input.shape)
+             if not (s == 1 and (axes is None or i in axes))]
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=tuple(shape))
+    helper.append_op(type="squeeze", inputs={"X": input},
+                     attrs={"axes": axes or []}, outputs={"Out": out})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    shape = list(input.shape)
+    for a in sorted(axes):
+        shape.insert(a, 1)
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=tuple(shape))
+    helper.append_op(type="unsqueeze", inputs={"X": input},
+                     attrs={"axes": list(axes)}, outputs={"Out": out})
+    return out
+
+
+def transpose(x, perm, name=None):
+    if len(perm) != len(x.shape):
+        raise ValueError("perm length must match input rank")
+    helper = LayerHelper('transpose', name=name)
+    out = helper.create_tmp_variable(
+        x.dtype, shape=tuple(x.shape[p] for p in perm))
+    helper.append_op(type='transpose', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'axis': list(perm)})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper('matmul', name=name)
+    xs = list(x.shape)
+    ys = list(y.shape)
+    if transpose_x and len(xs) >= 2:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y and len(ys) >= 2:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    batch = xs[:-2] if len(xs) > 2 else (ys[:-2] if len(ys) > 2 else [])
+    m = xs[-2] if len(xs) >= 2 else 1
+    n = ys[-1] if len(ys) >= 2 else 1
+    out_shape = tuple(batch) + ((m, n) if (len(xs) >= 2 and len(ys) >= 2)
+                                else (m,) if len(xs) >= 2 else (n,))
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=out_shape)
+    helper.append_op(type='matmul', inputs={'X': x, 'Y': y},
+                     outputs={'Out': out},
+                     attrs={'transpose_X': transpose_x,
+                            'transpose_Y': transpose_y, 'alpha': alpha})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shape = tuple(input.shape[:-1]) + (k,)
+    values = helper.create_tmp_variable(dtype=input.dtype, shape=shape)
+    indices = helper.create_tmp_variable(dtype="int64", shape=shape)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
+
+
+def expand(x, expand_times, name=None):
+    """Tile x along each dim. Parity: paddle/fluid/operators/expand_op.cc."""
+    helper = LayerHelper('expand', **{})
+    shape = tuple(-1 if s < 0 else s * t
+                  for s, t in zip(x.shape, expand_times))
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=shape)
+    helper.append_op(type='expand', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'expand_times': list(expand_times)})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper('gather', **{})
+    out = helper.create_tmp_variable(
+        dtype=input.dtype,
+        shape=(index.shape[0],) + tuple(input.shape[1:]))
+    helper.append_op(type="gather",
+                     inputs={"X": input, "Index": index},
+                     outputs={"Out": out})
+    return out
+
+
+# ---- losses, norms, prelu, maxout (kernels in ops/misc_ops.py) ----------------
+def _simple_loss(op_type, inputs, dtype, shape=None, attrs=None,
+                 extra_outs=()):
+    helper = LayerHelper(op_type, **{})
+    out = helper.create_tmp_variable(dtype=dtype, shape=shape)
+    outputs = {'Out': [out]}
+    for slot in extra_outs:
+        outputs[slot] = [helper.create_tmp_variable(dtype=dtype)]
+    helper.append_op(type=op_type, inputs=inputs, outputs=outputs,
+                     attrs=attrs or {})
+    return out
+
+
+def hinge_loss(input, label):
+    """L = max(0, 1 - input * (2 * label - 1))."""
+    helper = LayerHelper('hinge_loss', **{})
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    helper.append_op(type='hinge_loss',
+                     inputs={'Logits': [input], 'Labels': [label]},
+                     outputs={'Loss': [out]})
+    return out
+
+
+def huber_loss(input, label, delta=1.0):
+    return _simple_loss('huber_loss', {'X': [input], 'Y': [label]},
+                        input.dtype, input.shape, {'delta': float(delta)},
+                        extra_outs=('Residual',))
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper('log_loss', name=name)
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    helper.append_op(type='log_loss',
+                     inputs={'Predicted': [input], 'Labels': [label]},
+                     outputs={'Loss': [out]},
+                     attrs={'epsilon': float(epsilon)})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    """The RankNet pairwise loss."""
+    helper = LayerHelper('rank_loss', name=name)
+    out = helper.create_tmp_variable(dtype=left.dtype, shape=left.shape)
+    helper.append_op(type='rank_loss',
+                     inputs={'Label': [label], 'Left': [left],
+                             'Right': [right]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    """relu(-label * (left - right) + margin)."""
+    helper = LayerHelper('margin_rank_loss', name=name)
+    out = helper.create_tmp_variable(dtype=left.dtype, shape=left.shape)
+    act = helper.create_tmp_variable(dtype=left.dtype)
+    helper.append_op(type='margin_rank_loss',
+                     inputs={'Label': [label], 'X1': [left], 'X2': [right]},
+                     outputs={'Out': [out], 'Activated': [act]},
+                     attrs={'margin': float(margin)})
+    return out
+
+
+def modified_huber_loss(input, label):
+    return _simple_loss('modified_huber_loss',
+                        {'X': [input], 'Y': [label]},
+                        input.dtype, input.shape,
+                        extra_outs=('IntermediateVal',))
+
+
+def squared_l2_distance(x, y):
+    """Rowwise ||x - y||^2, shape [N, 1]."""
+    return _simple_loss('squared_l2_distance', {'X': [x], 'Y': [y]},
+                        x.dtype, (x.shape[0], 1),
+                        extra_outs=('sub_result',))
+
+
+def squared_l2_norm(x):
+    return _simple_loss('squared_l2_norm', {'X': [x]}, x.dtype, (1,))
+
+
+def l1_norm(x):
+    return _simple_loss('l1_norm', {'X': [x]}, x.dtype, (1,))
+
+
+def prelu(x, mode='all', param_attr=None, name=None):
+    """mode 'all': one alpha; 'channel': one a channel (NCHW dim 1). The
+    alpha parameter has the JAX package's layout, [1] or [C]."""
+    helper = LayerHelper('prelu', param_attr=param_attr, name=name)
+    alpha_shape = [x.shape[1]] if mode == 'channel' and len(x.shape) > 1 \
+        else [1]
+    alpha = helper.create_parameter(attr=helper.param_attr,
+                                    shape=alpha_shape, dtype=x.dtype,
+                                    is_bias=False,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape)
+    helper.append_op(type='prelu',
+                     inputs={'X': [x], 'Alpha': [alpha]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def maxout(x, groups, name=None):
+    """NCHW, C_out = C // groups."""
+    helper = LayerHelper('maxout', name=name)
+    n, c, h, w = x.shape
+    out = helper.create_tmp_variable(dtype=x.dtype,
+                                     shape=(n, c // groups, h, w))
+    helper.append_op(type='maxout', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'groups': groups})
     return out
 
 

@@ -13,17 +13,24 @@ __activations__ = [
     'softshrink', 'sqrt', 'abs', 'ceil', 'floor', 'round', 'reciprocal',
     'log', 'square', 'softplus', 'softsign', 'brelu', 'leaky_relu',
     'soft_relu', 'elu', 'relu6', 'pow', 'stanh', 'hard_shrink',
-    'thresholded_relu', 'hard_sigmoid', 'swish',
+    'thresholded_relu', 'hard_sigmoid', 'swish', 'cos', 'sin',
 ]
 
-__all__ = ['mean', 'mul', 'scale', 'elementwise_add', 'elementwise_sub',
+__all__ = ['mean', 'mul', 'scale', 'sigmoid_cross_entropy_with_logits',
+           'elementwise_add', 'elementwise_sub',
            'elementwise_mul', 'elementwise_div', 'elementwise_max',
            'elementwise_min', 'elementwise_pow', 'clip', 'clip_by_norm',
+           'logical_and', 'logical_or', 'logical_xor', 'logical_not',
            'sign'] + __activations__
 
 _BINARY = {'elementwise_add', 'elementwise_div', 'elementwise_sub',
            'elementwise_mul', 'elementwise_max', 'elementwise_min',
-           'elementwise_pow', 'mul'}
+           'elementwise_pow', 'logical_and', 'logical_or', 'logical_xor',
+           'mul'}
+
+_SLOT_MAP = {
+    'sigmoid_cross_entropy_with_logits': ('X', 'Label'),
+}
 
 
 def _gen_layer(op_type):
@@ -32,7 +39,8 @@ def _gen_layer(op_type):
         inputs = {}
         attrs = {}
         arg_vals = list(args)
-        slots = ('X', 'Y') if op_type in _BINARY else ('X',)
+        slots = _SLOT_MAP.get(
+            op_type, ('X', 'Y') if op_type in _BINARY else ('X',))
         for slot in slots:
             lk = slot.lower()
             if lk in kwargs:

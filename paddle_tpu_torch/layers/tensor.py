@@ -1,8 +1,31 @@
 """Tensor layers. Counterpart of paddle_tpu/layers/tensor.py, trimmed to
-``concat``, ``sums`` and ``fill_constant``."""
+``create_parameter``, ``cast``, ``concat``, ``sums``, ``fill_constant``
+and ``fill_constant_batch_size_like``."""
+from ..framework import convert_np_dtype
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
-__all__ = ['concat', 'sums', 'fill_constant']
+__all__ = ['create_parameter', 'cast', 'concat', 'sums', 'fill_constant',
+           'fill_constant_batch_size_like']
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    helper = LayerHelper("create_parameter", name=name)
+    if attr is None:
+        attr = ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
+
+
+def cast(x, dtype):
+    helper = LayerHelper('cast', **{})
+    dtype = convert_np_dtype(dtype)
+    out = helper.create_tmp_variable(dtype=dtype, shape=x.shape,
+                                     lod_level=x.lod_level)
+    helper.append_op(type='cast', inputs={'X': [x]}, outputs={'Out': [out]},
+                     attrs={'in_dtype': x.dtype, 'out_dtype': dtype})
+    return out
 
 
 def concat(input, axis=0, name=None):
@@ -43,5 +66,21 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     helper.append_op(type='fill_constant', outputs={'Out': [out]},
                      attrs={'shape': list(shape), 'dtype': dtype,
                             'value': float(value)})
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like", **{})
+    s = list(shape)
+    s[output_dim_idx] = -1
+    out = helper.create_tmp_variable(dtype=dtype, shape=tuple(s))
+    helper.append_op(type='fill_constant_batch_size_like',
+                     inputs={'Input': input}, outputs={'Out': [out]},
+                     attrs={'shape': list(shape), 'dtype': dtype,
+                            'value': float(value),
+                            'input_dim_idx': input_dim_idx,
+                            'output_dim_idx': output_dim_idx})
     out.stop_gradient = True
     return out

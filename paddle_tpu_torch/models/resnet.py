@@ -1,13 +1,15 @@
-"""ResNet (bottleneck) and SE-ResNeXt written with the port's layers.
+"""ResNet and SE-ResNeXt written with the port's layers.
 
 Copy of paddle_tpu/models/resnet.py's ImageNet ResNet (the reference's
 benchmark/fluid/resnet.py), trimmed to the bottleneck depths 50, 101
-and 152, and its SE-ResNeXt (benchmark/fluid/se_resnext.py). Each builds
-the same program as paddle_tpu's, op for op and name for name.
+and 152, its CIFAR-10 ResNet of basic blocks (book 03,
+image_classification) and its SE-ResNeXt (benchmark/fluid/se_resnext.py).
+Each builds the same program as paddle_tpu's, op for op and name for
+name.
 """
 from .. import layers
 
-__all__ = ['resnet_imagenet', 'se_resnext']
+__all__ = ['resnet_imagenet', 'resnet_cifar10', 'se_resnext']
 
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act='relu',
@@ -25,6 +27,13 @@ def shortcut(input, ch_in, ch_out, stride, is_test=False):
     return input
 
 
+def basicblock(input, ch_in, ch_out, stride, is_test=False):
+    short = shortcut(input, ch_in, ch_out, stride, is_test)
+    conv1 = conv_bn_layer(input, ch_out, 3, stride, 1, is_test=is_test)
+    conv2 = conv_bn_layer(conv1, ch_out, 3, 1, 1, act=None, is_test=is_test)
+    return layers.elementwise_add(x=short, y=conv2, act='relu')
+
+
 def bottleneck(input, ch_in, ch_out, stride, is_test=False):
     short = shortcut(input, ch_in, ch_out * 4, stride, is_test)
     conv1 = conv_bn_layer(input, ch_out, 1, stride, 0, is_test=is_test)
@@ -38,7 +47,9 @@ def layer_warp(block_func, input, ch_in, ch_out, count, stride,
                is_test=False):
     res_out = block_func(input, ch_in, ch_out, stride, is_test)
     for _ in range(1, count):
-        res_out = block_func(res_out, ch_out * 4, ch_out, 1, is_test)
+        res_out = block_func(res_out, ch_out * (4 if block_func is bottleneck
+                                                else 1),
+                             ch_out, 1, is_test)
     return res_out
 
 
@@ -62,6 +73,25 @@ def resnet_imagenet(input, class_dim, depth=50, is_test=False):
     pool2 = layers.pool2d(input=res4, pool_size=7, pool_type='avg',
                           global_pooling=True)
     return layers.fc(input=pool2, size=class_dim, act='softmax')
+
+
+def resnet_cifar10(input, class_dim, depth=32, is_test=False):
+    """The CIFAR-10 ResNet of basic blocks: a 3x3 stem of 16 channels,
+    three stages of (depth - 2) / 6 blocks at 16, 32 and 64 channels
+    (the second and third open at stride 2, with a 1x1 projection), a
+    global average pool and an fc with softmax."""
+    if (depth - 2) % 6:
+        raise ValueError("resnet_cifar10 builds depths 6n + 2, got %r"
+                         % (depth,))
+    n = (depth - 2) // 6
+    conv1 = conv_bn_layer(input, ch_out=16, filter_size=3, stride=1,
+                          padding=1, is_test=is_test)
+    res1 = layer_warp(basicblock, conv1, 16, 16, n, 1, is_test)
+    res2 = layer_warp(basicblock, res1, 16, 32, n, 2, is_test)
+    res3 = layer_warp(basicblock, res2, 32, 64, n, 2, is_test)
+    pool = layers.pool2d(input=res3, pool_size=8, pool_type='avg',
+                         global_pooling=True)
+    return layers.fc(input=pool, size=class_dim, act='softmax')
 
 
 def _squeeze_excitation(input, num_channels, reduction_ratio):

@@ -910,14 +910,18 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
     for i, a in enumerate(aux):
         args.aux[i] = a.data_ptr()
         args.aux_bf16[i] = int(a.dtype == torch.bfloat16)
-    workspace = None
+    workspace = counters = None
     if n_counters:
         # the first split's turn stores its partial, so the workspace needs
-        # no zeroing
+        # no zeroing. Both are held until the launch is queued: a buffer
+        # freed before it (a graph capture's counters are not cached) is
+        # handed to the next allocation, the stats slab, which the kernel
+        # would then write over the counters
         workspace = torch.empty(ws_elems, dtype=torch.float32,
                                 device=x.device)
+        counters = _split_k_counters(x.device, n_counters)
         args.workspace = workspace.data_ptr()
-        args.counters = _split_k_counters(x.device, n_counters).data_ptr()
+        args.counters = counters.data_ptr()
     slab = None
     if emit_stats:
         slots = -(-N * ho * wo // FUSED_CONV_STAT_ROWS)

@@ -6,9 +6,11 @@ elementwise ops with fluid's ``axis`` broadcast and every activation of
 ``activations.py`` (whose functions the plain fused conv applies too),
 ``mul`` (the fc matmul) with ``x_num_col_dims``, ``mean``, ``scale``, and
 the ops that regularizers and gradient clips append: ``sum``, ``sign``,
-``clip_by_norm``, ``reduce_sum``. The elementwise ops, activations,
-``mul``, ``sum``, ``scale`` and ``mean`` take SequenceTensors as the JAX
-kernels do.
+``clip_by_norm``, ``reduce_sum``; and the math of the books and the
+decode path: ``matmul``, the compare and logical ops, ``reduce_mean`` /
+``max`` / ``min`` / ``prod``, ``square_error_cost``, ``smooth_l1``,
+``cos`` and ``sin``. The elementwise ops, activations, ``mul``, ``sum``,
+``scale`` and ``mean`` take SequenceTensors as the JAX kernels do.
 """
 import torch
 
@@ -143,17 +145,112 @@ def _clip_by_norm(ctx):
     ctx.set_output('Out', x * scale)
 
 
-@register_kernel('reduce_sum')
-def _reduce_sum(ctx):
-    x = ctx.input('X')
-    dim = ctx.attr('dim', None)
-    if ctx.attr('reduce_all', False) or dim is None:
-        # the JAX kernel's jnp.sum(axis=None): a 0-d result, or all axes
-        # kept as 1 under keep_dim
-        out = x.sum()
-        if ctx.attr('keep_dim', False):
-            out = out.reshape([1] * x.dim())
-    else:
-        dims = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
-        out = x.sum(dim=dims, keepdim=ctx.attr('keep_dim', False))
+def _reduce(name, fn):
+    """reduce_* over ``dim`` (an int or a list), or over every axis with
+    ``reduce_all`` or no ``dim`` (a 0-d result, or all axes kept as 1
+    under ``keep_dim``), as the JAX kernels' ``fn(x, axis, keepdims)``."""
+    @register_kernel(name)
+    def _k(ctx, fn=fn):
+        x = unwrap(ctx.input('X'))
+        dim = ctx.attr('dim', None)
+        if ctx.attr('reduce_all', False) or dim is None:
+            dims = tuple(range(x.dim()))
+        else:
+            dims = tuple(sorted({d % x.dim() for d in (
+                dim if isinstance(dim, (list, tuple)) else (dim,))}))
+        ctx.set_output('Out', fn(x, dims, ctx.attr('keep_dim', False)))
+
+
+def _reduce_prod(x, dims, keep):
+    # torch.prod reduces one dim at a time; its backward is exact with
+    # zeros in the row, as jnp.prod's
+    for d in reversed(dims):
+        x = torch.prod(x, d, keepdim=keep)
+    return x
+
+
+_reduce('reduce_sum', lambda x, dims, keep: torch.sum(x, dims, keep)
+        if dims else x)
+# jnp.mean of integers is a float32 mean
+_reduce('reduce_mean', lambda x, dims, keep: torch.mean(
+    x if x.is_floating_point() else x.float(), dims, keep) if dims else x)
+# amax / amin split a tie's cotangent equally among the tied elements,
+# as JAX's max and min do (torch.max(dim) gives it to one)
+_reduce('reduce_max', lambda x, dims, keep: torch.amax(x, dims, keep)
+        if dims else x)
+_reduce('reduce_min', lambda x, dims, keep: torch.amin(x, dims, keep)
+        if dims else x)
+_reduce('reduce_prod', _reduce_prod)
+
+
+@register_kernel('matmul')
+def _matmul(ctx):
+    """Parity: paddle_tpu/ops/math_ops.py::_matmul. A 1-D X is a row
+    [1, K] and a 1-D Y a column [K, 1] (kept 2-D in the result, as
+    there); ``transpose_X`` / ``transpose_Y`` swap the last two dims,
+    batch dims broadcast, ``alpha`` scales the product. Under AMP its
+    operands go to the tensor cores in bf16, as ``mul``'s."""
+    x, y = unwrap(ctx.input('X')), unwrap(ctx.input('Y'))
+    if x.dim() == 1:
+        x = x.unsqueeze(0)
+    if y.dim() == 1:
+        y = y.unsqueeze(1)
+    if ctx.attr('transpose_X', False):
+        x = x.transpose(-1, -2)
+    if ctx.attr('transpose_Y', False):
+        y = y.transpose(-1, -2)
+    out = matmul_compute(torch.matmul, x, y)
+    alpha = ctx.attr('alpha', 1.0)
+    if alpha != 1.0:
+        out = out * alpha
     ctx.set_output('Out', out)
+
+
+def _logical(name, fn, unary=False):
+    """A logical or compare op: Out = fn(X) or fn(X, Y)."""
+    @register_kernel(name)
+    def _k(ctx, fn=fn, unary=unary):
+        x = unwrap(ctx.input('X'))
+        ctx.set_output('Out', fn(x) if unary else
+                       fn(x, unwrap(ctx.input('Y'))))
+
+
+_logical('logical_and', torch.logical_and)
+_logical('logical_or', torch.logical_or)
+_logical('logical_xor', torch.logical_xor)
+_logical('logical_not', torch.logical_not, unary=True)
+for _name, _fn in {'less_than': torch.lt, 'less_equal': torch.le,
+                   'greater_than': torch.gt, 'greater_equal': torch.ge,
+                   'equal': torch.eq, 'not_equal': torch.ne}.items():
+    _logical(_name, _fn)
+
+# not in ACTS: the fused conv's epilogue does not take them
+_activation('cos', torch.cos)
+_activation('sin', torch.sin)
+
+
+@register_kernel('square_error_cost')
+def _square_error_cost(ctx):
+    x, y = unwrap(ctx.input('X')), unwrap(ctx.input('Label'))
+    ctx.set_output('Out', torch.square(x - y))
+
+
+@register_kernel('smooth_l1')
+def _smooth_l1(ctx):
+    """Per row, the sum of 0.5 (sigma d)^2 where |d| < 1 / sigma^2, else
+    |d| - 0.5 / sigma^2, d = (X - Y) * InsideWeight, each term times
+    OutsideWeight. Parity: operators/smooth_l1_loss_op.h."""
+    x, y = unwrap(ctx.input('X')), unwrap(ctx.input('Y'))
+    s2 = ctx.attr('sigma', 1.0) ** 2
+    diff = x - y
+    if ctx.has_input('InsideWeight'):
+        diff = diff * unwrap(ctx.input('InsideWeight'))
+    ad = torch.abs(diff)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff,
+                       ad - 0.5 / s2)
+    if ctx.has_input('OutsideWeight'):
+        loss = loss * unwrap(ctx.input('OutsideWeight'))
+    ctx.set_output('Out', loss.reshape(loss.shape[0], -1).sum(
+        -1, keepdim=True))
+    if ctx.output_names('Diff'):
+        ctx.set_output('Diff', diff)

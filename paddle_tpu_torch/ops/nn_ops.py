@@ -2,7 +2,8 @@
 
 Counterpart of paddle_tpu/ops/nn_ops.py, trimmed to the port's slices:
 conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm, dropout,
-softmax, cross_entropy, softmax_with_cross_entropy; softmax and
+softmax, cross_entropy, softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits, accuracy; softmax and
 cross_entropy take SequenceTensors. The JAX package computes conv, pool and
 batch norm in XLA, outside any Pallas kernel; here PyTorch's own
 operators compute them. A conv region that ``conv_epilogue_fuse``
@@ -222,3 +223,31 @@ def _softmax_with_cross_entropy(ctx):
         loss = -torch.gather(logp, -1, idx.unsqueeze(-1))
     ctx.set_output('Softmax', logp.exp())
     ctx.set_output('Loss', loss)
+
+
+@register_kernel('sigmoid_cross_entropy_with_logits')
+def _sigmoid_xent(ctx):
+    """max(x, 0) - x * label + log(1 + exp(-|x|)), in f32."""
+    x = f32(unwrap(ctx.input('X')))
+    label = f32(unwrap(ctx.input('Label')))
+    # torch.maximum splits a tie's cotangent as jnp.maximum does
+    ctx.set_output('Out', torch.maximum(x, torch.zeros_like(x)) -
+                   x * label + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+@register_kernel('accuracy')
+def _accuracy(ctx):
+    """The share of rows whose label is among their top-k Indices (the
+    ``top_k`` op's output). Correct and Total are int64, the IR's
+    dtype (the JAX package's int32)."""
+    idx = unwrap(ctx.input('Indices')).long()
+    label = unwrap(ctx.input('Label')).long()
+    if label.dim() != idx.dim():
+        label = label.unsqueeze(1)
+    correct = (idx == label).any(dim=-1)
+    ctx.set_output('Accuracy', correct.float().mean().reshape(1))
+    if ctx.output_names('Correct'):
+        ctx.set_output('Correct', correct.sum().reshape(1))
+    if ctx.output_names('Total'):
+        ctx.set_output('Total', torch.tensor(
+            [correct.shape[0]], dtype=torch.int64, device=correct.device))

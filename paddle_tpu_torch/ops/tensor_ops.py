@@ -3,7 +3,16 @@
 Counterpart of paddle_tpu/ops/tensor_ops.py, trimmed to the ops of the
 serving slice and its startup program: fill_constant, assign,
 assign_value (the constants the compiler's constant_fold bakes),
-uniform_random, gaussian_random, lookup_table, concat, split, reshape.
+uniform_random, gaussian_random, lookup_table, concat, split, reshape;
+and the tensor ops of the books and the decode path: cast, squeeze,
+unsqueeze, transpose, one_hot, gather, top_k, increment, expand,
+fill_constant_batch_size_like.
+
+Integer widths: the JAX package runs without x64, so its int64 values
+are int32 and its ``top_k`` writes int32 indices. torch indexes with
+int64, so the port keeps int64 where the IR says int64; the two agree
+in value, and the static analysis compares dtypes under the JAX
+package's names (``analysis.infer._canon``).
 """
 import numpy as np
 import torch
@@ -16,6 +25,20 @@ from .common import rewrap, unwrap
 @register_kernel('fill_constant')
 def _fill_constant(ctx):
     shape = [int(s) for s in ctx.attr('shape', [1])]
+    ctx.set_output('Out', torch.full(
+        shape, ctx.attr('value', 0.0),
+        dtype=torch_dtype(ctx.attr('dtype', 'float32')), device=ctx.device))
+
+
+@register_kernel('fill_constant_batch_size_like')
+def _fill_constant_bsl(ctx):
+    """The batch dim comes from the runtime tensor, as in the JAX
+    kernel: a SequenceTensor's padded data [B, T_pad, ...] gives its
+    number of sequences at index 0."""
+    ref = unwrap(ctx.input('Input'))
+    shape = [int(s) for s in ctx.attr('shape')]
+    shape[ctx.attr('output_dim_idx', 0)] = \
+        ref.shape[ctx.attr('input_dim_idx', 0)]
     ctx.set_output('Out', torch.full(
         shape, ctx.attr('value', 0.0),
         dtype=torch_dtype(ctx.attr('dtype', 'float32')), device=ctx.device))
@@ -135,3 +158,109 @@ def _reshape(ctx):
     shape = [x.shape[i] if s == 0 else int(s)
              for i, s in enumerate(ctx.attr('shape'))]
     ctx.set_output('Out', x.reshape(shape))
+
+
+@register_kernel('cast')
+def _cast(ctx):
+    x = ctx.input('X')
+    ctx.set_output('Out', rewrap(x, unwrap(x).to(
+        torch_dtype(ctx.attr('out_dtype')))))
+
+
+@register_kernel('squeeze')
+def _squeeze(ctx):
+    """``axes`` empty squeezes every unit dim; a named axis that is not
+    of size 1 raises, as ``jnp.squeeze`` does (``torch.squeeze`` would
+    keep it silently)."""
+    x = unwrap(ctx.input('X'))
+    axes = ctx.attr('axes', None)
+    if not axes:
+        ctx.set_output('Out', x.reshape([d for d in x.shape if d != 1]))
+        return
+    dims = sorted({a % x.dim() for a in axes})
+    for a in dims:
+        if x.shape[a] != 1:
+            raise ValueError("squeeze: axis %d of shape %s is not 1"
+                             % (a, tuple(x.shape)))
+    ctx.set_output('Out', x.reshape([d for i, d in enumerate(x.shape)
+                                     if i not in dims]))
+
+
+@register_kernel('unsqueeze')
+def _unsqueeze(ctx):
+    out = unwrap(ctx.input('X'))
+    for a in sorted(ctx.attr('axes')):
+        out = out.unsqueeze(a)
+    ctx.set_output('Out', out)
+
+
+@register_kernel('transpose')
+def _transpose(ctx):
+    # a dense result, as the JAX op's, so no kernel downstream sees a
+    # strided view
+    ctx.set_output('Out', unwrap(ctx.input('X')).permute(
+        *ctx.attr('axis')).contiguous())
+
+
+@register_kernel('one_hot')
+def _one_hot(ctx):
+    """From a comparison with ``arange``, as ``jax.nn.one_hot`` builds
+    it: a label outside [0, depth) gives a row of zeros, where
+    ``F.one_hot`` would raise (on the card, a device-side assert)."""
+    x = unwrap(ctx.input('X'))
+    depth = int(ctx.attr('depth'))
+    idx = x.reshape(x.shape[:-1]) if x.dim() and x.shape[-1] == 1 else x
+    ctx.set_output('Out', (idx.unsqueeze(-1) == torch.arange(
+        depth, device=idx.device, dtype=idx.dtype)).to(torch.float32))
+
+
+@register_kernel('gather')
+def _gather(ctx):
+    """Rows of X at the flattened Index, as ``jnp.take(x, idx, 0)``: a
+    negative index counts from the end, and an index out of range gives
+    a filled row (NaN for floats, the dtype's least value for integers)
+    where ``index_select`` would raise. Its backward adds rows with
+    ``index_add_``, which on the card uses atomics: not bit-reproducible
+    where an index repeats."""
+    x = unwrap(ctx.input('X'))
+    idx = unwrap(ctx.input('Index')).reshape(-1).long()
+    n = x.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    out = torch.index_select(x, 0, idx.clamp(0, max(n - 1, 0)))
+    # masked on the device, whatever the indices: no host sync
+    fill = float('nan') if x.is_floating_point() else \
+        torch.iinfo(x.dtype).min
+    ctx.set_output('Out', out.masked_fill(
+        ~valid.reshape((-1,) + (1,) * (x.dim() - 1)), fill))
+
+
+@register_kernel('top_k')
+def _top_k(ctx):
+    """The k largest along the last axis, largest first. Among equal
+    values the lower index comes first, as in ``jax.lax.top_k``: a
+    stable descending sort keeps that order, where ``torch.topk``
+    promises none on the card. Indices are int64 (the IR's dtype)."""
+    x = unwrap(ctx.input('X'))
+    k = int(ctx.attr('k', 1))
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    ctx.set_output('Out', vals[..., :k])
+    ctx.set_output('Indices', idx[..., :k])
+
+
+@register_kernel('increment')
+def _increment(ctx):
+    x = unwrap(ctx.input('X'))
+    ctx.set_output('Out', x + torch.as_tensor(
+        ctx.attr('step', 1.0)).to(device=x.device, dtype=x.dtype))
+
+
+@register_kernel('expand')
+def _expand(ctx):
+    """Tile per dim, as ``jnp.tile``: fewer times than dims repeat the
+    trailing dims. Parity: paddle/fluid/operators/expand_op.h."""
+    x = ctx.input('X')
+    xd = unwrap(x)
+    times = [int(t) for t in ctx.attr('expand_times')]
+    times = [1] * (xd.dim() - len(times)) + times
+    ctx.set_output('Out', rewrap(x, xd.repeat(times)))

@@ -1,11 +1,12 @@
 """The compiler's pass pipeline: paddle_tpu_torch against paddle_tpu, on
 the CPU.
 
-Four programs are built twice, with each package's own layers under
+Five programs are built twice, with each package's own layers under
 fresh unique-name generators: a fit-a-line MLP with an SGD step, an
 elementwise chain with a constant subgraph and a dead branch, a
-conv + batch-norm net, and the flagship transformer (2 layers, d_model
-32, seq 32). Each pass alone, ``DEFAULT_PASSES`` and
+constant subgraph through transpose, cast and one_hot, a conv +
+batch-norm net, and the flagship transformer (2 layers, d_model 32,
+seq 32). Each pass alone, ``DEFAULT_PASSES`` and
 ``INFERENCE_PASSES`` run over each program in both packages; the
 rewritten programs must match op for op (types, slots, argument names,
 attrs, the fused regions' captured ops and the baked constants to 1e-6).
@@ -30,6 +31,7 @@ from paddle_tpu.ops import pallas_kernels as pk
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import executor as pt_executor
 from paddle_tpu_torch import io as pt_io
+from paddle_tpu_torch.analysis.infer import _canon
 from paddle_tpu_torch.compiler import passes as pt_passes
 from paddle_tpu_torch.core.lowering import BlockRunner
 from paddle_tpu_torch.models.fluid_transformer import transformer as \
@@ -96,6 +98,23 @@ def _chain(pkg):
     return out
 
 
+def _fold_tensor_ops(pkg):
+    """A constant subgraph through transpose, cast and one_hot, which
+    constant_fold evaluates with the ops' kernels now that the port has
+    them; the int64 ids it casts are read by a lookup_table, which does
+    not fold, so they are baked (int64 in the port, int32 in the JAX
+    package, which runs int64 as int32)."""
+    L = pkg.layers
+    x = L.data(name='x', shape=[4, 3], dtype='float32')
+    c = L.transpose(L.fill_constant(shape=[3, 4], dtype='float32',
+                                    value=1.5), perm=[1, 0])
+    ids = L.cast(L.fill_constant(shape=[4, 1], dtype='float32', value=2.0),
+                 'int64')
+    k = L.elementwise_mul(c, L.one_hot(ids, depth=3))
+    emb = L.embedding(input=ids, size=[5, 3])
+    return L.elementwise_add(L.elementwise_add(x, k), emb)
+
+
 def _conv_bn(pkg):
     L = pkg.layers
     t = L.data(name='x', shape=[3, 8, 8], dtype='float32')
@@ -135,6 +154,8 @@ PROGRAMS = {
     'mlp': (_mlp, lambda: _dense_feed({'x': (8, 13), 'y': (8, 1)}), True),
     'chain': (_chain, lambda: _dense_feed({'x': (4, 16)}), False),
     'conv_bn': (_conv_bn, lambda: _dense_feed({'x': (2, 3, 8, 8)}), False),
+    'fold_tensor_ops': (_fold_tensor_ops,
+                        lambda: _dense_feed({'x': (2, 4, 3)}), False),
     'flagship': (_flagship, _flagship_feed, False),
 }
 
@@ -235,8 +256,13 @@ def _norm(v):
 
 
 def _descs(program):
+    """Each op's type, slots and attrs; a baked constant's dtype under the
+    analysis' names (the JAX package runs int64 as int32), its values
+    checked apart."""
     return [(op.type, sorted(op.inputs.items()), sorted(op.outputs.items()),
-             sorted((k, _norm(v)) for k, v in op.attrs.items()))
+             sorted((k, _canon(v) if op.type == 'assign_value' and
+                     k == 'dtype' else _norm(v))
+                    for k, v in op.attrs.items()))
             for op in program.global_block().ops]
 
 
@@ -270,7 +296,9 @@ def test_rewritten_program_matches_jax(program, pipeline):
         [(r.pass_name, bool(r.changed), r.ops_removed, r.ops_fused,
           r.ops_folded, r.vars_released) for r in j_res]
     for (jd, jv), (td, tv) in zip(_baked(j_opt), _baked(t_opt)):
-        assert td == jd
+        # the JAX package runs int64 as int32: dtypes under the names the
+        # analysis maps both to, as its verifier compares them
+        assert _canon(td) == _canon(jd)
         np.testing.assert_allclose(tv, jv, atol=1e-6, rtol=1e-6)
     # bn_fold rewrites the scope: the folded weights and biases agree
     for v in t_opt.list_vars():
@@ -451,6 +479,64 @@ def test_a_cold_lowering_does_not_block_a_hit(monkeypatch):
         release.set()
         cold_thread.join(30)
     assert cold_out and exe.cache_info()[:3] == (1, 0, 2)
+
+
+def test_constant_fold_folds_tensor_ops_like_jax():
+    """transpose, cast and one_hot fold in the port as in paddle_tpu: the
+    same ops folded and left, the same baked constants (the cast ids
+    int64 in the port, int32 in paddle_tpu: equal under the analysis'
+    dtype names), and the folded program's output equal to the raw
+    one's."""
+    pair = Pair('fold_tensor_ops')
+    j_opt, j_res, _, t_opt, t_res, _ = _run_both(pair, ('constant_fold',))
+    assert t_res[0].ops_folded == j_res[0].ops_folded == 4
+    assert [op.type for op in t_opt.global_block().ops] == \
+        [op.type for op in j_opt.global_block().ops]
+    assert not {'transpose', 'cast', 'one_hot'} & {
+        op.type for op in t_opt.global_block().ops}
+    t_dtypes = [d for d, _ in _baked(t_opt)]
+    assert [_canon(d) for d in t_dtypes] == \
+        [_canon(d) for d, _ in _baked(j_opt)]
+    assert 'int64' in t_dtypes
+    pt.compiler.set_default_passes(['constant_fold'])
+    (got,), _ = pair.run_port()
+    with pt.compiler.disabled():
+        (raw,), _ = pair.run_port()
+    np.testing.assert_array_equal(got[0], raw[0])
+
+
+def test_constant_fold_keeps_int64_values():
+    """A folded constant keeps the port's own dtype and value: an int64
+    sum past 2**31 is baked as int64 and comes out of the folded program
+    as out of the raw one (the JAX package, which runs int64 as int32,
+    would wrap it)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        L = pt.layers
+        i = L.data(name='i', shape=[1], dtype='int64')
+        big = L.elementwise_add(
+            L.fill_constant(shape=[1], dtype='int64', value=2000000000),
+            L.fill_constant(shape=[1], dtype='int64', value=1000000001))
+        out = L.elementwise_add(i, big)
+    feed = {'i': np.array([[5]], np.int64)}
+
+    def run():
+        got, = pt.Executor(pt.CPUPlace()).run(main, feed=feed,
+                                              fetch_list=[out],
+                                              scope=pt.Scope())
+        return got
+    pt.compiler.set_default_passes(['constant_fold'])
+    folded = run()
+    with pt.compiler.disabled():
+        raw = run()
+    opt, res = pt.compiler.PassPipeline(['constant_fold']).run(
+        main, scope=pt.Scope(), protected=[out.name])
+    assert res[0].ops_folded == 1
+    (dtype, values), = _baked(opt)
+    assert dtype == 'int64' and values.tolist() == [3000000001]
+    assert folded.dtype == raw.dtype == np.int64
+    np.testing.assert_array_equal(folded, raw)
+    np.testing.assert_array_equal(folded, [[3000000006]])
 
 
 def test_folded_constant_is_made_once():

@@ -5,6 +5,8 @@ receives them (``cuda_kernels.fused_conv_im2col`` in the encoded launch
 arguments; the load emulated in torch by ``im2col_load_reference`` and
 held against ``F.unfold``), and the split-K workspace. The kernel itself
 runs only on the card (tests/test_torch_cuda_kernels.py)."""
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -361,6 +363,35 @@ def test_kernel_arguments_carry_the_plan():
     assert 'int im2col_taps[kMaxTaps][2];' in src
     assert 'constexpr int kMaxTaps = %d;' % ck.FUSED_CONV_MAX_TAPS in src
     assert 'static int sms' not in src
+
+
+def test_split_k_buffers_outlive_the_launch(monkeypatch):
+    """The split-K counters and workspace are alive when the launch is
+    queued, as they are where a graph capture makes fresh counters that
+    no cache holds: a buffer freed before the launch would be handed to
+    the stats slab allocated after it, and the kernel would write the
+    moments over the turn counters (a wait that never ends)."""
+    made, seen = [], []
+
+    def counters(device, n):
+        t = torch.zeros(n, dtype=torch.int32)   # not cached, as in capture
+        made.append(weakref.ref(t))
+        return t
+
+    def launch(lib, fn_name, args, device, what):
+        a = ck._FusedConvArgs.from_address(args[0])
+        seen.append((a.splits, made[-1]() is not None and
+                     made[-1]().data_ptr() == a.counters, a.workspace != 0))
+    monkeypatch.setattr(ck, '_on_card', lambda t, what: True)
+    monkeypatch.setattr(ck, '_launch', launch)
+    monkeypatch.setattr(ck, '_sm_count', lambda index: SMS)
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
+    monkeypatch.setattr(ck, '_split_k_counters', counters)
+    x = torch.zeros(32, 4, 4, 256, dtype=torch.bfloat16)
+    w = torch.zeros(512, 3, 3, 256, dtype=torch.bfloat16)
+    ck._fused_conv_launch(x, w, (), (), (), (1, 1), (1, 1), False,
+                          emit_stats=True)
+    assert seen == [(3, True, True)]
 
 
 @pytest.mark.parametrize('N,key', [(1, (7, 7, 512, 512, 3, 1, 1)),

@@ -1,8 +1,9 @@
 """paddle_tpu_torch stands alone: it imports neither JAX nor paddle_tpu
 (not in its sources, and not while it serves the transformer or ResNet
-through its compiler and its serving runtime, or verifies, sanitizes
-and trains mnist through its static analysis), and its entry points
-default to the card."""
+through its compiler and its serving runtime, verifies, sanitizes
+and trains mnist through its static analysis, or takes a fit_a_line
+step through its fluid namespace, readers, dataset and DataFeeder), and
+its entry points default to the card."""
 import ast
 import os
 import subprocess
@@ -109,6 +110,28 @@ try:
     raise SystemExit('a float label was not refused')
 except A.FeedInvalid:
     pass
+import tempfile
+import paddle_tpu_torch.fluid as fluid
+import paddle_tpu_torch.dataset
+import paddle_tpu_torch.reader
+import paddle_tpu_torch.data_feeder
+from paddle_tpu_torch.models import books
+import os
+data_home = tempfile.mkdtemp()
+os.environ['PADDLE_TPU_TORCH_DATA_HOME'] = data_home
+main, startup = fluid.Program(), fluid.Program()
+with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+    book = books.fit_a_line()
+    books.train(book)
+feeder = paddle_tpu_torch.data_feeder.DataFeeder(
+    feed_list=book.feeds, place=fluid.CPUPlace(), program=main)
+batch = next(pt.batch(paddle_tpu_torch.reader.shuffle(
+    paddle_tpu_torch.dataset.uci_housing.train(), buf_size=500), 20)())
+exe.run(startup, scope=scope)
+out, = exe.run(main, feed=feeder.feed(batch), fetch_list=[book.loss],
+               scope=scope)
+assert out.shape == (1,) and np.isfinite(out).all()
+os.rmdir(data_home)                # the synthetic dataset read nothing
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))
