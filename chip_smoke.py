@@ -267,6 +267,7 @@ non-zero) on failure:
 """
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -5268,6 +5269,860 @@ def phase_machine_translation(seed, card):
     return 1e3 * dt / MT_STEPS
 
 
+# ---- phase 14b: control flow, tensor arrays, beam search and book 08 ------------
+CF_TOL = 1e-5              # float math, card against CPU, of its scale
+CF_GRAD_TOL = 1e-4         # the control-flow nets' forward and @GRAD
+CF_LENS = (3, 1, 5, 2)     # the ops' sequences (the next seed's differ)
+MT_BOOK_STEPS = 20         # book 08's timed steps through the DataFeeder
+MT_FIT_STEPS = 20          # its steps on one fixed batch
+# the least fall of book 08's loss over MT_FIT_STEPS steps on one batch at
+# the script's rate: a third of the first reading (1.5e-3, the port on
+# the CPU; the loss starts at ln 30000 = 10.3087); rates 0 and minus the
+# script's read 0 and -2.3e-3 there
+MT_FIT_FALL = 5e-4
+MT_CPU_TOL = 1e-4          # one step, card against CPU, of their scale
+MT_DECODE_REPS = 5         # timed decodes
+# two candidates' scores this close (of their scale) at a beam step
+# make the selection ambiguous: only there may the card's selection
+# part from the CPU's
+MT_DECODE_TIE = 1e-5
+MT_DECODE_SKEW = 1e-3      # the control: the card's scores times 1 + this
+# the trained book's 30000-way softmax is nearly flat: its deciding
+# scores lie as close as 1.6e-6 of their scale (the port on the CPU,
+# random parameters), so the gate excuses ties there; the decode is held
+# once more with the output fc's weight and bias times this, where they
+# lie 1.3e-3 .. 0.29 apart (the same runs) and the gate's controls must
+# fail
+MT_SHARPEN = 1e4
+MT_BIG = dict(batch=32, beam=4)   # the decode timed at this size too
+
+
+def _cf_ops_program(seed):
+    """One forward program of the slice's op kernels on seeded inputs:
+    (main, startup, feed, exact fetch names, float fetch names, the
+    names of few levels, which the next seed may repeat)."""
+    import paddle_tpu_torch as pt
+    L = pt.layers
+    rng = np.random.RandomState(seed)
+    lens = list(rng.permutation(CF_LENS))
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = L.data(name='x', shape=[4], dtype='float32', lod_level=1)
+        ids = L.data(name='ids', shape=[1], dtype='int64', lod_level=1)
+        d = L.data(name='d', shape=[4], dtype='float32')
+        m = L.data(name='m', shape=[1], dtype='bool')
+        img = L.data(name='img', shape=[2, 5, 6], dtype='float32')
+        off = L.data(name='off', shape=[1], dtype='int64')
+        ln = L.data(name='ln', shape=[1], dtype='int64')
+        pre = L.data(name='pre', shape=[1], dtype='int64')
+        cand = L.data(name='cand', shape=[3], dtype='int64')
+        sc = L.data(name='sc', shape=[3], dtype='float32')
+        # a While summing squares into an array it reads back
+        i = L.fill_constant(shape=[1], dtype='int64', value=0)
+        n = L.fill_constant(shape=[1], dtype='int64', value=4)
+        acc = L.scale(d, scale=1.0)
+        arr = L.array_write(acc, i)
+        cond = L.less_than(x=i, y=n)
+        with L.While(cond=cond).block():
+            prev = L.array_read(arr, i)
+            L.assign(L.elementwise_add(acc, L.elementwise_mul(prev, d)),
+                     acc)
+            L.increment(x=i, value=1, in_place=True)
+            L.array_write(L.scale(prev, scale=0.5), i, array=arr)
+            L.less_than(x=i, y=n, cond=cond)
+        table = L.lod_rank_table(x)
+        back = L.array_to_lod_tensor(L.lod_tensor_to_array(x, table), table)
+        t, f = L.split_lod_tensor(input=d, mask=m)
+        merged = L.merge_lod_tensor(in_true=L.scale(t, scale=2.0),
+                                    in_false=L.scale(f, scale=-3.0), x=d,
+                                    mask=m)
+        lr = L.create_global_var(shape=[1], value=0.0, dtype='float32',
+                                 persistable=True, name='cf_lr')
+        step = L.reduce_sum(L.cast(m, 'float32'))
+        with L.Switch() as switch:
+            with switch.case(L.less_than(step, L.fill_constant(
+                    shape=[1], dtype='float32', value=2.0))):
+                L.assign(L.fill_constant(shape=[1], dtype='float32',
+                                         value=0.1), lr)
+            with switch.default():
+                L.assign(L.fill_constant(shape=[1], dtype='float32',
+                                         value=0.01), lr)
+        block = main.current_block()
+        erased = block.create_var(name='erased', dtype='int64', lod_level=1)
+        block.append_op(type='sequence_erase', inputs={'X': [ids]},
+                        outputs={'Out': [erased]}, attrs={'tokens': [2, 5]})
+        sliced = block.create_var(name='sliced', dtype='float32',
+                                  lod_level=1)
+        block.append_op(type='sequence_slice', inputs={
+            'X': [x], 'Offset': [off], 'Length': [ln]},
+            outputs={'Out': [sliced]})
+        sel_ids, sel_sc = L.beam_search(pre, cand, sc, beam_size=2,
+                                        end_id=9)
+        printed = L.Print(d, message='phase 14b print', first_n=1)
+        exact = [L.array_length(arr), L.array_read(arr, n),
+                 L.max_sequence_len(table), back,
+                 L.reorder_lod_tensor_by_rank(x, table),
+                 L.shrink_memory(x, i, table), merged, L.is_empty(d), lr,
+                 L.sequence_reshape(x, new_dim=2),
+                 L.lod_reset(x, target_lod=[0, 2, 3, 7, 11]),
+                 L.sequence_concat([x, x]), erased, sliced,
+                 L.sequence_expand(x=d, y=x),
+                 L.im2sequence(img, filter_size=[2, 3], stride=[1, 2],
+                               padding=[1, 0, 0, 1]),
+                 sel_ids, sel_sc, sel_ids.parent_idx, printed]
+        near = [acc, L.sequence_conv(input=x, num_filters=3,
+                                     filter_size=3),
+                L.row_conv(x, future_context_size=2)]
+    rows = rng.randn(sum(lens), 4).astype('float32')
+    B = len(lens)
+    feed = {'x': pt.create_lod_tensor(rows, [lens]),
+            'ids': pt.create_lod_tensor(rng.randint(0, 7, (
+                sum(lens), 1)).astype('int64'), [lens]),
+            'd': rng.randn(B, 4).astype('float32'),
+            'm': rng.rand(B, 1) < 0.5,
+            'img': rng.randn(B, 2, 5, 6).astype('float32'),
+            'off': np.array([[rng.randint(0, l)] for l in lens], 'int64'),
+            'pre': rng.randint(0, 12, (2 * B, 1)).astype('int64'),
+            'cand': rng.randint(0, 12, (2 * B, 3)).astype('int64'),
+            'sc': rng.randn(2 * B, 3).astype('float32')}
+    feed['ln'] = np.array([[l - o[0]] for l, o in zip(lens, feed['off'])],
+                          'int64')
+    feed['pre'][0] = 9                          # a finished beam
+    # the array's length, the longest sequence, is_empty and the Switch
+    coarse = [exact[k].name for k in (0, 2, 7, 8)]
+    return main, startup, feed, [v.name for v in exact], \
+        [v.name for v in near], coarse
+
+
+def _cf_nets(seed):
+    """The control-flow nets, each a program with one step of its
+    optimizer (SGD, and Adagrad for the DynamicRNN): IfElse, Switch,
+    StaticRNN, DynamicRNN. {name: (main, startup, feed, fetch names)}:
+    the fetches are the net's outputs, the loss, every @GRAD and, after
+    the Adagrad step, the updated parameter and its moment."""
+    import paddle_tpu_torch as pt
+    L = pt.layers
+    rng = np.random.RandomState(seed)
+    lens = list(rng.permutation(CF_LENS))
+    nets = {}
+
+    def program(name, build, feed, opt=None):
+        main, startup = pt.Program(), pt.Program()
+        startup.random_seed = seed
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            outs, loss = build()
+            (opt or pt.optimizer.SGD(0.0)).minimize(loss)
+        grads = sorted(v.name for v in main.list_vars()
+                       if v.name.endswith('@GRAD'))
+        # after the Adagrad step: the parameters and their moments
+        extra = [v.name for v in main.list_vars() if v.persistable and
+                 ('_moment' in v.name or opt is not None and
+                  v.name in main.global_block().vars and
+                  type(v).__name__ == 'Parameter')]
+        nets[name] = (main, startup, feed, [o.name for o in outs] +
+                      [loss.name] + grads + extra)
+
+    def ifelse():
+        x = L.data(name='x', shape=[4], dtype='float32')
+        h = L.fc(input=x, size=4)
+        cond = L.less_than(x=L.fill_constant(shape=[1], dtype='float32',
+                                             value=0.0),
+                           y=L.reduce_sum(h, dim=1, keep_dim=True))
+        ie = L.IfElse(cond)
+        with ie.true_block():
+            ie.output(L.fc(input=ie.input(h), size=3, act='tanh'))
+        with ie.false_block():
+            ie.output(L.fc(input=ie.input(h), size=3, act='sigmoid'))
+        out = ie()[0]
+        return [out], L.mean(out)
+
+    def switch():
+        x = L.data(name='x', shape=[4], dtype='float32')
+        h = L.fc(input=x, size=4, act='tanh')
+        s = L.reduce_sum(h)
+        scale = L.create_global_var(shape=[1], value=1.0, dtype='float32',
+                                    persistable=True, name='sw_scale')
+        with L.Switch() as sw:
+            with sw.case(L.less_than(s, L.fill_constant(
+                    shape=[1], dtype='float32', value=0.0))):
+                L.assign(L.scale(s, scale=2.0), scale)
+            with sw.default():
+                L.assign(L.scale(s, scale=-0.5), scale)
+        out = L.elementwise_mul(h, scale)
+        return [out, scale], L.mean(out)
+
+    def static_rnn():
+        x = L.data(name='xs', shape=[4, 3], dtype='float32')
+        rnn = L.StaticRNN()
+        with rnn.step():
+            x_t = rnn.step_input(x)
+            mem = rnn.memory(shape=[-1, 3], batch_ref=x, init_value=0.0)
+            h = L.fc(input=[x_t, mem], size=3, act='tanh')
+            rnn.update_memory(mem, h)
+            rnn.step_output(h)
+        out = rnn()
+        return [out], L.mean(out)
+
+    def dynamic_rnn():
+        x = L.data(name='seq', shape=[4], dtype='float32', lod_level=1)
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            x_t = drnn.step_input(x)
+            mem = drnn.memory(shape=[3], value=0.0)
+            h = L.fc(input=[x_t, mem], size=3, act='tanh')
+            drnn.update_memory(mem, h)
+            drnn.output(h)
+        last = L.sequence_pool(drnn(), pool_type='last')
+        return [last], L.mean(last)
+
+    B = len(lens)
+    program('IfElse', ifelse, {'x': rng.randn(B, 4).astype('float32')})
+    program('Switch', switch, {'x': rng.randn(B, 4).astype('float32')})
+    program('StaticRNN', static_rnn,
+            {'xs': rng.randn(5, B, 3).astype('float32')})
+    program('DynamicRNN', dynamic_rnn, {'seq': pt.create_lod_tensor(
+        rng.randn(sum(lens), 4).astype('float32'), [lens])},
+        opt=pt.optimizer.Adagrad(learning_rate=0.1))
+    return nets
+
+
+def _host_values(v):
+    """A fetch as a list of host arrays: a sequence's data (packed rows
+    for a packed one) and its lengths."""
+    import paddle_tpu_torch as pt
+    v = pt.executor.as_numpy(v) if not isinstance(v, np.ndarray) else v
+    if isinstance(v, pt.SequenceTensor):
+        if v.packed_mode:
+            return [np.asarray(v.data), np.asarray(sum(v.lod(), []))]
+        return [np.asarray(v.data), np.asarray(v.lengths)]
+    return [np.asarray(v)]
+
+
+def _reading(got, ref, exact):
+    """0 where equal; the largest difference over the reference's
+    largest magnitude for floats; inf where the shapes or exact values
+    differ. A list is taken as ``_host_values`` already."""
+    r = 0.0
+    host = [v if isinstance(v, list) else _host_values(v)
+            for v in (got, ref)]
+    for g, w in zip(*host):
+        if g.shape != w.shape:
+            return float('inf')
+        if exact or g.dtype.kind != 'f':
+            if not np.array_equal(g, w):
+                return float('inf')
+            continue
+        if g.size:
+            r = max(r, float(np.abs(g.astype('float64') - w).max() /
+                             max(np.abs(w).max(), 1e-30)))
+    return r
+
+
+def _run_on(place, main, startup, feed, fetch, state=None):
+    """Run ``main`` on ``place`` in a fresh scope: the startup program,
+    then ``state`` (numpy arrays by name) over it. Returns (fetches, the
+    scope)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    exe, scope = pt.Executor(place), pt.Scope()
+    exe.run(startup, scope=scope)
+    if state:
+        pt_io.params_from_numpy(scope, state, place)
+    return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   return_numpy=False), scope
+
+
+def _startup_state(startup):
+    """The startup program's values, made once on the CPU, so the card
+    and the CPU start from the same parameters (their generators
+    differ)."""
+    import paddle_tpu_torch as pt
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    return _book_state(scope)
+
+
+class _DeviceWatch(object):
+    """Every op kernel wrapped while it is active: after each op, every
+    tensor the op wrote (SequenceTensor data, tensor-array elements
+    included) must lie on the card. Counts ops and values checked."""
+
+    def __init__(self):
+        self.ops = self.values = 0
+        self.off_card = []
+
+    def _walk(self, val):
+        import torch
+        import paddle_tpu_torch as pt
+        if isinstance(val, torch.Tensor):
+            yield val
+        elif isinstance(val, pt.SequenceTensor):
+            for t in (val.data, val.lengths, val.sub_lengths):
+                if t is not None:
+                    yield t
+        elif isinstance(val, dict):
+            for e in val.get('list', ()) if 'list' in val else \
+                    val.values():
+                if e is not None:
+                    yield from self._walk(e)
+
+    def __enter__(self):
+        from paddle_tpu_torch.core import lowering
+        self._orig = lowering.get_kernel
+
+        def get_kernel(op_type):
+            kernel = self._orig(op_type)
+
+            def watched(ctx):
+                kernel(ctx)
+                self.ops += 1
+                for n in ctx.op.output_arg_names:
+                    for t in self._walk(ctx.env.get(n)):
+                        self.values += 1
+                        if t.device.type != 'cuda':
+                            self.off_card.append((op_type, n))
+            return watched
+        lowering.get_kernel = get_kernel
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.core import lowering
+        lowering.get_kernel = self._orig
+
+
+def _beam_gap(ctx):
+    """The smallest gap between two distinct candidate scores that
+    decide this beam_search step on its inputs, over their scale: in
+    the dynamic form the K-th and (K+1)-th of a source (the beams are
+    re-sorted by row and id after), in the static form every place of
+    the K taken (a beam's slot) and the K-th against the next; equal
+    scores (a shared prefix's copies) are ordered alike on both
+    devices and skipped. inf where nothing is decided."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.common import unwrap
+    K, end_id = int(ctx.attr('beam_size')), int(ctx.attr('end_id'))
+    pre = ctx.input('pre_ids')
+    sc = unwrap(ctx.input('scores')).detach().cpu().double().numpy()
+    sc = sc.reshape(sc.shape[0], -1)
+    groups = []
+    if isinstance(pre, pt.SequenceTensor) and pre.packed_mode and \
+            len(pre.offsets()) >= 2:
+        offs = pre.offsets()
+        high = [int(o) for o in offs[int(ctx.attr('level', 0))]]
+        for lv in range(int(ctx.attr('level', 0)) + 1, len(offs)):
+            high = [int(offs[lv][i]) for i in high]
+        for a, b in zip(high[:-1], high[1:]):
+            groups.append((np.sort(sc[a:b].ravel())[::-1], [K - 1]))
+    else:
+        ended = unwrap(pre).reshape(-1).cpu().numpy() == end_id
+        rows = [sc[r, :1] if ended[r] else sc[r] for r in range(len(sc))]
+        for b in range(len(rows) // K):
+            groups.append((np.sort(np.concatenate(
+                rows[b * K:(b + 1) * K]))[::-1], range(K)))
+    gap = float('inf')
+    for v, places in groups:
+        for i in places:
+            if i + 1 < len(v) and v[i] != v[i + 1]:
+                gap = min(gap, (v[i] - v[i + 1]) / max(
+                    abs(v[i]), abs(v[i + 1]), 1e-30))
+    return gap
+
+
+class _BeamTrace(object):
+    """Every beam_search op of a run while it is active: what it
+    selected (ids, parents and LoD, on the host) and its deciding gap
+    (``_beam_gap``), in the order the steps ran."""
+
+    def __init__(self):
+        self.steps, self.gaps = [], []
+
+    def __enter__(self):
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch.core import lowering
+        self._orig = lowering.get_kernel
+
+        def get_kernel(op_type):
+            kernel = self._orig(op_type)
+            if op_type != 'beam_search':
+                return kernel
+
+            def traced(ctx):
+                gap = _beam_gap(ctx)
+                kernel(ctx)
+                sel = []
+                for slot in ('selected_ids', 'parent_idx'):
+                    for n in ctx.op.outputs.get(slot, ()):
+                        v = ctx.env[n]
+                        sel.append(pt.executor.as_numpy(v).tobytes()
+                                   if not isinstance(v, pt.SequenceTensor)
+                                   else (np.asarray(pt.executor.as_numpy(
+                                       v).data).tobytes(), str(v.lod())))
+                self.steps.append(tuple(sel))
+                self.gaps.append(gap)
+            return traced
+        lowering.get_kernel = get_kernel
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.core import lowering
+        lowering.get_kernel = self._orig
+
+
+def _decode_gate(got, ref, trace, ref_trace):
+    """The card's decode (``got``: host ids and scores, ``trace``)
+    against a reference run: where every step selected what the
+    reference's did, ids and LoD must be equal and the scores within
+    MT_DECODE_TIE of their scale; where the selections part, the
+    reference's deciding scores at that step must lie within
+    MT_DECODE_TIE (a tie neither device can be held to). (ok, text)."""
+    n = min(len(trace.steps), len(ref_trace.steps))
+    part = next((t for t in range(n)
+                 if trace.steps[t] != ref_trace.steps[t]), None)
+    if part is None and len(trace.steps) != len(ref_trace.steps):
+        part = n
+    if part is None:
+        same = _reading(got[0], ref[0], True) == 0.0
+        err = _reading(got[1], ref[1], False)
+        return same and err <= MT_DECODE_TIE, (
+            'every step selected alike (%d), ids and LoD %s, scores within '
+            '%.3g' % (n, 'equal' if same else 'DIFFERENT', err))
+    gap = ref_trace.gaps[part] if part < len(ref_trace.gaps) else \
+        float('inf')
+    return gap <= MT_DECODE_TIE, (
+        'the selections part at step %d, where the reference\'s deciding '
+        'scores lie %.3g apart' % (part, gap))
+
+
+def _skewed(host):
+    """Host scores times 1 + MT_DECODE_SKEW (the gate's control)."""
+    return [host[0] * (1.0 + MT_DECODE_SKEW)] + host[1:]
+
+
+def _gate_with_controls(label, got, ref, ctl, trace, ref_trace,
+                        ctl_trace, controls=True):
+    """``_decode_gate`` on the card's decode, then on two controls: the
+    card's scores skewed by MT_DECODE_SKEW, and the reference run of
+    other sources against the card's. With ``controls`` both must fail
+    the gate; without (parameters whose candidates tie), the skew must
+    fail where the card selected what the CPU did at every step, and
+    the other sources' reading is printed only. Prints the reference's
+    closest deciding gap and its steps within the limit."""
+    ok, text = _decode_gate(got, ref, trace, ref_trace)
+    skew_ok, skew_text = _decode_gate([got[0], _skewed(got[1])], ref,
+                                      trace, ref_trace)
+    ctl_ok, ctl_text = _decode_gate(ctl, ref, ctl_trace, ref_trace)
+    close = sum(g <= MT_DECODE_TIE for g in ref_trace.gaps)
+    print('%s: card against the CPU: %s (limit %g); the CPU\'s closest '
+          'deciding scores %.3g apart over %d steps, %d within the limit; '
+          'controls%s: scores times 1 + %g: %s; other sources: %s'
+          % (label, text, MT_DECODE_TIE, min(ref_trace.gaps or [np.inf]),
+             len(ref_trace.gaps), close,
+             ' (must fail)' if controls else '', MT_DECODE_SKEW, skew_text,
+             ctl_text), flush=True)
+    check(ok, '%s: the card\'s decode differs from the CPU\'s: %s'
+          % (label, text))
+    if controls or trace.steps == ref_trace.steps:
+        check(not skew_ok, '%s: the gate passes scores skewed by %g'
+              % (label, MT_DECODE_SKEW))
+    if controls:
+        check(not ctl_ok, '%s: the gate passes the decode of other '
+              'sources' % label)
+
+
+def _cf_ops(seed, card):
+    """(a) The ops on the card against the CPU, then the nets' forward
+    and every @GRAD; each against the next seed's inputs, which must
+    fail."""
+    import torch
+    import paddle_tpu_torch as pt
+    main, startup, feed, exact, near, coarse = _cf_ops_program(seed)
+    other = _cf_ops_program(seed + 1)[2]
+    fetch = exact + near
+    state = _startup_state(startup)
+    with _DeviceWatch() as watch:
+        card_out, _ = _run_on(pt.CUDAPlace(0), main, startup, feed, fetch,
+                              state)
+    cpu_out, _ = _run_on(pt.CPUPlace(), main, startup, feed, fetch, state)
+    ctl_out, _ = _run_on(pt.CPUPlace(), main, startup, other, fetch, state)
+    worst = {'exact': 0.0, 'float': 0.0}
+    for n, g, r, c in zip(fetch, card_out, cpu_out, ctl_out):
+        is_exact = n in exact
+        limit = 0.0 if is_exact else CF_TOL
+        reading = _reading(g, r, is_exact)
+        worst['exact' if is_exact else 'float'] = max(
+            worst['exact' if is_exact else 'float'], reading)
+        check(reading <= limit, 'op %s on the card: %g from the CPU (limit '
+              '%g)' % (n, reading, limit))
+        check(n in coarse or _reading(g, c, is_exact) > limit, 'op %s: the '
+              'next seed\'s inputs read inside the limit' % n)
+    check(not watch.off_card, 'values off the card: %s' % watch.off_card)
+    print('control-flow ops: %d fetches (%d exact, %d float) of While, the '
+          'tensor arrays, the rank table, split/merge, Switch, is_empty, '
+          'print, the sequence ops and the static beam_search, card against '
+          'CPU: worst exact %g, float %.3g (limits: exact, %g); the next '
+          'seed\'s inputs fail every fetch but %d of few levels; %d ops, %d '
+          'values on the card, none off it; %s' % (
+              len(fetch), len(exact), len(near), worst['exact'],
+              worst['float'], CF_TOL, len(coarse), watch.ops, watch.values,
+              card), flush=True)
+    nets = _cf_nets(seed)
+    others = _cf_nets(seed + 1)
+    for name, (main, startup, feed, fetch) in sorted(nets.items()):
+        state = _startup_state(startup)
+        card_out, _ = _run_on(pt.CUDAPlace(0), main, startup, feed, fetch,
+                              state)
+        cpu_out, _ = _run_on(pt.CPUPlace(), main, startup, feed, fetch,
+                             state)
+        ctl_out, _ = _run_on(pt.CPUPlace(), main, startup,
+                             others[name][2], fetch, state)
+        readings = [_reading(g, r, False) for g, r in zip(card_out, cpu_out)]
+        controls = [_reading(g, c, False) for g, c in zip(card_out, ctl_out)]
+        print('control-flow net %s: forward, loss and %d @GRAD%s, card '
+              'against CPU: worst %.3g (limit %g); the next seed\'s inputs '
+              'read %.3g .. %.3g' % (
+                  name, sum(n.endswith('@GRAD') for n in fetch),
+                  ' and the Adagrad update' if name == 'DynamicRNN' else '',
+                  max(readings), CF_GRAD_TOL, min(controls), max(controls)),
+              flush=True)
+        check(max(readings) <= CF_GRAD_TOL, '%s: card %g from the CPU' % (
+            name, max(readings)))
+        check(max(controls) > CF_GRAD_TOL, '%s: the next seed\'s inputs '
+              'pass the limit' % name)
+    torch.cuda.empty_cache()
+
+
+CF_DECODE = dict(dict_size=30, word_dim=8, hidden_dim=16, topk_size=10)
+
+
+def _cf_decodes(seed, card):
+    """Both beam searches and both beam_search_decodes in book 08's small
+    decode programs (CF_DECODE's widths, parameters from a CPU startup):
+    held against the CPU by ``_gate_with_controls``, whose controls
+    (skewed scores, the next seed's sources) must fail."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import books
+    for dynamic in (True, False):
+        main, startup = pt.Program(), pt.Program()
+        startup.random_seed = seed
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            _, ids, scores = (books.decode_dynamic if dynamic
+                              else books.decode_static)(**CF_DECODE)
+        state = _startup_state(startup)
+
+        def feed(s):
+            rng = np.random.RandomState(s)
+            lens = [int(n) for n in rng.randint(2, 7, 3)]
+            f = books.decode_init_feed(3) if dynamic else {}
+            f['src_word_id'] = pt.create_lod_tensor(rng.randint(
+                2, CF_DECODE['dict_size'], (sum(lens), 1)).astype('int64'),
+                [lens])
+            return f
+        outs, traces = {}, {}
+        for key, place, s in (('card', pt.CUDAPlace(0), seed),
+                              ('cpu', pt.CPUPlace(), seed),
+                              ('control', pt.CPUPlace(), seed + 1)):
+            with _BeamTrace() as traces[key]:
+                outs[key] = [_host_values(v) for v in _run_on(
+                    place, main, startup, feed(s), [ids, scores],
+                    state)[0]]
+        _gate_with_controls(
+            'control-flow %s beam search and decode (dict %d)' % (
+                'dynamic' if dynamic else 'static',
+                CF_DECODE['dict_size']), outs['card'], outs['cpu'],
+            outs['control'], traces['card'], traces['cpu'],
+            traces['control'])
+
+
+def _mt_program(seed, learning_rate=None, **widths):
+    """Book 08's training program at the script's widths (another
+    learning rate if given)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import books
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        book = books.machine_translation(**widths)
+        opt = book.optimizer()
+        if learning_rate is not None:
+            opt = pt.optimizer.Adagrad(learning_rate=learning_rate,
+                                       regularization=opt.regularization)
+        opt.minimize(book.loss)
+    return main, startup, book
+
+
+def _mt_fit(seed, batch, learning_rate=None):
+    """MT_FIT_STEPS steps on one batch on the card: the losses."""
+    import paddle_tpu_torch as pt
+    main, startup, book = _mt_program(seed, learning_rate)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = pt.DataFeeder(feed_list=book.feeds, place=pt.CUDAPlace(0),
+                         program=main).feed(batch)
+    return [float(exe.run(main, feed=feed, fetch_list=[book.loss],
+                          scope=scope)[0][0]) for _ in range(MT_FIT_STEPS)]
+
+
+def _mt_train(seed, card):
+    """(b) Book 08 trained on the card through DataFeeder and the wmt14
+    reader: timed steps, peak memory, the fixed-batch fall and its
+    controls, one step against the CPU. Returns the trained run."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.models import books
+    main, startup, book = _mt_program(seed)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    initial = _book_state(scope)
+    feeder = pt.DataFeeder(feed_list=book.feeds, place=pt.CUDAPlace(0),
+                           program=main)
+    batches = _book_batches(book, seed + 1)
+    first = next(batches)
+    exe.run(main, feed=feeder.feed(first), fetch_list=[book.loss],
+            scope=scope)                       # warm-up: not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, words = [], 0
+    t0 = time.perf_counter()
+    for _ in range(MT_BOOK_STEPS):
+        b = next(batches)
+        words += sum(len(s[1]) for s in b)
+        out = exe.run(main, feed=feeder.feed(b), fetch_list=[book.loss],
+                      scope=scope)
+        losses.append(float(out[0][0]))
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    feed = feeder.feed(next(batches))
+    _, busy_us = profile_run(lambda: exe.run(
+        main, feed=feed, fetch_list=[book.loss], scope=scope),
+        'book 08 step', top=4)
+    print('book 08 training: dict %d, word %d, hidden %d, batch %d, f32 '
+          '(TF32 off), Adagrad(1e-4) with L2Decay(0.1), through DataFeeder '
+          'and batch(wmt14.train(%d)): %d steps, %.2f ms a step, %.0f '
+          'target words/s (host clock), one profiled step busy on the card '
+          '%.3f ms, peak memory %.1f MiB; losses %.4f .. %.4f; %s' % (
+              books.MT['dict_size'], books.MT['word_dim'],
+              books.MT['hidden_dim'], book.batch_size,
+              books.MT['dict_size'], MT_BOOK_STEPS, 1e3 * dt / MT_BOOK_STEPS,
+              words / dt, busy_us / 1e3, peak, losses[0], losses[-1], card),
+          flush=True)
+    check(all(np.isfinite(losses)), 'non-finite book 08 loss')
+    falls = {}
+    for label, rate in (('script', None), ('rate 0', 0.0),
+                        ('minus the rate', -1e-4)):
+        fit = _mt_fit(seed, first, rate)
+        check(all(np.isfinite(fit)), 'non-finite book 08 loss (%s)' % label)
+        falls[label] = fit[0] - fit[-1]
+    print('book 08 on one batch, %d steps: the loss falls %.3g at the '
+          'script\'s rate (limit %g); controls (must fail): rate 0 %.3g, '
+          'minus the rate %.3g' % (MT_FIT_STEPS, falls['script'], MT_FIT_FALL,
+                                   falls['rate 0'], falls['minus the rate']),
+          flush=True)
+    check(falls['script'] >= MT_FIT_FALL, 'book 08 loss fell only %g'
+          % falls['script'])
+    for label in ('rate 0', 'minus the rate'):
+        check(falls[label] < MT_FIT_FALL, 'the book 08 limit does not catch '
+              'training at %s' % label)
+    # one step against the CPU: loss and every @GRAD
+    grads = sorted(v.name for v in main.list_vars()
+                   if v.name.endswith('@GRAD'))
+    fetch = [book.loss.name] + grads
+    state = _book_state(scope)
+    feed = feeder.feed(next(batches))
+    card_out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+
+    def cpu(arrays):
+        s = pt.Scope()
+        pt_io.params_from_numpy(s, arrays, pt.CPUPlace())
+        return pt.Executor(pt.CPUPlace()).run(main, feed=feed,
+                                              fetch_list=fetch, scope=s)
+    same = [_reading(c, r, False) for c, r in zip(card_out, cpu(state))]
+    before = [_reading(c, r, False) for c, r in zip(card_out,
+                                                    cpu(initial))]
+    print('book 08: one step, card against CPU: loss and %d @GRAD within '
+          '%.3g of their scale (limit %g); control, the parameters before '
+          'training: %.3g' % (len(grads), max(same), MT_CPU_TOL,
+                              max(before)), flush=True)
+    check(max(same) <= MT_CPU_TOL, 'book 08 step: card %g from the CPU'
+          % max(same))
+    check(max(before) > MT_CPU_TOL, 'the book 08 CPU limit does not catch '
+          'the parameters before training')
+    return dict(exe=exe, scope=scope, main=main, book=book, batches=batches,
+                ms=1e3 * dt / MT_BOOK_STEPS, peak_mib=peak)
+
+
+def _mt_src(batch):
+    import paddle_tpu_torch as pt
+    rows = [w for s in batch for w in s[0]]
+    return pt.create_lod_tensor(np.asarray(rows, 'int64').reshape(-1, 1),
+                                [[len(s[0]) for s in batch]])
+
+
+def _mt_decode(seed, card, run, art_dir, dynamic):
+    """(c, d) A decode of the trained parameters on the card against the
+    port's CPU run of the same program, by ``_gate_with_controls`` (its
+    controls: skewed scores and the next batch's sources). The dynamic
+    decode runs from a saved and loaded inference model, and once more
+    at MT_BIG's size, timed only."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.models import books
+    from paddle_tpu_torch.ops import common as ops_common
+    from paddle_tpu_torch.ops import control_flow_ops as cf
+    label = 'dynamic' if dynamic else 'static'
+    bs = run['book'].batch_size
+
+    def build(beam=None):
+        main, startup = pt.Program(), pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            build_fn = books.decode_dynamic if dynamic else books.decode_static
+            feeds, ids, scores = build_fn(beam_size=beam)
+        return main, feeds, ids, scores
+
+    main, feeds, ids, scores = build()
+    exe, scope = run['exe'], run['scope']
+    if dynamic:
+        d = os.path.join(art_dir, 'book08_decode')
+        pt_io.save_inference_model(d, [v.name for v in feeds],
+                                   [ids, scores], exe, main_program=main,
+                                   scope=scope)
+        scope = pt.Scope()
+        main, _, fetch = pt_io.load_inference_model(d, exe, scope=scope)
+        check(len(main.blocks) == 2 and pt.executor.is_dynamic(main),
+              'the loaded decode lost its While')
+    else:
+        fetch = [ids, scores]
+    state = _book_state(scope)
+
+    def feed_for(batch):
+        f = books.decode_init_feed(len(batch)) if dynamic else {}
+        f['src_word_id'] = _mt_src(batch)
+        return f
+    batch, other = next(run['batches']), next(run['batches'])
+    exe.run(main, feed=feed_for(batch), fetch_list=fetch, scope=scope,
+            return_numpy=False)                # warm-up
+    torch.cuda.synchronize()
+    syncs, iters = ops_common.HOST_SYNCS[0], cf.WHILE_ITERS[0]
+    t0 = time.perf_counter()
+    for _ in range(MT_DECODE_REPS):
+        exe.run(main, feed=feed_for(batch), fetch_list=fetch, scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / MT_DECODE_REPS
+    steps = (cf.WHILE_ITERS[0] - iters) / MT_DECODE_REPS
+    per_step = (ops_common.HOST_SYNCS[0] - syncs) / MT_DECODE_REPS / steps
+    with _DeviceWatch() as watch, _BeamTrace() as trace:
+        got = [_host_values(v) for v in exe.run(
+            main, feed=feed_for(batch), fetch_list=fetch, scope=scope,
+            return_numpy=False)]
+    check(not watch.off_card, 'book 08 %s decode: values off the card: %s'
+          % (label, watch.off_card[:5]))
+
+    def traced(on_card, params, b):
+        s = pt.Scope()
+        pt_io.params_from_numpy(
+            s, params, pt.CUDAPlace(0) if on_card else pt.CPUPlace())
+        with _BeamTrace() as tr:
+            out = (exe if on_card else pt.Executor(pt.CPUPlace())).run(
+                main, feed=feed_for(b), fetch_list=fetch, scope=s,
+                return_numpy=False)
+        return [_host_values(v) for v in out], tr
+    cpu = functools.partial(traced, False)
+    (ref, ref_trace), (ctl, ctl_trace) = cpu(state, batch), \
+        cpu(state, other)
+    print('book 08 %s decode (%s): batch %d, beam %d, topk %d, max length '
+          '%d: %.2f ms a decode, %d decode steps, %.2f host syncs a step; '
+          '%d ops, %d values on the card, none off it; %s'
+          % (label, 'saved and loaded' if dynamic else 'direct', bs,
+             books.MT['beam_size'], books.MT['topk_size'],
+             books.MT['max_length'], ms, steps, per_step, watch.ops,
+             watch.values, card), flush=True)
+    _gate_with_controls('book 08 %s decode, trained parameters' % label,
+                        got, ref, ctl, trace, ref_trace, ctl_trace,
+                        controls=False)
+    # the output fc sharpened: the candidates part, the controls must fail
+    sharp = {k: v * MT_SHARPEN if k != 'vemb' and np.ndim(v) and
+             v.shape[-1] == books.MT['dict_size'] else v
+             for k, v in state.items()}
+    got, trace = traced(True, sharp, batch)
+    (ref, ref_trace), (ctl, ctl_trace) = cpu(sharp, batch), \
+        cpu(sharp, other)
+    _gate_with_controls('book 08 %s decode, output fc times %g'
+                        % (label, MT_SHARPEN), got, ref, ctl, trace,
+                        ref_trace, ctl_trace)
+    # the static decode stops early once every beam has ended
+    check(steps == books.MT['max_length'] or not dynamic and
+          0 < steps <= books.MT['max_length'], 'book 08 %s decode ran %g '
+          'steps' % (label, steps))
+    res = dict(ms=ms, steps=steps, syncs=per_step)
+    if dynamic:
+        # MT_BIG: batch 32 at beam 4, timed only
+        big, _, big_ids, big_scores = build(MT_BIG['beam'])
+        src = [next(run['batches']) for _ in range(
+            MT_BIG['batch'] // bs)]
+        big_batch = [s for b in src for s in b]
+        f = feed_for(big_batch)
+        exe.run(big, feed=f, fetch_list=[big_ids, big_scores],
+                scope=run['scope'], return_numpy=False)
+        torch.cuda.synchronize()
+        syncs, iters = ops_common.HOST_SYNCS[0], cf.WHILE_ITERS[0]
+        t0 = time.perf_counter()
+        for _ in range(MT_DECODE_REPS):
+            exe.run(big, feed=feed_for(big_batch),
+                    fetch_list=[big_ids, big_scores], scope=run['scope'],
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        res['big_ms'] = 1e3 * (time.perf_counter() - t0) / MT_DECODE_REPS
+        big_steps = (cf.WHILE_ITERS[0] - iters) / MT_DECODE_REPS
+        res['big_syncs'] = (ops_common.HOST_SYNCS[0] - syncs) / \
+            MT_DECODE_REPS / big_steps
+        print('book 08 dynamic decode, batch %d, beam %d (timed only): %.2f '
+              'ms a decode, %d steps, %.2f host syncs a step; %s' % (
+                  MT_BIG['batch'], MT_BIG['beam'], res['big_ms'], big_steps,
+                  res['big_syncs'], card), flush=True)
+    return res
+
+
+def phase_control_flow(seed, card, art_dir):
+    """14b. Control flow, tensor arrays and beam search: (a) every new op
+    kernel on the card against the CPU (exact for integers, bools and
+    data movement, CF_TOL for float math; IfElse, Switch, StaticRNN and
+    DynamicRNN forward and every @GRAD within CF_GRAD_TOL), the next
+    seed's inputs failing; (b) book 08 trained at the script's widths
+    through the DataFeeder and the wmt14 reader, one step against the
+    CPU; (c) its dynamic decode from a saved and loaded inference model,
+    against the CPU; (d) its static [B*K] decode against the CPU; (e) no
+    value of a decode off the card. TF32 off, AMP off throughout."""
+    import tempfile
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import amp
+    t_phase = time.perf_counter()
+    os.environ['PADDLE_TPU_TORCH_DATA_HOME'] = tempfile.mkdtemp(dir=art_dir)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    amp.set_amp(False)
+    try:
+        _cf_ops(seed, card)
+        _cf_decodes(seed, card)
+        run = _mt_train(seed, card)
+        dyn = _mt_decode(seed, card, run, art_dir, dynamic=True)
+        _mt_decode(seed, card, run, art_dir, dynamic=False)
+    finally:
+        amp.set_amp(None)
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    check(pt.dataset.is_synthetic(), 'a dataset read a real file')
+    del run
+    torch.cuda.empty_cache()
+    print('phase 14b: %.1f s' % (time.perf_counter() - t_phase), flush=True)
+    return dyn
+
+
 def sweep_conv_plans(card):
     """The wgmma conv's time at every (tile width, K splits) at ResNet-50's
     non-stem region shapes at batch 1, 8 and 32 (bf16, the folded batch
@@ -5683,6 +6538,8 @@ def run_phases(args, card, root):
     del lstm_trained
     phase_lstm_gradients(args.seed)
     phase_machine_translation(args.seed, card)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        phase_control_flow(args.seed, card, d)
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests, the serving runtime's concurrent mix, untuned

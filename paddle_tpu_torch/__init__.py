@@ -8,8 +8,8 @@ under the same names, trimmed to what the port covers, and the runtime
 
 Covered so far: serving a model from a saved inference model —
 ``io.load_inference_model`` then ``Executor.run`` — and training one —
-``optimizer.Adam(...).minimize(loss)`` (or SGD, Momentum) then one
-``Executor.run`` per step — for the flagship transformer's op set, with
+``optimizer.Adam(...).minimize(loss)`` (or SGD, Momentum, Adagrad) then
+one ``Executor.run`` per step — for the flagship transformer's op set, with
 attention and its gradient on hand-written CUDA kernels
 (``ops/cuda_kernels.py``, ``csrc/flash_attn_fwd.cu``,
 ``csrc/flash_attn_bwd.cu``); and serving and training ResNet and
@@ -38,9 +38,16 @@ a watchdog) and ``Inferencer``.
 
 The data side of the Fluid books: ``DataFeeder`` (``data_feeder.py``),
 the reader decorators (``reader``, ``batch``) and the books' datasets
-(``dataset``: uci_housing, mnist, cifar, imikolov, on files already in
-place or their deterministic synthetic fallbacks); ``fluid`` is the
-fluid-compatible namespace.
+(``dataset``: uci_housing, mnist, cifar, imikolov, wmt14, on files
+already in place or their deterministic synthetic fallbacks); ``fluid``
+is the fluid-compatible namespace.
+
+Control flow (``While``, ``IfElse``, ``Switch``, ``StaticRNN``,
+``DynamicRNN``, the tensor arrays) and beam search (static [B*K] and
+the reference's dynamic LoD form, whose values are packed
+``SequenceTensor`` rows) run on the card: book 08, machine_translation
+(``models/books.py``), trains through a DynamicRNN and decodes by beam
+search.
 
 Entry points run on the card unless told otherwise: ``Executor()``,
 ``serving.ModelServer()`` and ``Inferencer(...)`` mean ``CUDAPlace(0)``

@@ -2,7 +2,7 @@
 liveness, reachability (ANALYSIS.md "Dataflow model").
 
 Counterpart of paddle_tpu/analysis/dataflow.py. The read/write model is
-shared with the compiler passes: ``compiler.passes._op_reads`` /
+shared with the compiler passes: ``framework._op_reads`` /
 ``_op_writes`` (sub-block recursive; the JAX package keeps them in its
 lowering) plus the compiler's hidden reads (sparse-lookup ids) and one
 hidden WRITE set of our own —
@@ -20,10 +20,9 @@ the analysis is conservative there and only flags names with no writer
 at all.
 """
 
-from ..compiler.passes import (_has_sub_block, _hidden_reads, _op_reads,
-                               _op_writes)
+from ..compiler.passes import _hidden_reads
 from ..core.lowering import RNG_KEY
-from ..framework import Block
+from ..framework import Block, _has_sub_block, _op_reads, _op_writes
 from .diagnostics import Diagnostic, ERROR
 
 __all__ = ['op_reads', 'op_writes', 'hidden_reads', 'hidden_writes',

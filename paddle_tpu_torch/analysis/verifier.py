@@ -231,7 +231,8 @@ def assert_valid(program, feeds=(), fetch_names=(), observe_as='verify'):
 # ---- feed validation -------------------------------------------------------
 
 def _is_sequence_feed(val):
-    return getattr(val, 'lengths', None) is not None
+    return getattr(val, 'lengths', None) is not None \
+        or getattr(val, '_rows', None) is not None
 
 
 def check_feeds(program, feed):

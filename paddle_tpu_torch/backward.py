@@ -8,7 +8,7 @@ lowering (core/lowering.py) the ops before it run under
 Regularizer, clip and optimizer ops append after the marker and read and
 write those names.
 """
-from .framework import Variable, grad_var_name
+from .framework import Variable, _op_reads, grad_var_name
 
 __all__ = ['append_backward']
 
@@ -53,12 +53,13 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                     sparse.setdefault(w, []).append(
                         [op.inputs['Ids'][0], op.attrs['sparse_carrier']])
         # a table read by any op other than its tagged lookups (weight
-        # tying, a dense lookup) takes the dense gradient
+        # tying, a dense lookup, a read inside a While or DynamicRNN
+        # body) takes the dense gradient
         for op in block.ops:
             tagged_w = op.inputs['W'][0] if (
                 op.type == 'lookup_table' and
                 op.attrs.get('sparse_carrier')) else None
-            for n in op.input_arg_names:
+            for n in _op_reads(op):
                 if n in sparse and n != tagged_w:
                     del sparse[n]
 

@@ -43,7 +43,8 @@ import weakref
 import numpy as np
 import torch
 
-from ..framework import Block, Operator
+from ..framework import (Block, Operator, _has_sub_block, _op_reads,
+                         _op_writes)
 from ..core.amp import amp_enabled
 from ..core.lowering import BlockRunner, OpCtx, RNG_KEY
 from ..core.registry import SIDE_EFFECT_OPS, get_kernel, register_kernel
@@ -84,32 +85,6 @@ _ALWAYS_KEEP = frozenset({'feed', 'fetch'})
 
 
 # ---- helpers ---------------------------------------------------------------------
-def _op_reads(op):
-    """All names an op (with nested sub-blocks) may read from the
-    enclosing environment."""
-    reads = list(op.input_arg_names)
-    sub = op.attrs.get('sub_block')
-    if sub is not None:
-        produced = set()
-        for sop in sub.ops:
-            reads.extend(n for n in _op_reads(sop) if n not in produced)
-            produced.update(sop.output_arg_names)
-    return reads
-
-
-def _op_writes(op):
-    writes = list(op.output_arg_names)
-    sub = op.attrs.get('sub_block')
-    if sub is not None:
-        for sop in sub.ops:
-            writes.extend(_op_writes(sop))
-    return writes
-
-
-def _has_sub_block(op):
-    return any(isinstance(v, Block) for v in op.attrs.values())
-
-
 def _hidden_reads(op):
     """Names consumed through attrs, invisible to ``_op_reads``: the
     backward marker's sparse-lookup ids. Every liveness-style analysis

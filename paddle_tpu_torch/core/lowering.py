@@ -7,6 +7,12 @@ whole block into one jitted XLA computation; PyTorch runs eagerly, so
 here the "lowered" function simply executes each op's kernel in program
 order on the Executor's device.
 
+Sub-blocks (the bodies of While, the conditional blocks of IfElse and
+Switch, StaticRNN and DynamicRNN) run through ``BlockRunner.sub_runner``
+inside their op's kernel (ops/control_flow_ops.py), with the same
+device, gradient mode and ``dynamic`` flag; the scope's generator is one
+object that every random op in every body advances in program order.
+
 A training program holds one ``backward_marker``: the ops before it run
 under ``torch.autograd`` with each parameter as a fresh leaf, the summed
 loss is differentiated with ``torch.autograd.grad`` (the counterpart of
@@ -20,6 +26,7 @@ import torch
 from .registry import get_kernel
 from ..framework import Operator, convert_np_dtype
 from ..lod import SequenceTensor
+from ..ops.common import rewrap
 
 RNG_KEY = '__rng__'
 
@@ -124,13 +131,25 @@ class BlockRunner(object):
     references once the op completes, so their memory is free for the
     rest of the run, unless the name is in ``keep`` (fetches,
     persistable state, the generator, the loss), which the pass could
-    not know statically."""
+    not know statically.
 
-    def __init__(self, block, device, grad_mode=False, keep=None):
+    ``dynamic`` marks a dynamic program (``executor._is_dynamic_program``:
+    a beam-search While fed 2-level LoD): kernels keep packed rows and
+    tensor arrays of SequenceTensors as they are, as the JAX package's
+    eager dynamic mode does."""
+
+    def __init__(self, block, device, grad_mode=False, keep=None,
+                 dynamic=False):
         self.block = block
         self.device = device
         self.grad_mode = grad_mode
         self.keep = keep if keep is not None else frozenset()
+        self.dynamic = dynamic
+
+    def sub_runner(self, block):
+        """The runner of a sub-block of this one's ops."""
+        return BlockRunner(block, self.device, grad_mode=self.grad_mode,
+                           keep=self.keep, dynamic=self.dynamic)
 
     def run_ops(self, ops, env):
         for op in ops:
@@ -164,8 +183,7 @@ class BlockRunner(object):
             if eclip is not None and val.requires_grad:
                 val = _ClipCotangent.apply(val, float(eclip.min),
                                            float(eclip.max))
-            env[name] = val if seq is None else SequenceTensor(
-                val, seq.lengths, seq.sub_lengths)
+            env[name] = val if seq is None else rewrap(seq, val)
 
 
 # Graph rewrite: merge same-input mul (fc) ops into one wide matmul.
@@ -253,8 +271,9 @@ def _merge_shared_muls(block, ops):
 
 
 def lower_block(program, block, feed_names, fetch_names, state_in_names,
-                state_out_names, device):
-    """Build ``fn(feeds, state) -> (fetches, new_state)``.
+                state_out_names, device, dynamic=False):
+    """Build ``fn(feeds, state) -> (fetches, new_state)``. ``dynamic``
+    runs the block in the dynamic program mode (see ``BlockRunner``).
 
     ``feeds``/``state`` are dicts name -> tensor on ``device``; ``state``
     holds the scope's ``torch.Generator`` under ``RNG_KEY``. Fetches and
@@ -269,7 +288,7 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
             "are not ported yet (ROADMAP Queue A, sparse rows); build the "
             "table with is_sparse=False" %
             sorted(ops[markers[0]].attrs['sparse']))
-    if MERGE_SHARED_MULS[0]:
+    if MERGE_SHARED_MULS[0] and not dynamic:
         if markers:
             pre = _merge_shared_muls(block, ops[:markers[0]])
             ops = pre + ops[markers[0]:]
@@ -286,10 +305,12 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
         env = dict(state)
         env.update(feeds)
         if markers:
-            _run_training(block, device, ops, markers[0], env, keep)
+            _run_training(block, device, ops, markers[0], env, keep,
+                          dynamic)
         else:
             with torch.no_grad():
-                BlockRunner(block, device, keep=keep).run_ops(ops, env)
+                BlockRunner(block, device, keep=keep,
+                            dynamic=dynamic).run_ops(ops, env)
         fetches = [_detach(env[n]) for n in fetch_names]
         new_state = {}
         for n in state_out_names:
@@ -309,14 +330,13 @@ def _detach(val):
     its re-laid-out weight while it is). A SequenceTensor keeps its
     lengths."""
     if isinstance(val, SequenceTensor):
-        return SequenceTensor(_detach(val.data), val.lengths,
-                              val.sub_lengths)
+        return rewrap(val, _detach(val.data))
     if isinstance(val, torch.Tensor) and val.requires_grad:
         return val.detach()
     return val
 
 
-def _run_training(block, device, ops, marker_idx, env, keep):
+def _run_training(block, device, ops, marker_idx, env, keep, dynamic):
     """Forward under autograd, gradients of the summed loss into
     ``<param>@GRAD``, then the update ops without autograd. Counterpart
     of the marker branch of the JAX ``lower_block`` (lowering.py:674-766;
@@ -332,8 +352,8 @@ def _run_training(block, device, ops, marker_idx, env, keep):
     leaves = [env[p].detach().requires_grad_() for p in param_names]
     with torch.enable_grad():
         env.update(zip(param_names, leaves))
-        BlockRunner(block, device, grad_mode=True, keep=gkeep).run_ops(
-            ops[:marker_idx], env)
+        BlockRunner(block, device, grad_mode=True, keep=gkeep,
+                    dynamic=dynamic).run_ops(ops[:marker_idx], env)
         loss = env[loss_name].sum()
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     scale = marker.attrs.get('loss_scale', None)
@@ -346,5 +366,5 @@ def _run_training(block, device, ops, marker_idx, env, keep):
             g = g * scale
         env[gname] = g
     with torch.no_grad():
-        BlockRunner(block, device, keep=keep).run_ops(ops[marker_idx + 1:],
-                                                      env)
+        BlockRunner(block, device, keep=keep, dynamic=dynamic).run_ops(
+            ops[marker_idx + 1:], env)

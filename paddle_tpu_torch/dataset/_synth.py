@@ -80,3 +80,20 @@ def image_sampler(name, num_classes, chw, n, seed_salt=0, noise=0.35):
             img = templates[label] + noise * r.randn(dim).astype('float32')
             yield np.clip(img, -1.0, 1.0).astype('float32'), label
     return reader
+
+
+def translation_sampler(name, dict_size, n, min_len=4, max_len=20,
+                        seed_salt=0, start_id=0, end_id=1):
+    """Yield (src_ids, trg_ids, trg_next_ids). Target is a deterministic
+    per-token mapping of source (+ shift), so seq2seq models can learn it."""
+    def reader():
+        r = rng(name + '_mt', seed_salt)
+        for _ in range(n):
+            length = int(r.randint(min_len, max_len + 1))
+            src = r.randint(2, dict_size, size=length)
+            trg = (src * 7 + 3) % (dict_size - 2) + 2
+            src_l = [int(w) for w in src]
+            trg_l = [start_id] + [int(w) for w in trg]
+            trg_next = [int(w) for w in trg] + [end_id]
+            yield src_l, trg_l, trg_next
+    return reader

@@ -28,6 +28,14 @@ fingerprint, so a steady-state hit pays one lookup of the feed's
 signature; ``PTPU_VERIFY=0`` or ``analysis.set_enabled(False)`` turns
 them off.
 
+A dynamic program (``_is_dynamic_program``: a While whose body runs
+beam search, reached by a 2-level LoD feed, the reference's dynamic beam
+decode) runs as the JAX Executor runs it eagerly: its 2-level feeds
+given as packed rows with an offset LoD (``LoDTensor.set`` /
+``set_lod``) stay packed on the device, its level-1 feeds stay padded,
+and it skips the verify and the passes (which assume the whole block's
+shapes). A packed fetch comes back a packed SequenceTensor with its LoD.
+
 Telemetry, with the JAX Executor's names: the registry series
 ``executor_cache_{hits,misses}_total``, ``executor_cache_hit_rate``,
 ``executor_run_seconds`` and ``executor_compile_seconds`` (here the
@@ -51,11 +59,13 @@ import torch
 from . import analysis as _analysis
 from . import compiler as _compiler
 from . import observability as _obs
-from .framework import Program, Variable, default_main_program
+from .framework import (Program, Variable, _op_reads, _op_writes,
+                        default_main_program)
 from .lod import SequenceTensor
 from .core import places as _places
 from .core.lowering import lower_block, torch_dtype, RNG_KEY
 from .core.registry import SIDE_EFFECT_OPS
+from .ops.common import rewrap
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
            'switch_scope', 'as_numpy', 'CacheInfo']
@@ -117,21 +127,24 @@ def _to_f32_fetch(t):
     ``_to_f32_fetch`` boundary; numpy has no bfloat16 either. A
     SequenceTensor keeps its lengths."""
     if isinstance(t, SequenceTensor):
-        return SequenceTensor(_to_f32_fetch(t.data), t.lengths,
-                              t.sub_lengths)
+        return rewrap(t, _to_f32_fetch(t.data))
     if t.dtype in (torch.bfloat16, torch.float16):
         return t.float()
     return t
 
 
 def _host(t):
-    return None if t is None else t.detach().cpu().numpy()
+    if t is None or isinstance(t, np.ndarray):
+        return t
+    return t.detach().cpu().numpy()
 
 
 def _spec(value):
     """(shape, dtype) of a prepared feed, a SequenceTensor's by its
     padded data."""
     if isinstance(value, SequenceTensor):
+        if value.packed_mode:
+            return _spec(value.data) + ('packed', len(value._offsets))
         return _spec(value.data) + ('lod',)
     return (tuple(value.shape), str(value.dtype).replace('torch.', ''))
 
@@ -146,11 +159,73 @@ def as_numpy(value):
     """A fetched tensor as a host numpy array (half floats as f32). A
     fetched sequence keeps its structure, as in the JAX package: a
     SequenceTensor of host arrays, its ``data`` the padded [B, T_pad,
-    ...] array (``np.asarray`` of it gives the packed rows)."""
+    ...] array (``np.asarray`` of it gives the packed rows); a packed
+    one keeps its rows and offset LoD."""
     if isinstance(value, SequenceTensor):
-        return SequenceTensor(as_numpy(value.data), _host(value.lengths),
+        data = as_numpy(value.data)
+        if value.packed_mode:
+            return rewrap(value, data)
+        return SequenceTensor(data, _host(value.lengths),
                               _host(value.sub_lengths))
     return _host(_to_f32_fetch(value))
+
+
+def _block_has(block, types):
+    for op in block.ops:
+        if op.type in types:
+            return True
+        sub = op.attrs.get('sub_block')
+        if sub is not None and _block_has(sub, types):
+            return True
+    return False
+
+
+def _is_dynamic_program(program):
+    """True when a While's body runs beam search AND a 2-level LoD feed
+    reaches that While (the reference decode's init_ids / init_scores):
+    the beams' row counts then change step by step, so the program runs
+    in the dynamic mode, packed rows and host LoD lists, as the JAX
+    Executor runs it eagerly. A static-beam decode ([B*K] dense rows, no
+    2-level feed) is not dynamic. Only the variables that reach a beam
+    While count: a nested-sequence feed elsewhere does not."""
+    beam_whiles = [op for b in program.blocks for op in b.ops
+                   if op.type == 'while' and op.attrs.get('sub_block')
+                   is not None and _block_has(op.attrs['sub_block'],
+                                              ('beam_search',))]
+    if not beam_whiles:
+        return False
+    producers = {}
+    for b in program.blocks:
+        for op in b.ops:
+            for n in op.output_arg_names:
+                producers.setdefault(n, []).append(op)
+    gb = program.global_block()
+    for w_op in beam_whiles:
+        seen, frontier = set(), list(_op_reads(w_op))
+        while frontier:
+            n = frontier.pop()
+            if n in seen:
+                continue
+            seen.add(n)
+            var = gb._find_var_recursive(n)
+            if var is not None and getattr(var, 'is_data', False) and \
+                    getattr(var, 'lod_level', 0) >= 2:
+                return True
+            for p in producers.get(n, ()):
+                if p is not w_op:
+                    # a producing control-flow op may read the feed
+                    # only inside its sub-block
+                    frontier.extend(_op_reads(p))
+    return False
+
+
+def is_dynamic(program):
+    """``_is_dynamic_program``, memoized per program fingerprint."""
+    memo = program.__dict__.setdefault('_dynamic_memo', {})
+    fp = program.fingerprint()
+    if fp not in memo:
+        memo[fp] = _is_dynamic_program(program)
+    return memo[fp]
 
 
 class Executor(object):
@@ -226,17 +301,25 @@ class Executor(object):
         return torch.tensor(np.asarray(lengths), dtype=torch.int64,
                             device=self.device)
 
-    def _prepare_feed(self, program, feed):
+    def _prepare_feed(self, program, feed, dynamic=False):
         """Each feed on the place's device in its variable's runtime
         dtype. A SequenceTensor (``create_lod_tensor`` output, or one
         already on the device) keeps its structure: its data and its
         lengths (int64) move to the device. As in the JAX Executor, a
         LoDTensor with rows but no LoD, or one fed to a variable declared
-        dense (``lod_level`` 0), is fed as its plain rows."""
+        dense (``lod_level`` 0), is fed as its plain rows. In a dynamic
+        program a 2-level feed with packed rows (``set`` / ``set_lod``)
+        stays packed, its rows on the device and its LoD on the host."""
         block = program.global_block()
         out = {}
         for name, val in feed.items():
             var = block._find_var_recursive(name)
+            if dynamic and isinstance(val, SequenceTensor) and \
+                    val._rows is not None and val._offsets and \
+                    len(val._offsets) >= 2:
+                out[name] = SequenceTensor.from_packed(
+                    self._to_device(val._rows, var), val._offsets)
+                continue
             if isinstance(val, SequenceTensor) and (
                     val.lengths is None or (
                         val._rows is not None and var is not None and
@@ -267,21 +350,27 @@ class Executor(object):
     @staticmethod
     def _maybe_prune(program, fetch_names):
         """Inference-style programs run only the ancestors of the fetches
-        and of persistable-state writes."""
+        and of persistable-state writes, those in loop and branch bodies
+        included (``Program.prune`` follows sub-blocks)."""
         if not fetch_names:
             return program
         block = program.global_block()
         persist_outs = []
         for op in block.ops:
-            if op.type in SIDE_EFFECT_OPS:
+            sub = op.attrs.get('sub_block')
+            if op.type in SIDE_EFFECT_OPS or (
+                    sub is not None and _block_has(sub, SIDE_EFFECT_OPS)):
+                # a training step or a host side effect: the whole block
+                # runs
                 return program
-            for n in op.output_arg_names:
+            for n in _op_writes(op):
                 var = block._find_var_recursive(n)
                 if var is not None and var.persistable:
                     persist_outs.append(n)
         return program.prune(list(fetch_names) + persist_outs)
 
-    def _lowered(self, program, fp, feed, fetch_names, scope, tspan):
+    def _lowered(self, program, fp, feed, fetch_names, scope, tspan,
+                 dynamic=False):
         """``(fn, state_in, missed)``: the runnable block for (program
         version, feeds, fetches, state names, device, the compiler's
         token), memoized on the program so steady-state requests skip
@@ -289,7 +378,9 @@ class Executor(object):
         miss the program is verified first (``ProgramInvalid`` before
         any lowering), then the tuning entry for (program, feed shapes,
         device) is looked up and the lowered function runs under its
-        knobs."""
+        knobs. A dynamic program skips the verify and the passes, as in
+        the JAX Executor: both assume the whole block's shapes, which
+        change from step to step there."""
         state_in, state_out = self._state_names(program, scope)
         feed_names = sorted(feed)
         feed_sig = feed_signature(feed)
@@ -307,20 +398,22 @@ class Executor(object):
         # the lock, so one program's cold lowering never stalls another's
         # hits; two threads that miss on one key both lower, the first
         # insert wins
-        t_verify = time.perf_counter()
-        _analysis.verify_for_executor(program, feed_names=feed_names,
-                                      fetch_names=fetch_names)
-        if tspan is not None:
-            _obs.emit_span('exe/verify', time.perf_counter() - t_verify,
-                           parent=tspan)
+        if not dynamic:
+            t_verify = time.perf_counter()
+            _analysis.verify_for_executor(program, feed_names=feed_names,
+                                          fetch_names=fetch_names)
+            if tspan is not None:
+                _obs.emit_span('exe/verify',
+                               time.perf_counter() - t_verify, parent=tspan)
         _obs.emit('compile_begin', fp=fp)
         pruned = self._maybe_prune(program, fetch_names)
-        if token != ('off',):
+        if token != ('off',) and not dynamic:
             pruned, _ = _compiler.optimize(
                 pruned, fetch_names=fetch_names, scope=scope,
                 clone=pruned is program)
         fn = lower_block(pruned, pruned.global_block(), feed_names,
-                         fetch_names, state_in, state_out, self.device)
+                         fetch_names, state_in, state_out, self.device,
+                         dynamic)
         if token != ('off',):
             tuning = _compiler.tuning
             fn = tuning.wrap_lowered(fn, tuning.default_cache().lookup(
@@ -342,7 +435,8 @@ class Executor(object):
         # the RAW feed: _prepare_feed casts to the declared dtype, which
         # would hide the mismatches the check names
         _analysis.check_feeds_for_executor(program, feed)
-        feed = self._prepare_feed(program, feed or {})
+        dynamic = is_dynamic(program)
+        feed = self._prepare_feed(program, feed or {}, dynamic=dynamic)
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         scope = scope or global_scope()
@@ -357,12 +451,12 @@ class Executor(object):
         pctx = _obs.current_context()
         if pctx is None:
             return self._run(program, fp, feed, fetch_names, scope,
-                             return_numpy, None)
+                             return_numpy, None, dynamic)
         tspan = _obs.start_span('exe/run', parent=pctx, activate=False,
                                 fp=fp)
         try:
             out = self._run(program, fp, feed, fetch_names, scope,
-                            return_numpy, tspan)
+                            return_numpy, tspan, dynamic)
         except BaseException as e:
             tspan.end(error=type(e).__name__)
             raise
@@ -370,10 +464,11 @@ class Executor(object):
         return out
 
     def _run(self, program, fp, feed, fetch_names, scope, return_numpy,
-             tspan):
+             tspan, dynamic=False):
         t_lookup = time.perf_counter()
         fn, state_in, missed = self._lowered(program, fp, feed,
-                                             fetch_names, scope, tspan)
+                                             fetch_names, scope, tspan,
+                                             dynamic)
         (self._m_misses if missed else self._m_hits).inc()
         if missed:
             compile_wall = time.perf_counter() - t_lookup

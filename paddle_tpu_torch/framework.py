@@ -290,6 +290,33 @@ class Block(object):
             self.idx, len(self.vars), ", ".join(op.type for op in self.ops))
 
 
+def _op_reads(op):
+    """All names an op (with nested sub-blocks) may read from the
+    enclosing environment."""
+    reads = list(op.input_arg_names)
+    sub = op.attrs.get('sub_block')
+    if sub is not None:
+        produced = set()
+        for sop in sub.ops:
+            reads.extend(n for n in _op_reads(sop) if n not in produced)
+            produced.update(sop.output_arg_names)
+    return reads
+
+
+def _op_writes(op):
+    """All names an op (with nested sub-blocks) writes."""
+    writes = list(op.output_arg_names)
+    sub = op.attrs.get('sub_block')
+    if sub is not None:
+        for sop in sub.ops:
+            writes.extend(_op_writes(sop))
+    return writes
+
+
+def _has_sub_block(op):
+    return any(isinstance(v, Block) for v in op.attrs.values())
+
+
 class Program(object):
     """A list of Blocks; block 0 is the global block.
 
@@ -314,6 +341,21 @@ class Program(object):
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None):
+        """Open a sub-block (a loop or branch body) under the current
+        block, or under ``parent_idx``, and make it current."""
+        new_idx = len(self.blocks)
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.blocks.append(Block(self, new_idx, parent_idx=parent))
+        self.current_block_idx = new_idx
+        self._bump_version()
+        return self.current_block()
+
+    def rollback(self):
+        """Close the current sub-block: its parent is current again."""
+        self.current_block_idx = self.current_block().parent_idx
+        self._bump_version()
 
     def _bump_version(self):
         self._version += 1
@@ -352,7 +394,9 @@ class Program(object):
                 nop = Operator(nb, op.type)
                 nop.inputs = {k: list(v) for k, v in op.inputs.items()}
                 nop.outputs = {k: list(v) for k, v in op.outputs.items()}
-                nop.attrs = dict(op.attrs)
+                # a sub-block attribute points at the clone's own block
+                nop.attrs = {k: p.blocks[v.idx] if isinstance(v, Block)
+                             else v for k, v in op.attrs.items()}
                 nb.ops.append(nop)
         if for_test:
             p._inference_optimize()
@@ -366,7 +410,9 @@ class Program(object):
                     op.attrs['is_test'] = True
 
     def prune(self, targets):
-        """Keep only ops that (transitively) produce ``targets``."""
+        """Keep only ops that (transitively) produce ``targets``. An op
+        with a sub-block (a While) produces what its body writes and
+        needs what its body reads, so a saved decode keeps its loop."""
         if not isinstance(targets, (list, tuple)):
             targets = [targets]
         needed = set(t.name if isinstance(t, Variable) else t
@@ -377,9 +423,9 @@ class Program(object):
             op = ops[i]
             if op.type == 'backward_marker':
                 continue
-            if set(op.output_arg_names) & needed:
+            if set(_op_writes(op)) & needed:
                 keep.add(i)
-                needed |= set(op.input_arg_names)
+                needed |= set(_op_reads(op))
         p = self.clone()
         nb = p.global_block()
         nb.ops = [op for i, op in enumerate(nb.ops) if i in keep]

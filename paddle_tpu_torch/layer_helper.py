@@ -115,9 +115,20 @@ class LayerHelper(object):
             lod_level=lod_level if lod_level is not None else 0,
             stop_gradient=stop_gradient)
 
+    def create_variable(self, *args, **kwargs):
+        return self.main_program.current_block().create_var(*args, **kwargs)
+
     def create_global_variable(self, persistable=False, *args, **kwargs):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        startup_block = self.startup_program.global_block()
+        sv = startup_block.create_var(
+            name=var.name, shape=var.shape, dtype=var.dtype,
+            persistable=True)
+        initializer(sv, startup_block)
+        return var
 
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         size = list(input_var.shape[dim_start:dim_end])

@@ -24,7 +24,9 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'expand', 'gather', 'hinge_loss', 'huber_loss', 'log_loss',
            'rank_loss', 'margin_rank_loss', 'modified_huber_loss',
            'squared_l2_distance', 'squared_l2_norm', 'l1_norm', 'prelu',
-           'maxout']
+           'maxout', 'im2sequence', 'row_conv', 'sequence_conv',
+           'sequence_reshape', 'lod_reset', 'beam_search',
+           'beam_search_decode', 'sequence_concat']
 
 
 def _prod(dims):
@@ -841,3 +843,139 @@ def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
                      outputs={"C": cell_t, "H": hidden_t},
                      attrs={"forget_bias": forget_bias})
     return hidden_t, cell_t
+
+
+# ---- the sequence, beam-search and patch layers of the control-flow slice
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper('im2sequence', name=name)
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if len(padding) == 2:
+        padding.append(padding[0])
+        padding.append(padding[1])
+    out = helper.create_tmp_variable(dtype=input.dtype, lod_level=1)
+    helper.append_op(type='im2sequence', inputs={'X': input},
+                     outputs={'Out': out},
+                     attrs={'kernels': filter_size, 'strides': stride,
+                            'paddings': padding})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper('row_conv', param_attr=param_attr, act=act)
+    dtype = input.dtype
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    filter_param = helper.create_parameter(attr=helper.param_attr,
+                                           shape=filter_shape, dtype=dtype)
+    out = helper.create_tmp_variable(dtype, shape=input.shape,
+                                     lod_level=input.lod_level)
+    helper.append_op(type='row_conv',
+                     inputs={'X': [input], 'Filter': [filter_param]},
+                     outputs={'Out': [out]})
+    return helper.append_activation(out)
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None):
+    helper = LayerHelper('sequence_conv', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    dtype = input.dtype
+    filter_shape = [filter_size * input.shape[-1], num_filters]
+    filter_param = helper.create_parameter(attr=helper.param_attr,
+                                           shape=filter_shape, dtype=dtype)
+    pre_bias = helper.create_tmp_variable(
+        dtype, shape=tuple(input.shape[:-1]) + (num_filters,), lod_level=1)
+    helper.append_op(type='sequence_conv',
+                     inputs={'X': [input], 'Filter': [filter_param]},
+                     outputs={'Out': pre_bias},
+                     attrs={'contextStride': filter_stride,
+                            'contextStart': -int(filter_size // 2),
+                            'contextLength': filter_size})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=len(
+        pre_bias.shape) - 1)
+    return helper.append_activation(pre_act)
+
+
+def sequence_reshape(input, new_dim):
+    helper = LayerHelper('sequence_reshape', **{})
+    out = helper.create_tmp_variable(
+        dtype=input.dtype,
+        shape=tuple(input.shape[:-1]) + (new_dim,), lod_level=1)
+    helper.append_op(type='sequence_reshape', inputs={'X': [input]},
+                     outputs={'Out': [out]},
+                     attrs={'new_dim': new_dim})
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    helper = LayerHelper('lod_reset', **{})
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape,
+                                     lod_level=1)
+    if y is not None:
+        helper.append_op(type="lod_reset", inputs={'X': x, 'Y': y},
+                         outputs={'Out': out})
+    elif target_lod is not None:
+        helper.append_op(type="lod_reset", inputs={'X': x},
+                         attrs={'target_lod': list(target_lod)},
+                         outputs={'Out': out})
+    else:
+        raise ValueError("y and target_lod should not be both None.")
+    return out
+
+
+def beam_search(pre_ids, ids, scores, beam_size, end_id, level=0):
+    helper = LayerHelper('beam_search', **{})
+    score_type = scores.dtype
+    id_type = ids.dtype
+    selected_scores = helper.create_tmp_variable(dtype=score_type,
+                                                 lod_level=2)
+    selected_ids = helper.create_tmp_variable(dtype=id_type, lod_level=2)
+    # the parent beam rows are an explicit output, as in the JAX package
+    # (the reference recovers them from LoD offsets); the static
+    # beam_search_decode consumes them
+    parent_idx = helper.create_tmp_variable(dtype='int32')
+    helper.append_op(type='beam_search',
+                     inputs={'pre_ids': pre_ids, 'ids': ids,
+                             'scores': scores},
+                     outputs={'selected_ids': selected_ids,
+                              'selected_scores': selected_scores,
+                              'parent_idx': parent_idx},
+                     attrs={'level': level, 'beam_size': beam_size,
+                            'end_id': end_id})
+    selected_ids.parent_idx = parent_idx
+    return selected_ids, selected_scores
+
+
+def beam_search_decode(ids, scores, parents=None, name=None):
+    """ids/scores: tensor arrays (array_write once per step). parents:
+    the matching array of parent_idx outputs from beam_search (required
+    by the static [B*K] backtrack)."""
+    helper = LayerHelper('beam_search_decode', name=name)
+    sentence_ids = helper.create_tmp_variable(dtype=ids.dtype, lod_level=2)
+    sentence_scores = helper.create_tmp_variable(dtype=scores.dtype,
+                                                 lod_level=2)
+    inputs = {"Ids": ids, "Scores": scores}
+    if parents is not None:
+        inputs["Parents"] = parents
+    helper.append_op(type="beam_search_decode",
+                     inputs=inputs,
+                     outputs={"SentenceIds": sentence_ids,
+                              "SentenceScores": sentence_scores})
+    return sentence_ids, sentence_scores
+
+
+def sequence_concat(input, name=None):
+    """Concatenate corresponding sequences along time. Parity:
+    operators/sequence_concat_op.cc (axis-0, level-0 concat of LoD
+    tensors)."""
+    helper = LayerHelper('sequence_concat', **locals())
+    out = helper.create_tmp_variable(
+        dtype=helper.input_dtype(input_param_name='input'),
+        shape=input[0].shape, lod_level=input[0].lod_level)
+    helper.append_op(type='sequence_concat', inputs={'X': input},
+                     outputs={'Out': out})
+    return out

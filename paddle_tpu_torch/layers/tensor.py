@@ -1,12 +1,23 @@
 """Tensor layers. Counterpart of paddle_tpu/layers/tensor.py, trimmed to
-``create_parameter``, ``cast``, ``concat``, ``sums``, ``fill_constant``
-and ``fill_constant_batch_size_like``."""
-from ..framework import convert_np_dtype
+``create_tensor``, ``create_parameter``, ``create_global_var``,
+``cast``, ``concat``, ``sums``, ``assign``, ``fill_constant``,
+``fill_constant_batch_size_like``, ``ones`` and ``zeros``."""
+import numpy as np
+
+from ..framework import Variable, convert_np_dtype
+from ..initializer import Constant
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ['create_parameter', 'cast', 'concat', 'sums', 'fill_constant',
-           'fill_constant_batch_size_like']
+__all__ = ['create_tensor', 'create_parameter', 'create_global_var',
+           'cast', 'concat', 'sums', 'assign', 'fill_constant',
+           'fill_constant_batch_size_like', 'ones', 'zeros']
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -16,6 +27,17 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
         attr = ParamAttr(name=name)
     return helper.create_parameter(attr, shape, dtype, is_bias,
                                    default_initializer)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(dtype=dtype, shape=tuple(shape),
+                                        persistable=persistable,
+                                        name=name)
+    helper.set_variable_initializer(var,
+                                    initializer=Constant(value=float(value)))
+    return var
 
 
 def cast(x, dtype):
@@ -59,6 +81,28 @@ def sums(input, out=None):
     return out
 
 
+def assign(input, output=None):
+    helper = LayerHelper('assign', **{})
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_tmp_variable(dtype=input.dtype,
+                                                shape=input.shape,
+                                                lod_level=input.lod_level)
+        helper.append_op(type='assign', inputs={'X': [input]},
+                         outputs={'Out': [output]})
+    elif isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_tmp_variable(dtype=str(input.dtype),
+                                                shape=input.shape)
+        helper.append_op(type='assign_value', outputs={'Out': [output]},
+                         attrs={'shape': list(input.shape),
+                                'dtype': str(input.dtype),
+                                'values': input.flatten().tolist()})
+    else:
+        raise ValueError("Wrong type for assign input: %s" % type(input))
+    return output
+
+
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     helper = LayerHelper("fill_constant", **{})
     if out is None:
@@ -84,3 +128,11 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
                             'output_dim_idx': output_dim_idx})
     out.stop_gradient = True
     return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(value=1.0, shape=shape, dtype=dtype)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(value=0.0, shape=shape, dtype=dtype)

@@ -1,4 +1,4 @@
-"""SequenceTensor: a batch of variable-length sequences, padded.
+"""SequenceTensor: a batch of variable-length sequences, padded or packed.
 
 Counterpart of paddle_tpu/lod.py, copied and trimmed. The reference
 packs sequences contiguously with a "level of detail" offset table; this
@@ -18,10 +18,13 @@ padded_outer], the inner lengths.
 device once fed (``lengths`` as int64 there). The op kernels read
 lengths from the device, so no step waits on the host.
 
-Left out: the packed mode (``from_packed``, offset-only tensors), which
-serves the eager dynamic-decode path of control flow, a later slice.
-``set_lod`` builds the padded layout; nothing here keeps packed rows as
-they are.
+The packed mode (``from_packed``) keeps the reference's own layout:
+``data`` is the packed rows [sum_rows, *feat] (a tensor on the
+Executor's device once fed), ``lengths`` is None and the offset LoD is a
+list of host lists (``offsets()``). The dynamic beam decode runs in it:
+a While whose beam search is fed 2-level LoD (``init_ids`` /
+``init_scores``, set with ``set`` and ``set_lod``), where the number of
+rows changes from step to step. Everything else stays padded.
 """
 import numpy as np
 
@@ -70,9 +73,26 @@ class SequenceTensor(object):
 
     @classmethod
     def from_packed(cls, rows, offsets):
-        raise NotImplementedError(
-            "packed-mode SequenceTensor (the eager dynamic-decode path) is "
-            "not ported yet (ROADMAP Queue A)")
+        """Packed-mode tensor: the reference layout, rows [sum_rows,
+        *feat] and the offset LoD as host lists, with no padded copy.
+        The dynamic beam decode's values, whose row counts change from
+        step to step."""
+        st = cls()
+        st.data = rows
+        st._rows = rows
+        st._offsets = [[int(o) for o in level] for level in offsets]
+        return st
+
+    @property
+    def packed_mode(self):
+        return self.lengths is None and self._offsets is not None
+
+    def offsets(self):
+        """The absolute offset LoD: kept as it is in packed mode,
+        computed from the lengths otherwise."""
+        if self._offsets is not None:
+            return [list(level) for level in self._offsets]
+        return self.lod()
 
     def set(self, array, place=None):
         """Reference LoDTensor.set(np_array, place): packed rows."""
@@ -116,6 +136,8 @@ class SequenceTensor(object):
 
     @property
     def lod_level(self):
+        if self.packed_mode:
+            return len(self._offsets)
         return 2 if self.sub_lengths is not None else 1
 
     def _inner_lengths(self):
@@ -127,6 +149,9 @@ class SequenceTensor(object):
                 for j in range(int(lens[i]))]
 
     def recursive_sequence_lengths(self):
+        if self.lengths is None:
+            return [[b - a for a, b in zip(level[:-1], level[1:])]
+                    for level in (self._offsets or [])]
         lens = _host(self.lengths).tolist()
         if self.sub_lengths is None:
             return [lens]
@@ -148,6 +173,8 @@ class SequenceTensor(object):
         """Back to the reference's packed [sum(lengths), ...] layout, on
         the host."""
         data = _host(self.data)
+        if self.lengths is None:
+            return data
         lens = _host(self.lengths).astype(int)
         if self.sub_lengths is not None:
             sub = _host(self.sub_lengths).astype(int)
@@ -158,6 +185,9 @@ class SequenceTensor(object):
                                for i in range(len(lens))], axis=0)
 
     def __repr__(self):
+        if self.packed_mode:
+            return "SequenceTensor(packed rows=%s %s, lod=%s)" % (
+                tuple(self.data.shape), self.data.dtype, self._offsets)
         return "SequenceTensor(data=%s %s, lengths=%s)" % (
             tuple(self.data.shape), self.data.dtype,
             None if self.lengths is None else tuple(self.lengths.shape))

@@ -3,20 +3,31 @@
 The networks of the reference's python/paddle/fluid/tests/book scripts
 that the port runs whole: fit_a_line (book 01), recognize_digits (book
 02, conv and MLP), image_classification with the CIFAR-10 ResNet (book
-03) and word2vec (book 04, dense embedding). Each ``<book>()`` adds its
-network to the current program guard at the script's widths (keyword
-arguments cut them for tests) and returns a ``Book``; ``train(book)``
-appends the script's optimizer, and ``reader(book)`` is the script's
-training reader on the port's datasets.
+03), word2vec (book 04, dense embedding) and machine_translation (book
+08: a DynamicRNN decoder trained, a beam-search While decoding). Each
+``<book>()`` adds its network to the current program guard at the
+script's widths (keyword arguments cut them for tests) and returns a
+``Book``; ``train(book)`` appends the script's optimizer, and
+``reader(book)`` is the script's training reader on the port's
+datasets. Book 08's decoders, ``decode_dynamic`` (the script's While
+over 2-level LoD) and ``decode_static`` (the [B*K] form through
+``nets.static_beam_decoder``), go into programs of their own, each
+built under a fresh ``unique_name.guard()`` as the training program is,
+so their parameters bear the trained ones' names.
 """
-from .. import layers, nets, optimizer
+import numpy as np
+
+from .. import layers, nets, optimizer, regularizer
 from .. import dataset, reader as reader_m
+from ..lod import SequenceTensor
+from ..param_attr import ParamAttr
 from ..reader import batch
 from . import resnet
 
 __all__ = ['Book', 'fit_a_line', 'recognize_digits_conv',
            'recognize_digits_mlp', 'image_classification', 'word2vec',
-           'train', 'reader', 'BOOKS']
+           'machine_translation', 'decode_dynamic', 'decode_static',
+           'decode_init_feed', 'train', 'reader', 'BOOKS', 'MT']
 
 WORD2VEC_N = 5
 
@@ -118,6 +129,181 @@ def word2vec(dict_size=None, embed=32, hidden=256):
                 lambda: optimizer.SGD(learning_rate=0.001), 32)
 
 
+# book/test_machine_translation.py's widths
+MT = dict(dict_size=30000, word_dim=16, hidden_dim=32, batch_size=2,
+          max_length=8, topk_size=50, beam_size=2, end_id=10)
+
+
+def _mt_encoder(dict_size, word_dim, hidden_dim):
+    """embedding (the shared table 'vemb'), fc 4 * hidden tanh,
+    dynamic_lstm of 4 * hidden (the default peepholes), last step."""
+    src = layers.data(name='src_word_id', shape=[1], dtype='int64',
+                      lod_level=1)
+    emb = layers.embedding(input=src, size=[dict_size, word_dim],
+                           dtype='float32', is_sparse=False,
+                           param_attr=ParamAttr(name='vemb'))
+    fc1 = layers.fc(input=emb, size=hidden_dim * 4, act='tanh')
+    lstm_hidden0, _ = layers.dynamic_lstm(input=fc1, size=hidden_dim * 4)
+    return src, layers.sequence_last_step(input=lstm_hidden0)
+
+
+def machine_translation(dict_size=None, word_dim=None, hidden_dim=None):
+    """book/test_machine_translation.py, train: the encoder, then a
+    DynamicRNN whose memory starts from the encoder's state; a step runs
+    fc([word, state], hidden, tanh) and fc(dict, softmax); cross_entropy
+    and mean; Adagrad(1e-4) with L2Decay(0.1) at batch 2 on wmt14.
+
+    The script looks the words up with is_sparse=True. The port has no
+    sparse row gradients yet, so the table 'vemb' trains dense, as
+    word2vec's does."""
+    dict_size = dict_size or MT['dict_size']
+    word_dim = word_dim or MT['word_dim']
+    hidden_dim = hidden_dim or MT['hidden_dim']
+    src, context = _mt_encoder(dict_size, word_dim, hidden_dim)
+    trg = layers.data(name='target_language_word', shape=[1],
+                      dtype='int64', lod_level=1)
+    trg_emb = layers.embedding(input=trg, size=[dict_size, word_dim],
+                               dtype='float32', is_sparse=False,
+                               param_attr=ParamAttr(name='vemb'))
+    rnn = layers.DynamicRNN()
+    with rnn.block():
+        current_word = rnn.step_input(trg_emb)
+        pre_state = rnn.memory(init=context)
+        current_state = layers.fc(input=[current_word, pre_state],
+                                  size=hidden_dim, act='tanh')
+        current_score = layers.fc(input=current_state, size=dict_size,
+                                  act='softmax')
+        rnn.update_memory(pre_state, current_state)
+        rnn.output(current_score)
+    pred = rnn()
+    label = layers.data(name='target_language_next_word', shape=[1],
+                        dtype='int64', lod_level=1)
+    loss = layers.mean(layers.cross_entropy(input=pred, label=label))
+    return Book('machine_translation', [src, trg, label], pred, loss, None,
+                lambda: optimizer.Adagrad(
+                    learning_rate=1e-4,
+                    regularization=regularizer.L2DecayRegularizer(
+                        regularization_coeff=0.1)), MT['batch_size'])
+
+
+def _mt_step(pre_ids, pre_state, dict_size, word_dim, hidden_dim):
+    """One decoder step on dense rows: the trained fc_1 (word, state)
+    and fc_2."""
+    emb = layers.embedding(input=pre_ids, size=[dict_size, word_dim],
+                           dtype='float32', param_attr=ParamAttr(
+                               name='vemb'))
+    state = layers.fc(input=[emb, pre_state], size=hidden_dim, act='tanh')
+    return layers.fc(input=state, size=dict_size, act='softmax'), state
+
+
+def decode_dynamic(dict_size=None, word_dim=None, hidden_dim=None,
+                   beam_size=None, max_length=None, topk_size=None,
+                   end_id=None):
+    """book/test_machine_translation.py, decode: a While over the
+    2-level LoD ``init_ids`` / ``init_scores`` (fed packed, as
+    ``decode_init_feed`` makes them); its body reads the arrays,
+    sequence_expands the state to the beams, embeds, runs the decoder's
+    fc, lod_resets it to the scores' LoD, softmax fc, topk, beam_search,
+    increment and array_write; beam_search_decode after the loop.
+    Returns (feeds, translation_ids, translation_scores).
+
+    Two departures from the script, so the decoder runs the trained
+    parameters: its embedding is the shared table 'vemb' (the script's
+    has no name), and the fc takes [word, state], the training step's
+    order (the script's decode has [state, word])."""
+    dict_size = dict_size or MT['dict_size']
+    word_dim = word_dim or MT['word_dim']
+    hidden_dim = hidden_dim or MT['hidden_dim']
+    beam_size = beam_size or MT['beam_size']
+    max_length = max_length or MT['max_length']
+    topk_size = topk_size or MT['topk_size']
+    end_id = MT['end_id'] if end_id is None else end_id
+    src, init_state = _mt_encoder(dict_size, word_dim, hidden_dim)
+    array_len = layers.fill_constant(shape=[1], dtype='int64',
+                                     value=max_length)
+    counter = layers.zeros(shape=[1], dtype='int64', force_cpu=True)
+    state_array = layers.create_array('float32')
+    layers.array_write(init_state, array=state_array, i=counter)
+    ids_array = layers.create_array('int64')
+    scores_array = layers.create_array('float32')
+    init_ids = layers.data(name='init_ids', shape=[1], dtype='int64',
+                           lod_level=2)
+    init_scores = layers.data(name='init_scores', shape=[1],
+                              dtype='float32', lod_level=2)
+    layers.array_write(init_ids, array=ids_array, i=counter)
+    layers.array_write(init_scores, array=scores_array, i=counter)
+    cond = layers.less_than(x=counter, y=array_len)
+    while_op = layers.While(cond=cond)
+    with while_op.block():
+        pre_ids = layers.array_read(array=ids_array, i=counter)
+        pre_state = layers.array_read(array=state_array, i=counter)
+        pre_score = layers.array_read(array=scores_array, i=counter)
+        pre_state_expanded = layers.sequence_expand(pre_state, pre_score)
+        pre_ids_emb = layers.embedding(
+            input=pre_ids, size=[dict_size, word_dim], dtype='float32',
+            param_attr=ParamAttr(name='vemb'))
+        current_state = layers.fc(input=[pre_ids_emb, pre_state_expanded],
+                                  size=hidden_dim, act='tanh')
+        current_state_with_lod = layers.lod_reset(x=current_state,
+                                                  y=pre_score)
+        current_score = layers.fc(input=current_state_with_lod,
+                                  size=dict_size, act='softmax')
+        topk_scores, topk_indices = layers.topk(current_score, k=topk_size)
+        selected_ids, selected_scores = layers.beam_search(
+            pre_ids, topk_indices, topk_scores, beam_size, end_id=end_id,
+            level=0)
+        layers.increment(x=counter, value=1, in_place=True)
+        layers.array_write(current_state, array=state_array, i=counter)
+        layers.array_write(selected_ids, array=ids_array, i=counter)
+        layers.array_write(selected_scores, array=scores_array, i=counter)
+        layers.less_than(x=counter, y=array_len, cond=cond)
+    ids, scores = layers.beam_search_decode(ids=ids_array,
+                                            scores=scores_array)
+    return [src, init_ids, init_scores], ids, scores
+
+
+def decode_init_feed(batch_size, start_id=0):
+    """``init_ids`` (the start id) and ``init_scores`` (1.0) for a batch,
+    as the script feeds them: ``LoDTensor()``, ``set(rows)`` and
+    ``set_lod([[0, 1, .., B], [0, 1, .., B]])``, so they stay packed."""
+    lod = [list(range(batch_size + 1))] * 2
+    feed = {}
+    for name, rows in (('init_ids', np.full((batch_size, 1), start_id,
+                                            'int64')),
+                       ('init_scores', np.ones((batch_size, 1),
+                                               'float32'))):
+        t = SequenceTensor()
+        t.set(rows)
+        t.set_lod(lod)
+        feed[name] = t
+    return feed
+
+
+def decode_static(dict_size=None, word_dim=None, hidden_dim=None,
+                  beam_size=None, max_length=None, topk_size=None,
+                  end_id=None, start_id=0):
+    """The [B*K] form of the decode (tests/test_books.py's book 08):
+    the encoder's state tiled to the beams, then
+    ``nets.static_beam_decoder`` over the same step as decode_dynamic's.
+    Returns (feeds, ids, scores)."""
+    dict_size = dict_size or MT['dict_size']
+    word_dim = word_dim or MT['word_dim']
+    hidden_dim = hidden_dim or MT['hidden_dim']
+    beam_size = beam_size or MT['beam_size']
+    src, enc = _mt_encoder(dict_size, word_dim, hidden_dim)
+    enc_beam = layers.reshape(layers.expand(
+        layers.unsqueeze(enc, axes=[1]), expand_times=[1, beam_size, 1]),
+        shape=[-1, hidden_dim])
+    ids, scores = nets.static_beam_decoder(
+        lambda pre_ids, pre_state: _mt_step(pre_ids, pre_state, dict_size,
+                                            word_dim, hidden_dim),
+        enc_beam, beam_size=beam_size,
+        max_len=max_length or MT['max_length'],
+        end_id=MT['end_id'] if end_id is None else end_id,
+        init_id=start_id, topk_size=topk_size or MT['topk_size'])
+    return [src], ids, scores
+
+
 def train(book):
     """Append the script's optimizer."""
     opt = book.optimizer()
@@ -138,6 +324,8 @@ def reader(book, batch_size=None):
     if book.name == 'image_classification':
         return batch(reader_m.shuffle(dataset.cifar.train10(),
                                       buf_size=128 * 10), bs)
+    if book.name == 'machine_translation':
+        return batch(dataset.wmt14.train(book.prediction.shape[-1]), bs)
     word_dict = dataset.imikolov.build_dict()
     return batch(dataset.imikolov.train(word_dict, WORD2VEC_N), bs)
 
@@ -146,4 +334,5 @@ BOOKS = {'fit_a_line': fit_a_line,
          'recognize_digits_conv': recognize_digits_conv,
          'recognize_digits_mlp': recognize_digits_mlp,
          'image_classification': image_classification,
-         'word2vec': word2vec}
+         'word2vec': word2vec,
+         'machine_translation': machine_translation}

@@ -11,12 +11,19 @@ def unwrap(v):
 
 
 def rewrap(template, data):
-    """``data`` with ``template``'s lengths when ``template`` is a
-    SequenceTensor, else ``data``. The data is taken as it is: its
-    autograd graph carries through."""
+    """``data`` with ``template``'s lengths (or, packed, its offset
+    LoD) when ``template`` is a SequenceTensor, else ``data``. The data
+    is taken as it is: its autograd graph carries through."""
     if isinstance(template, SequenceTensor):
+        if template.packed_mode:
+            return SequenceTensor.from_packed(data, template._offsets)
         return SequenceTensor(data, template.lengths, template.sub_lengths)
     return data
+
+
+def padded(v):
+    """True for a SequenceTensor in the padded layout (not packed)."""
+    return isinstance(v, SequenceTensor) and not v.packed_mode
 
 
 def step_mask(lengths, t, dtype, extra_dims=0):
@@ -60,3 +67,27 @@ def prod(dims):
     for d in dims:
         r *= int(d)
     return r
+
+
+# Reads of the card's values by the host: a While's condition, a tensor
+# array's index and the dynamic beam's candidates; one count a wait
+# (``host_read``). The chip smoke reads it a decode step.
+HOST_SYNCS = [0]
+
+
+def host_scalar(t):
+    """The first element of ``t`` on the host: one ``host_read``."""
+    return host_read(t.reshape(-1)[:1])[0][0].item()
+
+
+def host_read(*tensors):
+    """The tensors as host numpy arrays, with one wait for the device:
+    every copy is queued before it (a copy from the card to the host
+    lands in pinned memory when it does not block)."""
+    cuda = [t.device for t in tensors if t.device.type == 'cuda']
+    outs = [t.detach().to('cpu', non_blocking=bool(cuda)) for t in tensors]
+    if cuda:
+        torch.cuda.current_stream(cuda[0]).synchronize()
+    HOST_SYNCS[0] += 1
+    return [(o.float() if o.is_floating_point() and o.element_size() < 4
+             else o).numpy() for o in outs]

@@ -17,8 +17,8 @@ import torch
 from ..core.registry import register_kernel
 from ..core.amp import matmul_compute
 from ..lod import SequenceTensor
-from .common import (bcast_y, f32, prod, rewrap, seq_of, step_mask,
-                     unwrap)
+from .common import (bcast_y, f32, padded, prod, rewrap, seq_of,
+                     step_mask, unwrap)
 from .activations import ACTS, ACTS_P, BINS, PARAM_ATTRS
 
 
@@ -29,8 +29,8 @@ def _elementwise(name, fn):
         tmpl = seq_of(x, y)
         xd, yd = unwrap(x), unwrap(y)
         axis = ctx.attr('axis', -1)
-        if isinstance(x, SequenceTensor) and \
-                not isinstance(y, SequenceTensor):
+        # packed rows are the reference's own layout: no shift
+        if padded(x) and not isinstance(y, SequenceTensor):
             if axis not in (None, -1) and axis >= 1:
                 # the IR's shapes follow the reference's packed [total,
                 # ...] layout; the data is padded [B, T, ...], so dims
@@ -80,12 +80,13 @@ def _mul(ctx):
 
     Sequence inputs: the reference packs time into dim 0 ([total, D]);
     the data here is padded [B, T, D], so the time dim joins the row
-    dims and the result stays a SequenceTensor."""
+    dims and the result stays a SequenceTensor. Packed rows are the
+    reference's [total, D] as they are."""
     x_in, y = ctx.input('X'), unwrap(ctx.input('Y'))
     x = unwrap(x_in)
     xd = ctx.attr('x_num_col_dims', 1)
     yd = ctx.attr('y_num_col_dims', 1)
-    if isinstance(x_in, SequenceTensor):
+    if padded(x_in):
         xd += 1
     xs, ys = x.shape, y.shape
     x2 = x.reshape(prod(xs[:xd]), prod(xs[xd:]))
@@ -99,7 +100,7 @@ def _mul(ctx):
 def _mean(ctx):
     x_in = ctx.input('X')
     x = f32(unwrap(x_in))
-    if isinstance(x_in, SequenceTensor):
+    if padded(x_in):
         # the average over real tokens only: the reference means over
         # its packed [total, ...] rows, which hold no padding
         m = step_mask(x_in.lengths, x.shape[1], x.dtype, x.dim() - 2)

@@ -15,8 +15,7 @@ import torch.nn.functional as F
 
 from ..core.registry import register_kernel
 from ..core.amp import matmul_compute
-from ..lod import SequenceTensor
-from .common import f32, rewrap, step_mask, unwrap
+from .common import f32, padded, rewrap, step_mask, unwrap
 
 
 def _pair(v):
@@ -203,7 +202,7 @@ def _cross_entropy(ctx):
         if idx.dim() == x.dim():
             idx = idx.reshape(idx.shape[:-1])
         loss = -torch.log(torch.gather(x, -1, idx.unsqueeze(-1)) + eps)
-    if isinstance(x_in, SequenceTensor):
+    if padded(x_in):
         loss = rewrap(x_in, loss * step_mask(
             x_in.lengths, loss.shape[1], loss.dtype, loss.dim() - 2))
     ctx.set_output('Y', loss)

@@ -1,7 +1,7 @@
 """Optimizer update kernels.
 
 Counterpart of paddle_tpu/ops/optim_ops.py, trimmed to the dense
-branches of ``sgd``, ``momentum`` and ``adam`` (sparse row gradients are
+branches of ``sgd``, ``momentum``, ``adagrad`` and ``adam`` (sparse row gradients are
 not ported). Each writes ParamOut and its accumulator outs, which the
 Executor stores back into the Scope on the device. The updates make new
 tensors, as the JAX kernels do; the old ones are freed when the Scope
@@ -35,6 +35,15 @@ def _momentum(ctx):
         p_out = p - lr * v_out
     ctx.set_output('ParamOut', p_out)
     ctx.set_output('VelocityOut', v_out)
+
+
+@register_kernel('adagrad')
+def _adagrad(ctx):
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    m_out = ctx.input('Moment') + torch.square(g)
+    ctx.set_output('ParamOut', p - _lr(ctx) * g / (
+        torch.sqrt(m_out) + ctx.attr('epsilon', 1e-6)))
+    ctx.set_output('MomentOut', m_out)
 
 
 @register_kernel('adam')

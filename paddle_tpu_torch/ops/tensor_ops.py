@@ -6,7 +6,7 @@ assign_value (the constants the compiler's constant_fold bakes),
 uniform_random, gaussian_random, lookup_table, concat, split, reshape;
 and the tensor ops of the books and the decode path: cast, squeeze,
 unsqueeze, transpose, one_hot, gather, top_k, increment, expand,
-fill_constant_batch_size_like.
+fill_constant_batch_size_like; and of control flow: is_empty and print.
 
 Integer widths: the JAX package runs without x64, so its int64 values
 are int32 and its ``top_k`` writes int32 indices. torch indexes with
@@ -19,7 +19,7 @@ import torch
 
 from ..core.registry import register_kernel
 from ..core.lowering import torch_dtype
-from .common import rewrap, unwrap
+from .common import host_read, rewrap, unwrap
 
 
 @register_kernel('fill_constant')
@@ -264,3 +264,51 @@ def _expand(ctx):
     times = [int(t) for t in ctx.attr('expand_times')]
     times = [1] * (xd.dim() - len(times)) + times
     ctx.set_output('Out', rewrap(x, xd.repeat(times)))
+
+
+@register_kernel('is_empty')
+def _is_empty(ctx):
+    """A 0-d bool, from the shape alone: no read of the device."""
+    x = unwrap(ctx.input('X'))
+    ctx.set_output('Out', torch.tensor(x.numel() == 0, device=ctx.device))
+
+
+@register_kernel('print', side_effect=True)
+def _print(ctx):
+    """Parity: operators/print_op.cc TensorPrint. The value passes
+    through; in the forward phase it is printed to stderr, the first
+    ``first_n`` runs of this op when ``first_n`` is positive. As in the
+    JAX package, print_phase 'backward' prints nothing (the fused
+    backward has no per-op gradient stream; fetch the gradient)."""
+    x = ctx.input('X')
+    phase = str(ctx.attr('print_phase', 'both') or 'both').lower()
+    if phase in ('forward', 'both'):
+        first_n = int(ctx.attr('first_n', -1) or -1)
+        # the count lives on the op, as the reference op's times_
+        count = ctx.op.__dict__.setdefault('_print_count', [0])
+        if first_n <= 0 or count[0] < first_n:
+            count[0] += 1
+            _print_tensor(ctx, x)
+    ctx.set_output('Out', x)
+
+
+def _print_tensor(ctx, x):
+    import sys
+    arr = host_read(unwrap(x))[0]
+    msg = ctx.attr('message', '') or ''
+    parts = [msg] if msg else []
+    if ctx.attr('print_tensor_name', True):
+        parts.append("Tensor[%s]" % (ctx.op.inputs.get('X') or ['?'])[0])
+    if ctx.attr('print_tensor_shape', True):
+        parts.append("shape: %s" % (tuple(arr.shape),))
+    if ctx.attr('print_tensor_type', True):
+        parts.append("dtype: %s" % arr.dtype)
+    lengths = getattr(x, 'lengths', None)
+    if ctx.attr('print_tensor_lod', True) and lengths is not None:
+        parts.append("lod: %s" % (host_read(lengths)[0].tolist(),))
+    flat = arr.ravel()
+    summarize = int(ctx.attr('summarize', -1) or -1)
+    if summarize >= 0:
+        flat = flat[:summarize]
+    parts.append("data: %s" % np.array2string(flat, threshold=20))
+    print("  ".join(parts), file=sys.stderr)

@@ -1,7 +1,7 @@
 """Optimizers.
 
-Counterpart of paddle_tpu/optimizer.py, trimmed to SGD, Momentum and
-Adam. The same program surgery: ``minimize`` appends the backward marker,
+Counterpart of paddle_tpu/optimizer.py, trimmed to SGD, Momentum,
+Adagrad and Adam. The same program surgery: ``minimize`` appends the backward marker,
 gradient-clip ops, regularizer ops, one update op per parameter, and the
 finish-update ops (Adam's beta-power scaling), all in the loss's block.
 Accumulators are persistable variables initialised by the startup
@@ -15,8 +15,9 @@ from .regularizer import append_regularization_ops
 from .initializer import Constant
 from .layer_helper import LayerHelper
 
-__all__ = ['SGD', 'Momentum', 'Adam', 'SGDOptimizer', 'MomentumOptimizer',
-           'AdamOptimizer', 'Optimizer']
+__all__ = ['SGD', 'Momentum', 'Adagrad', 'Adam', 'SGDOptimizer',
+           'MomentumOptimizer', 'AdagradOptimizer', 'AdamOptimizer',
+           'Optimizer']
 
 
 class Optimizer(object):
@@ -188,6 +189,30 @@ class MomentumOptimizer(Optimizer):
                    "use_nesterov": self._use_nesterov})
 
 
+class AdagradOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, epsilon=1.0e-6, **kwargs):
+        super(AdagradOptimizer, self).__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment_acc = self._get_accumulator(self._moment_acc_str,
+                                           param_and_grad[0])
+        return block.append_op(
+            type="adagrad",
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "Moment": moment_acc,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0],
+                     "MomentOut": moment_acc},
+            attrs={"epsilon": self._epsilon})
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -245,4 +270,5 @@ class AdamOptimizer(Optimizer):
 
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer

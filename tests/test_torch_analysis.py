@@ -169,7 +169,7 @@ def test_dataflow_backward_marker_hidden_writes():
 def _carrier_program(pkg, block_cls):
     """A dynamic_rnn carrier op built by hand around a sub-block whose
     ops read the carrier's attr-declared step input and memory (the
-    layer, DynamicRNN, waits for the control-flow slice)."""
+    layer's own program: test_dataflow_carrier_defs_dynamic_rnn)."""
     prog = pkg.Program()
     g = prog.global_block()
     for nm in ('seq', 'boot', 'rnn_out'):
@@ -212,6 +212,46 @@ def test_dataflow_carrier_defs_sub_block():
     assert len(bad) == 1 and bad[0].block_idx == 1
     _jres, j_diags = JA.analyze_dataflow(progs['jax'][0], feeds=('seq',))
     assert _keys(diags) == _keys(j_diags)
+
+
+def _dynamic_rnn_program(pkg):
+    """tests/test_analysis.py's DynamicRNN case, with the layer."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        L = pkg.layers
+        trg = L.data(name='w', shape=[1], dtype='int64', lod_level=1)
+        emb = L.embedding(input=trg, size=[30, 8])
+        boot = L.fill_constant(shape=[2, 16], dtype='float32', value=0.0)
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            cur = drnn.step_input(emb)
+            mem = drnn.memory(init=boot)
+            out = L.fc(input=L.concat([cur, mem], axis=-1), size=16,
+                       act='tanh')
+            drnn.update_memory(mem, out)
+            drnn.output(out)
+        drnn()
+    return main
+
+
+def test_dataflow_carrier_defs_dynamic_rnn():
+    """The DynamicRNN layer's step-input and memory vars are
+    materialized by its carrier op: no use-before-def, and the
+    diagnostics, defs and uses field for field as paddle_tpu's."""
+    progs = _both(_dynamic_rnn_program)
+    carrier = [op for op in progs['port'].global_block().ops
+               if op.type == 'dynamic_rnn'][0]
+    j_carrier = [op for op in progs['jax'].global_block().ops
+                 if op.type == 'dynamic_rnn'][0]
+    assert A.carrier_defs(carrier) == JA.carrier_defs(j_carrier)
+    assert A.carrier_defs(carrier)
+    res, diags = A.analyze_dataflow(progs['port'], feeds=('w',))
+    assert not [d for d in diags if d.code == 'use-before-def'], diags
+    j_res, j_diags = JA.analyze_dataflow(progs['jax'], feeds=('w',))
+    assert _keys(diags) == _keys(j_diags)
+    assert res.defs == j_res.defs and res.uses == j_res.uses
+    assert _keys(A.verify_program(progs['port'])) == \
+        _keys(JA.verify_program(progs['jax']))
 
 
 def _chain_block(pkg):

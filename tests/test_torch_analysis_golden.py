@@ -7,7 +7,9 @@ The port's counterpart of tests/test_analysis_golden.py, over the
 programs the port runs: conv-mnist and VGG-16 as the benchmark harness
 builds them (benchmark/fluid/models.py:24-48, Momentum(0.01, 0.9)), the
 flagship transformer at 2 layers (small widths), ResNet-50 at 32x32,
-stacked_dynamic_lstm and machine_translation (small widths). Each is
+stacked_dynamic_lstm and machine_translation (small widths), and book
+08 (models/books.py at narrow widths): its DynamicRNN training program
+and its two decode programs, the dynamic While and the static [B*K]. Each is
 checked as the training program, as its ``clone(for_test=True)``
 inference twin, through the default passes under
 ``PassPipeline(verify=True)`` and, on the inference twin pruned to its
@@ -32,6 +34,9 @@ from paddle_tpu_torch.models import resnet as t_resnet
 from paddle_tpu_torch.models.fluid_transformer import transformer as \
     t_transformer
 
+from paddle_tpu_torch.models import books
+from test_torch_books import (MT_DECODE, MT_W, _jax_mt_decode_dynamic,
+                              _jax_mt_decode_static, _jax_mt_train)
 from test_torch_stacked_lstm import machine_translation, \
     stacked_dynamic_lstm
 
@@ -99,9 +104,36 @@ def _machine_translation(pkg):
     return ('data', 'trg', 'label'), loss
 
 
+def _book08_train(pkg):
+    if pkg is fluid:
+        _, _, loss = _jax_mt_train(**MT_W)
+    else:
+        book = books.machine_translation(**MT_W)
+        books.train(book)
+        loss = book.loss
+    return ('src_word_id', 'target_language_word',
+            'target_language_next_word'), loss
+
+
+def _book08_decode(dynamic):
+    def build(pkg):
+        w = dict(MT_W, **MT_DECODE)
+        if pkg is fluid:
+            feeds, ids, _ = (_jax_mt_decode_dynamic if dynamic
+                             else _jax_mt_decode_static)(**w)
+        else:
+            feeds, ids, _ = (books.decode_dynamic if dynamic
+                             else books.decode_static)(**w)
+        return tuple(v.name for v in feeds), ids
+    return build
+
+
 BUILDERS = {'conv_mnist': _mnist, 'vgg16': _vgg, 'flagship': _flagship,
             'resnet50': _resnet50, 'stacked_lstm': _stacked_lstm,
-            'machine_translation': _machine_translation}
+            'machine_translation': _machine_translation,
+            'book08_train': _book08_train,
+            'book08_decode_dynamic': _book08_decode(True),
+            'book08_decode_static': _book08_decode(False)}
 
 
 def _build(pkg, name):

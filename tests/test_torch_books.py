@@ -18,6 +18,14 @@ an empty directory, so nothing is read from outside the test):
 - the static verifier files the same diagnostics on each book's
   training program in both packages, with no error.
 
+Book 08, machine_translation, at narrow widths (dict 30, word 8,
+hidden 16): three Adagrad steps (loss, prediction and every gradient to
+1e-4), then from the trained parameters the script's dynamic decode (a
+While over 2-level LoD fed packed through ``LoDTensor.set`` /
+``set_lod``) and the static [B*K] decode: ids and LoD equal, scores to
+1e-5; the dynamic decode again through a saved and loaded inference
+model.
+
 Also the data modules alone: the DataFeeder's sequence branches, the
 reader decorators, the datasets' synthetic samples and ``download``,
 which opens no connection.
@@ -390,10 +398,17 @@ def test_retry_reader_resumes_like_jax():
                                     ('cifar.train10', 40),
                                     ('cifar.test10', 40),
                                     ('cifar.train100', 40),
-                                    ('imikolov.train', 200)])
+                                    ('imikolov.train', 200),
+                                    ('wmt14.train', 100),
+                                    ('wmt14.test', 100)])
 def test_synthetic_datasets_match_jax_sample_for_sample(name, n):
     mod, fn = name.split('.')
-    args = ()
+    args = (30000,) if mod == 'wmt14' else ()
+    if mod == 'wmt14':
+        assert pt.dataset.wmt14.get_dict(30) == \
+            jpaddle.dataset.wmt14.get_dict(30)
+        assert pt.dataset.wmt14.get_dict(30, reverse=True) == \
+            jpaddle.dataset.wmt14.get_dict(30, reverse=True)
     if mod == 'imikolov':
         d = pt.dataset.imikolov.build_dict()
         assert d == jpaddle.dataset.imikolov.build_dict()
@@ -419,3 +434,293 @@ def test_download_names_the_missing_file_and_serves_one_in_place(tmp_path):
     (d / 'housing.data').write_text('1 2')
     assert pt.dataset.common.download(url, 'uci_housing', None) == \
         os.path.join(str(d), 'housing.data')
+
+
+# ---- book 08: machine_translation ---------------------------------------------------
+MT_W = dict(dict_size=30, word_dim=8, hidden_dim=16)
+MT_DECODE = dict(beam_size=2, max_length=8, topk_size=10, end_id=10)
+MT_BATCH = 2
+
+
+def _jax_mt_encoder(dict_size, word_dim, hidden_dim):
+    L = fluid.layers
+    src = L.data(name='src_word_id', shape=[1], dtype='int64', lod_level=1)
+    emb = L.embedding(input=src, size=[dict_size, word_dim],
+                      dtype='float32', is_sparse=False,
+                      param_attr=fluid.ParamAttr(name='vemb'))
+    fc1 = L.fc(input=emb, size=hidden_dim * 4, act='tanh')
+    lstm_hidden0, _ = L.dynamic_lstm(input=fc1, size=hidden_dim * 4)
+    return src, L.sequence_last_step(input=lstm_hidden0)
+
+
+def _jax_mt_train(dict_size, word_dim, hidden_dim):
+    """book/test_machine_translation.py's train net, as books.py builds
+    it (the table dense)."""
+    L = fluid.layers
+    src, context = _jax_mt_encoder(dict_size, word_dim, hidden_dim)
+    trg = L.data(name='target_language_word', shape=[1], dtype='int64',
+                 lod_level=1)
+    trg_emb = L.embedding(input=trg, size=[dict_size, word_dim],
+                          dtype='float32', is_sparse=False,
+                          param_attr=fluid.ParamAttr(name='vemb'))
+    rnn = L.DynamicRNN()
+    with rnn.block():
+        current_word = rnn.step_input(trg_emb)
+        pre_state = rnn.memory(init=context)
+        current_state = L.fc(input=[current_word, pre_state],
+                             size=hidden_dim, act='tanh')
+        current_score = L.fc(input=current_state, size=dict_size,
+                             act='softmax')
+        rnn.update_memory(pre_state, current_state)
+        rnn.output(current_score)
+    pred = rnn()
+    label = L.data(name='target_language_next_word', shape=[1],
+                   dtype='int64', lod_level=1)
+    loss = L.mean(L.cross_entropy(input=pred, label=label))
+    fluid.optimizer.Adagrad(
+        learning_rate=1e-4, regularization=fluid.regularizer.
+        L2DecayRegularizer(regularization_coeff=0.1)).minimize(loss)
+    return [src, trg, label], pred, loss
+
+
+def _jax_mt_decode_dynamic(dict_size, word_dim, hidden_dim, beam_size,
+                           max_length, topk_size, end_id):
+    L = fluid.layers
+    src, init_state = _jax_mt_encoder(dict_size, word_dim, hidden_dim)
+    array_len = L.fill_constant(shape=[1], dtype='int64', value=max_length)
+    counter = L.zeros(shape=[1], dtype='int64', force_cpu=True)
+    state_array = L.create_array('float32')
+    L.array_write(init_state, array=state_array, i=counter)
+    ids_array = L.create_array('int64')
+    scores_array = L.create_array('float32')
+    init_ids = L.data(name='init_ids', shape=[1], dtype='int64',
+                      lod_level=2)
+    init_scores = L.data(name='init_scores', shape=[1], dtype='float32',
+                         lod_level=2)
+    L.array_write(init_ids, array=ids_array, i=counter)
+    L.array_write(init_scores, array=scores_array, i=counter)
+    cond = L.less_than(x=counter, y=array_len)
+    while_op = L.While(cond=cond)
+    with while_op.block():
+        pre_ids = L.array_read(array=ids_array, i=counter)
+        pre_state = L.array_read(array=state_array, i=counter)
+        pre_score = L.array_read(array=scores_array, i=counter)
+        pre_state_expanded = L.sequence_expand(pre_state, pre_score)
+        pre_ids_emb = L.embedding(
+            input=pre_ids, size=[dict_size, word_dim], dtype='float32',
+            param_attr=fluid.ParamAttr(name='vemb'))
+        current_state = L.fc(input=[pre_ids_emb, pre_state_expanded],
+                             size=hidden_dim, act='tanh')
+        current_state_with_lod = L.lod_reset(x=current_state, y=pre_score)
+        current_score = L.fc(input=current_state_with_lod, size=dict_size,
+                             act='softmax')
+        topk_scores, topk_indices = L.topk(current_score, k=topk_size)
+        selected_ids, selected_scores = L.beam_search(
+            pre_ids, topk_indices, topk_scores, beam_size, end_id=end_id,
+            level=0)
+        L.increment(x=counter, value=1, in_place=True)
+        L.array_write(current_state, array=state_array, i=counter)
+        L.array_write(selected_ids, array=ids_array, i=counter)
+        L.array_write(selected_scores, array=scores_array, i=counter)
+        L.less_than(x=counter, y=array_len, cond=cond)
+    ids, scores = L.beam_search_decode(ids=ids_array, scores=scores_array)
+    return [src, init_ids, init_scores], ids, scores
+
+
+def _jax_mt_decode_static(dict_size, word_dim, hidden_dim, beam_size,
+                          max_length, topk_size, end_id):
+    L = fluid.layers
+    src, enc = _jax_mt_encoder(dict_size, word_dim, hidden_dim)
+    enc_beam = L.reshape(L.expand(L.unsqueeze(enc, axes=[1]),
+                                  expand_times=[1, beam_size, 1]),
+                         shape=[-1, hidden_dim])
+
+    def step(pre_ids, pre_state):
+        emb = L.embedding(input=pre_ids, size=[dict_size, word_dim],
+                          dtype='float32',
+                          param_attr=fluid.ParamAttr(name='vemb'))
+        state = L.fc(input=[emb, pre_state], size=hidden_dim, act='tanh')
+        return L.fc(input=state, size=dict_size, act='softmax'), state
+    ids, scores = fluid.nets.static_beam_decoder(
+        step, enc_beam, beam_size=beam_size, max_len=max_length,
+        end_id=end_id, init_id=0, topk_size=topk_size)
+    return [src], ids, scores
+
+
+def _jax_init_feed(batch_size):
+    lod = [list(range(batch_size + 1))] * 2
+    feed = {}
+    for name, rows in (('init_ids', np.zeros((batch_size, 1), 'int64')),
+                       ('init_scores', np.ones((batch_size, 1),
+                                               'float32'))):
+        t = fluid.LoDTensor()
+        t.set(rows, fluid.CPUPlace())
+        t.set_lod(lod)
+        feed[name] = t
+    return feed
+
+
+class MTPair(object):
+    """Book 08's training program in both packages from the JAX
+    package's startup parameters; its scopes carry the trained state to
+    the decode programs."""
+
+    def __init__(self):
+        j_main, j_startup = fluid.Program(), fluid.Program()
+        j_startup.random_seed = 11
+        with fluid.unique_name.guard(), fluid.program_guard(j_main,
+                                                            j_startup):
+            self.j_feeds, pred, loss = _jax_mt_train(**MT_W)
+        t_main, t_startup = pt.Program(), pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(t_main, t_startup):
+            self.book = books.machine_translation(**MT_W)
+            books.train(self.book)
+        self.j_main, self.t_main = j_main, t_main
+        self.fetch = [loss.name, pred.name] + sorted(
+            v.name for v in j_main.list_vars() if v.name.endswith('@GRAD'))
+        self.j_scope, self.j_exe = fluid.Scope(), \
+            fluid.Executor(fluid.CPUPlace())
+        self.j_exe.run(j_startup, scope=self.j_scope)
+        self.state = {v.name: np.asarray(self.j_scope.raw(v.name))
+                      for v in j_startup.list_vars()
+                      if self.j_scope.raw(v.name) is not None}
+        self.t_scope, self.t_exe = pt.Scope(), pt.Executor(pt.CPUPlace())
+        pt_io.params_from_numpy(self.t_scope, self.state, pt.CPUPlace())
+
+    def train(self, steps):
+        random.seed(7)
+        j_r = jpaddle.batch(jpaddle.dataset.wmt14.train(
+            MT_W['dict_size']), MT_BATCH)
+        t_r = books.reader(self.book)
+        j_feeder = fluid.DataFeeder(feed_list=self.j_feeds,
+                                    place=fluid.CPUPlace(),
+                                    program=self.j_main)
+        t_feeder = pt.DataFeeder(feed_list=self.book.feeds,
+                                 place=pt.CPUPlace(), program=self.t_main)
+        out = []
+        for jb, tb in itertools.islice(zip(j_r(), t_r()), steps):
+            assert tb == jb
+            j = self.j_exe.run(self.j_main, feed=j_feeder.feed(jb),
+                               fetch_list=self.fetch, scope=self.j_scope,
+                               return_numpy=False)
+            t = self.t_exe.run(self.t_main, feed=t_feeder.feed(tb),
+                               fetch_list=self.fetch, scope=self.t_scope,
+                               return_numpy=False)
+            out.append((j, t))
+        return out
+
+    def decode(self, j_build, t_build, feed):
+        res = []
+        for pkg, build, exe, scope in (
+                (fluid, j_build, self.j_exe, self.j_scope),
+                (pt, t_build, self.t_exe, self.t_scope)):
+            main, startup = pkg.Program(), pkg.Program()
+            with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+                feeds, ids, scores = build()
+            res.append((main, exe.run(main, feed=feed(pkg),
+                                      fetch_list=[ids, scores], scope=scope,
+                                      return_numpy=False), ids, scores))
+        return res
+
+
+_MT = []
+
+
+def _mt_pair():
+    """One MTPair trained three steps, shared by the book-08 tests."""
+    if not _MT:
+        pair = MTPair()
+        _MT.append((pair, pair.train(STEPS)))
+    return _MT[0]
+
+
+def _close(name, got, want, tol):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-4)
+    err = float(np.abs(got.astype(np.float64) - want).max()) / scale
+    assert err <= tol, '%s: %.3g of max |ref| %.3g' % (name, err, scale)
+
+
+def _mt_src(pkg):
+    rows = np.array([[3], [4], [5], [6], [7], [12], [2]], 'int64')
+    return pkg.create_lod_tensor(rows, [[4, 3]], pkg.CPUPlace())
+
+
+def test_book08_three_adagrad_steps_match_jax():
+    pair, steps = _mt_pair()
+    assert len(steps) == STEPS
+    for step, (j, t) in enumerate(steps):
+        for n, a, b in zip(pair.fetch, j, t):
+            b = pt.executor.as_numpy(b)
+            if isinstance(a, fluid.LoDTensor) and a.lengths is not None:
+                assert b.recursive_sequence_lengths() == \
+                    a.recursive_sequence_lengths(), n
+                a, b = a.to_dense_rows(), b.to_dense_rows()
+            elif isinstance(a, fluid.LoDTensor):
+                # return_numpy=False wraps a dense fetch
+                a = np.asarray(a.data)
+            assert np.isfinite(np.asarray(b)).all(), n
+            _close('%s step %d' % (n, step), b, a, 1e-4)
+    # the loss sits at ln(dict) at this learning rate
+    loss = float(np.asarray(pt.executor.as_numpy(steps[-1][1][0]))[0])
+    assert abs(loss - np.log(MT_W['dict_size'])) < 0.5
+
+
+def _same_decode(j, t, tol=1e-5):
+    (j_ids, j_sc), (t_ids, t_sc) = j, t
+    t_ids, t_sc = pt.executor.as_numpy(t_ids), pt.executor.as_numpy(t_sc)
+    assert t_ids.lod() == j_ids.lod()
+    np.testing.assert_array_equal(np.asarray(t_ids), np.asarray(j_ids))
+    np.testing.assert_allclose(np.asarray(t_sc), np.asarray(j_sc),
+                               rtol=tol, atol=tol)
+
+
+def test_book08_dynamic_decode_matches_jax(tmp_path):
+    pair, _ = _mt_pair()
+
+    def feed(pkg):
+        f = _jax_init_feed(MT_BATCH) if pkg is fluid else \
+            books.decode_init_feed(MT_BATCH)
+        f['src_word_id'] = _mt_src(pkg)
+        return f
+    (j_main, j_res, _, _), (t_main, t_res, ids, scores) = pair.decode(
+        lambda: _jax_mt_decode_dynamic(**dict(MT_W, **MT_DECODE)),
+        lambda: books.decode_dynamic(**dict(MT_W, **MT_DECODE)), feed)
+    assert pt.executor.is_dynamic(t_main)
+    t_ids = t_res[0]
+    assert t_ids.packed_mode and len(t_ids.lod()) == 2
+    assert len(t_ids.lod()[0]) == MT_BATCH + 1
+    _same_decode(j_res, t_res)
+    # through a saved and loaded inference model: the sub-block and the
+    # While's attrs round-trip
+    d = str(tmp_path / 'decode')
+    pt_io.save_inference_model(d, ['src_word_id', 'init_ids',
+                                   'init_scores'], [ids, scores],
+                               pair.t_exe, main_program=t_main,
+                               scope=pair.t_scope)
+    scope = pt.Scope()
+    prog, feed_names, fetch = pt_io.load_inference_model(
+        d, pair.t_exe, scope=scope)
+    assert len(prog.blocks) == len(t_main.blocks)
+    assert pt.executor.is_dynamic(prog)
+    again = pair.t_exe.run(prog, feed=feed(pt), fetch_list=fetch,
+                           scope=scope, return_numpy=False)
+    _same_decode(j_res, again)
+
+
+def test_book08_static_decode_matches_jax():
+    pair, _ = _mt_pair()
+    (_, j_res, _, _), (t_main, t_res, _, _) = pair.decode(
+        lambda: _jax_mt_decode_static(**dict(MT_W, **MT_DECODE)),
+        lambda: books.decode_static(**dict(MT_W, **MT_DECODE)),
+        lambda pkg: {'src_word_id': _mt_src(pkg)})
+    assert not pt.executor.is_dynamic(t_main)
+    (j_ids, j_sc), (t_ids, t_sc) = j_res, [pt.executor.as_numpy(v)
+                                           for v in t_res]
+    assert t_ids.recursive_sequence_lengths() == \
+        j_ids.recursive_sequence_lengths()
+    np.testing.assert_array_equal(t_ids.to_dense_rows(),
+                                  j_ids.to_dense_rows())
+    np.testing.assert_allclose(t_sc.to_dense_rows(), j_sc.to_dense_rows(),
+                               rtol=1e-5, atol=1e-5)

@@ -667,3 +667,54 @@ def test_chain_absorbed_into_fused_conv_matches_jax(train):
     assert pt_passes.FALLBACKS == {}
     for name, a, b in zip(fetch, t, j):
         np.testing.assert_allclose(a, np.asarray(b), err_msg=name, **TOL)
+
+
+# ---- book 08's programs: sub-blocks through both pipelines -------------------------
+def _block_descs(program):
+    """``_descs`` of every block, a sub-block attr by its index."""
+    out = []
+    for block in program.blocks:
+        out.append([(op.type, sorted(op.inputs.items()),
+                     sorted(op.outputs.items()),
+                     sorted((k, ('block', v.idx) if hasattr(v, 'ops')
+                             else _norm(v)) for k, v in op.attrs.items()))
+                    for op in block.ops])
+    return out
+
+
+def _book08(kind):
+    from paddle_tpu_torch.models import books
+    from test_torch_books import (MT_DECODE, MT_W, _jax_mt_decode_dynamic,
+                                  _jax_mt_decode_static, _jax_mt_train)
+
+    def build(pkg):
+        w = dict(MT_W, **MT_DECODE)
+        if kind == 'train':
+            if pkg is fluid:
+                return _jax_mt_train(**MT_W)[2]
+            book = books.machine_translation(**MT_W)
+            books.train(book)
+            return book.loss
+        if pkg is fluid:
+            return (_jax_mt_decode_dynamic if kind == 'decode_dynamic'
+                    else _jax_mt_decode_static)(**w)[1]
+        return (books.decode_dynamic if kind == 'decode_dynamic'
+                else books.decode_static)(**w)[1]
+    return build
+
+
+@pytest.mark.parametrize('pipeline', ['default', 'inference'])
+@pytest.mark.parametrize('kind', ['train', 'decode_dynamic',
+                                  'decode_static'])
+def test_book08_programs_through_the_pipelines_match_jax(kind, pipeline):
+    """The passes skip or guard the control-flow ops and their
+    sub-blocks exactly as paddle_tpu's do: the rewritten programs match
+    block for block and op for op, with the same pass results."""
+    pair = Pair(kind, programs={kind: (_book08(kind), dict, False)})
+    j_opt, j_res, _, t_opt, t_res, _ = _run_both(pair, PIPELINES[pipeline])
+    assert len(t_opt.blocks) == len(j_opt.blocks) > 1
+    assert _block_descs(t_opt) == _block_descs(j_opt)
+    assert [(r.pass_name, bool(r.changed), r.ops_removed, r.ops_fused,
+             r.ops_folded, r.vars_released) for r in t_res] == \
+        [(r.pass_name, bool(r.changed), r.ops_removed, r.ops_fused,
+          r.ops_folded, r.vars_released) for r in j_res]

@@ -1,9 +1,10 @@
 """paddle_tpu_torch stands alone: it imports neither JAX nor paddle_tpu
 (not in its sources, and not while it serves the transformer or ResNet
 through its compiler and its serving runtime, verifies, sanitizes
-and trains mnist through its static analysis, or takes a fit_a_line
-step through its fluid namespace, readers, dataset and DataFeeder), and
-its entry points default to the card."""
+and trains mnist through its static analysis, takes a fit_a_line
+step through its fluid namespace, readers, dataset and DataFeeder, or
+runs a While and an Adagrad step through a DynamicRNN), and its entry
+points default to the card."""
 import ast
 import os
 import subprocess
@@ -132,6 +133,37 @@ out, = exe.run(main, feed=feeder.feed(batch), fetch_list=[book.loss],
                scope=scope)
 assert out.shape == (1,) and np.isfinite(out).all()
 os.rmdir(data_home)                # the synthetic dataset read nothing
+
+L = pt.layers
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    i = L.fill_constant(shape=[1], dtype='int64', value=0)
+    n = L.fill_constant(shape=[1], dtype='int64', value=3)
+    acc = L.fill_constant(shape=[1], dtype='float32', value=1.0)
+    cond = L.less_than(x=i, y=n)
+    with L.While(cond=cond).block():
+        L.assign(L.scale(acc, scale=2.0), acc)
+        L.increment(x=i, value=1, in_place=True)
+        L.less_than(x=i, y=n, cond=cond)
+out, = exe.run(main, fetch_list=[acc], scope=scope)
+assert float(out[0]) == 8.0
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    x = L.data(name='x', shape=[4], dtype='float32', lod_level=1)
+    drnn = L.DynamicRNN()
+    with drnn.block():
+        x_t = drnn.step_input(x)
+        mem = drnn.memory(shape=[4], value=0.0)
+        h = L.fc(input=[x_t, mem], size=4, act='tanh')
+        drnn.update_memory(mem, h)
+        drnn.output(h)
+    loss = L.mean(L.sequence_pool(drnn(), pool_type='last'))
+    pt.optimizer.Adagrad(learning_rate=0.1).minimize(loss)
+exe.run(startup, scope=scope)
+rows = np.ones((5, 4), 'float32')
+out, = exe.run(main, feed={'x': pt.create_lod_tensor(rows, [[2, 3]])},
+               fetch_list=[loss], scope=scope)
+assert out.shape == (1,) and np.isfinite(out).all()
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))

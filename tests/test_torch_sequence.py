@@ -162,8 +162,15 @@ def test_lodtensor_set_and_set_lod():
     assert t.lod() == j.lod() == offsets
     ints = pt.create_random_int_lodtensor([LENS], [1], None, 0, 9)
     assert ints.data.shape == (len(LENS), 8, 1) and ints.data.max() <= 9
-    with pytest.raises(NotImplementedError):
-        pt.SequenceTensor.from_packed(rows, offsets)
+    # the packed mode keeps the rows and the offset LoD as they are
+    jp = fluid.LoDTensor.from_packed(rows, offsets)
+    tp = pt.SequenceTensor.from_packed(rows, offsets)
+    assert tp.packed_mode and jp.packed_mode
+    assert tp.lod() == tp.offsets() == jp.offsets() == offsets
+    assert tp.lod_level == jp.lod_level == 1
+    assert tp.recursive_sequence_lengths() == [LENS]
+    np.testing.assert_array_equal(np.asarray(tp), np.asarray(jp))
+    np.testing.assert_array_equal(tp.to_dense_rows(), rows)
 
 
 def test_lod_tensor_feeds_and_fetches_keep_structure():
@@ -400,4 +407,131 @@ def test_embedding_on_sequence_ids():
         ids = np.random.RandomState(18).randint(0, 20, (sum(LENS), 1))
         ids[0] = 3
         return {'ids': pkg.create_lod_tensor(ids.astype('int64'), [LENS])}
+    run_pair(build, feed)
+
+
+# ---- the sequence ops of the control-flow slice ----------------------------------
+def _x_feed(pkg, seed=20, lens=LENS):
+    return {'x': _seq_feed(pkg, _rows(lens, D, seed), lens)}
+
+
+def test_sequence_reshape_with_gradient():
+    def build(pkg):
+        L = pkg.layers
+        x = L.data(name='x', shape=[D], dtype='float32', lod_level=1)
+        r = L.sequence_reshape(L.fc(input=x, size=4), new_dim=2)
+        return [r], L.mean(x=L.fc(input=r, size=3, act='tanh'))
+    run_pair(build, _x_feed)
+
+
+@pytest.mark.parametrize('how', ['target_lod', 'y'])
+def test_lod_reset_with_gradient(how):
+    """x's 12 packed rows regrouped as lengths [4, 5, 3] (the target LoD
+    [0, 4, 9, 12], or y's lengths)."""
+    def build(pkg):
+        L = pkg.layers
+        x = L.data(name='x', shape=[D], dtype='float32', lod_level=1)
+        h = L.fc(input=x, size=3)
+        if how == 'y':
+            y = L.data(name='y', shape=[1], dtype='float32', lod_level=1)
+            r = L.lod_reset(h, y=y)
+        else:
+            r = L.lod_reset(h, target_lod=[0, 4, 9, 12])
+        last = L.sequence_pool(r, pool_type='last')
+        return [r, last], L.mean(x=L.fc(input=r, size=2, act='tanh'))
+
+    def feed(pkg):
+        out = _x_feed(pkg, 21)
+        if how == 'y':
+            out['y'] = _seq_feed(pkg, _rows([4, 5, 3], 1, 22), [4, 5, 3])
+        return out
+    run_pair(build, feed)
+
+
+def test_sequence_concat_with_gradient():
+    lens_b = [1, 2, 0, 3, 4]
+
+    def build(pkg):
+        L = pkg.layers
+        x = L.data(name='x', shape=[D], dtype='float32', lod_level=1)
+        y = L.data(name='y', shape=[D], dtype='float32', lod_level=1)
+        c = L.sequence_concat([L.fc(input=x, size=3), L.fc(input=y, size=3)])
+        return [c], L.mean(x=L.fc(input=c, size=2, act='tanh'))
+
+    def feed(pkg):
+        out = _x_feed(pkg, 23)
+        out['y'] = _seq_feed(pkg, _rows(lens_b, D, 24), lens_b)
+        return out
+    run_pair(build, feed)
+
+
+def _erase_slice_program(pkg):
+    """sequence_erase and sequence_slice have no layer in either
+    package: the ops are appended as the reference's tests build them."""
+    L = pkg.layers
+    ids = L.data(name='ids', shape=[1], dtype='int64', lod_level=1)
+    x = L.data(name='x', shape=[D], dtype='float32', lod_level=1)
+    off = L.data(name='off', shape=[1], dtype='int64')
+    ln = L.data(name='ln', shape=[1], dtype='int64')
+    block = pkg.default_main_program().current_block()
+    erased = block.create_var(name='erased', dtype='int64', lod_level=1)
+    block.append_op(type='sequence_erase', inputs={'X': [ids]},
+                    outputs={'Out': [erased]}, attrs={'tokens': [2, 5]})
+    h = L.fc(input=x, size=3)
+    sliced = block.create_var(name='sliced', dtype='float32', lod_level=1)
+    block.append_op(type='sequence_slice',
+                    inputs={'X': [h], 'Offset': [off], 'Length': [ln]},
+                    outputs={'Out': [sliced]})
+    return [erased, sliced], L.mean(x=L.sequence_pool(sliced, 'sum'))
+
+
+def test_sequence_erase_and_slice_with_gradient():
+    def feed(pkg):
+        ids = np.random.RandomState(25).randint(0, 7, (sum(LENS), 1))
+        return dict(_x_feed(pkg, 26),
+                    ids=pkg.create_lod_tensor(ids.astype('int64'), [LENS]),
+                    off=np.array([[1], [0], [0], [2], [1]], 'int64'),
+                    ln=np.array([[2], [0], [1], [3], [1]], 'int64'))
+    run_pair(_erase_slice_program, feed)
+
+
+@pytest.mark.parametrize('filter_size', [3, 4])
+def test_sequence_conv_pool_with_gradient(filter_size):
+    def build(pkg):
+        L = pkg.layers
+        x = L.data(name='x', shape=[D], dtype='float32', lod_level=1)
+        conv = L.sequence_conv(input=x, num_filters=4,
+                               filter_size=filter_size, act='tanh')
+        pooled = pkg.nets.sequence_conv_pool(input=x, num_filters=3,
+                                             filter_size=filter_size)
+        return [conv, pooled], L.mean(x=L.elementwise_add(
+            L.sequence_pool(conv, 'sum'), L.fc(input=pooled, size=4)))
+    run_pair(build, lambda pkg: _x_feed(pkg, 27))
+
+
+def test_row_conv_with_gradient():
+    def build(pkg):
+        L = pkg.layers
+        x = L.data(name='x', shape=[D], dtype='float32', lod_level=1)
+        r = L.row_conv(L.fc(input=x, size=4), future_context_size=2,
+                       act='tanh')
+        return [r], L.mean(x=r)
+    run_pair(build, lambda pkg: _x_feed(pkg, 28))
+
+
+def test_im2sequence_with_gradient():
+    def build(pkg):
+        L = pkg.layers
+        img = L.data(name='img', shape=[2, 5, 6], dtype='float32')
+        w = L.create_parameter(shape=[2, 5, 6], dtype='float32',
+                               name='img_w')
+        x = L.elementwise_add(img, w)
+        seq = L.im2sequence(x, filter_size=[2, 3], stride=[1, 2],
+                            padding=[1, 0, 0, 1])
+        # the layer declares no width, so no fc can follow it
+        return [seq], L.mean(x=L.sequence_pool(L.tanh(seq), 'sum'))
+
+    def feed(pkg):
+        return {'img': np.random.RandomState(29).randn(2, 2, 5, 6)
+                .astype('float32')}
     run_pair(build, feed)
