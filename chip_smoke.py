@@ -106,6 +106,32 @@ non-zero) on failure:
    search goes on; a second process (--serve-tuned) on the same cache
    file and saved models: every entry preloaded, no search, its answers
    to one seeded request per bucket bit-equal to this process's;
+15a. the fleet: both saved models through a fleet.Router over 3
+   ModelServer(CUDAPlace(0)) replicas, each model ringed on 2, every
+   bucket warmed; 4 clients, 3 rounds of 6b's mix; once a third is
+   answered, the telemetry endpoint (found through its PTPU_TELEMETRY_DIR
+   port file) scraped and strictly parsed, /health read (the router and
+   every replica), then a replica holding both models killed abruptly
+   with ResNet-50 requests parked on it: every future ends with an answer
+   or a typed ServingError (none dropped, none untyped, none failed),
+   router_requeued_total grows, exactly 6 flash forwards a flagship batch
+   and 53 fused convs (52 wgmma, the stem) a ResNet-50 batch summed over
+   every replica built (the batches the kill abandoned in flight
+   included), no fallback; flagship answers within 6b's limits of a
+   direct run, ResNet-50's bit-equal to a direct run padded to the bucket
+   their replica used; p50 and p99 a model beside 6b's; the kill's flight
+   bundle carries a health slot that tools/postmortem.py renders (with
+   the port's flight module standing in for the JAX package's, whose
+   name it imports); the supervisor's restart answers one request a
+   bucket bit-equal to the replica's pre-kill answers; a rolling_swap of
+   ResNet-50 to a re-saved copy under 2 clients fails nothing; a retire
+   drops the replica's series from the scraped exposition; then ResNet-50
+   alone behind an Autoscaler (min 1, max 3): a ramp of 8 clients scales
+   it out within AUTOSCALE_OUT_S and idle brings it back to 1 within
+   AUTOSCALE_IN_S; a PlacementBudget overcommit raises
+   PlacementInfeasible naming hbm_bytes and leaves no placement; a shed
+   storm breaches the shed-ratio SLO (burn rate over windows of 10 and 60
+   s under the phase's clock), which recovers after the drain;
 7. training: the same flagship at full width and depth, Adam(1e-4)
    .minimize(loss), batch 16: warm-up steps, then timed steps through
    Executor.run on one fixed batch (ms per step, tokens/s), checking
@@ -262,6 +288,24 @@ non-zero) on failure:
 17. machine translation: full width (dict 8000, emb 256, hid 512, with
    peepholes), batch 64 of 24 words a side, a few Momentum steps (ms a
    step; no cell launch);
+15b. the decode tier (after the control-flow phase 14b): DecodeEngine
+   with attention_history_cell at the repo's widest recurrent widths
+   (dict 30000, word and hidden 512, 256 positions; TF32 and AMP off) at
+   16 slots, continuous and stop-and-wait, the paged cell
+   (kvcache.stock_spec, 256 pages of 16 positions: the same 8 MiB of KV)
+   at 16 and 48 slots, on 192 ragged sequences: tokens/s, steps, a
+   profiled step's busy share and its host<->card copies' share; equal
+   slot counts bit for bit; across slot counts, the first 16 sequences
+   token by token against a one-slot oracle, a parting excused only
+   where the oracle's top two probabilities lie within DECODE_TIE
+   (excused partings printed); the paged cell fed kv_off shifted by one
+   or its block tables reversed must fail both gates; then disaggregated
+   prefill: a Router over 2 role='prefill' replicas
+   (kvcache.PrefillServer) and a local paged engine of 48 slots, 32
+   prompts of 8-64 tokens, one prefill replica killed after 8 are routed:
+   no failure, the continuations against the oracle under the same rule,
+   and one trace tree per request across the prefill -> decode hop
+   (tools/trace_report.py);
 18. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
@@ -1854,6 +1898,7 @@ def _serve_mix(server, seed, card, label):
                        for v, c in RESNET_VARIANTS.items()},
           'fused conv variants %s over %d ResNet batches' % (
               variants, batches['resnet']))
+    MIX_LATENCY[label] = lat
     for (name, bucket), samples in sorted(lat.items()):
         p50, p99 = _percentiles(samples)
         print('serving runtime: %s, %s, requests of bucket %d: %d, p50 '
@@ -6123,6 +6168,1123 @@ def phase_control_flow(seed, card, art_dir):
     return dyn
 
 
+# phase 15a: the fleet. FLEET_* are its Router's replicas and ring width,
+# its clients and rounds of 6b's mix, and each replica's admission limit
+# (a queue that never fills under the mix or the ramp, and that the shed
+# storm fills at once)
+FLEET_REPLICAS = 3
+FLEET_REPLICATION = 2
+FLEET_CLIENTS = 4
+FLEET_ROUNDS = 3
+FLEET_QUEUE_DEPTH = 16
+FLEET_KILL_AFTER = 1.0 / 3          # share of the mix answered before the kill
+FLEET_RESTART_S = 180.0             # the supervisor's restart, at most
+FLEET_SWAP_CLIENTS = 2
+# the autoscaler on ResNet-50 alone: a ramp of clients sending batch-32
+# requests must scale 1 replica out within AUTOSCALE_OUT_S; once they stop,
+# idle must bring the fleet back to 1 within AUTOSCALE_IN_S
+AUTOSCALE_MAX = 3
+AUTOSCALE_CLIENTS = 8
+AUTOSCALE_RAMP_S = 0.5              # one more client every this many s
+AUTOSCALE_OUT_S = 60.0
+AUTOSCALE_IN_S = 60.0
+# the shed storm: requests a storm tick sends past the queue, and the
+# shed-ratio SLO it must breach
+SHED_STORM = 3 * FLEET_QUEUE_DEPTH
+SHED_OBJECTIVE = 0.98
+MIX_LATENCY = {}                    # _serve_mix's latencies, by its label
+
+
+def _mix_plans(seed, clients, rounds):
+    """Phase 6b's seeded mix: each client sends every row count of both
+    models once a round, in its own order."""
+    rng = np.random.RandomState(seed)
+    plans = []
+    for k in range(clients):
+        plan = []
+        for r in range(rounds):
+            reqs = [(name, rows, seed + 10000 * r + 1000 * k + 10 * i + rows)
+                    for name, mix in sorted(RUNTIME_MIX.items())
+                    for i, rows in enumerate(mix)]
+            plan += [reqs[i] for i in rng.permutation(len(reqs))]
+        plans.append(plan)
+    return plans
+
+
+class _Shim(object):
+    """tools/postmortem.py names the JAX package's flight recorder; the
+    port's reads the same bundle schema. While this is entered, the
+    import ``from paddle_tpu.observability import flight`` resolves to
+    the port's module (no file of the JAX package is read)."""
+
+    NAMES = ('paddle_tpu', 'paddle_tpu.observability',
+             'paddle_tpu.observability.flight')
+
+    def __enter__(self):
+        import types
+        from paddle_tpu_torch.observability import flight
+        pkg = types.ModuleType(self.NAMES[0])
+        sub = types.ModuleType(self.NAMES[1])
+        sub.flight = flight
+        pkg.observability = sub
+        self.saved = {n: sys.modules.get(n) for n in self.NAMES}
+        sys.modules.update(zip(self.NAMES, (pkg, sub, flight)))
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self.saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+        sys.modules.pop('postmortem', None)
+        return False
+
+
+def _postmortem(path):
+    """tools/postmortem.py's report of a bundle: (exit code, text)."""
+    import contextlib
+    import io
+    sys.path.insert(0, os.path.join(ROOT, 'tools'))
+    out = io.StringIO()
+    with _Shim(), contextlib.redirect_stdout(out):
+        import postmortem
+        rc = postmortem.main([path])
+    return rc, out.getvalue()
+
+
+def _scrape(url, route):
+    import urllib.request
+    with urllib.request.urlopen(url + route, timeout=30) as resp:
+        return resp.read().decode('utf-8')
+
+
+def phase_fleet(seed, card, artifacts):
+    """15a. The saved flagship and ResNet-50 served through a Router over
+    three ModelServer(CUDAPlace(0)) replicas (each model on two), 4
+    clients and 3 rounds of 6b's mix, one replica that holds both killed
+    mid-load; the restart, a rolling swap, a retire, the telemetry
+    endpoint, the autoscaler, a placement budget and a shed-ratio SLO."""
+    import threading
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.compiler import passes, tuning
+    from paddle_tpu_torch.observability import flight, telemetry
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ModelServer, ServingError
+    from paddle_tpu_torch.serving.bucketing import pad_feed
+    t_phase = time.perf_counter()
+    art = artifacts['dir']
+    reg = obs.default_registry()
+
+    # the telemetry endpoint, found through its port file
+    tdir = os.path.join(art, 'telemetry')
+    fdir = os.path.join(art, 'flight')
+    prev_tdir = os.environ.get(telemetry.TELEMETRY_DIR_ENV)
+    os.environ[telemetry.TELEMETRY_DIR_ENV] = tdir
+    try:
+        tsrv = telemetry.serve_telemetry()
+    finally:
+        if prev_tdir is None:
+            os.environ.pop(telemetry.TELEMETRY_DIR_ENV)
+        else:
+            os.environ[telemetry.TELEMETRY_DIR_ENV] = prev_tdir
+    found = telemetry.scan_port_dir(tdir)
+    check(found == {'host-%d' % os.getpid(): tsrv.port},
+          'port file %s, endpoint on %d' % (found, tsrv.port))
+    url = 'http://127.0.0.1:%d' % found['host-%d' % os.getpid()]
+    prev_flight = flight.configure(fdir)
+
+    # every server the factory builds records the bucket and the model
+    # of each batch it runs (a restarted replica's too), and counts its
+    # Executor runs while ``runs`` counts: a batch a kill abandoned in
+    # flight launched its kernels, but its server never counts it
+    servers, ran_at = [], {}
+    runs = {'on': False}
+    runs_lock = threading.Lock()
+
+    def factory(rid):
+        server = ModelServer(pt.CUDAPlace(0), max_batch_size=32,
+                             max_queue_depth=FLEET_QUEUE_DEPTH)
+        real, real_exe = server._run_batch, server._exe_run
+
+        def run_batch(model, batch, server=server, real=real):
+            rows = sum(r.n for r in batch)
+            bucket = server.policy.bucket_for(rows) if model.batchable \
+                else rows
+            for r in batch:
+                ran_at[id(r)] = (bucket, server, model)
+            return real(model, batch)
+
+        def exe_run(model, feed, real_exe=real_exe):
+            with runs_lock:
+                if runs['on']:
+                    runs[model.name] = runs.get(model.name, 0) + 1
+            return real_exe(model, feed)
+        server._run_batch = run_batch
+        server._exe_run = exe_run
+        servers.append((rid, server))
+        return server
+
+    t0 = time.perf_counter()
+    router = fleet.Router(factory, replicas=FLEET_REPLICAS,
+                          replication=FLEET_REPLICATION, poll_interval=0.2,
+                          warmup_on_load=False)
+    for name in RUNTIME_BUCKETS:
+        router.load_model(name, artifacts[name])
+    for name, buckets in RUNTIME_BUCKETS.items():
+        for rid in router.placement(name):
+            router.replica(rid).server.warmup(name, upto=buckets[-1])
+    place = {name: router.placement(name) for name in RUNTIME_BUCKETS}
+    both = sorted(set(place['flagship']) & set(place['resnet']))
+    check(both, 'no replica holds both models: %s' % place)
+    victim = both[0]
+    print('fleet: Router over %d ModelServer(CUDAPlace(0)) replicas, each '
+          'model on %d (%s); loaded and warmed in %.1f s; telemetry on '
+          'port %d found through %s; the replica to kill: %d' % (
+              FLEET_REPLICAS, FLEET_REPLICATION, place,
+              time.perf_counter() - t0, tsrv.port, tdir, victim),
+          flush=True)
+
+    # the victim's answers to one request per bucket, before the kill
+    def bucket_answers(server):
+        return {(name, b): server.infer(name, _runtime_feed(name, b,
+                                                            seed + 90 + b),
+                                        timeout=600)
+                for name, buckets in RUNTIME_BUCKETS.items()
+                for b in buckets}
+    before_kill = bucket_answers(router.replica(victim).server)
+
+    # the mix through the Router; the kill once a third is answered
+    plans = _mix_plans(seed + 150, FLEET_CLIENTS, FLEET_ROUNDS)
+    total = sum(len(p) for p in plans)
+    answers, routed, typed, untyped, lat = {}, {}, [], [], {}
+    done = [0]
+    cond = threading.Condition()
+    scraped = {}
+
+    def client(plan):
+        for name, rows, s in plan:
+            t1 = time.perf_counter()
+            try:
+                rr = router.submit(name, _runtime_feed(name, rows, s))
+                out = rr.result(timeout=600)
+            except ServingError as e:
+                typed.append(((name, rows, s), e))
+            except Exception as e:              # noqa: BLE001
+                untyped.append(((name, rows, s), e))
+            else:
+                lat.setdefault(name, []).append(time.perf_counter() - t1)
+                answers[(name, rows, s)] = out
+                routed[(name, rows, s)] = rr
+            with cond:
+                done[0] += 1
+                cond.notify_all()
+
+    def killer():
+        with cond:
+            cond.wait_for(lambda: done[0] >= total * FLEET_KILL_AFTER)
+        scraped['metrics'] = _scrape(url, '/metrics')
+        scraped['health'] = json.loads(_scrape(url, '/health'))
+        # park ResNet-50 requests on the victim, so the kill has queued
+        # work to fail (and the Router to requeue)
+        server = router.replica(victim).server
+        server.pause('resnet')
+        give_up = time.monotonic() + 30
+        while server.queue_depth('resnet') < 1 and \
+                time.monotonic() < give_up:
+            time.sleep(0.005)
+        scraped['parked'] = server.queue_depth('resnet')
+        router.kill_replica(victim, abrupt=True)
+        scraped['killed_at'] = done[0]
+
+    requeued0 = reg.counter('router_requeued_total').value
+    passes.reset_fallback_counts()
+    before = {id(s): dict(s.stats.model_batches) for _, s in servers}
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    runs['on'] = True
+    threads = [threading.Thread(target=client, args=(p,)) for p in plans]
+    threads.append(threading.Thread(target=killer))
+    t1 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    # a killed replica's abandoned worker finishes the batch it was in
+    for _, s in servers:
+        for w in list(s._abandoned):
+            w.join(600)
+    torch.cuda.synchronize()
+    runs['on'] = False
+    dt = time.perf_counter() - t1
+    launches = dict(ck.LAUNCHES)
+    variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
+    batches = {name: sum(s.stats.model_batches.get(name, 0) -
+                         before.get(id(s), {}).get(name, 0)
+                         for _, s in servers) for name in RUNTIME_BUCKETS}
+    abandoned = {name: runs.get(name, 0) - batches[name]
+                 for name in RUNTIME_BUCKETS}
+    requeued = reg.counter('router_requeued_total').value - requeued0
+    requeues = sum(r.requeues for r in routed.values())
+    print('fleet: %d clients, %d requests (%d rounds of 6b\'s mix) in %.2f '
+          's; replica %d killed after %d answers with %d ResNet-50 requests '
+          'parked on it; answered %d, typed errors %d, untyped %d; '
+          'router_requeued_total +%d (requeues on the answered futures %d); '
+          'batches counted by the replicas\' ServingStats %s over %d '
+          'servers built, and batches the kill abandoned in flight %s; '
+          'launches %s; fused conv by variant %s; fallbacks %s; %s' % (
+              FLEET_CLIENTS, total, FLEET_ROUNDS, dt, victim,
+              scraped['killed_at'], scraped['parked'], len(answers),
+              len(typed), len(untyped), requeued, requeues, batches,
+              len(servers), abandoned, launches, variants,
+              passes.FALLBACKS, card), flush=True)
+    for key, e in typed[:4] + untyped[:4]:
+        print('fleet:   %s: %s: %s' % (key, type(e).__name__, e), flush=True)
+    check(not untyped, 'untyped errors through the kill: %r' % (untyped[:2],))
+    check(len(answers) + len(typed) == total, 'futures dropped: %d of %d '
+          'ended' % (len(answers) + len(typed), total))
+    check(not typed, 'requests failed through the kill: %r' % (typed[:2],))
+    check(requeued > 0, 'the kill requeued nothing')
+    check(not passes.FALLBACKS, 'fused_conv fell back: %s' % passes.FALLBACKS)
+    check(all(0 <= n <= 1 for n in abandoned.values()), 'batches abandoned '
+          'by the kill: %s (one in flight a model, at most)' % abandoned)
+    ran = {name: batches[name] + abandoned[name] for name in RUNTIME_BUCKETS}
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attn_fwd=FLAGSHIP['n_layers'] * ran['flagship'],
+                  fused_conv=RESNET_REGIONS * ran['resnet'])
+    check(launches == expect, 'fleet launches %s, expected %s (6 flash '
+          'forwards a flagship batch, 53 fused convs a ResNet-50 batch, '
+          'summed over the replicas, abandoned batches included)'
+          % (launches, expect))
+    check(variants == {v: c * ran['resnet']
+                       for v, c in RESNET_VARIANTS.items()},
+          'fused conv variants %s over %d ResNet batches' % (
+              variants, ran['resnet']))
+    for name in RUNTIME_BUCKETS:
+        mine = _percentiles(lat[name])
+        theirs = [x for (n, _), xs in MIX_LATENCY.get('concurrent mix',
+                                                      {}).items()
+                  if n == name for x in xs]
+        print('fleet: %s through the Router: p50 %.2f ms, p99 %.2f ms (%d '
+              'requests); 6b\'s concurrent mix through one server: p50 '
+              '%s ms, p99 %s ms (%d requests); %s' % (
+                  name, mine[0], mine[1], len(lat[name]),
+                  *(('%.2f' % v) for v in (_percentiles(theirs) if theirs
+                                           else (float('nan'),) * 2)),
+                  len(theirs), card), flush=True)
+
+    # each answer against a direct run on the server that ran it, under
+    # that bucket's entry; ResNet-50's also padded to the bucket, bit for
+    # bit
+    holds = {name: [] for name in RUNTIME_BUCKETS}
+    padded_equal = 0
+    for key, out in sorted(answers.items()):
+        name, rows, s = key
+        bucket, server, model = ran_at[id(routed[key]._req)]
+        entry = _bucket_entry(server, name, bucket)
+        feed = _runtime_feed(name, rows, s)
+        with tuning.apply_entry(entry):
+            ref = server.executor.run(model.program, feed=feed,
+                                      fetch_list=model.fetch_vars,
+                                      scope=model.scope)
+            padded = None if name != 'resnet' else server.executor.run(
+                model.program, feed=pad_feed(feed, rows, bucket,
+                                             server.policy.pad_mode),
+                fetch_list=model.fetch_vars, scope=model.scope)
+        check(out[0].shape == ref[0].shape and np.isfinite(out[0]).all(),
+              'answer %s' % (key,))
+        holds[name].append(_hold_to_direct(name, out[0], ref[0]))
+        if padded is not None:
+            padded_equal += bool(np.array_equal(out[0], padded[0][:rows]))
+    for name in RUNTIME_BUCKETS:
+        _check_agreement('fleet', name, holds[name])
+    print('fleet: ResNet-50: %d of %d answers bit-equal to a direct run of '
+          'their rows padded to the bucket their replica ran them at' % (
+              padded_equal, len(holds['resnet'])), flush=True)
+    check(padded_equal == len(holds['resnet']), 'ResNet-50 answers differ '
+          'from the padded direct run')
+
+    # the telemetry read mid-load, and the kill's postmortem bundle
+    meta, samples = telemetry.parse_exposition(scraped['metrics'])
+    states = {s.labels.get('replica') for s in samples
+              if s.name == 'fleet_replica_state'}
+    providers = scraped['health']['providers']
+    mine = providers.get('router-%x' % id(router), {})
+    n_servers = sum(1 for p in providers if p.startswith('server-'))
+    print('fleet: mid-load scrape: %d samples of %d metrics, strict parse '
+          'ok; fleet_replica_state for replicas %s; /health: %d providers '
+          '(router %s with replicas %s, %d servers)' % (
+              len(samples), len(meta), sorted(states), len(providers),
+              mine.get('status'), sorted(mine.get('replicas', {})),
+              n_servers), flush=True)
+    want_ids = {str(i) for i in range(FLEET_REPLICAS)}
+    check(states >= want_ids, 'scraped replica states %s' % states)
+    check(set(mine.get('replicas', {})) == want_ids and
+          n_servers >= FLEET_REPLICAS, '/health lacks the router or a '
+          'replica: %s' % sorted(providers))
+    bundles = sorted(f for f in os.listdir(fdir) if 'replica_kill' in f)
+    check(len(bundles) == 1, 'kill bundles %s' % bundles)
+    bundle = flight.read_bundle(os.path.join(fdir, bundles[0]))
+    health = bundle.get('health') or {}
+    rc, text = _postmortem(os.path.join(fdir, bundles[0]))
+    print('fleet: the kill\'s bundle %s: health slot %s with %d providers; '
+          'tools/postmortem.py exit %d, %d lines:\n%s' % (
+              bundles[0], health.get('status'),
+              len(health.get('providers') or {}), rc,
+              len(text.splitlines()),
+              '\n'.join('fleet:   | ' + l for l in
+                        text.splitlines()[:12])), flush=True)
+    check(health.get('providers') and rc == 0 and 'health:' in text,
+          'the kill bundle has no health slot, or postmortem failed')
+
+    # the supervisor brings the victim back: its answers to one request
+    # per bucket equal the pre-kill answers bit for bit
+    give_up = time.monotonic() + FLEET_RESTART_S
+    while time.monotonic() < give_up and not (
+            router.replica(victim).state == fleet.ACTIVE and
+            router.replica(victim).restarts >= 1):
+        time.sleep(0.1)
+    rep = router.replica(victim)
+    check(rep.state == fleet.ACTIVE and rep.restarts >= 1,
+          'replica %d not restarted: %s' % (victim, rep.state))
+    after = bucket_answers(rep.server)
+    same = sum(all(np.array_equal(a, b) for a, b in zip(after[k],
+                                                        before_kill[k]))
+               for k in before_kill)
+    print('fleet: replica %d restarted by the supervisor (generation %d); '
+          'its answers to one request per bucket bit-equal to the pre-kill '
+          'answers in %d of %d buckets' % (victim, rep.generation, same,
+                                           len(before_kill)), flush=True)
+    check(same == len(before_kill), 'the restarted replica answers '
+          'differently')
+
+    # a rolling swap to a re-saved copy of ResNet-50 under 2 clients
+    copy_dir = os.path.join(art, 'resnet_copy')
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    prog, feed_names, fetch_vars = pt.io.load_inference_model(
+        artifacts['resnet'], exe, scope=scope)
+    pt.io.save_inference_model(copy_dir, feed_names, fetch_vars, exe,
+                               main_program=prog, scope=scope)
+    del scope
+    stop = threading.Event()
+    swap_ok, swap_err = [0], []
+
+    def swap_client(k):
+        i = 0
+        while not stop.is_set():
+            rows = RUNTIME_MIX['resnet'][i % len(RUNTIME_MIX['resnet'])]
+            try:
+                router.infer('resnet', _image_feed(rows, seed + 300 + i),
+                             timeout=600)
+                swap_ok[0] += 1
+            except Exception as e:              # noqa: BLE001
+                swap_err.append(e)
+            i += 1
+    swappers = [threading.Thread(target=swap_client, args=(k,))
+                for k in range(FLEET_SWAP_CLIENTS)]
+    for t in swappers:
+        t.start()
+    t1 = time.perf_counter()
+    swapped = router.rolling_swap('resnet', copy_dir)
+    swap_s = time.perf_counter() - t1
+    stop.set()
+    for t in swappers:
+        t.join()
+    print('fleet: rolling_swap of ResNet-50 to a re-saved copy over '
+          'replicas %s in %.2f s under %d clients: %d requests answered, %d '
+          'failed' % (swapped, swap_s, FLEET_SWAP_CLIENTS, swap_ok[0],
+                      len(swap_err)), flush=True)
+    check(swapped == router.placement('resnet') and not swap_err and
+          swap_ok[0] > 0, 'the rolling swap failed requests: %r'
+          % (swap_err[:2],))
+
+    # retire the killed replica: its series leave the scraped exposition
+    router.retire_replica(victim)
+    _, samples = telemetry.parse_exposition(_scrape(url, '/metrics'))
+    left = sorted({s.name for s in samples
+                   if s.labels.get('replica') == str(victim)})
+    print('fleet: replica %d retired: series still labelled with it: %s; '
+          'replicas %s' % (victim, left, sorted(router.stats()['replicas'])),
+          flush=True)
+    check(not left, 'the retired replica\'s series remain: %s' % left)
+    router.close(timeout=60)
+    flight.configure(prev_flight)
+    del router, servers[:], ran_at
+    torch.cuda.empty_cache()
+
+    _autoscale(seed, card, artifacts)
+    _budget_and_slo(seed, card, artifacts)
+    tsrv.close()
+    check(telemetry.scan_port_dir(tdir) == {}, 'the port file outlived '
+          'the endpoint')
+    print('phase 15a: %.1f s' % (time.perf_counter() - t_phase), flush=True)
+    return launches
+
+
+def _autoscale(seed, card, artifacts):
+    """ResNet-50 alone behind an Autoscaler (min 1, max 3): a ramp of
+    clients scales it out within AUTOSCALE_OUT_S; idle brings it back to
+    one replica within AUTOSCALE_IN_S."""
+    import threading
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch.serving import ModelServer
+
+    def factory(rid):
+        return ModelServer(pt.CUDAPlace(0), max_batch_size=32,
+                           max_queue_depth=FLEET_QUEUE_DEPTH)
+    t0 = time.perf_counter()
+    router = fleet.Router(factory, replicas=1, poll_interval=0.2)
+    router.load_model('resnet', artifacts['resnet'])
+    scaler = fleet.Autoscaler(router, min_replicas=1,
+                              max_replicas=AUTOSCALE_MAX, high_queue=2.0,
+                              low_queue=0.5, sustain=3, up_cooldown=3.0,
+                              down_cooldown=3.0, interval=0.25)
+    print('fleet: autoscaler: ResNet-50 on 1 replica, loaded and warmed in '
+          '%.1f s; min 1, max %d, high queue 2, low 0.5, sustain 3 ticks of '
+          '0.25 s, cooldowns 3 s' % (time.perf_counter() - t0,
+                                     AUTOSCALE_MAX), flush=True)
+    scaler.start()
+    stop = threading.Event()
+    served, failed = [0], []
+
+    def client(k):
+        feed = _image_feed(32, seed + 400 + k)   # made once: the host's
+        while not stop.is_set():                 # draws would hold the load
+            try:
+                router.infer('resnet', feed, timeout=600)
+                served[0] += 1
+            except Exception as e:              # noqa: BLE001
+                failed.append(e)
+    clients = []
+    t0 = time.perf_counter()
+    out_s = None
+    sizes = []
+    while time.perf_counter() - t0 < AUTOSCALE_OUT_S:
+        if len(clients) < AUTOSCALE_CLIENTS:
+            clients.append(threading.Thread(target=client,
+                                            args=(len(clients),)))
+            clients[-1].start()
+        n = len(router.stats()['replicas'])
+        sizes.append(n)
+        if n > 1 and out_s is None:
+            out_s = time.perf_counter() - t0
+        if n >= AUTOSCALE_MAX:
+            break
+        time.sleep(AUTOSCALE_RAMP_S)
+    peak = max(sizes)
+    stop.set()
+    for t in clients:
+        t.join()
+    t1 = time.perf_counter()
+    in_s = None
+    while time.perf_counter() - t1 < AUTOSCALE_IN_S:
+        if len(router.stats()['replicas']) == 1:
+            in_s = time.perf_counter() - t1
+            break
+        time.sleep(0.1)
+    scaler.stop()
+    print('fleet: autoscaler: ramp to %d clients: scaled out after %s s '
+          '(window %g s), peak %d replicas, %d requests answered, %d failed '
+          '; idle: back to 1 replica after %s s (window %g s); scale-ups '
+          '%d, scale-downs %d; %s' % (
+              AUTOSCALE_CLIENTS, '%.2f' % out_s if out_s is not None
+              else 'never', AUTOSCALE_OUT_S, peak, served[0], len(failed),
+              '%.2f' % in_s if in_s is not None else 'never',
+              AUTOSCALE_IN_S, scaler.scale_ups, scaler.scale_downs, card),
+          flush=True)
+    check(out_s is not None, 'the ramp did not scale out within %g s'
+          % AUTOSCALE_OUT_S)
+    check(in_s is not None, 'idle did not scale back to 1 within %g s'
+          % AUTOSCALE_IN_S)
+    check(not failed, 'requests failed under the autoscaler: %r'
+          % (failed[:2],))
+    router.close(timeout=60)
+
+
+def _budget_and_slo(seed, card, artifacts):
+    """A placement budget that ResNet-50 overcommits raises
+    PlacementInfeasible and leaves no placement behind; a shed storm
+    breaches the shed-ratio SLO, which recovers after the drain."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import ModelServer, ServerOverloaded
+
+    def factory(rid):
+        return ModelServer(pt.CUDAPlace(0), max_batch_size=32,
+                           max_queue_depth=FLEET_QUEUE_DEPTH)
+    with np.load(os.path.join(artifacts['resnet'],
+                              pt.io.PARAMS_FILE)) as data:
+        weights = int(sum(data[k].nbytes for k in data.files))
+    router = fleet.Router(factory, replicas=1, supervise=False,
+                          placement_budget=fleet.PlacementBudget(
+                              hbm_bytes=weights // 2))
+    try:
+        router.load_model('resnet', artifacts['resnet'], hbm_bytes=weights)
+        err = None
+    except fleet.PlacementInfeasible as e:
+        err = e
+    print('fleet: PlacementBudget(hbm_bytes=%d) and ResNet-50 declaring its '
+          '%d weight bytes: %s; placements %s, models on the replica %s' % (
+              weights // 2, weights, '%s: %s' % (type(err).__name__, err)
+              if err else 'loaded', router.models(),
+              router.replica(0).server.models()), flush=True)
+    check(err is not None and err.budget == 'hbm_bytes' and
+          'hbm_bytes' in str(err) and router.models() == [] and
+          router.replica(0).server.models() == [],
+          'the overcommit was not refused cleanly')
+
+    # the shed storm: the SLO engine on the process registry, under a
+    # clock the phase advances (5 s a tick), windows 10 and 60 s
+    router.close(timeout=60)
+    router = fleet.Router(factory, replicas=1, supervise=False)
+    router.load_model('resnet', artifacts['resnet'])
+    server = router.replica(0).server
+    now = [0.0]
+    engine = obs.SLOEngine(
+        [obs.SLO.ratio('shed', bad='serving_requests_shed_total',
+                       total='serving_requests_submitted_total',
+                       objective=SHED_OBJECTIVE)],
+        windows=(10.0, 60.0), clock=lambda: now[0])
+    feed = _image_feed(1, seed + 500)
+
+    def clean_tick():
+        for _ in range(FLEET_QUEUE_DEPTH):
+            router.infer('resnet', feed, timeout=600)
+        now[0] += 5.0
+        return engine.tick()['shed']
+    reports = [clean_tick() for _ in range(3)]
+    # each storm tick parks a full queue on the paused replica and sends
+    # SHED_STORM more, which shed; the queue is drained before the next
+    parked, shed = 0, 0
+    for _ in range(3):
+        server.pause('resnet')
+        held = []
+        for _ in range(SHED_STORM):
+            try:
+                held.append(server.submit('resnet', feed))
+            except ServerOverloaded:
+                shed += 1
+        now[0] += 5.0
+        reports.append(engine.tick()['shed'])
+        server.resume('resnet')
+        for r in held:
+            r.result(timeout=600)
+        parked += len(held)
+    storm = reports[-1]
+    reports += [clean_tick() for _ in range(4)]
+    print('fleet: shed-ratio SLO (objective %g, windows 10 and 60 s): burn '
+          'rate by tick %s; breached after the storm (%d parked, %d shed): '
+          '%s (burn %.2f); after the drain and 4 clean ticks: breached %s '
+          '(burn %.2f, long window still %.2f)' % (
+              SHED_OBJECTIVE, ['%.2f' % r['burn_rate'] for r in reports],
+              parked, shed, storm['breached'], storm['burn_rate'],
+              reports[-1]['breached'], reports[-1]['burn_rate'],
+              reports[-1]['windows'][60.0]), flush=True)
+    check(storm['breached'] and storm['burn_rate'] > 1.0 and shed > 0,
+          'the shed storm did not breach the SLO')
+    check(not reports[-1]['breached'], 'the SLO did not recover')
+    router.close(timeout=60)
+
+
+# phase 15b: the decode tier at the widest widths of the repo's recurrent
+# models: book 08's dictionary (models/books.py), stacked_dynamic_lstm's
+# embedding and hidden width (benchmark/fluid/models.py), a 256-token
+# history in 16-token pages. The slotted engine and the paged one hold
+# equal KV bytes: 16 slots x 256 positions, 256 pages x 16 positions.
+DECODE = dict(dict_size=30000, word_dim=512, hidden=512, max_len=256,
+              page_size=16)
+DECODE_SLOTS = 16
+DECODE_PAGED_SLOTS = 48
+DECODE_PAGES = 256
+DECODE_SEQS = 192
+DECODE_ORACLE = 16               # the first sequences, decoded one by one
+# a token may part across slot counts only where the oracle's top two
+# probabilities lie within this relative gap, (p1 - p2) / p1: f32
+# products of another row count round apart by a few ulps of the logits
+DECODE_TIE = 1e-5
+DECODE_PROMPTS = 32              # disaggregated prefill: prompts of
+DECODE_PROMPT_LENS = (8, 64)     # 8-64 tokens,
+DECODE_CONTINUE = 16             # each continued for 16 tokens
+DECODE_KILL_AFTER = 8            # prompts routed before a prefill replica dies
+
+
+def _decode_lengths(seed, n):
+    """tools/fleet_bench.py's ragged pattern scaled by 8: randint(1, 7) x 8
+    tokens, every eighth sequence half the history."""
+    rng = np.random.RandomState(seed)
+    lengths = [int(rng.randint(1, 7)) * 8 for _ in range(n)]
+    for i in range(0, n, 8):
+        lengths[i] = DECODE['max_len'] // 2
+    firsts = [int(rng.randint(1, DECODE['dict_size'])) for _ in range(n)]
+    return lengths, firsts
+
+
+def _decode_run(eng, lengths, firsts):
+    """Decode every sequence through ``eng`` at once; (tokens, wall s,
+    stats)."""
+    eng.decode(first_id=1, max_new_tokens=2, timeout=600)   # lowering
+    s0 = eng.stats()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(first_id=f, max_new_tokens=m)
+            for f, m in zip(firsts, lengths)]
+    outs = [r.result(timeout=900) for r in reqs]
+    wall = time.perf_counter() - t0
+    s1 = eng.stats()
+    return outs, wall, {'steps': s1['steps'] - s0['steps'],
+                        'tokens': s1['tokens'] - s0['tokens'],
+                        'occupancy': (s1['slot_steps'] - s0['slot_steps']) /
+                        float(max(1, (s1['steps'] - s0['steps']) * eng.slots))}
+
+
+class _Top2(object):
+    """A cell wrapper keeping each step's top two probabilities, fetched
+    beside the engine's own outputs and read off each step's run with
+    the requests the slots held then."""
+
+    def __init__(self, cell):
+        self.cell, self.var, self.steps = cell, None, []
+
+    def __call__(self, *args):
+        import paddle_tpu_torch as pt
+        out = self.cell(*args)
+        self.var, _ = pt.layers.topk(out[0], k=2)
+        return out
+
+    def attach(self, eng):
+        eng._fetch.append(self.var)
+        real = eng.executor.run
+
+        def run(*args, **kw):
+            outs = real(*args, **kw)
+            self.steps.append((np.asarray(outs[-1]), [
+                None if slot is None else slot.req for slot in eng._table]))
+            return outs
+        eng.executor.run = run
+
+    def rows(self, reqs):
+        """Each request's top-two rows, one a token, in step order."""
+        out = {id(r): [] for r in reqs}
+        for top, live in self.steps:
+            for i, req in enumerate(live):
+                if req is not None and id(req) in out:
+                    out[id(req)].append(top[i])
+        return [np.array(out[id(r)]) for r in reqs]
+
+
+def _corrupt(eng, mode):
+    """A wrong paged cell: the step program fed kv_off shifted by one, or
+    every block-table row reversed."""
+    real = eng.executor.run
+
+    def run(program, feed=None, **kw):
+        feed = dict(feed)
+        if mode == 'kv_off + 1':
+            feed['kv_off'] = feed['kv_off'] + 1
+        else:
+            feed['kv_table'] = np.ascontiguousarray(feed['kv_table'][:, ::-1])
+        return real(program, feed=feed, **kw)
+    eng.executor.run = run
+
+
+def _gaps(rows):
+    """The relative top-2 gap, (p1 - p2) / p1, at each token."""
+    return [[float((t[0] - t[1]) / t[0]) for t in r] for r in rows]
+
+
+def _decode_probe(top2, reqs, oracle_rows):
+    """The top-1 probabilities a multi-slot engine gave the oracle's
+    sequences against the one-slot oracle's, token for token:
+    (tokens, bit-equal, max relative difference)."""
+    n = same = 0
+    worst = 0.0
+    for got, want in zip(top2.rows(reqs), oracle_rows):
+        k = min(len(got), len(want))
+        a, b = got[:k, 0], want[:k, 0]
+        n += k
+        same += int((a.view(np.int32) == b.view(np.int32)).sum())
+        if k:
+            worst = max(worst, float(np.max(np.abs(a - b) / b)))
+    return n, same, worst
+
+
+def _tie_gate(got, want, gaps):
+    """Token by token against the oracle: a parting is excused only at a
+    step whose oracle top-2 gap is within DECODE_TIE, and that sequence is
+    compared no further. (compared, excused, faults, first fault)."""
+    compared = excused = faults = 0
+    first = None
+    for i, (g, w, gp) in enumerate(zip(got, want, gaps)):
+        if len(g) != len(w):
+            faults += 1
+            first = first or (i, 'length %d, oracle %d' % (len(g), len(w)))
+            continue
+        for t in range(len(w)):
+            compared += 1
+            if g[t] == w[t]:
+                continue
+            if gp[t] <= DECODE_TIE:
+                excused += 1
+            else:
+                faults += 1
+                first = first or (i, 'step %d: %d, oracle %d (gap %.3g)'
+                                  % (t, g[t], w[t], gp[t]))
+            break
+    return compared, excused, faults, first
+
+
+def _profiled_step(eng, label, card):
+    """One full step of ``eng`` (every slot live) run and fetched as the
+    engine does, under torch.profiler: the device's busy share of the
+    step's host wall and the host<->card copies' share."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    S = eng.slots
+    feed = {'dec_ids': np.ones((S, 1), np.int64),
+            'dec_pos': np.full((S, 1), 3, np.int64)}
+    for name, _, _ in eng.specs:
+        feed['dec_state_%s' % name] = eng._states[name]
+    if eng.admission == 'paged':
+        P = eng.pool.page_size
+        feed['kv_table'] = np.tile(np.arange(eng.max_pages, dtype=np.int64),
+                                   (S, 1)) % eng.pool.num_pages
+        feed['kv_page'] = np.zeros((S, 1), np.int64)
+        feed['kv_off'] = np.full((S, 1), 3 % P, np.int64)
+        for name, _, _ in eng.pool.specs:
+            feed['kv_pool_%s' % name] = eng.pool.data[name]
+
+    def step():
+        outs = eng.executor.run(eng._main, feed=feed, fetch_list=eng._fetch,
+                                scope=eng.scope)
+        return [np.array(o) for o in outs]
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in events) / 1e6
+    copies = sum(e.device_time for e in events
+                 if 'memcpy' in e.name.lower()) / 1e6
+    nbytes = sum(np.asarray(v).nbytes for v in feed.values())
+    # the host's side of the KV round trip, as the engine makes it each
+    # step: the state and pool arrays to the card, back into fresh host
+    # arrays, and the engine's copy of each (median of 5)
+    kv = [v for k, v in feed.items() if k.startswith(('dec_state_',
+                                                      'kv_pool_'))]
+    trips, device = [], eng.executor.device
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = [torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               for v in kv]
+        back = [np.array(t.cpu().numpy()) for t in dev]
+        trips.append(time.perf_counter() - t0)
+    del dev, back
+    trip = float(np.median(trips))
+    print('decode: %s: a profiled step (%d slots live): %.3f ms host wall, '
+          'device busy %.1f%%, host<->card copies on the device %.3f ms '
+          '(%.1f%% of the wall; %.2f MiB fed, the same fetched back but the '
+          'ids); the KV round trip on the host alone %.3f ms; %s' % (
+              label, S, wall * 1e3, 100 * busy / wall, copies * 1e3,
+              100 * copies / wall, nbytes / 2.0 ** 20, trip * 1e3, card),
+          flush=True)
+    return wall, busy, copies, trip
+
+
+def phase_decode(seed, card, art_dir):
+    """15b. The decode tier on the card: the slotted attention cell at 16
+    slots (continuous, stop-and-wait), the paged cell at 16 and 48 slots
+    over equal KV bytes, a one-slot oracle; bit for bit at equal slot
+    counts, token by token with tie-excused partings across them, two
+    wrong paged cells failing both; then disaggregated prefill through a
+    Router of two prefill replicas, one killed mid-load, into a local
+    paged engine. TF32 and AMP off: the gates hold f32 decodes."""
+    import threading
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.kvcache as kvc
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.core import amp
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    amp.set_amp(False)
+    try:
+        _decode_gates(seed, card)
+        _disagg(seed, card, art_dir)
+    finally:
+        amp.set_amp(None)
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    print('phase 15b: %.1f s' % (time.perf_counter() - t_phase), flush=True)
+
+
+def _decode_engines(seed):
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.kvcache as kvc
+    from paddle_tpu_torch import fleet
+    D = DECODE
+
+    def slotted(slots, admission='continuous', top2=False):
+        cell, specs = fleet.attention_history_cell(
+            D['dict_size'], word_dim=D['word_dim'], hidden=D['hidden'],
+            max_len=D['max_len'])
+        wrap = _Top2(cell) if top2 else None
+        eng = fleet.DecodeEngine(wrap or cell, specs, slots=slots,
+                                 max_len=D['max_len'], seed=seed,
+                                 admission=admission,
+                                 place=pt.CUDAPlace(0))
+        if wrap is not None:
+            wrap.attach(eng)
+        return eng, wrap
+
+    spec = kvc.stock_spec(D['dict_size'], word_dim=D['word_dim'],
+                          hidden=D['hidden'], max_len=D['max_len'],
+                          page_size=D['page_size'], num_pages=DECODE_PAGES,
+                          seed=seed)
+
+    def paged(slots, corrupt=None):
+        eng, pool = kvc.make_paged_engine(spec, slots=slots,
+                                          place=pt.CUDAPlace(0))
+        if corrupt:
+            _corrupt(eng, corrupt)
+        return eng
+
+    def paged_top2(slots):
+        """make_paged_engine's engine, built by hand around a _Top2."""
+        cell, state_specs, pool_specs = kvc.build_cell(spec)
+        wrap = _Top2(cell)
+        pool = kvc.PagePool(pool_specs, num_pages=DECODE_PAGES,
+                            page_size=D['page_size'])
+        eng = fleet.DecodeEngine(wrap, state_specs, slots=slots,
+                                 max_len=D['max_len'], seed=seed,
+                                 admission='paged', page_pool=pool,
+                                 place=pt.CUDAPlace(0))
+        wrap.attach(eng)
+        return eng, wrap
+    return slotted, paged, paged_top2, spec
+
+
+def _decode_gates(seed, card):
+    slotted, paged, paged_top2, spec = _decode_engines(seed)
+    lengths, firsts = _decode_lengths(seed + 600, DECODE_SEQS)
+    tokens = sum(lengths)
+    runs, readings = {}, {}
+    kv_bytes = {}
+    for label, make in (
+            ('slotted 16 continuous', lambda: slotted(DECODE_SLOTS)[0]),
+            ('slotted 16 stop-and-wait',
+             lambda: slotted(DECODE_SLOTS, 'stop_and_wait')[0]),
+            ('paged 16', lambda: paged(DECODE_SLOTS)),
+            ('paged 48', lambda: paged(DECODE_PAGED_SLOTS))):
+        eng = make()
+        outs, wall, st = _decode_run(eng, lengths, firsts)
+        runs[label] = outs
+        kv_bytes[label] = eng.pool.nbytes if eng.pool is not None else \
+            eng._states['kv'].nbytes
+        step = _profiled_step(eng, label, card)
+        readings[label] = (wall, st, step)
+        print('decode: %s: %d sequences, %d tokens in %.3f s: %.1f tokens/s, '
+              '%d steps (%.3f ms a step), occupancy %.3f; KV %.1f MiB, its '
+              'round trip %.1f%% of a step; %s' % (
+                  label, len(lengths), st['tokens'], wall,
+                  st['tokens'] / wall, st['steps'], 1e3 * wall / st['steps'],
+                  st['occupancy'], kv_bytes[label] / 2.0 ** 20,
+                  100 * step[3] / (wall / st['steps']), card), flush=True)
+        check(st['tokens'] == tokens, '%s emitted %d tokens of %d'
+              % (label, st['tokens'], tokens))
+        eng.close()
+    check(len(set(kv_bytes.values())) == 1, 'KV bytes differ: %s' % kv_bytes)
+    # equal slot counts: bit for bit
+    ref = runs['slotted 16 continuous']
+    for label in ('slotted 16 stop-and-wait', 'paged 16'):
+        equal = sum(np.array_equal(a, b) for a, b in zip(runs[label], ref))
+        print('decode: %s against slotted 16 continuous: %d of %d sequences '
+              'bit-equal' % (label, equal, len(ref)), flush=True)
+        check(equal == len(ref), '%s parts from the slotted engine at the '
+              'same slot count' % label)
+    # across slot counts: the one-slot oracle, ties excused
+    oracle, top2 = slotted(1, top2=True)
+    o_lens, o_firsts = lengths[:DECODE_ORACLE], firsts[:DECODE_ORACLE]
+    reqs = [oracle.submit(first_id=f, max_new_tokens=m)
+            for f, m in zip(o_firsts, o_lens)]
+    want = [r.result(timeout=900) for r in reqs]
+    oracle.close()
+    oracle_rows = top2.rows(reqs)
+    gaps = _gaps(oracle_rows)
+    # the probabilities themselves across slot counts: is a row's
+    # rounding independent of the engine's row count?
+    for label, make in (('slotted 16', lambda: slotted(DECODE_SLOTS,
+                                                        top2=True)),
+                        ('paged 48', lambda: paged_top2(DECODE_PAGED_SLOTS))):
+        eng, probe = make()
+        preqs = [eng.submit(first_id=f, max_new_tokens=m)
+                 for f, m in zip(o_firsts, o_lens)]
+        for r in preqs:
+            r.result(timeout=900)
+        eng.close()
+        n, same, worst = _decode_probe(probe, preqs, oracle_rows)
+        print('decode: rows across slot counts, %s against the one-slot '
+              'oracle on %d sequences: top-1 probabilities bit-equal at %d '
+              'of %d tokens, max relative difference %.3g' % (
+                  label, DECODE_ORACLE, same, n, worst), flush=True)
+    for label in ('slotted 16 continuous', 'paged 48'):
+        compared, excused, faults, first = _tie_gate(
+            runs[label][:DECODE_ORACLE], want, gaps)
+        print('decode: %s against the one-slot oracle on %d sequences: %d '
+              'tokens compared, %d partings excused (oracle top-2 gap <= %g), '
+              '%d faults%s' % (label, DECODE_ORACLE, compared, excused,
+                               DECODE_TIE, faults,
+                               ' (first: %s)' % (first,) if first else ''),
+              flush=True)
+        check(faults == 0, '%s parts from the oracle: %s' % (label, first))
+    # the controls: two wrong paged cells fail both gates
+    o_ref = ref[:DECODE_ORACLE]
+    for mode in ('kv_off + 1', 'block table reversed'):
+        for slots in (DECODE_SLOTS, DECODE_PAGED_SLOTS):
+            eng = paged(slots, corrupt=mode)
+            outs, _, _ = _decode_run(eng, o_lens, o_firsts)
+            eng.close()
+            if slots == DECODE_SLOTS:
+                equal = sum(np.array_equal(a, b) for a, b in zip(outs, o_ref))
+                failed = equal < len(o_ref)
+                what = '%d of %d bit-equal to slotted 16' % (equal,
+                                                             len(o_ref))
+            else:
+                _, excused, faults, _ = _tie_gate(outs, want, gaps)
+                failed = faults > 0
+                what = '%d faults, %d excused against the oracle' % (
+                    faults, excused)
+            print('decode: control, paged %d with %s: %s: %s' % (
+                slots, mode, what, 'fails, as it must' if failed
+                else 'PASSES'), flush=True)
+            check(failed, 'the control paged %d with %s passed its gate'
+                  % (slots, mode))
+    return want
+
+
+def _disagg(seed, card, art_dir):
+    """Disaggregated prefill: a Router over two role='prefill' replicas
+    (PrefillServer on the card) and a local paged engine; 32 prompts of
+    8-64 tokens, one prefill replica killed after 8 are routed."""
+    import threading
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.kvcache as kvc
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch import observability as obs
+    slotted, _, _, spec = _decode_engines(seed)
+    rng = np.random.RandomState(seed + 700)
+    lo, hi = DECODE_PROMPT_LENS
+    plens = [int(rng.randint(lo, hi + 1)) for _ in range(DECODE_PROMPTS)]
+    firsts = [int(rng.randint(1, DECODE['dict_size']))
+              for _ in range(DECODE_PROMPTS)]
+    # the oracle: each sequence decoded alone through prompt and
+    # continuation; a prompt is the first id and the oracle's own prefix
+    oracle, top2 = slotted(1, top2=True)
+    total = [k - 1 + DECODE_CONTINUE for k in plens]
+    reqs = [oracle.submit(first_id=f, max_new_tokens=n)
+            for f, n in zip(firsts, total)]
+    want = [r.result(timeout=900) for r in reqs]
+    oracle.close()
+    gaps = _gaps(top2.rows(reqs))
+    # the prompt runs through the prefill replica's teacher-forced steps:
+    # the oracle's tokens after it are the continuation
+    prompts = [np.concatenate([[f], w[:k - 1]]).astype(np.int64)
+               for f, w, k in zip(firsts, want, plens)]
+
+    journal_path = os.path.join(art_dir, 'disagg.jsonl')
+    journal = obs.RunJournal(journal_path)
+    obs.set_journal(journal)
+    try:
+        router = fleet.Router(lambda rid: kvc.PrefillServer(pt.CUDAPlace(0)),
+                              replicas=2, replication=2, poll_interval=0.2)
+        router.register_prefill('prefill', spec)
+        dec = kvc.DisaggregatedDecoder(router, 'prefill', spec,
+                                       slots=DECODE_PAGED_SLOTS,
+                                       place=pt.CUDAPlace(0))
+        t0 = time.perf_counter()
+        handles, results, errors = [], {}, []
+        lock = threading.Lock()
+
+        def finish(i, h):
+            try:
+                out = h.result(timeout=900)
+            except Exception as e:              # noqa: BLE001
+                with lock:
+                    errors.append((i, e))
+            else:
+                with lock:
+                    results[i] = out
+        threads = []
+        victim = None
+        for i, prompt in enumerate(prompts):
+            if i == DECODE_KILL_AFTER:
+                victim = router.placement('prefill')[0]
+                router.kill_replica(victim, abrupt=True)
+            h = dec.submit(prompt, DECODE_CONTINUE)
+            handles.append(h)
+            threads.append(threading.Thread(target=finish, args=(i, h)))
+            threads[-1].start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        requeues = sum(h._routed.requeues for h in handles)
+        traces = [h._span.context for h in handles]
+        dec.close()
+        router.close(timeout=60)
+    finally:
+        obs.set_journal(None)
+        journal.close()
+    got = [results.get(i, np.zeros(0, np.int64)) for i in range(len(prompts))]
+    cont_want = [w[k - 1:] for w, k in zip(want, plens)]
+    cont_gaps = [g[k - 1:] for g, k in zip(gaps, plens)]
+    compared, excused, faults, first = _tie_gate(got, cont_want, cont_gaps)
+    print('decode: disaggregated prefill: %d prompts of %d-%d tokens, each '
+          'continued %d tokens, through 2 prefill replicas (replica %s killed '
+          'after %d were routed; %d requeues) into a paged engine of %d '
+          'slots in %.2f s; %d failed; against the one-slot oracle: %d tokens '
+          'compared, %d partings excused, %d faults%s; %s' % (
+              len(prompts), min(plens), max(plens), DECODE_CONTINUE, victim,
+              DECODE_KILL_AFTER, requeues, DECODE_PAGED_SLOTS, wall,
+              len(errors), compared, excused, faults,
+              ' (first: %s)' % (first,) if first else '', card), flush=True)
+    check(not errors, 'disaggregated requests failed: %r' % (errors[:2],))
+    check(faults == 0, 'disaggregated decode parts from the oracle: %s'
+          % (first,))
+    # one trace tree across the prefill -> decode hop
+    sys.path.insert(0, os.path.join(ROOT, 'tools'))
+    import trace_report
+    store = trace_report.build_store([journal_path])
+    whole = 0
+    for ctx in traces:
+        names = {store.spans[i]['name'] for i in
+                 store.subtree_ids(ctx.span_id, follow_links=True)} \
+            if ctx is not None and ctx.span_id in store.spans else set()
+        whole += all(n in names for n in (
+            'kvcache/request', 'fleet/request', 'kvcache/prefill',
+            'kvcache/transfer', 'decode/request'))
+    print('decode: trace_report: %d spans, %d unclosed; %d of %d requests '
+          'with one tree holding kvcache/request, fleet/request, '
+          'kvcache/prefill, kvcache/transfer and decode/request' % (
+              len(store.spans), len(store.unclosed()), whole, len(traces)),
+          flush=True)
+    check(whole == len(traces), 'a request lacks its tree across the hop')
+
+
 def sweep_conv_plans(card):
     """The wgmma conv's time at every (tile width, K splits) at ResNet-50's
     non-stem region shapes at batch 1, 8 and 32 (bf16, the folded batch
@@ -6509,6 +7671,7 @@ def run_phases(args, card, root):
         resnet_launches = phase_resnet_serving(args.seed, artifacts)
         runtime_launches = phase_serving_runtime(args.seed, card, artifacts)
         tuned_launches = phase_autotuned_serving(args.seed, card, artifacts)
+        fleet_launches = phase_fleet(args.seed, card, artifacts)
     torch.cuda.empty_cache()
     trained = phase_training(args.seed, card)
     phase_gradients(args.seed, trained)
@@ -6540,14 +7703,18 @@ def run_phases(args, card, root):
     phase_machine_translation(args.seed, card)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
         phase_control_flow(args.seed, card, d)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        phase_decode(args.seed, card, d)
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests, the serving runtime's concurrent mix, untuned
-    # and tuned, and the timed training steps at both lengths; the merged
+    # and tuned, the fleet's mix (15a), and the timed training steps at
+    # both lengths; the merged
     # backward: the timed training steps; the two-pass backward: the timed
     # long-context steps, its numbers at their shape, the training
-    # shape's beside them; the fused conv: the served ResNet requests and
-    # the serving runtime's concurrent mix, untuned and tuned)
+    # shape's beside them; the fused conv: the served ResNet requests,
+    # the serving runtime's concurrent mix, untuned and tuned, and the
+    # fleet's mix)
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -6560,7 +7727,7 @@ def run_phases(args, card, root):
         replaces='paddle_tpu/ops/pallas_kernels.py:85',
         launches=launches['flash_attn_fwd'] +
         runtime_launches['flash_attn_fwd'] +
-        tuned_launches['flash_attn_fwd'] +
+        tuned_launches['flash_attn_fwd'] + fleet_launches['flash_attn_fwd'] +
         trained['launches']['flash_attn_fwd'] +
         long_trained['launches']['flash_attn_fwd'], **main_shape)]
     kernels.append(dict(
@@ -6594,6 +7761,7 @@ def run_phases(args, card, root):
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_launches['fused_conv'] +
         runtime_launches['fused_conv'] + tuned_launches['fused_conv'] +
+        fleet_launches['fused_conv'] +
         sum(b['fused_conv'] for b, _ in bench.values()) +
         book_launches['fused_conv'],
         bench_regions=bench_totals('fused_conv'),

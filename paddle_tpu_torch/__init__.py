@@ -49,9 +49,20 @@ the reference's dynamic LoD form, whose values are packed
 (``models/books.py``), trains through a DynamicRNN and decodes by beam
 search.
 
+The serving tier: ``fleet`` (a ``Router`` over ModelServer replicas, its
+supervisor and autoscaler, and the continuous-batching ``DecodeEngine``)
+and ``kvcache`` (the paged KV pool, the paged attention cell, prefill
+replicas and disaggregated decode), watched through
+``observability.telemetry`` (a scrape endpoint, health providers) and
+``observability.slo`` (burn rates). ``python -m
+paddle_tpu_torch.tools.analyze_program`` runs the static analysis on a
+builder file or a saved model.
+
 Entry points run on the card unless told otherwise: ``Executor()``,
-``serving.ModelServer()`` and ``Inferencer(...)`` mean ``CUDAPlace(0)``
-and raise where CUDA is absent; pass ``CPUPlace()`` to run on the CPU.
+``serving.ModelServer()``, ``Inferencer(...)``, ``fleet.DecodeEngine``,
+``kvcache.PrefillEngine`` and ``kvcache.make_paged_engine`` mean
+``CUDAPlace(0)`` and raise where CUDA is absent; pass ``CPUPlace()`` to
+run on the CPU.
 """
 from . import framework, unique_name, initializer, param_attr  # noqa
 from . import layers, ops, io, executor  # noqa
@@ -68,6 +79,7 @@ from .lod import (SequenceTensor, create_lod_tensor,  # noqa
                   create_random_int_lodtensor)
 from .backward import append_backward  # noqa
 from . import analysis, nets, resilience, serving  # noqa
+from . import fleet, kvcache  # noqa
 from .inferencer import Inferencer  # noqa
 from .data_feeder import DataFeeder  # noqa
 from . import reader, dataset  # noqa

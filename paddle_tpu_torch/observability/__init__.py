@@ -1,9 +1,8 @@
 """Telemetry for paddle_tpu_torch: the observability core.
 
 Counterpart of paddle_tpu/observability, without ``perf`` (the program
-ledgers), ``telemetry`` (the live scrape endpoint and health providers)
-and ``slo``; each is a later item of ROADMAP Queue A. Stdlib only and
-free of import cycles:
+ledgers, ROADMAP Queue A item 6). Stdlib only and free of import
+cycles:
 
 - :mod:`~paddle_tpu_torch.observability.metrics`: a thread-safe metrics
   registry (counters, gauges, log2-bucket histograms) with Prometheus
@@ -21,7 +20,18 @@ free of import cycles:
   ``tools/trace_report.py``.
 - :mod:`~paddle_tpu_torch.observability.flight`: the crash flight
   recorder, an always-on bounded ring of recent journal-grade events
-  dumped as an atomic postmortem bundle on watchdog and breaker trips.
+  dumped as an atomic postmortem bundle (ring, metrics, unclosed spans,
+  health) on watchdog and breaker trips, replica kills and SIGTERM.
+- :mod:`~paddle_tpu_torch.observability.telemetry`: the live telemetry
+  plane: a per-process HTTP scrape endpoint (``/metrics``, ``/health``),
+  the ``PTPU_TELEMETRY`` / ``PTPU_TELEMETRY_DIR`` env contract, the
+  health-provider registry and the :class:`TelemetryAggregator`, which
+  merges endpoints into fleet-wide rollups under ``host=``/``replica=``
+  labels.
+- :mod:`~paddle_tpu_torch.observability.slo`: declared objectives (p99
+  latency, shed or error rate) evaluated as multi-window burn rates,
+  published as ``slo_burn_rate{slo=}`` gauges and read by the fleet
+  autoscaler's ``slo_probe``.
 """
 from .metrics import (Counter, Gauge, Histogram,  # noqa: F401
                       MetricsRegistry, default_registry,
@@ -36,6 +46,15 @@ from .tracing import (TraceContext, Span, NULL_SPAN,  # noqa: F401
                       TRACE_PARENT_ENV, TRACE_SAMPLE_ENV)
 from . import flight  # noqa: F401
 from .flight import FLIGHT_ENV  # noqa: F401
+from . import telemetry  # noqa: F401
+from .telemetry import (TelemetryAggregator,  # noqa: F401
+                        TelemetryServer, serve_telemetry,
+                        install_env_telemetry, parse_exposition,
+                        register_health_provider,
+                        unregister_health_provider, collect_health,
+                        TELEMETRY_ENV, TELEMETRY_DIR_ENV)
+from . import slo as slo  # noqa: F401
+from .slo import SLO, SLOEngine  # noqa: F401
 
 __all__ = [
     'Counter', 'Gauge', 'Histogram', 'MetricsRegistry',
@@ -49,4 +68,9 @@ __all__ = [
     'sample_rate', 'parent_from_env', 'TRACE_PARENT_ENV',
     'TRACE_SAMPLE_ENV',
     'flight', 'FLIGHT_ENV',
+    'telemetry', 'TelemetryAggregator', 'TelemetryServer',
+    'serve_telemetry', 'install_env_telemetry', 'parse_exposition',
+    'register_health_provider', 'unregister_health_provider',
+    'collect_health', 'TELEMETRY_ENV', 'TELEMETRY_DIR_ENV',
+    'slo', 'SLO', 'SLOEngine',
 ]

@@ -9,18 +9,19 @@ only after it flushes. The flight recorder answers "what was happening
 bounded in-memory ring (a ``collections.deque`` append: no lock, no
 serialization, no syscall), whether or not a journal is installed or
 trace sampling is on. When something trips (the serving watchdog, a
-breaker opening), :func:`trip` freezes the ring plus the live metrics
-snapshot and the unclosed spans into one atomic JSON bundle that
-``tools/postmortem.py`` renders after the fact.
+breaker opening, a replica kill, SIGTERM once a telemetry endpoint
+installed the hook), :func:`trip` freezes the ring plus the live
+metrics snapshot, the unclosed spans and the health providers'
+documents (``telemetry.collect_health``) into one atomic JSON bundle
+that ``tools/postmortem.py`` renders after the fact.
 
-The bundle's ``health`` and ``ledgers`` slots stay ``None`` in the
-port: they read the live telemetry endpoint's health providers and the
-performance observatory's ledgers, which are later items of ROADMAP
-Queue A (``telemetry.py``, ``perf.py``).
+The bundle's ``ledgers`` slot stays ``None`` in the port: it reads the
+performance observatory's program ledgers (``perf.py``), ROADMAP Queue
+A item 6.
 
 Overhead contract: the ring append is a deque append of an
-already-built tuple. The JAX package's SIGTERM hook and its ring
-switch have no caller in the port and are left out.
+already-built tuple. The JAX package's switch for the ring has no caller
+in the port and is left out.
 
 Dump gating: bundles are only written when a directory is configured —
 ``PTPU_FLIGHT_DIR`` in the environment or :func:`configure` — so unit
@@ -30,19 +31,21 @@ breaker failure paths where a second failure would mask the first.
 
 Stdlib-only, no package imports at module scope: ``journal.py`` imports
 this module, so the dependency arrow points one way (the metrics
-snapshot is imported lazily at dump time).
+snapshot and the health providers are imported lazily at dump time).
 """
 import collections
 import json
 import os
 import re
+import signal
 import threading
 import time
 
 __all__ = [
     'FLIGHT_ENV', 'RING_CAPACITY', 'BUNDLE_SCHEMA',
-    'note', 'ring', 'clear', 'configure', 'flight_dir', 'trip', 'dump',
-    'note_span_begin', 'note_span_end', 'live_spans', 'read_bundle',
+    'note', 'ring', 'clear', 'configure', 'flight_dir', 'trip', 'dump', 'last_bundle',
+    'note_span_begin', 'note_span_end', 'live_spans',
+    'install_signal_dump', 'read_bundle',
 ]
 
 # env contract: a process that finds this set dumps postmortem bundles
@@ -62,6 +65,8 @@ _LOCK = threading.Lock()   # guards dump bookkeeping, not the ring
 _LIVE_SPANS = {}           # span_id -> {'name','trace','since_wall'}
 _LAST_DUMP = {}            # reason -> monotonic t of last bundle
 _SEQ = [0]
+_LAST_BUNDLE = [None]
+_SIGNAL_INSTALLED = [False]
 
 
 # ---- the ring -------------------------------------------------------------
@@ -130,6 +135,11 @@ def flight_dir():
     return os.environ.get(FLIGHT_ENV) or None
 
 
+def last_bundle():
+    """Path of the most recent bundle this process wrote, or None."""
+    return _LAST_BUNDLE[0]
+
+
 # ---- bundles --------------------------------------------------------------
 def _best_effort(fn):
     try:
@@ -139,9 +149,8 @@ def _best_effort(fn):
 
 
 def _health_doc():
-    """The health providers' documents: none until the port has the
-    live telemetry endpoint (``telemetry.py``)."""
-    return None
+    from . import telemetry
+    return telemetry.collect_health()
 
 
 def _ledger_summary():
@@ -198,6 +207,7 @@ def dump(reason, context=None, directory=None):
         except OSError:
             pass
         return None
+    _LAST_BUNDLE[0] = path
     return path
 
 
@@ -236,3 +246,27 @@ def read_bundle(path):
         raise ValueError('%s is not a schema-%d postmortem bundle'
                          % (path, BUNDLE_SCHEMA))
     return bundle
+
+
+# ---- SIGTERM --------------------------------------------------------------
+def install_signal_dump(signum=signal.SIGTERM):
+    """Chain a bundle dump in front of the existing SIGTERM handler.
+    Main-thread only: callers on other threads get False back."""
+    if _SIGNAL_INSTALLED[0]:
+        return True
+    try:
+        prev = signal.getsignal(signum)
+
+        def _handler(sig, frame):
+            trip('sigterm')
+            if callable(prev):
+                prev(sig, frame)
+            elif prev == signal.SIG_DFL:
+                signal.signal(sig, signal.SIG_DFL)
+                os.kill(os.getpid(), sig)
+
+        signal.signal(signum, _handler)
+    except ValueError:      # not the main thread
+        return False
+    _SIGNAL_INSTALLED[0] = True
+    return True

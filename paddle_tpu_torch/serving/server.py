@@ -52,12 +52,13 @@ events, the trace spans ``serving/request`` (submit to result),
 ``serving/queue``, ``serving/batch`` (linked to every request it
 serves), ``serving/pad``, ``serving/run``, ``serving/exact_run`` and
 ``serving/retry``, a flight-recorder trip when a breaker opens or the
-watchdog trips, and a journal flush on ``close()``.
+watchdog trips, and a journal flush on ``close()``. Each server
+registers itself as a health provider of the live telemetry endpoint
+(``observability.telemetry``) from construction until ``close()``, so
+``/health`` and a postmortem bundle carry its ``health()`` document.
 
-Left out of the reference: the health provider of the live telemetry
-endpoint, which waits for ``observability/telemetry.py`` (ROADMAP Queue
-A item 4); the profiler's serving spans; and the partitioner (a sharded
-server).
+Left out of the reference: the profiler's serving spans and the
+partitioner (a sharded server, ROADMAP Queue A item 6).
 """
 import logging
 import threading
@@ -168,6 +169,10 @@ class ModelServer(object):
         self._abandoned = []           # worker threads close() gave up on
         self._lock = threading.RLock()
         self._closed = False
+        # live telemetry: /health merges this server's readiness doc
+        # (weakly registered: a collected server drops out on its own)
+        _obs.telemetry.register_health_provider(
+            'server-%x' % id(self), self)
 
     # ---- model management ------------------------------------------------
     def load_model(self, name, dirname, model_filename=None,
@@ -607,6 +612,7 @@ class ModelServer(object):
             if w.is_alive():
                 self._abandon_worker(name, batchers.get(name), w)
         self.watchdog.stop()
+        _obs.telemetry.unregister_health_provider('server-%x' % id(self))
         # push the buffered journal tail to disk: a process that is
         # killed next must not lose the spans of its last batches
         j = _obs.get_journal()

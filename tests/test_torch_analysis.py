@@ -1,8 +1,12 @@
 """paddle_tpu_torch.analysis against paddle_tpu.analysis, on the CPU.
 
 The port's counterpart of tests/test_analysis.py: every case of it that
-needs neither the ZeRO pass nor the partitioner (ROADMAP Queue A item 6)
-nor tools/. Each case builds its program with each package's own layers
+needs neither the ZeRO pass nor the partitioner (ROADMAP Queue A item 6).
+Its three cases of ``tools/analyze_program.py`` run the port's command
+line, ``python -m paddle_tpu_torch.tools.analyze_program``, and the JAX
+package's tool on the same builder file (which imports the package
+named in ``ANALYZE_PKG``) or the same saved model, and require the same
+exit code and the same ``--json`` report. Each case builds its program with each package's own layers
 (or by hand, op for op) and requires the same diagnostics from both:
 code, severity, block, op index, op type, var names and, for the
 sanitizer, the pass and the invariant (``_key``), and the same
@@ -900,3 +904,107 @@ def test_broken_pass_surfaces_through_executor(monkeypatch):
             'img': np.zeros((4, 1, 28, 28), 'float32'),
             'label': np.zeros((4, 1), 'int64')}, fetch_list=[avg],
             scope=scope)
+
+
+# ---- the analyze_program command line -------------------------------------
+import json  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CLI = {'jax': [os.path.join(REPO, 'tools', 'analyze_program.py')],
+       'port': ['-m', 'paddle_tpu_torch.tools.analyze_program']}
+
+
+def _write_builder(tmp_path, body):
+    """A builder file either package can run: it imports the fluid
+    namespace of the package ``ANALYZE_PKG`` names."""
+    p = tmp_path / 'net.py'
+    p.write_text('import importlib, os\n'
+                 "fluid = importlib.import_module(os.environ['ANALYZE_PKG'] "
+                 "+ '.fluid')\n" + body)
+    return str(p)
+
+
+def _cli_run(side, *args):
+    env = dict(os.environ, JAX_PLATFORMS='cpu',
+               ANALYZE_PKG='paddle_tpu' if side == 'jax'
+               else 'paddle_tpu_torch',
+               PYTHONPATH=REPO + os.pathsep + os.environ.get('PYTHONPATH',
+                                                             ''))
+    return subprocess.run([sys.executable] + CLI[side] + list(args),
+                          capture_output=True, text=True, env=env,
+                          cwd=REPO, timeout=300)
+
+
+def _cli_both(*args):
+    runs = {side: _cli_run(side, *args) for side in CLI}
+    assert runs['port'].returncode == runs['jax'].returncode, \
+        (runs['port'].stdout + runs['port'].stderr,
+         runs['jax'].stdout + runs['jax'].stderr)
+    return runs
+
+
+def test_cli_clean_builder(tmp_path):
+    path = _write_builder(tmp_path, '''
+def build():
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[13], dtype='float32')
+        y = fluid.layers.fc(input=x, size=1)
+    return main, ['x'], [y.name]
+''')
+    runs = _cli_both(path)
+    r = runs['port']
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert 'clean' in r.stdout
+    assert r.stdout == runs['jax'].stdout
+    runs = _cli_both(path, '--json', '--passes')
+    assert json.loads(runs['port'].stdout) == json.loads(runs['jax'].stdout)
+
+
+def test_cli_rank_mismatch_json_nonzero_exit(tmp_path):
+    path = _write_builder(tmp_path, '''
+main = fluid.Program()
+with fluid.program_guard(main, fluid.Program()):
+    a = fluid.layers.data(name='a', shape=[5], dtype='float32')
+    b = fluid.layers.data(name='b', shape=[7, 3], dtype='float32',
+                          append_batch_size=False)
+    c = fluid.layers.mul(a, b)
+FEEDS = ['a', 'b']
+FETCHES = [c.name]
+''')
+    runs = _cli_both(path, '--json')
+    r = runs['port']
+    assert r.returncode == 1, r.stdout + r.stderr
+    report = json.loads(r.stdout)
+    assert report['errors'] >= 1
+    codes = {d['code'] for d in report['diagnostics']}
+    assert 'rank-mismatch' in codes
+    ops = {d['op_type'] for d in report['diagnostics']}
+    assert 'mul' in ops
+    assert report == json.loads(runs['jax'].stdout)
+    # a usage or load problem exits 2 in both
+    runs = _cli_both(str(tmp_path / 'missing.py'))
+    assert runs['port'].returncode == 2
+    runs = _cli_both(str(tmp_path))
+    assert runs['port'].returncode == 2
+
+
+def test_cli_saved_model_dir(tmp_path):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[4], dtype='float32')
+        y = fluid.layers.fc(input=x, size=2, act='softmax')
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    model_dir = str(tmp_path / 'model')
+    fluid.io.save_inference_model(model_dir, ['x'], [y], exe,
+                                  main_program=main)
+    runs = _cli_both(model_dir)
+    r = runs['port']
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout == runs['jax'].stdout
+    runs = _cli_both(model_dir, '--json', '--passes')
+    assert json.loads(runs['port'].stdout) == json.loads(runs['jax'].stdout)

@@ -2,9 +2,12 @@
 (not in its sources, and not while it serves the transformer or ResNet
 through its compiler and its serving runtime, verifies, sanitizes
 and trains mnist through its static analysis, takes a fit_a_line
-step through its fluid namespace, readers, dataset and DataFeeder, or
-runs a While and an Adagrad step through a DynamicRNN), and its entry
-points default to the card."""
+step through its fluid namespace, readers, dataset and DataFeeder,
+runs a While and an Adagrad step through a DynamicRNN, serves through
+a Router with its telemetry endpoint scraped, decodes through slotted,
+paged and disaggregated engines, or runs the analyzer's command line),
+its only ``http.server`` import is in ``observability/telemetry.py``,
+and its entry points default to the card."""
 import ast
 import os
 import subprocess
@@ -164,6 +167,42 @@ rows = np.ones((5, 4), 'float32')
 out, = exe.run(main, feed={'x': pt.create_lod_tensor(rows, [[2, 3]])},
                fetch_list=[loss], scope=scope)
 assert out.shape == (1,) and np.isfinite(out).all()
+import tempfile, urllib.request
+from paddle_tpu_torch import fleet, kvcache, observability as obs
+from paddle_tpu_torch.tools import analyze_program
+model_dir = tempfile.mkdtemp()
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    x = L.data(name='x', shape=[4], dtype='float32')
+    y = L.fc(input=x, size=2)
+exe.run(startup, scope=scope)
+with pt.scope_guard(scope):
+    pt.io.save_inference_model(model_dir, ['x'], [y], exe,
+                               main_program=main)
+assert analyze_program.main([model_dir]) == 0
+srv = obs.serve_telemetry()
+with fleet.Router(lambda rid: pt.serving.ModelServer(pt.CPUPlace()),
+                  replicas=2, supervise=False) as router:
+    router.load_model('m', model_dir)
+    out, = router.infer('m', {'x': np.ones((2, 4), 'float32')})
+    assert out.shape == (2, 2)
+    with urllib.request.urlopen(srv.url + '/metrics', timeout=5) as r:
+        _, samples = obs.parse_exposition(r.read().decode('utf-8'))
+    assert any(s.name == 'fleet_replica_state' for s in samples)
+srv.close()
+cell, specs = fleet.attention_history_cell(20, 8, 8, max_len=8)
+with fleet.DecodeEngine(cell, specs, slots=2, max_len=8,
+                        place=pt.CPUPlace()) as eng:
+    want = eng.decode(first_id=3, max_new_tokens=6)
+spec = kvcache.stock_spec(20, 8, 8, max_len=8, page_size=4, num_pages=4)
+paged, _ = kvcache.make_paged_engine(spec, slots=2, place=pt.CPUPlace())
+assert (paged.decode(first_id=3, max_new_tokens=6) == want).all()
+r = kvcache.PrefillEngine(spec, place=pt.CPUPlace()).prefill([3, want[0]])
+got = paged.submit(init_states=r['states'], init_pages=r['pages'],
+                   pos0=r['pos0'], first_id=r['next_id'],
+                   max_new_tokens=4).result(timeout=60)
+assert ([r['next_id']] + list(got) == list(want[1:])), (r, got, want)
+paged.close()
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))
@@ -171,6 +210,28 @@ assert sys.modules['jax'] is None
 assert loaded == ['jax'], loaded
 print('ISOLATED')
 '''
+
+
+def test_only_telemetry_imports_http_server():
+    """The JAX package's lint rule ``http-outside-telemetry`` held on the
+    port: ``observability/telemetry.py`` is its only module that imports
+    ``http.server``."""
+    importers = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or '']
+            else:
+                continue
+            if any(m == 'http.server' or m.startswith('http.server.')
+                   for m in mods):
+                importers.append(os.path.relpath(path, _ROOT))
+    assert importers == [os.path.join('paddle_tpu_torch', 'observability',
+                                      'telemetry.py')], importers
 
 
 def test_port_runs_with_jax_unimportable():
