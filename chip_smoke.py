@@ -306,6 +306,31 @@ non-zero) on failure:
    no failure, the continuations against the oracle under the same rule,
    and one trace tree per request across the prefill -> decode hop
    (tools/trace_report.py);
+16. training's front end (``phase_front_end``): 16a, mnist at batch
+   32 in f32 (TF32 and AMP off), 3 steps with each of Adamax,
+   DecayedAdagrad, Adadelta, RMSProp, Ftrl, Momentum under ModelAverage
+   and Momentum with a WeightNormParamAttr fc, on the card and on the CPU
+   from one numpy state: every parameter and accumulator read with
+   fetch_var within 1e-4 of its scale, the averages too and the restore
+   bit for bit, exactly 2 fused convs a step (the f32 FMA variant); the
+   controls (Adamax with its beta1 power unadvanced, RMSProp with its
+   epsilon outside the square root) must fail; 16b, the flagship at full
+   width and depth, batch 16, Adam(noam_decay(1024, 4000)), 5 steps:
+   the fetched LRs against the formula (1e-6), the counter at 5, Adam's
+   first move at most lr_1 and at lr_1 within 1% where the f32 spacing
+   resolves it, 6 flash forwards and 6 merged backwards a step; 16c,
+   ResNet-50 at batch 128 with MSRA conv weights (each std within 3% of
+   sqrt(2 / fan_in)) under Momentum(piecewise_decay([2, 4], [0.1, 0.01,
+   0.001]), 0.9), 6 steps: the LR exactly stepped at the boundaries, 53
+   stats-form launches a step; a truncated normal of 2^24 values within
+   2 standard deviations; an init_on_cpu MSRA init bit-equal on the card
+   and the CPU; 16d, book 06's two nets at the script's widths, batch
+   128, 5 Adagrad steps on the card against the CPU (1e-4), no kernel
+   launch (peephole LSTMs, sequence convs), saved and served through
+   ModelServer(CUDAPlace(0)) at buckets 1-32 as batches of sequences,
+   every answer bit-equal to a direct run padded to its bucket; each
+   limit with two wrong controls that must fail it, the seconds of each
+   sub-phase printed;
 18. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
@@ -2617,7 +2642,8 @@ def phase_training(seed, card):
     del snap, merged, two_pass, won, lost
     return dict(exe=exe, main=main, loss=loss, scope=scope,
                 grad_names=grad_names, launches=launches,
-                route_launches=route_launches)
+                route_launches=route_launches,
+                ms=1e3 * dt / TRAIN_STEPS)
 
 
 def phase_long_training(seed, card):
@@ -7285,6 +7311,774 @@ def _disagg(seed, card, art_dir):
     check(whole == len(traces), 'a request lacks its tree across the hop')
 
 
+# phase 16, training's front end: the new optimizers, the step counter
+# and learning-rate schedules, the initializers and weight
+# normalisation, and book 06, on the card. The limits, each printed
+# beside its reading and each with two deliberately wrong controls that
+# must fail it:
+# 16a: card against CPU from the same numpy state and feeds, every
+# parameter and accumulator (fetch_var) and the losses, max |diff| over
+# max |value| a tensor, f32 (TF32 and AMP off). An update that divides
+# the gradient by a small root amplifies the gradient's own f32
+# rounding, which the card and the CPU sum in other orders, so each case
+# is held against its own witness: the CPU against itself on images
+# moved by each of FE_WITNESS_SCALES, the largest reading. Limit:
+# max(FE_TOL, the roadmap's whole-model limit for f32, FE_WITNESS_FACTOR
+# x the witness). Controls: Adamax with its beta1 power left unadvanced
+# and RMSProp with its epsilon outside the square root (both on the
+# card), each against its right case's limit
+FE_TOL = 1e-4
+FE_WITNESS_FACTOR = 3.0
+FE_WITNESS_SCALES = tuple(np.float32(1 + e) for e in
+                          (2 ** -22, -2 ** -22, 2 ** -21))
+FE_STEPS = 3                       # 16a: steps each optimizer, batch 32
+FE_BATCH = BENCH_BATCH
+# 16a's settings, fixed before the first card run of the phase: each
+# optimizer at its defaults but for the learning rate (Adagrad's is the
+# reference's tests/test_optimizer.py:75), Momentum as the harness's
+# (fluid_benchmark.py:46)
+FE_OPTIMIZERS = {
+    'Adagrad': lambda O: O.Adagrad(0.01),
+    'Adamax': lambda O: O.Adamax(learning_rate=0.002),
+    'DecayedAdagrad': lambda O: O.DecayedAdagrad(0.01),
+    'Adadelta': lambda O: O.Adadelta(1.0),
+    'RMSProp': lambda O: O.RMSProp(0.001, momentum=0.5),
+    'Ftrl': lambda O: O.Ftrl(0.05, l1=1e-4, l2=1e-4),
+    'Momentum': lambda O: O.Momentum(0.01, 0.9)}
+# 16b: noam_decay(d_model, warmup) on the flagship, Adam, batch 16: step
+# k's fetched LR against d^-0.5 min(k^-0.5, k warmup^-1.5) (relative);
+# Adam's first step moves each weight by at most lr_1 (plus the f32
+# spacing of the weight) and, among the weights whose f32 spacing is
+# under FE_SPACING of lr_1, the largest move is lr_1 within FE_MOVE
+FE_NOAM = (1024, 4000)
+FE_NOAM_STEPS = 5
+FE_LR_RTOL = 1e-6
+FE_MOVE = 0.01
+FE_SPACING = 0.005
+# 16c: ResNet-50 at batch 128 (AMP) with MSRA conv weights and
+# Momentum(piecewise_decay(...), 0.9): the LR at each step exactly the
+# f32 value of its interval's; each conv weight's standard deviation
+# within FE_STD of sqrt(2 / fan_in); a truncated_gaussian_random draw of
+# FE_TRUNC values (mean 0, std 1) within 2 of its mean, its standard
+# deviation within FE_TRUNC_STD of the law's (the normal cut at +-2:
+# sqrt(1 - 4 phi(2) / (2 Phi(2) - 1)), 0.8796) and its mean within
+# FE_TRUNC_MEAN of 0 (controls: a plain normal draw, the truncated draw
+# at std 2, a uniform draw on [-2, 2]); a force_cpu (init_on_cpu) init
+# bit-equal on the card and on the CPU
+FE_PIECEWISE = ([2, 4], [0.1, 0.01, 0.001])
+FE_RESNET_STEPS = 6
+FE_STD = 0.03
+FE_TRUNC = 1 << 24
+FE_TRUNC_STD = 0.005              # ~30 standard errors at 2^24 values
+FE_TRUNC_MEAN = 1e-3              # ~5 standard errors at 2^24 values
+# 16d: book 06 at the script's widths, batch 128: FE_BOOK_STEPS steps on
+# the card against the same steps on the CPU, each step's loss and
+# probabilities, then the probabilities of a forward-only run on the
+# last batch from each device's trained state, so that every update
+# reaches a held number (FE_TOL, the books' rule of phase 13b; controls:
+# the CPU one step late, the last batch from the parameters before
+# training, and the forward-only run from the CPU's state before its last
+# update). The trained state is printed beside, not held: Adagrad's
+# first steps are sign-like, so a near-zero gradient's rounding moves a
+# weight by a whole step (the CPU against itself at 8 and at 3 threads:
+# the LSTM net's state 0.088 of its scale, its outputs 9.4e-6; the card:
+# 0.0027 and 2.86e-6; PERF.md, Findings); served through
+# ModelServer(CUDAPlace(0)), each answer bit-equal to a direct run padded
+# to its bucket (controls: the direct run on the next requests' words,
+# and from the parameters before training)
+FE_BOOK_STEPS = 5
+FE_BOOK_NETS = ('sentiment_conv', 'sentiment_lstm')
+FE_SERVE_REPS = 5                  # timed requests a size
+
+
+def _fe_reading(got, ref):
+    """Max |diff| over max |ref| of each name in ``ref``; the largest."""
+    out = {}
+    for n, r in ref.items():
+        g = np.asarray(got[n], dtype='float64')
+        r = np.asarray(r, dtype='float64')
+        out[n] = float('inf') if g.shape != r.shape else float(
+            np.abs(g - r).max() / max(np.abs(r).max(), 1e-30)) \
+            if r.size else 0.0
+    return out
+
+
+@contextlib.contextmanager
+def _kernel_swapped(op_type, fn):
+    """Run ``op_type`` on ``fn`` for the duration (a wrong control)."""
+    from paddle_tpu_torch.core import registry
+    saved = registry._KERNELS[op_type]
+    registry._KERNELS[op_type] = fn
+    try:
+        yield
+    finally:
+        registry._KERNELS[op_type] = saved
+
+
+def _rmsprop_eps_outside(ctx):
+    """The RMSProp control: epsilon added after the square root."""
+    import torch
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    rho = ctx.attr('decay', 0.95)
+    ms = rho * ctx.input('MeanSquare') + (1 - rho) * torch.square(g)
+    mom = ctx.attr('momentum', 0.0) * ctx.input('Moment') + \
+        ctx.input('LearningRate').reshape(()) * g / (
+            torch.sqrt(ms) + ctx.attr('epsilon', 1e-6))
+    ctx.set_output('ParamOut', p - mom)
+    ctx.set_output('MeanSquareOut', ms)
+    ctx.set_output('MomentOut', mom)
+
+
+def _fe_mnist(seed, opt_name, weight_norm=False, drop_beta1_pow=False):
+    """mnist (benchmark/fluid/models.py:24-37) with one optimizer; with
+    ``weight_norm`` its fc weight-normalised (WeightNormParamAttr over
+    the output axis); with ``drop_beta1_pow`` (a control) Adamax's
+    beta1-power update left out. Returns (main, startup, loss, opt)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import benchmark as bm
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        if weight_norm:
+            img = pt.layers.data(name='data', shape=[1, 28, 28],
+                                 dtype='float32')
+            label = pt.layers.data(name='label', shape=[1], dtype='int64')
+            c = img
+            for filters in (20, 50):
+                c = pt.nets.simple_img_conv_pool(
+                    input=c, filter_size=5, num_filters=filters,
+                    pool_size=2, pool_stride=2, act='relu')
+            pred = pt.layers.fc(input=c, size=10, act='softmax',
+                                param_attr=pt.WeightNormParamAttr(dim=1))
+            loss = pt.layers.mean(pt.layers.cross_entropy(input=pred,
+                                                          label=label))
+        else:
+            loss, _ = bm.mnist()
+        O = pt.optimizer
+        opt = FE_OPTIMIZERS[opt_name](O)
+        opt.minimize(loss)
+    if drop_beta1_pow:
+        block = main.global_block()
+        name = opt._beta1_pow_acc.name
+        block.ops = [op for op in block.ops if not (
+            op.type == 'scale' and op.outputs['Out'] == [name])]
+        main._bump_version()
+    return main, startup, loss, opt
+
+
+def _fe_train(main, loss, place, state, feeds, average=None):
+    """FE_STEPS steps on ``place`` from ``state``: (every persistable by
+    fetch_var, losses, ms a step over the steps after the first, the
+    scope). With ``average`` (a ModelAverage factory) the average is
+    updated after each step and applied at the end: its values come
+    back under '<name>@AVG', and the restore is checked bit for bit."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    exe, scope = pt.Executor(place), pt.Scope()
+    pt_io.params_from_numpy(scope, state, place)
+    avg = average() if average is not None else None
+    losses, times = [], []
+    for f in feeds:
+        t0 = time.perf_counter()
+        losses.append(exe.run(main, feed=f, fetch_list=[loss],
+                              scope=scope)[0])
+        times.append(time.perf_counter() - t0)
+        if avg is not None:
+            with pt.program_guard(main):
+                avg.update(scope)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    out = {n: pt.fetch_var(n, scope) for n in names}
+    out['@LOSS'] = np.concatenate([np.ravel(l) for l in losses])
+    if avg is not None:
+        params = [p.name for p in main.global_block().all_parameters()]
+        trained = {n: scope.raw(n) for n in params}
+        with pt.scope_guard(scope), pt.program_guard(main):
+            with avg.apply():
+                for n in params:
+                    out[n + '@AVG'] = pt.fetch_var(n, scope)
+        check(all(scope.raw(n) is trained[n] for n in params) and all(
+            np.array_equal(pt.fetch_var(n, scope), out[n]) for n in params),
+            'ModelAverage.restore did not give back the trained tensors')
+    if place.torch_device().type == 'cuda':
+        torch.cuda.synchronize()
+    return out, 1e3 * float(np.mean(times[1:])), scope
+
+
+def _fe_optimizers(seed, card):
+    """16a. Every new optimizer (and Momentum under ModelAverage, and an
+    fc under WeightNormParamAttr) on mnist, card against CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 161)
+    feeds = [{'data': rng.randn(FE_BATCH, 1, 28, 28).astype('float32'),
+              'label': rng.randint(0, 10, (FE_BATCH, 1)).astype('int64')}
+             for _ in range(FE_STEPS)]
+    cases = [('Adagrad', {}), ('Adamax', {}), ('DecayedAdagrad', {}),
+             ('Adadelta', {}), ('RMSProp', {}), ('Ftrl', {}),
+             ('Momentum', {'average': True}),
+             ('Momentum', {'weight_norm': True})]
+    launches = dict.fromkeys(ck.LAUNCHES, 0)
+    cpu_ref = {}
+    for opt_name, kw in cases:
+        label = opt_name + (' + ModelAverage' if kw.get('average') else
+                            ' + WeightNormParamAttr' if
+                            kw.get('weight_norm') else '')
+        main, startup, loss, _ = _fe_mnist(seed, opt_name,
+                                           kw.get('weight_norm', False))
+        state = _startup_state(startup)
+        average = (lambda: pt.optimizer.ModelAverage(
+            0.15, min_average_window=2, max_average_window=10)) \
+            if kw.get('average') else None
+        ref, _, _ = _fe_train(main, loss, pt.CPUPlace(), state, feeds,
+                              average)
+        witness = max(max(_fe_reading(_fe_train(
+            main, loss, pt.CPUPlace(), state,
+            [dict(f, data=f['data'] * scale) for f in feeds],
+            average)[0], ref).values()) for scale in FE_WITNESS_SCALES)
+        limit = max(FE_TOL, FE_WITNESS_FACTOR * witness)
+        ck.reset_launch_counts()
+        passes.reset_fallback_counts()
+        got, ms, _ = _fe_train(main, loss, pt.CUDAPlace(0), state, feeds,
+                               average)
+        step_launches = dict(ck.LAUNCHES)
+        step_variants = {v: c for v, c in
+                         ck.FUSED_CONV_VARIANT_LAUNCHES.items() if c}
+        fallbacks = dict(passes.FALLBACKS)
+        readings = _fe_reading(got, ref)
+        worst = max(readings, key=readings.get)
+        print('front end 16a: mnist, %s, batch %d, f32 (TF32 and AMP off), '
+              '%d steps: %.2f ms a step after the first (host clock); %d '
+              'tensors (parameters, accumulators, LR, losses%s) card against '
+              'CPU, worst %.3g (%s; limit %.3g: max(%g, %g x the witness, the '
+              'CPU against itself on images moved by 2^-22, -2^-22, 2^-21: '
+              '%.3g)); launches %s, by variant %s, fallbacks %s; %s' % (
+                  label, FE_BATCH, FE_STEPS, ms, len(readings),
+                  ', averages' if average else '', readings[worst], worst,
+                  limit, FE_TOL, FE_WITNESS_FACTOR, witness,
+                  {n: c for n, c in step_launches.items() if c},
+                  step_variants, fallbacks, card), flush=True)
+        check(readings[worst] <= limit, '16a %s: the card differs from the '
+              'CPU by %g (%s), limit %g' % (label, readings[worst], worst,
+                                            limit))
+        expect = dict.fromkeys(step_launches, 0)
+        expect['fused_conv'] = BENCH_REGIONS['mnist'] * FE_STEPS
+        check(step_launches == expect, '16a %s launches %s, expected %s'
+              % (label, step_launches, expect))
+        check(step_variants == {v: c * FE_STEPS for v, c in BENCH_VARIANTS[
+            'mnist']['float32'].items()}, '16a %s: the fused conv by variant '
+              '%s' % (label, step_variants))
+        check(not fallbacks, '16a %s fell back: %s' % (label, fallbacks))
+        if kw.get('average'):
+            moved = max(float(np.abs(got[n + '@AVG'] - got[n]).max())
+                        for n in (p.name for p in
+                                  main.global_block().all_parameters()))
+            check(moved > 0, '16a: the average equals the trained weights')
+        for n, c in step_launches.items():
+            launches[n] += c
+        cpu_ref[opt_name] = (ref, state, limit)
+    # the controls, on the card, against the right CPU runs
+    for label, opt_name, build_kw, swap in (
+            ('Adamax, beta1 power unadvanced', 'Adamax',
+             {'drop_beta1_pow': True}, None),
+            ('RMSProp, epsilon outside the square root', 'RMSProp', {},
+             ('rmsprop', _rmsprop_eps_outside))):
+        main, _, loss, _ = _fe_mnist(seed, opt_name, **build_kw)
+        ref, state, limit = cpu_ref[opt_name]
+        if swap is None:
+            got = _fe_train(main, loss, pt.CUDAPlace(0), state, feeds)[0]
+        else:
+            with _kernel_swapped(*swap):
+                got = _fe_train(main, loss, pt.CUDAPlace(0), state,
+                                feeds)[0]
+        readings = _fe_reading(got, ref)
+        worst = max(readings, key=readings.get)
+        print('front end 16a control (%s): worst %.3g (%s), limit %.3g, must '
+              'fail' % (label, readings[worst], worst, limit), flush=True)
+        check(readings[worst] > limit, 'the 16a limit does not catch %s'
+              % label)
+    print('front end 16a: %.1f s' % (time.perf_counter() - t0), flush=True)
+    return launches
+
+
+def _noam(k):
+    d, warm = FE_NOAM
+    return d ** -0.5 * min(k ** -0.5, k * warm ** -1.5)
+
+
+def _fe_lr_reading(got, want):
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def _fe_flagship(seed, card):
+    """16b. The flagship (phase 7's, full width and depth, batch 16)
+    under Adam(noam_decay(1024, 4000))."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.fluid_transformer import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = transformer(None, **FLAGSHIP)[0]
+        lr = pt.layers.noam_decay(*FE_NOAM)
+        pt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    before = {n: scope.raw(n).clone() for n in params}
+    feed = _train_feed(TRAIN_BATCH, seed + 7)
+    ck.reset_launch_counts()
+    lrs, times, after1, after2 = [], [], None, None
+    for k in range(1, FE_NOAM_STEPS + 1):
+        t1 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+        times.append(time.perf_counter() - t1)
+        lrs.append(float(np.ravel(out[1])[0]))
+        if k == 1:
+            after1 = {n: scope.raw(n).clone() for n in params}
+        elif k == 2:
+            after2 = {n: scope.raw(n).clone() for n in params}
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    counter = int(pt.fetch_var('@LR_DECAY_COUNTER@', scope)[0])
+    want = [_noam(k) for k in range(1, FE_NOAM_STEPS + 1)]
+    lr_read = _fe_lr_reading(lrs, want)
+    ctl_warm = _fe_lr_reading(lrs, [FE_NOAM[0] ** -0.5 * min(
+        k ** -0.5, k * (FE_NOAM[1] / 2) ** -1.5)
+        for k in range(1, FE_NOAM_STEPS + 1)])
+    ctl_off = _fe_lr_reading(lrs, [_noam(k + 1)
+                                   for k in range(1, FE_NOAM_STEPS + 1)])
+
+    def moves(a, b, lr_1):
+        """(the largest move over lr_1 + the weight's f32 spacing, the
+        largest move over lr_1 among the finely spaced weights)."""
+        over, fine = 0.0, 0.0
+        for n in params:
+            old = a[n].float()
+            d = (b[n].float() - old).abs()
+            # the f32 spacing at each weight: 2^(e - 24) for |w| = m 2^e,
+            # 0.5 <= m < 1
+            spacing = torch.ldexp(torch.ones_like(old),
+                                  torch.frexp(old)[1] - 24)
+            over = max(over, float((d / (lr_1 + spacing)).max()))
+            mask = spacing <= FE_SPACING * lr_1
+            if bool(mask.any()):
+                fine = max(fine, float(d[mask].max() / lr_1))
+        return over, fine
+    over, fine = moves(before, after1, lrs[0])
+    ctl_two = moves(before, after2, lrs[0])          # two steps' move
+    ctl_lr2 = moves(before, after1, lrs[1])          # against lr_2
+    del before, after1, after2
+    ms = 1e3 * float(np.mean(times[1:]))
+    print('front end 16b: the flagship %s, batch %d, Adam(noam_decay%s), '
+          '%d steps: %.2f ms a step after the first (host clock); LRs %s '
+          'against the formula: %.3g '
+          '(limit %g; controls: warm-up %d %.3g, one step late %.3g, must '
+          'fail); the counter reads %d; the first step\'s largest move '
+          'over lr_1 + spacing %.6f (limit 1), among finely spaced weights '
+          '%.6f of lr_1 (limit 1 +- %g); controls: two steps %.4f / %.4f, '
+          'against lr_2 %.4f / %.4f (must fail); launches %s; %s' % (
+              FLAGSHIP, TRAIN_BATCH, FE_NOAM, FE_NOAM_STEPS, ms,
+              ', '.join('%.6g' % l for l in lrs), lr_read, FE_LR_RTOL,
+              FE_NOAM[1] // 2, ctl_warm, ctl_off, counter, over, fine,
+              FE_MOVE, ctl_two[0], ctl_two[1], ctl_lr2[0], ctl_lr2[1],
+              {n: c for n, c in launches.items() if c}, card), flush=True)
+    check(lr_read <= FE_LR_RTOL, '16b: the noam LRs are off by %g' % lr_read)
+    check(ctl_warm > FE_LR_RTOL and ctl_off > FE_LR_RTOL,
+          '16b: the LR limit does not catch a wrong schedule')
+    check(counter == FE_NOAM_STEPS, '16b: the counter reads %d' % counter)
+    check(over <= 1.0 and abs(fine - 1.0) <= FE_MOVE,
+          '16b: Adam\'s first step moved weights by %g / %g of lr_1'
+          % (over, fine))
+    for ctl in (ctl_two, ctl_lr2):
+        check(not (ctl[0] <= 1.0 and abs(ctl[1] - 1.0) <= FE_MOVE),
+              '16b: the move limit does not catch %s' % (ctl,))
+    n_layers = FLAGSHIP['n_layers']
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attn_fwd=n_layers * FE_NOAM_STEPS,
+                  flash_attn_bwd_dkvdq=n_layers * FE_NOAM_STEPS)
+    check(launches == expect, '16b launches %s, expected %s'
+          % (launches, expect))
+    del scope, exe
+    torch.cuda.empty_cache()
+    print('front end 16b: %.1f s' % (time.perf_counter() - t0), flush=True)
+    return launches, ms
+
+
+def _fe_msra_convs(main, startup):
+    """Give every conv2d filter of ``main`` the MSRA initializer in
+    ``startup``, in place of its own init op. Returns {filter: (fan_in,
+    fan_out)}."""
+    import paddle_tpu_torch as pt
+    block = startup.global_block()
+    fans = {}
+    for op in main.global_block().ops:
+        if op.type == 'conv2d':
+            name = op.inputs['Filter'][0]
+            shape = main.global_block().var(name).shape
+            fans[name] = (int(np.prod(shape[1:])),
+                          int(shape[0] * np.prod(shape[2:])))
+    ops = []
+    for op in block.ops:
+        out = op.outputs.get('Out', [None])[0]
+        if out in fans:
+            pt.initializer.MSRA()(block.var(out), block)
+            ops.append(block.ops.pop())
+        else:
+            ops.append(op)
+    block.ops = ops
+    startup._bump_version()
+    return fans
+
+
+def _fe_resnet(seed, card):
+    """16c. ResNet-50 under piecewise_decay with MSRA conv weights; the
+    truncated normal and a force_cpu init."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name='data', shape=[3, 224, 224],
+                             dtype='float32')
+        label = pt.layers.data(name='label', shape=[1], dtype='int64')
+        predict = resnet.resnet_imagenet(img, class_dim=1000, depth=50)
+        loss = pt.layers.mean(pt.layers.cross_entropy(input=predict,
+                                                      label=label))
+        lr = pt.layers.piecewise_decay(*FE_PIECEWISE)
+        pt.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(loss)
+    fans = _fe_msra_convs(main, startup)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+
+    def std_reading(target):
+        return max(abs(float(scope.raw(n).float().std()) / target(*f) - 1)
+                   for n, f in fans.items())
+    std_read = std_reading(lambda fan_in, fan_out: (2.0 / fan_in) ** 0.5)
+    ctl_lecun = std_reading(lambda fan_in, fan_out: (1.0 / fan_in) ** 0.5)
+    ctl_out = std_reading(lambda fan_in, fan_out: (2.0 / fan_out) ** 0.5)
+    feed = _image_train_feed(RESNET_TRAIN_BATCH, seed + 11)
+    ck.reset_launch_counts()
+    passes.reset_fallback_counts()
+    lrs, losses, times = [], [], []
+    for _ in range(FE_RESNET_STEPS):
+        t1 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+        times.append(time.perf_counter() - t1)
+        losses.append(float(np.ravel(out[0])[0]))
+        lrs.append(np.float32(np.ravel(out[1])[0]))
+    launches = dict(ck.LAUNCHES)
+    fallbacks = dict(passes.FALLBACKS)
+
+    def stepped(boundaries, values):
+        return [np.float32(values[sum(k >= b for b in boundaries)])
+                for k in range(FE_RESNET_STEPS)]
+    lr_ok = lrs == stepped(*FE_PIECEWISE)
+    ctl_shift = lrs == stepped([b + 1 for b in FE_PIECEWISE[0]],
+                               FE_PIECEWISE[1])
+    ctl_vals = lrs == stepped(FE_PIECEWISE[0], FE_PIECEWISE[1][::-1])
+    del scope, exe
+    torch.cuda.empty_cache()
+    ms = 1e3 * float(np.mean(times[1:]))
+
+    # the truncated normal at FE_TRUNC values against the law of a
+    # standard normal cut at +-2, and its controls: a plain normal draw
+    # of the same size, the truncated draw at std 2 and a uniform draw
+    # on [-2, 2], each read against std 1's law
+    def draw(op_type, **attrs):
+        m, s = pt.Program(), pt.Program()
+        m.random_seed = seed
+        with pt.program_guard(m, s):
+            v = m.global_block().create_var(name='v', shape=[FE_TRUNC],
+                                            dtype='float32')
+            m.global_block().append_op(
+                type=op_type, outputs={'Out': v},
+                attrs=dict(attrs, shape=[FE_TRUNC], dtype='float32',
+                           seed=0))
+        val, = pt.Executor().run(m, fetch_list=[v], scope=pt.Scope(),
+                                 return_numpy=False)
+        t = val.double()
+        out = (float(t.abs().max()), float(t.std()), float(t.mean()))
+        del val, t
+        return out
+    law_std = math.sqrt(1 - 4 * math.exp(-2) / math.sqrt(2 * math.pi)
+                        / math.erf(2 / math.sqrt(2)))
+
+    def trunc_ok(r):
+        return (r[0] <= 2.0 and abs(r[1] / law_std - 1) <= FE_TRUNC_STD
+                and abs(r[2]) <= FE_TRUNC_MEAN)
+    trunc = draw('truncated_gaussian_random', mean=0.0, std=1.0)
+    trunc_ctls = {
+        'a plain normal draw': draw('gaussian_random', mean=0.0, std=1.0),
+        'the draw at std 2': draw('truncated_gaussian_random', mean=0.0,
+                                  std=2.0),
+        'a uniform draw on [-2, 2]': draw('uniform_random', min=-2.0,
+                                          max=2.0)}
+
+    def trunc_text(r):
+        return 'max |x| %.6f, std %.6f, mean %.3g' % r
+
+    # a force_cpu init: the same bits on the card and on the CPU;
+    # controls: the same init drawn on the card's generator, and the
+    # force_cpu init under another program seed
+    def forced(place, seed_, on_cpu=True):
+        m, s = pt.Program(), pt.Program()
+        s.random_seed = seed_
+        with pt.unique_name.guard(), pt.program_guard(m, s):
+            with (pt.initializer.init_on_cpu() if on_cpu
+                  else contextlib.nullcontext()):
+                pt.layers.create_parameter(
+                    shape=[1024, 1024], dtype='float32', name='w',
+                    default_initializer=pt.initializer.MSRA(uniform=False))
+        sc = pt.Scope()
+        pt.Executor(place).run(s, scope=sc)
+        return pt.fetch_var('w', sc)
+    forced_card = forced(pt.CUDAPlace(0), seed)
+    forced_same = np.array_equal(forced_card, forced(pt.CPUPlace(), seed))
+    ctl_card_gen = np.array_equal(forced(pt.CUDAPlace(0), seed, False),
+                                  forced(pt.CPUPlace(), seed))
+    ctl_seed = np.array_equal(forced_card, forced(pt.CPUPlace(), seed + 1))
+    print('front end 16c: ResNet-50 (3x224x224, 1000 classes), MSRA conv '
+          'weights, batch %d, AMP, Momentum(piecewise_decay%s, 0.9), %d '
+          'steps: %.2f ms a step after the first (host clock); losses %s; '
+          'LRs %s (exactly the intervals\' %s; controls: boundaries one '
+          'step late %s, values reversed %s, must be False); %d conv '
+          'weights\' std against sqrt(2 / fan_in): worst %.4f (limit %g; '
+          'controls: sqrt(1 / fan_in) %.4f, sqrt(2 / fan_out) %.4f, must '
+          'fail); launches %s, '
+          'fallbacks %s; truncated normal, %d values: %s (limits: max |x| '
+          '2, std within %g of %.6f, |mean| %g; controls, must fail: %s); '
+          'a force_cpu MSRA init bit-equal on the '
+          'card and the CPU: %s (controls: drawn on the card\'s generator '
+          '%s, another seed %s, must be False); %s' % (
+              RESNET_TRAIN_BATCH, FE_PIECEWISE, FE_RESNET_STEPS, ms,
+              ', '.join('%.4f' % l for l in losses),
+              ', '.join('%g' % l for l in lrs), lr_ok, ctl_shift, ctl_vals,
+              len(fans), std_read, FE_STD, ctl_lecun, ctl_out,
+              {n: c for n, c in launches.items() if c}, fallbacks, FE_TRUNC,
+              trunc_text(trunc), FE_TRUNC_STD, law_std, FE_TRUNC_MEAN,
+              '; '.join('%s %s' % (k, trunc_text(r))
+                        for k, r in trunc_ctls.items()),
+              forced_same, ctl_card_gen, ctl_seed, card), flush=True)
+    check(lr_ok and not ctl_shift and not ctl_vals,
+          '16c: the piecewise LRs %s' % lrs)
+    check(std_read <= FE_STD and ctl_lecun > FE_STD and ctl_out > FE_STD,
+          '16c: MSRA stds off by %g' % std_read)
+    check(all(np.isfinite(losses)), '16c: non-finite loss')
+    expect = dict.fromkeys(launches, 0)
+    expect['fused_conv_stats'] = RESNET_REGIONS * FE_RESNET_STEPS
+    check(launches == expect, '16c launches %s, expected %s'
+          % (launches, expect))
+    check(not fallbacks, '16c fell back: %s' % fallbacks)
+    check(trunc_ok(trunc), '16c: the truncated normal draw %s'
+          % trunc_text(trunc))
+    check(not any(trunc_ok(r) for r in trunc_ctls.values()),
+          '16c: the truncated normal limits do not catch their controls')
+    check(forced_same and not ctl_card_gen and not ctl_seed,
+          '16c: a force_cpu init differs between the card and the CPU')
+    torch.cuda.empty_cache()
+    print('front end 16c: %.1f s' % (time.perf_counter() - t0), flush=True)
+    return launches, ms
+
+
+def _fe_book(name, seed, card, art_dir):
+    """16d, one net: FE_BOOK_STEPS steps on the card and on the CPU from
+    one state, each step's loss and probabilities held, and a forward
+    run's from each trained state (controls: the CPU one step late, the
+    last batch from the parameters before training, the forward run
+    from the CPU's state a step short), then saved and served at
+    buckets 1-32 (controls: the
+    direct run on the next requests' words, and from the parameters
+    before training). Returns (ms a step, busy ms of a profiled step,
+    {rows: p50 ms})."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving.bucketing import pad_feed
+    main, startup, book = _book_program(name, seed)
+    state = _startup_state(startup)
+    feeder = pt.DataFeeder(feed_list=book.feeds, place=pt.CPUPlace(),
+                           program=main)
+    batches = _book_batches(book, seed + 1)
+    feeds = [feeder.feed(next(batches)) for _ in range(FE_BOOK_STEPS)]
+    fetch = [book.loss, book.prediction]
+
+    infer = main.clone(for_test=True).prune([book.prediction])
+
+    def train(place, st, fs):
+        exe, scope = pt.Executor(place), pt.Scope()
+        pt_io.params_from_numpy(scope, st, place)
+        outs, times = [], []
+        for f in fs:
+            t0 = time.perf_counter()
+            outs.append(exe.run(main, feed=f, fetch_list=fetch,
+                                scope=scope))
+            times.append(time.perf_counter() - t0)
+        return exe, scope, outs, (1e3 * float(np.mean(times[1:]))
+                                  if len(times) > 1 else None)
+
+    def forward(exe, scope):
+        return exe.run(infer, feed=feeds[-1], fetch_list=[book.prediction],
+                       scope=scope)[0]
+
+    def reading(got, ref):
+        return max(_fe_reading({'l': g, 'p': q}, {'l': r, 'p': w})[k]
+                   for (g, q), (r, w) in zip(got, ref) for k in 'lp')
+    ck.reset_launch_counts()
+    exe, card_scope, card_out, ms = train(pt.CUDAPlace(0), state, feeds)
+    launches = dict(ck.LAUNCHES)
+    trained = _book_state(card_scope)
+    # one more step, profiled, on a copy of the trained state
+    prof_scope = pt.Scope()
+    pt_io.params_from_numpy(prof_scope, trained, pt.CUDAPlace(0))
+    _, busy_us = profile_run(
+        lambda: exe.run(main, feed=feeds[-1], fetch_list=fetch,
+                        scope=prof_scope), 'book %s step' % name, top=4)
+    card_fwd = forward(exe, card_scope)
+    cpu_exe, cpu_scope, cpu_out, _ = train(pt.CPUPlace(), state, feeds)
+    cpu_fwd = forward(cpu_exe, cpu_scope)
+    read = reading(card_out, cpu_out)
+    fwd_read = _fe_reading({'p': card_fwd}, {'p': cpu_fwd})['p']
+    ctl_late = reading(card_out[1:], cpu_out[:-1])
+    ctl_untrained = reading(card_out[-1:], train(pt.CPUPlace(), state,
+                                                 feeds[-1:])[2])
+    short_exe, short_scope, _, _ = train(pt.CPUPlace(), state, feeds[:-1])
+    ctl_short = _fe_reading({'p': card_fwd},
+                            {'p': forward(short_exe, short_scope)})['p']
+    del short_scope
+    params = _fe_reading(trained, _book_state(cpu_scope))
+    worst = max(params, key=params.get)
+    print('front end 16d: book 06 %s, batch %d, f32 (TF32 and AMP off), '
+          'Adagrad(0.002), %d steps: %.2f ms a step after the first (host '
+          'clock), a profiled step %.3f ms busy on the card; losses %s; each '
+          'step\'s loss and probabilities card against CPU: worst %.3g, '
+          'the probabilities of a forward run on the last batch from each '
+          'trained state %.3g (limit %g; controls: the CPU one step late '
+          '%.3g, the last batch from the parameters before training %.3g, '
+          'the forward run from the CPU\'s state before its last update '
+          '%.3g, must fail); the trained state, not held: worst %.3g of its '
+          'scale (%s); launches %s; %s' % (
+              name, book.batch_size, FE_BOOK_STEPS, ms, busy_us / 1e3,
+              ', '.join('%.4f' % float(np.ravel(o[0])[0])
+                        for o in card_out), read, fwd_read, FE_TOL,
+              ctl_late, ctl_untrained, ctl_short, params[worst], worst,
+              {n: c for n, c in launches.items() if c}, card), flush=True)
+    check(read <= FE_TOL and fwd_read <= FE_TOL, '16d %s: the card differs '
+          'from the CPU by %g, %g after the last update' % (name, read,
+                                                            fwd_read))
+    check(ctl_late > FE_TOL and ctl_untrained > FE_TOL and
+          ctl_short > FE_TOL,
+          '16d %s: the CPU limit does not catch its controls' % name)
+    check(not any(launches.values()), '16d %s launched %s (its LSTMs have '
+          'peepholes, its convs are sequence convs)' % (name, launches))
+
+    # saved, loaded, served at buckets 1-32
+    d = os.path.join(art_dir, name)
+    pt_io.save_inference_model(d, ['words'], [book.prediction], exe,
+                               main_program=main, scope=card_scope)
+    load_scope = pt.Scope()
+    prog, _, fetch_vars = pt_io.load_inference_model(d, exe,
+                                                     scope=load_scope)
+    requests = _book_batches(book, 97, BOOK_SERVE_MAX)
+    samples, other = next(requests), next(requests)
+    untrained = pt.Scope()
+    pt_io.params_from_numpy(untrained, state, pt.CUDAPlace(0))
+
+    def direct(rows, r, b, scope):
+        padded = pad_feed({'words': feeder.feed(rows[:r])['words']}, r, b,
+                          server.policy.pad_mode)
+        return exe.run(prog, feed=padded, fetch_list=fetch_vars,
+                       scope=scope)[0][:r]
+    server = pt.serving.ModelServer(pt.CUDAPlace(0),
+                                    max_batch_size=BOOK_SERVE_MAX)
+    equal, ctl_other, ctl_params, p50 = 0, 0, 0, {}
+    try:
+        server.load_model(name, d)
+        for r in BOOK_REQUESTS:
+            b = server.policy.bucket_for(r)
+            ref = direct(samples, r, b, load_scope)
+            words = {'words': feeder.feed(samples[:r])['words']}
+            times = []
+            for _ in range(FE_SERVE_REPS + 1):
+                t0 = time.perf_counter()
+                got, = server.infer(name, words)
+                times.append(time.perf_counter() - t0)
+                equal += int(got.shape == ref.shape and
+                             np.array_equal(got, ref))
+            p50[r] = 1e3 * float(np.median(times[1:]))
+            ctl_other += int(np.array_equal(got, direct(other, r, b,
+                                                        load_scope)))
+            ctl_params += int(np.array_equal(got, direct(samples, r, b,
+                                                         untrained)))
+        buckets = [server.policy.bucket_for(r) for r in BOOK_REQUESTS]
+    finally:
+        server.close()
+    n = len(BOOK_REQUESTS) * (FE_SERVE_REPS + 1)
+    print('front end 16d: book 06 %s served through ModelServer(CUDAPlace('
+          '0)), f32, requests of %s sequences (buckets %s): p50 %s ms (host '
+          'clock, of %d each); %d of %d answers bit-equal to a direct run '
+          'padded to the bucket (controls bit-equal, must be 0 of %d: the '
+          'next requests\' words %d, the parameters before training %d)' % (
+              name, BOOK_REQUESTS, buckets, ', '.join(
+                  '%d rows %.2f' % kv for kv in sorted(p50.items())),
+              FE_SERVE_REPS, equal, n, len(BOOK_REQUESTS), ctl_other,
+              ctl_params), flush=True)
+    check(equal == n, '16d %s: %d of %d served answers off a padded direct '
+          'run' % (name, n - equal, n))
+    check(ctl_other == 0 and ctl_params == 0, '16d %s: a serving control '
+          'matched' % name)
+    del card_scope, load_scope, untrained, prof_scope
+    torch.cuda.empty_cache()
+    return ms, busy_us / 1e3, p50
+
+
+def phase_front_end(seed, card, art_dir, flagship_ms=None):
+    """16. Training's front end on the card: every new optimizer on
+    mnist against the CPU (16a), the flagship under noam_decay (16b;
+    ``flagship_ms``: phase 7's ms a step, printed beside), ResNet-50
+    under piecewise_decay with MSRA weights, the truncated normal and a
+    host-drawn init (16c), book 06 trained against the CPU and served
+    (16d). Returns the kernel launches of 16a-16c."""
+    import torch
+    from paddle_tpu_torch.core import amp
+    t_phase = time.perf_counter()
+    amp.set_amp(False)
+    try:
+        mnist_launches = _fe_optimizers(seed, card)
+    finally:
+        amp.set_amp(None)
+    torch.cuda.empty_cache()
+    flash_launches, noam_ms = _fe_flagship(seed, card)
+    if flagship_ms is not None:
+        print('front end 16b: %.2f ms a step under noam_decay against '
+              'phase 7\'s %.2f at Adam(1e-4)' % (noam_ms, flagship_ms),
+              flush=True)
+    stats_launches, _ = _fe_resnet(seed, card)
+    t0 = time.perf_counter()
+    amp.set_amp(False)
+    try:
+        for name in FE_BOOK_NETS:
+            _fe_book(name, seed, card, art_dir)
+    finally:
+        amp.set_amp(None)
+    print('front end 16d: %.1f s' % (time.perf_counter() - t0), flush=True)
+    print('phase 16: %.1f s' % (time.perf_counter() - t_phase), flush=True)
+    total = dict.fromkeys(mnist_launches, 0)
+    for part in (mnist_launches, flash_launches, stats_launches):
+        for n, c in part.items():
+            total[n] += c
+    return total
+
+
 def sweep_conv_plans(card):
     """The wgmma conv's time at every (tile width, K splits) at ResNet-50's
     non-stem region shapes at batch 1, 8 and 32 (bf16, the folded batch
@@ -7676,7 +8470,7 @@ def run_phases(args, card, root):
     trained = phase_training(args.seed, card)
     phase_gradients(args.seed, trained)
     # keep the counts, let the flagship's scope go
-    trained = {k: trained[k] for k in ('launches', 'route_launches')}
+    trained = {k: trained[k] for k in ('launches', 'route_launches', 'ms')}
     torch.cuda.empty_cache()
     long_trained = phase_long_training(args.seed, card)
     torch.cuda.empty_cache()
@@ -7705,6 +8499,8 @@ def run_phases(args, card, root):
         phase_control_flow(args.seed, card, d)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
         phase_decode(args.seed, card, d)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        front = phase_front_end(args.seed, card, d, trained['ms'])
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests, the serving runtime's concurrent mix, untuned
@@ -7714,7 +8510,9 @@ def run_phases(args, card, root):
     # long-context steps, its numbers at their shape, the training
     # shape's beside them; the fused conv: the served ResNet requests,
     # the serving runtime's concurrent mix, untuned and tuned, and the
-    # fleet's mix)
+    # fleet's mix; each also over phase 16's steps: the flagship's under
+    # noam_decay, mnist's under each optimizer, ResNet-50's under
+    # piecewise_decay)
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -7729,11 +8527,13 @@ def run_phases(args, card, root):
         runtime_launches['flash_attn_fwd'] +
         tuned_launches['flash_attn_fwd'] + fleet_launches['flash_attn_fwd'] +
         trained['launches']['flash_attn_fwd'] +
-        long_trained['launches']['flash_attn_fwd'], **main_shape)]
+        long_trained['launches']['flash_attn_fwd'] +
+        front['flash_attn_fwd'], **main_shape)]
     kernels.append(dict(
         name='flash_attn_bwd_dkvdq', route='cuda', source=bwd_src,
         replaces='paddle_tpu/ops/pallas_kernels.py:310',
-        launches=trained['launches']['flash_attn_bwd_dkvdq'],
+        launches=trained['launches']['flash_attn_bwd_dkvdq'] +
+        front['flash_attn_bwd_dkvdq'],
         **train_shape['flash_attn_bwd_dkvdq']))
     for name, line in (('flash_attn_bwd_dq', 245),
                        ('flash_attn_bwd_dkv', 273)):
@@ -7763,7 +8563,7 @@ def run_phases(args, card, root):
         runtime_launches['fused_conv'] + tuned_launches['fused_conv'] +
         fleet_launches['fused_conv'] +
         sum(b['fused_conv'] for b, _ in bench.values()) +
-        book_launches['fused_conv'],
+        book_launches['fused_conv'] + front['fused_conv'],
         bench_regions=bench_totals('fused_conv'),
         book_regions=book_regions('fused_conv'), **conv))
     # its stats form: launches over the timed ResNet-50, VGG-16 and
@@ -7776,7 +8576,7 @@ def run_phases(args, card, root):
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_trained['launches']['fused_conv_stats'] +
         bench['vgg'][0]['fused_conv_stats'] +
-        book_launches['fused_conv_stats'],
+        book_launches['fused_conv_stats'] + front['fused_conv_stats'],
         bench_regions=bench_totals('fused_conv_stats'),
         book_regions=book_regions('fused_conv_stats'), **stats))
     # the LSTM cell: launches over the timed training steps of

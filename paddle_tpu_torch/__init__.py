@@ -8,8 +8,10 @@ under the same names, trimmed to what the port covers, and the runtime
 
 Covered so far: serving a model from a saved inference model —
 ``io.load_inference_model`` then ``Executor.run`` — and training one —
-``optimizer.Adam(...).minimize(loss)`` (or SGD, Momentum, Adagrad) then
-one ``Executor.run`` per step — for the flagship transformer's op set, with
+``optimizer.Adam(...).minimize(loss)`` (or SGD, Momentum, Adagrad,
+Adamax, DecayedAdagrad, Adadelta, RMSProp, Ftrl; a learning rate from
+one of ``layers``' schedules; ``ModelAverage``) then one
+``Executor.run`` per step — for the flagship transformer's op set, with
 attention and its gradient on hand-written CUDA kernels
 (``ops/cuda_kernels.py``, ``csrc/flash_attn_fwd.cu``,
 ``csrc/flash_attn_bwd.cu``); and serving and training ResNet and
@@ -67,14 +69,15 @@ run on the CPU.
 from . import framework, unique_name, initializer, param_attr  # noqa
 from . import layers, ops, io, executor  # noqa
 from . import backward, clip, optimizer, regularizer, compiler  # noqa
+from . import average  # noqa
 from .framework import (Program, Block, Variable, Operator, Parameter,  # noqa
                         default_startup_program, default_main_program,
                         program_guard, switch_startup_program,
                         switch_main_program, get_var)
 from .core.places import CPUPlace, CUDAPlace  # noqa
 from .executor import (Executor, Scope, global_scope, scope_guard,  # noqa
-                       switch_scope)
-from .param_attr import ParamAttr  # noqa
+                       switch_scope, fetch_var)
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa
 from .lod import (SequenceTensor, create_lod_tensor,  # noqa
                   create_random_int_lodtensor)
 from .backward import append_backward  # noqa

@@ -360,8 +360,8 @@ _ELEMENTWISE = frozenset({
 def _fused_elementwise_kernel(ctx):
     """Run one fused region: its captured ops in order, then its interior
     values dropped. Gradients flow through the replay exactly as through
-    the original ops. One kernel for the region is ROADMAP Queue D's
-    work (the eager passes around the kernels)."""
+    the original ops. One kernel for the region is ROADMAP Queue B's
+    second part, item 3 (the eager passes around the kernels)."""
     _replay(ctx, _materialized_sub_ops(ctx))
 
 

@@ -29,6 +29,9 @@ from ..lod import SequenceTensor
 from ..ops.common import rewrap
 
 RNG_KEY = '__rng__'
+# the scope's host generator, drawn from by force_cpu random ops on every
+# device, so their values do not depend on the device
+RNG_CPU_KEY = '__rng_cpu__'
 
 # The port's runtime dtype map. JAX runs without x64 and maps int64 to
 # int32; torch indexes with int64, so the port keeps int64 ids as they
@@ -299,7 +302,7 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
     # names the compiler's release annotations must never drop from the
     # environment: the epilogue below still reads them
     keep = (frozenset(fetch_names) | frozenset(state_out_names)
-            | {RNG_KEY})
+            | {RNG_KEY, RNG_CPU_KEY})
 
     def fn(feeds, state):
         env = dict(state)
@@ -347,6 +350,16 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic):
     grad_names = list(marker.attrs['grads'])
     loss_name = marker.inputs['Loss'][0]
     gkeep = keep | {loss_name} | set(param_names)
+    if not param_names:
+        # nothing to differentiate (only data reaches the loss): the
+        # forward and the update ops run, as under jax.value_and_grad
+        # over an empty parameter set
+        with torch.no_grad():
+            BlockRunner(block, device, keep=gkeep, dynamic=dynamic).run_ops(
+                ops[:marker_idx], env)
+            BlockRunner(block, device, keep=keep, dynamic=dynamic).run_ops(
+                ops[marker_idx + 1:], env)
+        return
     # each parameter is a fresh leaf over the Scope's storage; the
     # Scope's own tensor never has requires_grad flipped
     leaves = [env[p].detach().requires_grad_() for p in param_names]

@@ -63,12 +63,12 @@ from .framework import (Program, Variable, _op_reads, _op_writes,
                         default_main_program)
 from .lod import SequenceTensor
 from .core import places as _places
-from .core.lowering import lower_block, torch_dtype, RNG_KEY
+from .core.lowering import lower_block, torch_dtype, RNG_KEY, RNG_CPU_KEY
 from .core.registry import SIDE_EFFECT_OPS
 from .ops.common import rewrap
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
-           'switch_scope', 'as_numpy', 'CacheInfo']
+           'switch_scope', 'as_numpy', 'fetch_var', 'CacheInfo']
 
 # memo counters of one Executor: hits, misses (each one a prune, the
 # passes and a lowering), entries it made
@@ -77,19 +77,25 @@ CacheInfo = collections.namedtuple('CacheInfo', ['hits', 'misses', 'size'])
 
 class Scope(object):
     """name -> runtime value (a torch tensor, or the scope's
-    ``torch.Generator`` under ``RNG_KEY``)."""
+    ``torch.Generator`` under ``RNG_KEY`` and its host generator under
+    ``RNG_CPU_KEY``)."""
 
     def __init__(self, parent=None):
         self.vars = {}
         self.parent = parent
 
-    def raw(self, name):
+    def holder(self, name):
+        """The Scope on this one's parent chain that holds ``name``."""
         s = self
         while s is not None:
             if name in s.vars:
-                return s.vars[name]
+                return s
             s = s.parent
         return None
+
+    def raw(self, name):
+        s = self.holder(name)
+        return None if s is None else s.vars[name]
 
     def find_var(self, name):
         """The stored value, or None when the name holds nothing."""
@@ -97,6 +103,12 @@ class Scope(object):
 
     def set_var(self, name, value):
         self.vars[name] = value
+
+    def new_scope(self):
+        return Scope(parent=self)
+
+    def keys(self):
+        return self.vars.keys()
 
 
 _global_scope = Scope()
@@ -168,6 +180,21 @@ def as_numpy(value):
         return SequenceTensor(data, _host(value.lengths),
                               _host(value.sub_lengths))
     return _host(_to_f32_fetch(value))
+
+
+def fetch_var(name, scope=None, return_numpy=True):
+    """The value of ``name`` in ``scope`` (the global scope by default):
+    a host numpy array (half floats as f32) that is a copy, never a
+    view of the Scope's tensor, or with ``return_numpy=False`` the
+    stored value itself. None when the name holds nothing."""
+    val = (scope or global_scope()).raw(name)
+    if val is None or not return_numpy:
+        return val
+    if isinstance(val, torch.Tensor) and val.device.type == 'cpu':
+        val = val.detach().clone()
+    elif isinstance(val, np.ndarray):
+        val = val.copy()
+    return as_numpy(val)
 
 
 def _block_has(block, types):
@@ -292,6 +319,27 @@ class Executor(object):
         arr = np.asarray(val)
         dt = torch_dtype(var.dtype if var is not None else arr.dtype)
         return torch.tensor(arr, dtype=dt, device=self.device)
+
+    def _state_value(self, scope, name, var):
+        """A Scope value as the lowered block takes it: a tensor on this
+        Executor's device. A value set from the host (a numpy array, as
+        the reference's scripts set parameters) becomes one in its
+        variable's runtime dtype, and a tensor another Executor left on
+        another device moves here, so one Scope serves a CPU and a CUDA
+        Executor. What was made goes back into the Scope that held the
+        value, so the next run on this device moves nothing."""
+        val = scope.raw(name)
+        if isinstance(val, torch.Tensor):
+            if val.device == self.device:
+                return val
+            moved = val.to(self.device)
+        elif val is None or isinstance(val, SequenceTensor) or \
+                isinstance(val, (dict, list)):
+            return val
+        else:
+            moved = self._to_device(val, var)
+        scope.holder(name).set_var(name, moved)
+        return moved
 
     def _lengths(self, lengths):
         if lengths is None:
@@ -440,10 +488,12 @@ class Executor(object):
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         scope = scope or global_scope()
-        if scope.raw(RNG_KEY) is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(program.random_seed or 0)
-            scope.set_var(RNG_KEY, gen)
+        for key, device in ((RNG_KEY, self.device),
+                            (RNG_CPU_KEY, torch.device('cpu'))):
+            if scope.raw(key) is None:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(program.random_seed or 0)
+                scope.set_var(key, gen)
         fp = program.fingerprint()
         # traced only under an active parent span (a serving batch):
         # bare runs stay span-free, and the untraced cost is one
@@ -477,8 +527,12 @@ class Executor(object):
             if tspan is not None:
                 _obs.emit_span('exe/compile', compile_wall, parent=tspan,
                                fp=fp)
-        state = {n: scope.raw(n) for n in state_in}
+        block = program.global_block()
+        state = {n: self._state_value(scope, n,
+                                      block._find_var_recursive(n))
+                 for n in state_in}
         state[RNG_KEY] = scope.raw(RNG_KEY)
+        state[RNG_CPU_KEY] = scope.raw(RNG_CPU_KEY)
         t_run = time.perf_counter()
         fetches, new_state = fn(feed, state)
         run_wall = time.perf_counter() - t_run

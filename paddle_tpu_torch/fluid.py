@@ -6,16 +6,17 @@ Reference scripts do ``import paddle.fluid as fluid``; with the port:
 """
 from . import (framework, layers, initializer, regularizer, clip,  # noqa
                optimizer, backward, unique_name, io, nets, param_attr,
-               executor, compiler, resilience, serving, analysis)
+               executor, compiler, resilience, serving, analysis, average)
 from .framework import (Program, Block, Variable, Operator,  # noqa
                         default_startup_program, default_main_program,
                         program_guard, switch_startup_program,
                         switch_main_program, get_var)
 from .core.places import CPUPlace, CUDAPlace  # noqa
 from .executor import (Executor, Scope, global_scope, scope_guard,  # noqa
-                       switch_scope)
+                       switch_scope, fetch_var)
 from .backward import append_backward  # noqa
-from .param_attr import ParamAttr  # noqa
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa
+from .initializer import init_on_cpu  # noqa
 from .data_feeder import DataFeeder  # noqa
 from .lod import (SequenceTensor, create_lod_tensor,  # noqa
                   create_random_int_lodtensor)

@@ -267,6 +267,10 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def prepend_op(self, type=None, inputs=None, outputs=None, attrs=None):
+        return self.insert_op(0, type=type, inputs=inputs, outputs=outputs,
+                              attrs=attrs)
+
     def insert_op(self, index, type=None, inputs=None, outputs=None,
                   attrs=None):
         op = Operator(self, type=type, inputs=inputs, outputs=outputs,

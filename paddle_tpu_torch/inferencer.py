@@ -38,7 +38,7 @@ class Inferencer(object):
         if parallel:
             raise NotImplementedError(
                 'Inferencer(parallel=True) needs the ParallelExecutor, '
-                'which is not ported yet (ROADMAP Queue A item 4)')
+                'which is not ported yet (ROADMAP Queue A item 6)')
         self.param_path = param_path
         self.scope = executor.Scope()
         self.place = place if place is not None else _places.CUDAPlace(0)

@@ -1,9 +1,9 @@
 """LayerHelper — shared machinery for the layers API.
 
-Counterpart of paddle_tpu/layer_helper.py (no weight normalisation in
-this slice). Creates parameters in the main program's global block and
-their init ops in the startup program, temp vars, bias/activation
-epilogues. Names come from ``unique_name`` with the same keys as
+Counterpart of paddle_tpu/layer_helper.py. Creates parameters in the
+main program's global block and their init ops in the startup program
+(a ``WeightNormParamAttr`` makes its g and v pair and the recomposed
+weight), temp vars, bias/activation epilogues. Names come from ``unique_name`` with the same keys as
 paddle_tpu's helper, so both packages name a model's variables alike.
 """
 import copy
@@ -11,7 +11,7 @@ import copy
 from .framework import default_main_program, default_startup_program, \
     Variable, convert_np_dtype
 from . import unique_name
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from .initializer import Xavier
 
 __all__ = ['LayerHelper']
@@ -96,6 +96,11 @@ class LayerHelper(object):
         if attr.name is None:
             attr.name = unique_name.generate(".".join([self.name, 'w']))
 
+        if isinstance(attr, WeightNormParamAttr):
+            param = self._create_weight_normalize(attr, shape, dtype)
+            WeightNormParamAttr.params_with_weight_norm.append(param)
+            return param
+
         startup_block = self.startup_program.global_block()
         sv = startup_block.create_var(
             name=attr.name, shape=[int(s) for s in shape],
@@ -106,6 +111,91 @@ class LayerHelper(object):
         return main_block.create_parameter(
             shape=[int(s) for s in shape], dtype=convert_np_dtype(dtype),
             **attr.to_kwargs())
+
+    def _weight_norm_tmp(self, block, tag, shape, dtype):
+        return block.create_var(
+            name=unique_name.generate(
+                ".".join([self.name, 'weight_norm_' + tag])),
+            dtype=dtype, shape=shape)
+
+    def _append_norm_except_dim(self, block, x, x_shape, dim, out, dtype):
+        """Append square -> reduce_sum (keep_dim) -> sqrt: the L2 norm of
+        ``x`` over every axis but ``dim`` (all axes when None), shaped
+        [1, .., x_shape[dim], .., 1], as paddle_tpu builds it."""
+        ndim = len(x_shape)
+        g_shape = [1] * ndim
+        if dim is not None:
+            g_shape[dim] = int(x_shape[dim])
+        sq = self._weight_norm_tmp(block, 'sq', list(x_shape), dtype)
+        block.append_op(type='square', inputs={'X': [x]},
+                        outputs={'Out': [sq]})
+        ssum = self._weight_norm_tmp(block, 'sum', g_shape, dtype)
+        reduce_dims = None if dim is None else \
+            [i for i in range(ndim) if i != dim]
+        block.append_op(
+            type='reduce_sum', inputs={'X': [sq]}, outputs={'Out': [ssum]},
+            attrs={'dim': reduce_dims, 'keep_dim': True,
+                   'reduce_all': dim is None})
+        if out is None:
+            out = self._weight_norm_tmp(block, 'norm', g_shape, dtype)
+        block.append_op(type='sqrt', inputs={'X': [ssum]},
+                        outputs={'Out': [out]})
+        return out
+
+    def _create_weight_normalize(self, attr, shape, dtype):
+        """w = g * v / ||v||: the startup program initialises v with the
+        attr's initializer and then g = ||v||, so w starts as that
+        initializer's draw; the main program makes g and v parameters
+        and recomposes w from them, so both get gradients."""
+        dtype = convert_np_dtype(dtype)
+        shape = [int(s) for s in shape]
+        ndim = len(shape)
+        dim = attr.dim
+        if dim is not None:
+            if not (-ndim <= dim < ndim):
+                raise ValueError(
+                    "WeightNormParamAttr.dim=%s out of range for a %d-D "
+                    "parameter" % (dim, ndim))
+            if dim < 0:
+                dim += ndim
+        g_shape = [1] * ndim
+        if dim is not None:
+            g_shape[dim] = shape[dim]
+
+        g_attr = copy.deepcopy(attr)
+        g_attr.name = attr.name + '_g'
+        v_attr = copy.deepcopy(attr)
+        v_attr.name = attr.name + '_v'
+
+        startup_block = self.startup_program.global_block()
+        sv = startup_block.create_var(
+            name=v_attr.name, shape=shape, dtype=dtype, persistable=True)
+        attr.initializer(sv, startup_block)
+        sg = startup_block.create_var(
+            name=g_attr.name, shape=g_shape, dtype=dtype, persistable=True)
+        self._append_norm_except_dim(startup_block, sv, shape, dim, sg,
+                                     dtype)
+
+        main_block = self.main_program.global_block()
+        g_param = main_block.create_parameter(
+            shape=g_shape, dtype=dtype, **g_attr.to_kwargs())
+        v_param = main_block.create_parameter(
+            shape=shape, dtype=dtype, **v_attr.to_kwargs())
+
+        block = self.main_program.current_block()
+        norm = self._append_norm_except_dim(block, v_param, shape, dim,
+                                            None, dtype)
+        # the norm keeps v's rank (singleton axes), so a same-rank
+        # broadcast recomposes w
+        scale = self._weight_norm_tmp(block, 'scale', g_shape, dtype)
+        block.append_op(
+            type='elementwise_div', inputs={'X': [g_param], 'Y': [norm]},
+            outputs={'Out': [scale]}, attrs={'axis': -1})
+        w_param = self._weight_norm_tmp(block, 'w', shape, dtype)
+        block.append_op(
+            type='elementwise_mul', inputs={'X': [v_param], 'Y': [scale]},
+            outputs={'Out': [w_param]}, attrs={'axis': -1})
+        return w_param
 
     def create_tmp_variable(self, dtype, stop_gradient=False, lod_level=None,
                             shape=None):

@@ -12,7 +12,10 @@ from . import control_flow
 from .control_flow import *  # noqa
 from . import metric
 from .metric import *  # noqa
+from . import learning_rate_scheduler
+from .learning_rate_scheduler import *  # noqa
 from . import math_op_patch  # noqa
 
 __all__ = (ops.__all__ + nn.__all__ + io.__all__ + tensor.__all__ +
-           control_flow.__all__ + metric.__all__)
+           control_flow.__all__ + metric.__all__ +
+           learning_rate_scheduler.__all__)

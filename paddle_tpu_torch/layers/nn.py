@@ -26,7 +26,8 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'squared_l2_distance', 'squared_l2_norm', 'l1_norm', 'prelu',
            'maxout', 'im2sequence', 'row_conv', 'sequence_conv',
            'sequence_reshape', 'lod_reset', 'beam_search',
-           'beam_search_decode', 'sequence_concat']
+           'beam_search_decode', 'sequence_concat',
+           'autoincreased_step_counter']
 
 
 def _prod(dims):
@@ -451,6 +452,31 @@ def one_hot(input, depth):
                      attrs={'depth': depth},
                      outputs={'Out': one_hot_out})
     return one_hot_out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 counter that the main program increments
+    once a run, before anything else reads it: the startup program sets
+    it to ``begin - 1``, and an ``increment`` by ``step`` is prepended
+    to the global block once per program (later calls with the same
+    name return the same counter). As paddle_tpu's."""
+    helper = LayerHelper('global_step_counter')
+    if counter_name is None:
+        counter_name = '@STEP_COUNTER@'
+    program = helper.main_program
+    counter = program.global_block().create_var(
+        name=counter_name, dtype='int64', shape=(1,), persistable=True)
+    startup = helper.startup_program.global_block()
+    sv = startup.create_var(name=counter_name, dtype='int64', shape=(1,),
+                            persistable=True)
+    Constant(value=float(begin - 1))(sv, startup)
+    if not getattr(counter, '_step_op_added', False):
+        program.global_block().prepend_op(
+            type='increment', inputs={'X': [counter]},
+            outputs={'Out': [counter]}, attrs={'step': float(step)})
+        counter._step_op_added = True
+    counter.stop_gradient = True
+    return counter
 
 
 def squeeze(input, axes=None, name=None):

@@ -2,7 +2,9 @@
 
 Counterpart of paddle_tpu/layers/ops.py, trimmed to the op types the
 port runs: each name is a thin layer function
-appending one op of the same type.
+appending one op of the same type. The random layers draw from the
+scope's generator unless given a non-zero ``seed``; the
+``*_batch_size_like`` ones take their batch from ``input=``.
 """
 from ..layer_helper import LayerHelper
 from ..framework import Variable
@@ -21,7 +23,9 @@ __all__ = ['mean', 'mul', 'scale', 'sigmoid_cross_entropy_with_logits',
            'elementwise_mul', 'elementwise_div', 'elementwise_max',
            'elementwise_min', 'elementwise_pow', 'clip', 'clip_by_norm',
            'logical_and', 'logical_or', 'logical_xor', 'logical_not',
-           'sign'] + __activations__
+           'sign', 'uniform_random', 'uniform_random_batch_size_like',
+           'gaussian_random', 'gaussian_random_batch_size_like'] + \
+    __activations__
 
 _BINARY = {'elementwise_add', 'elementwise_div', 'elementwise_sub',
            'elementwise_mul', 'elementwise_max', 'elementwise_min',
@@ -70,7 +74,7 @@ def _gen_layer(op_type):
     return layer
 
 
-for _op in set(__all__) - {'mean'}:
+for _op in set(__all__) - {'mean', 'uniform_random', 'gaussian_random'}:
     globals()[_op] = _gen_layer(_op)
 
 
@@ -81,3 +85,23 @@ def mean(x=None, **kwargs):
     helper.append_op(type='mean', inputs={'X': x}, outputs={'Out': out})
     return out
 
+
+
+def uniform_random(shape, dtype='float32', min=-1.0, max=1.0, seed=0,
+                   **kwargs):
+    helper = LayerHelper('uniform_random', **kwargs)
+    out = helper.create_tmp_variable(dtype=dtype, shape=tuple(shape))
+    helper.append_op(type='uniform_random', outputs={'Out': out},
+                     attrs={'shape': list(shape), 'dtype': dtype,
+                            'min': min, 'max': max, 'seed': seed})
+    return out
+
+
+def gaussian_random(shape, dtype='float32', mean=0.0, std=1.0, seed=0,
+                    **kwargs):
+    helper = LayerHelper('gaussian_random', **kwargs)
+    out = helper.create_tmp_variable(dtype=dtype, shape=tuple(shape))
+    helper.append_op(type='gaussian_random', outputs={'Out': out},
+                     attrs={'shape': list(shape), 'dtype': dtype,
+                            'mean': mean, 'std': std, 'seed': seed})
+    return out

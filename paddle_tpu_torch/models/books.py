@@ -3,8 +3,10 @@
 The networks of the reference's python/paddle/fluid/tests/book scripts
 that the port runs whole: fit_a_line (book 01), recognize_digits (book
 02, conv and MLP), image_classification with the CIFAR-10 ResNet (book
-03), word2vec (book 04, dense embedding) and machine_translation (book
-08: a DynamicRNN decoder trained, a beam-search While decoding). Each
+03), word2vec (book 04, dense embedding), understand_sentiment (book
+06, its convolution and stacked-LSTM nets, dense embeddings) and
+machine_translation (book 08: a DynamicRNN decoder trained, a
+beam-search While decoding). Each
 ``<book>()`` adds its network to the current program guard at the
 script's widths (keyword arguments cut them for tests) and returns a
 ``Book``; ``train(book)`` appends the script's optimizer, and
@@ -26,7 +28,7 @@ from . import resnet
 
 __all__ = ['Book', 'fit_a_line', 'recognize_digits_conv',
            'recognize_digits_mlp', 'image_classification', 'word2vec',
-           'machine_translation', 'decode_dynamic', 'decode_static',
+           'sentiment_conv', 'sentiment_lstm', 'machine_translation', 'decode_dynamic', 'decode_static',
            'decode_init_feed', 'train', 'reader', 'BOOKS', 'MT']
 
 WORD2VEC_N = 5
@@ -127,6 +129,67 @@ def word2vec(dict_size=None, embed=32, hidden=256):
     loss = layers.mean(layers.cross_entropy(input=pred, label=nextw))
     return Book('word2vec', words + [nextw], pred, loss, None,
                 lambda: optimizer.SGD(learning_rate=0.001), 32)
+
+
+def _sentiment(name, net, dict_dim):
+    """book/test_understand_sentiment.py's train(): int64 words (lod 1)
+    and label, the net, cross_entropy, mean and accuracy; Adagrad(0.002)
+    at batch 128 on imdb.train(word_dict) through
+    reader.shuffle(buf_size=1000)."""
+    if dict_dim is None:
+        dict_dim = len(dataset.imdb.word_dict())
+    data = layers.data(name='words', shape=[1], dtype='int64', lod_level=1)
+    label = layers.data(name='label', shape=[1], dtype='int64')
+    pred = net(data, dict_dim)
+    loss = layers.mean(layers.cross_entropy(input=pred, label=label))
+    acc = layers.accuracy(input=pred, label=label)
+    return Book(name, [data, label], pred, loss, acc,
+                lambda: optimizer.Adagrad(learning_rate=0.002), 128)
+
+
+def sentiment_conv(dict_dim=None, emb_dim=32, hid_dim=32):
+    """book 06's convolution_net: embedding 32, two sequence_conv_pool
+    of 32 filters (windows 3 and 4, tanh, sqrt pooling), fc 2 softmax.
+    The script looks the words up with is_sparse=True; the port has no
+    sparse row gradients yet, so the table trains dense."""
+    def net(data, dict_dim):
+        emb = layers.embedding(input=data, size=[dict_dim, emb_dim],
+                               is_sparse=False)
+        conv_3 = nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
+                                         filter_size=3, act='tanh',
+                                         pool_type='sqrt')
+        conv_4 = nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
+                                         filter_size=4, act='tanh',
+                                         pool_type='sqrt')
+        return layers.fc(input=[conv_3, conv_4], size=2, act='softmax')
+    return _sentiment('sentiment_conv', net, dict_dim)
+
+
+def sentiment_lstm(dict_dim=None, emb_dim=128, hid_dim=512, stacked_num=3):
+    """book 06's stacked_lstm_net: embedding 128, fc 512, then 3
+    dynamic_lstm of size 512 (hidden 128, the script's peepholes, every
+    second one reversed), each fed an fc of the previous fc and LSTM;
+    max pools of the last fc and LSTM, fc 2 softmax. Its peephole LSTMs
+    run the plain scan, no hand-written kernel. Dense table, as
+    sentiment_conv's."""
+    if stacked_num % 2 != 1:
+        raise ValueError("stacked_num must be odd")
+
+    def net(data, dict_dim):
+        emb = layers.embedding(input=data, size=[dict_dim, emb_dim],
+                               is_sparse=False)
+        fc1 = layers.fc(input=emb, size=hid_dim)
+        lstm1, _ = layers.dynamic_lstm(input=fc1, size=hid_dim)
+        inputs = [fc1, lstm1]
+        for i in range(2, stacked_num + 1):
+            fc = layers.fc(input=inputs, size=hid_dim)
+            lstm, _ = layers.dynamic_lstm(input=fc, size=hid_dim,
+                                          is_reverse=(i % 2) == 0)
+            inputs = [fc, lstm]
+        fc_last = layers.sequence_pool(input=inputs[0], pool_type='max')
+        lstm_last = layers.sequence_pool(input=inputs[1], pool_type='max')
+        return layers.fc(input=[fc_last, lstm_last], size=2, act='softmax')
+    return _sentiment('sentiment_lstm', net, dict_dim)
 
 
 # book/test_machine_translation.py's widths
@@ -324,6 +387,9 @@ def reader(book, batch_size=None):
     if book.name == 'image_classification':
         return batch(reader_m.shuffle(dataset.cifar.train10(),
                                       buf_size=128 * 10), bs)
+    if book.name.startswith('sentiment'):
+        return batch(reader_m.shuffle(
+            dataset.imdb.train(dataset.imdb.word_dict()), buf_size=1000), bs)
     if book.name == 'machine_translation':
         return batch(dataset.wmt14.train(book.prediction.shape[-1]), bs)
     word_dict = dataset.imikolov.build_dict()
@@ -335,4 +401,6 @@ BOOKS = {'fit_a_line': fit_a_line,
          'recognize_digits_mlp': recognize_digits_mlp,
          'image_classification': image_classification,
          'word2vec': word2vec,
+         'sentiment_conv': sentiment_conv,
+         'sentiment_lstm': sentiment_lstm,
          'machine_translation': machine_translation}

@@ -1,7 +1,8 @@
 """Miscellaneous kernels. Counterpart of paddle_tpu/ops/misc_ops.py,
 trimmed to the ``flash_attention`` op, the losses (hinge, huber, log,
 rank, margin rank, modified huber), the distances and norms
-(squared_l2_distance, squared_l2_norm, l1_norm), prelu and maxout."""
+(squared_l2_distance, squared_l2_norm, l1_norm), prelu, maxout and the
+proximal optimizers' dense updates (proximal_gd, proximal_adagrad)."""
 import contextlib
 
 import torch
@@ -173,3 +174,33 @@ def _maxout(ctx):
     g = int(ctx.attr('groups'))
     n, c, h, w = x.shape
     ctx.set_output('Out', torch.amax(x.reshape(n, c // g, g, h, w), 2))
+
+
+# ---- proximal optimizers -------------------------------------------------------
+def _prox(prox_param, lr, l1, l2):
+    return (torch.sign(prox_param)
+            * torch.clamp_min(torch.abs(prox_param) - lr * l1, 0.0)
+            / (1.0 + lr * l2))
+
+
+@register_kernel('proximal_gd')
+def _proximal_gd(ctx):
+    """The reference's proximal_gd_op.h: prox = p - lr*g;
+    p' = sign(prox) * max(|prox| - lr*l1, 0) / (1 + lr*l2)."""
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    lr = ctx.input('LearningRate').reshape(())
+    l1, l2 = ctx.attr('l1', 0.0), ctx.attr('l2', 0.0)
+    ctx.set_output('ParamOut', _prox(p - lr * g, lr, l1, l2))
+
+
+@register_kernel('proximal_adagrad')
+def _proximal_adagrad(ctx):
+    """The reference's proximal_adagrad_op.h: m' = m + g^2,
+    prox = p - lr*g/sqrt(m'); the shrinkage takes the scalar lr."""
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    lr = ctx.input('LearningRate').reshape(())
+    l1, l2 = ctx.attr('l1', 0.0), ctx.attr('l2', 0.0)
+    m_out = ctx.input('Moment') + g * g
+    ctx.set_output('MomentOut', m_out)
+    ctx.set_output('ParamOut',
+                   _prox(p - lr * g / torch.sqrt(m_out), lr, l1, l2))

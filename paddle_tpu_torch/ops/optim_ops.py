@@ -1,8 +1,11 @@
 """Optimizer update kernels.
 
-Counterpart of paddle_tpu/ops/optim_ops.py, trimmed to the dense
-branches of ``sgd``, ``momentum``, ``adagrad`` and ``adam`` (sparse row gradients are
-not ported). Each writes ParamOut and its accumulator outs, which the
+Counterpart of paddle_tpu/ops/optim_ops.py: the dense branches of
+``sgd``, ``momentum``, ``adagrad``, ``adam``, ``adamax``,
+``decayed_adagrad``, ``adadelta``, ``rmsprop`` and ``ftrl``, and
+``sqrt_op`` (sparse row gradients are not ported: the lowering refuses
+them). Each keeps the JAX kernel's epsilon placement and power
+schedule, which are the reference operators' and not ``torch.optim``'s. Each writes ParamOut and its accumulator outs, which the
 Executor stores back into the Scope on the device. The updates make new
 tensors, as the JAX kernels do; the old ones are freed when the Scope
 drops them.
@@ -60,3 +63,78 @@ def _adam(ctx):
     ctx.set_output('ParamOut', p - lr_t * m1o / (torch.sqrt(m2o) + eps))
     ctx.set_output('Moment1Out', m1o)
     ctx.set_output('Moment2Out', m2o)
+
+
+@register_kernel('adamax')
+def _adamax(ctx):
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    b1p = ctx.input('Beta1Pow').reshape(())
+    b1, b2 = ctx.attr('beta1', 0.9), ctx.attr('beta2', 0.999)
+    eps = ctx.attr('epsilon', 1e-8)
+    m_out = b1 * ctx.input('Moment') + (1 - b1) * g
+    # the reference's adamax_op.h:57-58: eps joins the decayed norm
+    # inside the max, not the denominator
+    inf_out = torch.maximum(b2 * ctx.input('InfNorm') + eps, torch.abs(g))
+    ctx.set_output('ParamOut', p - (_lr(ctx) / (1 - b1p)) * m_out / inf_out)
+    ctx.set_output('MomentOut', m_out)
+    ctx.set_output('InfNormOut', inf_out)
+
+
+@register_kernel('decayed_adagrad')
+def _decayed_adagrad(ctx):
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    decay = ctx.attr('decay', 0.95)
+    m_out = decay * ctx.input('Moment') + (1 - decay) * torch.square(g)
+    ctx.set_output('ParamOut', p - _lr(ctx) * g / (
+        torch.sqrt(m_out) + ctx.attr('epsilon', 1e-6)))
+    ctx.set_output('MomentOut', m_out)
+
+
+@register_kernel('adadelta')
+def _adadelta(ctx):
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    avg_sq_upd = ctx.input('AvgSquaredUpdate')
+    rho = ctx.attr('rho', 0.95)
+    eps = ctx.attr('epsilon', 1e-6)
+    asg = rho * ctx.input('AvgSquaredGrad') + (1 - rho) * torch.square(g)
+    update = -torch.sqrt((avg_sq_upd + eps) / (asg + eps)) * g
+    ctx.set_output('ParamOut', p + update)
+    ctx.set_output('AvgSquaredGradOut', asg)
+    ctx.set_output('AvgSquaredUpdateOut',
+                   rho * avg_sq_upd + (1 - rho) * torch.square(update))
+
+
+@register_kernel('rmsprop')
+def _rmsprop(ctx):
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    rho = ctx.attr('decay', 0.95)
+    ms_out = rho * ctx.input('MeanSquare') + (1 - rho) * torch.square(g)
+    # eps inside the square root (the reference's rmsprop_op.h)
+    mom_out = ctx.attr('momentum', 0.0) * ctx.input('Moment') + \
+        _lr(ctx) * g / torch.sqrt(ms_out + ctx.attr('epsilon', 1e-6))
+    ctx.set_output('ParamOut', p - mom_out)
+    ctx.set_output('MeanSquareOut', ms_out)
+    ctx.set_output('MomentOut', mom_out)
+
+
+@register_kernel('ftrl')
+def _ftrl(ctx):
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    sq_accum = ctx.input('SquaredAccumulator')
+    l1, l2 = ctx.attr('l1', 0.0), ctx.attr('l2', 0.0)
+    lr_power = ctx.attr('lr_power', -0.5)
+    lr = _lr(ctx)
+    new_accum = sq_accum + torch.square(g)
+    lin_out = ctx.input('LinearAccumulator') + g - (
+        torch.pow(new_accum, -lr_power) - torch.pow(sq_accum, -lr_power)
+    ) / lr * p
+    x = torch.clamp(lin_out, -l1, l1) - lin_out
+    y = torch.pow(new_accum, -lr_power) / lr + 2 * l2
+    ctx.set_output('ParamOut', x / y)
+    ctx.set_output('SquaredAccumOut', new_accum)
+    ctx.set_output('LinearAccumOut', lin_out)
+
+
+@register_kernel('sqrt_op')
+def _sqrt_op(ctx):
+    ctx.set_output('Out', torch.sqrt(ctx.input('X')))

@@ -4,6 +4,8 @@ Counterpart of paddle_tpu/ops/tensor_ops.py, trimmed to the ops of the
 serving slice and its startup program: fill_constant, assign,
 assign_value (the constants the compiler's constant_fold bakes),
 uniform_random, gaussian_random, lookup_table, concat, split, reshape;
+the random ops of the initializers and layers (truncated_gaussian_random
+and the two ``*_batch_size_like`` draws);
 and the tensor ops of the books and the decode path: cast, squeeze,
 unsqueeze, transpose, one_hot, gather, top_k, increment, expand,
 fill_constant_batch_size_like; and of control flow: is_empty and print.
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..core.registry import register_kernel
-from ..core.lowering import torch_dtype
+from ..core.lowering import torch_dtype, RNG_CPU_KEY
 from .common import host_read, rewrap, unwrap
 
 
@@ -72,35 +74,73 @@ def _assign_value(ctx):
     ctx.set_output('Out', out)
 
 
-def _op_generator(ctx):
-    """The op's own generator when it carries a non-zero seed, else the
-    scope's generator (program.random_seed)."""
+def _op_generator(ctx, host):
+    """The op's own generator when it carries a non-zero seed (on the
+    host for a ``host`` draw, else on the op's device), else the
+    scope's: its host generator for a host draw, on every device, and
+    its device generator otherwise (both seeded from
+    program.random_seed)."""
     seed = ctx.attr('seed', 0)
     if not seed:
-        return ctx.generator()
-    gen = torch.Generator(device=ctx.device)
+        return ctx.env[RNG_CPU_KEY] if host else ctx.generator()
+    gen = torch.Generator(device='cpu' if host else ctx.device)
     gen.manual_seed(int(seed))
     return gen
 
 
-@register_kernel('uniform_random')
-def _uniform_random(ctx):
+def _draw(ctx, draw):
+    """``draw(shape, dtype, device, generator)``, at the op's shape (a
+    ``*_batch_size_like`` op takes its batch from its Input). With
+    ``force_cpu`` (``initializer.init_on_cpu``) the draw and its
+    arithmetic run on the host, from a host generator, and the values
+    are copied to the device: the same bits on the CPU and on the card."""
     shape = [int(s) for s in ctx.attr('shape')]
+    if ctx.op.type.endswith('batch_size_like'):
+        ref = unwrap(ctx.input('Input'))
+        shape[ctx.attr('output_dim_idx', 0)] = \
+            ref.shape[ctx.attr('input_dim_idx', 0)]
+    host = bool(ctx.attr('force_cpu', False))
+    out = draw(shape, torch_dtype(ctx.attr('dtype', 'float32')),
+               torch.device('cpu') if host else ctx.device,
+               _op_generator(ctx, host))
+    ctx.set_output('Out', out.to(ctx.device))
+
+
+@register_kernel('uniform_random')
+@register_kernel('uniform_random_batch_size_like')
+def _uniform_random(ctx):
     lo, hi = ctx.attr('min', -1.0), ctx.attr('max', 1.0)
-    out = torch.rand(shape, generator=_op_generator(ctx),
-                     dtype=torch_dtype(ctx.attr('dtype', 'float32')),
-                     device=ctx.device)
-    ctx.set_output('Out', out * (hi - lo) + lo)
+    _draw(ctx, lambda shape, dtype, device, gen: torch.rand(
+        shape, generator=gen, dtype=dtype, device=device) * (hi - lo) + lo)
 
 
 @register_kernel('gaussian_random')
+@register_kernel('gaussian_random_batch_size_like')
 def _gaussian_random(ctx):
-    shape = [int(s) for s in ctx.attr('shape')]
     mean, std = ctx.attr('mean', 0.0), ctx.attr('std', 1.0)
-    out = torch.randn(shape, generator=_op_generator(ctx),
-                      dtype=torch_dtype(ctx.attr('dtype', 'float32')),
-                      device=ctx.device)
-    ctx.set_output('Out', out * std + mean)
+    _draw(ctx, lambda shape, dtype, device, gen: torch.randn(
+        shape, generator=gen, dtype=dtype, device=device) * std + mean)
+
+
+# the standard normal's CDF at -2 and 2: a truncated draw maps a uniform
+# draw on [PHI_LO, PHI_HI] through the inverse CDF
+_PHI_LO, _PHI_HI = 0.022750131948179195, 0.9772498680518208
+
+
+@register_kernel('truncated_gaussian_random')
+def _truncated_gaussian_random(ctx):
+    """A normal draw truncated to two standard deviations about the
+    mean (the JAX kernel's ``truncated_normal(-2, 2)``), by the inverse
+    CDF of a uniform draw, clamped so that rounding never leaves the
+    interval."""
+    mean, std = ctx.attr('mean', 0.0), ctx.attr('std', 1.0)
+
+    def draw(shape, dtype, device, gen):
+        u = torch.rand(shape, generator=gen, dtype=torch.float32,
+                       device=device) * (_PHI_HI - _PHI_LO) + _PHI_LO
+        z = torch.special.ndtri(u).clamp_(-2.0, 2.0)
+        return (z * std + mean).to(dtype)
+    _draw(ctx, draw)
 
 
 @register_kernel('lookup_table')

@@ -1,12 +1,17 @@
 """Optimizers.
 
-Counterpart of paddle_tpu/optimizer.py, trimmed to SGD, Momentum,
-Adagrad and Adam. The same program surgery: ``minimize`` appends the backward marker,
+Counterpart of paddle_tpu/optimizer.py: SGD, Momentum, Adagrad, Adam,
+Adamax, DecayedAdagrad, Adadelta, RMSProp, Ftrl and ModelAverage. The
+same program surgery: ``minimize`` appends the backward marker,
 gradient-clip ops, regularizer ops, one update op per parameter, and the
-finish-update ops (Adam's beta-power scaling), all in the loss's block.
-Accumulators are persistable variables initialised by the startup
-program, so they live in the Scope on the device beside the parameters.
+finish-update ops (Adam's and Adamax's beta-power scaling), all in the
+loss's block. Accumulators are persistable variables initialised by the
+startup program, under paddle_tpu's names, so they live in the Scope on
+the device beside the parameters. ``ModelAverage`` keeps its running
+sums as tensors on the device of the Scope's parameters.
 """
+import contextlib
+
 from . import framework, unique_name
 from .framework import Variable, default_startup_program
 from .backward import append_backward
@@ -15,9 +20,11 @@ from .regularizer import append_regularization_ops
 from .initializer import Constant
 from .layer_helper import LayerHelper
 
-__all__ = ['SGD', 'Momentum', 'Adagrad', 'Adam', 'SGDOptimizer',
-           'MomentumOptimizer', 'AdagradOptimizer', 'AdamOptimizer',
-           'Optimizer']
+__all__ = ['SGD', 'Momentum', 'Adagrad', 'Adam', 'Adamax', 'DecayedAdagrad',
+           'Ftrl', 'SGDOptimizer', 'MomentumOptimizer', 'AdagradOptimizer',
+           'AdamOptimizer', 'AdamaxOptimizer', 'DecayedAdagradOptimizer',
+           'RMSPropOptimizer', 'FtrlOptimizer', 'Adadelta', 'RMSProp',
+           'AdadeltaOptimizer', 'ModelAverage', 'Optimizer']
 
 
 class Optimizer(object):
@@ -46,14 +53,21 @@ class Optimizer(object):
         if isinstance(self._learning_rate, Variable):
             self._learning_rate_map[program] = self._learning_rate
             return
-        name = unique_name.generate('learning_rate')
-        lr_var = program.global_block().create_var(
+        self._learning_rate_map[program] = self._persistable_scalar(
+            'learning_rate', float(self._learning_rate))
+
+    def _persistable_scalar(self, key, value):
+        """A persistable float32 [1] named from ``key``, set to
+        ``value`` by the startup program (the LR, the beta powers)."""
+        program, startup_program = self._target_programs()
+        name = unique_name.generate(key)
+        var = program.global_block().create_var(
             name=name, shape=(1,), dtype='float32', persistable=True)
         startup = startup_program.global_block()
         sv = startup.create_var(name=name, shape=(1,), dtype='float32',
                                 persistable=True)
-        Constant(float(self._learning_rate))(sv, startup)
-        self._learning_rate_map[program] = lr_var
+        Constant(value)(sv, startup)
+        return var
 
     def _global_learning_rate(self, program=None):
         if program is None:
@@ -227,17 +241,10 @@ class AdamOptimizer(Optimizer):
         self._beta2_pow_acc = None
 
     def _create_accumulators(self, block, parameters):
-        program, startup_program = self._target_programs()
-        startup = startup_program.global_block()
-        for name, val in [('beta1_pow_acc', self._beta1),
-                          ('beta2_pow_acc', self._beta2)]:
-            var_name = unique_name.generate(name)
-            var = program.global_block().create_var(
-                name=var_name, shape=(1,), dtype='float32', persistable=True)
-            sv = startup.create_var(name=var_name, shape=(1,),
-                                    dtype='float32', persistable=True)
-            Constant(val)(sv, startup)
-            setattr(self, '_' + name, var)
+        self._beta1_pow_acc = self._persistable_scalar('beta1_pow_acc',
+                                                       self._beta1)
+        self._beta2_pow_acc = self._persistable_scalar('beta2_pow_acc',
+                                                       self._beta2)
         for p in parameters:
             self._add_accumulator(self._moment1_acc_str, p)
             self._add_accumulator(self._moment2_acc_str, p)
@@ -268,7 +275,243 @@ class AdamOptimizer(Optimizer):
                         attrs={"scale": self._beta2})
 
 
+class AdamaxOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+    _inf_norm_acc_str = "inf_norm"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super(AdamaxOptimizer, self).__init__(learning_rate, **kwargs)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._beta1_pow_acc = None
+
+    def _create_accumulators(self, block, parameters):
+        self._beta1_pow_acc = self._persistable_scalar('adamax_beta1_pow',
+                                                       self._beta1)
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+            self._add_accumulator(self._inf_norm_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        inf_norm = self._get_accumulator(self._inf_norm_acc_str,
+                                         param_and_grad[0])
+        return block.append_op(
+            type="adamax",
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "LearningRate": self._create_param_lr(param_and_grad),
+                    "Moment": moment, "InfNorm": inf_norm,
+                    "Beta1Pow": self._beta1_pow_acc},
+            outputs={"ParamOut": param_and_grad[0], "MomentOut": moment,
+                     "InfNormOut": inf_norm},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+
+    def _finish_update(self, block):
+        block.append_op(type="scale", inputs={"X": self._beta1_pow_acc},
+                        outputs={"Out": self._beta1_pow_acc},
+                        attrs={"scale": self._beta1})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1.0e-6, **kwargs):
+        super(DecayedAdagradOptimizer, self).__init__(learning_rate,
+                                                      **kwargs)
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment_acc = self._get_accumulator(self._moment_acc_str,
+                                           param_and_grad[0])
+        return block.append_op(
+            type="decayed_adagrad",
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "Moment": moment_acc,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0],
+                     "MomentOut": moment_acc},
+            attrs={"decay": self._decay, "epsilon": self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    """Adadelta takes no learning rate in its update, as in the
+    reference: ``learning_rate`` only makes the optimizer's LR variable."""
+    _avg_squared_grad_acc_str = "_avg_squared_grad"
+    _avg_squared_update_acc_str = "_avg_squared_update"
+
+    def __init__(self, learning_rate, epsilon=1.0e-6, rho=0.95, **kwargs):
+        super(AdadeltaOptimizer, self).__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._avg_squared_grad_acc_str, p)
+            self._add_accumulator(self._avg_squared_update_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        avg_squared_grad_acc = self._get_accumulator(
+            self._avg_squared_grad_acc_str, param_and_grad[0])
+        avg_squared_update_acc = self._get_accumulator(
+            self._avg_squared_update_acc_str, param_and_grad[0])
+        return block.append_op(
+            type="adadelta",
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "AvgSquaredGrad": avg_squared_grad_acc,
+                    "AvgSquaredUpdate": avg_squared_update_acc},
+            outputs={"ParamOut": param_and_grad[0],
+                     "AvgSquaredGradOut": avg_squared_grad_acc,
+                     "AvgSquaredUpdateOut": avg_squared_update_acc},
+            attrs={"epsilon": self._epsilon, "rho": self._rho})
+
+
+class RMSPropOptimizer(Optimizer):
+    _momentum_acc_str = "momentum"
+    _mean_square_acc_str = "mean_square"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1.0e-6,
+                 momentum=0.0, **kwargs):
+        super(RMSPropOptimizer, self).__init__(learning_rate, **kwargs)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._momentum_acc_str, p)
+            self._add_accumulator(self._mean_square_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        momentum_acc = self._get_accumulator(self._momentum_acc_str,
+                                             param_and_grad[0])
+        mean_square_acc = self._get_accumulator(self._mean_square_acc_str,
+                                                param_and_grad[0])
+        return block.append_op(
+            type="rmsprop",
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "Moment": momentum_acc, "MeanSquare": mean_square_acc,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0],
+                     "MomentOut": momentum_acc,
+                     "MeanSquareOut": mean_square_acc},
+            attrs={"epsilon": self._epsilon, "decay": self._rho,
+                   "momentum": self._momentum})
+
+
+class FtrlOptimizer(Optimizer):
+    _squared_acc_str = "squared"
+    _linear_acc_str = "linear"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super(FtrlOptimizer, self).__init__(learning_rate, **kwargs)
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._squared_acc_str, p)
+            self._add_accumulator(self._linear_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        squared_acc = self._get_accumulator(self._squared_acc_str,
+                                            param_and_grad[0])
+        linear_acc = self._get_accumulator(self._linear_acc_str,
+                                           param_and_grad[0])
+        return block.append_op(
+            type="ftrl",
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "SquaredAccumulator": squared_acc,
+                    "LinearAccumulator": linear_acc,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0],
+                     "SquaredAccumOut": squared_acc,
+                     "LinearAccumOut": linear_acc},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power})
+
+
+class ModelAverage(Optimizer):
+    """A running average of the parameters, swapped in for evaluation.
+
+    Counterpart of paddle_tpu's ModelAverage: ``update(scope)`` (after a
+    training step) adds each parameter of the default main program to
+    its running sum, and a window past ``max_average_window`` starts
+    over; ``apply()`` is a context manager that puts sum / count into
+    the scope and, with ``need_restore``, puts the trained tensors back
+    on exit (``restore()`` does it by hand). The sums are tensors on the
+    device of the Scope's parameters; the trained tensors are kept as
+    they are, so a restore gives back the same bits.
+    """
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super(ModelAverage, self).__init__(0.0001, **kwargs)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self._sums = {}
+        self._num = 0
+        self._backup = {}
+        self.params_grads = []
+
+    def update(self, scope=None):
+        from .executor import global_scope
+        scope = scope or global_scope()
+        program = framework.default_main_program()
+        for p in program.global_block().all_parameters():
+            val = scope.raw(p.name)
+            if val is None:
+                continue
+            total = self._sums.get(p.name)
+            self._sums[p.name] = val.clone() if total is None else \
+                total + val
+        self._num += 1
+        if self._num > self.max_average_window:
+            self._sums = {}
+            self._num = 0
+
+    def apply(self, executor=None, need_restore=True):
+        @contextlib.contextmanager
+        def _ctx():
+            from .executor import global_scope
+            scope = global_scope()
+            self._backup = {}
+            for name, total in self._sums.items():
+                cur = scope.raw(name)
+                if cur is None or self._num == 0:
+                    continue
+                self._backup[name] = cur
+                scope.set_var(name, total / float(self._num))
+            yield
+            if need_restore:
+                self.restore()
+        return _ctx()
+
+    def restore(self, executor=None):
+        from .executor import global_scope
+        scope = global_scope()
+        for name, val in self._backup.items():
+            scope.set_var(name, val)
+        self._backup = {}
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer

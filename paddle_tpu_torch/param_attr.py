@@ -1,9 +1,9 @@
-"""ParamAttr. Counterpart of paddle_tpu/param_attr.py (no sharding
-annotation and no weight normalisation in this slice)."""
+"""ParamAttr and WeightNormParamAttr. Counterpart of
+paddle_tpu/param_attr.py (no sharding annotation)."""
 from .initializer import Constant
 from .regularizer import WeightDecayRegularizer
 
-__all__ = ['ParamAttr']
+__all__ = ['ParamAttr', 'WeightNormParamAttr']
 
 
 class ParamAttr(object):
@@ -57,3 +57,23 @@ class ParamAttr(object):
             'gradient_clip_attr': self.gradient_clip,
             'do_model_average': self.do_model_average,
         }
+
+
+class WeightNormParamAttr(ParamAttr):
+    """Weight normalisation, w = g * v / ||v|| (Salimans and Kingma,
+    arXiv:1602.07868), the norm over every axis but ``dim`` (over all
+    axes when ``dim`` is None).
+
+    Given to fc or conv2d, it splits the weight into a direction ``v``
+    (``<name>_v``, the weight's shape, the user's initializer) and a
+    magnitude ``g`` (``<name>_g``, 1 on every axis but ``dim``, set to
+    ||v|| by the startup program); both train, and the layer reads the
+    recomposed w (``LayerHelper._create_weight_normalize``).
+    ``params_with_weight_norm`` collects the recomposed Variables, as
+    in paddle_tpu.
+    """
+    params_with_weight_norm = []
+
+    def __init__(self, dim=None, **kwargs):
+        super(WeightNormParamAttr, self).__init__(**kwargs)
+        self.dim = dim

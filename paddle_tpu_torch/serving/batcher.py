@@ -5,7 +5,9 @@ Counterpart of paddle_tpu/serving/batcher.py. The batcher is where
 serving throughput comes from: N concurrent clients each sending a
 handful of rows become one bucket-shaped Executor.run. Requests
 coalesce only when *compatible*: same feed names, per-row shapes, and
-dtypes, so the merged tensor concatenates cleanly along the batch dim.
+dtypes, so the merged tensor concatenates cleanly along the batch dim
+(a level-1 sequence feed counts a sequence a row, its padded length
+part of the row's shape).
 """
 import collections
 import threading
@@ -13,6 +15,7 @@ import time
 
 import numpy as np
 
+from ..lod import SequenceTensor
 from .errors import ServerOverloaded, ServerClosed
 
 __all__ = ['InferenceRequest', 'MicroBatcher', 'merge_requests',
@@ -37,8 +40,7 @@ class InferenceRequest(object):
         self.feeds = feeds
         self.n = n
         self.signature = tuple(sorted(
-            (name, arr.shape[1:], str(arr.dtype))
-            for name, arr in feeds.items()))
+            (name,) + _row_spec(arr) for name, arr in feeds.items()))
         self.deadline = deadline          # absolute time.monotonic()
         self.submit_time = _now()
         self.warmup = warmup
@@ -222,9 +224,19 @@ class MicroBatcher(object):
         return batch, expired
 
 
+def _row_spec(arr):
+    """What two requests' feeds must share to coalesce: the per-row
+    shape and dtype (a sequence feed's padded [T, ...] rows, so merged
+    sequences need no re-padding)."""
+    if isinstance(arr, SequenceTensor):
+        return (arr.data.shape[1:], str(arr.data.dtype), 'lod')
+    return (arr.shape[1:], str(arr.dtype))
+
+
 def merge_requests(batch):
-    """Concatenate the batch's feeds along the leading dim. Returns
-    (feed dict, total rows, row slices per request)."""
+    """Concatenate the batch's feeds along the leading dim (a sequence
+    feed's sequences one after another). Returns (feed dict, total rows,
+    row slices per request)."""
     total = sum(r.n for r in batch)
     slices, offset = [], 0
     for r in batch:
@@ -234,8 +246,13 @@ def merge_requests(batch):
         return dict(batch[0].feeds), total, slices
     feed = {}
     for name in batch[0].feeds:
-        feed[name] = np.concatenate([r.feeds[name] for r in batch],
-                                    axis=0)
+        vals = [r.feeds[name] for r in batch]
+        if isinstance(vals[0], SequenceTensor):
+            feed[name] = SequenceTensor(
+                np.concatenate([v.data for v in vals], axis=0),
+                np.concatenate([v.lengths for v in vals], axis=0))
+        else:
+            feed[name] = np.concatenate(vals, axis=0)
     return feed, total, slices
 
 

@@ -96,11 +96,19 @@ def batch_rows(feed):
 
 
 def pad_feed(feed, n, bucket, pad_mode='edge'):
-    """Pad every feed's batch dim from n to ``bucket`` rows."""
+    """Pad every feed's batch dim from n to ``bucket`` rows. A sequence
+    feed is padded with copies of its last sequence, whatever the mode
+    (a zero-length sequence is no in-distribution row)."""
     if bucket == n:
         return feed
     out = {}
     for name, val in feed.items():
+        if isinstance(val, SequenceTensor):
+            out[name] = SequenceTensor(
+                np.concatenate([val.data] + [val.data[-1:]] * (bucket - n)),
+                np.concatenate([val.lengths] +
+                               [val.lengths[-1:]] * (bucket - n)))
+            continue
         arr = np.asarray(val)
         if pad_mode == 'edge':
             pad = np.repeat(arr[-1:], bucket - n, axis=0)

@@ -37,8 +37,8 @@ class LoadedModel(object):
         block = program.global_block()
         for fname in self.feed_names:
             var = block._find_var_recursive(fname)
-            if var is None:
-                continue
+            if var is None or getattr(var, 'lod_level', 0):
+                continue          # no spec: warmup cannot make sequences
             shape = tuple(var.shape)
             if shape and shape[0] in (-1, None):
                 shape = shape[1:]

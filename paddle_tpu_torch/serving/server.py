@@ -21,6 +21,12 @@ Design points:
   cost. It preloads the on-disk tuning cache first; with
   ``autotune=True`` it also searches each bucket that has no entry,
   before that bucket's request.
+- A feed may be a batch of level-1 sequences (a ``SequenceTensor``, as
+  ``create_lod_tensor`` or the DataFeeder make it): a sequence counts as
+  a row, requests with the same padded length coalesce, and a bucket is
+  padded with copies of the last sequence. paddle_tpu's server refuses
+  such feeds; the port serves the sentiment book through it. Warmup
+  skips a model with a sequence feed (it cannot make one).
 - Transient run failures (``retry_on``, default OSError) are absorbed by
   :func:`resilience.retry_call` with exponential backoff, capped by the
   batch's earliest request deadline.
@@ -69,7 +75,7 @@ import numpy as np
 from .. import observability as _obs
 from ..compiler import tuning as _tuning
 from ..core import places as _places
-from ..executor import Executor, Scope
+from ..executor import Executor, Scope, as_numpy
 from ..io import load_inference_model as _load_inference_model
 from ..lod import SequenceTensor
 from ..resilience import retry_call
@@ -138,7 +144,7 @@ class ModelServer(object):
         if partitioner is not None:
             raise NotImplementedError(
                 'ModelServer(partitioner=...): sharded serving is not '
-                'ported yet (ROADMAP Queue A item 4)')
+                'ported yet (ROADMAP Queue A item 6)')
         self.place = place if place is not None else _places.CUDAPlace(0)
         self.executor = Executor(self.place)
         self.policy = policy or BucketPolicy(max_bucket=max_batch_size)
@@ -355,19 +361,26 @@ class ModelServer(object):
         for name in model.feed_names:
             val = feeds[name]
             if isinstance(val, SequenceTensor):
-                raise ValueError(
-                    'ModelServer serves dense batches; feed %r is a '
-                    'LoD/sequence tensor: use Executor.run directly'
-                    % name)
-            arr = np.asarray(val)
-            if arr.ndim < 1:
+                # a batch of level-1 sequences: one row a sequence
+                if val.lengths is None or val.sub_lengths is not None \
+                        or val.packed_mode:
+                    raise ValueError(
+                        'ModelServer serves dense batches and level-1 '
+                        'sequences; feed %r is another LoD tensor: use '
+                        'Executor.run directly' % name)
+                arr = as_numpy(val)
+                rows = len(arr.lengths)
+            else:
+                arr = np.asarray(val)
+                rows = int(arr.shape[0]) if arr.ndim else None
+            if rows is None:
                 raise ValueError('feed %r must have a batch dim' % name)
             if n is None:
-                n = int(arr.shape[0])
-            elif int(arr.shape[0]) != n:
+                n = rows
+            elif rows != n:
                 raise ValueError(
                     'feeds disagree on batch size: %d vs %d rows'
-                    % (n, int(arr.shape[0])))
+                    % (n, rows))
             out[name] = arr
         if n > self.max_batch_size:
             raise ValueError(

@@ -1,7 +1,9 @@
 """The Fluid books through the port against paddle_tpu, on the CPU.
 
 fit_a_line, recognize_digits (conv and MLP), image_classification
-(resnet_cifar10) and word2vec (dense embedding) at small widths: the
+(resnet_cifar10), word2vec (dense embedding) and understand_sentiment
+(book 06: the convolution net and the stacked LSTM net, dense
+embeddings, sequences of imdb's synthetic reviews) at small widths: the
 port's ``models/books.py`` against the same networks written here with
 paddle_tpu's layers, on the synthetic datasets (both data homes point at
 an empty directory, so nothing is read from outside the test):
@@ -13,8 +15,9 @@ an empty directory, so nothing is read from outside the test):
   parameters, 3 training steps on the same feeds give the same losses
   and fetches (accuracy, prediction) to 1e-4;
 - from one set of trained parameters, each package saves an inference
-  model; the port's served through ``ModelServer(CPUPlace())`` answers
-  within 1e-5 of paddle_tpu's ``Inferencer``;
+  model; the port's served through ``ModelServer(CPUPlace())`` (book
+  06's words as a batch of sequences) answers within 1e-5 of
+  paddle_tpu's ``Inferencer``;
 - the static verifier files the same diagnostics on each book's
   training program in both packages, with no error.
 
@@ -54,10 +57,12 @@ STEPS = 3
 WIDTHS = {'fit_a_line': {}, 'recognize_digits_conv': {'conv': (4, 8)},
           'recognize_digits_mlp': {'hidden': 16},
           'image_classification': {'depth': 8},
-          'word2vec': {'embed': 8, 'hidden': 16}}
+          'word2vec': {'embed': 8, 'hidden': 16},
+          'sentiment_conv': {'emb_dim': 8, 'hid_dim': 8},
+          'sentiment_lstm': {'emb_dim': 8, 'hid_dim': 16}}
 BATCH = {'fit_a_line': 20, 'recognize_digits_conv': 8,
          'recognize_digits_mlp': 8, 'image_classification': 4,
-         'word2vec': 8}
+         'word2vec': 8, 'sentiment_conv': 4, 'sentiment_lstm': 4}
 
 
 @pytest.fixture(autouse=True)
@@ -67,11 +72,44 @@ def _empty_data_homes(tmp_path, monkeypatch):
 
 
 # ---- the books with paddle_tpu's layers ------------------------------------------
-def _jax_book(name, conv=(20, 50), hidden=None, depth=32, embed=32):
+def _jax_sentiment(name, emb_dim, hid_dim):
+    """book/test_understand_sentiment.py's two nets, dense tables."""
+    L, nets = fluid.layers, fluid.nets
+    dict_dim = len(jpaddle.dataset.imdb.word_dict())
+    data = L.data(name='words', shape=[1], dtype='int64', lod_level=1)
+    label = L.data(name='label', shape=[1], dtype='int64')
+    emb = L.embedding(input=data, size=[dict_dim, emb_dim], is_sparse=False)
+    if name == 'sentiment_conv':
+        convs = [nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
+                                         filter_size=k, act='tanh',
+                                         pool_type='sqrt') for k in (3, 4)]
+        pred = L.fc(input=convs, size=2, act='softmax')
+    else:
+        fc1 = L.fc(input=emb, size=hid_dim)
+        lstm1, _ = L.dynamic_lstm(input=fc1, size=hid_dim)
+        inputs = [fc1, lstm1]
+        for i in range(2, 4):
+            fc = L.fc(input=inputs, size=hid_dim)
+            lstm, _ = L.dynamic_lstm(input=fc, size=hid_dim,
+                                     is_reverse=(i % 2) == 0)
+            inputs = [fc, lstm]
+        pred = L.fc(input=[L.sequence_pool(input=inputs[0], pool_type='max'),
+                           L.sequence_pool(input=inputs[1],
+                                           pool_type='max')],
+                    size=2, act='softmax')
+    loss = L.mean(L.cross_entropy(input=pred, label=label))
+    acc = L.accuracy(input=pred, label=label)
+    return [data, label], pred, loss, acc, fluid.optimizer.Adagrad(0.002)
+
+
+def _jax_book(name, conv=(20, 50), hidden=None, depth=32, embed=32,
+              **sentiment):
     """The same networks as paddle_tpu_torch.models.books, op for op:
     (feeds, prediction, loss, accuracy, optimizer)."""
     L, nets = fluid.layers, fluid.nets
     acc = None
+    if name.startswith('sentiment'):
+        return _jax_sentiment(name, **sentiment)
     if name == 'fit_a_line':
         x = L.data(name='x', shape=[13], dtype='float32')
         pred = L.fc(input=x, size=1, act=None)
@@ -143,6 +181,9 @@ def _jax_reader(name, bs):
         return jpaddle.batch(r.shuffle(ds.mnist.train(), 500), bs)
     if name == 'image_classification':
         return jpaddle.batch(r.shuffle(ds.cifar.train10(), 1280), bs)
+    if name.startswith('sentiment'):
+        return jpaddle.batch(r.shuffle(ds.imdb.train(ds.imdb.word_dict()),
+                                       1000), bs)
     return jpaddle.batch(ds.imikolov.train(ds.imikolov.build_dict(), 5), bs)
 
 
@@ -255,7 +296,7 @@ def test_saved_model_serves_like_jax_inferencer(name, tmp_path):
     package's startup's, trained one step by the JAX package)."""
     pair = BookPair(name)
     (jb,), _ = pair.batches(1, seed=3)
-    j_feeder, _ = pair.feeders()
+    j_feeder, t_feeder = pair.feeders()
     pair.j_exe.run(pair.j_main, feed=j_feeder.feed(jb),
                    fetch_list=pair.j_fetch[:1], scope=pair.j_scope)
     params = {n: np.asarray(pair.j_scope.raw(n)) for n in pair.state}
@@ -270,16 +311,18 @@ def test_saved_model_serves_like_jax_inferencer(name, tmp_path):
     pt_io.save_inference_model(t_dir, feed_names, [pair.book.prediction],
                                pair.t_exe, main_program=pair.t_main,
                                scope=pair.t_scope)
-    (qb,), _ = pair.batches(1, seed=5)
+    (qb,), (tqb,) = pair.batches(1, seed=5)
     feed = {n: v for n, v in j_feeder.feed(qb[:5]).items()
             if n in feed_names}
+    t_feed = {n: v for n, v in t_feeder.feed(tqb[:5]).items()
+              if n in feed_names}
     inferencer = fluid.Inferencer(
         lambda: _jax_infer(name, **WIDTHS[name]), param_path=j_dir,
         place=fluid.CPUPlace())
     ref, = inferencer.infer(feed)
     with pt.serving.ModelServer(pt.CPUPlace(), max_batch_size=8) as server:
         server.load_model(name, t_dir)
-        got, = server.infer(name, feed)
+        got, = server.infer(name, t_feed)
     assert got.shape == np.asarray(ref).shape
     np.testing.assert_allclose(got, np.asarray(ref), **SERVE_TOL)
 
@@ -400,7 +443,9 @@ def test_retry_reader_resumes_like_jax():
                                     ('cifar.train100', 40),
                                     ('imikolov.train', 200),
                                     ('wmt14.train', 100),
-                                    ('wmt14.test', 100)])
+                                    ('wmt14.test', 100),
+                                    ('imdb.train', 100),
+                                    ('imdb.test', 100)])
 def test_synthetic_datasets_match_jax_sample_for_sample(name, n):
     mod, fn = name.split('.')
     args = (30000,) if mod == 'wmt14' else ()
@@ -409,6 +454,10 @@ def test_synthetic_datasets_match_jax_sample_for_sample(name, n):
             jpaddle.dataset.wmt14.get_dict(30)
         assert pt.dataset.wmt14.get_dict(30, reverse=True) == \
             jpaddle.dataset.wmt14.get_dict(30, reverse=True)
+    if mod == 'imdb':
+        d = pt.dataset.imdb.word_dict()
+        assert d == jpaddle.dataset.imdb.word_dict()
+        args = (d,)
     if mod == 'imikolov':
         d = pt.dataset.imikolov.build_dict()
         assert d == jpaddle.dataset.imikolov.build_dict()

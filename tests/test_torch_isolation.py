@@ -5,7 +5,10 @@ and trains mnist through its static analysis, takes a fit_a_line
 step through its fluid namespace, readers, dataset and DataFeeder,
 runs a While and an Adagrad step through a DynamicRNN, serves through
 a Router with its telemetry endpoint scraped, decodes through slotted,
-paged and disaggregated engines, or runs the analyzer's command line),
+paged and disaggregated engines, runs the analyzer's command line, or
+trains with the new optimizers under a learning-rate schedule, weight
+normalisation, MSRA, Bilinear and host-drawn initializers, averages the
+model, and trains and serves book 06 on imdb's synthetic reviews),
 its only ``http.server`` import is in ``observability/telemetry.py``,
 and its entry points default to the card."""
 import ast
@@ -203,6 +206,52 @@ got = paged.submit(init_states=r['states'], init_pages=r['pages'],
                    max_new_tokens=4).result(timeout=60)
 assert ([r['next_id']] + list(got) == list(want[1:])), (r, got, want)
 paged.close()
+from paddle_tpu_torch import initializer as I
+for make_opt in (lambda: pt.optimizer.Adamax(L.noam_decay(16, 4)),
+                 lambda: pt.optimizer.RMSProp(
+                     L.piecewise_decay([2], [0.1, 0.01])),
+                 lambda: pt.optimizer.Ftrl(L.exponential_decay(0.1, 2, 0.5))):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = L.data(name='x', shape=[4], dtype='float32')
+        with I.init_on_cpu():
+            h = L.fc(input=x, size=4, param_attr=pt.ParamAttr(
+                initializer=I.MSRA()))
+        h = L.fc(input=h, size=3, param_attr=pt.WeightNormParamAttr(dim=0))
+        b = L.create_parameter(shape=[1, 1, 4, 4], dtype='float32',
+                               default_initializer=I.Bilinear())
+        loss = L.mean(h * 2.0 - 1) + L.mean(b) + L.mean(
+            L.uniform_random_batch_size_like(input=x, shape=[-1, 3]))
+        make_opt().minimize(loss)
+    avg = pt.optimizer.ModelAverage(max_average_window=4)
+    exe.run(startup, scope=scope)
+    for _ in range(2):
+        out, = exe.run(main, feed={'x': np.ones((2, 4), 'float32')},
+                       fetch_list=[loss], scope=scope)
+        with pt.program_guard(main, startup):
+            avg.update(scope)
+    assert np.isfinite(out).all()
+    with pt.scope_guard(scope), pt.program_guard(main, startup):
+        with avg.apply():
+            pass
+    assert np.isfinite(pt.fetch_var(b.name, scope)).all()
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    book = books.sentiment_conv(emb_dim=4, hid_dim=4)
+    books.train(book)
+feeder = paddle_tpu_torch.data_feeder.DataFeeder(
+    feed_list=book.feeds, place=pt.CPUPlace(), program=main)
+data = next(books.reader(book, 3)())
+exe.run(startup, scope=scope)
+out, = exe.run(main, feed=feeder.feed(data), fetch_list=[book.loss],
+               scope=scope)
+assert np.isfinite(out).all()
+with pt.serving.ModelServer(pt.CPUPlace(), max_batch_size=4) as server:
+    server.register_model('sentiment', pt.io.get_inference_program(
+        [book.prediction], main), ['words'], [book.prediction], scope)
+    served, = server.infer('sentiment',
+                           {'words': feeder.feed(data)['words']})
+assert served.shape == (3, 2)
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))
