@@ -285,7 +285,7 @@ non-zero) on failure:
    its inference form at batch 128 (f32 and bf16) and of both books'
    served buckets (a request padded to each bucket the server used, f32)
    held against its plain version and timed;
-17. machine translation: full width (dict 8000, emb 256, hid 512, with
+14a. machine translation: full width (dict 8000, emb 256, hid 512, with
    peepholes), batch 64 of 24 words a side, a few Momentum steps (ms a
    step; no cell launch);
 15b. the decode tier (after the control-flow phase 14b): DecodeEngine
@@ -331,6 +331,37 @@ non-zero) on failure:
    every answer bit-equal to a direct run padded to its bucket; each
    limit with two wrong controls that must fail it, the seconds of each
    sub-phase printed;
+17. sparse rows, calc_gradient, books 05 and 07 (``phase_sparse_and_books``,
+   constants SP_* at its head), each limit with two wrong controls that
+   must fail it: 17a, stacked_dynamic_lstm at phase 14's widths without
+   peepholes (the lstm_cell kernel) with its table is_sparse=True under
+   set_sparse_fallback_threshold(0), f32 (TF32 and AMP off), 3 steps
+   under each of SGD, Adagrad and Adam: every parameter, accumulator and
+   loss card against CPU at batch 16 (max(1e-4, 3x the CPU against
+   itself on a nudged table)); at batch 256 the sparse table against the
+   dense path's (SGD and Adagrad after 3 steps, Adam after 1, 1e-5 of
+   its scale; controls: a step short, a merge that drops duplicates),
+   lazy Adam's untouched rows bit-equal to the initial table and the
+   rows the last batch left out bit-equal to the step before (control:
+   the dense path's), exactly 288 lstm_cell launches a step; 17b,
+   word2vec at book 04's widths at dict 2^20 (a table of 2^25 elements,
+   the threshold, so sparse without an override) against the dense path
+   under SGD and Adam: ms a step, the table's update op's device ms,
+   peak memory, a profile by kind; 17c, calc_gradient: the flagship's
+   loss against its embedded tokens at batch 2 (the kernels against the
+   plain attention, relative L2; two wrong backwards fail; 12 flash
+   forwards, the forward before the marker and its replay, and 6 merged
+   backwards), mnist's loss against its images through the fused conv
+   card against CPU (4 launches), and a gradient penalty on an MLP
+   against its closed form in f64, the CPU, and trained 3 SGD steps
+   through both markers; 17d, books 05 (recommender_system) and 07
+   (label_semantic_roles) at the scripts' widths, 3 steps card against
+   CPU on the synthetic datasets (book 07's Viterbi paths parting only
+   at near-ties, its ChunkEvaluator counts equal), a profiled step's
+   busy share, then saved, loaded and served through
+   ModelServer(CUDAPlace(0)) as batches of sequences (book 05 its
+   rating, book 07 its crf_decoding path from books.srl_decode), every
+   answer bit-equal to a direct run padded to its bucket;
 18. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
@@ -4685,13 +4716,15 @@ def phase_books(seed, card, art_dir):
 
 # ---- the sequence path ------------------------------------------------------------
 def stacked_dynamic_lstm(pkg, dict_size=10000, emb_dim=512, hid_dim=512,
-                         stacked_num=3, use_peepholes=True):
+                         stacked_num=3, use_peepholes=True, is_sparse=False):
     """benchmark/fluid/models.py:70-104 line for line, with the LSTMs'
-    use_peepholes as an argument. Returns (loss, prediction)."""
+    use_peepholes and the table's is_sparse as arguments. Returns (loss,
+    prediction)."""
     layers = pkg.layers
     data = layers.data(name='data', shape=[1], dtype='int64', lod_level=1)
     label = layers.data(name='label', shape=[1], dtype='int64')
-    emb = layers.embedding(input=data, size=[dict_size, emb_dim])
+    emb = layers.embedding(input=data, size=[dict_size, emb_dim],
+                           is_sparse=is_sparse)
     fc1 = layers.fc(input=emb, size=hid_dim * 4)
     lstm1, _ = layers.dynamic_lstm(input=fc1, size=hid_dim * 4,
                                    use_peepholes=use_peepholes)
@@ -8079,6 +8112,848 @@ def phase_front_end(seed, card, art_dir, flagship_ms=None):
     return total
 
 
+# ---- phase 17: sparse rows, calc_gradient, books 05 and 07 ------------------------
+# 17a: stacked_dynamic_lstm (phase 13's widths, use_peepholes=False, the
+# lstm_cell kernel path) with its table is_sparse=True under
+# set_sparse_fallback_threshold(0), SP_STEPS steps each under SGD,
+# Adagrad and Adam, f32 (TF32 and AMP off)
+SP_BATCH = LSTM_BATCH                  # 256 sequences of LSTM_WORDS words
+SP_CPU_BATCH = 16                      # the card against the CPU here
+SP_STEPS = 3
+# rates at which 3 steps stay stable: Adagrad and Adam move every weight
+# by about the rate on their first step, and Adagrad(0.01) sent this
+# model's loss from 0.69 to 9.21 in 3 steps
+SP_OPTS = (('SGD', 0.01), ('Adagrad', 1e-4), ('Adam', 1e-4))
+SP_TOL = 1e-4                          # card vs CPU: max(SP_TOL, 3x witness)
+SP_WITNESS_FACTOR = 3.0
+SP_WITNESS_SCALES = tuple(np.float32(1 + e) for e in (2.0 ** -22,
+                                                      -2.0 ** -22))
+SP_DENSE_TOL = 1e-5                    # a sparse step against the dense
+                                       # one from the same state, of the
+                                       # table's largest magnitude (the
+                                       # duplicate ids summed in another
+                                       # order); run free, the steps after
+                                       # the first part further: the LSTM
+                                       # amplifies the rounding of each
+# 17b: word2vec at book 04's widths at dict 2^20: a 2^20 x 32 table is
+# 2^25 elements, the threshold itself, so is_sparse=True stays sparse
+SP_W2V_DICT = 1 << 20
+SP_W2V_WARMUP, SP_W2V_STEPS = 2, 5
+# 17c: calc_gradient
+SP_GRAD_BATCH = GRAD_BATCH             # the flagship's input gradient
+SP_MNIST_BATCH = BENCH_BATCH
+SP_GP = dict(inputs=64, hidden=128, batch=32, lam=0.5, lr=0.05, steps=3)
+SP_GRAD_TOL = 1e-4                     # f32 card vs CPU, of the scale
+SP_CLOSED_TOL = 1e-5                   # the penalty's gradient vs f64
+# 17d: books 05 and 07 at the scripts' widths
+SP_BOOK_STEPS = 3
+SP_BOOK_TOL = 1e-4                     # f32 card vs CPU, of the scale
+SP_TIE = 1e-5                          # a Viterbi parting is excused only
+                                       # where the two paths' CPU scores
+                                       # lie within this of their scale
+SP_SERVE_REPS = 3
+
+
+def _sp_lstm_program(seed, opt_name, lr, sparse):
+    """stacked_dynamic_lstm (no peepholes) under ``opt_name``; its table
+    sparse (the threshold set to 0 while it is built) or dense."""
+    import paddle_tpu_torch as pt
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    prev = pt.layers.nn.set_sparse_fallback_threshold(0)
+    try:
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            loss, _ = stacked_dynamic_lstm(pt, use_peepholes=False,
+                                           is_sparse=sparse, **LSTM)
+            getattr(pt.optimizer, opt_name)(learning_rate=lr).minimize(loss)
+    finally:
+        pt.layers.nn.set_sparse_fallback_threshold(prev)
+    marker = [op for op in main.global_block().ops
+              if op.type == 'backward_marker'][0]
+    check(bool(marker.attrs['sparse']) is sparse, '17a: the sparse record '
+          'is %s' % marker.attrs['sparse'])
+    return main, startup, loss
+
+
+def _sp_run(main, loss, place, state, feeds, table='embedding_0.w_0',
+            states=None):
+    """The steps from ``state``: (losses, the table after each step,
+    every persistable at the end, ms a step after the first). With a
+    list ``states``, the scope's state after each step is appended to
+    it."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    exe, scope = pt.Executor(place), pt.Scope()
+    pt_io.params_from_numpy(scope, state, place)
+    losses, tables, times = [], [], []
+    for f in feeds:
+        t0 = time.perf_counter()
+        losses.append(exe.run(main, feed=f, fetch_list=[loss],
+                              scope=scope)[0])
+        times.append(time.perf_counter() - t0)
+        tables.append(pt.fetch_var(table, scope))
+        if states is not None:
+            states.append(_book_state(scope))
+    if place.torch_device().type == 'cuda':
+        torch.cuda.synchronize()
+    out = {n: pt.fetch_var(n, scope) for n in sorted(
+        v.name for v in main.list_vars() if v.persistable)
+        if scope.raw(n) is not None}
+    out.update(('loss %d' % i, l) for i, l in enumerate(losses))
+    return losses, tables, out, (1e3 * float(np.mean(times[1:]))
+                                 if len(times) > 1 else None)
+
+
+def _merge_drops_duplicates(rows, ids):
+    """The 17a control: one row kept per distinct id, the others dropped
+    instead of summed."""
+    import torch
+    uids, inv = torch.unique(ids, return_inverse=True)
+    first = torch.full((uids.shape[0],), rows.shape[0], dtype=torch.long,
+                       device=ids.device)
+    first.scatter_reduce_(0, inv, torch.arange(ids.shape[0],
+                                               device=ids.device), 'amin')
+    return rows[first], uids
+
+
+def _sgd_drops_duplicates(ctx):
+    """The 17a control for SGD: one row kept per distinct id and
+    written, instead of every row added."""
+    from paddle_tpu_torch.core.lowering import SparseRows
+    from paddle_tpu_torch.ops import optim_ops
+    p, g = ctx.input('Param'), ctx.input('Grad')
+    if not isinstance(g, SparseRows):
+        return optim_ops._sgd(ctx)
+    agg, uids = _merge_drops_duplicates(*optim_ops._all_rows(g,
+                                                             p.shape[1]))
+    sel = uids.clamp(0, g.vocab - 1)
+    ctx.set_output('ParamOut', optim_ops._scatter(
+        p, uids, p[sel] - ctx.input('LearningRate').reshape(()) * agg,
+        add=False))
+
+
+@contextlib.contextmanager
+def _duplicates_dropped(opt_name):
+    """Run the sparse updates with duplicate ids dropped (the 17a
+    controls): SGD's scatter, or Adagrad's and Adam's merge."""
+    from paddle_tpu_torch.ops import optim_ops
+    if opt_name == 'SGD':
+        with _kernel_swapped('sgd', _sgd_drops_duplicates):
+            yield
+        return
+    merge = optim_ops._merge_rows
+    optim_ops._merge_rows = _merge_drops_duplicates
+    try:
+        yield
+    finally:
+        optim_ops._merge_rows = merge
+
+
+@contextlib.contextmanager
+def _rows_one_id_off():
+    """Run the sparse updates with every row written one id further on
+    (the 17a control of a scatter's index)."""
+    from paddle_tpu_torch.ops import optim_ops
+    scatter = optim_ops._scatter
+    optim_ops._scatter = lambda p, ids, vals, add: scatter(
+        p, (ids + 1) % p.shape[0], vals, add)
+    try:
+        yield
+    finally:
+        optim_ops._scatter = scatter
+
+
+def _sp_table_reading(got, ref):
+    return float(np.abs(got.astype('float64') - ref).max() /
+                 max(np.abs(ref).max(), 1e-30))
+
+
+def _sp_lstm(seed, card):
+    """17a. Returns the lstm_cell launches of the sparse runs."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    feeds = [_lstm_feed([LSTM_WORDS] * SP_BATCH, seed + 171 + i)
+             for i in range(SP_STEPS)]
+    cpu_feeds = [_lstm_feed([LSTM_WORDS] * SP_CPU_BATCH, seed + 181 + i)
+                 for i in range(SP_STEPS)]
+    touched = [np.unique(np.asarray(f['data'].data)) for f in feeds]
+    untouched = np.setdiff1d(np.arange(LSTM['dict_size']),
+                             np.concatenate(touched))
+    resting = np.setdiff1d(np.concatenate(touched[:-1]), touched[-1])
+    launches = 0
+    for opt_name, lr in SP_OPTS:
+        main, startup, loss = _sp_lstm_program(seed, opt_name, lr, True)
+        d_main, _, d_loss = _sp_lstm_program(seed, opt_name, lr, False)
+        state = _startup_state(startup)
+        table0 = state['embedding_0.w_0']
+        # the card against the CPU, at SP_CPU_BATCH
+        ref = _sp_run(main, loss, pt.CPUPlace(), state, cpu_feeds)[2]
+        witness = 0.0
+        for scale in SP_WITNESS_SCALES:
+            nudged = dict(state, **{'embedding_0.w_0': table0 * scale})
+            witness = max(witness, max(_fe_reading(_sp_run(
+                main, loss, pt.CPUPlace(), nudged, cpu_feeds)[2],
+                ref).values()))
+        limit = max(SP_TOL, SP_WITNESS_FACTOR * witness)
+        got = _sp_run(main, loss, pt.CUDAPlace(0), state, cpu_feeds)[2]
+        readings = _fe_reading(got, ref)
+        worst = max(readings, key=readings.get)
+        late = _fe_reading(_sp_run(main, loss, pt.CUDAPlace(0), state,
+                                   cpu_feeds[1:] + cpu_feeds[:1])[2], ref)
+        ctl_late = max(late.values())
+        # sparse against dense on the card, at SP_BATCH
+        ck.reset_launch_counts()
+        s_losses, s_tables, _, s_ms = _sp_run(main, loss, pt.CUDAPlace(0),
+                                              state, feeds)
+        run_launches = dict(ck.LAUNCHES)
+        launches += run_launches['lstm_cell']
+        d_states = [state]
+        d_losses, d_tables, _, d_ms = _sp_run(d_main, d_loss,
+                                              pt.CUDAPlace(0), state, feeds,
+                                              states=d_states)
+        pending = []
+
+        def later(cond, msg):
+            pending.append((cond, msg))
+
+        # each step from the dense path's state before it: the same
+        # forward, the duplicate ids summed in another order (Adam's
+        # lazy rows part from the dense path after its first step)
+        steps = range(SP_STEPS if opt_name != 'Adam' else 1)
+
+        def one_step(k):
+            return _sp_run(main, loss, pt.CUDAPlace(0), d_states[k],
+                           feeds[k:k + 1])[1][0]
+        stepped = [one_step(k) for k in steps]
+        with _duplicates_dropped(opt_name):
+            dropped = [one_step(k) for k in steps]
+        with _rows_one_id_off():
+            off = [one_step(k) for k in steps]
+        step_read = [_sp_table_reading(g, d_tables[k])
+                     for k, g in zip(steps, stepped)]
+        ctl = [('a step short', [_sp_table_reading(
+                    d_states[k]['embedding_0.w_0'], d_tables[k])
+                    for k in steps]),
+               ('duplicates dropped', [_sp_table_reading(g, d_tables[k])
+                                       for k, g in zip(steps, dropped)]),
+               ('the rows written one id off', [
+                   _sp_table_reading(g, d_tables[k])
+                   for k, g in zip(steps, off)])]
+        gate = 'each step\'s sparse table from the dense path\'s state '\
+            'before it, against the dense step: %s (limit %g; controls, '\
+            'the smallest of the steps: %s); run free from the start, '\
+            'the sparse table against the dense one after each step %s, '\
+            'the table\'s largest magnitude %.4g' % (
+                ', '.join('%.3g' % r for r in step_read), SP_DENSE_TOL,
+                ', '.join('%s %.3g' % (n, min(v)) for n, v in ctl),
+                ', '.join('%.3g' % _sp_table_reading(a, b)
+                          for a, b in zip(s_tables, d_tables)),
+                np.abs(table0).max())
+        later(max(step_read) <= SP_DENSE_TOL, '17a %s: a sparse step '
+              'differs from the dense one by %g' % (opt_name,
+                                                    max(step_read)))
+        later(all(min(v) > SP_DENSE_TOL for _, v in ctl), '17a %s: the '
+              'limit does not catch its controls %s' % (opt_name, ctl))
+        if opt_name == 'Adam':
+            still = np.array_equal(s_tables[-1][untouched],
+                                   table0[untouched])
+            rest = np.array_equal(s_tables[-1][resting],
+                                  s_tables[-2][resting])
+            ctl_dense = np.array_equal(d_tables[-1][resting],
+                                       d_tables[-2][resting])
+            ctl_still = np.array_equal(s_tables[-1][resting],
+                                       table0[resting])
+            gate += '; after step %d the %d rows no batch touched ' \
+                'bit-equal to the initial table: %s (control: the rows the '\
+                'last batch left out, must not be: %s); those %d rows '\
+                'bit-equal to step %d\'s: %s (control: the dense path\'s, '\
+                'must not be: %s)' % (SP_STEPS, len(untouched), still,
+                                      ctl_still, len(resting), SP_STEPS - 1,
+                                      rest, ctl_dense)
+            later(len(untouched) > 0 and len(resting) > 0 and still and
+                  rest, '17a Adam: lazy rows moved')
+            later(not ctl_dense and not ctl_still, '17a Adam: the lazy '
+                  'rows\' gates do not catch their controls')
+        print('sparse 17a: stacked_dynamic_lstm %s, table is_sparse=True, '
+              '%s, f32 (TF32 and AMP off): card against CPU at batch %d, '
+              '%d tensors (parameters, accumulators, losses), worst %.3g '
+              '(%s; limit %.3g: max(%g, %g x the witness, the CPU against '
+              'itself on the table moved by +-2^-22: %.3g); control: the '
+              'card a batch late %.3g, must fail); at batch %d: %.2f ms a '
+              'step sparse, %.2f dense (host clock); losses %s sparse, %s '
+              'dense; %s; lstm_cell launches %d (expected %d); %s' % (
+                  LSTM, '%s(%g)' % (opt_name, lr), SP_CPU_BATCH,
+                  len(readings), readings[worst], worst, limit, SP_TOL,
+                  SP_WITNESS_FACTOR, witness, ctl_late, SP_BATCH, s_ms, d_ms,
+                  ', '.join('%.5f' % float(np.ravel(l)[0])
+                            for l in s_losses),
+                  ', '.join('%.5f' % float(np.ravel(l)[0])
+                            for l in d_losses), gate,
+                  run_launches['lstm_cell'], LSTM_LAUNCHES * SP_STEPS,
+                  card), flush=True)
+        for cond, msg in pending:
+            check(cond, msg)
+        check(readings[worst] <= limit, '17a %s: the card differs from the '
+              'CPU by %g (%s)' % (opt_name, readings[worst], worst))
+        check(ctl_late > limit, '17a %s: the CPU limit does not catch a '
+              'batch late' % opt_name)
+        expect = dict.fromkeys(run_launches, 0)
+        expect['lstm_cell'] = LSTM_LAUNCHES * SP_STEPS
+        check(run_launches == expect, '17a %s launches %s, expected %s'
+              % (opt_name, run_launches, expect))
+    print('sparse 17a: %.1f s' % (time.perf_counter() - t0), flush=True)
+    return launches
+
+
+def _sp_word2vec(seed, card):
+    """17b. word2vec at dict 2^20: the sparse path against the dense one
+    (the threshold above the table) under SGD and Adam."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import books
+    from torch.profiler import profile, ProfilerActivity, record_function
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 172)
+    feeds = [{n: rng.randint(0, SP_W2V_DICT, (32, 1)).astype('int64')
+              for n in ('firstw', 'secondw', 'thirdw', 'forthw', 'nextw')}
+             for _ in range(SP_W2V_WARMUP + SP_W2V_STEPS + 1)]
+    for opt_name in ('SGD', 'Adam'):
+        for sparse in (True, False):
+            prev = pt.layers.nn.set_sparse_fallback_threshold(
+                pt.layers.nn._SPARSE_MIN_TABLE_ELEMS[0] if sparse else
+                SP_W2V_DICT * 32 + 1)
+            try:
+                main, startup = pt.Program(), pt.Program()
+                startup.random_seed = seed
+                with pt.unique_name.guard(), pt.program_guard(main,
+                                                              startup):
+                    book = books.word2vec(dict_size=SP_W2V_DICT)
+                    getattr(pt.optimizer, opt_name)(
+                        learning_rate=0.001).minimize(book.loss)
+            finally:
+                pt.layers.nn.set_sparse_fallback_threshold(prev)
+            marker = [op for op in main.global_block().ops
+                      if op.type == 'backward_marker'][0]
+            check(bool(marker.attrs['sparse']) is sparse, '17b: the record '
+                  '%s' % marker.attrs['sparse'])
+            exe, scope = pt.Executor(), pt.Scope()
+            exe.run(startup, scope=scope)
+            update = getattr(pt.ops.optim_ops, '_' + opt_name.lower())
+            events = []
+
+            def timed_update(ctx):
+                # the table's update op alone: a profiler range and CUDA
+                # events around it
+                if ctx.op.inputs['Param'][0] != 'shared_w':
+                    return update(ctx)
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                with record_function('17b table update'):
+                    update(ctx)
+                ev[1].record()
+                events.append(ev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            with _kernel_swapped(opt_name.lower(), timed_update):
+                for i, f in enumerate(feeds[:-1]):
+                    t1 = time.perf_counter()
+                    losses.append(float(np.ravel(exe.run(
+                        main, feed=f, fetch_list=[book.loss],
+                        scope=scope)[0])[0]))
+                    if i >= SP_W2V_WARMUP:
+                        times.append(time.perf_counter() - t1)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                upd_ms = float(np.median([a.elapsed_time(b) for a, b in
+                                          events[SP_W2V_WARMUP:]]))
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    exe.run(main, feed=feeds[-1], fetch_list=[book.loss],
+                            scope=scope)
+                    torch.cuda.synchronize()
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.device_time for e in kernels) / 1e3
+            rng_ms = sum(getattr(e, 'device_time_total', 0.0)
+                         for e in prof.events()
+                         if e.name == '17b table update') / 1e3
+            by_kind = {}
+            for e in kernels:
+                k = _kernel_kind(e.name)
+                by_kind[k] = by_kind.get(k, 0.0) + e.device_time / 1e3
+            print('sparse 17b: word2vec (N 5, embedding 32, fc 256, the '
+                  'shared table looked up 4 times) at dict %d (table %d '
+                  'elements = %d MiB f32, threshold %d), batch 32, %s(0.001),'
+                  ' %s path: %.2f ms a step (host clock, median of %d), the '
+                  'table\'s update op %.4f ms on the card (CUDA events, '
+                  'median) and %.4f ms in the profile\'s range, a profiled '
+                  'step %.3f ms busy by kind %s; peak memory %.3f GiB; '
+                  'losses %s; %s' % (
+                      SP_W2V_DICT, SP_W2V_DICT * 32, SP_W2V_DICT * 32 * 4
+                      >> 20, pt.layers.nn._SPARSE_MIN_TABLE_ELEMS[0],
+                      opt_name, 'sparse' if sparse else 'dense',
+                      1e3 * float(np.median(times)), len(times), upd_ms,
+                      rng_ms, busy, ', '.join(
+                          '%s %.3f' % kv for kv in sorted(
+                              by_kind.items(), key=lambda kv: -kv[1])),
+                      peak, ', '.join('%.4f' % l for l in losses), card),
+                  flush=True)
+            check(np.isfinite(losses).all(), '17b: non-finite loss')
+            del exe, scope
+            torch.cuda.empty_cache()
+    print('sparse 17b: %.1f s' % (time.perf_counter() - t0), flush=True)
+
+
+def _sp_flagship_input_grad(seed, card):
+    """17c-i. The flagship's loss against its embedded tokens, kernels
+    against the plain attention on the card."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.fluid_transformer import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck, misc_ops
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = transformer(None, **FLAGSHIP)[0]
+        emb = [op for op in main.global_block().ops
+               if op.type == 'lookup_table'][0].outputs['Out'][0]
+        g, = pt.calc_gradient(loss, main.global_block().var(emb))
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _train_feed(SP_GRAD_BATCH, seed + 173)
+
+    def grad():
+        out, = exe.run(main, feed=feed, fetch_list=[g], scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        return {'emb@GRAD': out}
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    kernel = grad()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(ck.LAUNCHES)
+    with misc_ops.attention_for_testing():
+        plain = grad()
+    err = _rel_l2(kernel, plain)['emb@GRAD']
+    ctl = {}
+    for mode in ('dq dropped', 'dk/dv of the next head'):
+        with misc_ops.attention_for_testing(_wrong_backward(mode)):
+            ctl[mode] = _rel_l2(grad(), plain)['emb@GRAD']
+    n = FLAGSHIP['n_layers']
+    print('calc_gradient 17c: the flagship %s, batch %d, AMP: d loss / d '
+          'embedded tokens %s in %.2f ms (host clock, one run); kernels '
+          'against the plain attention (autograd backward), relative L2 '
+          '%.3g (limit %g; controls: %s, must fail); launches %s (the '
+          'forward runs once before the marker and again in its replay); '
+          '%s' % (FLAGSHIP, SP_GRAD_BATCH, tuple(kernel['emb@GRAD'].shape),
+                  ms, err, PLAIN_GRAD_TOL, ', '.join(
+                      '%s %.3g' % kv for kv in ctl.items()),
+                  {k: c for k, c in launches.items() if c}, card),
+          flush=True)
+    check(bool(torch.isfinite(kernel['emb@GRAD']).all()) and
+          float(kernel['emb@GRAD'].abs().max()) > 0, '17c: the flagship\'s '
+          'input gradient')
+    check(err <= PLAIN_GRAD_TOL, '17c: the flagship\'s input gradient '
+          'differs from the plain attention\'s by %g' % err)
+    check(all(c > PLAIN_GRAD_TOL for c in ctl.values()), '17c: the limit '
+          'does not catch a wrong backward: %s' % ctl)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attn_fwd=2 * n, flash_attn_bwd_dkvdq=n)
+    check(launches == expect, '17c launches %s, expected %s'
+          % (launches, expect))
+    del scope, exe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _sp_mnist_input_grad(seed, card):
+    """17c-ii. mnist's loss against its images through the fused conv,
+    card against CPU (f32, TF32 and AMP off)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    main, startup, loss, _ = _bench_program('mnist', seed, train=False)
+    with pt.program_guard(main, startup):
+        g, = pt.calc_gradient(loss, main.global_block().var('data'))
+    state = _startup_state(startup)
+    rng = np.random.RandomState(seed + 174)
+    feeds = [{'data': rng.randn(SP_MNIST_BATCH, 1, 28, 28).astype('float32'),
+              'label': rng.randint(0, 10, (SP_MNIST_BATCH, 1)).astype(
+                  'int64')} for _ in range(2)]
+
+    def run(place, st, f):
+        exe, scope = pt.Executor(place), pt.Scope()
+        pt_io.params_from_numpy(scope, st, place)
+        return exe.run(main, feed=f, fetch_list=[loss, g], scope=scope)
+    ck.reset_launch_counts()
+    passes.reset_fallback_counts()
+    got = run(pt.CUDAPlace(0), state, feeds[0])
+    launches = dict(ck.LAUNCHES)
+    variants = {v: c for v, c in ck.FUSED_CONV_VARIANT_LAUNCHES.items()
+                if c}
+    ref = run(pt.CPUPlace(), state, feeds[0])
+    reading = max(_fe_reading({'l': got[0], 'g': got[1]},
+                              {'l': ref[0], 'g': ref[1]}).values())
+    ctl_batch = _fe_reading({'g': got[1]}, {'g': run(
+        pt.CPUPlace(), state, feeds[1])[1]})['g']
+    moved = {n: v * np.float32(1.01) if v.dtype.kind == 'f' else v
+             for n, v in state.items()}
+    ctl_params = _fe_reading({'g': got[1]}, {'g': run(
+        pt.CPUPlace(), moved, feeds[0])[1]})['g']
+    print('calc_gradient 17c: mnist, batch %d, f32 (TF32 and AMP off): d '
+          'loss / d images %s card against CPU %.3g of the scale (limit %g; '
+          'controls: the next batch\'s images %.3g, the weights times 1.01 '
+          '%.3g, must fail); launches %s by variant %s (2 regions before '
+          'the marker and 2 in its replay), fallbacks %s; %s' % (
+              SP_MNIST_BATCH, got[1].shape, reading, SP_GRAD_TOL, ctl_batch,
+              ctl_params, {k: c for k, c in launches.items() if c},
+              variants, dict(passes.FALLBACKS), card), flush=True)
+    check(reading <= SP_GRAD_TOL, '17c: mnist\'s input gradient differs '
+          'from the CPU\'s by %g' % reading)
+    check(ctl_batch > SP_GRAD_TOL and ctl_params > SP_GRAD_TOL,
+          '17c: the mnist limit does not catch its controls')
+    expect = dict.fromkeys(launches, 0)
+    expect['fused_conv'] = 2 * BENCH_REGIONS['mnist']
+    check(launches == expect, '17c mnist launches %s, expected %s'
+          % (launches, expect))
+    check(not passes.FALLBACKS, '17c mnist fell back: %s'
+          % passes.FALLBACKS)
+    return launches
+
+
+def _sp_penalty_program(seed, train):
+    """An MLP x -> fc tanh -> fc 1 with its gradient against x (gp) and
+    the gradient of sum(gp^2) against x (gg); with ``train`` the loss
+    mean(out) + lam * mean(gp^2) under SGD."""
+    import paddle_tpu_torch as pt
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = L.data(name='x', shape=[SP_GP['inputs']], dtype='float32')
+        h = L.fc(input=x, size=SP_GP['hidden'], act='tanh')
+        out = L.fc(input=h, size=1)
+        gp, = pt.calc_gradient(L.reduce_sum(out), x)
+        pen = L.reduce_sum(L.square(gp))
+        gg, = pt.calc_gradient(pen, x)
+        fetch = [out, gp, gg]
+        if train:
+            loss = L.elementwise_add(L.mean(out), L.scale(
+                L.reduce_mean(L.square(gp)), scale=SP_GP['lam']))
+            pt.optimizer.SGD(learning_rate=SP_GP['lr']).minimize(loss)
+            fetch = [loss, gp] + ['%s@GRAD' % p.name for p in
+                                  main.global_block().all_parameters()]
+    return main, startup, fetch
+
+
+def _sp_closed_penalty(x, w1, b1, w2, wrong_sign=False):
+    """d sum(gp^2) / dx for f(x) = tanh(x W1 + b1) W2, in f64:
+    gp = (W2^T * (1 - t^2)) W1^T; with ``wrong_sign`` (the control) the
+    tanh's second derivative enters with the wrong sign."""
+    x, w1, b1, w2 = (np.asarray(a, 'float64') for a in (x, w1, b1, w2))
+    t = np.tanh(x @ w1 + b1)
+    u = w2[:, 0] * (1 - t ** 2)                       # [N, H]
+    gp = u @ w1.T                                     # [N, D]
+    du = 2 * gp @ w1                                  # d P / d u
+    dz = du * w2[:, 0] * (2 if wrong_sign else -2) * t * (1 - t ** 2)
+    return gp, dz @ w1.T
+
+
+def _sp_penalty(seed, card):
+    """17c-iii. A gradient penalty (grad-of-grad) on an MLP: against the
+    closed form and the CPU; then trained 3 SGD steps through the
+    markers, card against CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    rng = np.random.RandomState(seed + 175)
+    xs = [rng.randn(SP_GP['batch'], SP_GP['inputs']).astype('float32')
+          for _ in range(SP_GP['steps'])]
+    main, startup, fetch = _sp_penalty_program(seed, False)
+    state = _startup_state(startup)
+
+    def run(m, f, place, st, feeds):
+        exe, scope = pt.Executor(place), pt.Scope()
+        pt_io.params_from_numpy(scope, st, place)
+        return [exe.run(m, feed={'x': x}, fetch_list=f, scope=scope)
+                for x in feeds]
+    (out, gp, gg), = run(main, fetch, pt.CUDAPlace(0), state, xs[:1])
+    (_, c_gp, c_gg), = run(main, fetch, pt.CPUPlace(), state, xs[:1])
+    # fc_0's weight and bias, fc_1's weight, in creation order
+    w = [state[p.name] for p in main.global_block().all_parameters()][:3]
+    want_gp, want_gg = _sp_closed_penalty(xs[0], *w)
+    _, ctl_gg = _sp_closed_penalty(xs[0], *w, wrong_sign=True)
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a, 'float64') - b).max() /
+                     max(np.abs(b).max(), 1e-30))
+    closed = max(rel(gp, want_gp), rel(gg, want_gg))
+    ctl_closed = rel(gg, ctl_gg)
+    cpu = max(rel(gp, c_gp), rel(gg, c_gg))
+    ctl_cpu = rel(gg, run(main, fetch, pt.CPUPlace(), state, xs[1:2])[0][2])
+    t_main, t_startup, t_fetch = _sp_penalty_program(seed, True)
+    t_state = _startup_state(t_startup)
+    card_steps = run(t_main, t_fetch, pt.CUDAPlace(0), t_state, xs)
+    cpu_steps = run(t_main, t_fetch, pt.CPUPlace(), t_state, xs)
+    train = max(rel(a, b) for cs, ps in zip(card_steps, cpu_steps)
+                for a, b in zip(cs, ps))
+    ctl_train = max(rel(a, b) for cs, ps in zip(card_steps[1:],
+                                                cpu_steps[:-1])
+                    for a, b in zip(cs, ps))
+    print('calc_gradient 17c: a gradient penalty on an MLP (%d -> %d tanh '
+          '-> 1), batch %d, f32 (TF32 and AMP off): gp and d sum(gp^2) / dx '
+          'against the closed form in f64 %.3g (limit %g; control: the '
+          'tanh\'s curvature of the wrong sign %.3g, must fail), card against CPU %.3g '
+          '(limit %g; control: the next batch %.3g); %d SGD steps on '
+          'mean(out) + %g mean(gp^2) through both markers, loss, gp and '
+          'both weight gradients card against CPU %.3g (control: the CPU a '
+          'step late %.3g, must fail); losses %s; %s' % (
+              SP_GP['inputs'], SP_GP['hidden'], SP_GP['batch'], closed,
+              SP_CLOSED_TOL, ctl_closed, cpu, SP_GRAD_TOL, ctl_cpu,
+              SP_GP['steps'], SP_GP['lam'], train, ctl_train,
+              ', '.join('%.5f' % float(np.ravel(s[0])[0])
+                        for s in card_steps), card), flush=True)
+    check(closed <= SP_CLOSED_TOL and ctl_closed > SP_CLOSED_TOL,
+          '17c: the penalty against its closed form %g (control %g)'
+          % (closed, ctl_closed))
+    check(cpu <= SP_GRAD_TOL and ctl_cpu > SP_GRAD_TOL, '17c: the penalty '
+          'card against CPU %g (control %g)' % (cpu, ctl_cpu))
+    check(train <= SP_GRAD_TOL and ctl_train > SP_GRAD_TOL, '17c: penalty '
+          'training card against CPU %g (control %g)' % (train, ctl_train))
+
+
+def _sp_rows(v):
+    """A fetch as a list of rows: a sequence's with its padding cut."""
+    import paddle_tpu_torch as pt
+    if isinstance(v, pt.SequenceTensor):
+        data, lens = np.asarray(v.data), np.asarray(v.lengths)
+        return [data[b, :lens[b]] for b in range(len(lens))]
+    return list(np.asarray(v))
+
+
+def _sp_viterbi_score(em, trans, path):
+    """A path's score under the emissions [T, S] and the transitions."""
+    em, trans = np.asarray(em, 'float64'), np.asarray(trans, 'float64')
+    s = trans[0, path[0]] + trans[1, path[-1]] + sum(
+        em[t, p] for t, p in enumerate(path))
+    return s + sum(trans[2 + a, b] for a, b in zip(path[:-1], path[1:]))
+
+
+def _sp_book(name, seed, card, art_dir):
+    """17d, one book: SP_BOOK_STEPS steps card against CPU from one
+    state, then saved, loaded and served as sequences. Returns ms a step
+    and the busy share of a profiled step."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.models import books
+    from paddle_tpu_torch.serving.bucketing import pad_feed
+    main, startup, book = _book_program(name, seed)
+    state = _startup_state(startup)
+    srl = name == 'label_semantic_roles'
+    if srl:
+        state['emb'] = books.srl_embedding()
+        for v in book.evaluator.states:
+            state[v.name] = np.zeros([1], 'int64')
+    feeder = pt.DataFeeder(feed_list=book.feeds, place=pt.CPUPlace(),
+                           program=main)
+    batches = _book_batches(book, seed + 176)
+    rows = [next(batches) for _ in range(SP_BOOK_STEPS + 1)]
+    feeds = [feeder.feed(r) for r in rows]
+    fetch = [book.loss, book.prediction]
+    if srl:
+        # the transitions after each step's update, which its decoding
+        # read
+        fetch += [book.decode, 'crfw'] + list(book.evaluator.metrics)
+
+    def train(place, st, fs):
+        exe, scope = pt.Executor(place), pt.Scope()
+        pt_io.params_from_numpy(scope, st, place)
+        outs, times = [], []
+        for f in fs:
+            t0 = time.perf_counter()
+            outs.append(exe.run(main, feed=f, fetch_list=fetch,
+                                scope=scope))
+            times.append(time.perf_counter() - t0)
+        return exe, scope, outs, (1e3 * float(np.mean(times[1:]))
+                                  if len(times) > 1 else None)
+
+    def dense(v):
+        return np.asarray(v.to_dense_rows()) if isinstance(
+            v, pt.SequenceTensor) else np.asarray(v)
+
+    def reading(got, ref, upto):
+        return max(max(_fe_reading(
+            {i: dense(a) for i, a in enumerate(g[:upto])},
+            {i: dense(b) for i, b in enumerate(r[:upto])}).values())
+            for g, r in zip(got, ref))
+    exe, card_scope, card_out, ms = train(pt.CUDAPlace(0), state,
+                                          feeds[:SP_BOOK_STEPS])
+    trained = _book_state(card_scope)
+    prof_scope = pt.Scope()
+    pt_io.params_from_numpy(prof_scope, trained, pt.CUDAPlace(0))
+    _, busy_us = profile_run(
+        lambda: exe.run(main, feed=feeds[-1], fetch_list=fetch,
+                        scope=prof_scope), 'book %s step' % name, top=4)
+    _, cpu_scope, cpu_out, _ = train(pt.CPUPlace(), state,
+                                     feeds[:SP_BOOK_STEPS])
+    read = reading(card_out, cpu_out, 2)
+    ctl_late = reading(card_out[1:], cpu_out[:-1], 2)
+    ctl_untrained = reading(card_out[-1:], train(
+        pt.CPUPlace(), state, feeds[SP_BOOK_STEPS - 1:SP_BOOK_STEPS])[2], 2)
+    extra = ''
+    if srl:
+        # the Viterbi paths: a parting excused only at a near-tie of the
+        # two paths' scores under the CPU's emissions and transitions;
+        # the evaluator's counts then equal
+        parted, excused = 0, 0
+        for c, p in zip(card_out, cpu_out):
+            em = _sp_rows(p[1])
+            for e, a, r in zip(em, _sp_rows(c[2]), _sp_rows(p[2])):
+                if not np.array_equal(a, r):
+                    parted += 1
+                    sa = _sp_viterbi_score(e, p[3], a[:, 0])
+                    sr = _sp_viterbi_score(e, p[3], r[:, 0])
+                    excused += int(abs(sa - sr) <= SP_TIE * max(abs(sr),
+                                                                1.0))
+        counts = [int(np.ravel(pt.fetch_var(v.name, s))[0])
+                  for s in (card_scope, cpu_scope)
+                  for v in book.evaluator.states]
+        n_st = len(book.evaluator.states)
+        extra = '; Viterbi paths: %d sequences parted from the CPU\'s, %d '\
+            'of them at a near-tie (within %g); ChunkEvaluator counts '\
+            '(infer, label, correct) card %s, CPU %s' % (
+                parted, excused, SP_TIE, counts[:n_st], counts[n_st:])
+        check(parted == excused, '17d %s: %d Viterbi paths part from the '
+              'CPU\'s away from a tie' % (name, parted - excused))
+        check(parted or counts[:n_st] == counts[n_st:], '17d %s: the chunk '
+              'counts differ: %s' % (name, counts))
+    print('sparse 17d: book %s at the script\'s widths, batch %d, f32 (TF32 '
+          'and AMP off), %d steps: %.2f ms a step after the first (host '
+          'clock), a profiled step %.3f ms busy on the card; losses %s; the '
+          'loss and the prediction of each step card against CPU %.3g '
+          '(limit %g; controls: the CPU a step late %.3g, the last batch '
+          'from the parameters before training %.3g, must fail)%s; %s' % (
+              name, book.batch_size, SP_BOOK_STEPS, ms, busy_us / 1e3,
+              ', '.join('%.4f' % float(np.ravel(o[0])[0])
+                        for o in card_out), read, SP_BOOK_TOL, ctl_late,
+              ctl_untrained, extra, card), flush=True)
+    check(read <= SP_BOOK_TOL, '17d %s: the card differs from the CPU by %g'
+          % (name, read))
+    check(ctl_late > SP_BOOK_TOL and ctl_untrained > SP_BOOK_TOL,
+          '17d %s: the CPU limit does not catch its controls' % name)
+
+    # saved, loaded, served as sequences at buckets 1-32
+    d = os.path.join(art_dir, name)
+    names = [v.name for v in book.feeds if v.name not in
+             BOOK_LABELS + ('score', 'target')]
+    if srl:
+        prog = pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(prog, pt.Program()):
+            _, served = books.srl_decode()
+    else:
+        prog, served = main, book.prediction
+    pt_io.save_inference_model(d, names, [served], exe, main_program=prog,
+                               scope=card_scope)
+    load_scope = pt.Scope()
+    prog, _, fetch_vars = pt_io.load_inference_model(d, exe,
+                                                     scope=load_scope)
+    requests = _book_batches(book, 98, BOOK_SERVE_MAX)
+    samples, other = next(requests), next(requests)
+
+    def feed_of(rows_, r):
+        f = feeder.feed(rows_[:r])
+        return {n: f[n] for n in names}
+    server = pt.serving.ModelServer(pt.CUDAPlace(0),
+                                    max_batch_size=BOOK_SERVE_MAX)
+
+    def direct(rows_, r, b):
+        out = exe.run(prog, feed=pad_feed(feed_of(rows_, r), r, b,
+                                          server.policy.pad_mode),
+                      fetch_list=fetch_vars, scope=load_scope)[0]
+        return _sp_rows(out)[:r]
+    equal, ctl_other, n, p50 = 0, 0, 0, {}
+    try:
+        server.load_model(name, d)
+        for r in BOOK_REQUESTS:
+            b = server.policy.bucket_for(r)
+            ref = direct(samples, r, b)
+            times = []
+            for _ in range(SP_SERVE_REPS + 1):
+                t0 = time.perf_counter()
+                got, = server.infer(name, feed_of(samples, r))
+                times.append(time.perf_counter() - t0)
+                got = _sp_rows(got)
+                n += 1
+                equal += int(len(got) == len(ref) and all(
+                    np.array_equal(a, e) for a, e in zip(got, ref)))
+            p50[r] = 1e3 * float(np.median(times[1:]))
+            o = direct(other, r, b)
+            ctl_other += int(len(o) == len(got) and all(
+                np.array_equal(a, e) for a, e in zip(got, o)))
+        buckets = [server.policy.bucket_for(r) for r in BOOK_REQUESTS]
+    finally:
+        server.close()
+    print('sparse 17d: book %s served (%s) through ModelServer(CUDAPlace(0)),'
+          ' f32, requests of %s rows of sequences (buckets %s): p50 %s ms '
+          '(host clock, of %d each); %d of %d answers bit-equal to a direct '
+          'run padded to the bucket (control: the next requests\' rows, '
+          'bit-equal in %d of %d, must be 0)' % (
+              name, served.name, BOOK_REQUESTS, buckets, ', '.join(
+                  '%d rows %.2f' % kv for kv in sorted(p50.items())),
+              SP_SERVE_REPS, equal, n, ctl_other, len(BOOK_REQUESTS)),
+          flush=True)
+    check(equal == n, '17d %s: %d of %d served answers off a padded direct '
+          'run' % (name, n - equal, n))
+    check(ctl_other == 0, '17d %s: the serving control matched' % name)
+    del card_scope, load_scope, prof_scope, cpu_scope
+    torch.cuda.empty_cache()
+    return ms, busy_us / 1e3
+
+
+def phase_sparse_and_books(seed, card, art_dir):
+    """17. Sparse row gradients (17a: stacked_dynamic_lstm's table under
+    SGD, Adagrad and Adam; 17b: word2vec at the threshold), calc_gradient
+    (17c: through the flash kernels, the fused conv and a gradient
+    penalty), books 05 and 07 trained and served (17d). Returns the
+    kernel launches of its main paths: lstm_cell (17a's sparse runs),
+    the flash forward and merged backward (17c's flagship) and the fused
+    conv (17c's mnist)."""
+    import torch
+    from paddle_tpu_torch.core import amp
+    t_phase = time.perf_counter()
+    amp.set_amp(False)
+    try:
+        lstm = _sp_lstm(seed, card)
+        torch.cuda.empty_cache()
+        _sp_word2vec(seed, card)
+    finally:
+        amp.set_amp(None)
+    t0 = time.perf_counter()
+    launches = dict(_sp_flagship_input_grad(seed, card))
+    amp.set_amp(False)
+    try:
+        for n, c in _sp_mnist_input_grad(seed, card).items():
+            launches[n] += c
+        _sp_penalty(seed, card)
+        print('calc_gradient 17c: %.1f s' % (time.perf_counter() - t0),
+              flush=True)
+        t0 = time.perf_counter()
+        for name in ('recommender_system', 'label_semantic_roles'):
+            _sp_book(name, seed, card, art_dir)
+        print('sparse 17d: %.1f s' % (time.perf_counter() - t0),
+              flush=True)
+    finally:
+        amp.set_amp(None)
+    launches['lstm_cell'] += lstm
+    print('phase 17: %.1f s' % (time.perf_counter() - t_phase), flush=True)
+    return launches
+
+
 def sweep_conv_plans(card):
     """The wgmma conv's time at every (tile width, K splits) at ResNet-50's
     non-stem region shapes at batch 1, 8 and 32 (bf16, the folded batch
@@ -8501,6 +9376,9 @@ def run_phases(args, card, root):
         phase_decode(args.seed, card, d)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
         front = phase_front_end(args.seed, card, d, trained['ms'])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        sparse = phase_sparse_and_books(args.seed, card, d)
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests, the serving runtime's concurrent mix, untuned
@@ -8512,7 +9390,8 @@ def run_phases(args, card, root):
     # the serving runtime's concurrent mix, untuned and tuned, and the
     # fleet's mix; each also over phase 16's steps: the flagship's under
     # noam_decay, mnist's under each optimizer, ResNet-50's under
-    # piecewise_decay)
+    # piecewise_decay; and over phase 17's main paths: the flagship's
+    # and mnist's input gradients, the sparse LSTM's steps)
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -8528,12 +9407,12 @@ def run_phases(args, card, root):
         tuned_launches['flash_attn_fwd'] + fleet_launches['flash_attn_fwd'] +
         trained['launches']['flash_attn_fwd'] +
         long_trained['launches']['flash_attn_fwd'] +
-        front['flash_attn_fwd'], **main_shape)]
+        front['flash_attn_fwd'] + sparse['flash_attn_fwd'], **main_shape)]
     kernels.append(dict(
         name='flash_attn_bwd_dkvdq', route='cuda', source=bwd_src,
         replaces='paddle_tpu/ops/pallas_kernels.py:310',
         launches=trained['launches']['flash_attn_bwd_dkvdq'] +
-        front['flash_attn_bwd_dkvdq'],
+        front['flash_attn_bwd_dkvdq'] + sparse['flash_attn_bwd_dkvdq'],
         **train_shape['flash_attn_bwd_dkvdq']))
     for name, line in (('flash_attn_bwd_dq', 245),
                        ('flash_attn_bwd_dkv', 273)):
@@ -8563,7 +9442,8 @@ def run_phases(args, card, root):
         runtime_launches['fused_conv'] + tuned_launches['fused_conv'] +
         fleet_launches['fused_conv'] +
         sum(b['fused_conv'] for b, _ in bench.values()) +
-        book_launches['fused_conv'] + front['fused_conv'],
+        book_launches['fused_conv'] + front['fused_conv'] +
+        sparse['fused_conv'],
         bench_regions=bench_totals('fused_conv'),
         book_regions=book_regions('fused_conv'), **conv))
     # its stats form: launches over the timed ResNet-50, VGG-16 and
@@ -8586,7 +9466,7 @@ def run_phases(args, card, root):
         name='lstm_cell', route='cuda',
         source='paddle_tpu_torch/csrc/lstm_cell.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:633',
-        launches=lstm_launches['lstm_cell'],
+        launches=lstm_launches['lstm_cell'] + sparse['lstm_cell'],
         bf16=lstm[(LSTM_BATCH, LSTM['hid_dim'], 'bfloat16')],
         **lstm[(LSTM_BATCH, LSTM['hid_dim'], 'float32')]))
     print('smoke: %.1f s since the process started' % (

@@ -42,7 +42,13 @@ The data side of the Fluid books: ``DataFeeder`` (``data_feeder.py``),
 the reader decorators (``reader``, ``batch``) and the books' datasets
 (``dataset``: uci_housing, mnist, cifar, imikolov, wmt14, on files
 already in place or their deterministic synthetic fallbacks); ``fluid``
-is the fluid-compatible namespace.
+is the fluid-compatible namespace. Sparse tables
+(``embedding(is_sparse=True)``) train by their touched rows under SGD,
+Adagrad and Adam; ``calc_gradient`` / ``gradients`` give gradients of
+any targets for any inputs, differentiable again; the CRF family
+(``linear_chain_crf``, ``crf_decoding``, ``chunk_eval``, the
+``evaluator``'s ``ChunkEvaluator``) and ``cos_sim`` carry books 05 and
+07.
 
 Control flow (``While``, ``IfElse``, ``Switch``, ``StaticRNN``,
 ``DynamicRNN``, the tensor arrays) and beam search (static [B*K] and
@@ -80,12 +86,12 @@ from .executor import (Executor, Scope, global_scope, scope_guard,  # noqa
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa
 from .lod import (SequenceTensor, create_lod_tensor,  # noqa
                   create_random_int_lodtensor)
-from .backward import append_backward  # noqa
+from .backward import append_backward, calc_gradient, gradients  # noqa
 from . import analysis, nets, resilience, serving  # noqa
 from . import fleet, kvcache  # noqa
 from .inferencer import Inferencer  # noqa
 from .data_feeder import DataFeeder  # noqa
-from . import reader, dataset  # noqa
+from . import reader, dataset, evaluator  # noqa
 from .reader import batch  # noqa
 
 # the reference's LoDTensor; SequenceTensor carries its imperative

@@ -4,7 +4,8 @@ liveness, reachability (ANALYSIS.md "Dataflow model").
 Counterpart of paddle_tpu/analysis/dataflow.py. The read/write model is
 shared with the compiler passes: ``framework._op_reads`` /
 ``_op_writes`` (sub-block recursive; the JAX package keeps them in its
-lowering) plus the compiler's hidden reads (sparse-lookup ids) and one
+lowering) plus the compiler's hidden reads (the gradient markers'
+cotangent sources and the sparse-lookup ids) and one
 hidden WRITE set of our own —
 ``backward_marker`` defines every ``<param>@GRAD`` name through its
 ``grads`` attr, with no textual output slot. Any liveness-style

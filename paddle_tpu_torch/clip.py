@@ -125,7 +125,9 @@ def append_gradient_clip_ops(param_grad):
     create_op_callbacks = []
     for p, g in param_grad:
         clip_attr = getattr(p, 'gradient_clip_attr', None)
-        if clip_attr is None:
+        if clip_attr is None or getattr(p, 'sparse_grad', False):
+            # a sparse table's rows pass unclipped (the reference's clip
+            # ops take dense gradients only)
             clip_attr = NullGradientClipAttr()
         if not isinstance(clip_attr, BaseGradientClipAttr):
             raise TypeError("clip attribute should be an instance of "

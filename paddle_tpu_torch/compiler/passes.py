@@ -87,8 +87,11 @@ _ALWAYS_KEEP = frozenset({'feed', 'fetch'})
 # ---- helpers ---------------------------------------------------------------------
 def _hidden_reads(op):
     """Names consumed through attrs, invisible to ``_op_reads``: the
-    backward marker's sparse-lookup ids. Every liveness-style analysis
-    here treats them as reads."""
+    gradient markers' cotangent sources and the backward marker's
+    sparse-lookup ids. Every liveness-style analysis here treats them as
+    reads."""
+    if op.type == 'gradient_marker':
+        return [n for n in (op.attrs.get('target_grads') or ()) if n]
     if op.type == 'backward_marker':
         return [p[0] for pairs in (op.attrs.get('sparse') or {}).values()
                 for p in pairs]
@@ -1053,6 +1056,13 @@ class BufferReuse(Pass):
             # control-flow bodies re-read parent names per iteration;
             # a static last-read index over the flat op list would lie
             res.note = 'sub-blocks present; skipped'
+            return res
+        if any(op.type == 'gradient_marker'
+               for op in program.global_block().ops):
+            # calc_gradient's marker replays earlier ops from the
+            # environment: names a static liveness would call dead are
+            # still read by the replay
+            res.note = 'gradient_marker present; skipped'
             return res
         block = program.global_block()
         ops = block.ops

@@ -19,16 +19,44 @@ loss is differentiated with ``torch.autograd.grad`` (the counterpart of
 ``jax.value_and_grad``), the gradients are bound to ``<param>@GRAD``, and
 the ops after it (clips, regularizers, optimizer updates) run without
 autograd. A program without a marker runs entirely under
-``torch.no_grad()``.
+``torch.no_grad()``. A sparse table (``embedding(is_sparse=True)``)
+is not a leaf: each of its lookups adds a zero carrier leaf to its
+gathered rows, and the table's gradient is the carriers' gradients with
+their ids, a ``SparseRows``.
+
+``calc_gradient`` plants a ``gradient_marker``: its kernel replays the
+ops between its inputs and its targets with the inputs as fresh nodes,
+under autograd wherever it runs (a training forward, an update, a
+served program), and its gradients stay differentiable, so a later
+marker or the backward marker differentiates through them.
 """
 import torch
 
-from .registry import get_kernel
-from ..framework import Operator, convert_np_dtype
+from .registry import get_kernel, register_kernel
+from ..framework import Operator, _op_reads, _op_writes, convert_np_dtype
 from ..lod import SequenceTensor
 from ..ops.common import rewrap
 
 RNG_KEY = '__rng__'
+
+
+class SparseRows(object):
+    """A row-sparse gradient, the counterpart of the JAX package's
+    ``SparseRows`` (the reference's SelectedRows as a gradient carrier).
+    ``items``: one (rows [.., D], ids [..]) pair per lookup of the
+    table; duplicate ids are not merged here (SGD's ``index_add_``
+    sums them; Adagrad and Adam merge them across all lookups,
+    ops/optim_ops.py::_merge_rows)."""
+
+    __slots__ = ('items', 'vocab')
+
+    def __init__(self, items, vocab):
+        self.items = items
+        self.vocab = vocab
+
+    def __repr__(self):
+        return 'SparseRows(%d lookups, vocab=%d)' % (len(self.items),
+                                                     self.vocab)
 # the scope's host generator, drawn from by force_cpu random ops on every
 # device, so their values do not depend on the device
 RNG_CPU_KEY = '__rng_cpu__'
@@ -285,12 +313,6 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
     ops = list(block.ops)
     markers = [i for i, op in enumerate(ops)
                if op.type == 'backward_marker'][:1]
-    if markers and (ops[markers[0]].attrs.get('sparse') or {}):
-        raise NotImplementedError(
-            "sparse embedding gradients (embedding(is_sparse=True) on %s) "
-            "are not ported yet (ROADMAP Queue A, sparse rows); build the "
-            "table with is_sparse=False" %
-            sorted(ops[markers[0]].attrs['sparse']))
     if MERGE_SHARED_MULS[0] and not dynamic:
         if markers:
             pre = _merge_shared_muls(block, ops[:markers[0]])
@@ -339,17 +361,39 @@ def _detach(val):
     return val
 
 
+def _rows_of(ids_val):
+    """A lookup's ids as the carrier sees them: the (padded) id tensor
+    with a trailing axis of 1 dropped, and its shape."""
+    data = ids_val.data if isinstance(ids_val, SequenceTensor) else ids_val
+    shp = tuple(data.shape)
+    if shp and shp[-1] == 1:
+        shp = shp[:-1]
+    return data.reshape(shp), shp
+
+
 def _run_training(block, device, ops, marker_idx, env, keep, dynamic):
     """Forward under autograd, gradients of the summed loss into
     ``<param>@GRAD``, then the update ops without autograd. Counterpart
     of the marker branch of the JAX ``lower_block`` (lowering.py:674-766;
-    its remat and sparse-row paths are not ported). The forward also
-    keeps the loss and the parameters, which the marker reads."""
+    its remat path is not ported). The forward also keeps the loss, the
+    parameters and the sparse lookups' ids, which the marker reads.
+
+    A sparse table whose lookups' ids are all live before the forward
+    (feeds) is no leaf: each lookup gets a zero carrier leaf shaped like
+    its ids plus (D,), which ``lookup_table`` adds to its detached
+    gathered rows, and the table's gradient is a ``SparseRows`` of the
+    carriers' gradients (the loss scale applied) and the ids. A table
+    whose ids are made by the program takes the dense gradient."""
     marker = ops[marker_idx]
     param_names = list(marker.attrs['params'])
     grad_names = list(marker.attrs['grads'])
     loss_name = marker.inputs['Loss'][0]
-    gkeep = keep | {loss_name} | set(param_names)
+    sparse = marker.attrs.get('sparse') or {}
+    sparse_map = {w: pairs for w, pairs in sparse.items()
+                  if w in env and all(p[0] in env for p in pairs)}
+    diff_names = [p for p in param_names if p not in sparse_map]
+    gkeep = keep | {loss_name} | set(param_names) | {
+        p[0] for pairs in sparse.values() for p in pairs}
     if not param_names:
         # nothing to differentiate (only data reaches the loss): the
         # forward and the update ops run, as under jax.value_and_grad
@@ -362,22 +406,160 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic):
         return
     # each parameter is a fresh leaf over the Scope's storage; the
     # Scope's own tensor never has requires_grad flipped
-    leaves = [env[p].detach().requires_grad_() for p in param_names]
+    leaves = {p: env[p].detach().requires_grad_() for p in diff_names}
+    for w, pairs in sparse_map.items():
+        d = env[w].shape[1]
+        for ids_name, carrier in pairs:
+            _, shp = _rows_of(env[ids_name])
+            leaves[carrier] = torch.zeros(shp + (d,), dtype=env[w].dtype,
+                                          device=env[w].device,
+                                          requires_grad=True)
     with torch.enable_grad():
-        env.update(zip(param_names, leaves))
+        env.update(leaves)
         BlockRunner(block, device, grad_mode=True, keep=gkeep,
                     dynamic=dynamic).run_ops(ops[:marker_idx], env)
         loss = env[loss_name].sum()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()), allow_unused=True)))
     scale = marker.attrs.get('loss_scale', None)
-    for p, leaf, gname, g in zip(param_names, leaves, grad_names, grads):
-        env[p] = leaf.detach()
+    scaled = scale is not None and scale != 1.0
+    for p in diff_names:
+        env[p] = leaves[p].detach()
+    for p, gname in zip(param_names, grad_names):
+        if p in sparse_map:
+            items = []
+            for ids_name, carrier in sparse_map[p]:
+                env.pop(carrier, None)
+                rows = grads[carrier]
+                rows = torch.zeros_like(leaves[carrier]) if rows is None \
+                    else rows
+                if scaled:
+                    rows = rows * scale
+                items.append((rows, _rows_of(env[ids_name])[0]))
+            env[gname] = SparseRows(items, int(env[p].shape[0]))
+            continue
         # a parameter the loss does not reach gets zeros, as under
         # jax.value_and_grad
-        g = torch.zeros_like(leaf) if g is None else g
-        if scale is not None and scale != 1.0:
+        g = grads[p]
+        g = torch.zeros_like(env[p]) if g is None else g
+        if scaled:
             g = g * scale
         env[gname] = g
     with torch.no_grad():
         BlockRunner(block, device, keep=keep, dynamic=dynamic).run_ops(
             ops[marker_idx + 1:], env)
+
+
+# ---- calc_gradient's runtime ----------------------------------------------------
+def find_op_path(ops, input_names, target_names, no_grad):
+    """Ops both forward-reachable from ``input_names`` and
+    backward-reachable from ``target_names``; reachability cut at
+    ``no_grad``. Counterpart of the JAX package's ``find_op_path``
+    (parity: the reference's _find_op_path_,
+    python/paddle/fluid/backward.py:564). Returns (path_ops,
+    forward-reachable name set)."""
+    reachable = set(input_names)
+    fwd = [False] * len(ops)
+    for i, op in enumerate(ops):
+        if not input_names or any(n in reachable for n in _op_reads(op)):
+            fwd[i] = True
+            for n in _op_writes(op):
+                if n not in no_grad:
+                    reachable.add(n)
+    needed = set(target_names)
+    keep = [False] * len(ops)
+    for i in reversed(range(len(ops))):
+        if fwd[i] and any(n in needed for n in _op_writes(ops[i])):
+            keep[i] = True
+            for n in _op_reads(ops[i]):
+                if n not in no_grad:
+                    needed.add(n)
+    return [ops[i] for i in range(len(ops)) if keep[i]], reachable
+
+
+def _grad_node(val):
+    """A float tensor to differentiate against that stays joined to
+    ``val``'s own graph: a view when ``val`` needs a gradient already
+    (so a later differentiation reaches through it), else a fresh
+    leaf."""
+    if val.requires_grad:
+        return val.view_as(val)
+    return val.detach().requires_grad_()
+
+
+@register_kernel('gradient_marker')
+def _gradient_marker(ctx):
+    """calc_gradient's runtime (the JAX kernel, lowering.py:358-431).
+
+    The ops between the inputs and the targets (earlier gradient markers
+    included, the backward marker excluded) run again with each float
+    input as a fresh node; ``torch.autograd.grad`` with
+    ``create_graph=True`` gives the inputs' gradients for the targets'
+    cotangents (the given target_grads, ones where None). ``no_grad``
+    names are detached as they are produced. An integer input's
+    "gradient" is its own value and an input no target reaches gets
+    zeros, as JAX's float0 handling gives them. Autograd is opened here,
+    so the marker works in a served (no_grad) program too."""
+    op, env = ctx.op, ctx.env
+    block = ctx.runner.block
+    ops = list(block.ops)
+    idx = next(i for i, o in enumerate(ops) if o is op)
+    pre = [o for o in ops[:idx] if o.type != 'backward_marker']
+    input_names = list(op.inputs['Inputs'])
+    target_names = list(op.inputs['Targets'])
+    tgrad_names = list(op.attrs['target_grads'])
+    out_grads = list(op.outputs['OutGrads'])
+    no_grad = set(op.attrs.get('no_grad') or ())
+    path, _ = find_op_path(pre, set(input_names), set(target_names),
+                           no_grad)
+    with torch.enable_grad():
+        genv = dict(env)
+        nodes = {}
+        for n in input_names:
+            val = env[n]
+            data = val.data if isinstance(val, SequenceTensor) else val
+            if isinstance(data, torch.Tensor) and data.is_floating_point():
+                nodes[n] = _grad_node(data)
+                genv[n] = rewrap(val, nodes[n])
+        runner = BlockRunner(block, ctx.device, grad_mode=True,
+                             keep=frozenset(target_names),
+                             dynamic=ctx.runner.dynamic)
+        for o in path:
+            runner.run_ops([o], genv)
+            for n in o.output_arg_names:
+                if n in no_grad and n in genv:
+                    genv[n] = _detach_float(genv[n])
+        outs, cots = [], []
+        for t, tg in zip(target_names, tgrad_names):
+            out = genv[t].data if isinstance(genv[t], SequenceTensor) \
+                else genv[t]
+            if not (isinstance(out, torch.Tensor) and out.requires_grad):
+                continue    # no input reaches it: it adds nothing
+            outs.append(out)
+            if tg is None:
+                cots.append(torch.ones_like(out))
+            else:
+                cot = env[tg]
+                cots.append((cot.data if isinstance(cot, SequenceTensor)
+                             else cot).to(out.dtype))
+        wanted = list(nodes.values())
+        grads = torch.autograd.grad(outs, wanted, cots, create_graph=True,
+                                    allow_unused=True) \
+            if outs and wanted else [None] * len(wanted)
+    got = dict(zip(nodes, grads))
+    for n, gname in zip(input_names, out_grads):
+        val = env[n]
+        if n not in nodes:
+            env[gname] = val        # an integer input: carried as it is
+            continue
+        g = got[n]
+        if g is None:
+            g = torch.zeros_like(nodes[n])
+        env[gname] = rewrap(val, g)
+
+
+def _detach_float(val):
+    data = val.data if isinstance(val, SequenceTensor) else val
+    if isinstance(data, torch.Tensor) and data.is_floating_point():
+        return rewrap(val, data.detach())
+    return val

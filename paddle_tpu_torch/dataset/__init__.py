@@ -1,15 +1,17 @@
 """Datasets. Counterpart of paddle_tpu/dataset/__init__.py, trimmed to the
-books' datasets: uci_housing, mnist, cifar, imikolov, imdb and wmt14 (files
-already in place, or a deterministic synthetic fallback: see
-_synth.py)."""
+books' datasets: uci_housing, mnist, cifar, imikolov, imdb, wmt14,
+movielens and conll05 (files already in place, or a deterministic
+synthetic fallback: see _synth.py)."""
 from . import mnist  # noqa
 from . import uci_housing  # noqa
 from . import cifar  # noqa
 from . import imikolov  # noqa
 from . import wmt14  # noqa
 from . import imdb  # noqa
+from . import movielens  # noqa
+from . import conll05  # noqa
 from . import common  # noqa
 from ._synth import is_synthetic  # noqa
 
 __all__ = ['mnist', 'uci_housing', 'cifar', 'imikolov', 'imdb', 'wmt14',
-           'common', 'is_synthetic']
+           'movielens', 'conll05', 'common', 'is_synthetic']

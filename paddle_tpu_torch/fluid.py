@@ -6,7 +6,8 @@ Reference scripts do ``import paddle.fluid as fluid``; with the port:
 """
 from . import (framework, layers, initializer, regularizer, clip,  # noqa
                optimizer, backward, unique_name, io, nets, param_attr,
-               executor, compiler, resilience, serving, analysis, average)
+               executor, compiler, resilience, serving, analysis, average,
+               evaluator)
 from .framework import (Program, Block, Variable, Operator,  # noqa
                         default_startup_program, default_main_program,
                         program_guard, switch_startup_program,
@@ -14,7 +15,7 @@ from .framework import (Program, Block, Variable, Operator,  # noqa
 from .core.places import CPUPlace, CUDAPlace  # noqa
 from .executor import (Executor, Scope, global_scope, scope_guard,  # noqa
                        switch_scope, fetch_var)
-from .backward import append_backward  # noqa
+from .backward import append_backward, calc_gradient, gradients  # noqa
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa
 from .initializer import init_on_cpu  # noqa
 from .data_feeder import DataFeeder  # noqa

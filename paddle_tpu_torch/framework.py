@@ -248,6 +248,9 @@ class Block(object):
                              (name, self.idx))
         return v
 
+    def has_var(self, name):
+        return self._find_var_recursive(name) is not None
+
     def _find_var_recursive(self, name):
         blk = self
         while blk is not None:

@@ -197,6 +197,9 @@ class LayerHelper(object):
             outputs={'Out': [w_param]}, attrs={'axis': -1})
         return w_param
 
+    def get_parameter(self, name):
+        return self.main_program.global_block().var(name)
+
     def create_tmp_variable(self, dtype, stop_gradient=False, lod_level=None,
                             shape=None):
         return self.main_program.current_block().create_var(

@@ -7,6 +7,8 @@ loss layers of the op library. Same signatures and
 the same op types, attrs and variable names as paddle_tpu's layers, so
 a program built here matches one built there op for op.
 """
+import warnings
+
 from .. import unique_name
 from ..layer_helper import LayerHelper
 from ..initializer import Constant, Normal
@@ -27,7 +29,8 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'maxout', 'im2sequence', 'row_conv', 'sequence_conv',
            'sequence_reshape', 'lod_reset', 'beam_search',
            'beam_search_decode', 'sequence_concat',
-           'autoincreased_step_counter']
+           'autoincreased_step_counter', 'cos_sim', 'linear_chain_crf',
+           'crf_decoding', 'chunk_eval']
 
 
 def _prod(dims):
@@ -84,17 +87,32 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 
 # Tables below this many elements take the dense gradient even with
-# is_sparse=True, as in the JAX package (same threshold), so both build
-# the same program.
+# is_sparse=True, as in the JAX package (the same threshold and setter),
+# so both build the same program. The two paths give the same values up
+# to the order of sums, but that lazy Adam leaves the rows a step did not
+# touch where they were.
 _SPARSE_MIN_TABLE_ELEMS = [32 * 1024 * 1024]
+_SPARSE_FALLBACK_WARNED = [False]
+
+
+def set_sparse_fallback_threshold(n_elems):
+    """Set the table size (elements of [vocab, dim]) below which
+    is_sparse=True takes the dense gradient; returns the previous one.
+    0 always honors is_sparse=True."""
+    prev = _SPARSE_MIN_TABLE_ELEMS[0]
+    _SPARSE_MIN_TABLE_ELEMS[0] = int(n_elems)
+    return prev
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype='float32'):
-    """lookup_table op. ``is_sparse`` is recorded as the JAX package
-    records it (the table is marked ``sparse_grad`` and the op gets a
-    ``sparse_carrier``); training such a table raises in the lowering,
-    since sparse row gradients are not ported."""
+    """lookup_table op. With ``is_sparse`` (a table of at least
+    ``_SPARSE_MIN_TABLE_ELEMS`` elements) the table is marked
+    ``sparse_grad`` and the op gets a ``sparse_carrier``: the lowering
+    differentiates the gathered rows instead of the table, and SGD,
+    Adagrad and Adam update only the rows a step touched
+    (core/lowering.py, ``SparseRows``). A smaller table takes the dense
+    gradient, once-a-process warned, as in the JAX package."""
     helper = LayerHelper('embedding', param_attr=param_attr)
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype, is_bias=False)
@@ -108,6 +126,15 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     padding_idx = -1 if padding_idx is None else (
         padding_idx if padding_idx >= 0 else size[0] + padding_idx)
     if is_sparse and _prod(size) < _SPARSE_MIN_TABLE_ELEMS[0]:
+        if not _SPARSE_FALLBACK_WARNED[0]:
+            _SPARSE_FALLBACK_WARNED[0] = True
+            warnings.warn(
+                "embedding(is_sparse=True) on a %s table (< %d elements) "
+                "takes the dense gradient path, as paddle_tpu's does. "
+                "The values are the same; override with "
+                "set_sparse_fallback_threshold(0)."
+                % ('x'.join(str(s) for s in size),
+                   _SPARSE_MIN_TABLE_ELEMS[0]))
         is_sparse = False
     attrs = {'is_sparse': is_sparse, 'padding_idx': padding_idx}
     if is_sparse:
@@ -426,6 +453,20 @@ def square_error_cost(input, label):
     helper.append_op(type='square_error_cost',
                      inputs={'X': [input], 'Label': [label]},
                      outputs={'Out': [out]})
+    return out
+
+
+def cos_sim(X, Y):
+    """Row-wise cosine similarity [N, 1] (the cos_sim op, with its
+    XNorm and YNorm outputs)."""
+    helper = LayerHelper('cos_sim', **{})
+    out = helper.create_tmp_variable(dtype=X.dtype,
+                                     shape=(X.shape[0], 1))
+    xnorm = helper.create_tmp_variable(dtype=X.dtype)
+    ynorm = helper.create_tmp_variable(dtype=X.dtype)
+    helper.append_op(type='cos_sim', inputs={'X': [X], 'Y': [Y]},
+                     outputs={'Out': [out], 'XNorm': [xnorm],
+                              'YNorm': [ynorm]})
     return out
 
 
@@ -1005,3 +1046,69 @@ def sequence_concat(input, name=None):
     helper.append_op(type='sequence_concat', inputs={'X': input},
                      outputs={'Out': out})
     return out
+
+
+# ---- the CRF family (kernels in ops/crf_ops.py) ---------------------------------
+def linear_chain_crf(input, label, param_attr=None):
+    """The negative log-likelihood of ``label`` under a linear-chain CRF
+    over the emissions ``input`` ([B, 1] per sequence); the transition
+    parameter is [size + 2, size]: start row, end row, then the
+    tag-to-tag weights."""
+    helper = LayerHelper('linear_chain_crf', param_attr=param_attr)
+    size = input.shape[-1]
+    transition = helper.create_parameter(attr=helper.param_attr,
+                                         shape=[size + 2, size],
+                                         dtype=helper.input_dtype())
+    alpha = helper.create_tmp_variable(dtype=helper.input_dtype())
+    emission_exps = helper.create_tmp_variable(dtype=helper.input_dtype())
+    transition_exps = helper.create_tmp_variable(dtype=helper.input_dtype())
+    log_likelihood = helper.create_tmp_variable(dtype=helper.input_dtype())
+    helper.append_op(type='linear_chain_crf',
+                     inputs={"Emission": [input], "Transition": transition,
+                             "Label": label},
+                     outputs={"Alpha": [alpha],
+                              "EmissionExps": [emission_exps],
+                              "TransitionExps": transition_exps,
+                              "LogLikelihood": log_likelihood})
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None):
+    """The Viterbi path under the transition parameter
+    ``param_attr.name``; with ``label``, 1 where the path agrees with
+    it, else 0."""
+    helper = LayerHelper('crf_decoding', **{})
+    transition = helper.get_parameter(param_attr.name)
+    viterbi_path = helper.create_tmp_variable(dtype='int64', lod_level=1)
+    inputs = {"Emission": [input], "Transition": transition}
+    if label is not None:
+        inputs["Label"] = label
+    helper.append_op(type='crf_decoding', inputs=inputs,
+                     outputs={"ViterbiPath": [viterbi_path]})
+    return viterbi_path
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """Precision, recall, F1 and the three chunk counts of one batch."""
+    helper = LayerHelper("chunk_eval", **{})
+    precision = helper.create_tmp_variable(dtype="float32", shape=(1,))
+    recall = helper.create_tmp_variable(dtype="float32", shape=(1,))
+    f1_score = helper.create_tmp_variable(dtype="float32", shape=(1,))
+    num_infer_chunks = helper.create_tmp_variable(dtype="int64", shape=(1,))
+    num_label_chunks = helper.create_tmp_variable(dtype="int64", shape=(1,))
+    num_correct_chunks = helper.create_tmp_variable(dtype="int64",
+                                                    shape=(1,))
+    helper.append_op(type="chunk_eval",
+                     inputs={"Inference": [input], "Label": [label]},
+                     outputs={"Precision": [precision], "Recall": [recall],
+                              "F1-Score": [f1_score],
+                              "NumInferChunks": [num_infer_chunks],
+                              "NumLabelChunks": [num_label_chunks],
+                              "NumCorrectChunks": [num_correct_chunks]},
+                     attrs={"num_chunk_types": num_chunk_types,
+                            "chunk_scheme": chunk_scheme,
+                            "excluded_chunk_types":
+                                excluded_chunk_types or []})
+    return (precision, recall, f1_score, num_infer_chunks,
+            num_label_chunks, num_correct_chunks)

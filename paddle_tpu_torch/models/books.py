@@ -1,26 +1,35 @@
 """The Fluid books written with the port's layers.
 
-The networks of the reference's python/paddle/fluid/tests/book scripts
-that the port runs whole: fit_a_line (book 01), recognize_digits (book
-02, conv and MLP), image_classification with the CIFAR-10 ResNet (book
-03), word2vec (book 04, dense embedding), understand_sentiment (book
-06, its convolution and stacked-LSTM nets, dense embeddings) and
-machine_translation (book 08: a DynamicRNN decoder trained, a
-beam-search While decoding). Each
-``<book>()`` adds its network to the current program guard at the
-script's widths (keyword arguments cut them for tests) and returns a
-``Book``; ``train(book)`` appends the script's optimizer, and
-``reader(book)`` is the script's training reader on the port's
-datasets. Book 08's decoders, ``decode_dynamic`` (the script's While
-over 2-level LoD) and ``decode_static`` (the [B*K] form through
-``nets.static_beam_decoder``), go into programs of their own, each
-built under a fresh ``unique_name.guard()`` as the training program is,
-so their parameters bear the trained ones' names.
+The networks of the reference's python/paddle/fluid/tests/book scripts,
+all of which the port runs whole: fit_a_line (book 01), recognize_digits
+(book 02, conv and MLP), image_classification with the CIFAR-10 ResNet
+(book 03), word2vec (book 04), recommender_system (book 05: user and
+movie towers, cos_sim), understand_sentiment (book 06, its convolution
+and stacked-LSTM nets), label_semantic_roles (book 07: eight features,
+a stack of LSTMs, a linear-chain CRF, Viterbi decoding and a chunk
+evaluator) and machine_translation (book 08: a DynamicRNN decoder
+trained, a beam-search While decoding). The scripts' tables are
+``is_sparse=True``: below the embedding threshold
+(``layers.nn.set_sparse_fallback_threshold``) they train dense, as in
+paddle_tpu. Each ``<book>()`` adds its network to the current program
+guard at the script's widths (keyword arguments cut them for tests) and
+returns a ``Book``; ``train(book)`` appends the script's optimizer (and
+what the script builds after it), ``book.init(scope, place)`` sets what
+the script sets after its startup run, and ``reader(book)`` is the
+script's training reader on the port's datasets. Book 08's decoders,
+``decode_dynamic`` (the script's While over 2-level LoD) and
+``decode_static`` (the [B*K] form through ``nets.static_beam_decoder``),
+and book 07's served decoding, ``srl_decode``, go into programs of
+their own, each built under a fresh
+``unique_name.guard()`` as the training program is, so their parameters
+bear the trained ones' names.
 """
+import math
+
 import numpy as np
 
-from .. import layers, nets, optimizer, regularizer
-from .. import dataset, reader as reader_m
+from .. import evaluator, layers, nets, optimizer, regularizer
+from .. import dataset, io, reader as reader_m
 from ..lod import SequenceTensor
 from ..param_attr import ParamAttr
 from ..reader import batch
@@ -28,8 +37,11 @@ from . import resnet
 
 __all__ = ['Book', 'fit_a_line', 'recognize_digits_conv',
            'recognize_digits_mlp', 'image_classification', 'word2vec',
-           'sentiment_conv', 'sentiment_lstm', 'machine_translation', 'decode_dynamic', 'decode_static',
-           'decode_init_feed', 'train', 'reader', 'BOOKS', 'MT']
+           'recommender_system', 'sentiment_conv', 'sentiment_lstm',
+           'label_semantic_roles', 'srl_embedding', 'srl_decode',
+           'machine_translation',
+           'decode_dynamic', 'decode_static', 'decode_init_feed', 'train',
+           'reader', 'BOOKS', 'MT']
 
 WORD2VEC_N = 5
 
@@ -37,10 +49,13 @@ WORD2VEC_N = 5
 class Book(object):
     """One book's program parts: its feed variables in the reader's
     sample order, the prediction, the mean loss, the accuracy (None
-    where the script has none), and the script's optimizer and batch."""
+    where the script has none), and the script's optimizer and batch.
+    ``after_train(book)`` builds what the script adds after its
+    ``minimize`` (book 07's decoding and evaluator); ``init_fn(scope,
+    place)`` sets what it sets after its startup run."""
 
     def __init__(self, name, feeds, prediction, loss, accuracy, optimizer,
-                 batch_size):
+                 batch_size, after_train=None, init_fn=None):
         self.name = name
         self.feeds = feeds
         self.prediction = prediction
@@ -48,6 +63,14 @@ class Book(object):
         self.accuracy = accuracy
         self.optimizer = optimizer
         self.batch_size = batch_size
+        self.after_train = after_train
+        self.init_fn = init_fn
+
+    def init(self, scope, place):
+        """What the script does after its startup run (nothing for most
+        books)."""
+        if self.init_fn is not None:
+            self.init_fn(scope, place)
 
 
 def fit_a_line():
@@ -111,7 +134,7 @@ def image_classification(depth=32):
 
 
 def word2vec(dict_size=None, embed=32, hidden=256):
-    """book/test_word2vec.py with is_sparse=False: N = 5, four words
+    """book/test_word2vec.py with is_sparse=True: N = 5, four words
     looked up in one shared table of 32, concatenated, fc 256 sigmoid,
     fc dict softmax, cross_entropy with the fifth word; SGD(0.001) at
     batch 32 on imikolov's 5-grams."""
@@ -120,7 +143,7 @@ def word2vec(dict_size=None, embed=32, hidden=256):
     words = [layers.data(name=n, shape=[1], dtype='int64')
              for n in ('firstw', 'secondw', 'thirdw', 'forthw')]
     embeds = [layers.embedding(input=w, size=[dict_size, embed],
-                               dtype='float32', is_sparse=False,
+                               dtype='float32', is_sparse=True,
                                param_attr='shared_w') for w in words]
     h = layers.fc(input=layers.concat(input=embeds, axis=1), size=hidden,
                   act='sigmoid')
@@ -129,6 +152,62 @@ def word2vec(dict_size=None, embed=32, hidden=256):
     loss = layers.mean(layers.cross_entropy(input=pred, label=nextw))
     return Book('word2vec', words + [nextw], pred, loss, None,
                 lambda: optimizer.SGD(learning_rate=0.001), 32)
+
+
+def recommender_system(emb=32, small=16, feat=200, title_filters=32):
+    """book/test_recommender_system.py: the user tower (user id
+    embedding 32 -> fc 32; gender, age and job embeddings 16 -> fc 16
+    each; concat -> fc 200 tanh) and the movie tower (movie id embedding
+    32 -> fc 32; category embedding 32 summed over the sequence; title
+    embedding 32 -> sequence_conv_pool of 32 filters, window 3, tanh,
+    sum; concat -> fc 200 tanh), cos_sim scaled by 5 against the
+    rating, square_error_cost and mean; SGD(0.2) at batch 256 on
+    movielens. Every table is_sparse=True."""
+    ML = dataset.movielens
+
+    def tower_input(name, vocab, dim, table=None, lod_level=0):
+        x = layers.data(name=name, shape=[1], dtype='int64',
+                        lod_level=lod_level)
+        return x, layers.embedding(input=x, dtype='float32',
+                                   size=[vocab, dim], param_attr=table,
+                                   is_sparse=True)
+
+    uid, usr_emb = tower_input('user_id', ML.max_user_id() + 1, emb,
+                               'user_table')
+    usr_fc = layers.fc(input=usr_emb, size=emb)
+    gender, gender_emb = tower_input('gender_id', 2, small, 'gender_table')
+    gender_fc = layers.fc(input=gender_emb, size=small)
+    age, age_emb = tower_input('age_id', len(ML.age_table), small,
+                               'age_table')
+    age_fc = layers.fc(input=age_emb, size=small)
+    job, job_emb = tower_input('job_id', ML.max_job_id() + 1, small,
+                               'job_table')
+    job_fc = layers.fc(input=job_emb, size=small)
+    usr = layers.fc(input=layers.concat(
+        input=[usr_fc, gender_fc, age_fc, job_fc], axis=1), size=feat,
+        act='tanh')
+
+    mov, mov_emb = tower_input('movie_id', ML.max_movie_id() + 1, emb,
+                               'movie_table')
+    mov_fc = layers.fc(input=mov_emb, size=emb)
+    cat, cat_emb = tower_input('category_id', len(ML.movie_categories()),
+                               emb, lod_level=1)
+    cat_pool = layers.sequence_pool(input=cat_emb, pool_type='sum')
+    title, title_emb = tower_input(
+        'movie_title', len(ML.get_movie_title_dict()), emb, lod_level=1)
+    title_conv = nets.sequence_conv_pool(
+        input=title_emb, num_filters=title_filters, filter_size=3,
+        act='tanh', pool_type='sum')
+    mov_feat = layers.fc(input=layers.concat(
+        input=[mov_fc, cat_pool, title_conv], axis=1), size=feat,
+        act='tanh')
+
+    pred = layers.scale(x=layers.cos_sim(X=usr, Y=mov_feat), scale=5.0)
+    score = layers.data(name='score', shape=[1], dtype='float32')
+    loss = layers.mean(layers.square_error_cost(input=pred, label=score))
+    return Book('recommender_system',
+                [uid, gender, age, job, mov, cat, title, score], pred, loss,
+                None, lambda: optimizer.SGD(learning_rate=0.2), 256)
 
 
 def _sentiment(name, net, dict_dim):
@@ -149,12 +228,11 @@ def _sentiment(name, net, dict_dim):
 
 def sentiment_conv(dict_dim=None, emb_dim=32, hid_dim=32):
     """book 06's convolution_net: embedding 32, two sequence_conv_pool
-    of 32 filters (windows 3 and 4, tanh, sqrt pooling), fc 2 softmax.
-    The script looks the words up with is_sparse=True; the port has no
-    sparse row gradients yet, so the table trains dense."""
+    of 32 filters (windows 3 and 4, tanh, sqrt pooling), fc 2 softmax;
+    the table is_sparse=True, as the script's."""
     def net(data, dict_dim):
         emb = layers.embedding(input=data, size=[dict_dim, emb_dim],
-                               is_sparse=False)
+                               is_sparse=True)
         conv_3 = nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
                                          filter_size=3, act='tanh',
                                          pool_type='sqrt')
@@ -170,14 +248,14 @@ def sentiment_lstm(dict_dim=None, emb_dim=128, hid_dim=512, stacked_num=3):
     dynamic_lstm of size 512 (hidden 128, the script's peepholes, every
     second one reversed), each fed an fc of the previous fc and LSTM;
     max pools of the last fc and LSTM, fc 2 softmax. Its peephole LSTMs
-    run the plain scan, no hand-written kernel. Dense table, as
-    sentiment_conv's."""
+    run the plain scan, no hand-written kernel. The table is_sparse=True,
+    as sentiment_conv's."""
     if stacked_num % 2 != 1:
         raise ValueError("stacked_num must be odd")
 
     def net(data, dict_dim):
         emb = layers.embedding(input=data, size=[dict_dim, emb_dim],
-                               is_sparse=False)
+                               is_sparse=True)
         fc1 = layers.fc(input=emb, size=hid_dim)
         lstm1, _ = layers.dynamic_lstm(input=fc1, size=hid_dim)
         inputs = [fc1, lstm1]
@@ -192,6 +270,125 @@ def sentiment_lstm(dict_dim=None, emb_dim=128, hid_dim=512, stacked_num=3):
     return _sentiment('sentiment_lstm', net, dict_dim)
 
 
+# book/test_label_semantic_roles.py's word feeds, in the reader's order
+SRL_WORDS = ('word_data', 'ctx_n2_data', 'ctx_n1_data', 'ctx_0_data',
+             'ctx_p1_data', 'ctx_p2_data')
+
+
+def srl_embedding(word_dim=32):
+    """The pretrained word table the script loads after its startup:
+    conll05.get_embedding()'s file, its 16-byte header skipped, f32 rows
+    of ``word_dim``."""
+    n = len(dataset.conll05.get_dict()[0])
+    with open(dataset.conll05.get_embedding(), 'rb') as f:
+        f.read(16)
+        return np.fromfile(f, dtype=np.float32).reshape(n, word_dim)
+
+
+def _srl_net(word_dim, mark_dim, hidden_dim, depth):
+    """db_lstm: (the eight feeds in the reader's order, the emissions,
+    the label count)."""
+    word_dict, verb_dict, label_dict = dataset.conll05.get_dict()
+    words = [layers.data(name=n, shape=[1], dtype='int64', lod_level=1)
+             for n in SRL_WORDS[:1]]
+    predicate = layers.data(name='verb_data', shape=[1], dtype='int64',
+                            lod_level=1)
+    words += [layers.data(name=n, shape=[1], dtype='int64', lod_level=1)
+              for n in SRL_WORDS[1:]]
+    mark = layers.data(name='mark_data', shape=[1], dtype='int64',
+                       lod_level=1)
+    pred_emb = layers.embedding(input=predicate, dtype='float32',
+                                size=[len(verb_dict), word_dim],
+                                is_sparse=True, param_attr='vemb')
+    mark_emb = layers.embedding(input=mark, dtype='float32',
+                                size=[2, mark_dim], is_sparse=True)
+    embs = [layers.embedding(input=x, size=[len(word_dict), word_dim],
+                             param_attr=ParamAttr(name='emb',
+                                                  trainable=False))
+            for x in words] + [pred_emb, mark_emb]
+    hidden_0 = layers.sums(input=[
+        layers.fc(input=e, size=hidden_dim, act='tanh') for e in embs])
+    lstm_0, _ = layers.dynamic_lstm(
+        input=hidden_0, size=hidden_dim, candidate_activation='relu',
+        gate_activation='sigmoid', cell_activation='sigmoid')
+    inputs = [hidden_0, lstm_0]
+    for i in range(1, depth):
+        mix_hidden = layers.sums(input=[
+            layers.fc(input=inputs[0], size=hidden_dim, act='tanh'),
+            layers.fc(input=inputs[1], size=hidden_dim, act='tanh')])
+        lstm, _ = layers.dynamic_lstm(
+            input=mix_hidden, size=hidden_dim, candidate_activation='relu',
+            gate_activation='sigmoid', cell_activation='sigmoid',
+            is_reverse=(i % 2) == 1)
+        inputs = [mix_hidden, lstm]
+    feature_out = layers.sums(input=[
+        layers.fc(input=inputs[0], size=len(label_dict), act='tanh'),
+        layers.fc(input=inputs[1], size=len(label_dict), act='tanh')])
+    return words + [predicate, mark], feature_out, len(label_dict)
+
+
+def label_semantic_roles(word_dim=32, mark_dim=5, hidden_dim=512, depth=8):
+    """book/test_label_semantic_roles.py: eight features (the word, five
+    context words and the predicate, each embedded 32 wide, and the mark
+    embedded 5 wide; the six word lookups share the table 'emb', loaded
+    from conll05.get_embedding() after the startup and not trainable)
+    each through fc 512 tanh, summed; ``depth`` dynamic_lstms of size
+    512 (candidate relu, gate and cell sigmoid, the script's peepholes,
+    every second one reversed), each fed the sum of an fc of the
+    previous sum and one of the previous LSTM; the emissions are the sum
+    of two fc of the label count, tanh. linear_chain_crf with its
+    transitions 'crfw' at learning rate 1e-3, the mean cost,
+    SGD(exponential_decay(0.01, 100000, 0.5, staircase=True)) at batch
+    10 on conll05.test() through reader.shuffle(buf_size=8192). After
+    the optimizer, as in the script: crf_decoding under 'crfw'
+    (``book.decode``) and ChunkEvaluator(chunk_scheme='IOB')
+    (``book.evaluator``). The predicate and mark tables are
+    is_sparse=True, as the script's. Its LSTMs have peepholes and
+    non-default activations: they run the plain scan, and this book runs
+    no hand-written kernel."""
+    feeds, feature_out, n_labels = _srl_net(word_dim, mark_dim, hidden_dim,
+                                            depth)
+    target = layers.data(name='target', shape=[1], dtype='int64',
+                         lod_level=1)
+    crf_cost = layers.linear_chain_crf(
+        input=feature_out, label=target,
+        param_attr=ParamAttr(name='crfw', learning_rate=1e-3))
+    loss = layers.mean(crf_cost)
+
+    def after_train(book):
+        book.decode = layers.crf_decoding(input=feature_out,
+                                          param_attr=ParamAttr(name='crfw'))
+        book.evaluator = evaluator.ChunkEvaluator(
+            input=book.decode, label=target, chunk_scheme='IOB',
+            num_chunk_types=int(math.ceil((n_labels - 1) / 2.0)))
+
+    def init_fn(scope, place):
+        io.params_from_numpy(scope, {'emb': srl_embedding(word_dim)}, place)
+
+    return Book('label_semantic_roles', feeds + [target], feature_out, loss,
+                None,
+                lambda: optimizer.SGD(learning_rate=layers.exponential_decay(
+                    learning_rate=0.01, decay_steps=100000, decay_rate=0.5,
+                    staircase=True)), 10, after_train=after_train,
+                init_fn=init_fn)
+
+
+def srl_decode(word_dim=32, mark_dim=5, hidden_dim=512, depth=8):
+    """Book 07's inference program: the same network and crf_decoding
+    under the transitions 'crfw' (made here by name, the training
+    program's shape). Built under a fresh ``unique_name.guard()``, as the
+    training program is, its parameters bear the trained ones' names, so
+    it saves and serves the decoding without the training program's
+    update ops (a prune of the training program to ``book.decode`` keeps
+    'crfw''s SGD op, which writes it). Returns (feeds, decode)."""
+    feeds, feature_out, n_labels = _srl_net(word_dim, mark_dim, hidden_dim,
+                                            depth)
+    layers.create_parameter(shape=[n_labels + 2, n_labels], dtype='float32',
+                            name='crfw')
+    return feeds, layers.crf_decoding(input=feature_out,
+                                      param_attr=ParamAttr(name='crfw'))
+
+
 # book/test_machine_translation.py's widths
 MT = dict(dict_size=30000, word_dim=16, hidden_dim=32, batch_size=2,
           max_length=8, topk_size=50, beam_size=2, end_id=10)
@@ -203,7 +400,7 @@ def _mt_encoder(dict_size, word_dim, hidden_dim):
     src = layers.data(name='src_word_id', shape=[1], dtype='int64',
                       lod_level=1)
     emb = layers.embedding(input=src, size=[dict_size, word_dim],
-                           dtype='float32', is_sparse=False,
+                           dtype='float32', is_sparse=True,
                            param_attr=ParamAttr(name='vemb'))
     fc1 = layers.fc(input=emb, size=hidden_dim * 4, act='tanh')
     lstm_hidden0, _ = layers.dynamic_lstm(input=fc1, size=hidden_dim * 4)
@@ -216,9 +413,7 @@ def machine_translation(dict_size=None, word_dim=None, hidden_dim=None):
     fc([word, state], hidden, tanh) and fc(dict, softmax); cross_entropy
     and mean; Adagrad(1e-4) with L2Decay(0.1) at batch 2 on wmt14.
 
-    The script looks the words up with is_sparse=True. The port has no
-    sparse row gradients yet, so the table 'vemb' trains dense, as
-    word2vec's does."""
+    The words are looked up is_sparse=True, as in the script."""
     dict_size = dict_size or MT['dict_size']
     word_dim = word_dim or MT['word_dim']
     hidden_dim = hidden_dim or MT['hidden_dim']
@@ -226,7 +421,7 @@ def machine_translation(dict_size=None, word_dim=None, hidden_dim=None):
     trg = layers.data(name='target_language_word', shape=[1],
                       dtype='int64', lod_level=1)
     trg_emb = layers.embedding(input=trg, size=[dict_size, word_dim],
-                               dtype='float32', is_sparse=False,
+                               dtype='float32', is_sparse=True,
                                param_attr=ParamAttr(name='vemb'))
     rnn = layers.DynamicRNN()
     with rnn.block():
@@ -368,9 +563,12 @@ def decode_static(dict_size=None, word_dim=None, hidden_dim=None,
 
 
 def train(book):
-    """Append the script's optimizer."""
+    """Append the script's optimizer, then what the script builds after
+    it."""
     opt = book.optimizer()
     opt.minimize(book.loss)
+    if book.after_train is not None:
+        book.after_train(book)
     return opt
 
 
@@ -392,6 +590,12 @@ def reader(book, batch_size=None):
             dataset.imdb.train(dataset.imdb.word_dict()), buf_size=1000), bs)
     if book.name == 'machine_translation':
         return batch(dataset.wmt14.train(book.prediction.shape[-1]), bs)
+    if book.name == 'recommender_system':
+        return batch(reader_m.shuffle(dataset.movielens.train(),
+                                      buf_size=8192), bs)
+    if book.name == 'label_semantic_roles':
+        return batch(reader_m.shuffle(dataset.conll05.test(),
+                                      buf_size=8192), bs)
     word_dict = dataset.imikolov.build_dict()
     return batch(dataset.imikolov.train(word_dict, WORD2VEC_N), bs)
 
@@ -401,6 +605,8 @@ BOOKS = {'fit_a_line': fit_a_line,
          'recognize_digits_mlp': recognize_digits_mlp,
          'image_classification': image_classification,
          'word2vec': word2vec,
+         'recommender_system': recommender_system,
          'sentiment_conv': sentiment_conv,
          'sentiment_lstm': sentiment_lstm,
+         'label_semantic_roles': label_semantic_roles,
          'machine_translation': machine_translation}

@@ -265,7 +265,31 @@ class _FlashAttention(torch.autograd.Function):
         g_out = torch.zeros_like(out) if g_out is None else g_out.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out,
                                          ctx.causal, g_lse, route=ctx.route)
+        if torch.is_grad_enabled() and q.device.type == 'cuda':
+            # the backward kernels have no gradient of their own: a
+            # second differentiation raises, as through JAX's Pallas
+            # kernel (the plain backward on the CPU is differentiable,
+            # as JAX's reference attention is)
+            dq, dk, dv = _NoSecondGradient.apply(q, dq, dk, dv)
         return dq, dk, dv, None
+
+
+class _NoSecondGradient(torch.autograd.Function):
+    """Passes gradients made by a backward kernel on; differentiating
+    them raises (``anchor`` joins them to the graph)."""
+
+    @staticmethod
+    def forward(ctx, anchor, *grads):
+        return tuple(g.view_as(g) for g in grads)
+
+    @staticmethod
+    def backward(ctx, *unused):
+        raise RuntimeError(
+            "the flash attention backward kernel has no gradient of its "
+            "own: a gradient through attention on the card cannot be "
+            "differentiated again (a second calc_gradient, or a loss of "
+            "a calc_gradient result), as through paddle_tpu's Pallas "
+            "kernel")
 
 
 def flash_attention_with_lse(q, k, v, causal=True):
@@ -937,7 +961,10 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
 class _FusedConv(torch.autograd.Function):
     """The kernel forward, with the gradient of the plain version (the
     counterpart of ``pallas_kernels._fconv``, whose ``_fconv_bwd``
-    differentiates ``_fconv_reference``)."""
+    differentiates ``_fconv_reference``). Under ``create_graph`` (a
+    gradient that is differentiated again, ``calc_gradient``) the
+    gradient keeps its graph to the inputs, so the second derivative is
+    the plain version's, as JAX differentiates ``_fconv_bwd``."""
 
     @staticmethod
     def forward(ctx, meta, x, w, *aux):
@@ -949,13 +976,17 @@ class _FusedConv(torch.autograd.Function):
     def backward(ctx, g):
         x, w, *aux = ctx.saved_tensors
         kinds, stages, strides, pads, depthwise = ctx.meta
-        inputs = [t.detach().requires_grad_(need and t.is_floating_point())
+        create = torch.is_grad_enabled()
+        inputs = [t.view_as(t) if create and t.requires_grad else
+                  t.detach().requires_grad_(need and t.is_floating_point())
                   for t, need in zip([x, w] + aux, ctx.needs_input_grad[1:])]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
             y = fused_conv_reference(inputs[0], inputs[1], inputs[2:],
                                      kinds, stages, strides, pads, depthwise)
-            grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
+            grads = iter(torch.autograd.grad(y, wanted, g,
+                                             create_graph=create)
+                         if wanted else ())
         return (None,) + tuple(next(grads) if t.requires_grad else None
                                for t in inputs)
 

@@ -9,7 +9,7 @@ the ops that regularizers and gradient clips append: ``sum``, ``sign``,
 ``clip_by_norm``, ``reduce_sum``; and the math of the books and the
 decode path: ``matmul``, the compare and logical ops, ``reduce_mean`` /
 ``max`` / ``min`` / ``prod``, ``square_error_cost``, ``smooth_l1``,
-``cos`` and ``sin``. The elementwise ops, activations, ``mul``, ``sum``,
+``cos``, ``sin`` and ``cos_sim``. The elementwise ops, activations, ``mul``, ``sum``,
 ``scale`` and ``mean`` take SequenceTensors as the JAX kernels do.
 """
 import torch
@@ -228,6 +228,19 @@ for _name, _fn in {'less_than': torch.lt, 'less_equal': torch.le,
 # not in ACTS: the fused conv's epilogue does not take them
 _activation('cos', torch.cos)
 _activation('sin', torch.sin)
+
+
+@register_kernel('cos_sim')
+def _cos_sim(ctx):
+    """Row-wise cosine similarity over the last axis, the product of
+    the norms floored at 1e-12, with the norms as XNorm and YNorm."""
+    x, y = unwrap(ctx.input('X')), unwrap(ctx.input('Y'))
+    xn = torch.sqrt(torch.sum(torch.square(x), -1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), -1, keepdim=True))
+    xy = torch.sum(x * y, -1, keepdim=True)
+    ctx.set_output('Out', xy / torch.clamp(xn * yn, min=1e-12))
+    ctx.set_output('XNorm', xn)
+    ctx.set_output('YNorm', yn)
 
 
 @register_kernel('square_error_cost')

@@ -21,6 +21,7 @@ import torch
 
 from ..core.registry import register_kernel
 from ..core.lowering import torch_dtype, RNG_CPU_KEY
+from ..lod import SequenceTensor
 from .common import host_read, rewrap, unwrap
 
 
@@ -149,13 +150,22 @@ def _lookup_table(ctx):
     kernel: ids are clipped into [0, vocab) (``F.embedding`` would raise
     on an out-of-range id) and rows whose id equals ``padding_idx``
     return zeros. A trailing id axis of 1 is squeezed. Sequence ids
-    ([B, T_pad, 1]) give a sequence of rows with their lengths."""
+    ([B, T_pad, 1]) give a sequence of rows with their lengths.
+
+    A sparse table in training (core/lowering.py): the gathered rows
+    are detached and the lookup's zero carrier is added to them, so the
+    carrier's gradient is the rows' cotangent and no [vocab, D]
+    gradient is made. The carrier joins before the padding mask, so a
+    padding row's cotangent is zero, as on the dense path."""
     w = ctx.input('W')
     ids_in = ctx.input('Ids')
     ids = unwrap(ids_in).long()
     if ids.dim() and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     out = torch.nn.functional.embedding(ids.clamp(0, w.shape[0] - 1), w)
+    carrier = ctx.attr('sparse_carrier')
+    if carrier and carrier in ctx.env:
+        out = out.detach() + ctx.env[carrier]
     padding_idx = ctx.attr('padding_idx', None)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0)
@@ -164,8 +174,33 @@ def _lookup_table(ctx):
 
 @register_kernel('concat')
 def _concat(ctx):
-    ctx.set_output('Out', torch.cat(ctx.inputs('X'),
-                                    dim=ctx.attr('axis', 0)))
+    """As the JAX kernel: with sequences, fluid's axes address the
+    packed [total, D] rows and the runtime holds padded [B, T, D], so a
+    feature axis (>= 1) moves one to the right; axis 0 over sequences
+    only stacks the batches and their lengths, padded to one T."""
+    ins = ctx.inputs('X')
+    xs = [unwrap(v) for v in ins]
+    axis = ctx.attr('axis', 0)
+    seq = next((v for v in ins if isinstance(v, SequenceTensor)), None)
+    if seq is None:
+        ctx.set_output('Out', torch.cat(xs, dim=axis))
+        return
+    if axis == 0 and all(isinstance(v, SequenceTensor) for v in ins):
+        max_t = max(int(x.shape[1]) for x in xs)
+        xs = [torch.nn.functional.pad(
+            x, [0, 0] * (x.dim() - 2) + [0, max_t - x.shape[1]])
+            for x in xs]
+        subs = None
+        if all(v.sub_lengths is not None for v in ins):
+            max_o = max(int(v.sub_lengths.shape[1]) for v in ins)
+            subs = torch.cat([torch.nn.functional.pad(
+                v.sub_lengths, [0, max_o - v.sub_lengths.shape[1]])
+                for v in ins])
+        ctx.set_output('Out', SequenceTensor(
+            torch.cat(xs), torch.cat([v.lengths for v in ins]), subs))
+        return
+    out = torch.cat(xs, dim=axis + 1 if axis >= 1 else axis)
+    ctx.set_output('Out', SequenceTensor(out, seq.lengths, seq.sub_lengths))
 
 
 @register_kernel('split')

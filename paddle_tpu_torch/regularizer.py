@@ -53,10 +53,13 @@ class L1DecayRegularizer(WeightDecayRegularizer):
 
 
 def append_regularization_ops(parameters_and_grads, regularization=None):
-    """A parameter's own regularizer wins over the optimizer's."""
+    """A parameter's own regularizer wins over the optimizer's. A
+    sparse table's rows (``sparse_grad``) take no weight decay, as the
+    reference's regularization ops take dense gradients only."""
     for param, grad in parameters_and_grads:
         term = param.regularizer or regularization
-        if grad is not None and term is not None:
+        if grad is not None and term is not None and \
+                not getattr(param, 'sparse_grad', False):
             term.append_ops(param, grad, grad.block)
     return list(parameters_and_grads)
 

@@ -260,8 +260,17 @@ def split_fetches(fetches, slices, total_rows, bucket):
     """Split a bucket-shaped run's fetches back into per-request lists.
     Returns None when any fetch is not row-aligned (its leading dim is
     not the bucket size) — the caller must fall back to per-request
-    exact runs."""
+    exact runs. A level-1 sequence fetch (a sequence a row) splits with
+    its lengths."""
     for f in fetches:
         if not (hasattr(f, 'shape') and tuple(f.shape[:1]) == (bucket,)):
             return None
-    return [[f[a:b] for f in fetches] for a, b in slices]
+    return [[_rows(f, a, b) for f in fetches] for a, b in slices]
+
+
+def _rows(f, a, b):
+    if isinstance(f, SequenceTensor):
+        return SequenceTensor(f.data[a:b], f.lengths[a:b],
+                              None if f.sub_lengths is None
+                              else f.sub_lengths[a:b])
+    return f[a:b]

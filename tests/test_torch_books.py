@@ -1,9 +1,14 @@
 """The Fluid books through the port against paddle_tpu, on the CPU.
 
 fit_a_line, recognize_digits (conv and MLP), image_classification
-(resnet_cifar10), word2vec (dense embedding) and understand_sentiment
-(book 06: the convolution net and the stacked LSTM net, dense
-embeddings, sequences of imdb's synthetic reviews) at small widths: the
+(resnet_cifar10), word2vec, recommender_system (book 05: the user and
+movie towers, cos_sim, movielens' synthetic ratings),
+understand_sentiment (book 06: the convolution net and the stacked LSTM
+net, sequences of imdb's synthetic reviews) and label_semantic_roles
+(book 07: eight sequence features, LSTMs, the CRF, its decoding and the
+chunk evaluator, conll05's synthetic sentences; the table 'emb' from
+get_embedding()) at small widths, their tables is_sparse=True (dense
+below the threshold, as in the scripts' runs here): the
 port's ``models/books.py`` against the same networks written here with
 paddle_tpu's layers, on the synthetic datasets (both data homes point at
 an empty directory, so nothing is read from outside the test):
@@ -16,7 +21,9 @@ an empty directory, so nothing is read from outside the test):
   and fetches (accuracy, prediction) to 1e-4;
 - from one set of trained parameters, each package saves an inference
   model; the port's served through ``ModelServer(CPUPlace())`` (book
-  06's words as a batch of sequences) answers within 1e-5 of
+  06's words, book 05's categories and titles and book 07's eight
+  features as batches of sequences; book 07 serves its Viterbi path
+  from ``books.srl_decode``'s program) answers within 1e-5 of
   paddle_tpu's ``Inferencer``;
 - the static verifier files the same diagnostics on each book's
   training program in both packages, with no error.
@@ -58,11 +65,17 @@ WIDTHS = {'fit_a_line': {}, 'recognize_digits_conv': {'conv': (4, 8)},
           'recognize_digits_mlp': {'hidden': 16},
           'image_classification': {'depth': 8},
           'word2vec': {'embed': 8, 'hidden': 16},
+          'recommender_system': {'emb': 8, 'small': 4, 'feat': 16,
+                                 'title_filters': 8},
           'sentiment_conv': {'emb_dim': 8, 'hid_dim': 8},
-          'sentiment_lstm': {'emb_dim': 8, 'hid_dim': 16}}
+          'sentiment_lstm': {'emb_dim': 8, 'hid_dim': 16},
+          'label_semantic_roles': {'hidden_dim': 16, 'depth': 2}}
 BATCH = {'fit_a_line': 20, 'recognize_digits_conv': 8,
          'recognize_digits_mlp': 8, 'image_classification': 4,
-         'word2vec': 8, 'sentiment_conv': 4, 'sentiment_lstm': 4}
+         'word2vec': 8, 'recommender_system': 8, 'sentiment_conv': 4,
+         'sentiment_lstm': 4, 'label_semantic_roles': 3}
+# the books' label feeds, which a served model does not take
+LABELS = ('y', 'label', 'nextw', 'score', 'target')
 
 
 @pytest.fixture(autouse=True)
@@ -78,7 +91,7 @@ def _jax_sentiment(name, emb_dim, hid_dim):
     dict_dim = len(jpaddle.dataset.imdb.word_dict())
     data = L.data(name='words', shape=[1], dtype='int64', lod_level=1)
     label = L.data(name='label', shape=[1], dtype='int64')
-    emb = L.embedding(input=data, size=[dict_dim, emb_dim], is_sparse=False)
+    emb = L.embedding(input=data, size=[dict_dim, emb_dim], is_sparse=True)
     if name == 'sentiment_conv':
         convs = [nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
                                          filter_size=k, act='tanh',
@@ -102,12 +115,127 @@ def _jax_sentiment(name, emb_dim, hid_dim):
     return [data, label], pred, loss, acc, fluid.optimizer.Adagrad(0.002)
 
 
+def _jax_recommender(emb, small, feat, title_filters):
+    """book/test_recommender_system.py's towers, every table sparse."""
+    L, ML = fluid.layers, jpaddle.dataset.movielens
+
+    def tower_input(name, vocab, dim, table=None, lod_level=0):
+        x = L.data(name=name, shape=[1], dtype='int64', lod_level=lod_level)
+        return x, L.embedding(input=x, dtype='float32', size=[vocab, dim],
+                              param_attr=table, is_sparse=True)
+    uid, e = tower_input('user_id', ML.max_user_id() + 1, emb, 'user_table')
+    usr_fc = L.fc(input=e, size=emb)
+    gender, e = tower_input('gender_id', 2, small, 'gender_table')
+    gender_fc = L.fc(input=e, size=small)
+    age, e = tower_input('age_id', len(ML.age_table), small, 'age_table')
+    age_fc = L.fc(input=e, size=small)
+    job, e = tower_input('job_id', ML.max_job_id() + 1, small, 'job_table')
+    job_fc = L.fc(input=e, size=small)
+    usr = L.fc(input=L.concat(input=[usr_fc, gender_fc, age_fc, job_fc],
+                              axis=1), size=feat, act='tanh')
+    mov, e = tower_input('movie_id', ML.max_movie_id() + 1, emb,
+                         'movie_table')
+    mov_fc = L.fc(input=e, size=emb)
+    cat, e = tower_input('category_id', len(ML.movie_categories()), emb,
+                         lod_level=1)
+    cat_pool = L.sequence_pool(input=e, pool_type='sum')
+    title, e = tower_input('movie_title', len(ML.get_movie_title_dict()),
+                           emb, lod_level=1)
+    title_conv = fluid.nets.sequence_conv_pool(
+        input=e, num_filters=title_filters, filter_size=3, act='tanh',
+        pool_type='sum')
+    mov_feat = L.fc(input=L.concat(input=[mov_fc, cat_pool, title_conv],
+                                   axis=1), size=feat, act='tanh')
+    pred = L.scale(x=L.cos_sim(X=usr, Y=mov_feat), scale=5.0)
+    score = L.data(name='score', shape=[1], dtype='float32')
+    loss = L.mean(L.square_error_cost(input=pred, label=score))
+    return ([uid, gender, age, job, mov, cat, title, score], pred, loss,
+            None, fluid.optimizer.SGD(learning_rate=0.2))
+
+
+_SRL_WORDS = ('word_data', 'ctx_n2_data', 'ctx_n1_data', 'ctx_0_data',
+              'ctx_p1_data', 'ctx_p2_data')
+
+
+def _jax_srl(hidden_dim, depth, word_dim=32, mark_dim=5, infer=False):
+    """book/test_label_semantic_roles.py's db_lstm and CRF cost;
+    ``infer`` builds the network and the decoding only (the transitions
+    made by hand, as the saved model holds them)."""
+    L = fluid.layers
+    word_dict, verb_dict, label_dict = jpaddle.dataset.conll05.get_dict()
+
+    def data(n):
+        return L.data(name=n, shape=[1], dtype='int64', lod_level=1)
+    words = [data(_SRL_WORDS[0])]
+    predicate = data('verb_data')
+    words += [data(n) for n in _SRL_WORDS[1:]]
+    mark = data('mark_data')
+    pred_emb = L.embedding(input=predicate, dtype='float32',
+                           size=[len(verb_dict), word_dim], is_sparse=True,
+                           param_attr='vemb')
+    mark_emb = L.embedding(input=mark, dtype='float32',
+                           size=[2, mark_dim], is_sparse=True)
+    embs = [L.embedding(input=x, size=[len(word_dict), word_dim],
+                        param_attr=fluid.ParamAttr(name='emb',
+                                                   trainable=False))
+            for x in words] + [pred_emb, mark_emb]
+    hidden_0 = L.sums(input=[L.fc(input=e, size=hidden_dim, act='tanh')
+                             for e in embs])
+    lstm_0, _ = L.dynamic_lstm(input=hidden_0, size=hidden_dim,
+                               candidate_activation='relu',
+                               gate_activation='sigmoid',
+                               cell_activation='sigmoid')
+    inputs = [hidden_0, lstm_0]
+    for i in range(1, depth):
+        mix = L.sums(input=[L.fc(input=inputs[0], size=hidden_dim,
+                                 act='tanh'),
+                            L.fc(input=inputs[1], size=hidden_dim,
+                                 act='tanh')])
+        lstm, _ = L.dynamic_lstm(input=mix, size=hidden_dim,
+                                 candidate_activation='relu',
+                                 gate_activation='sigmoid',
+                                 cell_activation='sigmoid',
+                                 is_reverse=(i % 2) == 1)
+        inputs = [mix, lstm]
+    feature_out = L.sums(input=[
+        L.fc(input=inputs[0], size=len(label_dict), act='tanh'),
+        L.fc(input=inputs[1], size=len(label_dict), act='tanh')])
+    if infer:
+        L.create_parameter(shape=[len(label_dict) + 2, len(label_dict)],
+                           dtype='float32', name='crfw')
+        return L.crf_decoding(input=feature_out,
+                              param_attr=fluid.ParamAttr(name='crfw'))
+    target = data('target')
+    cost = L.linear_chain_crf(input=feature_out, label=target,
+                              param_attr=fluid.ParamAttr(
+                                  name='crfw', learning_rate=1e-3))
+    loss = L.mean(cost)
+    opt = fluid.optimizer.SGD(learning_rate=L.exponential_decay(
+        learning_rate=0.01, decay_steps=100000, decay_rate=0.5,
+        staircase=True))
+
+    def after():
+        decode = L.crf_decoding(input=feature_out,
+                                param_attr=fluid.ParamAttr(name='crfw'))
+        ev = fluid.evaluator.ChunkEvaluator(
+            input=decode, label=target, chunk_scheme='IOB',
+            num_chunk_types=int(np.ceil((len(label_dict) - 1) / 2.0)))
+        return decode, ev
+    return (words + [predicate, mark, target], feature_out, loss, None,
+            opt, after)
+
+
 def _jax_book(name, conv=(20, 50), hidden=None, depth=32, embed=32,
               **sentiment):
     """The same networks as paddle_tpu_torch.models.books, op for op:
-    (feeds, prediction, loss, accuracy, optimizer)."""
+    (feeds, prediction, loss, accuracy, optimizer), and for book 07 what
+    it builds after the optimizer."""
     L, nets = fluid.layers, fluid.nets
     acc = None
+    if name == 'recommender_system':
+        return _jax_recommender(**sentiment)
+    if name == 'label_semantic_roles':
+        return _jax_srl(depth=depth, **sentiment)
     if name.startswith('sentiment'):
         return _jax_sentiment(name, **sentiment)
     if name == 'fit_a_line':
@@ -121,7 +249,7 @@ def _jax_book(name, conv=(20, 50), hidden=None, depth=32, embed=32,
         words = [L.data(name=n, shape=[1], dtype='int64')
                  for n in ('firstw', 'secondw', 'thirdw', 'forthw')]
         embeds = [L.embedding(input=w, size=[dict_size, embed],
-                              dtype='float32', is_sparse=False,
+                              dtype='float32', is_sparse=True,
                               param_attr='shared_w') for w in words]
         h = L.fc(input=L.concat(input=embeds, axis=1),
                  size=hidden or 256, act='sigmoid')
@@ -170,6 +298,8 @@ def _jax_infer(name, **w):
             input=c, filter_size=5, num_filters=conv[1], pool_size=2,
             pool_stride=2, act='relu')
         return L.fc(input=c, size=10, act='softmax')
+    if name == 'label_semantic_roles':
+        return _jax_srl(infer=True, **w)
     return _jax_book(name, **w)[1]
 
 
@@ -184,6 +314,10 @@ def _jax_reader(name, bs):
     if name.startswith('sentiment'):
         return jpaddle.batch(r.shuffle(ds.imdb.train(ds.imdb.word_dict()),
                                        1000), bs)
+    if name == 'recommender_system':
+        return jpaddle.batch(r.shuffle(ds.movielens.train(), 8192), bs)
+    if name == 'label_semantic_roles':
+        return jpaddle.batch(r.shuffle(ds.conll05.test(), 8192), bs)
     return jpaddle.batch(ds.imikolov.train(ds.imikolov.build_dict(), 5), bs)
 
 
@@ -198,10 +332,16 @@ class BookPair(object):
         j_startup.random_seed = 11
         with fluid.unique_name.guard(), fluid.program_guard(j_main,
                                                             j_startup):
-            feeds, pred, loss, acc, opt = _jax_book(name, **w)
+            feeds, pred, loss, acc, opt, *after = _jax_book(name, **w)
             opt.minimize(loss)
+            self.j_ev = None
+            extra = []
+            if after:
+                decode, self.j_ev = after[0]()
+                extra = [decode] + self.j_ev.metrics
         self.j_main, self.j_feeds = j_main, feeds
-        self.j_fetch = [v.name for v in (loss, acc, pred) if v is not None]
+        self.j_fetch = [v.name for v in [loss, acc, pred] + extra
+                        if v is not None]
         t_main, t_startup = pt.Program(), pt.Program()
         with pt.unique_name.guard(), pt.program_guard(t_main, t_startup):
             self.book = books.BOOKS[name](**w)
@@ -210,11 +350,20 @@ class BookPair(object):
         self.j_scope = fluid.Scope()
         self.j_exe = fluid.Executor(fluid.CPUPlace())
         self.j_exe.run(j_startup, scope=self.j_scope)
+        if name == 'label_semantic_roles':
+            # the script's table after its startup run, and the
+            # evaluator's states zeroed (its reset() writes the global
+            # scope)
+            self.j_scope.set_var('emb', _jax_srl_embedding())
+            for v in self.j_ev.states:
+                self.j_scope.set_var(v.name, np.zeros([1], 'int64'))
         self.state = {v.name: np.asarray(self.j_scope.raw(v.name))
-                      for v in j_startup.list_vars()
-                      if self.j_scope.raw(v.name) is not None}
+                      for v in j_main.list_vars()
+                      if v.persistable and
+                      self.j_scope.raw(v.name) is not None}
         self.t_scope = pt.Scope()
         pt_io.params_from_numpy(self.t_scope, self.state, pt.CPUPlace())
+        self.book.init(self.t_scope, pt.CPUPlace())
         self.t_exe = pt.Executor(pt.CPUPlace())
 
     def feeders(self):
@@ -232,6 +381,23 @@ class BookPair(object):
         random.seed(seed)
         t = list(itertools.islice(books.reader(self.book, bs)(), n))
         return j, t
+
+
+def _jax_srl_embedding():
+    n = len(jpaddle.dataset.conll05.get_dict()[0])
+    with open(jpaddle.dataset.conll05.get_embedding(), 'rb') as f:
+        f.read(16)
+        return np.fromfile(f, dtype=np.float32).reshape(n, 32)
+
+
+def _rows(v):
+    """A fetch as numpy: a sequence (either package's) as its packed
+    rows, int32 widened."""
+    if isinstance(v, pt.SequenceTensor) or (
+            isinstance(v, fluid.LoDTensor) and v.lengths is not None):
+        v = v.to_dense_rows()
+    a = np.asarray(v)
+    return a.astype('int64') if a.dtype.kind in 'iu' else a
 
 
 _PAIRS = {}
@@ -283,9 +449,10 @@ def test_three_steps_match_jax(name):
         t = pair.t_exe.run(pair.t_main, feed=t_feeder.feed(tb),
                            fetch_list=pair.j_fetch, scope=pair.t_scope)
         for n, a, b in zip(pair.j_fetch, j, t):
-            assert b.shape == np.asarray(a).shape, n
+            a, b = _rows(a), _rows(b)
+            assert b.shape == a.shape, n
             assert np.isfinite(b).all(), n
-            np.testing.assert_allclose(b, np.asarray(a), err_msg='%s step %d'
+            np.testing.assert_allclose(b, a, err_msg='%s step %d'
                                        % (n, step), **TOL)
 
 
@@ -301,15 +468,23 @@ def test_saved_model_serves_like_jax_inferencer(name, tmp_path):
                    fetch_list=pair.j_fetch[:1], scope=pair.j_scope)
     params = {n: np.asarray(pair.j_scope.raw(n)) for n in pair.state}
     pt_io.params_from_numpy(pair.t_scope, params, pt.CPUPlace())
-    feed_names = [v.name for v in pair.book.feeds
-                  if v.name not in ('y', 'label', 'nextw')]
+    feed_names = [v.name for v in pair.book.feeds if v.name not in LABELS]
     j_dir, t_dir = str(tmp_path / 'jax'), str(tmp_path / 'port')
+    # book 07 serves its Viterbi decoding from the decode program
+    # (books.srl_decode), the others their prediction
+    t_prog, served = pair.t_main, pair.book.prediction
+    j_target = pair.j_fetch[-1]
+    if name == 'label_semantic_roles':
+        t_prog = pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(t_prog, pt.Program()):
+            _, served = books.srl_decode(**WIDTHS[name])
+        j_target = pair.book.decode.name
     with fluid.program_guard(pair.j_main), fluid.scope_guard(pair.j_scope):
         fluid.io.save_inference_model(
-            j_dir, feed_names, [pair.j_main.global_block().var(
-                pair.j_fetch[-1])], pair.j_exe, main_program=pair.j_main)
-    pt_io.save_inference_model(t_dir, feed_names, [pair.book.prediction],
-                               pair.t_exe, main_program=pair.t_main,
+            j_dir, feed_names, [pair.j_main.global_block().var(j_target)],
+            pair.j_exe, main_program=pair.j_main)
+    pt_io.save_inference_model(t_dir, feed_names, [served],
+                               pair.t_exe, main_program=t_prog,
                                scope=pair.t_scope)
     (qb,), (tqb,) = pair.batches(1, seed=5)
     feed = {n: v for n, v in j_feeder.feed(qb[:5]).items()
@@ -323,8 +498,9 @@ def test_saved_model_serves_like_jax_inferencer(name, tmp_path):
     with pt.serving.ModelServer(pt.CPUPlace(), max_batch_size=8) as server:
         server.load_model(name, t_dir)
         got, = server.infer(name, t_feed)
-    assert got.shape == np.asarray(ref).shape
-    np.testing.assert_allclose(got, np.asarray(ref), **SERVE_TOL)
+    got, ref = _rows(got), _rows(ref)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, **SERVE_TOL)
 
 
 def _diag_keys(diags):
@@ -445,7 +621,11 @@ def test_retry_reader_resumes_like_jax():
                                     ('wmt14.train', 100),
                                     ('wmt14.test', 100),
                                     ('imdb.train', 100),
-                                    ('imdb.test', 100)])
+                                    ('imdb.test', 100),
+                                    ('movielens.train', 100),
+                                    ('movielens.test', 100),
+                                    ('conll05.test', 60),
+                                    ('conll05.train', 60)])
 def test_synthetic_datasets_match_jax_sample_for_sample(name, n):
     mod, fn = name.split('.')
     args = (30000,) if mod == 'wmt14' else ()
@@ -468,10 +648,32 @@ def test_synthetic_datasets_match_jax_sample_for_sample(name, n):
         *args)(), n))
     assert len(t) == n
     for a, b in zip(j, t):
-        for x, y in zip(a if isinstance(a, tuple) else (a,),
-                        b if isinstance(b, tuple) else (b,)):
+        for x, y in zip(a if isinstance(a, (tuple, list)) else (a,),
+                        b if isinstance(b, (tuple, list)) else (b,)):
             np.testing.assert_array_equal(np.asarray(y), np.asarray(x))
     assert pt.dataset.is_synthetic()
+
+
+def test_movielens_and_conll05_tables_match_jax(tmp_path, monkeypatch):
+    """The dictionaries and sizes books 05 and 07 are built from, and
+    conll05's synthetic embedding file, written by each package under
+    its own data home, byte for byte."""
+    jm, tm = jpaddle.dataset.movielens, pt.dataset.movielens
+    for fn in ('max_user_id', 'max_movie_id', 'max_job_id',
+               'movie_categories', 'get_movie_title_dict', 'user_info',
+               'movie_info'):
+        assert getattr(tm, fn)() == getattr(jm, fn)(), fn
+    assert tm.age_table == jm.age_table
+    assert pt.dataset.conll05.get_dict() == jpaddle.dataset.conll05.get_dict()
+    monkeypatch.setenv('PADDLE_TPU_DATA_HOME', str(tmp_path / 'jax'))
+    monkeypatch.setenv('PADDLE_TPU_TORCH_DATA_HOME', str(tmp_path / 'port'))
+    j_path = jpaddle.dataset.conll05.get_embedding()
+    t_path = pt.dataset.conll05.get_embedding()
+    assert t_path.startswith(str(tmp_path / 'port'))
+    with open(j_path, 'rb') as f, open(t_path, 'rb') as g:
+        assert f.read() == g.read()
+    table = books.srl_embedding()
+    assert table.shape == (len(pt.dataset.conll05.get_dict()[0]), 32)
 
 
 def test_download_names_the_missing_file_and_serves_one_in_place(tmp_path):

@@ -8,7 +8,9 @@ a Router with its telemetry endpoint scraped, decodes through slotted,
 paged and disaggregated engines, runs the analyzer's command line, or
 trains with the new optimizers under a learning-rate schedule, weight
 normalisation, MSRA, Bilinear and host-drawn initializers, averages the
-model, and trains and serves book 06 on imdb's synthetic reviews),
+model, trains and serves book 06 on imdb's synthetic reviews, or trains
+books 05 and 07 on sparse tables with a calc_gradient beside the loss
+and book 07's chunk evaluator),
 its only ``http.server`` import is in ``observability/telemetry.py``,
 and its entry points default to the card."""
 import ast
@@ -252,6 +254,36 @@ with pt.serving.ModelServer(pt.CPUPlace(), max_batch_size=4) as server:
     served, = server.infer('sentiment',
                            {'words': feeder.feed(data)['words']})
 assert served.shape == (3, 2)
+import paddle_tpu_torch.dataset.movielens
+import paddle_tpu_torch.dataset.conll05
+import paddle_tpu_torch.evaluator
+import paddle_tpu_torch.ops.crf_ops
+os.environ['PADDLE_TPU_TORCH_DATA_HOME'] = tempfile.mkdtemp()
+prev = L.nn.set_sparse_fallback_threshold(0)
+for build, kw in ((books.recommender_system,
+                   dict(emb=4, small=4, feat=8, title_filters=4)),
+                  (books.label_semantic_roles, dict(hidden_dim=8, depth=2))):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        book = build(**kw)
+        books.train(book)
+        g, = pt.calc_gradient(book.loss, book.prediction)
+    feeder = paddle_tpu_torch.data_feeder.DataFeeder(
+        feed_list=book.feeds, place=pt.CPUPlace(), program=main)
+    exe.run(startup, scope=scope)
+    book.init(scope, pt.CPUPlace())
+    fetch = [book.loss, g]
+    if hasattr(book, 'evaluator'):
+        with pt.scope_guard(scope):
+            book.evaluator.reset(exe)
+        fetch += book.evaluator.metrics
+    out = exe.run(main, feed=feeder.feed(next(books.reader(book, 3)())),
+                  fetch_list=fetch, scope=scope)
+    assert np.isfinite(out[0]).all()
+    marker = [op for op in main.global_block().ops
+              if op.type == 'backward_marker'][0]
+    assert marker.attrs['sparse']
+L.nn.set_sparse_fallback_threshold(prev)
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))

@@ -395,19 +395,43 @@ def test_grads_and_accumulators_fetch_by_name():
 
 
 def test_sparse_embedding_raises(monkeypatch):
+    """The program that raised before sparse row gradients were ported
+    now trains like paddle_tpu's: the table's SGD steps touch only the
+    looked-up rows and equal the JAX package's to 1e-6."""
+    import paddle_tpu.layers.nn as jnn
     monkeypatch.setattr(pt.layers.nn, '_SPARSE_MIN_TABLE_ELEMS', [0])
-    main, startup = pt.Program(), pt.Program()
-    with pt.unique_name.guard(), pt.program_guard(main, startup):
-        ids = pt.layers.data(name='ids', shape=[4], dtype='int64')
-        emb = pt.layers.embedding(input=ids, size=[10, 3], is_sparse=True)
-        loss = pt.layers.mean(emb)
-        pt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    monkeypatch.setattr(jnn, '_SPARSE_MIN_TABLE_ELEMS', [0])
+
+    def build(pkg):
+        ids = pkg.layers.data(name='ids', shape=[4], dtype='int64')
+        emb = pkg.layers.embedding(input=ids, size=[10, 3], is_sparse=True)
+        loss = pkg.layers.mean(emb)
+        pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        return loss
+    j_main, j_startup, j_loss = _build(fluid, build)
+    t_main, _, t_loss = _build(pt, build)
+    assert _ops(t_main) == _ops(j_main)
+    j_scope = fluid.Scope()
+    j_exe = fluid.Executor(fluid.CPUPlace())
+    j_exe.run(j_startup, scope=j_scope)
+    table = np.asarray(j_scope.raw('embedding_0.w_0'))
     scope = pt.Scope()
+    pt_io.params_from_numpy(scope, {'embedding_0.w_0': table,
+                                    'learning_rate_0': np.array(
+                                        [0.1], 'float32')}, pt.CPUPlace())
     exe = pt.Executor(pt.CPUPlace())
-    exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match='sparse'):
-        exe.run(main, feed={'ids': np.zeros((2, 4), 'int64')},
-                fetch_list=[loss], scope=scope)
+    for ids in (np.array([[1, 2, 2, 3], [3, 4, 5, 1]], 'int64'),
+                np.array([[7, 7, 0, 1], [2, 2, 2, 2]], 'int64')):
+        j, = j_exe.run(j_main, feed={'ids': ids}, fetch_list=[j_loss],
+                       scope=j_scope)
+        t, = exe.run(t_main, feed={'ids': ids}, fetch_list=[t_loss],
+                     scope=scope)
+        np.testing.assert_allclose(t, np.asarray(j), rtol=1e-6)
+    got = pt.fetch_var('embedding_0.w_0', scope)
+    np.testing.assert_allclose(got, np.asarray(
+        j_scope.raw('embedding_0.w_0')), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(got[[6, 8, 9]], table[[6, 8, 9]])
+    assert not np.array_equal(got[2], table[2])
 
 
 def test_zero_stage_raises():
