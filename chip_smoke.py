@@ -233,9 +233,10 @@ non-zero) on failure:
    with a 2x2 max pool, fc 10) and 12d. VGG-16 (:40-48, 3x32x32, 10
    classes; batch norm and dropout): Momentum(0.01, 0.9) at batch 32 on
    one fixed batch, f32 (AMP off) and bf16 (AMP), warm-up then timed
-   steps: exact launches (mnist: 2 fused_conv a step, FMA in f32,
-   mma.sync in bf16; VGG-16: 13 stats-form launches, FMA in f32, the
-   stem and 12 wgmma in bf16), no fallback, finite losses; then 30 steps
+   steps: exact launches by variant (mnist: 2 fused_conv a step, tf32
+   in f32, mma.sync in bf16; VGG-16: 13 stats-form launches, tf32 in
+   f32, the stem and 12 wgmma in bf16), no fallback, finite losses; then
+   30 steps
    on one batch with dropout off, the mean of the last 5 losses under
    half the first; every
    region of one step held against its plain version per element (the
@@ -273,8 +274,9 @@ non-zero) on failure:
    steps with the loss finite and falling under a limit a book that
    learning rates 0 and minus the script's must fail, the accuracy on
    the card equal to the host's from the probabilities, exact launches
-   (recognize_digits 2 fused_conv a step, ResNet-32 33 stats-form; the
-   regions counted from the program) and no fallback; one f32 step held
+   by variant (recognize_digits 2 fused_conv a step, ResNet-32 33
+   stats-form: tf32 in f32, under AMP the stem, 23 mma_sync and 9 wgmma;
+   the regions counted from the program) and no fallback; one f32 step held
    against the same step on the CPU (loss and probabilities within 1e-4
    of their scale; the next batch and the parameters before training
    must fail); the book saved, loaded and served through
@@ -284,7 +286,8 @@ non-zero) on failure:
    recognize_digits' batch-64 step, of ResNet-32's batch-128 step, of
    its inference form at batch 128 (f32 and bf16) and of both books'
    served buckets (a request padded to each bucket the server used, f32)
-   held against its plain version and timed;
+   held against its plain version and timed, every f32 one also within
+   CONV_F64_WITNESS of the plain version's error against f64;
 14a. machine translation: full width (dict 8000, emb 256, hid 512, with
    peepholes), batch 64 of 24 words a side, a few Momentum steps (ms a
    step; no cell launch);
@@ -312,7 +315,7 @@ non-zero) on failure:
    and Momentum with a WeightNormParamAttr fc, on the card and on the CPU
    from one numpy state: every parameter and accumulator read with
    fetch_var within 1e-4 of its scale, the averages too and the restore
-   bit for bit, exactly 2 fused convs a step (the f32 FMA variant); the
+   bit for bit, exactly 2 fused convs a step (the tf32 variant); the
    controls (Adamax with its beta1 power unadvanced, RMSProp with its
    epsilon outside the square root) must fail; 16b, the flagship at full
    width and depth, batch 16, Adam(noam_decay(1024, 4000)), 5 steps:
@@ -441,6 +444,13 @@ PLAIN_GRAD_TOL = 0.15
 # the abs term holds the reordered sums where the output is near 0. A
 # kernel with the batch-norm shift dropped must fail it at every shape.
 CONV_TOL = {'bfloat16': (2 ** -7, 2 ** -8), 'float32': (1e-5, 1e-4)}
+# every f32 region (the tf32 kernel: three TF32 products, a_lo b_lo of
+# ~2^-22 a product dropped, the tensor cores' truncating adds held to one
+# k-step): its max |err| against the conv and its stages in f64 (y alone
+# in the stats form) at most this many times the plain f32 version's
+# (cuDNN's conv with TF32 off, f32 stages), as LSTM_F64_WITNESS holds the
+# cell
+CONV_F64_WITNESS = 2.0
 RESNET_BATCH = 32                      # the kernel phase's shapes
 # the conv kernel phase also checks every region shape at these batches
 # (bf16), and times the served ones (batch 1 and 8, where the wgmma
@@ -451,7 +461,8 @@ RESNET_REQUESTS = [1, 8, 32, 1, 8, 32]
 RESNET_REGIONS = 53                    # fused_conv ops of ResNet-50
 # the fused conv's variants a request (or a training step) launches: the
 # wgmma kernel for every region but the 7x7 stem (Cin 3)
-RESNET_VARIANTS = {'fma': 0, 'mma_sync': 0, 'wgmma': 52, 'stem': 1}
+RESNET_VARIANTS = {'fma': 0, 'mma_sync': 0, 'wgmma': 52, 'stem': 1,
+                   'tf32': 0}
 # whole ResNet-50, fused kernel vs the plain fused conv, bf16 activations
 # (AMP), on one batch-32 request: max |logits difference| over max
 # |plain logits|, and the share of images with the same top-1 class. Set
@@ -467,11 +478,12 @@ RESNET_TOP1 = 0.8
 # channel: |sum err| <= STATS_REL * sum |conv| and |sumsq err| <= STATS_REL
 # * sum conv^2; y is held by CONV_TOL. Both sides sum the same products in
 # f32 in another order; the bf16 kernel's tensor-core accumulation drifts
-# further from IEEE sums than the f32 kernel's FMA. Set from the sound
+# further from IEEE sums than the f32 kernel's. Set from the sound
 # readings on the H100 (PERF.md, Findings): at most 8.0e-6 (bf16, sum of
-# squares, the 7x7 3x3 convs with K = 4608) and 4.2e-7 (f32); the limits
-# are 3.7x and 4.8x that. A slab without its last slot reads 3650-5530x
-# the old 1e-5.
+# squares, the 7x7 3x3 convs with K = 4608) and 4.2e-7 (f32, an FMA
+# kernel then; the three-TF32-product kernel since reads at most 8.1e-7);
+# the limits are 3.7x and 2.5x that. A slab without its last slot reads
+# 3650-5530x the old 1e-5.
 STATS_REL = {'bfloat16': 3e-5, 'float32': 2e-6}
 STATS_CHECK_BATCH = 32                 # the stats phase's checked shapes
 STATS_SMALL_BATCHES = (1, 8)           # checked too, bf16 (K splits)
@@ -674,9 +686,17 @@ SASS_KERNELS = (
     ('lstm_cell', r'lstm_cell_', 8, 232, 40, False))
 
 
+# the fused conv's mma.sync kernels: (library, a pattern of the kernel's
+# mangled name, instances (tile widths: f32 16, 32, 64; bf16 8 to 64 in
+# steps of 8), the sass_counts column that must be non-zero: TF32 or BF16
+# HMMA)
+SASS_HMMA = {'fused_conv': ((r'conv_tf32_kernel', 3, 2),
+                            (r'conv_mma_sync_kernel', 8, 3))}
+
+
 def _kernel_label(mangled):
-    m = re.search(r'((?:flash_(?:fwd|bwd)|conv|lstm_cell)_\w+?_kernel)'
-                  r'ILi(\d+)'
+    m = re.search(r'(?<=\d)((?:flash_(?:fwd|bwd)|conv|lstm_cell)_\w+?'
+                  r'_kernel)ILi(\d+)'
                   r'(?:ELb([01]))?', mangled)
     if not m:
         return mangled
@@ -686,7 +706,8 @@ def _kernel_label(mangled):
 
 
 def sass_counts(lib_path):
-    """{kernel: (HGMMA, UTMALDG)} from the SASS of one built library."""
+    """{kernel: (HGMMA, UTMALDG, HMMA on TF32, HMMA on BF16)} from the
+    SASS of one built library."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     res = subprocess.run([tool, '-sass', lib_path], capture_output=True,
                          text=True, timeout=300)
@@ -696,10 +717,13 @@ def sass_counts(lib_path):
     for line in res.stdout.splitlines():
         if 'Function :' in line:
             name = line.split('Function :', 1)[1].strip()
-            counts[name] = [0, 0]
+            counts[name] = [0, 0, 0, 0]
         elif name is not None:
             counts[name][0] += 'HGMMA' in line
             counts[name][1] += 'UTMALDG' in line
+            hmma = re.search(r'\bHMMA\.\S+', line)
+            counts[name][2] += bool(hmma) and 'TF32' in hmma.group(0)
+            counts[name][3] += bool(hmma) and 'BF16' in hmma.group(0)
     return {n: tuple(c) for n, c in counts.items()}
 
 
@@ -729,7 +753,9 @@ def phase_sass():
     backward (merged and dk/dv pass) or dq pass (D 64 and 128), wgmma
     conv (tile widths 64, 128, 256) or LSTM cell (f32 and bf16, 8 to 64
     batch rows a block) has none of either, or a two-pass instance
-    spills; print ptxas's registers and spills for them."""
+    spills; fail if an instance of the fused conv's mma.sync kernels
+    holds no HMMA of its type (TF32 for the f32 kernel, BF16 for
+    mma_sync); print ptxas's registers and spills for them."""
     from paddle_tpu_torch.ops import _build
     for lib in sorted({row[0] for row in SASS_KERNELS}):
         rows = [row for row in SASS_KERNELS if row[0] == lib]
@@ -737,10 +763,14 @@ def phase_sass():
         usage = ptxas_usage(_build.build_log(lib))
         row_of = {n: next((r for r in rows if re.search(r[1], n)), None)
                   for n in counts}
-        for name, (hgmma, utmaldg) in sorted(counts.items()):
+        for name, (hgmma, utmaldg, tf32, bf16) in sorted(counts.items()):
             regs, row = usage.get(name), row_of[name]
-            print('sass: %s %s: %d HGMMA, %d UTMALDG%s' % (
+            print('sass: %s %s: %d HGMMA, %d UTMALDG%s%s' % (
                 lib, _kernel_label(name), hgmma, utmaldg,
+                ', %d HMMA on TF32, %d on BF16%s' % (
+                    tf32, bf16, '; ptxas: %d registers, spill stores %d B, '
+                    'spill loads %d B' % regs if regs and not row else '')
+                if tf32 or bf16 else '',
                 '; ptxas: %d registers at entry (setmaxnreg: %d a consumer '
                 'thread, %d a producer thread), spill stores %d B, spill '
                 'loads %d B' % ((regs[0], row[3], row[4]) + regs[1:])
@@ -753,6 +783,16 @@ def phase_sass():
             print('sass: %s ptxas: %s' % (lib, line), flush=True)
         check(not any('setmaxnreg' in l for l in notes),
               '%s: ptxas ignored setmaxnreg' % lib)
+        # the fused conv's mma.sync kernels on the tensor cores: each f32
+        # (tf32) instance's products in TF32 HMMA, each bf16 (mma_sync)
+        # one's in BF16 HMMA, one instance a tile width
+        for kernel, instances, col in SASS_HMMA.get(lib, ()):
+            ours = [n for n in counts if re.search(kernel, n)]
+            for name in ours:
+                check(counts[name][col] > 0, '%s has no %s HMMA' % (
+                    _kernel_label(name), 'TF32' if col == 2 else 'BF16'))
+            check(len(ours) == instances, '%s: expected %d instances of %s, '
+                  'found %d' % (lib, instances, kernel, len(ours)))
         for row in rows:
             _, kernel, instances, _, _, no_spill = row
             ours = [n for n in counts if row_of[n] == row]
@@ -760,7 +800,7 @@ def phase_sass():
                   'the %s kernel, found %s' % (lib, instances, kernel,
                                                ours))
             for name in ours:
-                check(min(counts[name]) > 0, '%s has no %s' % (
+                check(min(counts[name][:2]) > 0, '%s has no %s' % (
                     _kernel_label(name),
                     'HGMMA' if counts[name][0] == 0 else 'UTMALDG'))
                 check(name in usage, 'no ptxas report for %s' % name)
@@ -1297,13 +1337,18 @@ def _taps(size, k, s, p):
     return len(set(inside)), len(inside)
 
 
-def conv_bound(x, w, aux, out, k, s, p, depthwise, extra_bytes=0):
-    """Least time for one fused conv on these tensors: its products
-    (2 operations a tap inside the input, per output channel and input
-    channel, one input channel a channel when depthwise) at the dtype's
-    peak, or the bytes it must move over HBM, whichever is longer: the
-    input pixels the conv reads, w, the aux operands, the output and
-    ``extra_bytes`` (the stats form's moments), each once."""
+def conv_bound(x, w, aux, out, k, s, p, depthwise, extra_bytes=0,
+               ffma=False):
+    """Least time for one fused conv on these tensors on the kernel's
+    route: its products (2 operations a tap inside the input, per output
+    channel and input channel, one input channel a channel when
+    depthwise) at the route's peak, or the bytes it must move over HBM,
+    whichever is longer: the input pixels the conv reads, w, the aux
+    operands, the output and ``extra_bytes`` (the stats form's moments),
+    each once. The f32 route (tf32, not depthwise) takes three TF32
+    products at the tensor cores' TF32 peak, as ``lstm_bound`` does;
+    with ``ffma`` one product at the CUDA cores' f32 peak instead (the
+    bound of an FFMA kernel, printed beside)."""
     N, H, W, cin = x.shape
     cout = out.shape[3]
     read_h, taps_h = _taps(H, k, s, p)
@@ -1312,9 +1357,47 @@ def conv_bound(x, w, aux, out, k, s, p, depthwise, extra_bytes=0):
     nbytes = (N * read_h * read_w * cin * x.element_size() + extra_bytes +
               sum(t.numel() * t.element_size() for t in [w, out] + aux))
     dtype = str(x.dtype).replace('torch.', '')
+    if dtype == 'float32' and not depthwise and not ffma:
+        flops, dtype = 3 * flops, 'tf32'
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def conv_f64_errors(got, ref, x, w, aux, kinds, stages, strides, pads,
+                    depthwise):
+    """(max |got - exact|, max |ref - exact|), exact the conv and its
+    stages in f64 on the same operands."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    xc = x.double().permute(0, 3, 1, 2)
+    wc = w.double().permute(2, 0, 1).unsqueeze(1) if depthwise else \
+        w.double().permute(0, 3, 1, 2)
+    exact = F.conv2d(xc, wc, stride=tuple(strides), padding=tuple(pads),
+                     groups=x.shape[3] if depthwise else 1).permute(
+                         0, 2, 3, 1)
+    fetch = ck.aux_fetcher(aux, kinds)
+    for st in stages:
+        exact = ck.apply_stage(exact, st, lambda i: fetch(i).double())
+    return tuple((t.double() - exact).abs().max().item() for t in (got, ref))
+
+
+def check_f64_witness(got, ref, args, what, images=None):
+    """Hold an f32 region to CONV_F64_WITNESS: returns its (kernel,
+    plain) errors against f64; with ``images`` on the batch's first
+    ``images`` images only (the conv and its per-sample operands sliced;
+    the f64 conv of a whole ResNet-50 batch costs seconds)."""
+    if images is not None:
+        x, w, aux, kinds = args[:4]
+        aux = [a[:images] if kind in ('nc', 't') else a
+               for a, kind in zip(aux, kinds)]
+        got, ref = got[:images], ref[:images]
+        args = (x[:images], w, aux) + tuple(args[3:])
+    errs = conv_f64_errors(got, ref, *args)
+    check(errs[0] <= CONV_F64_WITNESS * errs[1], 'fused_conv at %s: %.3g '
+          'from f64, more than %g x the plain f32 version\'s %.3g' % (
+              what, errs[0], CONV_F64_WITNESS, errs[1]))
+    return errs
 
 
 def conv_err_ratio(got, ref, dtype):
@@ -1422,16 +1505,19 @@ def phase_conv_kernels(seed):
             else ('c', 'c')
 
     def check_case(x, w, aux, kinds, stages, s, p, dw, dtype, what):
-        """Per element against the plain version, twice bit for bit
-        (bf16), and the control with the batch-norm shift dropped: (max
-        |err|, err / limit, the control's err / limit or None)."""
+        """Per element against the plain version, twice bit for bit, f32
+        within CONV_F64_WITNESS, and the control with the batch-norm
+        shift dropped: (max |err|, err / limit, the control's err / limit
+        or None)."""
         args = (x, w, aux, kinds, stages, (s, s), (p, p), dw)
         got = ck.fused_conv(*args)
-        same = dtype != 'bfloat16' or torch.equal(got, ck.fused_conv(*args))
+        same = torch.equal(got, ck.fused_conv(*args))
         torch.cuda.synchronize()
         ref = ck.fused_conv_reference(*args)
         err = (got.float() - ref.float()).abs().max().item()
         ratio = conv_err_ratio(got, ref, dtype)
+        if dtype == 'float32':
+            check_f64_witness(got, ref, args, what, images=1)
         shift = [st[2] for st in stages if st[0] == 'affine']
         control = None
         if shift:
@@ -1556,11 +1642,11 @@ def phase_conv_kernels(seed):
 
 
 def _plan_label(plan):
-    """A FusedConvPlan as a short label: variant, tile width, K
-    splits."""
-    if plan.variant != 'wgmma':
+    """A FusedConvPlan as a short label: variant, tile width, K splits
+    (wgmma: blocks that share K; tf32, mma_sync: a block's warps)."""
+    if plan.variant in ('fma', 'stem'):
         return plan.variant
-    return 'wgmma BN %d splits %d' % (plan.bn, plan.splits)
+    return '%s BN %d splits %d' % plan
 
 
 def _wrong_conv(mode):
@@ -2974,11 +3060,13 @@ def _stats_ratios(x, w, s, p, dw, y, ssum, ssq, dtype):
             (y.float() - conv.to(x.dtype).float()).abs().max().item())
 
 
-def _check_stats_case(x, w, s, p, dw, dtype):
+def _check_stats_case(x, w, s, p, dw, dtype, witness_images=None):
     """Hold the stats form at one shape against its plain version: y per
     element, the moments per channel; and the slab without its last slot
     (a kernel that drops the last row tile's partial), which must fail
-    where M is not a multiple of the slot. Returns max |y err|."""
+    where M is not a multiple of the slot; f32: y to CONV_F64_WITNESS
+    (on the first ``witness_images`` images where given). Returns max |y
+    err|."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
     rows = ck.FUSED_CONV_STAT_ROWS
@@ -2993,6 +3081,15 @@ def _check_stats_case(x, w, s, p, dw, dtype):
     same = torch.equal(y, y2) and torch.equal(slab, slab2)
     ratios = _stats_ratios(x, w, s, p, dw, *got, dtype)
     cout, M = y.shape[3], y.shape[0] * y.shape[1] * y.shape[2]
+    witness = ''
+    if dtype == 'float32':
+        args = (x, w, (), (), (), (s, s), (p, p), dw)
+        errs = check_f64_witness(
+            y, ck.fused_conv_reference(*args), args,
+            'the stats form N=%d %dx%d Cin=%d Cout=%d s=%d' % (
+                N, H, W, cin, y.shape[3], s), images=witness_images)
+        witness = '; y against f64: kernel %.3g, plain %.3g (limit %gx)' % (
+            errs + (CONV_F64_WITNESS,))
     control = None
     if M % rows:
         control = max(_stats_ratios(x, w, s, p, dw, y, slab[0, :-1].sum(0),
@@ -3005,7 +3102,7 @@ def _check_stats_case(x, w, s, p, dw, dtype):
               ' depthwise' if dw else '', dtype, M, ratios[0], ratios[3],
               ratios[1], ratios[2], STATS_REL[dtype],
               'n/a (M %% %d == 0)' % rows if control is None
-              else '%.3g' % control, same), flush=True)
+              else '%.3g' % control, same) + witness, flush=True)
     what = 'N=%d %dx%d Cin=%d Cout=%d s=%d %s' % (N, H, W, cin, cout, s,
                                                   dtype)
     check(same, 'fused_conv_stats gave other bits on a second call at '
@@ -3043,7 +3140,8 @@ def phase_stats_kernels(seed, main, loss):
         for dtype in ('bfloat16', 'float32'):
             x, w, _ = _conv_inputs(gen, dtype, N, H, W, cin, cout, k, s, p,
                                    dw, ('c', 'c'))
-            err = _check_stats_case(x, w, s, p, dw, dtype)
+            err = _check_stats_case(x, w, s, p, dw, dtype,
+                                    witness_images=1)
             if dtype == 'bfloat16':
                 max_err = max(max_err, err)
             del x, w
@@ -3497,12 +3595,13 @@ BENCH_SERVE_MAX = 32
 BENCH_REQUESTS = [1, 3, 8, 17, 32]
 # fused_conv regions a step, request or served batch, and their kernel
 # variants by precision: mnist's convs (Cin 1 and 20, Cout 20 and 50, 5x5)
-# take the FMA kernel in f32 and mma.sync in bf16 (the stem refuses Cout %
-# 8); VGG-16's stem (Cin 3) the stem kernel, its other twelve wgmma
+# take the three-TF32-product kernel in f32 and mma.sync in bf16 (the stem
+# refuses Cout % 8); VGG-16's 13 take tf32 in f32, and in bf16 its stem
+# (Cin 3) the stem kernel, its other twelve wgmma
 BENCH_REGIONS = {'mnist': 2, 'vgg': 13}
 BENCH_VARIANTS = {
-    'mnist': {'float32': {'fma': 2}, 'bfloat16': {'mma_sync': 2}},
-    'vgg': {'float32': {'fma': 13}, 'bfloat16': {'stem': 1, 'wgmma': 12}}}
+    'mnist': {'float32': {'tf32': 2}, 'bfloat16': {'mma_sync': 2}},
+    'vgg': {'float32': {'tf32': 13}, 'bfloat16': {'stem': 1, 'wgmma': 12}}}
 # kernel vs plain fused conv, the served logits: max |diff| over max
 # |logits|. f32 (AMP off): the same products summed in another order, a
 # few ulps a layer; bf16 (AMP): each region's output rounds to bf16
@@ -3776,13 +3875,15 @@ def _hold_regions(label, context, calls, totals, sum_dtypes=('bfloat16',),
     bit, a control that must fail (the inference form: the next output
     channel's filters; the stats form: the slab without its last slot
     where M is not a multiple of it), and kernel, plain
-    version, cuDNN's conv alone and the bound timed. The regions of
-    ``sum_dtypes`` (by default bf16, the card's default, AMP) add to
-    ``totals['<form> <context>']`` (with more than one dtype,
-    ``'<form> <context> <dtype>'``): {ms, plain_ms, library_ms,
-    bound_ms, max_abs_err, regions}, one step's or one request's sums.
-    With ``dedupe`` each distinct region is held and timed once and
-    counted as often as it was recorded."""
+    version, cuDNN's conv alone and the bound timed; an f32 region is
+    also held to CONV_F64_WITNESS and printed with the bound of an FFMA
+    kernel beside its own. The regions of ``sum_dtypes`` (by default
+    bf16, the card's default, AMP) add to ``totals['<form> <context>']``
+    (with more than one dtype, ``'<form> <context> <dtype>'``) and to the
+    same key followed by the kernel's variant: {ms, plain_ms,
+    library_ms, bound_ms, max_abs_err, regions}, one step's or one
+    request's sums. With ``dedupe`` each distinct region is held and
+    timed once and counted as often as it was recorded."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels as ck
@@ -3799,7 +3900,9 @@ def _hold_regions(label, context, calls, totals, sum_dtypes=('bfloat16',),
         cout, k = w.shape[0], w.shape[1]
         args = (x, w, aux, kinds, stages, st, pd, dw)
         plan = ck.fused_conv_plan(x.dtype, N, H, W, cin, cout, k, k, st, pd,
-                                  dw, ck._sm_count(x.device.index or 0))
+                                  dw, ck._sm_count(x.device.index or 0),
+                                  emit_stats=stats)
+        witness = ''
         if stats:
             err = _check_stats_case(x, w, st[0], pd[0], dw, dtype)
             call = lambda: ck.fused_conv(*args, emit_stats=True)  # noqa
@@ -3821,12 +3924,20 @@ def _hold_regions(label, context, calls, totals, sum_dtypes=('bfloat16',),
                   'at ' + what)
             check(control > 1, 'the per-element limit does not catch '
                   'the next channel\'s filters at ' + what)
+            if dtype == 'float32':
+                witness = '; against f64: kernel %.3g, plain %.3g (limit ' \
+                    '%gx)' % (check_f64_witness(got, ref, args, what) +
+                              (CONV_F64_WITNESS,))
             call = lambda: ck.fused_conv(*args)  # noqa
             plain = lambda: ck.fused_conv_reference(*args)  # noqa
         out = x.new_empty((N, (H + 2 * pd[0] - k) // st[0] + 1,
                            (W + 2 * pd[1] - k) // st[1] + 1, cout))
         bound_ms, by = conv_bound(x, w, list(aux), out, k, st[0], pd[0], dw,
                                   extra_bytes=8 * cout if stats else 0)
+        if dtype == 'float32' and not dw:
+            witness += '; FFMA bound_ms %.4f (%s)' % conv_bound(
+                x, w, list(aux), out, k, st[0], pd[0], dw,
+                extra_bytes=8 * cout if stats else 0, ffma=True)
         kernel_ms = graph_ms(call)
         plain_ms = graph_ms(plain, iters=3, reps=3)
         xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
@@ -3834,7 +3945,7 @@ def _hold_regions(label, context, calls, totals, sum_dtypes=('bfloat16',),
                                                padding=pd))
         print('kernel %s %s region%s N=%d %dx%d Cin=%d Cout=%d K=%d s=%d '
               'p=%d %s [%s] %s: max|err| %.3g%s; kernel_ms %.4f plain_ms %.4f '
-              'cudnn_ms %.4f bound_ms %.4f (%s)' % (
+              'cudnn_ms %.4f bound_ms %.4f (%s)%s' % (
                   'fused_conv_stats' if stats else 'fused_conv', label,
                   ' (x%d)' % count if count > 1 else '', N, H,
                   W, cin, cout, k, st[0], pd[0], dtype,
@@ -3842,20 +3953,22 @@ def _hold_regions(label, context, calls, totals, sum_dtypes=('bfloat16',),
                   _plan_label(plan), err, '' if stats else
                   ', err/limit %.3g (next channel\'s filters: %.3g), two '
                   'calls bit-identical' % (ratio, control), kernel_ms,
-                  plain_ms, library_ms, bound_ms, by), flush=True)
+                  plain_ms, library_ms, bound_ms, by, witness), flush=True)
         if dtype not in sum_dtypes:
             continue
-        t = totals.setdefault('%s %s%s' % (
-            'fused_conv_stats' if stats else 'fused_conv', context,
-            ' ' + dtype if len(sum_dtypes) > 1 else ''),
-            dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                 max_abs_err=0.0, regions=0))
-        t['ms'] += kernel_ms * count
-        t['plain_ms'] += plain_ms * count
-        t['library_ms'] += library_ms * count
-        t['bound_ms'] += bound_ms * count
-        t['max_abs_err'] = max(t['max_abs_err'], err)
-        t['regions'] += count
+        key = '%s %s%s' % ('fused_conv_stats' if stats else 'fused_conv',
+                           context, ' ' + dtype if len(sum_dtypes) > 1
+                           else '')
+        for total in (key, '%s %s' % (key, plan.variant)):
+            t = totals.setdefault(total, dict(
+                ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                max_abs_err=0.0, regions=0))
+            t['ms'] += kernel_ms * count
+            t['plain_ms'] += plain_ms * count
+            t['library_ms'] += library_ms * count
+            t['bound_ms'] += bound_ms * count
+            t['max_abs_err'] = max(t['max_abs_err'], err)
+            t['regions'] += count
 
 
 def _bench_train(name, seed, card, precision):
@@ -4131,18 +4244,20 @@ def phase_bench_model(name, seed, card, art_dir):
         _bench_fit(name, seed, precision)
         for n in launches:
             launches[n] += counted[n]
-        _hold_regions('%s training' % name, 'training', calls, totals)
+        _hold_regions('%s training' % name, 'training', calls, totals,
+                      sum_dtypes=('float32', 'bfloat16'))
         del calls
     served, calls = _bench_serve(name, seed, exe, main, scope, pred, art_dir)
     launches['fused_conv'] += served
-    _hold_regions('%s serving' % name, 'serving', calls, totals)
+    _hold_regions('%s serving' % name, 'serving', calls, totals,
+                  sum_dtypes=('float32', 'bfloat16'))
     del exe, scope, calls
     if name == 'vgg':
         _vgg_gradients(seed)
     for key, t in sorted(totals.items()):
-        print('%s regions, %s, bf16 (AMP), one batch-%d step or request: %d '
-              'regions, summed kernel %.4f ms, plain %.4f ms, cuDNN conv '
-              'alone %.4f ms, bound %.4f ms; %s' % (
+        print('%s regions, %s, one batch-%d step or request: %d regions, '
+              'summed kernel %.4f ms, plain %.4f ms, cuDNN conv alone %.4f '
+              'ms, bound %.4f ms; %s' % (
                   name, key, BENCH_BATCH, t['regions'], t['ms'],
                   t['plain_ms'], t['library_ms'], t['bound_ms'], card),
               flush=True)
@@ -4173,6 +4288,15 @@ BOOK_FALL = {'fit_a_line': 0.6, 'recognize_digits_conv': 0.5,
 # ResNet-32's 31 3x3 convs and 2 1x1 projections, each with its batch
 # norm (the stats form in training)
 BOOK_REGIONS = {'recognize_digits_conv': 2, 'image_classification': 33}
+# ... by the fused conv's variant and precision: every f32 conv on the
+# three-TF32-product kernel; ResNet-32 under AMP: its 3-channel stem on the
+# stem kernel, the 23 convs from 16 and 32 channels on mma_sync, the 9
+# from 64 on wgmma (served in f32)
+BOOK_VARIANTS = {
+    'recognize_digits_conv': {'f32': {'tf32': 2}},
+    'image_classification': {'f32': {'tf32': 33},
+                             'bf16': {'stem': 1, 'mma_sync': 23,
+                                      'wgmma': 9}}}
 # one f32 step on the card (TF32 off) against the same step of the port
 # on the CPU from the same parameters and feed: max |diff| over max
 # |value| of the loss and of the probabilities (two f32 implementations
@@ -4333,8 +4457,10 @@ def _book_check_run(name, run, precision, card):
         expect[form] = BOOK_REGIONS[name] * steps
     check(run['launches'] == expect, '%s training launches %s, expected %s'
           % (name, run['launches'], expect))
-    check(sum(run['variants'].values()) == sum(expect.values()),
-          '%s: the fused conv by variant %s' % (name, run['variants']))
+    want = {v: c * steps for v, c in
+            BOOK_VARIANTS.get(name, {}).get(precision, {}).items()}
+    check(run['variants'] == want, '%s: the fused conv by variant %s, '
+          'expected %s' % (name, run['variants'], want))
     check(not run['fallbacks'], '%s fell back: %s' % (name,
                                                       run['fallbacks']))
 
@@ -4469,6 +4595,8 @@ def _book_serve(name, run, art_dir, record=False):
                 got.sum(-1), 1.0, atol=1e-4) if name != 'fit_a_line'
                 else np.isfinite(got).all(), '%s answers' % name)
         launches = dict(ck.LAUNCHES)
+        variants = {v: c for v, c in ck.FUSED_CONV_VARIANT_LAUNCHES.items()
+                    if c}
         fallbacks = dict(passes.FALLBACKS)
         if name in BOOK_REGIONS:
             # the served shapes: one request padded to each bucket used
@@ -4490,15 +4618,20 @@ def _book_serve(name, run, art_dir, record=False):
     served = launches['fused_conv']
     print('book %s serving: ModelServer(CUDAPlace(0)), f32, requests of %s '
           'rows (buckets %s): %s ms (host clock), every answer bit-equal '
-          'to a direct run padded to its bucket; launches %s, fallbacks %s'
-          % (name, BOOK_REQUESTS, buckets, ', '.join(
-              '%.2f' % (1e3 * t) for t in times),
-              {n: c for n, c in launches.items() if c}, fallbacks),
-          flush=True)
+          'to a direct run padded to its bucket; launches %s, the fused '
+          'conv by variant %s, fallbacks %s' % (
+              name, BOOK_REQUESTS, buckets, ', '.join(
+                  '%.2f' % (1e3 * t) for t in times),
+              {n: c for n, c in launches.items() if c}, variants,
+              fallbacks), flush=True)
     expect = {n: 0 for n in launches}
     expect['fused_conv'] = BOOK_REGIONS.get(name, 0) * len(BOOK_REQUESTS)
     check(launches == expect, '%s served with launches %s, expected %s'
           % (name, launches, expect))
+    want = {v: c * len(BOOK_REQUESTS) for v, c in
+            BOOK_VARIANTS.get(name, {}).get('f32', {}).items()}
+    check(variants == want, '%s served the fused conv by variant %s, '
+          'expected %s' % (name, variants, want))
     check(not fallbacks, '%s serving fell back: %s' % (name, fallbacks))
     return served, calls
 
@@ -7600,6 +7733,10 @@ def _fe_optimizers(seed, card):
         expect['fused_conv'] = BENCH_REGIONS['mnist'] * FE_STEPS
         check(step_launches == expect, '16a %s launches %s, expected %s'
               % (label, step_launches, expect))
+        want = {v: c * FE_STEPS for v, c in
+                BENCH_VARIANTS['mnist']['float32'].items()}
+        check(step_variants == want, '16a %s: the fused conv by variant %s, '
+              'expected %s' % (label, step_variants, want))
         check(step_variants == {v: c * FE_STEPS for v, c in BENCH_VARIANTS[
             'mnist']['float32'].items()}, '16a %s: the fused conv by variant '
               '%s' % (label, step_variants))
@@ -8621,6 +8758,9 @@ def _sp_mnist_input_grad(seed, card):
     expect['fused_conv'] = 2 * BENCH_REGIONS['mnist']
     check(launches == expect, '17c mnist launches %s, expected %s'
           % (launches, expect))
+    want = {v: 2 * c for v, c in BENCH_VARIANTS['mnist']['float32'].items()}
+    check(variants == want, '17c mnist: the fused conv by variant %s, '
+          'expected %s' % (variants, want))
     check(not passes.FALLBACKS, '17c mnist fell back: %s'
           % passes.FALLBACKS)
     return launches
@@ -9002,6 +9142,65 @@ def sweep_conv_plans(card):
             del x, w, aux, args, xc, wc
 
 
+# the tf32 and mma_sync kernels' sweep: (N, H, W, Cin, Cout, K, stride,
+# pad) of mnist's, recognize_digits', ResNet-32's and VGG-16's regions at
+# their batches
+SWEEP_MMA_SHAPES = (
+    (32, 28, 28, 1, 20, 5, 1, 0), (64, 28, 28, 1, 20, 5, 1, 0),
+    (1, 28, 28, 1, 20, 5, 1, 0), (32, 12, 12, 20, 50, 5, 1, 0),
+    (64, 12, 12, 20, 50, 5, 1, 0), (1, 12, 12, 20, 50, 5, 1, 0),
+    (128, 32, 32, 3, 16, 3, 1, 1), (128, 32, 32, 16, 16, 3, 1, 1),
+    (32, 32, 32, 16, 16, 3, 1, 1), (1, 32, 32, 16, 16, 3, 1, 1),
+    (128, 32, 32, 16, 32, 3, 2, 1), (128, 16, 16, 32, 32, 3, 1, 1),
+    (32, 16, 16, 32, 32, 3, 1, 1), (1, 16, 16, 32, 32, 3, 1, 1),
+    (128, 16, 16, 32, 64, 3, 2, 1), (128, 8, 8, 64, 64, 3, 1, 1),
+    (32, 8, 8, 64, 64, 3, 1, 1), (1, 8, 8, 64, 64, 3, 1, 1),
+    (32, 32, 32, 64, 64, 3, 1, 1), (32, 16, 16, 128, 128, 3, 1, 1),
+    (32, 8, 8, 256, 256, 3, 1, 1), (32, 4, 4, 512, 512, 3, 1, 1),
+    (32, 2, 2, 512, 512, 3, 1, 1))
+
+
+def sweep_mma_plans(card):
+    """The tf32 and mma_sync kernels' time at every count of warps that
+    share K (1, 2, 4) at SWEEP_MMA_SHAPES in f32 and bf16 (the folded
+    batch norm and relu), beside the plan's pick and cuDNN's conv: the
+    data behind cuda_kernels.fused_conv_plan's rule for these routes.
+    Not part of the smoke run (``--sweep-mma``)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    stages = (('affine', 0, 1), ('act', 'relu'))
+    sms = ck._sm_count(0)
+    print('sweep: %s, %d SMs; ms per call (CUDA graph replays)' % (card, sms),
+          flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for (n, H, W, cin, cout, k, s, p) in SWEEP_MMA_SHAPES:
+            pick = ck.fused_conv_plan(dtype, n, H, W, cin, cout, k, k,
+                                      (s, s), (p, p), False, sms)
+            if pick.variant not in ('tf32', 'mma_sync'):
+                continue
+            x = torch.randn(n, H, W, cin, device='cuda').to(dtype)
+            w = (torch.randn(cout, k, k, cin, device='cuda') *
+                 (2.0 / (k * k * cin)) ** 0.5).to(dtype)
+            aux = [torch.rand(1, cout, device='cuda') + 0.5,
+                   torch.randn(1, cout, device='cuda')]
+            args = (x, w, aux, ('c', 'c'), stages, (s, s), (p, p), False)
+            times = {}
+            for splits in (1, 2, 4):
+                plan = pick._replace(splits=splits)
+                times[splits] = graph_ms(
+                    lambda: ck._fused_conv_launch(*args, plan=plan))
+            xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
+            library_ms = graph_ms(lambda: F.conv2d(xc, wc, stride=s,
+                                                   padding=p))
+            print('sweep %s N=%d %dx%d Cin=%d Cout=%d K=%d s=%d: plan %s, '
+                  'splits 1 / 2 / 4 %.4f / %.4f / %.4f, cudnn %.4f' % (
+                      str(dtype)[6:], n, H, W, cin, cout, k, s,
+                      _plan_label(pick), times[1], times[2], times[4],
+                      library_ms), flush=True)
+            del x, w, aux, args, xc, wc
+
+
 HOST_COST_BATCHES = (1, 8)
 HOST_COST_PASSES = 60      # timed passes over a request's 53 launches
 HOST_COST_REQUESTS = 30    # timed requests a batch
@@ -9281,6 +9480,10 @@ def main():
     ap.add_argument('--sweep-conv', action='store_true',
                     help='time the wgmma conv at every tile width and K '
                     'split at the ResNet-50 shapes, then stop')
+    ap.add_argument('--sweep-mma', action='store_true',
+                    help='time the tf32 and mma_sync convs at every count '
+                    'of warps that share K at the books\' shapes, then '
+                    'stop')
     ap.add_argument('--host-cost', action='store_true',
                     help="time the fused conv and LSTM cell wrappers' host "
                     'cost, served ResNet-50 requests at batch 1 and 8 and '
@@ -9321,6 +9524,9 @@ def run_phases(args, card, root):
     import torch
     if args.sweep_conv:
         sweep_conv_plans(card)
+        return 0
+    if args.sweep_mma:
+        sweep_mma_plans(card)
         return 0
     if args.host_cost:
         host_cost_lstm(card, root, args.seed)
@@ -9427,7 +9633,7 @@ def run_phases(args, card, root):
     # over recognize_digits' training steps and both conv books' served
     # batches (13b); their regions' sums beside
     def bench_totals(form):
-        return {'%s %s' % (name, key.split()[1]): t
+        return {'%s %s' % (name, key.split(' ', 1)[1]): t
                 for name, (_, totals) in sorted(bench.items())
                 for key, t in sorted(totals.items())
                 if key.split()[0] == form}

@@ -1,6 +1,7 @@
-// Device helpers shared by the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu). Each source still builds into a library of its own;
-// ops/_build.py passes -I csrc and hashes this header with every source.
+// Device helpers shared by the kernels (flash_attn_fwd.cu,
+// flash_attn_bwd.cu, fused_conv.cu, lstm_cell.cu). Each source still
+// builds into a library of its own; ops/_build.py passes -I csrc and
+// hashes this header with every source.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,6 +26,36 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b on the tensor cores in TF32: a 16x8 A fragment, an 8x8 B
+// fragment (two registers), f32 accumulate. A: a0..a3 = (row g, k t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4); B: b0, b1 = (k t, col g),
+// (t + 4, g); d as mma_bf16_16816's (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as hi + lo, each a TF32 value: f32 accuracy from TF32 products as
+// a_hi b_hi + a_hi b_lo + a_lo b_hi (a_lo b_lo, ~2^-22 of the product,
+// dropped)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // Two f32 values rounded to bf16 and packed, lo in the low half.

@@ -184,20 +184,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x as hi + lo, each a TF32 value
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
 // ---- wgmma with A from registers, B from shared memory (K-major) ----------
 // d += A B for one m64nNk8 (tf32) or m64nNk16 (bf16) step; d is the
 // m16n8 C layout per warp (hopper.cuh). A's fragment: tf32, a[0..3] =

@@ -3,9 +3,11 @@
 Each source under ``paddle_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
 into ``build/torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``). Libraries are named by a hash of their source, the
-shared headers and the flags, so an edited kernel is rebuilt and a stale
-one is never loaded. They are
+``.gitignore``); a library of several sources (the fused conv's) has
+each compiled to an object, all started together with the other
+libraries' compiles, then linked. Libraries are named by a hash of their
+sources, the shared headers and the flags, so an edited kernel is
+rebuilt and a stale one is never loaded. They are
 loaded with ``ctypes``; pointers and the stream are passed as
 ``c_void_p``. Each build keeps the compiler's output (with ``ptxas -v``:
 every kernel's registers, shared memory and spills) beside its library,
@@ -28,12 +30,15 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'torch_kernels')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
               '-I', CSRC_DIR]
+# one source of a library of several: an object, linked after
+_OBJ_FLAGS = [f for f in NVCC_FLAGS if f != '-shared'] + ['-c']
 # headers every source may include; part of each library's hash
-HEADERS = ('common.cuh', 'hopper.cuh')
+HEADERS = ('common.cuh', 'hopper.cuh', 'fused_conv.cuh',
+           'fused_conv_mma.cuh')
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-# library name -> (source file, {C function: argtypes})
+# library name -> (source file or files, {C function: argtypes})
 KERNELS = {
     'flash_attn_fwd': ('flash_attn_fwd.cu', {
         # q, k, v, o, lse, B, T, H, D, variant, causal, stream
@@ -48,7 +53,8 @@ KERNELS = {
         # (int32), B, T, H, D, is_bf16, causal, q_tile, stream
         'flash_attn_bwd_dkvdq': [_P] * 10 + [_I] * 7 + [_P],
     }),
-    'fused_conv': ('fused_conv.cu', {
+    'fused_conv': (('fused_conv.cu', 'fused_conv_tf32.cu',
+                    'fused_conv_mma_sync.cu'), {
         # &FusedConvArgs (cuda_kernels._FusedConvArgs), stream
         'fused_conv': [_P, _P],
         # the same, with the stats form's slab (emit_stats)
@@ -74,9 +80,14 @@ def _nvcc():
     return path
 
 
+def _sources(name):
+    src = KERNELS[name][0]
+    return (src,) if isinstance(src, str) else tuple(src)
+
+
 def library_path(name):
     digest = hashlib.sha1()
-    for fname in (KERNELS[name][0],) + HEADERS:
+    for fname in _sources(name) + HEADERS:
         with open(os.path.join(CSRC_DIR, fname), 'rb') as f:
             digest.update(f.read())
     digest.update(' '.join(NVCC_FLAGS).encode())
@@ -95,30 +106,55 @@ def build_log(name):
 
 def build_all(names=None):
     """Compile every kernel library that is not built yet, one ``nvcc``
-    per source, all started together. Returns {name: seconds} for the
+    per source, all started together (a library of several sources is
+    linked once its objects are built). Returns {name: seconds} for the
     ones it built. Raises with the compiler's output if one fails."""
     import time
     names = list(KERNELS) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
+
+    def start(cmd):
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
     for name in names:
         out = library_path(name)
         if os.path.exists(out):
             continue
         tmp = '%s.%d.tmp' % (out, os.getpid())
-        cmd = [_nvcc()] + NVCC_FLAGS + [
-            '-o', tmp, os.path.join(CSRC_DIR, KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT), tmp, out)
+        srcs = [os.path.join(CSRC_DIR, s) for s in _sources(name)]
+        if len(srcs) == 1:
+            jobs = [(start([_nvcc()] + NVCC_FLAGS + ['-o', tmp, srcs[0]]),
+                     None)]
+        else:
+            jobs = [(start([_nvcc()] + _OBJ_FLAGS + ['-o', obj, src]), obj)
+                    for src, obj in ((s, '%s.%d.o' % (tmp, i))
+                                     for i, s in enumerate(srcs))]
+        procs[name] = (jobs, tmp, out)
     built, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for name, (jobs, tmp, out) in procs.items():
+        logs, rc = [], 0
+        for proc, _ in jobs:
+            log, _ = proc.communicate()
+            logs.append(log)
+            rc = rc or proc.returncode
+        objs = [obj for _, obj in jobs if obj is not None]
+        if objs and rc == 0:
+            link = start([_nvcc(), '-shared'] + NVCC_FLAGS[:2] +
+                         ['-o', tmp] + objs)
+            log, _ = link.communicate()
+            logs.append(log)
+            rc = link.returncode
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        log = b''.join(logs)
         with open(out + '.log', 'wb') as f:
             f.write(log)
-        if proc.returncode != 0:
+        if rc != 0:
             failed.append('%s (nvcc exit %d):\n%s' % (
-                name, proc.returncode, log.decode(errors='replace')))
+                name, rc, log.decode(errors='replace')))
             continue
         os.replace(tmp, out)
         built[name] = time.perf_counter() - t0

@@ -6,7 +6,7 @@ kernels of paddle_tpu/ops/math_ops.py, which compute the same functions.
 Here one table serves both: ``math_ops`` registers an op kernel for each
 entry, and the plain fused conv (``cuda_kernels.fused_conv_reference``)
 applies the same functions as epilogue stages, so the two cannot
-diverge. ``csrc/fused_conv.cu`` numbers the entries in this order.
+diverge. ``csrc/fused_conv.cuh`` numbers the entries in this order.
 """
 import torch
 

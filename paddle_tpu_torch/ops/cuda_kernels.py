@@ -44,7 +44,9 @@ Ported so far:
   ``_fconv_reference``. ``fused_conv_plan`` picks the kernel's variant
   and tiling (bf16 with Cin % 64 == 0: wgmma with TMA loads, K split
   across blocks and added in a fixed order where the tiles fall short of
-  a wave of the card's SMs).
+  a wave of the card's SMs; other f32 and bf16 convs: mma.sync, f32 as
+  three TF32 products, with a tile width that follows Cout and K shared
+  by a block's warps where the tiles fall short of a wave).
 - ``fused_conv(..., emit_stats=True)``: the same kernel's stats form
   (``_fconv_kernel`` with ``emit_stats``), the conv and the per-channel
   sum and sum of squares of its f32 output for train-mode batch norm;
@@ -80,7 +82,7 @@ LAUNCHES = {'flash_attn_fwd': 0, 'flash_attn_bwd_dkvdq': 0,
 # the fused conv's launches (both forms) by variant (FUSED_CONV_VARIANTS),
 # bumped with LAUNCHES
 FUSED_CONV_VARIANT_LAUNCHES = {'fma': 0, 'mma_sync': 0, 'wgmma': 0,
-                               'stem': 0}
+                               'stem': 0, 'tf32': 0}
 
 # the serving runtime's worker threads launch concurrently: every bump
 # and reset of the counts above holds this lock, so no count is lost
@@ -536,7 +538,7 @@ FUSED_CONV_MAX_AUX = 8
 _AUX_KINDS = ('c', 'nc', 't', 's')
 _STAGE_OPS = ('affine', 'act', 'act_p', 'scale', 'postmul', 'bin')
 # output rows (pixels) per slot of the stats form's moment slab
-# (csrc/fused_conv.cu kStatRows)
+# (csrc/fused_conv.cuh kStatRows)
 FUSED_CONV_STAT_ROWS = 64
 _ACT_CODES = {n: i for i, n in enumerate(ACTS)}
 _ACT_P_CODES = {n: i for i, n in enumerate(ACTS_P)}
@@ -553,7 +555,7 @@ def _conv_out_hw(x, w, strides, pads, depthwise):
 def apply_stage(y, st, fetch_aux):
     """One epilogue stage on an f32 value; ``fetch_aux(i)`` returns the
     i-th aux operand broadcast-shaped for ``y``. The plain version of
-    ``csrc/fused_conv.cu``'s per-element stage interpreter, and of
+    ``csrc/fused_conv.cuh``'s per-element stage interpreter, and of
     ``pallas_kernels._apply_stage``."""
     kind = st[0]
     if kind == 'affine':
@@ -620,12 +622,15 @@ def fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
     return (y,) + moments if emit_stats else y
 
 
-# the kernel's variants (csrc/fused_conv.cu Variant, in order): scalar FMA
-# (f32, and every depthwise conv), mma.sync with cp.async loads (other
-# bf16, and scalar loads where Cin % 8 != 0), wgmma with TMA loads (bf16,
-# Cin % 64 == 0, Cout % 8 == 0) and the stem (bf16 with Cin % 8 != 0, the
-# 7x7 stem's Cin = 3: its input rows staged in shared memory, mma.sync)
-FUSED_CONV_VARIANTS = ('fma', 'mma_sync', 'wgmma', 'stem')
+# the kernel's variants (csrc/fused_conv.cuh Variant, in order): the
+# depthwise kernel (a multiply-add per tap, either dtype), mma.sync on bf16
+# (cp.async loads where Cin % 8 == 0, else the input rows under the tile
+# staged in shared memory), wgmma with TMA loads (bf16, Cin % 64 == 0,
+# Cout % 8 == 0), the stem (bf16 with Cin % 8 != 0, the 7x7 stem's Cin =
+# 3: its input rows staged in shared memory, mma.sync) and tf32 (every f32
+# conv that is not depthwise: mma.sync as three TF32 products, loaded as
+# mma_sync's, Cin % 4 deciding)
+FUSED_CONV_VARIANTS = ('fma', 'mma_sync', 'wgmma', 'stem', 'tf32')
 # the wgmma kernel: output rows a tile (a K chunk is 64 channels of one
 # tap), most taps (KH * KW); shared memory a block may use
 FUSED_CONV_TILE_ROWS = 128
@@ -636,6 +641,16 @@ FUSED_CONV_SMEM = 232448
 # microseconds each on the H100); at most the conv_max_splits knob
 _SPLIT_CHUNKS = 12
 _TILE_WIDTHS = (256, 128, 64)
+# the mma.sync kernels (tf32, mma_sync): 16-byte vector elements by dtype
+# (a Cin of a multiple loads through the cp.async ring, else the input rows
+# are staged), warps that may share K
+_MMA_VEC = {torch.float32: 4, torch.bfloat16: 8}
+_MMA_SPLITS = (1, 2, 4)
+# waves of blocks a staged-row plan aims for: staging a tile's input rows
+# takes most of such a block's time, so smaller tiles pay (``chip_smoke.py
+# --sweep-mma`` at mnist's and ResNet-32's shapes on an H100, PERF.md PR
+# 18)
+_MMA_STAGED_WAVES = {torch.float32: 2, torch.bfloat16: 4}
 
 FusedConvPlan = collections.namedtuple('FusedConvPlan', 'variant bn splits')
 
@@ -660,24 +675,89 @@ def _stem_smem_bytes(W, Cin, Cout, KH, KW, Wo, pw):
     return nbytes if nbytes <= FUSED_CONV_SMEM else None
 
 
+def mma_tile_width(dtype, Cout):
+    """The tf32 and mma_sync kernels' output tile width for Cout: in f32
+    the narrowest of 16, 32 and 64 that covers it (64 above), in bf16 Cout
+    rounded up to 8 (m16n8k16's column step), at most 64."""
+    if dtype == torch.float32:
+        return 16 if Cout <= 16 else 32 if Cout <= 32 else 64
+    return min(64, -(-Cout // 8) * 8)
+
+
+def mma_tile_rows(plan, emit_stats=False):
+    """Output rows a block of a tf32 or mma_sync plan: a warp holds 16 *
+    MT rows (MT 2 for tiles of at most 32 columns, 1 wider); a block of 4
+    warps 64 * MT rows, ``plan.splits`` of the warps sharing K. The stats
+    form keeps whole slots of its slab: 64 * MT rows, K shared by
+    ``plan.splits`` sets of 4 warps (a block of 128 * splits threads)."""
+    rows = 64 * (2 if plan.bn <= 32 else 1)
+    return rows if emit_stats else rows // plan.splits
+
+
+def _mma_staged_smem_bytes(dtype, W, Cin, KH, KW, Wo, pw, bn, bm,
+                           splits=1):
+    """The staged path's shared memory (csrc/fused_conv_mma.cuh
+    staged_layout), or None where it does not fit a block: the tap table,
+    the block's rows of w (all of K, or a multiple of a 128-byte stage of
+    it), the input rows BM pixels span, each between zero columns
+    (16-byte aligned where the rows allow 16-byte loads); at least the
+    f32 output tile of each of the ``splits`` K groups."""
+    e, vec = (4, 4) if dtype == torch.float32 else (2, 8)
+    kbk = 32 if dtype == torch.float32 else 64
+    bnp = 16 * ((bn // 8 + 1) // 2)
+    K = KH * KW * Cin
+    rows_out = -(-(bm - 1) // Wo) + 1
+    vec_rows = (W * Cin) % vec == 0
+    q = vec
+    while q > 1 and (q // 2) * Cin % vec == 0:
+        q //= 2
+    pl = -(-pw // q) * q if vec_rows else pw
+    pitch = (2 * pl + W) * Cin
+    k_bytes = -(-K * 4 // 16) * 16
+    x_bytes = -(-rows_out * KH * pitch * e // 16) * 16
+    fixed = k_bytes + x_bytes
+    kc = ldb = K
+    if fixed + bnp * ldb * e > FUSED_CONV_SMEM:
+        room = (FUSED_CONV_SMEM - fixed) // (bnp * e)
+        kc = ldb = room // kbk * kbk if room > 0 else 0
+    total = fixed + -(-bnp * ldb * e // 16) * 16
+    if kc <= 0 or total > FUSED_CONV_SMEM:
+        return None
+    return max(total, splits * bm * (bn + 4) * 4)
+
+
 def fused_conv_plan(dtype, N, H, W, Cin, Cout, KH, KW, strides, pads,
-                    depthwise, sms, max_bn=None, max_splits=None):
+                    depthwise, sms, max_bn=None, max_splits=None,
+                    emit_stats=False):
     """The fused conv kernel's variant and tiling for these operands on a
     card of ``sms`` SMs: ``FusedConvPlan(variant, bn, splits)``.
 
-    ``variant`` is one of FUSED_CONV_VARIANTS ('stem' where Cin % 8 != 0
-    and the stem kernel takes the shape, else 'mma_sync'). For
-    ``'wgmma'``, ``bn`` is the output tile's width: the widest of 256,
-    128 and 64, at most ``max_bn``, that Cout needs (one tile covers all
-    of Cout up to 256, so each input tile is read once) and that still
-    gives half a wave of tiles, else 64 (the small-M convs); ``splits``
-    the number of blocks that share an output tile's K: one for every
-    _SPLIT_CHUNKS chunks of K, at most ``max_splits``, and no more than
-    fill a wave. Other variants: (variant, 0, 1). ``max_bn`` and
+    ``variant`` is one of FUSED_CONV_VARIANTS: 'fma' for a depthwise conv,
+    'tf32' for any other f32 one; in bf16 'wgmma' where Cin % 64 == 0
+    and Cout % 8 == 0, 'stem' where Cin % 8 != 0 and the stem kernel
+    takes the shape, else 'mma_sync'. For ``'wgmma'``, ``bn`` is the
+    output tile's width: the widest of 256, 128 and 64, at most
+    ``max_bn``, that Cout needs (one tile covers all of Cout up to 256,
+    so each input tile is read once) and that still gives half a wave of
+    tiles, else 64 (the small-M convs); ``splits`` the number of blocks
+    that share an output tile's K: one for every _SPLIT_CHUNKS chunks of
+    K, at most ``max_splits``, and no more than fill a wave. The rule
+    follows a sweep of (bn, splits) at ResNet-50's region shapes at batch
+    1, 8 and 32 on an H100 (PERF.md). The kernel sizes its ring of K
+    chunks from bn. For ``'tf32'`` and ``'mma_sync'``, ``bn`` is
+    :func:`mma_tile_width` and ``splits`` the number of a block's 4 warps
+    that share K (1, 2 or 4, at most ``max_splits``): the fewest that
+    give a wave of blocks (smaller tiles before more of them; where the
+    input rows are staged, _MMA_STAGED_WAVES waves), else 4;
+    :func:`mma_tile_rows` gives the rows a block. The stats form
+    (``emit_stats``) keeps a block's rows whole slots of its slab (one
+    writer each) and shares K among 2 sets of 4 warps where its blocks
+    fall short of a wave, else 1. Where the input rows are staged (Cin
+    not a multiple of 16 bytes) a block's staged rows must fit its shared
+    memory; a shape no split fits raises ValueError. 'fma' and 'stem':
+    (variant, 0, 1). ``max_bn`` and
     ``max_splits`` default to the live tuning knobs ``conv_max_bn`` and
-    ``conv_max_splits`` (untuned: 256 and 4). The rule follows a sweep of
-    (bn, splits) at ResNet-50's region shapes at batch 1, 8 and 32 on an
-    H100 (PERF.md). The kernel sizes its ring of K chunks from bn.
+    ``conv_max_splits`` (untuned: 256 and 4).
     """
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError("fused_conv kernel takes bfloat16 or float32, got "
@@ -691,14 +771,40 @@ def fused_conv_plan(dtype, N, H, W, Cin, Cout, KH, KW, strides, pads,
         raise ValueError("fused_conv_plan: max_bn must be one of %s and "
                          "max_splits at least 1, got %r and %r"
                          % (_TILE_WIDTHS, max_bn, max_splits))
-    if dtype == torch.float32 or depthwise:
+    if depthwise:
         return FusedConvPlan('fma', 0, 1)
     ho = (H + 2 * pads[0] - KH) // strides[0] + 1
     wo = (W + 2 * pads[1] - KW) // strides[1] + 1
-    if Cin % 8 and _stem_smem_bytes(W, Cin, Cout, KH, KW, wo, pads[1]):
-        return FusedConvPlan('stem', 0, 1)
-    if Cin % 64 or Cout % 8 or KH * KW > FUSED_CONV_MAX_TAPS:
-        return FusedConvPlan('mma_sync', 0, 1)
+    if dtype == torch.bfloat16:
+        if Cin % 8 and _stem_smem_bytes(W, Cin, Cout, KH, KW, wo, pads[1]):
+            return FusedConvPlan('stem', 0, 1)
+        if Cin % 64 == 0 and Cout % 8 == 0 and \
+                KH * KW <= FUSED_CONV_MAX_TAPS:
+            return _wgmma_plan(N, ho, wo, Cin, Cout, KH, KW, sms, max_bn,
+                               max_splits)
+    variant = 'tf32' if dtype == torch.float32 else 'mma_sync'
+    bn = mma_tile_width(dtype, Cout)
+    tiles_n = -(-Cout // bn)
+    staged = Cin % _MMA_VEC[dtype] != 0
+    waves = _MMA_STAGED_WAVES[dtype] if staged else 1
+    fits = []
+    for s in _MMA_SPLITS[:2] if emit_stats else _MMA_SPLITS:
+        plan = FusedConvPlan(variant, bn, s)
+        bm = mma_tile_rows(plan, emit_stats)
+        if s > int(max_splits) or (staged and _mma_staged_smem_bytes(
+                dtype, W, Cin, KH, KW, wo, pads[1], bn, bm, s) is None):
+            continue
+        fits.append(plan)
+        if -(-N * ho * wo // bm) * tiles_n >= waves * sms:
+            return plan
+    if not fits:
+        raise ValueError("fused_conv: the input rows under a tile of %s "
+                         "do not fit a block's shared memory (W=%d Cin=%d "
+                         "K=%dx%d)" % (variant, W, Cin, KH, KW))
+    return fits[-1]
+
+
+def _wgmma_plan(N, ho, wo, Cin, Cout, KH, KW, sms, max_bn, max_splits):
     m_tiles = -(-N * ho * wo // FUSED_CONV_TILE_ROWS)
     widest = min(64 if Cout <= 64 else 128 if Cout <= 128 else 256, max_bn)
     bn = next((b for b in (256, 128) if b <= widest and
@@ -761,7 +867,7 @@ def _split_k_counters(device, n):
 
 
 class _FusedConvArgs(ctypes.Structure):
-    """``FusedConvArgs`` of csrc/fused_conv.cu, field for field."""
+    """``FusedConvArgs`` of csrc/fused_conv.cuh, field for field."""
     _fields_ = (
         [('x', ctypes.c_void_p), ('w', ctypes.c_void_p),
          ('out', ctypes.c_void_p),
@@ -827,10 +933,11 @@ def encode_epilogue(args, kinds, stages):
 
 @functools.lru_cache(maxsize=1024)
 def _encoded_launch(kinds, stages, dims, strides, pads, depthwise, dtype,
-                    sms, plan, conv_knobs):
+                    sms, plan, conv_knobs, emit_stats=False):
     """A launch's arguments but its pointers, as ``_FusedConvArgs`` bytes,
-    with its plan (``plan``, or :func:`fused_conv_plan`'s under
-    ``conv_knobs`` = (max_bn, max_splits) where None), the split-K
+    with its plan (``plan``, or :func:`fused_conv_plan`'s for the form
+    ``emit_stats`` under ``conv_knobs`` = (max_bn, max_splits) where
+    None), the split-K
     buffers' sizes (:func:`fused_conv_workspace`) and the launch's
     description for errors: encoded once per distinct shape, epilogue and
     knobs. ``dims``: (N, H, W, Cin, Cout, KH, KW, Ho, Wo)."""
@@ -850,7 +957,8 @@ def _encoded_launch(kinds, stages, dims, strides, pads, depthwise, dtype,
     args.is_bf16 = int(dtype == torch.bfloat16)
     if plan is None:
         plan = fused_conv_plan(dtype, N, H, W, cin, cout, kh, kw, strides,
-                               pads, depthwise, sms, *conv_knobs)
+                               pads, depthwise, sms, *conv_knobs,
+                               emit_stats=emit_stats)
     args.variant = FUSED_CONV_VARIANTS.index(plan.variant)
     args.bn, args.splits, args.sms = plan.bn, plan.splits, sms
     lower, upper, stride, taps = fused_conv_im2col(kh, kw, strides, pads)
@@ -926,7 +1034,7 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
     encoded, plan, (ws_elems, n_counters), what = _encoded_launch(
         tuple(kinds), tuple(stages), (N, H, W, cin, cout, kh, kw, ho, wo),
         tuple(strides), tuple(pads), bool(depthwise), x.dtype, sms, plan,
-        (live['conv_max_bn'], live['conv_max_splits']))
+        (live['conv_max_bn'], live['conv_max_splits']), bool(emit_stats))
     args = _FusedConvArgs.from_buffer_copy(encoded)
     aux = _kernel_aux(x, aux, kinds, N, ho, wo, cout)
     out = torch.empty((N, ho, wo, cout), dtype=x.dtype, device=x.device)

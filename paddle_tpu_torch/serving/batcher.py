@@ -137,14 +137,21 @@ class MicroBatcher(object):
             self._paused = False
             self._cond.notify_all()
 
-    def close(self):
+    def close(self, abort=False):
         """Begin graceful shutdown: no new submissions; the worker keeps
         draining until the queue is empty, then ``next_batch`` returns
-        None."""
+        None. With ``abort`` (a crash) the queue is emptied in the same
+        step and its requests returned, so the worker never takes one:
+        the caller fails them. Returns the requests taken (none without
+        ``abort``)."""
         with self._cond:
             self._closed = True
             self._paused = False
+            pending = list(self._queue) if abort else []
+            if abort:
+                self._queue.clear()
             self._cond.notify_all()
+        return pending
 
     def drain_pending(self):
         """Pop and return every still-queued request — the shutdown

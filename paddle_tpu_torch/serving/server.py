@@ -608,15 +608,26 @@ class ModelServer(object):
         once ``timeout`` seconds have elapsed (wedged in a run), fail
         its in-flight and queued futures with :class:`ServerClosed` and
         abandon the thread instead of hanging forever. ``timeout=None``
-        waits forever."""
+        waits forever. A ``timeout`` of 0 (a crash: ``Router.kill_replica``)
+        drains nothing: the queued futures fail typed as the queues
+        close, before a worker can take one, and only what is in flight
+        is joined or abandoned."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
             batchers = dict(self._batchers)
             workers = dict(self._workers)
-        for b in batchers.values():
-            b.close()
+        abort = timeout is not None and timeout <= 0
+        cancelled = 0
+        for name, b in batchers.items():
+            for req in b.close(abort=abort):
+                if not req.done():
+                    req.set_error(ServerClosed(
+                        'server closed before the request ran (%r)' % name))
+                    cancelled += 1
+        if cancelled:
+            self.stats.record_cancelled(cancelled)
         deadline = None if timeout is None \
             else time.monotonic() + timeout
         for name, w in workers.items():

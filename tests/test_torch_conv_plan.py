@@ -158,16 +158,19 @@ def test_plan_splits_the_small_m_convs():
 @pytest.mark.parametrize('case,variant,bn', [
     ((8, 16, 16, 3, 64, 7, 2, 3, torch.bfloat16, False), 'stem', 0),
     ((8, 16, 16, 5, 64, 3, 1, 1, torch.bfloat16, False), 'stem', 0),
-    # the stem kernel's staged rows take W * Cin % 8 == 0, Cout % 8 == 0
-    ((8, 14, 14, 3, 64, 7, 2, 3, torch.bfloat16, False), 'mma_sync', 0),
-    ((8, 16, 16, 3, 60, 7, 2, 3, torch.bfloat16, False), 'mma_sync', 0),
-    ((8, 14, 14, 32, 64, 3, 1, 1, torch.bfloat16, False), 'mma_sync', 0),
-    ((8, 14, 14, 96, 64, 3, 1, 1, torch.bfloat16, False), 'mma_sync', 0),
-    ((8, 14, 14, 64, 60, 1, 1, 0, torch.bfloat16, False), 'mma_sync', 0),
+    # the stem kernel's staged rows take W * Cin % 8 == 0, Cout % 8 == 0;
+    # mma_sync's tile covers Cout 60 and 64 at 64 columns
+    ((8, 14, 14, 3, 64, 7, 2, 3, torch.bfloat16, False), 'mma_sync', 64),
+    ((8, 16, 16, 3, 60, 7, 2, 3, torch.bfloat16, False), 'mma_sync', 64),
+    ((8, 14, 14, 32, 64, 3, 1, 1, torch.bfloat16, False), 'mma_sync', 64),
+    ((8, 14, 14, 96, 64, 3, 1, 1, torch.bfloat16, False), 'mma_sync', 64),
+    ((8, 14, 14, 64, 60, 1, 1, 0, torch.bfloat16, False), 'mma_sync', 64),
     # 81 taps: more than the kernel's arguments carry
-    ((8, 14, 14, 64, 64, 9, 1, 4, torch.bfloat16, False), 'mma_sync', 0),
+    ((8, 14, 14, 64, 64, 9, 1, 4, torch.bfloat16, False), 'mma_sync', 64),
+    # depthwise in either dtype: the multiply-add kernel; any other f32
+    # conv: three TF32 products
     ((8, 14, 14, 64, 64, 3, 1, 1, torch.bfloat16, True), 'fma', 0),
-    ((8, 14, 14, 64, 64, 3, 1, 1, torch.float32, False), 'fma', 0),
+    ((8, 14, 14, 64, 64, 3, 1, 1, torch.float32, False), 'tf32', 64),
     ((8, 14, 14, 64, 64, 3, 1, 1, torch.float32, True), 'fma', 0),
     ((8, 14, 14, 64, 64, 3, 1, 1, torch.bfloat16, False), 'wgmma', 64),
     ((8, 14, 14, 64, 8, 1, 1, 0, torch.bfloat16, False), 'wgmma', 64),
@@ -183,9 +186,109 @@ def test_plan_boundaries(case, variant, bn):
     plan = ck.fused_conv_plan(dtype, N, H, W, cin, cout, k, k, (s, s),
                               (p, p), dw, SMS)
     assert plan.variant == variant and plan.bn == bn
-    if variant != 'wgmma':
+    if variant in ('stem', 'fma'):
         assert plan == ck.FusedConvPlan(variant, 0, 1)
+    elif variant != 'wgmma':
+        # at most 1,568 output rows: no tile fills a wave of 132 SMs, so
+        # all 4 warps share K and a block takes 16 rows
+        assert plan.splits == 4 and ck.mma_tile_rows(plan) == 16
     assert plan.variant in ck.FUSED_CONV_VARIANTS
+
+
+# (N, H, W, Cin, Cout, K, stride, pad, dtype, emit_stats) -> (variant,
+# bn, splits, rows a block): the tf32 and mma_sync kernels' tile width
+# follows Cout (f32: 16, 32, 64; bf16: Cout rounded up to 8, at most 64),
+# a block's rows rise as it narrows (128 up to 32 columns, 64 wider, at
+# splits 1), and the fewest warps share K that still give a wave of 132
+# SMs (2 waves in f32, 4 in bf16 where the input rows are staged; the
+# stats form keeps whole 64-row slots and shares K among 2 sets of 4
+# warps where its blocks fall short of a wave); mnist's, ResNet-32's and
+# VGG-16's regions among them
+MMA_PLANS = [
+    # mnist's first conv (staged rows): Cout 20 at batch 32 and 64
+    ((32, 28, 28, 1, 20, 5, 1, 0, torch.float32, False), ('tf32', 32, 2, 64)),
+    ((64, 28, 28, 1, 20, 5, 1, 0, torch.float32, False),
+     ('tf32', 32, 1, 128)),
+    ((32, 28, 28, 1, 20, 5, 1, 0, torch.bfloat16, False),
+     ('mma_sync', 24, 4, 32)),
+    ((64, 28, 28, 1, 20, 5, 1, 0, torch.bfloat16, False),
+     ('mma_sync', 24, 2, 64)),
+    # its second: Cout 50, 2,048 rows in 16-row tiles, 128 blocks
+    ((32, 12, 12, 20, 50, 5, 1, 0, torch.float32, False), ('tf32', 64, 4, 16)),
+    ((32, 12, 12, 20, 50, 5, 1, 0, torch.bfloat16, False),
+     ('mma_sync', 56, 4, 16)),
+    # ResNet-32 at batch 128: Cout 16, 32 (stride 2), 64
+    ((128, 32, 32, 16, 16, 3, 1, 1, torch.float32, False),
+     ('tf32', 16, 1, 128)),
+    ((128, 32, 32, 16, 16, 3, 1, 1, torch.bfloat16, True),
+     ('mma_sync', 16, 1, 128)),
+    ((128, 32, 32, 16, 32, 3, 2, 1, torch.float32, True),
+     ('tf32', 32, 1, 128)),
+    ((128, 8, 8, 64, 64, 3, 1, 1, torch.float32, False), ('tf32', 64, 2, 32)),
+    ((128, 8, 8, 64, 64, 3, 1, 1, torch.float32, True), ('tf32', 64, 2, 64)),
+    # ResNet-32 served at batch 1: no tile fills a wave
+    ((1, 32, 32, 16, 16, 3, 1, 1, torch.float32, False), ('tf32', 16, 4, 32)),
+    # wider than 64: 64 columns; VGG-16's 2x2 stage at batch 32
+    ((32, 2, 2, 512, 512, 3, 1, 1, torch.float32, False), ('tf32', 64, 4, 16)),
+    ((32, 2, 2, 512, 512, 3, 1, 1, torch.float32, True), ('tf32', 64, 2, 64)),
+    ((8, 14, 14, 32, 200, 3, 1, 1, torch.bfloat16, False),
+     ('mma_sync', 64, 2, 32)),
+    # 3 and 1 input channels: staged rows
+    ((32, 32, 32, 3, 64, 3, 1, 1, torch.float32, False), ('tf32', 64, 1, 64)),
+    ((4, 9, 9, 1, 8, 3, 1, 1, torch.bfloat16, False), ('mma_sync', 8, 4, 32)),
+]
+
+
+@pytest.mark.parametrize('case,want', MMA_PLANS)
+def test_mma_plan_width_rows_and_splits(case, want):
+    N, H, W, cin, cout, k, s, p, dtype, stats = case
+    plan = ck.fused_conv_plan(dtype, N, H, W, cin, cout, k, k, (s, s),
+                              (p, p), False, SMS, emit_stats=stats)
+    assert tuple(plan) + (ck.mma_tile_rows(plan, stats),) == want
+    assert plan.bn == ck.mma_tile_width(dtype, cout) >= min(cout, 64)
+    # no split-K buffers: the warps' partials meet in shared memory
+    ho, wo = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+    assert ck.fused_conv_workspace(plan, N * ho * wo, cout) == (0, 0)
+    # the same conv depthwise takes the multiply-add kernel
+    if cin == cout:
+        assert ck.fused_conv_plan(dtype, N, H, W, cin, cout, k, k, (s, s),
+                                  (p, p), True, SMS, emit_stats=stats) == \
+            ck.FusedConvPlan('fma', 0, 1)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_mma_plan_caps_splits(dtype):
+    """conv_max_splits caps the warps that share K; the stats form never
+    takes a block of fewer rows than one slot of its slab, and shares K
+    among at most 2 sets of 4 warps."""
+    args = (dtype, 32, 12, 12, 24, 50, 5, 5, (1, 1), (0, 0), False, SMS)
+    assert ck.fused_conv_plan(*args, max_splits=1).splits == 1
+    assert ck.fused_conv_plan(*args, max_splits=2).splits == 2
+    assert ck.fused_conv_plan(*args).splits == 4
+    plan = ck.fused_conv_plan(*args, emit_stats=True)
+    assert plan.splits == 2 and ck.mma_tile_rows(plan, True) == 64
+    assert ck.fused_conv_plan(*args, max_splits=1,
+                              emit_stats=True).splits == 1
+
+
+def test_mma_staged_rows_shared_memory():
+    """The staged path holds the tap table, the block's rows of w and the
+    input rows its pixels span; a row too wide for a block raises."""
+    # mnist's second conv in bf16, 16-row tiles: 3 output rows of 5 input
+    # rows of 12 x 20 channels; w's 56 rows of K 500; tap table 500 ints
+    assert ck._mma_staged_smem_bytes(torch.bfloat16, 12, 20, 5, 5, 8, 0, 56,
+                                     16) == \
+        2000 + 64 * 500 * 2 + 3 * 5 * 12 * 20 * 2
+    # f32, Cin 3, pad 1: rows padded to 4 pixels a side (16-byte stores);
+    # less than the 64 x 64 f32 output tile that follows them
+    staged = 112 + 64 * 27 * 4 + 3 * 3 * (4 + 32 + 4) * 3 * 4
+    assert staged < 64 * 68 * 4 == ck._mma_staged_smem_bytes(
+        torch.float32, 32, 3, 3, 3, 32, 1, 64, 64)
+    assert ck._mma_staged_smem_bytes(torch.float32, 30000, 3, 3, 3, 30000, 1,
+                                     64, 16) is None
+    with pytest.raises(ValueError, match='shared memory'):
+        ck.fused_conv_plan(torch.float32, 1, 8, 30000, 3, 64, 3, 3, (1, 1),
+                           (1, 1), False, SMS)
 
 
 def test_stem_shared_memory():
@@ -349,20 +452,26 @@ def test_split_k_workspace(N, key):
 
 
 def test_kernel_arguments_carry_the_plan():
-    """_FusedConvArgs mirrors FusedConvArgs of csrc/fused_conv.cu field
+    """_FusedConvArgs mirrors FusedConvArgs of csrc/fused_conv.cuh field
     for field: the plan, the SM count, the im2col parameters and the
-    split-K buffers follow the stats slab."""
+    split-K buffers follow the stats slab; the variants are numbered as
+    FUSED_CONV_VARIANTS names them."""
     names = [f[0] for f in ck._FusedConvArgs._fields_]
     assert names[names.index('stats'):] == [
         'stats', 'variant', 'bn', 'splits', 'sms', 'im2col_lower',
         'im2col_upper', 'im2col_stride', 'im2col_taps', 'workspace',
         'counters']
-    src = open(ck._build.CSRC_DIR + '/fused_conv.cu').read()
+    src = open(ck._build.CSRC_DIR + '/fused_conv.cuh').read()
     assert 'int variant, bn, splits, sms;' in src
     assert 'int im2col_lower[2], im2col_upper[2], im2col_stride[2];' in src
     assert 'int im2col_taps[kMaxTaps][2];' in src
     assert 'constexpr int kMaxTaps = %d;' % ck.FUSED_CONV_MAX_TAPS in src
     assert 'static int sms' not in src
+    enum = src[src.index('enum Variant {'):].split('}')[0]
+    names = [v.split('=')[0].strip() for v in
+             enum.split('{')[1].split(',')]
+    assert names == ['k' + ''.join(p.title() for p in v.split('_'))
+                     for v in ck.FUSED_CONV_VARIANTS]
 
 
 def test_split_k_buffers_outlive_the_launch(monkeypatch):

@@ -683,11 +683,28 @@ def test_fused_conv_refuses_a_plan_it_cannot_take(cuda):
     x, w, aux, kinds, stages, strides, pads, _ = _conv_case(
         cuda, torch.bfloat16, 2, 8, 8, 32, 64, 3, 1, 1, False, seed=1)
     bad = [ck.FusedConvPlan('wgmma', 64, 1),      # Cin 32
-           ck.FusedConvPlan('fma', 0, 1)]         # bf16, not depthwise
+           ck.FusedConvPlan('fma', 0, 1),         # not depthwise
+           ck.FusedConvPlan('tf32', 64, 1),       # bf16
+           ck.FusedConvPlan('mma_sync', 96, 1),   # no such width
+           ck.FusedConvPlan('mma_sync', 20, 1),   # not a multiple of 8
+           ck.FusedConvPlan('mma_sync', 64, 3)]   # 3 warps cannot share K
     for plan in bad:
         with pytest.raises(RuntimeError, match='CUDA error'):
             ck._fused_conv_launch(x, w, aux, kinds, stages, strides, pads,
                                   False, plan=plan)
+    x, w, aux, kinds, stages, strides, pads, _ = _conv_case(
+        cuda, torch.float32, 2, 8, 8, 32, 64, 3, 1, 1, False, seed=1)
+    for plan in (ck.FusedConvPlan('mma_sync', 64, 1),   # f32
+                 ck.FusedConvPlan('fma', 0, 1),         # not depthwise
+                 ck.FusedConvPlan('tf32', 24, 1)):      # no such f32 width
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            ck._fused_conv_launch(x, w, aux, kinds, stages, strides, pads,
+                                  False, plan=plan)
+    # the stats form keeps whole 64-row slots: a 16-row tile is refused
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        ck._fused_conv_launch(x, w, (), (), (), strides, pads, False,
+                              emit_stats=True,
+                              plan=ck.FusedConvPlan('tf32', 64, 4))
     x, w, aux, kinds, stages, strides, pads, _ = _conv_case(
         cuda, torch.bfloat16, 2, 8, 8, 64, 64, 3, 1, 1, False, seed=1)
     for plan in (ck.FusedConvPlan('wgmma', 96, 1),     # no such width
@@ -703,6 +720,98 @@ def test_fused_conv_refuses_a_plan_it_cannot_take(cuda):
     with pytest.raises(RuntimeError, match='CUDA error'):
         ck._fused_conv_launch(x, w, aux, kinds, stages, strides, pads, False,
                               plan=ck.FusedConvPlan('wgmma', 64, 1))
+
+
+# the tf32 and mma_sync kernels at the books' and benchmark models' region
+# shapes (N, H, W, Cin, Cout, K, stride, pad), small batches: mnist's two
+# convs (Cin 1 and 20: staged input rows), ResNet-32's (Cin 3 staged; 16,
+# 32 and 64 through the cp.async ring; the 1x1 projection), VGG-16's first
+# and last, and a ragged one; every tile width's instance is reached
+MMA_SHAPES = {
+    'mnist_conv1': (4, 28, 28, 1, 20, 5, 1, 0),
+    'mnist_conv2': (8, 12, 12, 20, 50, 5, 1, 0),
+    'resnet32_conv1': (2, 32, 32, 3, 16, 3, 1, 1),
+    'resnet32_16': (2, 32, 32, 16, 16, 3, 1, 1),
+    'resnet32_16_32_s2': (2, 32, 32, 16, 32, 3, 2, 1),
+    'resnet32_proj_32_64': (2, 16, 16, 32, 64, 1, 2, 0),
+    'resnet32_64': (4, 8, 8, 64, 64, 3, 1, 1),
+    'vgg_conv1': (2, 32, 32, 3, 64, 3, 1, 1),
+    'vgg_512': (4, 2, 2, 512, 512, 3, 1, 1),
+    'ragged_cout_44': (3, 9, 11, 24, 44, 3, 2, 1),
+    'cout_8_cin_5': (2, 9, 9, 5, 8, 3, 1, 1),
+    'cout_40_cin_8': (2, 9, 9, 8, 40, 3, 1, 1),
+}
+# f32: the kernel's max |err| against the plain version in f64 at most
+# this many times the plain f32 version's (chip_smoke.py's witness)
+F64_WITNESS = 2.0
+
+
+def _max_err_f64(got, x, w, aux, kinds, stages, strides, pads):
+    """max |got - the conv and its stages in f64|."""
+    ref = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), w.double().permute(0, 3, 1, 2),
+        stride=strides, padding=pads).permute(0, 2, 3, 1)
+    fetch = ck.aux_fetcher(aux, kinds)
+    for st in stages:
+        ref = ck.apply_stage(ref, st, lambda i: fetch(i).double())
+    return (got.double() - ref).abs().max().item()
+
+
+@pytest.mark.parametrize('splits', [1, 2, 4])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', sorted(MMA_SHAPES))
+def test_fused_conv_mma_routes(cuda, shape, dtype, splits):
+    """The tf32 (f32) or mma_sync (bf16) kernel at its tile width for
+    Cout, K shared by 1, 2 or 4 warps, forced where the plan would take
+    the stem or wgmma: the residual epilogue per element (CONV_TOL) and
+    twice bit for bit; f32 within F64_WITNESS times the plain f32
+    version's error against f64; the stats form (whole 64-row slots, K
+    shared by 1 or 2 sets of 4 warps: y, moments, twice bit for bit),
+    refused at 4."""
+    x, w, aux, kinds, _, strides, pads, _ = _conv_case(
+        cuda, dtype, *MMA_SHAPES[shape], False, seed=len(shape) + splits,
+        extra_aux=('t',))
+    plan = ck.FusedConvPlan('tf32' if dtype == torch.float32 else
+                            'mma_sync', ck.mma_tile_width(dtype, w.shape[0]),
+                            splits)
+    args = (x, w, aux, kinds, RESIDUAL, strides, pads, False)
+    got = ck._fused_conv_launch(*args, plan=plan)
+    again = ck._fused_conv_launch(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = ck.fused_conv_reference(*args)
+    assert _err_ratio(got, ref) <= 1
+    if dtype == torch.float32:
+        assert _max_err_f64(got, *args[:7]) <= F64_WITNESS * \
+            _max_err_f64(ref, *args[:7])
+    stats = lambda: ck._fused_conv_launch(  # noqa: E731
+        x, w, (), (), (), strides, pads, False, emit_stats=True, plan=plan)
+    if splits > 2:
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            stats()
+        return
+    (y, slab), (y2, slab2) = stats(), stats()
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(slab, slab2)
+    if dtype == torch.bfloat16:
+        assert max(_stats_ratios(x, w, strides, pads, False, y,
+                                 slab[0].sum(0), slab[1].sum(0))) <= 1
+        return
+    # f32: y within F64_WITNESS times the plain version's error against
+    # f64, the moments within STATS_REL of the f64 ones (at 16 rows the
+    # plain conv's own error can take its moments past that limit)
+    plain = ck.fused_conv_reference(x, w, (), (), (), strides, pads, False)
+    conv = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), w.double().permute(0, 3, 1, 2),
+        stride=strides, padding=pads).permute(0, 2, 3, 1)
+    assert (y.double() - conv).abs().max() <= F64_WITNESS * \
+        (plain.double() - conv).abs().max()
+    rel = STATS_REL[dtype]
+    for got, want, scale in (
+            (slab[0].sum(0), conv.sum((0, 1, 2)), conv.abs().sum((0, 1, 2))),
+            (slab[1].sum(0), conv.square().sum((0, 1, 2)),
+             conv.square().sum((0, 1, 2)))):
+        assert ((got.double() - want).abs() / (rel * scale)).max() <= 1
 
 
 def test_fused_conv_split_k_counters_return_to_zero(cuda):

@@ -249,6 +249,41 @@ def test_replica_kill_requeues_typed_and_restart_bit_identical(
             'restarted replica is not bit-identical'
 
 
+def test_abrupt_kill_fails_a_parked_request_before_the_worker_sees_it(
+        tmp_path):
+    """An abrupt kill (a crash) fails what is queued on the victim typed
+    and the router requeues it: the parked request never runs there, in
+    the worst interleaving the kill allows too, where the victim's worker
+    is scheduled right after its queue closes and before the server
+    joins it (held open here for the worker to take and run what it
+    may)."""
+    d = _save_artifact(tmp_path)
+    ref = _reference_fn(d)(np.ones((2, IN_DIM), 'float32') * 0.25)
+    with _router(replicas=2) as router:
+        router.load_model('m', d)
+        victim, other = router.placement('m')
+        server = router.replica(victim).server
+        server.pause('m')
+        req = router.submit('m', {'x': np.ones((2, IN_DIM), 'float32') *
+                                  0.25})
+        assert req.replica_id == victim
+        batcher = server._batchers['m']
+        close = batcher.close
+
+        def close_then_yield(*args, **kwargs):
+            out = close(*args, **kwargs)
+            deadline = time.monotonic() + 5.0
+            while batcher.depth() and time.monotonic() < deadline:
+                time.sleep(0.001)
+            time.sleep(0.2)
+            return out
+        batcher.close = close_then_yield
+        router.kill_replica(victim)
+        out, = req.result(timeout=30.0)
+        assert (req.requeues, req.replica_id) == (1, other)
+        assert np.array_equal(np.asarray(out), ref)
+
+
 def test_supervisor_restarts_dead_replica(tmp_path):
     d = _save_artifact(tmp_path)
     with _router(replicas=2, supervise=True) as router:

@@ -400,3 +400,51 @@ def test_epilogue_encoding_covers_every_stage():
                            stages[:ck.FUSED_CONV_MAX_STAGES + 1])
     with pytest.raises(ValueError):
         ck.encode_epilogue(ck._FusedConvArgs(), ('c',), [('affine', 0, 1)])
+
+
+# ---- the books' region shapes, operand for operand ---------------------------
+# (N, H, W, Cin, Cout, K, stride, pad, stats): mnist's two 5x5 unpadded
+# convs (Cin 1 -> 20, 20 -> 50; the tf32 kernel's staged-row path) with
+# its bias and relu, and ResNet-32's 3x3 pad-1 16 -> 16 conv in the stats
+# form (train-mode batch norm), at small N and spatial size
+KERNEL_SHAPES = {
+    'mnist_5x5_cin1_cout20': (2, 12, 12, 1, 20, 5, 1, 0, False),
+    'mnist_5x5_cin20_cout50': (2, 12, 12, 20, 50, 5, 1, 0, False),
+    'resnet32_3x3_cin16_stats': (2, 8, 8, 16, 16, 3, 1, 1, True),
+}
+
+
+@pytest.mark.parametrize('name', sorted(KERNEL_SHAPES))
+def test_plain_version_matches_jax_pallas_at_the_books_shapes(name):
+    """``cuda_kernels.fused_conv``'s plain version against the JAX Pallas
+    kernel in interpret mode on the same operands: mnist's regions with a
+    per-channel bias and relu, ResNet-32's in the stats form (y and the
+    per-channel moments)."""
+    import jax.numpy as jnp
+    N, H, W, cin, cout, k, s, p, stats = KERNEL_SHAPES[name]
+    rng = np.random.RandomState(len(name))
+    x = rng.randn(N, H, W, cin).astype('float32')
+    w = (rng.randn(cout, k, k, cin) / np.sqrt(k * k * cin)).astype('float32')
+    w_jax = w.transpose(1, 2, 3, 0)                     # HWIO
+    bias = rng.randn(1, cout).astype('float32')
+    aux, kinds = ((), ()) if stats else ((bias,), ('c',))
+    stages = () if stats else (('bin', 'elementwise_add', 0, False),
+                               ('act', 'relu'))
+    with pk.force_conv_epilogue('interpret'):
+        got, why = pk.fused_conv_epilogue(
+            jnp.asarray(x), jnp.asarray(w_jax),
+            tuple(jnp.asarray(a) for a in aux), kinds, (s, s), (p, p),
+            False, stages, emit_stats=stats, interpret=True)
+    assert why is None
+    t_aux = tuple(torch.tensor(a) for a in aux)
+    if not stats:
+        y = ck.fused_conv(torch.tensor(x), torch.tensor(w), t_aux, kinds,
+                          stages, (s, s), (p, p), False)
+        np.testing.assert_allclose(y.numpy(), np.asarray(got), **TOL)
+        return
+    j_y, j_psum, j_psumsq = (np.asarray(a) for a in got)
+    y, ssum, ssq = ck.fused_conv(torch.tensor(x), torch.tensor(w), (), (),
+                                 (), (s, s), (p, p), False, emit_stats=True)
+    np.testing.assert_allclose(y.numpy(), j_y, **TOL)
+    np.testing.assert_allclose(ssum.numpy(), j_psum.sum((0, 1)), **TOL)
+    np.testing.assert_allclose(ssq.numpy(), j_psumsq.sum((0, 1)), **TOL)
