@@ -9,6 +9,8 @@
                                           # logits copy and request, by thread
     python3 chip_smoke.py --serve-tuned CONFIG   # phase 6c's second
                                           # process (phase 6c runs it)
+    python3 chip_smoke.py --phase19       # the kernels' build, then
+                                          # phase 19 alone
 
 from the root of a checkout. Phases, each of which raises (and so exits
 non-zero) on failure:
@@ -365,7 +367,42 @@ non-zero) on failure:
    ModelServer(CUDAPlace(0)) as batches of sequences (book 05 its
    rating, book 07 its crf_decoding path from books.srl_decode), every
    answer bit-equal to a direct run padded to its bucket;
-18. summary: a JSON line of the kernels, the card line, and last the
+19. the Fluid high-level Trainer and its training services
+   (``phase_trainer``, constants TR_*, REMAT_*, AMP_ACT_*, F16_*,
+   GUARD_* at its head), each limit with two wrong controls that must
+   fail it: 19a, book 02's conv net at the script's widths through
+   fluid.Trainer (Adam(0.001), batch 64, f32, cuDNN deterministic) with
+   a checkpoint every 2 steps: a child process (``--trainer-child``)
+   sent SIGTERM after its 4th step commits at the chunk boundary and
+   exits 0, a fresh one resumes, and together they are bit-equal to an
+   uninterrupted run (losses and every persistable; a step counter one
+   off either way must fail), ms a step and exactly 2 ``tf32`` launches
+   a step; save_params, then the Inferencer serves a batch equal to the
+   Trainer's test program; 19b, the same Trainer with prefetch=2,
+   steps_per_dispatch=4, sync_interval=4 bit-equal to the plain loop,
+   trainer_host_wait_seconds p50 and ms a step of both; 19c, book 03's
+   vgg_bn_drop (dropout and train-mode batch norm), batch 128, one step
+   with and without memory_optimize: the loss, every @GRAD, every
+   persistable after the step (the moving statistics updated once) and
+   the Scope's generator states bit-equal, 13 stats-form fused convs
+   against 26;
+   then the flagship at full width and depth, batch 16, one step with
+   and without memory_optimize (the loss and every @GRAD bit-equal, the
+   largest difference printed; 12 flash forwards against 6; peak memory
+   and ms a step), then the long
+   context (seq 32768, batch 5) under it, one process a depth
+   (``--long-remat``) from 6 down to the first that fits: its depth,
+   peak, ms a step and exact launches; 19d, mnist's AMP steps with
+   set_amp_act(True) and (False): the activations' dtypes, logits within
+   the mnist bf16 limit, the same ``mma_sync`` launches; 19e, ResNet-50
+   served at batch 8 from its Float16Transpiler'd f32 model, f32 in and
+   out, logits within RESNET_LOGITS_TOL of the f32 model under AMP and
+   bit-equal to the model with its persistables rounded to bf16, 53
+   fused convs a request; 19f, check_nan_inf naming the first op on a
+   poisoned feed, and the AnomalyGuard's skip_batch and
+   rollback_to_checkpoint under the Trainer on a poisoned reader, steps,
+   trips and parameters card against CPU;
+20. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
 import argparse
@@ -9094,6 +9131,1091 @@ def phase_sparse_and_books(seed, card, art_dir):
     return launches
 
 
+# ---- phase 19: the high-level Trainer and its training services ------------------
+# 19a, 19b: book 02's conv net (books.recognize_digits_conv: conv 20 and 50,
+# 5x5, 2x2 max pools, a batch norm between, fc 10 softmax) at the script's
+# widths through fluid.Trainer, Adam(0.001), batch 64, f32 (TF32 and AMP
+# off; cuDNN, which runs the fused conv's backward, set deterministic), one
+# epoch of TR_STEPS batches of the synthetic mnist reader; checkpoints
+# every TR_CKPT_EVERY steps, and a child process signalled with SIGTERM
+# once TR_SIGTERM_AFTER steps have ended
+TR_BATCH = 64
+TR_STEPS = 16
+TR_CKPT_EVERY = 2
+TR_SIGTERM_AFTER = 4
+TR_CHILD_TIMEOUT = 300
+TR_PIPE = dict(prefetch=2, steps_per_dispatch=4, sync_interval=4)
+# 19a's Inferencer against the Trainer's test program on one batch, the
+# same kernels on the same parameters: max |diff| over max |prob|
+TR_INFER_TOL = 1e-5
+# 19c: the flagship at full width and depth, batch 16, Adam(1e-4), one
+# step with memory_optimize against the same step without it: the loss
+# and every @GRAD bit-equal (the recompute launches the same kernels on
+# the same inputs; the largest relative L2 is printed either way)
+REMAT_TIMED_STEPS = 3
+# 19c, dropout and train-mode batch norm: book 03's vgg_bn_drop
+# (models/vgg.py: 13 conv + batch-norm layers, 10 dropouts of 0.3-0.5, a
+# batch norm between the fc layers) on CIFAR-10's 3x32x32, batch 128,
+# Adam(0.001), f32: one step with memory_optimize against the same step
+# without, from the same parameters and generator states: the loss,
+# every @GRAD, every persistable after the step (moving statistics and
+# Adam's moments included) and the Scope's generator states bit-equal
+REMAT_VGG_BATCH = 128
+# the long context (7b's shape, LONG_SEQ and LONG_BATCH) under
+# memory_optimize, one process a depth from the flagship's 6 down to the
+# first that fits; each a warm-up and REMAT_LONG_STEPS timed steps
+REMAT_DEPTHS = (6, 5, 4, 3)
+REMAT_LONG_STEPS = 2
+REMAT_CHILD_TIMEOUT = 400
+# 19d: mnist (benchmark/fluid/models.py:24-37) under AMP, batch 32,
+# activations in bf16 against f32: the first step's logits within
+# BENCH_LOGITS_TOL['mnist']['bfloat16'] of each other
+AMP_ACT_STEPS = 3
+# 19e: ResNet-50 at full width, f32 (its residual branches' last gammas
+# scaled by RESIDUAL_GAMMA, as phases 10 and 11 start it; the moving
+# statistics calibrated on one batch, as phase 6 does), served at batch 8
+# from the model Float16Transpiler made bf16: logits within
+# RESNET_LOGITS_TOL of the f32 model served under AMP, and within
+# F16_WITNESS_TOL (max |diff| over max |logits|) of a witness, the f32
+# model with every f32 persistable rounded to bf16 and back, served under
+# AMP: the same values on the same kernels, so bit-equal is expected
+F16_BATCH = 8
+F16_REQUESTS = 5
+F16_WITNESS_TOL = 2 ** -8
+# 19f: book 01's fit_a_line (SGD(0.001), batch 20) through fluid.Trainer
+# on a poisoned reader, card against CPU: steps and parameters
+GUARD_STEPS = 6
+GUARD_POISON = (2,)
+
+
+def _tr_reader():
+    import paddle_tpu_torch as pt
+    return pt.batch(pt.reader.firstn(pt.dataset.mnist.train(),
+                                     TR_BATCH * TR_STEPS), TR_BATCH)
+
+
+def _tr_train_func(seed):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import books
+    pt.default_startup_program().random_seed = seed
+    book = books.recognize_digits_conv()
+    return [book.loss, book.accuracy]
+
+
+def _digits_infer_func():
+    """Book 02's conv net for inference, its batch norm in test mode,
+    named as the Trainer names it."""
+    import paddle_tpu_torch as pt
+    L = pt.layers
+    img = L.data(name='img', shape=[1, 28, 28], dtype='float32')
+    c = pt.nets.simple_img_conv_pool(input=img, filter_size=5,
+                                     num_filters=20, pool_size=2,
+                                     pool_stride=2, act='relu')
+    c = L.batch_norm(c, is_test=True)
+    c = pt.nets.simple_img_conv_pool(input=c, filter_size=5,
+                                     num_filters=50, pool_size=2,
+                                     pool_stride=2, act='relu')
+    return L.fc(input=c, size=10, act='softmax')
+
+
+def _tr_run(seed, reader=None, lr=0.001, ckdir=None, echo=False,
+            journal=None, **train_kw):
+    """One Trainer from the seed's initial state over the mnist reader:
+    (trainer, the losses of the steps it ran, its persistables, the
+    EndStepEvents' host times and last the seconds of the whole
+    train())."""
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.fluid as fluid
+    tr = fluid.Trainer(lambda: _tr_train_func(seed),
+                       fluid.optimizer.Adam(learning_rate=lr),
+                       place=fluid.CUDAPlace(0))
+    losses, stamps = [], []
+
+    def handler(ev):
+        if isinstance(ev, fluid.EndStepEvent):
+            losses.append(ev.metrics[0])
+            stamps.append(time.perf_counter())
+            if echo:
+                print('trainer-child: step %d' % len(losses), flush=True)
+
+    cfg = None if ckdir is None else fluid.CheckpointConfig(
+        checkpoint_dir=ckdir, step_interval=TR_CKPT_EVERY, backend='npz')
+    ctx = pt.observability.journal(journal) if journal else \
+        contextlib.nullcontext()
+    with ctx:
+        t0 = time.perf_counter()
+        tr.train(1, handler, reader=reader or _tr_reader(),
+                 feed_order=['img', 'label'], checkpoint_config=cfg,
+                 **train_kw)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter() - t0)   # the whole train()
+    losses = np.asarray([float(l.reshape(-1)[0]) if isinstance(
+        l, torch.Tensor) else float(np.asarray(l).ravel()[0])
+        for l in losses], 'float32')
+    state = {v.name: pt.fetch_var(v.name, tr.scope)
+             for v in tr.train_program.list_vars()
+             if v.persistable and isinstance(tr.scope.raw(v.name),
+                                             torch.Tensor)}
+    return tr, losses, state, stamps
+
+
+def trainer_child(mode, ckdir, out, seed):
+    """19a's second and third processes (``--trainer-child``): train
+    from ``ckdir``'s checkpoints (resuming from the newest), echoing each
+    step, and write the losses and persistables to ``out``. The first is
+    signalled by its parent mid-epoch and commits at the chunk's end."""
+    import torch
+    from paddle_tpu_torch import compiler
+    from paddle_tpu_torch.core import amp
+    torch.backends.cudnn.deterministic = True
+    amp.set_amp(False)
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        compiler.tuning.set_default_cache(compiler.tuning.TuningCache(
+            os.path.join(d, 'tuning_cache.json')))
+        _, losses, state, _ = _tr_run(seed, ckdir=ckdir, echo=True)
+    np.savez(out, losses=losses, **state)
+    print('trainer-child: %s done, %d steps' % (mode, len(losses)),
+          flush=True)
+    return 0
+
+
+def _tr_kill_child(seed, ckdir, out):
+    """Start the first child, send it SIGTERM once TR_SIGTERM_AFTER
+    steps have ended, and wait for its exit: (return code, the steps it
+    echoed)."""
+    import signal
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
+         '--trainer-child', 'kill', ckdir, out, '--seed', str(seed)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    timer = threading.Timer(TR_CHILD_TIMEOUT, proc.kill)
+    timer.start()
+    steps, tail = 0, []
+    try:
+        for line in proc.stdout:
+            tail = (tail + [line.rstrip()])[-20:]
+            if line.startswith('trainer-child: step '):
+                steps = int(line.split()[-1])
+                if steps == TR_SIGTERM_AFTER:
+                    proc.send_signal(signal.SIGTERM)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == 0, '19a: the signalled child exited %s: %s'
+          % (rc, '\n'.join(tail)))
+    return rc, steps
+
+
+def _tr_child(seed, ckdir, out):
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
+         '--trainer-child', 'resume', ckdir, out, '--seed', str(seed)],
+        cwd=ROOT, capture_output=True, text=True, timeout=TR_CHILD_TIMEOUT)
+    check(proc.returncode == 0, '19a: the resuming child failed: %s'
+          % (proc.stdout[-2000:] + proc.stderr[-2000:]))
+
+
+def _bits_equal(a, b):
+    return set(a) == set(b) and all(
+        np.array_equal(a[n], b[n]) for n in a)
+
+
+def _journal_waits(path):
+    """The step_end records' feed waits and step durations (seconds)."""
+    import paddle_tpu_torch as pt
+    recs, malformed = pt.observability.read_journal(path)
+    check(malformed == 0, 'a malformed journal line in %s' % path)
+    steps = [r for r in recs if r.get('ev') == 'step_end']
+    return ([r['feed_wait'] for r in steps], [r['dur_s'] for r in steps])
+
+
+def _phase19_trainer(seed, card, art_dir):
+    """19a and 19b. Returns the fused conv launches of the in-process
+    runs (the uninterrupted, the pipelined) and of the Inferencer."""
+    import json as _json
+    import shutil as _shutil
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.resilience import checkpoint as ckpt
+    t0 = time.perf_counter()
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    amp.set_amp(False)
+    try:
+        ckdir = os.path.join(art_dir, 'ckpt')
+        killed_out = os.path.join(art_dir, 'killed.npz')
+        resumed_out = os.path.join(art_dir, 'resumed.npz')
+        _, echoed = _tr_kill_child(seed, ckdir, killed_out)
+        killed = dict(np.load(killed_out))
+        state = pt.io.load_checkpoint_trainer_state(ckdir)
+        print('trainer 19a: the child got SIGTERM after step %d, ran %d '
+              'steps, exited 0 and committed at the chunk boundary: '
+              'trainer_state %s' % (TR_SIGTERM_AFTER, len(killed['losses']),
+                                    _json.dumps({k: v for k, v in
+                                                 (state or {}).items()
+                                                 if k != 'rng'})),
+              flush=True)
+        check(state is not None and state['global_step'] ==
+              len(killed['losses']) and TR_SIGTERM_AFTER <=
+              state['global_step'] < TR_STEPS and state['epoch'] == 0,
+              '19a: the preemption commit %s is not mid-epoch at the '
+              'last step run (%d)' % (state, len(killed['losses'])))
+        # the controls' checkpoint dirs: copies whose newest serial's step
+        # counter is one short (a step replayed) and one long (a batch
+        # skipped)
+        newest = max(pt.io._get_checkpoint_serials(ckdir))
+        shifted = {}
+        for label, delta in (('one step short', -1), ('one step long', 1)):
+            d = shifted[label] = os.path.join(art_dir, 'ckpt%+d' % delta)
+            _shutil.copytree(ckdir, d)
+            serial_dir = pt.io._serial_dir(d, newest)
+            manifest = ckpt.read_manifest(serial_dir)
+            for k in ('step', 'global_step'):
+                manifest['trainer_state'][k] += delta
+            with open(os.path.join(serial_dir, ckpt.MANIFEST_FILENAME),
+                      'w') as f:
+                _json.dump(manifest, f)
+        _tr_child(seed, ckdir, resumed_out)
+        resumed = dict(np.load(resumed_out))
+        t_children = time.perf_counter() - t0
+
+        ck.reset_launch_counts()
+        tr, losses, plain, stamps = _tr_run(seed)
+        launches = dict(ck.LAUNCHES)
+        variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
+        step_ms = 1e3 * (stamps[-2] - stamps[1]) / (len(stamps) - 3)
+        joined = np.concatenate([killed['losses'], resumed['losses']])
+        res_state = {n: v for n, v in resumed.items() if n != 'losses'}
+        bits = (np.array_equal(joined, losses) and
+                _bits_equal(res_state, plain))
+        print('trainer 19a: uninterrupted %d steps, %.2f ms a step (host '
+              'clock, loss read each step), fused_conv launches %d, by '
+              'variant %s; %s' % (len(losses), step_ms,
+                                  launches['fused_conv'], variants, card),
+              flush=True)
+        print('trainer 19a: killed (%d) + resumed (%d) steps against the '
+              'uninterrupted run: losses and %d persistables bit-equal: %s'
+              % (len(killed['losses']), len(resumed['losses']), len(plain),
+                 bits), flush=True)
+        check(bits, '19a: the resumed run parts from the uninterrupted one')
+        want = dict.fromkeys(launches, 0)
+        want['fused_conv'] = BOOK_REGIONS['recognize_digits_conv'] * TR_STEPS
+        check(launches == want, '19a: launches %s, expected %s'
+              % (launches, want))
+        want_v = dict.fromkeys(variants, 0)
+        for v, c in BOOK_VARIANTS['recognize_digits_conv']['f32'].items():
+            want_v[v] = c * TR_STEPS
+        check(variants == want_v, '19a: variants %s, expected %s'
+              % (variants, want_v))
+        for label, d in sorted(shifted.items()):
+            _, c_losses, c_state, _ = _tr_run(seed, ckdir=d)
+            same = (np.array_equal(np.concatenate([killed['losses'],
+                                                   c_losses]), losses)
+                    and _bits_equal(c_state, plain))
+            print('trainer 19a: control, resumed %s: %d steps, bit-equal %s'
+                  % (label, len(c_losses), same), flush=True)
+            check(not same, '19a: the resume check does not catch a control:'
+                  ' %s' % label)
+
+        # save_params, then the high-level Inferencer serves from them
+        param_dir = os.path.join(art_dir, 'params')
+        tr.save_params(param_dir)
+        ck.reset_launch_counts()
+        inf = fluid.Inferencer(_digits_infer_func, param_path=param_dir)
+        batch = next(_tr_reader()())
+        imgs = np.stack([s[0] for s in batch]).astype('float32').reshape(
+            TR_BATCH, 1, 28, 28)
+        served, = inf.infer({'img': imgs})
+        infer_launches = ck.LAUNCHES['fused_conv']
+        softmax = [op for op in tr.test_program.global_block().ops
+                   if op.type == 'softmax'][-1]
+        direct, = fluid.Executor(fluid.CUDAPlace(0)).run(
+            tr.test_program, feed={'img': imgs},
+            fetch_list=[softmax.output('Out')[0]], scope=tr.scope)
+        err = np.abs(served - direct).max() / np.abs(direct).max()
+        print('trainer 19a: Inferencer from save_params, batch %d: %s, '
+              'against the Trainer\'s test program max |diff| / max |prob| '
+              '%.3g (tol %g), bit-equal %s, %d fused_conv launches' % (
+                  TR_BATCH, served.shape, err, TR_INFER_TOL,
+                  np.array_equal(served, direct), infer_launches),
+              flush=True)
+        check(served.shape == (TR_BATCH, 10) and np.isfinite(served).all()
+              and err <= TR_INFER_TOL, '19a: the Inferencer\'s answer')
+        check(infer_launches == BOOK_REGIONS['recognize_digits_conv'],
+              '19a: Inferencer launches %d' % infer_launches)
+        print('trainer 19a: %.1f s (the two children %.1f s)' % (
+            time.perf_counter() - t0, t_children), flush=True)
+
+        # 19b: the pipelined loop against the plain one; the plain loop
+        # timed again warm (19a's run was the process's first Trainer)
+        t1 = time.perf_counter()
+        jplain = os.path.join(art_dir, 'plain_warm.jsonl')
+        _, w_losses, _, stamps = _tr_run(seed, journal=jplain)
+        check(np.array_equal(w_losses, losses), '19b: the plain loop run '
+              'twice gives other losses')
+        ck.reset_launch_counts()
+        jpipe = os.path.join(art_dir, 'pipe.jsonl')
+        _, p_losses, p_state, p_stamps = _tr_run(seed, journal=jpipe,
+                                                 **TR_PIPE)
+        pipe_launches = ck.LAUNCHES['fused_conv']
+        bits = np.array_equal(p_losses, losses) and \
+            _bits_equal(p_state, plain)
+        waits = {}
+        for label, path in (('plain', jplain), ('pipelined', jpipe)):
+            w, dur = _journal_waits(path)
+            check(len(w) == TR_STEPS, '19b: %s journal steps %d'
+                  % (label, len(w)))
+            waits[label] = (1e3 * float(np.median(w)),
+                            1e3 * float(np.median(dur)))
+        print('trainer 19b: %s against prefetch=0, steps_per_dispatch=1: '
+              'losses and %d persistables bit-equal: %s; '
+              'trainer_host_wait_seconds p50 %.3f ms pipelined, %.3f ms '
+              'plain; a step p50 %.2f ms pipelined, %.2f ms plain (journal '
+              'step_end dur_s); train() %.1f ms pipelined, %.1f ms plain '
+              '(%d steps, each its Trainer\'s first lowering included); '
+              '%s' % (
+                  TR_PIPE, len(plain), bits, waits['pipelined'][0],
+                  waits['plain'][0], waits['pipelined'][1],
+                  waits['plain'][1], 1e3 * p_stamps[-1], 1e3 * stamps[-1],
+                  TR_STEPS, card), flush=True)
+        check(bits, '19b: the pipelined run parts from the plain one')
+        check(pipe_launches == want['fused_conv'], '19b: launches %d'
+              % pipe_launches)
+        swapped = list(_tr_reader()())
+        swapped[5], swapped[6] = swapped[6], swapped[5]
+        for label, kw in (('batches 5 and 6 swapped',
+                           dict(reader=lambda: iter(swapped))),
+                          ('Adam(0.0011)', dict(lr=0.0011))):
+            _, c_losses, c_state, _ = _tr_run(seed, **dict(TR_PIPE, **kw))
+            same = np.array_equal(c_losses, losses) and \
+                _bits_equal(c_state, plain)
+            print('trainer 19b: control, %s: bit-equal %s' % (label, same),
+                  flush=True)
+            check(not same, '19b: the pipeline check does not catch a '
+                  'control: %s' % label)
+        print('trainer 19b: %.1f s' % (time.perf_counter() - t1),
+              flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+        amp.set_amp(None)
+    return {'fused_conv': launches['fused_conv'] + pipe_launches +
+            infer_launches}
+
+
+def long_remat_child(depth, seed):
+    """19c's long-context process (``--long-remat``): the flagship at
+    full width, ``depth`` layers, at LONG_SEQ and LONG_BATCH under
+    memory_optimize, a warm-up step and REMAT_LONG_STEPS timed steps.
+    Prints one JSON line; exits 3 when the card runs out of memory."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import compiler
+    from paddle_tpu_torch.models.fluid_transformer import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    cfg = dict(FLAGSHIP, seq=LONG_SEQ, n_layers=depth)
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        compiler.tuning.set_default_cache(compiler.tuning.TuningCache(
+            os.path.join(d, 'tuning_cache.json')))
+        main, startup = pt.Program(), pt.Program()
+        startup.random_seed = seed + 3
+        with pt.unique_name.guard(), pt.program_guard(main, startup):
+            loss = transformer(None, **cfg)[0]
+            pt.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+        pt.memory_optimize(main)
+        exe = pt.Executor()
+        scope = pt.Scope()
+        try:
+            exe.run(startup, scope=scope)
+            feed = _train_feed(LONG_BATCH, seed + 11, LONG_SEQ)
+            torch.cuda.reset_peak_memory_stats()
+            losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0])]
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(REMAT_LONG_STEPS):
+                out, = exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope, return_numpy=False)
+            losses.append(float(out.item()))
+            dt = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as e:
+            print('long-remat: depth %d out of memory: %s'
+                  % (depth, str(e).splitlines()[0]), flush=True)
+            return 3
+    print('long-remat: ' + json.dumps(dict(
+        depth=depth, ms=1e3 * dt / REMAT_LONG_STEPS,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        losses=losses, launches=dict(ck.LAUNCHES))), flush=True)
+    return 0
+
+
+def _phase19_remat_dropout(seed, card):
+    """19c's dropout and batch-norm net under memory_optimize. Returns
+    the fused conv's stats-form launches of the two measured steps."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import amp, lowering
+    from paddle_tpu_torch.models.vgg import vgg16_bn_drop
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name='pixel', shape=[3, 32, 32],
+                             dtype='float32')
+        label = pt.layers.data(name='label', shape=[1], dtype='int64')
+        pred = vgg16_bn_drop(img, 10)
+        loss = pt.layers.mean(pt.layers.cross_entropy(input=pred,
+                                                      label=label))
+        pt.optimizer.Adam(learning_rate=0.001).minimize(loss)
+    remat = main.clone()
+    pt.memory_optimize(remat)
+    # the same program under memory_optimize with the first batch norm's
+    # momentum 0.9 -> 0.91: only the moving statistics part
+    momentum = remat.clone()
+    next(op for op in momentum.global_block().ops
+         if op.type == 'batch_norm').attrs['momentum'] = 0.91
+    grad_names = sorted(v.name for v in main.list_vars()
+                        if v.name.endswith('@GRAD'))
+    stats = sorted(n for op in main.global_block().ops
+                   if op.type == 'batch_norm'
+                   for n in op.input('Mean') + op.input('Variance'))
+    rng = np.random.RandomState(seed + 31)
+    feed = {'pixel': torch.tensor(rng.randn(REMAT_VGG_BATCH, 3, 32, 32)
+                                  .astype('float32'), device='cuda'),
+            'label': torch.tensor(rng.randint(0, 10, (REMAT_VGG_BATCH, 1)),
+                                  device='cuda')}
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    amp.set_amp(False)
+    try:
+        exe = pt.Executor()
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        snap = _snapshot(scope)
+        keys = (lowering.RNG_KEY, lowering.RNG_CPU_KEY)
+        gens = {k: scope.raw(k).get_state() for k in keys}
+
+        def step(prog, advance=False):
+            _restore(scope, snap)
+            for k, st in gens.items():
+                scope.raw(k).set_state(st)
+            if advance:
+                g = scope.raw(lowering.RNG_KEY)
+                torch.rand(1, generator=g, device=g.device)
+            ck.reset_launch_counts()
+            vals = exe.run(prog, feed=feed, fetch_list=[loss] + grad_names,
+                           scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            return (dict(zip(['loss'] + grad_names, vals)),
+                    {n: scope.raw(n).clone() for n in snap},
+                    {k: scope.raw(k).get_state() for k in keys},
+                    dict(ck.LAUNCHES))
+
+        def parted(a, b):
+            """The names of a's fetches, persistables and generators that
+            differ from b's."""
+            return [[n for n in x if not torch.equal(x[n], y[n])]
+                    for x, y in zip(a[:3], b[:3])]
+
+        results = {}
+        for label_, prog in (('plain', main), ('memory_optimize', remat)):
+            step(prog)                                # the lowering
+            results[label_] = step(prog)
+        plain, rem = results['plain'], results['memory_optimize']
+        moved = [n for n in stats if not torch.equal(plain[1][n], snap[n])]
+        drew = [k for k in keys if not torch.equal(plain[2][k], gens[k])]
+        diff = parted(rem, plain)
+        pl, rl = plain[3]['fused_conv_stats'], rem[3]['fused_conv_stats']
+        print('remat 19c: vgg_bn_drop (book 03), batch %d, f32, Adam(0.001)'
+              ', one step with memory_optimize against without: loss and %d'
+              ' @GRAD, %d persistables (%d moving statistics, %d moved by '
+              'the step), generators (%s drew) bit-equal: %s (parted: %s); '
+              'fused_conv_stats launches %d against %d; %s' % (
+                  REMAT_VGG_BATCH, len(grad_names), len(snap), len(stats),
+                  len(moved), drew, not any(diff), diff, rl, pl, card),
+              flush=True)
+        check(len(moved) == len(stats) and drew == [lowering.RNG_KEY],
+              '19c: the plain step moved %d of %d statistics, generators '
+              '%s' % (len(moved), len(stats), drew))
+        check(not any(diff), '19c: memory_optimize parts the dropout and '
+              'batch-norm step: %s' % (diff,))
+        want = dict.fromkeys(plain[3], 0)
+        want['fused_conv_stats'] = 13
+        check(plain[3] == want, '19c: plain launches %s, expected %s'
+              % (plain[3], want))
+        want['fused_conv_stats'] = 26
+        check(rem[3] == want, '19c: memory_optimize launches %s, expected '
+              '%s' % (rem[3], want))
+        for label_, c in (('the generator one draw further',
+                           step(remat, advance=True)),
+                          ("the first batch norm's momentum 0.91",
+                           step(momentum))):
+            c_diff = parted(c, plain)
+            print('remat 19c: control, %s: parted fetches %d, persistables '
+                  '%d, generators %d' % ((label_,) + tuple(
+                      len(d) for d in c_diff)), flush=True)
+            check(any(c_diff), '19c: the dropout and batch-norm check does '
+                  'not catch a control: %s' % label_)
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+        amp.set_amp(None)
+    del scope, snap, results
+    torch.cuda.empty_cache()
+    print('remat 19c: vgg_bn_drop %.1f s' % (time.perf_counter() - t0),
+          flush=True)
+    return {'fused_conv_stats': pl + rl}
+
+
+def _phase19_remat(seed, card):
+    """19c. The flagship at batch 16 with and without memory_optimize,
+    then the long context by depth. Returns the flash launches of the
+    measured flagship steps and of the long-context process that fit."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.fluid_transformer import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck, misc_ops
+    t0 = time.perf_counter()
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = transformer(None, **FLAGSHIP)[0]
+        pt.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    remat = main.clone()
+    pt.memory_optimize(remat)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    grad_names = sorted(v.name for v in main.list_vars()
+                        if v.name.endswith('@GRAD'))
+    feed = _train_feed(TRAIN_BATCH, seed + 7)
+    snap = _snapshot(scope)
+    n = FLAGSHIP['n_layers']
+
+    def step(prog):
+        _restore(scope, snap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        vals = exe.run(prog, feed=feed, fetch_list=[loss] + grad_names,
+                       scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        return (dict(zip(['loss'] + grad_names, vals)), dict(ck.LAUNCHES),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    def ms(prog):
+        _restore(scope, snap)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(REMAT_TIMED_STEPS):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / REMAT_TIMED_STEPS
+
+    results = {}
+    for label, prog in (('plain', main), ('memory_optimize', remat)):
+        step(prog)                                 # the lowering, warm-up
+        results[label] = step(prog) + (ms(prog),)
+    (pg, pl, ppeak, pms), (rg, rl, rpeak, rms) = (results['plain'],
+                                                  results['memory_optimize'])
+    unequal = [k for k in pg if not torch.equal(pg[k], rg[k])]
+    errs = _rel_l2(rg, pg)
+    worst = max(errs, key=errs.get)
+    readers = [op.type for op in main.global_block().ops
+               if worst.replace('@GRAD', '') in op.input_arg_names]
+    print('remat 19c: flagship %s, batch %d, Adam(1e-4): plain %.2f ms a '
+          'step, peak %.2f GiB, launches %s; memory_optimize %.2f ms a '
+          'step, peak %.2f GiB, launches %s; %s' % (
+              FLAGSHIP, TRAIN_BATCH, pms, ppeak, pl, rms, rpeak, rl, card),
+          flush=True)
+    print('remat 19c: the loss and %d @GRAD with memory_optimize against '
+          'without: %s; largest relative L2 %.3g (%s, read by %s; '
+          'bit-equal required)'
+          % (len(grad_names), 'bit-equal' if not unequal else
+             '%d differ' % len(unequal), errs[worst], worst, readers),
+          flush=True)
+    check(not unequal, '19c: memory_optimize parts %d of the loss and '
+          '@GRAD, the largest by %g (%s)' % (len(unequal), errs[worst],
+                                            worst))
+    want = dict.fromkeys(pl, 0)
+    want.update(flash_attn_fwd=n, flash_attn_bwd_dkvdq=n)
+    check(pl == want, '19c: plain launches %s, expected %s' % (pl, want))
+    want = dict(want, flash_attn_fwd=2 * n)
+    check(rl == want, '19c: memory_optimize launches %s, expected %s'
+          % (rl, want))
+    for mode in ('dq dropped', 'dk/dv of the next head'):
+        with misc_ops.attention_for_testing(_wrong_backward(mode)):
+            cg = step(remat)[0]
+        c_errs = _rel_l2(cg, pg)
+        c_worst = max(c_errs, key=c_errs.get)
+        c_unequal = [k for k in pg if not torch.equal(pg[k], cg[k])]
+        print('remat 19c: control, %s under memory_optimize: %d differ, '
+              'max relative L2 %.3g (%s)' % (mode, len(c_unequal),
+                                             c_errs[c_worst], c_worst),
+              flush=True)
+        check(c_unequal, '19c: the gradient check does not catch a '
+              'control: %s' % mode)
+    launches = {'flash_attn_fwd': pl['flash_attn_fwd'] +
+                rl['flash_attn_fwd'],
+                'flash_attn_bwd_dkvdq': pl['flash_attn_bwd_dkvdq'] +
+                rl['flash_attn_bwd_dkvdq']}
+    del main, remat, scope, snap, pg, rg, results
+    torch.cuda.empty_cache()
+    print('remat 19c: flagship %.1f s' % (time.perf_counter() - t0),
+          flush=True)
+
+    t1 = time.perf_counter()
+    fit = None
+    for depth in REMAT_DEPTHS:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
+             '--long-remat', str(depth), '--seed', str(seed)],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=REMAT_CHILD_TIMEOUT)
+        lines = [l for l in proc.stdout.splitlines()
+                 if l.startswith('long-remat: ')]
+        print('remat 19c: long context, depth %d: exit %d, %s' % (
+            depth, proc.returncode, lines[-1] if lines else
+            proc.stderr[-500:]), flush=True)
+        if proc.returncode == 3:
+            continue
+        check(proc.returncode == 0 and lines, '19c: the depth-%d process '
+              'failed: %s' % (depth, proc.stderr[-2000:]))
+        fit = json.loads(lines[-1][len('long-remat: '):])
+        break
+    check(fit is not None, '19c: no depth of %s fits' % (REMAT_DEPTHS,))
+    d = fit['depth']
+    steps = REMAT_LONG_STEPS
+    print('remat 19c: long context (seq %d, batch %d, %d tokens a step) '
+          'under memory_optimize: depth %d fits (phase 7b without it: %d), '
+          'peak %.2f GiB, %.2f ms a step, losses %s; %s; %.1f s' % (
+              LONG_SEQ, LONG_BATCH, LONG_SEQ * LONG_BATCH, d, LONG_LAYERS,
+              fit['peak_gib'], fit['ms'], fit['losses'], card,
+              time.perf_counter() - t1), flush=True)
+    check(all(np.isfinite(fit['losses'])), '19c: a non-finite loss')
+    want = dict.fromkeys(fit['launches'], 0)
+    want.update(flash_attn_fwd=2 * d * steps, flash_attn_bwd_dq=d * steps,
+                flash_attn_bwd_dkv=d * steps)
+    check(fit['launches'] == want, '19c: long-context launches %s, '
+          'expected %s' % (fit['launches'], want))
+    for k in ('flash_attn_fwd', 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv'):
+        launches[k] = launches.get(k, 0) + fit['launches'][k]
+    return launches
+
+
+def _lowered_dtypes(exe, program, scope, feed, names):
+    """The values ``names`` of ``program`` after the compiler's passes, in
+    the dtype they flow in on the card (the Executor's fetches are f32)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import lowering
+    opt, _ = pt.compiler.optimize(program, fetch_names=names, scope=scope)
+    state_names = sorted(v.name for v in opt.list_vars() if v.persistable
+                         and scope.raw(v.name) is not None)
+    fn = lowering.lower_block(opt, opt.global_block(), sorted(feed), names,
+                              state_names, [], exe.device)
+    state = {n: scope.raw(n) for n in state_names}
+    state[lowering.RNG_KEY] = scope.raw(lowering.RNG_KEY)
+    state[lowering.RNG_CPU_KEY] = scope.raw(lowering.RNG_CPU_KEY)
+    got, _ = fn(feed, state)
+    return [g.dtype for g in got]
+
+
+def _phase19_amp_act(seed, card):
+    """19d. mnist's AMP steps with activations in bf16 and in f32.
+    Returns the fused conv launches."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    main, startup, loss, pred = _bench_program('mnist', seed)
+    softmax = [op for op in main.global_block().ops
+               if op.type == 'softmax'][-1]
+    logits = softmax.input('X')[0]
+    infer = main.clone(for_test=True).prune([logits])
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    snap = _snapshot(scope)
+    feed = _bench_feed('mnist', BENCH_BATCH, seed + 5)
+    feed2 = _bench_feed('mnist', BENCH_BATCH, seed + 6)
+    conv_outs = [op.output('Out')[0] for op in pt.compiler.optimize(
+        infer, fetch_names=[logits])[0].global_block().ops
+        if op.type == 'fused_conv']
+    mul_outs = [op.output('Out')[0] for op in infer.global_block().ops
+                if op.type == 'mul']
+    runs = {}
+    try:
+        for act in (True, False):
+            amp.set_amp_act(act)
+            _restore(scope, snap)
+            dtypes = _lowered_dtypes(exe, infer, scope, {'data':
+                                                         feed['data']},
+                                     conv_outs + mul_outs)
+            ck.reset_launch_counts()
+            first = None
+            for _ in range(AMP_ACT_STEPS):
+                out = exe.run(main, feed=feed, fetch_list=[loss, logits],
+                              scope=scope, return_numpy=False)
+                if first is None:
+                    first = out[1].float()
+            torch.cuda.synchronize()
+            runs[act] = (dtypes, dict(ck.FUSED_CONV_VARIANT_LAUNCHES),
+                         ck.LAUNCHES['fused_conv'], first,
+                         float(out[0].reshape(-1)[0]))
+        amp.set_amp_act(False)
+        _restore(scope, snap)
+        other = exe.run(main, feed=feed2, fetch_list=[logits], scope=scope,
+                        return_numpy=False)[0].float()
+        _restore(scope, snap)
+        with passes.conv_for_testing(_rolled_filters):
+            rolled = exe.run(main, feed=feed, fetch_list=[logits],
+                             scope=scope, return_numpy=False)[0].float()
+    finally:
+        amp.set_amp_act(None)
+    (d16, v16, n16, l16, loss16), (d32, v32, n32, l32, loss32) = \
+        runs[True], runs[False]
+    tol = BENCH_LOGITS_TOL['mnist']['bfloat16']
+
+    def rel(a):
+        return ((a - l16).abs().max() / l16.abs().max()).item()
+    err = rel(l32)
+    print('amp-act 19d: mnist, batch %d, %d AMP steps each: activations '
+          '(the 2 conv regions, the fc) %s with set_amp_act(True), %s with '
+          'set_amp_act(False); fused_conv variants %s and %s; last losses '
+          '%.4f and %.4f; first step\'s logits, f32 against bf16 '
+          'activations: max |diff| / max |logits| %.4g (tol %g); %s' % (
+              BENCH_BATCH, AMP_ACT_STEPS, [str(d) for d in d16],
+              [str(d) for d in d32], v16, v32, loss16, loss32, err, tol,
+              card), flush=True)
+    check(d16 == [torch.bfloat16] * len(d16) and
+          d32 == [torch.float32] * len(d32) and len(d16) == 3,
+          '19d: activation dtypes %s and %s' % (d16, d32))
+    want = dict.fromkeys(v16, 0)
+    want['mma_sync'] = BENCH_REGIONS['mnist'] * AMP_ACT_STEPS
+    check(v16 == v32 == want and n16 == n32, '19d: variants %s and %s, '
+          'expected %s' % (v16, v32, want))
+    check(err <= tol and np.isfinite([loss16, loss32]).all(),
+          '19d: the logits differ by %g' % err)
+    for label, c in (('the next batch', other),
+                     ("the next channel's filters", rolled)):
+        print('amp-act 19d: control, %s: %.4g' % (label, rel(c)),
+              flush=True)
+        check(rel(c) > tol, '19d: the logits limit does not catch a '
+              'control: %s' % label)
+    print('amp-act 19d: %.1f s' % (time.perf_counter() - t0), flush=True)
+    return {'fused_conv': n16 + n32}
+
+
+def _phase19_float16(seed, card):
+    """19e. ResNet-50 served at batch 8 from its Float16Transpiler'd f32
+    model against the f32 model under AMP. Returns the fused conv
+    launches of the transpiled requests."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    main, startup, prob = _resnet_program(seed)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 3)
+    bns = [op for op in main.global_block().ops if op.type == 'batch_norm']
+    for op in bns:
+        c = scope.raw(op.input('Scale')[0]).shape[0]
+        scope.set_var(op.input('Scale')[0], torch.rand(
+            c, device='cuda', generator=gen) + 0.5)
+        scope.set_var(op.input('Bias')[0], torch.randn(
+            c, device='cuda', generator=gen) * 0.1)
+    base = _snapshot(scope)
+    softmax, = [op for op in main.global_block().ops
+                if op.type == 'softmax']
+    logits = softmax.input('X')[0]
+    f32_prog = main.clone(for_test=True)
+    feed = _image_feed(F16_BATCH, seed + 21)
+
+    def prepared(small_gammas):
+        """A scope of the model, its residual gammas as phase 6 starts
+        them or scaled by RESIDUAL_GAMMA, its moving statistics
+        calibrated on one batch."""
+        sc = pt.Scope()
+        _restore(sc, base)
+        if small_gammas:
+            _small_residual_gammas(main, sc)
+        moments = exe.run(main, feed=_image_feed(F16_BATCH, seed + 7),
+                          fetch_list=[op.output(s)[0] for op in bns
+                                      for s in ('SavedMean',
+                                                'SavedVariance')],
+                          scope=sc, return_numpy=False)
+        for op, mean, var in zip(bns, moments[::2], moments[1::2]):
+            sc.set_var(op.input('Mean')[0], mean.float())
+            sc.set_var(op.input('Variance')[0], var.float())
+        return sc
+
+    def transpiled(sc):
+        prog, hs = main.clone(for_test=True), pt.Scope()
+        _restore(hs, _snapshot(sc))
+        return prog, hs, pt.contrib.Float16Transpiler().transpile(
+            prog, scope=hs)
+
+    # a reading, not a gate: at phase 6's gammas the transpiled model's
+    # logits leave RESNET_LOGITS_TOL, so the limit is held below at
+    # RESIDUAL_GAMMA
+    sc6 = prepared(False)
+    ref6, = exe.run(f32_prog, feed=feed, fetch_list=[logits], scope=sc6)
+    prog6, hs6, _ = transpiled(sc6)
+    got6, = exe.run(prog6, feed=feed, fetch_list=[logits], scope=hs6)
+    print('float16 19e: at phase 6\'s residual gammas, the transpiled '
+          'logits against the f32 model under AMP, max |diff| / max '
+          '|logits|: %.4g (RESNET_LOGITS_TOL %g; a reading, not a gate); '
+          '%s' % (float(np.abs(got6 - ref6).max() / np.abs(ref6).max()),
+                  RESNET_LOGITS_TOL, card), flush=True)
+    del sc6, prog6, hs6
+    scope = prepared(True)
+    half_prog, half_scope, n_cast = transpiled(scope)
+    rounded = pt.Scope()
+    for n, v in scope.vars.items():
+        if isinstance(v, torch.Tensor):
+            rounded.set_var(n, v.to(torch.bfloat16).to(v.dtype)
+                            if v.dtype == torch.float32 else v)
+    ref, = exe.run(f32_prog, feed=feed, fetch_list=[logits], scope=scope)
+    witness, = exe.run(f32_prog, feed=feed, fetch_list=[logits],
+                       scope=rounded)
+    times = []
+    ck.reset_launch_counts()
+    passes.reset_fallback_counts()
+    for i in range(F16_REQUESTS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, = exe.run(half_prog, feed=feed, fetch_list=[logits],
+                       scope=half_scope)
+        times.append(1e3 * (time.perf_counter() - t))
+    launches = ck.LAUNCHES['fused_conv']
+    variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
+    fallbacks = dict(passes.FALLBACKS)
+    ref_times = []
+    for i in range(F16_REQUESTS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exe.run(f32_prog, feed=feed, fetch_list=[logits], scope=scope)
+        ref_times.append(1e3 * (time.perf_counter() - t))
+    weight = half_scope.raw(main.global_block().all_parameters()[0].name)
+
+    def rel(a, b=ref):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+    err, w_err = rel(got), rel(got, witness)
+    print('float16 19e: ResNet-50 f32 model, %d persistables cast to %s by '
+          'Float16Transpiler; batch %d, f32 in, %s out; logits, max |diff| '
+          '/ max |logits|: against the f32 model under AMP %.4g (tol %g), '
+          'against the witness (its persistables rounded to bf16) %.4g '
+          '(tol %g, bit-equal %s); %d fused_conv a request, by variant %s, '
+          'fallbacks %s; p50 %.2f ms a request transpiled, %.2f ms the f32 '
+          'model under AMP; %s' % (
+              n_cast, weight.dtype, F16_BATCH, got.dtype, err,
+              RESNET_LOGITS_TOL, w_err, F16_WITNESS_TOL,
+              np.array_equal(got, witness), launches // F16_REQUESTS,
+              variants, fallbacks, float(np.median(times)),
+              float(np.median(ref_times)), card), flush=True)
+    check(weight.dtype == torch.bfloat16 and got.dtype == np.float32,
+          '19e: weights %s, fetch %s' % (weight.dtype, got.dtype))
+    check(err <= RESNET_LOGITS_TOL, '19e: the transpiled logits differ by '
+          '%g' % err)
+    check(w_err <= F16_WITNESS_TOL, '19e: the transpiled logits differ '
+          'from the witness by %g' % w_err)
+    check(launches == RESNET_REGIONS * F16_REQUESTS and not fallbacks,
+          '19e: %d launches, fallbacks %s' % (launches, fallbacks))
+    want = {v: c * F16_REQUESTS for v, c in RESNET_VARIANTS.items()}
+    check(variants == want, '19e: variants %s, expected %s'
+          % (variants, want))
+    other, = exe.run(half_prog, feed=_image_feed(F16_BATCH, seed + 22),
+                     fetch_list=[logits], scope=half_scope)
+    with passes.conv_for_testing(_rolled_filters):
+        rolled, = exe.run(half_prog, feed=feed, fetch_list=[logits],
+                          scope=half_scope)
+    for label, c in (('the next batch', other),
+                     ("the next channel's filters", rolled)):
+        print('float16 19e: control, %s: %.4g against the f32 model, %.4g '
+              'against the witness' % (label, rel(c), rel(c, witness)),
+              flush=True)
+        check(rel(c) > RESNET_LOGITS_TOL and
+              rel(c, witness) > F16_WITNESS_TOL, '19e: a logits limit does '
+              'not catch a control: %s' % label)
+    print('float16 19e: %.1f s' % (time.perf_counter() - t0), flush=True)
+    return {'fused_conv': launches}
+
+
+def _guard_reader(poison=GUARD_POISON):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.resilience import faultinject
+    return faultinject.nan_reader(pt.batch(pt.reader.firstn(
+        pt.dataset.uci_housing.train(), 20 * GUARD_STEPS), 20), poison)
+
+
+def _guard_run(place, param_dir, policy, ckdir=None, poison=GUARD_POISON):
+    """fit_a_line through the Trainer on the poisoned reader, f32 on
+    either device (AMP off): (each step's skip, the trips, the
+    parameters)."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.models import books
+    amp.set_amp(False)
+    try:
+        return _guarded_train(place, param_dir, policy, ckdir, poison)
+    finally:
+        amp.set_amp(None)
+
+
+def _guarded_train(place, param_dir, policy, ckdir, poison):
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import books
+    tr = fluid.Trainer(lambda: books.fit_a_line().loss,
+                       fluid.optimizer.SGD(learning_rate=0.001),
+                       param_path=param_dir, place=place)
+    guard = fluid.AnomalyGuard(policy=policy)
+    skipped = []
+    cfg = None if ckdir is None else fluid.CheckpointConfig(
+        checkpoint_dir=ckdir, step_interval=1, backend='npz')
+    tr.train(1, lambda e: skipped.append(e.metrics is None) if isinstance(
+        e, fluid.EndStepEvent) else None, reader=_guard_reader(poison),
+        feed_order=['x', 'y'], anomaly_guard=guard, checkpoint_config=cfg)
+    params = {p.name: pt.fetch_var(p.name, tr.scope)
+              for p in tr.train_program.global_block().all_parameters()}
+    return skipped, dict(guard.anomalies), params
+
+
+def _phase19_guards(seed, card, art_dir):
+    """19f. check_nan_inf on a poisoned feed; the AnomalyGuard's
+    skip_batch and rollback_to_checkpoint under the Trainer, card
+    against CPU."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import books
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    main, startup, loss, pred = _bench_program('mnist', seed)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _bench_feed('mnist', BENCH_BATCH, seed + 5)
+    poisoned = dict(feed, data=feed['data'].clone())
+    poisoned['data'][3, 0, 7, 7] = float('nan')
+    opt, _ = pt.compiler.optimize(main, fetch_names=[loss.name])
+    first = next(op for op in opt.global_block().ops
+                 if 'data' in op.input_arg_names)
+    want = "output '%s' of op '%s'" % (first.output_arg_names[0], first.type)
+    snap = _snapshot(scope)
+    raised = None
+    with fluid.nan_guard():
+        try:
+            exe.run(main, feed=poisoned, fetch_list=[loss], scope=scope)
+        except fluid.NanInfError as e:
+            raised = str(e)
+        _restore(scope, snap)
+        clean, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    _restore(scope, snap)
+    off, = exe.run(main, feed=poisoned, fetch_list=[loss], scope=scope)
+    _restore(scope, snap)
+    print('guards 19f: check_nan_inf on a feed with one NaN pixel: %r '
+          '(the first op reading the feed: %s); a clean feed under the '
+          'guard: loss %.4f; the poisoned feed without the guard: loss %s'
+          % (raised, want, float(clean[0]), off[0]), flush=True)
+    check(raised is not None and want in raised, '19f: check_nan_inf '
+          'raised %r, expected it to name %s' % (raised, want))
+    check(np.isfinite(clean).all(), '19f: the guard tripped on a clean feed')
+    check(not np.isfinite(off).all(), '19f: the poisoned feed is finite '
+          'without the guard')
+    del main, scope, snap
+
+    # the guard's policies under the Trainer, card against CPU from one
+    # set of parameters
+    tr = fluid.Trainer(lambda: books.fit_a_line().loss,
+                       fluid.optimizer.SGD(learning_rate=0.001))
+    param_dir = os.path.join(art_dir, 'guard_params')
+    tr.save_params(param_dir)
+    ck.reset_launch_counts()
+    for policy in ('skip_batch', 'rollback_to_checkpoint'):
+        got = {}
+        for label, place in (('card', pt.CUDAPlace(0)),
+                             ('cpu', pt.CPUPlace())):
+            ckdir = os.path.join(art_dir, 'guard_%s_%s' % (policy, label)) \
+                if policy != 'skip_batch' else None
+            got[label] = _guard_run(place, param_dir, policy, ckdir)
+        (cs, ca, cp), (hs, ha, hp) = got['card'], got['cpu']
+
+        def gap(ps):
+            return max(float(np.abs(ps[n] - hp[n]).max() /
+                             max(np.abs(hp[n]).max(), 1e-30)) for n in hp)
+        err = gap(cp)
+        print('guards 19f: %s: card steps %s, trips %s; CPU steps %s, trips '
+              '%s; parameters card against CPU %.3g (tol %g)' % (
+                  policy, cs, ca, hs, ha, err, BOOK_CPU_TOL), flush=True)
+        check(cs == hs and len(cs) == GUARD_STEPS and sum(cs) == len(
+            GUARD_POISON) and ca == ha == {'feed_nan': len(GUARD_POISON)},
+              '19f: %s: steps or trips differ' % policy)
+        check(err <= BOOK_CPU_TOL and all(np.isfinite(v).all()
+                                          for v in cp.values()),
+              '19f: %s: card against CPU %g' % (policy, err))
+        if policy == 'skip_batch':
+            _, _, moved = _guard_run(pt.CPUPlace(), param_dir, policy,
+                                     poison=(3,))
+            _, _, unguarded = _guard_run(pt.CPUPlace(), param_dir,
+                                         policy, poison=())
+            for label, ps in (('the poison a step later', moved),
+                              ('no poisoned step', unguarded)):
+                print('guards 19f: control, %s: %.3g' % (label, gap(ps)),
+                      flush=True)
+                check(gap(ps) > BOOK_CPU_TOL, '19f: the parameter limit '
+                      'does not catch a control: %s' % label)
+    check(sum(ck.LAUNCHES.values()) == 0, '19f: fit_a_line launched %s'
+          % ck.LAUNCHES)
+    print('guards 19f: %.1f s' % (time.perf_counter() - t0), flush=True)
+
+
+def phase_trainer(seed, card):
+    """19. The Fluid high-level Trainer and its services on the card:
+    checkpoint, SIGTERM and resume (19a), the pipelined loop (19b),
+    memory_optimize (19c), the AMP activation setting (19d), the
+    Float16Transpiler (19e), the guards (19f). Returns the kernel
+    launches of its main paths."""
+    import torch
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(part):
+        for k, c in part.items():
+            launches[k] = launches.get(k, 0) + c
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        add(_phase19_trainer(seed, card, d))
+        torch.cuda.empty_cache()
+        add(_phase19_remat_dropout(seed, card))
+        add(_phase19_remat(seed, card))
+        torch.cuda.empty_cache()
+        add(_phase19_amp_act(seed, card))
+        add(_phase19_float16(seed, card))
+        torch.cuda.empty_cache()
+        _phase19_guards(seed, card, d)
+    print('phase 19: %.1f s' % (time.perf_counter() - t_phase), flush=True)
+    return launches
+
+
 def sweep_conv_plans(card):
     """The wgmma conv's time at every (tile width, K splits) at ResNet-50's
     non-stem region shapes at batch 1, 8 and 32 (bf16, the folded batch
@@ -9497,6 +10619,15 @@ def main():
                     'whose package is measured (default: this one)')
     ap.add_argument('--serve-tuned', metavar='CONFIG',
                     help="phase 6c's second process (run by phase 6c)")
+    ap.add_argument('--trainer-child', nargs=3,
+                    metavar=('MODE', 'CKPT_DIR', 'OUT'),
+                    help="phase 19a's second and third processes (run by "
+                    'phase 19a)')
+    ap.add_argument('--long-remat', type=int, metavar='DEPTH',
+                    help="phase 19c's long-context process at one depth "
+                    '(run by phase 19c)')
+    ap.add_argument('--phase19', action='store_true',
+                    help='build the kernels, run phase 19 alone, then stop')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -9508,6 +10639,10 @@ def main():
     card = phase_device()
     if args.serve_tuned:
         return serve_tuned(args.serve_tuned)
+    if args.trainer_child:
+        return trainer_child(*args.trainer_child, seed=args.seed)
+    if args.long_remat:
+        return long_remat_child(args.long_remat, args.seed)
     phase_build()
     os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
@@ -9534,6 +10669,9 @@ def run_phases(args, card, root):
         return 0
     if args.fetch_cost:
         fetch_cost(card, root, args.seed)
+        return 0
+    if args.phase19:
+        phase_trainer(args.seed, card)
         return 0
     phase_sass()
     kres = phase_kernels(args.seed)
@@ -9585,6 +10723,8 @@ def run_phases(args, card, root):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
         sparse = phase_sparse_and_books(args.seed, card, d)
+    torch.cuda.empty_cache()
+    trainer = phase_trainer(args.seed, card)
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests, the serving runtime's concurrent mix, untuned
@@ -9596,8 +10736,13 @@ def run_phases(args, card, root):
     # the serving runtime's concurrent mix, untuned and tuned, and the
     # fleet's mix; each also over phase 16's steps: the flagship's under
     # noam_decay, mnist's under each optimizer, ResNet-50's under
-    # piecewise_decay; and over phase 17's main paths: the flagship's
-    # and mnist's input gradients, the sparse LSTM's steps)
+    # piecewise_decay; over phase 17's main paths: the flagship's
+    # and mnist's input gradients, the sparse LSTM's steps; and over phase
+    # 19's: the Trainer's recognize_digits steps (19a, 19b) and its
+    # Inferencer, vgg_bn_drop's stats-form steps and the flagship's, each
+    # with and without memory_optimize, and the long context's under it
+    # (19c), mnist's AMP steps (19d), the transpiled ResNet-50's requests
+    # (19e))
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -9613,19 +10758,21 @@ def run_phases(args, card, root):
         tuned_launches['flash_attn_fwd'] + fleet_launches['flash_attn_fwd'] +
         trained['launches']['flash_attn_fwd'] +
         long_trained['launches']['flash_attn_fwd'] +
-        front['flash_attn_fwd'] + sparse['flash_attn_fwd'], **main_shape)]
+        front['flash_attn_fwd'] + sparse['flash_attn_fwd'] +
+        trainer['flash_attn_fwd'], **main_shape)]
     kernels.append(dict(
         name='flash_attn_bwd_dkvdq', route='cuda', source=bwd_src,
         replaces='paddle_tpu/ops/pallas_kernels.py:310',
         launches=trained['launches']['flash_attn_bwd_dkvdq'] +
-        front['flash_attn_bwd_dkvdq'] + sparse['flash_attn_bwd_dkvdq'],
+        front['flash_attn_bwd_dkvdq'] + sparse['flash_attn_bwd_dkvdq'] +
+        trainer['flash_attn_bwd_dkvdq'],
         **train_shape['flash_attn_bwd_dkvdq']))
     for name, line in (('flash_attn_bwd_dq', 245),
                        ('flash_attn_bwd_dkv', 273)):
         kernels.append(dict(
             name=name, route='cuda', source=bwd_src,
             replaces='paddle_tpu/ops/pallas_kernels.py:%d' % line,
-            launches=long_trained['launches'][name],
+            launches=long_trained['launches'][name] + trainer[name],
             training_shape=train_shape[name], **long_shape[name]))
     # the fused conv: its numbers summed over one batch-32 request's 53
     # regions (bf16, as the served model runs them); launches also over
@@ -9649,7 +10796,7 @@ def run_phases(args, card, root):
         fleet_launches['fused_conv'] +
         sum(b['fused_conv'] for b, _ in bench.values()) +
         book_launches['fused_conv'] + front['fused_conv'] +
-        sparse['fused_conv'],
+        sparse['fused_conv'] + trainer['fused_conv'],
         bench_regions=bench_totals('fused_conv'),
         book_regions=book_regions('fused_conv'), **conv))
     # its stats form: launches over the timed ResNet-50, VGG-16 and
@@ -9662,7 +10809,8 @@ def run_phases(args, card, root):
         replaces='paddle_tpu/ops/pallas_kernels.py:789',
         launches=resnet_trained['launches']['fused_conv_stats'] +
         bench['vgg'][0]['fused_conv_stats'] +
-        book_launches['fused_conv_stats'] + front['fused_conv_stats'],
+        book_launches['fused_conv_stats'] + front['fused_conv_stats'] +
+        trainer.get('fused_conv_stats', 0),
         bench_regions=bench_totals('fused_conv_stats'),
         book_regions=book_regions('fused_conv_stats'), **stats))
     # the LSTM cell: launches over the timed training steps of

@@ -66,9 +66,21 @@ replicas and disaggregated decode), watched through
 paddle_tpu_torch.tools.analyze_program`` runs the static analysis on a
 builder file or a saved model.
 
+Training's high-level API and its services: ``Trainer`` (events,
+``test``, ``save_params``), atomic checkpoints with auto-resume and
+preemption saves (``io.save_checkpoint``, ``resilience``), the
+``AnomalyGuard`` policies, prefetch onto the card
+(``reader.prefetch``), chained steps and lazy fetches
+(``Executor.run_chained``, ``run(async_fetch=True)``),
+``memory_optimize`` (checkpointed forward segments), the AMP activation
+setting (``core.amp.set_amp_act``), the ``Float16Transpiler``
+(``contrib``), the NaN/Inf guard (``check_nan_inf``), and the
+``debugger``, ``graphviz``, ``net_drawer`` and ``concurrency`` helpers.
+
 Entry points run on the card unless told otherwise: ``Executor()``,
 ``serving.ModelServer()``, ``Inferencer(...)``, ``fleet.DecodeEngine``,
-``kvcache.PrefillEngine`` and ``kvcache.make_paged_engine`` mean
+``kvcache.PrefillEngine``, ``kvcache.make_paged_engine`` and
+``Trainer(...)`` mean
 ``CUDAPlace(0)`` and raise where CUDA is absent; pass ``CPUPlace()`` to
 run on the CPU.
 """
@@ -93,6 +105,12 @@ from .inferencer import Inferencer  # noqa
 from .data_feeder import DataFeeder  # noqa
 from . import reader, dataset, evaluator  # noqa
 from .reader import batch  # noqa
+from . import transpiler, contrib, debugger, concurrency  # noqa
+from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa
+                      BeginStepEvent, EndStepEvent, CheckpointConfig)
+from .parallel.transpiler import (InferenceTranspiler,  # noqa
+                                  memory_optimize, release_memory)
+from .debugging import check_nan_inf, nan_guard, nan_checks_enabled  # noqa
 
 # the reference's LoDTensor; SequenceTensor carries its imperative
 # surface (set, set_lod, lod), as in paddle_tpu

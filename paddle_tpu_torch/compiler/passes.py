@@ -43,9 +43,9 @@ import weakref
 import numpy as np
 import torch
 
-from ..framework import (Block, Operator, _has_sub_block, _op_reads,
-                         _op_writes)
-from ..core.amp import amp_enabled
+from ..framework import (Block, Operator, _has_sub_block,  # noqa: F401
+                         _hidden_reads, _op_reads, _op_writes)
+from ..core.amp import amp_enabled, out_dtype
 from ..core.lowering import BlockRunner, OpCtx, RNG_KEY
 from ..core.registry import SIDE_EFFECT_OPS, get_kernel, register_kernel
 from ..ops import cuda_kernels as ck
@@ -85,19 +85,6 @@ _ALWAYS_KEEP = frozenset({'feed', 'fetch'})
 
 
 # ---- helpers ---------------------------------------------------------------------
-def _hidden_reads(op):
-    """Names consumed through attrs, invisible to ``_op_reads``: the
-    gradient markers' cotangent sources and the backward marker's
-    sparse-lookup ids. Every liveness-style analysis here treats them as
-    reads."""
-    if op.type == 'gradient_marker':
-        return [n for n in (op.attrs.get('target_grads') or ()) if n]
-    if op.type == 'backward_marker':
-        return [p[0] for pairs in (op.attrs.get('sparse') or {}).values()
-                for p in pairs]
-    return []
-
-
 def _program_has_sub_blocks(program):
     return len(program.blocks) > 1 or any(
         _has_sub_block(op) for op in program.global_block().ops)
@@ -806,7 +793,10 @@ def _lower_fused_conv(ctx, ops):
     if train_bn is None:
         y = _FUSED_CONV[0](x_nhwc, w_k, tuple(aux), tuple(kinds),
                            tuple(stages), strides, pads, depthwise)
-        ctx.set_output('Out', y.permute(0, 3, 1, 2))
+        # under AMP with f32 activations the bf16 result is cast back
+        # after the kernel, as the unfused conv2d op's
+        ctx.set_output('Out', y.to(out_dtype(y.device, y.dtype))
+                       .permute(0, 3, 1, 2))
         return None
     _train_bn_region(ctx, train_bn, x_nhwc, w_k, aux, kinds, stages,
                      strides, pads, depthwise, cdt, pre_bias)
@@ -841,7 +831,8 @@ def _train_bn_region(ctx, bn, x_nhwc, w_k, aux, kinds, stages, strides,
     fetch_aux = ck.aux_fetcher(aux, kinds)
     for st in stages:
         yn = ck.apply_stage(yn, st, fetch_aux)
-    ctx.set_output('Out', yn.to(cdt).permute(0, 3, 1, 2))
+    ctx.set_output('Out', yn.to(out_dtype(yn.device, cdt))
+                   .permute(0, 3, 1, 2))
     if pre_bias is not None:
         bmean = bmean + pre_bias
     ctx.set_output('Stats', (mean * momentum + bmean * (1.0 - momentum))

@@ -24,16 +24,32 @@ is not a leaf: each of its lookups adds a zero carrier leaf to its
 gathered rows, and the table's gradient is the carriers' gradients with
 their ids, a ``SparseRows``.
 
+``A program marked by ``memory_optimize`` (``remat``) runs its training
+forward as about sqrt(N) segments, each under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: autograd
+keeps only each segment's inputs and recomputes the rest in the
+backward (``_run_remat_segments``, the counterpart of the JAX package's
+``_run_remat_segments``).
+
+With the debug-mode NaN/Inf guard on (``debugging.check_nan_inf``),
+``run_ops`` tests every float output of every op with ``isfinite`` and
+raises ``FloatingPointError`` naming the op, the output and the inputs.
+
 ``calc_gradient`` plants a ``gradient_marker``: its kernel replays the
 ops between its inputs and its targets with the inputs as fresh nodes,
 under autograd wherever it runs (a training forward, an update, a
 served program), and its gradients stay differentiable, so a later
 marker or the backward marker differentiates through them.
 """
+import math
+
 import torch
+import torch.utils.checkpoint
 
 from .registry import get_kernel, register_kernel
-from ..framework import Operator, _op_reads, _op_writes, convert_np_dtype
+from ..debugging import NanInfError, nan_checks_enabled
+from ..framework import (Operator, _hidden_reads, _op_reads, _op_writes,
+                         convert_np_dtype)
 from ..lod import SequenceTensor
 from ..ops.common import rewrap
 
@@ -183,14 +199,19 @@ class BlockRunner(object):
                            keep=self.keep, dynamic=self.dynamic)
 
     def run_ops(self, ops, env):
+        guard = nan_checks_enabled()
         for op in ops:
             kernel = get_kernel(op.type)
             try:
                 kernel(OpCtx(op, env, self))
+            except NanInfError:
+                raise
             except Exception as e:
                 raise type(e)(
                     "while running op %r (%s -> %s): %s" %
                     (op.type, op.inputs, op.outputs, e)) from e
+            if guard:
+                _check_outputs(op, env)
             if self.grad_mode:
                 self._apply_grad_attrs(op, env)
             for name in op.attrs.get('__release__', ()):
@@ -215,6 +236,31 @@ class BlockRunner(object):
                 val = _ClipCotangent.apply(val, float(eclip.min),
                                            float(eclip.max))
             env[name] = val if seq is None else rewrap(seq, val)
+
+
+def _float_leaves(val):
+    if isinstance(val, SequenceTensor):
+        val = val.data
+    if isinstance(val, torch.Tensor):
+        return [val] if val.is_floating_point() else []
+    if isinstance(val, (list, tuple)):
+        return [t for v in val for t in _float_leaves(v)]
+    return []
+
+
+def _check_outputs(op, env):
+    """The debug-mode NaN/Inf guard after one op: each float output is
+    tested on its device and read once by the host. The message is the
+    JAX package's checkify message."""
+    for name in op.output_arg_names:
+        if name not in env:
+            continue
+        for t in _float_leaves(env[name]):
+            if not bool(torch.isfinite(t.detach()).all()):
+                raise NanInfError(
+                    "NaN/Inf detected in output '%s' of op '%s' "
+                    "(inputs: %s)" % (name, op.type,
+                                      sorted(op.input_arg_names)))
 
 
 # Graph rewrite: merge same-input mul (fc) ops into one wide matmul.
@@ -302,9 +348,10 @@ def _merge_shared_muls(block, ops):
 
 
 def lower_block(program, block, feed_names, fetch_names, state_in_names,
-                state_out_names, device, dynamic=False):
+                state_out_names, device, dynamic=False, remat=False):
     """Build ``fn(feeds, state) -> (fetches, new_state)``. ``dynamic``
-    runs the block in the dynamic program mode (see ``BlockRunner``).
+    runs the block in the dynamic program mode (see ``BlockRunner``);
+    ``remat`` runs a training forward in checkpointed segments.
 
     ``feeds``/``state`` are dicts name -> tensor on ``device``; ``state``
     holds the scope's ``torch.Generator`` under ``RNG_KEY``. Fetches and
@@ -331,7 +378,7 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
         env.update(feeds)
         if markers:
             _run_training(block, device, ops, markers[0], env, keep,
-                          dynamic)
+                          dynamic, remat and not dynamic)
         else:
             with torch.no_grad():
                 BlockRunner(block, device, keep=keep,
@@ -371,12 +418,14 @@ def _rows_of(ids_val):
     return data.reshape(shp), shp
 
 
-def _run_training(block, device, ops, marker_idx, env, keep, dynamic):
+def _run_training(block, device, ops, marker_idx, env, keep, dynamic,
+                  remat=False):
     """Forward under autograd, gradients of the summed loss into
     ``<param>@GRAD``, then the update ops without autograd. Counterpart
-    of the marker branch of the JAX ``lower_block`` (lowering.py:674-766;
-    its remat path is not ported). The forward also keeps the loss, the
-    parameters and the sparse lookups' ids, which the marker reads.
+    of the marker branch of the JAX ``lower_block`` (lowering.py:674-766);
+    ``remat`` runs the forward through ``_run_remat_segments``. The
+    forward also keeps the loss, the parameters and the sparse lookups'
+    ids, which the marker reads.
 
     A sparse table whose lookups' ids are all live before the forward
     (feeds) is no leaf: each lookup gets a zero carrier leaf shaped like
@@ -416,8 +465,11 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic):
                                           requires_grad=True)
     with torch.enable_grad():
         env.update(leaves)
-        BlockRunner(block, device, grad_mode=True, keep=gkeep,
-                    dynamic=dynamic).run_ops(ops[:marker_idx], env)
+        if remat:
+            _run_remat_segments(block, device, ops, marker_idx, env, gkeep)
+        else:
+            BlockRunner(block, device, grad_mode=True, keep=gkeep,
+                        dynamic=dynamic).run_ops(ops[:marker_idx], env)
         loss = env[loss_name].sum()
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()), allow_unused=True)))
@@ -448,6 +500,119 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic):
     with torch.no_grad():
         BlockRunner(block, device, keep=keep, dynamic=dynamic).run_ops(
             ops[marker_idx + 1:], env)
+
+
+def _hidden_env_reads(op):
+    """Names an op reads from the environment through its attributes:
+    the markers' (``_hidden_reads``) and a sparse lookup's carrier."""
+    carrier = op.attrs.get('sparse_carrier')
+    return _hidden_reads(op) + ([carrier] if carrier else [])
+
+
+def _remat_segments(fwd):
+    """[start, end) bounds of about sqrt(N) segments over the forward op
+    list ``fwd`` (at least 2, as in the JAX package); a
+    ``gradient_marker`` is a segment of its own, which runs without a
+    checkpoint (its replay reads the forward's names from the
+    environment)."""
+    n_seg = max(2, int(math.sqrt(len(fwd))))
+    cuts = {len(fwd) * i // n_seg for i in range(n_seg + 1)}
+    for i, op in enumerate(fwd):
+        if op.type == 'gradient_marker':
+            cuts.update((i, i + 1))
+    cuts = sorted(cuts)
+    return [(a, b) for a, b in zip(cuts, cuts[1:]) if a < b]
+
+
+def _run_remat_segments(block, device, ops, marker_idx, env, keep):
+    """The training forward ``ops[:marker_idx]`` as checkpointed
+    segments (memory_optimize): each segment runs under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so
+    autograd keeps the segment's inputs only and the backward runs the
+    segment again to rebuild what it needs. After a segment the
+    environment keeps only the names a later op (the marker and the
+    update ops included) reads, or ``keep`` holds: the boundaries.
+
+    The recompute must repeat the first run exactly and change nothing
+    outside itself:
+
+    - the scope's generators (``RNG_KEY``, ``RNG_CPU_KEY``) are not the
+      global ones that ``preserve_rng_state`` saves, so each segment
+      snapshots their states at its start and the recompute draws from
+      copies set to those states (the same dropout masks) while the
+      scope's generators advance once;
+    - the recompute writes into an environment of its own, which is
+      dropped: moving statistics, counters and the sparse carriers are
+      written once, by the first run;
+    - ``HOST_SYNCS`` counts the first run's host reads only.
+
+    A segment with a dropout or a flash attention therefore launches its
+    kernels twice a step: once in the forward, once in the recompute."""
+    from ..ops.common import HOST_SYNCS
+    fwd = ops[:marker_idx]
+    bounds = _remat_segments(fwd)
+    # the names each position's remaining ops read (forward rest, the
+    # marker, the update ops)
+    later = [set() for _ in range(len(ops) + 1)]
+    for i in range(len(ops) - 1, -1, -1):
+        later[i] = later[i + 1] | set(_op_reads(ops[i])) | set(
+            _hidden_env_reads(ops[i]))
+    # a gradient marker replays earlier ops from the environment: every
+    # name before the last one stays
+    last_gm = max([i for i, op in enumerate(fwd)
+                   if op.type == 'gradient_marker'] + [-1])
+    rng_keys = [k for k in (RNG_KEY, RNG_CPU_KEY) if k in env]
+    for a, b in bounds:
+        seg = fwd[a:b]
+        if len(seg) == 1 and seg[0].type == 'gradient_marker':
+            BlockRunner(block, device, grad_mode=True,
+                        keep=keep).run_ops(seg, env)
+            continue
+        reads, produced, writes = [], set(), []
+        for op in seg:
+            for n in list(_op_reads(op)) + _hidden_env_reads(op):
+                if n not in produced and n in env and n not in reads:
+                    reads.append(n)
+            for n in _op_writes(op):
+                produced.add(n)
+                if n not in writes:
+                    writes.append(n)
+        for k in rng_keys:
+            if k not in reads:
+                reads.append(k)
+        needed = later[b] | keep
+        outs = tuple(n for n in writes if n in needed or b <= last_gm)
+        state = {}
+
+        def run(inputs, _seg=tuple(seg), _outs=outs, _state=state):
+            senv = dict(inputs)
+            replay = 'rng' in _state
+            if replay:
+                syncs = HOST_SYNCS[0]
+                for k, st in _state['rng'].items():
+                    gen = torch.Generator(device=senv[k].device)
+                    gen.set_state(st)
+                    senv[k] = gen
+            else:
+                _state['rng'] = {k: senv[k].get_state() for k in rng_keys}
+            try:
+                BlockRunner(block, device, grad_mode=True,
+                            keep=keep).run_ops(list(_seg), senv)
+            finally:
+                if replay:
+                    HOST_SYNCS[0] = syncs
+            return [senv.get(n) for n in _outs]
+
+        vals = torch.utils.checkpoint.checkpoint(
+            run, {n: env[n] for n in reads}, use_reentrant=False)
+        for n in writes:
+            env.pop(n, None)
+        for n, v in zip(outs, vals):
+            if v is not None:
+                env[n] = v
+        if b > last_gm:
+            for n in [n for n in env if n not in needed]:
+                del env[n]
 
 
 # ---- calc_gradient's runtime ----------------------------------------------------

@@ -36,6 +36,18 @@ given as packed rows with an offset LoD (``LoDTensor.set`` /
 and it skips the verify and the passes (which assume the whole block's
 shapes). A packed fetch comes back a packed SequenceTensor with its LoD.
 
+``run(async_fetch=True)`` returns the fetches as tensors on the device,
+with no copy to the host and no wait (``as_numpy`` materializes them);
+a fetch of a persistable is a copy, so it keeps its step's value
+whatever a later step writes into the Scope's tensor. ``run_chained``
+runs K steps in one call and returns K fetch lists, bit-equal to K
+``run`` calls: the port has no scan, so a chain is always the K runs
+in order (the JAX Executor's sequential fallback). An installed
+``resilience.AnomalyGuard`` (``executor_guard``) sees every run's
+fetches. A program marked by the ``Float16Transpiler`` takes f32 feeds
+cast to its half dtype and gives its fetches back in f32; one marked by
+``memory_optimize`` trains through checkpointed segments.
+
 Telemetry, with the JAX Executor's names: the registry series
 ``executor_cache_{hits,misses}_total``, ``executor_cache_hit_rate``,
 ``executor_run_seconds`` and ``executor_compile_seconds`` (here the
@@ -66,6 +78,7 @@ from .core import places as _places
 from .core.lowering import lower_block, torch_dtype, RNG_KEY, RNG_CPU_KEY
 from .core.registry import SIDE_EFFECT_OPS
 from .ops.common import rewrap
+from .resilience import anomaly as _anomaly
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
            'switch_scope', 'as_numpy', 'fetch_var', 'CacheInfo']
@@ -312,13 +325,24 @@ class Executor(object):
             self._cache_misses = 0
 
     # -------------------------------------------------------------------------
-    def _to_device(self, val, var):
+    def _to_device(self, val, var, half=None):
+        """``val`` on this device in ``var``'s runtime dtype; with
+        ``half`` (a Float16Transpiler's dtype) an f32 value goes in
+        half."""
         if isinstance(val, torch.Tensor):
             dt = torch_dtype(var.dtype) if var is not None else val.dtype
+        else:
+            val = np.asarray(val)
+            dt = torch_dtype(var.dtype if var is not None else val.dtype)
+        if half and dt == torch.float32:
+            dt = torch_dtype(half)
+            if isinstance(val, np.ndarray) and val.dtype == np.float32:
+                # copied as f32 and cast on the device: the host's cast of
+                # an image batch costs milliseconds
+                val = torch.tensor(val, device=self.device)
+        if isinstance(val, torch.Tensor):
             return val.to(device=self.device, dtype=dt)
-        arr = np.asarray(val)
-        dt = torch_dtype(var.dtype if var is not None else arr.dtype)
-        return torch.tensor(arr, dtype=dt, device=self.device)
+        return torch.tensor(val, dtype=dt, device=self.device)
 
     def _state_value(self, scope, name, var):
         """A Scope value as the lowered block takes it: a tensor on this
@@ -359,6 +383,7 @@ class Executor(object):
         program a 2-level feed with packed rows (``set`` / ``set_lod``)
         stays packed, its rows on the device and its LoD on the host."""
         block = program.global_block()
+        half = getattr(program, '_half_inference', None)
         out = {}
         for name, val in feed.items():
             var = block._find_var_recursive(name)
@@ -366,7 +391,7 @@ class Executor(object):
                     val._rows is not None and val._offsets and \
                     len(val._offsets) >= 2:
                 out[name] = SequenceTensor.from_packed(
-                    self._to_device(val._rows, var), val._offsets)
+                    self._to_device(val._rows, var, half), val._offsets)
                 continue
             if isinstance(val, SequenceTensor) and (
                     val.lengths is None or (
@@ -375,10 +400,10 @@ class Executor(object):
                 val = val.data if val.lengths is None else val._rows
             if isinstance(val, SequenceTensor):
                 out[name] = SequenceTensor(
-                    self._to_device(val.data, var), self._lengths(
+                    self._to_device(val.data, var, half), self._lengths(
                         val.lengths), self._lengths(val.sub_lengths))
             else:
-                out[name] = self._to_device(val, var)
+                out[name] = self._to_device(val, var, half)
         return out
 
     @staticmethod
@@ -461,7 +486,7 @@ class Executor(object):
                 clone=pruned is program)
         fn = lower_block(pruned, pruned.global_block(), feed_names,
                          fetch_names, state_in, state_out, self.device,
-                         dynamic)
+                         dynamic, bool(getattr(program, '_remat', False)))
         if token != ('off',):
             tuning = _compiler.tuning
             fn = tuning.wrap_lowered(fn, tuning.default_cache().lookup(
@@ -474,7 +499,11 @@ class Executor(object):
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name='feed', fetch_var_name='fetch', scope=None,
-            return_numpy=True, use_program_cache=True):
+            return_numpy=True, use_program_cache=True, async_fetch=False):
+        """One run of ``program``. ``async_fetch=True`` returns the
+        fetches as device tensors (half floats as f32) without a copy to
+        the host or a wait, whatever ``return_numpy`` says; an installed
+        AnomalyGuard still reads every fetch."""
         if program is None:
             program = default_main_program()
         if not isinstance(program, Program):
@@ -501,20 +530,30 @@ class Executor(object):
         pctx = _obs.current_context()
         if pctx is None:
             return self._run(program, fp, feed, fetch_names, scope,
-                             return_numpy, None, dynamic)
+                             return_numpy, None, dynamic, async_fetch)
         tspan = _obs.start_span('exe/run', parent=pctx, activate=False,
                                 fp=fp)
         try:
             out = self._run(program, fp, feed, fetch_names, scope,
-                            return_numpy, tspan, dynamic)
+                            return_numpy, tspan, dynamic, async_fetch)
         except BaseException as e:
             tspan.end(error=type(e).__name__)
             raise
         tspan.end()
         return out
 
+    def run_chained(self, program=None, feed_list=None, fetch_list=None,
+                    scope=None, return_numpy=True, async_fetch=False):
+        """K steps in one call, one per feed of ``feed_list``; returns K
+        fetch lists, bit-equal to K ``run`` calls (they are K runs in
+        order: the port has no scan to chain them into one dispatch)."""
+        return [self.run(program, feed=f, fetch_list=fetch_list,
+                         scope=scope, return_numpy=return_numpy,
+                         async_fetch=async_fetch)
+                for f in (feed_list or [])]
+
     def _run(self, program, fp, feed, fetch_names, scope, return_numpy,
-             tspan, dynamic=False):
+             tspan, dynamic=False, async_fetch=False):
         t_lookup = time.perf_counter()
         fn, state_in, missed = self._lowered(program, fp, feed,
                                              fetch_names, scope, tspan,
@@ -548,6 +587,14 @@ class Executor(object):
                       dur_s=round(run_wall, 6))
         for n, v in new_state.items():
             scope.set_var(n, v)
+        if _anomaly.any_active():
+            _anomaly.observe_fetches(fetch_names, fetches)
+        if async_fetch:
+            # a persistable fetch is the Scope's own tensor: a copy keeps
+            # this step's value
+            return [_to_f32_fetch(f.clone() if n in new_state and
+                                  isinstance(f, torch.Tensor) else f)
+                    for n, f in zip(fetch_names, fetches)]
         if not return_numpy:
             return [_to_f32_fetch(f) for f in fetches]
         t_fetch = time.perf_counter()

@@ -25,4 +25,14 @@ from .clip import (ErrorClipByValue, GradientClipByValue,  # noqa
                    GradientClipByNorm, GradientClipByGlobalNorm)
 from .inferencer import Inferencer  # noqa
 from .serving import ModelServer  # noqa
+from . import transpiler, contrib, debugger, graphviz, net_drawer  # noqa
+from . import concurrency  # noqa
+from . import debugger as debuger  # noqa
+from .parallel.transpiler import (InferenceTranspiler,  # noqa
+                                  memory_optimize, release_memory)
+from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa
+                      BeginStepEvent, EndStepEvent, CheckpointConfig)
+from .resilience import AnomalyGuard, AnomalyError  # noqa
+from .debugging import (check_nan_inf, nan_guard,  # noqa
+                        nan_checks_enabled, NanInfError)
 LoDTensor = SequenceTensor

@@ -320,6 +320,19 @@ def _op_writes(op):
     return writes
 
 
+def _hidden_reads(op):
+    """Names consumed through attrs, invisible to ``_op_reads``: the
+    gradient markers' cotangent sources and the backward marker's
+    sparse-lookup ids. Every liveness-style analysis treats them as
+    reads."""
+    if op.type == 'gradient_marker':
+        return [n for n in (op.attrs.get('target_grads') or ()) if n]
+    if op.type == 'backward_marker':
+        return [p[0] for pairs in (op.attrs.get('sparse') or {}).values()
+                for p in pairs]
+    return []
+
+
 def _has_sub_block(op):
     return any(isinstance(v, Block) for v in op.attrs.values())
 
@@ -337,6 +350,8 @@ class Program(object):
         self.blocks = [Block(self, 0)]
         self.current_block_idx = 0
         self.random_seed = 0
+        # memory_optimize's rematerialisation mark
+        self._remat = False
         self._version = 0
         self._fingerprint_cache = None
 
@@ -376,9 +391,10 @@ class Program(object):
         ``_version``."""
         cached = self._fingerprint_cache
         if cached is None or cached[0] != self._version:
-            # the first slot is the JAX package's rematerialisation hint
-            # (memory_optimize), which the port does not carry yet
-            desc = json.dumps([False] + [b._desc() for b in self.blocks],
+            # the first slot is the rematerialisation mark
+            # (memory_optimize), as in the JAX package
+            desc = json.dumps([bool(getattr(self, '_remat', False))] +
+                              [b._desc() for b in self.blocks],
                               default=str, sort_keys=True)
             cached = self._fingerprint_cache = (
                 self._version, hashlib.sha1(desc.encode()).hexdigest())
@@ -388,6 +404,7 @@ class Program(object):
     def clone(self, for_test=False):
         p = Program()
         p.random_seed = self.random_seed
+        p._remat = getattr(self, '_remat', False)
         p.blocks = []
         for b in self.blocks:
             nb = Block(p, b.idx, b.parent_idx)

@@ -1,27 +1,53 @@
-"""Model IO: save/load params and persistables, and the inference model.
+"""Model IO: save/load params and persistables, the inference model,
+and checkpoints.
 
 Counterpart of paddle_tpu/io.py, in the same file format: one ``.npz``
 of persistables (``__params__.npz``) plus a JSON manifest of the pruned
 inference program (``__model__.json``). Both are plain numpy and JSON,
 so the port loads an inference model that paddle_tpu saved, and the
 other way round.
+
+The checkpoint protocol (``save_checkpoint``, ``load_checkpoint``,
+``load_checkpoint_trainer_state``, ``clean_checkpoint``) is the JAX
+package's for one process and the npz backend: under an advisory lock
+on ``.ckpt_lock``, the payload goes into a hidden temp dir (retried on
+``OSError``; the fault site ``checkpoint.write``), the manifest of CRC32s
+follows (``resilience.checkpoint``), then fsync and a rename into
+``checkpoint_<serial>`` (the site ``checkpoint.commit`` sits before it),
+and the oldest serials beyond ``max_num_checkpoints`` go. A save within
+``save_interval_secs`` of the newest manifest's mtime is skipped. A load
+verifies each serial, newest first, and falls back past a corrupt one.
+Each package loads the other's npz checkpoints. The orbax backend is a
+JAX format, and sharded and multi-process checkpoints are ROADMAP Queue
+A item 6: both raise ``CheckpointBackendError``.
 """
+import contextlib
 import json
+import logging
 import os
+import re
+import shutil
+import time
 
 import numpy as np
 import torch
 
 from . import framework
+from . import observability as _obs
 from .framework import Program, Parameter, Variable, default_main_program
 from .executor import global_scope, as_numpy
 from .core.lowering import torch_dtype
+from .resilience import checkpoint as _ckpt
+from .resilience import faultinject
+from .resilience.retry import retry_call
 
 __all__ = [
     'save_vars', 'save_params', 'save_persistables', 'load_vars',
     'load_params', 'load_persistables', 'save_inference_model',
     'load_inference_model', 'get_inference_program', 'program_to_json',
-    'program_from_json', 'params_from_numpy',
+    'program_from_json', 'params_from_numpy', 'save_checkpoint',
+    'load_checkpoint', 'clean_checkpoint', 'load_checkpoint_trainer_state',
+    'CheckpointBackendError',
 ]
 
 PARAMS_FILE = '__params__.npz'
@@ -231,3 +257,302 @@ def load_inference_model(dirname, executor, model_filename=None,
     fetch_vars = [program.global_block().var(n)
                   for n in meta['fetch_names']]
     return [program, meta['feed_names'], fetch_vars]
+
+
+# ---- checkpoints ---------------------------------------------------------------
+SUCCESS_MARK_FILENAME = '_SUCCESS'
+CHECKPOINT_PREFIX = 'checkpoint'
+# strict: `checkpoint_backup` or `checkpoint_3.bak` is never a serial
+_SERIAL_DIR_RE = re.compile(r'^%s_(\d+)$' % CHECKPOINT_PREFIX)
+_ORBAX_SUBDIR = '__orbax__'
+_LOCK_FILENAME = '.ckpt_lock'
+
+_logger = logging.getLogger('paddle_tpu_torch.resilience')
+
+
+class CheckpointBackendError(NotImplementedError):
+    """A checkpoint backend the port does not write or read: orbax (a
+    JAX format), sharded and multi-process checkpoints (ROADMAP Queue A
+    item 6)."""
+
+
+def _unsupported(backend):
+    if backend == 'orbax':
+        return CheckpointBackendError(
+            "the orbax checkpoint backend is a JAX format; the port writes "
+            "and reads npz checkpoints (backend='npz' or 'auto')")
+    return CheckpointBackendError(
+        '%s checkpoints are not ported yet (ROADMAP Queue A item 6); '
+        "use backend='npz' in one process" % backend)
+
+
+@contextlib.contextmanager
+def _commit_lock(checkpoint_dir):
+    """Advisory exclusive lock over a checkpoint root: two savers sharing
+    one dir serialize the serial scan, rename and prune, and the rate
+    limit's check, instead of racing them."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    fd = os.open(os.path.join(checkpoint_dir, _LOCK_FILENAME),
+                 os.O_CREAT | os.O_RDWR, 0o644)
+    try:
+        try:
+            import fcntl
+        except ImportError:
+            fcntl = None
+        if fcntl is not None:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            if fcntl is not None:
+                fcntl.flock(fd, fcntl.LOCK_UN)
+    finally:
+        os.close(fd)
+
+
+def _serial_dir(checkpoint_dir, serial):
+    return os.path.join(checkpoint_dir,
+                        '%s_%d' % (CHECKPOINT_PREFIX, serial))
+
+
+def _manifest_mtime(serial_dir):
+    """A checkpoint's save time: its manifest's mtime (pruning and marker
+    writes refresh the directory's)."""
+    for name in (_ckpt.MANIFEST_FILENAME, SUCCESS_MARK_FILENAME):
+        try:
+            return os.path.getmtime(os.path.join(serial_dir, name))
+        except OSError:
+            continue
+    return os.path.getmtime(serial_dir)
+
+
+def _multiprocess():
+    return torch.distributed.is_available() and \
+        torch.distributed.is_initialized() and \
+        torch.distributed.get_world_size() > 1
+
+
+def _write_checkpoint_payload(tmp_dir, executor, main_program, scope):
+    """The persistables into ``tmp_dir`` as npz; a retry starts again
+    from an empty tmp dir."""
+    if os.path.isdir(tmp_dir):
+        shutil.rmtree(tmp_dir)
+    os.makedirs(tmp_dir)
+    faultinject.maybe_fault(faultinject.SITE_CKPT_WRITE)
+    path = save_persistables(executor, tmp_dir, main_program, scope=scope)
+    with np.load(path, allow_pickle=False) as data:
+        return {n: data[n] for n in data.files}
+
+
+def save_checkpoint(executor, checkpoint_dir=None, max_num_checkpoints=3,
+                    save_interval_secs=600, main_program=None,
+                    backend='auto', trainer_state=None, scope=None):
+    """Commit one checkpoint serial atomically and return its directory
+    (or, when rate-limited, the newest existing one). ``backend``:
+    'auto' and 'npz' write npz; 'orbax' and 'sharded' raise
+    ``CheckpointBackendError``, as does a save from a process group of
+    more than one process. ``trainer_state`` (a JSON-able dict) lands in
+    the manifest for auto-resume. Pruning keeps the newest
+    ``max_num_checkpoints`` serials and never the one just written."""
+    if backend not in ('auto', 'sharded', 'orbax', 'npz'):
+        raise ValueError("backend must be 'auto', 'sharded', 'orbax' "
+                         "or 'npz', got %r" % (backend,))
+    if backend in ('orbax', 'sharded'):
+        raise _unsupported(backend)
+    if _multiprocess():
+        raise _unsupported('multi-process')
+    if checkpoint_dir is None:
+        checkpoint_dir = os.getcwd()
+    with _commit_lock(checkpoint_dir):
+        return _save_checkpoint_locked(
+            executor, checkpoint_dir, max_num_checkpoints,
+            save_interval_secs, main_program, trainer_state, scope)
+
+
+def _save_checkpoint_locked(executor, checkpoint_dir, max_num_checkpoints,
+                            save_interval_secs, main_program,
+                            trainer_state, scope):
+    serials = _get_checkpoint_serials(checkpoint_dir)
+    if serials and save_interval_secs:
+        last_dir = _serial_dir(checkpoint_dir, max(serials))
+        try:
+            if time.time() - _manifest_mtime(last_dir) < \
+                    save_interval_secs:
+                return last_dir
+        except OSError:
+            pass
+    t_save = time.monotonic()
+    serial = (max(serials) + 1) if serials else 0
+    cur_dir = _serial_dir(checkpoint_dir, serial)
+    if os.path.isdir(cur_dir):
+        # a legacy save's leftover without a completeness mark
+        shutil.rmtree(cur_dir)
+    tmp_dir = os.path.join(checkpoint_dir, '%s%s_%d.%d' % (
+        _ckpt.TMP_PREFIX, CHECKPOINT_PREFIX, serial, os.getpid()))
+    try:
+        tensors = retry_call(_write_checkpoint_payload,
+                             (tmp_dir, executor, main_program, scope),
+                             max_attempts=3, backoff=0.05, jitter=0.1,
+                             retry_on=(OSError,))
+        _ckpt.write_manifest(tmp_dir, tensors=tensors,
+                             trainer_state=trainer_state, backend='npz',
+                             serial=serial)
+        # the legacy completeness mark, still honoured by older readers
+        open(os.path.join(tmp_dir, SUCCESS_MARK_FILENAME), 'w').close()
+        _ckpt.fsync_tree(tmp_dir)
+        faultinject.maybe_fault(faultinject.SITE_CKPT_COMMIT)
+        os.rename(tmp_dir, cur_dir)
+        _ckpt._fsync_path(checkpoint_dir)
+    finally:
+        if os.path.isdir(tmp_dir):
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+    survivors = sorted(_get_checkpoint_serials(checkpoint_dir),
+                       reverse=True)[:max(max_num_checkpoints, 1)]
+    for s in _get_checkpoint_serials(checkpoint_dir):
+        if s not in survivors and s != serial:
+            shutil.rmtree(_serial_dir(checkpoint_dir, s),
+                          ignore_errors=True)
+    dur = time.monotonic() - t_save
+    reg = _obs.default_registry()
+    reg.counter('checkpoint_saves_total',
+                'atomic checkpoint commits').inc()
+    reg.histogram('checkpoint_save_seconds',
+                  'payload + fsync + rename wall').observe(dur)
+    _obs.emit('checkpoint_save', serial=serial, dir=cur_dir,
+              backend='npz', dur_s=round(dur, 6))
+    return cur_dir
+
+
+def _load_checkpoint_payload(cur_dir, executor, main_program, scope):
+    """One serial's npz payload into the scope, each persistable of the
+    program in its runtime dtype on the executor's device."""
+    faultinject.maybe_fault(faultinject.SITE_CKPT_READ)
+    manifest = _ckpt.read_manifest(cur_dir) or {}
+    if manifest.get('backend') == 'sharded':
+        raise _unsupported('sharded')
+    if os.path.isdir(os.path.join(cur_dir, _ORBAX_SUBDIR)):
+        raise _unsupported('orbax')
+    path = os.path.join(cur_dir, PARAMS_FILE)
+    if not os.path.exists(path):
+        raise IOError("no saved parameters at %s" % path)
+    program = main_program or default_main_program()
+    scope = scope if scope is not None else global_scope()
+    device = executor.place.torch_device()
+    wanted = {v.name: v for v in program.list_vars() if v.persistable}
+    with np.load(path, allow_pickle=False) as data:
+        for name in data.files:
+            var = wanted.get(name)
+            if var is None:
+                continue
+            arr = data[name]
+            scope.set_var(name, torch.tensor(
+                arr, dtype=torch_dtype(var.dtype or arr.dtype),
+                device=device))
+
+
+def load_checkpoint(executor, checkpoint_dir=None, serial=None,
+                    main_program=None, verify=True, scope=None):
+    """Restore the newest healthy checkpoint; returns its directory.
+
+    Each serial is CRC-verified before it is read; a corrupt or
+    truncated one is logged and skipped for the next newest. An
+    explicit ``serial`` raises ``CheckpointCorruption`` instead. A
+    transient read error is retried. ``verify=False`` skips the CRCs."""
+    if checkpoint_dir is None:
+        checkpoint_dir = os.getcwd()
+    serials = _get_checkpoint_serials(checkpoint_dir)
+    if not serials:
+        raise IOError("no checkpoints under %s" % checkpoint_dir)
+    candidates = [serial] if serial is not None else \
+        sorted(serials, reverse=True)
+    last_err = None
+    for s in candidates:
+        cur_dir = _serial_dir(checkpoint_dir, s)
+        t_load = time.monotonic()
+        if verify:
+            errors = _ckpt.verify_checkpoint(cur_dir)
+            if errors:
+                err = _ckpt.CheckpointCorruption(cur_dir, errors)
+                if serial is not None:
+                    raise err
+                _logger.warning(
+                    'checkpoint serial %d is corrupt (%s); falling back '
+                    'to previous serial', s, '; '.join(errors))
+                _obs.default_registry().counter(
+                    'checkpoint_fallbacks_total',
+                    'corrupt serials skipped during restore').inc()
+                _obs.emit('checkpoint_fallback', serial=s,
+                          errors=len(errors))
+                last_err = err
+                continue
+        retry_call(_load_checkpoint_payload,
+                   (cur_dir, executor, main_program, scope),
+                   max_attempts=3, backoff=0.05, jitter=0.1,
+                   retry_on=(OSError,))
+        _obs.default_registry().counter(
+            'checkpoint_loads_total', 'checkpoint restores').inc()
+        _obs.emit('checkpoint_load', serial=s, dir=cur_dir,
+                  dur_s=round(time.monotonic() - t_load, 6))
+        return cur_dir
+    raise IOError(
+        'all %d checkpoint serial(s) under %s failed verification; '
+        'newest error: %s' % (len(candidates), checkpoint_dir, last_err))
+
+
+def load_checkpoint_trainer_state(checkpoint_dir, serial=None):
+    """The ``trainer_state`` recorded with the newest healthy serial (or
+    ``serial``), or None."""
+    if serial is None:
+        for s in sorted(_get_checkpoint_serials(checkpoint_dir),
+                        reverse=True):
+            if not _ckpt.verify_checkpoint(_serial_dir(checkpoint_dir, s)):
+                serial = s
+                break
+        else:
+            return None
+    manifest = _ckpt.read_manifest(_serial_dir(checkpoint_dir, serial))
+    if manifest is None:
+        return None
+    return manifest.get('trainer_state')
+
+
+def clean_checkpoint(checkpoint_dir, delete_dir=False):
+    """Remove every checkpoint serial and stale ``.tmp_*`` commit; dirs
+    that merely share the prefix (checkpoint_backup, ...) stay."""
+    if checkpoint_dir is None:
+        checkpoint_dir = os.getcwd()
+    if not os.path.isdir(checkpoint_dir):
+        return
+    for s in _get_checkpoint_serials(checkpoint_dir,
+                                     require_complete=False):
+        shutil.rmtree(_serial_dir(checkpoint_dir, s))
+    for d in os.listdir(checkpoint_dir):
+        if d.startswith(_ckpt.TMP_PREFIX + CHECKPOINT_PREFIX + '_'):
+            shutil.rmtree(os.path.join(checkpoint_dir, d),
+                          ignore_errors=True)
+    lock = os.path.join(checkpoint_dir, _LOCK_FILENAME)
+    if os.path.exists(lock):
+        os.remove(lock)
+    if delete_dir and not os.listdir(checkpoint_dir):
+        os.rmdir(checkpoint_dir)
+
+
+def _get_checkpoint_serials(checkpoint_dir, require_complete=True):
+    """Serials of complete checkpoints (a manifest or the legacy
+    _SUCCESS mark); ``require_complete=False`` lists wrecks too."""
+    if not os.path.isdir(checkpoint_dir):
+        return []
+    serials = []
+    for d in os.listdir(checkpoint_dir):
+        m = _SERIAL_DIR_RE.match(d)
+        if not m:
+            continue
+        path = os.path.join(checkpoint_dir, d)
+        if not os.path.isdir(path):
+            continue
+        complete = (
+            os.path.exists(os.path.join(path, _ckpt.MANIFEST_FILENAME)) or
+            os.path.exists(os.path.join(path, SUCCESS_MARK_FILENAME)))
+        if complete or not require_complete:
+            serials.append(int(m.group(1)))
+    return serials

@@ -7,6 +7,7 @@ import contextlib
 
 import torch
 
+from ..core.amp import matmul_compute
 from ..core.registry import register_kernel
 from . import cuda_kernels
 from .common import unwrap
@@ -51,7 +52,10 @@ def _flash_attention_op(ctx):
     B, T, D = q.shape
     dh = D // heads
     qh, kh, vh = (t.reshape(B, T, heads, dh) for t in (q, k, v))
-    out = _ATTENTION[0](qh, kh, vh, causal)
+    # under AMP f32 inputs go to the kernel in bf16, and with f32
+    # activations its output is cast back after it
+    out = matmul_compute(lambda a, b, c: _ATTENTION[0](a, b, c, causal),
+                         qh, kh, vh)
     ctx.set_output('Out', out.reshape(B, T, D))
 
 

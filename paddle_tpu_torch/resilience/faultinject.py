@@ -1,21 +1,39 @@
 """Deterministic fault injection for the serving runtime's recovery
 paths.
 
-Counterpart of paddle_tpu/resilience/faultinject.py, trimmed to
-:class:`FaultPlan`, :func:`fault_plan`, :func:`maybe_fault` and the
-serving and tuning sites. Faults are keyed by named SITES and hit
-counts, never by wall clock or randomness: :func:`fault_plan` installs a
-plan, and the server and the autotuner call :func:`maybe_fault(site)`
-at their injection points (the batch run, the model load and swap, the
-padding stage, each candidate's measurement). With no plan installed
-the call is one list truthiness check.
+Counterpart of paddle_tpu/resilience/faultinject.py, without the
+remote sites (the remote cells are ROADMAP Queue A item 6). Faults are
+keyed by named SITES and hit counts, never by wall clock or randomness:
+:func:`fault_plan` installs a plan, and the checkpoint protocol, the
+Trainer, the server and the autotuner call :func:`maybe_fault(site)` at
+their injection points. With no plan installed the call is one list
+truthiness check. Beside the plans: on-disk checkpoint damage
+(:func:`corrupt_checkpoint`, :func:`truncate_checkpoint`), poisoned and
+flaky readers (:func:`nan_reader`, :func:`flaky_reader`) and a simulated
+kill (:class:`KillSwitch`).
 """
 import collections
+import glob
+import os
+import re
 import time
 
+import numpy as np
+
 __all__ = ['FaultInjected', 'FaultPlan', 'fault_plan', 'maybe_fault',
+           'corrupt_checkpoint', 'truncate_checkpoint', 'nan_reader',
+           'flaky_reader', 'SimulatedKill', 'KillSwitch',
+           'SITE_CKPT_WRITE', 'SITE_CKPT_COMMIT', 'SITE_CKPT_READ',
+           'SITE_READER_NEXT', 'SITE_TRAINER_STEP',
            'SITE_SERVING_RUN', 'SITE_SERVING_LOAD', 'SITE_SERVING_PAD',
            'SITE_TUNING_MEASURE']
+
+# checkpoint, reader and training-loop sites
+SITE_CKPT_WRITE = 'checkpoint.write'      # payload serialization
+SITE_CKPT_COMMIT = 'checkpoint.commit'    # between payload and rename
+SITE_CKPT_READ = 'checkpoint.read'        # payload deserialization
+SITE_READER_NEXT = 'reader.next'          # a flaky reader's pull
+SITE_TRAINER_STEP = 'trainer.step'        # top of each train-loop step
 
 # serving runtime sites
 SITE_SERVING_RUN = 'serving/run_batch'    # inside the per-attempt run
@@ -135,3 +153,139 @@ def maybe_fault(site):
         err = plan.check(site)
         if err is not None:
             raise err
+
+
+# ---- on-disk checkpoint damage ---------------------------------------------------
+_SERIAL_RE = re.compile(r'^checkpoint_(\d+)$')
+
+
+def _pick_serial_dir(checkpoint_dir, serial=None):
+    if serial is not None:
+        d = os.path.join(checkpoint_dir, 'checkpoint_%d' % serial)
+        if not os.path.isdir(d):
+            raise IOError('no checkpoint serial %d under %s'
+                          % (serial, checkpoint_dir))
+        return d
+    serials = []
+    for name in os.listdir(checkpoint_dir):
+        m = _SERIAL_RE.match(name)
+        if m and os.path.isdir(os.path.join(checkpoint_dir, name)):
+            serials.append(int(m.group(1)))
+    if not serials:
+        raise IOError('no checkpoints under %s' % checkpoint_dir)
+    return os.path.join(checkpoint_dir, 'checkpoint_%d' % max(serials))
+
+
+def _payload_paths(serial_dir):
+    paths = [p for p in glob.glob(os.path.join(serial_dir, '**', '*'),
+                                  recursive=True)
+             if os.path.isfile(p) and not p.endswith(
+                 ('_MANIFEST.json', '_SUCCESS'))]
+    if not paths:
+        raise IOError('no payload files in %s' % serial_dir)
+    # the largest file, the tensors' payload, is bitrot's likely target
+    return sorted(paths, key=os.path.getsize, reverse=True)
+
+
+def corrupt_checkpoint(checkpoint_dir, serial=None, nbytes=8):
+    """Flip ``nbytes`` bytes in the middle of the (newest, unless
+    ``serial``) checkpoint's largest payload file, leaving the manifest
+    as it was. Returns the damaged file's path."""
+    target = _payload_paths(_pick_serial_dir(checkpoint_dir, serial))[0]
+    size = os.path.getsize(target)
+    offset = max(0, size // 2 - nbytes // 2)
+    with open(target, 'r+b') as f:
+        f.seek(offset)
+        block = f.read(nbytes)
+        f.seek(offset)
+        f.write(bytes(b ^ 0xFF for b in block))
+        f.flush()
+        os.fsync(f.fileno())
+    return target
+
+
+def truncate_checkpoint(checkpoint_dir, serial=None, keep_fraction=0.5):
+    """Truncate the largest payload file (a torn write). Returns the
+    damaged file's path."""
+    target = _payload_paths(_pick_serial_dir(checkpoint_dir, serial))[0]
+    size = os.path.getsize(target)
+    with open(target, 'r+b') as f:
+        f.truncate(int(size * keep_fraction))
+    return target
+
+
+# ---- poisoned and flaky data ----------------------------------------------------
+def _poison(value):
+    arr = np.asarray(value)
+    if arr.dtype.kind == 'f':
+        return np.full_like(arr, np.nan)
+    return value
+
+
+def nan_reader(reader, at_steps, poison=_poison):
+    """``reader`` with every float payload of the batches at the 0-based
+    indices ``at_steps`` replaced by NaN; the batch count is unchanged."""
+    at_steps = frozenset(at_steps)
+
+    def poisoned_reader():
+        for i, item in enumerate(reader()):
+            if i not in at_steps:
+                yield item
+                continue
+            if isinstance(item, list):  # a batch of samples
+                yield [tuple(poison(v) for v in s) if isinstance(
+                    s, tuple) else poison(s) for s in item]
+            elif isinstance(item, tuple):
+                yield tuple(poison(v) for v in item)
+            else:
+                yield poison(item)
+    return poisoned_reader
+
+
+def flaky_reader(reader, fail_at, error=FaultInjected):
+    """``reader`` whose pull of each 0-based index in ``fail_at`` raises
+    once; the next pass succeeds there (a transient fault)."""
+    remaining = set(fail_at)
+
+    def flaky():
+        for i, item in enumerate(reader()):
+            if i in remaining:
+                remaining.discard(i)
+                if isinstance(error, BaseException):
+                    raise error
+                if error is FaultInjected or (
+                        isinstance(error, type) and
+                        issubclass(error, FaultInjected)):
+                    raise error(SITE_READER_NEXT, i)
+                raise error()
+            yield item
+    return flaky
+
+
+# ---- simulated preemption --------------------------------------------------------
+class SimulatedKill(BaseException):
+    """Raised by KillSwitch; a BaseException, so no ``except Exception``
+    in the training loop swallows it, as none could a SIGKILL."""
+
+    def __init__(self, step):
+        super(SimulatedKill, self).__init__(
+            'simulated kill at global step %d' % step)
+        self.step = step
+
+
+class KillSwitch(object):
+    """An event handler (wrapping ``handler``) that raises SimulatedKill
+    once ``at_step`` EndStepEvents have passed, counted across epochs."""
+
+    def __init__(self, at_step, handler=None):
+        self.at_step = at_step
+        self.handler = handler
+        self.steps_seen = 0
+
+    def __call__(self, event):
+        if self.handler is not None:
+            self.handler(event)
+        if type(event).__name__ == 'EndStepEvent':
+            self.steps_seen += 1
+            if self.steps_seen >= self.at_step:
+                raise SimulatedKill(self.steps_seen)

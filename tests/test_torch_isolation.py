@@ -8,9 +8,13 @@ a Router with its telemetry endpoint scraped, decodes through slotted,
 paged and disaggregated engines, runs the analyzer's command line, or
 trains with the new optimizers under a learning-rate schedule, weight
 normalisation, MSRA, Bilinear and host-drawn initializers, averages the
-model, trains and serves book 06 on imdb's synthetic reviews, or trains
+model, trains and serves book 06 on imdb's synthetic reviews, trains
 books 05 and 07 on sparse tables with a calc_gradient beside the loss
-and book 07's chunk evaluator),
+and book 07's chunk evaluator, or trains through the high-level Trainer
+with checkpoints, prefetch, chained steps and an AnomalyGuard, resumes
+from its checkpoint, takes a memory_optimize step, serves a
+Float16Transpiler'd net, trips the NaN/Inf guard, prints a program
+through the debugger and passes values through a channel),
 its only ``http.server`` import is in ``observability/telemetry.py``,
 and its entry points default to the card."""
 import ast
@@ -284,6 +288,64 @@ for build, kw in ((books.recommender_system,
               if op.type == 'backward_marker'][0]
     assert marker.attrs['sparse']
 L.nn.set_sparse_fallback_threshold(prev)
+import paddle_tpu_torch.trainer
+import paddle_tpu_torch.reader.prefetch
+import paddle_tpu_torch.transpiler.memory_optimization_transpiler
+import paddle_tpu_torch.transpiler.inference_transpiler
+import paddle_tpu_torch.contrib.float16_transpiler
+import paddle_tpu_torch.net_drawer
+from paddle_tpu_torch import resilience as R
+
+def line_func():
+    x = fluid.layers.data(name='x', shape=[4], dtype='float32')
+    y = fluid.layers.data(name='y', shape=[1], dtype='float32')
+    h = fluid.layers.dropout(fluid.layers.fc(input=x, size=8, act='relu'),
+                             dropout_prob=0.2)
+    return fluid.layers.mean(fluid.layers.square_error_cost(
+        input=fluid.layers.fc(input=h, size=1), label=y))
+
+rows = [(np.ones(4, 'float32') * i, np.ones(1, 'float32')) for i in range(24)]
+ck = tempfile.mkdtemp()
+cfg = fluid.CheckpointConfig(checkpoint_dir=ck, step_interval=2)
+for _ in range(2):      # the second run resumes from the first's checkpoint
+    tr = fluid.Trainer(line_func, fluid.optimizer.Adam(0.01),
+                       place=fluid.CPUPlace())
+    tr.train(2, lambda e: None, reader=pt.batch(lambda: iter(rows), 4),
+             feed_order=['x', 'y'], checkpoint_config=cfg, prefetch=2,
+             steps_per_dispatch=2, anomaly_guard=R.AnomalyGuard('skip_batch'))
+assert R.verify_checkpoint(pt.io._serial_dir(
+    ck, max(pt.io._get_checkpoint_serials(ck)))) == []
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    loss = line_func()
+    pt.optimizer.SGD(0.1).minimize(loss)
+fluid.memory_optimize(main)
+exe.run(startup, scope=scope)
+out, = exe.run(main, feed={'x': np.ones((4, 4), 'float32'),
+                           'y': np.ones((4, 1), 'float32')},
+               fetch_list=[loss], scope=scope)
+assert np.isfinite(out).all()
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    img = L.data(name='img', shape=[3, 8, 8], dtype='float32')
+    prob = L.fc(L.batch_norm(L.conv2d(img, 4, 3), is_test=True), 3,
+                act='softmax')
+exe.run(startup, scope=scope)
+assert fluid.contrib.Float16Transpiler().transpile(main, scope=scope) >= 4
+out, = exe.run(main, feed={'img': np.ones((2, 3, 8, 8), 'float32')},
+               fetch_list=[prob], scope=scope)
+assert out.dtype == np.float32 and np.isfinite(out).all()
+assert 'conv2d' in fluid.debugger.pprint_program_codes(main)
+with fluid.nan_guard():
+    try:
+        exe.run(main, feed={'img': np.full((2, 3, 8, 8), np.nan, 'float32')},
+                fetch_list=[prob], scope=scope)
+        raise SystemExit('the NaN/Inf guard did not trip')
+    except fluid.NanInfError:
+        pass
+ch = fluid.concurrency.make_channel('int32', capacity=2)
+fluid.concurrency.channel_send(ch, 5)
+assert fluid.concurrency.channel_recv(ch) == (5, True)
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))
