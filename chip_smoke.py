@@ -11,6 +11,8 @@
                                           # process (phase 6c runs it)
     python3 chip_smoke.py --phase19       # the kernels' build, then
                                           # phase 19 alone
+    python3 chip_smoke.py --phase20       # the kernels' build, then
+                                          # phase 20 alone
 
 from the root of a checkout. Phases, each of which raises (and so exits
 non-zero) on failure:
@@ -402,7 +404,36 @@ non-zero) on failure:
    poisoned feed, and the AnomalyGuard's skip_batch and
    rollback_to_checkpoint under the Trainer on a poisoned reader, steps,
    trips and parameters card against CPU;
-20. summary: a JSON line of the kernels, the card line, and last the
+20. the in-graph readers and the data path (``phase_readers``, constants
+   RIO_* at its head): 20a, ResNet-50 at full width (3x224x224, 102
+   classes, flowers'), Momentum(0.01, 0.9), AMP, batch 32, fed 16 batches
+   of dataset.flowers.train() that convert_reader_to_recordio_files wrote
+   into 2 PTRC files, through open_files -> double_buffer(CUDAPlace(0))
+   -> read_file: every batch read_file hands over byte-equal to the
+   DataFeeder's, in order; the 16 losses equal to 16 DataFeeder-fed steps
+   from the same state (bit for bit, or within RIO_WITNESS_MARGIN of a
+   second DataFeeder-fed run where that witness itself differs); the 17th
+   run raises EOFException, again, and after reset() the first batch
+   comes back; 53 stats-form fused convs a step; no copy to the card by
+   the Executor for the reader's slots; the native recordio library built
+   and used; ms a step with and without double_buffer and DataFeeder-fed;
+   20b, stacked_dynamic_lstm at phase 14's widths without peepholes,
+   batch 256, 4 steps from __seq__ records through double_buffer: the
+   batches and their lengths byte-equal, the losses by 20a's rule, 288
+   lstm_cell launches a step, no copy by the Executor; 20c, the profiler:
+   ResNet-50 served at batch 8, 3 runs under profiler.profiler: the
+   table's fused_conv calls equal to the launch counter (53 a run), its
+   summed op time within the runs' wall time, save_profile's file through
+   tools/timeline.py, the device trace written; one 20a step under it:
+   one fwd_bwd(value_and_grad) event, every momentum op, no forward op;
+   a ModelServer answering 4 requests under it: 4 serving/request calls;
+   a run after stop_profiler records nothing; 20d,
+   memory.max_memory_allocated() equal to torch's after 20a,
+   memory_stats supported with the card's memory as bytes_limit, a native
+   HostArena allocating, resetting and reporting its stats, and
+   metrics.Accuracy over 20a's steps equal to the batch-weighted mean of
+   the fetched accuracies; the phase's seconds and the script's;
+21. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
 import argparse
@@ -4886,13 +4917,17 @@ def phase_books(seed, card, art_dir):
 
 # ---- the sequence path ------------------------------------------------------------
 def stacked_dynamic_lstm(pkg, dict_size=10000, emb_dim=512, hid_dim=512,
-                         stacked_num=3, use_peepholes=True, is_sparse=False):
+                         stacked_num=3, use_peepholes=True, is_sparse=False,
+                         data=None, label=None):
     """benchmark/fluid/models.py:70-104 line for line, with the LSTMs'
-    use_peepholes and the table's is_sparse as arguments. Returns (loss,
-    prediction)."""
+    use_peepholes and the table's is_sparse as arguments, and the words
+    and labels given (a reader's slots) or declared as data. Returns
+    (loss, prediction)."""
     layers = pkg.layers
-    data = layers.data(name='data', shape=[1], dtype='int64', lod_level=1)
-    label = layers.data(name='label', shape=[1], dtype='int64')
+    if data is None:
+        data = layers.data(name='data', shape=[1], dtype='int64',
+                           lod_level=1)
+        label = layers.data(name='label', shape=[1], dtype='int64')
     emb = layers.embedding(input=data, size=[dict_size, emb_dim],
                            is_sparse=is_sparse)
     fc1 = layers.fc(input=emb, size=hid_dim * 4)
@@ -10216,6 +10251,519 @@ def phase_trainer(seed, card):
     return launches
 
 
+# ---- phase 20: the in-graph readers and the data path ----------------------------
+# 20a: ResNet-50 (models/resnet.py resnet_imagenet, depth 50) at full width,
+# 3x224x224, class_dim 102 (flowers' classes), Momentum(0.01, 0.9), AMP,
+# batch 32, fed RIO_BATCHES batches of dataset.flowers.train() (its
+# synthetic sampler) that recordio_writer.convert_reader_to_recordio_files
+# wrote, RIO_PER_FILE batches a file, into 2 PTRC files, read through
+# open_files -> double_buffer(CUDAPlace(0)) -> read_file. The reader-fed
+# losses against DataFeeder-fed steps from the same state (cuDNN set
+# deterministic): bit for bit where a witness, a second DataFeeder-fed run,
+# is bit-equal to the first; else within RIO_WITNESS_MARGIN times the
+# witness's largest difference
+RIO_BATCH, RIO_BATCHES, RIO_PER_FILE, RIO_CLASSES = 32, 16, 8, 102
+RIO_WITNESS_MARGIN = 2.0
+# 20b: stacked_dynamic_lstm at phase 14's widths without peepholes, batch
+# LSTM_BATCH, RIO_LSTM_STEPS batches of ragged sequences (RIO_LSTM_MIN to
+# LSTM_WORDS words, padded to LSTM_T_PAD steps) from PTRC records whose word
+# slot is tagged __seq__, through open_files -> double_buffer -> read_file
+RIO_LSTM_STEPS, RIO_LSTM_MIN = 4, 40
+# 20c: ResNet-50 (1000 classes, inference) served at batch RIO_PROF_BATCH
+# through Executor.run, RIO_PROF_RUNS runs under the profiler; a
+# ModelServer answering RIO_SERVER_REQUESTS requests under it
+RIO_PROF_BATCH, RIO_PROF_RUNS, RIO_SERVER_REQUESTS = 8, 3, 4
+
+
+class _PulledBatches(object):
+    """Wraps an Executor's reader pull: keeps each batch a consuming run
+    took from the reader (the values read_file hands the run)."""
+
+    def __init__(self, exe, names):
+        self.exe, self.names, self.batches = exe, names, []
+
+    def __enter__(self):
+        orig = self.exe._pull_program_readers
+
+        def pull(program, feed, scope, consume=True, fetch_names=None):
+            out = orig(program, feed, scope, consume=consume,
+                       fetch_names=fetch_names)
+            if consume and not all(n in feed for n in self.names):
+                self.batches.append([out[n] for n in self.names])
+            return out
+        self.exe._pull_program_readers = pull
+        return self
+
+    def __exit__(self, *exc):
+        del self.exe._pull_program_readers    # the class's method again
+        return False
+
+
+def _rio_bytes(v):
+    """(dtype, shape, bytes) of a fed value, a sequence's data and
+    lengths each; a tensor is read back from the card."""
+    if hasattr(v, 'lengths') and v.lengths is not None:
+        return (_rio_bytes(v.data), _rio_bytes(v.lengths))
+    if hasattr(v, 'detach'):
+        v = v.detach().cpu().numpy()
+    v = np.ascontiguousarray(v)
+    return (v.dtype.str, v.shape, v.tobytes())
+
+
+def _rio_batches_gate(label, pulled, fed, names):
+    check(len(pulled) == len(fed), '%s: read_file handed %d batches, the '
+          'DataFeeder made %d' % (label, len(pulled), len(fed)))
+    for i, (got, want) in enumerate(zip(pulled, fed)):
+        for n, g in zip(names, got):
+            check(_rio_bytes(g) == _rio_bytes(want[n]), '%s: batch %d slot '
+                  '%s differs from the DataFeeder\'s' % (label, i, n))
+    print('%s: %d batches from read_file byte-equal to the DataFeeder\'s, '
+          'in order' % (label, len(pulled)), flush=True)
+
+
+def _rio_losses_gate(label, reader, fed, witness):
+    """The reader-fed losses against the DataFeeder-fed ones, with the
+    witness rule of RIO_WITNESS_MARGIN."""
+    r, f, w = (np.asarray(x, np.float64) for x in (reader, fed, witness))
+    diff, wdiff = float(np.abs(r - f).max()), float(np.abs(w - f).max())
+    print('%s: losses reader-fed %s; DataFeeder-fed %s; witness (a second '
+          'DataFeeder-fed run) %s; max |reader - fed| %.3g, max |witness - '
+          'fed| %.3g' % (label, ' '.join('%.6f' % x for x in r),
+                         ' '.join('%.6f' % x for x in f),
+                         ' '.join('%.6f' % x for x in w), diff, wdiff),
+          flush=True)
+    check(np.isfinite(r).all(), '%s: non-finite reader-fed loss' % label)
+    if wdiff == 0:
+        check(diff == 0, '%s: the reader-fed losses differ from the '
+              'DataFeeder-fed ones by %g (the witness is bit-equal)'
+              % (label, diff))
+    else:
+        check(diff <= RIO_WITNESS_MARGIN * wdiff, '%s: the reader-fed losses '
+              'differ by %g, over %g times the witness\'s %g'
+              % (label, diff, RIO_WITNESS_MARGIN, wdiff))
+
+
+def _rio_steps(exe, main, fetch, scope, feeds=None, steps=None):
+    """Runs of ``main``, one a feed of ``feeds``, or ``steps`` (default
+    RIO_BATCHES) from its reader, the fetches kept on the card until the
+    end; returns (the fetches of each run as host arrays, the runs'
+    seconds)."""
+    import torch
+    from paddle_tpu_torch.executor import as_numpy
+    if feeds is None:
+        feeds = [None] * (RIO_BATCHES if steps is None else steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [exe.run(main, feed=f, fetch_list=fetch, scope=scope,
+                    return_numpy=False) for f in feeds]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return [[as_numpy(v) for v in o] for o in outs], dt
+
+
+def _rio_close(scope):
+    """Stop every reader stream the scope holds (its prefetch worker)."""
+    for st in scope.__dict__.pop('_reader_states', {}).values():
+        st['iter'].close()
+
+
+def _rio_resnet(seed, files, double_buffer):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        L = pt.layers
+        r = L.open_files(files, shapes=[[-1, 3, 224, 224], [-1, 1]],
+                         lod_levels=[0, 0], dtypes=['float32', 'int64'])
+        if double_buffer:
+            r = L.double_buffer(r, place=pt.CUDAPlace(0))
+        img, label = L.read_file(r)
+        predict = resnet_imagenet(img, class_dim=RIO_CLASSES, depth=50)
+        loss = L.mean(L.cross_entropy(input=predict, label=label))
+        acc = L.accuracy(input=predict, label=label)
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    return main, startup, r, [loss, acc]
+
+
+def _phase20_resnet(seed, card, d):
+    """20a, the profiled training step of 20c and the memory and metrics
+    checks of 20d; returns the reader-fed steps' launches."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import executor as pexe
+    from paddle_tpu_torch import memory, metrics, profiler, recordio_writer
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.native import loader as native
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    py_batches = list(pt.batch(pt.reader.firstn(
+        pt.dataset.flowers.train(), RIO_BATCH * RIO_BATCHES), RIO_BATCH)())
+    files = [os.path.join(d, 'flowers-%05d.recordio' % i)
+             for i in range(RIO_BATCHES // RIO_PER_FILE)]
+    main, startup, reader, fetch = _rio_resnet(seed, files, True)
+    names = [v.name for v in reader.feed_vars]
+    feeder = pt.DataFeeder(feed_list=reader.feed_vars, place=pt.CUDAPlace(0),
+                           program=main)
+    fed = [feeder.feed(b) for b in py_batches]
+    t_write = time.perf_counter()
+    n = recordio_writer.convert_reader_to_recordio_files(
+        os.path.join(d, 'flowers.recordio'), RIO_PER_FILE,
+        lambda: iter(py_batches), feeder)
+    t_write = time.perf_counter() - t_write
+    check(n == RIO_BATCHES and all(os.path.exists(f) for f in files),
+          'convert_reader_to_recordio_files wrote %d batches, files %s'
+          % (n, sorted(os.listdir(d))))
+    print('phase 20a: %d flowers batches of %d (3x224x224) made and '
+          'converted in %.1f s; %d PTRC files, %d bytes, written in %.2f s'
+          % (RIO_BATCHES, RIO_BATCH, time.perf_counter() - t0, len(files),
+             sum(os.path.getsize(f) for f in files), t_write), flush=True)
+    # the native library is built (g++) at its first use: here, outside
+    # the timed steps
+    t_build = time.perf_counter()
+    check(native.available(), 'phase 20a: the native recordio library did '
+          'not build: %s' % native.build_error())
+    print('phase 20a: the native recordio library ready in %.2f s (%s)' % (
+        time.perf_counter() - t_build, os.path.relpath(
+            native.library_path(), ROOT)), flush=True)
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        exe, scope = pt.Executor(), pt.Scope()          # CUDAPlace(0)
+        exe.run(startup, scope=scope)
+        snap = _snapshot(scope)
+        # DataFeeder-fed first: it lowers the program (the reader-fed runs
+        # share the memo entry: the same feed names and shapes)
+        copies0 = pexe.FEED_COPIES['host_to_device']
+        f_out, f_dt = _rio_steps(exe, main, fetch, scope, fed)
+        f_copies = pexe.FEED_COPIES['host_to_device'] - copies0
+        _restore(scope, snap)
+        ck.reset_launch_counts()
+        passes.reset_fallback_counts()
+        torch.cuda.reset_peak_memory_stats()
+        reads0 = dict(native.READS)
+        copies0 = pexe.FEED_COPIES['host_to_device']
+        with _PulledBatches(exe, names) as pulled:
+            r_out, r_dt = _rio_steps(exe, main, fetch, scope)
+        launches = dict(ck.LAUNCHES)
+        variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
+        fallbacks = dict(passes.FALLBACKS)
+        r_copies = pexe.FEED_COPIES['host_to_device'] - copies0
+        reads = {k: native.READS[k] - reads0[k] for k in reads0}
+        peak = torch.cuda.max_memory_allocated()
+        mem_peak = memory.max_memory_allocated()
+        _rio_batches_gate('phase 20a', pulled.batches, fed, names)
+        del pulled
+        for _ in range(2):                              # EOF is sticky
+            try:
+                exe.run(main, fetch_list=fetch, scope=scope)
+                raise RuntimeError('chip_smoke: phase 20a: run %d did not '
+                                   'raise EOFException' % (RIO_BATCHES + 1))
+            except pt.core.EOFException:
+                pass
+        reader.reset()
+        peek = exe._pull_program_readers(
+            main, {}, scope, consume=False, fetch_names=[v.name
+                                                         for v in fetch])
+        check(all(_rio_bytes(peek[n]) == _rio_bytes(fed[0][n])
+                  for n in names), 'phase 20a: the first batch after '
+              'reset() differs from the first batch')
+        print('phase 20a: run %d raised EOFException (twice); after reset() '
+              'the first batch came back' % (RIO_BATCHES + 1), flush=True)
+        # 20c: one training step under the profiler (it takes the peeked
+        # batch): one fwd_bwd(value_and_grad) event, the momentum ops one
+        # by one, nothing of the forward
+        n_momentum = sum(op.type == 'momentum'
+                         for op in main.global_block().ops)
+        profiler.reset_profiler()
+        with profiler.profiler('All', 'total',
+                               trace_dir=os.path.join(d, 'trace_train')):
+            exe.run(main, fetch_list=fetch, scope=scope)
+        events = profiler.op_stats()
+        print('phase 20c: a profiled training step: %s' % ', '.join(
+            '%s %d calls %.3f ms' % (k, v['calls'], v['total_ms'])
+            for k, v in sorted(events.items())), flush=True)
+        check(events.get('fwd_bwd(value_and_grad)', {}).get('calls') == 1,
+              'phase 20c: the training step has no single fwd_bwd event: '
+              '%s' % sorted(events))
+        check(events.get('momentum', {}).get('calls') == n_momentum > 0,
+              'phase 20c: %s momentum calls, the program has %d momentum '
+              'ops' % (events.get('momentum'), n_momentum))
+        check('fused_conv' not in events and 'mul' not in events,
+              'phase 20c: ops of the forward have events of their own: %s'
+              % sorted(events))
+        _rio_close(scope)
+        _restore(scope, snap)
+        w_out, w_dt = _rio_steps(exe, main, fetch, scope, fed)
+        # without double_buffer: the Executor copies each batch to the card
+        main_p, _, reader_p, fetch_p = _rio_resnet(seed, files, False)
+        exe.run(main_p, feed=fed[0], fetch_list=fetch_p, scope=scope)
+        _restore(scope, snap)
+        copies0 = pexe.FEED_COPIES['host_to_device']
+        p_out, p_dt = _rio_steps(exe, main_p, fetch_p, scope)
+        p_copies = pexe.FEED_COPIES['host_to_device'] - copies0
+        _rio_close(scope)
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    losses = {k: [float(o[0].ravel()[0]) for o in out]
+              for k, out in (('r', r_out), ('f', f_out), ('w', w_out),
+                             ('p', p_out))}
+    _rio_losses_gate('phase 20a', losses['r'], losses['f'], losses['w'])
+    print('phase 20a: without double_buffer the losses %s the reader-fed '
+          'ones' % ('equal' if losses['p'] == losses['r'] else 'differ from'),
+          flush=True)
+    print('phase 20a: ResNet-50 (3x224x224, %d classes), batch %d, '
+          'Momentum(0.01, 0.9), AMP: ms a step reader-fed with double_buffer '
+          '%.2f, without %.2f, DataFeeder-fed %.2f (the witness run; the '
+          'first, which lowered the program, %.2f); %s' % (
+              RIO_CLASSES, RIO_BATCH, 1e3 * r_dt / RIO_BATCHES,
+              1e3 * p_dt / RIO_BATCHES, 1e3 * w_dt / RIO_BATCHES,
+              1e3 * f_dt / RIO_BATCHES, card), flush=True)
+    print('phase 20a: the Executor\'s copies to the card: reader-fed with '
+          'double_buffer %d, without %d, DataFeeder-fed %d; native reads '
+          '%s; launches %s (by variant %s), fallbacks %s' % (
+              r_copies, p_copies, f_copies, reads, launches, variants,
+              fallbacks), flush=True)
+    expect = {k: 0 for k in launches}
+    expect['fused_conv_stats'] = RESNET_REGIONS * RIO_BATCHES
+    check(launches == expect, 'phase 20a: launches %s, expected %s'
+          % (launches, expect))
+    check(not fallbacks, 'phase 20a: fell back: %s' % fallbacks)
+    check(r_copies == 0, 'phase 20a: the Executor copied %d values to the '
+          'card in the reader-fed steps' % r_copies)
+    check(native.available() and reads == {'native': len(files),
+                                            'python': 0},
+          'phase 20a: the native recordio library was not used: reads %s, '
+          'build error %s' % (reads, native.build_error()))
+    # 20d: memory and metrics
+    stats = memory.memory_stats()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print('phase 20d: memory.max_memory_allocated() %d, '
+          'torch.cuda.max_memory_allocated() %d (%.2f GiB); memory_stats '
+          'bytes_limit %d, the card\'s total_memory %d, supported %s'
+          % (mem_peak, peak, peak / 2 ** 30, stats.get('bytes_limit', 0),
+             total, stats['supported']), flush=True)
+    check(mem_peak == peak, 'phase 20d: memory.max_memory_allocated() %d, '
+          'torch says %d' % (mem_peak, peak))
+    check(stats['supported'] and stats.get('bytes_limit') ==
+          torch.cuda.mem_get_info()[1],
+          'phase 20d: memory_stats %s' % stats)
+    arena = memory.HostArena(chunk_bytes=1 << 20)
+    check(arena.native, 'phase 20d: HostArena is not native: %s'
+          % native.build_error())
+    a = arena.alloc((RIO_BATCH, 3, 224, 224), 'float32')
+    a[...] = fed[0][names[0]]
+    st = arena.stats()
+    check(st['native'] and st['allocated'] >= a.nbytes and st['pinned'] in
+          (True, False) and st['chunks'] >= 1, 'phase 20d: arena stats %s'
+          % st)
+    del a
+    arena.reset()
+    check(arena.stats()['allocated'] == 0, 'phase 20d: arena reset left %s'
+          % arena.stats())
+    arena.close()
+    acc = metrics.Accuracy()
+    for out in r_out:
+        acc.update(value=out[1], weight=RIO_BATCH)
+    want = sum(float(np.asarray(out[1]).sum()) * RIO_BATCH
+               for out in r_out) / (RIO_BATCH * RIO_BATCHES)
+    print('phase 20d: HostArena native, stats %s; metrics.Accuracy over the '
+          'reader-fed steps %.6f, the batch-weighted mean %.6f'
+          % (st, acc.eval(), want), flush=True)
+    check(acc.eval() == want, 'phase 20d: metrics.Accuracy %r, the '
+          'batch-weighted mean %r' % (acc.eval(), want))
+    for f in files:
+        os.remove(f)
+    del scope, exe, snap, fed, py_batches
+    torch.cuda.empty_cache()
+    return {'fused_conv_stats': launches['fused_conv_stats']}
+
+
+def _phase20_lstm(seed, card, d):
+    """20b; returns the reader-fed steps' launches."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import executor as pexe, recordio_writer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    rng = np.random.RandomState(seed + 20)
+    batches = []
+    for _ in range(RIO_LSTM_STEPS):
+        lens = rng.randint(RIO_LSTM_MIN, LSTM_WORDS + 1, LSTM_BATCH)
+        lens[0] = LSTM_WORDS
+        batches.append([(rng.randint(0, LSTM['dict_size'], int(k)).tolist(),
+                         int(rng.randint(0, 2))) for k in lens])
+    path = os.path.join(d, 'lstm.recordio')
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        L = pt.layers
+        r = L.open_files([path], shapes=[[-1, 1], [-1, 1]],
+                         lod_levels=[1, 0], dtypes=['int64', 'int64'])
+        r = L.double_buffer(r, place=pt.CUDAPlace(0))
+        words, label = L.read_file(r)
+        loss, _ = stacked_dynamic_lstm(pt, use_peepholes=False, data=words,
+                                       label=label, **LSTM)
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    names = [v.name for v in r.feed_vars]
+    feeder = pt.DataFeeder(feed_list=r.feed_vars, place=pt.CUDAPlace(0),
+                           program=main)
+    fed = [feeder.feed(b) for b in batches]
+    check(recordio_writer.convert_reader_to_recordio_file(
+        path, lambda: iter(batches), feeder) == RIO_LSTM_STEPS,
+        'phase 20b: the recordio file holds the wrong count')
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    snap = _snapshot(scope)
+    f_out, _ = _rio_steps(exe, main, [loss], scope, fed)
+    _restore(scope, snap)
+    ck.reset_launch_counts()
+    copies0 = pexe.FEED_COPIES['host_to_device']
+    with _PulledBatches(exe, names) as pulled:
+        r_out, r_dt = _rio_steps(exe, main, [loss], scope,
+                                 steps=RIO_LSTM_STEPS)
+    launches = dict(ck.LAUNCHES)
+    copies = pexe.FEED_COPIES['host_to_device'] - copies0
+    _rio_batches_gate('phase 20b', pulled.batches, fed, names)
+    lens_ok = all(isinstance(got[0], pt.SequenceTensor) and np.array_equal(
+        got[0].lengths.cpu().numpy(), want[names[0]].lengths)
+        for got, want in zip(pulled.batches, fed))
+    check(lens_ok, 'phase 20b: the sequence lengths did not survive the '
+          'round trip')
+    del pulled
+    _rio_close(scope)
+    _restore(scope, snap)
+    w_out, _ = _rio_steps(exe, main, [loss], scope, fed)
+    losses = [[float(o[0].ravel()[0]) for o in out]
+              for out in (r_out, f_out, w_out)]
+    _rio_losses_gate('phase 20b', *losses)
+    print('phase 20b: stacked_dynamic_lstm (dict %d, emb %d, hid %d, %d '
+          'layers, no peepholes), batch %d of %d-%d words (padded to %d), '
+          'from __seq__ records: lengths kept, %.2f ms a step reader-fed, '
+          'the Executor\'s copies to the card %d, launches %s; %s' % (
+              LSTM['dict_size'], LSTM['emb_dim'], LSTM['hid_dim'],
+              LSTM['stacked_num'], LSTM_BATCH, RIO_LSTM_MIN, LSTM_WORDS,
+              LSTM_T_PAD, 1e3 * r_dt / RIO_LSTM_STEPS, copies, launches,
+              card), flush=True)
+    expect = {k: 0 for k in launches}
+    expect['lstm_cell'] = LSTM_LAUNCHES * RIO_LSTM_STEPS
+    check(launches == expect, 'phase 20b: launches %s, expected %s'
+          % (launches, expect))
+    check(copies == 0, 'phase 20b: the Executor copied %d values to the '
+          'card' % copies)
+    del scope, exe, snap
+    torch.cuda.empty_cache()
+    return {'lstm_cell': launches['lstm_cell']}
+
+
+def _phase20_profiler(seed, card, d):
+    """20c: ResNet-50 served under the profiler, a ModelServer's spans,
+    no record after stop_profiler; returns the served runs' launches."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    main, startup, prob = _resnet_program(seed, is_test=True)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {'img': np.random.RandomState(seed + 22).randn(
+        RIO_PROF_BATCH, 3, 224, 224).astype('float32')}
+    exe.run(main, feed=feed, fetch_list=[prob], scope=scope)   # lowers
+    ck.reset_launch_counts()
+    profiler.reset_profiler()
+    table = os.path.join(d, 'profile_table.txt')
+    tdir = os.path.join(d, 'trace_serve')
+    with profiler.profiler('All', 'total', table, trace_dir=tdir):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RIO_PROF_RUNS):
+            exe.run(main, feed=feed, fetch_list=[prob], scope=scope)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(ck.LAUNCHES)
+    events = profiler.op_stats()
+    op_ms = sum(v['total_ms'] for v in events.values())
+    print('phase 20c: ResNet-50 served at batch %d, %d runs under the '
+          'profiler: %.2f ms wall, %.2f ms summed over the op table; '
+          'fused_conv %s calls, %.3f ms; launches %s; %s' % (
+              RIO_PROF_BATCH, RIO_PROF_RUNS, wall_ms, op_ms,
+              events.get('fused_conv', {}).get('calls'),
+              events.get('fused_conv', {}).get('total_ms', 0.0), launches,
+              card), flush=True)
+    check(events.get('fused_conv', {}).get('calls') ==
+          launches['fused_conv'] == RESNET_REGIONS * RIO_PROF_RUNS,
+          'phase 20c: the table\'s fused_conv calls %s, the launch counter '
+          '%s' % (events.get('fused_conv'), launches))
+    check(op_ms <= wall_ms, 'phase 20c: the op table sums %.3f ms, the runs '
+          'took %.3f ms' % (op_ms, wall_ms))
+    prof_path = profiler.save_profile(os.path.join(d, 'profile.json'))
+    timeline = os.path.join(d, 'timeline.json')
+    proc = subprocess.run([sys.executable, os.path.join(
+        ROOT, 'tools', 'timeline.py'), '--profile_path', prof_path,
+        '--timeline_path', timeline], capture_output=True, text=True)
+    check(proc.returncode == 0, 'phase 20c: tools/timeline.py failed: %s'
+          % proc.stderr[-2000:])
+    with open(timeline) as f:
+        slices = [e for e in json.load(f)['traceEvents'] if e['ph'] == 'X']
+    check(sum(e['name'] == 'fused_conv' for e in slices) ==
+          RESNET_REGIONS * RIO_PROF_RUNS, 'phase 20c: the timeline holds %d '
+          'fused_conv slices' % sum(e['name'] == 'fused_conv'
+                                    for e in slices))
+    trace = profiler.trace_path()
+    check(trace is not None and os.path.getsize(trace) > 0,
+          'phase 20c: no device trace written (%s)' % trace)
+    with open(trace) as f:
+        kernels = sum(e.get('cat') == 'kernel' for e in
+                      json.load(f).get('traceEvents', []))
+    print('phase 20c: save_profile -> tools/timeline.py: %d slices; the '
+          'device trace %s, %d bytes, %d kernel events' % (
+              len(slices), os.path.basename(trace), os.path.getsize(trace),
+              kernels), flush=True)
+    before = profiler.op_stats()
+    exe.run(main, feed=feed, fetch_list=[prob], scope=scope)
+    check(profiler.op_stats() == before, 'phase 20c: a run after '
+          'stop_profiler recorded events')
+    with pt.serving.ModelServer(pt.CUDAPlace(0),
+                                max_batch_size=RIO_PROF_BATCH) as server:
+        server.register_model('resnet', main, ['img'], [prob], scope)
+        server.infer('resnet', feed)
+        profiler.reset_profiler()
+        profiler.start_profiler('All', trace_dir=os.path.join(d, 'trace_srv'))
+        for _ in range(RIO_SERVER_REQUESTS):
+            server.infer('resnet', feed)
+        profiler.stop_profiler()
+    spans = profiler.serving_stats()
+    print('phase 20c: a ModelServer under the profiler answered %d requests: '
+          'spans %s' % (RIO_SERVER_REQUESTS, {k: v['calls'] for k, v in
+                                              sorted(spans.items())}),
+          flush=True)
+    check(spans.get('serving/request', {}).get('calls') ==
+          RIO_SERVER_REQUESTS, 'phase 20c: serving/request %s, %d requests'
+          % (spans.get('serving/request'), RIO_SERVER_REQUESTS))
+    del scope, exe
+    torch.cuda.empty_cache()
+    return {'fused_conv': launches['fused_conv']}
+
+
+def phase_readers(seed, card):
+    """20. The in-graph readers and the data path (20a, 20b), the
+    profiler (20c), memory and metrics (20d). Returns the kernel launches
+    of its main paths."""
+    import torch
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        launches.update(_phase20_resnet(seed, card, d))
+        launches.update(_phase20_lstm(seed, card, d))
+        launches.update(_phase20_profiler(seed, card, d))
+    torch.cuda.empty_cache()
+    print('phase 20: %.1f s; %.1f s since the process started' % (
+        time.perf_counter() - t_phase, time.perf_counter() - _STARTED),
+        flush=True)
+    return launches
+
+
 def sweep_conv_plans(card):
     """The wgmma conv's time at every (tile width, K splits) at ResNet-50's
     non-stem region shapes at batch 1, 8 and 32 (bf16, the folded batch
@@ -10628,6 +11176,8 @@ def main():
                     '(run by phase 19c)')
     ap.add_argument('--phase19', action='store_true',
                     help='build the kernels, run phase 19 alone, then stop')
+    ap.add_argument('--phase20', action='store_true',
+                    help='build the kernels, run phase 20 alone, then stop')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -10672,6 +11222,10 @@ def run_phases(args, card, root):
         return 0
     if args.phase19:
         phase_trainer(args.seed, card)
+        return 0
+    if args.phase20:
+        os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+        phase_readers(args.seed, card)
         return 0
     phase_sass()
     kres = phase_kernels(args.seed)
@@ -10725,6 +11279,7 @@ def run_phases(args, card, root):
         sparse = phase_sparse_and_books(args.seed, card, d)
     torch.cuda.empty_cache()
     trainer = phase_trainer(args.seed, card)
+    readers = phase_readers(args.seed, card)
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests, the serving runtime's concurrent mix, untuned
@@ -10742,7 +11297,8 @@ def run_phases(args, card, root):
     # Inferencer, vgg_bn_drop's stats-form steps and the flagship's, each
     # with and without memory_optimize, and the long context's under it
     # (19c), mnist's AMP steps (19d), the transpiled ResNet-50's requests
-    # (19e))
+    # (19e); and over phase 20's: ResNet-50's reader-fed steps (20a),
+    # stacked_dynamic_lstm's (20b), ResNet-50's profiled requests (20c))
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -10796,7 +11352,8 @@ def run_phases(args, card, root):
         fleet_launches['fused_conv'] +
         sum(b['fused_conv'] for b, _ in bench.values()) +
         book_launches['fused_conv'] + front['fused_conv'] +
-        sparse['fused_conv'] + trainer['fused_conv'],
+        sparse['fused_conv'] + trainer['fused_conv'] +
+        readers['fused_conv'],
         bench_regions=bench_totals('fused_conv'),
         book_regions=book_regions('fused_conv'), **conv))
     # its stats form: launches over the timed ResNet-50, VGG-16 and
@@ -10810,7 +11367,7 @@ def run_phases(args, card, root):
         launches=resnet_trained['launches']['fused_conv_stats'] +
         bench['vgg'][0]['fused_conv_stats'] +
         book_launches['fused_conv_stats'] + front['fused_conv_stats'] +
-        trainer.get('fused_conv_stats', 0),
+        trainer.get('fused_conv_stats', 0) + readers['fused_conv_stats'],
         bench_regions=bench_totals('fused_conv_stats'),
         book_regions=book_regions('fused_conv_stats'), **stats))
     # the LSTM cell: launches over the timed training steps of
@@ -10820,7 +11377,8 @@ def run_phases(args, card, root):
         name='lstm_cell', route='cuda',
         source='paddle_tpu_torch/csrc/lstm_cell.cu',
         replaces='paddle_tpu/ops/pallas_kernels.py:633',
-        launches=lstm_launches['lstm_cell'] + sparse['lstm_cell'],
+        launches=lstm_launches['lstm_cell'] + sparse['lstm_cell'] +
+        readers['lstm_cell'],
         bf16=lstm[(LSTM_BATCH, LSTM['hid_dim'], 'bfloat16')],
         **lstm[(LSTM_BATCH, LSTM['hid_dim'], 'float32')]))
     print('smoke: %.1f s since the process started' % (

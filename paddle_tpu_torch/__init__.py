@@ -39,10 +39,18 @@ models, micro-batching, pow-2 buckets, deadlines, a circuit breaker and
 a watchdog) and ``Inferencer``.
 
 The data side of the Fluid books: ``DataFeeder`` (``data_feeder.py``),
-the reader decorators (``reader``, ``batch``) and the books' datasets
-(``dataset``: uci_housing, mnist, cifar, imikolov, wmt14, on files
-already in place or their deterministic synthetic fallbacks); ``fluid``
-is the fluid-compatible namespace. Sparse tables
+the reader decorators (``reader``, ``batch``) and the datasets
+(``dataset``: the books' and flowers, wmt16, sentiment, voc2012 and
+mq2007, on files already in place or their deterministic synthetic
+fallbacks); ``fluid`` is the fluid-compatible namespace. The in-graph
+readers (``layers.open_files`` ... ``double_buffer`` ... ``read_file``)
+read PTRC recordio files (``reader_io``, ``recordio_writer``, the
+reference's layout in ``recordio_compat``) through a native C++ reader
+(``native``, built with g++ at first use) into the Executor's feeds,
+``double_buffer`` staging each batch on the card ahead of the step. The
+``profiler`` (the per-op table, a torch.profiler device trace, the
+serving spans), ``memory`` (device memory stats, the pinned
+``HostArena``) and ``metrics`` are as in paddle_tpu. Sparse tables
 (``embedding(is_sparse=True)``) train by their touched rows under SGD,
 Adagrad and Adam; ``calc_gradient`` / ``gradients`` give gradients of
 any targets for any inputs, differentiable again; the CRF family
@@ -103,7 +111,8 @@ from . import analysis, nets, resilience, serving  # noqa
 from . import fleet, kvcache  # noqa
 from .inferencer import Inferencer  # noqa
 from .data_feeder import DataFeeder  # noqa
-from . import reader, dataset, evaluator  # noqa
+from . import reader, dataset, evaluator, metrics, profiler  # noqa
+from . import memory, recordio_writer, reader_io, native, v2  # noqa
 from .reader import batch  # noqa
 from . import transpiler, contrib, debugger, concurrency  # noqa
 from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa

@@ -40,13 +40,21 @@ ops between its inputs and its targets with the inputs as fresh nodes,
 under autograd wherever it runs (a training forward, an update, a
 served program), and its gradients stay differentiable, so a later
 marker or the backward marker differentiates through them.
+
+While the profiler is on (``profiler.start_profiler``), a block's
+top-level runner times each op with a device sync after it into the
+profiler's op table, and a training region (the forward under autograd
+and its gradient) is one ``fwd_bwd(value_and_grad)`` event, as in the
+JAX lowering: no op inside it, and no op of a sub-block, adds an event.
 """
 import math
+import time
 
 import torch
 import torch.utils.checkpoint
 
 from .registry import get_kernel, register_kernel
+from .. import profiler as _prof
 from ..debugging import NanInfError, nan_checks_enabled
 from ..framework import (Operator, _hidden_reads, _op_reads, _op_writes,
                          convert_np_dtype)
@@ -186,12 +194,15 @@ class BlockRunner(object):
     eager dynamic mode does."""
 
     def __init__(self, block, device, grad_mode=False, keep=None,
-                 dynamic=False):
+                 dynamic=False, profile=False):
         self.block = block
         self.device = device
         self.grad_mode = grad_mode
         self.keep = keep if keep is not None else frozenset()
         self.dynamic = dynamic
+        # a top-level runner outside a training region: its ops go into
+        # the profiler's table while profiling is on
+        self.profile = profile
 
     def sub_runner(self, block):
         """The runner of a sub-block of this one's ops."""
@@ -200,8 +211,12 @@ class BlockRunner(object):
 
     def run_ops(self, ops, env):
         guard = nan_checks_enabled()
+        profiling = self.profile and _prof.op_profiling_enabled()
+        if profiling:
+            _device_sync(self.device)
         for op in ops:
             kernel = get_kernel(op.type)
+            t0 = time.perf_counter() if profiling else 0.0
             try:
                 kernel(OpCtx(op, env, self))
             except NanInfError:
@@ -210,6 +225,10 @@ class BlockRunner(object):
                 raise type(e)(
                     "while running op %r (%s -> %s): %s" %
                     (op.type, op.inputs, op.outputs, e)) from e
+            if profiling:
+                _device_sync(self.device)
+                _prof.record_op_event(op.type, time.perf_counter() - t0,
+                                      start=t0)
             if guard:
                 _check_outputs(op, env)
             if self.grad_mode:
@@ -236,6 +255,11 @@ class BlockRunner(object):
                 val = _ClipCotangent.apply(val, float(eclip.min),
                                            float(eclip.max))
             env[name] = val if seq is None else rewrap(seq, val)
+
+
+def _device_sync(device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
 
 
 def _float_leaves(val):
@@ -381,8 +405,8 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
                           dynamic, remat and not dynamic)
         else:
             with torch.no_grad():
-                BlockRunner(block, device, keep=keep,
-                            dynamic=dynamic).run_ops(ops, env)
+                BlockRunner(block, device, keep=keep, dynamic=dynamic,
+                            profile=True).run_ops(ops, env)
         fetches = [_detach(env[n]) for n in fetch_names]
         new_state = {}
         for n in state_out_names:
@@ -443,6 +467,10 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic,
     diff_names = [p for p in param_names if p not in sparse_map]
     gkeep = keep | {loss_name} | set(param_names) | {
         p[0] for pairs in sparse.values() for p in pairs}
+    profiling = _prof.op_profiling_enabled()
+    if profiling:
+        _device_sync(device)
+        t0 = time.perf_counter()
     if not param_names:
         # nothing to differentiate (only data reaches the loss): the
         # forward and the update ops run, as under jax.value_and_grad
@@ -450,8 +478,10 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic,
         with torch.no_grad():
             BlockRunner(block, device, keep=gkeep, dynamic=dynamic).run_ops(
                 ops[:marker_idx], env)
-            BlockRunner(block, device, keep=keep, dynamic=dynamic).run_ops(
-                ops[marker_idx + 1:], env)
+            if profiling:
+                _fwd_bwd_event(device, t0)
+            BlockRunner(block, device, keep=keep, dynamic=dynamic,
+                        profile=True).run_ops(ops[marker_idx + 1:], env)
         return
     # each parameter is a fresh leaf over the Scope's storage; the
     # Scope's own tensor never has requires_grad flipped
@@ -473,6 +503,8 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic,
         loss = env[loss_name].sum()
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()), allow_unused=True)))
+    if profiling:
+        _fwd_bwd_event(device, t0)
     scale = marker.attrs.get('loss_scale', None)
     scaled = scale is not None and scale != 1.0
     for p in diff_names:
@@ -498,8 +530,16 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic,
             g = g * scale
         env[gname] = g
     with torch.no_grad():
-        BlockRunner(block, device, keep=keep, dynamic=dynamic).run_ops(
-            ops[marker_idx + 1:], env)
+        BlockRunner(block, device, keep=keep, dynamic=dynamic,
+                    profile=True).run_ops(ops[marker_idx + 1:], env)
+
+
+def _fwd_bwd_event(device, t0):
+    """The training region as one profiler event, under the JAX
+    lowering's name for its fused forward and backward."""
+    _device_sync(device)
+    _prof.record_op_event('fwd_bwd(value_and_grad)',
+                          time.perf_counter() - t0, start=t0)
 
 
 def _hidden_env_reads(op):

@@ -29,3 +29,7 @@ def get_kernel(op_type):
             "paddle_tpu_torch has no kernel for op type %r. Registered: %s"
             % (op_type, ', '.join(sorted(_KERNELS)))) from None
 
+
+
+def has_kernel(op_type):
+    return op_type in _KERNELS

@@ -36,6 +36,18 @@ given as packed rows with an offset LoD (``LoDTensor.set`` /
 and it skips the verify and the passes (which assume the whole block's
 shapes). A packed fetch comes back a packed SequenceTensor with its LoD.
 
+A program that binds a reader (``layers.open_files`` ... ``read_file``)
+gets its slots filled by the Executor, as the JAX Executor's
+``_pull_program_readers`` does: a batch is pulled only for a reader whose
+slots this run consumes after the prune to the fetches; the stream state
+lives per Scope, keyed by the reader object, and ``reader.reset()``
+restarts it; the end of the stream raises ``core.EOFException`` and stays
+so until a reset; a feed of some of a reader's slots but not all raises
+``ValueError``. A batch that ``double_buffer(place=CUDAPlace(0))``
+staged on the card is taken as it is (the stream waits on its staging
+event); ``FEED_COPIES`` counts the values the Executor itself copies from
+the host to the card.
+
 ``run(async_fetch=True)`` returns the fetches as tensors on the device,
 with no copy to the host and no wait (``as_numpy`` materializes them);
 a fetch of a persistable is a copy, so it keeps its step's value
@@ -82,6 +94,11 @@ from .resilience import anomaly as _anomaly
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
            'switch_scope', 'as_numpy', 'fetch_var', 'CacheInfo']
+
+# values the Executor copied from the host to a CUDA device: feeds (a
+# numpy array or a CPU tensor, a sequence's lengths included) and Scope
+# values set from the host; process-wide
+FEED_COPIES = {'host_to_device': 0}
 
 # memo counters of one Executor: hits, misses (each one a prune, the
 # passes and a lowering), entries it made
@@ -329,6 +346,9 @@ class Executor(object):
         """``val`` on this device in ``var``'s runtime dtype; with
         ``half`` (a Float16Transpiler's dtype) an f32 value goes in
         half."""
+        if self.device.type == 'cuda' and not (
+                isinstance(val, torch.Tensor) and val.is_cuda):
+            FEED_COPIES['host_to_device'] += 1
         if isinstance(val, torch.Tensor):
             dt = torch_dtype(var.dtype) if var is not None else val.dtype
         else:
@@ -368,6 +388,9 @@ class Executor(object):
     def _lengths(self, lengths):
         if lengths is None:
             return None
+        if self.device.type == 'cuda' and not (
+                isinstance(lengths, torch.Tensor) and lengths.is_cuda):
+            FEED_COPIES['host_to_device'] += 1
         if isinstance(lengths, torch.Tensor):
             return lengths.to(device=self.device, dtype=torch.int64)
         return torch.tensor(np.asarray(lengths), dtype=torch.int64,
@@ -442,6 +465,91 @@ class Executor(object):
                     persist_outs.append(n)
         return program.prune(list(fetch_names) + persist_outs)
 
+    def _pull_program_readers(self, program, feed, scope, consume=True,
+                              fetch_names=None):
+        """The feed with each bound program reader's next batch in its
+        slots: the counterpart of the reference's ``read`` op pulling
+        from its ReaderHolder (paddle/fluid/operators/read_op.cc) and of
+        the JAX Executor's method of this name.
+
+        Only a reader whose slot variables this run consumes is pulled:
+        an input of an op that survives the prune to the fetches, or a
+        fetch itself (memoized per fingerprint and fetch set). A reader
+        bound in the same program but not consumed (a test reader built
+        beside the train one) is never drained. Stream state (iterator,
+        peeked batch, sticky EOF) lives per Scope, keyed by the reader
+        object; ``reader.reset()`` bumps its generation, so every scope
+        restarts. ``consume=False`` peeks: the batch is stashed and
+        handed to the next consuming run. Raises ``core.EOFException`` at
+        the end of the stream and again until ``reset()``."""
+        from .layers.io import ReaderVar
+        readers = [v for v in program.global_block().vars.values()
+                   if isinstance(v, ReaderVar)
+                   and getattr(v, 'source', None) is not None]
+        if not readers:
+            return feed
+        consumed = program.__dict__.setdefault('_consumed_memo', {})
+        key = (program.fingerprint(),
+               tuple(sorted(fetch_names)) if fetch_names else None)
+        used = consumed.get(key)
+        if used is None:
+            src_prog = self._maybe_prune(program, list(fetch_names or []))
+            used = set(fetch_names or [])
+            for blk in src_prog.blocks:
+                for op in blk.ops:
+                    used.update(op.input_arg_names)
+            consumed[key] = used
+        readers = [rv for rv in readers
+                   if any(fv.name in used for fv in rv.feed_vars)]
+        if not readers:
+            return feed
+        # keyed by the reader OBJECT (generated names can repeat across
+        # programs that share a scope); the entry pins rv, so its id
+        # stays unique for the scope's lifetime
+        states = scope.__dict__.setdefault('_reader_states', {})
+        feed = dict(feed)
+        for rv in readers:
+            names = [fv.name for fv in rv.feed_vars]
+            fed = [n for n in names if n in feed]
+            if len(fed) == len(names):
+                continue
+            if fed:
+                raise ValueError(
+                    'program reader %s: slots %s were fed but %s were '
+                    'not; feed all of a reader\'s slots or none (a '
+                    'partial feed would pair your data with an '
+                    'unrelated pulled batch)' % (
+                        rv.name, fed, [n for n in names if n not in feed]))
+            from .core import EOFException
+            gen = rv.__dict__.get('_generation', 0)
+            st = states.get(id(rv))
+            if st is None or st['gen'] != gen:
+                from .reader_io import iterate_reader
+                st = states[id(rv)] = {
+                    'rv': rv, 'gen': gen, 'iter': iterate_reader(rv),
+                    'pending': None, 'eof': False}
+            if st['eof']:
+                raise EOFException(
+                    'program reader %s is exhausted; call '
+                    'reader.reset() to restart it' % rv.name)
+            if st['pending'] is not None:
+                batch = st['pending']
+                if consume:
+                    st['pending'] = None
+            else:
+                try:
+                    batch = next(st['iter'])
+                except StopIteration:
+                    st['eof'] = True      # sticky, like ReaderHolder
+                    raise EOFException(
+                        'program reader %s is exhausted; call '
+                        'reader.reset() to restart it' % rv.name) from None
+                if not consume:
+                    st['pending'] = batch
+            for n, val in zip(names, batch):
+                feed[n] = val
+        return feed
+
     def _lowered(self, program, fp, feed, fetch_names, scope, tspan,
                  dynamic=False):
         """``(fn, state_in, missed)``: the runnable block for (program
@@ -512,11 +620,15 @@ class Executor(object):
         # the RAW feed: _prepare_feed casts to the declared dtype, which
         # would hide the mismatches the check names
         _analysis.check_feeds_for_executor(program, feed)
-        dynamic = is_dynamic(program)
-        feed = self._prepare_feed(program, feed or {}, dynamic=dynamic)
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         scope = scope or global_scope()
+        # a bound reader's batch joins the feed before the verify, the
+        # prune and the lowering see it
+        feed = self._pull_program_readers(program, feed or {}, scope,
+                                          fetch_names=fetch_names)
+        dynamic = is_dynamic(program)
+        feed = self._prepare_feed(program, feed, dynamic=dynamic)
         for key, device in ((RNG_KEY, self.device),
                             (RNG_CPU_KEY, torch.device('cpu'))):
             if scope.raw(key) is None:
@@ -546,7 +658,10 @@ class Executor(object):
                     scope=None, return_numpy=True, async_fetch=False):
         """K steps in one call, one per feed of ``feed_list``; returns K
         fetch lists, bit-equal to K ``run`` calls (they are K runs in
-        order: the port has no scan to chain them into one dispatch)."""
+        order: the port has no scan to chain them into one dispatch). A
+        program with a bound reader pulls one batch a step, as K runs
+        would (the JAX Executor falls back to its sequential path
+        there)."""
         return [self.run(program, feed=f, fetch_list=fetch_list,
                          scope=scope, return_numpy=return_numpy,
                          async_fetch=async_fetch)

@@ -7,7 +7,7 @@ Reference scripts do ``import paddle.fluid as fluid``; with the port:
 from . import (framework, layers, initializer, regularizer, clip,  # noqa
                optimizer, backward, unique_name, io, nets, param_attr,
                executor, compiler, resilience, serving, analysis, average,
-               evaluator)
+               evaluator, metrics, profiler, core)
 from .framework import (Program, Block, Variable, Operator,  # noqa
                         default_startup_program, default_main_program,
                         program_guard, switch_startup_program,
@@ -35,4 +35,10 @@ from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa
 from .resilience import AnomalyGuard, AnomalyError  # noqa
 from .debugging import (check_nan_inf, nan_guard,  # noqa
                         nan_checks_enabled, NanInfError)
+from . import memory  # noqa
+from .memory import (memory_stats, memory_allocated,  # noqa
+                     max_memory_allocated, HostArena)
+from . import recordio_writer  # noqa
+from .recordio_writer import (convert_reader_to_recordio_file,  # noqa
+                              convert_reader_to_recordio_files)
 LoDTensor = SequenceTensor

@@ -14,8 +14,13 @@ from . import metric
 from .metric import *  # noqa
 from . import learning_rate_scheduler
 from .learning_rate_scheduler import *  # noqa
+from . import device
+from .device import *  # noqa
 from . import math_op_patch  # noqa
+from . import layer_function_generator
+from .layer_function_generator import (deprecated, generate_layer_fn,  # noqa
+                                       autodoc)
 
 __all__ = (ops.__all__ + nn.__all__ + io.__all__ + tensor.__all__ +
-           control_flow.__all__ + metric.__all__ +
+           control_flow.__all__ + device.__all__ + metric.__all__ +
            learning_rate_scheduler.__all__)

@@ -36,6 +36,8 @@ import threading
 import numpy as np
 import torch
 
+from ..lod import SequenceTensor
+
 __all__ = ['PrefetchPipeline', 'DeviceStager', 'stage_on_device',
            'prefetch_feeds']
 
@@ -79,9 +81,10 @@ def _device_of(place):
 
 
 class DeviceStager(object):
-    """Host arrays onto one device. On the card: a side stream, and
-    pinned host buffers reused per (shape, dtype), ``slots`` of each in
-    turn; on the CPU: a copy into a tensor. Used from one thread."""
+    """Host arrays onto one device (a padded SequenceTensor's data and
+    lengths each as an array). On the card: a side stream, and pinned
+    host buffers reused per (shape, dtype), ``slots`` of each in turn; on
+    the CPU: a copy into a tensor. Used from one thread."""
 
     def __init__(self, place, slots=4):
         self.device = _device_of(place)
@@ -126,6 +129,11 @@ class DeviceStager(object):
         return dev
 
     def _map(self, value, staged, slots):
+        if isinstance(value, SequenceTensor) and not value.packed_mode and \
+                value.lengths is not None:
+            # padded data and its lengths, each staged like an array
+            return SequenceTensor(*(self._map(v, staged, slots) for v in (
+                value.data, value.lengths, value.sub_lengths)))
         if isinstance(value, dict):
             return {k: self._map(v, staged, slots)
                     for k, v in value.items()}
@@ -133,7 +141,7 @@ class DeviceStager(object):
             return type(value)(self._map(v, staged, slots) for v in value)
         if isinstance(value, np.ndarray):
             return self._leaf(value, staged, slots)
-        return value     # a SequenceTensor, a tensor, a number: as it is
+        return value     # a packed sequence, a tensor, a number: as it is
 
     def stage(self, value):
         """A ``_Staged`` of ``value`` with every numpy array replaced by a

@@ -148,6 +148,7 @@ def run_bucketed(exe, program, feed, fetch_list, scope=None, policy=None,
     once.
     """
     from .. import executor as _executor
+    from .. import profiler as _prof
     scope = scope if scope is not None else _executor.global_scope()
     policy = policy or BucketPolicy()
 
@@ -160,7 +161,8 @@ def run_bucketed(exe, program, feed, fetch_list, scope=None, policy=None,
             program._version in _unsafe_memo(program):
         return direct()
     bucket = policy.bucket_for(n)
-    padded = pad_feed(feed, n, bucket, policy.pad_mode)
+    with _prof.serving_span('serving/pad'):
+        padded = pad_feed(feed, n, bucket, policy.pad_mode)
     fetches = exe.run(program, feed=padded, fetch_list=fetch_list,
                       scope=scope, return_numpy=return_numpy)
     if bucket == n:

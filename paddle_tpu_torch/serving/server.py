@@ -62,9 +62,13 @@ watchdog trips, and a journal flush on ``close()``. Each server
 registers itself as a health provider of the live telemetry endpoint
 (``observability.telemetry``) from construction until ``close()``, so
 ``/health`` and a postmortem bundle carry its ``health()`` document.
+The profiler's serving span table (``profiler.serving_stats``) gets the
+JAX package's spans at its sites: ``serving/drain``, ``serving/swap``,
+``serving/warmup``, ``serving/pad``, ``serving/batch_run``,
+``serving/exact_fallback`` and ``serving/request`` (submit to result).
 
-Left out of the reference: the profiler's serving spans and the
-partitioner (a sharded server, ROADMAP Queue A item 6).
+Left out of the reference: the partitioner (a sharded server, ROADMAP
+Queue A item 6).
 """
 import logging
 import threading
@@ -73,6 +77,7 @@ import time
 import numpy as np
 
 from .. import observability as _obs
+from .. import profiler as _prof
 from ..compiler import tuning as _tuning
 from ..core import places as _places
 from ..executor import Executor, Scope, as_numpy
@@ -220,12 +225,13 @@ class ModelServer(object):
             batcher = self._batchers.pop(name, None)
             worker = self._workers.pop(name, None)
         try:
-            if batcher is not None:
-                batcher.close()
-            if worker is not None:
-                worker.join(timeout)
-                if worker.is_alive():
-                    self._abandon_worker(name, batcher, worker)
+            with _prof.serving_span('serving/drain'):
+                if batcher is not None:
+                    batcher.close()
+                if worker is not None:
+                    worker.join(timeout)
+                    if worker.is_alive():
+                        self._abandon_worker(name, batcher, worker)
             _obs.emit('serving_drain', model=name)
             return self.registry.unload(name)
         finally:
@@ -243,19 +249,20 @@ class ModelServer(object):
         and a bad deploy (unloadable or failing validation) raises here
         while the old model keeps serving untouched."""
         self.registry.get(name)            # raises ModelNotFound
-        _fi.maybe_fault(_fi.SITE_SERVING_LOAD)
-        scope = Scope()
-        program, feed_names, fetch_vars = _load_inference_model(
-            dirname, self.executor, model_filename=model_filename,
-            params_filename=params_filename, scope=scope)
-        candidate = LoadedModel(name, program, feed_names, fetch_vars,
-                                scope)
-        if validate:
-            feed = candidate.synthetic_feed(1)
-            if feed is not None:
-                # a bad deploy raises HERE, before the flip
-                self.executor.run(program, feed=feed,
-                                  fetch_list=fetch_vars, scope=scope)
+        with _prof.serving_span('serving/swap'):
+            _fi.maybe_fault(_fi.SITE_SERVING_LOAD)
+            scope = Scope()
+            program, feed_names, fetch_vars = _load_inference_model(
+                dirname, self.executor, model_filename=model_filename,
+                params_filename=params_filename, scope=scope)
+            candidate = LoadedModel(name, program, feed_names, fetch_vars,
+                                    scope)
+            if validate:
+                feed = candidate.synthetic_feed(1)
+                if feed is not None:
+                    # a bad deploy raises HERE, before the flip
+                    self.executor.run(program, feed=feed,
+                                      fetch_list=fetch_vars, scope=scope)
         new = self.registry.replace(name, candidate)
         breaker = self._breakers.get(name)
         if breaker is not None:
@@ -416,23 +423,24 @@ class ModelServer(object):
         searches = 0
         names = [model_name] if model_name is not None else self.models()
         warmed = {}
-        for name in names:
-            model = self.registry.get(name)
-            warmed[name] = []
-            for bucket in self.policy.buckets(upto or self.max_batch_size):
-                if bucket > self.max_batch_size:
-                    break
-                feed = model.synthetic_feed(bucket)
-                if feed is None:
-                    break
-                if tuner is not None:
-                    _, searched = tuner.tune_if_missing(
-                        model.program, feed, model.fetch_vars,
-                        scope=model.scope, name=name)
-                    searches += int(searched)
-                self.submit(name, feed, _warmup=True).result(
-                    timeout=timeout)
-                warmed[name].append(bucket)
+        with _prof.serving_span('serving/warmup'):
+            for name in names:
+                model = self.registry.get(name)
+                warmed[name] = []
+                for bucket in self.policy.buckets(upto or self.max_batch_size):
+                    if bucket > self.max_batch_size:
+                        break
+                    feed = model.synthetic_feed(bucket)
+                    if feed is None:
+                        break
+                    if tuner is not None:
+                        _, searched = tuner.tune_if_missing(
+                            model.program, feed, model.fetch_vars,
+                            scope=model.scope, name=name)
+                        searches += int(searched)
+                    self.submit(name, feed, _warmup=True).result(
+                        timeout=timeout)
+                    warmed[name].append(bucket)
         warmed = {k: v for k, v in warmed.items() if v}
         _obs.emit('serving_warmup',
                   models=len(warmed),
@@ -770,8 +778,9 @@ class ModelServer(object):
         pspan = _obs.start_span('serving/pad', rows=rows, bucket=bucket) \
             if bspan is not None else None
         try:
-            _fi.maybe_fault(_fi.SITE_SERVING_PAD)
-            padded = pad_feed(feed, rows, bucket, self.policy.pad_mode)
+            with _prof.serving_span('serving/pad'):
+                _fi.maybe_fault(_fi.SITE_SERVING_PAD)
+                padded = pad_feed(feed, rows, bucket, self.policy.pad_mode)
         finally:
             pad_entry = self.watchdog.exit(token)
             if pspan is not None:
@@ -785,7 +794,9 @@ class ModelServer(object):
         rspan = _obs.start_span('serving/run', rows=rows, bucket=bucket) \
             if bspan is not None else None
         try:
-            fetches = self._run_guarded(model, padded, deadline=deadline)
+            with _prof.serving_span('serving/batch_run'):
+                fetches = self._run_guarded(model, padded,
+                                            deadline=deadline)
         finally:
             run_entry = self.watchdog.exit(token)
             if rspan is not None:
@@ -814,8 +825,9 @@ class ModelServer(object):
                                         parent=req.trace, rows=req.n) \
                     if req.trace is not None else None
                 try:
-                    out = self._run_guarded(model, req.feeds,
-                                            deadline=req.deadline)
+                    with _prof.serving_span('serving/exact_fallback'):
+                        out = self._run_guarded(model, req.feeds,
+                                                deadline=req.deadline)
                 finally:
                     entry = self.watchdog.exit(token)
                     if espan is not None:
@@ -831,5 +843,7 @@ class ModelServer(object):
         if not req.warmup:
             trace_id = req.trace.trace_id \
                 if (req.trace is not None and req.trace.sampled) else None
-            self.stats.record_completed(req.latency(), trace=trace_id)
+            latency = req.latency()
+            self.stats.record_completed(latency, trace=trace_id)
+            _prof.record_serving_event('serving/request', latency)
         req.set_result(fetches)

@@ -14,7 +14,12 @@ and book 07's chunk evaluator, or trains through the high-level Trainer
 with checkpoints, prefetch, chained steps and an AnomalyGuard, resumes
 from its checkpoint, takes a memory_optimize step, serves a
 Float16Transpiler'd net, trips the NaN/Inf guard, prints a program
-through the debugger and passes values through a channel),
+through the debugger and passes values through a channel, or writes
+recordio files of the five new datasets' samples (records that name no
+class of either package), reads them back through the native library and
+trains from them through open_files, batch, double_buffer and read_file
+under the profiler, with memory's stats and HostArena, metrics, the
+device layer, the layer generator and v2),
 its only ``http.server`` import is in ``observability/telemetry.py``,
 and its entry points default to the card."""
 import ast
@@ -346,6 +351,66 @@ with fluid.nan_guard():
 ch = fluid.concurrency.make_channel('int32', capacity=2)
 fluid.concurrency.channel_send(ch, 5)
 assert fluid.concurrency.channel_recv(ch) == (5, True)
+import pickletools
+from paddle_tpu_torch import (profiler, memory, metrics, recordio_writer,
+                              reader_io, recordio_compat, v2)
+from paddle_tpu_torch.native import loader as native_loader
+from paddle_tpu_torch.dataset import flowers, wmt16, sentiment, voc2012, mq2007
+assert native_loader.available(), native_loader.build_error()
+assert v2.batch is pt.batch and L.get_places(1) == [0]
+assert L.generate_layer_fn('relu').__name__ == 'relu'
+assert next(wmt16.train(30, 30)())[0] and next(sentiment.train()())[0]
+assert next(voc2012.train()())[0].ndim == 3
+assert len(next(mq2007.train()())) == 3
+rio_dir = tempfile.mkdtemp()
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    img = L.data(name='img', shape=[3, 8, 8], dtype='float32')
+    lbl = L.data(name='lbl', shape=[1], dtype='int64')
+feeder = pt.DataFeeder(feed_list=[img, lbl], place=pt.CPUPlace(),
+                       program=main)
+def small_flowers():
+    for i, (im, l) in enumerate(flowers.train()()):
+        if i == 4:
+            return
+        yield [(im.reshape(3, 224, 224)[:, :8, :8], l)]
+path = os.path.join(rio_dir, 'f.rio')
+assert recordio_writer.convert_reader_to_recordio_file(
+    path, small_flowers, feeder) == 4
+for payload in reader_io.read_records(path):
+    names = [a for op, a, _ in pickletools.genops(payload)
+             if op.name in ('GLOBAL', 'STACK_GLOBAL', 'SHORT_BINUNICODE',
+                            'BINUNICODE')]
+    assert not [n for n in names if 'paddle' in str(n)], names
+main, startup = pt.Program(), pt.Program()
+with pt.unique_name.guard(), pt.program_guard(main, startup):
+    r = L.open_files([path], shapes=[[-1, 3, 8, 8], [-1, 1]],
+                     lod_levels=[0, 0], dtypes=['float32', 'int64'])
+    r = L.double_buffer(L.batch(r, 1), place=pt.CPUPlace())
+    im, l = L.read_file(r)
+    im = L.reshape(im, [-1, 3, 8, 8])
+    pred = L.fc(input=im, size=102, act='softmax')
+    loss = L.mean(L.cross_entropy(input=pred, label=L.reshape(l, [-1, 1])))
+    acc = L.accuracy(input=pred, label=L.reshape(l, [-1, 1]))
+    pt.optimizer.Momentum(0.01, 0.9).minimize(loss)
+exe.run(startup, scope=scope)
+m = metrics.Accuracy()
+reads = native_loader.READS['native']
+with profiler.profiler('All', 'total', trace_dir=rio_dir):
+    for _ in range(4):
+        out, a = exe.run(main, fetch_list=[loss, acc], scope=scope)
+        m.update(a, 1)
+assert native_loader.READS['native'] == reads + 1
+assert profiler._op_events['fwd_bwd(value_and_grad)'][0] == 4
+try:
+    exe.run(main, fetch_list=[loss], scope=scope)
+    raise SystemExit('no EOFException')
+except fluid.core.EOFException:
+    pass
+assert 0.0 <= m.eval() <= 1.0
+assert memory.memory_stats(pt.CPUPlace())['supported'] is False
+arena = memory.HostArena()
+assert arena.native and arena.alloc((4,), 'float32').shape == (4,)
 loaded = sorted(m for m in sys.modules
                 if m in ('jax', 'jaxlib', 'paddle_tpu')
                 or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.')))

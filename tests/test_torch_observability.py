@@ -610,9 +610,10 @@ def test_serving_events_and_series_match_paddle_tpu(tmp_path, mlp_dir):
         assert side['misses']['exe/verify'] == \
             side['misses']['exe/compile'] >= 1
     assert port['links'] == jax_side['links'] == 8
-    # the JAX server also times its stages into the profiler's serving
-    # spans (serving_span_seconds), which the port does not have yet
-    assert port['series'] == jax_side['series'] - {'serving_span_seconds'}
+    # both servers time their stages into the profiler's serving spans
+    # (serving_span_seconds)
+    assert 'serving_span_seconds' in port['series']
+    assert port['series'] == jax_side['series']
 
 
 def _analysis_drive(pkg, A, pipeline_cls):
