@@ -100,9 +100,9 @@ from .framework import (Program, Block, Variable, Operator, Parameter,  # noqa
                         default_startup_program, default_main_program,
                         program_guard, switch_startup_program,
                         switch_main_program, get_var)
-from .core.places import CPUPlace, CUDAPlace  # noqa
-from .executor import (Executor, Scope, global_scope, scope_guard,  # noqa
-                       switch_scope, fetch_var)
+from .core.places import CPUPlace, CUDAPlace, CUDAPinnedPlace  # noqa
+from .executor import (Executor, Scope, VarBinding,  # noqa
+                       global_scope, scope_guard, switch_scope, fetch_var)
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa
 from .lod import (SequenceTensor, create_lod_tensor,  # noqa
                   create_random_int_lodtensor)
@@ -124,3 +124,5 @@ from .debugging import check_nan_inf, nan_guard, nan_checks_enabled  # noqa
 # the reference's LoDTensor; SequenceTensor carries its imperative
 # surface (set, set_lod, lod), as in paddle_tpu
 LoDTensor = SequenceTensor
+# a loose alias for scripts that touch fluid.Tensor, as in paddle_tpu
+Tensor = SequenceTensor

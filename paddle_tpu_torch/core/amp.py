@@ -17,6 +17,12 @@ by ``set_amp(None)`` / ``set_amp_act(None)``: ``PADDLE_TPU_TORCH_AMP``
 (``0``/``1``; unset or ``auto``: by device) and
 ``PADDLE_TPU_TORCH_AMP_ACT`` (``f32`` keeps activations in f32; default
 ``bf16``).
+
+``conv_layout()`` is the layout the plain conv ops compute in: ``NCHW``
+(default) or ``NHWC``, PyTorch's channels-last memory format, set only
+by ``set_conv_layout``; tensors keep their logical NCHW shape either
+way. It is a parity shim for the JAX package's layout switch: nothing
+in the port sets it, and its speed is not measured.
 """
 import os
 
@@ -38,6 +44,33 @@ def _env_act():
 # None: by device; True/False: forced
 _FORCED = [_env_amp()]
 _ACT = [_env_act()]
+_LAYOUT = ['NCHW']
+
+
+def conv_layout():
+    """'NCHW' (default) or 'NHWC' (channels-last memory format)."""
+    return _LAYOUT[0]
+
+
+def set_conv_layout(layout):
+    """Set the plain convs' layout (None: back to NCHW)."""
+    layout = 'NCHW' if layout is None else layout.upper()
+    if layout not in ('NCHW', 'NHWC'):
+        raise ValueError("conv layout must be NCHW or NHWC, got %r"
+                         % layout)
+    _LAYOUT[0] = layout
+
+
+def in_conv_layout(fn, *operands):
+    """``fn(*operands)`` with 4-D and 5-D operands in channels-last
+    memory format under NHWC; the result back in the default (NCHW)
+    format."""
+    if conv_layout() != 'NHWC':
+        return fn(*operands)
+    fmt = {4: torch.channels_last, 5: torch.channels_last_3d}
+    out = fn(*[o.contiguous(memory_format=fmt[o.dim()])
+               if o.dim() in fmt else o for o in operands])
+    return out.contiguous()
 
 
 def amp_enabled(device):

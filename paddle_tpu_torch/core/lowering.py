@@ -371,11 +371,19 @@ def _merge_shared_muls(block, ops):
     return out
 
 
+# (op type, input slot) pairs whose input defines a shape: a feed read
+# only through them is bound statically (``static_env``)
+SHAPE_INPUT_SLOTS = frozenset({('reshape', 'Shape')})
+
+
 def lower_block(program, block, feed_names, fetch_names, state_in_names,
-                state_out_names, device, dynamic=False, remat=False):
+                state_out_names, device, dynamic=False, remat=False,
+                static_env=None):
     """Build ``fn(feeds, state) -> (fetches, new_state)``. ``dynamic``
     runs the block in the dynamic program mode (see ``BlockRunner``);
-    ``remat`` runs a training forward in checkpointed segments.
+    ``remat`` runs a training forward in checkpointed segments;
+    ``static_env`` binds names to host numpy values, baked into this
+    lowering (the shape feeds of ``SHAPE_INPUT_SLOTS``).
 
     ``feeds``/``state`` are dicts name -> tensor on ``device``; ``state``
     holds the scope's ``torch.Generator`` under ``RNG_KEY``. Fetches and
@@ -397,9 +405,12 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
     keep = (frozenset(fetch_names) | frozenset(state_out_names)
             | {RNG_KEY, RNG_CPU_KEY})
 
+    static_env = dict(static_env or {})
+
     def fn(feeds, state):
         env = dict(state)
         env.update(feeds)
+        env.update(static_env)
         if markers:
             _run_training(block, device, ops, markers[0], env, keep,
                           dynamic, remat and not dynamic)

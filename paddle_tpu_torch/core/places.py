@@ -7,7 +7,7 @@ asked for; it never stands in for the CPU.
 """
 import torch
 
-__all__ = ['CPUPlace', 'CUDAPlace']
+__all__ = ['CPUPlace', 'CUDAPlace', 'CUDAPinnedPlace']
 
 
 class Place(object):
@@ -43,3 +43,8 @@ class CUDAPlace(Place):
             raise RuntimeError("CUDAPlace(%d): only %d CUDA device(s)"
                                % (self.device_id, torch.cuda.device_count()))
         return torch.device('cuda', self.device_id)
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """The reference's page-locked host memory: a host place, as in
+    paddle_tpu (``core/places.py``)."""

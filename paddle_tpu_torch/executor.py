@@ -87,12 +87,13 @@ from .framework import (Program, Variable, _op_reads, _op_writes,
                         default_main_program)
 from .lod import SequenceTensor
 from .core import places as _places
-from .core.lowering import lower_block, torch_dtype, RNG_KEY, RNG_CPU_KEY
+from .core.lowering import (lower_block, torch_dtype, RNG_KEY, RNG_CPU_KEY,
+                            SHAPE_INPUT_SLOTS)
 from .core.registry import SIDE_EFFECT_OPS
 from .ops.common import rewrap
 from .resilience import anomaly as _anomaly
 
-__all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
+__all__ = ['Executor', 'Scope', 'VarBinding', 'global_scope', 'scope_guard',
            'switch_scope', 'as_numpy', 'fetch_var', 'CacheInfo']
 
 # values the Executor copied from the host to a CUDA device: feeds (a
@@ -105,10 +106,79 @@ FEED_COPIES = {'host_to_device': 0}
 CacheInfo = collections.namedtuple('CacheInfo', ['hits', 'misses', 'size'])
 
 
+class VarBinding(object):
+    """Live handle to a Scope slot, the counterpart of
+    ``paddle_tpu.executor.VarBinding`` (the runtime ``Variable`` that
+    ``Scope::FindVar`` returns): reference scripts write pretrained
+    parameters through ``find_var(name).get_tensor().set(np, place)``
+    (book/test_label_semantic_roles.py:204-208). Reads delegate to the
+    slot's current value (``shape``, ``dtype``, ``device`` ...).
+
+    ``set`` puts a NEW tensor in the slot, on ``place``'s device (the
+    current value's device, or the host, without one) and in the stored
+    value's dtype (the array's own without one, float64 as float32 as in
+    the JAX package): the next ``Executor.run`` reads the Scope, and
+    caches keyed on a tensor's identity (the fused conv's re-laid-out
+    weight) miss on the new one."""
+
+    __slots__ = ('_scope', '_name')
+
+    def __init__(self, scope, name):
+        object.__setattr__(self, '_scope', scope)
+        object.__setattr__(self, '_name', name)
+
+    def value(self):
+        return self._scope.raw(self._name)
+
+    def get_tensor(self):
+        return self
+
+    def set(self, array, place=None):
+        val = self.value()
+        if isinstance(val, SequenceTensor):
+            val.set(array, place)
+            return
+        if isinstance(array, torch.Tensor):
+            t = array.detach()
+        else:
+            arr = np.asarray(array)
+            if arr.dtype == np.float64:
+                arr = arr.astype(np.float32)
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        if place is not None:
+            device = place.torch_device()
+        elif isinstance(val, torch.Tensor):
+            device = val.device
+        else:
+            device = t.device
+        dtype = val.dtype if isinstance(val, torch.Tensor) else t.dtype
+        if device.type == 'cuda' and not t.is_cuda:
+            FEED_COPIES['host_to_device'] += 1
+        # a copy, never a view of the caller's array
+        t = t.to(device=device, dtype=dtype, copy=True)
+        (self._scope.holder(self._name) or self._scope).set_var(
+            self._name, t)
+
+    def lod(self):
+        val = self.value()
+        return val.lod() if isinstance(val, SequenceTensor) else []
+
+    def __array__(self, dtype=None, copy=None):
+        arr = np.asarray(as_numpy(self.value()))
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __getattr__(self, attr):
+        return getattr(self.value(), attr)
+
+    def __repr__(self):
+        return "VarBinding(%r -> %r)" % (self._name, self.value())
+
+
 class Scope(object):
     """name -> runtime value (a torch tensor, or the scope's
     ``torch.Generator`` under ``RNG_KEY`` and its host generator under
-    ``RNG_CPU_KEY``)."""
+    ``RNG_CPU_KEY``). ``find_var`` and ``var`` hand out live
+    ``VarBinding`` handles; internal fast paths read ``raw``."""
 
     def __init__(self, parent=None):
         self.vars = {}
@@ -128,14 +198,27 @@ class Scope(object):
         return None if s is None else s.vars[name]
 
     def find_var(self, name):
-        """The stored value, or None when the name holds nothing."""
-        return self.raw(name)
+        """A live ``VarBinding`` of ``name``, or None where no Scope on
+        the chain has the slot or the slot holds None: callers test
+        ``find_var(...) is not None``."""
+        return None if self.raw(name) is None else VarBinding(self, name)
+
+    def var(self, name):
+        """Declare the slot in this Scope (as ``Scope::Var`` does) and
+        hand out its binding, before any value lands in it: the
+        reference's ``scope.var(n)`` then ``...get_tensor().set(...)``."""
+        self.vars.setdefault(name, None)
+        return VarBinding(self, name)
 
     def set_var(self, name, value):
         self.vars[name] = value
 
     def new_scope(self):
         return Scope(parent=self)
+
+    def drop_kids(self):
+        """The reference frees its child scopes here; a child holds no
+        reference from its parent, so there is nothing to drop."""
 
     def keys(self):
         return self.vars.keys()
@@ -202,7 +285,10 @@ def as_numpy(value):
     fetched sequence keeps its structure, as in the JAX package: a
     SequenceTensor of host arrays, its ``data`` the padded [B, T_pad,
     ...] array (``np.asarray`` of it gives the packed rows); a packed
-    one keeps its rows and offset LoD."""
+    one keeps its rows and offset LoD. A ``VarBinding`` gives its
+    slot's value."""
+    if isinstance(value, VarBinding):
+        value = value.value()
     if isinstance(value, SequenceTensor):
         data = as_numpy(value.data)
         if value.packed_mode:
@@ -550,8 +636,39 @@ class Executor(object):
                 feed[n] = val
         return feed
 
+    @staticmethod
+    def _extract_static_feeds(program, feed):
+        """``(feed, static_env)``: the feeds read only through
+        shape-defining input slots (``SHAPE_INPUT_SLOTS``: reshape's
+        ``Shape``) leave the feed as host numpy values (one read of a
+        device tensor), which the lowering bakes in and the memo keys
+        on, as paddle_tpu's ``_extract_static_feeds`` does. The names
+        are memoized per program fingerprint."""
+        memo = program.__dict__.setdefault('_shape_feed_memo', {})
+        fp = program.fingerprint()
+        names = memo.get(fp)
+        if names is None:
+            shape_only, data_used = set(), set()
+            for blk in program.blocks:
+                for op in blk.ops:
+                    for slot, vals in (op.inputs or {}).items():
+                        vals = vals if isinstance(vals, (list, tuple)) \
+                            else [vals]
+                        for v in vals:
+                            n = getattr(v, 'name', v)
+                            if (op.type, slot) in SHAPE_INPUT_SLOTS:
+                                shape_only.add(n)
+                            else:
+                                data_used.add(n)
+            names = memo[fp] = frozenset(shape_only - data_used)
+        hits = names & set(feed)
+        if not hits:
+            return feed, {}
+        feed = dict(feed)
+        return feed, {n: np.asarray(as_numpy(feed.pop(n))) for n in hits}
+
     def _lowered(self, program, fp, feed, fetch_names, scope, tspan,
-                 dynamic=False):
+                 dynamic=False, static_env=None):
         """``(fn, state_in, missed)``: the runnable block for (program
         version, feeds, fetches, state names, device, the compiler's
         token), memoized on the program so steady-state requests skip
@@ -566,8 +683,11 @@ class Executor(object):
         feed_names = sorted(feed)
         feed_sig = feed_signature(feed)
         token = _compiler.cache_token(fp, feed_sig, self.device)
+        static_env = static_env or {}
         key = (program._version, tuple(feed_names), tuple(fetch_names),
-               tuple(state_in), tuple(state_out), self.device, token)
+               tuple(state_in), tuple(state_out), self.device, token,
+               tuple(sorted((n, v.dtype.str, v.shape, v.tobytes())
+                            for n, v in static_env.items())))
         with self._cache_lock:
             memo = program.__dict__.setdefault('_torch_lowered', {})
             hit = memo.get(key)
@@ -581,8 +701,9 @@ class Executor(object):
         # insert wins
         if not dynamic:
             t_verify = time.perf_counter()
-            _analysis.verify_for_executor(program, feed_names=feed_names,
-                                          fetch_names=fetch_names)
+            _analysis.verify_for_executor(
+                program, feed_names=feed_names + sorted(static_env),
+                fetch_names=fetch_names)
             if tspan is not None:
                 _obs.emit_span('exe/verify',
                                time.perf_counter() - t_verify, parent=tspan)
@@ -594,7 +715,8 @@ class Executor(object):
                 clone=pruned is program)
         fn = lower_block(pruned, pruned.global_block(), feed_names,
                          fetch_names, state_in, state_out, self.device,
-                         dynamic, bool(getattr(program, '_remat', False)))
+                         dynamic, bool(getattr(program, '_remat', False)),
+                         static_env)
         if token != ('off',):
             tuning = _compiler.tuning
             fn = tuning.wrap_lowered(fn, tuning.default_cache().lookup(
@@ -628,6 +750,7 @@ class Executor(object):
         feed = self._pull_program_readers(program, feed or {}, scope,
                                           fetch_names=fetch_names)
         dynamic = is_dynamic(program)
+        feed, static_env = self._extract_static_feeds(program, feed)
         feed = self._prepare_feed(program, feed, dynamic=dynamic)
         for key, device in ((RNG_KEY, self.device),
                             (RNG_CPU_KEY, torch.device('cpu'))):
@@ -642,12 +765,14 @@ class Executor(object):
         pctx = _obs.current_context()
         if pctx is None:
             return self._run(program, fp, feed, fetch_names, scope,
-                             return_numpy, None, dynamic, async_fetch)
+                             return_numpy, None, dynamic, async_fetch,
+                             static_env)
         tspan = _obs.start_span('exe/run', parent=pctx, activate=False,
                                 fp=fp)
         try:
             out = self._run(program, fp, feed, fetch_names, scope,
-                            return_numpy, tspan, dynamic, async_fetch)
+                            return_numpy, tspan, dynamic, async_fetch,
+                            static_env)
         except BaseException as e:
             tspan.end(error=type(e).__name__)
             raise
@@ -668,11 +793,11 @@ class Executor(object):
                 for f in (feed_list or [])]
 
     def _run(self, program, fp, feed, fetch_names, scope, return_numpy,
-             tspan, dynamic=False, async_fetch=False):
+             tspan, dynamic=False, async_fetch=False, static_env=None):
         t_lookup = time.perf_counter()
         fn, state_in, missed = self._lowered(program, fp, feed,
                                              fetch_names, scope, tspan,
-                                             dynamic)
+                                             dynamic, static_env)
         (self._m_misses if missed else self._m_hits).inc()
         if missed:
             compile_wall = time.perf_counter() - t_lookup

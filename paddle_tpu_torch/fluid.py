@@ -4,6 +4,10 @@ Counterpart of paddle_tpu/fluid.py, trimmed to what the port has.
 Reference scripts do ``import paddle.fluid as fluid``; with the port:
 ``import paddle_tpu_torch.fluid as fluid``.
 """
+# An empty __path__ makes this module package-like, as paddle_tpu's
+# facade: ``import paddle.fluid.layers`` under the port's ``paddle``
+# alias (paddle_alias.py) gets past the parent-__path__ check
+__path__ = []
 from . import (framework, layers, initializer, regularizer, clip,  # noqa
                optimizer, backward, unique_name, io, nets, param_attr,
                executor, compiler, resilience, serving, analysis, average,
@@ -12,9 +16,9 @@ from .framework import (Program, Block, Variable, Operator,  # noqa
                         default_startup_program, default_main_program,
                         program_guard, switch_startup_program,
                         switch_main_program, get_var)
-from .core.places import CPUPlace, CUDAPlace  # noqa
-from .executor import (Executor, Scope, global_scope, scope_guard,  # noqa
-                       switch_scope, fetch_var)
+from .core.places import CPUPlace, CUDAPlace, CUDAPinnedPlace  # noqa
+from .executor import (Executor, Scope, VarBinding,  # noqa
+                       global_scope, scope_guard, switch_scope, fetch_var)
 from .backward import append_backward, calc_gradient, gradients  # noqa
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa
 from .initializer import init_on_cpu  # noqa
@@ -42,3 +46,4 @@ from . import recordio_writer  # noqa
 from .recordio_writer import (convert_reader_to_recordio_file,  # noqa
                               convert_reader_to_recordio_files)
 LoDTensor = SequenceTensor
+Tensor = SequenceTensor

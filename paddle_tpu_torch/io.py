@@ -47,7 +47,8 @@ __all__ = [
     'load_inference_model', 'get_inference_program', 'program_to_json',
     'program_from_json', 'params_from_numpy', 'save_checkpoint',
     'load_checkpoint', 'clean_checkpoint', 'load_checkpoint_trainer_state',
-    'CheckpointBackendError',
+    'CheckpointBackendError', 'get_parameter_value',
+    'get_parameter_value_by_name',
 ]
 
 PARAMS_FILE = '__params__.npz'
@@ -60,6 +61,29 @@ def is_parameter(var):
 
 def is_persistable(var):
     return var.persistable
+
+
+def get_parameter_value(para, executor):
+    """A parameter's current value in the global Scope, as a host numpy
+    array (a copy; half floats as f32). Raises where the startup
+    program has not run yet. Counterpart of
+    ``paddle_tpu.io.get_parameter_value``."""
+    assert is_parameter(para)
+    from .executor import fetch_var
+    val = fetch_var(para.name)
+    if val is None:
+        raise RuntimeError(
+            "Parameter %r has no value in the current scope yet: run "
+            "the startup program first" % para.name)
+    return val
+
+
+def get_parameter_value_by_name(name, executor, program=None):
+    """``get_parameter_value`` of the parameter ``name`` of ``program``
+    (the default main program by default)."""
+    if program is None:
+        program = default_main_program()
+    return get_parameter_value(program.global_block().var(name), executor)
 
 
 def _save_var_list(dirname, var_names, scope=None, filename=None):

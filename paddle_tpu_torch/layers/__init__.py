@@ -17,6 +17,7 @@ from .learning_rate_scheduler import *  # noqa
 from . import device
 from .device import *  # noqa
 from . import math_op_patch  # noqa
+from .math_op_patch import monkey_patch_variable  # noqa
 from . import layer_function_generator
 from .layer_function_generator import (deprecated, generate_layer_fn,  # noqa
                                        autodoc)

@@ -1,8 +1,8 @@
-"""Metric layers. Counterpart of paddle_tpu/layers/metric.py, trimmed to
-``accuracy`` (``auc`` waits for its kernel)."""
+"""Metric layers. Counterpart of paddle_tpu/layers/metric.py:
+``accuracy`` and ``auc``."""
 from ..layer_helper import LayerHelper
 
-__all__ = ['accuracy']
+__all__ = ['accuracy', 'auc']
 
 
 def accuracy(input, label, k=1, correct=None, total=None):
@@ -25,3 +25,15 @@ def accuracy(input, label, k=1, correct=None, total=None):
                      outputs={"Accuracy": [acc_out], "Correct": [correct],
                               "Total": [total]})
     return acc_out
+
+
+def auc(input, label, curve='ROC', num_thresholds=200):
+    """One batch's ROC AUC over ``num_thresholds`` thresholds."""
+    helper = LayerHelper("auc", **{})
+    auc_out = helper.create_tmp_variable(dtype="float32", shape=(1,))
+    helper.append_op(type="auc",
+                     inputs={"Predict": [input], "Label": [label]},
+                     attrs={"curve": curve,
+                            "num_thresholds": num_thresholds},
+                     outputs={"AUC": [auc_out]})
+    return auc_out

@@ -30,7 +30,10 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'sequence_reshape', 'lod_reset', 'beam_search',
            'beam_search_decode', 'sequence_concat',
            'autoincreased_step_counter', 'cos_sim', 'linear_chain_crf',
-           'crf_decoding', 'chunk_eval']
+           'crf_decoding', 'chunk_eval', 'conv2d_transpose', 'l2_normalize',
+           'multiplex', 'lrn', 'pad', 'label_smooth', 'dice_loss',
+           'bilinear_interp', 'nce', 'max_pool2d_with_index', 'unpool',
+           'spp']
 
 
 def _prod(dims):
@@ -354,13 +357,16 @@ def softmax_with_cross_entropy(logits, label, soft_label=False):
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=True, name=None):
-    """Static ``shape`` only in this slice (0 copies the input dim, -1
-    is inferred); a list ``actual_shape`` overrides it."""
+    """``shape``: 0 copies the input dim, -1 is inferred. A list
+    ``actual_shape`` overrides it when the program is built; a Variable
+    ``actual_shape`` becomes the op's ``Shape`` input and wins at run
+    time (reference nn.py:3441-3529). Fed, its value is bound as a
+    static value: the Executor reads it on the host once a run and keys
+    its memo on it, so a new value lowers anew and an old one hits, as
+    paddle_tpu's static feed does; computed in the graph, the kernel
+    reads it from the device."""
     helper = LayerHelper("reshape", name=name, act=act)
-    if actual_shape is not None:
-        if hasattr(actual_shape, 'name'):
-            raise NotImplementedError(
-                "reshape(actual_shape=<Variable>) is not ported yet")
+    if actual_shape is not None and not hasattr(actual_shape, 'name'):
         shape = [int(s) for s in actual_shape]
     new_shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
     if -1 in new_shape:
@@ -369,7 +375,10 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=True, name=None):
         if all(d >= 0 for d in x.shape) and known:
             new_shape[idx] = _prod(x.shape) // known
     out = helper.create_tmp_variable(dtype=x.dtype, shape=tuple(new_shape))
-    helper.append_op(type="reshape", inputs={"X": x},
+    inputs = {"X": x}
+    if actual_shape is not None and hasattr(actual_shape, 'name'):
+        inputs["Shape"] = actual_shape
+    helper.append_op(type="reshape", inputs=inputs,
                      attrs={"shape": list(shape)}, outputs={"Out": out})
     return helper.append_activation(out)
 
@@ -1112,3 +1121,217 @@ def chunk_eval(input, label, chunk_scheme, num_chunk_types,
                                 excluded_chunk_types or []})
     return (precision, recall, f1_score, num_infer_chunks,
             num_label_chunks, num_correct_chunks)
+
+
+# ---- the layers of the rest of the nn, tensor and misc kernels ----------------
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, use_cudnn=True, act=None, name=None):
+    """Transposed conv, Filter [in_c, num_filters, kh, kw]; without
+    ``filter_size`` the filter is sized to give ``output_size``."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    padding, stride, dilation = _pair(padding), _pair(stride), \
+        _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError(
+                "output_size must be set when filter_size is None")
+        output_size = _pair(output_size)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i] +
+             2 * padding[i] - 1) // dilation[i] + 1 for i in range(2)]
+    else:
+        filter_size = list(_pair(filter_size))
+    img_filter = helper.create_parameter(
+        dtype=input.dtype, shape=[int(input.shape[1]), num_filters] +
+        filter_size, attr=helper.param_attr)
+
+    def _out(size, k, p, s, d):
+        return -1 if size < 0 else (size - 1) * s - 2 * p + d * (k - 1) + 1
+    out_shape = (input.shape[0], num_filters) + tuple(
+        _out(input.shape[2 + i], filter_size[i], padding[i], stride[i],
+             dilation[i]) for i in range(2))
+    pre_bias = helper.create_tmp_variable(dtype=input.dtype,
+                                          shape=out_shape)
+    helper.append_op(type='conv2d_transpose',
+                     inputs={'Input': [input], 'Filter': [img_filter]},
+                     outputs={'Output': pre_bias},
+                     attrs={'strides': stride, 'paddings': padding,
+                            'dilations': dilation})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """``x`` over its L2 norm along ``axis`` (a ``norm`` op)."""
+    if len(x.shape) == 1:
+        axis = 0
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape)
+    norm = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="norm", inputs={"X": x},
+                     outputs={"Out": out, "Norm": norm},
+                     attrs={"axis": 1 if axis is None else axis,
+                            "epsilon": epsilon})
+    return out
+
+
+def multiplex(inputs, index):
+    """Row i from ``inputs[index[i]]``."""
+    helper = LayerHelper('multiplex', **{})
+    if not isinstance(inputs, list) and len(inputs) < 2:
+        raise ValueError("inputs should be a list object and contains at "
+                         "least 2 elements.")
+    out = helper.create_tmp_variable(dtype=inputs[0].dtype,
+                                     shape=inputs[0].shape)
+    helper.append_op(type='multiplex', inputs={'X': inputs, 'Ids': index},
+                     outputs={'Out': [out]})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Fluid's local response norm across channels of an NCHW input."""
+    helper = LayerHelper('lrn', name=name)
+    if len(input.shape) != 4:
+        raise ValueError("Input's dimension size of Op(lrn) must be 4, but "
+                         "received %d." % (len(input.shape)))
+    mid_out = helper.create_tmp_variable(dtype=input.dtype,
+                                         stop_gradient=True)
+    lrn_out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op(type="lrn", inputs={"X": input},
+                     outputs={"Out": lrn_out, "MidOut": mid_out},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return lrn_out
+
+
+def pad(x, paddings, pad_value=0., name=None):
+    """``x`` with (before, after) ``paddings`` on each dim."""
+    helper = LayerHelper('pad', name=name)
+    shape = tuple((d + paddings[2 * i] + paddings[2 * i + 1]) if d >= 0
+                  else -1 for i, d in enumerate(x.shape))
+    out = helper.create_tmp_variable(x.dtype, shape=shape)
+    helper.append_op(type='pad', inputs={'X': x}, outputs={'Out': out},
+                     attrs={'paddings': list(paddings),
+                            'pad_value': float(pad_value)})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """(1 - epsilon) label + epsilon prior (uniform without one)."""
+    if epsilon > 1. or epsilon < 0.:
+        raise ValueError("The value of epsilon must be between 0 and 1.")
+    helper = LayerHelper("label_smooth", name=name)
+    label.stop_gradient = True
+    smooth_label = helper.create_tmp_variable(dtype, shape=label.shape)
+    helper.append_op(type="label_smooth",
+                     inputs={"X": label, "PriorDist": prior_dist}
+                     if prior_dist else {"X": label},
+                     outputs={"Out": smooth_label},
+                     attrs={"epsilon": float(epsilon)})
+    return smooth_label
+
+
+def dice_loss(input, label, epsilon=0.00001):
+    helper = LayerHelper('dice_loss', **{})
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=(1,))
+    helper.append_op(type="dice_loss", inputs={"X": input, "Label": label},
+                     outputs={"Out": out}, attrs={"epsilon": epsilon})
+    return out
+
+
+def bilinear_interp(input, out_h, out_w, name=None):
+    """Corner-aligned bilinear resize of an NCHW input."""
+    helper = LayerHelper('bilinear_interp', name=name)
+    out = helper.create_tmp_variable(
+        input.dtype, shape=(input.shape[0], input.shape[1], out_h, out_w))
+    helper.append_op(type="bilinear_interp", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"out_h": out_h, "out_w": out_w})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None):
+    """Fluid's NCE cost [B, 1], with a weight [num_total_classes, D] and
+    a bias; ``num_neg_samples`` (10) shared negatives a batch."""
+    helper = LayerHelper('nce', param_attr=param_attr, bias_attr=bias_attr)
+    dim = input.shape[1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype, is_bias=False)
+    b = helper.create_parameter(attr=helper.bias_attr,
+                                shape=[num_total_classes],
+                                dtype=input.dtype, is_bias=True)
+    cost = helper.create_tmp_variable(dtype=input.dtype,
+                                      shape=(input.shape[0], 1))
+    sample_logits = helper.create_tmp_variable(dtype=input.dtype)
+    sample_labels = helper.create_tmp_variable(dtype='int64',
+                                               stop_gradient=True)
+    num_neg_samples = 10 if num_neg_samples is None else int(num_neg_samples)
+    inputs = {'Input': input, 'Label': label, 'Weight': w, 'Bias': b}
+    if sample_weight is not None:
+        inputs['SampleWeight'] = sample_weight
+    helper.append_op(type='nce', inputs=inputs,
+                     outputs={'Cost': cost, 'SampleLogits': sample_logits,
+                              'SampleLabels': sample_labels},
+                     attrs={'num_total_classes': int(num_total_classes),
+                            'num_neg_samples': num_neg_samples})
+    return cost
+
+
+def _ints2(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def max_pool2d_with_index(x, pool_size, pool_stride=1, pool_padding=0,
+                          global_pooling=False, name=None):
+    """(out, mask): the max pool and the int32 index h * W + w of each
+    window's first maximum."""
+    helper = LayerHelper('max_pool2d_with_index', name=name)
+    ksize, strides = _ints2(pool_size), _ints2(pool_stride)
+    paddings = _ints2(pool_padding)
+    n, c, h, w = x.shape
+    if global_pooling:
+        ho = wo = 1
+    else:
+        ho = _conv_out(h, ksize[0], paddings[0], strides[0])
+        wo = _conv_out(w, ksize[1], paddings[1], strides[1])
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=(n, c, ho, wo))
+    mask = helper.create_tmp_variable(dtype='int32', shape=(n, c, ho, wo),
+                                      stop_gradient=True)
+    helper.append_op(type='max_pool2d_with_index', inputs={'X': [x]},
+                     outputs={'Out': [out], 'Mask': [mask]},
+                     attrs={'ksize': ksize, 'strides': strides,
+                            'paddings': paddings,
+                            'global_pooling': global_pooling})
+    return out, mask
+
+
+def unpool(x, indices, pool_size, pool_stride=1, pool_padding=0, name=None):
+    """Max-unpooling by the indices ``max_pool2d_with_index`` gave."""
+    helper = LayerHelper('unpool', name=name)
+    ksize, strides = _ints2(pool_size), _ints2(pool_stride)
+    paddings = _ints2(pool_padding)
+    n, c, ho, wo = x.shape
+    out_h = (ho - 1) * strides[0] - 2 * paddings[0] + ksize[0]
+    out_w = (wo - 1) * strides[1] - 2 * paddings[1] + ksize[1]
+    out = helper.create_tmp_variable(dtype=x.dtype,
+                                     shape=(n, c, out_h, out_w))
+    helper.append_op(type='unpool', inputs={'X': [x], 'Indices': [indices]},
+                     outputs={'Out': [out]},
+                     attrs={'ksize': ksize, 'strides': strides,
+                            'paddings': paddings, 'unpooling_type': 'max'})
+    return out
+
+
+def spp(x, pyramid_height, pool_type='max', name=None):
+    """Spatial pyramid pooling to [N, C * sum(4^level)]."""
+    helper = LayerHelper('spp', name=name)
+    width = x.shape[1] * sum(4 ** lv for lv in range(pyramid_height))
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=(x.shape[0], width))
+    helper.append_op(type='spp', inputs={'X': [x]}, outputs={'Out': [out]},
+                     attrs={'pyramid_height': pyramid_height,
+                            'pooling_type': pool_type})
+    return out

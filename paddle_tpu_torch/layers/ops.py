@@ -24,8 +24,8 @@ __all__ = ['mean', 'mul', 'scale', 'sigmoid_cross_entropy_with_logits',
            'elementwise_min', 'elementwise_pow', 'clip', 'clip_by_norm',
            'logical_and', 'logical_or', 'logical_xor', 'logical_not',
            'sign', 'uniform_random', 'uniform_random_batch_size_like',
-           'gaussian_random', 'gaussian_random_batch_size_like'] + \
-    __activations__
+           'gaussian_random', 'gaussian_random_batch_size_like',
+           'cumsum', 'scatter', 'sum'] + __activations__
 
 _BINARY = {'elementwise_add', 'elementwise_div', 'elementwise_sub',
            'elementwise_mul', 'elementwise_max', 'elementwise_min',
@@ -33,6 +33,7 @@ _BINARY = {'elementwise_add', 'elementwise_div', 'elementwise_sub',
            'mul'}
 
 _SLOT_MAP = {
+    'scatter': ('X', 'Ids', 'Updates'),
     'sigmoid_cross_entropy_with_logits': ('X', 'Label'),
 }
 
@@ -55,7 +56,7 @@ def _gen_layer(op_type):
             if k in ('name', 'act', 'param_attr', 'bias_attr'):
                 continue
             if isinstance(v, Variable):
-                inputs[k.capitalize()] = v
+                inputs[k.capitalize() if k != 'ids' else 'Ids'] = v
             else:
                 attrs[k] = v
         src = next((v for v in inputs.values() if isinstance(v, Variable)),
@@ -74,7 +75,8 @@ def _gen_layer(op_type):
     return layer
 
 
-for _op in set(__all__) - {'mean', 'uniform_random', 'gaussian_random'}:
+for _op in set(__all__) - {'mean', 'sum', 'uniform_random',
+                           'gaussian_random'}:
     globals()[_op] = _gen_layer(_op)
 
 
@@ -85,6 +87,18 @@ def mean(x=None, **kwargs):
     helper.append_op(type='mean', inputs={'X': x}, outputs={'Out': out})
     return out
 
+
+
+def sum(input, **kwargs):
+    """The elementwise sum of a list of Variables (or of one), a
+    ``sum`` op."""
+    helper = LayerHelper('sum', **kwargs)
+    xs = input if isinstance(input, (list, tuple)) else [input]
+    out = helper.create_tmp_variable(dtype=xs[0].dtype, shape=xs[0].shape,
+                                     lod_level=xs[0].lod_level)
+    helper.append_op(type='sum', inputs={'X': list(xs)},
+                     outputs={'Out': out})
+    return out
 
 
 def uniform_random(shape, dtype='float32', min=-1.0, max=1.0, seed=0,

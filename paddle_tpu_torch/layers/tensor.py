@@ -1,7 +1,8 @@
 """Tensor layers. Counterpart of paddle_tpu/layers/tensor.py, trimmed to
 ``create_tensor``, ``create_parameter``, ``create_global_var``,
 ``cast``, ``concat``, ``sums``, ``assign``, ``fill_constant``,
-``fill_constant_batch_size_like``, ``ones`` and ``zeros``."""
+``fill_constant_batch_size_like``, ``ones``, ``zeros``, ``reverse``,
+``argmax`` and ``argmin``."""
 import numpy as np
 
 from ..framework import Variable, convert_np_dtype
@@ -11,7 +12,8 @@ from ..param_attr import ParamAttr
 
 __all__ = ['create_tensor', 'create_parameter', 'create_global_var',
            'cast', 'concat', 'sums', 'assign', 'fill_constant',
-           'fill_constant_batch_size_like', 'ones', 'zeros']
+           'fill_constant_batch_size_like', 'ones', 'zeros', 'reverse',
+           'argmax', 'argmin']
 
 
 def create_tensor(dtype, name=None, persistable=False):
@@ -136,3 +138,32 @@ def ones(shape, dtype, force_cpu=False):
 
 def zeros(shape, dtype, force_cpu=False):
     return fill_constant(value=0.0, shape=shape, dtype=dtype)
+
+
+def reverse(x, axis):
+    """``x`` flipped along ``axis`` (an int or a list)."""
+    helper = LayerHelper("reverse", **{})
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape)
+    helper.append_op(type='reverse', inputs={'X': x},
+                     outputs={'Out': [out]}, attrs={'axis': axis})
+    return out
+
+
+def argmax(x, axis=0):
+    """The index of the largest element along ``axis`` (int64; the
+    first on ties)."""
+    helper = LayerHelper("arg_max", **{})
+    out = helper.create_tmp_variable('int64')
+    helper.append_op(type='arg_max', inputs={'X': x},
+                     outputs={'Out': [out]}, attrs={'axis': axis})
+    return out
+
+
+def argmin(x, axis=0):
+    """The index of the smallest element along ``axis`` (int64; the
+    first on ties)."""
+    helper = LayerHelper("arg_min", **{})
+    out = helper.create_tmp_variable('int64')
+    helper.append_op(type='arg_min', inputs={'X': x},
+                     outputs={'Out': [out]}, attrs={'axis': axis})
+    return out

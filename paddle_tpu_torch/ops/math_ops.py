@@ -11,6 +11,10 @@ decode path: ``matmul``, the compare and logical ops, ``reduce_mean`` /
 ``max`` / ``min`` / ``prod``, ``square_error_cost``, ``smooth_l1``,
 ``cos``, ``sin`` and ``cos_sim``. The elementwise ops, activations, ``mul``, ``sum``,
 ``scale`` and ``mean`` take SequenceTensors as the JAX kernels do.
+And the rest of the JAX module's math: ``compare``, ``cumsum``
+(``exclusive``, ``reverse``), ``l2_normalize`` / ``norm``,
+``bilinear_tensor_product``, ``conv_shift`` and the reference's
+``smooth_l1_loss`` name for ``smooth_l1``.
 """
 import torch
 
@@ -220,10 +224,26 @@ _logical('logical_and', torch.logical_and)
 _logical('logical_or', torch.logical_or)
 _logical('logical_xor', torch.logical_xor)
 _logical('logical_not', torch.logical_not, unary=True)
-for _name, _fn in {'less_than': torch.lt, 'less_equal': torch.le,
-                   'greater_than': torch.gt, 'greater_equal': torch.ge,
-                   'equal': torch.eq, 'not_equal': torch.ne}.items():
+_COMPARE = {'less_than': torch.lt, 'less_equal': torch.le,
+            'greater_than': torch.gt, 'greater_equal': torch.ge,
+            'equal': torch.eq, 'not_equal': torch.ne}
+for _name, _fn in _COMPARE.items():
     _logical(_name, _fn)
+
+
+@register_kernel('compare')
+def _compare(ctx):
+    """The six comparisons under one op type, the comparison named by
+    the attr ``type`` (``less_than`` ... ``not_equal``). paddle_tpu
+    registers this type on its comparison kernel, which looks the
+    comparison up by the op's own type and so raises for it; no layer
+    of either package appends it."""
+    kind = ctx.attr('type')
+    if kind not in _COMPARE:
+        raise ValueError("compare: attr 'type' must be one of %s, got %r"
+                         % (sorted(_COMPARE), kind))
+    ctx.set_output('Out', _COMPARE[kind](unwrap(ctx.input('X')),
+                                         unwrap(ctx.input('Y'))))
 
 # not in ACTS: the fused conv's epilogue does not take them
 _activation('cos', torch.cos)
@@ -268,3 +288,66 @@ def _smooth_l1(ctx):
         -1, keepdim=True))
     if ctx.output_names('Diff'):
         ctx.set_output('Diff', diff)
+
+
+register_kernel('smooth_l1_loss')(_smooth_l1)
+
+
+@register_kernel('cumsum')
+def _cumsum(ctx):
+    """Running sum along ``axis`` (default -1); ``reverse`` sums from
+    the end, ``exclusive`` leaves out each element's own value, as the
+    JAX kernel: the inclusive sum minus the element."""
+    x = unwrap(ctx.input('X'))
+    axis = ctx.attr('axis', -1)
+    if ctx.attr('reverse', False):
+        out = torch.flip(torch.cumsum(torch.flip(x, [axis]), axis), [axis])
+    else:
+        out = torch.cumsum(x, axis)
+    if ctx.attr('exclusive', False):
+        out = out - x
+    ctx.set_output('Out', out)
+
+
+@register_kernel('l2_normalize')
+@register_kernel('norm')
+def _l2_normalize(ctx):
+    """X over its L2 norm along ``axis``, the norm floored at
+    ``epsilon``; ``Norm`` is the unfloored norm. With a ``Scale`` input
+    (norm_op.cc, SSD's cross-channel norm) Out = Scale[c] * X /
+    sqrt(sum_c X^2 + epsilon) at each position of an NCHW X."""
+    x = unwrap(ctx.input('X'))
+    eps = ctx.attr('epsilon', 1e-10)
+    if ctx.has_input('Scale'):
+        scale = unwrap(ctx.input('Scale')).reshape(1, -1, 1, 1)
+        denom = torch.sqrt(torch.sum(x * x, 1, keepdim=True) + eps)
+        ctx.set_output('Out', scale * x / denom)
+        return
+    norm = torch.sqrt(torch.sum(x * x, ctx.attr('axis', -1), keepdim=True))
+    ctx.set_output('Out', x / torch.clamp(norm, min=eps))
+    if ctx.output_names('Norm'):
+        ctx.set_output('Norm', norm)
+
+
+@register_kernel('bilinear_tensor_product')
+def _bilinear_tensor_product(ctx):
+    """Out[b, o] = X[b] . Weight[o] . Y[b] (+ Bias[o])."""
+    x, y, w = (unwrap(ctx.input('X')), unwrap(ctx.input('Y')),
+               unwrap(ctx.input('Weight')))
+    out = torch.einsum('bi,oij,bj->bo', x, w, y)
+    if ctx.has_input('Bias'):
+        out = out + unwrap(ctx.input('Bias'))
+    ctx.set_output('Out', out)
+
+
+@register_kernel('conv_shift')
+def _conv_shift(ctx):
+    """Circular convolution of each row of X [B, M] with the row of Y
+    [B, N] (N odd, centred): Out[b, m] = sum_n X[b, (m + n - N//2) % M]
+    * Y[b, n]."""
+    x, y = unwrap(ctx.input('X')), unwrap(ctx.input('Y'))
+    m, n = x.shape[1], y.shape[1]
+    half = (n - 1) // 2
+    idx = (torch.arange(m, device=x.device)[:, None] +
+           torch.arange(-half, n - half, device=x.device)[None, :]) % m
+    ctx.set_output('Out', torch.einsum('bmn,bn->bm', x[:, idx], y))

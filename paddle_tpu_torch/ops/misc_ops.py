@@ -2,13 +2,18 @@
 trimmed to the ``flash_attention`` op, the losses (hinge, huber, log,
 rank, margin rank, modified huber), the distances and norms
 (squared_l2_distance, squared_l2_norm, l1_norm), prelu, maxout and the
-proximal optimizers' dense updates (proximal_gd, proximal_adagrad)."""
+proximal optimizers' dense updates (proximal_gd, proximal_adagrad); and
+minus, fill, max_pool2d_with_index, unpool, spp and the metric ops
+precision_recall and positive_negative_pair."""
 import contextlib
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.amp import matmul_compute
 from ..core.registry import register_kernel
+from ..core.lowering import torch_dtype
 from . import cuda_kernels
 from .common import unwrap
 
@@ -208,3 +213,198 @@ def _proximal_adagrad(ctx):
     ctx.set_output('MomentOut', m_out)
     ctx.set_output('ParamOut',
                    _prox(p - lr * g / torch.sqrt(m_out), lr, l1, l2))
+
+
+@register_kernel('minus')
+def _minus(ctx):
+    ctx.set_output('Out', unwrap(ctx.input('X')) - unwrap(ctx.input('Y')))
+
+
+@register_kernel('fill')
+def _fill(ctx):
+    """fill_op.cc: the attr ``value`` list reshaped to ``shape``."""
+    val = np.asarray(ctx.attr('value'))
+    ctx.set_output('Out', torch.as_tensor(val).to(
+        device=ctx.device, dtype=torch_dtype(ctx.attr('dtype', 'float32'))
+    ).reshape([int(d) for d in ctx.attr('shape')]))
+
+
+def _windows(x, k, s, p, value):
+    """[N, C, kh * kw, Ho, Wo]: every (kh, kw) window of ``x`` padded
+    by ``p`` with ``value``, at stride ``s``."""
+    n, c = x.shape[0], x.shape[1]
+    xp = F.pad(x, [p[1], p[1], p[0], p[0]], value=value)
+    ho = (xp.shape[2] - k[0]) // s[0] + 1
+    wo = (xp.shape[3] - k[1]) // s[1] + 1
+    cols = F.unfold(xp.reshape(n * c, 1, xp.shape[2], xp.shape[3]), k,
+                    stride=s)
+    return cols.reshape(n, c, k[0] * k[1], ho, wo)
+
+
+@register_kernel('max_pool2d_with_index')
+def _max_pool2d_with_index(ctx):
+    """pool_with_index_op.cc: Out the window's max, Mask (int32) the
+    index h * W + w of its first maximum within the unpadded channel.
+    Padding never wins (the windows are clipped to the image); a tie's
+    gradient is split among the tied cells, as paddle_tpu's max."""
+    x = unwrap(ctx.input('X'))
+    k = [int(v) for v in ctx.attr('ksize')]
+    s = [int(v) for v in ctx.attr('strides', [1, 1])]
+    p = [int(v) for v in ctx.attr('paddings', [0, 0])]
+    h, w = x.shape[2], x.shape[3]
+    if ctx.attr('global_pooling', False):
+        k, p = [h, w], [0, 0]
+    neg = -3.3e38
+    patches = _windows(x, k, s, p, 0.0)
+    valid = _windows(torch.ones_like(x[:1, :1]), k, s, p, 0.0) > 0.5
+    score = torch.where(valid, patches, torch.full_like(patches, neg))
+    local = torch.argmax(score, 2)
+    ho, wo = score.shape[3], score.shape[4]
+    gh = torch.arange(ho, device=x.device).reshape(1, 1, ho, 1) * s[0] - \
+        p[0] + local // k[1]
+    gw = torch.arange(wo, device=x.device).reshape(1, 1, 1, wo) * s[1] - \
+        p[1] + local % k[1]
+    ctx.set_output('Out', torch.amax(score, 2))
+    ctx.set_output('Mask', (torch.clamp(gh, 0, h - 1) * w +
+                            torch.clamp(gw, 0, w - 1)).to(torch.int32))
+
+
+@register_kernel('unpool')
+def _unpool(ctx):
+    """unpool_op.cc, max-unpooling: each value of X goes to its
+    recorded index h * W + w of the larger map, zeros elsewhere. Where
+    overlapping windows recorded one index twice, the last of them
+    writes it (and takes its gradient), as paddle_tpu's ``.at[].set``;
+    the writer is chosen by a max over positions, not by the order of
+    the card's writes."""
+    x = unwrap(ctx.input('X'))
+    idx = unwrap(ctx.input('Indices')).long()
+    k, s = ctx.attr('ksize'), ctx.attr('strides', [1, 1])
+    p = ctx.attr('paddings', [0, 0])
+    n, c, ho, wo = x.shape
+    out_h = (ho - 1) * s[0] - 2 * p[0] + k[0]
+    out_w = (wo - 1) * s[1] - 2 * p[1] + k[1]
+    pos = torch.arange(ho * wo, device=x.device).expand(n * c, ho * wo)
+    last = torch.full((n * c, out_h * out_w), -1, dtype=torch.long,
+                      device=x.device).scatter_reduce(
+        1, idx.reshape(n * c, ho * wo), pos, 'amax')
+    out = torch.where(last >= 0, x.reshape(n * c, ho * wo).gather(
+        1, last.clamp(min=0)), torch.zeros((), dtype=x.dtype,
+                                           device=x.device))
+    ctx.set_output('Out', out.reshape(n, c, out_h, out_w))
+
+
+@register_kernel('spp')
+def _spp(ctx):
+    """spp_op.h: levels 0 .. pyramid_height - 1 of 2^level x 2^level
+    bins, each a pool of kernel ceil(size / bins), that stride and
+    padding (k bins - size + 1) // 2; an avg bin divides by its
+    in-image count. Out [N, C * sum(4^level)], level by level."""
+    x = unwrap(ctx.input('X'))
+    n, c, h, w = x.shape
+    ptype = ctx.attr('pooling_type', 'max')
+    outs = []
+    for level in range(int(ctx.attr('pyramid_height'))):
+        bins = 2 ** level
+        kh, kw = -(-h // bins), -(-w // bins)
+        ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+        spec = [pw, pw, ph, ph]
+        if ptype == 'max':
+            pooled = F.max_pool2d(F.pad(x, spec, value=torch.finfo(
+                x.dtype).min), (kh, kw), (kh, kw))
+        else:
+            sums = F.avg_pool2d(F.pad(x, spec), (kh, kw), (kh, kw),
+                                divisor_override=1)
+            counts = F.avg_pool2d(F.pad(torch.ones_like(x[:1, :1]), spec),
+                                  (kh, kw), (kh, kw), divisor_override=1)
+            pooled = sums / torch.clamp(counts, min=1.0)
+        outs.append(pooled[:, :, :bins, :bins].reshape(n, -1))
+    ctx.set_output('Out', torch.cat(outs, 1))
+
+
+def _tensor(v):
+    """An input of the metric ops as a tensor: they also take host
+    arrays for their states, as the JAX kernels' ``jnp.asarray``."""
+    return torch.as_tensor(unwrap(v))
+
+
+@register_kernel('precision_recall')
+def _precision_recall(ctx):
+    """precision_recall_op.h: per-class TP, FP, TN, FN of the batch
+    (weighted; [C, 4]), added to ``StatesInfo`` where given, and the
+    macro and micro precision, recall and F1 of the batch and of the
+    accumulated states."""
+    idx = _tensor(ctx.input('Indices')).reshape(-1).long()
+    label = _tensor(ctx.input('Labels')).to(idx.device).reshape(-1).long()
+    C = int(ctx.attr('class_number'))
+    w = ctx.input('Weights')
+    w = torch.ones(idx.shape, dtype=torch.float32, device=idx.device) \
+        if w is None else _tensor(w).to(idx.device).reshape(-1).float()
+    oh_idx = F.one_hot(idx, C).float()
+    oh_lab = F.one_hot(label, C).float()
+    match = (idx == label).float()[:, None]
+    wc = w[:, None]
+    tp = torch.sum(wc * match * oh_idx, 0)
+    fp = torch.sum(wc * (1 - match) * oh_idx, 0)
+    fn = torch.sum(wc * (1 - match) * oh_lab, 0)
+    tn = (torch.sum(w) - torch.sum(wc * oh_idx, 0)
+          - torch.sum(wc * (1 - match) * oh_lab, 0))
+    batch = torch.stack([tp, fp, tn, fn], 1)
+    prior = ctx.input('StatesInfo')
+    accum = batch if prior is None else \
+        batch + _tensor(prior).to(batch.device).float()
+
+    def safe(num, den):
+        return torch.where((num > 0) | (den > 0),
+                           num / torch.clamp(num + den, min=1e-30),
+                           torch.ones_like(num))
+
+    def f1(p, r):
+        return torch.where((p > 0) | (r > 0),
+                           2 * p * r / torch.clamp(p + r, min=1e-30),
+                           torch.zeros_like(p))
+
+    def metrics(st):
+        tp_, fp_, fn_ = st[:, 0], st[:, 1], st[:, 3]
+        mac_p, mac_r = safe(tp_, fp_).mean(), safe(tp_, fn_).mean()
+        mic_p = safe(tp_.sum(), fp_.sum())
+        mic_r = safe(tp_.sum(), fn_.sum())
+        return torch.stack([mac_p, mac_r, f1(mac_p, mac_r),
+                            mic_p, mic_r, f1(mic_p, mic_r)])
+
+    ctx.set_output('BatchMetrics', metrics(batch))
+    ctx.set_output('AccumMetrics', metrics(accum))
+    ctx.set_output('AccumStatesInfo', accum)
+
+
+@register_kernel('positive_negative_pair')
+def _positive_negative_pair(ctx):
+    """positive_negative_pair_op.h: over the pairs of one query with
+    different labels, each weighted by the mean of its two weights, the
+    weight of pairs the score orders as the labels do (positive), of the
+    others (negative, ties included) and of score ties (neutral); each
+    added to its ``Accumulate*`` input where given."""
+    score = _tensor(ctx.input('Score'))
+    label = _tensor(ctx.input('Label')).to(score.device).reshape(-1)
+    query = _tensor(ctx.input('QueryID')).to(score.device).reshape(-1)
+    s = score[:, ctx.attr('column', -1)].reshape(-1)
+    w = ctx.input('Weight')
+    w = torch.ones_like(s) if w is None else \
+        _tensor(w).to(s.device).reshape(-1)
+    n = s.shape[0]
+    upper = torch.triu(torch.ones(n, n, dtype=torch.bool,
+                                  device=s.device), 1)
+    ld = label[:, None] - label[None, :]
+    sd = s[:, None] - s[None, :]
+    valid = (query[:, None] == query[None, :]) & upper & (ld != 0)
+    vw = torch.where(valid, 0.5 * (w[:, None] + w[None, :]),
+                     torch.zeros_like(sd))
+    zero = torch.zeros_like(vw)
+    for slot, val in (
+            ('PositivePair', torch.where(sd * ld > 0, vw, zero).sum()),
+            ('NegativePair', torch.where(sd * ld <= 0, vw, zero).sum()),
+            ('NeutralPair', torch.where(sd == 0, vw, zero).sum())):
+        acc = ctx.input('Accumulate' + slot)
+        if acc is not None:
+            val = val + _tensor(acc).to(val.device).reshape(())
+        ctx.set_output(slot, val.reshape(1))

@@ -1,4 +1,5 @@
-"""Recurrent op kernels: dynamic_lstm(p), dynamic_gru, gru_unit, lstm_unit.
+"""Recurrent op kernels: dynamic_lstm(p), dynamic_gru, gru_unit, lstm_unit
+(the first three also under the reference's op types lstm, lstmp, gru).
 
 Counterpart of paddle_tpu/ops/rnn_ops.py. Each RNN is a Python loop over
 the padded time axis, time-major, with a carried mask: the JAX package's
@@ -129,6 +130,7 @@ def _lstm_acts(ctx):
 
 
 @register_kernel('dynamic_lstm')
+@register_kernel('lstm')
 def _dynamic_lstm(ctx):
     st = _seq_input(ctx)
     x = st.data                                   # [B, T, 4H]
@@ -156,6 +158,7 @@ def _dynamic_lstm(ctx):
 
 
 @register_kernel('dynamic_lstmp')
+@register_kernel('lstmp')
 def _dynamic_lstmp(ctx):
     st = _seq_input(ctx)
     x = st.data                                   # [B, T, 4H]
@@ -189,6 +192,7 @@ def _gru_weight_chunks(w, H):
 
 
 @register_kernel('dynamic_gru')
+@register_kernel('gru')
 def _dynamic_gru(ctx):
     st = _seq_input(ctx)
     x = st.data                                   # [B, T, 3H]

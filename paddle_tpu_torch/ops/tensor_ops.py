@@ -9,6 +9,9 @@ and the two ``*_batch_size_like`` draws);
 and the tensor ops of the books and the decode path: cast, squeeze,
 unsqueeze, transpose, one_hot, gather, top_k, increment, expand,
 fill_constant_batch_size_like; and of control flow: is_empty and print.
+And the rest of the JAX module: fill_zeros_like, pad, crop, scatter,
+multiplex, reverse, shape, arg_max, arg_min and the reference's feed and
+fetch op types.
 
 Integer widths: the JAX package runs without x64, so its int64 values
 are int32 and its ``top_k`` writes int32 indices. torch indexes with
@@ -225,13 +228,19 @@ def _split(ctx):
 
 @register_kernel('reshape')
 def _reshape(ctx):
+    """A ``Shape`` input wins over the attr (reshape_op.cc). Fed, it
+    arrives as the host value the Executor bound statically (its memo
+    keyed on it); computed on the device, it costs one host read."""
     x = ctx.input('X')
     if ctx.has_input('Shape'):
-        raise NotImplementedError(
-            "reshape with a runtime Shape input is not ported yet")
+        sval = unwrap(ctx.input('Shape'))
+        if isinstance(sval, torch.Tensor):
+            sval = host_read(sval)[0]
+        shape = [int(s) for s in np.asarray(sval).ravel()]
+    else:
+        shape = ctx.attr('shape')
     # fluid semantics: 0 copies the input dim; -1 is inferred
-    shape = [x.shape[i] if s == 0 else int(s)
-             for i, s in enumerate(ctx.attr('shape'))]
+    shape = [x.shape[i] if s == 0 else int(s) for i, s in enumerate(shape)]
     ctx.set_output('Out', x.reshape(shape))
 
 
@@ -387,3 +396,96 @@ def _print_tensor(ctx, x):
         flat = flat[:summarize]
     parts.append("data: %s" % np.array2string(flat, threshold=20))
     print("  ".join(parts), file=sys.stderr)
+
+
+@register_kernel('fill_zeros_like')
+def _fill_zeros_like(ctx):
+    x = ctx.input('X')
+    ctx.set_output('Out', rewrap(x, torch.zeros_like(unwrap(x))))
+
+
+@register_kernel('pad')
+def _pad(ctx):
+    """``paddings`` holds (before, after) for each dim, first dim
+    first; the border is ``pad_value``."""
+    x = unwrap(ctx.input('X'))
+    p = [int(v) for v in ctx.attr('paddings')]
+    spec = []
+    for i in reversed(range(x.dim())):
+        spec += [p[2 * i], p[2 * i + 1]]
+    ctx.set_output('Out', torch.nn.functional.pad(
+        x, spec, value=float(ctx.attr('pad_value', 0.0))))
+
+
+@register_kernel('crop')
+def _crop(ctx):
+    """The window of ``shape`` at ``offsets``."""
+    x = unwrap(ctx.input('X'))
+    ctx.set_output('Out', x[tuple(
+        slice(int(o), int(o) + int(n))
+        for o, n in zip(ctx.attr('offsets'), ctx.attr('shape')))])
+
+
+@register_kernel('scatter')
+def _scatter(ctx):
+    """X with the rows at ``Ids`` replaced by the rows of ``Updates``;
+    where an id repeats, its last row wins, as numpy's ``out[ids] = u``
+    and paddle_tpu's ``.at[].set`` on the CPU give. The winner of each
+    row is chosen by a max over positions and the rows are gathered, so
+    the result does not depend on the order in which the card writes
+    (``index_copy_`` with repeated ids promises none)."""
+    x = unwrap(ctx.input('X'))
+    ids = unwrap(ctx.input('Ids')).reshape(-1).long()
+    upd = unwrap(ctx.input('Updates'))
+    last = torch.full((x.shape[0],), -1, dtype=torch.long, device=x.device)
+    last = last.scatter_reduce(0, ids, torch.arange(
+        ids.shape[0], device=x.device), 'amax')
+    hit = (last >= 0).reshape((-1,) + (1,) * (x.dim() - 1))
+    ctx.set_output('Out', torch.where(hit, upd[last.clamp(min=0)], x))
+
+
+@register_kernel('multiplex')
+def _multiplex(ctx):
+    """Row i of Out is row i of ``X[Ids[i]]``."""
+    ids = unwrap(ctx.input('Ids')).reshape(-1).long()
+    xs = torch.stack([unwrap(v) for v in ctx.inputs('X')], 0)
+    ctx.set_output('Out', xs[ids, torch.arange(ids.shape[0],
+                                               device=ids.device)])
+
+
+@register_kernel('reverse')
+def _reverse(ctx):
+    """X flipped along ``axis`` (an int or a list of them)."""
+    x = unwrap(ctx.input('X'))
+    axis = ctx.attr('axis')
+    axes = list(axis) if isinstance(axis, (list, tuple)) else [axis]
+    ctx.set_output('Out', torch.flip(x, axes))
+
+
+@register_kernel('shape')
+def _shape(ctx):
+    """The input's shape as int32, made from the shape the host already
+    knows: no read of the device."""
+    x = unwrap(ctx.input('Input'))
+    ctx.set_output('Out', torch.tensor(list(x.shape), dtype=torch.int32,
+                                       device=ctx.device))
+
+
+def _arg(name, fn):
+    @register_kernel(name)
+    def _k(ctx, fn=fn):
+        """The index of the extreme along ``axis``, the first on ties
+        (as ``jnp.argmax``); int64, where paddle_tpu gives int32."""
+        ctx.set_output('Out', fn(unwrap(ctx.input('X')),
+                                 dim=ctx.attr('axis', -1)))
+
+
+_arg('arg_max', torch.argmax)
+_arg('arg_min', torch.argmin)
+
+
+@register_kernel('feed')
+@register_kernel('fetch')
+def _feed_fetch(ctx):
+    """The reference's feed and fetch op types: the identity."""
+    ctx.set_output('Out', ctx.input('X'))

@@ -2,8 +2,10 @@
 
 Counterpart of paddle_tpu/reader/__init__.py (parity:
 python/paddle/reader/decorator.py and python/paddle/batch.py): pure
-host-side composable iterators feeding DataFeeder. paddle_tpu's
-``prefetch`` (staging batches on the device) is not ported yet.
+host-side composable iterators feeding DataFeeder. ``PrefetchPipeline``,
+``prefetch_feeds`` and ``stage_on_device`` (``reader/prefetch.py``:
+batches staged on the device ahead of the step) are exported lazily, as
+paddle_tpu exports them.
 """
 import itertools
 import random
@@ -12,7 +14,15 @@ import queue as Queue
 
 __all__ = ['map_readers', 'buffered', 'compose', 'chain', 'shuffle',
            'ComposeNotAligned', 'firstn', 'xmap_readers', 'batch',
-           'retry_reader']
+           'retry_reader', 'PrefetchPipeline', 'prefetch_feeds',
+           'stage_on_device']
+
+
+def __getattr__(name):  # lazy: the prefetcher loads on its first use
+    if name in ('PrefetchPipeline', 'prefetch_feeds', 'stage_on_device'):
+        from . import prefetch as _prefetch
+        return getattr(_prefetch, name)
+    raise AttributeError(name)
 
 
 def retry_reader(reader, max_attempts=3, backoff=0.05, jitter=0.1,

@@ -17,12 +17,14 @@ Counterpart of paddle_tpu/resilience, for one process:
 Sharded and multi-process checkpoints, auto-resume across meshes
 (``autoresume``) and the remote sites are ROADMAP Queue A item 6.
 """
-from .retry import retry_call, RetryError  # noqa
+from .retry import retry, retry_call, RetryError  # noqa
 from . import faultinject  # noqa
 from .faultinject import (FaultPlan, fault_plan, maybe_fault,  # noqa
                           FaultInjected, corrupt_checkpoint,
                           truncate_checkpoint, nan_reader, flaky_reader,
-                          SimulatedKill, KillSwitch, SITE_TRAINER_STEP)
+                          SimulatedKill, KillSwitch, SITE_SERVING_RUN,
+                          SITE_SERVING_LOAD, SITE_SERVING_PAD,
+                          SITE_TRAINER_STEP)
 from . import checkpoint  # noqa
 from .checkpoint import (MANIFEST_FILENAME, CheckpointConfig,  # noqa
                          CheckpointCorruption, write_manifest,
@@ -34,10 +36,11 @@ from .anomaly import (AnomalyError, AnomalyGuard, global_norm,  # noqa
                       any_active as anomaly_guard_active)
 
 __all__ = [
-    'retry_call', 'RetryError', 'faultinject', 'FaultPlan', 'fault_plan',
+    'retry', 'retry_call', 'RetryError', 'faultinject', 'FaultPlan', 'fault_plan',
     'maybe_fault', 'FaultInjected', 'corrupt_checkpoint',
     'truncate_checkpoint', 'nan_reader', 'flaky_reader', 'SimulatedKill',
-    'KillSwitch', 'SITE_TRAINER_STEP', 'checkpoint', 'MANIFEST_FILENAME',
+    'KillSwitch', 'SITE_SERVING_RUN', 'SITE_SERVING_LOAD',
+    'SITE_SERVING_PAD', 'SITE_TRAINER_STEP', 'checkpoint', 'MANIFEST_FILENAME',
     'CheckpointConfig', 'CheckpointCorruption', 'write_manifest',
     'read_manifest', 'verify_checkpoint', 'tensor_crc32', 'file_crc32',
     'fsync_tree', 'anomaly', 'AnomalyError', 'AnomalyGuard',

@@ -1,17 +1,18 @@
 """Transient-error retry: exponential backoff + deterministic jitter.
 
-Counterpart of paddle_tpu/resilience/retry.py, trimmed to
-:func:`retry_call` (the decorator form has no caller here). The serving
+Counterpart of paddle_tpu/resilience/retry.py: the :func:`retry`
+decorator and its functional form :func:`retry_call`. The serving
 runtime retries a batch's run through :func:`retry_call`, its backoff
 capped by the batch's earliest deadline. The jitter is drawn from a
 module-local PRNG so retry timing never perturbs ``random``'s global
 stream.
 """
+import functools
 import logging
 import random
 import time
 
-__all__ = ['retry_call', 'RetryError']
+__all__ = ['retry', 'retry_call', 'RetryError']
 
 logger = logging.getLogger('paddle_tpu_torch.resilience')
 
@@ -35,6 +36,28 @@ class RetryError(RuntimeError):
         self.attempts = attempts
         self.last_error = last_error
         self.deadline_exceeded = deadline_exceeded
+
+
+def retry(max_attempts=3, backoff=0.1, jitter=0.1, retry_on=(OSError,),
+          sleep=time.sleep, on_retry=None, deadline=None):
+    """Decorator: each call of the wrapped callable goes through
+    :func:`retry_call` with these settings (same backoff, jitter,
+    deadline and ``on_retry`` hook). ``max_attempts`` below 1 raises
+    ``ValueError`` here, when the decorator is made."""
+    if max_attempts < 1:
+        raise ValueError('max_attempts must be >= 1, got %r'
+                         % (max_attempts,))
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            return retry_call(fn, args, kwargs,
+                              max_attempts=max_attempts, backoff=backoff,
+                              jitter=jitter, retry_on=retry_on,
+                              sleep=sleep, on_retry=on_retry,
+                              deadline=deadline)
+        return wrapper
+    return deco
 
 
 def retry_call(fn, args=(), kwargs=None, max_attempts=3, backoff=0.1,

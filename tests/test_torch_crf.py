@@ -283,7 +283,8 @@ def test_chunk_evaluator_over_three_batches():
             res[pkg] = (metrics, [float(np.asarray(v)[0])
                                   for v in ev.eval(exe)],
                         [int(np.asarray(pkg.global_scope().find_var(
-                            s.name)).reshape(-1)[0]) for s in ev.states])
+                            s.name).get_tensor()).reshape(-1)[0])
+                         for s in ev.states])
     (jm, je, js), (tm, te, ts) = res[fluid], res[pt]
     for a, b in zip(jm, tm):
         np.testing.assert_allclose(np.concatenate(b), np.concatenate(a),
