@@ -15,6 +15,8 @@
                                           # phase 20 alone
     python3 chip_smoke.py --phase21       # the kernels' build, then
                                           # phase 21 alone
+    python3 chip_smoke.py --phase22       # the kernels' build, then
+                                          # phase 22 alone
 
 from the root of a checkout. Phases, each of which raises (and so exits
 non-zero) on failure:
@@ -463,11 +465,29 @@ non-zero) on failure:
    function on ``paddle_tpu_torch.fluid`` here (else the difference
    printed and held at 1e-5), exactly 2 ``tf32`` fused_conv launches a
    step in each, paddle.fluid the port's module and no jax or
-   paddle_tpu module in the child; 21d, the depthwise fused conv (its
-   ``fma`` kernel) at MobileNet-v1's 13 depthwise layers (224, batch 32,
-   f32 and bf16): each held against its plain version, kernel, cuDNN
-   (TF32 off) and bound ms per layer and summed; the phase's seconds;
-22. summary: a JSON line of the kernels, the card line, and last the
+   paddle_tpu module in the child; the phase's seconds;
+22. MobileNet-v1 through the depthwise kernel (``phase_mobilenet``,
+   constants MOBILENET_* at its head): 22a, the depthwise kernel
+   (``csrc/fused_conv_depthwise.cu``) at MobileNet-v1's 13 depthwise 3x3
+   layers (224, batch 32), f32 and bf16, in the inference form (folded
+   batch norm, ReLU) and the stats form: each layer against its plain
+   version (the moments too), twice bit for bit (the slab too), f32
+   within 2x the plain version's error against f64, a control with the
+   taps shifted by one and one with the slab's last slot dropped; kernel,
+   plain, cuDNN (TF32 off; the stats form plus two channel sums) and
+   bound ms per layer and summed, the kernel's registers and spills from
+   ptxas; 22b, MobileNet-v1 (224, width 1.0, 1000 classes) saved, loaded
+   and served through the Executor in f32 at batch 1, 8 and 32 and under
+   AMP at 32, logits against the plain fused conv (f32 1e-4, AMP
+   RESNET_LOGITS_TOL), 27 fused_conv launches a request, 13 of them
+   depthwise; 3 Momentum(0.01, 0.9) steps at batch 32 in f32 and AMP,
+   the losses within 2x an f64 witness of the plain path, one step's
+   gradients and moving statistics by the ResNet rules
+   (``_hold_gradients``), 27 stats-form launches a step, 13 depthwise;
+   the taps-shifted control failing the logits and loss limits; the
+   depthwise regions' share of a served request's op time from the
+   profiler's op table; the phase's seconds;
+23. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
 import argparse
@@ -563,7 +583,7 @@ RESNET_REQUESTS = [1, 8, 32, 1, 8, 32]
 RESNET_REGIONS = 53                    # fused_conv ops of ResNet-50
 # the fused conv's variants a request (or a training step) launches: the
 # wgmma kernel for every region but the 7x7 stem (Cin 3)
-RESNET_VARIANTS = {'fma': 0, 'mma_sync': 0, 'wgmma': 52, 'stem': 1,
+RESNET_VARIANTS = {'depthwise': 0, 'mma_sync': 0, 'wgmma': 52, 'stem': 1,
                    'tf32': 0}
 # whole ResNet-50, fused kernel vs the plain fused conv, bf16 activations
 # (AMP), on one batch-32 request: max |logits difference| over max
@@ -1746,7 +1766,7 @@ def phase_conv_kernels(seed):
 def _plan_label(plan):
     """A FusedConvPlan as a short label: variant, tile width, K splits
     (wgmma: blocks that share K; tf32, mma_sync: a block's warps)."""
-    if plan.variant in ('fma', 'stem'):
+    if plan.variant in ('depthwise', 'stem'):
         return plan.variant
     return '%s BN %d splits %d' % plan
 
@@ -1936,13 +1956,15 @@ def phase_resnet_serving(seed, artifacts):
 # the buckets each model warms, the rows its clients send (a seeded mix,
 # RUNTIME_CLIENTS threads at once, each sending it RUNTIME_ROUNDS times),
 # the requests timed per bucket (enough for a p99 that is not the
-# largest of a handful; the flagship's 50-150 ms requests, 50 of them, so
-# that the whole script stays well inside its time limit)
+# largest of a handful; the flagship's 50-150 ms requests, 30 of them,
+# and ResNet-50's 60, so that the whole script stays well inside its
+# time limit: it read 1089 s with 50 and 100, phases 6b and 6c 294 s of
+# it)
 RUNTIME_BUCKETS = {'flagship': [1, 2, 4], 'resnet': [1, 2, 4, 8, 16, 32]}
 RUNTIME_MIX = {'flagship': [1, 2, 3, 4], 'resnet': [1, 5, 8, 17, 32]}
 RUNTIME_CLIENTS = 4
 RUNTIME_ROUNDS = 5
-RUNTIME_TIMED = {'flagship': 50, 'resnet': 100}
+RUNTIME_TIMED = {'flagship': 30, 'resnet': 60}
 # the folded Inferencer (ResNet-50, batch 8). In f32 (AMP off) the fold
 # only re-associates each batch norm's affine: its logits within 1e-4 of
 # their scale of the unfolded model's (the whole-model parity tolerance).
@@ -3195,7 +3217,8 @@ def _check_stats_case(x, w, s, p, dw, dtype, witness_images=None):
         witness = '; y against f64: kernel %.3g, plain %.3g (limit %gx)' % (
             errs + (CONV_F64_WITNESS,))
     control = None
-    if M % rows:
+    # the depthwise kernel's slot is a block, and every block has outputs
+    if dw or M % rows:
         control = max(_stats_ratios(x, w, s, p, dw, y, slab[0, :-1].sum(0),
                                     slab[1, :-1].sum(0), dtype)[1:3])
     print('kernel fused_conv_stats N=%d %dx%d Cin=%d Cout=%d K=%d s=%d p=%d%s '
@@ -10818,15 +10841,6 @@ OPS21_STEPS = 2
 # process: ALIAS_STEPS Adam steps at batch ALIAS_BATCH, f32 (AMP off),
 # cuDNN deterministic, against the same function run in this process
 ALIAS_STEPS, ALIAS_BATCH, ALIAS_TIMEOUT = 3, 64, 300
-# 21d: MobileNet-v1's 13 depthwise 3x3 convs (224 input, batch 32), each
-# with its batch norm folded and ReLU: ((H, W, C, stride), count)
-MOBILENET_DW = (((112, 112, 32, 1), 1), ((112, 112, 64, 2), 1),
-                ((56, 56, 128, 1), 1), ((56, 56, 128, 2), 1),
-                ((28, 28, 256, 1), 1), ((28, 28, 256, 2), 1),
-                ((14, 14, 512, 1), 5), ((14, 14, 512, 2), 1),
-                ((7, 7, 1024, 1), 1))
-MOBILENET_BATCH = 32
-
 # book 02's conv net (book/test_recognize_digits.py, conv_net) written as
 # a reference script writes it, against a ``fluid`` and a ``batch`` it is
 # handed: 21c runs it in a child on ``import paddle.fluid`` and here on
@@ -11524,89 +11538,600 @@ def _phase21_alias(seed, card):
             launches['fused_conv']}
 
 
-def _phase21_depthwise(seed, card):
-    """21d: the depthwise fused conv at MobileNet-v1's layers, timed
-    against cuDNN's grouped conv (TF32 off) and its bound."""
-    import torch
-    import torch.nn.functional as F
-    from paddle_tpu_torch.ops import cuda_kernels as ck
-    gen = torch.Generator(device='cuda')
-    gen.manual_seed(seed + 21)
-    stages = (('affine', 0, 1), ('act', 'relu'))
-    kinds = ('c', 'c')
-    N = MOBILENET_BATCH
-    sums = {}
-    prev_tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        for dtype in ('float32', 'bfloat16'):
-            tot = dict(kernel=0.0, plain=0.0, cudnn=0.0, bound=0.0,
-                       layers=0)
-            for (H, W, C, s), count in MOBILENET_DW:
-                x, w, aux = _conv_inputs(gen, dtype, N, H, W, C, C, 3, s, 1,
-                                         True, kinds)
-                args = (x, w, aux, kinds, stages, (s, s), (1, 1), True)
-                got = ck.fused_conv(*args)
-                ratio = conv_err_ratio(got, ck.fused_conv_reference(*args),
-                                       dtype)
-                check(ratio <= 1, 'phase 21d: the depthwise fused conv '
-                      'disagrees with its plain version at %dx%d C %d s %d %s'
-                      % (H, W, C, s, dtype))
-                plan = ck.fused_conv_plan(x.dtype, N, H, W, C, C, 3, 3,
-                                          (s, s), (1, 1), True,
-                                          ck._sm_count(x.device.index or 0))
-                check(plan.variant == 'fma', 'phase 21d: the plan took %s'
-                      % plan.variant)
-                kernel_ms = graph_ms(lambda: ck.fused_conv(*args))
-                plain_ms = graph_ms(lambda: ck.fused_conv_reference(*args),
-                                    iters=3, reps=3)
-                xc = x.permute(0, 3, 1, 2)
-                wc = w.permute(2, 0, 1).unsqueeze(1)
-                cudnn_ms = graph_ms(lambda: F.conv2d(xc, wc, stride=s,
-                                                     padding=1, groups=C))
-                bound_ms, by = conv_bound(x, w, aux, got, 3, s, 1, True)
-                print('phase 21d: depthwise %dx%d C %d s %d x%d %s: err/limit '
-                      '%.3g; kernel_ms %.4f plain_ms %.4f cudnn_ms %.4f '
-                      'bound_ms %.4f (%s)' % (
-                          H, W, C, s, count, dtype, ratio, kernel_ms,
-                          plain_ms, cudnn_ms, bound_ms, by), flush=True)
-                tot['kernel'] += count * kernel_ms
-                tot['plain'] += count * plain_ms
-                tot['cudnn'] += count * cudnn_ms
-                tot['bound'] += count * bound_ms
-                tot['layers'] += count
-                del x, w, aux, args, got, xc, wc
-            check(tot['layers'] == 13, 'phase 21d: %d layers' % tot['layers'])
-            sums[dtype] = tot
-            print('phase 21d: MobileNet-v1\'s 13 depthwise convs, batch %d, '
-                  '%s, summed: kernel %.4f ms, plain %.4f ms, cuDNN %.4f ms, '
-                  'bound %.4f ms: %.2fx cuDNN, %.1f%% of the bound\'s speed; '
-                  '%s' % (
-                      N, dtype, tot['kernel'], tot['plain'], tot['cudnn'],
-                      tot['bound'],
-                      tot['kernel'] / tot['cudnn'],
-                      100 * tot['bound'] / tot['kernel'], card), flush=True)
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev_tf32
-    torch.cuda.empty_cache()
-    return sums
-
-
 def phase_public_api(seed, card):
     """21. The rest of the op kernels (21a), the live Scope binding
-    (21b), the ``paddle`` alias (21c) and the depthwise conv's times
-    (21d). Returns the kernel launches of its main paths."""
+    (21b) and the ``paddle`` alias (21c). Returns the kernel launches of
+    its main paths."""
     import torch
     t_phase = time.perf_counter()
     _phase21_ops(seed, card)
     _phase21_binding(seed, card)
     launches = _phase21_alias(seed, card)
-    _phase21_depthwise(seed, card)
     torch.cuda.empty_cache()
     print('phase 21: %.1f s; %.1f s since the process started' % (
         time.perf_counter() - t_phase, time.perf_counter() - _STARTED),
         flush=True)
     return launches
+
+
+# ---- 22. MobileNet-v1 through the depthwise kernel -------------------------------
+# 22a: the depthwise kernel at MobileNet-v1's 13 depthwise 3x3 convs (224
+# input, batch MOBILENET_BATCH): ((H, W, C, stride), count), f32 and bf16,
+# in the inference form (the batch norm folded, ReLU) and the stats form.
+# Each layer within conv_err_ratio <= 1 of the plain version (the stats
+# form's moments within STATS_REL), the same bits on a second call (the
+# slab too), in f32 within CONV_F64_WITNESS times the plain f32 version's
+# error against f64 (on the first MOBILENET_WITNESS_IMAGES images); timed
+# against the plain version, cuDNN's grouped conv with TF32 off (the
+# stats form: plus its two channel sums) and conv_bound. Controls: each
+# channel's taps shifted by one must fail the inference limit, the slab
+# without its last slot the moments' one
+MOBILENET_DW = (((112, 112, 32, 1), 1), ((112, 112, 64, 2), 1),
+                ((56, 56, 128, 1), 1), ((56, 56, 128, 2), 1),
+                ((28, 28, 256, 1), 1), ((28, 28, 256, 2), 1),
+                ((14, 14, 512, 1), 5), ((14, 14, 512, 2), 1),
+                ((7, 7, 1024, 1), 1))
+MOBILENET_BATCH = 32
+MOBILENET_WITNESS_IMAGES = 4
+# 22b: MobileNet-v1 (Howard et al. 2017, Table 1: 224 x 224, width
+# multiplier 1.0, 1000 classes), random weights from the seed, through
+# save_inference_model / load_inference_model and the Executor: served in
+# f32 at MOBILENET_SERVE_BATCHES and under AMP (bf16) at MOBILENET_BATCH;
+# the logits against the same program on the plain fused conv: f32 within
+# MOBILENET_LOGITS_TOL (BENCH_LOGITS_TOL's f32 rule: the same sums in
+# another order), AMP within RESNET_LOGITS_TOL and RESNET_TOP1. Trained
+# MOBILENET_TRAIN_STEPS steps of Momentum(0.01, 0.9) at MOBILENET_BATCH in
+# f32 and AMP, by phase_resnet_training's rule (finite losses that fall)
+# and, in f32,
+# the first step's loss (the forward alone, before any update) within
+# MOBILENET_LOSS_WITNESS times the distance of a witness (the plain
+# forward in f64, rounded) from the plain path's, at least
+# MOBILENET_LOSS_FLOOR of it. The later steps' losses and AMP's are
+# printed, not held: at random weights the gradients move by percents
+# with rounding (27 train-mode batch norms, no residual path), and under
+# AMP the taps-shifted control's first loss reads within bf16's rounding
+# of the plain one (the loss at random weights barely depends on the
+# features). The gradients and moving statistics of one step are held by
+# _hold_gradients (RESNET_GRAD_WITNESS times the witness in both
+# precisions). Exactly MOBILENET_DW_REGIONS depthwise launches a request
+# (inference form) and a step (stats form) among MOBILENET_REGIONS
+# fused_conv regions; controls: the taps shifted by one on the depthwise
+# regions must fail the logits limits and the f32 first-loss limit.
+# The depthwise regions' share of a served request's op time from the
+# profiler's op table over MOBILENET_PROFILE_RUNS requests
+MOBILENET = dict(size=224, classes=1000, scale=1.0)
+MOBILENET_BLOCKS = (((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                     (128, 256, 2), (256, 256, 1), (256, 512, 2)) +
+                    ((512, 512, 1),) * 5 + ((512, 1024, 2), (1024, 1024, 1)))
+MOBILENET_SERVE_BATCHES = (1, 8, 32)
+MOBILENET_LOGITS_TOL = 1e-4
+MOBILENET_TRAIN_STEPS = 3
+MOBILENET_LOSS_WITNESS = 2.0
+MOBILENET_LOSS_FLOOR = 1e-6
+MOBILENET_DW_REGIONS = 13
+MOBILENET_REGIONS = 27
+MOBILENET_PROFILE_RUNS = 3
+
+
+def mobilenet_v1(layers, img, class_dim=1000, scale=1.0, is_test=False):
+    """MobileNet-v1 (Howard et al. 2017, Table 1) on ``img`` (NCHW),
+    written with ``layers`` (the port's, or paddle_tpu's: the CPU test
+    builds both): a 3x3 stride-2 conv of 32 * ``scale`` filters, the 13
+    depthwise-separable blocks of MOBILENET_BLOCKS (a 3x3
+    conv2d(groups=C) and a 1x1 conv2d, each without bias, then
+    batch_norm and relu), a global average pool2d and an fc with softmax
+    over ``class_dim`` classes. Returns the probabilities."""
+    def conv_bn(x, filters, size, stride, groups=1):
+        conv = layers.conv2d(input=x, num_filters=filters, filter_size=size,
+                             stride=stride, padding=(size - 1) // 2,
+                             groups=groups, act=None, bias_attr=False)
+        return layers.relu(layers.batch_norm(input=conv, is_test=is_test))
+
+    x = conv_bn(img, int(32 * scale), 3, 2)
+    for cin, cout, stride in MOBILENET_BLOCKS:
+        x = conv_bn(x, int(cin * scale), 3, stride, groups=int(cin * scale))
+        x = conv_bn(x, int(cout * scale), 1, 1)
+    x = layers.pool2d(input=x, pool_type='avg', global_pooling=True)
+    return layers.fc(input=x, size=class_dim, act='softmax')
+
+
+def _shift_taps(w):
+    """A depthwise w [KH, KW, C] with each channel's taps shifted by one
+    (a control)."""
+    kh, kw, c = w.shape
+    return w.reshape(kh * kw, c).roll(1, 0).reshape(kh, kw, c)
+
+
+def _taps_shifted_conv(x, w, aux, kinds, stages, strides, pads, depthwise,
+                       emit_stats=False):
+    """The fused conv kernel with each depthwise region's taps shifted by
+    one (a control for the whole model, both forms)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    return ck.fused_conv(x, _shift_taps(w) if depthwise else w, aux, kinds,
+                         stages, strides, pads, depthwise, emit_stats)
+
+
+def _dw_kernel_log():
+    """The depthwise kernel's lines of the fused conv library's ptxas
+    output: each instance's registers, shared memory and spills."""
+    from paddle_tpu_torch.ops import _build
+    lines = _build.build_log('fused_conv').splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if 'conv_dw_kernel' in line and 'Compiling entry' in line:
+            out.append(re.sub(r'.*(_Z\w+).*', r'\1', line) + ': ' + ' '.join(
+                l.strip() for l in lines[i + 1:i + 5]
+                if 'Used' in l or 'spill' in l))
+    return out
+
+
+def _phase22_kernel(seed, card):
+    """22a: the depthwise kernel at MobileNet-v1's 13 layers, both
+    dtypes and both forms, checked and timed. Returns {form: {dtype:
+    totals}}."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    for line in _dw_kernel_log():
+        print('phase 22a: ptxas %s' % line, flush=True)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 22)
+    stages = (('affine', 0, 1), ('act', 'relu'))
+    kinds = ('c', 'c')
+    N = MOBILENET_BATCH
+    sms = ck._sm_count(0)
+    sums = {'inference': {}, 'stats': {}}
+    for dtype in ('float32', 'bfloat16'):
+        tot = {form: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                          max_abs_err=0.0, layers=0, bound_by={})
+               for form in sums}
+        for (H, W, C, s), count in MOBILENET_DW:
+            x, w, aux = _conv_inputs(gen, dtype, N, H, W, C, C, 3, s, 1,
+                                     True, kinds)
+            args = (x, w, aux, kinds, stages, (s, s), (1, 1), True)
+            what = '%dx%d C %d s %d %s' % (H, W, C, s, dtype)
+            for stats in (False, True):
+                plan = ck.fused_conv_plan(x.dtype, N, H, W, C, C, 3, 3,
+                                          (s, s), (1, 1), True, sms,
+                                          emit_stats=stats)
+                check(plan.variant == 'depthwise', 'phase 22a: the plan '
+                      'took %s at %s' % (plan.variant, what))
+            tile = ck.depthwise_tile(x.dtype, N, H, W, C, 3, 3, (s, s),
+                                     (1, 1), sms)
+            # the inference form
+            before = ck.FUSED_CONV_VARIANT_LAUNCHES['depthwise']
+            got = ck.fused_conv(*args)
+            same = torch.equal(got, ck.fused_conv(*args))
+            torch.cuda.synchronize()
+            check(ck.FUSED_CONV_VARIANT_LAUNCHES['depthwise'] == before + 2,
+                  'phase 22a: the depthwise kernel was not launched at '
+                  + what)
+            ref = ck.fused_conv_reference(*args)
+            err = (got.float() - ref.float()).abs().max().item()
+            ratio = conv_err_ratio(got, ref, dtype)
+            control = conv_err_ratio(ck.fused_conv(
+                x, _shift_taps(w), *args[2:]), ref, dtype)
+            witness = ''
+            if dtype == 'float32':
+                errs = check_f64_witness(got, ref, args, 'phase 22a ' + what,
+                                         images=MOBILENET_WITNESS_IMAGES)
+                witness = '; against f64: kernel %.3g, plain %.3g' % errs
+            check(same, 'phase 22a: two calls gave other bits at ' + what)
+            check(ratio <= 1, 'phase 22a: the depthwise kernel disagrees '
+                  'with its plain version at ' + what)
+            check(control > 1, 'phase 22a: the limit does not catch the '
+                  'taps shifted by one at ' + what)
+            kernel_ms = graph_ms(lambda: ck.fused_conv(*args))
+            plain_ms = graph_ms(lambda: ck.fused_conv_reference(*args),
+                                iters=3, reps=3)
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(2, 0, 1).unsqueeze(1)
+            library_ms = graph_ms(lambda: F.conv2d(xc, wc, stride=s,
+                                                   padding=1, groups=C))
+            bound_ms, by = conv_bound(x, w, aux, got, 3, s, 1, True)
+            print('phase 22a: depthwise %s x%d, %s: err/limit %.3g (max|err| '
+                  '%.3g), taps shifted %.3g, two calls bit-identical %s%s; '
+                  'kernel_ms %.4f plain_ms %.4f cudnn_ms %.4f bound_ms %.4f '
+                  '(%s)' % (what, count, tile, ratio, err, control, same,
+                            witness, kernel_ms, plain_ms, library_ms,
+                            bound_ms, by), flush=True)
+            t = tot['inference']
+            for key, v in (('ms', kernel_ms), ('plain_ms', plain_ms),
+                           ('library_ms', library_ms), ('bound_ms', bound_ms)):
+                t[key] += count * v
+            t['bound_by'][by] = t['bound_by'].get(by, 0.0) + count * bound_ms
+            t['max_abs_err'] = max(t['max_abs_err'], err)
+            t['layers'] += count
+            del got, ref
+            # the stats form: checked by _check_stats_case (two calls, the
+            # moments, f32 against f64, the last slot dropped)
+            before = ck.FUSED_CONV_VARIANT_LAUNCHES['depthwise']
+            err = _check_stats_case(
+                x, w, s, 1, True, dtype,
+                MOBILENET_WITNESS_IMAGES if dtype == 'float32' else None)
+            check(ck.FUSED_CONV_VARIANT_LAUNCHES['depthwise'] > before,
+                  'phase 22a: the stats form did not launch the depthwise '
+                  'kernel at ' + what)
+            sargs = (x, w, (), (), (), (s, s), (1, 1), True)
+            y = ck.fused_conv(*sargs, emit_stats=True)[0]
+            bound_ms, by = conv_bound(x, w, [], y, 3, s, 1, True, 2 * 4 * C)
+            kernel_ms = graph_ms(lambda: ck.fused_conv(*sargs,
+                                                       emit_stats=True))
+            plain_ms = graph_ms(lambda: ck.fused_conv_reference(
+                *sargs, emit_stats=True), iters=3, reps=3)
+
+            def library():
+                c = F.conv2d(xc, wc, stride=s, padding=1, groups=C).float()
+                return c.sum((0, 2, 3)), (c * c).sum((0, 2, 3))
+            library_ms = graph_ms(library)
+            print('phase 22a: depthwise stats form %s x%d: kernel_ms %.4f '
+                  'plain_ms %.4f cudnn+sums_ms %.4f bound_ms %.4f (%s); '
+                  'slab slots %d' % (what, count, kernel_ms, plain_ms,
+                                     library_ms, bound_ms, by, tile.blocks),
+                  flush=True)
+            t = tot['stats']
+            for key, v in (('ms', kernel_ms), ('plain_ms', plain_ms),
+                           ('library_ms', library_ms), ('bound_ms', bound_ms)):
+                t[key] += count * v
+            t['bound_by'][by] = t['bound_by'].get(by, 0.0) + count * bound_ms
+            t['max_abs_err'] = max(t['max_abs_err'], err)
+            t['layers'] += count
+            del x, w, aux, args, sargs, y, xc, wc
+        for form, t in tot.items():
+            check(t['layers'] == 13, 'phase 22a: %d layers' % t['layers'])
+            t['bound_by'] = max(t['bound_by'], key=t['bound_by'].get)
+            print('phase 22a: MobileNet-v1\'s 13 depthwise convs, batch %d, '
+                  '%s, %s form, summed: kernel %.4f ms, plain %.4f ms, %s '
+                  '%.4f ms, bound %.4f ms (%s): %.2fx the library call, '
+                  '%.1f%% of the bound\'s speed; %s' % (
+                      N, dtype, form, t['ms'], t['plain_ms'],
+                      'cuDNN' if form == 'inference' else 'cuDNN + sums',
+                      t['library_ms'], t['bound_ms'], t['bound_by'],
+                      t['ms'] / t['library_ms'],
+                      100 * t['bound_ms'] / t['ms'], card), flush=True)
+            sums[form][dtype] = t
+    torch.cuda.empty_cache()
+    return sums
+
+
+def _mobilenet_program(seed, size=None, is_test=False, train=False):
+    """MobileNet-v1 built with the port's layers: (main, startup,
+    probabilities, loss or None)."""
+    import paddle_tpu_torch as pt
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = seed
+    size = size or MOBILENET['size']
+    loss = None
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name='data', shape=[3, size, size],
+                             dtype='float32')
+        prob = mobilenet_v1(pt.layers, img, MOBILENET['classes'],
+                            MOBILENET['scale'], is_test=is_test)
+        if train:
+            label = pt.layers.data(name='label', shape=[1], dtype='int64')
+            loss = pt.layers.mean(pt.layers.cross_entropy(input=prob,
+                                                          label=label))
+            pt.optimizer.Momentum(learning_rate=0.01,
+                                  momentum=0.9).minimize(loss)
+    return main, startup, prob, loss
+
+
+def _mobilenet_feed(bs, seed):
+    rng = np.random.RandomState(seed)
+    return {'data': rng.randn(bs, 3, MOBILENET['size'],
+                              MOBILENET['size']).astype('float32')}
+
+
+def _depthwise_flags(prog, fetch_names):
+    """Whether each fused_conv region of ``prog`` (in the order the
+    Executor runs them) is depthwise."""
+    import paddle_tpu_torch as pt
+    opt, _ = pt.compiler.optimize(prog, fetch_names=fetch_names)
+    block = opt.global_block()
+    flags = []
+    for op in block.ops:
+        if op.type != 'fused_conv':
+            continue
+        _, ins, _, attrs = op.attrs['sub_ops'][0]
+        cin = block.var(ins['Input'][0]).shape[1]
+        w_shape = block.var(ins['Filter'][0]).shape
+        flags.append((attrs.get('groups', 1) or 1) == cin and
+                     w_shape[1] == 1)
+    return flags
+
+
+def _phase22_serving(seed, card, d):
+    """22b, served: MobileNet-v1 saved, loaded and served in f32 at
+    MOBILENET_SERVE_BATCHES and under AMP at MOBILENET_BATCH, against the
+    plain fused conv; the depthwise regions' share under the profiler.
+    Returns the launches of the served requests."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    main, startup, prob, _ = _mobilenet_program(seed)
+    exe = pt.Executor()
+    init_scope = pt.Scope()
+    exe.run(startup, scope=init_scope)
+    # random batch-norm affine, and moving statistics as training would
+    # leave them (the batch moments of one batch), as phase 6 does
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 23)
+    bns = [op for op in main.global_block().ops if op.type == 'batch_norm']
+    for op in bns:
+        c = init_scope.raw(op.input('Scale')[0]).shape[0]
+        init_scope.set_var(op.input('Scale')[0], torch.rand(
+            c, device='cuda', generator=gen) + 0.5)
+        init_scope.set_var(op.input('Bias')[0], torch.randn(
+            c, device='cuda', generator=gen) * 0.1)
+    moments = exe.run(main, feed=_mobilenet_feed(MOBILENET_BATCH, seed + 24),
+                      fetch_list=[op.output(s)[0] for op in bns
+                                  for s in ('SavedMean', 'SavedVariance')],
+                      scope=init_scope, return_numpy=False)
+    for op, mean, var in zip(bns, moments[::2], moments[1::2]):
+        init_scope.set_var(op.input('Mean')[0], mean.float())
+        init_scope.set_var(op.input('Variance')[0], var.float())
+    softmax, = [op for op in main.global_block().ops
+                if op.type == 'softmax']
+    logits_var = main.global_block().var(softmax.input('X')[0])
+    path = os.path.join(d, 'mobilenet')
+    pt_io.save_inference_model(path, ['data'], [logits_var, prob], exe,
+                               main_program=main, scope=init_scope)
+    del init_scope, moments
+    scope = pt.Scope()
+    prog, feed_names, fetch_vars = pt_io.load_inference_model(path, exe,
+                                                              scope=scope)
+    check(feed_names == ['data'], 'phase 22b: feeds %s' % feed_names)
+    fetch = [v.name for v in fetch_vars]
+    flags = _depthwise_flags(prog, fetch)
+    check(len(flags) == MOBILENET_REGIONS and
+          sum(flags) == MOBILENET_DW_REGIONS, 'phase 22b: the served program '
+          'has %d fused_conv regions, %d depthwise' % (len(flags),
+                                                       sum(flags)))
+    torch.cuda.synchronize()
+    print('phase 22b: MobileNet-v1 (3x%dx%d, width %.1f, %d classes): %d '
+          'fused_conv regions (%d depthwise), built, calibrated, saved and '
+          'loaded in %.1f s' % (
+              MOBILENET['size'], MOBILENET['size'], MOBILENET['scale'],
+              MOBILENET['classes'], len(flags), sum(flags),
+              time.perf_counter() - t0), flush=True)
+
+    def serve(feed, conv=None):
+        with passes.conv_for_testing(conv) if conv else \
+                contextlib.nullcontext():
+            return exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+
+    launches = {name: 0 for name in ck.LAUNCHES}
+    depthwise = 0
+    for precision, batches in (('f32', MOBILENET_SERVE_BATCHES),
+                               ('bf16', (MOBILENET_BATCH,))):
+        amp.set_amp(precision == 'bf16')
+        try:
+            for bs in batches:
+                feed = _mobilenet_feed(bs, seed + bs)
+                serve(feed)                          # warm-up: the memo
+                torch.cuda.synchronize()
+                ck.reset_launch_counts()
+                passes.reset_fallback_counts()
+                t1 = time.perf_counter()
+                logits, out = serve(feed)
+                dt = time.perf_counter() - t1
+                got = dict(ck.LAUNCHES)
+                variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
+                fallbacks = dict(passes.FALLBACKS)
+                plain, _ = serve(feed, _stats_function())
+                shifted, _ = serve(feed, _taps_shifted_conv)
+                scale = float(np.abs(plain).max())
+                diff = float(np.abs(logits - plain).max()) / scale
+                c_diff = float(np.abs(shifted - plain).max()) / scale
+                top1 = float((logits.argmax(-1) == plain.argmax(-1)).mean())
+                c_top1 = float((shifted.argmax(-1) ==
+                                plain.argmax(-1)).mean())
+                tol = MOBILENET_LOGITS_TOL if precision == 'f32' else \
+                    RESNET_LOGITS_TOL
+                min_top1 = 1.0 if precision == 'f32' else RESNET_TOP1
+                print('phase 22b: served %s batch %d: %.2f ms (host clock, '
+                      'numpy images in, logits and probabilities out); '
+                      'launches %s, by variant %s, fallbacks %s; logits vs '
+                      'the plain fused conv: max |diff| / max |logits| %.4g '
+                      '(tol %g), top-1 agreement %.4f (min %g); control, '
+                      'taps shifted: %.4g, %.4f' % (
+                          precision, bs, 1e3 * dt, got, variants, fallbacks,
+                          diff, tol, top1, min_top1, c_diff, c_top1),
+                      flush=True)
+                check(out.shape == (bs, MOBILENET['classes']) and
+                      np.isfinite(out).all() and
+                      np.allclose(out.sum(1), 1.0, atol=1e-3),
+                      'phase 22b: bad probabilities at %s batch %d'
+                      % (precision, bs))
+                check(got['fused_conv'] == MOBILENET_REGIONS and
+                      variants['depthwise'] == MOBILENET_DW_REGIONS and
+                      sum(got.values()) == MOBILENET_REGIONS,
+                      'phase 22b: a %s request launched %s (%s)'
+                      % (precision, got, variants))
+                check(not fallbacks, 'phase 22b: fell back: %s' % fallbacks)
+                check(diff <= tol and top1 >= min_top1, 'phase 22b: %s '
+                      'logits differ from the plain path by %g (top-1 %g)'
+                      % (precision, diff, top1))
+                check(c_diff > tol or c_top1 < min_top1, 'phase 22b: the '
+                      '%s logits limits do not catch the taps shifted'
+                      % precision)
+                for name, c in got.items():
+                    launches[name] += c
+                depthwise += variants['depthwise']
+        finally:
+            amp.set_amp(None)
+    # the depthwise regions' share of a served request's op time: the
+    # profiler's op table times each op with a device sync after it
+    feed = _mobilenet_feed(MOBILENET_BATCH, seed + 300)
+    exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+    profiler.reset_profiler()
+    ck.reset_launch_counts()
+    with profiler.profiler('All', 'total', os.path.join(d, 'mb_table.txt'),
+                           trace_dir=os.path.join(d, 'mb_trace')):
+        for _ in range(MOBILENET_PROFILE_RUNS):
+            exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+    prof = profiler.save_profile(os.path.join(d, 'mb_profile.json'))
+    with open(prof) as f:
+        events = json.load(f)['events']
+    convs = [dur for name, _, dur in events if name == 'fused_conv']
+    check(len(convs) == MOBILENET_REGIONS * MOBILENET_PROFILE_RUNS and
+          ck.LAUNCHES['fused_conv'] == len(convs), 'phase 22b: %d fused_conv '
+          'events under the profiler, %s launches' % (len(convs),
+                                                       ck.LAUNCHES))
+    dw_s = sum(dur for i, dur in enumerate(convs)
+               if flags[i % MOBILENET_REGIONS])
+    all_s = sum(dur for _, _, dur in events)
+    table = profiler.op_stats()
+    print('phase 22b: served f32 batch %d under the profiler, %d runs: op '
+          'time %.3f ms a request, fused_conv %.3f ms (%d calls), its %d '
+          'depthwise regions %.3f ms: %.1f%% of the op time; top ops %s; '
+          '%s' % (
+              MOBILENET_BATCH, MOBILENET_PROFILE_RUNS,
+              1e3 * all_s / MOBILENET_PROFILE_RUNS,
+              table['fused_conv']['total_ms'] / MOBILENET_PROFILE_RUNS,
+              table['fused_conv']['calls'], MOBILENET_DW_REGIONS,
+              1e3 * dw_s / MOBILENET_PROFILE_RUNS, 100 * dw_s / all_s,
+              ', '.join('%s %.3f' % (k, v['total_ms'] / MOBILENET_PROFILE_RUNS)
+                        for k, v in sorted(table.items(),
+                                           key=lambda kv: -kv[1]['total_ms'])
+                        [:5]), card), flush=True)
+    del scope, prog, exe
+    torch.cuda.empty_cache()
+    return launches, depthwise
+
+
+def _phase22_training(seed, card):
+    """22b, trained: MOBILENET_TRAIN_STEPS Momentum steps at
+    MOBILENET_BATCH in f32 and under AMP on the kernel, the plain stats
+    form, the f64 witness and the control, from one start; then one
+    step's gradients by _hold_gradients. Returns the launches of the
+    kernel's steps."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    main, startup, _, loss = _mobilenet_program(seed + 1, train=True)
+    regions, grouped = train_regions(main, loss)
+    n_dw = sum(c for key, c in regions.items() if key[-1])
+    check(sum(regions.values()) == MOBILENET_REGIONS and not grouped and
+          n_dw == MOBILENET_DW_REGIONS, 'phase 22b: the training program has '
+          '%d stats-form regions (%d depthwise) and %d grouped'
+          % (sum(regions.values()), n_dw, grouped))
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _image_train_feed(MOBILENET_BATCH, seed + 25)
+    snap = _snapshot(scope)
+    paths = (('kernel', None), ('plain', _stats_function()),
+             ('witness', _stats_function(_f64_witness)),
+             ('taps shifted', _taps_shifted_conv))
+    launches = {name: 0 for name in ck.LAUNCHES}
+    depthwise = 0
+    for precision in ('f32', 'bf16'):
+        losses = {}
+        amp.set_amp(precision == 'bf16')
+        try:
+            for name, conv in paths:
+                _restore(scope, snap)
+                ck.reset_launch_counts()
+                passes.reset_fallback_counts()
+                outs, step_ms = [], []
+                with passes.conv_for_testing(conv) if conv else \
+                        contextlib.nullcontext():
+                    for _ in range(MOBILENET_TRAIN_STEPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        outs.append(exe.run(main, feed=feed,
+                                            fetch_list=[loss], scope=scope,
+                                            return_numpy=False)[0])
+                        torch.cuda.synchronize()
+                        step_ms.append(1e3 * (time.perf_counter() - t0))
+                losses[name] = [float(o) for o in outs]
+                if name == 'kernel':
+                    got, fallbacks = dict(ck.LAUNCHES), dict(passes.FALLBACKS)
+                    variants = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
+                    print('phase 22b: trained %s, batch %d, %d steps: ms a '
+                          'step (host clock, loss kept on the card) %s, the '
+                          'first lowers; launches %s, by variant %s, '
+                          'fallbacks %s; %s' % (
+                              precision, MOBILENET_BATCH,
+                              MOBILENET_TRAIN_STEPS,
+                              ' '.join('%.2f' % v for v in step_ms), got,
+                              variants, fallbacks, card), flush=True)
+                    expect = {n: 0 for n in got}
+                    expect['fused_conv_stats'] = (MOBILENET_REGIONS *
+                                                  MOBILENET_TRAIN_STEPS)
+                    check(got == expect and variants['depthwise'] ==
+                          MOBILENET_DW_REGIONS * MOBILENET_TRAIN_STEPS,
+                          'phase 22b: %s training launched %s (%s)'
+                          % (precision, got, variants))
+                    check(not fallbacks, 'phase 22b: training fell back: %s'
+                          % fallbacks)
+                    for n, c in got.items():
+                        launches[n] += c
+                    depthwise += variants['depthwise']
+        finally:
+            amp.set_amp(None)
+        plain = np.array(losses['plain'])
+
+        def dist(name):
+            return np.abs(np.array(losses[name]) - plain) / np.abs(plain)
+        limit = max(MOBILENET_LOSS_WITNESS * dist('witness')[0],
+                    MOBILENET_LOSS_FLOOR)
+        print('phase 22b: trained %s, losses: %s; relative distance from '
+              'the plain path: kernel %s, witness %s, taps shifted %s; the '
+              'first step\'s limit %s' % (
+                  precision, '; '.join('%s %s' % (n, ' '.join(
+                      '%.6f' % l for l in losses[n])) for n, _ in paths),
+                  ' '.join('%.3g' % v for v in dist('kernel')),
+                  ' '.join('%.3g' % v for v in dist('witness')),
+                  ' '.join('%.3g' % v for v in dist('taps shifted')),
+                  '%.3g' % limit if precision == 'f32'
+                  else 'none (AMP: printed only)'), flush=True)
+        check(np.isfinite(losses['kernel']).all() and
+              losses['kernel'][-1] < losses['kernel'][0], 'phase 22b: the '
+              '%s losses %s are not finite and falling'
+              % (precision, losses['kernel']))
+        if precision == 'f32':
+            check(dist('kernel')[0] <= limit, 'phase 22b: the first f32 '
+                  'loss parts from the plain path by %g' % dist('kernel')[0])
+            check(dist('taps shifted')[0] > limit, 'phase 22b: the first '
+                  'f32 loss limit does not catch the taps shifted')
+    _restore(scope, snap)
+    _hold_gradients('mobilenet', main, scope,
+                    _image_train_feed(MOBILENET_BATCH, seed + 26),
+                    MOBILENET_REGIONS, None, RESNET_GRAD_WITNESS)
+    del scope, exe, snap
+    torch.cuda.empty_cache()
+    return launches, depthwise
+
+
+def phase_mobilenet(seed, card):
+    """22. The depthwise kernel at MobileNet-v1's layers (22a) and
+    MobileNet-v1 served and trained through it (22b). Returns (22a's sums,
+    the launches of 22b's main paths: fused_conv and fused_conv_stats,
+    and the depthwise variant's in each form)."""
+    import torch
+    t_phase = time.perf_counter()
+    sums = _phase22_kernel(seed, card)
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        served, dw_served = _phase22_serving(seed, card, d)
+    trained, dw_trained = _phase22_training(seed, card)
+    launches = {n: served[n] + trained[n] for n in served}
+    launches['depthwise'] = dw_served
+    launches['depthwise_stats'] = dw_trained
+    torch.cuda.empty_cache()
+    print('phase 22: %.1f s; %.1f s since the process started; launches %s'
+          % (time.perf_counter() - t_phase, time.perf_counter() - _STARTED,
+             launches), flush=True)
+    return sums, launches
 
 
 def sweep_conv_plans(card):
@@ -12113,6 +12638,8 @@ def main():
                     help='build the kernels, run phase 20 alone, then stop')
     ap.add_argument('--phase21', action='store_true',
                     help='build the kernels, run phase 21 alone, then stop')
+    ap.add_argument('--phase22', action='store_true',
+                    help='build the kernels, run phase 22 alone, then stop')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -12166,6 +12693,9 @@ def run_phases(args, card, root):
     if args.phase21:
         os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
         phase_public_api(args.seed, card)
+        return 0
+    if args.phase22:
+        phase_mobilenet(args.seed, card)
         return 0
     if args.conv3d_grads:
         conv3d_grads(card, args.seed)
@@ -12255,6 +12785,8 @@ def run_phases(args, card, root):
     _lap('readers')
     public = phase_public_api(args.seed, card)
     _lap('public_api')
+    dw_sums, mobilenet = phase_mobilenet(args.seed, card)
+    _lap('mobilenet')
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests, the serving runtime's concurrent mix, untuned
@@ -12275,7 +12807,8 @@ def run_phases(args, card, root):
     # (19e); and over phase 20's: ResNet-50's reader-fed steps (20a),
     # stacked_dynamic_lstm's (20b), ResNet-50's profiled requests (20c);
     # and over phase 21's: book 02's steps through the paddle alias in a
-    # child process and in this one (21c))
+    # child process and in this one (21c); and over phase 22's:
+    # MobileNet-v1's served requests and training steps (22b))
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -12330,7 +12863,8 @@ def run_phases(args, card, root):
         sum(b['fused_conv'] for b, _ in bench.values()) +
         book_launches['fused_conv'] + front['fused_conv'] +
         sparse['fused_conv'] + trainer['fused_conv'] +
-        readers['fused_conv'] + public['fused_conv'],
+        readers['fused_conv'] + public['fused_conv'] +
+        mobilenet['fused_conv'],
         bench_regions=bench_totals('fused_conv'),
         book_regions=book_regions('fused_conv'), **conv))
     # its stats form: launches over the timed ResNet-50, VGG-16 and
@@ -12344,9 +12878,27 @@ def run_phases(args, card, root):
         launches=resnet_trained['launches']['fused_conv_stats'] +
         bench['vgg'][0]['fused_conv_stats'] +
         book_launches['fused_conv_stats'] + front['fused_conv_stats'] +
-        trainer.get('fused_conv_stats', 0) + readers['fused_conv_stats'],
+        trainer.get('fused_conv_stats', 0) + readers['fused_conv_stats'] +
+        mobilenet['fused_conv_stats'],
         bench_regions=bench_totals('fused_conv_stats'),
         book_regions=book_regions('fused_conv_stats'), **stats))
+    # the fused conv's depthwise kernel, both forms: launches over
+    # MobileNet-v1's served requests (inference form) and training steps
+    # (stats form, 22b); numbers summed over its 13 depthwise layers at
+    # batch 32 (22a), f32, bf16 beside
+    for form, name, key in (('inference', 'fused_conv_depthwise',
+                             'depthwise'),
+                            ('stats', 'fused_conv_depthwise_stats',
+                             'depthwise_stats')):
+        f32, bf16 = (dict(dw_sums[form][dt])
+                     for dt in ('float32', 'bfloat16'))
+        for t in (f32, bf16):
+            del t['layers']
+        kernels.append(dict(
+            name=name, route='cuda',
+            source='paddle_tpu_torch/csrc/fused_conv_depthwise.cu',
+            replaces='paddle_tpu/ops/pallas_kernels.py:807',
+            launches=mobilenet[key], bf16=bf16, **f32))
     # the LSTM cell: launches over the timed training steps of
     # stacked_dynamic_lstm, numbers at its shape (B 256, H 512, f32), and
     # its bf16 path's at the same shape (no main path launches it)

@@ -16,7 +16,8 @@
 // kStatRows output rows (pixels): a [2, ceil(M / kStatRows), Cout] f32
 // slab, sums first, each slot written by one block with no atomics, so
 // the result is deterministic. Rows past M = N*Ho*Wo add nothing. The
-// caller sums the slab over its slots.
+// depthwise kernel's slot is a block of its persistent grid instead
+// ([2, dw_blocks, C]). The caller sums the slab over its slots.
 //
 // What bounds it on this card. A ResNet-50 conv at batch 32 does tens
 // to hundreds of multiply-adds per byte it must move (K = KH*KW*Cin
@@ -53,8 +54,18 @@
 //     Cin is a multiple of 16 bytes, else the input rows under the tile
 //     staged once in shared memory and A read from them through a table
 //     of tap offsets (fused_conv_mma.cuh);
-//   * fma (depthwise, either dtype): a block per 64 pixels by 32 channels,
-//     a multiply-add per tap in f32.
+//   * depthwise (either dtype; fused_conv_depthwise.cu), bound by bytes:
+//     9 multiply-adds an output at 3x3, far below the card's balance
+//     point. A persistent block walks output tiles of one image for a
+//     128-byte slice of channels; each tile's input halo comes into
+//     shared memory by one TMA load (zeros outside the image),
+//     double-buffered so the next tile's load overlaps this tile's
+//     arithmetic; a thread computes a strip of 8 outputs of 4 channels
+//     from its weights in registers, each input column read once a strip
+//     (3x3 at stride 1 and 2 as templates, any other shape by a loop over
+//     its taps), then the stage list on the 4 channels and one vector
+//     store; the stats form sums per thread and adds the threads' sums
+//     in a fixed order, one slab slot a block.
 // The epilogue is a list of opcodes (FusedConvArgs) interpreted on the f32
 // accumulators; every thread of the grid walks the same list, so the
 // branches do not diverge. The stats form reduces what each block
@@ -62,11 +73,11 @@
 // The kernels launch on the caller's stream and allocate nothing.
 //
 // Files: fused_conv.cuh (the arguments, the stage interpreter, shared
-// helpers), this file (the stem, depthwise and wgmma kernels, the entry
-// points), fused_conv_mma.cuh (the tf32 and mma_sync kernels as
-// templates) instantiated by fused_conv_tf32.cu and
-// fused_conv_mma_sync.cu; the three sources compile in parallel into one
-// library.
+// helpers), this file (the stem and wgmma kernels, the entry points),
+// fused_conv_mma.cuh (the tf32 and mma_sync kernels as templates)
+// instantiated by fused_conv_tf32.cu and fused_conv_mma_sync.cu,
+// fused_conv_depthwise.cu (the depthwise kernel); the four sources
+// compile in parallel into one library.
 
 #include <algorithm>
 #include <atomic>
@@ -299,56 +310,6 @@ int stem_smem_bytes(const FusedConvArgs& a) {
   const StemLayout L = stem_layout(a);
   const int bytes = L.a_bytes + L.b_bytes + L.x_bytes;
   return bytes <= kSmemLimit ? bytes : -1;
-}
-
-// ---- depthwise: a multiply-add per tap -------------------------------------
-// A block of 256 threads covers kStatRows output pixels by kDwC channels:
-// thread (p, c) = (tid / kDwC, tid % kDwC) computes pixels p, p + kDwP,
-// ... of its channel, so neighbouring threads read and write neighbouring
-// channels of one pixel, and the block's pixels are one slot of the stats
-// form's slab.
-constexpr int kDwC = 32, kDwP = 8;
-
-template <typename T>
-__global__ void __launch_bounds__(kDwC * kDwP)
-    conv_depthwise_kernel(const __grid_constant__ FusedConvArgs a) {
-  __shared__ float sS[2][kDwP][kDwC];
-  const int C = a.Cout;
-  const int M = a.N * a.Ho * a.Wo;
-  const int lc = threadIdx.x % kDwC, lp = threadIdx.x / kDwC;
-  const int c = blockIdx.y * kDwC + lc;
-  const int m0 = blockIdx.x * kStatRows;
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-  float s = 0.f, ss = 0.f;
-  if (c < C) {
-    for (int p = lp; p < kStatRows && m0 + p < M; p += kDwP) {
-      const int m = m0 + p;
-      const RowInfo r = row_info(a, m, M);
-      float acc = 0.f;
-      for (int kh = 0; kh < a.KH; ++kh)
-        for (int kw = 0; kw < a.KW; ++kw)
-          acc = fmaf(to_f32(load_x(a, x, r, kh, kw, c)),
-                     to_f32(w[(kh * a.KW + kw) * C + c]), acc);
-      s += acc;
-      ss += acc * acc;
-      store(static_cast<T*>(a.out) + (long)m * C + c,
-            epilogue1(a, acc, m, c));
-    }
-  }
-  if (a.stats) {
-    sS[0][lp][lc] = s;
-    sS[1][lp][lc] = ss;
-    __syncthreads();
-    if (lp == 0 && c < C) {
-      float bs = 0.f, bss = 0.f;
-      for (int g = 0; g < kDwP; ++g) {
-        bs += sS[0][g][lc];
-        bss += sS[1][g][lc];
-      }
-      write_stats(a, M, blockIdx.x, c, bs, bss);
-    }
-  }
 }
 
 // ---- bf16, Cin % 64 == 0: wgmma, TMA loads, split-K ------------------------
@@ -789,38 +750,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// Host: a tensor map is a function of its encoder's arguments (address,
-// sizes, box), which a served model's launches repeat (its weights, and
-// the activations the caching allocator hands out again), so each host
-// thread keeps the last kMapCache maps of each call site.
-constexpr int kMapCache = 64;
-struct MapKey {
-  const void* ptr;
-  long v[7];  // the encoder's other arguments
-};
-
-template <class Encode>
-cudaError_t cached_map(CUtensorMap* map, const MapKey& key, Encode encode) {
-  struct Entry {
-    CUtensorMap map;
-    MapKey key;
-    bool valid;
-  };
-  thread_local Entry cache[kMapCache];
-  uint64_t h = reinterpret_cast<uintptr_t>(key.ptr) >> 4;
-  for (long v : key.v) h = h * 1000003u ^ (uint64_t)v;
-  Entry& e = cache[h % kMapCache];
-  if (!e.valid || std::memcmp(&e.key, &key, sizeof key) != 0) {
-    e.valid = false;
-    const cudaError_t err = encode(&e.map);
-    if (err != cudaSuccess) return err;
-    e.key = key;
-    e.valid = true;
-  }
-  *map = e.map;
-  return cudaSuccess;
-}
-
 template <int BN>
 cudaError_t launch_wgmma_bn(const WgConvParams& p, cudaStream_t st) {
   const int smem = wg_smem_bytes(BN);
@@ -962,35 +891,25 @@ int launch(const FusedConvArgs& a, void* stream) {
   const long M = (long)a.N * a.Ho * a.Wo;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the variant must take these operands (cuda_kernels.fused_conv_plan):
-  // fma is the depthwise kernel, tf32 every other f32 conv
-  if ((a.variant == kFma) != (a.depthwise != 0) ||
+  // depthwise is the depthwise kernel, tf32 every other f32 conv
+  if ((a.variant == kDepthwise) != (a.depthwise != 0) ||
       (a.variant == kTf32) != (!a.is_bf16 && !a.depthwise))
     return (int)cudaErrorInvalidValue;
   if (a.variant == kWgmma) return (int)launch_wgmma(a, st);
   if (a.variant == kTf32) return fused_conv_tf32_launch(&a, stream);
   if (a.variant == kMmaSync) return fused_conv_mma_sync_launch(&a, stream);
-  if (a.variant != kFma && a.variant != kStem)
-    return (int)cudaErrorInvalidValue;
-  if (a.depthwise) {
-    const dim3 grid((unsigned)((M + kStatRows - 1) / kStatRows),
-                    (a.Cout + kDwC - 1) / kDwC);
-    if (a.Cin != a.Cout || grid.y > 65535) return (int)cudaErrorInvalidValue;
-    if (a.is_bf16)
-      conv_depthwise_kernel<bf16><<<grid, kDwC * kDwP, 0, st>>>(a);
-    else
-      conv_depthwise_kernel<float><<<grid, kDwC * kDwP, 0, st>>>(a);
-  } else {  // kStem
-    const int smem = stem_smem_bytes(a);
-    const long n_tiles = (a.Cout + kBN - 1) / kBN;
-    if (smem < 0 || n_tiles > 65535) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        conv_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    // two blocks an SM, each walking M tiles (B staged once a block)
-    const long m_tiles = (M + kStemBM - 1) / kStemBM;
-    conv_stem_kernel<<<dim3((unsigned)std::min<long>(m_tiles, 2L * a.sms),
-                            (unsigned)n_tiles), 128, smem, st>>>(a);
-  }
+  if (a.variant == kDepthwise) return fused_conv_depthwise_launch(&a, stream);
+  if (a.variant != kStem) return (int)cudaErrorInvalidValue;
+  const int smem = stem_smem_bytes(a);
+  const long n_tiles = (a.Cout + kBN - 1) / kBN;
+  if (smem < 0 || n_tiles > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // two blocks an SM, each walking M tiles (B staged once a block)
+  const long m_tiles = (M + kStemBM - 1) / kStemBM;
+  conv_stem_kernel<<<dim3((unsigned)std::min<long>(m_tiles, 2L * a.sms),
+                          (unsigned)n_tiles), 128, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1010,7 +929,8 @@ extern "C" int fused_conv(const void* args, void* stream) {
 }
 
 // The stats form: conv, no epilogue, and the moment slab at a.stats
-// ([2, ceil(M / 64), Cout] f32, every slot written).
+// ([2, slots, Cout] f32, every slot written: ceil(M / 64) slots, the
+// depthwise kernel's dw_blocks).
 extern "C" int fused_conv_stats(const void* args, void* stream) {
   const FusedConvArgs& a = *static_cast<const FusedConvArgs*>(args);
   if (!a.stats || a.n_stages != 0)

@@ -1,12 +1,17 @@
 // The fused conv's shared part: its arguments (FusedConvArgs, which
 // cuda_kernels._FusedConvArgs mirrors field for field), the epilogue's
-// stage interpreter and the helpers every variant uses. fused_conv.cu
-// (the stem, depthwise and wgmma kernels and the C entry points) and the
-// mma.sync kernels' sources (fused_conv_tf32.cu, fused_conv_mma_sync.cu)
-// include it; they compile in parallel into one library (ops/_build.py).
+// stage interpreter, the host's cache of tensor maps and the helpers
+// every variant uses. fused_conv.cu (the stem and wgmma kernels and the C
+// entry points), the mma.sync kernels' sources (fused_conv_tf32.cu,
+// fused_conv_mma_sync.cu) and the depthwise kernel's
+// (fused_conv_depthwise.cu) include it; they compile in parallel into one
+// library (ops/_build.py).
 #pragma once
 
+#include <cuda.h>
+
 #include <atomic>
+#include <cstring>
 
 #include "common.cuh"
 
@@ -66,12 +71,18 @@ struct FusedConvArgs {
   // splits > 1: an int32 per output tile, 0 at the launch; each output
   // tile's last turn puts its counter back to 0
   int* counters;
+  // the depthwise kernel's tile (cuda_kernels.depthwise_tile): output
+  // rows, strips of kDwCols outputs across, channels of a block; blocks
+  // along the tiles (the stats form's slots); halo buffers of its ring
+  int dw_rows, dw_strips, dw_chans, dw_blocks, dw_bufs;
 };
 
 // cuda_kernels.FUSED_CONV_VARIANTS, in order
-enum Variant { kFma = 0, kMmaSync = 1, kWgmma = 2, kStem = 3, kTf32 = 4 };
+enum Variant { kDepthwise = 0, kMmaSync = 1, kWgmma = 2, kStem = 3,
+               kTf32 = 4 };
 
-// output rows (pixels) per slot of the stats form's slab
+// output rows (pixels) per slot of the stats form's slab (every variant
+// but the depthwise one, whose slot is a block: dw_blocks slots)
 constexpr int kStatRows = 64;
 
 // The stats form's slab: sums at [slot, co], sums of squares after all
@@ -277,34 +288,9 @@ __device__ __forceinline__ float epilogue1(const FusedConvArgs& a, float y,
   return v[0];
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// Where output pixel m reads its (0, 0) tap: image, top row, left column
-// (the last two may be negative: padding). img < 0 marks m >= M.
-struct RowInfo {
-  int img, hi, wi;
-};
-
-__device__ __forceinline__ RowInfo row_info(const FusedConvArgs& a, int m,
-                                            int M) {
-  RowInfo r;
-  if (m >= M) {
-    r.img = -1;
-    r.hi = r.wi = 0;
-    return r;
-  }
-  const int hw = a.Ho * a.Wo;
-  r.img = m / hw;
-  const int rem = m - r.img * hw;
-  const int ho = rem / a.Wo, wo = rem - (rem / a.Wo) * a.Wo;
-  r.hi = ho * a.sh - a.ph;
-  r.wi = wo * a.sw - a.pw;
-  return r;
 }
 
 // The (kh, kw, ci) of flat k.
@@ -314,15 +300,6 @@ __device__ __forceinline__ void split_k(const FusedConvArgs& a, int k, int& kh,
   const int khw = k / a.Cin;
   kw = khw % a.KW;
   kh = khw / a.KW;
-}
-
-template <typename T>
-__device__ __forceinline__ T load_x(const FusedConvArgs& a, const T* x,
-                                    const RowInfo& r, int kh, int kw,
-                                    int ci) {
-  const int hi = r.hi + kh, wi = r.wi + kw;
-  if (r.img < 0 || hi < 0 || hi >= a.H || wi < 0 || wi >= a.W) return T(0.f);
-  return x[(((long)r.img * a.H + hi) * a.W + wi) * a.Cin + ci];
 }
 
 // ---- shared by the mma.sync kernels --------------------------------------
@@ -358,6 +335,38 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
       : "r"(addr));
 }
 
+// Host: a tensor map is a function of its encoder's arguments (address,
+// sizes, box), which a served model's launches repeat (its weights, and
+// the activations the caching allocator hands out again), so each host
+// thread keeps the last kMapCache maps of each call site.
+constexpr int kMapCache = 64;
+struct MapKey {
+  const void* ptr;
+  long v[7];  // the encoder's other arguments
+};
+
+template <class Encode>
+cudaError_t cached_map(CUtensorMap* map, const MapKey& key, Encode encode) {
+  struct Entry {
+    CUtensorMap map;
+    MapKey key;
+    bool valid;
+  };
+  thread_local Entry cache[kMapCache];
+  uint64_t h = reinterpret_cast<uintptr_t>(key.ptr) >> 4;
+  for (long v : key.v) h = h * 1000003u ^ (uint64_t)v;
+  Entry& e = cache[h % kMapCache];
+  if (!e.valid || std::memcmp(&e.key, &key, sizeof key) != 0) {
+    e.valid = false;
+    const cudaError_t err = encode(&e.map);
+    if (err != cudaSuccess) return err;
+    e.key = key;
+    e.valid = true;
+  }
+  *map = e.map;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // The mma.sync kernels' launchers (fused_conv_tf32.cu, f32;
@@ -365,3 +374,5 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
 // (cudaSuccess) or the launch's cudaError_t.
 extern "C" int fused_conv_tf32_launch(const void* args, void* stream);
 extern "C" int fused_conv_mma_sync_launch(const void* args, void* stream);
+// The depthwise kernel's launcher (fused_conv_depthwise.cu), both forms.
+extern "C" int fused_conv_depthwise_launch(const void* args, void* stream);

@@ -148,6 +148,35 @@ inline cudaError_t encode_bthd(CUtensorMap* map, const void* ptr, int B,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// An NHWC batch [N, H, W, C] (f32 or bf16; C * element size a multiple
+// of 16 bytes) as a 4-d map {C, W, H, N} whose box is `box_c` channels
+// of `box_w` x `box_h` pixels of one image, dense in shared memory as
+// [box_h][box_w][box_c], no swizzle: coordinates {c0, w0, h0, n}, which
+// may be negative. Pixels and channels outside the tensor read as 0.
+inline cudaError_t encode_nhwc_tile(CUtensorMap* map, const void* ptr,
+                                    bool bf16, int N, int H, int W, int C,
+                                    int box_c, int box_w, int box_h) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t e = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * e, (cuuint64_t)W * C * e,
+                                 (cuuint64_t)H * W * C * e};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w,
+                             (cuuint32_t)box_h, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map,
+                        bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        4, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---- device: shared memory, mbarriers, TMA ---------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

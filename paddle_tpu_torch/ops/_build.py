@@ -54,7 +54,7 @@ KERNELS = {
         'flash_attn_bwd_dkvdq': [_P] * 10 + [_I] * 7 + [_P],
     }),
     'fused_conv': (('fused_conv.cu', 'fused_conv_tf32.cu',
-                    'fused_conv_mma_sync.cu'), {
+                    'fused_conv_mma_sync.cu', 'fused_conv_depthwise.cu'), {
         # &FusedConvArgs (cuda_kernels._FusedConvArgs), stream
         'fused_conv': [_P, _P],
         # the same, with the stats form's slab (emit_stats)

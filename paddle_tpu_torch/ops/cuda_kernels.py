@@ -46,7 +46,9 @@ Ported so far:
   across blocks and added in a fixed order where the tiles fall short of
   a wave of the card's SMs; other f32 and bf16 convs: mma.sync, f32 as
   three TF32 products, with a tile width that follows Cout and K shared
-  by a block's warps where the tiles fall short of a wave).
+  by a block's warps where the tiles fall short of a wave; a depthwise
+  conv in either dtype: ``csrc/fused_conv_depthwise.cu``, halo tiles by
+  TMA in a ring of buffers, its tile from ``depthwise_tile``).
 - ``fused_conv(..., emit_stats=True)``: the same kernel's stats form
   (``_fconv_kernel`` with ``emit_stats``), the conv and the per-channel
   sum and sum of squares of its f32 output for train-mode batch norm;
@@ -81,7 +83,7 @@ LAUNCHES = {'flash_attn_fwd': 0, 'flash_attn_bwd_dkvdq': 0,
 
 # the fused conv's launches (both forms) by variant (FUSED_CONV_VARIANTS),
 # bumped with LAUNCHES
-FUSED_CONV_VARIANT_LAUNCHES = {'fma': 0, 'mma_sync': 0, 'wgmma': 0,
+FUSED_CONV_VARIANT_LAUNCHES = {'depthwise': 0, 'mma_sync': 0, 'wgmma': 0,
                                'stem': 0, 'tf32': 0}
 
 # the serving runtime's worker threads launch concurrently: every bump
@@ -538,7 +540,8 @@ FUSED_CONV_MAX_AUX = 8
 _AUX_KINDS = ('c', 'nc', 't', 's')
 _STAGE_OPS = ('affine', 'act', 'act_p', 'scale', 'postmul', 'bin')
 # output rows (pixels) per slot of the stats form's moment slab
-# (csrc/fused_conv.cuh kStatRows)
+# (csrc/fused_conv.cuh kStatRows), every variant but the depthwise one
+# (a slot a block: fused_conv_slots)
 FUSED_CONV_STAT_ROWS = 64
 _ACT_CODES = {n: i for i, n in enumerate(ACTS)}
 _ACT_P_CODES = {n: i for i, n in enumerate(ACTS_P)}
@@ -623,14 +626,15 @@ def fused_conv_reference(x, w, aux, kinds, stages, strides, pads,
 
 
 # the kernel's variants (csrc/fused_conv.cuh Variant, in order): the
-# depthwise kernel (a multiply-add per tap, either dtype), mma.sync on bf16
+# depthwise kernel (either dtype: halo tiles by TMA, a strip of outputs a
+# thread, csrc/fused_conv_depthwise.cu), mma.sync on bf16
 # (cp.async loads where Cin % 8 == 0, else the input rows under the tile
 # staged in shared memory), wgmma with TMA loads (bf16, Cin % 64 == 0,
 # Cout % 8 == 0), the stem (bf16 with Cin % 8 != 0, the 7x7 stem's Cin =
 # 3: its input rows staged in shared memory, mma.sync) and tf32 (every f32
 # conv that is not depthwise: mma.sync as three TF32 products, loaded as
 # mma_sync's, Cin % 4 deciding)
-FUSED_CONV_VARIANTS = ('fma', 'mma_sync', 'wgmma', 'stem', 'tf32')
+FUSED_CONV_VARIANTS = ('depthwise', 'mma_sync', 'wgmma', 'stem', 'tf32')
 # the wgmma kernel: output rows a tile (a K chunk is 64 channels of one
 # tap), most taps (KH * KW); shared memory a block may use
 FUSED_CONV_TILE_ROWS = 128
@@ -732,7 +736,8 @@ def fused_conv_plan(dtype, N, H, W, Cin, Cout, KH, KW, strides, pads,
     """The fused conv kernel's variant and tiling for these operands on a
     card of ``sms`` SMs: ``FusedConvPlan(variant, bn, splits)``.
 
-    ``variant`` is one of FUSED_CONV_VARIANTS: 'fma' for a depthwise conv,
+    ``variant`` is one of FUSED_CONV_VARIANTS: 'depthwise' for a depthwise
+    conv (its tile: :func:`depthwise_tile`),
     'tf32' for any other f32 one; in bf16 'wgmma' where Cin % 64 == 0
     and Cout % 8 == 0, 'stem' where Cin % 8 != 0 and the stem kernel
     takes the shape, else 'mma_sync'. For ``'wgmma'``, ``bn`` is the
@@ -754,8 +759,8 @@ def fused_conv_plan(dtype, N, H, W, Cin, Cout, KH, KW, strides, pads,
     writer each) and shares K among 2 sets of 4 warps where its blocks
     fall short of a wave, else 1. Where the input rows are staged (Cin
     not a multiple of 16 bytes) a block's staged rows must fit its shared
-    memory; a shape no split fits raises ValueError. 'fma' and 'stem':
-    (variant, 0, 1). ``max_bn`` and
+    memory; a shape no split fits raises ValueError. 'depthwise' and
+    'stem': (variant, 0, 1). ``max_bn`` and
     ``max_splits`` default to the live tuning knobs ``conv_max_bn`` and
     ``conv_max_splits`` (untuned: 256 and 4).
     """
@@ -772,7 +777,7 @@ def fused_conv_plan(dtype, N, H, W, Cin, Cout, KH, KW, strides, pads,
                          "max_splits at least 1, got %r and %r"
                          % (_TILE_WIDTHS, max_bn, max_splits))
     if depthwise:
-        return FusedConvPlan('fma', 0, 1)
+        return FusedConvPlan('depthwise', 0, 1)
     ho = (H + 2 * pads[0] - KH) // strides[0] + 1
     wo = (W + 2 * pads[1] - KW) // strides[1] + 1
     if dtype == torch.bfloat16:
@@ -824,6 +829,183 @@ def fused_conv_workspace(plan, M, Cout):
         return 0, 0
     tiles = -(-M // FUSED_CONV_TILE_ROWS) * -(-Cout // plan.bn)
     return tiles * FUSED_CONV_TILE_ROWS * plan.bn, tiles
+
+
+# the depthwise kernel (csrc/fused_conv_depthwise.cu): a thread's outputs
+# along W (kDwCols), a block's most threads (kDwThreads), a TMA box's most
+# elements a dimension (kDwBox), its ring's most halo buffers
+# (kDwMaxBufs); the bytes its halo buffers aim under, so that two blocks
+# share an SM; registers a thread (its launch bounds: two blocks of 256
+# threads an SM), for the blocks an SM holds
+_DW_COLS = 8
+_DW_THREADS = 256
+_DW_BOX = 256
+_DW_MAX_BUFS = 4
+_DW_HALO_SMEM = 104 * 1024
+_DW_REGS = 128
+_SM_SMEM = 233472            # an SM's shared memory (228 KB)
+
+DepthwiseTile = collections.namedtuple('DepthwiseTile',
+                                       'rows strips chans blocks bufs')
+
+
+def _dw_generic(KH, KW, strides):
+    """Whether the depthwise kernel takes these taps on its generic path
+    (not 3x3 at stride 1 or 2 in both dimensions)."""
+    return not (KH == KW == 3 and strides[0] == strides[1] in (1, 2))
+
+
+def _dw_halo_bytes(dtype, C, KH, KW, strides, rows, strips, chans,
+                   bufs=2):
+    """The depthwise kernel's halo buffers: ``bufs`` where TMA loads them
+    (C * element size a multiple of 16 bytes), else one, each 128-byte
+    aligned."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    ir = (rows - 1) * strides[0] + KH
+    iw = (strips * _DW_COLS - 1) * strides[1] + KW
+    return (bufs if C * e % 16 == 0 else 1) * \
+        -(-ir * iw * chans * e // 128) * 128
+
+
+def depthwise_smem_bytes(dtype, C, KH, KW, strides, rows, strips, chans,
+                         bufs=2, n_aux=FUSED_CONV_MAX_AUX):
+    """The depthwise kernel's shared memory for a tile (csrc
+    fused_conv_depthwise.cu dw_geom): its halo buffers, or the stats
+    form's per-thread sums where larger; the generic path's weights, the
+    per-channel operands, the ring's mbarriers, 128 bytes of alignment
+    slack."""
+    halo = max(_dw_halo_bytes(dtype, C, KH, KW, strides, rows, strips,
+                              chans, bufs), 2 * rows * strips * chans * 4)
+    weights = KH * KW * chans * 4 if _dw_generic(KH, KW, strides) else 0
+    return 128 + halo + weights + n_aux * chans * 4 + 8 * _DW_MAX_BUFS
+
+
+def depthwise_tile(dtype, N, H, W, C, KH, KW, strides, pads, sms):
+    """The depthwise kernel's tile for these operands on a card of ``sms``
+    SMs: ``DepthwiseTile(rows, strips, chans, blocks, bufs)``, a block's
+    output rows, its strips of _DW_COLS outputs across, its channels, the
+    blocks along the tiles (the persistent grid's x, and the stats form's
+    slots) and its ring's halo buffers.
+
+    Channels: 128 bytes of a pixel where C allows (32 f32, 64 bf16; a
+    multiple of 8 in bf16 where TMA loads the halo). Then, of the tile
+    shapes whose halo buffers fit _DW_HALO_SMEM (else the block's shared
+    memory) and whose box fits TMA's, the one with the most threads doing
+    real outputs (a tile's rows and strips past the image's edge do none),
+    and of those within a tenth of it, the least halo staged. A tile that
+    holds a whole image of few threads takes more channels (up to 256,
+    in powers of two), so a block has some 128-256 threads. Halo buffers:
+    as many as _DW_HALO_SMEM holds, 2 to _DW_MAX_BUFS. Blocks: as
+    many as the SMs hold at once (shared memory, threads, _DW_REGS
+    registers a thread), at most one a tile, and as few as give the same
+    most tiles a block. A shape no tile fits raises ValueError."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    (sh, sw), (ph, pw) = strides, pads
+    ho = (H + 2 * ph - KH) // sh + 1
+    wo = (W + 2 * pw - KW) // sw + 1
+    tma = C * e % 16 == 0
+    quads = -(-C // 4)
+    # a bf16 box's channels are a multiple of 8
+    step = 2 if tma and e == 2 else 1
+    strips_row = -(-wo // _DW_COLS)
+
+    def fits(rows, strips, ct, budget):
+        return ((rows - 1) * sh + KH <= _DW_BOX and
+                (strips * _DW_COLS - 1) * sw + KW <= _DW_BOX and
+                ct * rows * strips <= _DW_THREADS and
+                _dw_halo_bytes(dtype, C, KH, KW, strides, rows, strips,
+                               4 * ct) <= budget and
+                depthwise_smem_bytes(dtype, C, KH, KW, strides, rows,
+                                     strips, 4 * ct) <= FUSED_CONV_SMEM)
+
+    def best_for(ct, budget):
+        cands = []
+        for strips in range(1, min(strips_row, _DW_THREADS // ct) + 1):
+            rows = min(ho, _DW_THREADS // (ct * strips))
+            while rows > 1 and not fits(rows, strips, ct, budget):
+                rows -= 1
+            if not fits(rows, strips, ct, budget):
+                continue
+            tiles_h = -(-ho // rows)
+            tiles_w = -(-wo // (strips * _DW_COLS))
+            real = ct * rows * strips * ho * wo / float(
+                tiles_h * rows * tiles_w * strips * _DW_COLS)
+            halo = tiles_h * tiles_w * ((rows - 1) * sh + KH) * (
+                (strips * _DW_COLS - 1) * sw + KW)
+            cands.append((real, halo, rows, strips))
+        if not cands:
+            return None
+        top = max(c[0] for c in cands)
+        return min((c for c in cands if c[0] >= 0.9 * top),
+                   key=lambda c: (c[1], -c[0]))[2:]
+
+    ct = min(-(-quads // step) * step, 32 // e)
+    pick = None
+    for budget in (_DW_HALO_SMEM, FUSED_CONV_SMEM):
+        c = ct
+        while pick is None and c >= step:
+            pick = best_for(c, budget)
+            if pick is None:
+                c = c // 2 // step * step
+        if pick is not None:
+            ct = c
+            break
+    if pick is None:
+        raise ValueError("fused_conv: no depthwise tile fits a block for "
+                         "K=%dx%d stride=%s (TMA box at most %d)"
+                         % (KH, KW, strides, _DW_BOX))
+    rows, strips = pick
+    if rows == ho and strips == strips_row and ct * rows * strips < 128:
+        # one tile an image: more channels a block
+        wide = 1 << ((_DW_THREADS // (rows * strips)).bit_length() - 1)
+        wide = min(wide, _DW_BOX // 4, -(-quads // step) * step)
+        while wide > ct and not fits(rows, strips, wide, _DW_HALO_SMEM):
+            wide //= 2
+        ct = max(ct, wide)
+    chans = 4 * ct
+    threads = ct * rows * strips
+    one = _dw_halo_bytes(dtype, C, KH, KW, strides, rows, strips, chans, 1)
+    bufs = max(2, min(_DW_MAX_BUFS, _DW_HALO_SMEM // one))
+    smem = depthwise_smem_bytes(dtype, C, KH, KW, strides, rows, strips,
+                                chans, bufs)
+    per_sm = max(1, min(2048 // threads, 65536 // (threads * _DW_REGS),
+                        _SM_SMEM // (smem + 1024)))
+    tiles = N * -(-ho // rows) * -(-wo // (strips * _DW_COLS))
+    slices = -(-C // chans)
+    blocks = max(1, min(tiles, -(-per_sm * sms // slices)))
+    # as few blocks as give the same most tiles a block
+    blocks = -(-tiles // -(-tiles // blocks))
+    return DepthwiseTile(rows, strips, chans, blocks, bufs)
+
+
+def fused_conv_slots(plan, M, tile=None):
+    """The stats form's slots (the slab's second dimension) for a launch
+    of ``plan`` with M output rows: a block each for the depthwise kernel
+    (``tile.blocks``, :func:`depthwise_tile`), else one every
+    FUSED_CONV_STAT_ROWS rows."""
+    if plan.variant == 'depthwise':
+        return tile.blocks
+    return -(-M // FUSED_CONV_STAT_ROWS)
+
+
+def depthwise_slab_reference(conv, tile):
+    """The depthwise kernel's stats slab, plain PyTorch: conv [N, Ho, Wo,
+    C] (the f32 conv) summed, and its squares, over the outputs of each
+    block's tiles (tile t is walked by block t % tile.blocks; tiles in
+    image, row, column order) -> [2, tile.blocks, C] f32."""
+    N, ho, wo, C = conv.shape
+    cols = tile.strips * _DW_COLS
+    tiles_h, tiles_w = -(-ho // tile.rows), -(-wo // cols)
+    n = torch.arange(N).view(N, 1, 1)
+    th = (torch.arange(ho) // tile.rows).view(1, ho, 1)
+    tw = (torch.arange(wo) // cols).view(1, 1, wo)
+    slot = (((n * tiles_h + th) * tiles_w + tw) % tile.blocks).reshape(-1)
+    flat = conv.float().reshape(-1, C)
+    slab = torch.zeros(2, tile.blocks, C, dtype=torch.float32,
+                       device=conv.device)
+    slab[0].index_add_(0, slot.to(conv.device), flat)
+    slab[1].index_add_(0, slot.to(conv.device), flat * flat)
+    return slab
 
 
 def fused_conv_im2col(KH, KW, strides, pads):
@@ -887,7 +1069,9 @@ class _FusedConvArgs(ctypes.Structure):
         [(f, ctypes.c_int * 2) for f in (
             'im2col_lower', 'im2col_upper', 'im2col_stride')] +
         [('im2col_taps', (ctypes.c_int * 2) * FUSED_CONV_MAX_TAPS),
-         ('workspace', ctypes.c_void_p), ('counters', ctypes.c_void_p)])
+         ('workspace', ctypes.c_void_p), ('counters', ctypes.c_void_p)] +
+        [(f, ctypes.c_int) for f in (
+            'dw_rows', 'dw_strips', 'dw_chans', 'dw_blocks', 'dw_bufs')])
 
 
 def encode_epilogue(args, kinds, stages):
@@ -937,8 +1121,8 @@ def _encoded_launch(kinds, stages, dims, strides, pads, depthwise, dtype,
     """A launch's arguments but its pointers, as ``_FusedConvArgs`` bytes,
     with its plan (``plan``, or :func:`fused_conv_plan`'s for the form
     ``emit_stats`` under ``conv_knobs`` = (max_bn, max_splits) where
-    None), the split-K
-    buffers' sizes (:func:`fused_conv_workspace`) and the launch's
+    None), the split-K buffers' sizes (:func:`fused_conv_workspace`), the
+    stats slab's slots (:func:`fused_conv_slots`) and the launch's
     description for errors: encoded once per distinct shape, epilogue and
     knobs. ``dims``: (N, H, W, Cin, Cout, KH, KW, Ho, Wo)."""
     args = _FusedConvArgs()
@@ -966,11 +1150,18 @@ def _encoded_launch(kinds, stages, dims, strides, pads, depthwise, dtype,
     args.im2col_stride[:] = stride
     for t, offsets in enumerate(taps[:FUSED_CONV_MAX_TAPS]):
         args.im2col_taps[t][:] = offsets
+    tile = None
+    if plan.variant == 'depthwise':
+        tile = depthwise_tile(dtype, N, H, W, cout, kh, kw, strides, pads,
+                              sms)
+        (args.dw_rows, args.dw_strips, args.dw_chans, args.dw_blocks,
+         args.dw_bufs) = tile
     what = ('N=%d H=%d W=%d Cin=%d Cout=%d K=%dx%d stride=%s pad=%s %s%s, '
-            '%s' % (N, H, W, cin, cout, kh, kw, strides, pads, dtype,
-                    ' depthwise' if depthwise else '', plan))
+            '%s%s' % (N, H, W, cin, cout, kh, kw, strides, pads, dtype,
+                      ' depthwise' if depthwise else '', plan,
+                      ', %s' % (tile,) if tile else ''))
     return (bytes(args), plan, fused_conv_workspace(plan, N * ho * wo, cout),
-            what)
+            fused_conv_slots(plan, N * ho * wo, tile), what)
 
 
 def _kernel_aux(x, aux, kinds, n, ho, wo, cout):
@@ -994,8 +1185,8 @@ def _kernel_aux(x, aux, kinds, n, ho, wo, cout):
 def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
                        emit_stats=False, plan=None):
     """Launch the kernel: y, or with ``emit_stats`` (y, slab), the slab
-    [2, ceil(M / FUSED_CONV_STAT_ROWS), Cout] f32 of per-slot sums and
-    sums of squares of the conv output (M = N * Ho * Wo). ``plan`` (a
+    [2, slots, Cout] f32 of per-slot sums and sums of squares of the conv
+    output (slots: :func:`fused_conv_slots`; M = N * Ho * Wo). ``plan`` (a
     FusedConvPlan) overrides :func:`fused_conv_plan`'s; the kernel
     refuses one that does not take these operands."""
     if x.dim() != 4 or not x.is_contiguous():
@@ -1031,7 +1222,7 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
     # the live knobs are part of the cached encoding's key: a tuned run
     # never reuses another entry's plan
     live = _knobs()
-    encoded, plan, (ws_elems, n_counters), what = _encoded_launch(
+    encoded, plan, (ws_elems, n_counters), slots, what = _encoded_launch(
         tuple(kinds), tuple(stages), (N, H, W, cin, cout, kh, kw, ho, wo),
         tuple(strides), tuple(pads), bool(depthwise), x.dtype, sms, plan,
         (live['conv_max_bn'], live['conv_max_splits']), bool(emit_stats))
@@ -1056,7 +1247,6 @@ def _fused_conv_launch(x, w, aux, kinds, stages, strides, pads, depthwise,
         args.counters = counters.data_ptr()
     slab = None
     if emit_stats:
-        slots = -(-N * ho * wo // FUSED_CONV_STAT_ROWS)
         slab = torch.empty((2, slots, cout), dtype=torch.float32,
                            device=x.device)
         args.stats = slab.data_ptr()
@@ -1102,10 +1292,12 @@ class _FusedConv(torch.autograd.Function):
 # ---- the stats form -------------------------------------------------------------
 def _stats_kernel(x, w, strides, pads, depthwise):
     """The stats form on the card: (y, sum, sumsq), the slab summed over
-    its slots in f32 (as JAX sums its partials outside the kernel)."""
+    its slots in f32 (as JAX sums its partials outside the kernel), both
+    moments by one reduction."""
     y, slab = _fused_conv_launch(x, w, (), (), (), strides, pads, depthwise,
                                  emit_stats=True)
-    return y, slab[0].sum(0), slab[1].sum(0)
+    ssum, ssq = slab.sum(1).unbind(0)
+    return y, ssum, ssq
 
 
 def _stats_reference(x, w, strides, pads, depthwise):

@@ -167,11 +167,11 @@ def test_plan_splits_the_small_m_convs():
     ((8, 14, 14, 64, 60, 1, 1, 0, torch.bfloat16, False), 'mma_sync', 64),
     # 81 taps: more than the kernel's arguments carry
     ((8, 14, 14, 64, 64, 9, 1, 4, torch.bfloat16, False), 'mma_sync', 64),
-    # depthwise in either dtype: the multiply-add kernel; any other f32
+    # depthwise in either dtype: the depthwise kernel; any other f32
     # conv: three TF32 products
-    ((8, 14, 14, 64, 64, 3, 1, 1, torch.bfloat16, True), 'fma', 0),
+    ((8, 14, 14, 64, 64, 3, 1, 1, torch.bfloat16, True), 'depthwise', 0),
     ((8, 14, 14, 64, 64, 3, 1, 1, torch.float32, False), 'tf32', 64),
-    ((8, 14, 14, 64, 64, 3, 1, 1, torch.float32, True), 'fma', 0),
+    ((8, 14, 14, 64, 64, 3, 1, 1, torch.float32, True), 'depthwise', 0),
     ((8, 14, 14, 64, 64, 3, 1, 1, torch.bfloat16, False), 'wgmma', 64),
     ((8, 14, 14, 64, 8, 1, 1, 0, torch.bfloat16, False), 'wgmma', 64),
     ((64, 14, 14, 64, 72, 1, 1, 0, torch.bfloat16, False), 'wgmma', 128),
@@ -186,7 +186,7 @@ def test_plan_boundaries(case, variant, bn):
     plan = ck.fused_conv_plan(dtype, N, H, W, cin, cout, k, k, (s, s),
                               (p, p), dw, SMS)
     assert plan.variant == variant and plan.bn == bn
-    if variant in ('stem', 'fma'):
+    if variant in ('stem', 'depthwise'):
         assert plan == ck.FusedConvPlan(variant, 0, 1)
     elif variant != 'wgmma':
         # at most 1,568 output rows: no tile fills a wave of 132 SMs, so
@@ -249,11 +249,11 @@ def test_mma_plan_width_rows_and_splits(case, want):
     # no split-K buffers: the warps' partials meet in shared memory
     ho, wo = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
     assert ck.fused_conv_workspace(plan, N * ho * wo, cout) == (0, 0)
-    # the same conv depthwise takes the multiply-add kernel
+    # the same conv depthwise takes the depthwise kernel
     if cin == cout:
         assert ck.fused_conv_plan(dtype, N, H, W, cin, cout, k, k, (s, s),
                                   (p, p), True, SMS, emit_stats=stats) == \
-            ck.FusedConvPlan('fma', 0, 1)
+            ck.FusedConvPlan('depthwise', 0, 1)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -320,7 +320,7 @@ def _launch_args(N, H, W, C, Cout, KH, KW, strides, pads, plan=None):
     plan they carry."""
     ho = (H + 2 * pads[0] - KH) // strides[0] + 1
     wo = (W + 2 * pads[1] - KW) // strides[1] + 1
-    encoded, plan, _, _ = ck._encoded_launch(
+    encoded, plan, _, _, _ = ck._encoded_launch(
         ('c', 'c'), (('affine', 0, 1), ('act', 'relu')),
         (N, H, W, C, Cout, KH, KW, ho, wo), tuple(strides), tuple(pads),
         False, torch.bfloat16, SMS, plan, UNTUNED)
@@ -460,9 +460,11 @@ def test_kernel_arguments_carry_the_plan():
     assert names[names.index('stats'):] == [
         'stats', 'variant', 'bn', 'splits', 'sms', 'im2col_lower',
         'im2col_upper', 'im2col_stride', 'im2col_taps', 'workspace',
-        'counters']
+        'counters', 'dw_rows', 'dw_strips', 'dw_chans', 'dw_blocks',
+        'dw_bufs']
     src = open(ck._build.CSRC_DIR + '/fused_conv.cuh').read()
     assert 'int variant, bn, splits, sms;' in src
+    assert 'int dw_rows, dw_strips, dw_chans, dw_blocks, dw_bufs;' in src
     assert 'int im2col_lower[2], im2col_upper[2], im2col_stride[2];' in src
     assert 'int im2col_taps[kMaxTaps][2];' in src
     assert 'constexpr int kMaxTaps = %d;' % ck.FUSED_CONV_MAX_TAPS in src
@@ -524,3 +526,92 @@ def test_encoded_launch_carries_the_plan(N, key):
     hits = ck._encoded_launch.cache_info().hits
     _launch_args(N, H, W, cin, cout, k, k, (s, s), (p, p), plan=forced)
     assert ck._encoded_launch.cache_info().hits == hits + 1
+
+
+# ---- the depthwise kernel's tile --------------------------------------------------
+# MobileNet-v1's 13 depthwise 3x3 layers at 224 (H, W, C, stride), batch 32
+MOBILENET_DW = [(112, 112, 32, 1), (112, 112, 64, 2), (56, 56, 128, 1),
+                (56, 56, 128, 2), (28, 28, 256, 1), (28, 28, 256, 2)] + \
+    [(14, 14, 512, 1)] * 5 + [(14, 14, 512, 2), (7, 7, 1024, 1)]
+# (N, H, W, C, K, stride, pad): ragged C (24, 40, 6, 12), H and W 7, 9 and
+# 11, 5x5 at stride 2, no padding, a 7x7 image of 1024 channels
+DEPTHWISE_SHAPES = [(2, 9, 9, 24, 3, 1, 1), (3, 11, 7, 40, 3, 1, 1),
+                    (3, 7, 7, 40, 3, 2, 1), (2, 11, 11, 24, 5, 2, 2),
+                    (2, 9, 11, 40, 5, 2, 2), (2, 9, 11, 6, 3, 1, 1),
+                    (2, 7, 9, 12, 3, 2, 1), (2, 7, 7, 1024, 3, 1, 1),
+                    (2, 30, 30, 64, 3, 1, 0), (1, 64, 512, 16, 7, 1, 3)] + \
+    [(32, H, W, C, 3, s, 1) for H, W, C, s in sorted(set(MOBILENET_DW))]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', DEPTHWISE_SHAPES)
+def test_depthwise_plan_and_tile(dtype, shape):
+    """Every depthwise shape takes the depthwise kernel in both forms, and
+    its tile fits the kernel: at most 256 threads, channels in 4-channel
+    groups (8 in bf16 where TMA loads the halo), a TMA box of at most 256
+    along each dimension, a ring of 2 to 4 halo buffers, the block's
+    shared memory, at most one block a tile, and the stats slab's slots
+    one a block."""
+    N, H, W, C, k, s, p = shape
+    for stats in (False, True):
+        assert ck.fused_conv_plan(dtype, N, H, W, C, C, k, k, (s, s),
+                                  (p, p), True, SMS, emit_stats=stats) == \
+            ck.FusedConvPlan('depthwise', 0, 1)
+    tile = ck.depthwise_tile(dtype, N, H, W, C, k, k, (s, s), (p, p), SMS)
+    e = 2 if dtype == torch.bfloat16 else 4
+    ho, wo = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+    cols = tile.strips * ck._DW_COLS
+    assert tile.chans % 4 == 0 and 4 <= tile.chans <= 256
+    if C * e % 16 == 0:
+        assert tile.chans * e % 16 == 0
+    assert tile.chans // 4 * tile.rows * tile.strips <= ck._DW_THREADS
+    assert (tile.rows - 1) * s + k <= 256 and (cols - 1) * s + k <= 256
+    assert tile.rows <= ho and cols < wo + ck._DW_COLS
+    assert 2 <= tile.bufs <= ck._DW_MAX_BUFS
+    assert ck.depthwise_smem_bytes(dtype, C, k, k, (s, s), tile.rows,
+                                   tile.strips, tile.chans, tile.bufs) <= \
+        ck.FUSED_CONV_SMEM
+    tiles = N * -(-ho // tile.rows) * -(-wo // cols)
+    assert 1 <= tile.blocks <= tiles
+    assert -(-C // tile.chans) <= 65535
+    assert ck.fused_conv_slots(ck.FusedConvPlan('depthwise', 0, 1),
+                               N * ho * wo, tile) == tile.blocks
+
+
+def test_depthwise_mobilenet_tiles_fill_blocks():
+    """At MobileNet-v1's stride-1 layers a block runs at least 128
+    threads, and at every layer the blocks fill the SMs at least once."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, W, C, s in MOBILENET_DW:
+            tile = ck.depthwise_tile(dtype, 32, H, W, C, 3, 3, (s, s),
+                                     (1, 1), SMS)
+            threads = tile.chans // 4 * tile.rows * tile.strips
+            assert s == 2 or threads >= 128, (dtype, H, C, tile)
+            assert tile.blocks * -(-C // tile.chans) >= SMS, (dtype, H, C,
+                                                              tile)
+
+
+def test_depthwise_kernel_constants_mirror_the_source():
+    """The tile's constants are the kernel's (csrc
+    fused_conv_depthwise.cu), and the encoded launch carries the tile."""
+    src = open(ck._build.CSRC_DIR + '/fused_conv_depthwise.cu').read()
+    assert 'constexpr int kDwCols = %d;' % ck._DW_COLS in src
+    assert 'constexpr int kDwThreads = %d;' % ck._DW_THREADS in src
+    assert 'constexpr int kDwBox = %d;' % ck._DW_BOX in src
+    assert 'constexpr int kDwMaxBufs = %d;' % ck._DW_MAX_BUFS in src
+    assert 'fused_conv_depthwise.cu' in ck._build.KERNELS['fused_conv'][0]
+    N, H, W, C, k, s, p = 32, 56, 56, 128, 3, 2, 1
+    ho = wo = 28
+    for dtype in (torch.float32, torch.bfloat16):
+        encoded, plan, workspace, slots, _ = ck._encoded_launch(
+            ('c', 'c'), (('affine', 0, 1), ('act', 'relu')),
+            (N, H, W, C, C, k, k, ho, wo), (s, s), (p, p), True, dtype,
+            SMS, None, UNTUNED, True)
+        args = ck._FusedConvArgs.from_buffer_copy(encoded)
+        tile = ck.depthwise_tile(dtype, N, H, W, C, k, k, (s, s), (p, p),
+                                 SMS)
+        assert plan == ck.FusedConvPlan('depthwise', 0, 1)
+        assert ck.FUSED_CONV_VARIANTS[args.variant] == 'depthwise'
+        assert (args.dw_rows, args.dw_strips, args.dw_chans,
+                args.dw_blocks, args.dw_bufs) == tuple(tile)
+        assert slots == tile.blocks and workspace == (0, 0)

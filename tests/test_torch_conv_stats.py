@@ -95,6 +95,55 @@ def test_stats_form_refuses_epilogue_stages():
                       False, emit_stats=True)
 
 
+
+# ---- the depthwise kernel's slab -----------------------------------------------
+# (N, H, W, C, K, stride, pad): C 24 and 40 (not a multiple of a block's
+# slice), H and W 7, 9 and 11, 5x5 at stride 2; M = N * Ho * Wo is not a
+# multiple of 64 in any of them
+DEPTHWISE_SLAB_SHAPES = {
+    'c24_9x9': (2, 9, 9, 24, 3, 1, 1),
+    'c40_11x7': (3, 11, 7, 40, 3, 1, 1),
+    'c40_7x7_s2': (3, 7, 7, 40, 3, 2, 1),
+    'c24_11x11_5x5_s2': (2, 11, 11, 24, 5, 2, 2),
+    'c40_9x11_5x5_s2': (2, 9, 11, 40, 5, 2, 2),
+}
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('name', sorted(DEPTHWISE_SLAB_SHAPES))
+def test_depthwise_slab_sums_to_jax_moments(name, dtype):
+    """The depthwise kernel's slab as its plain version builds it
+    (``depthwise_slab_reference``: a slot a block, each block's tiles) on
+    the tile the card would take (132 SMs, the tile of ``dtype``): its
+    slot count is the one the stats form allocates (fused_conv_slots),
+    every slot holds outputs, and summed over its slots it gives the
+    moments of the JAX Pallas kernel's stats form (interpret mode) to
+    1e-5."""
+    N, H, W, C, k, s, p = DEPTHWISE_SLAB_SHAPES[name]
+    x, w = _operands((N, H, W, C, C, k, s, p, True))
+    with pk.force_conv_epilogue('interpret'):
+        got, why = pk.fused_conv_epilogue(
+            jnp.asarray(x), jnp.asarray(w), (), (), (s, s), (p, p), True,
+            (), emit_stats=True, interpret=True)
+    assert why is None
+    _, j_psum, j_psumsq = (np.asarray(a) for a in got)
+    conv = ck.fused_conv_reference(torch.tensor(x), torch.tensor(w), (), (),
+                                   (), (s, s), (p, p), True)
+    M = conv.shape[0] * conv.shape[1] * conv.shape[2]
+    assert M % ck.FUSED_CONV_STAT_ROWS
+    tdtype = getattr(torch, dtype)
+    plan = ck.fused_conv_plan(tdtype, N, H, W, C, C, k, k, (s, s), (p, p),
+                              True, 132, emit_stats=True)
+    tile = ck.depthwise_tile(tdtype, N, H, W, C, k, k, (s, s), (p, p), 132)
+    slab = ck.depthwise_slab_reference(conv, tile)
+    assert slab.shape == (2, ck.fused_conv_slots(plan, M, tile), C)
+    counts = ck.depthwise_slab_reference(torch.ones_like(conv), tile)[0]
+    assert (counts > 0).all() and counts.sum(0).eq(M).all()
+    np.testing.assert_allclose(slab[0].sum(0).numpy(), j_psum.sum((0, 1)),
+                               **TOL)
+    np.testing.assert_allclose(slab[1].sum(0).numpy(),
+                               j_psumsq.sum((0, 1)), **TOL)
+
 # ---- the card's autograd Function, on the plain forward ------------------------
 class MomentsDropped(ck._FusedConvStats):
     """A wrong stats form (a control): its backward ignores the moments'

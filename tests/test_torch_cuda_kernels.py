@@ -498,7 +498,8 @@ def _stats_ratios(x, w, strides, pads, depthwise, y, ssum, ssq):
 def test_fused_conv_stats_form_matches_plain(cuda, dtype, shape):
     """The stats form against its plain version; the same slab without
     its last slot (a kernel that drops the last row tile's partial)
-    fails the moments' limit where M is not a multiple of the slot."""
+    fails the moments' limit where M is not a multiple of the slot (and
+    always for the depthwise kernel, whose slot is a block)."""
     N, H, W, cin, cout, k, s, p, dw = STATS_SHAPES[shape]
     x, w, _, _, _, strides, pads, _ = _conv_case(
         cuda, dtype, N, H, W, cin, cout, k, s, p, dw, seed=len(shape))
@@ -513,8 +514,14 @@ def test_fused_conv_stats_form_matches_plain(cuda, dtype, shape):
     _, slab = ck._fused_conv_launch(x, w, (), (), (), strides, pads, dw,
                                     emit_stats=True)
     M = y.shape[0] * y.shape[1] * y.shape[2]
-    assert slab.shape == (2, -(-M // ck.FUSED_CONV_STAT_ROWS), y.shape[3])
-    if M % ck.FUSED_CONV_STAT_ROWS:
+    sms = ck._sm_count(x.device.index or 0)
+    plan = ck.fused_conv_plan(dtype, N, H, W, cin, cout, k, k, strides,
+                              pads, dw, sms, emit_stats=True)
+    tile = ck.depthwise_tile(dtype, N, H, W, cin, k, k, strides, pads,
+                             sms) if dw else None
+    assert slab.shape == (2, ck.fused_conv_slots(plan, M, tile), y.shape[3])
+    # the depthwise kernel's slot is a block, and every block has outputs
+    if dw or M % ck.FUSED_CONV_STAT_ROWS:
         assert max(_stats_ratios(x, w, strides, pads, dw, y,
                                  slab[0, :-1].sum(0),
                                  slab[1, :-1].sum(0))[1:]) > 1
@@ -592,6 +599,91 @@ def test_resnet50_trains_on_the_stats_form(cuda):
     for n in means:
         assert not torch.equal(scope.raw(n), before[n]), n
 
+
+
+# ---- the depthwise kernel --------------------------------------------------------
+# (N, H, W, C, K, stride, pad): C not a multiple of 8 channel quads or of
+# a block's slice, H and W 7, 9 and 11, 5x5 at stride 2, M not a multiple
+# of 64; C 6 (f32 and bf16) and 12 (bf16) stage the halo with scalar
+# loads (a pixel's channels not a multiple of 16 bytes); C 1024 at 7x7
+# widens a block's channels
+DEPTHWISE_SHAPES = {
+    'c24_9x9': (2, 9, 9, 24, 3, 1, 1),
+    'c40_11x7': (3, 11, 7, 40, 3, 1, 1),
+    'c40_7x7_s2': (3, 7, 7, 40, 3, 2, 1),
+    'c24_11x11_5x5_s2': (2, 11, 11, 24, 5, 2, 2),
+    'c40_9x11_5x5_s2': (2, 9, 11, 40, 5, 2, 2),
+    'c6_9x11': (2, 9, 11, 6, 3, 1, 1),
+    'c12_7x9_s2': (2, 7, 9, 12, 3, 2, 1),
+    'c1024_7x7': (2, 7, 7, 1024, 3, 1, 1),
+    'c64_30x30_pad0': (2, 30, 30, 64, 3, 1, 0),
+}
+
+
+def _depthwise_case(cuda, dtype, shape, seed=11):
+    N, H, W, C, k, s, p = DEPTHWISE_SHAPES[shape]
+    return _conv_case(cuda, dtype, N, H, W, C, C, k, s, p, True, seed)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', sorted(DEPTHWISE_SHAPES))
+def test_depthwise_kernel_matches_plain(cuda, dtype, shape):
+    """The inference form (folded batch norm, relu) against its plain
+    version, on the depthwise variant; two calls give the same bits."""
+    case = _depthwise_case(cuda, dtype, shape)
+    before = ck.FUSED_CONV_VARIANT_LAUNCHES['depthwise']
+    _check_conv(case)
+    x, w, aux, kinds, stages, strides, pads, dw = case
+    again = ck.fused_conv(x, w, aux, kinds, stages, strides, pads, dw)
+    torch.cuda.synchronize()
+    assert ck.FUSED_CONV_VARIANT_LAUNCHES['depthwise'] == before + 3
+    assert torch.equal(again, ck.fused_conv(x, w, aux, kinds, stages,
+                                            strides, pads, dw))
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', sorted(DEPTHWISE_SHAPES))
+def test_depthwise_kernel_stats_form_matches_plain(cuda, dtype, shape):
+    """The stats form: y and the moments against the plain version; the
+    slab has a slot a block and each slot holds its block's tiles' sums
+    (depthwise_slab_reference), within the moments' limit of that slot;
+    two calls give the same bits, slab included."""
+    x, w, _, _, _, strides, pads, _ = _depthwise_case(cuda, dtype, shape)
+    N, H, W, C = x.shape
+    k = w.shape[0]
+    y, slab = ck._fused_conv_launch(x, w, (), (), (), strides, pads, True,
+                                    emit_stats=True)
+    y2, slab2 = ck._fused_conv_launch(x, w, (), (), (), strides, pads, True,
+                                      emit_stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(slab, slab2)
+    assert max(_stats_ratios(x, w, strides, pads, True, y, slab[0].sum(0),
+                             slab[1].sum(0))) <= 1
+    tile = ck.depthwise_tile(dtype, N, H, W, C, k, k, strides, pads,
+                             ck._sm_count(x.device.index or 0))
+    assert slab.shape == (2, tile.blocks, C)
+    conv = ck.fused_conv_reference(x.float(), w.float(), (), (), (),
+                                   strides, pads, True)
+    ref = ck.depthwise_slab_reference(conv, tile)
+    size = ck.depthwise_slab_reference(conv.abs(), tile)
+    rel = STATS_REL[dtype]
+    assert ((slab[0] - ref[0]).abs() <= rel * size[0] + 1e-30).all()
+    assert ((slab[1] - ref[1]).abs() <= rel * ref[1] + 1e-30).all()
+    # a slab whose slots are summed one block off fails that check
+    assert tile.blocks > 1
+    assert not ((slab[0].roll(1, 0) - ref[0]).abs() <=
+                rel * size[0] + 1e-30).all()
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('epi', sorted(EPILOGUES))
+@pytest.mark.parametrize('C', [6, 24])
+def test_depthwise_kernel_epilogue_kinds(cuda, dtype, epi, C):
+    """Each aux kind on the depthwise kernel, with C a multiple of 4
+    channels (vector loads and stores) and not (one at a time)."""
+    stages, extra = EPILOGUES[epi]
+    _check_conv(_conv_case(cuda, dtype, 2, 9, 11, C, C, 3, 2, 1, True, 5,
+                           stages=stages, extra_aux=extra))
 
 # ---- the wgmma conv kernel at ResNet-50's shapes ---------------------------------
 # ResNet-50's distinct region shapes (H, W, Cin, Cout, K, stride, pad)
@@ -683,7 +775,7 @@ def test_fused_conv_refuses_a_plan_it_cannot_take(cuda):
     x, w, aux, kinds, stages, strides, pads, _ = _conv_case(
         cuda, torch.bfloat16, 2, 8, 8, 32, 64, 3, 1, 1, False, seed=1)
     bad = [ck.FusedConvPlan('wgmma', 64, 1),      # Cin 32
-           ck.FusedConvPlan('fma', 0, 1),         # not depthwise
+           ck.FusedConvPlan('depthwise', 0, 1),   # not depthwise
            ck.FusedConvPlan('tf32', 64, 1),       # bf16
            ck.FusedConvPlan('mma_sync', 96, 1),   # no such width
            ck.FusedConvPlan('mma_sync', 20, 1),   # not a multiple of 8
@@ -695,7 +787,7 @@ def test_fused_conv_refuses_a_plan_it_cannot_take(cuda):
     x, w, aux, kinds, stages, strides, pads, _ = _conv_case(
         cuda, torch.float32, 2, 8, 8, 32, 64, 3, 1, 1, False, seed=1)
     for plan in (ck.FusedConvPlan('mma_sync', 64, 1),   # f32
-                 ck.FusedConvPlan('fma', 0, 1),         # not depthwise
+                 ck.FusedConvPlan('depthwise', 0, 1),   # not depthwise
                  ck.FusedConvPlan('tf32', 24, 1)):      # no such f32 width
         with pytest.raises(RuntimeError, match='CUDA error'):
             ck._fused_conv_launch(x, w, aux, kinds, stages, strides, pads,
