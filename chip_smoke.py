@@ -17,6 +17,10 @@
                                           # phase 21 alone
     python3 chip_smoke.py --phase22       # the kernels' build, then
                                           # phase 22 alone
+    python3 chip_smoke.py --phase24       # the kernels' build, then
+                                          # phase 24 alone
+    python3 chip_smoke.py --crnn-switches # 24b's card and CPU steps'
+                                          # max pool and ReLU choices
 
 from the root of a checkout. Phases, each of which raises (and so exits
 non-zero) on failure:
@@ -487,7 +491,29 @@ non-zero) on failure:
    the taps-shifted control failing the logits and loss limits; the
    depthwise regions' share of a served request's op time from the
    profiler's op table; the phase's seconds;
-23. summary: a JSON line of the kernels, the card line, and last the
+24. the detection and CTC families, the observatory, the cold-start store
+   and the C API (``phase_detection_ctc``, constants SSD_*, CRNN_*,
+   CTC_*, COLDSTART_*, CAPI_CLIENT at its head): 24a, MobileNet-SSD (300,
+   width 1.0, 21 classes, 1917 priors) trained 3 Momentum(0.001, 0.9)
+   steps at batch 32 on LoD ground truth in f32 (the first loss against
+   the plain fused conv within 2x an f64 witness, the taps-shifted
+   control failing) and AMP, one step at batch 2 against the CPU, saved,
+   loaded and served through detection_output at batch 1 and 8 (loc and
+   scores against the plain path and, at batch 1, the CPU; the NMS against
+   the CPU's on the same inputs; DetectionMAP streamed against
+   detection_map_numpy), exactly 47 regions a step and a request (35 in
+   the stats form, 13 depthwise, 12 heads), the 8 extra and 12 head
+   regions held and timed; 24b, CRNN-CTC (1 x 48 x 512, 96 classes)
+   trained 3 steps at batch 32, one step against the CPU, warpctc against
+   ctc_loss in f64, the decode and distances exactly; 24c, the Trainer
+   under the performance observatory (the fused conv's counted
+   operations against a hand count, the gauges, /ledgers, the flight
+   bundle, the tuner's bound); 24d, two child replicas warmed through the
+   cold-start store (``--coldstart-child``), empty then filled, outputs
+   bit-identical; 24e, a C program built with gcc serving the saved SSD
+   model through the C API, its output the Executor's bit for bit; the
+   phase's seconds;
+25. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
 import argparse
@@ -1955,16 +1981,17 @@ def phase_resnet_serving(seed, artifacts):
 # ---- 6b. the serving runtime ------------------------------------------------------
 # the buckets each model warms, the rows its clients send (a seeded mix,
 # RUNTIME_CLIENTS threads at once, each sending it RUNTIME_ROUNDS times),
-# the requests timed per bucket (enough for a p99 that is not the
-# largest of a handful; the flagship's 50-150 ms requests, 30 of them,
-# and ResNet-50's 60, so that the whole script stays well inside its
-# time limit: it read 1089 s with 50 and 100, phases 6b and 6c 294 s of
-# it)
+# the requests timed per bucket: the flagship's 50-150 ms requests, 15 of
+# them, and ResNet-50's 30, and 3 rounds of the mix, so that the whole
+# script stays inside its time limit with phase 24 (~100 s): it read
+# 1089 s with 50 and 100 requests and 5 rounds (phases 6b and 6c 294 s of
+# it), 931 s with 30 and 60; a p99 of 15 requests is their largest but
+# one
 RUNTIME_BUCKETS = {'flagship': [1, 2, 4], 'resnet': [1, 2, 4, 8, 16, 32]}
 RUNTIME_MIX = {'flagship': [1, 2, 3, 4], 'resnet': [1, 5, 8, 17, 32]}
 RUNTIME_CLIENTS = 4
-RUNTIME_ROUNDS = 5
-RUNTIME_TIMED = {'flagship': 30, 'resnet': 60}
+RUNTIME_ROUNDS = 3
+RUNTIME_TIMED = {'flagship': 15, 'resnet': 30}
 # the folded Inferencer (ResNet-50, batch 8). In f32 (AMP off) the fold
 # only re-associates each batch norm's affine: its logits within 1e-4 of
 # their scale of the unfolded model's (the whole-model parity tolerance).
@@ -3996,7 +4023,7 @@ def _rolled_filters(x, w, aux, kinds, stages, strides, pads, depthwise,
 
 
 def _hold_regions(label, context, calls, totals, sum_dtypes=('bfloat16',),
-                  dedupe=False):
+                  dedupe=False, timed=True):
     """Each recorded region against its plain version per element (the
     stats form: y per element, the moments per channel), twice bit for
     bit, a control that must fail (the inference form: the next output
@@ -4010,7 +4037,8 @@ def _hold_regions(label, context, calls, totals, sum_dtypes=('bfloat16',),
     same key followed by the kernel's variant: {ms, plain_ms,
     library_ms, bound_ms, max_abs_err, regions}, one step's or one
     request's sums. With ``dedupe`` each distinct region is held and
-    timed once and counted as often as it was recorded."""
+    timed once and counted as often as it was recorded. With ``timed``
+    False the regions are held and not timed, and add to no total."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels as ck
@@ -4057,6 +4085,18 @@ def _hold_regions(label, context, calls, totals, sum_dtypes=('bfloat16',),
                               (CONV_F64_WITNESS,))
             call = lambda: ck.fused_conv(*args)  # noqa
             plain = lambda: ck.fused_conv_reference(*args)  # noqa
+        if not timed:
+            print('kernel %s %s region%s N=%d %dx%d Cin=%d Cout=%d K=%d s=%d '
+                  'p=%d %s [%s] %s: max|err| %.3g%s; held, not timed%s' % (
+                      'fused_conv_stats' if stats else 'fused_conv', label,
+                      ' (x%d)' % count if count > 1 else '', N, H, W, cin,
+                      cout, k, st[0], pd[0], dtype, ' '.join(
+                          s[0] if s[0] != 'act' else s[1] for s in stages),
+                      _plan_label(plan), err, '' if stats else
+                      ', err/limit %.3g (next channel\'s filters: %.3g), two '
+                      'calls bit-identical' % (ratio, control), witness),
+                  flush=True)
+            continue
         out = x.new_empty((N, (H + 2 * pd[0] - k) // st[0] + 1,
                            (W + 2 * pd[1] - k) // st[1] + 1, cout))
         bound_ms, by = conv_bound(x, w, list(aux), out, k, st[0], pd[0], dw,
@@ -11651,6 +11691,21 @@ def _taps_shifted_conv(x, w, aux, kinds, stages, strides, pads, depthwise,
                          stages, strides, pads, depthwise, emit_stats)
 
 
+def _every_tap_shifted_conv(x, w, aux, kinds, stages, strides, pads,
+                            depthwise, emit_stats=False):
+    """The fused conv kernel with every region's taps shifted by one, the
+    dense convs' too (a control for a model with no depthwise region)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    if depthwise:
+        w = _shift_taps(w)
+    else:
+        cout, kh, kw, cin = w.shape
+        w = w.reshape(cout, kh * kw, cin).roll(1, 1).reshape(cout, kh, kw,
+                                                              cin)
+    return ck.fused_conv(x, w, aux, kinds, stages, strides, pads, depthwise,
+                         emit_stats)
+
+
 def _dw_kernel_log():
     """The depthwise kernel's lines of the fused conv library's ptxas
     output: each instance's registers, shared memory and spills."""
@@ -12134,6 +12189,1299 @@ def phase_mobilenet(seed, card):
     return sums, launches
 
 
+# 24a: MobileNet-SSD (PaddlePaddle/models, fluid/object_detection/
+# mobilenet_ssd.py): 3 x 300 x 300 images, 21 classes (PASCAL VOC's 20
+# and the background), a MobileNet-v1 base at width SSD['scale'] to
+# module11 (19 x 19, after the five 512 blocks) and module13 (10 x 10),
+# the extra blocks of SSD_EXTRAS (a 1x1 conv, then a 3x3 stride-2 conv,
+# each with batch norm and ReLU: 5 x 5, 3 x 3, 2 x 2, 1 x 1), and
+# multi_box_head over those six maps with SSD_HEAD's priors: 1917 priors,
+# loc [N, 1917, 4], conf [N, 1917, 21]
+SSD = dict(size=300, classes=21, scale=1.0)
+SSD_EXTRAS = ((256, 512), (128, 256), (128, 256), (64, 128))
+SSD_HEAD = dict(min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+                max_sizes=[[], 150.0, 195.0, 240.0, 285.0, 300.0],
+                aspect_ratios=[[2.], [2., 3.], [2., 3.], [2., 3.], [2., 3.],
+                               [2., 3.]],
+                offset=0.5, flip=True, kernel_size=3, pad=1)
+SSD_PRIORS = 1917
+SSD_NMS = dict(nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
+               score_threshold=0.01)
+
+
+def mobilenet_ssd(layers, img, num_classes=21, scale=1.0, is_test=False):
+    """MobileNet-SSD on ``img`` (NCHW, square), written with ``layers``
+    (the port's, or paddle_tpu's: the CPU test builds both): the base's
+    convs without bias, each with batch_norm and relu, the extra blocks
+    of SSD_EXTRAS, and multi_box_head (each head a conv2d with its
+    bias) with SSD_HEAD's priors, their sizes scaled from a 300-pixel
+    image to ``img``'s. Returns (loc, conf, prior boxes, variances)."""
+    def conv_bn(x, filters, size, stride, groups=1):
+        conv = layers.conv2d(input=x, num_filters=filters, filter_size=size,
+                             stride=stride, padding=(size - 1) // 2,
+                             groups=groups, act=None, bias_attr=False)
+        return layers.relu(layers.batch_norm(input=conv, is_test=is_test))
+
+    size = int(img.shape[-1])
+    x = conv_bn(img, int(32 * scale), 3, 2)
+    feats = []
+    for i, (cin, cout, stride) in enumerate(MOBILENET_BLOCKS):
+        x = conv_bn(x, int(cin * scale), 3, stride, groups=int(cin * scale))
+        x = conv_bn(x, int(cout * scale), 1, 1)
+        if i in (10, 12):                 # module11, module13
+            feats.append(x)
+    for c1, c2 in SSD_EXTRAS:
+        x = conv_bn(conv_bn(x, int(c1 * scale), 1, 1), int(c2 * scale), 3, 2)
+        feats.append(x)
+    k = size / 300.0
+    head = dict(SSD_HEAD)
+    head['min_sizes'] = [m * k for m in head['min_sizes']]
+    head['max_sizes'] = [[m * k for m in v] if isinstance(v, list)
+                         else v * k for v in head['max_sizes']]
+    return layers.multi_box_head(inputs=feats, image=img,
+                                 num_classes=num_classes, base_size=size,
+                                 **head)
+
+
+def ssd_program(pkg, seed, size=None, scale=None, classes=None, train=False,
+                lr=0.001, lod_gt=True, frozen_bn=False):
+    """MobileNet-SSD built with ``pkg``'s layers: (main, startup, feed
+    names, fetches). Training: ``ssd_loss`` of the LoD ground truth
+    (``gt_box`` [4] and ``gt_label`` [1] at lod_level 1) summed, as the
+    models repo's script does, under Momentum(lr, 0.9); fetches [loss,
+    loc, conf]. Serving: the softmax of the confidences, transposed to
+    [N, classes, priors], through detection_output with SSD_NMS; fetches
+    [nmsed, loc, scores]. ``lod_gt=False`` declares a dense ground truth
+    [G, 4] shared by the batch (the only batched form paddle_tpu's loss
+    takes at any prior count: the CPU test's parity case); ``frozen_bn``
+    trains with the batch norms on their moving statistics."""
+    size = size or SSD['size']
+    classes = classes or SSD['classes']
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = seed
+    L = pkg.layers
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        img = L.data(name='image', shape=[3, size, size], dtype='float32')
+        loc, conf, box, var = mobilenet_ssd(
+            L, img, classes, SSD['scale'] if scale is None else scale,
+            is_test=frozen_bn or not train)
+        if train:
+            lod = 1 if lod_gt else 0
+            gt_box = L.data(name='gt_box', shape=[4], dtype='float32',
+                            lod_level=lod)
+            gt_label = L.data(name='gt_label', shape=[1], dtype='int32',
+                              lod_level=lod)
+            loss = L.reduce_sum(L.ssd_loss(loc, conf, gt_box, gt_label, box,
+                                           var))
+            pkg.optimizer.Momentum(learning_rate=lr,
+                                   momentum=0.9).minimize(loss)
+            return main, startup, ['image', 'gt_box', 'gt_label'], \
+                [loss, loc, conf]
+        scores = L.transpose(L.softmax(conf), perm=[0, 2, 1])
+        nmsed = L.detection_output(loc, scores, box, var, **SSD_NMS)
+    return main, startup, ['image'], [nmsed, loc, scores]
+
+
+def ssd_ground_truth(rng, n, classes, max_boxes=4):
+    """Per-image boxes and labels: 1 to ``max_boxes`` boxes an image
+    inside the unit square (at least 0.1 wide), labels 1 .. classes-1.
+    Returns (boxes, labels, lengths): packed rows and the LoD lengths."""
+    lens = rng.randint(1, max_boxes + 1, n)
+    total = int(lens.sum())
+    xy = rng.uniform(0.0, 0.7, (total, 2))
+    wh = rng.uniform(0.1, 0.3, (total, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + wh, 1.0)], 1)
+    labels = rng.randint(1, classes, (total, 1))
+    return boxes.astype('float32'), labels.astype('int32'), \
+        [int(v) for v in lens]
+
+
+# 24b: CRNN-CTC (PaddlePaddle/models, fluid/ocr_recognition/
+# crnn_ctc_model.py): 1 x 48 x 512 strips, four conv groups (two 3x3
+# convs with bias, batch norm and ReLU, then a 2x2 max pool) of
+# CRNN['filters'], im2sequence with a (3, 1) filter (32 steps of 384),
+# two fcs of 3 x CRNN['hidden'] into a forward and a reverse dynamic_gru
+# (candidate ReLU), an fc to CRNN['classes'] + 1 and warpctc (blank
+# CRNN['classes'], norm_by_times) summed, under Momentum(0.001, 0.9)
+CRNN = dict(height=48, width=512, classes=95, filters=(16, 32, 64, 128),
+            hidden=200)
+CRNN_LABELS = (4, 20)           # the transcripts' lengths
+
+
+def crnn_ctc(layers, images, classes=95, filters=(16, 32, 64, 128),
+             hidden=200):
+    """CRNN's encoder on ``images`` (NCHW) written with ``layers``:
+    returns the LoD logits [T, classes + 1] a strip."""
+    x = images
+    for f in filters:
+        for _ in range(2):
+            x = layers.conv2d(input=x, num_filters=f, filter_size=3,
+                              padding=1, act=None)
+            x = layers.relu(layers.batch_norm(input=x))
+        x = layers.pool2d(input=x, pool_size=2, pool_type='max',
+                          pool_stride=2)
+    seq = layers.im2sequence(input=x, filter_size=[int(x.shape[2]), 1],
+                             stride=[1, 1])
+    if not seq.shape:
+        # paddle_tpu's layer leaves the rows' width undeclared
+        seq.shape = (-1, int(x.shape[1]) * int(x.shape[2]))
+    fc_1 = layers.fc(input=seq, size=hidden * 3, bias_attr=False)
+    fc_2 = layers.fc(input=seq, size=hidden * 3, bias_attr=False)
+    fwd = layers.dynamic_gru(input=fc_1, size=hidden,
+                             candidate_activation='relu')
+    bwd = layers.dynamic_gru(input=fc_2, size=hidden, is_reverse=True,
+                             candidate_activation='relu')
+    return layers.fc(input=[fwd, bwd], size=classes + 1)
+
+
+def crnn_program(pkg, seed, height=None, width=None, classes=None,
+                 filters=None, hidden=None, lr=0.001):
+    """CRNN-CTC built with ``pkg``'s layers: (main, startup, test program,
+    fetches): the summed loss, the logits, the greedy decode and the
+    edit distance (``evaluator.EditDistance``) of the decode against the
+    labels; the test program (cloned before the optimizer) has the same
+    fetches. The label is ``label`` [1] int32 at lod_level 1."""
+    c = dict(CRNN)
+    c.update({k: v for k, v in dict(height=height, width=width,
+                                    classes=classes, filters=filters,
+                                    hidden=hidden).items() if v is not None})
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = seed
+    L = pkg.layers
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        images = L.data(name='pixel', shape=[1, c['height'], c['width']],
+                        dtype='float32')
+        label = L.data(name='label', shape=[1], dtype='int32', lod_level=1)
+        logits = crnn_ctc(L, images, c['classes'], c['filters'], c['hidden'])
+        cost = L.warpctc(input=logits, label=label, blank=c['classes'],
+                         norm_by_times=True)
+        loss = L.reduce_sum(cost)
+        decoded = L.ctc_greedy_decoder(input=logits, blank=c['classes'])
+        evaluator = pkg.evaluator.EditDistance(
+            input=decoded, label=L.cast(x=label, dtype='int64'))
+        test = main.clone(for_test=True)
+        pkg.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(loss)
+    return main, startup, test, [loss, logits, decoded,
+                                 evaluator.metrics[0]], evaluator
+
+
+def crnn_batch(rng, n, height, width, classes, lens=(4, 20)):
+    """Strips and transcripts: random pixels, 4-20 labels a strip in
+    [0, classes). Returns (images, packed labels, lengths)."""
+    ls = rng.randint(lens[0], lens[1] + 1, n)
+    images = rng.uniform(-1, 1, (n, 1, height, width)).astype('float32')
+    labels = rng.randint(0, classes, (int(ls.sum()), 1)).astype('int32')
+    return images, labels, [int(v) for v in ls]
+
+
+# ---- 24. The detection and CTC families, the observatory, the cold-start
+# store and the C API -------------------------------------------------------------
+# 24a: MobileNet-SSD (SSD above) trained SSD_TRAIN_STEPS Momentum(0.001,
+# 0.9) steps at SSD_BATCH on LoD ground truth (ssd_ground_truth) in f32
+# on the kernel, the plain stats form, the f64 witness and the
+# taps-shifted control from one start (the first loss held as phase 22b
+# holds it: within MOBILENET_LOSS_WITNESS times the witness's distance
+# from the plain path, at least MOBILENET_LOSS_FLOOR; the control must
+# miss); 3 f32 steps at SSD_SMALL_LR from the same weights, whose summed
+# loss must fall at each step (at 0.001 it rises: the step is too large
+# for a sum over the batch's priors); then under AMP (the losses printed,
+# not held, as in 22b; one more AMP step recorded and each of its 47
+# regions held by _hold_regions at its own bf16 operands); one step at
+# SSD_CPU_BATCH against the CPU (the loss to SSD_CPU_TOL). Saved, loaded
+# and served in f32 through detection_output at SSD_SERVE_BATCHES: loc and
+# scores against the plain fused conv (MOBILENET_LOGITS_TOL, the control
+# must miss) and at batch 1 against the CPU (SSD_CPU_TOL); the NMS on the
+# card against the CPU on the same loc and scores (each kept mask exact,
+# labels exact, scores and boxes to SSD_NMS_TOL); evaluator.DetectionMAP
+# streamed over the served batches, each batch's op and the stream's host
+# state against detection_map_numpy. Exact launches a step and a request:
+# the regions the passes form (47: 27 base, 8 extra, 12 heads; 13
+# depthwise). The served batch-8 request's 8 extra and 12 head regions
+# held and timed by _hold_regions (PERF.md 6l).
+SSD_BATCH = 32
+SSD_SERVE_BATCHES = (1, 8)
+SSD_TRAIN_STEPS = 3
+SSD_SMALL_LR = 1e-5             # the rate at which the summed loss falls
+SSD_CPU_BATCH = 2
+SSD_CPU_TOL = 1e-4              # f32 card vs CPU, of the largest |value|
+SSD_NMS_TOL = 1e-5              # NMS scores and boxes, card vs CPU
+SSD_REGIONS, SSD_STATS_REGIONS, SSD_DW_REGIONS = 47, 35, 13
+# 24b: CRNN-CTC (CRNN above) trained CRNN_STEPS steps at CRNN_BATCH in
+# f32 with transcripts of 4-20 labels, then one more step recorded and
+# each of its 8 regions held by _hold_regions (f32, against f64 too);
+# one step at CRNN_CPU_BATCH against the CPU (the loss to CRNN_LOSS_TOL;
+# the gradients by relative L2, the
+# median to CRNN_GRAD_MEDIAN and the largest to CRNN_GRAD_MAX: where
+# rounding flips one of a 2x2 max pool's near-ties (or a ReLU at 0), the
+# gradient goes to another element, and every gradient upstream of it
+# moves by ~1/sqrt(N*H*W) of the layer, as phase 12d's VGG-16 showed; on
+# the H100 at seed 0 one window of the second group's pool (of 196,608;
+# a tie 1.5e-7 apart) flips, and the first two groups' gradients part by
+# 2.5e-3 to 3.57e-3, the rest by ~1e-6 (PERF.md): CRNN_GRAD_MAX is twice
+# the largest, and a control, the card's step with every conv's taps
+# shifted, must exceed the three limits (its gradients part by 0.465 to
+# 1.64 on the H100); the convs' biases, which a train-mode batch norm
+# follows, have gradient 0 in exact arithmetic: within CRNN_BIAS_ABS of
+# it on both sides); warpctc's loss and logits gradient against
+# torch.nn.functional.ctc_loss in f64 on the same logits (CTC_WITNESS_TOL,
+# CTC_GRAD_TOL of the largest |gradient|); the greedy decode and its edit
+# distances on the card and the CPU from the same logits, exactly
+CRNN_BATCH = 32
+CRNN_STEPS = 3
+CRNN_CPU_BATCH = 4
+CRNN_LOSS_TOL = 1e-4
+CRNN_GRAD_MEDIAN = 1e-4
+CRNN_GRAD_MAX = 7e-3
+CRNN_BIAS_ABS = 1e-5
+CRNN_REGIONS = 8
+CTC_WITNESS_TOL = 1e-5
+CTC_GRAD_TOL = 1e-4
+# 24c: the Trainer over SSD_TRAINER_STEPS SSD steps under
+# perf.capture_scope: the ledger's fused conv operations against
+# _conv_hand_count, the MFU and roofline gauges, /ledgers, the flight
+# bundle's ledgers slot and the tuner's _ledger_bound. 24d: a child
+# process (``--coldstart-child``) warms the saved SSD server (buckets up
+# to COLDSTART_MAX_BATCH) from an empty store, a second from the filled
+# one: outputs bit-identical. 24e: a C program (CAPI_CLIENT) serves the
+# saved SSD model through the C API on the card: its output equals the
+# Executor's bit for bit
+SSD_TRAINER_STEPS = 2
+COLDSTART_MAX_BATCH = 8
+CAPI_CLIENT = r'''
+#include <stdio.h>
+#include <stdint.h>
+
+extern void* ptpu_predictor_create(const char*);
+extern int64_t ptpu_predictor_run_f32(void*, const char*, const float*,
+                                      const int64_t*, int, int, float*,
+                                      int64_t, int64_t*, int, int*);
+extern void ptpu_predictor_destroy(void*);
+extern const char* ptpu_last_error(void);
+
+static float in[3 * 300 * 300];
+static float out[200 * 6];
+
+int main(int argc, char** argv) {
+  void* p = ptpu_predictor_create(argv[1]);
+  if (!p) { fprintf(stderr, "create: %s\n", ptpu_last_error()); return 1; }
+  for (long long i = 0; i < 3 * 300 * 300; ++i)
+    in[i] = (float)((i * 7919) % 1000) / 500.0f - 1.0f;
+  int64_t shape[4] = {1, 3, 300, 300};
+  int64_t out_shape[8];
+  int out_ndim = 0;
+  int64_t n = ptpu_predictor_run_f32(p, NULL, in, shape, 4, 0, out, 1200,
+                                     out_shape, 8, &out_ndim);
+  if (n < 0) { fprintf(stderr, "run: %s\n", ptpu_last_error()); return 2; }
+  printf("COUNT=%lld NDIM=%d\n", (long long)n, out_ndim);
+  for (int64_t i = 0; i < n; ++i) printf("%.9g ", out[i]);
+  printf("\n");
+  ptpu_predictor_destroy(p);
+  return 0;
+}
+'''
+
+
+def _capi_input():
+    """CAPI_CLIENT's input, made the same way in numpy."""
+    i = np.arange(3 * 300 * 300, dtype=np.int64)
+    return (((i * 7919) % 1000).astype(np.float32) / np.float32(500.0) -
+            np.float32(1.0)).reshape(1, 3, 300, 300)
+
+
+def _ssd_feed(rng, n):
+    import paddle_tpu_torch as pt
+    boxes, labels, lens = ssd_ground_truth(rng, n, SSD['classes'])
+    return {'image': rng.randn(n, 3, SSD['size'], SSD['size'])
+            .astype('float32'),
+            'gt_box': pt.create_lod_tensor(boxes, [lens]),
+            'gt_label': pt.create_lod_tensor(labels, [lens])}
+
+
+def _region_forms(prog, fetch_names):
+    """Each fused_conv region of ``prog`` after the passes, in run order:
+    (depthwise, fused with a batch norm)."""
+    import paddle_tpu_torch as pt
+    opt, _ = pt.compiler.optimize(prog, fetch_names=fetch_names)
+    block = opt.global_block()
+    out = []
+    for op in block.ops:
+        if op.type != 'fused_conv':
+            continue
+        _, ins, _, attrs = op.attrs['sub_ops'][0]
+        cin = block.var(ins['Input'][0]).shape[1]
+        dw = (attrs.get('groups', 1) or 1) == cin and \
+            block.var(ins['Filter'][0]).shape[1] == 1
+        out.append((bool(dw), 'batch_norm' in op.attrs['fused_types']))
+    return out
+
+
+def _conv_hand_count(prog, fetch_names, batch, train):
+    """The operations of the program's fused_conv regions from the
+    layers' static shapes: 2 a multiply-add of each region's conv (N * Ho
+    * Wo * Cout * Cin/groups * KH * KW) and 1 an output element a fused
+    stage; a training step three times (the forward and the backward's
+    two products)."""
+    import paddle_tpu_torch as pt
+    opt, _ = pt.compiler.optimize(prog, fetch_names=fetch_names)
+    block = opt.global_block()
+    total = 0
+    for op in block.ops:
+        if op.type != 'fused_conv':
+            continue
+        _, ins, outs, _ = op.attrs['sub_ops'][0]
+        _, cin_g, kh, kw = block.var(ins['Filter'][0]).shape
+        _, c, ho, wo = block.var(outs['Output'][0]).shape
+        out = batch * c * ho * wo
+        total += 2 * out * cin_g * kh * kw + \
+            (len(op.attrs['sub_ops']) - 1) * out
+    return total * (3 if train else 1)
+
+
+def _counted(fn):
+    """``fn()`` with the launch counts set to 0 just before: (its
+    result, the launches, the fused conv's by variant, the fallbacks)."""
+    import torch
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    passes.reset_fallback_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, dict(ck.LAUNCHES), dict(ck.FUSED_CONV_VARIANT_LAUNCHES),
+            dict(passes.FALLBACKS))
+
+
+def _rel_max(a, b):
+    a, b = np.asarray(a, 'float64'), np.asarray(b, 'float64')
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _phase24_ssd_training(seed, card):
+    """24a, trained. Returns (the scope after the f32 kernel steps, the
+    launches of the kernel's steps: fused_conv, fused_conv_stats and the
+    depthwise variant)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    main, startup, _, fetch = ssd_program(pt, seed, train=True)
+    loss = fetch[0]
+    forms = _region_forms(main, [loss.name])
+    n_stats = sum(bn for _, bn in forms)
+    n_dw = sum(dw for dw, _ in forms)
+    print('phase 24a: MobileNet-SSD (3x%dx%d, width %.1f, %d classes, %d '
+          'priors): the training program has %d fused_conv regions, %d in '
+          'the stats form (the base and extra convs with their train-mode '
+          'batch norms, %d of them depthwise) and %d in the inference form '
+          '(the head convs, each fused with its bias add: no batch norm '
+          'follows them)' % (SSD['size'], SSD['size'], SSD['scale'],
+                             SSD['classes'], SSD_PRIORS, len(forms), n_stats,
+                             n_dw, len(forms) - n_stats), flush=True)
+    check((len(forms), n_stats, n_dw) == (SSD_REGIONS, SSD_STATS_REGIONS,
+                                          SSD_DW_REGIONS),
+          'phase 24a: the training program has %d regions, %d stats form, '
+          '%d depthwise' % (len(forms), n_stats, n_dw))
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _ssd_feed(np.random.RandomState(seed + 240), SSD_BATCH)
+    snap = _snapshot(scope)
+    paths = (('kernel', None), ('plain', _stats_function()),
+             ('witness', _stats_function(_f64_witness)),
+             ('taps shifted', _taps_shifted_conv))
+    launches = {'fused_conv': 0, 'fused_conv_stats': 0, 'depthwise': 0}
+    trained = None
+    for precision in ('f32', 'bf16'):
+        amp.set_amp(precision == 'bf16')
+        losses = {}
+        try:
+            for name, conv in (paths if precision == 'f32' else paths[:1]):
+                _restore(scope, snap)
+                step_ms = []
+
+                def steps(conv=conv, step_ms=step_ms):
+                    outs = []
+                    with passes.conv_for_testing(conv) if conv else \
+                            contextlib.nullcontext():
+                        for _ in range(SSD_TRAIN_STEPS):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            outs.append(exe.run(main, feed=feed,
+                                                fetch_list=[loss],
+                                                scope=scope,
+                                                return_numpy=False)[0])
+                            torch.cuda.synchronize()
+                            step_ms.append(1e3 * (time.perf_counter() - t0))
+                    return [float(o) for o in outs]
+                losses[name], got, variants, fallbacks = _counted(steps)
+                if name != 'kernel':
+                    continue
+                print('phase 24a: trained %s, batch %d, %d steps: ms a step '
+                      '(host clock, the loss kept on the card; the first '
+                      'lowers) %s; losses %s; launches %s, by variant %s, '
+                      'fallbacks %s; %s' % (
+                          precision, SSD_BATCH, SSD_TRAIN_STEPS,
+                          ' '.join('%.2f' % v for v in step_ms),
+                          ' '.join('%.6f' % l for l in losses[name]), got,
+                          {k: v for k, v in variants.items() if v},
+                          fallbacks, card), flush=True)
+                expect = {k: 0 for k in got}
+                expect['fused_conv_stats'] = n_stats * SSD_TRAIN_STEPS
+                expect['fused_conv'] = (len(forms) - n_stats) * \
+                    SSD_TRAIN_STEPS
+                check(got == expect and variants['depthwise'] ==
+                      n_dw * SSD_TRAIN_STEPS, 'phase 24a: %s training '
+                      'launched %s (%s), expected %s' % (
+                          precision, got, variants, expect))
+                check(not fallbacks, 'phase 24a: training fell back: %s'
+                      % fallbacks)
+                # printed, not held to fall: on one fixed batch at random
+                # weights the summed loss's hard negatives change from step
+                # to step (the plain path's losses are printed beside)
+                check(np.isfinite(losses[name]).all(), 'phase 24a: the %s '
+                      'losses %s are not finite' % (precision, losses[name]))
+                for k in ('fused_conv', 'fused_conv_stats'):
+                    launches[k] += got[k]
+                launches['depthwise'] += variants['depthwise']
+                if precision == 'f32':
+                    trained = _snapshot(scope)
+                else:
+                    # one more AMP step recorded region by region: each
+                    # region held against its plain version at the
+                    # step's own operands (bf16; the 27 mma_sync and 75
+                    # wgmma launches a 3-step run counts)
+                    recorder = _RegionRecorder()
+                    with passes.conv_for_testing(recorder):
+                        exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)
+                    check(len(recorder.calls) == SSD_REGIONS, 'phase 24a: '
+                          'an AMP step recorded %d regions'
+                          % len(recorder.calls))
+                    _hold_regions('ssd AMP training', 'ssd training',
+                                  recorder.calls, {}, dedupe=True,
+                                  timed=False)
+                    del recorder
+        finally:
+            amp.set_amp(None)
+        if precision != 'f32':
+            continue
+        plain = np.array(losses['plain'])
+
+        def dist(name):
+            return np.abs(np.array(losses[name]) - plain) / np.abs(plain)
+        limit = max(MOBILENET_LOSS_WITNESS * dist('witness')[0],
+                    MOBILENET_LOSS_FLOOR)
+        print('phase 24a: trained f32, losses: %s; relative distance from '
+              'the plain path: kernel %s, witness %s, taps shifted %s; the '
+              'first step\'s limit %.3g' % (
+                  '; '.join('%s %s' % (n, ' '.join('%.6f' % l for l in
+                                                    losses[n]))
+                            for n, _ in paths),
+                  ' '.join('%.3g' % v for v in dist('kernel')),
+                  ' '.join('%.3g' % v for v in dist('witness')),
+                  ' '.join('%.3g' % v for v in dist('taps shifted')), limit),
+              flush=True)
+        check(dist('kernel')[0] <= limit, 'phase 24a: the first f32 loss '
+              'parts from the plain path by %g' % dist('kernel')[0])
+        check(dist('taps shifted')[0] > limit, 'phase 24a: the first f32 '
+              'loss limit does not catch the taps shifted')
+        # the summed loss at SSD_SMALL_LR from the same weights, on the
+        # kernel: where the loss rises at 0.001, a step too large for a
+        # sum over the batch's priors would fall at the smaller rate
+        small, small_start, _, small_fetch = ssd_program(
+            pt, seed, train=True, lr=SSD_SMALL_LR)
+        s2 = pt.Scope()
+        exe.run(small_start, scope=s2)
+        for p in main.global_block().all_parameters():
+            s2.set_var(p.name, snap[p.name].clone())
+        amp.set_amp(False)
+        try:
+            small_losses = [float(exe.run(small, feed=feed,
+                                          fetch_list=[small_fetch[0]],
+                                          scope=s2)[0])
+                            for _ in range(SSD_TRAIN_STEPS)]
+        finally:
+            amp.set_amp(None)
+        print('phase 24a: trained f32 on the kernel at learning rate %g '
+              'from the same weights: losses %s (at %g: %s)' % (
+                  SSD_SMALL_LR, ' '.join('%.6f' % l for l in small_losses),
+                  0.001, ' '.join('%.6f' % l for l in losses['kernel'])),
+              flush=True)
+        check(all(b < a for a, b in zip(small_losses, small_losses[1:])),
+              'phase 24a: the loss at learning rate %g does not fall: %s'
+              % (SSD_SMALL_LR, small_losses))
+        del s2
+    # one step at SSD_CPU_BATCH, card against CPU, from the start
+    feed2 = _ssd_feed(np.random.RandomState(seed + 241), SSD_CPU_BATCH)
+    state = {n: v.cpu().numpy() for n, v in snap.items()}
+    got = []
+    amp.set_amp(False)
+    try:
+        for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+            s = pt.Scope()
+            for n, v in state.items():
+                s.set_var(n, v)
+            got.append(float(pt.Executor(place).run(
+                main, feed=feed2, fetch_list=[loss], scope=s)[0]))
+    finally:
+        amp.set_amp(None)
+    diff = abs(got[0] - got[1]) / abs(got[1])
+    print('phase 24a: one f32 step at batch %d: loss card %.7f, CPU %.7f, '
+          'relative %.3g (tol %g)' % (SSD_CPU_BATCH, got[0], got[1], diff,
+                                       SSD_CPU_TOL), flush=True)
+    check(diff <= SSD_CPU_TOL, 'phase 24a: the card\'s loss parts from the '
+          'CPU\'s by %g' % diff)
+    _restore(scope, trained)
+    del snap, trained
+    return scope, launches
+
+
+def _detections(nmsed):
+    """The valid rows (label >= 0) of each image of a [N, K, 6] output."""
+    return [d[d[:, 0] >= 0] for d in np.asarray(nmsed)]
+
+
+def _map_ground_truth(rng, dets):
+    """Each image's ground truth [G, 5] (label, box): up to three of its
+    detections, moved by up to 0.02, and one random box; so the mAP of
+    random weights is not 0."""
+    gts = []
+    for d in dets:
+        rows = [np.concatenate([[r[0]], np.clip(
+            r[2:6] + rng.uniform(-0.02, 0.02, 4), 0, 1)]) for r in d[:3]]
+        b, _, _ = ssd_ground_truth(rng, 1, SSD['classes'], max_boxes=1)
+        rows.append(np.concatenate([[rng.randint(1, SSD['classes'])], b[0]]))
+        gts.append(np.asarray(rows, 'float32'))
+    return gts
+
+
+def _phase24_ssd_serving(seed, card, d, scope):
+    """24a, served, from the trained ``scope``. Returns (the saved
+    model's directory, the served requests' launches, 6l's totals)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import detection_ops
+    from paddle_tpu_torch.ops.detection_map_ref import detection_map_numpy
+    smain, _, _, sfetch = ssd_program(pt, seed)
+    exe = pt.Executor()
+    path = os.path.join(d, 'ssd')
+    pt_io.save_inference_model(path, ['image'], sfetch, exe,
+                               main_program=smain, scope=scope)
+    sscope = pt.Scope()
+    prog, feeds, fetch_vars = pt_io.load_inference_model(path, exe,
+                                                         scope=sscope)
+    fetch = [v.name for v in fetch_vars]
+    forms = _region_forms(prog, fetch)
+    n_dw = sum(dw for dw, _ in forms)
+    check(feeds == ['image'] and len(forms) == SSD_REGIONS and
+          n_dw == SSD_DW_REGIONS, 'phase 24a: the served program has feeds '
+          '%s, %d regions, %d depthwise' % (feeds, len(forms), n_dw))
+
+    def serve(feed, conv=None, place_scope=None):
+        with passes.conv_for_testing(conv) if conv else \
+                contextlib.nullcontext():
+            return exe.run(prog, feed=feed, fetch_list=fetch,
+                           scope=place_scope or sscope)
+
+    launches = {'fused_conv': 0, 'depthwise': 0}
+    totals = {}
+    rng = np.random.RandomState(seed + 242)
+    served = []
+    amp.set_amp(False)
+    try:
+        for bs in SSD_SERVE_BATCHES:
+            feed = {'image': rng.randn(bs, 3, SSD['size'], SSD['size'])
+                    .astype('float32')}
+            serve(feed)                       # warm-up: the memo
+            t0 = time.perf_counter()
+            (nmsed, loc, scores), got, variants, fb = _counted(
+                lambda: serve(feed))
+            dt = time.perf_counter() - t0
+            plain = serve(feed, _stats_function())
+            shifted = serve(feed, _taps_shifted_conv)
+            errs = [_rel_max(a, b) for a, b in ((loc, plain[1]),
+                                                (scores, plain[2]))]
+            ctrl = [_rel_max(a, b) for a, b in ((shifted[1], plain[1]),
+                                                (shifted[2], plain[2]))]
+            print('phase 24a: served f32 batch %d: %.2f ms (host clock, '
+                  'numpy in, detections out, the decode and NMS included); '
+                  '%d detections kept; launches %s, by variant %s, '
+                  'fallbacks %s; loc and scores vs the plain fused conv: '
+                  '%.3g %.3g (tol %g); control, taps shifted: %.3g %.3g; %s'
+                  % (bs, 1e3 * dt, int((nmsed[..., 0] >= 0).sum()), got,
+                     {k: v for k, v in variants.items() if v}, fb,
+                     errs[0], errs[1], MOBILENET_LOGITS_TOL, ctrl[0],
+                     ctrl[1], card), flush=True)
+            check(got['fused_conv'] == SSD_REGIONS and
+                  sum(got.values()) == SSD_REGIONS and
+                  variants['depthwise'] == SSD_DW_REGIONS, 'phase 24a: a '
+                  'request launched %s (%s)' % (got, variants))
+            check(not fb, 'phase 24a: serving fell back: %s' % fb)
+            check(max(errs) <= MOBILENET_LOGITS_TOL, 'phase 24a: loc or '
+                  'scores part from the plain path by %s' % errs)
+            check(max(ctrl) > MOBILENET_LOGITS_TOL, 'phase 24a: the limits '
+                  'do not catch the taps shifted')
+            check(nmsed.shape == (bs, SSD_NMS['keep_top_k'], 6) and
+                  np.isfinite(nmsed).all(), 'phase 24a: detections %s'
+                  % (nmsed.shape,))
+            launches['fused_conv'] += got['fused_conv']
+            launches['depthwise'] += variants['depthwise']
+            served.append((feed, nmsed, loc, scores))
+        # the 8 extra and 12 head regions of a batch-8 request, held and
+        # timed (PERF.md 6l)
+        recorder = _RegionRecorder()
+        with passes.conv_for_testing(recorder):
+            serve(served[-1][0])
+        check(len(recorder.calls) == SSD_REGIONS, 'phase 24a: recorded %d '
+              'regions' % len(recorder.calls))
+        _hold_regions('ssd', 'ssd heads b8', recorder.calls[27:], totals,
+                      sum_dtypes=('float32',), dedupe=True)
+        del recorder
+        # the card against the CPU: the whole request at batch 1
+        cscope = pt.Scope()
+        cexe = pt.Executor(pt.CPUPlace())
+        cprog, _, _ = pt_io.load_inference_model(path, cexe, scope=cscope)
+        cpu = cexe.run(cprog, feed=served[0][0], fetch_list=fetch,
+                       scope=cscope)
+        errs = [_rel_max(a, b) for a, b in zip(served[0][2:], cpu[1:])]
+        print('phase 24a: served batch 1, card vs CPU: loc %.3g, scores '
+              '%.3g (tol %g)' % (errs[0], errs[1], SSD_CPU_TOL), flush=True)
+        check(max(errs) <= SSD_CPU_TOL, 'phase 24a: the card\'s loc or '
+              'scores part from the CPU\'s by %s' % errs)
+        # the NMS on the card against the CPU on the same decoded boxes
+        # and scores: each kept mask exact, then the whole op
+        _, _, loc8, scores8 = served[-1]
+        dmain = pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(dmain, pt.Program()):
+            lv = pt.layers.data(name='loc', shape=list(loc8.shape[1:]),
+                                dtype='float32')
+            sv = pt.layers.data(name='scores', shape=list(scores8.shape[1:]),
+                                dtype='float32')
+            pb = pt.layers.data(name='pb', shape=[SSD_PRIORS, 4],
+                                dtype='float32', append_batch_size=False)
+            pv = pt.layers.data(name='pv', shape=[SSD_PRIORS, 4],
+                                dtype='float32', append_batch_size=False)
+            dec = pt.layers.box_coder(pb, pv, lv,
+                                      code_type='decode_center_size')
+            nms = pt.layers.detection_output(lv, sv, pb, pv, **SSD_NMS)
+        # multi_box_head's concats: loc, conf, then the priors and their
+        # variances
+        box_name = [op.output('Out')[0] for op in prog.global_block().ops
+                    if op.type == 'concat'][2:4]
+        priors = exe.run(prog, feed=served[-1][0], fetch_list=box_name,
+                         scope=sscope)
+        dfeed = {'loc': loc8, 'scores': scores8, 'pb': priors[0],
+                 'pv': priors[1]}
+        outs = [pt.Executor(place).run(dmain, feed=dfeed,
+                                       fetch_list=[dec, nms],
+                                       scope=pt.Scope())
+                for place in (pt.CUDAPlace(0), pt.CPUPlace())]
+        masks = [detection_ops.nms_keep(
+            torch.as_tensor(scores8, device=dev),
+            torch.as_tensor(o[0], device=dev), 0,
+            SSD_NMS['nms_threshold'], SSD_NMS['nms_top_k'],
+            SSD_NMS['score_threshold']).cpu().numpy()
+            for o, dev in zip(outs, ('cuda', 'cpu'))]
+        (g, c) = (outs[0][1], outs[1][1])
+        nerr = float(np.abs(g[..., 1:] - c[..., 1:]).max())
+        print('phase 24a: NMS at batch 8 (%d classes x %d priors, top %d, '
+              'keep %d): card vs CPU on the same inputs: kept masks equal '
+              '%s (%d kept), labels equal %s, scores and boxes max |diff| '
+              '%.3g (tol %g)' % (
+                  SSD['classes'], SSD_PRIORS, SSD_NMS['nms_top_k'],
+                  SSD_NMS['keep_top_k'], np.array_equal(*masks),
+                  int(masks[0].sum()), np.array_equal(g[..., 0], c[..., 0]),
+                  nerr, SSD_NMS_TOL), flush=True)
+        check(np.array_equal(*masks) and np.array_equal(g[..., 0],
+                                                        c[..., 0]) and
+              nerr <= SSD_NMS_TOL, 'phase 24a: the NMS on the card parts '
+              'from the CPU\'s')
+        # DetectionMAP streamed over the served batches
+        emain, estart = pt.Program(), pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(emain, estart):
+            dv = pt.layers.data(name='det', shape=[SSD_NMS['keep_top_k'], 6],
+                                dtype='float32')
+            lbl = pt.layers.data(name='gt_label', shape=[1],
+                                 dtype='float32', lod_level=1)
+            box = pt.layers.data(name='gt_box', shape=[4], dtype='float32',
+                                 lod_level=1)
+            ev = pt.evaluator.DetectionMAP(dv, lbl, box, class_num=SSD[
+                'classes'], overlap_threshold=0.5)
+            cur, _ = ev.get_map_var()
+        escope = pt.Scope()
+        mrng = np.random.RandomState(seed + 243)
+        all_d, all_g, maps = [], [], []
+        with pt.scope_guard(escope):
+            exe.run(estart)
+            ev.reset(exe)
+            for _, nmsed, _, _ in served:
+                dets = _detections(nmsed)
+                gts = _map_ground_truth(mrng, dets)
+                lens = [[len(g) for g in gts]]
+                m = float(exe.run(emain, feed={
+                    'det': nmsed,
+                    'gt_label': pt.create_lod_tensor(
+                        np.concatenate(gts)[:, :1], lens),
+                    'gt_box': pt.create_lod_tensor(
+                        np.concatenate(gts)[:, 1:], lens)},
+                    fetch_list=[cur])[0][0])
+                maps.append((m, detection_map_numpy(dets, gts)))
+                ev.update_state(dets, gts)
+                all_d += dets
+                all_g += gts
+            stream = float(ev.eval(exe)[0])
+        want = detection_map_numpy(all_d, all_g)
+        print('phase 24a: DetectionMAP over the served batches: each batch\'s '
+              'op on the card vs detection_map_numpy %s; the stream %.6f vs '
+              '%.6f' % (', '.join('%.6f/%.6f' % m for m in maps), stream,
+                        want), flush=True)
+        check(all(abs(a - b) <= 1e-5 for a, b in maps) and
+              abs(stream - want) <= 1e-6 and want > 0, 'phase 24a: the mAP '
+              'parts from detection_map_numpy')
+    finally:
+        amp.set_amp(None)
+    del sscope, prog
+    torch.cuda.empty_cache()
+    return path, launches, totals
+
+
+def _packed_rows(st):
+    """The packed rows of a host SequenceTensor."""
+    return np.concatenate([np.asarray(st.data)[b, :int(st.lengths[b])]
+                           for b in range(len(st.lengths))])
+
+
+class _CtcCtx(object):
+    """The OpCtx a kernel reads, over a dict of values (24b calls the
+    warpctc kernel on the card's own logits with autograd on)."""
+
+    def __init__(self, inputs, attrs):
+        self.inputs, self.attrs, self.outputs = inputs, attrs, {}
+        self.op = type('op', (), {'type': 'warpctc'})
+
+    def input(self, slot):
+        return self.inputs.get(slot)
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+    def set_output(self, slot, val):
+        self.outputs[slot] = val
+
+    def output_names(self, slot):
+        return []
+
+
+def _phase24_crnn(seed, card):
+    """24b. Returns the launches of the timed steps."""
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.core.registry import get_kernel
+    from paddle_tpu_torch.lod import SequenceTensor
+    c = CRNN
+    main, startup, _, fetch, ev = crnn_program(pt, seed)
+    loss = fetch[0]
+    forms = _region_forms(main, [loss.name])
+    check(len(forms) == CRNN_REGIONS and all(bn for _, bn in forms),
+          'phase 24b: the training program has regions %s' % forms)
+    grads = [p.name + '@GRAD' for p in main.global_block().all_parameters()
+             if p.trainable]
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    with pt.scope_guard(scope):
+        ev.reset(exe)
+    rng = np.random.RandomState(seed + 244)
+
+    def feed_of(n):
+        images, labels, lens = crnn_batch(rng, n, c['height'], c['width'],
+                                          c['classes'], CRNN_LABELS)
+        return {'pixel': images, 'label': pt.create_lod_tensor(labels,
+                                                               [lens])}
+    snap = _snapshot(scope)
+    amp.set_amp(False)
+    try:
+        # one step at CRNN_CPU_BATCH, card against CPU, from the start;
+        # the card again with every conv's taps shifted, a control that
+        # must fail the gradients' limits
+        small = feed_of(CRNN_CPU_BATCH)
+        state = {n: v.cpu().numpy() for n, v in snap.items()}
+        res = []
+        for place, conv in ((pt.CUDAPlace(0), None), (pt.CPUPlace(), None),
+                            (pt.CUDAPlace(0), _every_tap_shifted_conv)):
+            s = pt.Scope()
+            for n, v in state.items():
+                s.set_var(n, v)
+            with pt.scope_guard(s):
+                ev.reset(exe)
+            with passes.conv_for_testing(conv) if conv else \
+                    contextlib.nullcontext():
+                res.append(pt.Executor(place).run(
+                    main, feed=small, fetch_list=[loss] + grads, scope=s))
+
+        def parted(got, ref):
+            """(the loss's relative distance, each gradient's relative
+            L2, the largest |gradient| of a conv's bias)."""
+            ldiff = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+            gerr, berr = {}, 0.0
+            for name, a, b in zip(grads, got[1:], ref[1:]):
+                if name.startswith('conv2d_') and \
+                        name.endswith('.w_1@GRAD'):
+                    berr = max(berr, float(np.abs(a).max()),
+                               float(np.abs(b).max()))
+                    continue
+                gerr[name] = float(np.linalg.norm(a - b) /
+                                   max(np.linalg.norm(b), 1e-30))
+            return ldiff, gerr, berr
+        ldiff, gerr, berr = parted(res[0], res[1])
+        cl, cgerr, _ = parted(res[2], res[1])
+        worst = max(gerr, key=gerr.get)
+        median = float(np.median(list(gerr.values())))
+        cmedian = float(np.median(list(cgerr.values())))
+        cworst = max(cgerr, key=cgerr.get)
+        print('phase 24b: CRNN-CTC (1x%dx%d, filters %s, GRUs of %d, %d+1 '
+              'classes): one f32 step at batch %d, card vs CPU: loss %.7f / '
+              '%.7f (relative %.3g, tol %g); gradients by relative L2: the '
+              'median %.3g (tol %g), the largest %s %.3g (tol %g), the next '
+              '%s; the convs\' biases before a batch norm: max |grad| %.3g '
+              '(tol %g); control, every conv\'s taps shifted: loss relative '
+              '%.3g, gradients\' median %.3g, largest %s %.3g, smallest %.3g'
+              % (c['height'], c['width'], c['filters'], c['hidden'],
+                 c['classes'], CRNN_CPU_BATCH, float(res[0][0]),
+                 float(res[1][0]), ldiff, CRNN_LOSS_TOL, median,
+                 CRNN_GRAD_MEDIAN, worst, gerr[worst], CRNN_GRAD_MAX,
+                 ', '.join('%s %.3g' % (n, e) for n, e in sorted(
+                     gerr.items(), key=lambda kv: -kv[1])[1:4]),
+                 berr, CRNN_BIAS_ABS, cl, cmedian, cworst, cgerr[cworst],
+                 min(cgerr.values())), flush=True)
+        check(ldiff <= CRNN_LOSS_TOL and median <= CRNN_GRAD_MEDIAN and
+              gerr[worst] <= CRNN_GRAD_MAX and berr <= CRNN_BIAS_ABS,
+              'phase 24b: the card\'s step parts from the CPU\'s')
+        check(cl > CRNN_LOSS_TOL and cmedian > CRNN_GRAD_MEDIAN and
+              cgerr[cworst] > CRNN_GRAD_MAX, 'phase 24b: the limits do not '
+              'catch every conv\'s taps shifted')
+        del res
+        _restore(scope, snap)
+        with pt.scope_guard(scope):
+            ev.reset(exe)
+        feed = feed_of(CRNN_BATCH)
+        step_ms = []
+
+        def steps():
+            outs = []
+            for _ in range(CRNN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(exe.run(main, feed=feed, fetch_list=fetch,
+                                    scope=scope))
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            return outs
+        outs, got, variants, fb = _counted(steps)
+        with pt.scope_guard(scope):
+            mean_dist = float(ev.eval(exe)[0])
+        # one more step recorded region by region: each of its 8 regions
+        # held against its plain version at the step's own operands (f32,
+        # against f64 too)
+        recorder = _RegionRecorder()
+        with passes.conv_for_testing(recorder):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        check(len(recorder.calls) == CRNN_REGIONS, 'phase 24b: a step '
+              'recorded %d regions' % len(recorder.calls))
+        _hold_regions('crnn training', 'crnn training', recorder.calls, {},
+                      sum_dtypes=('float32',), dedupe=True, timed=False)
+        del recorder
+        losses = [float(o[0]) for o in outs]
+        print('phase 24b: trained f32, batch %d, %d steps: ms a step (host '
+              'clock, the loss, logits, decode and distances fetched; the '
+              'first lowers) %s; losses %s; EditDistance over the steps '
+              '%.4f; launches %s, by variant %s, fallbacks %s; %s' % (
+                  CRNN_BATCH, CRNN_STEPS, ' '.join('%.2f' % v
+                                                   for v in step_ms),
+                  ' '.join('%.5f' % l for l in losses), mean_dist, got,
+                  {k: v for k, v in variants.items() if v}, fb, card),
+              flush=True)
+        expect = {k: 0 for k in got}
+        expect['fused_conv_stats'] = CRNN_REGIONS * CRNN_STEPS
+        check(got == expect and not fb and np.isfinite(losses).all(),
+              'phase 24b: launches %s, losses %s' % (got, losses))
+        # warpctc against ctc_loss in f64 on the last step's logits
+        logits = outs[-1][1]
+        lab = feed['label']
+        x = torch.as_tensor(logits.data, device='cuda').requires_grad_(True)
+        xl = torch.as_tensor(logits.lengths, device='cuda')
+        ids = torch.as_tensor(np.asarray(lab.data), device='cuda')
+        ll = torch.as_tensor(np.asarray(lab.lengths), device='cuda')
+        ctx = _CtcCtx({'Logits': SequenceTensor(x, xl),
+                       'Label': SequenceTensor(ids, ll)},
+                      {'blank': c['classes'], 'norm_by_times': True})
+        get_kernel('warpctc')(ctx)
+        ours = ctx.outputs['Loss'][:, 0]
+        ours.mean().backward()
+        x64 = x.detach().double().requires_grad_(True)
+        logp = torch.log_softmax(x64, -1).transpose(0, 1)
+        targets = torch.cat([ids[b, :int(ll[b]), 0] for b in
+                             range(ids.shape[0])]).long()
+        wit = F.ctc_loss(logp, targets, xl.long(), ll.long(),
+                         blank=c['classes'], reduction='none') / xl.double()
+        wit.mean().backward()
+        lerr = float(((ours.detach().double() - wit.detach()).abs() /
+                      wit.detach().abs()).max())
+        gerr = float((x.grad.double() - x64.grad).abs().max() /
+                     x64.grad.abs().max())
+        # the greedy decode and the distances on the card and the CPU from
+        # the same logits
+        dmain = pt.Program()
+        with pt.unique_name.guard(), pt.program_guard(dmain, pt.Program()):
+            lv = pt.layers.data(name='logits', shape=[c['classes'] + 1],
+                                dtype='float32', lod_level=1)
+            yv = pt.layers.data(name='label', shape=[1], dtype='int64',
+                                lod_level=1)
+            dec = pt.layers.ctc_greedy_decoder(lv, blank=c['classes'])
+            dist, _ = pt.layers.edit_distance(dec, yv)
+        packed = np.concatenate([logits.data[b, :int(logits.lengths[b])]
+                                 for b in range(len(logits.lengths))])
+        dfeed = {'logits': pt.create_lod_tensor(packed, [list(
+            np.asarray(logits.lengths))]),
+            'label': pt.create_lod_tensor(np.asarray(_packed_rows(lab),
+                                                     'int64'),
+                                          [list(np.asarray(lab.lengths))])}
+        decs = [pt.Executor(place).run(dmain, feed=dfeed,
+                                       fetch_list=[dec, dist],
+                                       scope=pt.Scope())
+                for place in (pt.CUDAPlace(0), pt.CPUPlace())]
+        same = np.array_equal(np.asarray(decs[0][0]),
+                              np.asarray(decs[1][0])) and \
+            np.array_equal(decs[0][0].lengths, decs[1][0].lengths) and \
+            np.array_equal(decs[0][1], decs[1][1])
+        print('phase 24b: warpctc vs ctc_loss in f64 on the card\'s logits '
+              '(%d strips, %d steps): loss relative %.3g (tol %g), logits '
+              'gradient %.3g of its largest (tol %g); the greedy decode and '
+              'its distances card vs CPU equal: %s (mean distance %.4f)' % (
+                  x.shape[0], x.shape[1], lerr, CTC_WITNESS_TOL, gerr,
+                  CTC_GRAD_TOL, same, float(np.mean(decs[0][1]))),
+              flush=True)
+        check(lerr <= CTC_WITNESS_TOL and gerr <= CTC_GRAD_TOL and same,
+              'phase 24b: warpctc or the decode parts from its witness')
+    finally:
+        amp.set_amp(None)
+    return got
+
+
+def _phase24_observatory(seed, card, d):
+    """24c."""
+    import torch
+    import urllib.request
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.compiler.tuning import Autotuner
+    from paddle_tpu_torch.observability import flight, perf
+
+    def train_func():
+        img = pt.layers.data(name='image', shape=[3, SSD['size'],
+                                                  SSD['size']],
+                             dtype='float32')
+        loc, conf, box, var = mobilenet_ssd(pt.layers, img, SSD['classes'],
+                                            SSD['scale'])
+        gt_box = pt.layers.data(name='gt_box', shape=[4], dtype='float32',
+                                lod_level=1)
+        gt_label = pt.layers.data(name='gt_label', shape=[1], dtype='int32',
+                                  lod_level=1)
+        return pt.layers.reduce_sum(pt.layers.ssd_loss(loc, conf, gt_box,
+                                                       gt_label, box, var))
+    rng = np.random.RandomState(seed + 245)
+
+    def reader():
+        for _ in range(SSD_TRAINER_STEPS):
+            boxes, labels, lens = ssd_ground_truth(rng, SSD_BATCH,
+                                                   SSD['classes'])
+            off = np.cumsum([0] + lens)
+            yield [(rng.randn(3, SSD['size'], SSD['size']).astype('float32'),
+                    boxes[off[i]:off[i + 1]], labels[off[i]:off[i + 1]])
+                   for i in range(SSD_BATCH)]
+
+    perf.clear()
+    trainer = pt.Trainer(train_func, pt.optimizer.Momentum(
+        learning_rate=0.001, momentum=0.9), place=pt.CUDAPlace(0))
+    t0 = time.perf_counter()
+    with perf.capture_scope(True):
+        trainer.train(num_epochs=1, event_handler=lambda e: None,
+                      reader=reader, feed_order=['image', 'gt_box',
+                                                 'gt_label'])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    prog = trainer.train_program
+    fp = prog.fingerprint()
+    led = perf.get_ledger(fp)
+    check(led is not None, 'phase 24c: the training step left no ledger')
+    hand = _conv_hand_count(prog, [trainer.train_func_outputs[0].name],
+                            SSD_BATCH, True)
+    reg = obs.default_registry()
+    mfu = reg.get('perf_mfu', program=fp)
+    roof = reg.get('perf_roofline_bound', program=fp)
+    srv = obs.serve_telemetry(port=0)
+    try:
+        with urllib.request.urlopen('http://127.0.0.1:%d/ledgers' % srv.port,
+                                    timeout=30) as r:
+            docs = json.loads(r.read())
+    finally:
+        srv.close()
+    with open(flight.dump('phase24c', directory=d)) as f:
+        bundle = json.load(f)
+    bound = Autotuner._ledger_bound(prog)
+    print('phase 24c: the Trainer, %d MobileNet-SSD steps at batch %d under '
+          'capture (%.1f s, the lowering included): the ledger (%s): '
+          '%.4g operations (the fused conv regions %.4g, hand count from '
+          'the layers %.4g), %.4g bytes, arguments %.3g GB, outputs %.3g '
+          'GB, peak above them %.3g GB; bounds %.3f ms operations, %.3f ms '
+          'bytes (%s); measured %.2f ms a step (the dispatch wall); MFU '
+          'gauge %s, roofline gauge %s; /ledgers %d ledger(s), the flight '
+          'bundle %d; _ledger_bound %r; %s' % (
+              SSD_TRAINER_STEPS, SSD_BATCH, dt, led.device_kind, led.flops,
+              led.flops_by_type.get('fused_conv', 0), hand,
+              led.bytes_accessed, led.argument_bytes / 1e9,
+              led.output_bytes / 1e9, led.temp_bytes / 1e9,
+              1e3 * led.compute_bound_s(), 1e3 * led.bandwidth_bound_s(),
+              led.roofline_bound, led.measured_ms or 0.0,
+              mfu.value if mfu else None, roof.value if roof else None,
+              len(docs), len(bundle['ledgers'] or []), bound, card),
+          flush=True)
+    check(led.flops_by_type.get('fused_conv') == hand, 'phase 24c: the '
+          'ledger counts %s fused conv operations, the hand count %d'
+          % (led.flops_by_type.get('fused_conv'), hand))
+    check(led.device_kind == torch.cuda.get_device_name(0) and
+          led.temp_bytes > 0 and mfu is not None and mfu.value > 0 and
+          abs(mfu.value - led.mfu()) <= 1e-12 and roof is not None and
+          roof.value in (0.0, 1.0), 'phase 24c: the gauges or the memory')
+    check(fp in [x['fp'] for x in docs] and
+          fp in [x['fp'] for x in bundle['ledgers']] and
+          bound == led.roofline_bound, 'phase 24c: /ledgers, the flight '
+          'bundle or _ledger_bound misses the ledger')
+    perf.clear()
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _timed_preparation():
+    """Wrap the steps of the Executor's memo miss (the verify, the prune,
+    the passes, the lowering) and the store's load and save with wall
+    clocks: returns the dict of their seconds, summed over the process."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import analysis, compiler
+    from paddle_tpu_torch import executor as pexe
+    from paddle_tpu_torch.fleet import coldstart
+    prep = dict(verify=0.0, prune=0.0, passes=0.0, lowering=0.0,
+                store_load=0.0, store_save=0.0)
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                prep[key] += time.perf_counter() - t0
+        return wrapper
+    for mod, name, key in ((analysis, 'verify_for_executor', 'verify'),
+                           (compiler, 'optimize', 'passes'),
+                           (pexe, 'lower_block', 'lowering'),
+                           (coldstart.AotStore, 'load', 'store_load'),
+                           (coldstart.AotStore, 'save', 'store_save')):
+        setattr(mod, name, timed(key, getattr(mod, name)))
+    pt.Executor._maybe_prune = staticmethod(timed(
+        'prune', pt.Executor.__dict__['_maybe_prune'].__func__))
+    return prep
+
+
+def coldstart_child(model_dir, store_dir, out):
+    """24d's child (``--coldstart-child``): a fresh ModelServer on the card
+    warms the saved SSD model (buckets up to COLDSTART_MAX_BATCH) under
+    the cold-start store at ``store_dir``, serves one batch of
+    COLDSTART_MAX_BATCH, and writes its outputs, the store's counters,
+    the warm-up's seconds and those of its memo miss's steps
+    (``_timed_preparation``) to ``out`` (.npz)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import compiler
+    from paddle_tpu_torch.fleet import coldstart
+    from paddle_tpu_torch.observability import default_registry
+    prep = _timed_preparation()
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d, \
+            coldstart.cache_scope(store_dir):
+        compiler.tuning.set_default_cache(compiler.tuning.TuningCache(
+            os.path.join(d, 'tuning_cache.json')))
+        image = np.random.RandomState(7).randn(
+            COLDSTART_MAX_BATCH, 3, SSD['size'], SSD['size']).astype(
+                'float32')
+        with pt.serving.ModelServer(
+                max_batch_size=COLDSTART_MAX_BATCH) as srv:
+            srv.load_model('ssd', model_dir)
+            t0 = time.perf_counter()
+            warmed = srv.warmup('ssd')
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            outs = srv.submit('ssd', {'image': image}).result(timeout=300)
+        reg = default_registry()
+        counts = {n: (reg.get(n).value if reg.get(n) else 0) for n in (
+            'coldstart_hits_total', 'coldstart_misses_total',
+            'coldstart_saves_total', 'coldstart_failures_total')}
+    np.savez(out, warm_s=warm_s, buckets=np.asarray(warmed['ssd']),
+             counts=json.dumps(counts), prep=json.dumps(prep),
+             **{'out%d' % i: np.asarray(o) for i, o in enumerate(outs)})
+    print('coldstart-child: warmed %s in %.3f s; %s; %s' % (
+        warmed['ssd'], warm_s, counts, prep), flush=True)
+    return 0
+
+
+def _child_env(d):
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        [ROOT] + [p for p in env.get('PYTHONPATH', '').split(os.pathsep)
+                  if p])
+    env['PADDLE_TPU_TORCH_TUNING_CACHE'] = os.path.join(d, 'child_tuning.json')
+    env['PADDLE_TPU_TORCH_AMP'] = '0'
+    return env
+
+
+def _phase24_coldstart(model_dir, d, card):
+    """24d."""
+    store = os.path.join(d, 'aot_store')
+    runs = []
+    for label in ('empty store', 'filled store'):
+        out = os.path.join(d, 'coldstart_%d.npz' % len(runs))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.join(ROOT,
+                                                         'chip_smoke.py'),
+                            '--coldstart-child', model_dir, store, out],
+                           capture_output=True, text=True, timeout=600,
+                           env=_child_env(d))
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, 'phase 24d: the child on the %s exited %d: '
+              '%s' % (label, r.returncode, r.stderr[-3000:]))
+        with np.load(out) as z:
+            runs.append((label, wall, float(z['warm_s']),
+                         json.loads(str(z['counts'])),
+                         [z['out%d' % i] for i in range(3)],
+                         [int(b) for b in z['buckets']],
+                         json.loads(str(z['prep']))))
+    for label, wall, warm_s, counts, _, buckets, prep in runs:
+        print('phase 24d: a fresh replica on the %s: warm-up of buckets %s '
+              '%.3f s (the process %.1f s, its start and imports included), '
+              'of it the memo miss\'s steps (wall): verify %.4f s, prune '
+              '%.4f s, passes %.4f s, lowering %.4f s, store load %.4f s, '
+              'store save %.4f s; store hits %d, misses %d, saves %d, '
+              'failures %d; %s' % (
+                  label, buckets, warm_s, wall, prep['verify'],
+                  prep['prune'], prep['passes'], prep['lowering'],
+                  prep['store_load'], prep['store_save'],
+                  counts['coldstart_hits_total'],
+                  counts['coldstart_misses_total'],
+                  counts['coldstart_saves_total'],
+                  counts['coldstart_failures_total'], card), flush=True)
+    (_, _, _, c0, o0, _, _), (_, _, _, c1, o1, _, _) = runs
+    same = all(np.array_equal(a, b) for a, b in zip(o0, o1))
+    print('phase 24d: outputs of the two replicas bit-identical: %s' % same,
+          flush=True)
+    check(c0['coldstart_saves_total'] >= 1 and
+          c0['coldstart_hits_total'] == 0 and
+          c1['coldstart_hits_total'] >= 1 and
+          c1['coldstart_saves_total'] == 0 and
+          c1['coldstart_failures_total'] == 0 and same,
+          'phase 24d: counters %s then %s, bit-identical %s' % (c0, c1, same))
+
+
+def _phase24_capi(model_dir, d, card):
+    """24e."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pt_io
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.native import capi
+    t0 = time.perf_counter()
+    lib = capi.build()
+    src = os.path.join(d, 'capi_client.c')
+    exe_path = os.path.join(d, 'capi_client')
+    with open(src, 'w') as f:
+        f.write(CAPI_CLIENT)
+    _, ldflags = capi.python_flags()
+    r = subprocess.run(['gcc', src, '-o', exe_path, lib,
+                        '-Wl,-rpath,' + os.path.dirname(lib)] + ldflags,
+                       capture_output=True, text=True)
+    check(r.returncode == 0, 'phase 24e: the C program did not build: %s'
+          % r.stderr[-2000:])
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = subprocess.run([exe_path, model_dir], capture_output=True, text=True,
+                       timeout=600, env=_child_env(d))
+    ran = time.perf_counter() - t0
+    check(r.returncode == 0, 'phase 24e: the C program exited %d: %s'
+          % (r.returncode, r.stderr[-3000:]))
+    lines = r.stdout.strip().splitlines()
+    got = np.array([float(v) for v in lines[-1].split()], 'float32')
+    amp.set_amp(False)
+    try:
+        exe = pt.Executor()
+        scope = pt.Scope()
+        prog, feeds, fetch = pt_io.load_inference_model(model_dir, exe,
+                                                        scope=scope)
+        want = exe.run(prog, feed={feeds[0]: _capi_input()},
+                       fetch_list=fetch, scope=scope)[0]
+    finally:
+        amp.set_amp(None)
+    same = got.shape == (want.size,) and np.array_equal(
+        got.reshape(want.shape), want)
+    print('phase 24e: the C program (gcc, linked to %s) served the saved '
+          'MobileNet-SSD on the card: %s, %d detections kept; equal to the '
+          'Executor\'s bit for bit: %s; built in %.1f s, ran in %.1f s (the '
+          'interpreter\'s start and imports included); %s' % (
+              os.path.basename(lib), lines[0], int((want[..., 0] >= 0)
+                                                   .sum()), same, built, ran,
+              card), flush=True)
+    check(same, 'phase 24e: the C API\'s output parts from the Executor\'s')
+
+
+def phase_detection_ctc(seed, card):
+    """24. MobileNet-SSD trained and served (24a), CRNN-CTC trained and
+    decoded (24b), the observatory (24c), the cold-start store (24d), the
+    C API (24e). Returns (the launches of the main paths: fused_conv,
+    fused_conv_stats and the depthwise variant in each form; 6l's
+    totals)."""
+    import torch
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        scope, trained = _phase24_ssd_training(seed, card)
+        _lap('24a_ssd_training')
+        path, served, totals = _phase24_ssd_serving(seed, card, d, scope)
+        del scope
+        torch.cuda.empty_cache()
+        _lap('24a_ssd_serving')
+        crnn = _phase24_crnn(seed, card)
+        _lap('24b_crnn_ctc')
+        _phase24_observatory(seed, card, d)
+        _lap('24c_observatory')
+        _phase24_coldstart(path, d, card)
+        _lap('24d_coldstart')
+        _phase24_capi(path, d, card)
+        _lap('24e_capi')
+    launches = {'fused_conv': trained['fused_conv'] + served['fused_conv'],
+                'fused_conv_stats': trained['fused_conv_stats'] +
+                crnn['fused_conv_stats'],
+                'depthwise': served['depthwise'],
+                'depthwise_stats': trained['depthwise']}
+    torch.cuda.empty_cache()
+    print('phase 24: %.1f s; %.1f s since the process started; launches %s'
+          % (time.perf_counter() - t_phase, time.perf_counter() - _STARTED,
+             launches), flush=True)
+    return launches, totals
+
+
 def sweep_conv_plans(card):
     """The wgmma conv's time at every (tile width, K splits) at ResNet-50's
     non-stem region shapes at batch 1, 8 and 32 (bf16, the folded batch
@@ -12514,6 +13862,72 @@ def fetch_cost(card, root, seed):
     worker.shutdown()
 
 
+def crnn_switches(card, seed):
+    """``--crnn-switches``: 24b's card-against-CPU step at CRNN_CPU_BATCH
+    again, with each max pool's and ReLU's input fetched from both: the
+    2x2 windows whose chosen element differs (and the CPU's gap between
+    their two largest), the ReLU inputs whose sign differs, and the
+    gradients that part by more than 1e-4."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import amp
+    main, startup, _, fetch, ev = crnn_program(pt, seed)
+    block = main.global_block()
+    pools = [op.input('X')[0] for op in block.ops if op.type == 'pool2d']
+    relus = [op.input('X')[0] for op in block.ops if op.type == 'relu']
+    grads = [p.name + '@GRAD' for p in block.all_parameters() if p.trainable]
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)         # the card's startup, as in 24b
+    state = {n: v.cpu().numpy() for n, v in scope.vars.items()
+             if isinstance(v, torch.Tensor)}
+    images, labels, lens = crnn_batch(np.random.RandomState(seed + 244),
+                                      CRNN_CPU_BATCH, CRNN['height'],
+                                      CRNN['width'], CRNN['classes'],
+                                      CRNN_LABELS)
+    feed = {'pixel': images, 'label': pt.create_lod_tensor(labels, [lens])}
+    res = []
+    amp.set_amp(False)
+    try:
+        for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+            s = pt.Scope()
+            for n, v in state.items():
+                s.set_var(n, v)
+            with pt.scope_guard(s):
+                ev.reset(exe)
+            res.append([np.asarray(v) for v in pt.Executor(place).run(
+                main, feed=feed, fetch_list=pools + relus + grads,
+                scope=s)])
+    finally:
+        amp.set_amp(None)
+
+    def windows(x):
+        n, c, h, w = x.shape
+        return x.reshape(n, c, h // 2, 2, w // 2, 2).transpose(
+            0, 1, 2, 4, 3, 5).reshape(n, c, h // 2, w // 2, 4)
+    for i, name in enumerate(pools):
+        a, b = windows(res[0][i]), windows(res[1][i])
+        moved = a.argmax(-1) != b.argmax(-1)
+        top2 = np.sort(b, -1)
+        gaps = (top2[..., -1] - top2[..., -2])[moved]
+        print('crnn-switches: max pool %d (%s, input %s): %d of %d windows '
+              'chose another element, the CPU\'s gap between their two '
+              'largest at most %.3g; %s' % (
+                  i, name, res[1][i].shape, int(moved.sum()), moved.size,
+                  float(gaps.max()) if moved.any() else 0.0, card),
+              flush=True)
+    for j, name in enumerate(relus):
+        a, b = res[0][len(pools) + j], res[1][len(pools) + j]
+        print('crnn-switches: relu %d (%s): %d inputs of another sign'
+              % (j, name, int((np.sign(a) != np.sign(b)).sum())), flush=True)
+    off = len(pools) + len(relus)
+    for k, name in enumerate(grads):
+        a, b = res[0][off + k], res[1][off + k]
+        err = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+        if err > 1e-4:
+            print('crnn-switches: %s parts by %.3g' % (name, err), flush=True)
+
+
 def conv3d_grads(card, seed):
     """Where 21a's widest f32 readings come from: the wide conv3d
     group's fetches, card against CPU, the card's twice (cuDNN
@@ -12617,6 +14031,9 @@ def main():
                     help="time the flagship's logits copy to the host and "
                     'its served request on the main thread and on a '
                     'second one, then stop')
+    ap.add_argument('--crnn-switches', action='store_true',
+                    help="count the max pool windows and ReLUs whose choice "
+                    "differs between 24b's card and CPU steps, then stop")
     ap.add_argument('--conv3d-grads', action='store_true',
                     help="read 21a's wide conv3d gradients against an f64 "
                     'reference and its TF32 control both ways, then stop')
@@ -12640,6 +14057,11 @@ def main():
                     help='build the kernels, run phase 21 alone, then stop')
     ap.add_argument('--phase22', action='store_true',
                     help='build the kernels, run phase 22 alone, then stop')
+    ap.add_argument('--phase24', action='store_true',
+                    help='build the kernels, run phase 24 alone, then stop')
+    ap.add_argument('--coldstart-child', nargs=3,
+                    metavar=('MODEL_DIR', 'STORE_DIR', 'OUT'),
+                    help="phase 24d's replicas (run by phase 24d)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -12655,6 +14077,8 @@ def main():
         return trainer_child(*args.trainer_child, seed=args.seed)
     if args.long_remat:
         return long_remat_child(args.long_remat, args.seed)
+    if args.coldstart_child:
+        return coldstart_child(*args.coldstart_child)
     phase_build()
     _lap('build')
     os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
@@ -12696,6 +14120,12 @@ def run_phases(args, card, root):
         return 0
     if args.phase22:
         phase_mobilenet(args.seed, card)
+        return 0
+    if args.phase24:
+        phase_detection_ctc(args.seed, card)
+        return 0
+    if args.crnn_switches:
+        crnn_switches(card, args.seed)
         return 0
     if args.conv3d_grads:
         conv3d_grads(card, args.seed)
@@ -12787,6 +14217,8 @@ def run_phases(args, card, root):
     _lap('public_api')
     dw_sums, mobilenet = phase_mobilenet(args.seed, card)
     _lap('mobilenet')
+    detection, ssd_totals = phase_detection_ctc(args.seed, card)
+    _lap('detection_ctc')
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests, the serving runtime's concurrent mix, untuned
@@ -12808,7 +14240,9 @@ def run_phases(args, card, root):
     # stacked_dynamic_lstm's (20b), ResNet-50's profiled requests (20c);
     # and over phase 21's: book 02's steps through the paddle alias in a
     # child process and in this one (21c); and over phase 22's:
-    # MobileNet-v1's served requests and training steps (22b))
+    # MobileNet-v1's served requests and training steps (22b); and over
+    # phase 24's: MobileNet-SSD's training steps (f32 and AMP) and served
+    # requests (24a), CRNN-CTC's training steps (24b))
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -12864,9 +14298,10 @@ def run_phases(args, card, root):
         book_launches['fused_conv'] + front['fused_conv'] +
         sparse['fused_conv'] + trainer['fused_conv'] +
         readers['fused_conv'] + public['fused_conv'] +
-        mobilenet['fused_conv'],
+        mobilenet['fused_conv'] + detection['fused_conv'],
         bench_regions=bench_totals('fused_conv'),
-        book_regions=book_regions('fused_conv'), **conv))
+        book_regions=book_regions('fused_conv'),
+        ssd_head_regions=ssd_totals, **conv))
     # its stats form: launches over the timed ResNet-50, VGG-16 and
     # ResNet-32 (13b, f32 and AMP) training steps, numbers summed over one
     # batch-128 ResNet-50 step's 53 regions (bf16), VGG-16's and
@@ -12879,12 +14314,12 @@ def run_phases(args, card, root):
         bench['vgg'][0]['fused_conv_stats'] +
         book_launches['fused_conv_stats'] + front['fused_conv_stats'] +
         trainer.get('fused_conv_stats', 0) + readers['fused_conv_stats'] +
-        mobilenet['fused_conv_stats'],
+        mobilenet['fused_conv_stats'] + detection['fused_conv_stats'],
         bench_regions=bench_totals('fused_conv_stats'),
         book_regions=book_regions('fused_conv_stats'), **stats))
     # the fused conv's depthwise kernel, both forms: launches over
-    # MobileNet-v1's served requests (inference form) and training steps
-    # (stats form, 22b); numbers summed over its 13 depthwise layers at
+    # MobileNet-v1's and MobileNet-SSD's served requests (inference form)
+    # and training steps (stats form, 22b, 24a); numbers summed over its 13 depthwise layers at
     # batch 32 (22a), f32, bf16 beside
     for form, name, key in (('inference', 'fused_conv_depthwise',
                              'depthwise'),
@@ -12898,7 +14333,7 @@ def run_phases(args, card, root):
             name=name, route='cuda',
             source='paddle_tpu_torch/csrc/fused_conv_depthwise.cu',
             replaces='paddle_tpu/ops/pallas_kernels.py:807',
-            launches=mobilenet[key], bf16=bf16, **f32))
+            launches=mobilenet[key] + detection[key], bf16=bf16, **f32))
     # the LSTM cell: launches over the timed training steps of
     # stacked_dynamic_lstm, numbers at its shape (B 256, H 512, f32), and
     # its bf16 path's at the same shape (no main path launches it)

@@ -33,7 +33,8 @@ __all__ = ['Pass', 'PassContext', 'PassResult', 'PassRegistry',
            'PassPipeline', 'register_pass', 'get_pass',
            'registered_passes', 'enabled', 'set_enabled', 'disabled',
            'default_pipeline', 'inference_pipeline',
-           'set_default_passes', 'pipeline_signature', 'cache_token',
+           'set_default_passes', 'pipeline_signature',
+           'pipeline_writes_scope', 'cache_token',
            'optimize', 'optimize_inference', 'tuning', 'DEFAULT_PASSES',
            'INFERENCE_PASSES']
 
@@ -90,6 +91,15 @@ def pipeline_signature():
     if not _STATE['enabled']:
         return ('off',)
     return _STATE['pass_names']
+
+
+def pipeline_writes_scope():
+    """Whether a pass of the active pipeline writes into the Scope
+    (``Pass.writes_scope``): its prepared program is then only right
+    beside the Scope it was prepared with."""
+    from .pass_base import _REGISTRY
+    return _STATE['enabled'] and any(
+        _REGISTRY[n].writes_scope for n in _STATE['pass_names'])
 
 
 def cache_token(program_fp, feed_sig, device):

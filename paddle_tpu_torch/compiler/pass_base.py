@@ -15,6 +15,10 @@ tests can rely on:
   and document the tolerance (tests pin <= 1e-5).
 - ``idempotent``: ``run(run(p)) == run(p)``: the second application
   reports ``changed=False`` and leaves the program alone.
+- ``writes_scope``: the pass writes values into the Scope it is given
+  (BN folding rescales the weights in place and adds the fold bias), so
+  its output program is only right beside that Scope: the cold-start
+  store (fleet/coldstart.py) keeps no program of such a pipeline.
 """
 import time
 
@@ -83,6 +87,7 @@ class Pass(object):
     # Declared invariants (see module docstring).
     preserves_semantics = True
     idempotent = True
+    writes_scope = False
 
     def run(self, program, ctx):
         """Rewrite ``program`` in place; return a :class:`PassResult`."""

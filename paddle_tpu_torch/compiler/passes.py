@@ -1107,6 +1107,7 @@ class BatchNormFolding(Pass):
 
     name = 'bn_fold'
     preserves_semantics = False
+    writes_scope = True
 
     def run(self, program, ctx):
         res = PassResult(self.name)

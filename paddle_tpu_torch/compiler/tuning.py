@@ -362,9 +362,12 @@ class Autotuner(object):
 
     @staticmethod
     def _ledger_bound(program):
-        """The program's roofline bound from the performance observatory's
-        ledger: None until the port has one (ROADMAP Queue A, perf.py)."""
-        return None
+        """The program's roofline leg from the performance observatory's
+        ledger ('compute' or 'bandwidth'), or None where it was never
+        ledgered."""
+        from ..observability import perf as _perf
+        led = _perf.book().get(program.fingerprint())
+        return led.roofline_bound if led is not None else None
 
     def _device(self):
         from ..core import places as _places

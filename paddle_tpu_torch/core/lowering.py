@@ -55,6 +55,7 @@ import torch.utils.checkpoint
 
 from .registry import get_kernel, register_kernel
 from .. import profiler as _prof
+from ..observability import perf as _perf
 from ..debugging import NanInfError, nan_checks_enabled
 from ..framework import (Operator, _hidden_reads, _op_reads, _op_writes,
                          convert_np_dtype)
@@ -212,6 +213,7 @@ class BlockRunner(object):
     def run_ops(self, ops, env):
         guard = nan_checks_enabled()
         profiling = self.profile and _prof.op_profiling_enabled()
+        count = _perf.OP_HOOK[0]     # a perf capture's op counter
         if profiling:
             _device_sync(self.device)
         for op in ops:
@@ -231,6 +233,8 @@ class BlockRunner(object):
                                       start=t0)
             if guard:
                 _check_outputs(op, env)
+            if count is not None:
+                count(op, env, self.grad_mode)
             if self.grad_mode:
                 self._apply_grad_attrs(op, env)
             for name in op.attrs.get('__release__', ()):

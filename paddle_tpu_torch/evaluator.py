@@ -1,9 +1,9 @@
 """Evaluator classes (the reference keeps them for the book scripts).
 
-Counterpart of paddle_tpu/evaluator.py: the ``Evaluator`` base and
-``ChunkEvaluator``; ``EditDistance`` and ``DetectionMAP`` wait for the
-ctc and detection op families (ROADMAP item 6). Parity:
-python/paddle/fluid/evaluator.py.
+Counterpart of paddle_tpu/evaluator.py: the ``Evaluator`` base,
+``ChunkEvaluator``, ``EditDistance`` and ``DetectionMAP`` (its stream
+accumulated on the host, ``ops/detection_map_ref.DetectionMAPState``).
+Parity: python/paddle/fluid/evaluator.py.
 """
 import numpy as np
 
@@ -11,7 +11,7 @@ from . import layers, unique_name
 from .executor import as_numpy, global_scope
 from .layer_helper import LayerHelper
 
-__all__ = ['ChunkEvaluator', 'Evaluator']
+__all__ = ['ChunkEvaluator', 'EditDistance', 'DetectionMAP', 'Evaluator']
 
 
 class Evaluator(object):
@@ -88,3 +88,84 @@ class ChunkEvaluator(Evaluator):
         f1 = 2 * precision * recall / (precision + recall) \
             if num_correct_chunks else 0
         return np.array([precision]), np.array([recall]), np.array([f1])
+
+
+class EditDistance(Evaluator):
+    """The mean edit distance over batches: each batch's distances
+    summed into a float32 state and its sequence count into an int64
+    one."""
+
+    def __init__(self, input, label, ignored_tokens=None, **kwargs):
+        super(EditDistance, self).__init__("edit_distance", **kwargs)
+        self.total_distance = self.create_state(
+            dtype='float32', shape=[1], suffix='total_distance')
+        self.seq_num = self.create_state(dtype='int64', shape=[1],
+                                         suffix='seq_num')
+        distances, seq_num = layers.edit_distance(
+            input=input, label=label, ignored_tokens=ignored_tokens)
+        total = layers.reduce_sum(distances)
+        layers.sums(input=[self.total_distance, total],
+                    out=self.total_distance)
+        layers.sums(input=[self.seq_num, seq_num], out=self.seq_num)
+        self.metrics.append(distances)
+
+    def eval(self, executor, eval_program=None):
+        return np.array([_total(self.total_distance) /
+                         max(_total(self.seq_num), 1.0)])
+
+
+class DetectionMAP(Evaluator):
+    """mAP over the evaluation stream. A batch's mAP comes from the
+    ``detection_map`` op (summed into ``accum_map``); the stream's exact
+    mAP from the host state: call ``update_state(detections, labels)``
+    with each batch's per-image rows, then ``eval``."""
+
+    def __init__(self, input, gt_label, gt_box, gt_difficult=None,
+                 class_num=None, background_label=0, overlap_threshold=0.5,
+                 evaluate_difficult=True, ap_version='integral'):
+        super(DetectionMAP, self).__init__("map_eval")
+        from .ops.detection_map_ref import DetectionMAPState
+        if class_num is None:
+            raise ValueError(
+                "DetectionMAP requires class_num; note gt_difficult "
+                "precedes class_num in the signature (reference "
+                "evaluator.py:314-323)")
+        gt_label = layers.cast(x=gt_label, dtype=gt_box.dtype)
+        if gt_difficult is not None:
+            # the 6-column layout [label, difficult, xmin .. ymax]
+            gt_difficult = layers.cast(x=gt_difficult, dtype=gt_box.dtype)
+            label = layers.concat([gt_label, gt_difficult, gt_box], axis=1)
+        else:
+            label = layers.concat([gt_label, gt_box], axis=1)
+        map_out = layers.detection_map(
+            input, label, class_num, background_label=background_label,
+            overlap_threshold=overlap_threshold,
+            evaluate_difficult=evaluate_difficult, ap_version=ap_version)
+        self.cur_map = map_out
+        self.accum_map = self.create_state(
+            dtype='float32', shape=[1], suffix='accum_map')
+        layers.sums(input=[self.accum_map, map_out], out=self.accum_map)
+        self._state = DetectionMAPState(
+            overlap_threshold, evaluate_difficult, ap_version,
+            class_num, background_label)
+        self._host_mode = False
+
+    def get_map_var(self):
+        return self.cur_map, self.accum_map
+
+    def update_state(self, detections, labels):
+        """Accumulate one evaluated batch (lists of per-image arrays:
+        detections [D_i, 6], labels [G_i, 5|6])."""
+        self._host_mode = True
+        self._state.update(detections, labels)
+
+    def reset(self, executor, reset_program=None):
+        self._state.reset()
+        self._host_mode = False
+        return super(DetectionMAP, self).reset(executor, reset_program)
+
+    def eval(self, executor, eval_program=None):
+        if self._host_mode:
+            return np.array([self._state.value()], np.float32)
+        return np.asarray(as_numpy(global_scope().find_var(
+            self.accum_map.name)))

@@ -83,6 +83,7 @@ import torch
 from . import analysis as _analysis
 from . import compiler as _compiler
 from . import observability as _obs
+from .observability import perf as _perf
 from .framework import (Program, Variable, _op_reads, _op_writes,
                         default_main_program)
 from .lod import SequenceTensor
@@ -100,6 +101,28 @@ __all__ = ['Executor', 'Scope', 'VarBinding', 'global_scope', 'scope_guard',
 # numpy array or a CPU tensor, a sequence's lengths included) and Scope
 # values set from the host; process-wide
 FEED_COPIES = {'host_to_device': 0}
+
+
+def _coldstart_store():
+    """The active cold-start store, or None with the ``PTPU_AOT_CACHE``
+    gate closed, or where a pass of the pipeline writes into the Scope
+    (BN folding): a stored program of such a pipeline would run on
+    weights the fresh replica never folded. The fleet package imports
+    serving, which imports this module, so the reach into
+    fleet.coldstart is made at run time; with the gate closed and the
+    module never imported (no ``cache_scope`` can be open), one
+    environment read answers."""
+    import os
+    import sys
+    mod = sys.modules.get('paddle_tpu_torch.fleet.coldstart')
+    if mod is None:
+        if not os.environ.get('PTPU_AOT_CACHE'):
+            return None
+        from .fleet import coldstart as mod
+    if _compiler.pipeline_writes_scope():
+        return None
+    return mod.default_store()
+
 
 # memo counters of one Executor: hits, misses (each one a prune, the
 # passes and a lowering), entries it made
@@ -699,20 +722,44 @@ class Executor(object):
         # the lock, so one program's cold lowering never stalls another's
         # hits; two threads that miss on one key both lower, the first
         # insert wins
-        if not dynamic:
-            t_verify = time.perf_counter()
-            _analysis.verify_for_executor(
-                program, feed_names=feed_names + sorted(static_env),
-                fetch_names=fetch_names)
-            if tspan is not None:
-                _obs.emit_span('exe/verify',
-                               time.perf_counter() - t_verify, parent=tspan)
-        _obs.emit('compile_begin', fp=fp)
-        pruned = self._maybe_prune(program, fetch_names)
-        if token != ('off',) and not dynamic:
-            pruned, _ = _compiler.optimize(
-                pruned, fetch_names=fetch_names, scope=scope,
-                clone=pruned is program)
+        store = None if dynamic else _coldstart_store()
+        pruned = None
+        if store is not None:
+            # the cold-start store (fleet/coldstart.py): the memo key's
+            # content, the program's fingerprint for its version
+            pkey = (fp,) + key[1:]
+            entry = store.load(pkey, self.device)
+            if entry is not None:
+                from .io import program_from_json
+                try:
+                    pruned = program_from_json(entry['program'])
+                except (KeyError, TypeError, ValueError):
+                    store.m_failures.inc()
+        if pruned is None:
+            if not dynamic:
+                t_verify = time.perf_counter()
+                _analysis.verify_for_executor(
+                    program, feed_names=feed_names + sorted(static_env),
+                    fetch_names=fetch_names)
+                if tspan is not None:
+                    _obs.emit_span('exe/verify',
+                                   time.perf_counter() - t_verify,
+                                   parent=tspan)
+            _obs.emit('compile_begin', fp=fp)
+            pruned = self._maybe_prune(program, fetch_names)
+            if token != ('off',) and not dynamic:
+                pruned, _ = _compiler.optimize(
+                    pruned, fetch_names=fetch_names, scope=scope,
+                    clone=pruned is program)
+                if _compiler.pipeline_writes_scope():
+                    # the passes wrote state into the Scope (bn_fold's
+                    # folded weights and fold bias): the prepared
+                    # program's state names
+                    state_in, state_out = self._state_names(pruned, scope)
+            if store is not None:
+                from .io import program_to_json
+                store.save(pkey, {'program': program_to_json(pruned)},
+                           self.device)
         fn = lower_block(pruned, pruned.global_block(), feed_names,
                          fetch_names, state_in, state_out, self.device,
                          dynamic, bool(getattr(program, '_remat', False)),
@@ -813,8 +860,18 @@ class Executor(object):
         state[RNG_KEY] = scope.raw(RNG_KEY)
         state[RNG_CPU_KEY] = scope.raw(RNG_CPU_KEY)
         t_run = time.perf_counter()
-        fetches, new_state = fn(feed, state)
+        ledger = None
+        if missed and not dynamic and _perf.capture_enabled():
+            # the performance observatory: the miss's own run, its ops
+            # counted and its memory read (observability/perf.py)
+            fetches, new_state, ledger = _perf.capture_run(
+                fn, feed, state, fp, self.device)
+        else:
+            fetches, new_state = fn(feed, state)
         run_wall = time.perf_counter() - t_run
+        if ledger is not None:
+            _perf.seal(ledger, compile_wall, trace=tspan.context
+                       if tspan is not None else _obs.current_context())
         self._m_run.observe(run_wall)
         h, m = self._m_hits.value, self._m_misses.value
         self._m_hit_rate.set(h / (h + m) if h + m else 0.0)

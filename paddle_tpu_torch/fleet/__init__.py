@@ -24,10 +24,13 @@ watchdog, drain/swap. This package turns N of those cells into a fleet:
   :class:`PlacementInfeasible`, :class:`ReplicaRetired`), all
   :class:`~paddle_tpu_torch.serving.errors.ServingError` subclasses.
 
+- :mod:`~paddle_tpu_torch.fleet.coldstart`: the cold-start store
+  (``PTPU_AOT_CACHE``): what a memo miss prepares (the pruned, verified
+  and optimized program and the lowering's plan), kept on disk so a
+  fresh replica's warm-up loads it instead of preparing it again.
+
 Not ported yet: ``RemoteBackend`` (remote replicas, with multihost:
-ROADMAP Queue A item 6) and ``coldstart`` (the JAX package's store of
-serialised XLA executables; the port's counterpart, the nvcc build
-cache with the tuning preload, is ROADMAP Queue A item 4's last entry).
+ROADMAP Queue A item 6).
 """
 from .errors import (FleetError, NoHealthyReplica,  # noqa
                      PlacementInfeasible, ReplicaRetired,

@@ -41,9 +41,9 @@ registered as a provider of the live telemetry endpoint.
 
 Left out until ROADMAP Queue A item 6: remote replicas
 (``remote_backend=``, ``add_replica(backend='remote')`` and the
-supervisor's heartbeat probe, which need multihost) and ledger-derived placement
-demand (``observability.perf``): without a ``book=`` a
-:class:`PlacementBudget` sees an empty ledger book.
+supervisor's heartbeat probe, which need multihost). A
+:class:`PlacementBudget` without a ``book=`` reads the performance
+observatory's ledgers (``observability.perf``).
 """
 import logging
 import threading
@@ -95,10 +95,8 @@ class PlacementBudget(object):
     budget only ever constrains what was measured or declared.
 
     ``book`` is any mapping-like object whose ``get(fingerprint)``
-    returns a ledger (``live_bytes``, ``mfu()``) or None. The JAX
-    package defaults to its performance observatory's book; the port
-    has no observatory yet (ROADMAP Queue A item 6), so its default
-    book is empty and only hints and a ``book=`` passed in count.
+    returns a ledger (``live_bytes``, ``mfu()``) or None; by default
+    the performance observatory's book (``observability.perf.book()``).
     """
 
     def __init__(self, hbm_bytes=None, mfu_capacity=None, book=None):
@@ -107,7 +105,10 @@ class PlacementBudget(object):
         self._book = book
 
     def _ledgers(self):
-        return self._book if self._book is not None else {}
+        if self._book is not None:
+            return self._book
+        from ..observability import perf as _perf
+        return _perf.book()
 
     def demand(self, rec):
         """``(hbm_bytes, mfu)`` demand of one placement record.

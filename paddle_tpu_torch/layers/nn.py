@@ -33,7 +33,8 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'crf_decoding', 'chunk_eval', 'conv2d_transpose', 'l2_normalize',
            'multiplex', 'lrn', 'pad', 'label_smooth', 'dice_loss',
            'bilinear_interp', 'nce', 'max_pool2d_with_index', 'unpool',
-           'spp']
+           'spp', 'roi_pool', 'warpctc', 'ctc_greedy_decoder',
+           'edit_distance']
 
 
 def _prod(dims):
@@ -933,7 +934,12 @@ def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
     if len(padding) == 2:
         padding.append(padding[0])
         padding.append(padding[1])
-    out = helper.create_tmp_variable(dtype=input.dtype, lod_level=1)
+    # a row per patch: [-1, C * kh * kw] (im2sequence_op.cc InferShape)
+    shape = None
+    if len(input.shape) == 4 and int(input.shape[1]) > 0:
+        shape = (-1, int(input.shape[1]) * filter_size[0] * filter_size[1])
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=shape,
+                                     lod_level=1)
     helper.append_op(type='im2sequence', inputs={'X': input},
                      outputs={'Out': out},
                      attrs={'kernels': filter_size, 'strides': stride,
@@ -1095,6 +1101,57 @@ def crf_decoding(input, param_attr, label=None):
     helper.append_op(type='crf_decoding', inputs=inputs,
                      outputs={"ViterbiPath": [viterbi_path]})
     return viterbi_path
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0):
+    helper = LayerHelper('roi_pool', **{})
+    pool_out = helper.create_tmp_variable(
+        input.dtype, shape=(-1, input.shape[1], pooled_height, pooled_width))
+    argmaxes = helper.create_tmp_variable(dtype='int32', stop_gradient=True)
+    helper.append_op(type="roi_pool",
+                     inputs={"X": input, "ROIs": rois},
+                     outputs={"Out": pool_out, "Argmax": argmaxes},
+                     attrs={"pooled_height": pooled_height,
+                            "pooled_width": pooled_width,
+                            "spatial_scale": spatial_scale})
+    return pool_out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """CTC loss [B, 1] of LoD logits (before the softmax) against LoD
+    labels (ops/ctc_ops.py)."""
+    helper = LayerHelper('warpctc', **{})
+    loss_out = helper.create_tmp_variable(dtype=input.dtype, shape=(-1, 1))
+    grad_out = helper.create_tmp_variable(dtype=input.dtype,
+                                          stop_gradient=True)
+    helper.append_op(type='warpctc',
+                     inputs={'Logits': [input], 'Label': [label]},
+                     outputs={'WarpCTCGrad': [grad_out], 'Loss': [loss_out]},
+                     attrs={'blank': blank, 'norm_by_times': norm_by_times})
+    return loss_out
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    ctc_out = helper.create_tmp_variable(dtype='int64', lod_level=1)
+    helper.append_op(type="ctc_align", inputs={"Input": [input]},
+                     outputs={"Output": [ctc_out]},
+                     attrs={"merge_repeated": True, "blank": blank})
+    return ctc_out
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  name=None):
+    helper = LayerHelper("edit_distance", name=name)
+    out = helper.create_tmp_variable(dtype='float32', shape=(-1, 1))
+    sequence_num = helper.create_tmp_variable(dtype='int64', shape=(1,))
+    helper.append_op(type="edit_distance",
+                     inputs={"Hyps": [input], "Refs": [label]},
+                     outputs={"Out": [out], "SequenceNum": [sequence_num]},
+                     attrs={"normalized": normalized,
+                            "tokens": ignored_tokens or []})
+    return out, sequence_num
 
 
 def chunk_eval(input, label, chunk_scheme, num_chunk_types,

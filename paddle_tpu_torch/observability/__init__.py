@@ -1,8 +1,7 @@
 """Telemetry for paddle_tpu_torch: the observability core.
 
-Counterpart of paddle_tpu/observability, without ``perf`` (the program
-ledgers, ROADMAP Queue A item 6). Stdlib only and free of import
-cycles:
+Counterpart of paddle_tpu/observability. Stdlib only (``perf``
+imports torch only when it counts a run) and free of import cycles:
 
 - :mod:`~paddle_tpu_torch.observability.metrics`: a thread-safe metrics
   registry (counters, gauges, log2-bucket histograms) with Prometheus
@@ -28,6 +27,9 @@ cycles:
   health-provider registry and the :class:`TelemetryAggregator`, which
   merges endpoints into fleet-wide rollups under ``host=``/``replica=``
   labels.
+- :mod:`~paddle_tpu_torch.observability.perf`: the performance
+  observatory: program ledgers counted from the ops of a memo miss's
+  run, MFU and roofline gauges, the regression baseline.
 - :mod:`~paddle_tpu_torch.observability.slo`: declared objectives (p99
   latency, shed or error rate) evaluated as multi-window burn rates,
   published as ``slo_burn_rate{slo=}`` gauges and read by the fleet
@@ -44,6 +46,9 @@ from .tracing import (TraceContext, Span, NULL_SPAN,  # noqa: F401
                       start_span, span, current_span, current_context,
                       link, emit_span, sample_rate, parent_from_env,
                       TRACE_PARENT_ENV, TRACE_SAMPLE_ENV)
+from . import perf  # noqa: F401
+from .perf import (ProgramLedger, LedgerBook, PerfBaseline,  # noqa
+                   PERF_ENV)
 from . import flight  # noqa: F401
 from .flight import FLIGHT_ENV  # noqa: F401
 from . import telemetry  # noqa: F401
@@ -67,6 +72,7 @@ __all__ = [
     'current_span', 'current_context', 'link', 'emit_span',
     'sample_rate', 'parent_from_env', 'TRACE_PARENT_ENV',
     'TRACE_SAMPLE_ENV',
+    'perf', 'ProgramLedger', 'LedgerBook', 'PerfBaseline', 'PERF_ENV',
     'flight', 'FLIGHT_ENV',
     'telemetry', 'TelemetryAggregator', 'TelemetryServer',
     'serve_telemetry', 'install_env_telemetry', 'parse_exposition',

@@ -15,9 +15,8 @@ metrics snapshot, the unclosed spans and the health providers'
 documents (``telemetry.collect_health``) into one atomic JSON bundle
 that ``tools/postmortem.py`` renders after the fact.
 
-The bundle's ``ledgers`` slot stays ``None`` in the port: it reads the
-performance observatory's program ledgers (``perf.py``), ROADMAP Queue
-A item 6.
+The bundle's ``ledgers`` slot holds the performance observatory's 16
+largest program ledgers by bytes (``perf.py``).
 
 Overhead contract: the ring append is a deque append of an
 already-built tuple. The JAX package's switch for the ring has no caller
@@ -154,9 +153,11 @@ def _health_doc():
 
 
 def _ledger_summary():
-    """The largest program ledgers: none until the port has the
-    performance observatory (``perf.py``)."""
-    return None
+    """The 16 program ledgers that move the most bytes."""
+    from . import perf
+    ledgers = sorted(perf.ledgers(), key=lambda l: l.bytes_accessed,
+                     reverse=True)
+    return [l.as_dict() for l in ledgers[:16]]
 
 
 def _metrics_doc():

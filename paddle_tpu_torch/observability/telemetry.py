@@ -12,11 +12,9 @@ and its wire format:
                  registry, and
   ``/health``    a JSON document merging every registered health
                  provider (Router, ModelServer, DecodeEngine,
-                 PrefillServer).
-
-  The JAX package's ``/ledgers`` route reads the performance
-  observatory (``perf.py``), which the port does not have yet (ROADMAP
-  Queue A item 6): here it answers 404.
+                 PrefillServer), and
+  ``/ledgers``   the performance observatory's program ledgers
+                 (``perf.ledgers()``, each ``as_dict()``).
 
 - the env contract, under the JAX package's names: ``PTPU_TELEMETRY=1``
   makes :func:`install_env_telemetry` start an endpoint;
@@ -190,6 +188,13 @@ def _make_handler(registry):
                     scrapes.inc()
                     self._send(200, json.dumps(
                         collect_health(), sort_keys=True, default=repr),
+                        'application/json')
+                elif path == '/ledgers':
+                    scrapes.inc()
+                    from . import perf
+                    docs = [l.as_dict() for l in perf.ledgers()]
+                    self._send(200, json.dumps(
+                        docs, sort_keys=True, default=repr),
                         'application/json')
                 else:
                     self._send(404, 'not found\n', 'text/plain')

@@ -80,6 +80,7 @@ from .. import observability as _obs
 from .. import profiler as _prof
 from ..compiler import tuning as _tuning
 from ..core import places as _places
+from ..observability import perf as _perf
 from ..executor import Executor, Scope, as_numpy
 from ..io import load_inference_model as _load_inference_model
 from ..lod import SequenceTensor
@@ -423,7 +424,13 @@ class ModelServer(object):
         searches = 0
         names = [model_name] if model_name is not None else self.models()
         warmed = {}
-        with _prof.serving_span('serving/warmup'):
+        # the performance observatory: where the process observes
+        # (capture on, or a journal installed), each bucket's lowering
+        # ledgers before any live traffic
+        n_ledgers = len(_perf.book())
+        with _perf.capture_scope(_perf.capture_enabled() or
+                                 _obs.journal_active()), \
+                _prof.serving_span('serving/warmup'):
             for name in names:
                 model = self.registry.get(name)
                 warmed[name] = []
@@ -447,6 +454,7 @@ class ModelServer(object):
                   buckets=sum(len(v) for v in warmed.values()),
                   tuning_entries=tuned,
                   autotune_searches=searches,
+                  perf_ledgers=len(_perf.book()) - n_ledgers,
                   dur_s=round(time.monotonic() - t0, 6))
         return warmed
 

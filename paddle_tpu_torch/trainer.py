@@ -26,9 +26,10 @@ is bit-equal to the plain loop.
 scope, each raising and naming ROADMAP Queue A item 6:
 ``parallel=True``, ``zero_stage`` other than None or 0,
 ``zero_bucket_bytes`` other than None, and
-``PADDLE_TRAINING_ROLE`` (the DistributeTranspiler); the performance
-observatory's per-step series (``perf.publish_step``) waits for the
-port's ``observability.perf``, item 6 too.
+``PADDLE_TRAINING_ROLE`` (the DistributeTranspiler). Each chunk's
+dispatch wall a step goes to the performance observatory
+(``perf.publish_step``): the MFU and roofline gauges of the training
+program, where its ledger was captured.
 """
 import contextlib
 import logging
@@ -407,6 +408,7 @@ class Trainer(object):
             'Executor dispatch wall per chunk (1 step, or K chained)')
         loop_t0 = time.monotonic()
         steps_done = examples_done = 0
+        perf_fp = self.train_program.fingerprint()
         _obs.emit('train_begin', epochs=num_epochs,
                   start_epoch=start_epoch, global_step=global_step,
                   prefetch=prefetch, steps_per_dispatch=chain_k)
@@ -443,6 +445,9 @@ class Trainer(object):
             dispatch_wall = time.monotonic() - t0
             m_dispatch.observe(dispatch_wall)
             per_step = dispatch_wall / len(chunk)
+            # the live MFU and roofline series: one dict probe when
+            # nothing is ledgered, two gauge stores when capture is on
+            _obs.perf.publish_step(perf_fp, per_step)
             for (step_id, begin, feed, examples, wait_s), outs in zip(
                     chunk, outs_steps):
                 metrics = outs[:len(fetch_names)] if want_fetch else outs

@@ -7,9 +7,9 @@ The cases of tests/test_autoscaler.py, each run on the port's Router
 over port ModelServer replicas serving an artifact paddle_tpu saved.
 The control loop runs on the reference's fake clock, driven by
 ``tick()``. ``test_ledger_informed_demand`` hands the budget a ledger
-book (``book=``): the port has no performance observatory yet, so its
-default book is empty; the demand it reads is held against paddle_tpu's
-budget on the same ledger.
+book (``book=``), and the demand it reads is held against paddle_tpu's
+budget on the same ledger; without one the budget reads the port's
+performance observatory's book.
 """
 import time
 
@@ -245,7 +245,7 @@ def test_ledger_informed_demand(tmp_path):
     """Demand derived from a ledger book by program fingerprint, no
     explicit hints: the book is handed in (``book=``), and the demand
     equals paddle_tpu's budget's on the same ledger. Without a book the
-    port's budget sees no ledger and the model fits."""
+    port's budget reads its observatory's book (``perf.book()``)."""
     from paddle_tpu.fleet.router import PlacementBudget as JBudget
     from paddle_tpu.observability.perf import LedgerBook, ProgramLedger
     fp = 'ledger-fp-autoscaler-test'
@@ -258,6 +258,14 @@ def test_ledger_informed_demand(tmp_path):
     assert PlacementBudget(book=book).demand(rec) == \
         JBudget(book=book).demand(rec) == (1000.0, 0.0)
     assert PlacementBudget().demand(rec) == (0.0, 0.0)
+    from paddle_tpu_torch.observability import perf as pt_perf
+    pt_perf.book().record(pt_perf.ProgramLedger(
+        fingerprint=fp, argument_bytes=600, output_bytes=300,
+        temp_bytes=100))
+    try:
+        assert PlacementBudget().demand(rec) == (1000.0, 0.0)
+    finally:
+        pt_perf.clear()
     d = _save_artifact(tmp_path)
     budget = PlacementBudget(hbm_bytes=500, book=book)
     with _router(replicas=1, placement_budget=budget) as router:

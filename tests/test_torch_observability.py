@@ -28,7 +28,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.compiler import tuning
 from paddle_tpu_torch.models.resnet import resnet_imagenet as pt_resnet
-from paddle_tpu_torch.observability import flight, tracing
+from paddle_tpu_torch.observability import flight, perf, tracing
 from paddle_tpu_torch.observability.metrics import MetricsRegistry
 from paddle_tpu_torch.serving import ModelServer
 
@@ -246,9 +246,11 @@ def test_flight_trip_dumps_a_bundle_only_when_configured(tmp_path):
     assert bundle['context'] == {'model': 'm'}
     assert [s['name'] for s in bundle['live_spans']] == ['open/work']
     # the health slot holds the live providers' merged document (the
-    # telemetry plane's collect_health); ledgers wait for perf.py
+    # telemetry plane's collect_health); the ledgers slot the
+    # performance observatory's book
     assert set(bundle['health']) >= {'status', 'pid', 'providers'}
-    assert bundle['ledgers'] is None
+    assert bundle['ledgers'] == [l.as_dict() for l in sorted(
+        perf.ledgers(), key=lambda l: l.bytes_accessed, reverse=True)][:16]
     assert 'tracing_spans_started_total' in bundle['metrics']
 
 

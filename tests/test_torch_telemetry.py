@@ -8,7 +8,7 @@ them: the exposition of one registry's contents byte for byte against
 paddle_tpu's, the SLO reports under one fake clock against paddle_tpu's,
 the ModelServer's health provider (registered at construction, gone
 after close) and the flight bundle's ``health`` slot, the env contract
-and the absent ``/ledgers`` route.
+and the ``/ledgers`` route.
 """
 import json
 import os
@@ -18,7 +18,7 @@ import urllib.request
 import pytest
 
 import paddle_tpu_torch as pt
-from paddle_tpu_torch.observability import flight, telemetry
+from paddle_tpu_torch.observability import flight, perf, telemetry
 from paddle_tpu_torch.observability.metrics import MetricsRegistry
 from paddle_tpu_torch.observability.slo import SLO, SLOEngine
 
@@ -342,8 +342,8 @@ def test_slo_signals_match_paddle_tpu():
 def test_server_health_provider_and_flight_health_slot(tmp_path):
     """A ModelServer is a health provider from construction until
     close(); a flight bundle carries the providers' documents in its
-    ``health`` slot (``ledgers`` stays None until the port has
-    ``perf.py``)."""
+    ``health`` slot and the performance observatory's ledgers in its
+    ``ledgers`` slot."""
     srv = pt.serving.ModelServer(place=pt.CPUPlace(), max_batch_size=2)
     key = 'server-%x' % id(srv)
     prev = flight.configure(str(tmp_path))
@@ -353,7 +353,9 @@ def test_server_health_provider_and_flight_health_slot(tmp_path):
         path = flight.dump('unit_test_health')
         bundle = flight.read_bundle(path)
         assert bundle['health']['providers'][key]['status'] == 'serving'
-        assert bundle['ledgers'] is None
+        assert bundle['ledgers'] == [l.as_dict() for l in sorted(
+            perf.ledgers(), key=lambda l: l.bytes_accessed,
+            reverse=True)][:16]
     finally:
         flight.configure(prev)
         srv.close()
@@ -372,8 +374,14 @@ def test_env_contract_and_absent_ledgers_route(tmp_path, monkeypatch):
         assert telemetry.install_env_telemetry() is None   # once only
         assert telemetry.scan_port_dir(str(tmp_path)) == \
             {'cell-env': srv.port}
+        # /ledgers answers with the observatory's book (JSON)
+        with urllib.request.urlopen(srv.url + '/ledgers', timeout=5) as r:
+            assert r.status == 200
+            docs = json.loads(r.read())
+        assert [d['fp'] for d in docs] == \
+            [l.fingerprint for l in perf.ledgers()]
         with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(srv.url + '/ledgers', timeout=5)
+            urllib.request.urlopen(srv.url + '/no-such-route', timeout=5)
         assert ei.value.code == 404
     finally:
         srv.close()
