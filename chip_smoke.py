@@ -19,6 +19,8 @@
                                           # phase 22 alone
     python3 chip_smoke.py --phase24       # the kernels' build, then
                                           # phase 24 alone
+    python3 chip_smoke.py --phase25       # the kernels' build, then
+                                          # phase 25 alone
     python3 chip_smoke.py --crnn-switches # 24b's card and CPU steps'
                                           # max pool and ReLU choices
 
@@ -513,7 +515,34 @@ non-zero) on failure:
    bit-identical; 24e, a C program built with gcc serving the saved SSD
    model through the C API, its output the Executor's bit for bit; the
    phase's seconds;
-25. summary: a JSON line of the kernels, the card line, and last the
+25. data parallelism and ZeRO-2 (``phase_data_parallel``, constants DP_*
+   at its head): ResNet-50 (full width, Momentum(0.01, 0.9)) trained
+   DP_STEPS steps at the global batch 128 on one card; then two ranks
+   (processes started with ``spawn``, a ``file://`` store, each joined
+   within DP_JOIN_S) sharing the card through gloo (a ``smoke:`` line
+   prints the backend and the rank-to-device map; gloo's native CUDA
+   collectives probed and printed; with two or more cards the NCCL pair
+   runs too, else a line says it did not) take the same steps through
+   ParallelExecutor from the same parameters (the residual branches'
+   last gammas at RESIDUAL_GAMMA), 64 rows each, under AMP (the main
+   path): replicated, then ZeRO-2 (losses, parameters, velocities and
+   moving statistics bit for bit against replicated), their distance
+   from one card printed; then in f32 replicated and ZeRO-2 (bit for bit
+   again) within DP_LOSS_LIMIT, DP_GRAD_LIMIT and DP_UPDATE_LIMIT of one
+   card in f32, the control with per-rank batch-norm moments outside
+   them; per-rank argument bytes (``compile_stats``) and velocity bytes
+   (halved); a ParallelExecutor with no loss sharing the
+   trained Scope serves 32 images (16 a rank) against one card on the
+   same weights (RESNET_LOGITS_TOL, RESNET_TOP1); the served batch once
+   more, one more AMP step and one more f32 step with their regions
+   recorded, and rank 0 holds each recorded region against its plain
+   version (the served batch's 53 in the inference form at 16 rows, bf16,
+   the next channel's filters a control that must fail; the steps' 53 a
+   step in the stats form at 64 rows, bf16 and f32), the batch norms'
+   sums after the collective against the sum of both ranks'; exactly 53 stats-form launches a step and 53 fused_conv a
+   served batch on each rank, no fallback; ms a step of one card and of
+   two ranks sharing it; the phase's seconds;
+26. summary: a JSON line of the kernels, the card line, and last the
    JSON result line.
 """
 import argparse
@@ -8428,6 +8457,9 @@ def phase_front_end(seed, card, art_dir, flagship_ms=None):
 SP_BATCH = LSTM_BATCH                  # 256 sequences of LSTM_WORDS words
 SP_CPU_BATCH = 16                      # the card against the CPU here
 SP_STEPS = 3
+SP_CPU_STEPS = 2                       # steps of that comparison: the
+                                       # CPU's steps are the phase's
+                                       # slowest part
 # rates at which 3 steps stay stable: Adagrad and Adam move every weight
 # by about the rate on their first step, and Adagrad(0.01) sent this
 # model's loss from 0.69 to 9.21 in 3 steps
@@ -8585,7 +8617,7 @@ def _sp_lstm(seed, card):
     feeds = [_lstm_feed([LSTM_WORDS] * SP_BATCH, seed + 171 + i)
              for i in range(SP_STEPS)]
     cpu_feeds = [_lstm_feed([LSTM_WORDS] * SP_CPU_BATCH, seed + 181 + i)
-                 for i in range(SP_STEPS)]
+                 for i in range(SP_CPU_STEPS)]
     touched = [np.unique(np.asarray(f['data'].data)) for f in feeds]
     untouched = np.setdiff1d(np.arange(LSTM['dict_size']),
                              np.concatenate(touched))
@@ -13482,6 +13514,541 @@ def phase_detection_ctc(seed, card):
     return launches, totals
 
 
+# ---- 25. data parallelism and ZeRO-2 on two ranks ---------------------------------
+
+DP_RANKS = 2                  # ranks of the data-parallel group
+DP_STEPS = 3                  # Momentum(0.01, 0.9) steps at the global batch
+DP_BATCH = RESNET_TRAIN_BATCH  # the global batch: 64 rows a rank
+DP_SERVE_BATCH = 32           # the served batch: 16 rows a rank
+DP_GROUP_TIMEOUT_S = 60       # the process group's collective timeout
+DP_JOIN_S = 150               # each rank's join, at most
+# two ranks against one card at the global batch, in f32 with cuDNN's
+# deterministic algorithms (under AMP bf16 rounding alone parts the runs
+# by about as much as the control, PERF.md, Findings), the residual
+# branches' last batch-norm scales at RESIDUAL_GAMMA (at 1 a random
+# ResNet-50 parts by rounding alone): the largest |loss difference| of
+# the DP_STEPS steps, the relative L2 distance of the first step's
+# gradients (its velocities) and of the trainable parameters' update
+# after DP_STEPS steps. Set from the sound run on the H100 (PERF.md,
+# Findings): 0, 6.23e-4 and 5.30e-4, the per-rank
+# batch-norm control 4.07e-4, 0.0648 and 0.0628; the limits are 8-9x
+# the sound gradients and update, 13x under the control's.
+DP_LOSS_LIMIT = 1e-4
+DP_GRAD_LIMIT = 5e-3
+DP_UPDATE_LIMIT = 5e-3
+
+
+def _dp_names(program):
+    """The program's persistables that a step writes: parameters,
+    velocities and the batch norms' moving statistics (not the learning
+    rate)."""
+    return sorted(v.name for v in program.list_vars()
+                  if v.persistable and not v.name.startswith('learning_rate'))
+
+
+def _dp_velocities(program):
+    return [n for n in _dp_names(program) if '_velocity_' in n]
+
+
+def _dp_rel(pairs):
+    """The relative L2 distance of the first of each pair from the
+    second, over all pairs."""
+    num = sum(float(((a - b) ** 2).sum()) for a, b in pairs)
+    den = sum(float((b ** 2).sum()) for _, b in pairs)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def _gloo_cuda_probe(group):
+    """Which collectives torch's gloo backend takes on CUDA tensors
+    (each rank calls each with the same tensors, so a refusal is the same
+    on every rank)."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(4, device=group.device)
+    tries = {
+        'all_reduce': lambda: dist.all_reduce(x.clone()),
+        'broadcast': lambda: dist.broadcast(x.clone(), 0),
+        'all_gather': lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(group.size)], x),
+        'reduce_scatter': lambda: dist.reduce_scatter(
+            torch.empty(4 // group.size, device=x.device),
+            list(x.chunk(group.size))),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = 'native'
+        except Exception as e:     # a refusal is the reading
+            out[name] = 'refused (%s)' % str(e).splitlines()[0][:80]
+    return out
+
+
+@contextlib.contextmanager
+def _per_rank_batch_norms():
+    """The control: every batch norm takes the moments of its rank's own
+    rows (the batch_norm kernel and the fused conv's train-mode region
+    see no group), the per-rank answer the global batch must not give."""
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.ops import nn_ops
+    orig = nn_ops.batch_group, passes.batch_group
+    nn_ops.batch_group = lambda ctx: None if ctx.op.type == 'batch_norm' \
+        else orig[0](ctx)
+    passes.batch_group = lambda ctx: None
+    try:
+        yield
+    finally:
+        nn_ops.batch_group, passes.batch_group = orig
+
+
+def _dp_train(pt, seed, init, device, feed, zero_stage):
+    """DP_STEPS steps of ResNet-50 through a ParallelExecutor from the
+    state ``init``: (readings, the executor, its loss, its Scope)."""
+    import torch
+    main, _, loss = _train_program(seed)
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.to(device))
+    with pt.scope_guard(scope):
+        pe = pt.ParallelExecutor(loss_name=loss.name, main_program=main,
+                                 zero_stage=zero_stage)
+    r = dict(velocity_bytes=sum(t.numel() * t.element_size() for n, t in
+                                scope.vars.items() if '_velocity_' in n),
+             argument_bytes=pe.compile_stats()['argument_bytes'],
+             zero=dict((k, v) for k, v in pe._zero.items()
+                       if not k.endswith('_names')),
+             losses=[], ms=[])
+    for step in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r['losses'].append(float(pe.run(fetch_list=[loss.name],
+                                        feed=feed)[0][0]))
+        torch.cuda.synchronize()
+        r['ms'].append(1e3 * (time.perf_counter() - t0))
+        if step == 0:
+            # the first step's gradients: its velocities, whole
+            r['first'] = pe.global_state(_dp_velocities(main))
+    r['state'] = pe.global_state(_dp_names(main))
+    return r, pe, loss, scope
+
+
+def _dp_rank(rank, world, d, sub, seed, cards):
+    """One rank of phase 25 (a process of its own). The main path under
+    AMP, as the card trains: the replicated and ZeRO-2 runs, the served
+    batch, the served batch again and one more step, both recorded. Then
+    in f32 (AMP off, where rounding alone moves a step's gradients
+    little): replicated, ZeRO-2 and one more recorded step, and the
+    per-rank batch-norm control. Rank 0 then compares, holds the
+    recorded regions and writes the readings."""
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import compiler
+    from paddle_tpu_torch.compiler import passes
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.parallel import mesh
+    compiler.tuning.set_default_cache(compiler.tuning.TuningCache(
+        os.path.join(sub, 'tuning_r%d.json' % rank)))
+    group = mesh.init_dp(rank, world, 'file://' + os.path.join(sub, 'store'),
+                         timeout=DP_GROUP_TIMEOUT_S, device_count=cards)
+    out = {'rank': rank, 'backend': group.backend,
+           'device': str(group.device)}
+    print('smoke: phase 25 rank %d of %d on %s, backend %s' % (
+        rank, world, group.device, group.backend), flush=True)
+    if group.backend == 'gloo':
+        out['gloo_cuda'] = _gloo_cuda_probe(group)
+    init = torch.load(os.path.join(d, 'init.pt'))
+    feed = _image_train_feed(DP_BATCH, seed + 25)
+    runs = {}
+    recorders = {k: _RegionRecorder() for k in ('step', 'served', 'f32')}
+
+    def recorded(tag):
+        # rank 0 records its calls; rank 1 runs the same unrecorded
+        return passes.conv_for_testing(recorders[tag]) if rank == 0 \
+            else contextlib.nullcontext()
+    sums = []
+    try:
+        ck.reset_launch_counts()
+        passes.reset_fallback_counts()
+        runs['replicated'] = _dp_train(pt, seed, init, group.device, feed,
+                                       0)[0]
+        torch.cuda.empty_cache()
+        runs['zero2'], pe, loss, scope = _dp_train(pt, seed, init,
+                                                   group.device, feed, 2)
+        out['launches'] = dict(ck.LAUNCHES)
+        out['variants'] = dict(ck.FUSED_CONV_VARIANT_LAUNCHES)
+        out['fallbacks'] = dict(passes.FALLBACKS)
+        # the served batch through a ParallelExecutor with no loss,
+        # sharing the trained Scope: 16 rows a rank, gathered
+        test_main, _, prob = _resnet_program(seed, is_test=True)
+        serve = pt.ParallelExecutor(main_program=test_main,
+                                    share_vars_from=pe)
+        images = _image_feed(DP_SERVE_BATCH, seed + 26)
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = serve.run(fetch_list=[prob.name], feed=images)[0]
+        torch.cuda.synchronize()
+        out['serve_ms'] = 1e3 * (time.perf_counter() - t0)
+        out['serve_launches'] = dict(ck.LAUNCHES)
+        # the served batch again, rank 0's fused-conv calls recorded
+        with recorded('served'):
+            again = serve.run(fetch_list=[prob.name], feed=images)[0]
+        out['served_again_equal'] = bool(np.array_equal(again, served))
+        one = None
+        if rank == 0:
+            # one card on the same weights (no collective: rank 1 waits
+            # in the next step's first one)
+            one = pt.Executor(pt.CUDAPlace(group.device.index or 0)).run(
+                test_main, feed=images, fetch_list=[prob], scope=scope)[0]
+        # one more step, its fused-conv calls recorded and the batch
+        # norms' sums before and after the collective kept
+        orig = passes.global_sums
+
+        def kept(g, *parts):
+            res = orig(g, *parts)
+            sums.append(([p.detach().float().cpu() for p in parts],
+                         [r.detach().float().cpu() for r in res]))
+            return res
+        passes.global_sums = kept
+        try:
+            with recorded('step'):
+                pe.run(fetch_list=[loss.name], feed=feed)
+        finally:
+            passes.global_sums = orig
+        torch.save([s[0] for s in sums], os.path.join(
+            sub, 'sums_r%d.pt' % rank))
+        del pe, serve, scope
+        torch.cuda.empty_cache()
+        # f32 (cuDNN's deterministic algorithms, as one card's f32 run):
+        # replicated, ZeRO-2 (and one more step, its fused-conv calls
+        # recorded) and the control, each rank's batch norms over its own
+        # rows
+        amp.set_amp(False)
+        torch.backends.cudnn.deterministic = True
+        for mode, stage in (('replicated_f32', 0), ('zero2_f32', 2),
+                            ('control_f32', 0)):
+            with _per_rank_batch_norms() if mode.startswith('control') \
+                    else contextlib.nullcontext():
+                runs[mode], pe, loss, scope = _dp_train(
+                    pt, seed, init, group.device, feed, stage)
+            if mode == 'zero2_f32':
+                with recorded('f32'):
+                    pe.run(fetch_list=[loss.name], feed=feed)
+            del pe, scope
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+        amp.set_amp(None)
+    finally:
+        mesh.shutdown_dp()
+    for mode, r in runs.items():
+        out[mode] = {k: v for k, v in r.items()
+                     if k not in ('state', 'first')}
+    if rank == 0:
+        out.update(_dp_rank0_readings(d, sub, runs, sums, served, one,
+                                      init, recorders))
+    with open(os.path.join(sub, 'rank%d.json' % rank), 'w') as f:
+        json.dump(out, f)
+
+
+def _dp_rank0_readings(d, sub, runs, sums, served, one, init, recorders):
+    """Rank 0, after the group is gone: ZeRO-2 against replicated bit for
+    bit, each run against one card (under AMP and in f32), the served
+    batch against one card's on the same weights, the sums against their
+    collective, and the recorded regions (of the served batch, an AMP
+    step and an f32 step) against their plain versions."""
+    import torch
+    out = {}
+    for amp_tag in ('', '_f32'):
+        rep = runs['replicated' + amp_tag]
+        zero = runs['zero2' + amp_tag]
+        out['bit_equal' + amp_tag] = bool(
+            zero['losses'] == rep['losses'] and
+            sorted(rep['state']) == sorted(zero['state']) and
+            all(np.array_equal(rep['state'][n], zero['state'][n])
+                for n in rep['state']))
+        out['unequal' + amp_tag] = [
+            n for n in rep['state'] if n in zero['state'] and
+            not np.array_equal(rep['state'][n], zero['state'][n])][:5]
+    refs = torch.load(os.path.join(d, 'single.pt'))
+    host_init = {n: t.float().numpy() for n, t in init.items()}
+    for mode, r in runs.items():
+        ref = refs['f32' if mode.endswith('_f32') else 'amp']
+        single = {n: t.float().numpy() for n, t in ref['state'].items()}
+        first = {n: t.float().numpy() for n, t in ref['first'].items()}
+        out['compared'] = len(set(r['state']) & set(single))
+        out[mode + '_loss_gap'] = max(abs(a - b) for a, b in zip(
+            r['losses'], ref['losses']))
+        out[mode + '_grad_gap'] = _dp_rel([(r['first'][n], first[n])
+                                           for n in first])
+        out[mode + '_update_gap'] = _dp_rel([
+            (r['state'][n] - host_init[n], single[n] - host_init[n])
+            for n in ref['params'] if n in single])
+    # the served batch against one card on the same (trained) weights
+    out['served_shape'] = list(np.shape(served))
+    out['served_gap'] = float(np.abs(served - one).max() /
+                              np.abs(one).max())
+    out['served_top1'] = float((served.argmax(1) == one.argmax(1)).mean())
+    # the batch norms' sums: after the collective, rank 0's + rank 1's
+    other = torch.load(os.path.join(sub, 'sums_r1.pt'))
+    worst = 0.0
+    for (mine, after), theirs in zip(sums, other):
+        for a, b, s in zip(mine, theirs, after):
+            worst = max(worst, float((a + b - s).abs().max()) /
+                        max(float(s.abs().max()), 1e-30))
+    out['sums'] = [len(sums), len(other)]
+    out['sums_gap'] = worst
+    held = {}
+    for tag, rows in (('step', DP_BATCH), ('served', DP_SERVE_BATCH),
+                      ('f32', DP_BATCH)):
+        calls = recorders[tag].calls
+        _hold_regions('dp rank 0 %s b%d' % (tag, rows // DP_RANKS), 'dp',
+                      calls, {}, dedupe=True, timed=False)
+        held[tag] = [len(calls), sum(c[8] for c in calls),
+                     sorted({str(c[0].dtype).replace('torch.', '')
+                             for c in calls})]
+    out['held_regions'] = held
+    return out
+
+
+def _dp_spawn(d, sub, seed, cards):
+    """The ranks of one group (``spawn``; a ``file://`` store in ``sub``),
+    each joined within DP_JOIN_S: a rank that fails or is late fails the
+    phase. Returns the ranks' readings."""
+    import torch.multiprocessing as mp
+    os.makedirs(sub, exist_ok=True)
+    ctx = mp.start_processes(_dp_rank, args=(DP_RANKS, d, sub, seed, cards),
+                             nprocs=DP_RANKS, join=False,
+                             start_method='spawn')
+    deadline = time.monotonic() + DP_JOIN_S
+    try:
+        while not ctx.join(timeout=5.0):
+            check(time.monotonic() < deadline,
+                  'phase 25: a rank did not finish in %d s' % DP_JOIN_S)
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(sub, 'rank%d.json' % r)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _dp_report(label, ranks, single_ms, card):
+    """Print one group's readings and hold them to the phase's limits;
+    returns its main path's launches."""
+    r0 = ranks[0]
+    print('data parallel %s: backend %s, ranks on %s; gloo on CUDA '
+          'tensors: %s' % (label, r0['backend'], [r['device'] for r in ranks],
+                           r0.get('gloo_cuda', 'not used')), flush=True)
+    for mode in ('replicated', 'zero2', 'replicated_f32', 'zero2_f32',
+                 'control_f32'):
+        print('data parallel %s %s: losses %s; against one card at batch '
+              '%d: loss gap %.3g, first step\'s gradients %.3g, update '
+              '%.3g%s' % (
+                  label, mode, ', '.join('%.5f' % v for v in
+                                         r0[mode]['losses']), DP_BATCH,
+                  r0[mode + '_loss_gap'], r0[mode + '_grad_gap'],
+                  r0[mode + '_update_gap'], '' if mode.endswith('_f32')
+                  else ' (AMP: read, not held)'), flush=True)
+    for mode in ('replicated', 'zero2', 'replicated_f32'):
+        amp_tag = 'f32' if mode.endswith('_f32') else 'amp'
+        two = max(np.mean(r[mode]['ms'][1:]) for r in ranks)
+        print('data parallel %s %s: %.1f ms a step on %d ranks (%s; the '
+              'first %.1f ms), one card %.1f ms a step (first %.1f); '
+              'per-rank argument bytes %d, velocity bytes %d; %s' % (
+                  label, mode, two, DP_RANKS,
+                  'two ranks sharing one card through gloo'
+                  if r0['backend'] == 'gloo' else 'a card a rank, NCCL',
+                  max(r[mode]['ms'][0] for r in ranks),
+                  np.mean(single_ms[amp_tag][1:]), single_ms[amp_tag][0],
+                  r0[mode]['argument_bytes'], r0[mode]['velocity_bytes'],
+                  card), flush=True)
+    print('data parallel %s: ZeRO-2 %s under AMP, %s in f32; zero %s; '
+          'served batch %s (%d rows a rank), %.1f ms, gap %.3g, top-1 '
+          'agreement %.3f against one card on the same weights; '
+          'batch-norm sums %s, after the collective against the sum of the '
+          'ranks\' %.3g; regions held against their plain versions '
+          '(recorded, of them stats form, dtypes) %s; launches %s / %s, '
+          'serving %s, fallbacks %s' % (
+              label, 'bit-equal to replicated' if r0['bit_equal']
+              else 'differs from replicated: %s' % r0['unequal'],
+              'bit-equal' if r0['bit_equal_f32']
+              else 'differs: %s' % r0['unequal_f32'],
+              r0['zero2']['zero'], r0['served_shape'],
+              DP_SERVE_BATCH // DP_RANKS, r0['serve_ms'], r0['served_gap'],
+              r0['served_top1'], r0['sums'], r0['sums_gap'],
+              r0['held_regions'], [r['launches'] for r in ranks],
+              [r['variants'] for r in ranks],
+              [r['serve_launches'] for r in ranks],
+              [r['fallbacks'] for r in ranks]), flush=True)
+    check(r0['compared'] > 300, 'phase 25 compared only %d persistables'
+          % r0['compared'])
+    # bit for bit on the main path (AMP) and in f32 (under cuDNN's
+    # deterministic algorithms: free to pick its algorithms, cuDNN parted
+    # the stem's batch norm)
+    check(r0['bit_equal'], 'ZeRO-2 is not bit-equal to replicated: %s'
+          % r0['unequal'])
+    check(r0['bit_equal_f32'], 'ZeRO-2 in f32 is not bit-equal to '
+          'replicated: %s' % r0['unequal_f32'])
+    limits = {'loss': DP_LOSS_LIMIT, 'grad': DP_GRAD_LIMIT,
+              'update': DP_UPDATE_LIMIT}
+    for mode in ('replicated_f32', 'zero2_f32'):
+        over = {k: r0['%s_%s_gap' % (mode, k)] for k, v in limits.items()
+                if r0['%s_%s_gap' % (mode, k)] > v}
+        check(not over, '%s on %d ranks is outside the limits %s of one '
+              'card: %s' % (mode, DP_RANKS, limits, over))
+    check(any(r0['control_f32_%s_gap' % k] > v for k, v in limits.items()),
+          'the per-rank batch-norm control is within the limits %s'
+          % limits)
+    check(r0['zero2']['velocity_bytes'] * DP_RANKS ==
+          r0['replicated']['velocity_bytes'],
+          'ZeRO-2 velocity bytes %d, replicated %d' % (
+              r0['zero2']['velocity_bytes'],
+              r0['replicated']['velocity_bytes']))
+    check(r0['replicated']['argument_bytes'] -
+          r0['zero2']['argument_bytes'] == r0['zero2']['velocity_bytes'],
+          'ZeRO-2 cut the per-rank state by %d bytes, not half the '
+          'velocities' % (r0['replicated']['argument_bytes'] -
+                          r0['zero2']['argument_bytes']))
+    check(r0['served_shape'] == [DP_SERVE_BATCH, 1000] and
+          r0['served_gap'] <= RESNET_LOGITS_TOL and
+          r0['served_top1'] >= RESNET_TOP1,
+          'the served batch differs from one card: %s' % r0['served_gap'])
+    check(r0['sums'] == [RESNET_REGIONS, RESNET_REGIONS] and
+          r0['sums_gap'] <= 1e-6,
+          'the batch-norm sums after the collective: %s, gap %.3g' % (
+              r0['sums'], r0['sums_gap']))
+    check(r0['held_regions'] == {
+        'step': [RESNET_REGIONS, RESNET_REGIONS, ['bfloat16']],
+        'served': [RESNET_REGIONS, 0, ['bfloat16']],
+        'f32': [RESNET_REGIONS, RESNET_REGIONS, ['float32']]},
+        'held the regions %s' % r0['held_regions'])
+    for r in ranks:
+        check(r['served_again_equal'], 'rank %d served the batch recorded '
+              'other values' % r['rank'])
+    stats = 0
+    for r in ranks:
+        check(not r['fallbacks'], 'phase 25 fell back: %s' % r['fallbacks'])
+        expect = {n: 0 for n in r['launches']}
+        expect['fused_conv_stats'] = RESNET_REGIONS * DP_STEPS * 2
+        check(r['launches'] == expect, 'rank %d training launches %s, '
+              'expected %s' % (r['rank'], r['launches'], expect))
+        check(r['variants'] == {v: c * DP_STEPS * 2
+                                for v, c in RESNET_VARIANTS.items()},
+              'rank %d took the fused conv variants %s' % (
+                  r['rank'], r['variants']))
+        expect = {n: 0 for n in r['serve_launches']}
+        expect['fused_conv'] = RESNET_REGIONS
+        check(r['serve_launches'] == expect, 'rank %d serving launches %s'
+              % (r['rank'], r['serve_launches']))
+        stats += r['launches']['fused_conv_stats']
+    return {'fused_conv_stats': stats,
+            'fused_conv': sum(r['serve_launches']['fused_conv']
+                              for r in ranks)}
+
+
+def _dp_single(pt, seed, init, feed):
+    """DP_STEPS steps on one card from the state ``init``: the
+    readings."""
+    import torch
+    main, _, loss = _train_program(seed)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.to(exe.device))
+    losses, ms = [], []
+    for step in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if step == 0:
+            first = {n: scope.raw(n).detach().cpu().clone()
+                     for n in _dp_velocities(main)}
+    marker = [op for op in main.global_block().ops
+              if op.type == 'backward_marker'][0]
+    return {'losses': losses, 'ms': ms, 'first': first,
+            'params': list(marker.attrs['params']),
+            'state': {n: scope.raw(n).detach().cpu()
+                      for n in _dp_names(main)}}
+
+
+def phase_data_parallel(seed, card):
+    """25. ResNet-50 (full width, Momentum(0.01, 0.9)) trained DP_STEPS
+    steps at the global batch DP_BATCH on one card, then on DP_RANKS
+    ranks through ParallelExecutor: under AMP replicated and ZeRO-2 (the
+    main path), served at DP_SERVE_BATCH by a ParallelExecutor sharing
+    the trained Scope; in f32 replicated, ZeRO-2 and the per-rank
+    batch-norm control against one card in f32. Returns the main path's
+    launches (the two-rank AMP steps and the served batch, both
+    ranks)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.parallel import mesh
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    print('smoke: phase 25 backend %s, ranks to devices %s (%d card(s) '
+          'shared: rank r on cuda:(r %% 1)); with a card a rank: backend %s,'
+          ' %s' % (
+              mesh.backend_for(DP_RANKS, 1),
+              [str(mesh.device_for_rank(r, 1)) for r in range(DP_RANKS)], 1,
+              mesh.backend_for(DP_RANKS, n_cards),
+              [str(mesh.device_for_rank(r, n_cards))
+               for r in range(DP_RANKS)]), flush=True)
+    main, startup, _ = _train_program(seed)
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    _small_residual_gammas(main, scope)
+    init = {n: v.detach().cpu().clone() for n, v in scope.vars.items()
+            if isinstance(v, torch.Tensor)}
+    del scope
+    feed = _image_train_feed(DP_BATCH, seed + 25)
+    single = _dp_single(pt, seed, init, feed)
+    amp.set_amp(False)
+    torch.backends.cudnn.deterministic = True
+    single_f32 = _dp_single(pt, seed, init, feed)
+    torch.backends.cudnn.deterministic = False
+    amp.set_amp(None)
+    ms = {'amp': single['ms'], 'f32': single_f32['ms']}
+    for tag, r in (('AMP', single), ('f32', single_f32)):
+        print('data parallel: one card, batch %d (residual gammas %g), %s, '
+              'losses %s, %.1f ms a step (first %.1f); %s' % (
+                  DP_BATCH, RESIDUAL_GAMMA, tag, ', '.join(
+                      '%.5f' % v for v in r['losses']),
+                  np.mean(r['ms'][1:]), r['ms'][0], card), flush=True)
+    del feed
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        torch.save(init, os.path.join(d, 'init.pt'))
+        torch.save({'amp': single, 'f32': single_f32},
+                   os.path.join(d, 'single.pt'))
+        del init, single, single_f32
+        launches = _dp_report('shared card', _dp_spawn(
+            d, os.path.join(d, 'shared'), seed, 1), ms, card)
+        if n_cards >= DP_RANKS:
+            _dp_report('nccl', _dp_spawn(d, os.path.join(d, 'nccl'), seed,
+                                         n_cards), ms, card)
+        else:
+            print('data parallel: the NCCL pair was not run: %d card' %
+                  n_cards, flush=True)
+    print('phase 25: %.1f s; %.1f s since the process started; launches %s'
+          % (time.perf_counter() - t_phase, time.perf_counter() - _STARTED,
+             launches), flush=True)
+    return launches
+
+
 def sweep_conv_plans(card):
     """The wgmma conv's time at every (tile width, K splits) at ResNet-50's
     non-stem region shapes at batch 1, 8 and 32 (bf16, the folded batch
@@ -14059,6 +14626,8 @@ def main():
                     help='build the kernels, run phase 22 alone, then stop')
     ap.add_argument('--phase24', action='store_true',
                     help='build the kernels, run phase 24 alone, then stop')
+    ap.add_argument('--phase25', action='store_true',
+                    help='build the kernels, run phase 25 alone, then stop')
     ap.add_argument('--coldstart-child', nargs=3,
                     metavar=('MODEL_DIR', 'STORE_DIR', 'OUT'),
                     help="phase 24d's replicas (run by phase 24d)")
@@ -14123,6 +14692,9 @@ def run_phases(args, card, root):
         return 0
     if args.phase24:
         phase_detection_ctc(args.seed, card)
+        return 0
+    if args.phase25:
+        phase_data_parallel(args.seed, card)
         return 0
     if args.crnn_switches:
         crnn_switches(card, args.seed)
@@ -14219,6 +14791,9 @@ def run_phases(args, card, root):
     _lap('mobilenet')
     detection, ssd_totals = phase_detection_ctc(args.seed, card)
     _lap('detection_ctc')
+    torch.cuda.empty_cache()
+    dp = phase_data_parallel(args.seed, card)
+    _lap('data_parallel')
     # launches: each kernel's count over the path that drives it, read
     # right after that path ran from counts set to 0 (the flash forward:
     # the served requests, the serving runtime's concurrent mix, untuned
@@ -14242,7 +14817,9 @@ def run_phases(args, card, root):
     # child process and in this one (21c); and over phase 22's:
     # MobileNet-v1's served requests and training steps (22b); and over
     # phase 24's: MobileNet-SSD's training steps (f32 and AMP) and served
-    # requests (24a), CRNN-CTC's training steps (24b))
+    # requests (24a), CRNN-CTC's training steps (24b); and over phase
+    # 25's: ResNet-50's steps on two ranks, replicated and ZeRO-2, and
+    # its batch served on two ranks, both ranks' launches)
     main_shape = kres[(4, 8, 2048, 128, 'bfloat16', True)]
     train_shape = bres[(TRAIN_BATCH, FLAGSHIP['n_heads'], FLAGSHIP['seq'],
                         FLAGSHIP['d_model'] // FLAGSHIP['n_heads'],
@@ -14298,7 +14875,8 @@ def run_phases(args, card, root):
         book_launches['fused_conv'] + front['fused_conv'] +
         sparse['fused_conv'] + trainer['fused_conv'] +
         readers['fused_conv'] + public['fused_conv'] +
-        mobilenet['fused_conv'] + detection['fused_conv'],
+        mobilenet['fused_conv'] + detection['fused_conv'] +
+        dp['fused_conv'],
         bench_regions=bench_totals('fused_conv'),
         book_regions=book_regions('fused_conv'),
         ssd_head_regions=ssd_totals, **conv))
@@ -14314,7 +14892,8 @@ def run_phases(args, card, root):
         bench['vgg'][0]['fused_conv_stats'] +
         book_launches['fused_conv_stats'] + front['fused_conv_stats'] +
         trainer.get('fused_conv_stats', 0) + readers['fused_conv_stats'] +
-        mobilenet['fused_conv_stats'] + detection['fused_conv_stats'],
+        mobilenet['fused_conv_stats'] + detection['fused_conv_stats'] +
+        dp['fused_conv_stats'],
         bench_regions=bench_totals('fused_conv_stats'),
         book_regions=book_regions('fused_conv_stats'), **stats))
     # the fused conv's depthwise kernel, both forms: launches over

@@ -119,6 +119,8 @@ from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa
                       BeginStepEvent, EndStepEvent, CheckpointConfig)
 from .parallel.transpiler import (InferenceTranspiler,  # noqa
                                   memory_optimize, release_memory)
+from .parallel.parallel_executor import (ParallelExecutor,  # noqa
+                                         ExecutionStrategy, BuildStrategy)
 from .debugging import check_nan_inf, nan_guard, nan_checks_enabled  # noqa
 
 # the reference's LoDTensor; SequenceTensor carries its imperative

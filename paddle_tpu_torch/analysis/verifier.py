@@ -17,8 +17,9 @@ same ``resolve_entry`` rules and ``first_divisible_dim`` divisibility
 test the JAX package's Partitioner applies at run time, evaluated with
 no mesh: an annotation that would silently degrade (or disagree with
 ``Partitioner.grad_shard_spec``) is flagged before any device exists.
-The port reads a variable's ``sharding`` annotation where one was set;
-its own partitioner waits for ROADMAP Queue A item 6.
+The port reads a variable's ``sharding`` annotation where one was set
+(the ZeRO pass's ``dp`` specs); its Partitioner
+(``partition.Partitioner``) is data-parallel only.
 """
 import os
 import time

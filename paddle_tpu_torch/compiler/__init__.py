@@ -1,8 +1,8 @@
 """``paddle_tpu_torch.compiler`` — the program-level pass pipeline.
 
-Counterpart of paddle_tpu/compiler/__init__.py, without the ZeRO pass.
-It runs between program construction and ``core/lowering``; the
-rewrites are registered passes composed into pipelines:
+Counterpart of paddle_tpu/compiler/__init__.py. It runs between
+program construction and ``core/lowering``; the rewrites are registered
+passes composed into pipelines:
 
 - ``default_pipeline()``: exact rewrites (constant folding, dead-op
   elimination, the conv-epilogue and elementwise-chain fusions,
@@ -13,7 +13,10 @@ rewrites are registered passes composed into pipelines:
   ``optimize_inference`` and ``Inferencer(optimize_for_inference=True)``;
 - ``tuning``: the per-shape autotuner and its on-disk cache, which the
   Executor consults when it lowers a program and serving warmup
-  preloads.
+  preloads;
+- ``zero``: ZeRO-2 over a data-parallel group (``apply_zero``: sliced
+  optimizer state and the ``zero_shard_grads`` pass), applied by a
+  training ``ParallelExecutor`` or ``minimize(zero_stage=...)``.
 
 The Executor folds :func:`cache_token` into its memo key, so toggling
 the pipeline (``set_enabled``/``set_default_passes``) or landing a new
@@ -27,6 +30,7 @@ from .pass_base import (Pass, PassContext, PassResult, PassRegistry,  # noqa
                         registered_passes)
 from . import passes  # noqa  (registers the passes and the fused ops)
 from . import tuning  # noqa
+from . import zero  # noqa  (registers zero_shard_grads)
 from .passes import DEFAULT_PASSES, INFERENCE_PASSES  # noqa
 
 __all__ = ['Pass', 'PassContext', 'PassResult', 'PassRegistry',
@@ -35,7 +39,7 @@ __all__ = ['Pass', 'PassContext', 'PassResult', 'PassRegistry',
            'default_pipeline', 'inference_pipeline',
            'set_default_passes', 'pipeline_signature',
            'pipeline_writes_scope', 'cache_token',
-           'optimize', 'optimize_inference', 'tuning', 'DEFAULT_PASSES',
+           'optimize', 'optimize_inference', 'tuning', 'zero', 'DEFAULT_PASSES',
            'INFERENCE_PASSES']
 
 _STATE = {'enabled': True, 'pass_names': tuple(DEFAULT_PASSES),

@@ -48,6 +48,7 @@ from ..framework import (Block, Operator, _has_sub_block,  # noqa: F401
 from ..core.amp import amp_enabled, out_dtype
 from ..core.lowering import BlockRunner, OpCtx, RNG_KEY
 from ..core.registry import SIDE_EFFECT_OPS, get_kernel, register_kernel
+from ..ops.collective_ops import batch_group, global_sums
 from ..ops import cuda_kernels as ck
 from ..ops.activations import ACTS, ACTS_P, BINS, PARAM_ATTRS
 from ..ops.common import f32
@@ -81,7 +82,12 @@ RNG_OPS = frozenset({
 })
 
 # Ops the dead-op pass must never drop regardless of liveness.
-_ALWAYS_KEEP = frozenset({'feed', 'fetch'})
+# feed/fetch, and the collectives: every rank of a data-parallel group
+# must issue the same collectives in the same order, so no pass removes
+# one
+_ALWAYS_KEEP = frozenset({'feed', 'fetch', 'allreduce', 'broadcast',
+                          'all_gather', 'reduce_scatter', 'ppermute',
+                          'zero_reduce_scatter'})
 
 
 # ---- helpers ---------------------------------------------------------------------
@@ -816,10 +822,19 @@ def _train_bn_region(ctx, bn, x_nhwc, w_k, aux, kinds, stages, strides,
     conv's bias where it sits between the conv and the batch norm, moves
     the batch mean by itself and leaves the variance and the normalised
     output as they are, so it enters the mean's outputs only (and its
-    gradient through the normalisation is zero)."""
+    gradient through the normalisation is zero). Under data parallelism
+    (the op marked ``dp_global``) the sums and the count are the global
+    batch's."""
     y, psum, psumsq = _FUSED_CONV[0](x_nhwc, w_k, (), (), (), strides, pads,
                                      depthwise, emit_stats=True)
     count = float(y.shape[0] * y.shape[1] * y.shape[2])
+    group = batch_group(ctx)
+    if group is not None:
+        # data parallelism: the moments of the global batch, from the
+        # ranks' per-channel sums summed in one collective whose backward
+        # sums the ranks' g_sum / g_sumsq for the stats form's backward
+        psum, psumsq = global_sums(group, psum, psumsq)
+        count *= group.size
     bmean = psum / count
     bvar = torch.clamp(psumsq / count - bmean * bmean, min=0.0)
     scale, bias, mean, var = (ctx.env[bn.inputs[s][0]] for s in

@@ -47,6 +47,7 @@ profiler's op table, and a training region (the forward under autograd
 and its gradient) is one ``fwd_bwd(value_and_grad)`` event, as in the
 JAX lowering: no op inside it, and no op of a sub-block, adds an event.
 """
+import contextlib
 import math
 import time
 
@@ -411,17 +412,29 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
 
     static_env = dict(static_env or {})
 
+    # data parallelism: a program the partitioner planned for a group of
+    # more than one rank (Partitioner.plan_program) runs with the group
+    # bound, and a training block under its ZeRO/replicated gradient plan
+    group = getattr(program, '_dp_group', None)
+    group = group if group is not None and group.size > 1 else None
+    plan = None
+    if group is not None and markers:
+        from ..compiler import zero as _zero
+        plan = _zero.training_plan(block, ops, markers[0], group,
+                                   getattr(program, '_dp_cut', ()))
+
     def fn(feeds, state):
         env = dict(state)
         env.update(feeds)
         env.update(static_env)
-        if markers:
-            _run_training(block, device, ops, markers[0], env, keep,
-                          dynamic, remat and not dynamic)
-        else:
-            with torch.no_grad():
-                BlockRunner(block, device, keep=keep, dynamic=dynamic,
-                            profile=True).run_ops(ops, env)
+        with _dp_bound(group):
+            if markers:
+                _run_training(block, device, ops, markers[0], env, keep,
+                              dynamic, remat and not dynamic, plan)
+            else:
+                with torch.no_grad():
+                    BlockRunner(block, device, keep=keep, dynamic=dynamic,
+                                profile=True).run_ops(ops, env)
         fetches = [_detach(env[n]) for n in fetch_names]
         new_state = {}
         for n in state_out_names:
@@ -432,6 +445,15 @@ def lower_block(program, block, feed_names, fetch_names, state_in_names,
         return fetches, new_state
 
     return fn
+
+
+def _dp_bound(group):
+    """The group bound for the collective ops while a run lasts, or
+    nothing."""
+    if group is None:
+        return contextlib.nullcontext()
+    from ..parallel.mesh import dp_scope
+    return dp_scope(group)
 
 
 def _detach(val):
@@ -458,7 +480,7 @@ def _rows_of(ids_val):
 
 
 def _run_training(block, device, ops, marker_idx, env, keep, dynamic,
-                  remat=False):
+                  remat=False, plan=None):
     """Forward under autograd, gradients of the summed loss into
     ``<param>@GRAD``, then the update ops without autograd. Counterpart
     of the marker branch of the JAX ``lower_block`` (lowering.py:674-766);
@@ -471,7 +493,19 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic,
     its ids plus (D,), which ``lookup_table`` adds to its detached
     gathered rows, and the table's gradient is a ``SparseRows`` of the
     carriers' gradients (the loss scale applied) and the ids. A table
-    whose ids are made by the program takes the dense gradient."""
+    whose ids are made by the program takes the dense gradient.
+
+    Under data parallelism (``plan``, a ``compiler.zero.TrainingPlan``)
+    each rank differentiates its share of the global loss: a replicated
+    loss (the global mean) is seeded with 1 / dp, so the gradient each
+    rank holds of every replicated value sums over the ranks to the
+    global gradient, and every collective in the forward sums the ranks'
+    gradients in its backward (``collective.sum_over_ranks``). The
+    parameters' partial gradients are then summed over the ranks: by the
+    replicated reduce-scatter and all-gather (``zero.reduce_gradients``)
+    or by the ZeRO-2 ``zero_reduce_scatter`` ops, after which the update
+    ops of sliced parameters run on this rank's slice
+    (``zero.run_sliced_update``)."""
     marker = ops[marker_idx]
     param_names = list(marker.attrs['params'])
     grad_names = list(marker.attrs['grads'])
@@ -516,6 +550,8 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic,
             BlockRunner(block, device, grad_mode=True, keep=gkeep,
                         dynamic=dynamic).run_ops(ops[:marker_idx], env)
         loss = env[loss_name].sum()
+        if plan is not None and not plan.loss_cut:
+            loss = loss / plan.group.size
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()), allow_unused=True)))
     if profiling:
@@ -545,8 +581,21 @@ def _run_training(block, device, ops, marker_idx, env, keep, dynamic,
             g = g * scale
         env[gname] = g
     with torch.no_grad():
-        BlockRunner(block, device, keep=keep, dynamic=dynamic,
-                    profile=True).run_ops(ops[marker_idx + 1:], env)
+        runner = BlockRunner(block, device, keep=keep, dynamic=dynamic,
+                             profile=True)
+        if plan is None:
+            runner.run_ops(ops[marker_idx + 1:], env)
+            return
+        from ..compiler import zero as _zero
+        _zero.reduce_gradients(env, plan)
+        for op in ops[marker_idx + 1:]:
+            if op.type == 'zero_reduce_scatter' and plan.early:
+                _zero.owner_slices(op, env, plan.group)
+            elif id(op) in plan.sliced:
+                _zero.run_sliced_update(op, env, runner, plan.sliced[id(op)],
+                                        plan.group)
+            else:
+                runner.run_ops([op], env)
 
 
 def _fwd_bwd_event(device, t0):

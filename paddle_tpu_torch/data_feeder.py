@@ -163,13 +163,14 @@ class DataFeeder(object):
                         num_places=None, drop_last=True):
         """Wrap a batch reader so it yields ready feed dicts. Parity:
         data_feeder.py::DataFeeder.decorate_reader. ``multi_devices``
-        feeds a data-parallel executor, which the port does not have
-        yet (ROADMAP Queue A, item 6)."""
+        (a feed per device) is not ported: the port's ParallelExecutor
+        takes the global batch and cuts it itself (ROADMAP Queue A,
+        item 6)."""
         if multi_devices:
             raise NotImplementedError(
-                "DataFeeder.decorate_reader(multi_devices=True) needs data "
-                "parallelism, which paddle_tpu_torch does not have yet "
-                "(ROADMAP Queue A, item 6)")
+                "DataFeeder.decorate_reader(multi_devices=True): feeds per "
+                "device are not ported yet; the ParallelExecutor takes the "
+                "global batch (ROADMAP Queue A, item 6)")
 
         def __reader_creator__():
             for item in reader():

@@ -69,8 +69,19 @@ active parent span (a serving batch), the spans ``exe/run`` with its
 children ``exe/verify`` and ``exe/compile`` (a miss), ``exe/dispatch``
 and ``exe/fetch``. Spans measure host time: on the card
 ``exe/dispatch`` ends when the kernels are enqueued, and the wait for
-the device falls in ``exe/fetch`` (the copy to the host). Left out: the
-partitioner and the performance observatory.
+the device falls in ``exe/fetch`` (the copy to the host).
+
+An Executor given a data-parallel ``partition.Partitioner`` (as
+``ParallelExecutor`` makes one) over a group of more than one rank: each run
+takes the GLOBAL feed and keeps this rank's rows
+(``Partitioner.shard_feed``); the memo key and the cold-start store's
+key fold in the partitioner's ``cache_token`` and the cut feeds, so a dp
+program never hits a single-device entry; the lowered program is the
+one the partitioner planned (``plan_program``: its batch reductions
+global, any op that would give a per-rank answer refused); and fetches
+come back global: a value cut to this rank's rows and a ZeRO-sliced
+accumulator are all-gathered, a batch reduction is already the global
+one.
 """
 import collections
 import contextlib
@@ -400,13 +411,19 @@ class Executor(object):
     training branch, which updates parameters and accumulators in the
     Scope on the device.
 
-    ``place`` defaults to ``CUDAPlace(0)``; on a host without CUDA that
-    raises here, at construction. Pass ``CPUPlace()`` to run on the CPU.
+    ``place`` defaults to ``CUDAPlace(0)``, or with a ``partitioner`` to
+    the card of its device's index; on a host without CUDA that raises
+    here, at construction. Pass ``CPUPlace()`` to run on the CPU.
     """
 
-    def __init__(self, place=None):
-        self.place = place if place is not None else _places.CUDAPlace(0)
+    def __init__(self, place=None, partitioner=None):
+        if place is None:
+            index = partitioner.device.index if partitioner is not None \
+                else None
+            place = _places.CUDAPlace(index or 0)
+        self.place = place
         self.device = self.place.torch_device()
+        self._partitioner = partitioner
         # serving worker threads share one Executor: the lock makes the
         # memo's lookup and insert atomic
         self._cache_lock = threading.RLock()
@@ -691,8 +708,8 @@ class Executor(object):
         return feed, {n: np.asarray(as_numpy(feed.pop(n))) for n in hits}
 
     def _lowered(self, program, fp, feed, fetch_names, scope, tspan,
-                 dynamic=False, static_env=None):
-        """``(fn, state_in, missed)``: the runnable block for (program
+                 dynamic=False, static_env=None, cut=frozenset()):
+        """``(fn, state_in, gathers, missed)``: the runnable block for (program
         version, feeds, fetches, state names, device, the compiler's
         token), memoized on the program so steady-state requests skip
         the verify, the prune, the passes and the graph rewrite. On a
@@ -707,10 +724,18 @@ class Executor(object):
         feed_sig = feed_signature(feed)
         token = _compiler.cache_token(fp, feed_sig, self.device)
         static_env = static_env or {}
+        part = self._partitioner
+        part = part if part is not None and part.active else None
+        if part is not None and dynamic:
+            raise NotImplementedError(
+                'a dynamic (beam-search) program under data parallelism '
+                'is not ported yet (ROADMAP Queue A item 6)')
         key = (program._version, tuple(feed_names), tuple(fetch_names),
                tuple(state_in), tuple(state_out), self.device, token,
                tuple(sorted((n, v.dtype.str, v.shape, v.tobytes())
-                            for n, v in static_env.items())))
+                            for n, v in static_env.items())),
+               None if part is None else (part.cache_token(program),
+                                          tuple(sorted(cut))))
         with self._cache_lock:
             memo = program.__dict__.setdefault('_torch_lowered', {})
             hit = memo.get(key)
@@ -760,6 +785,19 @@ class Executor(object):
                 from .io import program_to_json
                 store.save(pkey, {'program': program_to_json(pruned)},
                            self.device)
+        gathers = {}
+        if part is not None:
+            pruned = part.plan_program(pruned, cut, clone=pruned is program)
+            from .compiler import zero as _zero
+            sliced = _zero.sliced_state_dims(pruned, part.device_count,
+                                             persistable=False)
+            gblock = pruned.global_block()
+            for i, n in enumerate(fetch_names):
+                if n in pruned._dp_cut:
+                    gathers[i] = (0, None)
+                elif n in sliced:
+                    gathers[i] = (sliced[n], int(
+                        gblock._find_var_recursive(n).shape[sliced[n]]))
         fn = lower_block(pruned, pruned.global_block(), feed_names,
                          fetch_names, state_in, state_out, self.device,
                          dynamic, bool(getattr(program, '_remat', False)),
@@ -772,7 +810,7 @@ class Executor(object):
         with self._cache_lock:
             if key not in memo:
                 self._cache_size += 1
-            return memo.setdefault(key, (fn, state_in)) + (True,)
+            return memo.setdefault(key, (fn, state_in, gathers)) + (True,)
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name='feed', fetch_var_name='fetch', scope=None,
@@ -798,6 +836,11 @@ class Executor(object):
                                           fetch_names=fetch_names)
         dynamic = is_dynamic(program)
         feed, static_env = self._extract_static_feeds(program, feed)
+        cut = frozenset()
+        part = self._partitioner
+        if part is not None and part.active:
+            # the global feed: this rank keeps its rows
+            feed, cut = part.shard_feed(feed)
         feed = self._prepare_feed(program, feed, dynamic=dynamic)
         for key, device in ((RNG_KEY, self.device),
                             (RNG_CPU_KEY, torch.device('cpu'))):
@@ -813,13 +856,13 @@ class Executor(object):
         if pctx is None:
             return self._run(program, fp, feed, fetch_names, scope,
                              return_numpy, None, dynamic, async_fetch,
-                             static_env)
+                             static_env, cut)
         tspan = _obs.start_span('exe/run', parent=pctx, activate=False,
                                 fp=fp)
         try:
             out = self._run(program, fp, feed, fetch_names, scope,
                             return_numpy, tspan, dynamic, async_fetch,
-                            static_env)
+                            static_env, cut)
         except BaseException as e:
             tspan.end(error=type(e).__name__)
             raise
@@ -840,11 +883,12 @@ class Executor(object):
                 for f in (feed_list or [])]
 
     def _run(self, program, fp, feed, fetch_names, scope, return_numpy,
-             tspan, dynamic=False, async_fetch=False, static_env=None):
+             tspan, dynamic=False, async_fetch=False, static_env=None,
+             cut=frozenset()):
         t_lookup = time.perf_counter()
-        fn, state_in, missed = self._lowered(program, fp, feed,
-                                             fetch_names, scope, tspan,
-                                             dynamic, static_env)
+        fn, state_in, gathers, missed = self._lowered(
+            program, fp, feed, fetch_names, scope, tspan, dynamic,
+            static_env, cut)
         (self._m_misses if missed else self._m_hits).inc()
         if missed:
             compile_wall = time.perf_counter() - t_lookup
@@ -884,6 +928,24 @@ class Executor(object):
                       dur_s=round(run_wall, 6))
         for n, v in new_state.items():
             scope.set_var(n, v)
+        if gathers:
+            # global fetches: this rank's rows, or its ZeRO slice, joined
+            # with the other ranks' in rank order
+            from .parallel.collective import all_gather
+            fetches = list(fetches)
+            for i, (d, whole) in gathers.items():
+                f = fetches[i]
+                if whole is not None and (not isinstance(
+                        f, torch.Tensor) or int(f.shape[d]) == whole):
+                    continue
+                if isinstance(f, SequenceTensor):
+                    fetches[i] = SequenceTensor(
+                        all_gather(f.data, axis=d),
+                        all_gather(f.lengths, axis=d), None
+                        if f.sub_lengths is None
+                        else all_gather(f.sub_lengths, axis=d))
+                elif isinstance(f, torch.Tensor):
+                    fetches[i] = all_gather(f, axis=d)
         if _anomaly.any_active():
             _anomaly.observe_fetches(fetch_names, fetches)
         if async_fetch:

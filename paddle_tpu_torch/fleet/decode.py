@@ -60,7 +60,7 @@ the card is ROADMAP Queue B second part's work.
 The engine runs on ``CUDAPlace(0)`` unless given a ``place``; without
 CUDA and without a place it raises, as the Executor does.
 ``partitioner=`` (a sharded engine) raises until ROADMAP Queue A item
-6.
+1.
 """
 import collections
 import threading
@@ -192,7 +192,7 @@ class DecodeEngine(object):
         if partitioner is not None:
             raise NotImplementedError(
                 'DecodeEngine(partitioner=...): sharded decode is not '
-                'ported yet (ROADMAP Queue A item 6)')
+                'ported yet (ROADMAP Queue A item 1)')
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.end_id = end_id

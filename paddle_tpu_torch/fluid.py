@@ -34,6 +34,8 @@ from . import concurrency  # noqa
 from . import debugger as debuger  # noqa
 from .parallel.transpiler import (InferenceTranspiler,  # noqa
                                   memory_optimize, release_memory)
+from .parallel.parallel_executor import (ParallelExecutor,  # noqa
+                                         ExecutionStrategy, BuildStrategy)
 from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa
                       BeginStepEvent, EndStepEvent, CheckpointConfig)
 from .resilience import AnomalyGuard, AnomalyError  # noqa

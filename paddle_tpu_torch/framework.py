@@ -1,11 +1,13 @@
 """Program / Block / Variable / Operator IR.
 
 Counterpart of paddle_tpu/framework.py, copied and trimmed to what the
-serving and training slices use (no sharding annotations). A Program's
-``fingerprint()`` is the JAX package's: the same digest of the same
-description, with ``None`` in each variable's sharding slot, so both
-packages give one fingerprint for one unsharded program. The tuning
-cache is keyed on it across processes.
+port's slices use. A Variable carries the JAX package's sharding slot
+(``Variable.sharding``, a tuple of mesh axis names per dim), which the
+port's ZeRO pass writes (``dp`` on a sliced accumulator or gradient). A
+Program's ``fingerprint()`` is the JAX package's: the same digest of the
+same description, sharding slot included, so both packages give one
+fingerprint for one program. The tuning cache is keyed on it across
+processes.
 
 The IR is a plain Python graph. ``Operator`` is a pure description
 (type, input/output var names per slot, attrs); its kernel lives in
@@ -78,7 +80,29 @@ class Variable(object):
         self.is_data = is_data
         self.type = type or 'lod_tensor'
         self.op = None           # defining op (set by append_op)
+        self._sharding = None
+        self.sharding = kwargs.get('sharding', None)
         self.error_clip = kwargs.get('error_clip', None)
+
+    @property
+    def sharding(self):
+        return self._sharding
+
+    @sharding.setter
+    def sharding(self, spec):
+        """A bare string is a dim-0 spec; a change bumps the program's
+        version (shardings are part of the fingerprint)."""
+        if isinstance(spec, str):
+            spec = (spec,)
+        spec = tuple(spec) if spec is not None else None
+        changed = spec != self._sharding
+        self._sharding = spec
+        if changed and self.block is not None:
+            self.block.program._bump_version()
+
+    def set_sharding(self, spec):
+        self.sharding = spec
+        return self
 
     def set_error_clip(self, error_clip):
         """Clip this variable's gradient as the backward passes through
@@ -95,10 +119,8 @@ class Variable(object):
     __repr__ = __str__ = to_string
 
     def _desc(self):
-        # the last slot is the JAX package's sharding annotation, which
-        # the port does not carry
         return (self.name, self.shape, self.dtype, self.lod_level,
-                self.persistable, self.stop_gradient, None)
+                self.persistable, self.stop_gradient, self.sharding)
 
 
 class Parameter(Variable):

@@ -37,8 +37,9 @@ class Inferencer(object):
         passes. Opt-in because the fold rewrites the scope's weights."""
         if parallel:
             raise NotImplementedError(
-                'Inferencer(parallel=True) needs the ParallelExecutor, '
-                'which is not ported yet (ROADMAP Queue A item 6)')
+                'Inferencer(parallel=True): serving through the dp '
+                'ParallelExecutor is not ported yet (ROADMAP Queue A '
+                'item 1)')
         self.param_path = param_path
         self.scope = executor.Scope()
         self.place = place if place is not None else _places.CUDAPlace(0)

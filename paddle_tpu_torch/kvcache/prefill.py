@@ -96,7 +96,7 @@ def make_paged_engine(spec, slots=8, end_id=None, place=None,
     if partitioner is not None:
         raise NotImplementedError(
             'make_paged_engine(partitioner=...): sharded decode is not '
-            'ported yet (ROADMAP Queue A item 6)')
+            'ported yet (ROADMAP Queue A item 1)')
     n_pages = int(num_pages if num_pages is not None
                   else spec.get('num_pages', 32))
     cell, state_specs, pool_specs = build_cell(spec,

@@ -17,6 +17,7 @@ Nothing here runs at import time: the CPU tests import every module on
 a host that has no ``nvcc``.
 """
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -108,10 +109,28 @@ def build_all(names=None):
     """Compile every kernel library that is not built yet, one ``nvcc``
     per source, all started together (a library of several sources is
     linked once its objects are built). Returns {name: seconds} for the
-    ones it built. Raises with the compiler's output if one fails."""
-    import time
+    ones it built. Raises with the compiler's output if one fails. A
+    build holds an exclusive file lock (``fcntl.flock`` on
+    ``build/torch_kernels/.build.lock``), so two processes never compile
+    into the directory at once."""
     names = list(KERNELS) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
+    if all(os.path.exists(library_path(n)) for n in names):
+        return {}
+    # one build at a time per build directory, across processes: the
+    # ranks of a data-parallel run that miss the cache together wait
+    # here, and find the libraries the first one built
+    with open(os.path.join(BUILD_DIR, '.build.lock'), 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_missing(names)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_missing(names):
+    """``build_all``'s work, under its lock."""
+    import time
     procs = {}
     t0 = time.perf_counter()
 

@@ -23,6 +23,7 @@ from ..core.amp import matmul_compute
 from ..lod import SequenceTensor
 from .common import (bcast_y, f32, padded, prod, rewrap, seq_of,
                      step_mask, unwrap)
+from .collective_ops import batch_group, global_sums
 from .activations import ACTS, ACTS_P, BINS, PARAM_ATTRS
 
 
@@ -102,14 +103,28 @@ def _mul(ctx):
 
 @register_kernel('mean')
 def _mean(ctx):
+    """Under data parallelism over rows cut across ranks
+    (``collective_ops.batch_group``) the mean is the global one: the
+    ranks' sums and counts summed in one collective."""
     x_in = ctx.input('X')
     x = f32(unwrap(x_in))
+    group = batch_group(ctx)
     if padded(x_in):
         # the average over real tokens only: the reference means over
         # its packed [total, ...] rows, which hold no padding
         m = step_mask(x_in.lengths, x.shape[1], x.dtype, x.dim() - 2)
         denom = torch.clamp(m.sum(), min=1.0) * prod(x.shape[2:])
+        if group is not None:
+            total, denom = global_sums(group, (x * m).sum(),
+                                       m.sum() * prod(x.shape[2:]))
+            denom = torch.clamp(denom, min=1.0)
+            ctx.set_output('Out', (total / denom).reshape(1))
+            return
         ctx.set_output('Out', ((x * m).sum() / denom).reshape(1))
+        return
+    if group is not None:
+        total, = global_sums(group, x.sum())
+        ctx.set_output('Out', (total / (x.numel() * group.size)).reshape(1))
         return
     ctx.set_output('Out', x.mean().reshape(1))
 
@@ -163,7 +178,15 @@ def _reduce(name, fn):
         else:
             dims = tuple(sorted({d % x.dim() for d in (
                 dim if isinstance(dim, (list, tuple)) else (dim,))}))
-        ctx.set_output('Out', fn(x, dims, ctx.attr('keep_dim', False)))
+        out = fn(x, dims, ctx.attr('keep_dim', False))
+        group = batch_group(ctx)
+        if group is not None:
+            # reduce_sum / reduce_mean over the rows cut across the ranks
+            # (equal on every rank): the sum over ranks, / size for mean
+            out, = global_sums(group, out)
+            if name == 'reduce_mean':
+                out = out / group.size
+        ctx.set_output('Out', out)
 
 
 def _reduce_prod(x, dims, keep):

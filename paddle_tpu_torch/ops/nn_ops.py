@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..core.registry import register_kernel
 from ..core.amp import in_conv_layout, matmul_compute
 from .common import f32, padded, rewrap, step_mask, unwrap
+from .collective_ops import batch_group, global_sums
 
 
 def _pair(v):
@@ -114,10 +115,11 @@ def _pool2d(ctx):
 @register_kernel('batch_norm')
 def _batch_norm(ctx):
     """Test mode normalises with the moving statistics; train mode with
-    the batch's single-pass moments (E[x^2] - E[x]^2, clamped at 0),
-    and writes the moving averages to MeanOut/VarianceOut without a
-    gradient. Statistics and the normalisation run in f32; the output
-    returns to the input dtype. Parity: operators/batch_norm_op.cc."""
+    the batch's single-pass moments (E[x^2] - E[x]^2, clamped at 0;
+    over the global batch under data parallelism), and writes the moving
+    averages to MeanOut/VarianceOut without a gradient. Statistics and
+    the normalisation run in f32; the output returns to the input
+    dtype. Parity: operators/batch_norm_op.cc."""
     x_in = ctx.input('X')
     scale, bias = ctx.input('Scale'), ctx.input('Bias')
     mean, var = ctx.input('Mean'), ctx.input('Variance')
@@ -129,12 +131,24 @@ def _batch_norm(ctx):
     axes = tuple(i for i in range(x.dim()) if i != c_axis)
     bshape = [1] * x.dim()
     bshape[c_axis] = x.shape[c_axis]
+    group = batch_group(ctx)
     if ctx.attr('is_test', False):
         use_mean, use_var = mean, var
     else:
-        use_mean = x.mean(dim=axes)
-        use_var = torch.clamp((x * x).mean(dim=axes) - use_mean * use_mean,
-                              min=0.0)
+        if group is not None:
+            # the moments over the global batch: the ranks' per-channel
+            # sums in one collective, whose backward sums the ranks'
+            # gradients
+            count = float(x.numel() // x.shape[c_axis] * group.size)
+            s1, s2 = global_sums(group, x.sum(dim=axes),
+                                 (x * x).sum(dim=axes))
+            use_mean = s1 / count
+            use_var = torch.clamp(s2 / count - use_mean * use_mean,
+                                  min=0.0)
+        else:
+            use_mean = x.mean(dim=axes)
+            use_var = torch.clamp((x * x).mean(dim=axes) -
+                                  use_mean * use_mean, min=0.0)
         ctx.set_output('MeanOut', (mean * momentum + use_mean *
                                    (1.0 - momentum)).detach())
         ctx.set_output('VarianceOut', (var * momentum + use_var *
@@ -259,12 +273,23 @@ def _accuracy(ctx):
     if label.dim() != idx.dim():
         label = label.unsqueeze(1)
     correct = (idx == label).any(dim=-1)
-    ctx.set_output('Accuracy', correct.float().mean().reshape(1))
+    n_correct = correct.sum().reshape(1)
+    total = torch.tensor([correct.shape[0]], dtype=torch.int64,
+                         device=correct.device)
+    group = batch_group(ctx)
+    if group is not None:
+        # the global share: the ranks' counts summed
+        from ..parallel.collective import all_reduce
+        n_correct, total = all_reduce(torch.cat([n_correct, total]),
+                                      group=group).split(1)
+        acc = n_correct.float() / total.float()
+    else:
+        acc = correct.float().mean().reshape(1)
+    ctx.set_output('Accuracy', acc)
     if ctx.output_names('Correct'):
-        ctx.set_output('Correct', correct.sum().reshape(1))
+        ctx.set_output('Correct', n_correct)
     if ctx.output_names('Total'):
-        ctx.set_output('Total', torch.tensor(
-            [correct.shape[0]], dtype=torch.int64, device=correct.device))
+        ctx.set_output('Total', total)
 
 
 # ---- the transposed and 3-D convs ---------------------------------------------

@@ -148,14 +148,13 @@ class Optimizer(object):
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, zero_stage=None, bucket_bytes=None):
         """Append backward, clip, regularizer and update ops for ``loss``;
-        returns (optimize_ops, params_grads). ``zero_stage`` (ZeRO
-        sharding of the optimizer state over data-parallel ranks) belongs
-        to the parallel slice: a stage above 0 raises. Stage 0 (or None)
-        is plain training, and ``bucket_bytes`` only matters with ZeRO."""
-        if zero_stage is not None and int(zero_stage) > 0:
-            raise NotImplementedError(
-                "minimize(zero_stage=%r): ZeRO is not ported yet (ROADMAP "
-                "Queue A, the parallel slice)" % (zero_stage,))
+        returns (optimize_ops, params_grads). ``zero_stage`` opts the
+        program into ZeRO at build time, as in the JAX package: stage >= 1
+        shards the accumulators created here over the current mesh's dp
+        group (``parallel.mesh``), stage >= 2 also plants the bucketed
+        reduce-scatter of the gradient tail (``bucket_bytes`` a bucket).
+        A ParallelExecutor applies the same by default over more than one
+        rank; on a group of one it changes nothing."""
         self._main_program = loss.block.program
         self._startup_program = startup_program
         params_grads = append_backward(loss, parameter_list, no_grad_set,
@@ -165,6 +164,13 @@ class Optimizer(object):
                                                  self.regularization)
         optimize_ops = self._create_optimization_pass(
             params_grads, loss, startup_program)
+        if zero_stage is not None and int(zero_stage) > 0:
+            from .compiler import zero as _zero
+            from .parallel.mesh import _current_mesh
+            from .partition import mesh_axis_extent
+            _zero.apply_zero(self._main_program,
+                             mesh_axis_extent(_current_mesh, 'dp'),
+                             stage=zero_stage, bucket_bytes=bucket_bytes)
         return optimize_ops, params_grads
 
 

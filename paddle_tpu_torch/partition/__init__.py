@@ -1,26 +1,17 @@
-"""paddle_tpu_torch.partition: the partition layer's mesh-free rules.
+"""paddle_tpu_torch.partition: the partition layer.
 
-Counterpart of paddle_tpu/partition/: ``rules.py`` copied whole (the
-logical-axis rules and ``resolve_entry``) and ``first_divisible_dim``
-from ``partitioner.py``, the one divisibility rule the ZeRO gradient
-slicing and the partitioner's degradation share. The static verifier's
-sharding check (``analysis.check_sharding``) evaluates them with no
-mesh. The ``Partitioner`` itself waits for data parallelism on
-``torch.distributed`` (ROADMAP Queue A item 6).
+Counterpart of paddle_tpu/partition/, its data-parallel half: ``rules.py``
+copied whole (the logical-axis rules and ``resolve_entry``) and
+``partitioner.py``'s :class:`Partitioner` over a ``torch.distributed``
+dp group (``parallel.mesh.DPGroup``), with ``first_divisible_dim``, the
+one divisibility rule the ZeRO gradient slicing and the partitioner's
+degradation share. The static verifier's sharding check
+(``analysis.check_sharding``) evaluates the rules with no group. Tensor
+parallelism (an ``mp`` axis) is ROADMAP Queue A item 6.
 """
+from .partitioner import (Partitioner, first_divisible_dim,  # noqa
+                          mesh_axis_extent)
 from .rules import AxisNames, standard_logical_axis_rules, resolve_entry
 
-__all__ = ['first_divisible_dim', 'AxisNames',
-           'standard_logical_axis_rules', 'resolve_entry']
-
-
-def first_divisible_dim(shape, extent):
-    """Index of the first dim an ``extent``-way shard divides evenly,
-    or None. The ONE divisibility rule shared by the ZeRO transpiler's
-    accumulator slicing and the partitioner's degradation: both must
-    agree or a transpile-time annotation could silently degrade at
-    partition time."""
-    for d, e in enumerate(shape):
-        if extent and int(e) % extent == 0 and int(e) >= extent:
-            return d
-    return None
+__all__ = ['Partitioner', 'first_divisible_dim', 'mesh_axis_extent',
+           'AxisNames', 'standard_logical_axis_rules', 'resolve_entry']

@@ -67,8 +67,8 @@ JAX package's spans at its sites: ``serving/drain``, ``serving/swap``,
 ``serving/warmup``, ``serving/pad``, ``serving/batch_run``,
 ``serving/exact_fallback`` and ``serving/request`` (submit to result).
 
-Left out of the reference: the partitioner (a sharded server, ROADMAP
-Queue A item 6).
+Left out of the reference: the partitioner (a server over a dp group,
+ROADMAP Queue A item 1).
 """
 import logging
 import threading
@@ -150,7 +150,7 @@ class ModelServer(object):
         if partitioner is not None:
             raise NotImplementedError(
                 'ModelServer(partitioner=...): sharded serving is not '
-                'ported yet (ROADMAP Queue A item 6)')
+                'ported yet (ROADMAP Queue A item 1)')
         self.place = place if place is not None else _places.CUDAPlace(0)
         self.executor = Executor(self.place)
         self.policy = policy or BucketPolicy(max_bucket=max_batch_size)

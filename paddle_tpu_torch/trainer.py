@@ -23,9 +23,9 @@ is bit-equal to the plain loop.
 
 ``place=None`` means ``CUDAPlace(0)`` and raises where CUDA is absent
 (the JAX package falls back to the CPU; the port never does). Out of
-scope, each raising and naming ROADMAP Queue A item 6:
-``parallel=True``, ``zero_stage`` other than None or 0,
-``zero_bucket_bytes`` other than None, and
+scope, each raising and naming ROADMAP Queue A item 6: the Trainer over
+the ParallelExecutor (``parallel=True``, ``zero_stage`` other than None
+or 0, ``zero_bucket_bytes`` other than None) and
 ``PADDLE_TRAINING_ROLE`` (the DistributeTranspiler). Each chunk's
 dispatch wall a step goes to the performance observatory
 (``perf.publish_step``): the MFU and roofline gauges of the training
@@ -122,8 +122,8 @@ class Trainer(object):
         self.__stop = False
         if parallel:
             raise NotImplementedError(
-                'Trainer(parallel=True) needs the ParallelExecutor, which '
-                + _ITEM_6)
+                'Trainer(parallel=True): the Trainer over the '
+                'ParallelExecutor ' + _ITEM_6)
         self.parallel = parallel
         if not isinstance(optimizer, opt_module.Optimizer):
             raise TypeError(
@@ -194,12 +194,12 @@ class Trainer(object):
             raise ValueError('sync_interval must be >= 1')
         if zero_stage not in (None, 0):
             raise NotImplementedError(
-                'zero_stage=%r: ZeRO data parallelism %s'
+                'zero_stage=%r: the Trainer\'s ZeRO data parallelism %s'
                 % (zero_stage, _ITEM_6))
         if zero_bucket_bytes is not None:
             raise NotImplementedError(
-                'zero_bucket_bytes=%r: ZeRO data parallelism %s'
-                % (zero_bucket_bytes, _ITEM_6))
+                'zero_bucket_bytes=%r: the Trainer\'s ZeRO data '
+                'parallelism %s' % (zero_bucket_bytes, _ITEM_6))
         self._checkpoint_config = checkpoint_config
         self._anomaly_guard = anomaly_guard
         self._prefetch = int(prefetch)

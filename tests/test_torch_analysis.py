@@ -1,7 +1,8 @@
 """paddle_tpu_torch.analysis against paddle_tpu.analysis, on the CPU.
 
 The port's counterpart of tests/test_analysis.py: every case of it that
-needs neither the ZeRO pass nor the partitioner (ROADMAP Queue A item 6).
+needs neither the ZeRO pass nor the partitioner (those are held in
+tests/test_torch_zero.py and tests/test_torch_parallel.py).
 Its three cases of ``tools/analyze_program.py`` run the port's command
 line, ``python -m paddle_tpu_torch.tools.analyze_program``, and the JAX
 package's tool on the same builder file (which imports the package

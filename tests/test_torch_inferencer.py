@@ -124,6 +124,6 @@ def test_inferencer_defaults_to_the_card(param_dir, monkeypatch):
 
 
 def test_parallel_is_not_ported(param_dir):
-    with pytest.raises(NotImplementedError, match='Queue A item 6'):
+    with pytest.raises(NotImplementedError, match='Queue A item 1'):
         pt.Inferencer(_net(pt), param_dir, place=pt.CPUPlace(),
                       parallel=True)

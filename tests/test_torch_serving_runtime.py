@@ -628,5 +628,5 @@ def test_server_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         ModelServer()
-    with pytest.raises(NotImplementedError, match='Queue A item 6'):
+    with pytest.raises(NotImplementedError, match='Queue A item 1'):
         ModelServer(place=pt.CPUPlace(), partitioner=object())

@@ -435,8 +435,19 @@ def test_sparse_embedding_raises(monkeypatch):
 
 
 def test_zero_stage_raises():
-    main, startup = pt.Program(), pt.Program()
-    with pt.unique_name.guard(), pt.program_guard(main, startup):
-        loss = _fc_model(pt, lambda pkg, loss: None)
-        with pytest.raises(NotImplementedError, match='ZeRO'):
-            pt.optimizer.Adam(learning_rate=0.1).minimize(loss, zero_stage=2)
+    """minimize(zero_stage=2) no longer raises: on a group of one it
+    plants nothing, as in paddle_tpu; on a dp group of 2 it plants the
+    ZeRO-2 tail (tests/test_torch_zero.py holds it field for field)."""
+    from paddle_tpu_torch.parallel import mesh
+    for group, planted in ((None, False), (mesh.DPGroup(2, 0), True)):
+        mesh.set_mesh(group)
+        try:
+            main, startup = pt.Program(), pt.Program()
+            with pt.unique_name.guard(), pt.program_guard(main, startup):
+                loss = _fc_model(pt, lambda pkg, loss: None)
+                pt.optimizer.Adam(learning_rate=0.1).minimize(
+                    loss, zero_stage=2)
+        finally:
+            mesh.set_mesh(None)
+        assert planted == any(op.type == 'zero_reduce_scatter'
+                              for op in main.global_block().ops)
